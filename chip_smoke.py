@@ -10,11 +10,20 @@ code is non-zero:
 2. Build: the hand-written CUDA kernels from ``nxdi_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions at the slice's shapes, in
    bfloat16 and float32, with kernel / plain / library times and the bound.
+3b. The paged-decode, paged-prefill and window-decode kernels the same way,
+   at the serving engine's shapes (block 128, and block 16 for correctness).
 4. The slice at full Llama-3.2-1B width, 2 layers, float32: greedy
    ``generate()`` on the CPU (plain versions) and on the card (kernels),
    every step's logits held against each other.
+4b. The paged serving engine at full width, 2 layers, float32, on the CPU
+   and on the card: interleaved arrivals, a shared prefix, chunked prefill
+   and a forced preemption; identical streams, every dispatch's logits
+   within 1e-4, the window-decode kernel on the decode path.
 5. The slice at full depth (16 layers), bfloat16, batch 8, 1024-token
    prompts: launch counts checked exactly, prefill / decode times printed.
+5b. The serving engine at full depth, bfloat16, 8 slots, 16 requests with a
+   shared 384-token prefix: launch counts checked exactly against the
+   engine's dispatch counts, tok/s, TTFT, TPOT and a profiled decode step.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -41,7 +50,11 @@ TOL = {
     ("decode", "float32"): 1e-5,
     ("decode", "bfloat16"): 1e-3,
 }
-LOGIT_TOL = 1e-4  # phase 4: float32 CPU vs card logits (measured 8.9e-6), 2 layers, full width
+LOGIT_TOL = 1e-4  # phases 4/4b: float32 CPU vs card logits (measured 8.9e-6), 2 layers, full width
+# phase 3b (paged decode, paged prefill, window decode): a few times the
+# error measured on an H100 (bf16 1.95e-3 for all three, one output ulp near
+# 0.5; f32 2.2e-7 to 4.3e-7)
+PAGED_TOL = {"float32": 2e-6, "bfloat16": 8e-3}
 
 
 def log(msg: str) -> None:
@@ -241,6 +254,151 @@ def check_kernels(torch, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the serving engine's kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+
+def _kernel_row(results, name, dname, err, ms, plain_ms, lib_ms, nbytes, flops):
+    bms, by = bound_ms(nbytes, flops, dname)
+    tol = PAGED_TOL[dname]
+    assert err <= tol, f"{name} {dname}: max abs err {err} > {tol}"
+    results.append(dict(kernel=name, dtype=dname, max_abs_err=err, tol=tol, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+    log(f"[kernels] {name} {dname}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} "
+        f"library {lib_ms:.4f} bound {bms:.4f} ({by})")
+
+
+def check_paged_kernels(torch, results):
+    """Paged decode at B=8, H=32, KV=8, D=64, block 128, 136 blocks, table
+    width 16, q_pos spread over 0..2000 with a hole; paged prefill at B=1,
+    Sq=512 from 512 (timed) and from a 384-token prefix; window decode at
+    B=8, Sk=2048. The library yardstick is SDPA over K/V gathered through
+    the table (the gather included) or over the GQA-expanded window."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    B, H, KV, D, bs, nblk, NB, Sk = 8, 32, 8, 64, 128, 136, 16, 2048
+    G = H // KV
+    qpos = torch.linspace(0, 2000, B, device=dev).long()
+    perm = torch.randperm(nblk, generator=torch.Generator().manual_seed(0)).tolist()
+    bt = torch.full((B, NB), -1, dtype=torch.int32)
+    nxt = 0
+    for b in range(B):
+        n = int(qpos[b]) // bs + 1
+        bt[b, :n] = torch.tensor(perm[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+    bt[3, 2] = -1  # a hole inside row 3's attended range
+    bt = bt.to(dev)
+    # the same pool seen as 16-slot blocks: block j of 128 is blocks 8j..8j+7
+    sub = bs // 16
+    bt16 = torch.where(bt[:, :, None] >= 0, bt[:, :, None] * sub + torch.arange(sub, device=dev),
+                       -1).reshape(B, -1).to(torch.int32)
+    slot_pos = torch.arange(NB * bs, device=dev)
+    live = torch.repeat_interleave(bt >= 0, bs, dim=1) & (slot_pos[None] <= qpos[:, None])
+    visible = int(live.sum())
+
+    def gathered(cache, table, n_rows):
+        rows = (table.long()[:, :, None] * bs + torch.arange(bs, device=dev)).reshape(n_rows, -1)
+        return cache[rows.clamp(min=0)].transpose(1, 2)  # (n, KV, W, D)
+
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        es = torch.tensor([], dtype=dt).element_size()
+        kc, vc = randn((nblk * bs, KV, D), dt), randn((nblk * bs, KV, D), dt)
+
+        # --- paged decode ---
+        q = randn((B, 1, H, D), dt).transpose(1, 2)
+        qp = qpos[:, None].to(torch.int32)
+        got = fa.paged_attention_decode(q, kc, vc, bt, qp, block_size=bs)
+        want = fa.paged_attention_decode_plain(q, kc, vc, bt, qp, block_size=bs)
+        got16 = fa.paged_attention_decode(q, kc, vc, bt16, qp, block_size=16, k_scale=0.5,
+                                          v_scale=2.0)
+        want16 = fa.paged_attention_decode_plain(q, kc, vc, bt16, qp, block_size=16,
+                                                 k_scale=0.5, v_scale=2.0)
+        torch.cuda.synchronize()
+        err = max((got.float() - want.float()).abs().max().item(),
+                  (got16.float() - want16.float()).abs().max().item())
+        ms = measure(torch, lambda: fa.paged_attention_decode(q, kc, vc, bt, qp, block_size=bs),
+                     flush=flush, kernel="decode_kernel")
+        plain_ms = measure(torch, lambda: fa.paged_attention_decode_plain(
+            q, kc, vc, bt, qp, block_size=bs), flush=flush)
+        mask = live[:, None, None, :]
+
+        def library_decode():
+            kg = gathered(kc, bt, B).repeat_interleave(G, dim=1)
+            vg = gathered(vc, bt, B).repeat_interleave(G, dim=1)
+            return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+        lib_ms = measure(torch, library_decode, flush=flush)
+        _kernel_row(results, "paged_decode", dname, err, ms, plain_ms, lib_ms,
+                    (2 * visible * KV * D + 2 * B * H * D) * es + bt.numel() * 4,
+                    4 * H * D * visible)
+
+        # --- window decode over the gathered window's layout ---
+        kw = randn((B, Sk, KV, D), dt).transpose(1, 2)
+        vw = randn((B, Sk, KV, D), dt).transpose(1, 2)
+        kv_pos = torch.arange(Sk, device=dev, dtype=torch.int32)[None].expand(B, Sk)
+        got = fa.flash_attention_decode(q, kw, vw, qp, kv_pos)
+        want = fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ms = measure(torch, lambda: fa.flash_attention_decode(q, kw, vw, qp, kv_pos),
+                     flush=flush, kernel="decode_kernel")
+        plain_ms = measure(torch, lambda: fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos),
+                           flush=flush)
+        wmask = (kv_pos <= qp)[:, None, None, :]
+        kwe, vwe = kw.repeat_interleave(G, dim=1), vw.repeat_interleave(G, dim=1)
+        lib_ms = measure(torch, lambda: F.scaled_dot_product_attention(q, kwe, vwe,
+                                                                       attn_mask=wmask),
+                         flush=flush)
+        seen = int((kv_pos <= qp).sum())
+        _kernel_row(results, "window_decode", dname, err, ms, plain_ms, lib_ms,
+                    (2 * seen * KV * D + 2 * B * H * D) * es, 4 * H * D * seen)
+        del kw, vw, kwe, vwe
+
+        # --- paged prefill: a 512-token chunk after 512 (timed) or 384 cached ---
+        Sq = 512
+        bt1 = bt[7:8]  # 16 live blocks: positions 0..2047
+        qx = randn((1, Sq, H, D), dt).transpose(1, 2)
+        err = 0.0
+        for start in (384, 512):
+            qpx = (start + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+            got = fa.paged_attention_prefill(qx, kc, vc, bt1, qpx, block_size=bs)
+            want = fa.paged_attention_prefill_plain(qx, kc, vc, bt1, qpx, block_size=bs)
+            torch.cuda.synchronize()
+            err = max(err, (got.float() - want.float()).abs().max().item())
+        ms = measure(torch, lambda: fa.paged_attention_prefill(qx, kc, vc, bt1, qpx,
+                                                               block_size=bs),
+                     flush=flush, kernel="prefill")
+        plain_ms = measure(torch, lambda: fa.paged_attention_prefill_plain(
+            qx, kc, vc, bt1, qpx, block_size=bs), n=3, flush=flush)
+        pmask = (slot_pos[None, :] <= qpx[0][:, None])[None, None]
+
+        def library_prefill():
+            kg = gathered(kc, bt1, 1).repeat_interleave(G, dim=1)
+            vg = gathered(vc, bt1, 1).repeat_interleave(G, dim=1)
+            return F.scaled_dot_product_attention(qx, kg, vg, attn_mask=pmask)
+
+        lib_ms = measure(torch, library_prefill, flush=flush)
+        pairs = int(pmask.sum())  # (query, key) pairs attended
+        _kernel_row(results, "paged_prefill", dname, err, ms, plain_ms, lib_ms,
+                    (2 * Sq * H * D + 2 * (start + Sq) * KV * D) * es, 4 * H * D * pairs)
+        del kc, vc
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the slice through generate()
 # ---------------------------------------------------------------------------
 
@@ -321,7 +479,6 @@ def slice_vs_cpu(torch, np, mods):
 
 
 def slice_full_depth(torch, np, mods, card):
-    from nxdi_tpu_torch.models import base
     from nxdi_tpu_torch.ops.kernels import flash_attention as fa
     from nxdi_tpu_torch.ops.kernels import kv_commit as kc
 
@@ -395,6 +552,250 @@ def slice_full_depth(torch, np, mods, card):
                         profiled_step_top=by_kernel[:10], card=card)
 
 
+# ---------------------------------------------------------------------------
+# phases 4b and 5b: the paged serving engine
+# ---------------------------------------------------------------------------
+
+
+def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
+                    num_blocks, chunk, block_tkg, device, params=None):
+    tcfg = TorchConfig(
+        tp_degree=1, batch_size=1, ctx_batch_size=1, tkg_batch_size=slots, seq_len=seq_len,
+        max_context_length=ctx_len, dtype=dtype, on_device_sampling_config=ODSC(),
+        enable_bucketing=True, is_block_kv_layout=True, pa_block_size=128,
+        pa_num_blocks=num_blocks, is_prefix_caching=True,
+        chunked_prefill_config={"chunk_size": chunk},
+        attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
+        attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=False,
+    )
+    cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
+    arch = ml.build_arch(cfg)
+
+    class EngineApp(App):
+        def build_params(self):
+            if params is not None:
+                return params
+            return dense.random_params(arch, seed=0, device=device)
+
+    app = EngineApp("<random>", cfg, model_family=ml, device=device)
+    app.load()
+    return app, arch
+
+
+def strategies_of(app):
+    out = set()
+    for w in app.models.values():
+        for s in w.attention_strategies.values():
+            out |= set(s)
+    return out
+
+
+def engine_vs_cpu(torch, np, mods):
+    """Phase 4b: the same traffic through a CPU engine (plain versions) and
+    a card engine (kernels): 6 requests, interleaved arrivals, two sharing a
+    256-token (2-block) prefix, one 300-token prompt longer than the
+    256-token chunk, and one forced preemption. Returns the card run's
+    window-decode launches, which must be exactly 2 per decode dispatch, as
+    the flash and paged prefill launches must be per CTE and prefix-prefill
+    dispatch."""
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+    from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
+
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    L = 2
+    kw = dict(layers=L, dtype="float32", slots=4, seq_len=512, ctx_len=512, num_blocks=24,
+              chunk=256, block_tkg=False)
+    cpu_app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **kw)
+    gpu_app, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
+                                 params=cpu_app.params, **kw)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(1, arch.vocab_size, 256).tolist()
+    prompts = [rng.integers(1, arch.vocab_size, n).tolist() for n in (300, 140)]
+    prompts += [shared + rng.integers(1, arch.vocab_size, n).tolist() for n in (20, 35)]
+    prompts += [rng.integers(1, arch.vocab_size, n).tolist() for n in (90, 200)]
+
+    def drive(app):
+        logits = []
+        inner = app.forward
+
+        def fwd(*a, **k):
+            out = inner(*a, **k)
+            logits.append(out["logits"][:, -1, :].float().cpu())
+            return out
+
+        app.forward = fwd
+        # FCFS admission: cache-aware admission's starvation bound reads the
+        # wall clock, and the two runs must dispatch in the same order
+        eng = InferenceEngine(app, SchedulerConfig(prefix_cache=True,
+                                                   cache_aware_admission=False))
+        sp = SamplingParams(max_new_tokens=16)
+        reqs = [eng.add_request(prompts[0], sp), eng.add_request(prompts[1], sp)]
+        outs = eng.step()
+        reqs.append(eng.add_request(prompts[2], sp))
+        outs += eng.step() + eng.step() + eng.step()  # the sharing prompt's prefill lands
+        reqs.append(eng.add_request(prompts[3], sp))  # ... so this one hits its 2 blocks
+        outs += eng.step()
+        victim = eng.preempt_youngest()
+        assert victim is not None, "phase 4b: nothing to preempt"
+        reqs += [eng.add_request(p, sp) for p in prompts[4:]]
+        outs += eng.run()
+        got = {o.request_id: o.token_ids for o in outs}
+        assert eng.prefix_cache.hits_n >= 1, "phase 4b: the shared prefix never hit"
+        return [got[r.request_id] for r in reqs], logits, strategies_of(app), dict(eng.dispatches)
+
+    cpu_streams, cpu_logits, cpu_strats, _ = drive(cpu_app)
+    kernels = {"prefill": fa.flash_attention_prefill, "paged_prefill": fa.paged_attention_prefill,
+               "paged_decode": fa.paged_attention_decode, "window_decode": fa.flash_attention_decode}
+    for fn in kernels.values():
+        fn.launches = 0
+    gpu_streams, gpu_logits, gpu_strats, disp = drive(gpu_app)
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    want = {
+        "prefill": L * disp[TAG_CONTEXT_ENCODING],
+        "paged_prefill": L * disp[TAG_PREFIX_PREFILL],
+        "paged_decode": 0,
+        "window_decode": L * disp[TAG_TOKEN_GENERATION],
+    }
+    assert counts == want, f"phase 4b: launch counts {counts} != {want} (dispatches {disp})"
+    assert all(counts[k] > 0 for k in ("prefill", "paged_prefill", "window_decode")), counts
+    launches = counts["window_decode"]
+    want = {"cte_flash_kernel", "cte_paged_kernel", "tkg_kernel"}
+    assert cpu_strats == gpu_strats == want, (cpu_strats, gpu_strats)
+    assert len(cpu_logits) == len(gpu_logits), "phase 4b: dispatch counts differ"
+    worst = 0.0
+    for i, (lc, lg) in enumerate(zip(cpu_logits, gpu_logits)):
+        err = (lc - lg).abs().max().item()
+        worst = max(worst, err)
+        assert err <= LOGIT_TOL, f"phase 4b dispatch {i}: logits differ by {err} > {LOGIT_TOL}"
+    assert cpu_streams == gpu_streams, "phase 4b: CPU and card streams differ"
+    log(f"[engine-2L] {len(cpu_logits)} dispatches compared, max logit diff {worst:.3g} "
+        f"(tol {LOGIT_TOL}); streams identical; launches {counts} (dispatches {disp})")
+    return launches, worst
+
+
+def engine_full_depth(torch, np, mods, card):
+    """Phase 5b: 16 layers, bf16, 8 slots; 16 requests with prompts of
+    200-992 tokens (prompt + 32 new tokens must fit the 1024-token decode
+    window the prefix-prefill ladder sets), 8 of them sharing a 384-token
+    prefix; 8 arrive at the start, then one per engine step."""
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+    from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
+
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    L, NEW = 16, 32
+    t0 = time.perf_counter()
+    app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
+                                slots=8, seq_len=2048, ctx_len=1024, num_blocks=136, chunk=512,
+                                block_tkg=True, device="cuda")
+    log(f"[engine-16L] load + warmup {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(17)
+    shared = rng.integers(1, arch.vocab_size, 384).tolist()
+    lens = rng.integers(200, 993, 16)
+    prompts = [
+        (shared + rng.integers(1, arch.vocab_size, max(n - 384, 1)).tolist()) if i % 2 == 0
+        else rng.integers(1, arch.vocab_size, n).tolist()
+        for i, n in enumerate(lens)
+    ]
+    finite = []
+    inner = app.forward
+
+    def fwd(*a, **k):
+        out = inner(*a, **k)
+        finite.append(bool(torch.isfinite(out["logits"]).all()))
+        return out
+
+    app.forward = fwd
+    eng = InferenceEngine(app, SchedulerConfig(prefix_cache=True))
+    stamps = {}
+
+    def on_token(req, tok):
+        stamps.setdefault(req.request_id, []).append(time.perf_counter())
+
+    for fn in (fa.flash_attention_prefill, fa.paged_attention_prefill, fa.paged_attention_decode,
+               fa.flash_attention_decode):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    arrivals = {}
+    pending = list(prompts)
+    for p in pending[:8]:
+        r = eng.add_request(p, SamplingParams(max_new_tokens=NEW), on_token=on_token)
+        arrivals[r.request_id] = time.perf_counter()
+    pending = pending[8:]
+    outs = []
+    while eng.has_work() or pending:
+        if pending:
+            r = eng.add_request(pending.pop(0), SamplingParams(max_new_tokens=NEW),
+                                on_token=on_token)
+            arrivals[r.request_id] = time.perf_counter()
+        outs += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = {
+        "prefill": fa.flash_attention_prefill.launches,
+        "paged_prefill": fa.paged_attention_prefill.launches,
+        "paged_decode": fa.paged_attention_decode.launches,
+        "window_decode": fa.flash_attention_decode.launches,
+    }
+    disp = dict(eng.dispatches)
+    want = {
+        "prefill": L * disp[TAG_CONTEXT_ENCODING],
+        "paged_prefill": L * disp[TAG_PREFIX_PREFILL],
+        "paged_decode": L * disp[TAG_TOKEN_GENERATION],
+        "window_decode": 0,
+    }
+    assert counts == want, f"phase 5b: launch counts {counts} != {want} (dispatches {disp})"
+    assert all(counts[k] > 0 for k in ("prefill", "paged_prefill", "paged_decode")), counts
+    strats = strategies_of(app)
+    assert strats == {"cte_flash_kernel", "cte_paged_kernel", "tkg_paged_kernel"}, strats
+    assert all(finite), "phase 5b: non-finite logits"
+    assert len(outs) == 16 and all(len(o.token_ids) == NEW for o in outs)
+    assert all(0 <= t < arch.vocab_size for o in outs for t in o.token_ids)
+    hits = eng.prefix_cache.hits_n
+    assert hits >= 1, "phase 5b: the shared prefix never hit"
+    ttft = np.array([stamps[i][0] - arrivals[i] for i in arrivals]) * 1e3
+    tpot = np.array([(stamps[i][-1] - stamps[i][0]) / (len(stamps[i]) - 1) for i in arrivals]) * 1e3
+    tok_s = 16 * NEW / wall
+
+    # one decode-only step under the profiler: 8 fresh short requests, each
+    # prefilled by its own step, then a step that only decodes
+    for _ in range(8):
+        eng.add_request(rng.integers(1, arch.vocab_size, 200).tolist(),
+                        SamplingParams(max_new_tokens=16))
+        eng.step()
+    from torch.profiler import ProfilerActivity, profile
+
+    assert len(eng.scheduler.decodable()) == 8 and not eng.scheduler.waiting
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+    by_kernel = sorted(((k.self_device_time_total / 1e3, k.key) for k in prof.key_averages()),
+                       reverse=True)
+    busy_ms = sum(t for t, _ in by_kernel)
+    eng.run()
+    stats = dict(
+        card=card, wall_s=wall, tok_s=tok_s, ttft_p50_ms=float(np.percentile(ttft, 50)),
+        ttft_p95_ms=float(np.percentile(ttft, 95)), tpot_p50_ms=float(np.percentile(tpot, 50)),
+        dispatches=disp, prefix_hits=hits, prefix_tokens_saved=eng.prefix_cache.tokens_saved_n,
+        profiled_step_wall_ms=step_ms, profiled_step_busy_ms=busy_ms,
+        profiled_step_idle_pct=100 * (1 - busy_ms / step_ms), profiled_step_top=by_kernel[:10],
+    )
+    log(f"[engine-16L] {card}: {tok_s:.1f} tok/s over {wall:.2f} s; TTFT p50 "
+        f"{stats['ttft_p50_ms']:.2f} ms p95 {stats['ttft_p95_ms']:.2f} ms; TPOT p50 "
+        f"{stats['tpot_p50_ms']:.3f} ms; dispatches {disp}; prefix hits {hits}")
+    log(f"[engine-16L] profiled decode step (8 rows): wall {step_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms (idle {stats['profiled_step_idle_pct']:.1f}%); top: "
+        + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in by_kernel[:6]))
+    return counts, stats
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -430,8 +831,15 @@ def main() -> int:
 
     kernel_results = []
     check_kernels(torch, kernel_results)
+    check_paged_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
+    window_launches, engine_logit_err = engine_vs_cpu(torch, np, mods)
     counts, slice_times = slice_full_depth(torch, np, mods, card)
+    engine_counts, engine_stats = engine_full_depth(torch, np, mods, card)
+    counts = dict(counts, window_decode=window_launches,
+                  paged_prefill=engine_counts["paged_prefill"],
+                  paged_decode=engine_counts["paged_decode"])
+    engine_stats["phase_4b_max_logit_err"] = engine_logit_err
 
     sources = {
         "prefill": ("flash_attention_prefill", "nxdi_tpu_torch/csrc/flash_prefill.cu",
@@ -440,6 +848,12 @@ def main() -> int:
                    "nxdi_tpu/ops/kernels/flash_attention.py:509,629"),
         "commit": ("kv_commit_rows", "nxdi_tpu_torch/csrc/kv_commit.cu",
                    "nxdi_tpu/ops/kernels/kv_commit.py:170"),
+        "window_decode": ("flash_attention_decode", "nxdi_tpu_torch/csrc/window_decode.cu",
+                          "nxdi_tpu/ops/kernels/flash_attention.py:337"),
+        "paged_prefill": ("paged_attention_prefill", "nxdi_tpu_torch/csrc/paged_prefill.cu",
+                          "nxdi_tpu/ops/kernels/flash_attention.py:946"),
+        "paged_decode": ("paged_attention_decode", "nxdi_tpu_torch/csrc/paged_decode.cu",
+                         "nxdi_tpu/ops/kernels/flash_attention.py:802"),
     }
     summary = []
     for key, (name, src, replaces) in sources.items():
@@ -453,8 +867,9 @@ def main() -> int:
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
-                   "counts": counts}, f, indent=1)
-    print(json.dumps({"slice": slice_times, "kernel_checks": kernel_results}))
+                   "engine": engine_stats, "counts": counts}, f, indent=1)
+    print(json.dumps({"slice": slice_times, "engine": engine_stats,
+                      "kernel_checks": kernel_results}))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """Configuration for the PyTorch/CUDA port — the subset of
-``nxdi_tpu.config`` that the Llama greedy ``generate()`` path reads.
+``nxdi_tpu.config`` that the Llama greedy ``generate()`` path and the paged
+serving engine read.
 
 Two levels, as in the JAX package:
 
@@ -10,9 +11,10 @@ Two levels, as in the JAX package:
 - :class:`InferenceConfig` — model hyperparameters (typically a HF
   ``config.json``) plus a ``tpu_config`` attribute.
 
-Features the port does not carry yet (paged KV, speculation, quantization,
-tensor parallelism, ...) are not keys here: passing one raises, naming it
-(a few are accepted at the value that turns them off, ``_NOT_PORTED``).
+Features the port does not carry yet (mixed dispatch, multistep decode,
+speculation, quantization, tensor parallelism, ...) are not keys here:
+passing one raises, naming it (a few are accepted at the value that turns
+them off, ``_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -69,15 +71,35 @@ class OnDeviceSamplingConfig:
         return dict(self.__dict__)
 
 
+class ChunkedPrefillConfig:
+    """Chunked prefill over the paged KV pool (same keys as the JAX
+    package's ``ChunkedPrefillConfig``): the engine prefills ``chunk_size``
+    prompt tokens per step, and ``kernel_q_tile_size`` spaces the
+    prefix-prefill bucket ladder."""
+
+    def __init__(self, **kwargs):
+        self.max_num_seqs = kwargs.pop("max_num_seqs", 8)
+        self.chunk_size = kwargs.pop("chunk_size", 512)
+        self.kernel_q_tile_size = kwargs.pop("kernel_q_tile_size", 128)
+        self.kernel_kv_tile_size = kwargs.pop("kernel_kv_tile_size", 512)
+        if kwargs:
+            raise ValueError(f"Unknown ChunkedPrefillConfig args: {sorted(kwargs)}")
+
+    def to_dict(self):
+        return dict(self.__dict__)
+
+
 # JAX-package keys whose features are not ported yet: accepted at the value
 # that means "off", so a saved config of the ported path loads unchanged
 _NOT_PORTED = {
     "padding_side": "right",
     "async_mode": False,
     "fused_qkv": False,
-    "attn_block_tkg_kernel_enabled": False,
-    "is_block_kv_layout": False,
     "is_continuous_batching": False,
+    "mixed_dispatch": False,
+    "device_loop": False,
+    "decode_steps_per_dispatch": 1,
+    "role": "unified",
 }
 
 
@@ -98,8 +120,19 @@ class TorchConfig:
         # --- batching ---
         self.ctx_batch_size = kwargs.pop("ctx_batch_size", self.batch_size)
         self.tkg_batch_size = kwargs.pop("tkg_batch_size", self.batch_size)
+        self.max_batch_size = kwargs.pop("max_batch_size", self.batch_size)
         self.kv_cache_batch_size = kwargs.pop("kv_cache_batch_size", self.batch_size)
         self.kv_cache_padding_size = kwargs.pop("kv_cache_padding_size", 0)
+
+        # --- paged / block KV (the serving engine's pool) ---
+        self.is_block_kv_layout = kwargs.pop("is_block_kv_layout", False)
+        self.pa_num_blocks = kwargs.pop("pa_num_blocks", None)
+        self.pa_block_size = kwargs.pop("pa_block_size", 128)
+        self.is_prefix_caching = kwargs.pop("is_prefix_caching", False)
+        cpc = kwargs.pop("chunked_prefill_config", None)
+        if isinstance(cpc, dict):
+            cpc = ChunkedPrefillConfig(**cpc)
+        self.chunked_prefill_config = cpc
 
         # --- sampling ---
         odsc = kwargs.pop("on_device_sampling_config", None)
@@ -122,6 +155,7 @@ class TorchConfig:
         # --- attention kernels (hand-written CUDA on the card) ---
         self.attn_kernel_enabled = kwargs.pop("attn_kernel_enabled", None)
         self.attn_tkg_kernel_enabled = kwargs.pop("attn_tkg_kernel_enabled", False)
+        self.attn_block_tkg_kernel_enabled = kwargs.pop("attn_block_tkg_kernel_enabled", False)
         self.skip_warmup = kwargs.pop("skip_warmup", False)
 
         for key, default in _NOT_PORTED.items():
@@ -133,6 +167,10 @@ class TorchConfig:
             )
         self.validate()
 
+    @property
+    def is_chunked_prefill(self) -> bool:
+        return self.chunked_prefill_config is not None
+
     def validate(self) -> None:
         if self.tp_degree != 1:
             raise NotImplementedError(
@@ -140,8 +178,19 @@ class TorchConfig:
             )
         if self.max_context_length > self.seq_len:
             raise ValueError("max_context_length must not exceed seq_len")
+        if self.is_block_kv_layout and self.pa_num_blocks is None:
+            self.pa_num_blocks = max(
+                1, (self.seq_len * self.max_batch_size) // self.pa_block_size
+            )
+        if self.is_prefix_caching and not self.is_block_kv_layout:
+            raise ValueError("is_prefix_caching requires is_block_kv_layout")
+        if self.is_chunked_prefill and not self.is_block_kv_layout:
+            raise ValueError("chunked prefill requires is_block_kv_layout")
 
-    _SUBCONFIGS = {"on_device_sampling_config": OnDeviceSamplingConfig}
+    _SUBCONFIGS = {
+        "on_device_sampling_config": OnDeviceSamplingConfig,
+        "chunked_prefill_config": ChunkedPrefillConfig,
+    }
 
     def to_dict(self) -> Dict[str, Any]:
         out = {}

@@ -1,433 +1,8 @@
-// Causal flash attention for prefill (context encoding).
+// Causal flash attention for prefill over contiguous K/V.
 //
-// Replaces nxdi_tpu/ops/kernels/flash_attention.py::flash_attention_prefill
-// (Pallas body _prefill_kernel). Same function: q (B,H,Sq,D) attends k/v
-// (B,KV,Sk,D) with positions affine per row (q_start[b] + i, kv_start[b] + j),
-// optional sliding-window and chunk masks, GQA head h -> kv head h / (H/KV)
-// without repeating K/V, an f32 online softmax with mask value -30000 and the
-// denominator clamped at 1e-20, and probabilities rounded to the input dtype
-// before the P.V product (as the Pallas kernel feeds the MXU).
-//
-// Two bodies, one entry point; both loop over 64-row kv tiles up to the
-// causal limit of their 64-row q tile (one block per (b, h, q tile)) and mask
-// the ragged edges of Sq and Sk themselves, so no block size has to divide
-// them:
-//  - prefill_tc_kernel (bf16, head dim a multiple of 16): 4 warps, each owning
-//    16 q rows; Q.K^T and P.V on the tensor cores with mma.sync m16n8k16
-//    (f32 accumulation), the score tile kept in registers and re-packed as the
-//    A operand of P.V; K/V tiles double-buffered in shared memory by cp.async;
-//    the softmax runs in log2 units (exp2) and only diagonal tiles are masked.
-//  - prefill_kernel (f32, or other head dims): 8 warps of 8 q rows; K and V
-//    staged in shared memory as f32 and multiplied on the CUDA cores in f32,
-//    so f32 inputs keep f32 products.
-//
-// Bound: at the Llama-3.2-1B prefill shape the work is ~3.4e10 flop per
-// layer, compute-bound on the tensor cores (~35 us at 989 TFLOP/s in bf16).
-// mma.sync reaches part of that; wgmma fed by TMA with warp specialisation
-// is the later step.
-#include <cuda_pipeline.h>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kRows = 8;                 // q rows per warp
-constexpr int kBQ = kWarps * kRows;      // q rows per block
-constexpr int kBK = 64;                  // kv rows per tile
-constexpr int kMaxT = 4;                 // output columns per lane (D <= 128)
-
-struct PrefillArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  const int* q_start;
-  const int* kv_start;
-  int H, KV, Sq, Sk, D;
-  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
-  float scale;
-  int window, chunk;
-};
-
-size_t prefill_smem_bytes(int D) {
-  return sizeof(float) * (size_t)(kBQ * D + kBK * (D + 4) + kBK * D + kWarps * kRows * kBK);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int D = a.D;
-  const int DP = D + 4;  // padded K rows: conflict-free float4 reads per lane
-  float* sQ = smem;                // [kBQ][D]
-  float* sK = sQ + kBQ * D;        // [kBK][DP]
-  float* sV = sK + kBK * DP;       // [kBK][D]
-  float* sP = sV + kBK * D;        // [kWarps][kRows][kBK]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int kvh = h / (a.H / a.KV);
-  const int q0 = blockIdx.x * kBQ;
-  const int qs = a.q_start[b], ks = a.kv_start[b];
-
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
-  T* out = static_cast<T*>(a.out) + b * a.osb + h * a.osh;
-
-  const int D4 = D / 4;
-  for (int i = tid; i < kBQ * D4; i += blockDim.x) {
-    const int r = i / D4, c = (i % D4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < a.Sq) val = load4(q + (long long)(q0 + r) * a.qss + c);
-    *reinterpret_cast<float4*>(&sQ[r * D + c]) = val;
-  }
-
-  const int r0 = warp * kRows;
-  float m[kRows], l[kRows], acc[kRows][kMaxT];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = NXDI_NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0.f;
-  }
-  float* myP = sP + warp * kRows * kBK;
-
-  const int q_hi = qs + min(q0 + kBQ, a.Sq) - 1;  // last real q position
-  const int n_kt = (a.Sk + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (ks + kt * kBK > q_hi) break;  // this and later tiles wholly in the future
-    __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < kBK * D4; i += blockDim.x) {
-      const int j = i / D4, c = (i % D4) * 4;
-      const int s = kt * kBK + j;
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (s < a.Sk) {
-        kv4 = load4(k + (long long)s * a.kss + c);
-        vv4 = load4(v + (long long)s * a.vss + c);
-      }
-      *reinterpret_cast<float4*>(&sK[j * DP + c]) = kv4;
-      *reinterpret_cast<float4*>(&sV[j * D + c]) = vv4;
-    }
-    __syncthreads();
-
-    // scores for this warp's rows, columns lane and lane + 32
-    float s0[kRows], s1[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s0[r] = s1[r] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      const float4 k0 = *reinterpret_cast<const float4*>(&sK[lane * DP + d]);
-      const float4 k1 = *reinterpret_cast<const float4*>(&sK[(lane + 32) * DP + d]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(&sQ[(r0 + r) * D + d]);
-        s0[r] = fmaf(qv.x, k0.x, fmaf(qv.y, k0.y, fmaf(qv.z, k0.z, fmaf(qv.w, k0.w, s0[r]))));
-        s1[r] = fmaf(qv.x, k1.x, fmaf(qv.y, k1.y, fmaf(qv.z, k1.z, fmaf(qv.w, k1.w, s1[r]))));
-      }
-    }
-
-    const int j0 = kt * kBK + lane, j1 = j0 + 32;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = qs + q0 + r0 + r;
-      const bool v0 = j0 < a.Sk && pos_visible(ks + j0, qp, false, a.window, a.chunk);
-      const bool v1 = j1 < a.Sk && pos_visible(ks + j1, qp, false, a.window, a.chunk);
-      const float sc0 = v0 ? s0[r] * a.scale : NXDI_NEG_INF;
-      const float sc1 = v1 ? s1[r] * a.scale : NXDI_NEG_INF;
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(sc0, sc1)));
-      const float corr = expf(m[r] - m_new);
-      const float p0 = v0 ? expf(sc0 - m_new) : 0.f;
-      const float p1 = v1 ? expf(sc1 - m_new) : 0.f;
-      l[r] = l[r] * corr + warp_sum(p0 + p1);
-      m[r] = m_new;
-#pragma unroll
-      for (int t = 0; t < kMaxT; ++t) acc[r][t] *= corr;
-      myP[r * kBK + lane] = round_through<T>(p0);
-      myP[r * kBK + lane + 32] = round_through<T>(p1);
-    }
-    __syncwarp();
-
-    for (int c = 0; c < kBK; c += 4) {
-      float4 p4[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p4[r] = *reinterpret_cast<const float4*>(&myP[r * kBK + c]);
-#pragma unroll
-      for (int t = 0; t < kMaxT; ++t) {
-        const int d = lane + 32 * t;
-        if (d < D) {
-          const float va = sV[(c + 0) * D + d], vb = sV[(c + 1) * D + d];
-          const float vc = sV[(c + 2) * D + d], vd = sV[(c + 3) * D + d];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            acc[r][t] = fmaf(p4[r].x, va, fmaf(p4[r].y, vb, fmaf(p4[r].z, vc, fmaf(p4[r].w, vd, acc[r][t]))));
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + r0 + r;
-    if (row >= a.Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-20f);
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) {
-      const int d = lane + 32 * t;
-      if (d < D) out[(long long)row * a.oss + d] = from_f32<T>(acc[r][t] * inv);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core body (bf16)
-// ---------------------------------------------------------------------------
-
-constexpr int kTcWarps = 4;
-constexpr int kTcBQ = 16 * kTcWarps;  // q rows per block
-constexpr int kTcBK = 64;             // kv rows per tile
-
-size_t prefill_tc_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) * (size_t)(5 * kTcBK * (D + 8));  // Q + 2 K + 2 V tiles
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// rows [row0, row0 + 64) of a (rows, D) bf16 matrix into a padded smem tile;
-// rows at or past `limit` are zero-filled
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long stride, int row0, int limit, int D, int DP) {
-  const int cpr = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTcBK * cpr; i += blockDim.x) {
-    const int r = i / cpr, c = i % cpr;
-    const bool ok = row0 + r < limit;
-    const __nv_bfloat16* g = src + (long long)(ok ? row0 + r : 0) * stride + c * 8;
-    __pipeline_memcpy_async(dst + r * DP + c * 8, g, 16, ok ? 0 : 16);
-  }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a) {
-  extern __shared__ __align__(16) __nv_bfloat16 tsm[];
-  const int D = a.D, DP = D + 8;
-  __nv_bfloat16* sQ = tsm;                  // [64][DP]
-  __nv_bfloat16* sK = sQ + kTcBK * DP;      // [2][64][DP]
-  __nv_bfloat16* sV = sK + 2 * kTcBK * DP;  // [2][64][DP]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int kvh = h / (a.H / a.KV);
-  const int q0 = blockIdx.x * kTcBQ;
-  const int qs = a.q_start[b], ks = a.kv_start[b];
-  using bf = __nv_bfloat16;
-  const bf* q = static_cast<const bf*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf* k = static_cast<const bf*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const bf* v = static_cast<const bf*>(a.v) + b * a.vsb + kvh * a.vsh;
-  bf* out = static_cast<bf*>(a.out) + b * a.osb + h * a.osh;
-
-  const int q_hi = qs + min(q0 + kTcBQ, a.Sq) - 1;  // last real q position
-  int n_kt = (a.Sk + kTcBK - 1) / kTcBK;
-  for (int kt = 0; kt < n_kt; ++kt)
-    if (ks + kt * kTcBK > q_hi) {  // this and later tiles wholly in the future
-      n_kt = kt;
-      break;
-    }
-
-  stage_rows(sQ, q, a.qss, q0, a.Sq, D, DP);
-  if (n_kt > 0) {
-    stage_rows(sK, k, a.kss, 0, a.Sk, D, DP);
-    stage_rows(sV, v, a.vss, 0, a.Sk, D, DP);
-  }
-  __pipeline_commit();
-
-  constexpr int KS = DMAX / 16;  // k-steps over the head dim
-  constexpr int NT = DMAX / 8;   // 8-wide output column tiles
-  uint32_t qf[KS][4];
-  float o[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  constexpr float kLog2e = 1.4426950408889634f;
-  constexpr float kNegInfLog2 = NXDI_NEG_INF * kLog2e;
-  const float scale_log2 = a.scale * kLog2e;
-  float m[2] = {kNegInfLog2, kNegInfLog2}, l[2] = {0.f, 0.f};
-  const int r_lo = warp * 16 + grp;  // this lane's two rows in the q tile: r_lo, r_lo + 8
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) {
-      stage_rows(sK + (buf ^ 1) * kTcBK * DP, k, a.kss, (kt + 1) * kTcBK, a.Sk, D, DP);
-      stage_rows(sV + (buf ^ 1) * kTcBK * DP, v, a.vss, (kt + 1) * kTcBK, a.Sk, D, DP);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        if (kk * 16 < D) {
-          const bf* base = sQ + kk * 16 + 2 * tig;
-          qf[kk][0] = *reinterpret_cast<const uint32_t*>(base + r_lo * DP);
-          qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + (r_lo + 8) * DP);
-          qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + r_lo * DP + 8);
-          qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + (r_lo + 8) * DP + 8);
-        }
-      }
-    }
-    const bf* tK = sK + buf * kTcBK * DP;
-    const bf* tV = sV + buf * kTcBK * DP;
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float sc[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const bf* krow = tK + (nt * 8 + grp) * DP + 2 * tig;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        if (kk * 16 < D) {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-          mma_bf16(sc[nt], qf[kk], b0, b1);
-        }
-      }
-    }
-
-    // mask + online softmax, rows r_lo (c0, c1) and r_lo + 8 (c2, c3), in
-    // log2 units (scores times log2(e), exp2): the same softmax, cheaper exp.
-    // A tile wholly before this warp's first row needs no mask (no window or
-    // chunk, inside Sk): only tiles on the diagonal build one.
-    const bool full = a.window <= 0 && a.chunk <= 0 && (kt + 1) * kTcBK <= a.Sk &&
-                      ks + (kt + 1) * kTcBK - 1 <= qs + q0 + warp * 16;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qp = qs + q0 + r_lo + 8 * half;
-      float mx = kNegInfLog2;
-      uint32_t visible = 0xffffffffu;  // bit 2 * nt + e: column visible to this row
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float val = sc[nt][2 * half + e] * scale_log2;
-          if (!full) {
-            const int j = kt * kTcBK + nt * 8 + 2 * tig + e;
-            const bool vis = j < a.Sk && pos_visible(ks + j, qp, false, a.window, a.chunk);
-            val = vis ? val : kNegInfLog2;
-            visible &= ~((uint32_t)!vis << (2 * nt + e));
-          }
-          sc[nt][2 * half + e] = val;
-          mx = fmaxf(mx, val);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[half], mx);
-      const float corr = exp2f(m[half] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = ((visible >> (2 * nt + e)) & 1u) ? exp2f(sc[nt][2 * half + e] - m_new) : 0.f;
-          sc[nt][2 * half + e] = p;
-          rs += p;
-        }
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[half] = l[half] * corr + rs;
-      m[half] = m_new;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        o[t][2 * half] *= corr;
-        o[t][2 * half + 1] *= corr;
-      }
-    }
-
-    // O += P V: P (rounded to bf16) is the A operand straight from registers
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int t = 0; t < NT; t += 2) {
-        if (t * 8 < D) {
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, tV + vrow * DP + t * 8 + (lane >> 4) * 8);
-          mma_bf16(o[t], pa, vb[0], vb[1]);
-          mma_bf16(o[t + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration's copies overwrite the other buffer
-  }
-  __pipeline_wait_prior(0);  // no copy outlives the block, even with no kv tile
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + r_lo + 8 * half;
-    if (row >= a.Sq) continue;
-    const float inv = 1.f / fmaxf(l[half], 1e-20f);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int d = t * 8 + 2 * tig;
-      if (d < D) {
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * a.oss + d) =
-            __floats2bfloat162_rn(o[t][2 * half] * inv, o[t][2 * half + 1] * inv);
-      }
-    }
-  }
-}
-
-template <int DMAX>
-cudaError_t launch_tc(const PrefillArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = prefill_tc_smem_bytes(a.D);
-  cudaError_t err = cudaFuncSetAttribute(prefill_tc_kernel<DMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, B * a.H);
-  prefill_tc_kernel<DMAX><<<grid, kTcWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = prefill_smem_bytes(a.D);
-  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, B * a.H);
-  prefill_kernel<T><<<grid, kWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-}  // namespace
+// Replaces nxdi_tpu/ops/kernels/flash_attention.py::flash_attention_prefill;
+// the kernels and their design are in prefill_kernel.cuh.
+#include "prefill_kernel.cuh"
 
 extern "C" int nxdi_flash_prefill(int dtype, const void* q, const void* k, const void* v,
                                   void* out, const int* q_start, const int* kv_start, int B,
@@ -436,14 +11,11 @@ extern "C" int nxdi_flash_prefill(int dtype, const void* q, const void* k, const
                                   long long kss, long long vsb, long long vsh, long long vss,
                                   long long osb, long long osh, long long oss, float scale,
                                   int window, int chunk, void* stream) {
-  if (D % 8 != 0 || D > 128 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  PrefillArgs a{q,   k,   v,   out, q_start, kv_start, H,   KV,  Sq,    Sk,     D,    qsb, qsh,
-                qss, ksb, ksh, kss, vsb,     vsh,      vss, osb, osh, oss, scale, window, chunk};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Sq == 0 || B == 0) return (int)cudaSuccess;
-  if (dtype == NXDI_F32) return (int)launch<float>(a, B, s);
-  if (dtype == NXDI_BF16 && D % 16 == 0)
-    return (int)(D <= 64 ? launch_tc<64>(a, B, s) : launch_tc<128>(a, B, s));
-  if (dtype == NXDI_BF16) return (int)launch<__nv_bfloat16>(a, B, s);
-  return (int)cudaErrorInvalidValue;
+  PrefillArgs a{};
+  a.q = q; a.k = k; a.v = v; a.out = out; a.q_start = q_start; a.kv_start = kv_start;
+  a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.D = D;
+  a.qsb = qsb; a.qsh = qsh; a.qss = qss; a.ksb = ksb; a.ksh = ksh; a.kss = kss;
+  a.vsb = vsb; a.vsh = vsh; a.vss = vss; a.osb = osb; a.osh = osh; a.oss = oss;
+  a.scale = scale; a.v_scale = 1.f; a.window = window; a.chunk = chunk;
+  return run<false>(dtype, a, B, stream);
 }

@@ -1,0 +1,22 @@
+// Decode through the block table of the paged pool (the kPaged mode of
+// decode_kernel.cuh).
+//
+// Replaces nxdi_tpu/ops/kernels/flash_attention.py::paged_attention_decode;
+// see decode_kernel.cuh.
+#include "decode_kernel.cuh"
+
+extern "C" int nxdi_paged_decode(int dtype, const void* q, const void* kc, const void* vc,
+                                 void* out, const int* q_pos, const int* bt, int B, int H, int KV,
+                                 int D, int NB, int bs, long long qsb, long long qsh,
+                                 long long osb, long long osh, float scale, float v_scale,
+                                 void* stream) {
+  if (bs <= 0) return (int)cudaErrorInvalidValue;
+  DecodeArgs a{};
+  a.q = q; a.kc = kc; a.vc = vc; a.out = out; a.q_pos = q_pos; a.bt = bt;
+  a.H = H; a.KV = KV; a.D = D; a.kv_len = NB * bs; a.nb = NB; a.bs = bs;
+  // pool (total_slots, KV, D): a head's rows sit KV * D elements apart
+  a.qsb = qsb; a.qsh = qsh; a.csb = 0; a.csh = D; a.css = (long long)KV * D;
+  a.osb = osb; a.osh = osh;
+  a.scale = scale; a.v_scale = v_scale;
+  return dispatch<Mode::kPaged>(dtype, a, B, stream);
+}

@@ -1,19 +1,23 @@
-"""KV cache — layer-stacked, contiguous, updated in place.
+"""KV cache — layer-stacked, updated in place.
 
-Counterpart of ``nxdi_tpu/kvcache/kv_cache.py`` for the contiguous layout.
-One tensor per cache side, stacked over layers:
-``(n_layers, batch, kv_heads, max_len, head_dim)``. The JAX package carries
-the cache through each jitted step as a donated pytree; here the tensors
-are simply mutated in place — the prefill slice-write and the decode commit
-kernel both write into the caller's cache.
+Counterpart of ``nxdi_tpu/kvcache/kv_cache.py`` for two layouts:
 
-Write semantics are the same exact-position writes: the K/V of the token at
-position p of line b lands at ``[b, :, p, :]``; right-padded prefill garbage
-sits at future positions that decode overwrites before any query attends
-them.
+- contiguous: one tensor per cache side, stacked over layers,
+  ``(n_layers, batch, kv_heads, max_len, head_dim)``; the K/V of the token
+  at position p of line b lands at ``[b, :, p, :]``.
+- paged (the serving engine's pool): ``(n_layers, num_blocks * block_size,
+  kv_heads, head_dim)`` — a flat slot pool per layer, written through a
+  slot mapping and read through per-row block tables.
 
-Not ported yet: quantized stores and scales, continuous-batching line
-routing and the paged ``BlockKVLayout``.
+The JAX package carries the cache through each jitted step as a donated
+pytree; here the tensors are simply mutated in place — the prefill writes,
+the decode commit kernel, the paged scatter and the copy-on-write block copy
+all write into the caller's cache. Right-padded prefill garbage sits at
+future positions that decode overwrites before any query attends them.
+
+Not ported yet: quantized stores (``k_scale``/``v_scale`` other than 1.0 —
+the paged kernels already take the scales), continuous-batching line
+routing, and the handoff export/import of block chains.
 """
 
 from __future__ import annotations
@@ -21,9 +25,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from nxdi_tpu_torch.config import to_torch_dtype
+from nxdi_tpu_torch.ops.kernels import flash_attention as fa
 from nxdi_tpu_torch.ops.kernels import kv_commit
 
 
@@ -45,12 +51,39 @@ class KVCacheSpec:
         return (self.num_layers, self.batch_size, self.num_kv_heads, self.max_len, self.head_dim)
 
 
-def init_kv_cache(spec: KVCacheSpec, device="cpu") -> Dict[str, torch.Tensor]:
-    """Zero-initialized cache {'k': ..., 'v': ...} on ``device``."""
+def init_kv_cache(spec, device="cpu") -> Dict[str, torch.Tensor]:
+    """Zero-initialized cache {'k': ..., 'v': ...} on ``device`` for a
+    :class:`KVCacheSpec` or a :class:`BlockKVCacheSpec` (the paged pool)."""
     return {
         "k": torch.zeros(spec.shape, dtype=spec.torch_dtype, device=device),
         "v": torch.zeros(spec.shape, dtype=spec.torch_dtype, device=device),
     }
+
+
+@dataclass(frozen=True)
+class BlockKVCacheSpec:
+    """Paged layout: a flat pool of ``num_blocks * block_size`` token slots
+    per layer, kept flat so the scatter and the block-table gather are
+    single-index operations."""
+
+    num_layers: int
+    num_blocks: int
+    block_size: int
+    num_kv_heads: int
+    head_dim: int
+    dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return to_torch_dtype(self.dtype)
+
+    @property
+    def total_slots(self) -> int:
+        return self.num_blocks * self.block_size
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.num_layers, self.total_slots, self.num_kv_heads, self.head_dim)
 
 
 def reset_kv_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -106,6 +139,84 @@ class ContiguousKVLayout:
             k_rows.to(cache["k"].dtype), v_rows.to(cache["v"].dtype), pos,
         )
         return cache
+
+
+@dataclass(frozen=True)
+class BlockKVLayout:
+    """Paged pool addressed by slot mappings (writes) and block tables
+    (reads). Negative slots drop the write (see :func:`scatter_indices`); the block-table
+    gather returns rows in logical token order, so kv positions are simply
+    0..W-1, with holes (negative table entries) poisoned."""
+
+    block_size: int
+    k_scale: float = 1.0
+    v_scale: float = 1.0
+
+    def __post_init__(self):
+        if self.k_scale != 1.0 or self.v_scale != 1.0:
+            raise NotImplementedError("scaled KV caches are not ported yet")
+
+    def update(self, k_cache_l, v_cache_l, k_new, v_new, cache_inputs, spec):
+        """Scatter this step's K/V (B, KV, S_act, D) into one layer's pool
+        (total_slots, KV, D) IN PLACE: the token at flat (B, S_act) index
+        ``write_index[i]`` lands at slot ``write_slots[i]``. Both come from
+        :func:`scatter_indices` on the host, so the device needs no sync per
+        layer to find the tokens that write."""
+        idx, rows = cache_inputs["write_index"], cache_inputs["write_slots"]
+        store = k_cache_l.dtype
+        flat = (-1, k_new.shape[1], k_new.shape[3])
+        k_cache_l[rows] = k_new.transpose(1, 2).reshape(flat)[idx].to(store)
+        v_cache_l[rows] = v_new.transpose(1, 2).reshape(flat)[idx].to(store)
+        return k_cache_l, v_cache_l
+
+    def read(self, k_cache_l, v_cache_l, cache_inputs, spec):
+        """Gather each row's blocks in table order: returns (kk, vv, kv_pos),
+        (B, KV, W, D) x2 with W = table width * block size, and (B, W)
+        logical positions where hole entries read slot 0 and carry the
+        position 2**30, which no causal mask admits."""
+        bt = cache_inputs["block_table"]
+        kk, live = fa.gather_pages(k_cache_l, bt, self.block_size)
+        vv, _ = fa.gather_pages(v_cache_l, bt, self.block_size)
+        W = kk.shape[2]
+        kv_pos = torch.arange(W, dtype=torch.int32, device=kk.device).expand(bt.shape[0], W)
+        kv_pos = torch.where(live, kv_pos, torch.full_like(kv_pos, 2 ** 30))
+        return kk.to(spec.torch_dtype), vv.to(spec.torch_dtype), kv_pos
+
+
+def scatter_indices(slot_mapping) -> Dict[str, np.ndarray]:
+    """The inputs of :meth:`BlockKVLayout.update` for a host slot mapping
+    (b, S): the flat indices of the tokens whose slot is >= 0 and those
+    slots, int64. A negative slot (a padding lane, a position without a
+    block) writes nothing."""
+    flat = np.asarray(slot_mapping).reshape(-1)
+    keep = np.nonzero(flat >= 0)[0]
+    return {"write_index": keep.astype(np.int64), "write_slots": flat[keep].astype(np.int64)}
+
+
+def _block_slots(blocks, block_size: int) -> np.ndarray:
+    blocks = np.asarray(blocks, dtype=np.int64).reshape(-1)
+    offs = np.arange(block_size, dtype=np.int64)
+    return (blocks[:, None] * block_size + offs[None, :]).reshape(-1)
+
+
+def copy_kv_blocks(cache, src_blocks, dst_blocks, block_size: int):
+    """Copy every slot of each ``src`` block into the matching ``dst`` block
+    across all layers, for k and v, IN PLACE — the copy-on-write primitive
+    of the serving engine (``BlockSpaceManager.cow_block`` swaps the table
+    entry; this moves the data). It runs on the pool's stream, so it lands
+    before any later dispatch that writes the copied block."""
+    src = np.asarray(src_blocks).reshape(-1)
+    dst = np.asarray(dst_blocks).reshape(-1)
+    if src.shape != dst.shape:
+        raise ValueError(f"src/dst block counts differ: {src.shape} vs {dst.shape}")
+    if src.size == 0:
+        return cache
+    dev = cache["k"].device
+    s = torch.from_numpy(_block_slots(src, block_size)).to(dev)
+    d = torch.from_numpy(_block_slots(dst, block_size)).to(dev)
+    for key in ("k", "v"):
+        cache[key][:, d] = cache[key][:, s]
+    return cache
 
 
 DEFAULT_KV_LAYOUT = ContiguousKVLayout()

@@ -8,18 +8,27 @@ Where the JAX package scans one traced layer body over layer-stacked
 params, PyTorch runs eagerly: a Python loop over the layers, each reading
 its slice of the stacked params and cache. The KV cache is updated in place.
 
-Decode uses the deferred write the JAX package designed its kernels around:
-each layer attends the OLD cache with the fresh row folded in and returns
-only the fresh K/V row; one commit kernel lands every layer's rows after the
-layer loop.
+Decode on the contiguous cache uses the deferred write the JAX package
+designed its kernels around: each layer attends the OLD cache with the fresh
+row folded in and returns only the fresh K/V row; one commit kernel lands
+every layer's rows after the layer loop. On the paged pool (the serving
+engine's layout) every layer scatters its fresh rows through the slot
+mapping first and then attends the pool through the block tables.
 
-Attention strategies (recorded per forward through :func:`_record_strategy`):
+Attention strategies (recorded per forward through :func:`_record_strategy`;
+the names are the JAX package's):
 
 - ``cte_flash_kernel`` / ``cte_xla`` — prefill through the CUDA flash kernel
   (or its plain version on the CPU), or the plain grouped attention;
-- ``tkg_fused_kernel_stacked`` — decode through the fused-decode kernel on
-  the stacked cache;
-- ``tkg_two_part_xla`` — decode through plain two-part attention.
+- ``tkg_fused_kernel_stacked`` — contiguous decode through the fused-decode
+  kernel on the stacked cache; ``tkg_two_part_xla`` — its plain path;
+- ``cte_paged_kernel`` — a prefill chunk that continues a cached prefix,
+  attending the pool through the block table;
+- ``tkg_paged_kernel`` — paged decode through the block table
+  (``attn_block_tkg_kernel_enabled``);
+- ``tkg_kernel`` / ``tkg_xla`` — paged decode (or a continuing chunk with
+  the attention kernels off) over the gathered window, through the
+  window-decode kernel or plain attention.
 
 On the CPU the kernel choice follows the JAX package's eligibility exactly,
 so both packages take the same branches. On a CUDA tensor an enabled kernel
@@ -36,7 +45,13 @@ import torch
 import torch.nn.functional as F
 
 from nxdi_tpu_torch.config import to_torch_dtype
-from nxdi_tpu_torch.kvcache.kv_cache import DEFAULT_KV_LAYOUT, KVCacheSpec
+from nxdi_tpu_torch.kvcache.kv_cache import (
+    DEFAULT_KV_LAYOUT,
+    BlockKVCacheSpec,
+    BlockKVLayout,
+    ContiguousKVLayout,
+    KVCacheSpec,
+)
 from nxdi_tpu_torch.ops import attention as attn_ops
 from nxdi_tpu_torch.ops import sampling as sampling_ops
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
@@ -74,6 +89,7 @@ class DecoderArch:
     dtype: str = "bfloat16"
     attn_kernel_enabled: bool = False
     attn_tkg_kernel_enabled: bool = False
+    attn_block_tkg_kernel_enabled: bool = False
 
     def __post_init__(self):
         if self.hidden_act != "silu":
@@ -128,6 +144,50 @@ def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = 
     return bad
 
 
+def _heads_ok(H: int, KV: int) -> List[str]:
+    return [] if H % KV == 0 else [f"{H} heads not divisible by {KV} kv heads"]
+
+
+def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout):
+    """Attention of a cache-attending forward whose fresh rows are already
+    in the cache (the paged pool's path), in the JAX package's order: the
+    block-table prefill kernel for a continuing chunk, the block-table decode
+    kernel, else the gathered window through the window-decode kernel or
+    plain attention."""
+    B, H, S, D = q.shape
+    KV = arch.num_kv_heads
+    paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
+    if paged:
+        ref_failed = _heads_ok(H, KV)
+        if k_cache_l.shape[0] % layout.block_size:
+            ref_failed.append(f"{k_cache_l.shape[0]} pool slots are not whole blocks")
+        scales = dict(block_size=layout.block_size, k_scale=layout.k_scale,
+                      v_scale=layout.v_scale)
+        if S > 1 and _kernel_gate(
+            "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
+            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1)),
+        ):
+            _record_strategy("cte_paged_kernel")
+            return fa.paged_attention_prefill(
+                q, k_cache_l, v_cache_l, ci["block_table"], position_ids, **scales)
+        if S == 1 and _kernel_gate(
+            "attn_block_tkg_kernel_enabled", arch.attn_block_tkg_kernel_enabled, q.is_cuda,
+            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1), max_group=16),
+        ):
+            _record_strategy("tkg_paged_kernel")
+            return fa.paged_attention_decode(
+                q, k_cache_l, v_cache_l, ci["block_table"], position_ids, **scales)
+    kk, vv, kv_pos = layout.read(k_cache_l, v_cache_l, ci, cache_spec)
+    if S == 1 and _kernel_gate(
+        "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
+        _heads_ok(H, KV), _card_limits(D, q.dtype, H // max(KV, 1), max_group=16),
+    ):
+        _record_strategy("tkg_kernel")
+        return fa.flash_attention_decode(q, kk, vv, position_ids, kv_pos)
+    _record_strategy("tkg_xla")
+    return attn_ops.attention_with_positions(q, kk, vv, position_ids, kv_pos)
+
+
 def attention_block(
     arch: DecoderArch,
     p_attn: Dict[str, Any],
@@ -148,9 +208,11 @@ def attention_block(
     """QKV -> RoPE -> KV write or deferred rows -> attention -> O.
 
     ``attend_to_cache=False`` (context encoding): queries attend the fresh K/V
-    only, which are also slice-written into the cache view in place.
-    ``defer_write`` (decode): attend the OLD cache plus the fresh row and
-    return only the fresh rows; the caller commits them after the layers."""
+    only, which are also written into the cache in place.
+    ``defer_write`` (contiguous decode): attend the OLD cache plus the fresh
+    row and return only the fresh rows; the caller commits them after the
+    layers. Otherwise a cache-attending forward writes its fresh rows first
+    and attends the cache (:func:`_attend_cache`)."""
     B, S, _ = hidden.shape
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
     q = _linear(hidden, p_attn["q_proj"]).view(B, S, H, D).transpose(1, 2)
@@ -165,11 +227,7 @@ def attention_block(
     ci["position_ids"] = position_ids
     if not attend_to_cache and S > 1:
         ci["prefill_from_zero"] = True
-    if attend_to_cache:
-        if not defer_write:
-            raise NotImplementedError(
-                "non-deferred decode (tkg_kernel / tkg_xla) is not ported yet"
-            )
+    if attend_to_cache and defer_write:
         if tkg_stacked is not None and S == 1 and stacked_layer_idx is not None:
             k_s, v_s, kv_len = tkg_stacked
             ctx = fa.flash_attention_decode_fused_stacked(
@@ -188,10 +246,12 @@ def attention_block(
         return o_proj(ctx), (k, v)
 
     layout.update(k_cache_l, v_cache_l, k, v, ci, cache_spec)
-    ref_failed = [] if H % KV == 0 else [f"{H} heads not divisible by {KV} kv heads"]
+    if attend_to_cache:
+        ctx = _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout)
+        return o_proj(ctx), (k_cache_l, v_cache_l)
     use_kernel = _kernel_gate(
         "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-        ref_failed, _card_limits(D, q.dtype, H // max(KV, 1)),
+        _heads_ok(H, KV), _card_limits(D, q.dtype, H // max(KV, 1)),
     )
     if use_kernel:
         ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids)
@@ -235,7 +295,7 @@ def run_decoder_layers(
     hidden: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    cache: Dict[str, torch.Tensor],  # full (L, B, KV, S_max, D), updated in place
+    cache: Dict[str, torch.Tensor],  # (L, B, KV, S_max, D) or pool (L, slots, KV, D); in place
     position_ids: torch.Tensor,
     cache_spec: KVCacheSpec,
     attend_to_cache: bool,
@@ -243,28 +303,32 @@ def run_decoder_layers(
     layout=DEFAULT_KV_LAYOUT,
     cache_inputs: Optional[Dict[str, torch.Tensor]] = None,
 ):
-    """Run the layer stack. Decode defers its cache writes and commits every
-    layer's fresh rows in ONE kernel launch after the loop.
+    """Run the layer stack. Decode on the contiguous cache defers its cache
+    writes and commits every layer's fresh rows in ONE kernel launch after
+    the loop; the paged pool never defers (each layer scatters its rows
+    before attending).
 
-    ``kv_window`` bounds the attended cache to the bucket's window: the
-    stacked fused kernel takes it as ``kv_len`` without slicing, the plain
-    path attends a sliced view."""
-    defer = attend_to_cache  # contiguous layout, no explicit attention mask
+    ``kv_window`` bounds the attended contiguous cache to the bucket's
+    window: the stacked fused kernel takes it as ``kv_len`` without slicing,
+    the plain path attends a sliced view. The paged window is the block
+    table's width."""
+    contiguous = isinstance(layout, ContiguousKVLayout)
+    defer = attend_to_cache and contiguous  # no explicit attention mask in the port
     S = position_ids.shape[1]
     H, KV = arch.num_attention_heads, arch.num_kv_heads
     use_stacked_tkg = False
     if defer and S == 1:
-        ref_failed = [] if H % KV == 0 else [f"{H} heads not divisible by {KV} kv heads"]
         use_stacked_tkg = _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, hidden.is_cuda,
-            ref_failed, _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
+            _heads_ok(H, KV),
+            _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
         )
     tkg_stacked = (cache["k"], cache["v"], kv_window) if use_stacked_tkg else None
-    S_max = cache["k"].shape[3]
+    windowable = contiguous and attend_to_cache and not use_stacked_tkg and kv_window is not None
     ks, vs = [], []
     for i in range(arch.num_layers):
         kl, vl = cache["k"][i], cache["v"][i]
-        if attend_to_cache and not use_stacked_tkg and kv_window is not None and kv_window < S_max:
+        if windowable and kv_window < kl.shape[2]:
             kl, vl = kl[:, :, :kv_window], vl[:, :, :kv_window]
         hidden, (nk, nv) = decoder_layer(
             arch, layer_params(stacked_params, i), hidden, cos, sin, kl, vl, position_ids,
@@ -279,6 +343,11 @@ def run_decoder_layers(
         ci_commit["position_ids"] = position_ids
         layout.commit_rows(cache, torch.stack(ks), torch.stack(vs), ci_commit, cache_spec)
     return hidden, cache
+
+
+# the layout inputs a forward's batch may carry (the paged pool's block
+# tables and the host-built scatter indices of its slot mapping)
+CACHE_INPUT_KEYS = ("block_table", "write_index", "write_slots")
 
 
 def causal_lm_forward(
@@ -297,7 +366,8 @@ def causal_lm_forward(
     do_sample: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One submodel forward. ``batch``: input_ids (B,S), position_ids (B,S),
-    last_token_index (B,), sampling_params (B,3) — tensors on the model's
+    last_token_index (B,), sampling_params (B,3), and on the paged pool
+    block_table (B,NB), write_index and write_slots — tensors on the model's
     device. Returns (outputs, cache); outputs has "tokens" (B,1) int32 when
     sampling on device and "logits" (B,1|S,V) float32 when asked for."""
     input_ids = batch["input_ids"]
@@ -306,10 +376,18 @@ def causal_lm_forward(
 
     hidden = F.embedding(input_ids.long(), params["embed_tokens"]).to(compute_dtype)
     cos, sin = rope_cos_sin(position_ids, inv_freq, dtype=torch.float32)
-    cache_spec = arch.kv_cache_spec(cache["k"].shape[1], cache["k"].shape[3])
+    if isinstance(layout, BlockKVLayout):
+        cache_spec = BlockKVCacheSpec(
+            num_layers=arch.num_layers, num_blocks=cache["k"].shape[1] // layout.block_size,
+            block_size=layout.block_size, num_kv_heads=arch.num_kv_heads,
+            head_dim=arch.head_dim, dtype=arch.dtype,
+        )
+    else:
+        cache_spec = arch.kv_cache_spec(cache["k"].shape[1], cache["k"].shape[3])
     hidden, cache = run_decoder_layers(
         arch, params["layers"], hidden, cos, sin, cache, position_ids, cache_spec,
         attend_to_cache, kv_window=kv_window, layout=layout,
+        cache_inputs={k: batch[k] for k in CACHE_INPUT_KEYS if k in batch},
     )
     hidden = rms_norm(hidden, params["norm"], arch.rms_norm_eps)
     lm_head = params.get("lm_head")

@@ -70,6 +70,7 @@ def build_arch(config: InferenceConfig, **overrides) -> DecoderArch:
         dtype=dtype_name(tc.dtype),
         attn_kernel_enabled=bool(tc.attn_kernel_enabled),
         attn_tkg_kernel_enabled=bool(tc.attn_tkg_kernel_enabled),
+        attn_block_tkg_kernel_enabled=bool(tc.attn_block_tkg_kernel_enabled),
     )
     kwargs.update(overrides)
     return DecoderArch(**kwargs)

@@ -38,6 +38,10 @@ SIGNATURES = {
     "nxdi_flash_decode_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 9
     + [_F, _I, _I, _P],
     "nxdi_kv_commit_rows": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL, _LL, _P],
+    "nxdi_flash_decode_window": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 7
+    + [_F, _I, _I, _P],
+    "nxdi_paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4 + [_F, _F, _P],
+    "nxdi_paged_prefill": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_LL] * 6 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

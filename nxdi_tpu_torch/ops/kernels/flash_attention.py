@@ -1,6 +1,8 @@
-"""Flash attention for prefill and deferred-write decode: CUDA kernels
-(``csrc/flash_prefill.cu``, ``csrc/flash_decode.cu``) and their plain
-PyTorch versions.
+"""Flash and paged attention: CUDA kernels (the prefill kernels of
+``csrc/prefill_kernel.cuh`` behind ``csrc/flash_prefill.cu`` and
+``csrc/paged_prefill.cu``; the decode kernel of ``csrc/decode_kernel.cuh``
+behind ``csrc/flash_decode.cu``, ``csrc/window_decode.cu`` and
+``csrc/paged_decode.cu``) and their plain PyTorch versions.
 
 Counterpart of ``nxdi_tpu/ops/kernels/flash_attention.py``:
 
@@ -11,6 +13,13 @@ Counterpart of ``nxdi_tpu/ops/kernels/flash_attention.py``:
   entries (``pl.pallas_call`` at :629 and :509). One CUDA kernel serves both:
   the stacked entry hands it the ``cache[layer_idx]`` view, which costs
   nothing in torch.
+- :func:`flash_attention_decode` replaces ``flash_attention_decode``
+  (``pl.pallas_call`` at :337): decode over a window that already holds
+  this step's row (the decode kernel's window mode).
+- :func:`paged_attention_decode` and :func:`paged_attention_prefill`
+  replace the block-table kernels (``pl.pallas_call`` at :802 and :946):
+  K/V read through per-row block tables from the paged pool (the decode
+  kernel's paged mode; the prefill kernels' paged instantiation).
 
 Each wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernel or raises. Each kernel launch adds one to the
@@ -75,19 +84,16 @@ def _check_cuda_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_prefill_plain(
-    q, k, v, q_pos, kv_pos, *, scale=None, sliding_window=None, chunk_size=None
-):
-    """Plain PyTorch version of the prefill kernel: causal attention with
-    positions rebuilt from the per-row starts, f32 scores, mask value -30000,
-    the denominator clamped at 1e-20, probabilities rounded to the input
-    dtype before the P.V product."""
+def _plain_attention(q, k, v, mask, scale, v_scale=1.0):
+    """The kernels' arithmetic in plain PyTorch: q (B,H,Sq,D) against
+    un-repeated k/v (B,KV,Sk,D) under a (B,Sq,Sk) mask; f32 scores, mask
+    value -30000, the denominator clamped at 1e-20 (a row with no visible
+    key outputs 0), probabilities rounded to v's dtype before P.V, v_scale
+    on the output."""
     B, H, Sq, D = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV = k.shape[1]
     G = H // KV
-    scale = D ** -0.5 if scale is None else scale
-    mask = _visible(_affine(kv_pos[:, 0], Sk), _affine(q_pos[:, 0], Sq), False,
-                    sliding_window, chunk_size)[:, None, None]  # (B,1,1,Sq,Sk)
+    mask = mask[:, None, None]  # (B,1,1,Sq,Sk)
     qg = q.reshape(B, KV, G, Sq, D).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -95,7 +101,21 @@ def flash_attention_prefill_plain(
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
     pv = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).float(), v.float())
+    if v_scale != 1.0:
+        pv = pv * v_scale
     return (pv / l).to(q.dtype).reshape(B, H, Sq, D)
+
+
+def flash_attention_prefill_plain(
+    q, k, v, q_pos, kv_pos, *, scale=None, sliding_window=None, chunk_size=None
+):
+    """Plain PyTorch version of the prefill kernel: causal attention with
+    positions rebuilt from the per-row starts (:func:`_plain_attention`)."""
+    Sq, D, Sk = q.shape[2], q.shape[3], k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    mask = _visible(_affine(kv_pos[:, 0], Sk), _affine(q_pos[:, 0], Sq), False,
+                    sliding_window, chunk_size)
+    return _plain_attention(q, k, v, mask, scale)
 
 
 def flash_attention_prefill(
@@ -269,3 +289,229 @@ def flash_attention_decode_fused_stacked(
         q, k_cache_s[li], v_cache_s[li], k_new, v_new, q_pos, None, scale=scale,
         sliding_window=sliding_window, chunk_size=chunk_size, kv_len=kv_len,
     )
+
+
+# ---------------------------------------------------------------------------
+# Decode over a window that already holds this step's row
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_decode_plain(
+    q, k, v, q_pos, kv_pos, *, scale=None, sliding_window=None, chunk_size=None
+):
+    """Plain PyTorch version of the window-decode kernel: window slot j holds
+    position kv_pos[b, 0] + j and is visible iff that position is at or
+    before q_pos (inclusive: the slot at q_pos holds this step's row), plus
+    the window/chunk masks."""
+    D, Sk = q.shape[3], k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    mask = _visible(_affine(kv_pos[:, 0], Sk), q_pos[:, :1].long(), False,
+                    sliding_window, chunk_size)
+    return _plain_attention(q, k, v, mask, scale)
+
+
+def _check_decode_shapes(name, q, k, v):
+    B, H, Sq, D = q.shape
+    KV = k.shape[1]
+    if Sq != 1 or H % KV or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
+    _check_head_dim(D, name)
+    if H // KV > 16:
+        raise ValueError(f"{name}: {H // KV} query heads per kv head (at most 16)")
+
+
+def flash_attention_decode(
+    q: torch.Tensor,  # (B, H, 1, D)
+    k: torch.Tensor,  # (B, KV, Sk, D) — window holding this step's row
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # (B, 1)
+    kv_pos: torch.Tensor,  # (B, Sk) — affine per row (only [:, 0] is read)
+    *,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    chunk_size: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-position decode over a contiguous window (inclusive causal
+    mask). The window may be a strided view (the paged gather's transpose);
+    k and v must share strides."""
+    name = "flash_attention_decode"
+    _check_decode_shapes(name, q, k, v)
+    B, H, _, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    code = _build.dtype_code(q, name)
+    if q.device.type == "cpu":
+        return flash_attention_decode_plain(
+            q, k, v, q_pos, kv_pos, scale=scale,
+            sliding_window=sliding_window, chunk_size=chunk_size,
+        )
+    for t in (q, k, v):
+        _check_cuda_operand(t, name, q.dtype)
+    if k.stride() != v.stride():
+        raise ValueError(f"{name}: k and v must share strides")
+    scale = D ** -0.5 if scale is None else scale
+    qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
+    ks = kv_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    err = _build.library().nxdi_flash_decode_window(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp.data_ptr(),
+        ks.data_ptr(), B, H, KV, D, Sk, q.stride(0), q.stride(1), *k.stride()[:3],
+        out.stride(0), out.stride(1), float(scale), _opt(sliding_window), _opt(chunk_size),
+        _build.stream_ptr(q.device),
+    )
+    _build.check(err, name)
+    flash_attention_decode.launches += 1
+    return out
+
+
+flash_attention_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Paged (block-table) attention: prefill chunks and decode
+# ---------------------------------------------------------------------------
+
+
+def gather_pages(cache_l, block_table, block_size):
+    """(total_slots, KV, D) pool layer -> (B, KV, NB * block_size, D) rows in
+    logical token order through (B, NB) tables, and the (B, NB * block_size)
+    mask of positions that are not holes (hole rows read slot 0)."""
+    bt = block_table.to(cache_l.device).long()
+    B = bt.shape[0]
+    offs = torch.arange(block_size, device=bt.device)
+    slots = (bt[:, :, None] * block_size + offs).reshape(B, -1).clamp(0, cache_l.shape[0] - 1)
+    live = torch.repeat_interleave(bt >= 0, block_size, dim=1)
+    return cache_l[slots].transpose(1, 2), live
+
+
+def paged_attention_plain(q, k_cache, v_cache, block_table, q_pos, *, block_size, scale=None,
+                          k_scale=1.0, v_scale=1.0):
+    """Plain PyTorch version of both paged kernels (decode: Sq == 1; prefill:
+    a chunk): query row i of batch row b sits at position q_pos[b, 0] + i and
+    sees the logical positions up to its own that are not holes; k_scale
+    folds into the softmax scale, v_scale into the output."""
+    Sq, D = q.shape[2], q.shape[3]
+    kk, live = gather_pages(k_cache, block_table, block_size)
+    vv, _ = gather_pages(v_cache, block_table, block_size)
+    W = kk.shape[2]
+    kv_pos = torch.arange(W, device=q.device)[None].expand(q.shape[0], W)
+    mask = _visible(kv_pos, _affine(q_pos[:, 0].to(q.device), Sq), False, None, None)
+    mask = mask & live[:, None, :]
+    scale = (D ** -0.5 if scale is None else scale) * k_scale
+    return _plain_attention(q, kk.to(q.dtype), vv.to(q.dtype), mask, scale, v_scale)
+
+
+paged_attention_decode_plain = paged_attention_plain
+paged_attention_prefill_plain = paged_attention_plain
+
+
+def _check_paged(name, q, k_cache, v_cache, block_table, block_size):
+    B, H, _, D = q.shape
+    total_slots, KV = k_cache.shape[0], k_cache.shape[1]
+    if (H % KV or k_cache.shape != v_cache.shape or k_cache.dim() != 3 or k_cache.shape[2] != D
+            or block_table.dim() != 2 or block_table.shape[0] != B):
+        raise ValueError(
+            f"{name}: bad shapes q{tuple(q.shape)} pool{tuple(k_cache.shape)} "
+            f"table{tuple(block_table.shape)}"
+        )
+    if block_size < 1 or total_slots % block_size:
+        raise ValueError(f"{name}: {total_slots} pool slots are not whole blocks of {block_size}")
+    _check_head_dim(D, name)
+
+
+def _paged_launch(fn_name, decode, q, k_cache, v_cache, block_table, q_pos, block_size, scale,
+                  k_scale, v_scale):
+    B, H, Sq, D = q.shape
+    KV = k_cache.shape[1]
+    for t in (q, k_cache, v_cache):
+        _check_cuda_operand(t, fn_name, q.dtype)
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{fn_name}: the pool layers must be contiguous")
+    scale = (D ** -0.5 if scale is None else scale) * k_scale
+    bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
+    qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lib = _build.library()
+    common = (_build.dtype_code(q, fn_name), q.data_ptr(), k_cache.data_ptr(),
+              v_cache.data_ptr(), out.data_ptr(), qp.data_ptr(), bt.data_ptr())
+    if decode:
+        err = lib.nxdi_paged_decode(
+            *common, B, H, KV, D, bt.shape[1], block_size, q.stride(0), q.stride(1),
+            out.stride(0), out.stride(1), float(scale), float(v_scale),
+            _build.stream_ptr(q.device),
+        )
+    else:
+        err = lib.nxdi_paged_prefill(
+            *common, B, H, KV, Sq, bt.shape[1], block_size, D, *q.stride()[:3],
+            *out.stride()[:3], float(scale), float(v_scale), _build.stream_ptr(q.device),
+        )
+    _build.check(err, fn_name)
+    return out
+
+
+def paged_attention_decode(
+    q: torch.Tensor,  # (B, H, 1, D)
+    k_cache: torch.Tensor,  # (total_slots, KV, D) — one layer of the pool
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,  # (B, NB) int block ids in token order; <0 = hole
+    q_pos: torch.Tensor,  # (B, 1) decode positions
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+    k_scale: float = 1.0,
+    v_scale: float = 1.0,
+) -> torch.Tensor:
+    """Decode attention reading K/V through the block table (this step's
+    row is already in the pool)."""
+    name = "paged_attention_decode"
+    if q.shape[2] != 1:
+        raise ValueError(f"{name}: one query position per row, got {q.shape[2]}")
+    _check_paged(name, q, k_cache, v_cache, block_table, block_size)
+    if q.shape[1] // k_cache.shape[1] > 16:
+        raise ValueError(f"{name}: {q.shape[1] // k_cache.shape[1]} query heads per kv head "
+                         "(at most 16)")
+    _build.dtype_code(q, name)
+    if q.device.type == "cpu":
+        return paged_attention_decode_plain(
+            q, k_cache, v_cache, block_table, q_pos, block_size=block_size, scale=scale,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    out = _paged_launch(name, True, q, k_cache, v_cache, block_table, q_pos, block_size,
+                        scale, k_scale, v_scale)
+    paged_attention_decode.launches += 1
+    return out
+
+
+paged_attention_decode.launches = 0
+
+
+def paged_attention_prefill(
+    q: torch.Tensor,  # (B, H, Sq, D) — the chunk's queries
+    k_cache: torch.Tensor,  # (total_slots, KV, D) — pool layer, chunk already written
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,  # (B, NB)
+    q_pos: torch.Tensor,  # (B, Sq) — affine per row (only [:, 0] is read)
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+    k_scale: float = 1.0,
+    v_scale: float = 1.0,
+) -> torch.Tensor:
+    """Chunked / prefix-cached prefill attention through the block table:
+    causal over logical positions, the chunk's own K/V read from the pool.
+    Returns (B, H, Sq, D) (a transposed view of a (B, Sq, H, D) buffer on
+    the card)."""
+    name = "paged_attention_prefill"
+    _check_paged(name, q, k_cache, v_cache, block_table, block_size)
+    _build.dtype_code(q, name)
+    if q.device.type == "cpu":
+        return paged_attention_prefill_plain(
+            q, k_cache, v_cache, block_table, q_pos, block_size=block_size, scale=scale,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    out = _paged_launch(name, False, q, k_cache, v_cache, block_table, q_pos, block_size,
+                        scale, k_scale, v_scale)
+    paged_attention_prefill.launches += 1
+    return out
+
+
+paged_attention_prefill.launches = 0

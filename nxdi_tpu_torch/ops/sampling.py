@@ -1,10 +1,10 @@
 """Token selection (counterpart of ``nxdi_tpu/ops/sampling.py``).
 
-This slice of the port decodes greedily. The sampling-params tensor layout
+The port decodes greedily. The sampling-params tensor layout
 ([top_k, top_p, temperature] per batch line) and the request-level
-:class:`SamplingParams` are kept so callers build the same rows as in the
-JAX package; stochastic sampling (top-k/top-p/temperature with a
-``torch.Generator``) arrives with the serving-engine slice of the port.
+:class:`SamplingParams` are kept so the static adapter and the serving
+engine build the same rows as in the JAX package; stochastic sampling
+(top-k/top-p/temperature with a ``torch.Generator``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ import torch
 NEG_INF = -30000.0
 
 SAMPLING_NOT_PORTED = (
-    "do_sample=True: stochastic sampling is not ported yet — it comes with the "
-    "serving-engine slice (ROADMAP queue 1, item 8); use greedy decoding"
+    "do_sample=True: stochastic sampling is not ported yet; use greedy decoding"
 )
 
 
@@ -55,7 +54,9 @@ def normalize_eos_ids(eos_token_id) -> List[int]:
 @dataclass
 class SamplingParams:
     """Per-request sampling knobs; ``do_sample=False`` coerces the row to
-    greedy (top_k=1)."""
+    greedy (top_k=1). ``n`` continuations of one prompt are generated by the
+    serving engine as sibling requests (host-side only, never part of the
+    sampling row)."""
 
     max_new_tokens: int = 64
     eos_token_ids: Tuple[int, ...] = ()
@@ -63,11 +64,14 @@ class SamplingParams:
     top_k: int = 1
     top_p: float = 1.0
     temperature: float = 1.0
+    n: int = 1
 
     def __post_init__(self):
         self.eos_token_ids = tuple(normalize_eos_ids(self.eos_token_ids))
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.n < 1:
+            raise ValueError("n must be >= 1")
         if self.do_sample:
             raise NotImplementedError(SAMPLING_NOT_PORTED)
 
@@ -78,6 +82,16 @@ class SamplingParams:
     def tensor(self, batch_size: int) -> np.ndarray:
         k, p, t = self.row()
         return prepare_sampling_params(batch_size, top_k=[k], top_p=[p], temperature=[t])
+
+    @staticmethod
+    def rows_tensor(params: Sequence["SamplingParams"]) -> np.ndarray:
+        """(B, 3) tensor with one row per request — the serving engine's
+        batched decode dispatch."""
+        rows = [p.row() for p in params]
+        return prepare_sampling_params(
+            len(rows), top_k=[r[0] for r in rows], top_p=[r[1] for r in rows],
+            temperature=[r[2] for r in rows],
+        )
 
 
 def mask_padded_logits(logits: torch.Tensor, pad_size: int) -> torch.Tensor:

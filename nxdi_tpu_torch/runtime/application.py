@@ -2,7 +2,8 @@
 ``nxdi_tpu/runtime/application.py``'s ``TpuModelForCausalLM``).
 
 ``TorchModelForCausalLM`` owns the params (a layer-stacked dict of tensors
-on its device), the KV cache, and one :class:`ModelWrapper` per submodel.
+on its device), the KV cache (contiguous, or the paged pool under
+``is_block_kv_layout``), and one :class:`ModelWrapper` per submodel.
 It runs on the card unless the caller asks for the CPU: with no ``device``
 it uses ``"cuda"`` and raises when no GPU is present.
 """
@@ -17,13 +18,17 @@ import torch
 
 from nxdi_tpu_torch import checkpoint as ckpt
 from nxdi_tpu_torch.config import InferenceConfig
-from nxdi_tpu_torch.kvcache.kv_cache import init_kv_cache, reset_kv_cache
+from nxdi_tpu_torch.kvcache.kv_cache import BlockKVCacheSpec, init_kv_cache, reset_kv_cache
 from nxdi_tpu_torch.runtime import autobucketing
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
     TAG_TOKEN_GENERATION,
     ModelWrapper,
 )
+
+# multi-token prefill that attends the cache (prefix-cached or chunked
+# prefill on the paged pool)
+TAG_PREFIX_PREFILL = "prefix_prefill_model"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,10 +102,25 @@ class TorchModelForCausalLM:
             attend_to_cache=True, device=self.device,
             forward_kwargs=dict(gather_last_token=False, **fwd),
         )
+        if tc.is_prefix_caching or tc.is_chunked_prefill:
+            # the new chunk sees the cached prefix through the block table
+            self.models[TAG_PREFIX_PREFILL] = ModelWrapper(
+                TAG_PREFIX_PREFILL, self.config, arch, inv_freq,
+                batch_size=tc.ctx_batch_size, n_active_tokens=0,
+                buckets=autobucketing.prefix_prefill_buckets(self.config),
+                attend_to_cache=True, prefill_to_cache=True, device=self.device,
+                forward_kwargs=dict(gather_last_token=True, **fwd),
+            )
 
     def _cache_spec(self):
         arch = self.family.build_arch(self.config)
         tc = self.tpu_config
+        if tc.is_block_kv_layout:
+            return BlockKVCacheSpec(
+                num_layers=arch.num_layers, num_blocks=tc.pa_num_blocks,
+                block_size=tc.pa_block_size, num_kv_heads=arch.num_kv_heads,
+                head_dim=arch.head_dim, dtype=arch.dtype,
+            )
         return arch.kv_cache_spec(tc.kv_cache_batch_size + tc.kv_cache_padding_size, tc.seq_len)
 
     def load(self) -> None:
@@ -131,7 +151,12 @@ class TorchModelForCausalLM:
         if not self.is_loaded:
             raise RuntimeError("call load() before forward()")
         if submodel is None:
-            submodel = TAG_CONTEXT_ENCODING if input_ids.shape[1] > 1 else TAG_TOKEN_GENERATION
+            is_prefill = input_ids.shape[1] > 1
+            # a prefill whose first position is nonzero continues a context
+            if is_prefill and TAG_PREFIX_PREFILL in self.models and position_ids[:, 0].max() > 0:
+                submodel = TAG_PREFIX_PREFILL
+            else:
+                submodel = TAG_CONTEXT_ENCODING if is_prefill else TAG_TOKEN_GENERATION
         if submodel not in self.models:
             raise KeyError(f"submodel {submodel!r} is not built (available: {sorted(self.models)})")
         batch = {"input_ids": input_ids, "position_ids": position_ids, **kwargs}

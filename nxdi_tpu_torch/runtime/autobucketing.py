@@ -1,8 +1,9 @@
-"""Bucket ladders — the port's copy of the CTE/TKG parts of
+"""Bucket ladders — the port's copy of the CTE/TKG/prefix-prefill parts of
 ``nxdi_tpu/runtime/autobucketing.py``: powers of two from the minimum to the
-maximum with the true maximum as the last rung. The host pads each dispatch
-to the smallest rung that fits, exactly as the JAX package does, so both
-packages pick the same bucket for the same request.
+maximum with the true maximum as the last rung, and capped chunk ladders for
+chunked prefill. The host pads each dispatch to the smallest rung that fits,
+exactly as the JAX package does, so both packages pick the same bucket for
+the same request.
 """
 
 from __future__ import annotations
@@ -25,6 +26,23 @@ def generate_buckets(min_length: int, max_length: int) -> List[int]:
     return [2**i for i in range(min_bound, max_bound)] + [max_length]
 
 
+def generate_buckets_on_chunk_size(q_tile_size: int, max_context_len: int) -> List[int]:
+    """At most 3 rungs, multiples of the q tile: the first, the median and
+    the last of the tile multiples up to ``max_context_len``."""
+    if max_context_len < q_tile_size:
+        return [q_tile_size]
+    num_q_tiles = ceil(max_context_len / q_tile_size)
+    all_buckets = [b * q_tile_size for b in range(1, num_q_tiles + 1)]
+    left, right = 0, len(all_buckets) - 1
+    median = right // 2
+    out = [all_buckets[left]]
+    if median > left:
+        out.append(all_buckets[median])
+    if right > median:
+        out.append(all_buckets[right])
+    return out
+
+
 def context_encoding_buckets(config) -> List[int]:
     tc = config.tpu_config
     if tc.context_encoding_buckets:
@@ -39,6 +57,10 @@ def context_encoding_buckets(config) -> List[int]:
 
 def token_generation_buckets(config) -> List[int]:
     tc = config.tpu_config
+    if tc.is_block_kv_layout:
+        # the block-table width is the decode window: every rung would run
+        # the same shapes (the pool has no contiguous window to slice)
+        return [tc.seq_len]
     if tc.token_generation_buckets:
         return sorted(tc.token_generation_buckets)
     if not tc.enable_bucketing:
@@ -47,6 +69,19 @@ def token_generation_buckets(config) -> List[int]:
         lo = _pow2_at_least(max(128, tc.seq_len // 8))
         return generate_buckets(min(lo, tc.seq_len), tc.seq_len)
     return generate_buckets(min(128, tc.seq_len), tc.seq_len)
+
+
+def prefix_prefill_buckets(config) -> List[int]:
+    """Active-token ladder of the prefix-prefill submodel (prefix-cached and
+    chunked prefill): the chunk ladder under ``chunked_prefill_config``,
+    else the CTE ladder (the prefix needs no rung: the block table is
+    fixed-width)."""
+    tc = config.tpu_config
+    if tc.chunked_prefill_config is not None:
+        return generate_buckets_on_chunk_size(
+            tc.chunked_prefill_config.kernel_q_tile_size, tc.max_context_length
+        )
+    return context_encoding_buckets(config)
 
 
 def get_target_bucket(length: int, buckets: Sequence[int], strategy: str = "first_fit") -> int:

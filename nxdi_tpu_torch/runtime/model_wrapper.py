@@ -1,8 +1,9 @@
 """Per-submodel dispatch: bucket selection, host-side padding, one forward.
 
-Counterpart of ``nxdi_tpu/runtime/model_wrapper.py`` for the two submodels
-of the static generate path, ``context_encoding_model`` and
-``token_generation_model``. The JAX package compiles one program per
+Counterpart of ``nxdi_tpu/runtime/model_wrapper.py`` for the submodels of
+the static generate path (``context_encoding_model``,
+``token_generation_model``) and of the paged serving engine (the same two
+plus ``prefix_prefill_model``). The JAX package compiles one program per
 (submodel, bucket); PyTorch runs eagerly, so a bucket here only fixes the
 padded shapes a dispatch runs at — the same shapes, chosen by the same
 ladder, as the JAX package (one CUDA graph per (submodel, bucket) is a later
@@ -16,13 +17,29 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from nxdi_tpu_torch.kvcache.kv_cache import ContiguousKVLayout
+from nxdi_tpu_torch.kvcache.kv_cache import BlockKVLayout, ContiguousKVLayout, scatter_indices
 from nxdi_tpu_torch.models import base
 from nxdi_tpu_torch.runtime import autobucketing
 from nxdi_tpu_torch.runtime.padding import pad_with_first_batchline
 
 TAG_CONTEXT_ENCODING = "context_encoding_model"
 TAG_TOKEN_GENERATION = "token_generation_model"
+
+
+def kv_layout_from_config(tc):
+    """The KV layout every submodel of this app runs against: the paged pool
+    under ``is_block_kv_layout``, else the contiguous cache."""
+    if tc.is_block_kv_layout:
+        return BlockKVLayout(block_size=tc.pa_block_size)
+    return ContiguousKVLayout()
+
+
+def decode_window_limit(tpu_config, models) -> int:
+    """Largest KV position the cache-attending submodels can serve: the top
+    rung of every such ladder, and seq_len (the JAX package's rule, which
+    counts the prefix-prefill ladder too)."""
+    tops = [w.buckets[-1] for w in models.values() if w.attend_to_cache]
+    return min([tpu_config.seq_len, *tops])
 
 
 class ModelWrapper:
@@ -38,6 +55,7 @@ class ModelWrapper:
         buckets: Sequence[int],
         attend_to_cache: bool,
         device: torch.device,
+        prefill_to_cache: bool = False,
         forward_kwargs: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.tag = tag
@@ -49,26 +67,38 @@ class ModelWrapper:
         self.n_active_tokens = n_active_tokens
         self.buckets = sorted(buckets)
         self.attend_to_cache = attend_to_cache
+        # prefix-cached / chunked prefill: multi-token input bucketed on its
+        # length like CTE that ALSO attends the cache (the chunk sees the
+        # prefix through the block table)
+        self.prefill_to_cache = prefill_to_cache
         self.forward_kwargs = dict(forward_kwargs or {})
-        self.layout = ContiguousKVLayout()
+        self.layout = kv_layout_from_config(config.tpu_config)
         # attention strategies each bucket actually ran (models/base.py trace)
         self.attention_strategies: Dict[int, tuple] = {}
         self.last_bucket: Optional[int] = None
 
+    @property
+    def decode_like(self) -> bool:
+        return self.attend_to_cache and not self.prefill_to_cache
+
     def select_bucket(self, length: int) -> int:
         return autobucketing.get_target_bucket(length, self.buckets)
+
+    def _block_table_width(self) -> int:
+        return -(-self.config.tpu_config.seq_len // self.layout.block_size)
 
     def forward(self, params, cache, batch_np: Dict[str, np.ndarray]):
         """Pad host inputs to the target bucket's shape and run the forward.
 
         ``batch_np``: input_ids (b, s), position_ids (b, s), last_token_index
-        (b,), sampling_params (b, 3); b may be smaller than the batch size.
-        Returns (outputs, cache) with the batch padding rows dropped; the
-        cache is updated in place."""
+        (b,), sampling_params (b, 3), and on the paged pool block_table
+        (b, nb); b may be smaller than the batch size. Returns (outputs,
+        cache) with the batch padding rows dropped; the cache is updated in
+        place."""
         input_ids = np.asarray(batch_np["input_ids"], dtype=np.int32)
         position_ids = np.asarray(batch_np["position_ids"], dtype=np.int32)
         b, s = input_ids.shape
-        if self.attend_to_cache:
+        if self.decode_like:
             if s != self.n_active_tokens:
                 raise ValueError(f"{self.tag}: expected {self.n_active_tokens} active tokens, got {s}")
             bucket = self.select_bucket(int(position_ids.max()) + 1)
@@ -89,11 +119,19 @@ class ModelWrapper:
         sampling_params = np.asarray(
             batch_np.get("sampling_params", np.tile([1.0, 1.0, 1.0], (b, 1))), dtype=np.float32
         )
+        extra = self._layout_inputs(batch_np, b, position_ids)
         if b < self.batch_size:
             input_ids, position_ids, last_token_index, sampling_params = (
                 pad_with_first_batchline(x, self.batch_size)
                 for x in (input_ids, position_ids, last_token_index, sampling_params)
             )
+            if "block_table" in extra:
+                # padding rows read row 0's blocks but write nothing: the
+                # scatter indices cover the first b rows only (duplicate
+                # scatter indices are not idempotent under index_put unless
+                # the rows compute identical K/V)
+                extra["block_table"] = pad_with_first_batchline(
+                    extra["block_table"], self.batch_size)
         elif b > self.batch_size:
             raise ValueError(f"{self.tag}: batch {b} exceeds compiled batch {self.batch_size}")
         dev = {
@@ -101,6 +139,7 @@ class ModelWrapper:
             "position_ids": position_ids,
             "last_token_index": last_token_index,
             "sampling_params": sampling_params,
+            **extra,
         }
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in dev.items()}
         base._STRATEGY_TRACE.clear()
@@ -108,7 +147,7 @@ class ModelWrapper:
             outputs, cache = base.causal_lm_forward(
                 self.arch, self.inv_freq, params, cache, dev,
                 attend_to_cache=self.attend_to_cache,
-                kv_window=bucket if self.attend_to_cache else None,
+                kv_window=bucket if self.decode_like else None,
                 layout=self.layout,
                 **self.forward_kwargs,
             )
@@ -116,20 +155,43 @@ class ModelWrapper:
         self.last_bucket = bucket
         return self._slice_batch_padding(outputs, b), cache
 
+    def _layout_inputs(self, batch_np, b: int, position_ids) -> Dict[str, np.ndarray]:
+        """The paged pool's inputs: the block table right-padded with -1
+        (unallocated) entries to the full width, and the scatter indices of
+        the slot mapping derived from the positions (position p writes slot
+        bt[p // bs] * bs + p % bs; positions without a block write nothing;
+        sequence padding continues the derivation like the JAX package)."""
+        if not isinstance(self.layout, BlockKVLayout):
+            return {}
+        bs = self.layout.block_size
+        width = self._block_table_width()
+        bt = np.asarray(batch_np.get("block_table", np.zeros((b, width))), dtype=np.int32)
+        if bt.shape[1] < width:
+            bt = np.concatenate([bt, np.full((b, width - bt.shape[1]), -1, dtype=np.int32)], axis=1)
+        blk = position_ids // bs
+        entry = np.take_along_axis(bt, np.clip(blk, 0, width - 1), axis=1)
+        sm = np.where((position_ids >= 0) & (blk < width) & (entry >= 0),
+                      entry * bs + position_ids % bs, -1)
+        return {"block_table": bt, **scatter_indices(sm)}
+
     @staticmethod
     def _slice_batch_padding(outputs, orig_b: int):
         return {k: v[:orig_b] for k, v in outputs.items()}
 
     def warmup_batches(self):
-        """One dummy host batch per bucket."""
+        """One dummy host batch per bucket. On the paged pool the batches
+        carry hole-only block tables, so warmup writes nothing to the pool."""
         for bucket in self.buckets:
-            seq = self.n_active_tokens if self.attend_to_cache else bucket
+            seq = self.n_active_tokens if self.decode_like else bucket
             b = self.batch_size
-            yield {
+            batch = {
                 "input_ids": np.zeros((b, seq), dtype=np.int32),
                 "position_ids": np.full((b, seq), bucket - 1, dtype=np.int32)
-                if self.attend_to_cache
+                if self.decode_like
                 else np.tile(np.arange(seq, dtype=np.int32), (b, 1)),
                 "last_token_index": np.zeros((b,), dtype=np.int32),
                 "sampling_params": np.tile([1.0, 1.0, 1.0], (b, 1)).astype(np.float32),
             }
+            if isinstance(self.layout, BlockKVLayout):
+                batch["block_table"] = np.full((b, self._block_table_width()), -1, dtype=np.int32)
+            yield batch

@@ -1,0 +1,366 @@
+"""Continuous-batching inference engine over the paged KV pool — the
+split-dispatch subset of ``nxdi_tpu/serving/engine.py``.
+
+``InferenceEngine.step()`` is one scheduler iteration:
+
+1. **Prefill** admitted requests into free slots: one context-encoding
+   dispatch per request, or under ``chunked_prefill_config`` one
+   ``chunk_size`` chunk per step, each chunk after the first (and every
+   prefill that starts after a cached prefix) through the prefix-prefill
+   submodel, interleaving with other slots' decodes.
+2. **Decode** every running slot in ONE batched token-generation dispatch —
+   rows carry their own positions and block tables, so a newly prefilled
+   neighbor never disturbs an in-flight row.
+3. **Retire** finished slots (EOS / length): blocks freed (full blocks enter
+   the radix prefix cache when it is on), slot recycled.
+
+Preemption: when the pool cannot grow a running decode, the scheduler
+evicts a request back to WAITING (blocks freed); on re-admission the engine
+re-prefills ``prompt + generated`` and the prefill's sampled token is simply
+the next new token — token-exact under greedy sampling.
+
+Not ported yet (each raises at construction where a config could ask for
+it): mixed dispatch, multistep decode and the device loop, contiguous
+continuous batching, stochastic sampling, and the host plane (telemetry
+spans, flight recorder, SLO and QoS tracking, fault recovery, the
+disaggregation handoff).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from nxdi_tpu_torch.kvcache.kv_cache import copy_kv_blocks
+from nxdi_tpu_torch.ops.sampling import SAMPLING_NOT_PORTED, extract_next_tokens
+from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
+from nxdi_tpu_torch.runtime.block_manager import BlockSpaceManager
+from nxdi_tpu_torch.runtime.model_wrapper import (
+    TAG_CONTEXT_ENCODING,
+    TAG_TOKEN_GENERATION,
+    decode_window_limit,
+)
+from nxdi_tpu_torch.serving.prefix_cache import PrefixCache
+from nxdi_tpu_torch.serving.request import Request, RequestOutput, SamplingParams
+from nxdi_tpu_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+logger = logging.getLogger("nxdi_tpu_torch")
+
+
+class InferenceEngine:
+    """Host-side continuous-batching engine over a LOADED paged application
+    (``is_block_kv_layout``): slots are decode batch rows, a
+    :class:`BlockSpaceManager` owns the pool, admission respects the
+    free-block watermark, preemption on exhaustion.
+
+    Single-driver: exactly one thread calls ``add_request``/``step``/``run``;
+    the engine, its scheduler and the block manager own no locks."""
+
+    def __init__(self, app, scheduler_config: Optional[SchedulerConfig] = None):
+        if not getattr(app, "is_loaded", False):
+            raise RuntimeError("InferenceEngine needs a loaded application")
+        self.app = app
+        tc = app.tpu_config
+        self.tpu_config = tc
+        if tc.on_device_sampling_config is None and not tc.output_logits:
+            raise ValueError(
+                "the engine needs token outputs: build the app with "
+                "on_device_sampling_config (or output_logits=True for host argmax)"
+            )
+        if tc.on_device_sampling_config is not None and tc.on_device_sampling_config.do_sample:
+            raise NotImplementedError(SAMPLING_NOT_PORTED)
+        if not tc.is_block_kv_layout:
+            raise NotImplementedError(
+                "the engine drives the paged KV layout (is_block_kv_layout=True); "
+                "continuous batching on the contiguous cache is not ported yet"
+            )
+        # work on a copy: the resolved chunk_size below must not mutate a
+        # caller-owned config (the Scheduler re-copies for the same reason)
+        cfg = (
+            dataclasses.replace(scheduler_config)
+            if scheduler_config is not None
+            else SchedulerConfig()
+        )
+        num_slots = cfg.num_slots if cfg.num_slots is not None else tc.tkg_batch_size
+        if num_slots > tc.tkg_batch_size:
+            raise ValueError(
+                f"num_slots ({num_slots}) cannot exceed the compiled decode "
+                f"batch (tkg_batch_size={tc.tkg_batch_size})"
+            )
+        self.block_manager = BlockSpaceManager(tc.pa_num_blocks, tc.pa_block_size)
+        self._can_continue_prefill = TAG_PREFIX_PREFILL in app.models
+        if cfg.chunk_size is None and tc.chunked_prefill_config is not None:
+            cfg.chunk_size = tc.chunked_prefill_config.chunk_size
+        if cfg.chunk_size is not None and not self._can_continue_prefill:
+            # without a continuation submodel every multi-chunk prompt would
+            # error-finish at its second chunk
+            raise ValueError(
+                f"chunk_size ({cfg.chunk_size}) needs a prefix-prefill "
+                "submodel to continue chunks; build the app with "
+                "chunked_prefill_config (or is_prefix_caching)"
+            )
+        self.scheduler = Scheduler(num_slots, block_manager=self.block_manager, config=cfg)
+        # radix prefix cache: retired sequences' full KV blocks enter a radix
+        # tree; admissions fork the longest cached prefix and prefill only
+        # the tail through the prefix-prefill submodel
+        self.prefix_cache = None
+        if cfg.prefix_cache:
+            if not self._can_continue_prefill:
+                raise ValueError(
+                    "prefix_cache starts prefills at the cached position; "
+                    "build the app with is_prefix_caching (or "
+                    "chunked_prefill_config) for the prefix-prefill submodel"
+                )
+            self.prefix_cache = PrefixCache(self.block_manager)
+            self.scheduler.prefix_cache = self.prefix_cache
+        # n>1 sibling forks start their tail prefill mid-prompt too
+        self.scheduler.can_fork = self._can_continue_prefill
+        self.window_limit = decode_window_limit(tc, app.models)
+        self._table_width = -(-tc.seq_len // tc.pa_block_size)
+        #: forwards this engine dispatched, by submodel
+        self.dispatches: Dict[str, int] = {tag: 0 for tag in app.models}
+        self._progress = False
+
+    # -- request intake -----------------------------------------------------
+    def add_request(
+        self,
+        prompt: Sequence[int],
+        params: Optional[SamplingParams] = None,
+        on_token=None,
+        request_id: Optional[int] = None,
+        arrival_s: Optional[float] = None,
+    ) -> Request:
+        """Queue a request (WAITING). ``on_token(request, token)`` streams
+        every generated token as it is sampled."""
+        if params is not None and params.n > 1:
+            # best-of-n: the primary prefills normally; each sibling forks
+            # the parent's committed prompt blocks at admission and prefills
+            # only the last prompt token, copy-on-writing the shared partial
+            # block on its first write
+            base = dataclasses.replace(params, n=1)
+            primary = self.add_request(
+                prompt, base, on_token=on_token, request_id=request_id, arrival_s=arrival_s,
+            )
+            for _ in range(params.n - 1):
+                sib = self.add_request(prompt, base, on_token=on_token,
+                                       arrival_s=primary.arrival_s)
+                sib.fork_of = primary
+                sib.fork_parent_id = primary.request_id
+            return primary
+        req = Request(prompt, params=params, request_id=request_id, on_token=on_token,
+                      arrival_s=arrival_s)
+        # ids key the block tables: two LIVE requests sharing one would
+        # decode through the same blocks and double-free on retirement
+        live_ids = {r.request_id for r in self.scheduler.waiting}
+        live_ids.update(r.request_id for r in self.scheduler.running())
+        if request_id is None:
+            while req.request_id in live_ids:
+                req.request_id = next(Request._ids)
+        elif req.request_id in live_ids:
+            raise ValueError(f"request_id {req.request_id} is already live in the engine")
+        tc = self.tpu_config
+        if len(req.prompt) >= self.window_limit:
+            raise ValueError(
+                f"prompt length {len(req.prompt)} leaves no decode room "
+                f"inside the compiled window ({self.window_limit})"
+            )
+        if len(req.prompt) > tc.max_context_length and self.scheduler.config.chunk_size is None:
+            raise ValueError(
+                f"prompt length {len(req.prompt)} exceeds max_context_length "
+                f"{tc.max_context_length} and chunked prefill is not "
+                "configured (chunked_prefill_config)"
+            )
+        # clamp the budget to the window, like the static adapter's
+        # max_length = min(max_length, seq_len) — parity demands one rule
+        budget = self.window_limit - len(req.prompt)
+        if req.params.max_new_tokens > budget:
+            req.params = dataclasses.replace(req.params, max_new_tokens=budget)
+        # reject up front what the pool can never hold even running alone
+        bs = self.block_manager.block_size
+        final = len(req.prompt) + req.params.max_new_tokens
+        needed = -(-final // bs)
+        if needed > self.block_manager.num_blocks:
+            raise ValueError(
+                f"request needs {needed} KV blocks at its full length "
+                f"({final} tokens) but the pool holds "
+                f"{self.block_manager.num_blocks}; raise pa_num_blocks, "
+                "shorten the prompt, or lower max_new_tokens"
+            )
+        self.scheduler.add(req)
+        return req
+
+    # -- the engine loop ----------------------------------------------------
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
+
+    def step(self) -> List[RequestOutput]:
+        """One engine iteration: prefill work, then one batched decode.
+        Returns the requests that FINISHED during this step."""
+        finished: List[RequestOutput] = []
+        prefills = self.scheduler.schedule_prefills()
+        for req in prefills:
+            self._prefill_chunk(req, finished)
+        rows = self.scheduler.decodable()
+        preempted: List[Request] = []
+        if rows:
+            rows, preempted = self.scheduler.ensure_decode_capacity(rows)
+            for victim in preempted:
+                logger.info("preempted request %d (recompute on re-admission)",
+                            victim.request_id)
+            rows = self._cow_decode_rows(rows)
+        if rows:
+            self._decode_single(rows, finished)
+        # a preemption-only step still made progress (the freed blocks are
+        # what lets the NEXT step admit)
+        self._progress = bool(prefills) or bool(rows) or bool(preempted) or bool(finished)
+        return finished
+
+    def run(self, max_steps: Optional[int] = None) -> List[RequestOutput]:
+        """Step until every queued request finishes; returns all outputs."""
+        outputs: List[RequestOutput] = []
+        n = 0
+        while self.has_work():
+            if max_steps is not None and n >= max_steps:
+                break
+            outputs.extend(self.step())
+            n += 1
+            if not self._progress and self.has_work():
+                raise RuntimeError(
+                    "scheduler stalled: requests waiting but nothing "
+                    "admissible or decodable (KV pool too small for the "
+                    "queued work?)"
+                )
+        return outputs
+
+    def _forward(self, submodel: str, ids, pos, **kwargs):
+        self.dispatches[submodel] += 1
+        return self.app.forward(ids, pos, submodel=submodel, **kwargs)
+
+    # -- copy-on-write ------------------------------------------------------
+    def _cow_for_write(self, req: Request, lo: int, hi: int) -> None:
+        """Before ``req`` writes KV for positions ``[lo, hi)``, give it a
+        private copy of every SHARED block the range touches (refcount > 1:
+        a prefix-cache chain or an ``n > 1`` fork still holds it). The
+        manager swaps the table entry; the copy runs on the pool's stream,
+        so it lands before the dispatch that writes the block."""
+        mgr = self.block_manager
+        if hi <= lo:
+            return
+        table = mgr._tables.get(req.request_id)
+        if not table:
+            return
+        bs = mgr.block_size
+        src: List[int] = []
+        dst: List[int] = []
+        for bi in range(lo // bs, min((hi - 1) // bs, len(table) - 1) + 1):
+            if mgr._refs[table[bi]] > 1:
+                s, d = mgr.cow_block(req.request_id, bi)
+                src.append(s)
+                dst.append(d)
+        if src:
+            copy_kv_blocks(self.app.kv_cache, src, dst, bs)
+            if self.prefix_cache is not None:
+                self.prefix_cache.note_cow(len(src))
+
+    def _cow_decode_rows(self, rows: List[Tuple[int, Request]]) -> List[Tuple[int, Request]]:
+        """COW each decode row's next write position. A row whose private
+        copy cannot be allocated is preempted instead of faulting the step."""
+        kept: List[Tuple[int, Request]] = []
+        for slot, req in rows:
+            try:
+                self._cow_for_write(req, req.total_len - 1, req.total_len)
+                kept.append((slot, req))
+            except RuntimeError:
+                logger.info("preempted request %d: no block for its COW copy", req.request_id)
+                self.scheduler._preempt(req)
+        return kept
+
+    # -- prefill ------------------------------------------------------------
+    def _prefill_chunk(self, req: Request, finished: List[RequestOutput]) -> None:
+        seq = req.seq_tokens[: req.prefill_target]
+        start = req.num_prefilled
+        limit = self.scheduler.config.chunk_size or self.tpu_config.max_context_length
+        if len(seq) > limit and not self._can_continue_prefill:
+            # a preempted request's prompt+generated replay outgrew the one
+            # prefill pass and nothing can continue it: fail THIS request
+            logger.warning(
+                "request %d cannot resume: its %d-token re-prefill exceeds "
+                "max_context_length %d and no prefix-prefill submodel is built",
+                req.request_id, len(seq), self.tpu_config.max_context_length,
+            )
+            self._finish(req, "error", finished)
+            return
+        chunk = seq[start: start + limit]
+        n = len(chunk)
+        try:
+            self._cow_for_write(req, start, start + n)
+        except RuntimeError:
+            logger.info("preempted request %d: no block for its COW copy", req.request_id)
+            self.scheduler._preempt(req)
+            return
+        submodel = TAG_CONTEXT_ENCODING if start == 0 else TAG_PREFIX_PREFILL
+        out = self._forward(
+            submodel,
+            np.asarray([chunk], dtype=np.int32),
+            (start + np.arange(n, dtype=np.int32))[None, :],
+            last_token_index=np.array([n - 1], dtype=np.int32),
+            sampling_params=req.params.tensor(1),
+            **self._layout_kwargs([(req.slot, req)]),
+        )
+        req.num_prefilled += n
+        if not req.prefill_done:
+            return  # more chunks next step; decodes interleave meanwhile
+        self.scheduler.note_prefill_complete(req)
+        req.emit(int(extract_next_tokens(out)[0]))
+        reason = req.check_finish()
+        if reason:
+            self._finish(req, reason, finished)
+
+    # -- decode -------------------------------------------------------------
+    def _layout_kwargs(self, rows: List[Tuple[int, Request]]) -> Dict[str, np.ndarray]:
+        bt = np.stack([
+            self.block_manager.block_table(r.request_id, self._table_width) for _, r in rows
+        ])
+        return {"block_table": bt}
+
+    def _decode_single(self, rows: List[Tuple[int, Request]],
+                       finished: List[RequestOutput]) -> None:
+        B = len(rows)
+        out = self._forward(
+            TAG_TOKEN_GENERATION,
+            np.array([[r.generated[-1]] for _, r in rows], dtype=np.int32),
+            np.array([[r.total_len - 1] for _, r in rows], dtype=np.int32),
+            last_token_index=np.zeros((B,), dtype=np.int32),
+            sampling_params=SamplingParams.rows_tensor([r.params for _, r in rows]),
+            **self._layout_kwargs(rows),
+        )
+        for (_, req), tok in zip(rows, extract_next_tokens(out)):
+            req.emit(int(tok))
+            reason = req.check_finish()
+            if reason:
+                self._finish(req, reason, finished)
+
+    # -- retirement ---------------------------------------------------------
+    def _finish(self, req: Request, reason: str, finished: List[RequestOutput]) -> None:
+        self.scheduler.retire(req, reason)
+        metrics: Dict[str, float] = {"preemptions": req.preemptions}
+        if req.fork_parent_id is not None:
+            # n>1 sibling: callers group continuations by the parent id
+            metrics["parent_request_id"] = req.fork_parent_id
+        finished.append(
+            RequestOutput(
+                request_id=req.request_id,
+                prompt=list(req.prompt),
+                token_ids=list(req.generated),
+                finish_reason=reason,
+                metrics=metrics,
+                error=req.error,
+            )
+        )
+
+    def preempt_youngest(self) -> Optional[Request]:
+        """Force one recompute-style preemption (tests / demos)."""
+        return self.scheduler.preempt_youngest()

@@ -2,13 +2,16 @@
 versions) held against the JAX package with its attention kernels on
 (Pallas in interpret mode) and against HF, on the tiny random llama."""
 
+import contextlib
 import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import jax
+from jax.experimental.compilation_cache import compilation_cache as jax_cc
 
 from nxdi_tpu.config import OnDeviceSamplingConfig as JaxODSC
 from nxdi_tpu.config import TpuConfig
@@ -26,6 +29,30 @@ LOGIT_TOL = 1e-4
 PROMPT = np.array([[5, 9, 3, 17, 2, 8, 11, 42]], dtype=np.int64)
 BUCKETS = dict(enable_bucketing=True, context_encoding_buckets=[8, 16, 32],
                token_generation_buckets=[16, 32, 64])
+
+
+@contextlib.contextmanager
+def fresh_jax_compiles():
+    """Compile the JAX reference without the persistent compilation cache,
+    which is given back on exit. ``enable_persistent_cache`` of the JAX
+    package turns it on for the whole process, and XLA:CPU results loaded
+    from it give some greedy runs wrong tokens (ROADMAP Queue 3): a port test
+    that follows such a test on one worker would compare against them."""
+    saved = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    jax_cc.reset_cache()
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved)
+        jax_cc.reset_cache()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_compiles():
+    with fresh_jax_compiles():
+        yield
 
 
 def _common(**kw):
@@ -194,3 +221,29 @@ def test_ineligible_kernel_raises_on_the_card_only():
     with pytest.raises(NotImplementedError, match="exceed 16"):
         _kernel_gate("attn_tkg_kernel_enabled", True, True, [],
                      _card_limits(64, torch.float32, 32, max_group=16))
+
+
+def test_fresh_jax_compiles_bypasses_the_persistent_cache(tmp_path):
+    """With a persistent cache on (as ``enable_persistent_cache`` leaves it),
+    a compile lands in it; under fresh_jax_compiles none does, and the
+    setting comes back on exit."""
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+            "jax_persistent_cache_min_entry_size_bytes")
+    outer = {k: getattr(jax.config, k) for k in keys}
+    on, off = str(tmp_path / "on"), str(tmp_path / "off")
+    try:
+        for k, v in zip(keys, (on, 0.0, 0)):
+            jax.config.update(k, v)
+        jax_cc.reset_cache()
+        jax.jit(lambda x: x * 3.0)(np.float32(1.0)).block_until_ready()
+        assert os.listdir(on)
+        jax.config.update(keys[0], off)
+        with fresh_jax_compiles():
+            assert jax.config.jax_compilation_cache_dir is None
+            assert float(jax.jit(lambda x: x * 5.0)(np.float32(1.0))) == 5.0
+        assert jax.config.jax_compilation_cache_dir == off
+        assert not os.path.exists(off)
+    finally:
+        for k, v in outer.items():
+            jax.config.update(k, v)
+        jax_cc.reset_cache()
