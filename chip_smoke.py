@@ -12,6 +12,10 @@ code is non-zero:
    bfloat16 and float32, with kernel / plain / library times and the bound.
 3b. The paged-decode, paged-prefill and window-decode kernels the same way,
    at the serving engine's shapes (block 128, and block 16 for correctness).
+3c. The mixed step's kernels the same way: the fused QKV GEMM and the fused
+   MLP at 8 and 520 rows, and ragged paged attention over a packed prefill
+   chunk and 7 decode rows (block 128; block 16 with holes, a row that sees
+   nothing and k/v scales).
 4. The slice at full Llama-3.2-1B width, 2 layers, float32: greedy
    ``generate()`` on the CPU (plain versions) and on the card (kernels),
    every step's logits held against each other.
@@ -19,11 +23,17 @@ code is non-zero:
    and on the card: interleaved arrivals, a shared prefix, chunked prefill
    and a forced preemption; identical streams, every dispatch's logits
    within 1e-4, the window-decode kernel on the decode path.
+4c. The same with mixed dispatch (one packed forward per step, fused QKV,
+   the QKV, MLP and ragged kernels): identical streams, logits within 1e-4,
+   a step that packs a prefill with decode rows, exact launch counts.
 5. The slice at full depth (16 layers), bfloat16, batch 8, 1024-token
    prompts: launch counts checked exactly, prefill / decode times printed.
 5b. The serving engine at full depth, bfloat16, 8 slots, 16 requests with a
    shared 384-token prefix: launch counts checked exactly against the
    engine's dispatch counts, tok/s, TTFT, TPOT and a profiled decode step.
+5c. The same configuration and traffic with mixed dispatch: exact launch
+   counts, tok/s, TTFT, TPOT, packed vs padded tokens per bucket and
+   profiled steps, printed beside phase 5b's.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -32,6 +42,7 @@ it, it prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -50,11 +61,21 @@ TOL = {
     ("decode", "float32"): 1e-5,
     ("decode", "bfloat16"): 1e-3,
 }
-LOGIT_TOL = 1e-4  # phases 4/4b: float32 CPU vs card logits (measured 8.9e-6), 2 layers, full width
+LOGIT_TOL = 1e-4  # phases 4/4b/4c: float32 CPU vs card logits (measured 8.9e-6, 8.5e-6 and
+# 1.9e-5), 2 layers, full width
 # phase 3b (paged decode, paged prefill, window decode): a few times the
 # error measured on an H100 (bf16 1.95e-3 for all three, one output ulp near
 # 0.5; f32 2.2e-7 to 4.3e-7)
 PAGED_TOL = {"float32": 2e-6, "bfloat16": 8e-3}
+# phase 3c (QKV, fused MLP, ragged attention): a few times the error
+# measured on an H100 (bf16 QKV and MLP 1.56e-2, one output ulp at 2-4;
+# bf16 ragged 1.95e-3; f32 QKV 9.8e-6, f32 MLP 2.4e-5 over 8192-term sums,
+# f32 ragged 6.3e-7)
+NEW_TOL = {
+    ("qkv", "float32"): 4e-5, ("qkv", "bfloat16"): 5e-2,
+    ("mlp", "float32"): 1e-4, ("mlp", "bfloat16"): 5e-2,
+    ("ragged", "float32"): 2e-6, ("ragged", "bfloat16"): 8e-3,
+}
 
 
 def log(msg: str) -> None:
@@ -399,6 +420,176 @@ def check_paged_kernels(torch, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the mixed step's kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+
+def _new_kernel_row(results, name, dname, err, ms, plain_ms, lib_ms, nbytes, flops, **extra):
+    bms, by = bound_ms(nbytes, flops, dname)
+    tol = NEW_TOL[(name, dname)]
+    assert err <= tol, f"{name} {dname} {extra}: max abs err {err} > {tol}"
+    results.append(dict(kernel=name, dtype=dname, max_abs_err=err, tol=tol, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, **extra))
+    log(f"[kernels] {name} {dname} {extra}: err {err:.3g} kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+
+
+def ragged_case(torch, dev, R, NB, bs, nblk):
+    """Phase 3c's packed stream: one 512-token prefill chunk of slot 5 after
+    384 cached tokens, then decode tokens of slots 3, 0, 7, 1, 6, 2, 4 at
+    positions 200, 500, ..., 2000, padded to the 1032-token bucket; each row's
+    blocks drawn from a seeded permutation of the pool."""
+    T = 1032
+    chunk_slot, dec_slots = 5, [3, 0, 7, 1, 6, 2, 4]
+    dec_pos = [200 + 300 * i for i in range(7)]
+    rid = torch.full((T,), -1, dtype=torch.int32)
+    qp = torch.zeros((T,), dtype=torch.int32)
+    rid[:512], qp[:512] = chunk_slot, torch.arange(384, 896, dtype=torch.int32)
+    rid[512:519], qp[512:519] = torch.tensor(dec_slots), torch.tensor(dec_pos, dtype=torch.int32)
+    perm = torch.randperm(nblk, generator=torch.Generator().manual_seed(1)).tolist()
+    bt = torch.full((R, NB), -1, dtype=torch.int32)
+    nxt = 0
+    for slot, last in [(chunk_slot, 895)] + list(zip(dec_slots, dec_pos)):
+        n = last // bs + 1
+        bt[slot, :n] = torch.tensor(perm[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+    visible = {chunk_slot: 896, **{s: p + 1 for s, p in zip(dec_slots, dec_pos)}}
+    pairs = sum(range(385, 897)) + sum(p + 1 for p in dec_pos)
+    return T, rid.to(dev), qp.to(dev), bt.to(dev), visible, pairs
+
+
+def check_mixed_kernels(torch, results):
+    """QKV at M = 8 and 520 (H_in 2048, T 3072) and a stacked call at layer
+    5 of 16; the fused MLP at M = 8 and 520 (H 2048, I 8192, silu) and the
+    other activations at a small width; ragged attention at block 128 (a
+    512-token chunk after 384 cached plus 7 decode rows over 200...2000,
+    padded to 1032; slots not ascending) and at block 16 with holes, a row
+    with no visible key and k_scale 0.5, v_scale 2.0. Library yardsticks:
+    torch.matmul, the MLP as three torch products, and SDPA with a boolean
+    mask over K/V gathered through the combined table (the gather
+    included), which is what the plain mixed_ragged_xla path computes."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+    from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * std).to(dtype)
+
+    def err_of(a, b):
+        torch.cuda.synchronize()
+        return (a.float() - b.float()).abs().max().item()
+
+    Hin, Tqkv, Hm, Im, L, li = 2048, 3072, 2048, 8192, 16, 5
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        es = torch.tensor([], dtype=dt).element_size()
+
+        # --- fused QKV ---
+        w_s = randn((L, Hin, Tqkv), dt, 0.02)
+        w = w_s[li]
+        for M in (8, 520):
+            x = randn((M, Hin), dt)
+            got = fp.qkv_matmul(x, w)
+            err = err_of(got, fp.qkv_matmul_plain(x, w))
+            if M == 8:
+                assert torch.equal(fp.qkv_matmul_stacked(x, w_s, li), got), "qkv stacked"
+            ms = measure(torch, lambda: fp.qkv_matmul(x, w), flush=flush, kernel="gemm")
+            plain_ms = measure(torch, lambda: fp.qkv_matmul_plain(x, w), flush=flush)
+            lib_ms = measure(torch, lambda: torch.matmul(x, w), flush=flush)
+            _new_kernel_row(results, "qkv", dname, err, ms, plain_ms, lib_ms,
+                            (M * Hin + Hin * Tqkv + M * Tqkv) * es, 2 * M * Hin * Tqkv, M=M)
+        del w_s, w
+
+        # --- fused MLP ---
+        g_s, u_s = randn((L, Hm, Im), dt, 0.02), randn((L, Hm, Im), dt, 0.02)
+        d_s = randn((L, Im, Hm), dt, 0.02)
+        g, u, d = g_s[li], u_s[li], d_s[li]
+        for M in (8, 520):
+            x = randn((M, Hm), dt)
+            got = fp.fused_mlp(x, g, u, d)
+            err = err_of(got, fp.fused_mlp_plain(x, g, u, d))
+            if M == 8:
+                assert torch.equal(fp.fused_mlp_stacked(x, g_s, u_s, d_s, li), got), "mlp stacked"
+            ms = measure(torch, lambda: fp.fused_mlp(x, g, u, d), flush=flush, kernel="gemm")
+            plain_ms = measure(torch, lambda: fp.fused_mlp_plain(x, g, u, d), flush=flush)
+            lib_ms = measure(torch, lambda: (F.silu(x @ g) * (x @ u)) @ d, flush=flush)
+            _new_kernel_row(results, "mlp", dname, err, ms, plain_ms, lib_ms,
+                            (2 * M * Hm + 3 * Hm * Im) * es, 6 * M * Hm * Im, M=M)
+        del g_s, u_s, d_s, g, u, d
+        for act in fp.KERNEL_ACTS[1:]:  # correctness at a small width
+            x, g, u = randn((40, 256), dt), randn((256, 512), dt, 0.05), randn((256, 512), dt, 0.05)
+            d = randn((512, 256), dt, 0.05)
+            err = err_of(fp.fused_mlp(x, g, u, d, act=act), fp.fused_mlp_plain(x, g, u, d, act))
+            assert err <= NEW_TOL[("mlp", dname)], f"mlp {dname} {act}: err {err}"
+            log(f"[kernels] mlp {dname} act={act} M=40 H=256 I=512: err {err:.3g}")
+
+        # --- ragged paged attention, block 128 ---
+        H, KV, D, bs, nblk, NB, R = 32, 8, 64, 128, 136, 16, 8
+        G = H // KV
+        T, rid, qp, bt, visible, pairs = ragged_case(torch, dev, R, NB, bs, nblk)
+        kc, vc = randn((nblk * bs, KV, D), dt), randn((nblk * bs, KV, D), dt)
+        q = randn((1, T, H, D), dt).transpose(1, 2)
+        got = rpa.ragged_paged_attention(q, kc, vc, bt, rid, qp, block_size=bs)
+        want = rpa.ragged_paged_attention_plain(q, kc, vc, bt, rid, qp, block_size=bs)
+        err = err_of(got, want)
+        assert torch.all(got[:, :, 519:] == 0), "ragged: padding tokens are not 0"
+        del want
+        ms = measure(torch, lambda: rpa.ragged_paged_attention(q, kc, vc, bt, rid, qp,
+                                                               block_size=bs),
+                     flush=flush, kernel="prefill")
+        plain_ms = measure(torch, lambda: rpa.ragged_paged_attention_plain(
+            q, kc, vc, bt, rid, qp, block_size=bs), n=2, flush=flush)
+        W = NB * bs
+        col = torch.arange(R * W, device=dev)
+        rows = (bt.long().reshape(-1)[:, None] * bs + torch.arange(bs, device=dev)).reshape(-1)
+        live = torch.repeat_interleave(bt.reshape(-1) >= 0, bs)
+        mask = ((rid.long()[:, None] == col[None] // W) & (col[None] % W <= qp.long()[:, None])
+                & live[None])[None, None]
+
+        def library_ragged():
+            kg = kc[rows.clamp(min=0)].transpose(0, 1)[None].repeat_interleave(G, dim=1)
+            vg = vc[rows.clamp(min=0)].transpose(0, 1)[None].repeat_interleave(G, dim=1)
+            return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+        lib_ms = measure(torch, library_ragged, flush=flush)
+        # q and q_pos are read only for real tokens: a padding token (row -1)
+        # writes 0 whatever its q holds, so only its row id is read
+        T_real = int((rid >= 0).sum())
+        nbytes = ((T_real * H * D + T * H * D + 2 * sum(visible.values()) * KV * D) * es
+                  + bt.numel() * 4 + 4 * T + 4 * T_real)
+        _new_kernel_row(results, "ragged", dname, err, ms, plain_ms, lib_ms, nbytes,
+                        4 * H * D * pairs, block=bs)
+        del mask
+
+        # --- the same stream at block 16: holes, a row that sees nothing, scales ---
+        sub = bs // 16
+        bt16 = torch.where(bt[:, :, None] >= 0,
+                           bt[:, :, None] * sub + torch.arange(sub, device=dev),
+                           -1).reshape(R, -1).to(torch.int32)
+        bt16[3, 5] = -1   # a hole inside slot 3's range
+        bt16[0, :] = -1   # slot 0's decode token sees no key
+        got = rpa.ragged_paged_attention(q, kc, vc, bt16, rid, qp, block_size=16, k_scale=0.5,
+                                         v_scale=2.0)
+        want = rpa.ragged_paged_attention_plain(q, kc, vc, bt16, rid, qp, block_size=16,
+                                                k_scale=0.5, v_scale=2.0)
+        err16 = err_of(got, want)
+        tok0 = 512 + 1  # slot 0's token
+        assert torch.all(got[:, :, tok0] == 0), "ragged: a token with no visible key is not 0"
+        assert err16 <= NEW_TOL[("ragged", dname)], f"ragged {dname} block 16: err {err16}"
+        log(f"[kernels] ragged {dname} block 16 (holes, empty row, scales): err {err16:.3g}")
+        del kc, vc, q, got, want
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the slice through generate()
 # ---------------------------------------------------------------------------
 
@@ -557,8 +748,14 @@ def slice_full_depth(torch, np, mods, card):
 # ---------------------------------------------------------------------------
 
 
+# the mixed step's flags (phases 4c and 5c): one packed dispatch per step
+# through the ragged attention, QKV and fused MLP kernels
+MIXED_FLAGS = dict(mixed_dispatch=True, fused_qkv=True, qkv_kernel_enabled=True,
+                   mlp_kernel_enabled=True)
+
+
 def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
-                    num_blocks, chunk, block_tkg, device, params=None):
+                    num_blocks, chunk, block_tkg, device, params=None, mixed=False):
     tcfg = TorchConfig(
         tp_degree=1, batch_size=1, ctx_batch_size=1, tkg_batch_size=slots, seq_len=seq_len,
         max_context_length=ctx_len, dtype=dtype, on_device_sampling_config=ODSC(),
@@ -567,6 +764,7 @@ def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, 
         chunked_prefill_config={"chunk_size": chunk},
         attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
         attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=False,
+        **(MIXED_FLAGS if mixed else {}),
     )
     cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
     arch = ml.build_arch(cfg)
@@ -590,23 +788,69 @@ def strategies_of(app):
     return out
 
 
-def engine_vs_cpu(torch, np, mods):
-    """Phase 4b: the same traffic through a CPU engine (plain versions) and
-    a card engine (kernels): 6 requests, interleaved arrivals, two sharing a
-    256-token (2-block) prefix, one 300-token prompt longer than the
-    256-token chunk, and one forced preemption. Returns the card run's
-    window-decode launches, which must be exactly 2 per decode dispatch, as
-    the flash and paged prefill launches must be per CTE and prefix-prefill
-    dispatch."""
+def mixed_kernels():
+    """The mixed step's kernel wrappers (their launch counters)."""
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+    from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    return {"ragged": rpa.ragged_paged_attention, "qkv": fp.qkv_matmul, "mlp": fp.fused_mlp}
+
+
+def attention_kernels():
     from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+
+    return {"prefill": fa.flash_attention_prefill, "paged_prefill": fa.paged_attention_prefill,
+            "paged_decode": fa.paged_attention_decode, "window_decode": fa.flash_attention_decode,
+            "decode": fa.flash_attention_decode_fused, "commit": kc.kv_commit_rows}
+
+
+def record_packs(app):
+    """Wrap the mixed wrapper's forward: per dispatch, the tokens each row
+    packed and the bucket (the padded token count)."""
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_MIXED
+
+    w = app.models[TAG_MIXED]
+    inner = w.forward
+    packs = []
+
+    def fwd(params, cache, batch):
+        import numpy as np
+
+        rids = np.asarray(batch["mixed_row_ids"]).reshape(-1)
+        out = inner(params, cache, batch)
+        rows, counts = np.unique(rids[rids >= 0], return_counts=True)
+        packs.append(dict(rows=dict(zip(rows.tolist(), counts.tolist())), bucket=w.last_bucket))
+        return out
+
+    w.forward = fwd
+    return packs
+
+
+def engine_vs_cpu(torch, np, mods, mixed=False):
+    """Phases 4b and 4c: the same traffic through a CPU engine (plain
+    versions) and a card engine (kernels): 6 requests, interleaved arrivals,
+    two sharing a 256-token (2-block) prefix, one 300-token prompt longer than
+    the 256-token chunk, and one forced preemption. Split dispatch (4b): the
+    flash and paged prefill launches must be exactly 2 per CTE and
+    prefix-prefill dispatch and the window decode 2 per decode dispatch.
+    Mixed dispatch (4c): every step is at most one mixed dispatch, some step
+    packs a prefill with decode rows, and the ragged, QKV and MLP launches
+    are exactly 2 per mixed dispatch, every other attention kernel 0.
+    Returns the card run's launch counts and the worst logit difference."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
-    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+    from nxdi_tpu_torch.runtime.model_wrapper import (
+        TAG_CONTEXT_ENCODING,
+        TAG_MIXED,
+        TAG_TOKEN_GENERATION,
+    )
     from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
     L = 2
+    phase = "4c" if mixed else "4b"
     kw = dict(layers=L, dtype="float32", slots=4, seq_len=512, ctx_len=512, num_blocks=24,
-              chunk=256, block_tkg=False)
+              chunk=256, block_tkg=False, mixed=mixed)
     cpu_app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **kw)
     gpu_app, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
                                  params=cpu_app.params, **kw)
@@ -626,10 +870,24 @@ def engine_vs_cpu(torch, np, mods):
             return out
 
         app.forward = fwd
+        packs = record_packs(app) if mixed else []
+        for w in app.models.values():
+            w.attention_strategies.clear()  # keep what this traffic runs, not the warmup
         # FCFS admission: cache-aware admission's starvation bound reads the
         # wall clock, and the two runs must dispatch in the same order
         eng = InferenceEngine(app, SchedulerConfig(prefix_cache=True,
                                                    cache_aware_admission=False))
+        assert eng.mixed is mixed
+        step_inner = eng.step
+        per_step = []
+
+        def step():
+            before = sum(eng.dispatches.values())
+            out = step_inner()
+            per_step.append(sum(eng.dispatches.values()) - before)
+            return out
+
+        eng.step = step
         sp = SamplingParams(max_new_tokens=16)
         reqs = [eng.add_request(prompts[0], sp), eng.add_request(prompts[1], sp)]
         outs = eng.step()
@@ -638,60 +896,94 @@ def engine_vs_cpu(torch, np, mods):
         reqs.append(eng.add_request(prompts[3], sp))  # ... so this one hits its 2 blocks
         outs += eng.step()
         victim = eng.preempt_youngest()
-        assert victim is not None, "phase 4b: nothing to preempt"
+        assert victim is not None, f"phase {phase}: nothing to preempt"
         reqs += [eng.add_request(p, sp) for p in prompts[4:]]
         outs += eng.run()
         got = {o.request_id: o.token_ids for o in outs}
-        assert eng.prefix_cache.hits_n >= 1, "phase 4b: the shared prefix never hit"
-        return [got[r.request_id] for r in reqs], logits, strategies_of(app), dict(eng.dispatches)
+        assert eng.prefix_cache.hits_n >= 1, f"phase {phase}: the shared prefix never hit"
+        if mixed:
+            assert max(per_step) == 1, f"phase 4c: a step ran {max(per_step)} dispatches"
+            assert len(packs) == eng.dispatches[TAG_MIXED] == sum(per_step)
+            packed = [p for p in packs if max(p["rows"].values()) > 1
+                      and min(p["rows"].values()) == 1]
+            assert packed, "phase 4c: no step packed a prefill with decode rows"
+        return ([got[r.request_id] for r in reqs], logits, strategies_of(app),
+                dict(eng.dispatches), packs)
 
-    cpu_streams, cpu_logits, cpu_strats, _ = drive(cpu_app)
-    kernels = {"prefill": fa.flash_attention_prefill, "paged_prefill": fa.paged_attention_prefill,
-               "paged_decode": fa.paged_attention_decode, "window_decode": fa.flash_attention_decode}
+    cpu_streams, cpu_logits, cpu_strats, _, _ = drive(cpu_app)
+    kernels = dict(attention_kernels(), **mixed_kernels())
     for fn in kernels.values():
         fn.launches = 0
-    gpu_streams, gpu_logits, gpu_strats, disp = drive(gpu_app)
+    gpu_streams, gpu_logits, gpu_strats, disp, packs = drive(gpu_app)
     counts = {k: fn.launches for k, fn in kernels.items()}
-    want = {
-        "prefill": L * disp[TAG_CONTEXT_ENCODING],
-        "paged_prefill": L * disp[TAG_PREFIX_PREFILL],
-        "paged_decode": 0,
-        "window_decode": L * disp[TAG_TOKEN_GENERATION],
-    }
-    assert counts == want, f"phase 4b: launch counts {counts} != {want} (dispatches {disp})"
-    assert all(counts[k] > 0 for k in ("prefill", "paged_prefill", "window_decode")), counts
-    launches = counts["window_decode"]
-    want = {"cte_flash_kernel", "cte_paged_kernel", "tkg_kernel"}
-    assert cpu_strats == gpu_strats == want, (cpu_strats, gpu_strats)
-    assert len(cpu_logits) == len(gpu_logits), "phase 4b: dispatch counts differ"
+    want = dict.fromkeys(kernels, 0)
+    if mixed:
+        want.update(ragged=L * disp[TAG_MIXED], qkv=L * disp[TAG_MIXED],
+                    mlp=L * disp[TAG_MIXED])
+        assert sum(disp.values()) == disp[TAG_MIXED], f"phase 4c: dispatches {disp}"
+        strats = {"qkv_fused_kernel", "mixed_ragged_kernel", "mlp_fused_kernel"}
+    else:
+        want.update(prefill=L * disp[TAG_CONTEXT_ENCODING],
+                    paged_prefill=L * disp[TAG_PREFIX_PREFILL],
+                    window_decode=L * disp[TAG_TOKEN_GENERATION])
+        strats = {"cte_flash_kernel", "cte_paged_kernel", "tkg_kernel"}
+    assert counts == want, f"phase {phase}: launch counts {counts} != {want} (dispatches {disp})"
+    busy = ("ragged", "qkv", "mlp") if mixed else ("prefill", "paged_prefill", "window_decode")
+    assert all(want[k] > 0 for k in busy), counts
+    assert cpu_strats == gpu_strats == strats, (cpu_strats, gpu_strats)
+    assert len(cpu_logits) == len(gpu_logits), f"phase {phase}: dispatch counts differ"
     worst = 0.0
     for i, (lc, lg) in enumerate(zip(cpu_logits, gpu_logits)):
         err = (lc - lg).abs().max().item()
         worst = max(worst, err)
-        assert err <= LOGIT_TOL, f"phase 4b dispatch {i}: logits differ by {err} > {LOGIT_TOL}"
-    assert cpu_streams == gpu_streams, "phase 4b: CPU and card streams differ"
-    log(f"[engine-2L] {len(cpu_logits)} dispatches compared, max logit diff {worst:.3g} "
-        f"(tol {LOGIT_TOL}); streams identical; launches {counts} (dispatches {disp})")
-    return launches, worst
+        assert err <= LOGIT_TOL, f"phase {phase} dispatch {i}: logits differ by {err} > {LOGIT_TOL}"
+    assert cpu_streams == gpu_streams, f"phase {phase}: CPU and card streams differ"
+    log(f"[engine-2L{' mixed' if mixed else ''}] {len(cpu_logits)} dispatches compared, max "
+        f"logit diff {worst:.3g} (tol {LOGIT_TOL}); streams identical; launches {counts} "
+        f"(dispatches {disp})")
+    return counts, worst
 
 
-def engine_full_depth(torch, np, mods, card):
-    """Phase 5b: 16 layers, bf16, 8 slots; 16 requests with prompts of
-    200-992 tokens (prompt + 32 new tokens must fit the 1024-token decode
+def profile_step(torch, eng):
+    """One engine step under the profiler: (host wall ms, device busy ms,
+    kernels by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_kernel = sorted(((k.self_device_time_total / 1e3, k.key) for k in prof.key_averages()),
+                       reverse=True)
+    return wall_ms, sum(t for t, _ in by_kernel), by_kernel
+
+
+def engine_full_depth(torch, np, mods, card, mixed=False):
+    """Phases 5b and 5c: 16 layers, bf16, 8 slots; 16 requests with prompts
+    of 200-992 tokens (prompt + 32 new tokens must fit the 1024-token decode
     window the prefix-prefill ladder sets), 8 of them sharing a 384-token
-    prefix; 8 arrive at the start, then one per engine step."""
-    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    prefix; 8 arrive at the start, then one per engine step. Split dispatch
+    (5b) or one mixed dispatch per step through the ragged, QKV and MLP
+    kernels (5c)."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
-    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+    from nxdi_tpu_torch.runtime.model_wrapper import (
+        TAG_CONTEXT_ENCODING,
+        TAG_MIXED,
+        TAG_TOKEN_GENERATION,
+    )
     from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
     L, NEW = 16, 32
+    tag = "[engine-16L mixed]" if mixed else "[engine-16L]"
+    phase = "5c" if mixed else "5b"
     t0 = time.perf_counter()
     app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
                                 slots=8, seq_len=2048, ctx_len=1024, num_blocks=136, chunk=512,
-                                block_tkg=True, device="cuda")
-    log(f"[engine-16L] load + warmup {time.perf_counter() - t0:.1f} s")
+                                block_tkg=True, device="cuda", mixed=mixed)
+    log(f"{tag} load + warmup {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(17)
     shared = rng.integers(1, arch.vocab_size, 384).tolist()
     lens = rng.integers(200, 993, 16)
@@ -709,14 +1001,18 @@ def engine_full_depth(torch, np, mods, card):
         return out
 
     app.forward = fwd
+    packs = record_packs(app) if mixed else []
+    for w in app.models.values():
+        w.attention_strategies.clear()  # keep what this traffic runs, not the warmup
     eng = InferenceEngine(app, SchedulerConfig(prefix_cache=True))
+    assert eng.mixed is mixed
     stamps = {}
 
     def on_token(req, tok):
         stamps.setdefault(req.request_id, []).append(time.perf_counter())
 
-    for fn in (fa.flash_attention_prefill, fa.paged_attention_prefill, fa.paged_attention_decode,
-               fa.flash_attention_decode):
+    kernels = dict(attention_kernels(), **mixed_kernels())
+    for fn in kernels.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -735,64 +1031,73 @@ def engine_full_depth(torch, np, mods, card):
         outs += eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    counts = {
-        "prefill": fa.flash_attention_prefill.launches,
-        "paged_prefill": fa.paged_attention_prefill.launches,
-        "paged_decode": fa.paged_attention_decode.launches,
-        "window_decode": fa.flash_attention_decode.launches,
-    }
+    counts = {k: fn.launches for k, fn in kernels.items()}
     disp = dict(eng.dispatches)
-    want = {
-        "prefill": L * disp[TAG_CONTEXT_ENCODING],
-        "paged_prefill": L * disp[TAG_PREFIX_PREFILL],
-        "paged_decode": L * disp[TAG_TOKEN_GENERATION],
-        "window_decode": 0,
-    }
-    assert counts == want, f"phase 5b: launch counts {counts} != {want} (dispatches {disp})"
-    assert all(counts[k] > 0 for k in ("prefill", "paged_prefill", "paged_decode")), counts
+    want = dict.fromkeys(kernels, 0)
+    if mixed:
+        want.update(ragged=L * disp[TAG_MIXED], qkv=L * disp[TAG_MIXED], mlp=L * disp[TAG_MIXED])
+        assert sum(disp.values()) == disp[TAG_MIXED] > 0, f"phase 5c: dispatches {disp}"
+        strats_want = {"qkv_fused_kernel", "mixed_ragged_kernel", "mlp_fused_kernel"}
+    else:
+        want.update(prefill=L * disp[TAG_CONTEXT_ENCODING],
+                    paged_prefill=L * disp[TAG_PREFIX_PREFILL],
+                    paged_decode=L * disp[TAG_TOKEN_GENERATION])
+        assert all(want[k] > 0 for k in ("prefill", "paged_prefill", "paged_decode")), want
+        strats_want = {"cte_flash_kernel", "cte_paged_kernel", "tkg_paged_kernel"}
+    assert counts == want, f"phase {phase}: launch counts {counts} != {want} (dispatches {disp})"
     strats = strategies_of(app)
-    assert strats == {"cte_flash_kernel", "cte_paged_kernel", "tkg_paged_kernel"}, strats
-    assert all(finite), "phase 5b: non-finite logits"
+    assert strats == strats_want, strats
+    assert all(finite), f"phase {phase}: non-finite logits"
     assert len(outs) == 16 and all(len(o.token_ids) == NEW for o in outs)
     assert all(0 <= t < arch.vocab_size for o in outs for t in o.token_ids)
     hits = eng.prefix_cache.hits_n
-    assert hits >= 1, "phase 5b: the shared prefix never hit"
+    assert hits >= 1, f"phase {phase}: the shared prefix never hit"
     ttft = np.array([stamps[i][0] - arrivals[i] for i in arrivals]) * 1e3
     tpot = np.array([(stamps[i][-1] - stamps[i][0]) / (len(stamps[i]) - 1) for i in arrivals]) * 1e3
     tok_s = 16 * NEW / wall
+    buckets = {}
+    for pk in packs:  # packed vs padded tokens per bucket
+        b = buckets.setdefault(pk["bucket"], [0, 0, 0])
+        b[0] += 1
+        b[1] += sum(pk["rows"].values())
+        b[2] += pk["bucket"]
 
-    # one decode-only step under the profiler: 8 fresh short requests, each
-    # prefilled by its own step, then a step that only decodes
-    for _ in range(8):
+    # profiled steps: 8 fresh short requests, one admitted per step; with
+    # split dispatch the step after them only decodes (8 rows); with mixed
+    # dispatch the step that admits the 8th packs its prefill with 7 decode
+    # rows, and the step after it only decodes
+    profiled = {}
+    for i in range(8):
         eng.add_request(rng.integers(1, arch.vocab_size, 200).tolist(),
                         SamplingParams(max_new_tokens=16))
-        eng.step()
-    from torch.profiler import ProfilerActivity, profile
-
+        if mixed and i == 7:
+            profiled["packed"] = profile_step(torch, eng)
+        else:
+            eng.step()
     assert len(eng.scheduler.decodable()) == 8 and not eng.scheduler.waiting
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t) * 1e3
-    by_kernel = sorted(((k.self_device_time_total / 1e3, k.key) for k in prof.key_averages()),
-                       reverse=True)
-    busy_ms = sum(t for t, _ in by_kernel)
+    profiled["decode"] = profile_step(torch, eng)
     eng.run()
     stats = dict(
         card=card, wall_s=wall, tok_s=tok_s, ttft_p50_ms=float(np.percentile(ttft, 50)),
         ttft_p95_ms=float(np.percentile(ttft, 95)), tpot_p50_ms=float(np.percentile(tpot, 50)),
         dispatches=disp, prefix_hits=hits, prefix_tokens_saved=eng.prefix_cache.tokens_saved_n,
-        profiled_step_wall_ms=step_ms, profiled_step_busy_ms=busy_ms,
-        profiled_step_idle_pct=100 * (1 - busy_ms / step_ms), profiled_step_top=by_kernel[:10],
     )
-    log(f"[engine-16L] {card}: {tok_s:.1f} tok/s over {wall:.2f} s; TTFT p50 "
+    if mixed:
+        stats["packed_vs_padded_by_bucket"] = {
+            str(b): dict(dispatches=v[0], packed=v[1], padded=v[2])
+            for b, v in sorted(buckets.items())}
+    for kind, (step_ms, busy_ms, by_kernel) in profiled.items():
+        stats[f"profiled_{kind}_step"] = dict(
+            wall_ms=step_ms, busy_ms=busy_ms, idle_pct=100 * (1 - busy_ms / step_ms),
+            top=by_kernel[:10])
+        log(f"{tag} profiled {kind} step (8 rows): wall {step_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / step_ms):.1f}%); top: "
+            + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in by_kernel[:6]))
+    log(f"{tag} {card}: {tok_s:.1f} tok/s over {wall:.2f} s; TTFT p50 "
         f"{stats['ttft_p50_ms']:.2f} ms p95 {stats['ttft_p95_ms']:.2f} ms; TPOT p50 "
         f"{stats['tpot_p50_ms']:.3f} ms; dispatches {disp}; prefix hits {hits}")
-    log(f"[engine-16L] profiled decode step (8 rows): wall {step_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms (idle {stats['profiled_step_idle_pct']:.1f}%); top: "
-        + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in by_kernel[:6]))
+    if mixed:
+        log(f"{tag} packed / padded tokens by bucket: {stats['packed_vs_padded_by_bucket']}")
     return counts, stats
 
 
@@ -832,14 +1137,31 @@ def main() -> int:
     kernel_results = []
     check_kernels(torch, kernel_results)
     check_paged_kernels(torch, kernel_results)
+    check_mixed_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
-    window_launches, engine_logit_err = engine_vs_cpu(torch, np, mods)
+    engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
+    _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
+    gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
+    gc.collect()
     engine_counts, engine_stats = engine_full_depth(torch, np, mods, card)
-    counts = dict(counts, window_decode=window_launches,
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed_counts, mixed_stats = engine_full_depth(torch, np, mods, card, mixed=True)
+    counts = dict(counts, window_decode=engine_2l_counts["window_decode"],
                   paged_prefill=engine_counts["paged_prefill"],
-                  paged_decode=engine_counts["paged_decode"])
+                  paged_decode=engine_counts["paged_decode"],
+                  **{k: mixed_counts[k] for k in ("ragged", "qkv", "mlp")})
     engine_stats["phase_4b_max_logit_err"] = engine_logit_err
+    mixed_stats["phase_4c_max_logit_err"] = mixed_logit_err
+    log("[engine-16L] split (5b) vs mixed (5c), " + card + ": " + "; ".join(
+        f"{k} {engine_stats[k]:.3f} vs {mixed_stats[k]:.3f}"
+        for k in ("tok_s", "ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms"))
+        + "; profiled decode step busy {:.3f} vs {:.3f} ms, idle {:.1f} vs {:.1f} %".format(
+            engine_stats["profiled_decode_step"]["busy_ms"],
+            mixed_stats["profiled_decode_step"]["busy_ms"],
+            engine_stats["profiled_decode_step"]["idle_pct"],
+            mixed_stats["profiled_decode_step"]["idle_pct"]))
 
     sources = {
         "prefill": ("flash_attention_prefill", "nxdi_tpu_torch/csrc/flash_prefill.cu",
@@ -854,10 +1176,18 @@ def main() -> int:
                           "nxdi_tpu/ops/kernels/flash_attention.py:946"),
         "paged_decode": ("paged_attention_decode", "nxdi_tpu_torch/csrc/paged_decode.cu",
                          "nxdi_tpu/ops/kernels/flash_attention.py:802"),
+        "ragged": ("ragged_paged_attention", "nxdi_tpu_torch/csrc/ragged_paged.cu",
+                   "nxdi_tpu/ops/kernels/ragged_paged_attention.py:199"),
+        "qkv": ("qkv_matmul", "nxdi_tpu_torch/csrc/qkv_matmul.cu",
+                "nxdi_tpu/ops/kernels/fused_proj.py:327,405"),
+        "mlp": ("fused_mlp", "nxdi_tpu_torch/csrc/fused_mlp.cu",
+                "nxdi_tpu/ops/kernels/fused_proj.py:128,246"),
     }
     summary = []
     for key, (name, src, replaces) in sources.items():
-        row = next(r for r in kernel_results if r["kernel"] == key and r["dtype"] == "bfloat16")
+        # the QKV and MLP rows at the packed step's 520 rows
+        row = next(r for r in kernel_results if r["kernel"] == key and r["dtype"] == "bfloat16"
+                   and r.get("M", 520) == 520)
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[key],
@@ -867,8 +1197,9 @@ def main() -> int:
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
-                   "engine": engine_stats, "counts": counts}, f, indent=1)
-    print(json.dumps({"slice": slice_times, "engine": engine_stats,
+                   "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts},
+                  f, indent=1)
+    print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
                       "kernel_checks": kernel_results}))
     print(json.dumps({"kernels": summary}))
     print(card)

@@ -11,7 +11,7 @@ Two levels, as in the JAX package:
 - :class:`InferenceConfig` — model hyperparameters (typically a HF
   ``config.json``) plus a ``tpu_config`` attribute.
 
-Features the port does not carry yet (mixed dispatch, multistep decode,
+Features the port does not carry yet (multistep decode, the device loop,
 speculation, quantization, tensor parallelism, ...) are not keys here:
 passing one raises, naming it (a few are accepted at the value that turns
 them off, ``_NOT_PORTED``).
@@ -94,9 +94,7 @@ class ChunkedPrefillConfig:
 _NOT_PORTED = {
     "padding_side": "right",
     "async_mode": False,
-    "fused_qkv": False,
     "is_continuous_batching": False,
-    "mixed_dispatch": False,
     "device_loop": False,
     "decode_steps_per_dispatch": 1,
     "role": "unified",
@@ -129,6 +127,8 @@ class TorchConfig:
         self.pa_num_blocks = kwargs.pop("pa_num_blocks", None)
         self.pa_block_size = kwargs.pop("pa_block_size", 128)
         self.is_prefix_caching = kwargs.pop("is_prefix_caching", False)
+        # one packed prefill+decode dispatch per serving step
+        self.mixed_dispatch = kwargs.pop("mixed_dispatch", False)
         cpc = kwargs.pop("chunked_prefill_config", None)
         if isinstance(cpc, dict):
             cpc = ChunkedPrefillConfig(**cpc)
@@ -156,6 +156,11 @@ class TorchConfig:
         self.attn_kernel_enabled = kwargs.pop("attn_kernel_enabled", None)
         self.attn_tkg_kernel_enabled = kwargs.pop("attn_tkg_kernel_enabled", False)
         self.attn_block_tkg_kernel_enabled = kwargs.pop("attn_block_tkg_kernel_enabled", False)
+        # fused projections: one interleaved QKV weight, and the hand-written
+        # QKV and gate/up/down MLP kernels
+        self.fused_qkv = kwargs.pop("fused_qkv", False)
+        self.qkv_kernel_enabled = kwargs.pop("qkv_kernel_enabled", False)
+        self.mlp_kernel_enabled = kwargs.pop("mlp_kernel_enabled", False)
         self.skip_warmup = kwargs.pop("skip_warmup", False)
 
         for key, default in _NOT_PORTED.items():
@@ -176,6 +181,11 @@ class TorchConfig:
             raise NotImplementedError(
                 "tp_degree > 1: tensor parallelism is not ported yet (one H100)"
             )
+        if self.qkv_kernel_enabled and not self.fused_qkv:
+            raise ValueError(
+                "qkv_kernel_enabled requires fused_qkv=True (the kernel runs "
+                "over the fused interleaved QKV weight)"
+            )
         if self.max_context_length > self.seq_len:
             raise ValueError("max_context_length must not exceed seq_len")
         if self.is_block_kv_layout and self.pa_num_blocks is None:
@@ -186,6 +196,11 @@ class TorchConfig:
             raise ValueError("is_prefix_caching requires is_block_kv_layout")
         if self.is_chunked_prefill and not self.is_block_kv_layout:
             raise ValueError("chunked prefill requires is_block_kv_layout")
+        if self.mixed_dispatch and not self.is_block_kv_layout:
+            raise ValueError(
+                "mixed_dispatch requires is_block_kv_layout (the packed rows "
+                "read KV through the paged block tables)"
+            )
 
     _SUBCONFIGS = {
         "on_device_sampling_config": OnDeviceSamplingConfig,

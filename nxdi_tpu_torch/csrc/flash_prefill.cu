@@ -17,5 +17,5 @@ extern "C" int nxdi_flash_prefill(int dtype, const void* q, const void* k, const
   a.qsb = qsb; a.qsh = qsh; a.qss = qss; a.ksb = ksb; a.ksh = ksh; a.kss = kss;
   a.vsb = vsb; a.vsh = vsh; a.vss = vss; a.osb = osb; a.osh = osh; a.oss = oss;
   a.scale = scale; a.v_scale = 1.f; a.window = window; a.chunk = chunk;
-  return run<false>(dtype, a, B, stream);
+  return run<KV_CONTIG>(dtype, a, B, stream);
 }

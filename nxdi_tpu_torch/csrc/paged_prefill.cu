@@ -20,5 +20,5 @@ extern "C" int nxdi_paged_prefill(int dtype, const void* q, const void* kc, cons
   a.vsb = 0; a.vsh = D; a.vss = (long long)KV * D;
   a.osb = osb; a.osh = osh; a.oss = oss;
   a.scale = scale; a.v_scale = v_scale;
-  return run<true>(dtype, a, B, stream);
+  return run<KV_PAGED>(dtype, a, B, stream);
 }

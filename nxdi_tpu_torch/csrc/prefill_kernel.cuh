@@ -1,5 +1,6 @@
-// Causal flash attention for prefill (context encoding), contiguous or paged:
-// the kernels shared by flash_prefill.cu and paged_prefill.cu.
+// Causal flash attention for prefill (context encoding), contiguous, paged or
+// ragged: the kernels shared by flash_prefill.cu, paged_prefill.cu and
+// ragged_paged.cu.
 //
 // Replaces nxdi_tpu/ops/kernels/flash_attention.py::flash_attention_prefill
 // (Pallas body _prefill_kernel). Same function: q (B,H,Sq,D) attends k/v
@@ -19,10 +20,26 @@
 // and masked; tiles past the q tile's last position are never read. k_scale
 // arrives folded into `scale`, v_scale multiplies the output.
 //
-// Two entry points, one per source so they compile in parallel:
-// flash_prefill.cu (contiguous K/V) and paged_prefill.cu (through the block
-// table); the paged addressing is a template parameter, so the contiguous
-// kernels compile as if it did not exist. Two bodies; both loop over 64-row
+// The ragged entry (nxdi_ragged_paged, ragged_paged.cu) replaces
+// nxdi_tpu/ops/kernels/ragged_paged_attention.py::ragged_paged_attention: one
+// launch for a packed stream (batch 1) of prefill chunks and decode tokens,
+// token t of row row_ids[t] at position tok_pos[t] attending that row's table
+// up to its own position; padding tokens (row -1) and tokens with no visible
+// key output exactly 0. A block takes one (q head, 64-token tile), loads the
+// tile's tags itself (the TPU kernel's scalar prefetch), builds a bitmask of
+// the rows present in the tile and the largest position of each, and walks
+// each present row's table up to that position, masking on row and position.
+// A bitmask, not the TPU kernel's per-tile [min, max] row range: the engine
+// packs prefill chunks first and decode rows after them, so slots do not
+// ascend along the stream and a range would sweep rows with no token in the
+// tile. At most 64 rows. A tile of decode tokens walks every one of their
+// rows' contexts serially in each of its blocks; splitting that work per row
+// (flash-decoding) is later work.
+//
+// Three entry points, one per source so they compile in parallel:
+// flash_prefill.cu (contiguous K/V), paged_prefill.cu (through the block
+// table) and ragged_paged.cu; the addressing mode is a template parameter, so
+// the contiguous kernels compile as if the others did not exist. Two bodies; both loop over 64-row
 // kv tiles up to the causal limit of their 64-row q tile (one block per
 // (b, h, q tile)) and mask the ragged edges of Sq and Sk themselves, so no
 // block size has to divide them:
@@ -52,6 +69,11 @@ constexpr int kRows = 8;                 // q rows per warp
 constexpr int kBQ = kWarps * kRows;      // q rows per block
 constexpr int kBK = 64;                  // kv rows per tile
 constexpr int kMaxT = 4;                 // output columns per lane (D <= 128)
+constexpr int kMaxRaggedRows = 64;       // rows of a ragged stream (one 64-bit mask)
+
+// K/V addressing: contiguous rows, a block table per batch row, or the ragged
+// stream's per-token rows
+enum KvMode : int { KV_CONTIG = 0, KV_PAGED = 1, KV_RAGGED = 2 };
 
 struct PrefillArgs {
   const void* q;
@@ -60,19 +82,33 @@ struct PrefillArgs {
   void* out;
   const int* q_start;
   const int* kv_start;  // may be null: kv row j is position j
-  const int* bt;        // paged only: (B, nb) block table, -1 = hole
-  int H, KV, Sq, Sk, D, nb, bs;
+  const int* bt;        // paged: (B, nb) block table; ragged: (R, nb); -1 = hole
+  const int* row_ids;   // ragged: (Sq,) row of each packed token, -1 = padding
+  const int* tok_pos;   // ragged: (Sq,) position of each packed token in its row
+  int H, KV, Sq, Sk, D, nb, bs, R;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   float scale, v_scale;
   int window, chunk;
 };
 
-// Storage row of kv position j (< Sk): j itself, or (PAGED) its slot through
-// this batch row's block table btr, -1 for a hole. A template parameter, so
-// the contiguous kernels compile exactly as without paging.
-template <bool PAGED>
+// The rows a ragged q tile touches, in shared memory after the tiles.
+struct RaggedMeta {
+  unsigned long long mask;           // rows present in the tile
+  int n_rows, n_items;               // present rows; (row, kv tile) work items
+  int rows[kMaxRaggedRows];          // present row ids, ascending
+  int limit[kMaxRaggedRows];         // kv positions [0, limit) any of its tokens can see
+  int ntile[kMaxRaggedRows];         // kv tiles of the row
+  int max_pos[kMaxRaggedRows];       // by row id: the largest position in the tile
+};
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Storage row of kv position j (< Sk): j itself, or (paged, ragged) its slot
+// through the batch row's block table btr, -1 for a hole. A template
+// parameter, so the contiguous kernels compile exactly as without paging.
+template <int MODE>
 __device__ __forceinline__ long long kv_slot(const int* btr, int bs, int j) {
-  if constexpr (!PAGED) {
+  if constexpr (MODE == KV_CONTIG) {
     return j;
   } else {
     const int blk = btr[j / bs];
@@ -81,9 +117,9 @@ __device__ __forceinline__ long long kv_slot(const int* btr, int bs, int j) {
 }
 
 // Whether kv tile [j0, j0 + n) (clipped to Sk) is free of holes.
-template <bool PAGED>
+template <int MODE>
 __device__ __forceinline__ bool tile_clean(const int* btr, int bs, int j0, int n, int Sk) {
-  if constexpr (!PAGED) {
+  if constexpr (MODE == KV_CONTIG) {
     return true;
   } else {
     const int hi = min(j0 + n, Sk) - 1;
@@ -93,11 +129,82 @@ __device__ __forceinline__ bool tile_clean(const int* btr, int bs, int j0, int n
   }
 }
 
-size_t prefill_smem_bytes(int D) {
+// Ragged: gather the tile's present rows (bitmask of row ids, largest
+// position of each) and lay out the (row, kv tile) work items. Every thread
+// calls it; it ends on a barrier.
+template <int TILE_KV>
+__device__ void ragged_meta_build(RaggedMeta* meta, const PrefillArgs& a, int q0, int q_rows) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kMaxRaggedRows; i += blockDim.x) meta->max_pos[i] = -1;
+  if (tid == 0) meta->mask = 0ull;
+  __syncthreads();
+  for (int i = tid; i < q_rows; i += blockDim.x) {
+    const int t = q0 + i;
+    if (t < a.Sq) {
+      const int r = a.row_ids[t];
+      if (r >= 0 && r < a.R) {
+        atomicOr(&meta->mask, 1ull << r);
+        atomicMax(&meta->max_pos[r], a.tok_pos[t]);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0, items = 0;
+    unsigned long long m = meta->mask;
+    while (m) {
+      const int r = __ffsll((long long)m) - 1;
+      m &= m - 1;
+      const int lim = min(meta->max_pos[r] + 1, a.nb * a.bs);
+      if (lim <= 0) continue;
+      meta->rows[n] = r;
+      meta->limit[n] = lim;
+      meta->ntile[n] = (lim + TILE_KV - 1) / TILE_KV;
+      items += meta->ntile[n];
+      ++n;
+    }
+    meta->n_rows = n;
+    meta->n_items = items;
+  }
+  __syncthreads();
+}
+
+// The kv tile a work item reads: the row's table and extent (ragged) or the
+// batch row's (contiguous, paged).
+struct KvTile {
+  int row, kt, limit;
+  const int* table;
+};
+
+// Work-item cursor: item (k, kt) is kv tile kt of the k-th present row
+// (ragged), or kv tile kt (contiguous, paged: k stays 0).
+template <int MODE>
+__device__ __forceinline__ void cursor_next(int& k, int& kt, const RaggedMeta* meta) {
+  ++kt;
+  if constexpr (MODE == KV_RAGGED) {
+    if (kt == meta->ntile[k]) {
+      ++k;
+      kt = 0;
+    }
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ KvTile cursor_tile(int k, int kt, const RaggedMeta* meta,
+                                              const PrefillArgs& a, const int* btr) {
+  if constexpr (MODE == KV_RAGGED) {
+    const int r = meta->rows[k];
+    return KvTile{r, kt, meta->limit[k], a.bt + (long long)r * a.nb};
+  } else {
+    return KvTile{0, kt, a.Sk, btr};
+  }
+}
+
+__host__ __device__ inline size_t prefill_smem_bytes(int D) {
   return sizeof(float) * (size_t)(kBQ * D + kBK * (D + 4) + kBK * D + kWarps * kRows * kBK);
 }
 
-template <typename T, bool PAGED>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int D = a.D;
@@ -112,8 +219,10 @@ __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
   const int q0 = blockIdx.x * kBQ;
-  const int qs = a.q_start[b], ks = a.kv_start ? a.kv_start[b] : 0;
-  const int* btr = PAGED ? a.bt + (long long)b * a.nb : nullptr;
+  int qs = 0;
+  if constexpr (MODE != KV_RAGGED) qs = a.q_start[b];
+  const int ks = a.kv_start ? a.kv_start[b] : 0;
+  const int* btr = MODE == KV_PAGED ? a.bt + (long long)b * a.nb : nullptr;
 
   const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
   const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
@@ -130,25 +239,50 @@ __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
 
   const int r0 = warp * kRows;
   float m[kRows], l[kRows], acc[kRows][kMaxT];
+  int rpos[kRows], rrow[kRows];  // each row's position (and ragged row id)
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     m[r] = NXDI_NEG_INF;
     l[r] = 0.f;
 #pragma unroll
     for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0.f;
+    if constexpr (MODE == KV_RAGGED) {
+      const int tq = q0 + r0 + r;
+      rrow[r] = tq < a.Sq ? a.row_ids[tq] : -1;
+      rpos[r] = tq < a.Sq ? a.tok_pos[tq] : 0;
+    } else {
+      rrow[r] = 0;
+      rpos[r] = qs + q0 + r0 + r;
+    }
   }
   float* myP = sP + warp * kRows * kBK;
 
-  const int q_hi = qs + min(q0 + kBQ, a.Sq) - 1;  // last real q position
-  const int n_kt = (a.Sk + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (ks + kt * kBK > q_hi) break;  // this and later tiles wholly in the future
+  RaggedMeta* meta = nullptr;
+  int n_items;
+  if constexpr (MODE == KV_RAGGED) {
+    meta = reinterpret_cast<RaggedMeta*>(reinterpret_cast<char*>(smem) +
+                                         round16(prefill_smem_bytes(D)));
+    ragged_meta_build<kBK>(meta, a, q0, kBQ);
+    n_items = meta->n_items;
+  } else {
+    const int q_hi = qs + min(q0 + kBQ, a.Sq) - 1;  // last real q position
+    n_items = (a.Sk + kBK - 1) / kBK;
+    for (int kt = 0; kt < n_items; ++kt)
+      if (ks + kt * kBK > q_hi) {  // this and later tiles wholly in the future
+        n_items = kt;
+        break;
+      }
+  }
+  int ck = 0, ckt = 0;
+  for (int it = 0; it < n_items; ++it) {
+    const KvTile tile = cursor_tile<MODE>(ck, ckt, meta, a, btr);
+    const int kt = tile.kt;
     __syncthreads();  // previous tile fully consumed
     for (int i = tid; i < kBK * D4; i += blockDim.x) {
       const int j = i / D4, c = (i % D4) * 4;
       const int s = kt * kBK + j;
       float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      const long long slot = s < a.Sk ? kv_slot<PAGED>(btr, a.bs, s) : -1;
+      const long long slot = s < tile.limit ? kv_slot<MODE>(tile.table, a.bs, s) : -1;
       if (slot >= 0) {
         kv4 = load4(k + slot * a.kss + c);
         vv4 = load4(v + slot * a.vss + c);
@@ -174,13 +308,13 @@ __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
     }
 
     const int j0 = kt * kBK + lane, j1 = j0 + 32;
-    const bool live0 = j0 < a.Sk && kv_slot<PAGED>(btr, a.bs, j0) >= 0;
-    const bool live1 = j1 < a.Sk && kv_slot<PAGED>(btr, a.bs, j1) >= 0;
+    const bool live0 = j0 < tile.limit && kv_slot<MODE>(tile.table, a.bs, j0) >= 0;
+    const bool live1 = j1 < tile.limit && kv_slot<MODE>(tile.table, a.bs, j1) >= 0;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const int qp = qs + q0 + r0 + r;
-      const bool v0 = live0 && pos_visible(ks + j0, qp, false, a.window, a.chunk);
-      const bool v1 = live1 && pos_visible(ks + j1, qp, false, a.window, a.chunk);
+      const bool mine = MODE != KV_RAGGED || rrow[r] == tile.row;
+      const bool v0 = live0 && mine && pos_visible(ks + j0, rpos[r], false, a.window, a.chunk);
+      const bool v1 = live1 && mine && pos_visible(ks + j1, rpos[r], false, a.window, a.chunk);
       const float sc0 = v0 ? s0[r] * a.scale : NXDI_NEG_INF;
       const float sc1 = v1 ? s1[r] * a.scale : NXDI_NEG_INF;
       const float m_new = fmaxf(m[r], warp_max(fmaxf(sc0, sc1)));
@@ -213,6 +347,7 @@ __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
       }
     }
     __syncwarp();
+    cursor_next<MODE>(ck, ckt, meta);
   }
 
 #pragma unroll
@@ -236,7 +371,7 @@ constexpr int kTcWarps = 4;
 constexpr int kTcBQ = 16 * kTcWarps;  // q rows per block
 constexpr int kTcBK = 64;             // kv rows per tile
 
-size_t prefill_tc_smem_bytes(int D) {
+__host__ __device__ inline size_t prefill_tc_smem_bytes(int D) {
   return sizeof(__nv_bfloat16) * (size_t)(5 * kTcBK * (D + 8));  // Q + 2 K + 2 V tiles
 }
 
@@ -261,23 +396,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows [row0, row0 + 64) of a (rows, D) bf16 matrix into a padded smem tile,
-// row j read from storage row kv_slot<PAGED>(btr, bs, j); rows at or past
+// row j read from storage row kv_slot<MODE>(btr, bs, j); rows at or past
 // `limit` and holes are zero-filled
-template <bool PAGED>
+template <int MODE>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            long long stride, int row0, int limit, int D, int DP,
                                            const int* btr, int bs) {
   const int cpr = D / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < kTcBK * cpr; i += blockDim.x) {
     const int r = i / cpr, c = i % cpr;
-    const long long slot = row0 + r < limit ? kv_slot<PAGED>(btr, bs, row0 + r) : -1;
+    const long long slot = row0 + r < limit ? kv_slot<MODE>(btr, bs, row0 + r) : -1;
     const bool ok = slot >= 0;
     const __nv_bfloat16* g = src + (ok ? slot : 0) * stride + c * 8;
     __pipeline_memcpy_async(dst + r * DP + c * 8, g, 16, ok ? 0 : 16);
   }
 }
 
-template <int DMAX, bool PAGED>
+template <int DMAX, int MODE>
 __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a) {
   extern __shared__ __align__(16) __nv_bfloat16 tsm[];
   const int D = a.D, DP = D + 8;
@@ -291,26 +426,42 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
   const int q0 = blockIdx.x * kTcBQ;
-  const int qs = a.q_start[b], ks = a.kv_start ? a.kv_start[b] : 0;
-  const int* btr = PAGED ? a.bt + (long long)b * a.nb : nullptr;
+  int qs = 0;
+  if constexpr (MODE != KV_RAGGED) qs = a.q_start[b];
+  const int ks = a.kv_start ? a.kv_start[b] : 0;
+  const int* btr = MODE == KV_PAGED ? a.bt + (long long)b * a.nb : nullptr;
   using bf = __nv_bfloat16;
   const bf* q = static_cast<const bf*>(a.q) + b * a.qsb + h * a.qsh;
   const bf* k = static_cast<const bf*>(a.k) + b * a.ksb + kvh * a.ksh;
   const bf* v = static_cast<const bf*>(a.v) + b * a.vsb + kvh * a.vsh;
   bf* out = static_cast<bf*>(a.out) + b * a.osb + h * a.osh;
 
-  const int q_hi = qs + min(q0 + kTcBQ, a.Sq) - 1;  // last real q position
-  int n_kt = (a.Sk + kTcBK - 1) / kTcBK;
-  for (int kt = 0; kt < n_kt; ++kt)
-    if (ks + kt * kTcBK > q_hi) {  // this and later tiles wholly in the future
-      n_kt = kt;
-      break;
-    }
+  RaggedMeta* meta = nullptr;
+  int n_items;
+  if constexpr (MODE == KV_RAGGED) {
+    meta = reinterpret_cast<RaggedMeta*>(reinterpret_cast<char*>(tsm) +
+                                         round16(prefill_tc_smem_bytes(D)));
+    ragged_meta_build<kTcBK>(meta, a, q0, kTcBQ);
+    n_items = meta->n_items;
+  } else {
+    const int q_hi = qs + min(q0 + kTcBQ, a.Sq) - 1;  // last real q position
+    n_items = (a.Sk + kTcBK - 1) / kTcBK;
+    for (int kt = 0; kt < n_items; ++kt)
+      if (ks + kt * kTcBK > q_hi) {  // this and later tiles wholly in the future
+        n_items = kt;
+        break;
+      }
+  }
 
-  stage_rows<false>(sQ, q, a.qss, q0, a.Sq, D, DP, nullptr, 1);
-  if (n_kt > 0) {
-    stage_rows<PAGED>(sK, k, a.kss, 0, a.Sk, D, DP, btr, a.bs);
-    stage_rows<PAGED>(sV, v, a.vss, 0, a.Sk, D, DP, btr, a.bs);
+  // work items: cursor (ck, ckt) is the tile being computed, (pk, pkt) the
+  // one being prefetched
+  int ck = 0, ckt = 0, pk = 0, pkt = 0;
+  stage_rows<KV_CONTIG>(sQ, q, a.qss, q0, a.Sq, D, DP, nullptr, 1);
+  if (n_items > 0) {
+    const KvTile t0 = cursor_tile<MODE>(pk, pkt, meta, a, btr);
+    stage_rows<MODE>(sK, k, a.kss, 0, t0.limit, D, DP, t0.table, a.bs);
+    stage_rows<MODE>(sV, v, a.vss, 0, t0.limit, D, DP, t0.table, a.bs);
+    cursor_next<MODE>(pk, pkt, meta);
   }
   __pipeline_commit();
 
@@ -325,21 +476,35 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
   const float scale_log2 = a.scale * kLog2e;
   float m[2] = {kNegInfLog2, kNegInfLog2}, l[2] = {0.f, 0.f};
   const int r_lo = warp * 16 + grp;  // this lane's two rows in the q tile: r_lo, r_lo + 8
+  int rpos[2], rrow[2];              // their positions (and ragged row ids)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if constexpr (MODE == KV_RAGGED) {
+      const int tq = q0 + r_lo + 8 * half;
+      rrow[half] = tq < a.Sq ? a.row_ids[tq] : -1;
+      rpos[half] = tq < a.Sq ? a.tok_pos[tq] : 0;
+    } else {
+      rrow[half] = 0;
+      rpos[half] = qs + q0 + r_lo + 8 * half;
+    }
+  }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) {
-      stage_rows<PAGED>(sK + (buf ^ 1) * kTcBK * DP, k, a.kss, (kt + 1) * kTcBK, a.Sk, D, DP,
-                        btr, a.bs);
-      stage_rows<PAGED>(sV + (buf ^ 1) * kTcBK * DP, v, a.vss, (kt + 1) * kTcBK, a.Sk, D, DP,
-                        btr, a.bs);
+  for (int it = 0; it < n_items; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_items) {
+      const KvTile tn = cursor_tile<MODE>(pk, pkt, meta, a, btr);
+      stage_rows<MODE>(sK + (buf ^ 1) * kTcBK * DP, k, a.kss, tn.kt * kTcBK, tn.limit, D, DP,
+                       tn.table, a.bs);
+      stage_rows<MODE>(sV + (buf ^ 1) * kTcBK * DP, v, a.vss, tn.kt * kTcBK, tn.limit, D, DP,
+                       tn.table, a.bs);
+      cursor_next<MODE>(pk, pkt, meta);
       __pipeline_commit();
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    if (kt == 0) {
+    if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         if (kk * 16 < D) {
@@ -351,6 +516,8 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
         }
       }
     }
+    const KvTile tile = cursor_tile<MODE>(ck, ckt, meta, a, btr);
+    const int kt = tile.kt;
     const bf* tK = sK + buf * kTcBK * DP;
     const bf* tV = sV + buf * kTcBK * DP;
 
@@ -373,13 +540,24 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
     // mask + online softmax, rows r_lo (c0, c1) and r_lo + 8 (c2, c3), in
     // log2 units (scores times log2(e), exp2): the same softmax, cheaper exp.
     // A tile wholly before this warp's first row needs no mask (no window or
-    // chunk, inside Sk, no hole): only tiles on the diagonal build one.
-    const bool full = a.window <= 0 && a.chunk <= 0 && (kt + 1) * kTcBK <= a.Sk &&
-                      ks + (kt + 1) * kTcBK - 1 <= qs + q0 + warp * 16 &&
-                      tile_clean<PAGED>(btr, a.bs, kt * kTcBK, kTcBK, a.Sk);
+    // chunk, inside Sk, no hole; ragged: every row of the warp in the tile's
+    // row): only tiles on the diagonal build one.
+    bool full;
+    if constexpr (MODE == KV_RAGGED) {
+      const int jlast = (kt + 1) * kTcBK - 1;
+      const bool mine = rrow[0] == tile.row && rrow[1] == tile.row && rpos[0] >= jlast &&
+                        rpos[1] >= jlast;
+      full = __all_sync(0xffffffffu, mine) && jlast < tile.limit &&
+             tile_clean<MODE>(tile.table, a.bs, kt * kTcBK, kTcBK, tile.limit);
+    } else {
+      full = a.window <= 0 && a.chunk <= 0 && (kt + 1) * kTcBK <= a.Sk &&
+             ks + (kt + 1) * kTcBK - 1 <= qs + q0 + warp * 16 &&
+             tile_clean<MODE>(btr, a.bs, kt * kTcBK, kTcBK, a.Sk);
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int qp = qs + q0 + r_lo + 8 * half;
+      const int qp = rpos[half];
+      const bool mine = MODE != KV_RAGGED || rrow[half] == tile.row;
       float mx = kNegInfLog2;
       uint32_t visible = 0xffffffffu;  // bit 2 * nt + e: column visible to this row
 #pragma unroll
@@ -389,7 +567,8 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
           float val = sc[nt][2 * half + e] * scale_log2;
           if (!full) {
             const int j = kt * kTcBK + nt * 8 + 2 * tig + e;
-            const bool vis = j < a.Sk && kv_slot<PAGED>(btr, a.bs, j) >= 0 &&
+            const bool vis = mine && j < tile.limit &&
+                             kv_slot<MODE>(tile.table, a.bs, j) >= 0 &&
                              pos_visible(ks + j, qp, false, a.window, a.chunk);
             val = vis ? val : kNegInfLog2;
             visible &= ~((uint32_t)!vis << (2 * nt + e));
@@ -442,6 +621,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
       }
     }
     __syncthreads();  // the next iteration's copies overwrite the other buffer
+    cursor_next<MODE>(ck, ckt, meta);
   }
   __pipeline_wait_prior(0);  // no copy outlives the block, even with no kv tile
 
@@ -461,37 +641,44 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
   }
 }
 
-template <int DMAX, bool PAGED>
+// dynamic shared memory of a launch: the tiles, and the ragged row metadata
+template <int MODE>
+size_t with_meta(size_t tiles) {
+  return MODE == KV_RAGGED ? round16(tiles) + sizeof(RaggedMeta) : tiles;
+}
+
+template <int DMAX, int MODE>
 cudaError_t launch_tc(const PrefillArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = prefill_tc_smem_bytes(a.D);
-  cudaError_t err = cudaFuncSetAttribute(prefill_tc_kernel<DMAX, PAGED>,
+  const size_t smem = with_meta<MODE>(prefill_tc_smem_bytes(a.D));
+  cudaError_t err = cudaFuncSetAttribute(prefill_tc_kernel<DMAX, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, B * a.H);
-  prefill_tc_kernel<DMAX, PAGED><<<grid, kTcWarps * 32, smem, stream>>>(a);
+  prefill_tc_kernel<DMAX, MODE><<<grid, kTcWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool PAGED>
+template <typename T, int MODE>
 cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = prefill_smem_bytes(a.D);
-  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T, PAGED>,
+  const size_t smem = with_meta<MODE>(prefill_smem_bytes(a.D));
+  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + kBQ - 1) / kBQ, B * a.H);
-  prefill_kernel<T, PAGED><<<grid, kWarps * 32, smem, stream>>>(a);
+  prefill_kernel<T, MODE><<<grid, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool PAGED>
+template <int MODE>
 int run(int dtype, const PrefillArgs& a, int B, void* stream) {
   if (a.D % 8 != 0 || a.D > 128 || a.H % a.KV != 0) return (int)cudaErrorInvalidValue;
+  if (MODE == KV_RAGGED && (a.R < 1 || a.R > kMaxRaggedRows)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.Sq == 0 || B == 0) return (int)cudaSuccess;
-  if (dtype == NXDI_F32) return (int)launch<float, PAGED>(a, B, s);
+  if (dtype == NXDI_F32) return (int)launch<float, MODE>(a, B, s);
   if (dtype == NXDI_BF16 && a.D % 16 == 0)
-    return (int)(a.D <= 64 ? launch_tc<64, PAGED>(a, B, s) : launch_tc<128, PAGED>(a, B, s));
-  if (dtype == NXDI_BF16) return (int)launch<__nv_bfloat16, PAGED>(a, B, s);
+    return (int)(a.D <= 64 ? launch_tc<64, MODE>(a, B, s) : launch_tc<128, MODE>(a, B, s));
+  if (dtype == NXDI_BF16) return (int)launch<__nv_bfloat16, MODE>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

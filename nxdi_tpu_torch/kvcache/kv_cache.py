@@ -31,6 +31,7 @@ import torch
 from nxdi_tpu_torch.config import to_torch_dtype
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
 from nxdi_tpu_torch.ops.kernels import kv_commit
+from nxdi_tpu_torch.runtime.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -51,9 +52,11 @@ class KVCacheSpec:
         return (self.num_layers, self.batch_size, self.num_kv_heads, self.max_len, self.head_dim)
 
 
-def init_kv_cache(spec, device="cpu") -> Dict[str, torch.Tensor]:
-    """Zero-initialized cache {'k': ..., 'v': ...} on ``device`` for a
-    :class:`KVCacheSpec` or a :class:`BlockKVCacheSpec` (the paged pool)."""
+def init_kv_cache(spec, device=None) -> Dict[str, torch.Tensor]:
+    """Zero-initialized cache {'k': ..., 'v': ...} on ``device`` (the card
+    unless the CPU is asked for) for a :class:`KVCacheSpec` or a
+    :class:`BlockKVCacheSpec` (the paged pool)."""
+    device = resolve_device(device)
     return {
         "k": torch.zeros(spec.shape, dtype=spec.torch_dtype, device=device),
         "v": torch.zeros(spec.shape, dtype=spec.torch_dtype, device=device),

@@ -28,7 +28,14 @@ the names are the JAX package's):
   (``attn_block_tkg_kernel_enabled``);
 - ``tkg_kernel`` / ``tkg_xla`` — paged decode (or a continuing chunk with
   the attention kernels off) over the gathered window, through the
-  window-decode kernel or plain attention.
+  window-decode kernel or plain attention;
+- ``mixed_ragged_kernel`` / ``mixed_ragged_xla`` — the serving engine's
+  packed mixed step (prefill chunks and decode rows in one token stream,
+  tagged by ``mixed_row_ids``) through the ragged paged-attention kernel, or
+  plain attention over the combined gathered window;
+- ``qkv_fused_kernel`` / ``qkv_fused_matmul`` — the fused QKV projection
+  through the QKV GEMM kernel or a plain product; ``mlp_fused_kernel`` — the
+  gated MLP through the fused MLP kernel.
 
 On the CPU the kernel choice follows the JAX package's eligibility exactly,
 so both packages take the same branches. On a CUDA tensor an enabled kernel
@@ -55,6 +62,8 @@ from nxdi_tpu_torch.kvcache.kv_cache import (
 from nxdi_tpu_torch.ops import attention as attn_ops
 from nxdi_tpu_torch.ops import sampling as sampling_ops
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 from nxdi_tpu_torch.ops.norms import rms_norm
 from nxdi_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_cos_sin
 
@@ -90,6 +99,9 @@ class DecoderArch:
     attn_kernel_enabled: bool = False
     attn_tkg_kernel_enabled: bool = False
     attn_block_tkg_kernel_enabled: bool = False
+    fused_qkv: bool = False
+    qkv_kernel_enabled: bool = False
+    mlp_kernel_enabled: bool = False
 
     def __post_init__(self):
         if self.hidden_act != "silu":
@@ -133,6 +145,20 @@ def _kernel_gate(flag: str, enabled: bool, on_cuda: bool,
     return True
 
 
+def _proj_gate(flag: str, on_cuda: bool, ref_failed: List[str], card_failed: List[str]) -> None:
+    """The projection kernels' gate, beside :func:`_kernel_gate` with the
+    same rule on the card. An enabled MLP or QKV flag never falls back: the
+    JAX package raises when its kernel is not eligible, so here a failed
+    condition raises on the CPU (the JAX rule) and on the card (the JAX rule
+    and the CUDA kernel's limits), naming it."""
+    failed = ref_failed + (card_failed if on_cuda else [])
+    if failed:
+        raise NotImplementedError(
+            f"{flag} is set but the kernel is not eligible: {'; '.join(failed)}; "
+            "disable the flag"
+        )
+
+
 def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = None) -> List[str]:
     bad = []
     if D % 8 or D > fa.MAX_HEAD_DIM:
@@ -156,6 +182,8 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     plain attention."""
     B, H, S, D = q.shape
     KV = arch.num_kv_heads
+    if ci.get("mixed_row_ids") is not None and S > 1:
+        return _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout)
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
         ref_failed = _heads_ok(H, KV)
@@ -188,6 +216,84 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     return attn_ops.attention_with_positions(q, kk, vv, position_ids, kv_pos)
 
 
+def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout):
+    """The serving engine's mixed step: a packed (1, T) stream of prefill
+    chunks and decode rows, tagged per token by ``mixed_row_ids`` (-1 =
+    padding), with R per-row tables concatenated in ``block_table`` (1, R *
+    Wt). Every token's fresh row is already in the pool. One ragged
+    paged-attention launch, or plain attention over the combined gathered
+    window with the ragged causal mask rebuilt from the tags."""
+    B, H, S, D = q.shape
+    KV = arch.num_kv_heads
+    rids = ci["mixed_row_ids"].to(torch.int32)  # (1, S)
+    R = ci["last_token_index"].shape[0]  # rows per step
+    bt = ci["block_table"].reshape(R, -1)  # (R, Wt) per-row tables
+    ref_failed = [] if isinstance(layout, BlockKVLayout) else ["the KV layout is not paged"]
+    if not ref_failed and not rpa.ragged_paged_kernel_supported(
+            q.shape, k_cache_l.shape, layout.block_size):
+        ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
+                          f"packed batch over whole blocks of {layout.block_size}")
+    card = _card_limits(D, q.dtype, H // max(KV, 1))
+    if R > rpa.MAX_ROWS:
+        card.append(f"{R} rows exceed {rpa.MAX_ROWS}")
+    if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
+                    card):
+        _record_strategy("mixed_ragged_kernel")
+        return rpa.ragged_paged_attention(
+            q, k_cache_l, v_cache_l, bt, rids[0], position_ids[0],
+            block_size=layout.block_size, k_scale=layout.k_scale, v_scale=layout.v_scale,
+        )
+    # plain: gather the combined window and rebuild the ragged causal mask
+    # from the tags — kv column g serves row g // row_width at in-row
+    # position g % row_width; holes carry the layout's poisoned position
+    kk, vv, kv_pos = layout.read(k_cache_l, v_cache_l, ci, cache_spec)
+    W = kk.shape[2]
+    row_width = W // R
+    g = torch.arange(W, device=q.device)
+    live = kv_pos[0] < 2 ** 30
+    mask = ((rids[:, :, None] == (g // row_width)[None, None, :])
+            & ((g % row_width)[None, None, :] <= position_ids[:, :, None])
+            & live[None, None, :])
+    _record_strategy("mixed_ragged_xla")
+    return attn_ops.grouped_attention(q, kk, vv, mask)
+
+
+def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked):
+    """q, k, v (B, S, width) of the layer: three products, or under
+    ``fused_qkv`` one product over the interleaved weight (through the QKV
+    kernel under ``qkv_kernel_enabled``), regrouped by rank block."""
+    if not arch.fused_qkv:
+        return tuple(_linear(hidden, p_attn[k]) for k in ("q_proj", "k_proj", "v_proj"))
+    if "qkv_proj" not in p_attn:
+        raise NotImplementedError(
+            "fused_qkv is enabled but this model's params carry no fused "
+            "qkv_proj weight — the family's converter does not support "
+            "fused QKV; disable the flag"
+        )
+    B, S, H_in = hidden.shape
+    H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
+    Tq, Tk, Tv = H * D, KV * D, KV * D
+    if arch.qkv_kernel_enabled:
+        x2 = hidden.reshape(B * S, H_in)
+        T = Tq + Tk + Tv
+        # the JAX rule in interpret mode accepts every shape: only the card's limits remain
+        _proj_gate("qkv_kernel_enabled", hidden.is_cuda, [],
+                   fp.gemm_card_limits(H_in, T, hidden.dtype))
+        if qkv_stacked is not None:
+            w_s, b_s = qkv_stacked
+            qkv = fp.qkv_matmul_stacked(x2, w_s, stacked_layer_idx, b_s)
+        else:
+            qkv = fp.qkv_matmul(x2, p_attn["qkv_proj"]["w"], p_attn["qkv_proj"].get("b"))
+        qkv = qkv.reshape(B, S, T)
+        _record_strategy("qkv_fused_kernel")
+    else:
+        qkv = _linear(hidden, p_attn["qkv_proj"])
+        _record_strategy("qkv_fused_matmul")
+    # tp = 1 (the only degree ported): the interleaved weight is one rank
+    # block [q | k | v], so no regroup by rank is needed
+    return qkv.split((Tq, Tk, Tv), dim=-1)
+
+
 def attention_block(
     arch: DecoderArch,
     p_attn: Dict[str, Any],
@@ -204,6 +310,7 @@ def attention_block(
     defer_write: bool = False,
     stacked_layer_idx: Optional[int] = None,
     tkg_stacked=None,  # (k_s, v_s, kv_len): stacked-cache fused decode kernel
+    qkv_stacked=None,  # (w_s, b_s): the stacked fused QKV weight for its kernel
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """QKV -> RoPE -> KV write or deferred rows -> attention -> O.
 
@@ -215,9 +322,10 @@ def attention_block(
     and attends the cache (:func:`_attend_cache`)."""
     B, S, _ = hidden.shape
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
-    q = _linear(hidden, p_attn["q_proj"]).view(B, S, H, D).transpose(1, 2)
-    k = _linear(hidden, p_attn["k_proj"]).view(B, S, KV, D).transpose(1, 2)
-    v = _linear(hidden, p_attn["v_proj"]).view(B, S, KV, D).transpose(1, 2)
+    q, k, v = _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked)
+    q = q.reshape(B, S, H, D).transpose(1, 2)
+    k = k.reshape(B, S, KV, D).transpose(1, 2)
+    v = v.reshape(B, S, KV, D).transpose(1, 2)
     q, k = apply_rotary_pos_emb(q, k, cos, sin)
 
     def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
@@ -262,8 +370,32 @@ def attention_block(
     return o_proj(ctx), (k_cache_l, v_cache_l)
 
 
-def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP: down(silu(x @ gate) * (x @ up))."""
+def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor,
+              mlp_stacked=None, layer_idx: Optional[int] = None) -> torch.Tensor:
+    """Gated SiLU MLP: down(silu(x @ gate) * (x @ up)).
+
+    ``mlp_kernel_enabled`` routes it through the fused MLP kernel — with the
+    layer-stacked weights and the layer index when ``mlp_stacked`` holds
+    them — and raises where that kernel is not eligible; it never falls
+    back."""
+    if arch.mlp_kernel_enabled:
+        if arch.mlp_bias:
+            raise NotImplementedError("mlp_kernel_enabled does not support MLP biases; "
+                                      "disable the flag")
+        B, S, H = x.shape
+        I = arch.intermediate_size
+        # the JAX rule (any shape, a kernel activation) holds: DecoderArch
+        # admits only silu
+        _proj_gate("mlp_kernel_enabled", x.is_cuda, [],
+                   fp.gemm_card_limits(H, I, x.dtype) + fp.gemm_card_limits(I, H, x.dtype))
+        x2 = x.reshape(B * S, H)
+        if mlp_stacked is not None:
+            out = fp.fused_mlp_stacked(x2, *mlp_stacked, layer_idx, act=arch.hidden_act)
+        else:
+            out = fp.fused_mlp(x2, p_mlp["gate_proj"]["w"], p_mlp["up_proj"]["w"],
+                               p_mlp["down_proj"]["w"], act=arch.hidden_act)
+        _record_strategy("mlp_fused_kernel")
+        return out.reshape(B, S, H)
     gate = F.silu(_linear(x, p_mlp["gate_proj"]))
     return _linear(gate * _linear(x, p_mlp["up_proj"]), p_mlp["down_proj"])
 
@@ -271,17 +403,30 @@ def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor) -> torc
 def decoder_layer(
     arch, lp, hidden, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
     attend_to_cache, layout=DEFAULT_KV_LAYOUT, cache_inputs=None, defer_write=False,
-    stacked_layer_idx=None, tkg_stacked=None,
+    stacked_layer_idx=None, tkg_stacked=None, mlp_stacked=None, qkv_stacked=None,
 ):
     h = rms_norm(hidden, lp["input_layernorm"], arch.rms_norm_eps)
     attn_out, kv = attention_block(
         arch, lp["attn"], h, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
         attend_to_cache, layout, cache_inputs, defer_write=defer_write,
-        stacked_layer_idx=stacked_layer_idx, tkg_stacked=tkg_stacked,
+        stacked_layer_idx=stacked_layer_idx, tkg_stacked=tkg_stacked, qkv_stacked=qkv_stacked,
     )
     hidden = hidden + attn_out
     h = rms_norm(hidden, lp["post_attention_layernorm"], arch.rms_norm_eps)
-    return hidden + mlp_block(arch, lp["mlp"], h), kv
+    return hidden + mlp_block(arch, lp["mlp"], h, mlp_stacked, stacked_layer_idx), kv
+
+
+def stacked_proj_weights(arch: DecoderArch, stacked: Dict[str, Any]):
+    """The layer-stacked MLP and fused-QKV weights for their kernels, when
+    those are enabled: ((gate_s, up_s, down_s) or None, (w_s, b_s) or None).
+    Each layer hands its kernel the (L, ...) weight and its index, and the
+    kernel offsets its pointer — the torch counterpart of the JAX package's
+    scalar-prefetched layer index."""
+    mlp, qkv = stacked["mlp"], stacked["attn"].get("qkv_proj")
+    mlp_st = (tuple(mlp[k]["w"] for k in ("gate_proj", "up_proj", "down_proj"))
+              if arch.mlp_kernel_enabled else None)
+    qkv_st = (qkv["w"], qkv.get("b")) if arch.qkv_kernel_enabled and qkv is not None else None
+    return mlp_st, qkv_st
 
 
 def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -324,6 +469,7 @@ def run_decoder_layers(
             _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
         )
     tkg_stacked = (cache["k"], cache["v"], kv_window) if use_stacked_tkg else None
+    mlp_stacked, qkv_stacked = stacked_proj_weights(arch, stacked_params)
     windowable = contiguous and attend_to_cache and not use_stacked_tkg and kv_window is not None
     ks, vs = [], []
     for i in range(arch.num_layers):
@@ -333,7 +479,8 @@ def run_decoder_layers(
         hidden, (nk, nv) = decoder_layer(
             arch, layer_params(stacked_params, i), hidden, cos, sin, kl, vl, position_ids,
             cache_spec, attend_to_cache, layout, cache_inputs, defer_write=defer,
-            stacked_layer_idx=i, tkg_stacked=tkg_stacked,
+            stacked_layer_idx=i, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
+            qkv_stacked=qkv_stacked,
         )
         if defer:
             ks.append(nk)
@@ -346,8 +493,10 @@ def run_decoder_layers(
 
 
 # the layout inputs a forward's batch may carry (the paged pool's block
-# tables and the host-built scatter indices of its slot mapping)
-CACHE_INPUT_KEYS = ("block_table", "write_index", "write_slots")
+# tables and the host-built scatter indices of its slot mapping; the mixed
+# step's token tags, and its per-row last-token indices, which give R)
+CACHE_INPUT_KEYS = ("block_table", "write_index", "write_slots", "mixed_row_ids",
+                    "last_token_index")
 
 
 def causal_lm_forward(
@@ -364,12 +513,19 @@ def causal_lm_forward(
     output_logits: bool = False,
     on_device_sampling: bool = True,
     do_sample: bool = False,
+    mixed_rows: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One submodel forward. ``batch``: input_ids (B,S), position_ids (B,S),
     last_token_index (B,), sampling_params (B,3), and on the paged pool
     block_table (B,NB), write_index and write_slots — tensors on the model's
     device. Returns (outputs, cache); outputs has "tokens" (B,1) int32 when
-    sampling on device and "logits" (B,1|S,V) float32 when asked for."""
+    sampling on device and "logits" (B,1|S,V) float32 when asked for.
+
+    ``mixed_rows`` (the serving engine's one-dispatch mixed step): B is 1 and
+    the scheduler's R rows live along the packed token axis, tagged by
+    ``mixed_row_ids``; ``last_token_index`` (R,) holds the packed index of
+    each row's newest token and ``sampling_params`` is (R, 3), so the
+    lm_head and sampling tail runs with R as its batch."""
     input_ids = batch["input_ids"]
     position_ids = batch["position_ids"]
     compute_dtype = to_torch_dtype(arch.dtype)
@@ -393,7 +549,10 @@ def causal_lm_forward(
     lm_head = params.get("lm_head")
     if lm_head is None:  # tied embeddings
         lm_head = params["embed_tokens"].t()
-    if gather_last_token:
+    if mixed_rows:
+        # gather each row's newest token off the single packed batch row
+        hidden = hidden[0][batch["last_token_index"].long()][:, None, :]
+    elif gather_last_token:
         idx = batch["last_token_index"].long()
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
     logits = (hidden @ lm_head.to(hidden.dtype)).float()

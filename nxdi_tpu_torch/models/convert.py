@@ -3,7 +3,8 @@
 :func:`from_jax_params` turns the JAX package's parameter pytree — as numpy
 arrays, which is what its application holds after ``jax.device_get`` — into
 this port's params dict. Both packages use the same keys and the same
-(in, out) weight layout, so the conversion is leaf by leaf; bfloat16 arrays
+(in, out) weight layout (the interleaved ``qkv_proj`` of ``fused_qkv``
+included), so the conversion is leaf by leaf; bfloat16 arrays
 (a numpy extension dtype) are reinterpreted bit for bit, without importing
 the package that defines that dtype.
 """

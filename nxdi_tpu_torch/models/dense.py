@@ -10,6 +10,8 @@ torch tensors:
      "layers": {"input_layernorm": (L, H), "post_attention_layernorm": (L, H),
                 "attn": {"q_proj": {"w": (L, H, Hq*D)}, "k_proj": ..., "v_proj": ...,
                          "o_proj": {"w": (L, Hq*D, H)}},
+                         # under fused_qkv, q/k/v become one
+                         # "qkv_proj": {"w": (L, H, Hq*D + 2*KV*D)}
                 "mlp": {"gate_proj": {"w": (L, H, I)}, "up_proj": ..., "down_proj": ...}}}
 """
 
@@ -25,6 +27,7 @@ from nxdi_tpu_torch.config import InferenceConfig, dtype_name, to_torch_dtype
 from nxdi_tpu_torch.models.base import DecoderArch
 from nxdi_tpu_torch.ops.rope import inv_freq_from_hf_config
 from nxdi_tpu_torch.parallel import gqa
+from nxdi_tpu_torch.runtime.device import resolve_device
 
 
 def gqa_plan(config: InferenceConfig) -> gqa.GQAPlan:
@@ -71,6 +74,9 @@ def build_arch(config: InferenceConfig, **overrides) -> DecoderArch:
         attn_kernel_enabled=bool(tc.attn_kernel_enabled),
         attn_tkg_kernel_enabled=bool(tc.attn_tkg_kernel_enabled),
         attn_block_tkg_kernel_enabled=bool(tc.attn_block_tkg_kernel_enabled),
+        fused_qkv=bool(tc.fused_qkv),
+        qkv_kernel_enabled=bool(tc.qkv_kernel_enabled),
+        mlp_kernel_enabled=bool(tc.mlp_kernel_enabled),
     )
     kwargs.update(overrides)
     return DecoderArch(**kwargs)
@@ -83,6 +89,45 @@ def build_inv_freq(config: InferenceConfig) -> np.ndarray:
         getattr(config, "rope_scaling", None),
         max_position_embeddings=getattr(config, "max_position_embeddings", 4096),
     )
+
+
+def fuse_qkv_weights(ws, tp: int) -> np.ndarray:
+    """Interleave q/k/v weights (each (H_in, out)) into one fused weight whose
+    column-shards are self-contained per tp rank: [rank0: q|k|v | rank1: ...].
+    The port runs tp = 1, where the fused weight is [q | k | v]."""
+    h_in = ws[0].shape[0]
+    outs = [w.shape[1] for w in ws]
+    for o in outs:
+        if o % tp:
+            raise ValueError(
+                f"fused_qkv: projection width {o} is not divisible by "
+                f"tp_degree {tp} — disable fused_qkv for this model/tp"
+            )
+    parts = [np.asarray(w).reshape(h_in, tp, o // tp) for w, o in zip(ws, outs)]
+    return np.concatenate(parts, axis=-1).reshape(h_in, sum(outs))
+
+
+def fuse_qkv_biases(bs, tp: int) -> np.ndarray:
+    parts = [np.asarray(b).reshape(tp, b.shape[0] // tp) for b in bs]
+    return np.concatenate(parts, axis=-1).reshape(-1)
+
+
+def _fuse_qkv(attn: Dict[str, Any], tp: int) -> None:
+    """Replace q/k/v_proj of one layer's attention dict by the fused
+    ``qkv_proj`` (numpy interleave; bfloat16 goes through its bits, which the
+    interleave only moves)."""
+    qp, kp, vp = attn.pop("q_proj"), attn.pop("k_proj"), attn.pop("v_proj")
+
+    def fuse(fn, key):
+        ts = [p[key] for p in (qp, kp, vp)]
+        bits = [t.view(torch.int16) if t.dtype == torch.bfloat16 else t for t in ts]
+        out = torch.from_numpy(np.ascontiguousarray(fn([b.numpy() for b in bits], tp)))
+        return out.view(torch.bfloat16) if ts[0].dtype == torch.bfloat16 else out
+
+    fused = {"w": fuse(fuse_qkv_weights, "w")}
+    if "b" in qp:
+        fused["b"] = fuse(fuse_qkv_biases, "b")
+    attn["qkv_proj"] = fused
 
 
 def _stack(layers):
@@ -140,6 +185,8 @@ def convert_hf_state_dict(
         if arch.mlp_bias:
             for name in ("gate_proj", "up_proj", "down_proj"):
                 mlp[name]["b"] = cast(get(f"{pre}mlp.{name}.bias"))
+        if arch.fused_qkv:
+            _fuse_qkv(attn, 1)  # tp_degree is 1: one rank block
         layers.append({
             "input_layernorm": cast(get(pre + "input_layernorm.weight")),
             "post_attention_layernorm": cast(get(pre + "post_attention_layernorm.weight")),
@@ -187,15 +234,21 @@ def param_shapes(arch: DecoderArch) -> Dict[str, Any]:
         },
         "norm": (hs,),
     }
+    if arch.fused_qkv:
+        attn = params["layers"]["attn"]
+        del attn["q_proj"], attn["k_proj"], attn["v_proj"]
+        attn["qkv_proj"] = {"w": (L, hs, (H + 2 * KV) * D)}
     if not arch.tie_word_embeddings:
         params["lm_head"] = (hs, V)
     return params
 
 
-def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device="cpu"):
-    """Random weights in the arch's dtype from one ``torch.Generator`` seed:
-    projections and embeddings N(0, std), norm weights one (HF's init), so
-    activations keep unit scale and greedy tokens are well separated."""
+def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=None):
+    """Random weights in the arch's dtype from one ``torch.Generator`` seed,
+    on ``device`` (the card unless the CPU is asked for): projections and
+    embeddings N(0, std), norm weights one (HF's init), so activations keep
+    unit scale and greedy tokens are well separated."""
+    device = resolve_device(device)
     dt = to_torch_dtype(arch.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
 

@@ -20,29 +20,18 @@ from nxdi_tpu_torch import checkpoint as ckpt
 from nxdi_tpu_torch.config import InferenceConfig
 from nxdi_tpu_torch.kvcache.kv_cache import BlockKVCacheSpec, init_kv_cache, reset_kv_cache
 from nxdi_tpu_torch.runtime import autobucketing
+from nxdi_tpu_torch.runtime.device import resolve_device
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
+    TAG_MIXED,
     TAG_TOKEN_GENERATION,
+    MixedModelWrapper,
     ModelWrapper,
 )
 
 # multi-token prefill that attends the cache (prefix-cached or chunked
 # prefill on the paged pool)
 TAG_PREFIX_PREFILL = "prefix_prefill_model"
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; without a GPU that raises instead of quietly
-    running on the CPU (pass ``device="cpu"`` for that)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the plain "
-            "PyTorch path on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _to_device(tree, device):
@@ -111,6 +100,21 @@ class TorchModelForCausalLM:
                 attend_to_cache=True, prefill_to_cache=True, device=self.device,
                 forward_kwargs=dict(gather_last_token=True, **fwd),
             )
+        if tc.mixed_dispatch:
+            # one forward per total-packed-token bucket serves a whole
+            # serving step: prefill chunks and decode tokens in one stream
+            self.models[TAG_MIXED] = MixedModelWrapper(
+                TAG_MIXED, self.config, arch, inv_freq,
+                batch_size=1, n_active_tokens=0,
+                buckets=autobucketing.mixed_token_buckets(self.config),
+                attend_to_cache=True, prefill_to_cache=True, device=self.device,
+                num_rows=tc.tkg_batch_size,
+                forward_kwargs=dict(gather_last_token=True, mixed_rows=True, **fwd),
+            )
+
+    @property
+    def mixed_supported(self) -> bool:
+        return TAG_MIXED in self.models
 
     def _cache_spec(self):
         arch = self.family.build_arch(self.config)

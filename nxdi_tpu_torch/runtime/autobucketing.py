@@ -1,4 +1,4 @@
-"""Bucket ladders — the port's copy of the CTE/TKG/prefix-prefill parts of
+"""Bucket ladders — the port's copy of the CTE/TKG/prefix-prefill/mixed parts of
 ``nxdi_tpu/runtime/autobucketing.py``: powers of two from the minimum to the
 maximum with the true maximum as the last rung, and capped chunk ladders for
 chunked prefill. The host pads each dispatch to the smallest rung that fits,
@@ -82,6 +82,19 @@ def prefix_prefill_buckets(config) -> List[int]:
             tc.chunked_prefill_config.kernel_q_tile_size, tc.max_context_length
         )
     return context_encoding_buckets(config)
+
+
+def mixed_token_buckets(config) -> List[int]:
+    """Total-packed-token ladder of the ``mixed_model`` submodel (the
+    one-dispatch prefill+decode serving step): rungs count tokens across the
+    whole packed batch. The top rung holds the largest step the scheduler can
+    pack — one prefill contribution of ``max_context_length`` tokens plus one
+    decode token for every slot — and the ladder bottoms out at 2, so a
+    decode-only step of a few live slots does not pad to a 16- or 128-token
+    program."""
+    tc = config.tpu_config
+    top = tc.max_context_length + tc.tkg_batch_size
+    return generate_buckets(min(2, top), top)
 
 
 def get_target_bucket(length: int, buckets: Sequence[int], strategy: str = "first_fit") -> int:

@@ -3,7 +3,8 @@
 Counterpart of ``nxdi_tpu/runtime/model_wrapper.py`` for the submodels of
 the static generate path (``context_encoding_model``,
 ``token_generation_model``) and of the paged serving engine (the same two
-plus ``prefix_prefill_model``). The JAX package compiles one program per
+plus ``prefix_prefill_model``, and ``mixed_model`` under mixed dispatch).
+The JAX package compiles one program per
 (submodel, bucket); PyTorch runs eagerly, so a bucket here only fixes the
 padded shapes a dispatch runs at — the same shapes, chosen by the same
 ladder, as the JAX package (one CUDA graph per (submodel, bucket) is a later
@@ -24,6 +25,7 @@ from nxdi_tpu_torch.runtime.padding import pad_with_first_batchline
 
 TAG_CONTEXT_ENCODING = "context_encoding_model"
 TAG_TOKEN_GENERATION = "token_generation_model"
+TAG_MIXED = "mixed_model"
 
 
 def kv_layout_from_config(tc):
@@ -37,12 +39,18 @@ def kv_layout_from_config(tc):
 def decode_window_limit(tpu_config, models) -> int:
     """Largest KV position the cache-attending submodels can serve: the top
     rung of every such ladder, and seq_len (the JAX package's rule, which
-    counts the prefix-prefill ladder too)."""
-    tops = [w.buckets[-1] for w in models.values() if w.attend_to_cache]
+    counts the prefix-prefill ladder too). Ladders that are not KV windows
+    (``window_buckets = False``: the mixed wrapper's packed-token ladder) say
+    nothing about how much KV a forward attends and are left out."""
+    tops = [w.buckets[-1] for w in models.values()
+            if w.attend_to_cache and w.window_buckets]
     return min([tpu_config.seq_len, *tops])
 
 
 class ModelWrapper:
+    # the buckets are KV windows (see decode_window_limit)
+    window_buckets = True
+
     def __init__(
         self,
         tag: str,
@@ -195,3 +203,76 @@ class ModelWrapper:
             if isinstance(self.layout, BlockKVLayout):
                 batch["block_table"] = np.full((b, self._block_table_width()), -1, dtype=np.int32)
             yield batch
+
+
+class MixedModelWrapper(ModelWrapper):
+    """The ``mixed_model`` submodel: one forward serving a whole mixed
+    prefill+decode step of the engine through the ragged paged-attention
+    kernel.
+
+    Shape contract (R = scheduler slots = tkg_batch_size, T = token bucket):
+
+    - input_ids / position_ids (1, T): the packed token stream, prefill
+      chunks and decode tokens concatenated, padded at the end;
+    - ``mixed_row_ids`` (1, T): each token's slot, -1 for padding (pre-padded
+      here with -1, never 0, which would tag padding as row 0);
+    - ``slot_mapping`` (1, T): each token's pool slot, computed on the host
+      through its own row's table; deriving it from positions would read the
+      combined table and alias every row onto row 0's pages, so it is
+      required. It becomes the scatter indices through
+      :func:`scatter_indices`, like every paged write (negative slots drop);
+    - ``block_table`` (1, R * Wt): the R per-row tables concatenated, idle
+      rows all -1;
+    - ``last_token_index`` (R,): the packed index of each row's newest token;
+      ``sampling_params`` (R, 3); outputs lead with R and are not sliced.
+
+    Buckets count total packed tokens (``mixed_token_buckets``), not KV
+    windows, so ``window_buckets`` is False."""
+
+    window_buckets = False
+
+    def __init__(self, *args, num_rows: int, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.num_rows = num_rows
+
+    def forward(self, params, cache, batch_np: Dict[str, np.ndarray]):
+        if "slot_mapping" not in batch_np:
+            raise ValueError(
+                f"{self.tag}: mixed dispatch requires a host-computed slot_mapping "
+                "(per token, through each row's own table)"
+            )
+        return super().forward(params, cache, batch_np)
+
+    def _layout_inputs(self, batch_np, b: int, position_ids) -> Dict[str, np.ndarray]:
+        pad_s = position_ids.shape[1]
+        R, wt = self.num_rows, self._block_table_width()
+        bt = np.asarray(batch_np.get("block_table", np.full((1, R * wt), -1)), dtype=np.int32)
+        if bt.shape != (1, R * wt):
+            raise ValueError(f"{self.tag}: block_table {bt.shape} is not (1, {R * wt})")
+
+        def padded(key):
+            x = np.asarray(batch_np[key], dtype=np.int32).reshape(1, -1)
+            return np.concatenate([x, np.full((1, pad_s - x.shape[1]), -1, np.int32)], axis=1)
+
+        return {"block_table": bt, "mixed_row_ids": padded("mixed_row_ids"),
+                **scatter_indices(padded("slot_mapping"))}
+
+    @staticmethod
+    def _slice_batch_padding(outputs, orig_b: int):
+        # the packed batch is always one row; outputs lead with the R slots
+        return outputs
+
+    def warmup_batches(self):
+        """All -1 tags, slots and tables: warmup writes nothing and attends
+        nothing."""
+        R, wt = self.num_rows, self._block_table_width()
+        for bucket in self.buckets:
+            yield {
+                "input_ids": np.zeros((1, bucket), dtype=np.int32),
+                "position_ids": np.arange(bucket, dtype=np.int32)[None],
+                "last_token_index": np.zeros((R,), dtype=np.int32),
+                "sampling_params": np.tile([1.0, 1.0, 1.0], (R, 1)).astype(np.float32),
+                "mixed_row_ids": np.full((1, bucket), -1, dtype=np.int32),
+                "slot_mapping": np.full((1, bucket), -1, dtype=np.int32),
+                "block_table": np.full((1, R * wt), -1, dtype=np.int32),
+            }

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the paged KV pool — the
-split-dispatch subset of ``nxdi_tpu/serving/engine.py``.
+split- and mixed-dispatch subset of ``nxdi_tpu/serving/engine.py``.
 
-``InferenceEngine.step()`` is one scheduler iteration:
+``InferenceEngine.step()`` is one scheduler iteration. With split dispatch:
 
 1. **Prefill** admitted requests into free slots: one context-encoding
    dispatch per request, or under ``chunked_prefill_config`` one
@@ -14,13 +14,20 @@ split-dispatch subset of ``nxdi_tpu/serving/engine.py``.
 3. **Retire** finished slots (EOS / length): blocks freed (full blocks enter
    the radix prefix cache when it is on), slot recycled.
 
+With mixed dispatch (``mixed_dispatch=True``, the app's ``mixed_model``)
+steps 1 and 2 are ONE forward: this step's prefill chunks and every decode
+row packed into one token stream, served by the ragged paged-attention
+kernel. Chunking is the packing policy — the part of a prompt that does not
+fit the bucket budget continues next step — so neither chunked prefill nor
+the prefix cache needs the prefix-prefill submodel.
+
 Preemption: when the pool cannot grow a running decode, the scheduler
 evicts a request back to WAITING (blocks freed); on re-admission the engine
 re-prefills ``prompt + generated`` and the prefill's sampled token is simply
 the next new token — token-exact under greedy sampling.
 
 Not ported yet (each raises at construction where a config could ask for
-it): mixed dispatch, multistep decode and the device loop, contiguous
+it): multistep decode and the device loop, contiguous
 continuous batching, stochastic sampling, and the host plane (telemetry
 spans, flight recorder, SLO and QoS tracking, fault recovery, the
 disaggregation handoff).
@@ -40,11 +47,12 @@ from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
 from nxdi_tpu_torch.runtime.block_manager import BlockSpaceManager
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
+    TAG_MIXED,
     TAG_TOKEN_GENERATION,
     decode_window_limit,
 )
 from nxdi_tpu_torch.serving.prefix_cache import PrefixCache
-from nxdi_tpu_torch.serving.request import Request, RequestOutput, SamplingParams
+from nxdi_tpu_torch.serving.request import RUNNING, Request, RequestOutput, SamplingParams
 from nxdi_tpu_torch.serving.scheduler import Scheduler, SchedulerConfig
 
 logger = logging.getLogger("nxdi_tpu_torch")
@@ -92,9 +100,13 @@ class InferenceEngine:
             )
         self.block_manager = BlockSpaceManager(tc.pa_num_blocks, tc.pa_block_size)
         self._can_continue_prefill = TAG_PREFIX_PREFILL in app.models
+        # mixed dispatch: the whole step (prefill chunks + decode rows) is
+        # ONE packed mixed_model forward; it continues prefills by itself
+        self.mixed = app.mixed_supported
+        self._mixed = app.models[TAG_MIXED] if self.mixed else None
         if cfg.chunk_size is None and tc.chunked_prefill_config is not None:
             cfg.chunk_size = tc.chunked_prefill_config.chunk_size
-        if cfg.chunk_size is not None and not self._can_continue_prefill:
+        if cfg.chunk_size is not None and not self._can_continue_prefill and not self.mixed:
             # without a continuation submodel every multi-chunk prompt would
             # error-finish at its second chunk
             raise ValueError(
@@ -108,16 +120,17 @@ class InferenceEngine:
         # the tail through the prefix-prefill submodel
         self.prefix_cache = None
         if cfg.prefix_cache:
-            if not self._can_continue_prefill:
+            if not self._can_continue_prefill and not self.mixed:
                 raise ValueError(
                     "prefix_cache starts prefills at the cached position; "
                     "build the app with is_prefix_caching (or "
-                    "chunked_prefill_config) for the prefix-prefill submodel"
+                    "chunked_prefill_config) for the prefix-prefill submodel, "
+                    "or with mixed_dispatch"
                 )
             self.prefix_cache = PrefixCache(self.block_manager)
             self.scheduler.prefix_cache = self.prefix_cache
         # n>1 sibling forks start their tail prefill mid-prompt too
-        self.scheduler.can_fork = self._can_continue_prefill
+        self.scheduler.can_fork = self._can_continue_prefill or self.mixed
         self.window_limit = decode_window_limit(tc, app.models)
         self._table_width = -(-tc.seq_len // tc.pa_block_size)
         #: forwards this engine dispatched, by submodel
@@ -167,7 +180,10 @@ class InferenceEngine:
                 f"prompt length {len(req.prompt)} leaves no decode room "
                 f"inside the compiled window ({self.window_limit})"
             )
-        if len(req.prompt) > tc.max_context_length and self.scheduler.config.chunk_size is None:
+        if (len(req.prompt) > tc.max_context_length and self.scheduler.config.chunk_size is None
+                and not self.mixed):
+            # mixed dispatch chunks by itself: what does not fit the packed
+            # bucket's budget continues next step
             raise ValueError(
                 f"prompt length {len(req.prompt)} exceeds max_context_length "
                 f"{tc.max_context_length} and chunked prefill is not "
@@ -197,9 +213,13 @@ class InferenceEngine:
         return self.scheduler.has_work()
 
     def step(self) -> List[RequestOutput]:
-        """One engine iteration: prefill work, then one batched decode.
-        Returns the requests that FINISHED during this step."""
+        """One engine iteration: prefill work, then one batched decode (or
+        both in one mixed forward). Returns the requests that FINISHED during
+        this step."""
         finished: List[RequestOutput] = []
+        if self.mixed:
+            self._step_mixed(finished)
+            return finished
         prefills = self.scheduler.schedule_prefills()
         for req in prefills:
             self._prefill_chunk(req, finished)
@@ -314,10 +334,7 @@ class InferenceEngine:
         if not req.prefill_done:
             return  # more chunks next step; decodes interleave meanwhile
         self.scheduler.note_prefill_complete(req)
-        req.emit(int(extract_next_tokens(out)[0]))
-        reason = req.check_finish()
-        if reason:
-            self._finish(req, reason, finished)
+        self._emit(req, int(extract_next_tokens(out)[0]), finished)
 
     # -- decode -------------------------------------------------------------
     def _layout_kwargs(self, rows: List[Tuple[int, Request]]) -> Dict[str, np.ndarray]:
@@ -338,10 +355,104 @@ class InferenceEngine:
             **self._layout_kwargs(rows),
         )
         for (_, req), tok in zip(rows, extract_next_tokens(out)):
-            req.emit(int(tok))
-            reason = req.check_finish()
-            if reason:
-                self._finish(req, reason, finished)
+            self._emit(req, int(tok), finished)
+
+    # -- mixed dispatch -----------------------------------------------------
+    def _step_mixed(self, finished: List[RequestOutput]) -> None:
+        """One-dispatch mixed step: pack this step's prefill chunks and every
+        decode row into ONE token stream and serve it with a single
+        ``mixed_model`` forward. Prefill chunks come first, decode tokens
+        after them, so slots do not ascend along the stream."""
+        tc = self.tpu_config
+        preempted: List[Request] = []
+        prefills = self.scheduler.schedule_prefills()
+        rows = self.scheduler.decodable()
+        if rows:
+            # grow every decode row's table BEFORE packing: a preemption
+            # evicts its victim from THIS step's pack, never mid-dispatch.
+            # The victim may be a request admitted just above — the state
+            # filter below drops it from the pack.
+            rows, preempted = self.scheduler.ensure_decode_capacity(rows)
+            for victim in preempted:
+                logger.info("preempted request %d (recompute on re-admission)",
+                            victim.request_id)
+            rows = self._cow_decode_rows(rows)
+        prefills = [r for r in prefills if r.state == RUNNING]
+
+        budget = self._mixed.buckets[-1] - len(rows)  # decode tokens ride along
+        limit = self.scheduler.config.chunk_size or tc.max_context_length
+        tokens: List[int] = []
+        positions: List[int] = []
+        row_ids: List[int] = []
+        packed: List[Tuple[Request, int]] = []  # (request, chunk length)
+        for req in prefills:
+            room = min(limit, budget)
+            if room <= 0:
+                continue  # bucket full; this chunk continues next step
+            start = req.num_prefilled
+            chunk = req.seq_tokens[: req.prefill_target][start: start + room]
+            if not chunk:
+                continue
+            try:
+                self._cow_for_write(req, start, start + len(chunk))
+            except RuntimeError:
+                logger.info("preempted request %d: no block for its COW copy", req.request_id)
+                self.scheduler._preempt(req)
+                continue
+            tokens.extend(chunk)
+            positions.extend(range(start, start + len(chunk)))
+            row_ids.extend([req.slot] * len(chunk))
+            packed.append((req, len(chunk)))
+            budget -= len(chunk)
+        for slot, req in rows:
+            tokens.append(req.generated[-1])
+            positions.append(req.total_len - 1)
+            row_ids.append(slot)
+
+        self._progress = bool(packed) or bool(rows) or bool(preempted)
+        if not tokens:
+            return
+
+        R, wt, bs = tc.tkg_batch_size, self._table_width, tc.pa_block_size
+        bt = np.full((R, wt), -1, dtype=np.int32)
+        lti = np.zeros((R,), dtype=np.int32)
+        params_rows: List[SamplingParams] = [SamplingParams()] * R
+        by_slot: Dict[int, Request] = {req.slot: req for req, _ in packed}
+        by_slot.update({slot: req for slot, req in rows})
+        for slot, req in by_slot.items():
+            bt[slot] = self.block_manager.block_table(req.request_id, wt)
+            params_rows[slot] = req.params
+        sm = np.empty((len(tokens),), dtype=np.int32)
+        for t, (slot, p) in enumerate(zip(row_ids, positions)):
+            entry = int(bt[slot][p // bs])
+            sm[t] = entry * bs + p % bs if entry >= 0 else -1
+            lti[slot] = t  # a row's tokens are packed ascending: the last wins
+        out = self._forward(
+            TAG_MIXED,
+            np.asarray(tokens, dtype=np.int32)[None, :],
+            np.asarray(positions, dtype=np.int32)[None, :],
+            last_token_index=lti,
+            sampling_params=SamplingParams.rows_tensor(params_rows),
+            block_table=bt.reshape(1, R * wt),
+            slot_mapping=sm[None, :],
+            mixed_row_ids=np.asarray(row_ids, dtype=np.int32)[None, :],
+        )
+        toks = extract_next_tokens(out)  # (R,): one per slot; idle rows garbage
+
+        for req, n in packed:
+            req.num_prefilled += n
+            if not req.prefill_done:
+                continue  # more chunks next step; decodes keep interleaving
+            self.scheduler.note_prefill_complete(req)
+            self._emit(req, int(toks[req.slot]), finished)
+        for slot, req in rows:
+            self._emit(req, int(toks[slot]), finished)
+
+    def _emit(self, req: Request, token: int, finished: List[RequestOutput]) -> None:
+        req.emit(token)
+        reason = req.check_finish()
+        if reason:
+            self._finish(req, reason, finished)
 
     # -- retirement ---------------------------------------------------------
     def _finish(self, req: Request, reason: str, finished: List[RequestOutput]) -> None:

@@ -84,3 +84,30 @@ def test_app_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchModelForCausalLM("<none>", cfg, model_family=ml)
     assert TorchModelForCausalLM("<none>", cfg, model_family=ml, device="cpu").device.type == "cpu"
+
+
+def test_helpers_default_to_the_card():
+    """``init_kv_cache`` and ``dense.random_params`` put their tensors on the
+    card unless the CPU is asked for: without a GPU the default raises as
+    ``resolve_device`` does."""
+    from nxdi_tpu_torch.config import TorchConfig
+    from nxdi_tpu_torch.kvcache.kv_cache import KVCacheSpec, init_kv_cache
+    from nxdi_tpu_torch.models import dense
+    from nxdi_tpu_torch.models.llama import modeling_llama as ml
+
+    cfg = ml.LlamaInferenceConfig(
+        TorchConfig(seq_len=16), hidden_size=16, intermediate_size=32, num_hidden_layers=1,
+        num_attention_heads=2, num_key_value_heads=1, vocab_size=32, rms_norm_eps=1e-5,
+    )
+    arch = ml.build_arch(cfg)
+    spec = KVCacheSpec(num_layers=1, batch_size=1, num_kv_heads=1, max_len=8, head_dim=8)
+    if torch.cuda.is_available():
+        assert init_kv_cache(spec)["k"].is_cuda
+        assert dense.random_params(arch)["norm"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_kv_cache(spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dense.random_params(arch)
+    assert init_kv_cache(spec, device="cpu")["k"].device.type == "cpu"
+    assert dense.random_params(arch, device="cpu")["norm"].device.type == "cpu"

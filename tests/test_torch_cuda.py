@@ -7,11 +7,14 @@ machine has no JAX, so run them there without the repository's conftest:
         tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+from nxdi_tpu_torch.ops.kernels import fused_proj as fp
 from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +114,67 @@ def test_paged_prefill_takes_tables_from_the_host(gen):
     want = fa.paged_attention_prefill_plain(q, kc, vc, bt.cuda(), q_pos.cuda(), block_size=bs,
                                             k_scale=1.5, v_scale=0.25)
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+def test_ragged_takes_tags_and_tables_from_the_host(gen, dtype, tol):
+    """int32 numpy tags and tables with operands on the card: a prefill chunk
+    of slot 2, then decode tokens of slots 0 and 3 (a hole before one), a
+    row whose blocks are all holes, and padding, which must be exactly 0."""
+    H, KV, D, bs, T = 8, 2, 64, 16, 40
+    kc_, vc_ = _randn(gen, 16 * bs, KV, D).to(dtype), _randn(gen, 16 * bs, KV, D).to(dtype)
+    bt = np.array([[5, 1, -1, -1], [-1, -1, -1, -1], [3, 7, 0, -1], [2, -1, 9, -1]], np.int32)
+    rid = np.full(T, -1, np.int32)
+    qp = np.zeros(T, np.int32)
+    rid[:20], qp[:20] = 2, np.arange(14, 34)
+    rid[20:23], qp[20:23] = [0, 3, 1], [20, 40, 5]
+    q = _randn(gen, 1, T, H, D).to(dtype).transpose(1, 2)
+    before = rpa.ragged_paged_attention.launches
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs, k_scale=0.5,
+                                     v_scale=2.0)
+    assert rpa.ragged_paged_attention.launches == before + 1
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, block_size=bs,
+                                            k_scale=0.5, v_scale=2.0)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.all(got[:, :, 22:] == 0)  # slot 1 sees nothing; the tail is padding
+
+
+def test_ragged_raises_on_too_many_rows(gen):
+    q = _randn(gen, 1, 4, 8, 16)
+    pool = _randn(gen, 64, 2, 16)
+    bt = np.full((65, 1), -1, np.int32)
+    with pytest.raises(ValueError, match="rows"):
+        rpa.ragged_paged_attention(q, pool, pool, bt, np.zeros(8, np.int32),
+                                   np.zeros(8, np.int32), block_size=64)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+def test_qkv_and_mlp_kernels(gen, dtype, tol):
+    """Both entries of each kernel at a ragged M, the stacked ones at a
+    middle layer, against the plain versions; every activation."""
+    M, H, T, I, L = 37, 64, 96, 128, 3
+    x = _randn(gen, M, H).to(dtype)
+    w = (_randn(gen, L, H, T) * 0.1).to(dtype)
+    b = (_randn(gen, L, T) * 0.1).to(dtype)
+    before = fp.qkv_matmul.launches
+    got = fp.qkv_matmul_stacked(x, w, 1, b)
+    assert fp.qkv_matmul.launches == before + 1
+    assert (got.float() - fp.qkv_matmul_plain(x, w[1], b[1]).float()).abs().max() <= tol
+    g, u = (_randn(gen, L, H, I) * 0.1).to(dtype), (_randn(gen, L, H, I) * 0.1).to(dtype)
+    d = (_randn(gen, L, I, H) * 0.1).to(dtype)
+    for act in fp.KERNEL_ACTS:
+        before = fp.fused_mlp.launches
+        got = fp.fused_mlp_stacked(x, g, u, d, 2, act=act)
+        assert fp.fused_mlp.launches == before + 1
+        want = fp.fused_mlp_plain(x, g[2], u[2], d[2], act)
+        assert (got.float() - want.float()).abs().max() <= tol, act
+    assert torch.equal(fp.fused_mlp(x, g[0], u[0], d[0]), fp.fused_mlp_stacked(x, g, u, d, 0))
+
+
+def test_projection_kernels_raise_on_ineligible_shapes(gen):
+    x = _randn(gen, 4, 12)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fp.qkv_matmul(x, _randn(gen, 12, 20))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fp.fused_mlp(_randn(gen, 4, 16), _randn(gen, 16, 12), _randn(gen, 16, 12),
+                     _randn(gen, 12, 16))

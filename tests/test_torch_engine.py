@@ -301,13 +301,19 @@ def test_n_fork_shares_the_prompt_copy_on_write(tiny_hf_llama):
 
 def test_engine_refuses_what_is_not_ported(tiny_hf_llama):
     hf_model, hf_cfg = tiny_hf_llama
-    for key, value in (("mixed_dispatch", True), ("device_loop", True),
+    for key, value in (("device_loop", True),
                        ("decode_steps_per_dispatch", 2), ("role", "decode"),
                        ("is_continuous_batching", True)):
         with pytest.raises(NotImplementedError, match=key):
             TorchConfig(**{key: value})
     with pytest.raises(ValueError, match="requires is_block_kv_layout"):
         TorchConfig(is_prefix_caching=True)
+    # mixed dispatch is ported; the JAX package's rules for it and for the
+    # fused projection flags hold word for word
+    with pytest.raises(ValueError, match="mixed_dispatch requires is_block_kv_layout"):
+        TorchConfig(mixed_dispatch=True)
+    with pytest.raises(ValueError, match="qkv_kernel_enabled requires fused_qkv"):
+        TorchConfig(qkv_kernel_enabled=True)
     cfg = tml.LlamaInferenceConfig(
         TorchConfig(seq_len=16, on_device_sampling_config=OnDeviceSamplingConfig()),
         load_config=lambda: hf_cfg.to_dict(),
