@@ -13,9 +13,13 @@ code is non-zero:
 3b. The paged-decode, paged-prefill and window-decode kernels the same way,
    at the serving engine's shapes (block 128, and block 16 for correctness).
 3c. The mixed step's kernels the same way: the fused QKV GEMM and the fused
-   MLP at 8 and 520 rows, and ragged paged attention over a packed prefill
-   chunk and 7 decode rows (block 128; block 16 with holes, a row that sees
-   nothing and k/v scales).
+   MLP over M = 2, 8, 64, 128, 520, 1032 (bf16 timed at each M over 21
+   flushed calls: median, min, max, and the GEMM bodies each ran; the SM
+   clock and power while the MLP at 520 rows runs back to back; f32 timed
+   at 8 and 520; every call checked for the same bits on a second call),
+   and ragged paged attention over a packed prefill chunk and 7 decode rows
+   (block 128; block 16 with holes, a row that sees nothing and k/v
+   scales).
 4. The slice at full Llama-3.2-1B width, 2 layers, float32: greedy
    ``generate()`` on the CPU (plain versions) and on the card (kernels),
    every step's logits held against each other.
@@ -33,7 +37,8 @@ code is non-zero:
    engine's dispatch counts, tok/s, TTFT, TPOT and a profiled decode step.
 5c. The same configuration and traffic with mixed dispatch: exact launch
    counts, tok/s, TTFT, TPOT, packed vs padded tokens per bucket and
-   profiled steps, printed beside phase 5b's.
+   profiled steps (with the port's GEMM time by body), printed beside
+   phase 5b's.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -45,6 +50,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +67,13 @@ TOL = {
     ("decode", "float32"): 1e-5,
     ("decode", "bfloat16"): 1e-3,
 }
+# phase 3c's GEMM sweep: rungs of the mixed engine's packed-token ladder
+# (bucket 8 is the decode step; 1032 the packed prefill + decode step) and
+# 520 (a 512-token chunk + 8 decode rows); bf16 timed at each M over
+# GEMM_CALLS flushed calls, f32 checked at each M and timed at 8 and 520
+GEMM_SWEEP_M = (2, 8, 64, 128, 520, 1032)
+GEMM_CALLS = 21
+GEMM_NAME = re.compile(r"gemm_[a-z_]+_kernel<[^>]*>")
 LOGIT_TOL = 1e-4  # phases 4/4b/4c: float32 CPU vs card logits (measured 8.9e-6, 8.5e-6 and
 # 1.9e-5), 2 layers, full width
 # phase 3b (paged decode, paged prefill, window decode): a few times the
@@ -95,28 +108,96 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def measure(torch, fn, n=5, flush=None, kernel=None):
-    """Device ms of one ``fn()``: the summed duration of the kernels it ran,
-    from a ``torch.profiler`` trace, averaged over ``n`` runs with the L2
-    cache evicted (untimed) before each. With ``kernel``, only kernels whose
-    name contains it count (not a wrapper's small argument copies)."""
+def device_times(torch, fn, n=5, flush=None, kernel=None):
+    """Device ms of ``n`` calls of ``fn()`` (after one untimed): the summed
+    duration of the kernels each ran, from a ``torch.profiler`` trace, with
+    the L2 cache evicted (untimed) before each; the names of the kernels
+    counted; and how many calls were dropped. With ``kernel``, only kernels
+    whose name contains it count (not a wrapper's small argument copies).
+    On the card's machine a trace now and then comes back empty or short of
+    kernels. Every call of these functions runs the same kernels, so a call
+    whose trace holds fewer kernel launches than the fullest one is dropped
+    and another made in its place, up to ``4 * n`` calls in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    dev = 0.0
-    for _ in range(n):
+    calls, names = [], set()  # (kernel launches traced, ms) of each call
+    for _ in range(4 * n):
         if flush is not None:
             flush()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        dev += sum(k.self_device_time_total for k in prof.key_averages()
-                   if kernel is None or kernel in k.key) / 1e3
-    if dev <= 0.0:
+        ks = [k for k in prof.key_averages() if kernel is None or kernel in k.key]
+        calls.append((sum(k.count for k in ks), sum(k.self_device_time_total for k in ks) / 1e3))
+        names.update(k.key for k in ks)
+        full = max(c for c, _ in calls)
+        if full > 0 and sum(c == full for c, _ in calls) >= n:
+            break
+    full = max(c for c, _ in calls)
+    if full == 0:
         raise RuntimeError("torch.profiler recorded no device time on this machine")
-    return dev / n
+    times = [t for c, t in calls if c == full][:n]
+    return times, names, len(calls) - len(times)
+
+
+def traced_times(torch, fn, n, flush, kernel=None):
+    """device_times, of which at least half the ``n`` calls wanted must be
+    complete traces."""
+    times, names, dropped = device_times(torch, fn, n, flush, kernel)
+    assert 2 * len(times) >= n, f"only {len(times)} of {n + dropped} calls were traced in full"
+    if dropped:
+        log(f"[timing] {dropped} of {len(times) + dropped} profiled calls traced short; dropped")
+    return times, names, dropped
+
+
+def measure(torch, fn, n=5, flush=None, kernel=None):
+    """Mean device ms of one ``fn()`` over the fully traced ones of ``n``
+    calls (see device_times)."""
+    times, _, _ = traced_times(torch, fn, n, flush, kernel)
+    return sum(times) / len(times)
+
+
+def spread(times):
+    """(median, min, max) of per-call times."""
+    t = sorted(times)
+    mid = len(t) // 2
+    return (t[mid] if len(t) % 2 else (t[mid - 1] + t[mid]) / 2), t[0], t[-1]
+
+
+def gemm_bodies(names):
+    """The port's GEMM kernels among profiler kernel names, shortened
+    (``gemm_wgmma_kernel<false, 0>``)."""
+    return sorted({m.group(0) for n in names for m in [GEMM_NAME.search(n)] if m})
+
+
+def smi_under_load(torch, fn, seconds=1.0):
+    """The card's SM clock (MHz) and power draw (W), sampled every 100 ms by
+    nvidia-smi while ``fn`` runs back to back for ``seconds``: (median clock,
+    median power, number of samples)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t = time.perf_counter()
+        while time.perf_counter() - t < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    samples = []
+    for line in out.strip().splitlines():
+        try:
+            samples.append(tuple(float(v) for v in line.split(",")))
+        except ValueError:
+            continue
+    if not samples:
+        return None, None, 0
+    return spread([c for c, _ in samples])[0], spread([w for _, w in samples])[0], len(samples)
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -430,8 +511,41 @@ def _new_kernel_row(results, name, dname, err, ms, plain_ms, lib_ms, nbytes, flo
     assert err <= tol, f"{name} {dname} {extra}: max abs err {err} > {tol}"
     results.append(dict(kernel=name, dtype=dname, max_abs_err=err, tol=tol, ms=ms,
                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, **extra))
-    log(f"[kernels] {name} {dname} {extra}: err {err:.3g} kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+    where = " ".join(f"{k}={extra[k]}" for k in ("M", "block") if k in extra)
+    rng = (f" (min {extra['ms_min']:.4f} max {extra['ms_max']:.4f}, library min "
+           f"{extra['library_min']:.4f} max {extra['library_max']:.4f}, {extra['calls']} calls)"
+           if "ms_min" in extra else "")
+    log(f"[kernels] {name} {dname} {where}: err {err:.3g} kernel {ms:.4f} ms{rng} plain "
+        f"{plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}) ratio "
+        f"{ms / lib_ms:.2f}x library {ms / bms:.2f}x bound"
+        + (f"; {' + '.join(extra['bodies'])}" if extra.get("bodies") else ""))
+
+
+def gemm_point(torch, results, name, dname, M, call, plain, library, nbytes, flops, flush):
+    """One (product, dtype, M) point of phase 3c's GEMM sweep: the kernel
+    against its plain version, the same bits on a second call (the split-K
+    reduction is ordered), then — bf16 at every M, f32 at 8 and 520 — the
+    per-call device times of kernel and library (median, min, max) and the
+    plain version's mean."""
+    got = call()
+    err = (got.float() - plain().float()).abs().max().item()
+    assert torch.equal(call(), got), f"{name} {dname} M={M}: a second call gave other bits"
+    bf16 = dname == "bfloat16"
+    if not bf16 and M not in (8, 520):
+        tol = NEW_TOL[(name, dname)]
+        assert err <= tol, f"{name} {dname} M={M}: max abs err {err} > {tol}"
+        log(f"[kernels] {name} {dname} M={M}: err {err:.3g}")
+        return None
+    n = GEMM_CALLS if bf16 else 5
+    times, names, dropped = traced_times(torch, call, n, flush, kernel="gemm")
+    ms, lo, hi = spread(times)
+    lib_times, _, lib_dropped = traced_times(torch, library, n, flush)
+    lib_ms, lib_lo, lib_hi = spread(lib_times)
+    plain_ms = measure(torch, plain, n=3, flush=flush)
+    _new_kernel_row(results, name, dname, err, ms, plain_ms, lib_ms, nbytes, flops, M=M,
+                    ms_min=lo, ms_max=hi, library_min=lib_lo, library_max=lib_hi,
+                    calls=len(times), untraced=dropped + lib_dropped, bodies=gemm_bodies(names))
+    return results[-1]
 
 
 def ragged_case(torch, dev, R, NB, bs, nblk):
@@ -492,37 +606,36 @@ def check_mixed_kernels(torch, results):
         dt = getattr(torch, dname)
         es = torch.tensor([], dtype=dt).element_size()
 
-        # --- fused QKV ---
+        # --- fused QKV over the M sweep ---
         w_s = randn((L, Hin, Tqkv), dt, 0.02)
         w = w_s[li]
-        for M in (8, 520):
+        for M in GEMM_SWEEP_M:
             x = randn((M, Hin), dt)
-            got = fp.qkv_matmul(x, w)
-            err = err_of(got, fp.qkv_matmul_plain(x, w))
-            if M == 8:
-                assert torch.equal(fp.qkv_matmul_stacked(x, w_s, li), got), "qkv stacked"
-            ms = measure(torch, lambda: fp.qkv_matmul(x, w), flush=flush, kernel="gemm")
-            plain_ms = measure(torch, lambda: fp.qkv_matmul_plain(x, w), flush=flush)
-            lib_ms = measure(torch, lambda: torch.matmul(x, w), flush=flush)
-            _new_kernel_row(results, "qkv", dname, err, ms, plain_ms, lib_ms,
-                            (M * Hin + Hin * Tqkv + M * Tqkv) * es, 2 * M * Hin * Tqkv, M=M)
+            assert torch.equal(fp.qkv_matmul_stacked(x, w_s, li), fp.qkv_matmul(x, w)), \
+                f"qkv stacked M={M}"
+            gemm_point(torch, results, "qkv", dname, M, lambda: fp.qkv_matmul(x, w),
+                       lambda: fp.qkv_matmul_plain(x, w), lambda: torch.matmul(x, w),
+                       (M * Hin + Hin * Tqkv + M * Tqkv) * es, 2 * M * Hin * Tqkv, flush)
         del w_s, w
 
-        # --- fused MLP ---
+        # --- fused MLP over the M sweep ---
         g_s, u_s = randn((L, Hm, Im), dt, 0.02), randn((L, Hm, Im), dt, 0.02)
         d_s = randn((L, Im, Hm), dt, 0.02)
         g, u, d = g_s[li], u_s[li], d_s[li]
-        for M in (8, 520):
+        for M in GEMM_SWEEP_M:
             x = randn((M, Hm), dt)
-            got = fp.fused_mlp(x, g, u, d)
-            err = err_of(got, fp.fused_mlp_plain(x, g, u, d))
-            if M == 8:
-                assert torch.equal(fp.fused_mlp_stacked(x, g_s, u_s, d_s, li), got), "mlp stacked"
-            ms = measure(torch, lambda: fp.fused_mlp(x, g, u, d), flush=flush, kernel="gemm")
-            plain_ms = measure(torch, lambda: fp.fused_mlp_plain(x, g, u, d), flush=flush)
-            lib_ms = measure(torch, lambda: (F.silu(x @ g) * (x @ u)) @ d, flush=flush)
-            _new_kernel_row(results, "mlp", dname, err, ms, plain_ms, lib_ms,
-                            (2 * M * Hm + 3 * Hm * Im) * es, 6 * M * Hm * Im, M=M)
+            assert torch.equal(fp.fused_mlp_stacked(x, g_s, u_s, d_s, li),
+                               fp.fused_mlp(x, g, u, d)), f"mlp stacked M={M}"
+            row = gemm_point(torch, results, "mlp", dname, M, lambda: fp.fused_mlp(x, g, u, d),
+                             lambda: fp.fused_mlp_plain(x, g, u, d),
+                             lambda: (F.silu(x @ g) * (x @ u)) @ d,
+                             (2 * M * Hm + 3 * Hm * Im) * es, 6 * M * Hm * Im, flush)
+            if dname == "bfloat16" and M == 520:
+                # the card's clock and power while this point runs back to back
+                clk, pw, k = smi_under_load(torch, lambda: fp.fused_mlp(x, g, u, d))
+                row.update(sm_clock_mhz=clk, power_w=pw, smi_samples=k)
+                log(f"[kernels] mlp bfloat16 M=520 back to back: SM clock {clk} MHz, power "
+                    f"{pw} W (median of {k} nvidia-smi samples)")
         del g_s, u_s, d_s, g, u, d
         for act in fp.KERNEL_ACTS[1:]:  # correctness at a small width
             x, g, u = randn((40, 256), dt), randn((256, 512), dt, 0.05), randn((256, 512), dt, 0.05)
@@ -1087,9 +1200,17 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
             str(b): dict(dispatches=v[0], packed=v[1], padded=v[2])
             for b, v in sorted(buckets.items())}
     for kind, (step_ms, busy_ms, by_kernel) in profiled.items():
+        gemm = {}  # the port's GEMM kernels (phase 5c) by body
+        for t, name in by_kernel:
+            for body in gemm_bodies([name]):
+                key = body.split("<")[0]
+                gemm[key] = gemm.get(key, 0.0) + t
         stats[f"profiled_{kind}_step"] = dict(
             wall_ms=step_ms, busy_ms=busy_ms, idle_pct=100 * (1 - busy_ms / step_ms),
-            top=by_kernel[:10])
+            gemm_ms=sum(gemm.values()), gemm_ms_by_body=gemm, top=by_kernel[:10])
+        if gemm:
+            log(f"{tag} profiled {kind} step: port GEMM kernels {sum(gemm.values()):.3f} ms ("
+                + "; ".join(f"{k} {v:.3f}" for k, v in sorted(gemm.items())) + ")")
         log(f"{tag} profiled {kind} step (8 rows): wall {step_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / step_ms):.1f}%); top: "
             + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in by_kernel[:6]))
@@ -1184,16 +1305,17 @@ def main() -> int:
                 "nxdi_tpu/ops/kernels/fused_proj.py:128,246"),
     }
     summary = []
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for key, (name, src, replaces) in sources.items():
-        # the QKV and MLP rows at the packed step's 520 rows
-        row = next(r for r in kernel_results if r["kernel"] == key and r["dtype"] == "bfloat16"
-                   and r.get("M", 520) == 520)
-        summary.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[key],
-            **{f: row[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
-        })
+        # the QKV and MLP rows at the packed step's 520 rows first, then by M
+        rows = [r for r in kernel_results if r["kernel"] == key and r["dtype"] == "bfloat16"]
+        rows.sort(key=lambda r: r.get("M", 520) != 520)
+        for row in rows:
+            entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": counts[key], **{f: row[f] for f in fields}}
+            if "M" in row:
+                entry.update(M=row["M"], ms_min=row["ms_min"], ms_max=row["ms_max"])
+            summary.append(entry)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,

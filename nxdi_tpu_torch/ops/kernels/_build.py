@@ -43,8 +43,12 @@ SIGNATURES = {
     "nxdi_paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4 + [_F, _F, _P],
     "nxdi_paged_prefill": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_LL] * 6 + [_F, _F, _P],
     "nxdi_ragged_paged": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_LL] * 4 + [_F, _F, _P],
-    "nxdi_qkv_matmul": [_I, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
-    "nxdi_fused_mlp": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+    # ... + the GEMM plan (body, tile rows and columns, splits, K slice;
+    # fused_proj.GemmPlan.args), twice for the MLP (gate/up, then down), the
+    # split-K workspace, then the stream
+    "nxdi_qkv_matmul": [_I, _P, _P, _P, _I, _I, _I, _I, _LL] + [_I] * 5 + [_P, _P],
+    "nxdi_fused_mlp": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL] + [_I] * 10
+    + [_P, _P],
 }
 
 _lock = threading.Lock()

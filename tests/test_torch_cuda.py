@@ -7,6 +7,8 @@ machine has no JAX, so run them there without the repository's conftest:
         tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -178,3 +180,87 @@ def test_projection_kernels_raise_on_ineligible_shapes(gen):
     with pytest.raises(ValueError, match="multiples of 8"):
         fp.fused_mlp(_randn(gen, 4, 16), _randn(gen, 16, 12), _randn(gen, 16, 12),
                      _randn(gen, 12, 16))
+
+
+# the rows the GEMM bodies must take: around the stream/wgmma switch (64/65),
+# the 16/32/64 row tiles and the 128-row wgmma tile, and the mixed engine's
+# packed steps (520 = a 512-token chunk + 8 decode rows; the 1032 bucket)
+GEMM_MS = [1, 2, 7, 8, 16, 63, 64, 65, 127, 128, 129, 520, 1032]
+GEMM_TOL = 5e-2  # bf16: one output ulp at 2-4 (the outputs here reach ~4), as chip_smoke.py
+
+
+def _bf(gen, scale, *shape):
+    return (_randn(gen, *shape) * scale).to(torch.bfloat16)
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("M", GEMM_MS)
+def test_gemm_bodies_at_llama_widths(gen, M):
+    """QKV (2048 -> 3072) and the silu MLP (2048 -> 8192 -> 2048) in bf16
+    at M, through the body gemm_plan picks, the stacked entries at a middle
+    layer: against the plain versions, and bitwise-equal on a second call
+    (the split-K reduction is ordered, no atomics)."""
+    L, li, H, T, I = 3, 1, 2048, 3072, 8192
+    x = _bf(gen, 1.0, M, H)
+    w = _bf(gen, 0.02, L, H, T)
+    got = fp.qkv_matmul_stacked(x, w, li)
+    assert _max_err(got, fp.qkv_matmul_plain(x, w[li])) <= GEMM_TOL
+    assert torch.equal(fp.qkv_matmul_stacked(x, w, li), got)
+    assert torch.equal(fp.qkv_matmul(x, w[li]), got)
+    del w
+    g, u, d = _bf(gen, 0.02, L, H, I), _bf(gen, 0.02, L, H, I), _bf(gen, 0.02, L, I, H)
+    before = fp.fused_mlp.launches
+    got = fp.fused_mlp_stacked(x, g, u, d, li)
+    assert fp.fused_mlp.launches == before + 1
+    assert _max_err(got, fp.fused_mlp_plain(x, g[li], u[li], d[li])) <= GEMM_TOL
+    assert torch.equal(fp.fused_mlp_stacked(x, g, u, d, li), got)
+    assert torch.equal(fp.fused_mlp(x, g[li], u[li], d[li]), got)
+
+
+@pytest.mark.parametrize("K,N", [(72, 40), (200, 136)])
+@pytest.mark.parametrize("M", GEMM_MS)
+def test_gemm_bodies_at_ragged_widths(gen, M, K, N):
+    """Widths that are multiples of 8 but of no tile (boxes and tiles past
+    the edges), every activation, the stacked entries at a middle layer."""
+    L, li = 3, 1
+    sk, sn = K ** -0.5, N ** -0.5  # outputs of about unit scale
+    x = _bf(gen, 1.0, M, K)
+    w = _bf(gen, sk, L, K, N)
+    got = fp.qkv_matmul_stacked(x, w, li)
+    assert _max_err(got, fp.qkv_matmul_plain(x, w[li])) <= GEMM_TOL
+    assert torch.equal(fp.qkv_matmul_stacked(x, w, li), got)
+    g, u, d = _bf(gen, sk, L, K, N), _bf(gen, sk, L, K, N), _bf(gen, sn, L, N, K)
+    for act in fp.KERNEL_ACTS:
+        got = fp.fused_mlp_stacked(x, g, u, d, li, act=act)
+        assert _max_err(got, fp.fused_mlp_plain(x, g[li], u[li], d[li], act)) <= GEMM_TOL, act
+        assert torch.equal(fp.fused_mlp_stacked(x, g, u, d, li, act=act), got), act
+
+
+@pytest.mark.parametrize("forced", [("stream", 64, 128), ("wgmma", 128, 128),
+                                    ("wgmma", 128, 256)])
+@pytest.mark.parametrize("M", [2, 65, 520])
+def test_gemm_forced_plans(gen, monkeypatch, M, forced):
+    """Every body and wgmma tile width the kernels take (what
+    scripts/bench_gemm_plans.py measures: the default plan with the body and
+    tiles replaced, its K split kept), against the plain versions."""
+    body, bm, width = forced
+    default = fp._plan
+
+    def plan(M_, N_, K_, dual, x):
+        bn = width // (2 if dual else 1)  # the dual pair's output tiles are half the B tile
+        return dataclasses.replace(default(M_, N_, K_, dual, x), body=body, bm=bm, bn=bn,
+                                   m_tiles=-(-M_ // bm), n_tiles=-(-N_ // bn))
+
+    monkeypatch.setattr(fp, "_plan", plan)
+    H, T, I = 512, 512, 1024
+    x, w = _bf(gen, 1.0, M, H), _bf(gen, H ** -0.5, H, T)
+    got = fp.qkv_matmul(x, w)
+    assert _max_err(got, fp.qkv_matmul_plain(x, w)) <= GEMM_TOL
+    assert torch.equal(fp.qkv_matmul(x, w), got)
+    g, u, d = _bf(gen, H ** -0.5, H, I), _bf(gen, H ** -0.5, H, I), _bf(gen, I ** -0.5, I, H)
+    got = fp.fused_mlp(x, g, u, d)
+    assert _max_err(got, fp.fused_mlp_plain(x, g, u, d)) <= GEMM_TOL
+    assert torch.equal(fp.fused_mlp(x, g, u, d), got)
