@@ -9,7 +9,9 @@ code is non-zero:
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
 2. Build: the hand-written CUDA kernels from ``nxdi_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions at the slice's shapes, in
-   bfloat16 and float32, with kernel / plain / library times and the bound.
+   bfloat16 and float32, with kernel / plain / library times and the bound;
+   the prefill by the kernel that ran (the TMA + wgmma body in bf16), beside
+   the earlier mma.sync body, and at head dim 128.
 3b. The paged-decode, paged-prefill and window-decode kernels the same way,
    at the serving engine's shapes (block 128, and block 16 for correctness).
 3c. The mixed step's kernels the same way: the fused QKV GEMM and the fused
@@ -17,9 +19,10 @@ code is non-zero:
    flushed calls: median, min, max, and the GEMM bodies each ran; the SM
    clock and power while the MLP at 520 rows runs back to back; f32 timed
    at 8 and 520; every call checked for the same bits on a second call),
-   and ragged paged attention over a packed prefill chunk and 7 decode rows
-   (block 128; block 16 with holes, a row that sees nothing and k/v
-   scales).
+   and ragged paged attention over 8 decode rows (bucket 8) and over a packed
+   prefill chunk with 7 decode rows (bucket 1032; block 128: 21 flushed
+   calls each, beside the earlier one-kernel design; block 16 with holes, a
+   row that sees nothing and k/v scales).
 4. The slice at full Llama-3.2-1B width, 2 layers, float32: greedy
    ``generate()`` on the CPU (plain versions) and on the card (kernels),
    every step's logits held against each other.
@@ -74,6 +77,15 @@ TOL = {
 GEMM_SWEEP_M = (2, 8, 64, 128, 520, 1032)
 GEMM_CALLS = 21
 GEMM_NAME = re.compile(r"gemm_[a-z_]+_kernel<[^>]*>")
+# phase 3's prefill and phase 3c's ragged points: flushed calls timed
+PREFILL_CALLS = 21
+RAGGED_CALLS = 21
+# the kernel each contiguous prefill body launches (flash_attention.prefill_body)
+PREFILL_KERNEL = {"wgmma": "prefill_wgmma_kernel", "mma": "prefill_tc_kernel",
+                  "simt": "prefill_kernel"}
+# the attention kernels a profiled step's time is split into, by name
+ATTN_NAME = re.compile(r"(prefill_wgmma_kernel|prefill_tc_kernel|prefill_kernel|"
+                       r"ragged_split_kernel|ragged_combine_kernel|decode_kernel)<")
 LOGIT_TOL = 1e-4  # phases 4/4b/4c: float32 CPU vs card logits (measured 8.9e-6, 8.5e-6 and
 # 1.9e-5), 2 layers, full width
 # phase 3b (paged decode, paged prefill, window decode): a few times the
@@ -120,6 +132,8 @@ def device_times(torch, fn, n=5, flush=None, kernel=None):
     and another made in its place, up to ``4 * n`` calls in all."""
     from torch.profiler import ProfilerActivity, profile
 
+    if isinstance(kernel, str):
+        kernel = (kernel,)
     fn()
     torch.cuda.synchronize()
     calls, names = [], set()  # (kernel launches traced, ms) of each call
@@ -130,7 +144,8 @@ def device_times(torch, fn, n=5, flush=None, kernel=None):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ks = [k for k in prof.key_averages() if kernel is None or kernel in k.key]
+        ks = [k for k in prof.key_averages()
+              if kernel is None or any(n in k.key for n in kernel)]
         calls.append((sum(k.count for k in ks), sum(k.self_device_time_total for k in ks) / 1e3))
         names.update(k.key for k in ks)
         full = max(c for c, _ in calls)
@@ -200,6 +215,44 @@ def smi_under_load(torch, fn, seconds=1.0):
     return spread([c for c, _ in samples])[0], spread([w for _, w in samples])[0], len(samples)
 
 
+def attention_ms(by_kernel):
+    """Device ms of a profiled window's attention kernels, by kernel name."""
+    out = {}
+    for t, name in by_kernel:
+        m = ATTN_NAME.search(name)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + t
+    return out
+
+
+class forced_prefill_body:
+    """Within the block, the contiguous prefill runs ``body`` (to time an
+    earlier body on the same inputs)."""
+
+    def __init__(self, fa, body):
+        self.fa, self.body = fa, body
+
+    def __enter__(self):
+        self.saved = self.fa.prefill_body
+        self.fa.prefill_body = lambda *a: self.body
+
+    def __exit__(self, *exc):
+        self.fa.prefill_body = self.saved
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds of one ``fn()`` call (the enqueue: argument checks,
+    tensor maps, the launch), over ``n`` calls between synchronisations."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def bound_ms(nbytes, flops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -247,25 +300,49 @@ def check_kernels(torch, results):
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[("prefill", dname)]
         assert err <= tol, f"prefill {dname}: max abs err {err} > {tol}"
-        ms = measure(torch, lambda: fa.flash_attention_prefill(q, k, v, pos, pos), flush=flush,
-                                kernel="prefill")
+        assert torch.equal(fa.flash_attention_prefill(q, k, v, pos, pos), got), \
+            f"prefill {dname}: a second call gave other bits"
+        body = fa.prefill_body(q, k, v)
+        times, names, _ = traced_times(torch, lambda: fa.flash_attention_prefill(q, k, v, pos, pos),
+                                       PREFILL_CALLS, flush, kernel="prefill")
+        ms, lo, hi = spread(times)
+        ran = sorted(attention_ms([(0.0, n) for n in names]))
+        assert ran == [PREFILL_KERNEL[body]], f"prefill {dname}: ran {ran}, expected {body}"
         plain_ms = measure(torch, lambda: fa.flash_attention_prefill_plain(q, k, v, pos, pos),
                            n=3, flush=flush)
         ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-        lib_ms = measure(torch, lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
-                         flush=flush)
+        lib_times, _, _ = traced_times(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True), PREFILL_CALLS, flush)
+        lib_ms = spread(lib_times)[0]
         flops = 4 * B * H * D * (S * (S + 1) // 2)
         nbytes = (2 * B * H * S * D + 2 * B * KV * S * D) * es
         bms, by = bound_ms(nbytes, flops, dname)
-        results.append(dict(kernel="prefill", dtype=dname, max_abs_err=err, tol=tol, ms=ms,
-                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        log(f"[kernels] prefill {dname}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} "
-            f"sdpa {lib_ms:.4f} bound {bms:.4f} ({by})")
+        row = dict(kernel="prefill", dtype=dname, max_abs_err=err, tol=tol, ms=ms, ms_min=lo,
+                   ms_max=hi, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                   body=body, kernels=ran, share_of_bound=bms / ms)
+        if dname == "bfloat16":
+            # the mma.sync body (PR 1's) on the same inputs, and the host time
+            # of one call of each body (the TMA body encodes three tensor maps)
+            with forced_prefill_body(fa, "mma"):
+                prev, _, _ = traced_times(torch, lambda: fa.flash_attention_prefill(
+                    q, k, v, pos, pos), PREFILL_CALLS, flush, kernel="prefill")
+                host_mma = host_us(torch, lambda: fa.flash_attention_prefill(q, k, v, pos, pos))
+            host_new = host_us(torch, lambda: fa.flash_attention_prefill(q, k, v, pos, pos))
+            row.update(mma_sync_ms=spread(prev)[0], host_us=host_new, mma_sync_host_us=host_mma)
+            log(f"[kernels] prefill bfloat16 mma.sync body (PR 1): {row['mma_sync_ms']:.4f} ms; "
+                f"host per call: {body} {host_new:.1f} us, mma.sync {host_mma:.1f} us")
+        results.append(row)
+        log(f"[kernels] prefill {dname} ({ran[0]}): err {err:.3g} kernel {ms:.4f} ms (min {lo:.4f} "
+            f"max {hi:.4f}) plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bms:.4f} ({by}), "
+            f"{100 * bms / ms:.1f} % of the bound")
         del q, k, v, ke, ve, got, want
 
-        # ragged lengths, window / chunk masks, offset starts, a head dim that
-        # is not a multiple of 16: correctness only
-        for (Sx, Dx, win, chk) in ((300, 64, 100, None), (300, 64, None, 128), (200, 40, None, None)):
+        # ragged lengths (Sq, Sk not multiples of 128), window / chunk masks,
+        # offset starts, head dims 64 and 128 (the TMA body in bf16) and 40
+        # (not a multiple of 16): correctness only
+        for (Sx, Dx, win, chk) in ((300, 64, 100, None), (300, 64, None, 128),
+                                   (200, 40, None, None), (300, 128, None, None),
+                                   (260, 128, 100, None), (260, 128, None, 96)):
             qx = randn((2, Sx, 8, Dx), dt).transpose(1, 2)
             kx = randn((2, Sx, 2, Dx), dt).transpose(1, 2)
             vx = randn((2, Sx, 2, Dx), dt).transpose(1, 2)
@@ -277,7 +354,8 @@ def check_kernels(torch, results):
             torch.cuda.synchronize()
             errx = (got.float() - want.float()).abs().max().item()
             assert errx <= tol, f"prefill {dname} S={Sx} D={Dx} win={win} chunk={chk}: err {errx}"
-            log(f"[kernels] prefill {dname} S={Sx} D={Dx} window={win} chunk={chk}: err {errx:.3g}")
+            log(f"[kernels] prefill {dname} S={Sx} D={Dx} window={win} chunk={chk} "
+                f"({fa.prefill_body(qx, kx, vx)}): err {errx:.3g}")
 
         # --- fused decode (stacked entry, layer 5 of 16; kv_len = TKG bucket) ---
         ks = randn((L, B, KV, S_cache, D), dt)
@@ -511,7 +589,7 @@ def _new_kernel_row(results, name, dname, err, ms, plain_ms, lib_ms, nbytes, flo
     assert err <= tol, f"{name} {dname} {extra}: max abs err {err} > {tol}"
     results.append(dict(kernel=name, dtype=dname, max_abs_err=err, tol=tol, ms=ms,
                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, **extra))
-    where = " ".join(f"{k}={extra[k]}" for k in ("M", "block") if k in extra)
+    where = " ".join(f"{k}={extra[k]}" for k in ("M", "point", "block") if k in extra)
     rng = (f" (min {extra['ms_min']:.4f} max {extra['ms_max']:.4f}, library min "
            f"{extra['library_min']:.4f} max {extra['library_max']:.4f}, {extra['calls']} calls)"
            if "ms_min" in extra else "")
@@ -548,36 +626,129 @@ def gemm_point(torch, results, name, dname, M, call, plain, library, nbytes, flo
     return results[-1]
 
 
-def ragged_case(torch, dev, R, NB, bs, nblk):
-    """Phase 3c's packed stream: one 512-token prefill chunk of slot 5 after
-    384 cached tokens, then decode tokens of slots 3, 0, 7, 1, 6, 2, 4 at
-    positions 200, 500, ..., 2000, padded to the 1032-token bucket; each row's
-    blocks drawn from a seeded permutation of the pool."""
-    T = 1032
-    chunk_slot, dec_slots = 5, [3, 0, 7, 1, 6, 2, 4]
-    dec_pos = [200 + 300 * i for i in range(7)]
+def ragged_case(torch, dev, R, NB, bs, nblk, decode_only=False):
+    """Phase 3c's ragged streams, each row's blocks drawn from a seeded
+    permutation of the pool. Packed (the 1032 bucket): one 512-token prefill
+    chunk of slot 5 after 384 cached tokens, then decode tokens of slots 3,
+    0, 7, 1, 6, 2, 4 at positions 200, 500, ..., 2000, padded to 1032.
+    Decode-only (the 8 bucket, 50 of phase 5c's 73 dispatches): one decode
+    token of each slot 0..7 at positions 230, 340, ..., 1000."""
+    if decode_only:
+        T, chunk = 8, []
+        dec_slots, dec_pos = list(range(8)), [230 + 110 * i for i in range(8)]
+    else:
+        T, chunk = 1032, [(5, 384, 512)]  # (slot, first position, tokens)
+        dec_slots, dec_pos = [3, 0, 7, 1, 6, 2, 4], [200 + 300 * i for i in range(7)]
     rid = torch.full((T,), -1, dtype=torch.int32)
     qp = torch.zeros((T,), dtype=torch.int32)
-    rid[:512], qp[:512] = chunk_slot, torch.arange(384, 896, dtype=torch.int32)
-    rid[512:519], qp[512:519] = torch.tensor(dec_slots), torch.tensor(dec_pos, dtype=torch.int32)
+    t, lasts, pairs = 0, [], 0
+    for slot, start, n in chunk:
+        rid[t:t + n], qp[t:t + n] = slot, torch.arange(start, start + n, dtype=torch.int32)
+        lasts.append((slot, start + n - 1))
+        pairs += sum(range(start + 1, start + n + 1))
+        t += n
+    rid[t:t + len(dec_slots)] = torch.tensor(dec_slots, dtype=torch.int32)
+    qp[t:t + len(dec_slots)] = torch.tensor(dec_pos, dtype=torch.int32)
+    lasts += list(zip(dec_slots, dec_pos))
+    pairs += sum(p + 1 for p in dec_pos)
     perm = torch.randperm(nblk, generator=torch.Generator().manual_seed(1)).tolist()
     bt = torch.full((R, NB), -1, dtype=torch.int32)
     nxt = 0
-    for slot, last in [(chunk_slot, 895)] + list(zip(dec_slots, dec_pos)):
+    for slot, last in lasts:
         n = last // bs + 1
         bt[slot, :n] = torch.tensor(perm[nxt:nxt + n], dtype=torch.int32)
         nxt += n
-    visible = {chunk_slot: 896, **{s: p + 1 for s, p in zip(dec_slots, dec_pos)}}
-    pairs = sum(range(385, 897)) + sum(p + 1 for p in dec_pos)
+    visible = {slot: last + 1 for slot, last in lasts}
     return T, rid.to(dev), qp.to(dev), bt.to(dev), visible, pairs
+
+
+def ragged_point(torch, F, rpa, results, dname, point, q, kc, vc, case, bs, flush):
+    """One ragged point of phase 3c: the kernels against the plain version
+    (the same bits on a second call, exact zeros for padding), then per-call
+    device times over RAGGED_CALLS flushed calls (median, min, max) of the
+    kernels under the plan the engine would build, of the earlier one-kernel
+    design (every tile direct: ``ragged_plan(split=False)``), and of the
+    library yardstick (SDPA with a boolean mask over K/V gathered through
+    the combined table, the gather included: what the plain
+    mixed_ragged_xla path computes); the plan's host time."""
+    T, rid, qp, bt, visible, pairs = case
+    dev = q.device
+    H, D = q.shape[1], q.shape[3]
+    KV = kc.shape[1]
+    G = H // KV
+    R, NB = bt.shape
+    rid_h, qp_h = rid.cpu().numpy(), qp.cpu().numpy()
+    plan = rpa.ragged_plan(rid_h, qp_h, R, NB * bs, KV).to(dev)
+    legacy = rpa.ragged_plan(rid_h, qp_h, R, NB * bs, KV, split=False).to(dev)
+    t = time.perf_counter()
+    for _ in range(50):
+        rpa.ragged_plan(rid_h, qp_h, R, NB * bs, KV)
+    plan_us = (time.perf_counter() - t) / 50 * 1e6
+
+    def call(p=plan):
+        return rpa.ragged_paged_attention(q, kc, vc, bt, rid, qp, block_size=bs, plan=p)
+
+    got = call()
+    want = rpa.ragged_paged_attention_plain(q, kc, vc, bt, rid, qp, block_size=bs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    del want
+    assert torch.all(got[:, :, rid < 0] == 0), f"ragged {point}: padding tokens are not 0"
+    assert torch.equal(call(), got), f"ragged {dname} {point}: a second call gave other bits"
+    old_err = (call(legacy).float() - got.float()).abs().max().item()
+    names_of = ("prefill", "ragged_")
+    times, names, dropped = traced_times(torch, call, RAGGED_CALLS, flush, kernel=names_of)
+    ms, lo, hi = spread(times)
+    old_times, _, _ = traced_times(torch, lambda: call(legacy), RAGGED_CALLS, flush,
+                                   kernel=names_of)
+    W = NB * bs
+    col = torch.arange(R * W, device=dev)
+    rows = (bt.long().reshape(-1)[:, None] * bs + torch.arange(bs, device=dev)).reshape(-1)
+    live = torch.repeat_interleave(bt.reshape(-1) >= 0, bs)
+    mask = ((rid.long()[:, None] == col[None] // W) & (col[None] % W <= qp.long()[:, None])
+            & live[None])[None, None]
+
+    def library_ragged():
+        kg = kc[rows.clamp(min=0)].transpose(0, 1)[None].repeat_interleave(G, dim=1)
+        vg = vc[rows.clamp(min=0)].transpose(0, 1)[None].repeat_interleave(G, dim=1)
+        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+    lib_times, _, lib_dropped = traced_times(torch, library_ragged, RAGGED_CALLS, flush)
+    lib_ms, lib_lo, lib_hi = spread(lib_times)
+    plain_ms = measure(torch, lambda: rpa.ragged_paged_attention_plain(
+        q, kc, vc, bt, rid, qp, block_size=bs), n=2, flush=flush)
+    # q and q_pos are read only for real tokens: a padding token (row -1)
+    # writes 0 whatever its q holds, so only its row id is read
+    es = q.element_size()
+    T_real = int((rid >= 0).sum())
+    nbytes = ((T_real * H * D + T * H * D + 2 * sum(visible.values()) * KV * D) * es
+              + bt.numel() * 4 + 4 * T + 4 * T_real)
+    kernels = sorted(attention_ms([(0.0, n) for n in names]))
+    _new_kernel_row(results, "ragged", dname, err, ms, plain_ms, lib_ms, nbytes,
+                    4 * H * D * pairs, block=bs, point=point, T=T, ms_min=lo, ms_max=hi,
+                    library_min=lib_lo, library_max=lib_hi, calls=len(times),
+                    untraced=dropped + lib_dropped, earlier_ms=spread(old_times)[0],
+                    earlier_vs_new_err=old_err, kernels=kernels, plan_host_us=plan_us,
+                    plan=dict(direct=plan.n_direct, items=plan.n_items, slots=plan.n_slots,
+                              combine=plan.n_comb, chunk=plan.chunk))
+    row = results[-1]
+    log(f"[kernels] ragged {dname} {point}: {' + '.join(kernels)}; one-kernel design (PR 3) "
+        f"{row['earlier_ms']:.4f} ms -> {ms:.4f} ms ({row['earlier_ms'] / ms:.1f}x); plan "
+        f"{row['plan']}, {plan_us:.1f} us on the host")
+    if dname == "bfloat16":
+        assert ms < row["earlier_ms"], f"ragged {point}: not faster than the one-kernel design"
+    del mask
+    return got
 
 
 def check_mixed_kernels(torch, results):
     """QKV at M = 8 and 520 (H_in 2048, T 3072) and a stacked call at layer
     5 of 16; the fused MLP at M = 8 and 520 (H 2048, I 8192, silu) and the
-    other activations at a small width; ragged attention at block 128 (a
-    512-token chunk after 384 cached plus 7 decode rows over 200...2000,
-    padded to 1032; slots not ascending) and at block 16 with holes, a row
+    other activations at a small width; ragged attention at block 128 (the
+    decode-only bucket 8: slots 0..7 at positions 230...1000; and a 512-token
+    chunk after 384 cached plus 7 decode rows over 200...2000, padded to
+    1032, slots not ascending), each beside the earlier one-kernel design,
+    and at block 16 with holes, a row
     with no visible key and k_scale 0.5, v_scale 2.0. Library yardsticks:
     torch.matmul, the MLP as three torch products, and SDPA with a boolean
     mask over K/V gathered through the combined table (the gather
@@ -644,43 +815,17 @@ def check_mixed_kernels(torch, results):
             assert err <= NEW_TOL[("mlp", dname)], f"mlp {dname} {act}: err {err}"
             log(f"[kernels] mlp {dname} act={act} M=40 H=256 I=512: err {err:.3g}")
 
-        # --- ragged paged attention, block 128 ---
+        # --- ragged paged attention, block 128: the packed 1032-token
+        # stream and the decode-only bucket 8 ---
         H, KV, D, bs, nblk, NB, R = 32, 8, 64, 128, 136, 16, 8
-        G = H // KV
-        T, rid, qp, bt, visible, pairs = ragged_case(torch, dev, R, NB, bs, nblk)
         kc, vc = randn((nblk * bs, KV, D), dt), randn((nblk * bs, KV, D), dt)
+        dcase = ragged_case(torch, dev, R, NB, bs, nblk, decode_only=True)
+        qd = randn((1, dcase[0], H, D), dt).transpose(1, 2)
+        ragged_point(torch, F, rpa, results, dname, "decode8", qd, kc, vc, dcase, bs, flush)
+        case = ragged_case(torch, dev, R, NB, bs, nblk)
+        T, rid, qp, bt = case[:4]
         q = randn((1, T, H, D), dt).transpose(1, 2)
-        got = rpa.ragged_paged_attention(q, kc, vc, bt, rid, qp, block_size=bs)
-        want = rpa.ragged_paged_attention_plain(q, kc, vc, bt, rid, qp, block_size=bs)
-        err = err_of(got, want)
-        assert torch.all(got[:, :, 519:] == 0), "ragged: padding tokens are not 0"
-        del want
-        ms = measure(torch, lambda: rpa.ragged_paged_attention(q, kc, vc, bt, rid, qp,
-                                                               block_size=bs),
-                     flush=flush, kernel="prefill")
-        plain_ms = measure(torch, lambda: rpa.ragged_paged_attention_plain(
-            q, kc, vc, bt, rid, qp, block_size=bs), n=2, flush=flush)
-        W = NB * bs
-        col = torch.arange(R * W, device=dev)
-        rows = (bt.long().reshape(-1)[:, None] * bs + torch.arange(bs, device=dev)).reshape(-1)
-        live = torch.repeat_interleave(bt.reshape(-1) >= 0, bs)
-        mask = ((rid.long()[:, None] == col[None] // W) & (col[None] % W <= qp.long()[:, None])
-                & live[None])[None, None]
-
-        def library_ragged():
-            kg = kc[rows.clamp(min=0)].transpose(0, 1)[None].repeat_interleave(G, dim=1)
-            vg = vc[rows.clamp(min=0)].transpose(0, 1)[None].repeat_interleave(G, dim=1)
-            return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
-
-        lib_ms = measure(torch, library_ragged, flush=flush)
-        # q and q_pos are read only for real tokens: a padding token (row -1)
-        # writes 0 whatever its q holds, so only its row id is read
-        T_real = int((rid >= 0).sum())
-        nbytes = ((T_real * H * D + T * H * D + 2 * sum(visible.values()) * KV * D) * es
-                  + bt.numel() * 4 + 4 * T + 4 * T_real)
-        _new_kernel_row(results, "ragged", dname, err, ms, plain_ms, lib_ms, nbytes,
-                        4 * H * D * pairs, block=bs)
-        del mask
+        ragged_point(torch, F, rpa, results, dname, "packed1032", q, kc, vc, case, bs, flush)
 
         # --- the same stream at block 16: holes, a row that sees nothing, scales ---
         sub = bs // 16
@@ -694,11 +839,14 @@ def check_mixed_kernels(torch, results):
         want = rpa.ragged_paged_attention_plain(q, kc, vc, bt16, rid, qp, block_size=16,
                                                 k_scale=0.5, v_scale=2.0)
         err16 = err_of(got, want)
+        assert torch.equal(rpa.ragged_paged_attention(q, kc, vc, bt16, rid, qp, block_size=16,
+                                                      k_scale=0.5, v_scale=2.0), got), \
+            f"ragged {dname} block 16: a second call gave other bits"
         tok0 = 512 + 1  # slot 0's token
         assert torch.all(got[:, :, tok0] == 0), "ragged: a token with no visible key is not 0"
         assert err16 <= NEW_TOL[("ragged", dname)], f"ragged {dname} block 16: err {err16}"
         log(f"[kernels] ragged {dname} block 16 (holes, empty row, scales): err {err16:.3g}")
-        del kc, vc, q, got, want
+        del kc, vc, q, qd, got, want
         torch.cuda.empty_cache()
 
 
@@ -795,10 +943,12 @@ def slice_full_depth(torch, np, mods, card):
     ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
                         arch.vocab_size)
 
-    times, finite = [], []
+    times, finite, first = [], [], []
     inner = app.forward
 
     def timed(*a, **kw):
+        if not first:
+            first.append((a, kw))  # the prefill dispatch, replayed under the profiler below
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = inner(*a, **kw)
@@ -846,6 +996,23 @@ def slice_full_depth(torch, np, mods, card):
     log(f"[slice-16L] profiled decode step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%); top: "
         + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in by_kernel[:6]))
+    # the prefill dispatch again under the profiler (it rewrites the same
+    # rows of the cache): the flash kernel's time by name, which must be the
+    # TMA + wgmma body's
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        inner(*first[0][0], **first[0][1])
+        torch.cuda.synchronize()
+        pre_wall_ms = (time.perf_counter() - t) * 1e3
+    pre_by_kernel = sorted(((k.self_device_time_total / 1e3, k.key)
+                            for k in prof.key_averages()), reverse=True)
+    pre_attn = attention_ms(pre_by_kernel)
+    assert list(pre_attn) == ["prefill_wgmma_kernel"], f"phase 5 prefill ran {pre_attn}"
+    pre_busy = sum(t for t, _ in pre_by_kernel)
+    log(f"[slice-16L] profiled prefill: wall {pre_wall_ms:.2f} ms, device busy {pre_busy:.3f} ms; "
+        f"flash prefill kernels {pre_attn['prefill_wgmma_kernel']:.3f} ms over {L} launches; top: "
+        + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in pre_by_kernel[:6]))
     prefill_ms = times[0] * 1e3
     decode_ms = float(np.mean(times[1:steps + 1])) * 1e3
     tok_s = B * steps / sum(times[1:steps + 1])
@@ -853,7 +1020,9 @@ def slice_full_depth(torch, np, mods, card):
         f"{tok_s:.1f} tok/s (B={B}, prompt {P}, {NEW} new)")
     return counts, dict(prefill_ms=prefill_ms, decode_ms_per_step=decode_ms, decode_tok_s=tok_s,
                         profiled_step_wall_ms=wall_ms, profiled_step_busy_ms=busy_ms,
-                        profiled_step_top=by_kernel[:10], card=card)
+                        profiled_step_top=by_kernel[:10], profiled_prefill_wall_ms=pre_wall_ms,
+                        profiled_prefill_busy_ms=pre_busy, profiled_prefill_attention_ms=pre_attn,
+                        profiled_prefill_top=pre_by_kernel[:10], card=card)
 
 
 # ---------------------------------------------------------------------------
@@ -1205,9 +1374,13 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
             for body in gemm_bodies([name]):
                 key = body.split("<")[0]
                 gemm[key] = gemm.get(key, 0.0) + t
+        attn = attention_ms(by_kernel)
         stats[f"profiled_{kind}_step"] = dict(
             wall_ms=step_ms, busy_ms=busy_ms, idle_pct=100 * (1 - busy_ms / step_ms),
-            gemm_ms=sum(gemm.values()), gemm_ms_by_body=gemm, top=by_kernel[:10])
+            gemm_ms=sum(gemm.values()), gemm_ms_by_body=gemm, attention_ms_by_kernel=attn,
+            top=by_kernel[:10])
+        log(f"{tag} profiled {kind} step: attention kernels {sum(attn.values()):.3f} ms ("
+            + "; ".join(f"{k} {v:.3f}" for k, v in sorted(attn.items())) + ")")
         if gemm:
             log(f"{tag} profiled {kind} step: port GEMM kernels {sum(gemm.values()):.3f} ms ("
                 + "; ".join(f"{k} {v:.3f}" for k, v in sorted(gemm.items())) + ")")
@@ -1307,14 +1480,15 @@ def main() -> int:
     summary = []
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for key, (name, src, replaces) in sources.items():
-        # the QKV and MLP rows at the packed step's 520 rows first, then by M
+        # the QKV and MLP rows at the packed step's 520 rows first, then by M;
+        # the ragged rows at bucket 8 and at 1032
         rows = [r for r in kernel_results if r["kernel"] == key and r["dtype"] == "bfloat16"]
         rows.sort(key=lambda r: r.get("M", 520) != 520)
         for row in rows:
             entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": counts[key], **{f: row[f] for f in fields}}
-            if "M" in row:
-                entry.update(M=row["M"], ms_min=row["ms_min"], ms_max=row["ms_max"])
+            entry.update({f: row[f] for f in ("M", "point", "body", "ms_min", "ms_max",
+                                              "earlier_ms", "mma_sync_ms") if f in row})
             summary.append(entry)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,21 +1,44 @@
 // Causal flash attention for prefill over contiguous K/V.
 //
-// Replaces nxdi_tpu/ops/kernels/flash_attention.py::flash_attention_prefill;
-// the kernels and their design are in prefill_kernel.cuh.
-#include "prefill_kernel.cuh"
+// Replaces nxdi_tpu/ops/kernels/flash_attention.py::flash_attention_prefill.
+// Three bodies; the wrapper (ops/kernels/flash_attention.py::prefill_body)
+// picks one per call and passes its code: the TMA + wgmma body
+// (prefill_wgmma.cuh; bf16, head dim 64 or 128: the model's prefill), the
+// mma.sync body (bf16, other head dims that are multiples of 16) and the
+// CUDA-core body (f32, or any other bf16 head dim) of prefill_kernel.cuh.
+#include "prefill_wgmma.cuh"
 
-extern "C" int nxdi_flash_prefill(int dtype, const void* q, const void* k, const void* v,
-                                  void* out, const int* q_start, const int* kv_start, int B,
-                                  int H, int KV, int Sq, int Sk, int D, long long qsb,
-                                  long long qsh, long long qss, long long ksb, long long ksh,
-                                  long long kss, long long vsb, long long vsh, long long vss,
-                                  long long osb, long long osh, long long oss, float scale,
-                                  int window, int chunk, void* stream) {
+// body codes shared with the wrapper (flash_attention.py::PREFILL_BODIES)
+enum PrefillBody : int { PREFILL_SIMT = 0, PREFILL_MMA = 1, PREFILL_WGMMA = 2 };
+
+extern "C" int nxdi_flash_prefill(int dtype, int body, const void* q, const void* k,
+                                  const void* v, void* out, const int* q_start,
+                                  const int* kv_start, int B, int H, int KV, int Sq, int Sk, int D,
+                                  long long qsb, long long qsh, long long qss, long long ksb,
+                                  long long ksh, long long kss, long long vsb, long long vsh,
+                                  long long vss, long long osb, long long osh, long long oss,
+                                  float scale, int window, int chunk, void* stream) {
   PrefillArgs a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.q_start = q_start; a.kv_start = kv_start;
   a.H = H; a.KV = KV; a.Sq = Sq; a.Sk = Sk; a.D = D;
   a.qsb = qsb; a.qsh = qsh; a.qss = qss; a.ksb = ksb; a.ksh = ksh; a.kss = kss;
   a.vsb = vsb; a.vsh = vsh; a.vss = vss; a.osb = osb; a.osh = osh; a.oss = oss;
   a.scale = scale; a.v_scale = 1.f; a.window = window; a.chunk = chunk;
-  return run<KV_CONTIG>(dtype, a, B, stream);
+  if (D % 8 != 0 || D > 128 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bf16 = dtype == NXDI_BF16;
+  if (body == PREFILL_WGMMA && bf16 && (D == 64 || D == 128)) {
+    if (Sq == 0 || B == 0) return (int)cudaSuccess;
+    return (int)(D == 64 ? launch_wgmma<64>(a, B, s) : launch_wgmma<128>(a, B, s));
+  }
+  if (body == PREFILL_MMA && bf16 && D % 16 == 0) {
+    if (Sq == 0 || B == 0) return (int)cudaSuccess;
+    return (int)(D <= 64 ? launch_tc<64, KV_CONTIG>(a, B, s) : launch_tc<128, KV_CONTIG>(a, B, s));
+  }
+  if (body == PREFILL_SIMT && (bf16 || dtype == NXDI_F32)) {
+    if (Sq == 0 || B == 0) return (int)cudaSuccess;
+    return (int)(bf16 ? launch<__nv_bfloat16, KV_CONTIG>(a, B, s)
+                      : launch<float, KV_CONTIG>(a, B, s));
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -54,11 +54,9 @@
 // K and N must be multiples of 8 (TMA's rows are whole 16-byte chunks).
 #pragma once
 
-#include <cuda.h>
-
 #include <mutex>
 
-#include "common.cuh"
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -143,63 +141,6 @@ template <int BW, int NWG>
 constexpr size_t gemm_tma_smem() {
   return (size_t)kWStages<BW, NWG> * kWStage<BW, NWG> + 1024 +
          2 * kWStages<BW, NWG> * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Spin until the phase of `bar` with this parity has completed. A wait
-// past 2^26 tries (far beyond any load or peer's compute) traps, so a
-// broken pipeline fails the launch instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 67108864;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// fetch a tensor map's descriptor ahead of its first load
-__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// one 2-D box of `map` at (c0 inner, c1 outer) into shared memory at `dst`;
-// completion is counted in bytes on `bar`; out-of-range elements arrive as 0
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
 // D (64 x 128, f32) = A (64 x 16, K-major) * B (16 x 128, MN-major: the
@@ -542,33 +483,6 @@ __global__ void __launch_bounds__(256) gemm_simt_kernel(GemmArgs p) {
 // Host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library needs no -lcuda
-EncodeTiledFn gemm_encode_fn() {
-  static const EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiledFn>(f);
-  }();
-  return fn;
-}
-
 // A 2-D bf16 tensor map over a row-major (rows, cols) matrix with a
 // (box_rows, 64) box and 128-byte swizzle. Maps are cached by (pointer,
 // shape, box): the stacked weights recur with one pointer per layer, and
@@ -594,7 +508,7 @@ bool gemm_tensor_map(CUtensorMap* out, const void* ptr, long long rows, long lon
     *out = e.map;
     return true;
   }
-  const EncodeTiledFn encode = gemm_encode_fn();
+  const EncodeTiledFn encode = tma_encode_fn();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};

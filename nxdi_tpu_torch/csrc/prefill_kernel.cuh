@@ -21,25 +21,25 @@
 // arrives folded into `scale`, v_scale multiplies the output.
 //
 // The ragged entry (nxdi_ragged_paged, ragged_paged.cu) replaces
-// nxdi_tpu/ops/kernels/ragged_paged_attention.py::ragged_paged_attention: one
-// launch for a packed stream (batch 1) of prefill chunks and decode tokens,
-// token t of row row_ids[t] at position tok_pos[t] attending that row's table
-// up to its own position; padding tokens (row -1) and tokens with no visible
-// key output exactly 0. A block takes one (q head, 64-token tile), loads the
-// tile's tags itself (the TPU kernel's scalar prefetch), builds a bitmask of
-// the rows present in the tile and the largest position of each, and walks
-// each present row's table up to that position, masking on row and position.
-// A bitmask, not the TPU kernel's per-tile [min, max] row range: the engine
-// packs prefill chunks first and decode rows after them, so slots do not
-// ascend along the stream and a range would sweep rows with no token in the
-// tile. At most 64 rows. A tile of decode tokens walks every one of their
-// rows' contexts serially in each of its blocks; splitting that work per row
-// (flash-decoding) is later work.
+// nxdi_tpu/ops/kernels/ragged_paged_attention.py::ragged_paged_attention for
+// the q tiles its work list hands these kernels: tiles that hold the tokens
+// of one row only (the prefill chunks of a packed stream), one block per
+// (listed 64-token tile, q head). The tile's tags are loaded by the block
+// itself (the TPU kernel's scalar prefetch): a bitmask of the rows present
+// and the largest position of each, and each present row's table is walked
+// up to that position, masking on row and position; padding tokens (row -1)
+// and tokens with no visible key output exactly 0. A bitmask, not the TPU
+// kernel's per-tile [min, max] row range: the engine packs prefill chunks
+// first and decode rows after them, so slots do not ascend along the stream.
+// At most 64 rows. Decode tokens and tiles holding several rows go to
+// ragged_paged.cu's split kernel instead (flash decoding over kv chunks).
 //
 // Three entry points, one per source so they compile in parallel:
 // flash_prefill.cu (contiguous K/V), paged_prefill.cu (through the block
 // table) and ragged_paged.cu; the addressing mode is a template parameter, so
-// the contiguous kernels compile as if the others did not exist. Two bodies; both loop over 64-row
+// the contiguous kernels compile as if the others did not exist. Two bodies
+// here (the contiguous bf16 prefill at head dims 64 and 128 runs the TMA +
+// wgmma body of prefill_wgmma.cuh instead); both loop over 64-row
 // kv tiles up to the causal limit of their 64-row q tile (one block per
 // (b, h, q tile)) and mask the ragged edges of Sq and Sk themselves, so no
 // block size has to divide them:
@@ -52,10 +52,10 @@
 //    staged in shared memory as f32 and multiplied on the CUDA cores in f32,
 //    so f32 inputs keep f32 products.
 //
-// Bound: at the Llama-3.2-1B prefill shape the work is ~3.4e10 flop per
-// layer, compute-bound on the tensor cores (~35 us at 989 TFLOP/s in bf16).
-// mma.sync reaches part of that; wgmma fed by TMA with warp specialisation
-// is the later step.
+// Bound: a paged or ragged prefill chunk is bound by operations on the
+// tensor cores (a 512-token chunk after 512 cached: 3.4 us at 989 TFLOP/s in
+// bf16); mma.sync reaches a few per cent of that. The paged mode taking the
+// wgmma body (TMA over pool blocks) is the next step.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -85,7 +85,8 @@ struct PrefillArgs {
   const int* bt;        // paged: (B, nb) block table; ragged: (R, nb); -1 = hole
   const int* row_ids;   // ragged: (Sq,) row of each packed token, -1 = padding
   const int* tok_pos;   // ragged: (Sq,) position of each packed token in its row
-  int H, KV, Sq, Sk, D, nb, bs, R;
+  const int* tiles;     // ragged: the q tiles to run, one block each
+  int H, KV, Sq, Sk, D, nb, bs, R, n_tiles;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   float scale, v_scale;
   int window, chunk;
@@ -102,6 +103,16 @@ struct RaggedMeta {
 };
 
 __host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// First token of the block's q tile: the listed tile (ragged) or blockIdx.x.
+template <int MODE>
+__device__ __forceinline__ int q_tile_start(const PrefillArgs& a, int rows) {
+  if constexpr (MODE == KV_RAGGED) {
+    return a.tiles[blockIdx.x] * rows;
+  } else {
+    return blockIdx.x * rows;
+  }
+}
 
 // Storage row of kv position j (< Sk): j itself, or (paged, ragged) its slot
 // through the batch row's block table btr, -1 for a hole. A template
@@ -218,7 +229,7 @@ __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = q_tile_start<MODE>(a, kBQ);
   int qs = 0;
   if constexpr (MODE != KV_RAGGED) qs = a.q_start[b];
   const int ks = a.kv_start ? a.kv_start[b] : 0;
@@ -425,7 +436,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
-  const int q0 = blockIdx.x * kTcBQ;
+  const int q0 = q_tile_start<MODE>(a, kTcBQ);
   int qs = 0;
   if constexpr (MODE != KV_RAGGED) qs = a.q_start[b];
   const int ks = a.kv_start ? a.kv_start[b] : 0;
@@ -653,7 +664,7 @@ cudaError_t launch_tc(const PrefillArgs& a, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(prefill_tc_kernel<DMAX, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, B * a.H);
+  dim3 grid(MODE == KV_RAGGED ? a.n_tiles : (a.Sq + kTcBQ - 1) / kTcBQ, B * a.H);
   prefill_tc_kernel<DMAX, MODE><<<grid, kTcWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -664,7 +675,7 @@ cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, B * a.H);
+  dim3 grid(MODE == KV_RAGGED ? a.n_tiles : (a.Sq + kBQ - 1) / kBQ, B * a.H);
   prefill_kernel<T, MODE><<<grid, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -674,7 +685,7 @@ int run(int dtype, const PrefillArgs& a, int B, void* stream) {
   if (a.D % 8 != 0 || a.D > 128 || a.H % a.KV != 0) return (int)cudaErrorInvalidValue;
   if (MODE == KV_RAGGED && (a.R < 1 || a.R > kMaxRaggedRows)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.Sq == 0 || B == 0) return (int)cudaSuccess;
+  if (a.Sq == 0 || B == 0 || (MODE == KV_RAGGED && a.n_tiles == 0)) return (int)cudaSuccess;
   if (dtype == NXDI_F32) return (int)launch<float, MODE>(a, B, s);
   if (dtype == NXDI_BF16 && a.D % 16 == 0)
     return (int)(a.D <= 64 ? launch_tc<64, MODE>(a, B, s) : launch_tc<128, MODE>(a, B, s));

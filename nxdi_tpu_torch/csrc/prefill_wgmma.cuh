@@ -1,0 +1,520 @@
+// Flash-attention prefill for Hopper: the bf16 body of the contiguous mode
+// (flash_prefill.cu) at head dims 64 and 128, on TMA + wgmma with warp
+// specialisation.
+//
+// Replaces nxdi_tpu/ops/kernels/flash_attention.py::flash_attention_prefill
+// (Pallas body _prefill_kernel, pl.pallas_call at :234) for those cases and
+// computes exactly its function, as prefill_kernel.cuh states it: positions
+// q_start[b] + i and kv_start[b] + j, causal with the sliding-window and
+// chunk masks, GQA h -> h / G without repeating K/V, an f32 online softmax
+// (mask value -30000, the denominator clamped at 1e-20), probabilities
+// rounded to bf16 before P.V. The other bodies stay for their cases (the
+// wrapper, flash_attention.py::prefill_body, picks): prefill_tc_kernel
+// (mma.sync) for other bf16 head dims and, through paged_prefill.cu and
+// ragged_paged.cu, for the paged and ragged modes; prefill_kernel (CUDA
+// cores) for f32.
+//
+// Bound: operations. At the Llama-3.2-1B prefill (B 8, H 32, S 1024, D 64)
+// one layer is 3.4e10 flop, 35 us at the 989 TFLOP/s bf16 peak, and only
+// wgmma reaches that rate (mma.sync with cp.async copies, every thread
+// spending registers and instructions on them, reaches a tenth). At D 64 the
+// softmax is as dear as the products: a score's ex2 takes the SM's 16
+// special-function lanes as long as its 256 flops take the tensor cores,
+// and the max, the FMA, the sum and the bf16 pack issue beside it, so the
+// softmax's instruction count sets much of the time (scripts/
+// ablate_prefill.py measures the body with parts removed).
+//
+// Design: persistent blocks, one per SM, walk the (b, h, 128-row q tile)
+// work in a static order; a q tile's kv tiles run up to its last row's
+// causal limit.
+//  - Warps 0-7 are two consumer warpgroups, 64 q rows each; warps 8-11 are
+//    the producer warpgroup. It gives its registers away (setmaxnreg: 168
+//    at entry, the producer drops to 40 and the consumers take 232, which
+//    balances the block's 384 x 168) and one lane of warp 8 issues the TMA
+//    loads: each q tile's Q once (a full and an empty mbarrier: the next
+//    tile's Q lands while the last P.V and the epilogue of this one run),
+//    then K and V tiles of 128 rows into a ring of stages (4 at D 64, 3 at
+//    D 128), each guarded by a full and an empty mbarrier. Rows are
+//    64-column boxes with the 128-byte swizzle.
+//  - S = Q K^T is wgmma m64n128k16 with Q and K read K-major from their
+//    row-major tiles; P.V is wgmma with P (rounded to bf16) as the A operand
+//    straight from the S registers, and V read MN-major from its row-major
+//    tile, as gemm_kernel.cuh reads its weights. No transpose is staged.
+//  - The online softmax stays in f32 registers in log2 units (ex2.approx);
+//    each row's visible kv positions are one interval (causal, Sk, window
+//    and chunk starts) computed once, so only a tile the interval cuts (the
+//    diagonal, the Sk edge, window and chunk edges) is masked, with two
+//    compares per score.
+//  - Tensor maps are encoded per call over the model's strided (B, S, H, D)
+//    -transposed views (dims D, heads, S, B) and passed as __grid_constant__
+//    parameters: the pointers change every layer, so no cache applies. TMA
+//    zero-fills rows past Sq and Sk; the masks and the epilogue skip them.
+//    It needs a 16-byte aligned base and strides that are multiples of 16
+//    bytes (the wrapper checks and raises).
+//  - Pingpong: the two consumer warpgroups take turns on the tensor cores
+//    (named barriers), each issuing one kv tile's S and the previous one's
+//    P.V together, so one's softmax runs under the other's products.
+//  - Longest first, no atomics: block i takes work items i, i + grid, ...
+//    of an order that lists the last q tiles (the most kv tiles) first, so
+//    the short ones fill the tail; the ring, its barrier phases and the
+//    next tile's loads run on across a block's items.
+#pragma once
+
+#include "prefill_kernel.cuh"
+#include "tma_wgmma.cuh"
+
+namespace {
+
+constexpr int kFqBQ = 128;  // q rows per work item (two consumer warpgroups)
+constexpr int kFqBK = 128;  // kv rows per tile
+constexpr int kFqBox = 128 * 128;  // one 64-column box of 128 rows, 16 KB
+
+template <int D>
+constexpr int kFqStages = D == 64 ? 4 : 3;
+template <int D>
+constexpr size_t fq_smem() {
+  // Q, then stages of K and V, D / 64 boxes each; barriers after (Q full
+  // and empty, a full and an empty per stage); 1 KB for the swizzle's
+  // alignment
+  return (size_t)(D / 64) * kFqBox * (1 + 2 * kFqStages<D>) + 1024 +
+         8 * (2 + 2 * kFqStages<D>);
+}
+
+// S (64 x 128, f32) = A (64 x 16, K-major, shared) * B (16 x 128, K-major: the
+// row-major K tile, hence imm-trans-b = 0) + (accumulate ? S : 0)
+__device__ __forceinline__ void wgmma_ss_m64n128k16_kk(float* d, uint64_t da, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, MN-major:
+// the row-major V tile, hence imm-trans-b = 1), or = without accumulate
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// O (64 x 128, f32): as wgmma_rs_m64n64k16, 128 columns
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// 2^x on the SFU (ex2.approx, flush-to-zero): the softmax's exponent; a
+// score masked to -30000 log2(e) flushes to 0 as in exp2f
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One warpgroup's running state: its lane's two rows' output accumulator,
+// max and denominator (log2 units), and visible kv intervals.
+template <int D>
+struct FqRows {
+  float o[D / 2];
+  float m[2], l[2];
+  int vlo[2], vhi[2];
+};
+
+// S = Q K^T for one warpgroup, issued (the caller fences and commits): qa, the
+// warpgroup's Q rows (rows 128 B apart in 8-row groups 1024 B apart, k16
+// steps 32 B along a row, the second 64 columns in the next box); kb, the
+// stage's K tile, read K-major the same way.
+template <int D>
+__device__ __forceinline__ void fq_scores(float* sc, uint32_t qa, uint32_t kb) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kFqBox + 32 * (kk % 4);
+    wgmma_ss_m64n128k16_kk(sc, wgmma_desc(qa + off, 16, 1024), wgmma_desc(kb + off, 16, 1024),
+                           kk != 0);
+  }
+}
+
+// The (masked, MASK) online softmax of one tile's scores, in place: P in sc,
+// the running max and denominator updated, O rescaled. t_lo: the kv
+// position of the tile's first column.
+template <int D, bool MASK>
+__device__ __forceinline__ void fq_softmax(FqRows<D>& st, float* sc, int t_lo, float scale_log2,
+                                           int tig) {
+  // mask (MASK) + online softmax; accumulator chunk j, value e: row
+  // r_lo + 8 (e / 2), column 8 j + 2 tig + e % 2. The max is taken over the
+  // raw scores (scale > 0) and the scale folds into the exponent's FMA, so
+  // a score costs a max, an FMA, an ex2 and an add; they run in four
+  // independent chains (8 consumer warps an SM do not hide a chain's
+  // latency). A masked score counts as -30000 (log2 units: the running max
+  // starts there) and its probability is 0.
+  const float neg_inf = __int_as_float(0xff800000u);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int c_lo = st.vlo[half] - t_lo, c_hi = st.vhi[half] - t_lo;  // visible columns
+    float mx4[4] = {neg_inf, neg_inf, neg_inf, neg_inf};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tig + e;
+        float& v = sc[4 * j + 2 * half + e];
+        if constexpr (MASK) v = (c >= c_lo && c <= c_hi) ? v : neg_inf;
+        mx4[(2 * j + e) & 3] = fmaxf(mx4[(2 * j + e) & 3], v);
+      }
+    }
+    float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(st.m[half], mx * scale_log2);
+    const float corr = fast_exp2(st.m[half] - m_new);
+    float rs4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = sc[4 * j + 2 * half + e];
+        // ex2(-inf) is 0: a masked score's probability
+        v = fast_exp2(fmaf(v, scale_log2, -m_new));
+        rs4[(2 * j + e) & 3] += v;
+      }
+    }
+    float rs = (rs4[0] + rs4[1]) + (rs4[2] + rs4[3]);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    st.l[half] = st.l[half] * corr + rs;
+    st.m[half] = m_new;
+    if (__any_sync(0xffffffffu, corr != 1.f)) {  // no row's max moved: O stands
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        st.o[4 * j + 2 * half] *= corr;
+        st.o[4 * j + 2 * half + 1] *= corr;
+      }
+    }
+  }
+}
+
+// P (rounded to bf16) packed as the register A operand of O += P V: the
+// m16n8k16 A-fragment of each warp's 16 rows, k16 step kk from score
+// chunks 2 kk and 2 kk + 1.
+__device__ __forceinline__ void fq_pack(uint32_t (&pa)[kFqBK / 16][4], const float* sc) {
+#pragma unroll
+  for (int kk = 0; kk < kFqBK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// O += P V for one warpgroup, issued (the caller fences and commits): vb,
+// the stage's V tile, read MN-major; k16 steps 16 rows (2 KB) down its
+// boxes, the next 64 columns one box on.
+template <int D>
+__device__ __forceinline__ void fq_pv(FqRows<D>& st, const uint32_t (&pa)[kFqBK / 16][4],
+                                      uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < kFqBK / 16; ++kk) {
+    const uint64_t dv = wgmma_desc(vb + 2048 * kk, kFqBox, 1024);
+    if constexpr (D == 64) {
+      wgmma_rs_m64n64k16(st.o, pa[kk], dv, 1);
+    } else {
+      wgmma_rs_m64n128k16(st.o, pa[kk], dv, 1);
+    }
+  }
+}
+
+// One q tile of the persistent walk: tile t of B * H * (Sq / 128) counts
+// q tiles from the last (longest first), (b, h) fastest.
+struct FqWork {
+  int b, h, kvh, q0, qs, ks, n_kv;
+};
+
+__device__ __forceinline__ FqWork fq_work(const PrefillArgs& a, int t, int BH, int n_qt) {
+  FqWork w;
+  const int bh = t % BH;
+  w.b = bh / a.H;
+  w.h = bh % a.H;
+  w.kvh = w.h / (a.H / a.KV);
+  w.q0 = (n_qt - 1 - t / BH) * kFqBQ;
+  w.qs = a.q_start[w.b];
+  w.ks = a.kv_start ? a.kv_start[w.b] : 0;
+  // kv tiles up to the last real q row's causal limit
+  const int q_hi = w.qs + min(w.q0 + kFqBQ, a.Sq) - 1;
+  w.n_kv = q_hi < w.ks ? 0 : min((a.Sk + kFqBK - 1) / kFqBK, (q_hi - w.ks) / kFqBK + 1);
+  return w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, PrefillArgs a, int B) {
+  extern __shared__ uint8_t fsm_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fsm_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  constexpr int kST = kFqStages<D>, kNB = D / 64;
+  constexpr int kTile = kNB * kFqBox;  // bytes of one Q, K or V tile
+  const uint32_t sq = smem_u32(sm);
+  const uint32_t sk0 = sq + kTile;  // ring stage s: K at sk0 + 2 s kTile, V kTile on
+  const uint32_t qfull = sq + (1 + 2 * kST) * kTile, qempty = qfull + 8;
+  const uint32_t full0 = qempty + 8, empty0 = full0 + 8 * kST;
+  const int BH = B * a.H, n_qt = (a.Sq + kFqBQ - 1) / kFqBQ, n_work = BH * n_qt;
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 8);  // one arrival per consumer warp
+    for (int s = 0; s < kST; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      int it = 0;  // ring position, across this block's q tiles
+      for (int t = blockIdx.x, n = 0; t < n_work; t += gridDim.x, ++n) {
+        const FqWork w = fq_work(a, t, BH, n_qt);
+        if (n > 0) mbar_wait(qempty, (n - 1) & 1);  // the last tile's S products are done
+        mbar_expect_tx(qfull, kTile);
+#pragma unroll
+        for (int c = 0; c < kNB; ++c)
+          tma_load_4d(sq + c * kFqBox, &tq, 64 * c, w.h, w.q0, w.b, qfull);
+        for (int kt = 0; kt < w.n_kv; ++kt, ++it) {
+          const int s = it % kST;
+          if (it >= kST) mbar_wait(empty0 + 8 * s, ((it / kST) - 1) & 1);
+          const uint32_t full = full0 + 8 * s, st = sk0 + 2 * s * kTile;
+          mbar_expect_tx(full, 2 * kTile);
+#pragma unroll
+          for (int c = 0; c < kNB; ++c) {
+            tma_load_4d(st + c * kFqBox, &tk, 64 * c, w.kvh, kt * kFqBK, w.b, full);
+            tma_load_4d(st + kTile + c * kFqBox, &tv, 64 * c, w.kvh, kt * kFqBK, w.b, full);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2;
+    const int grp = lane >> 2, tig = lane & 3;
+    const int r_lo = 64 * wg + 16 * (warp & 3) + grp;  // this lane's rows: r_lo, r_lo + 8
+    constexpr float kLog2e = 1.4426950408889634f;
+    constexpr float kNegInfLog2 = NXDI_NEG_INF * kLog2e;
+    const float scale_log2 = a.scale * kLog2e;
+    const uint32_t qa = sq + wg * 8192;  // this warpgroup's 64 Q rows in each box
+    const int bar_mine = 1 + wg, bar_other = 2 - wg;
+    auto stage_of = [&](int i) { return sk0 + 2 * (i % kST) * kTile; };
+    auto warp_arrive = [&](uint32_t bar) {  // this warp is done with what bar guards
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    int it = 0;  // ring position, across this block's q tiles
+    for (int t = blockIdx.x, n = 0; t < n_work; t += gridDim.x, ++n) {
+      const FqWork w = fq_work(a, t, BH, n_qt);
+      // the kv positions a row at position qp sees, [lo, hi]: causal, inside
+      // Sk, after the window's start and the chunk's start (kv <= q puts kv
+      // in q's chunk iff kv >= q's chunk start), so a mask is two compares
+      // per score; for this lane's two rows, and (both nondecreasing in qp)
+      // the positions every row of the tile sees
+      auto visible_lo = [&](int qp) {
+        int lo = w.ks;
+        if (a.window > 0) lo = max(lo, qp - a.window + 1);
+        if (a.chunk > 0) lo = max(lo, floordiv(qp, a.chunk) * a.chunk);
+        return lo;
+      };
+      const int sk_hi = w.ks + a.Sk - 1;
+      FqRows<D> st;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int qp = w.qs + w.q0 + r_lo + 8 * half;
+        st.vlo[half] = visible_lo(qp);
+        st.vhi[half] = min(qp, sk_hi);
+        st.m[half] = kNegInfLog2;
+        st.l[half] = 0.f;
+      }
+      const int blk_vlo = visible_lo(w.qs + w.q0 + kFqBQ - 1);
+      const int blk_vhi = min(w.qs + w.q0, sk_hi);
+
+      // Pingpong: each warpgroup alternates a product phase (this kv tile's
+      // S = Q K^T and the previous one's O += P V, issued together) with a
+      // softmax phase, and named barriers 1 and 2 hand the tensor cores
+      // from one warpgroup to the other, so one's softmax runs under the
+      // other's products. Warpgroup 0 goes first; each step a warpgroup
+      // waits its turn (bar.sync on its barrier, 256 threads: its own 128
+      // and the other's 128 arriving), issues, and passes the turn on
+      // (bar.arrive on the other's); warpgroup 1's last pass of a q tile is
+      // left out, so every arrival meets a sync. Only a kv tile some row's
+      // visible interval cuts (the diagonal, the Sk edge, window or chunk
+      // edges) is masked; the test is the q tile's, so no warp diverges and
+      // the unmasked softmax holds no mask code.
+      uint32_t pa[kFqBK / 16][4];  // the previous kv tile's P, packed as the A operand
+      float sc[64];
+      mbar_wait(qfull, n & 1);
+      if (wg == 1) asm volatile("bar.arrive %0, 256;\n" ::"r"(bar_other) : "memory");
+      for (int kt = 0; kt <= w.n_kv; ++kt) {
+        if (kt < w.n_kv) mbar_wait(full0 + 8 * ((it + kt) % kST), ((it + kt) / kST) & 1);
+        asm volatile("bar.sync %0, 256;\n" ::"r"(bar_mine) : "memory");
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        if (kt < w.n_kv) fq_scores<D>(sc, qa, stage_of(it + kt));
+        if (kt > 0) fq_pv<D>(st, pa, stage_of(it + kt - 1) + kTile);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (wg == 0 || kt < w.n_kv)
+          asm volatile("bar.arrive %0, 256;\n" ::"r"(bar_other) : "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        if (kt > 0) warp_arrive(empty0 + 8 * ((it + kt - 1) % kST));
+        if (kt + 1 >= w.n_kv && kt < w.n_kv) warp_arrive(qempty);  // the last S is done
+        if (kt < w.n_kv) {
+          const int t_lo = w.ks + kt * kFqBK;  // kv position of the tile's first column
+          if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi) {
+            fq_softmax<D, false>(st, sc, t_lo, scale_log2, tig);
+          } else {
+            fq_softmax<D, true>(st, sc, t_lo, scale_log2, tig);
+          }
+          fq_pack(pa, sc);  // (O's rescale above: the previous P V has completed)
+        }
+      }
+      if (w.n_kv == 0) warp_arrive(qempty);
+      it += w.n_kv;
+
+      using bf = __nv_bfloat16;
+      bf* out = static_cast<bf*>(a.out) + w.b * a.osb + w.h * a.osh;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = w.q0 + r_lo + 8 * half;
+        if (row >= a.Sq) continue;
+        const float inv = a.v_scale / fmaxf(st.l[half], 1e-20f);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * a.oss + 8 * j + 2 * tig) =
+              __floats2bfloat162_rn(st.o[4 * j + 2 * half] * inv,
+                                    st.o[4 * j + 2 * half + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+// A 4-D bf16 tensor map over a strided (B, S, heads, D)-like view: dims
+// (D, heads, S, B) with element strides (1, sh, ss, sb), boxes of 64
+// columns x 1 head x 128 rows x 1 batch row, 128-byte swizzle.
+bool fq_tensor_map(CUtensorMap* out, const void* ptr, int D, int heads, int S, int B,
+                   long long sh, long long ss, long long sb) {
+  const EncodeTiledFn encode = tma_encode_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const PrefillArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = fq_smem<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  // TMA: 16-byte aligned bases, strides in whole 16-byte units
+  for (const void* p : {a.q, a.k, a.v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  for (long long st : {a.qsb, a.qsh, a.qss, a.ksb, a.ksh, a.kss, a.vsb, a.vsh, a.vss})
+    if (st % 8) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!fq_tensor_map(&tq, a.q, D, a.H, a.Sq, B, a.qsh, a.qss, a.qsb) ||
+      !fq_tensor_map(&tk, a.k, D, a.KV, a.Sk, B, a.ksh, a.kss, a.ksb) ||
+      !fq_tensor_map(&tv, a.v, D, a.KV, a.Sk, B, a.vsh, a.vss, a.vsb))
+    return cudaErrorInvalidValue;
+  // persistent: one block per SM walks the q tiles in a static order
+  static const int n_sm = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const long long n_work = (long long)B * a.H * ((a.Sq + kFqBQ - 1) / kFqBQ);
+  const int grid = (int)min(n_work, (long long)max(n_sm, 1));
+  prefill_wgmma_kernel<D><<<grid, 384, smem, stream>>>(tq, tk, tv, a, B);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -242,6 +242,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         return rpa.ragged_paged_attention(
             q, k_cache_l, v_cache_l, bt, rids[0], position_ids[0],
             block_size=layout.block_size, k_scale=layout.k_scale, v_scale=layout.v_scale,
+            plan=ci.get("ragged_plan"),
         )
     # plain: gather the combined window and rebuild the ragged causal mask
     # from the tags — kv column g serves row g // row_width at in-row
@@ -494,9 +495,10 @@ def run_decoder_layers(
 
 # the layout inputs a forward's batch may carry (the paged pool's block
 # tables and the host-built scatter indices of its slot mapping; the mixed
-# step's token tags, and its per-row last-token indices, which give R)
+# step's token tags, its per-row last-token indices, which give R, and the
+# ragged kernels' work list)
 CACHE_INPUT_KEYS = ("block_table", "write_index", "write_slots", "mixed_row_ids",
-                    "last_token_index")
+                    "last_token_index", "ragged_plan")
 
 
 def causal_lm_forward(

@@ -34,7 +34,8 @@ _F = ctypes.c_float
 
 # argtypes of every C entry point (csrc/*.cu); each returns a cudaError_t
 SIGNATURES = {
-    "nxdi_flash_prefill": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _P],
+    "nxdi_flash_prefill": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 12
+    + [_F, _I, _I, _P],
     "nxdi_flash_decode_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 9
     + [_F, _I, _I, _P],
     "nxdi_kv_commit_rows": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL, _LL, _P],
@@ -42,7 +43,10 @@ SIGNATURES = {
     + [_F, _I, _I, _P],
     "nxdi_paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4 + [_F, _F, _P],
     "nxdi_paged_prefill": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_LL] * 6 + [_F, _F, _P],
-    "nxdi_ragged_paged": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_LL] * 4 + [_F, _F, _P],
+    # ... + the device work list and its host counts (direct tiles, items,
+    # partial slots, tokens to combine), then the partials' scratch
+    "nxdi_ragged_paged": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 7
+    + [_LL] * 4 + [_F, _F, _P],
     # ... + the GEMM plan (body, tile rows and columns, splits, K slice;
     # fused_proj.GemmPlan.args), twice for the MLP (gate/up, then down), the
     # split-K workspace, then the stream

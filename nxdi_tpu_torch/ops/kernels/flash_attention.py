@@ -21,6 +21,11 @@ Counterpart of ``nxdi_tpu/ops/kernels/flash_attention.py``:
   K/V read through per-row block tables from the paged pool (the decode
   kernel's paged mode; the prefill kernels' paged instantiation).
 
+The contiguous prefill has three bodies; :func:`prefill_body` picks one per
+call: the TMA + wgmma body (``csrc/prefill_wgmma.cuh``) for bf16 at head
+dims 64 and 128, the mma.sync body for other bf16 head dims that are
+multiples of 16, the CUDA-core body otherwise.
+
 Each wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernel or raises. Each kernel launch adds one to the
 wrapper's ``launches`` attribute (launches of the plain version do not).
@@ -38,6 +43,9 @@ from nxdi_tpu_torch.ops.attention import NEG_INF
 from nxdi_tpu_torch.ops.kernels import _build
 
 MAX_HEAD_DIM = 128
+# the contiguous prefill's bodies (codes shared with csrc/flash_prefill.cu)
+PREFILL_BODIES = {"simt": 0, "mma": 1, "wgmma": 2}
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def _affine(start: torch.Tensor, n: int) -> torch.Tensor:
@@ -118,6 +126,28 @@ def flash_attention_prefill_plain(
     return _plain_attention(q, k, v, mask, scale)
 
 
+def prefill_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The body the contiguous prefill runs for these operands: ``"wgmma"``
+    (TMA + wgmma: bf16, head dim 64 or 128), ``"mma"`` (mma.sync: other bf16
+    head dims that are multiples of 16) or ``"simt"`` (CUDA cores: f32, other
+    bf16 head dims). The TMA body reads its tiles through tensor maps, which
+    need a 16-byte aligned base and strides in whole 16-byte units; operands
+    that break that raise (the model's layouts meet it)."""
+    D = q.shape[3]
+    if q.dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or t.stride(-1) != 1 or any(
+                    (s * t.element_size()) % 16 for s in t.stride()[:-1]):
+                raise ValueError(
+                    f"flash_attention_prefill: {name} strides {tuple(t.stride())} (or its base) "
+                    "break TMA's rules: a 16-byte aligned base, a unit-stride last dim and "
+                    "other strides in multiples of 16 bytes")
+        return "wgmma"
+    if q.dtype == torch.bfloat16 and D % 16 == 0:
+        return "mma"
+    return "simt"
+
+
 def flash_attention_prefill(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, KV, Sk, D)
@@ -145,13 +175,14 @@ def flash_attention_prefill(
         )
     for t in (q, k, v):
         _check_cuda_operand(t, "flash_attention_prefill", q.dtype)
+    body = PREFILL_BODIES[prefill_body(q, k, v)]
     scale = D ** -0.5 if scale is None else scale
     q_start = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     kv_start = kv_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = _build.library()
     err = lib.nxdi_flash_prefill(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        code, body, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_start.data_ptr(), kv_start.data_ptr(), B, H, KV, Sq, Sk, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(scale), _opt(sliding_window), _opt(chunk_size),

@@ -1,6 +1,8 @@
-"""Ragged paged attention: CUDA kernel (the ragged addressing mode of the
-prefill kernels in ``csrc/prefill_kernel.cuh``, behind
-``csrc/ragged_paged.cu``) and its plain PyTorch version.
+"""Ragged paged attention: CUDA kernels (``csrc/ragged_paged.cu``: the
+ragged addressing mode of the prefill kernels in ``csrc/prefill_kernel.cuh``
+for tiles of one row, a split kernel over kv chunks and a combine kernel for
+the rest), their host work list :func:`ragged_plan`, and the plain PyTorch
+version.
 
 Replaces ``nxdi_tpu/ops/kernels/ragged_paged_attention.py::
 ragged_paged_attention`` (Pallas, ``pl.pallas_call`` at
@@ -12,14 +14,24 @@ own; holes (negative table entries) are skipped; ``k_scale`` folds into the
 softmax scale and ``v_scale`` into the output; padding tokens (row -1) and
 tokens with no visible key output exactly 0.
 
+The kernels run a work list built on the host from the token tags
+(:func:`ragged_plan`): 64-token q tiles that hold one row's prefill chunk
+run the prefill kernels' tensor-core body; every other token's context is
+cut into kv chunks, one block per (chunk, kv head) serving the kv head's G
+q heads, and the chunks' partial softmax states are merged in chunk order
+by a combine kernel (no atomics: the same bits on every call). The serving engine builds the plan once per mixed
+dispatch, where the tags are still on the host (``MixedModelWrapper``), and
+hands it to every layer; a caller that passes none gets one built here.
+
 The wrapper takes its plain version for tensors on the CPU only; for a CUDA
-tensor it launches the kernel or raises, and counts the launch in
+tensor it launches the kernels or raises, and counts each call in
 ``ragged_paged_attention.launches``. Tags and tables may arrive on the host
 (int32 numpy or CPU tensors); they are moved to the operands' device here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -37,6 +49,137 @@ from nxdi_tpu_torch.ops.kernels.flash_attention import (
 # present in each q tile
 MAX_ROWS = 64
 
+# the work list's layout (shared with csrc/ragged_paged.cu)
+# T, direct tiles, items, partial slots, tokens to combine, chunk, 0, 0
+PLAN_HEADER = 8
+ITEM_INTS = 7    # token, row, kv begin, kv end, chunk index, chunks, first slot
+COMB_INTS = 3    # token, first slot, chunks (0: the token writes 0)
+TILE = 64        # q tile of the direct kernels
+CHUNK_UNIT = 128  # kv chunks are whole multiples: the split kernel's 4 warps x 32 keys
+CHUNK_MAX = 2048
+# a launch of the split kernel should hold at least this many blocks: two
+# per SM of an H100 (132 SMs)
+MIN_SPLIT_BLOCKS = 2 * 132
+# a tile holding one row runs the direct (tensor-core) kernel when the row
+# has more tokens than this in it; fewer go to the split kernel
+DIRECT_MIN_TOKENS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedPlan:
+    """The ragged kernels' work list: the host counts the launch sizes come
+    from, and the flat int32 list (numpy on the host, or its device copy)
+    laid out as ``PLAN_HEADER`` ints, the direct tiles, the items
+    (``ITEM_INTS`` each) and the tokens to combine (``COMB_INTS`` each)."""
+
+    T: int
+    n_direct: int
+    n_items: int
+    n_slots: int
+    n_comb: int
+    chunk: int
+    flat: object
+
+    def to(self, device) -> "RaggedPlan":
+        flat = self.flat
+        if isinstance(flat, np.ndarray):
+            flat = torch.from_numpy(flat)
+        return dataclasses.replace(self, flat=flat.to(device))
+
+    def direct_tiles(self) -> np.ndarray:
+        return self._host()[PLAN_HEADER:PLAN_HEADER + self.n_direct]
+
+    def items(self) -> np.ndarray:
+        b = PLAN_HEADER + self.n_direct
+        return self._host()[b:b + self.n_items * ITEM_INTS].reshape(-1, ITEM_INTS)
+
+    def combined(self) -> np.ndarray:
+        b = PLAN_HEADER + self.n_direct + self.n_items * ITEM_INTS
+        return self._host()[b:b + self.n_comb * COMB_INTS].reshape(-1, COMB_INTS)
+
+    def _host(self) -> np.ndarray:
+        f = self.flat
+        return f if isinstance(f, np.ndarray) else f.cpu().numpy()
+
+
+def _choose_chunk(lengths, kv_heads: int) -> int:
+    """The largest chunk (a multiple of CHUNK_UNIT, up to CHUNK_MAX) that
+    still gives the split launch MIN_SPLIT_BLOCKS blocks over these kv
+    lengths; the smallest when none does."""
+    chunk = CHUNK_UNIT
+    while chunk * 2 <= CHUNK_MAX and kv_heads * sum(
+            -(-n // (chunk * 2)) for n in lengths) >= MIN_SPLIT_BLOCKS:
+        chunk *= 2
+    return chunk
+
+
+def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
+                split: bool = True) -> RaggedPlan:
+    """The work list of one ragged call, from host int tags (numpy or CPU
+    tensors): ``row_ids`` (T,) (-1, or a row outside [0, num_rows), is
+    padding) and ``q_pos`` (T,); ``kv_width`` is a row's table width in
+    positions (NB * block_size).
+
+    - Direct tiles: 64-token tiles that hold more than DIRECT_MIN_TOKENS
+      tokens of one row and no other row (a prefill chunk's tiles). With
+      ``split=False`` every tile is direct: the earlier one-kernel design,
+      which walks a tile's rows in series.
+    - Items: every other real token, over its kv positions [0, min(its
+      position + 1, kv_width)) cut into chunks (``_choose_chunk``); a token
+      of one chunk writes its output itself, a token of more reserves a
+      partial slot per chunk.
+    - Tokens to combine: the tokens of more than one chunk (merging them in
+      chunk order), and every padding token or token that sees no position
+      outside the direct tiles (written 0).
+
+    Vectorised numpy over the host tags: no device work, no sync."""
+    rid = np.asarray(row_ids, dtype=np.int64).reshape(-1)
+    qp = np.asarray(q_pos, dtype=np.int64).reshape(-1)
+    T = rid.shape[0]
+    n_tiles = -(-T // TILE)
+    tile = np.arange(T) // TILE
+    real = (rid >= 0) & (rid < num_rows)
+    if split:
+        # a tile is direct when it holds one row only, with enough tokens
+        real_n = np.bincount(tile, weights=real, minlength=n_tiles)
+        pairs = np.unique(tile[real] * (num_rows + 1) + rid[real])
+        rows_n = np.bincount(pairs // (num_rows + 1), minlength=n_tiles)
+        is_direct = (rows_n == 1) & (real_n > DIRECT_MIN_TOKENS)
+    else:
+        is_direct = np.ones(n_tiles, bool)
+    direct = np.flatnonzero(is_direct)
+    # every other token is an item of its own (a token's q heads fill a
+    # block; a run of one row's tokens spreads over blocks), or, padding or
+    # at a negative position, a token written 0
+    width = np.minimum(qp + 1, kv_width)
+    rest = ~is_direct[tile]
+    tok = np.flatnonzero(rest & real & (width > 0))
+    zeros = np.flatnonzero(rest & ~(real & (width > 0)))
+    t_width = width[tok]
+    chunk = _choose_chunk(t_width.tolist(), kv_heads) if tok.size else CHUNK_UNIT
+    nch = -(-t_width // chunk)
+    multi = nch > 1
+    slot0 = np.cumsum(np.where(multi, nch, 0)) - np.where(multi, nch, 0)
+    slots = int(nch[multi].sum())
+    # items: one per (token, chunk), in stream order
+    of = np.repeat(np.arange(tok.size), nch)
+    c = np.arange(of.size) - np.repeat(np.cumsum(nch) - nch, nch)
+    items = np.stack([tok[of], rid[tok][of], c * chunk,
+                      np.minimum((c + 1) * chunk, t_width[of]), c, nch[of],
+                      np.where(multi, slot0, 0)[of]], axis=1)
+    # tokens to combine: those of more than one chunk, and the zeros
+    comb = np.concatenate([
+        np.stack([tok[multi], slot0[multi], nch[multi]], axis=1),
+        np.stack([zeros, np.zeros_like(zeros), np.zeros_like(zeros)], axis=1),
+    ])
+    comb = comb[np.argsort(comb[:, 0], kind="stable")]
+    flat = np.concatenate([
+        np.array([T, direct.size, len(items), slots, len(comb), chunk, 0, 0], np.int64),
+        direct, items.reshape(-1), comb.reshape(-1),
+    ]).astype(np.int32)
+    return RaggedPlan(T=T, n_direct=int(direct.size), n_items=len(items), n_slots=slots,
+                      n_comb=len(comb), chunk=chunk, flat=flat)
+
 
 def ragged_paged_kernel_supported(q_shape, cache_shape, block_size) -> bool:
     """The JAX package's rule in interpret mode: the packed layout (B == 1),
@@ -44,6 +187,12 @@ def ragged_paged_kernel_supported(q_shape, cache_shape, block_size) -> bool:
     B, H = q_shape[0], q_shape[1]
     total_slots, KV = cache_shape[0], cache_shape[1]
     return B == 1 and H % KV == 0 and total_slots % block_size == 0
+
+
+def _host_ints(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x)
 
 
 def _as_tensor(x, device):
@@ -87,10 +236,13 @@ def ragged_paged_attention(
     scale: Optional[float] = None,
     k_scale: float = 1.0,
     v_scale: float = 1.0,
+    plan: Optional[RaggedPlan] = None,
 ) -> torch.Tensor:
-    """Causal attention of a ragged mixed batch in one launch. Returns
+    """Causal attention of a ragged mixed batch in one call. Returns
     (1, H, T, D) in q's dtype (a transposed view of a (1, T, H, D) buffer on
-    the card, so the caller's head merge costs no copy)."""
+    the card, so the caller's head merge costs no copy). ``plan``: the work
+    list (:func:`ragged_plan` over these tags; on the card it is built here
+    from the tags when not given, which reads device tags back)."""
     name = "ragged_paged_attention"
     B, H, T, D = q.shape
     total_slots, KV = k_cache.shape[0], k_cache.shape[1]
@@ -122,12 +274,20 @@ def ragged_paged_attention(
     bt = _as_tensor(block_tables, dev).to(torch.int32).contiguous()
     rid = _as_tensor(row_ids, dev).to(torch.int32).contiguous()
     qp = _as_tensor(q_pos, dev).to(torch.int32).contiguous()
+    if plan is None:
+        plan = ragged_plan(_host_ints(row_ids), _host_ints(q_pos), R, NB * block_size, KV)
+    if plan.T != T:
+        raise ValueError(f"{name}: the plan covers {plan.T} tokens, the stream has {T}")
+    flat = plan.to(dev).flat
+    ws = (torch.empty(plan.n_slots * H * (D + 2), dtype=torch.float32, device=dev)
+          if plan.n_slots else None)
     out = torch.empty((1, T, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     err = _build.library().nxdi_ragged_paged(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        rid.data_ptr(), qp.data_ptr(), bt.data_ptr(), H, KV, T, R, NB, block_size, D,
-        q.stride(1), q.stride(2), out.stride(1), out.stride(2), float(scale), float(v_scale),
-        _build.stream_ptr(dev),
+        rid.data_ptr(), qp.data_ptr(), bt.data_ptr(), flat.data_ptr(), plan.n_direct,
+        plan.n_items, plan.n_slots, plan.n_comb, None if ws is None else ws.data_ptr(),
+        H, KV, T, R, NB, block_size, D, q.stride(1), q.stride(2), out.stride(1), out.stride(2),
+        float(scale), float(v_scale), _build.stream_ptr(dev),
     )
     _build.check(err, name)
     ragged_paged_attention.launches += 1

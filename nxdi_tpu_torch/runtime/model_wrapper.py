@@ -20,6 +20,7 @@ import torch
 
 from nxdi_tpu_torch.kvcache.kv_cache import BlockKVLayout, ContiguousKVLayout, scatter_indices
 from nxdi_tpu_torch.models import base
+from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 from nxdi_tpu_torch.runtime import autobucketing
 from nxdi_tpu_torch.runtime.padding import pad_with_first_batchline
 
@@ -149,7 +150,8 @@ class ModelWrapper:
             "sampling_params": sampling_params,
             **extra,
         }
-        dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in dev.items()}
+        dev = {k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v)
+               .to(self.device) for k, v in dev.items()}
         base._STRATEGY_TRACE.clear()
         with torch.inference_mode():
             outputs, cache = base.causal_lm_forward(
@@ -224,7 +226,11 @@ class MixedModelWrapper(ModelWrapper):
     - ``block_table`` (1, R * Wt): the R per-row tables concatenated, idle
       rows all -1;
     - ``last_token_index`` (R,): the packed index of each row's newest token;
-      ``sampling_params`` (R, 3); outputs lead with R and are not sliced.
+      ``sampling_params`` (R, 3); outputs lead with R and are not sliced;
+    - ``ragged_plan``: on the card with the attention kernel on, the ragged
+      kernels' work list (``ragged_plan``), built here once per dispatch
+      from the host tags and handed to every layer, so no layer reads the
+      tags back.
 
     Buckets count total packed tokens (``mixed_token_buckets``), not KV
     windows, so ``window_buckets`` is False."""
@@ -254,8 +260,13 @@ class MixedModelWrapper(ModelWrapper):
             x = np.asarray(batch_np[key], dtype=np.int32).reshape(1, -1)
             return np.concatenate([x, np.full((1, pad_s - x.shape[1]), -1, np.int32)], axis=1)
 
-        return {"block_table": bt, "mixed_row_ids": padded("mixed_row_ids"),
-                **scatter_indices(padded("slot_mapping"))}
+        rids = padded("mixed_row_ids")
+        extra = {"block_table": bt, "mixed_row_ids": rids,
+                 **scatter_indices(padded("slot_mapping"))}
+        if self.device.type == "cuda" and self.arch.attn_kernel_enabled:
+            extra["ragged_plan"] = rpa.ragged_plan(
+                rids[0], position_ids[0], R, wt * self.layout.block_size, self.arch.num_kv_heads)
+        return extra
 
     @staticmethod
     def _slice_batch_padding(outputs, orig_b: int):

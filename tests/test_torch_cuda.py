@@ -264,3 +264,118 @@ def test_gemm_forced_plans(gen, monkeypatch, M, forced):
     got = fp.fused_mlp(x, g, u, d)
     assert _max_err(got, fp.fused_mlp_plain(x, g, u, d)) <= GEMM_TOL
     assert torch.equal(fp.fused_mlp(x, g, u, d), got)
+
+
+# the TMA + wgmma prefill body: bf16 within chip_smoke.py's prefill
+# tolerance (one output ulp near 0.5 and the P rounding)
+PREFILL_BF16_TOL = 8e-3
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["ragged_edges", "offset_starts", "window", "chunk", "padded"])
+def test_wgmma_prefill_body(gen, D, case):
+    """The TMA + wgmma body against the plain version in the model's
+    layout: Sq and Sk not multiples of 128, Sk longer than Sq with offset
+    starts, sliding-window and chunk masks, right-padded rows; a second call
+    gives the same bits."""
+    B, H, KV = 2, 8, 2
+    Sq, Sk, win, chk = {"ragged_edges": (300, 300, None, None),
+                        "offset_starts": (200, 333, None, None),
+                        "window": (260, 260, 100, None),
+                        "chunk": (260, 260, None, 96),
+                        "padded": (256, 256, None, None)}[case]
+
+    def bf(*shape):
+        return _randn(gen, *shape).to(torch.bfloat16)
+
+    q = bf(B, Sq, H, D).transpose(1, 2)
+    k, v = bf(B, Sk, KV, D).transpose(1, 2), bf(B, Sk, KV, D).transpose(1, 2)
+    if case == "offset_starts":  # the chunk's queries sit after Sk - Sq cached keys
+        q_pos = (Sk - Sq + torch.arange(Sq, dtype=torch.int32))[None].expand(B, Sq) + \
+            torch.tensor([[0], [5]], dtype=torch.int32)
+        kv_pos = torch.arange(Sk, dtype=torch.int32)[None].expand(B, Sk) + \
+            torch.tensor([[0], [5]], dtype=torch.int32)
+    else:  # every row runs 0.. (a right-padded batch's pad lanes included) or starts at 37
+        q_pos = torch.arange(Sq, dtype=torch.int32)[None].expand(B, Sq) + \
+            torch.tensor([[0], [0 if case == "padded" else 37]], dtype=torch.int32)
+        kv_pos = q_pos
+    q_pos, kv_pos = q_pos.cuda(), kv_pos.cuda()
+    assert fa.prefill_body(q, k, v) == "wgmma"
+    got = fa.flash_attention_prefill(q, k, v, q_pos, kv_pos, sliding_window=win, chunk_size=chk)
+    want = fa.flash_attention_prefill_plain(q, k, v, q_pos, kv_pos, sliding_window=win,
+                                            chunk_size=chk)
+    assert _max_err(got, want) <= PREFILL_BF16_TOL
+    assert torch.equal(fa.flash_attention_prefill(q, k, v, q_pos, kv_pos, sliding_window=win,
+                                                  chunk_size=chk), got)
+
+
+def _ragged_stream(rows, T, R, NB, bs, gen):
+    """rows: (slot, first position, tokens) in packing order; each slot's
+    blocks drawn from a permutation of a pool of R * NB blocks; the rest of
+    the T tokens padding."""
+    perm = torch.randperm(R * NB, generator=torch.Generator().manual_seed(7)).tolist()
+    bt = np.full((R, NB), -1, np.int32)
+    rid = np.full(T, -1, np.int32)
+    qp = np.zeros(T, np.int32)
+    t, nxt = 0, 0
+    for slot, start, n in rows:
+        rid[t:t + n], qp[t:t + n] = slot, np.arange(start, start + n)
+        t += n
+        nb = (start + n - 1) // bs + 1
+        bt[slot, :nb] = perm[nxt:nxt + nb]
+        nxt += nb
+    return bt, rid, qp
+
+
+RAGGED_STREAMS = {
+    # decode-only at buckets 2, 8 and 64: one token per slot
+    "decode2": (2, [(1, 700, 1), (0, 95, 1)]),
+    "decode8": (8, [(s, 230 + 110 * s, 1) for s in range(8)]),
+    "decode64": (64, [(s, 40 + 31 * s, 1) for s in (list(range(63, 30, -1)) + list(range(31)))]),
+    # a prefill chunk's tiles beside a long decode row and a short one
+    "chunk_and_long_decode": (160, [(2, 100, 130), (0, 1900, 1), (1, 7, 1)]),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("stream", list(RAGGED_STREAMS))
+def test_ragged_split_path(gen, stream, dtype, tol):
+    """The split kernel and the combine (with direct tiles where a tile
+    holds one row) against the plain version at block 128; the same bits on
+    a second call; padding exactly 0."""
+    T, rows = RAGGED_STREAMS[stream]
+    H, KV, D, bs, NB = 32, 8, 64, 128, 16
+    R = max(s for s, _, _ in rows) + 1
+    bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
+    kc_, vc_ = (_randn(gen, R * NB * bs, KV, D).to(dtype) for _ in range(2))
+    q = _randn(gen, 1, T, H, D).to(dtype).transpose(1, 2)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    assert plan.n_items > 0
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs, plan=plan)
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, block_size=bs)
+    assert _max_err(got, want) <= tol
+    assert torch.all(got[:, :, torch.from_numpy(rid < 0).cuda()] == 0)
+    assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs,
+                                                  plan=plan), got)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+def test_ragged_split_path_block16_holes_and_scales(gen, dtype, tol):
+    """Block 16: holes inside two rows' ranges, a row whose blocks are all
+    holes (its token writes 0), k/v scales, a multi-token run of a row in a
+    shared tile; 128-key chunks, so rows take several."""
+    T, R, NB, bs, H, KV, D = 48, 5, 64, 16, 8, 2, 64
+    bt, rid, qp = _ragged_stream([(4, 300, 20), (3, 900, 1), (0, 511, 1), (1, 3, 1),
+                                  (2, 60, 1)], T, R, NB, bs, gen)
+    bt[3, 10] = bt[4, 2] = -1
+    bt[2, :] = -1
+    kc_, vc_ = (_randn(gen, R * NB * bs, KV, D).to(dtype) for _ in range(2))
+    q = _randn(gen, 1, T, H, D).to(dtype).transpose(1, 2)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    assert plan.chunk == 128 and plan.n_slots > 0 and plan.n_direct == 0
+    kw = dict(block_size=bs, k_scale=0.5, v_scale=2.0)
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw)
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, **kw)
+    assert _max_err(got, want) <= tol
+    assert torch.all(got[:, :, 23] == 0) and torch.all(got[:, :, 24:] == 0)
+    assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw), got)
