@@ -11,9 +11,14 @@ code is non-zero:
 3. Kernels against their plain PyTorch versions at the slice's shapes, in
    bfloat16 and float32, with kernel / plain / library times and the bound;
    the prefill by the kernel that ran (the TMA + wgmma body in bf16), beside
-   the earlier mma.sync body, and at head dim 128.
+   the earlier mma.sync body, and at head dim 128; the fused decode split
+   across blocks (21 flushed calls: median, min, max) beside the earlier
+   design (one chunk a row, forced through ``flash_attention.decode_chunk``).
 3b. The paged-decode, paged-prefill and window-decode kernels the same way,
-   at the serving engine's shapes (block 128, and block 16 for correctness).
+   at the serving engine's shapes (block 128, and block 16 for correctness):
+   both decodes beside one chunk a row, the paged prefill by the kernel that
+   ran (the TMA + wgmma body's paged mode in bf16) beside the mma.sync body
+   (forced through ``flash_attention.paged_prefill_body``).
 3c. The mixed step's kernels the same way: the fused QKV GEMM and the fused
    MLP over M = 2, 8, 64, 128, 520, 1032 (bf16 timed at each M over 21
    flushed calls: median, min, max, and the GEMM bodies each ran; the SM
@@ -22,7 +27,8 @@ code is non-zero:
    and ragged paged attention over 8 decode rows (bucket 8) and over a packed
    prefill chunk with 7 decode rows (bucket 1032; block 128: 21 flushed
    calls each, beside the earlier one-kernel design; block 16 with holes, a
-   row that sees nothing and k/v scales).
+   row that sees nothing and k/v scales), and a 96-row stream (more rows
+   than the one-kernel design takes) against the plain version.
 4. The slice at full Llama-3.2-1B width, 2 layers, float32: greedy
    ``generate()`` on the CPU (plain versions) and on the card (kernels),
    every step's logits held against each other.
@@ -37,7 +43,8 @@ code is non-zero:
    prompts: launch counts checked exactly, prefill / decode times printed.
 5b. The serving engine at full depth, bfloat16, 8 slots, 16 requests with a
    shared 384-token prefix: launch counts checked exactly against the
-   engine's dispatch counts, tok/s, TTFT, TPOT and a profiled decode step.
+   engine's dispatch counts, tok/s, TTFT, TPOT, a profiled prefix-prefill
+   step (it must run the TMA + wgmma body) and a profiled decode step.
 5c. The same configuration and traffic with mixed dispatch: exact launch
    counts, tok/s, TTFT, TPOT, packed vs padded tokens per bucket and
    profiled steps (with the port's GEMM time by body), printed beside
@@ -85,7 +92,11 @@ PREFILL_KERNEL = {"wgmma": "prefill_wgmma_kernel", "mma": "prefill_tc_kernel",
                   "simt": "prefill_kernel"}
 # the attention kernels a profiled step's time is split into, by name
 ATTN_NAME = re.compile(r"(prefill_wgmma_kernel|prefill_tc_kernel|prefill_kernel|"
-                       r"ragged_split_kernel|ragged_combine_kernel|decode_kernel)<")
+                       r"ragged_split_kernel|ragged_combine_kernel|decode_split_kernel|"
+                       r"decode_combine_kernel)<")
+# the decode kernel split across blocks, and its combine
+DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+DECODE_CALLS = 21
 LOGIT_TOL = 1e-4  # phases 4/4b/4c: float32 CPU vs card logits (measured 8.9e-6, 8.5e-6 and
 # 1.9e-5), 2 layers, full width
 # phase 3b (paged decode, paged prefill, window decode): a few times the
@@ -225,19 +236,62 @@ def attention_ms(by_kernel):
     return out
 
 
-class forced_prefill_body:
-    """Within the block, the contiguous prefill runs ``body`` (to time an
-    earlier body on the same inputs)."""
+class forced:
+    """Within the block, ``module.name`` is ``value`` (to time an earlier
+    design on the same inputs: a prefill body, one decode chunk a row)."""
 
-    def __init__(self, fa, body):
-        self.fa, self.body = fa, body
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
 
     def __enter__(self):
-        self.saved = self.fa.prefill_body
-        self.fa.prefill_body = lambda *a: self.body
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
 
     def __exit__(self, *exc):
-        self.fa.prefill_body = self.saved
+        setattr(self.module, self.name, self.saved)
+
+
+def one_chunk(B, KV, kv_len, n_sm):
+    """A decode split of one chunk a row: the earlier design, one block per
+    (row, kv head) writing its output directly."""
+    return 1 << 30
+
+
+def decode_point(torch, results, name, dname, fa, call, plain, library, nbytes, flops, flush, tol):
+    """One decode point (phases 3 and 3b): the split kernel and its combine
+    against the plain version, the same bits on a second call, one chunk a
+    row against the plain version too; then per-call device times over
+    DECODE_CALLS flushed calls (median, min, max) of both designs and of the
+    library call, and the plain version's mean."""
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.equal(call(), got), f"{name} {dname}: a second call gave other bits"
+    with forced(fa, "decode_chunk", one_chunk):
+        err_one = (call().float() - want.float()).abs().max().item()
+    assert max(err, err_one) <= tol, f"{name} {dname}: max abs err {err} / {err_one} > {tol}"
+    times, names, dropped = traced_times(torch, call, DECODE_CALLS, flush, kernel=DECODE_KERNELS)
+    ms, lo, hi = spread(times)
+    with forced(fa, "decode_chunk", one_chunk):
+        old, _, _ = traced_times(torch, call, DECODE_CALLS, flush, kernel=DECODE_KERNELS)
+    lib_times, _, lib_dropped = traced_times(torch, library, DECODE_CALLS, flush)
+    lib_ms, lib_lo, lib_hi = spread(lib_times)
+    plain_ms = measure(torch, plain, flush=flush)
+    bms, by = bound_ms(nbytes, flops, dname)
+    kernels = sorted(attention_ms([(0.0, n) for n in names]))
+    row = dict(kernel=name, dtype=dname, max_abs_err=max(err, err_one), tol=tol, ms=ms,
+               ms_min=lo, ms_max=hi, plain_ms=plain_ms, library_ms=lib_ms, library_min=lib_lo,
+               library_max=lib_hi, bound_ms=bms, bound_by=by, earlier_ms=spread(old)[0],
+               earlier_min=min(old), earlier_max=max(old), calls=len(times),
+               untraced=dropped + lib_dropped, kernels=kernels, share_of_bound=bms / ms)
+    results.append(row)
+    log(f"[kernels] {name} {dname} ({' + '.join(kernels)}): err {err:.3g} (one chunk a row "
+        f"{err_one:.3g}) kernel {ms:.4f} ms (min {lo:.4f} max {hi:.4f}); one chunk a row "
+        f"{row['earlier_ms']:.4f} ms (min {row['earlier_min']:.4f} max {row['earlier_max']:.4f}); "
+        f"plain {plain_ms:.4f} library {lib_ms:.4f} (min {lib_lo:.4f} max {lib_hi:.4f}) bound "
+        f"{bms:.4f} ({by}), {100 * bms / ms:.1f} % of the bound, {ms / lib_ms:.2f}x library")
+    return row
 
 
 def host_us(torch, fn, n=200):
@@ -323,7 +377,7 @@ def check_kernels(torch, results):
         if dname == "bfloat16":
             # the mma.sync body (PR 1's) on the same inputs, and the host time
             # of one call of each body (the TMA body encodes three tensor maps)
-            with forced_prefill_body(fa, "mma"):
+            with forced(fa, "prefill_body", lambda *a: "mma"):
                 prev, _, _ = traced_times(torch, lambda: fa.flash_attention_prefill(
                     q, k, v, pos, pos), PREFILL_CALLS, flush, kernel="prefill")
                 host_mma = host_us(torch, lambda: fa.flash_attention_prefill(q, k, v, pos, pos))
@@ -366,22 +420,16 @@ def check_kernels(torch, results):
         qpos = torch.tensor([[1024 + 37 * b] for b in range(B)], device=dev, dtype=torch.int32)
         qpos[0, 0] = 0  # decode at position 0: only the fresh row is visible
         li, kv_len = 5, S_cache
-        got = fa.flash_attention_decode_fused_stacked(qd, ks, vs, kn, vn, qpos, li, kv_len=kv_len)
-        want = fa.flash_attention_decode_fused_plain(qd, ks[li], vs[li], kn, vn, qpos, kv_len=kv_len)
+        # a shorter kv_len through the unstacked entry (correctness)
         got_l = fa.flash_attention_decode_fused(
             qd, ks[li], vs[li], kn, vn, qpos,
             torch.arange(S_cache, device=dev)[None].expand(B, S_cache), kv_len=1536,
         )
         want_l = fa.flash_attention_decode_fused_plain(qd, ks[li], vs[li], kn, vn, qpos, kv_len=1536)
         torch.cuda.synchronize()
-        err = max((got.float() - want.float()).abs().max().item(),
-                  (got_l.float() - want_l.float()).abs().max().item())
         tol = TOL[("decode", dname)]
-        assert err <= tol, f"decode {dname}: max abs err {err} > {tol}"
-        ms = measure(torch, lambda: fa.flash_attention_decode_fused_stacked(
-            qd, ks, vs, kn, vn, qpos, li, kv_len=kv_len), flush=flush, kernel="decode_kernel")
-        plain_ms = measure(torch, lambda: fa.flash_attention_decode_fused_plain(
-            qd, ks[li], vs[li], kn, vn, qpos, kv_len=kv_len), flush=flush)
+        err_l = (got_l.float() - want_l.float()).abs().max().item()
+        assert err_l <= tol, f"decode {dname} kv_len 1536: max abs err {err_l} > {tol}"
         # library yardstick: SDPA over [cache window | fresh row] with the
         # strict-causal mask, K/V concatenated and expanded beforehand
         kcat = torch.cat([ks[li], kn], dim=2).repeat_interleave(G, dim=1)
@@ -389,16 +437,16 @@ def check_kernels(torch, results):
         slot = torch.arange(S_cache + 1, device=dev)
         mask = (slot[None, :] < qpos) | (slot[None, :] == S_cache)
         mask = mask[:, None, None, :]
-        lib_ms = measure(torch, lambda: F.scaled_dot_product_attention(
-            qd, kcat, vcat, attn_mask=mask), flush=flush)
         visible = int(torch.clamp(qpos[:, 0], max=kv_len).sum().item())
-        flops = 4 * H * D * (visible + B)
-        nbytes = (2 * KV * D * (visible + B) + 2 * B * H * D) * es
-        bms, by = bound_ms(nbytes, flops, dname)
-        results.append(dict(kernel="decode", dtype=dname, max_abs_err=err, tol=tol, ms=ms,
-                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        log(f"[kernels] decode {dname}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} "
-            f"sdpa {lib_ms:.4f} bound {bms:.4f} ({by})")
+        decode_point(
+            torch, results, "decode", dname, fa,
+            lambda: fa.flash_attention_decode_fused_stacked(qd, ks, vs, kn, vn, qpos, li,
+                                                            kv_len=kv_len),
+            lambda: fa.flash_attention_decode_fused_plain(qd, ks[li], vs[li], kn, vn, qpos,
+                                                          kv_len=kv_len),
+            lambda: F.scaled_dot_product_attention(qd, kcat, vcat, attn_mask=mask),
+            (2 * KV * D * (visible + B) + 2 * B * H * D) * es, 4 * H * D * (visible + B), flush,
+            tol)
         del kcat, vcat
 
         # --- commit (one dropped slot) ---
@@ -497,22 +545,16 @@ def check_paged_kernels(torch, results):
         es = torch.tensor([], dtype=dt).element_size()
         kc, vc = randn((nblk * bs, KV, D), dt), randn((nblk * bs, KV, D), dt)
 
-        # --- paged decode ---
+        # --- paged decode (and at block 16 with k/v scales: correctness) ---
         q = randn((B, 1, H, D), dt).transpose(1, 2)
         qp = qpos[:, None].to(torch.int32)
-        got = fa.paged_attention_decode(q, kc, vc, bt, qp, block_size=bs)
-        want = fa.paged_attention_decode_plain(q, kc, vc, bt, qp, block_size=bs)
         got16 = fa.paged_attention_decode(q, kc, vc, bt16, qp, block_size=16, k_scale=0.5,
                                           v_scale=2.0)
         want16 = fa.paged_attention_decode_plain(q, kc, vc, bt16, qp, block_size=16,
                                                  k_scale=0.5, v_scale=2.0)
         torch.cuda.synchronize()
-        err = max((got.float() - want.float()).abs().max().item(),
-                  (got16.float() - want16.float()).abs().max().item())
-        ms = measure(torch, lambda: fa.paged_attention_decode(q, kc, vc, bt, qp, block_size=bs),
-                     flush=flush, kernel="decode_kernel")
-        plain_ms = measure(torch, lambda: fa.paged_attention_decode_plain(
-            q, kc, vc, bt, qp, block_size=bs), flush=flush)
+        err16 = (got16.float() - want16.float()).abs().max().item()
+        assert err16 <= PAGED_TOL[dname], f"paged_decode {dname} block 16: err {err16}"
         mask = live[:, None, None, :]
 
         def library_decode():
@@ -520,37 +562,35 @@ def check_paged_kernels(torch, results):
             vg = gathered(vc, bt, B).repeat_interleave(G, dim=1)
             return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
 
-        lib_ms = measure(torch, library_decode, flush=flush)
-        _kernel_row(results, "paged_decode", dname, err, ms, plain_ms, lib_ms,
-                    (2 * visible * KV * D + 2 * B * H * D) * es + bt.numel() * 4,
-                    4 * H * D * visible)
+        decode_point(
+            torch, results, "paged_decode", dname, fa,
+            lambda: fa.paged_attention_decode(q, kc, vc, bt, qp, block_size=bs),
+            lambda: fa.paged_attention_decode_plain(q, kc, vc, bt, qp, block_size=bs),
+            library_decode, (2 * visible * KV * D + 2 * B * H * D) * es + bt.numel() * 4,
+            4 * H * D * visible, flush, PAGED_TOL[dname])
 
         # --- window decode over the gathered window's layout ---
         kw = randn((B, Sk, KV, D), dt).transpose(1, 2)
         vw = randn((B, Sk, KV, D), dt).transpose(1, 2)
         kv_pos = torch.arange(Sk, device=dev, dtype=torch.int32)[None].expand(B, Sk)
-        got = fa.flash_attention_decode(q, kw, vw, qp, kv_pos)
-        want = fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ms = measure(torch, lambda: fa.flash_attention_decode(q, kw, vw, qp, kv_pos),
-                     flush=flush, kernel="decode_kernel")
-        plain_ms = measure(torch, lambda: fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos),
-                           flush=flush)
         wmask = (kv_pos <= qp)[:, None, None, :]
         kwe, vwe = kw.repeat_interleave(G, dim=1), vw.repeat_interleave(G, dim=1)
-        lib_ms = measure(torch, lambda: F.scaled_dot_product_attention(q, kwe, vwe,
-                                                                       attn_mask=wmask),
-                         flush=flush)
         seen = int((kv_pos <= qp).sum())
-        _kernel_row(results, "window_decode", dname, err, ms, plain_ms, lib_ms,
-                    (2 * seen * KV * D + 2 * B * H * D) * es, 4 * H * D * seen)
+        decode_point(
+            torch, results, "window_decode", dname, fa,
+            lambda: fa.flash_attention_decode(q, kw, vw, qp, kv_pos),
+            lambda: fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos),
+            lambda: F.scaled_dot_product_attention(q, kwe, vwe, attn_mask=wmask),
+            (2 * seen * KV * D + 2 * B * H * D) * es, 4 * H * D * seen, flush, PAGED_TOL[dname])
         del kw, vw, kwe, vwe
 
-        # --- paged prefill: a 512-token chunk after 512 (timed) or 384 cached ---
+        # --- paged prefill: a 512-token chunk after 512 (timed) or 384 cached;
+        # at block 16 with a hole and k/v scales (correctness) ---
         Sq = 512
         bt1 = bt[7:8]  # 16 live blocks: positions 0..2047
         qx = randn((1, Sq, H, D), dt).transpose(1, 2)
+        body = fa.paged_prefill_body(qx, kc, vc, bs)
+        assert body == ("wgmma" if dname == "bfloat16" else "simt"), body
         err = 0.0
         for start in (384, 512):
             qpx = (start + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
@@ -558,9 +598,25 @@ def check_paged_kernels(torch, results):
             want = fa.paged_attention_prefill_plain(qx, kc, vc, bt1, qpx, block_size=bs)
             torch.cuda.synchronize()
             err = max(err, (got.float() - want.float()).abs().max().item())
-        ms = measure(torch, lambda: fa.paged_attention_prefill(qx, kc, vc, bt1, qpx,
-                                                               block_size=bs),
-                     flush=flush, kernel="prefill")
+        bt16h = bt16[7:8].clone()
+        bt16h[0, 5] = -1  # a hole inside the prefix
+        got16 = fa.paged_attention_prefill(qx, kc, vc, bt16h, qpx, block_size=16, k_scale=0.5,
+                                           v_scale=2.0)
+        want16 = fa.paged_attention_prefill_plain(qx, kc, vc, bt16h, qpx, block_size=16,
+                                                  k_scale=0.5, v_scale=2.0)
+        torch.cuda.synchronize()
+        err16 = (got16.float() - want16.float()).abs().max().item()
+        # v_scale 2 doubles the outputs: twice the tolerance for the rounding
+        assert err16 <= 2 * PAGED_TOL[dname], f"paged_prefill {dname} block 16: err {err16}"
+
+        def call():
+            return fa.paged_attention_prefill(qx, kc, vc, bt1, qpx, block_size=bs)
+
+        assert torch.equal(call(), call()), f"paged_prefill {dname}: a second call gave other bits"
+        times, names, dropped = traced_times(torch, call, PREFILL_CALLS, flush, kernel="prefill")
+        ms, lo, hi = spread(times)
+        ran = sorted(attention_ms([(0.0, n) for n in names]))
+        assert ran == [PREFILL_KERNEL[body]], f"paged_prefill {dname}: ran {ran}, expected {body}"
         plain_ms = measure(torch, lambda: fa.paged_attention_prefill_plain(
             qx, kc, vc, bt1, qpx, block_size=bs), n=3, flush=flush)
         pmask = (slot_pos[None, :] <= qpx[0][:, None])[None, None]
@@ -570,10 +626,32 @@ def check_paged_kernels(torch, results):
             vg = gathered(vc, bt1, 1).repeat_interleave(G, dim=1)
             return F.scaled_dot_product_attention(qx, kg, vg, attn_mask=pmask)
 
-        lib_ms = measure(torch, library_prefill, flush=flush)
+        lib_times, _, lib_dropped = traced_times(torch, library_prefill, PREFILL_CALLS, flush)
+        lib_ms, lib_lo, lib_hi = spread(lib_times)
         pairs = int(pmask.sum())  # (query, key) pairs attended
-        _kernel_row(results, "paged_prefill", dname, err, ms, plain_ms, lib_ms,
+        _kernel_row(results, "paged_prefill", dname, max(err, err16 / 2), ms, plain_ms, lib_ms,
                     (2 * Sq * H * D + 2 * (start + Sq) * KV * D) * es, 4 * H * D * pairs)
+        row = results[-1]
+        row.update(ms_min=lo, ms_max=hi, library_min=lib_lo, library_max=lib_hi, body=body,
+                   kernels=ran, calls=len(times), untraced=dropped + lib_dropped,
+                   err_block16=err16, share_of_bound=row["bound_ms"] / ms)
+        if dname == "bfloat16":
+            # the mma.sync body (the earlier design) on the same inputs, and the host time
+            # of one call of each body (the TMA body encodes Q's tensor map)
+            with forced(fa, "paged_prefill_body", lambda *a: "mma"):
+                old, old_names, _ = traced_times(torch, call, PREFILL_CALLS, flush,
+                                                 kernel="prefill")
+                host_mma = host_us(torch, call)
+            assert sorted(attention_ms([(0.0, n) for n in old_names])) == ["prefill_tc_kernel"]
+            host_new = host_us(torch, call)
+            row.update(mma_sync_ms=spread(old)[0], mma_sync_min=min(old), mma_sync_max=max(old),
+                       host_us=host_new, mma_sync_host_us=host_mma)
+            log(f"[kernels] paged_prefill bfloat16 ({ran[0]}): kernel {ms:.4f} ms (min {lo:.4f} "
+                f"max {hi:.4f}); mma.sync body {row['mma_sync_ms']:.4f} ms (min "
+                f"{row['mma_sync_min']:.4f} max {row['mma_sync_max']:.4f}); library {lib_ms:.4f} "
+                f"(min {lib_lo:.4f} max {lib_hi:.4f}); {100 * row['bound_ms'] / ms:.1f} % of the "
+                f"bound; host per call {host_new:.1f} us, mma.sync {host_mma:.1f} us; block 16 "
+                f"err {err16:.3g}")
         del kc, vc
         torch.cuda.empty_cache()
 
@@ -846,7 +924,45 @@ def check_mixed_kernels(torch, results):
         assert torch.all(got[:, :, tok0] == 0), "ragged: a token with no visible key is not 0"
         assert err16 <= NEW_TOL[("ragged", dname)], f"ragged {dname} block 16: err {err16}"
         log(f"[kernels] ragged {dname} block 16 (holes, empty row, scales): err {err16:.3g}")
-        del kc, vc, q, qd, got, want
+
+        # --- 96 rows (the split plan; the one-kernel design refuses more
+        # than 64): a 300-token chunk of row 50 after 600 cached, then one
+        # decode token of each other row, padded to 512; tables drawn with
+        # replacement from the pool ---
+        R96, T96 = 96, 512
+        g96 = torch.Generator().manual_seed(96)
+        bt96 = torch.randint(0, nblk, (R96, NB), generator=g96, dtype=torch.int32)
+        rid96 = torch.full((T96,), -1, dtype=torch.int32)
+        qp96 = torch.zeros((T96,), dtype=torch.int32)
+        rid96[:300], qp96[:300] = 50, torch.arange(600, 900, dtype=torch.int32)
+        others = [r for r in range(R96) if r != 50]
+        rid96[300:395] = torch.tensor(others, dtype=torch.int32)
+        qp96[300:395] = torch.randint(0, NB * bs, (95,), generator=g96, dtype=torch.int32)
+        bt96, rid96, qp96 = bt96.to(dev), rid96.to(dev), qp96.to(dev)
+        q96 = randn((1, T96, H, D), dt).transpose(1, 2)
+        plan96 = rpa.ragged_plan(rid96.cpu().numpy(), qp96.cpu().numpy(), R96, NB * bs, KV)
+        got = rpa.ragged_paged_attention(q96, kc, vc, bt96, rid96, qp96, block_size=bs,
+                                         plan=plan96)
+        want = rpa.ragged_paged_attention_plain(q96, kc, vc, bt96, rid96, qp96, block_size=bs)
+        err96 = err_of(got, want)
+        assert torch.all(got[:, :, 395:] == 0), "ragged 96 rows: padding tokens are not 0"
+        assert torch.equal(rpa.ragged_paged_attention(q96, kc, vc, bt96, rid96, qp96,
+                                                      block_size=bs, plan=plan96), got)
+        assert err96 <= NEW_TOL[("ragged", dname)], f"ragged {dname} 96 rows: err {err96}"
+        try:
+            rpa.ragged_plan(rid96.cpu().numpy(), qp96.cpu().numpy(), R96, NB * bs, KV,
+                            split=False)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("ragged_plan(split=False) took 96 rows")
+        results.append(dict(kernel="ragged_rows96", dtype=dname, max_abs_err=err96,
+                            tol=NEW_TOL[("ragged", dname)], rows=R96, T=T96,
+                            plan=dict(direct=plan96.n_direct, items=plan96.n_items,
+                                      slots=plan96.n_slots, combine=plan96.n_comb)))
+        log(f"[kernels] ragged {dname} 96 rows (split plan: {plan96.n_direct} direct tiles, "
+            f"{plan96.n_items} items): err {err96:.3g}; split=False: {refused}")
+        del kc, vc, q, qd, q96, got, want
         torch.cuda.empty_cache()
 
 
@@ -1349,6 +1465,18 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
     # dispatch the step that admits the 8th packs its prefill with 7 decode
     # rows, and the step after it only decodes
     profiled = {}
+    if not mixed:
+        # a request sharing the 384-token prefix: its step runs one
+        # prefix-prefill dispatch over the rest of its prompt, which must run
+        # the TMA + wgmma body's paged mode
+        before = dict(eng.dispatches)
+        eng.add_request(shared + rng.integers(1, arch.vocab_size, 300).tolist(),
+                        SamplingParams(max_new_tokens=2))
+        profiled["prefix_prefill"] = profile_step(torch, eng)
+        assert eng.dispatches.get(TAG_PREFIX_PREFILL, 0) == before.get(TAG_PREFIX_PREFILL, 0) + 1
+        pre_attn = attention_ms(profiled["prefix_prefill"][2])
+        assert "prefill_wgmma_kernel" in pre_attn and "prefill_tc_kernel" not in pre_attn, pre_attn
+        eng.run()
     for i in range(8):
         eng.add_request(rng.integers(1, arch.vocab_size, 200).tolist(),
                         SamplingParams(max_new_tokens=16))
@@ -1384,7 +1512,8 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
         if gemm:
             log(f"{tag} profiled {kind} step: port GEMM kernels {sum(gemm.values()):.3f} ms ("
                 + "; ".join(f"{k} {v:.3f}" for k, v in sorted(gemm.items())) + ")")
-        log(f"{tag} profiled {kind} step (8 rows): wall {step_ms:.3f} ms, device busy "
+        log(f"{tag} profiled {kind} step ({'1 row' if kind == 'prefix_prefill' else '8 rows'}): "
+            f"wall {step_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / step_ms):.1f}%); top: "
             + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in by_kernel[:6]))
     log(f"{tag} {card}: {tok_s:.1f} tok/s over {wall:.2f} s; TTFT p50 "

@@ -1,4 +1,4 @@
-// The single-position decode kernel shared by three entry points, one per
+// The single-position decode kernels shared by three entry points, one per
 // source so the modes compile in parallel: flash_decode.cu (kFused),
 // window_decode.cu (kWindow), paged_decode.cu (kPaged). What each mode
 // replaces, and the design, are described below.
@@ -26,25 +26,43 @@
 // Window/chunk masks apply to kFused and kWindow. Every mode clamps the
 // softmax denominator at 1e-20, so a row with no visible key outputs 0.
 //
-// Design: one block (8 warps) per (b, kv-head); the G = H/KV query rows of
-// the group share every K/V row read. The attended positions are split over
-// the warps in 32-position tiles (lane = position for Q.K, lane = output
-// column for P.V), each warp keeps its own (m, l, acc) and the block merges
-// them in shared memory. Each tile's V rows are copied into the warp's shared
-// memory with cp.async, issued before the Q.K work so the copy overlaps it;
-// P.V then reads V from shared memory. Each lane loads its whole K row as
-// 16-byte chunks issued together. The paged mode looks each lane's slot up
-// in the table and computes its address in 64 bits; the TPU kernel instead
-// read a whole (block_size, KV, D) block for all kv heads at once, which at
-// block 128, KV 8, D 64 in bf16 is 128 KiB for K alone and would not fit one
-// block's shared memory beside V. Here a block reads only its own head's
-// strided rows (row stride KV * D), so any block size works.
+// Bound: bytes. Decode streams the attended K/V rows from device memory
+// once (phase 3b's paged point: 8 rows at positions 0...2000, KV 8, D 64 in
+// bf16, 16 MB: 4.8 us at 3.35 TB/s) and does 2 G D flops per K/V row.
 //
-// Bound: decode streams the attended K/V rows from device memory once
-// (33.5 MB per layer at B=8, KV=8, 2048 slots, D=64 in bf16: ~10 us at
-// 3.35 TB/s). B*KV = 64 blocks fill under half of the 132 SMs; splitting the
-// kv range over blocks (flash-decoding with a second merge pass) is the later
-// step.
+// Design: flash decoding. The kv range [0, kv_len) is cut into C chunks of
+// chunk_len positions, and decode_split_kernel runs one block per (chunk,
+// kv head, row): it serves all G = H / KV q heads of the kv head, so each
+// K/V row is read once. C comes from shapes only (kv_len, B, KV and the SM
+// count: flash_attention.py::decode_chunk aims at two blocks per SM), so
+// the launch never waits on q_pos or the table; a block whose chunk holds
+// no visible position writes an empty state and exits. Inside a block each
+// warp walks 32-position tiles of the chunk, its K and V rows streamed into
+// shared memory by cp.async, double-buffered: the next tile's copies are in
+// flight while this tile is computed. Rows are padded to an odd number of
+// 16-byte units, so no access pattern below hits a bank twice. In bf16 at
+// head dims that are multiples of 16 the tile runs on the tensor cores
+// (mma.sync m16n8k16): the G q heads are the rows of one 16-row tile, the
+// tile's positions the columns; S = Q K^T from Q fragments held in
+// registers for the whole block, the mask (one q_pos, so one ballot of
+// visible columns) and the online softmax on the accumulators, and
+// O += P V with P packed from the score registers (rounded to bf16 in the
+// window and paged modes; in the fused mode split into a bf16 hi + lo pair,
+// so P.V keeps f32 accuracy) and V^T by ldmatrix.trans. Elsewhere (f32,
+// other head dims) it runs on the CUDA cores (lane = position for Q.K,
+// lane = a column pair for P.V), whose per-position instructions, not the
+// bytes, set the time at phase 3b's point (scripts/probe_decode.py cuts
+// them out). The warps' (m, l, acc) are merged in shared memory (in warp
+// order). With C = 1 the block writes the output itself (the earlier
+// design: one block per (row, kv head)); with C > 1 it writes f32 partials
+// to scratch the wrapper allocates, and decode_combine_kernel (a warp per
+// (row, q head)) merges them in chunk order (no atomics: a second call
+// gives the same bits), folds in the fresh row (kFused), applies v_scale
+// and rounds to q's dtype.
+// The paged mode looks each lane's slot up in the table (64-bit offsets);
+// a block reads only its own head's strided rows (row stride KV * D), so
+// any block size works. ragged_paged.cu's split and combine kernels are the
+// same scheme over a packed token stream.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -53,9 +71,17 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-
 enum class Mode { kFused, kWindow, kPaged };
+
+constexpr int kDecTile = 32;  // kv positions per warp tile
+constexpr int kDecStages = 2;  // a warp's K/V tiles in flight (a third measured no faster)
+
+// Warps per block: 4, or 2 where a warp's double-buffered K/V tiles are
+// large (f32 at head dim 128), to stay within shared memory.
+template <typename T, int DMAX>
+__host__ __device__ constexpr int dec_warps() {
+  return sizeof(T) * DMAX > 256 ? 2 : 4;
+}
 
 struct DecodeArgs {
   const void* q;
@@ -64,70 +90,130 @@ struct DecodeArgs {
   const void* kn;       // kFused only: this step's fresh rows
   const void* vn;
   void* out;
+  float* ws;            // C > 1: (B, H, C, D) partial sums, then (B, H, C, 2) max and sum
   const int* q_pos;
   const int* kv_start;  // may be null: slot j is position j
   const int* bt;        // kPaged only: (B, nb) block table, -1 = hole
-  int H, KV, D, kv_len, nb, bs;
+  int B, H, KV, D, kv_len, nb, bs, chunk_len, n_chunks;
   long long qsb, qsh, csb, csh, css, nsb, nsh, osb, osh;
   float scale, v_scale;
   int window, chunk;
 };
 
-// A 16-byte chunk of a K row, unpacked to f32.
+// Padded K and V row length in elements: an odd number of 16-byte units, so
+// a lane reading its own K row, the mma's fragment loads and ldmatrix hit
+// no bank twice.
+__host__ __device__ inline int dec_k_pitch(int D, int es) {
+  return ((D * es / 16) | 1) * 16 / es;
+}
+
+// Shared memory of a block: Q as f32 [G][D] (16-byte rounded), then per
+// warp kDecStages stages of K [32][pitch] and V [32][pitch]; the warps' merge area
+// (m, l [NW][G], acc [NW][G][D], the fresh scores [G]) reuses the stages
+// once the tiles are done.
+__host__ __device__ inline size_t dec_q_bytes(int G, int D) {
+  return (sizeof(float) * (size_t)G * D + 15) & ~size_t(15);
+}
+__host__ __device__ inline size_t dec_stage_elems(int D, int es) {
+  return (size_t)kDecTile * 2 * dec_k_pitch(D, es);
+}
+inline size_t dec_smem_bytes(int NW, int G, int D, int es) {
+  const size_t stages = (size_t)NW * kDecStages * dec_stage_elems(D, es) * es;
+  const size_t merge = sizeof(float) * (size_t)(2 * NW * G + NW * G * D + G);
+  return dec_q_bytes(G, D) + (stages > merge ? stages : merge);
+}
+
+// The slots [lo, hi) row b's query sees: up to q_pos (exclusive when the
+// fresh row replaces the slot at q_pos), inside kv_len, from the window's
+// start (flash_attention.py::decode_visible_range mirrors it).
+template <Mode MODE>
+__device__ __forceinline__ void dec_visible(const DecodeArgs& a, int qp, int ks, int& lo,
+                                            int& hi) {
+  hi = max(0, min(a.kv_len, qp - ks + (MODE == Mode::kFused ? 0 : 1)));
+  lo = a.window > 0 ? max(0, min(hi, qp - a.window + 1 - ks)) : 0;
+}
+
 template <typename T>
-struct Chunk;
+struct Pair;
 template <>
-struct Chunk<float> {
-  static constexpr int N = 4;
-  __device__ static void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
+struct Pair<float> {
+  __device__ static float2 load(const float* p) { return *reinterpret_cast<const float2*>(p); }
 };
 template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+struct Pair<__nv_bfloat16> {
+  __device__ static float2 load(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+
+// a 16-byte piece of a K row, unpacked to f32
+__device__ __forceinline__ void dec_unpack(const uint4& u, float* f, float) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void dec_unpack(const uint4& u, float* f, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
   }
-};
-
-// f32 merge area, rounded up to 16 bytes, then one 32 x D V tile per warp
-__host__ __device__ size_t decode_float_bytes(int G, int D) {
-  return (sizeof(float) * (size_t)(G * D + 2 * kWarps * G + kWarps * G * D + G) + 15) & ~size_t(15);
-}
-size_t decode_smem_bytes(int G, int D, size_t elem) {
-  return decode_float_bytes(G, D) + kWarps * 32 * (size_t)D * elem;
 }
 
-template <typename T, int GMAX, int DMAX, Mode MODE>
-__global__ void __launch_bounds__(kWarps * 32) decode_kernel(DecodeArgs a) {
+// The hi and lo bf16 halves of two f32 values (x = hi + lo to 16
+// mantissa bits): the fused mode's P, kept f32-accurate through bf16 mma.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// MMA: the bf16 body at head dims that are multiples of 16 (the tensor
+// cores, G q heads as the rows of one m16 tile); otherwise the CUDA cores.
+template <typename T, int GMAX, int DMAX, Mode MODE, bool MMA>
+__global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel(DecodeArgs a) {
+  constexpr int NW = dec_warps<T, DMAX>();
   constexpr bool kFresh = MODE == Mode::kFused;   // fold in the fresh row, strict mask
   constexpr bool kRoundP = MODE != Mode::kFused;  // P rounded to T before P.V
   constexpr bool kPaged = MODE == Mode::kPaged;
+  constexpr int ES = sizeof(T), EPC = 16 / ES;   // elements per 16-byte piece
 
   extern __shared__ __align__(16) float smem[];
-  const int D = a.D, G = a.H / a.KV;
-  T* sV = reinterpret_cast<T*>(reinterpret_cast<char*>(smem) + decode_float_bytes(G, D)) +
-          (threadIdx.x >> 5) * 32 * D;  // this warp's V tile [32][D]
-  float* sQ = smem;                    // [G][D]
-  float* sM = sQ + G * D;              // [kWarps][G]
-  float* sL = sM + kWarps * G;         // [kWarps][G]
-  float* sAcc = sL + kWarps * G;       // [kWarps][G][D]
-  float* sS2 = sAcc + kWarps * G * D;  // [G] fresh-row scores
-
+  const int D = a.D, G = a.H / a.KV, C = a.n_chunks;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
+  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int qp = a.q_pos[b];
   const int ks = a.kv_start ? a.kv_start[b] : 0;
+  const bool direct = C == 1;
+
+  // this block's positions: the row's visible range inside the chunk
+  int lo, hi;
+  dec_visible<MODE>(a, qp, ks, lo, hi);
+  lo = max(lo, c * a.chunk_len);
+  hi = min(hi, (int)min((long long)a.kv_len, (long long)(c + 1) * a.chunk_len));
+  const long long part = ((long long)b * a.H + kvh * G) * C + c;  // (b, head kvh * G, c)
+  if (hi <= lo && !direct) {  // nothing visible here: an empty state
+    for (int i = tid; i < G * D; i += blockDim.x) {
+      const int g = i / D, d = i % D;
+      a.ws[(part + (long long)g * C) * D + d] = 0.f;
+      if (d == 0) {
+        float* ml = a.ws + (long long)a.B * a.H * C * D + 2 * (part + (long long)g * C);
+        ml[0] = NXDI_NEG_INF;
+        ml[1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  float* sQ = smem;  // [G][D]
+  char* stage_base = reinterpret_cast<char*>(smem) + dec_q_bytes(G, D);
+  const int kp = dec_k_pitch(D, ES);
+  const size_t stage = dec_stage_elems(D, ES);
+  T* my_stages = reinterpret_cast<T*>(stage_base) + (size_t)warp * kDecStages * stage;
 
   const T* kc = static_cast<const T*>(a.kc) + b * a.csb + kvh * a.csh;
   const T* vc = static_cast<const T*>(a.vc) + b * a.csb + kvh * a.csh;
@@ -137,210 +223,479 @@ __global__ void __launch_bounds__(kWarps * 32) decode_kernel(DecodeArgs a) {
     const int g = i / D, d = i % D;
     sQ[i] = to_f32(static_cast<const T*>(a.q)[b * a.qsb + (kvh * G + g) * a.qsh + d]);
   }
-  __syncthreads();
 
-  if constexpr (kFresh) {
-    // fresh-row scores (the fresh row sits at q_pos: every mask admits it)
-    const T* kn = static_cast<const T*>(a.kn) + b * a.nsb + kvh * a.nsh;
-    for (int g = warp; g < G; g += kWarps) {
-      float part = 0.f;
-      for (int d = lane; d < D; d += 32) part = fmaf(sQ[g * D + d], to_f32(kn[d]), part);
-      part = warp_sum(part);
-      if (lane == 0) sS2[g] = part * a.scale;
-    }
-  }
-
-  // attended positions [j_begin, j_end): up to q_pos (exclusive when the
-  // fresh row replaces the slot at q_pos), inside kv_len
-  const int j_end = max(0, min(a.kv_len, qp - ks + (kFresh ? 0 : 1)));
-  int j_begin = 0;
-  if (a.window > 0) j_begin = max(0, min(j_end, qp - a.window + 1 - ks)) & ~31;
-
-  constexpr int kT = DMAX / 32;  // output columns per lane
-  float m[GMAX], l[GMAX], acc[GMAX][kT], s[GMAX], p[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = NXDI_NEG_INF;
-    l[g] = 0.f;
-    p[g] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kT; ++t) acc[g][t] = 0.f;
-  }
-
-  const int cpr = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
-  const int n_tiles = (j_end - j_begin + 31) / 32;
-  for (int tile = warp; tile < n_tiles; tile += kWarps) {
-    const int jb = j_begin + tile * 32;
-    const int j = jb + lane;
-    const int n_here = min(32, j_end - jb);
-    const bool in_range = j < j_end;
-    // this lane's slot: position j itself, or through the block table
-    long long slot = j;
-    bool live = in_range;
+  // the slot of position j (< hi), or -1 for a hole
+  auto slot_of = [&](int j) -> long long {
     if constexpr (kPaged) {
-      const int blk = in_range ? btr[j / a.bs] : -1;
-      live = blk >= 0;
-      slot = live ? (long long)blk * a.bs + j % a.bs : 0;
-    }
-    // stage V rows [jb, jb + n_here) into shared memory asynchronously
-    if constexpr (kPaged) {
-      // each row's slot comes from the lane that looked it up; hole rows
-      // are zero-filled (the loop is warp-uniform for the shuffles)
-      for (int base = 0; base < n_here * cpr; base += 32) {
-        const int i = base + lane;
-        const int row = min(i / cpr, 31), c = i % cpr;
-        const long long rslot = __shfl_sync(0xffffffffu, slot, row);
-        const int rlive = __shfl_sync(0xffffffffu, (int)live, row);
-        if (i < n_here * cpr)
-          __pipeline_memcpy_async(reinterpret_cast<char*>(sV + row * D) + c * 16,
-                                  reinterpret_cast<const char*>(vc + rslot * a.css) + c * 16,
-                                  16, rlive ? 0 : 16);
-      }
+      const int blk = btr[j / a.bs];
+      return blk < 0 ? -1 : (long long)blk * a.bs + j % a.bs;
     } else {
-      for (int i = lane; i < n_here * cpr; i += 32) {
-        const int row = i / cpr, c = i % cpr;
-        __pipeline_memcpy_async(reinterpret_cast<char*>(sV + row * D) + c * 16,
-                                reinterpret_cast<const char*>(vc + (long long)(jb + row) * a.css) +
-                                    c * 16,
-                                16);
-      }
+      return j;
+    }
+  };
+  const int cpr = D * ES / 16;  // 16-byte pieces per row
+  // stage this warp's tile t (positions lo + 32 t ...) into stage s: K and V
+  // rows asynchronously, each row's slot from the lane that looked it up;
+  // holes and rows past the range zero-filled (the tensor cores read all
+  // 32 rows; the loop is warp-uniform for the shuffles)
+  auto issue = [&](int t, int s) {
+    const int j = lo + t * kDecTile + lane;
+    const long long slot = j < hi ? slot_of(j) : -1;
+    T* sK = my_stages + s * stage;
+    T* sV = sK + kDecTile * kp;
+    for (int base = 0; base < kDecTile * cpr; base += 32) {
+      const int i = base + lane;
+      const int r = i / cpr, pc = i % cpr;
+      const long long rslot = __shfl_sync(0xffffffffu, slot, r);
+      const long long src = (rslot < 0 ? 0 : rslot) * a.css + pc * EPC;
+      const int zfill = rslot < 0 ? 16 : 0;
+      __pipeline_memcpy_async(sK + r * kp + pc * EPC, kc + src, 16, zfill);
+      __pipeline_memcpy_async(sV + r * kp + pc * EPC, vc + src, 16, zfill);
     }
     __pipeline_commit();
-    const bool valid = live && pos_visible(ks + j, qp, kFresh, a.window, a.chunk);
+  };
+  // whether this lane's position of tile t is attended
+  auto lane_visible = [&](int t) {
+    const int j = lo + t * kDecTile + lane;
+    return j < hi && slot_of(j) >= 0 && pos_visible(ks + j, qp, kFresh, a.window, a.chunk);
+  };
+
+  const int n_tiles = hi > lo ? (hi - lo + kDecTile - 1) / kDecTile : 0;
+  const int n_mine = n_tiles > warp ? (n_tiles - warp + NW - 1) / NW : 0;
+  // the first kDecStages - 1 tiles in flight (a group each, empty past the
+  // warp's last tile, so every wait below counts the same groups)
+  for (int k = 0; k < kDecStages - 1; ++k) {
+    if (k < n_mine) {
+      issue(warp + k * NW, k);
+    } else {
+      __pipeline_commit();
+    }
+  }
+  __syncthreads();  // sQ
+  // put tile i + kDecStages - 1 in flight and wait for tile i's copies
+  auto next = [&](int i) {
+    const int k = i + kDecStages - 1;
+    if (k < n_mine) {
+      issue(warp + k * NW, k % kDecStages);
+    } else {
+      __pipeline_commit();
+    }
+    __pipeline_wait_prior(kDecStages - 1);
+    __syncwarp();
+  };
+
+  // the warp's state goes to the merge area (over the stages) after the tiles
+  float* sM = reinterpret_cast<float*>(stage_base);  // [NW][G]
+  float* sL = sM + NW * G;                           // [NW][G]
+  float* sAcc = sL + NW * G;                         // [NW][G][D]
+  float* sS2 = sAcc + NW * G * D;                    // [G] fresh-row scores
+
+  if constexpr (MMA) {
+    // S = Q K^T and O += P V on mma.sync m16n8k16: rows are the q heads
+    // (rows >= G zero), a tile's 32 positions four n8 column tiles; each
+    // lane holds rows grp and grp + 8, columns 8 nt + 2 tig and the next.
+    constexpr int KS = DMAX / 16, NT = DMAX / 8;
+    const int grp = lane >> 2, tig = lane & 3;
+    uint32_t qf[KS][4];
+    auto qpair = [&](int r, int col) -> uint32_t {
+      return r < G ? pack_bf16(sQ[r * D + col], sQ[r * D + col + 1]) : 0u;
+    };
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
-    {  // this lane's K row: every 16-byte chunk in flight at once
-      constexpr int EPC = Chunk<T>::N;
-      constexpr int KC = DMAX / EPC;
-      uint4 kreg[KC];
-      const uint4* krow = reinterpret_cast<const uint4*>(kc + slot * a.css);
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk * 16 < D) {
+        qf[kk][0] = qpair(grp, kk * 16 + 2 * tig);
+        qf[kk][1] = qpair(grp + 8, kk * 16 + 2 * tig);
+        qf[kk][2] = qpair(grp, kk * 16 + 8 + 2 * tig);
+        qf[kk][3] = qpair(grp + 8, kk * 16 + 8 + 2 * tig);
+      }
+    }
+    float o[NT][4], mr[2] = {NXDI_NEG_INF, NXDI_NEG_INF}, lr[2] = {0.f, 0.f};
 #pragma unroll
-      for (int c = 0; c < KC; ++c)
-        kreg[c] = (live && c * EPC < D) ? krow[c] : make_uint4(0u, 0u, 0u, 0u);
+    for (int t = 0; t < NT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+    for (int i = 0; i < n_mine; ++i) {
+      const int t = warp + i * NW;
+      next(i);
+      const T* sK = my_stages + (i % kDecStages) * stage;
+      const T* sV = sK + kDecTile * kp;
+      const unsigned vis = __ballot_sync(0xffffffffu, lane_visible(t));
+      float sc[4][4];
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        if (c * EPC < D) {
-          float kf[EPC];
-          Chunk<T>::unpack(kreg[c], kf);
+      for (int nt = 0; nt < 4; ++nt) {
+        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+        const T* krow = sK + (nt * 8 + grp) * kp + 2 * tig;
 #pragma unroll
-          for (int g = 0; g < GMAX; ++g) {
-            if (g < G) {
+        for (int kk = 0; kk < KS; ++kk) {
+          if (kk * 16 < D) {
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
+            mma_bf16(sc[nt], qf[kk], b0, b1);
+          }
+        }
+      }
+      // mask + online softmax per row (the mask is the columns': one q_pos)
 #pragma unroll
-              for (int e = 0; e < EPC; e += 4) {
-                const float4 q4 = *reinterpret_cast<const float4*>(&sQ[g * D + c * EPC + e]);
-                s[g] = fmaf(q4.x, kf[e], fmaf(q4.y, kf[e + 1],
-                            fmaf(q4.z, kf[e + 2], fmaf(q4.w, kf[e + 3], s[g]))));
+      for (int half = 0; half < 2; ++half) {
+        float mx = NXDI_NEG_INF;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool v = (vis >> (nt * 8 + 2 * tig + e)) & 1u;
+            float& x = sc[nt][2 * half + e];
+            x = v ? x * a.scale : NXDI_NEG_INF;
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(mr[half], mx);
+        const float corr = expf(mr[half] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool v = (vis >> (nt * 8 + 2 * tig + e)) & 1u;
+            float& x = sc[nt][2 * half + e];
+            x = v ? expf(x - m_new) : 0.f;
+            rs += x;
+          }
+        }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        lr[half] = lr[half] * corr + rs;
+        mr[half] = m_new;
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          o[u][2 * half] *= corr;
+          o[u][2 * half + 1] *= corr;
+        }
+      }
+      // O += P V: P (rounded to bf16; fused: f32 as a hi + lo pair) is the A
+      // operand straight from the score registers, V^T from ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ph[4], pl[4];
+        const float* s0 = sc[2 * kk];
+        const float* s1 = sc[2 * kk + 1];
+        if constexpr (kRoundP) {
+          ph[0] = pack_bf16(s0[0], s0[1]);
+          ph[1] = pack_bf16(s0[2], s0[3]);
+          ph[2] = pack_bf16(s1[0], s1[1]);
+          ph[3] = pack_bf16(s1[2], s1[3]);
+        } else {
+          split_bf16(s0[0], s0[1], ph[0], pl[0]);
+          split_bf16(s0[2], s0[3], ph[1], pl[1]);
+          split_bf16(s1[0], s1[1], ph[2], pl[2]);
+          split_bf16(s1[2], s1[3], ph[3], pl[3]);
+        }
+        const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int u = 0; u < NT; u += 2) {
+          if (u * 8 < D) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, sV + vrow * kp + u * 8 + (lane >> 4) * 8);
+            mma_bf16(o[u], ph, vb[0], vb[1]);
+            mma_bf16(o[u + 1], ph, vb[2], vb[3]);
+            if constexpr (!kRoundP) {
+              mma_bf16(o[u], pl, vb[0], vb[1]);
+              mma_bf16(o[u + 1], pl, vb[2], vb[3]);
+            }
+          }
+        }
+      }
+      __syncwarp();  // the next tile's copies overwrite this stage
+    }
+    __syncthreads();  // every warp is done with its stages
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int g = grp + 8 * half;
+      if (g < G) {
+        if (tig == 0) {
+          sM[warp * G + g] = mr[half];
+          sL[warp * G + g] = lr[half];
+        }
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          const int d = u * 8 + 2 * tig;
+          if (d < D) {
+            sAcc[(warp * G + g) * D + d] = o[u][2 * half];
+            sAcc[(warp * G + g) * D + d + 1] = o[u][2 * half + 1];
+          }
+        }
+      }
+    }
+  } else {
+    // CUDA cores: lane = position for Q.K, lane = a column pair for P.V
+    constexpr int kT = DMAX / 64;  // column pairs per lane
+    float m[GMAX], l[GMAX], acc[GMAX][kT][2], s[GMAX], p[GMAX];
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      m[g] = NXDI_NEG_INF;
+      l[g] = 0.f;
+      p[g] = 0.f;
+#pragma unroll
+      for (int t = 0; t < kT; ++t) acc[g][t][0] = acc[g][t][1] = 0.f;
+    }
+    for (int i = 0; i < n_mine; ++i) {
+      const int t = warp + i * NW;
+      next(i);
+      const T* sK = my_stages + (i % kDecStages) * stage;
+      const T* sV = sK + kDecTile * kp;
+      const int n_here = min(kDecTile, hi - (lo + t * kDecTile));
+      const bool valid = lane_visible(t);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
+      {  // this lane's K row from shared memory against every q head
+        constexpr int KC = DMAX / EPC;
+        const uint4* krow = reinterpret_cast<const uint4*>(sK + lane * kp);
+#pragma unroll
+        for (int pc = 0; pc < KC; ++pc) {
+          if (pc < cpr) {
+            float kf[EPC];
+            dec_unpack(krow[pc], kf, T());
+#pragma unroll
+            for (int g = 0; g < GMAX; ++g) {
+              if (g < G) {
+#pragma unroll
+                for (int e = 0; e < EPC; e += 4) {
+                  const float4 q4 = *reinterpret_cast<const float4*>(&sQ[g * D + pc * EPC + e]);
+                  s[g] = fmaf(q4.x, kf[e], fmaf(q4.y, kf[e + 1],
+                              fmaf(q4.z, kf[e + 2], fmaf(q4.w, kf[e + 3], s[g]))));
+                }
               }
             }
           }
         }
       }
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g < G) {
+          const float sc = valid ? s[g] * a.scale : NXDI_NEG_INF;
+          const float m_new = fmaxf(m[g], warp_max(sc));
+          const float corr = expf(m[g] - m_new);
+          p[g] = valid ? expf(sc - m_new) : 0.f;
+          l[g] = l[g] * corr + warp_sum(p[g]);
+          m[g] = m_new;
+          if (kRoundP) p[g] = round_through<T>(p[g]);
+#pragma unroll
+          for (int u = 0; u < kT; ++u) {
+            acc[g][u][0] *= corr;
+            acc[g][u][1] *= corr;
+          }
+        }
+      }
+      // P.V: lane owns columns 2 lane + 64 u and the one after
+      for (int jj = 0; jj < n_here; ++jj) {
+        float pj[GMAX];
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) pj[g] = __shfl_sync(0xffffffffu, p[g], jj);
+#pragma unroll
+        for (int u = 0; u < kT; ++u) {
+          const int d = 2 * lane + 64 * u;
+          if (d < D) {
+            const float2 vv = Pair<T>::load(sV + jj * kp + d);
+#pragma unroll
+            for (int g = 0; g < GMAX; ++g) {
+              if (g < G) {
+                acc[g][u][0] = fmaf(pj[g], vv.x, acc[g][u][0]);
+                acc[g][u][1] = fmaf(pj[g], vv.y, acc[g][u][1]);
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();  // the next tile's copies overwrite this stage
     }
+    __syncthreads();  // every warp is done with its stages
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g < G) {
-        const float sc = valid ? s[g] * a.scale : NXDI_NEG_INF;
-        const float m_new = fmaxf(m[g], warp_max(sc));
-        const float corr = expf(m[g] - m_new);
-        p[g] = valid ? expf(sc - m_new) : 0.f;
-        l[g] = l[g] * corr + warp_sum(p[g]);
-        m[g] = m_new;
-        if (kRoundP) p[g] = round_through<T>(p[g]);
+        if (lane == 0) {
+          sM[warp * G + g] = m[g];
+          sL[warp * G + g] = l[g];
+        }
 #pragma unroll
-        for (int t = 0; t < kT; ++t) acc[g][t] *= corr;
-      }
-    }
-    __pipeline_wait_prior(0);
-    __syncwarp();
-    for (int jj = 0; jj < n_here; ++jj) {
-      float pj[GMAX];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) pj[g] = __shfl_sync(0xffffffffu, p[g], jj);
-      const T* vrow = sV + jj * D;
-#pragma unroll
-      for (int t = 0; t < kT; ++t) {
-        const int d = lane + 32 * t;
-        if (d < D) {
-          const float vv = to_f32(vrow[d]);
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g)
-            if (g < G) acc[g][t] = fmaf(pj[g], vv, acc[g][t]);
+        for (int u = 0; u < kT; ++u) {
+          const int d = 2 * lane + 64 * u;
+          if (d < D) {
+            sAcc[(warp * G + g) * D + d] = acc[g][u][0];
+            sAcc[(warp * G + g) * D + d + 1] = acc[g][u][1];
+          }
         }
       }
     }
-    __syncwarp();  // the next tile overwrites this warp's V tile
   }
 
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        sM[warp * G + g] = m[g];
-        sL[warp * G + g] = l[g];
-      }
-#pragma unroll
-      for (int t = 0; t < kT; ++t) {
-        const int d = lane + 32 * t;
-        if (d < D) sAcc[(warp * G + g) * D + d] = acc[g][t];
+  // merge the warps (in warp order)
+  const T* vn = nullptr;
+  if constexpr (kFresh) {
+    if (direct) {  // the fresh row's scores (it sits at q_pos: every mask admits it)
+      const T* kn = static_cast<const T*>(a.kn) + b * a.nsb + kvh * a.nsh;
+      vn = static_cast<const T*>(a.vn) + b * a.nsb + kvh * a.nsh;
+      for (int g = warp; g < G; g += NW) {
+        float dot = 0.f;
+        for (int d = lane; d < D; d += 32) dot = fmaf(sQ[g * D + d], to_f32(kn[d]), dot);
+        dot = warp_sum(dot);
+        if (lane == 0) sS2[g] = dot * a.scale;
       }
     }
   }
   __syncthreads();
 
-  const T* vn = kFresh ? static_cast<const T*>(a.vn) + b * a.nsb + kvh * a.nsh : nullptr;
   for (int i = tid; i < G * D; i += blockDim.x) {
     const int g = i / D, d = i % D;
     float M = NXDI_NEG_INF;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sM[w * G + g]);
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, sM[w * G + g]);
     float L = 0.f, A = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < NW; ++w) {
       const float f = expf(sM[w * G + g] - M);
       L = fmaf(sL[w * G + g], f, L);
       A = fmaf(sAcc[(w * G + g) * D + d], f, A);
     }
-    if constexpr (kFresh) {
-      const float s2 = sS2[g];
-      const float m_new = fmaxf(M, s2);
-      const float corr = expf(M - m_new);
-      const float p2 = expf(s2 - m_new);
-      L = L * corr + p2;
-      A = A * corr + p2 * to_f32(vn[d]);
+    if (direct) {
+      if constexpr (kFresh) {
+        const float s2 = sS2[g];
+        const float m_new = fmaxf(M, s2);
+        const float corr = expf(M - m_new);
+        const float p2 = expf(s2 - m_new);
+        L = L * corr + p2;
+        A = A * corr + p2 * to_f32(vn[d]);
+      }
+      L = fmaxf(L, 1e-20f);
+      static_cast<T*>(a.out)[b * a.osb + (kvh * G + g) * a.osh + d] =
+          from_f32<T>(A * a.v_scale / L);
+    } else {
+      const long long sl = part + (long long)g * C;
+      a.ws[sl * D + d] = A;
+      if (d == 0) {
+        float* ml = a.ws + (long long)a.B * a.H * C * D + 2 * sl;
+        ml[0] = M;
+        ml[1] = L;
+      }
     }
-    L = fmaxf(L, 1e-20f);
-    static_cast<T*>(a.out)[b * a.osb + (kvh * G + g) * a.osh + d] = from_f32<T>(A * a.v_scale / L);
   }
 }
 
-template <typename T, int GMAX, int DMAX, Mode MODE>
-cudaError_t launch(const DecodeArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes(a.H / a.KV, a.D, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, GMAX, DMAX, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  decode_kernel<T, GMAX, DMAX, MODE><<<B * a.KV, kWarps * 32, smem, stream>>>(a);
+// One warp per (row, q head), 8 to a block. Lane k % 32 holds chunk k's
+// max and sum and forms its weight exp(m_k - M); the denominator and each
+// column's partial sums are then merged in chunk order with the weights
+// broadcast from their lanes; the fresh row is folded in (kFused), v_scale
+// applied, and the output rounded to q's dtype.
+template <typename T, Mode MODE>
+__global__ void __launch_bounds__(256) decode_combine_kernel(DecodeArgs a) {
+  const int idx = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (idx >= a.B * a.H) return;
+  const int b = idx / a.H, h = idx % a.H, C = a.n_chunks, D = a.D;
+  const int kvh = h / (a.H / a.KV);
+  const float* acc = a.ws + (long long)idx * C * D;
+  const float* ml = a.ws + (long long)a.B * a.H * C * D + 2LL * idx * C;
+  float s2 = 0.f, vf[4] = {0.f, 0.f, 0.f, 0.f};  // kFused: the fresh row's score and V
+  if constexpr (MODE == Mode::kFused) {  // loaded first, beside the partials
+    const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+    const T* kn = static_cast<const T*>(a.kn) + b * a.nsb + kvh * a.nsh;
+    const T* vn = static_cast<const T*>(a.vn) + b * a.nsb + kvh * a.nsh;
+    float dot = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int d = lane + 32 * u;
+      if (d < D) {
+        dot = fmaf(to_f32(q[d]), to_f32(kn[d]), dot);
+        vf[u] = to_f32(vn[d]);
+      }
+    }
+    s2 = warp_sum(dot) * a.scale;
+  }
+  float M = NXDI_NEG_INF;
+  for (int k = lane; k < C; k += 32) M = fmaxf(M, ml[2 * k]);
+  M = warp_max(M);
+  float L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};  // columns lane + 32 u
+  float w = 0.f, lk = 0.f;
+  for (int k = 0; k < C; ++k) {
+    if ((k & 31) == 0) {  // the next 32 chunks' weights, one per lane
+      const int kl = k + lane;
+      w = kl < C ? expf(ml[2 * kl] - M) : 0.f;
+      lk = kl < C ? ml[2 * kl + 1] : 0.f;
+    }
+    const float wk = __shfl_sync(0xffffffffu, w, k & 31);
+    L = fmaf(__shfl_sync(0xffffffffu, lk, k & 31), wk, L);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int d = lane + 32 * u;
+      if (d < D) A[u] = fmaf(acc[(long long)k * D + d], wk, A[u]);
+    }
+  }
+  float corr = 1.f, p2 = 0.f;
+  if constexpr (MODE == Mode::kFused) {
+    const float m_new = fmaxf(M, s2);
+    corr = expf(M - m_new);
+    p2 = expf(s2 - m_new);
+    L = L * corr + p2;
+  }
+  const float inv = a.v_scale / fmaxf(L, 1e-20f);
+  T* out = static_cast<T*>(a.out) + b * a.osb + h * a.osh;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int d = lane + 32 * u;
+    if (d < D) {
+      float x = A[u];
+      if constexpr (MODE == Mode::kFused) x = x * corr + p2 * vf[u];
+      out[d] = from_f32<T>(x * inv);
+    }
+  }
+}
+
+template <typename T, int GMAX, int DMAX, Mode MODE, bool MMA>
+cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
+  constexpr int NW = dec_warps<T, DMAX>();
+  // opted in once per instantiation to the most any G <= GMAX, D <= DMAX needs
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_split_kernel<T, GMAX, DMAX, MODE, MMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dec_smem_bytes(NW, GMAX, DMAX, sizeof(T)));
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = dec_smem_bytes(NW, a.H / a.KV, a.D, sizeof(T));
+  decode_split_kernel<T, GMAX, DMAX, MODE, MMA>
+      <<<dim3(a.n_chunks, a.KV, a.B), NW * 32, smem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_chunks == 1) return err;
+  decode_combine_kernel<T, MODE><<<(a.B * a.H + 7) / 8, 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX, Mode MODE>
-cudaError_t dispatch_g(const DecodeArgs& a, int B, cudaStream_t stream) {
+template <typename T, int DMAX, Mode MODE, bool MMA>
+cudaError_t dispatch_g(const DecodeArgs& a, cudaStream_t stream) {
   const int G = a.H / a.KV;
-  if (G <= 4) return launch<T, 4, DMAX, MODE>(a, B, stream);
-  if (G <= 8) return launch<T, 8, DMAX, MODE>(a, B, stream);
-  if (G <= 16) return launch<T, 16, DMAX, MODE>(a, B, stream);
+  if constexpr (MMA) {  // one m16 tile of q heads
+    if (G <= 16) return launch<T, 16, DMAX, MODE, true>(a, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (G <= 4) return launch<T, 4, DMAX, MODE, false>(a, stream);
+  if (G <= 8) return launch<T, 8, DMAX, MODE, false>(a, stream);
+  if (G <= 16) return launch<T, 16, DMAX, MODE, false>(a, stream);
   return cudaErrorInvalidValue;
 }
 
+// Checks the arguments and launches: the split kernel over C = n_chunks
+// chunks of chunk_len positions (C * chunk_len >= kv_len), then, with
+// C > 1, the combine over the scratch `ws`. bf16 at head dims that are
+// multiples of 16 runs the tensor-core body, the rest the CUDA-core body.
 template <Mode MODE>
-int dispatch(int dtype, const DecodeArgs& a, int B, void* stream) {
-  if (a.D % 8 != 0 || a.D > 128 || a.H % a.KV != 0) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
+int dispatch(int dtype, const DecodeArgs& a, void* stream) {
+  if (a.D % 8 != 0 || a.D > 128 || a.KV <= 0 || a.H % a.KV != 0 || a.chunk_len <= 0 ||
+      a.n_chunks < 1 || (long long)a.n_chunks * a.chunk_len < a.kv_len ||
+      (a.n_chunks > 1 && !a.ws))
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == NXDI_F32)
-    return (int)(a.D <= 64 ? dispatch_g<float, 64, MODE>(a, B, s)
-                           : dispatch_g<float, 128, MODE>(a, B, s));
+    return (int)(a.D <= 64 ? dispatch_g<float, 64, MODE, false>(a, s)
+                           : dispatch_g<float, 128, MODE, false>(a, s));
+  if (dtype == NXDI_BF16 && a.D % 16 == 0)
+    return (int)(a.D <= 64 ? dispatch_g<__nv_bfloat16, 64, MODE, true>(a, s)
+                           : dispatch_g<__nv_bfloat16, 128, MODE, true>(a, s));
   if (dtype == NXDI_BF16)
-    return (int)(a.D <= 64 ? dispatch_g<__nv_bfloat16, 64, MODE>(a, B, s)
-                           : dispatch_g<__nv_bfloat16, 128, MODE>(a, B, s));
+    return (int)(a.D <= 64 ? dispatch_g<__nv_bfloat16, 64, MODE, false>(a, s)
+                           : dispatch_g<__nv_bfloat16, 128, MODE, false>(a, s));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,6 +4,8 @@
 // and ::flash_attention_decode_fused_stacked; see decode_kernel.cuh.
 #include "decode_kernel.cuh"
 
+// `chunk_len`, `n_chunks`: the kv split (flash_attention.py::decode_chunk);
+// `ws`: B x H x n_chunks x (D + 2) floats of scratch, null when n_chunks is 1.
 extern "C" int nxdi_flash_decode_fused(int dtype, const void* q, const void* kc, const void* vc,
                                        const void* kn, const void* vn, void* out,
                                        const int* q_pos, const int* kv_start, int B, int H,
@@ -11,13 +13,14 @@ extern "C" int nxdi_flash_decode_fused(int dtype, const void* q, const void* kc,
                                        long long csb, long long csh, long long css,
                                        long long nsb, long long nsh, long long osb,
                                        long long osh, float scale, int window, int chunk,
-                                       void* stream) {
+                                       int chunk_len, int n_chunks, float* ws, void* stream) {
   DecodeArgs a{};
-  a.q = q; a.kc = kc; a.vc = vc; a.kn = kn; a.vn = vn; a.out = out;
+  a.q = q; a.kc = kc; a.vc = vc; a.kn = kn; a.vn = vn; a.out = out; a.ws = ws;
   a.q_pos = q_pos; a.kv_start = kv_start;
-  a.H = H; a.KV = KV; a.D = D; a.kv_len = kv_len;
+  a.B = B; a.H = H; a.KV = KV; a.D = D; a.kv_len = kv_len;
+  a.chunk_len = chunk_len; a.n_chunks = n_chunks;
   a.qsb = qsb; a.qsh = qsh; a.csb = csb; a.csh = csh; a.css = css;
   a.nsb = nsb; a.nsh = nsh; a.osb = osb; a.osh = osh;
   a.scale = scale; a.v_scale = 1.f; a.window = window; a.chunk = chunk;
-  return dispatch<Mode::kFused>(dtype, a, B, stream);
+  return dispatch<Mode::kFused>(dtype, a, stream);
 }

@@ -5,18 +5,21 @@
 // see decode_kernel.cuh.
 #include "decode_kernel.cuh"
 
+// `chunk_len`, `n_chunks`, `ws`: the kv split over the table's NB * bs
+// positions, as in flash_decode.cu.
 extern "C" int nxdi_paged_decode(int dtype, const void* q, const void* kc, const void* vc,
                                  void* out, const int* q_pos, const int* bt, int B, int H, int KV,
                                  int D, int NB, int bs, long long qsb, long long qsh,
                                  long long osb, long long osh, float scale, float v_scale,
-                                 void* stream) {
+                                 int chunk_len, int n_chunks, float* ws, void* stream) {
   if (bs <= 0) return (int)cudaErrorInvalidValue;
   DecodeArgs a{};
-  a.q = q; a.kc = kc; a.vc = vc; a.out = out; a.q_pos = q_pos; a.bt = bt;
-  a.H = H; a.KV = KV; a.D = D; a.kv_len = NB * bs; a.nb = NB; a.bs = bs;
+  a.q = q; a.kc = kc; a.vc = vc; a.out = out; a.ws = ws; a.q_pos = q_pos; a.bt = bt;
+  a.B = B; a.H = H; a.KV = KV; a.D = D; a.kv_len = NB * bs; a.nb = NB; a.bs = bs;
+  a.chunk_len = chunk_len; a.n_chunks = n_chunks;
   // pool (total_slots, KV, D): a head's rows sit KV * D elements apart
   a.qsb = qsb; a.qsh = qsh; a.csb = 0; a.csh = D; a.css = (long long)KV * D;
   a.osb = osb; a.osh = osh;
   a.scale = scale; a.v_scale = v_scale;
-  return dispatch<Mode::kPaged>(dtype, a, B, stream);
+  return dispatch<Mode::kPaged>(dtype, a, stream);
 }

@@ -31,15 +31,19 @@
 // and tokens with no visible key output exactly 0. A bitmask, not the TPU
 // kernel's per-tile [min, max] row range: the engine packs prefill chunks
 // first and decode rows after them, so slots do not ascend along the stream.
-// At most 64 rows. Decode tokens and tiles holding several rows go to
-// ragged_paged.cu's split kernel instead (flash decoding over kv chunks).
+// The bitmask bounds a call to 64 rows; under the split plan (ragged_paged_
+// attention.py::ragged_plan, split=True) every listed tile holds the tokens
+// of one row, so the block finds that row and its largest position without
+// the mask and any number of rows works. Decode tokens and tiles holding
+// several rows go to ragged_paged.cu's split kernel (flash decoding over kv
+// chunks).
 //
 // Three entry points, one per source so they compile in parallel:
 // flash_prefill.cu (contiguous K/V), paged_prefill.cu (through the block
 // table) and ragged_paged.cu; the addressing mode is a template parameter, so
 // the contiguous kernels compile as if the others did not exist. Two bodies
-// here (the contiguous bf16 prefill at head dims 64 and 128 runs the TMA +
-// wgmma body of prefill_wgmma.cuh instead); both loop over 64-row
+// here (the contiguous and paged bf16 prefills at head dims 64 and 128 run
+// the TMA + wgmma body of prefill_wgmma.cuh instead); both loop over 64-row
 // kv tiles up to the causal limit of their 64-row q tile (one block per
 // (b, h, q tile)) and mask the ragged edges of Sq and Sk themselves, so no
 // block size has to divide them:
@@ -54,8 +58,9 @@
 //
 // Bound: a paged or ragged prefill chunk is bound by operations on the
 // tensor cores (a 512-token chunk after 512 cached: 3.4 us at 989 TFLOP/s in
-// bf16); mma.sync reaches a few per cent of that. The paged mode taking the
-// wgmma body (TMA over pool blocks) is the next step.
+// bf16); mma.sync reaches a few per cent of that. The paged mode runs the
+// wgmma body (TMA boxes per pool block) where its wrapper can; the ragged
+// mode's direct tiles taking it is the next step.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -69,7 +74,7 @@ constexpr int kRows = 8;                 // q rows per warp
 constexpr int kBQ = kWarps * kRows;      // q rows per block
 constexpr int kBK = 64;                  // kv rows per tile
 constexpr int kMaxT = 4;                 // output columns per lane (D <= 128)
-constexpr int kMaxRaggedRows = 64;       // rows of a ragged stream (one 64-bit mask)
+constexpr int kMaxRaggedRows = 64;       // rows of a stream with mixed tiles (one 64-bit mask)
 
 // K/V addressing: contiguous rows, a block table per batch row, or the ragged
 // stream's per-token rows
@@ -87,19 +92,21 @@ struct PrefillArgs {
   const int* tok_pos;   // ragged: (Sq,) position of each packed token in its row
   const int* tiles;     // ragged: the q tiles to run, one block each
   int H, KV, Sq, Sk, D, nb, bs, R, n_tiles;
+  int one_row;          // ragged: every listed tile holds one row's tokens (and padding)
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   float scale, v_scale;
   int window, chunk;
 };
 
-// The rows a ragged q tile touches, in shared memory after the tiles.
+// The rows a ragged q tile touches, in shared memory after the tiles. A
+// tile holds at most 64 tokens, so at most 64 rows, whatever R is.
 struct RaggedMeta {
-  unsigned long long mask;           // rows present in the tile
+  unsigned long long mask;           // rows present in the tile (R <= 64)
   int n_rows, n_items;               // present rows; (row, kv tile) work items
   int rows[kMaxRaggedRows];          // present row ids, ascending
   int limit[kMaxRaggedRows];         // kv positions [0, limit) any of its tokens can see
   int ntile[kMaxRaggedRows];         // kv tiles of the row
-  int max_pos[kMaxRaggedRows];       // by row id: the largest position in the tile
+  int max_pos[kMaxRaggedRows];       // by row id (R <= 64), or [0] for a one-row tile
 };
 
 __host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
@@ -140,39 +147,56 @@ __device__ __forceinline__ bool tile_clean(const int* btr, int bs, int j0, int n
   }
 }
 
-// Ragged: gather the tile's present rows (bitmask of row ids, largest
-// position of each) and lay out the (row, kv tile) work items. Every thread
-// calls it; it ends on a barrier.
+// Ragged: gather the tile's present rows and the largest position of each,
+// and lay out the (row, kv tile) work items. A one-row tile (a.one_row) takes
+// its row and largest position by two atomicMax; otherwise a bitmask of row
+// ids (R <= 64) and the largest position by row id. Every thread calls it;
+// it ends on a barrier.
 template <int TILE_KV>
 __device__ void ragged_meta_build(RaggedMeta* meta, const PrefillArgs& a, int q0, int q_rows) {
   const int tid = threadIdx.x;
   for (int i = tid; i < kMaxRaggedRows; i += blockDim.x) meta->max_pos[i] = -1;
-  if (tid == 0) meta->mask = 0ull;
+  if (tid == 0) {
+    meta->mask = 0ull;
+    meta->rows[0] = -1;
+  }
   __syncthreads();
   for (int i = tid; i < q_rows; i += blockDim.x) {
     const int t = q0 + i;
     if (t < a.Sq) {
       const int r = a.row_ids[t];
       if (r >= 0 && r < a.R) {
-        atomicOr(&meta->mask, 1ull << r);
-        atomicMax(&meta->max_pos[r], a.tok_pos[t]);
+        if (a.one_row) {
+          atomicMax(&meta->rows[0], r);
+          atomicMax(&meta->max_pos[0], a.tok_pos[t]);
+        } else {
+          atomicOr(&meta->mask, 1ull << r);
+          atomicMax(&meta->max_pos[r], a.tok_pos[t]);
+        }
       }
     }
   }
   __syncthreads();
   if (tid == 0) {
     int n = 0, items = 0;
-    unsigned long long m = meta->mask;
-    while (m) {
-      const int r = __ffsll((long long)m) - 1;
-      m &= m - 1;
-      const int lim = min(meta->max_pos[r] + 1, a.nb * a.bs);
-      if (lim <= 0) continue;
+    auto add = [&](int r, int top) {
+      const int lim = min(top + 1, a.nb * a.bs);
+      if (lim <= 0) return;
       meta->rows[n] = r;
       meta->limit[n] = lim;
       meta->ntile[n] = (lim + TILE_KV - 1) / TILE_KV;
       items += meta->ntile[n];
       ++n;
+    };
+    if (a.one_row) {
+      if (meta->rows[0] >= 0) add(meta->rows[0], meta->max_pos[0]);
+    } else {
+      unsigned long long m = meta->mask;
+      while (m) {
+        const int r = __ffsll((long long)m) - 1;
+        m &= m - 1;
+        add(r, meta->max_pos[r]);
+      }
     }
     meta->n_rows = n;
     meta->n_items = items;
@@ -384,26 +408,6 @@ constexpr int kTcBK = 64;             // kv rows per tile
 
 __host__ __device__ inline size_t prefill_tc_smem_bytes(int D) {
   return sizeof(__nv_bfloat16) * (size_t)(5 * kTcBK * (D + 8));  // Q + 2 K + 2 V tiles
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // rows [row0, row0 + 64) of a (rows, D) bf16 matrix into a padded smem tile,
@@ -683,7 +687,8 @@ cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
 template <int MODE>
 int run(int dtype, const PrefillArgs& a, int B, void* stream) {
   if (a.D % 8 != 0 || a.D > 128 || a.H % a.KV != 0) return (int)cudaErrorInvalidValue;
-  if (MODE == KV_RAGGED && (a.R < 1 || a.R > kMaxRaggedRows)) return (int)cudaErrorInvalidValue;
+  if (MODE == KV_RAGGED && (a.R < 1 || (!a.one_row && a.R > kMaxRaggedRows)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.Sq == 0 || B == 0 || (MODE == KV_RAGGED && a.n_tiles == 0)) return (int)cudaSuccess;
   if (dtype == NXDI_F32) return (int)launch<float, MODE>(a, B, s);

@@ -1,6 +1,6 @@
 // Flash-attention prefill for Hopper: the bf16 body of the contiguous mode
-// (flash_prefill.cu) at head dims 64 and 128, on TMA + wgmma with warp
-// specialisation.
+// (flash_prefill.cu) and of the paged mode (paged_prefill.cu) at head dims
+// 64 and 128, on TMA + wgmma with warp specialisation.
 //
 // Replaces nxdi_tpu/ops/kernels/flash_attention.py::flash_attention_prefill
 // (Pallas body _prefill_kernel, pl.pallas_call at :234) for those cases and
@@ -10,9 +10,26 @@
 // (mask value -30000, the denominator clamped at 1e-20), probabilities
 // rounded to bf16 before P.V. The other bodies stay for their cases (the
 // wrapper, flash_attention.py::prefill_body, picks): prefill_tc_kernel
-// (mma.sync) for other bf16 head dims and, through paged_prefill.cu and
-// ragged_paged.cu, for the paged and ragged modes; prefill_kernel (CUDA
-// cores) for f32.
+// (mma.sync) for other bf16 head dims and for the ragged mode's direct
+// tiles (ragged_paged.cu); prefill_kernel (CUDA cores) for f32.
+//
+// The paged mode (PAGED; replaces ::paged_attention_prefill, Pallas body
+// _paged_prefill_kernel, pl.pallas_call at :946; flash_attention.py::
+// paged_prefill_body picks it for bf16 at D 64/128 when the block size is
+// 8, 16, 32, 64 or a multiple of 128): a chunk of Sq queries at positions
+// q_start[b] + i attends its row's logical positions through the block
+// table, causal and inclusive, holes skipped, k_scale folded into `scale`
+// and v_scale on the output. K and V come from tensor maps over the pool
+// layer (total_slots, KV, D) as dims (D, KV, total_slots), boxes of 64
+// columns x 1 head x min(bs, 128) slots: a 128-row kv tile is one box per
+// 64 columns at bs >= 128, or 128 / bs boxes at smaller blocks, each at
+// slot bt[b][j / bs] * bs + j % bs (the producer reads the table). A hole
+// is never loaded: the stage's expected bytes count the boxes issued, the
+// hole's V rows are zeroed in shared memory (stale bits could be NaN, and
+// P.V would carry 0 * NaN), and the consumers mask its columns; a tile of
+// holes only is skipped by producer and consumers alike. The pool layer's
+// address does not change between calls, so its maps are cached by
+// (pointer, shape, box); only Q's map is encoded per call.
 //
 // Bound: operations. At the Llama-3.2-1B prefill (B 8, H 32, S 1024, D 64)
 // one layer is 3.4e10 flop, 35 us at the 989 TFLOP/s bf16 peak, and only
@@ -59,6 +76,9 @@
 //    the short ones fill the tail; the ring, its barrier phases and the
 //    next tile's loads run on across a block's items.
 #pragma once
+
+#include <initializer_list>
+#include <mutex>
 
 #include "prefill_kernel.cuh"
 #include "tma_wgmma.cuh"
@@ -205,10 +225,11 @@ __device__ __forceinline__ void fq_scores(float* sc, uint32_t qa, uint32_t kb) {
 
 // The (masked, MASK) online softmax of one tile's scores, in place: P in sc,
 // the running max and denominator updated, O rescaled. t_lo: the kv
-// position of the tile's first column.
-template <int D, bool MASK>
+// position of the tile's first column. HOLES (the paged mode): column c is
+// also masked when bit c >> box_shift of `holes` is set.
+template <int D, bool MASK, bool HOLES = false>
 __device__ __forceinline__ void fq_softmax(FqRows<D>& st, float* sc, int t_lo, float scale_log2,
-                                           int tig) {
+                                           int tig, uint32_t holes = 0, int box_shift = 0) {
   // mask (MASK) + online softmax; accumulator chunk j, value e: row
   // r_lo + 8 (e / 2), column 8 j + 2 tig + e % 2. The max is taken over the
   // raw scores (scale > 0) and the scale folds into the exponent's FMA, so
@@ -227,7 +248,11 @@ __device__ __forceinline__ void fq_softmax(FqRows<D>& st, float* sc, int t_lo, f
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * tig + e;
         float& v = sc[4 * j + 2 * half + e];
-        if constexpr (MASK) v = (c >= c_lo && c <= c_hi) ? v : neg_inf;
+        if constexpr (MASK) {
+          bool vis = c >= c_lo && c <= c_hi;
+          if constexpr (HOLES) vis = vis && !((holes >> (c >> box_shift)) & 1u);
+          v = vis ? v : neg_inf;
+        }
         mx4[(2 * j + e) & 3] = fmaxf(mx4[(2 * j + e) & 3], v);
       }
     }
@@ -313,7 +338,25 @@ __device__ __forceinline__ FqWork fq_work(const PrefillArgs& a, int t, int BH, i
   return w;
 }
 
-template <int D>
+// Paged: the boxes of kv tile kt that are holes, bit i for box i of the
+// tile's 128 / min(bs, 128) (a negative table entry, or past the table);
+// every bit set: the tile is skipped (flash_attention.py::
+// paged_prefill_boxes mirrors the boxes).
+__device__ __forceinline__ uint32_t fq_tile_holes(const PrefillArgs& a, const int* btr, int kt) {
+  const int rows = min(a.bs, kFqBK);
+  uint32_t holes = 0;
+  for (int i = 0; i < kFqBK / rows; ++i) {
+    const int e = (kt * kFqBK + i * rows) / a.bs;
+    if (e >= a.nb || btr[e] < 0) holes |= 1u << i;
+  }
+  return holes;
+}
+
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr), "r"(0) : "memory");
+}
+
+template <int D, bool PAGED>
 __global__ void __launch_bounds__(384, 1)
     prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -328,6 +371,8 @@ __global__ void __launch_bounds__(384, 1)
   const uint32_t qfull = sq + (1 + 2 * kST) * kTile, qempty = qfull + 8;
   const uint32_t full0 = qempty + 8, empty0 = full0 + 8 * kST;
   const int BH = B * a.H, n_qt = (a.Sq + kFqBQ - 1) / kFqBQ, n_work = BH * n_qt;
+  // paged: the hole bits of a tile with no live box (unused otherwise)
+  const uint32_t all_holes = PAGED ? (1u << (kFqBK / min(a.bs, kFqBK))) - 1u : 0u;
 
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
@@ -355,16 +400,51 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int c = 0; c < kNB; ++c)
           tma_load_4d(sq + c * kFqBox, &tq, 64 * c, w.h, w.q0, w.b, qfull);
-        for (int kt = 0; kt < w.n_kv; ++kt, ++it) {
+        const int* btr = PAGED ? a.bt + (long long)w.b * a.nb : nullptr;
+        for (int kt = 0; kt < w.n_kv; ++kt) {
+          uint32_t holes = 0;
+          if constexpr (PAGED) {
+            holes = fq_tile_holes(a, btr, kt);
+            if (holes == all_holes) continue;  // nothing to load or attend
+          }
           const int s = it % kST;
           if (it >= kST) mbar_wait(empty0 + 8 * s, ((it / kST) - 1) & 1);
           const uint32_t full = full0 + 8 * s, st = sk0 + 2 * s * kTile;
-          mbar_expect_tx(full, 2 * kTile);
+          if constexpr (PAGED) {
+            const int rows = min(a.bs, kFqBK);
+            const uint32_t box_bytes = rows * 128;  // 64 bf16 columns a row
+            if (holes) {  // the holes' V rows read as 0 (before the barrier's arrival)
+              for (int i = 0; i < kFqBK / rows; ++i) {
+                if (!((holes >> i) & 1u)) continue;
 #pragma unroll
-          for (int c = 0; c < kNB; ++c) {
-            tma_load_4d(st + c * kFqBox, &tk, 64 * c, w.kvh, kt * kFqBK, w.b, full);
-            tma_load_4d(st + kTile + c * kFqBox, &tv, 64 * c, w.kvh, kt * kFqBK, w.b, full);
+                for (int c = 0; c < kNB; ++c)
+                  for (uint32_t o = 0; o < box_bytes; o += 16)
+                    st_shared_zero16(st + kTile + c * kFqBox + i * box_bytes + o);
+              }
+              asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            }
+            const int live = kFqBK / rows - __popc(holes);
+            mbar_expect_tx(full, 2 * kNB * live * box_bytes);
+            for (int i = 0; i < kFqBK / rows; ++i) {
+              if ((holes >> i) & 1u) continue;
+              const int j = kt * kFqBK + i * rows;
+              const int slot = btr[j / a.bs] * a.bs + j % a.bs;
+#pragma unroll
+              for (int c = 0; c < kNB; ++c) {
+                tma_load_3d(st + c * kFqBox + i * box_bytes, &tk, 64 * c, w.kvh, slot, full);
+                tma_load_3d(st + kTile + c * kFqBox + i * box_bytes, &tv, 64 * c, w.kvh, slot,
+                            full);
+              }
+            }
+          } else {
+            mbar_expect_tx(full, 2 * kTile);
+#pragma unroll
+            for (int c = 0; c < kNB; ++c) {
+              tma_load_4d(st + c * kFqBox, &tk, 64 * c, w.kvh, kt * kFqBK, w.b, full);
+              tma_load_4d(st + kTile + c * kFqBox, &tv, 64 * c, w.kvh, kt * kFqBK, w.b, full);
+            }
           }
+          ++it;
         }
       }
     }
@@ -424,34 +504,53 @@ __global__ void __launch_bounds__(384, 1)
       // visible interval cuts (the diagonal, the Sk edge, window or chunk
       // edges) is masked; the test is the q tile's, so no warp diverges and
       // the unmasked softmax holds no mask code.
+      // paged: the q tile's kv tiles that hold a live box, in order (the
+      // producer skips the others too); contiguous: every kv tile
+      const int* btr = PAGED ? a.bt + (long long)w.b * a.nb : nullptr;
+      auto next_live = [&](int kt) {
+        if constexpr (PAGED) {
+          while (kt < w.n_kv && fq_tile_holes(a, btr, kt) == all_holes) ++kt;
+        }
+        return kt;
+      };
+      int n_live = w.n_kv;
+      if constexpr (PAGED) {
+        n_live = 0;
+        for (int kt = next_live(0); kt < w.n_kv; kt = next_live(kt + 1)) ++n_live;
+      }
+      const int box_shift = PAGED ? __ffs(min(a.bs, kFqBK)) - 1 : 0;
       uint32_t pa[kFqBK / 16][4];  // the previous kv tile's P, packed as the A operand
       float sc[64];
       mbar_wait(qfull, n & 1);
       if (wg == 1) asm volatile("bar.arrive %0, 256;\n" ::"r"(bar_other) : "memory");
-      for (int kt = 0; kt <= w.n_kv; ++kt) {
-        if (kt < w.n_kv) mbar_wait(full0 + 8 * ((it + kt) % kST), ((it + kt) / kST) & 1);
+      int kt = next_live(0);  // the i-th live kv tile (i < n_live)
+      for (int i = 0; i <= n_live; ++i) {
+        if (i < n_live) mbar_wait(full0 + 8 * ((it + i) % kST), ((it + i) / kST) & 1);
         asm volatile("bar.sync %0, 256;\n" ::"r"(bar_mine) : "memory");
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        if (kt < w.n_kv) fq_scores<D>(sc, qa, stage_of(it + kt));
-        if (kt > 0) fq_pv<D>(st, pa, stage_of(it + kt - 1) + kTile);
+        if (i < n_live) fq_scores<D>(sc, qa, stage_of(it + i));
+        if (i > 0) fq_pv<D>(st, pa, stage_of(it + i - 1) + kTile);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        if (wg == 0 || kt < w.n_kv)
+        if (wg == 0 || i < n_live)
           asm volatile("bar.arrive %0, 256;\n" ::"r"(bar_other) : "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-        if (kt > 0) warp_arrive(empty0 + 8 * ((it + kt - 1) % kST));
-        if (kt + 1 >= w.n_kv && kt < w.n_kv) warp_arrive(qempty);  // the last S is done
-        if (kt < w.n_kv) {
+        if (i > 0) warp_arrive(empty0 + 8 * ((it + i - 1) % kST));
+        if (i + 1 >= n_live && i < n_live) warp_arrive(qempty);  // the last S is done
+        if (i < n_live) {
           const int t_lo = w.ks + kt * kFqBK;  // kv position of the tile's first column
-          if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi) {
+          uint32_t holes = 0;
+          if constexpr (PAGED) holes = fq_tile_holes(a, btr, kt);
+          if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi && holes == 0) {
             fq_softmax<D, false>(st, sc, t_lo, scale_log2, tig);
           } else {
-            fq_softmax<D, true>(st, sc, t_lo, scale_log2, tig);
+            fq_softmax<D, true, PAGED>(st, sc, t_lo, scale_log2, tig, holes, box_shift);
           }
           fq_pack(pa, sc);  // (O's rescale above: the previous P V has completed)
+          kt = next_live(kt + 1);
         }
       }
-      if (w.n_kv == 0) warp_arrive(qempty);
-      it += w.n_kv;
+      if (n_live == 0) warp_arrive(qempty);
+      it += n_live;
 
       using bf = __nv_bfloat16;
       bf* out = static_cast<bf*>(a.out) + w.b * a.osb + w.h * a.osh;
@@ -488,23 +587,55 @@ bool fq_tensor_map(CUtensorMap* out, const void* ptr, int D, int heads, int S, i
          CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t launch_wgmma(const PrefillArgs& a, int B, cudaStream_t stream) {
+// A 3-D bf16 tensor map over a paged pool layer (total_slots, KV, D): dims
+// (D, KV, total_slots), boxes of 64 columns x 1 head x `rows` slots,
+// 128-byte swizzle. Cached by (pointer, shape, box), as gemm_kernel.cuh
+// caches its maps: a pool layer's address does not change between calls.
+struct FqPoolMapEntry {
+  const void* ptr;
+  int D, KV, slots, rows;
+  CUtensorMap map;
+};
+
+bool fq_pool_map(CUtensorMap* out, const void* ptr, int D, int KV, int slots, int rows) {
+  constexpr int kSlots = 256;
+  static FqPoolMapEntry cache[kSlots];
+  static std::mutex mu;
+  const size_t h = (reinterpret_cast<uintptr_t>(ptr) >> 4) * 0x9E3779B97F4A7C15ull ^
+                   (size_t)slots * 31 ^ (size_t)KV * 131 ^ (size_t)D * 7 ^ (size_t)rows;
+  FqPoolMapEntry& e = cache[(h >> 7) % kSlots];
+  std::lock_guard<std::mutex> lock(mu);
+  if (e.ptr == ptr && e.D == D && e.KV == KV && e.slots == slots && e.rows == rows) {
+    *out = e.map;
+    return true;
+  }
+  const EncodeTiledFn encode = tma_encode_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)KV, (cuuint64_t)slots};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)KV * D * 2};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUtensorMap m;
+  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return false;
+  e.ptr = ptr; e.D = D; e.KV = KV; e.slots = slots; e.rows = rows; e.map = m;
+  *out = m;
+  return true;
+}
+
+// Launch the body over its maps: persistent, one block per SM walks the q
+// tiles in a static order. The kernel is opted into its dynamic shared
+// memory once per instantiation.
+template <int D, bool PAGED>
+cudaError_t launch_wgmma_maps(const PrefillArgs& a, int B, const CUtensorMap& tq,
+                              const CUtensorMap& tk, const CUtensorMap& tv, cudaStream_t stream) {
   constexpr size_t smem = fq_smem<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      prefill_wgmma_kernel<D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
-  // TMA: 16-byte aligned bases, strides in whole 16-byte units
-  for (const void* p : {a.q, a.k, a.v})
-    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
-  for (long long st : {a.qsb, a.qsh, a.qss, a.ksb, a.ksh, a.kss, a.vsb, a.vsh, a.vss})
-    if (st % 8) return cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  if (!fq_tensor_map(&tq, a.q, D, a.H, a.Sq, B, a.qsh, a.qss, a.qsb) ||
-      !fq_tensor_map(&tk, a.k, D, a.KV, a.Sk, B, a.ksh, a.kss, a.ksb) ||
-      !fq_tensor_map(&tv, a.v, D, a.KV, a.Sk, B, a.vsh, a.vss, a.vsb))
-    return cudaErrorInvalidValue;
-  // persistent: one block per SM walks the q tiles in a static order
   static const int n_sm = [] {
     int dev = 0, n = 0;
     cudaGetDevice(&dev);
@@ -513,8 +644,48 @@ cudaError_t launch_wgmma(const PrefillArgs& a, int B, cudaStream_t stream) {
   }();
   const long long n_work = (long long)B * a.H * ((a.Sq + kFqBQ - 1) / kFqBQ);
   const int grid = (int)min(n_work, (long long)max(n_sm, 1));
-  prefill_wgmma_kernel<D><<<grid, 384, smem, stream>>>(tq, tk, tv, a, B);
+  prefill_wgmma_kernel<D, PAGED><<<grid, 384, smem, stream>>>(tq, tk, tv, a, B);
   return cudaGetLastError();
+}
+
+// TMA: 16-byte aligned bases, strides in whole 16-byte units
+inline bool fq_tma_ok(std::initializer_list<const void*> ptrs,
+                      std::initializer_list<long long> strides) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  for (long long st : strides)
+    if (st % 8) return false;
+  return true;
+}
+
+// The contiguous mode: maps over the strided Q, K and V views, per call.
+template <int D>
+cudaError_t launch_wgmma(const PrefillArgs& a, int B, cudaStream_t stream) {
+  if (!fq_tma_ok({a.q, a.k, a.v}, {a.qsb, a.qsh, a.qss, a.ksb, a.ksh, a.kss, a.vsb, a.vsh, a.vss}))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!fq_tensor_map(&tq, a.q, D, a.H, a.Sq, B, a.qsh, a.qss, a.qsb) ||
+      !fq_tensor_map(&tk, a.k, D, a.KV, a.Sk, B, a.ksh, a.kss, a.ksb) ||
+      !fq_tensor_map(&tv, a.v, D, a.KV, a.Sk, B, a.vsh, a.vss, a.vsb))
+    return cudaErrorInvalidValue;
+  return launch_wgmma_maps<D, false>(a, B, tq, tk, tv, stream);
+}
+
+// The paged mode: Q's map per call, the pool layer's maps from the cache.
+template <int D>
+cudaError_t launch_wgmma_paged(const PrefillArgs& a, int B, int total_slots,
+                               cudaStream_t stream) {
+  const bool block_ok = (a.bs >= 8 && a.bs <= 64 && (a.bs & (a.bs - 1)) == 0) ||
+                        a.bs % kFqBK == 0;
+  if (!block_ok || !fq_tma_ok({a.q, a.k, a.v}, {a.qsb, a.qsh, a.qss}))
+    return cudaErrorInvalidValue;
+  const int rows = min(a.bs, kFqBK);
+  CUtensorMap tq, tk, tv;
+  if (!fq_tensor_map(&tq, a.q, D, a.H, a.Sq, B, a.qsh, a.qss, a.qsb) ||
+      !fq_pool_map(&tk, a.k, D, a.KV, total_slots, rows) ||
+      !fq_pool_map(&tv, a.v, D, a.KV, total_slots, rows))
+    return cudaErrorInvalidValue;
+  return launch_wgmma_maps<D, true>(a, B, tq, tk, tv, stream);
 }
 
 }  // namespace

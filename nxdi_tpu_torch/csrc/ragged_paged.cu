@@ -337,13 +337,14 @@ cudaError_t run_split(const SplitArgs& a, int n_items, const int* comb, int n_co
 
 // `plan`: the device copy of ragged_plan's int32 work list — a header of
 // kPlanHeader ints, the direct tiles, the items, then the tokens to combine;
-// the counts come from the host copy.
+// the counts come from the host copy. `split`: the plan is ragged_plan's
+// split one (each direct tile holds one row), so R is not bounded.
 // `ws`: slots x H x (D + 2) floats of scratch for the partials (acc, then
 // m and l), null without slots.
 extern "C" int nxdi_ragged_paged(int dtype, const void* q, const void* kc, const void* vc,
                                  void* out, const int* row_ids, const int* tok_pos, const int* bt,
                                  const int* plan, int n_direct, int n_items, int n_slots,
-                                 int n_comb, float* ws, int H, int KV, int T, int R, int NB,
+                                 int n_comb, int split, float* ws, int H, int KV, int T, int R, int NB,
                                  int bs, int D, long long qsh, long long qss, long long osh,
                                  long long oss, float scale, float v_scale, void* stream) {
   if (bs <= 0 || KV <= 0 || H % KV != 0 || D % 8 != 0 || D > 128 || (n_slots > 0 && !ws))
@@ -356,6 +357,7 @@ extern "C" int nxdi_ragged_paged(int dtype, const void* q, const void* kc, const
     PrefillArgs a{};
     a.q = q; a.k = kc; a.v = vc; a.out = out;
     a.row_ids = row_ids; a.tok_pos = tok_pos; a.bt = bt; a.tiles = tiles; a.n_tiles = n_direct;
+    a.one_row = split;
     a.H = H; a.KV = KV; a.Sq = T; a.Sk = NB * bs; a.D = D; a.nb = NB; a.bs = bs; a.R = R;
     // pool (total_slots, KV, D): a head's rows sit KV * D elements apart
     a.qsh = qsh; a.qss = qss;

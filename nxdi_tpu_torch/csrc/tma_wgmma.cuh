@@ -66,6 +66,17 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// one 3-D box of `map` at (c0 inner, c1, c2 outer) into shared memory at
+// `dst`; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
 // one 4-D box of `map` at (c0 inner .. c3 outer) into shared memory at `dst`;
 // completion is counted in bytes on `bar`; out-of-range elements arrive as 0
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,

@@ -234,8 +234,6 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
     card = _card_limits(D, q.dtype, H // max(KV, 1))
-    if R > rpa.MAX_ROWS:
-        card.append(f"{R} rows exceed {rpa.MAX_ROWS}")
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
                     card):
         _record_strategy("mixed_ragged_kernel")

@@ -36,16 +36,21 @@ _F = ctypes.c_float
 SIGNATURES = {
     "nxdi_flash_prefill": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 12
     + [_F, _I, _I, _P],
+    # ... + the kv split (chunk length, chunks) and the partials' scratch
     "nxdi_flash_decode_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 9
-    + [_F, _I, _I, _P],
+    + [_F, _I, _I, _I, _I, _P, _P],
     "nxdi_kv_commit_rows": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL, _LL, _P],
     "nxdi_flash_decode_window": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 7
-    + [_F, _I, _I, _P],
-    "nxdi_paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4 + [_F, _F, _P],
-    "nxdi_paged_prefill": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_LL] * 6 + [_F, _F, _P],
+    + [_F, _I, _I, _I, _I, _P, _P],
+    "nxdi_paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4
+    + [_F, _F, _I, _I, _P, _P],
+    # dtype, body (flash_attention.PREFILL_BODIES), ..., pool slots, ...
+    "nxdi_paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_LL] * 6
+    + [_F, _F, _P],
     # ... + the device work list and its host counts (direct tiles, items,
-    # partial slots, tokens to combine), then the partials' scratch
-    "nxdi_ragged_paged": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 4 + [_P] + [_I] * 7
+    # partial slots, tokens to combine), whether it is split (its direct
+    # tiles hold one row each), then the partials' scratch
+    "nxdi_ragged_paged": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P] + [_I] * 7
     + [_LL] * 4 + [_F, _F, _P],
     # ... + the GEMM plan (body, tile rows and columns, splits, K slice;
     # fused_proj.GemmPlan.args), twice for the MLP (gate/up, then down), the

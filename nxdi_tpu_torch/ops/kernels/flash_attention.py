@@ -24,7 +24,14 @@ Counterpart of ``nxdi_tpu/ops/kernels/flash_attention.py``:
 The contiguous prefill has three bodies; :func:`prefill_body` picks one per
 call: the TMA + wgmma body (``csrc/prefill_wgmma.cuh``) for bf16 at head
 dims 64 and 128, the mma.sync body for other bf16 head dims that are
-multiples of 16, the CUDA-core body otherwise.
+multiples of 16, the CUDA-core body otherwise. The paged prefill picks
+among the same bodies (:func:`paged_prefill_body`); its TMA body reads the
+pool through one box per pool block (:func:`paged_prefill_boxes`).
+
+The decode kernel splits each row's kv range over blocks (flash decoding):
+:func:`decode_chunk` takes the chunk length from shapes only, a block per
+(chunk, kv head, row) writes its partial softmax state, and a combine
+kernel merges the chunks in order.
 
 Each wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernel or raises. Each kernel launch adds one to the
@@ -35,8 +42,10 @@ later, is noted at the top of its ``.cu`` file.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from nxdi_tpu_torch.ops.attention import NEG_INF
@@ -46,6 +55,7 @@ MAX_HEAD_DIM = 128
 # the contiguous prefill's bodies (codes shared with csrc/flash_prefill.cu)
 PREFILL_BODIES = {"simt": 0, "mma": 1, "wgmma": 2}
 WGMMA_HEAD_DIMS = (64, 128)
+PAGED_TILE = 128  # kv rows per tile of the paged TMA body
 
 
 def _affine(start: torch.Tensor, n: int) -> torch.Tensor:
@@ -88,6 +98,60 @@ def _check_cuda_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The decode kernel's kv split (csrc/decode_kernel.cuh)
+# ---------------------------------------------------------------------------
+
+# a chunk is a whole number of these: the split kernel's 4 warps x 32 positions
+DECODE_CHUNK_UNIT = 128
+
+
+def decode_chunk(B: int, KV: int, kv_len: int, n_sm: int) -> int:
+    """kv positions per block of the decode kernel, from shapes only: the
+    largest multiple of DECODE_CHUNK_UNIT that still gives the launch two
+    blocks per SM over the ``B * KV`` (row, kv head) pairs, or the whole
+    range when one block per pair already does; never below the unit. The
+    chunk does not depend on the rows' positions, so the launch reads
+    nothing back from the card (a block whose chunk holds no visible
+    position exits at once)."""
+    unit = DECODE_CHUNK_UNIT
+    whole = max(unit, -(-kv_len // unit) * unit)
+    need = -(-2 * n_sm // max(1, B * KV))  # chunks per (row, kv head)
+    if need <= 1:
+        return whole
+    # the largest chunk c with ceil(kv_len / c) >= need
+    return min(whole, max(unit, (kv_len - 1) // (need - 1) // unit * unit))
+
+
+def decode_visible_range(q_pos, kv_start, kv_len: int, *, fresh: bool, window=None):
+    """(lo, hi) int64 arrays: the slots [lo, hi) each row's decode query
+    sees, as the kernel computes them (up to q_pos, exclusive when a fresh
+    row replaces the slot at q_pos; inside kv_len; from the sliding
+    window's start). The chunk mask and holes are applied per position."""
+    qp = np.asarray(q_pos, np.int64).reshape(-1)
+    ks = np.zeros_like(qp) if kv_start is None else np.asarray(kv_start, np.int64).reshape(-1)
+    hi = np.maximum(0, np.minimum(kv_len, qp - ks + (0 if fresh else 1)))
+    lo = (np.maximum(0, np.minimum(hi, qp - window + 1 - ks)) if window
+          else np.zeros_like(hi))
+    return lo, hi
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_split(B, H, KV, D, kv_len, device):
+    """The decode launch's split: (chunk length, chunks, the partials'
+    scratch or None). ``decode_chunk`` is looked up on every call, so a
+    caller may replace it (to time one chunk per row, the earlier design)."""
+    chunk = decode_chunk(B, KV, kv_len, _sm_count(device.index or 0))
+    n = max(1, -(-kv_len // chunk))
+    ws = (torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=device)
+          if n > 1 else None)
+    return chunk, n, ws
+
+
+# ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
@@ -126,6 +190,20 @@ def flash_attention_prefill_plain(
     return _plain_attention(q, k, v, mask, scale)
 
 
+def _tma_strides_ok(t: torch.Tensor) -> bool:
+    return not (t.data_ptr() % 16 or t.stride(-1) != 1 or any(
+        (s * t.element_size()) % 16 for s in t.stride()[:-1]))
+
+
+def _check_tma(name: str, operands) -> None:
+    for what, t in operands:
+        if not _tma_strides_ok(t):
+            raise ValueError(
+                f"{name}: {what} strides {tuple(t.stride())} (or its base) break TMA's rules: "
+                "a 16-byte aligned base, a unit-stride last dim and other strides in "
+                "multiples of 16 bytes")
+
+
 def prefill_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The body the contiguous prefill runs for these operands: ``"wgmma"``
     (TMA + wgmma: bf16, head dim 64 or 128), ``"mma"`` (mma.sync: other bf16
@@ -135,17 +213,55 @@ def prefill_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     that break that raise (the model's layouts meet it)."""
     D = q.shape[3]
     if q.dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or t.stride(-1) != 1 or any(
-                    (s * t.element_size()) % 16 for s in t.stride()[:-1]):
-                raise ValueError(
-                    f"flash_attention_prefill: {name} strides {tuple(t.stride())} (or its base) "
-                    "break TMA's rules: a 16-byte aligned base, a unit-stride last dim and "
-                    "other strides in multiples of 16 bytes")
+        _check_tma("flash_attention_prefill", (("q", q), ("k", k), ("v", v)))
         return "wgmma"
     if q.dtype == torch.bfloat16 and D % 16 == 0:
         return "mma"
     return "simt"
+
+
+def paged_wgmma_block(block_size: int) -> bool:
+    """Whether the paged TMA body takes this pool block size: a 128-row kv
+    tile must be whole boxes of ``min(block_size, 128)`` rows, each at least
+    one 1 KB swizzle atom (8 rows of 64 bf16 columns) — block sizes 8, 16,
+    32 and 64 (several boxes a tile) or a multiple of 128 (one box a tile)."""
+    return block_size in (8, 16, 32, 64) or block_size % PAGED_TILE == 0
+
+
+def paged_prefill_body(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       block_size: int) -> str:
+    """The body the paged prefill runs: ``"wgmma"`` (TMA + wgmma, K/V boxes
+    per pool block: bf16 at head dim 64 or 128 with a block size
+    :func:`paged_wgmma_block` takes), ``"mma"`` (mma.sync: other bf16 cases
+    whose head dim is a multiple of 16) or ``"simt"`` (CUDA cores: f32, other
+    bf16 head dims). Operands whose strides TMA cannot take raise."""
+    D = q.shape[3]
+    if q.dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS and paged_wgmma_block(block_size):
+        _check_tma("paged_attention_prefill",
+                   (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)))
+        return "wgmma"
+    if q.dtype == torch.bfloat16 and D % 16 == 0:
+        return "mma"
+    return "simt"
+
+
+def paged_prefill_boxes(table_row, kt: int, block_size: int):
+    """The TMA boxes the paged TMA body's producer issues for kv tile ``kt``
+    (positions ``128 kt ... 128 kt + 127``) of one row, as
+    ``csrc/prefill_wgmma.cuh`` computes them: ``(first tile row, pool slot,
+    rows)`` per live pool block, boxes of ``min(block_size, 128)`` rows.
+    Holes (negative entries) and blocks past the table are left out (never
+    loaded; their V rows are zeroed and their columns masked); a tile whose
+    boxes are all left out is skipped."""
+    rows = min(block_size, PAGED_TILE)
+    out = []
+    for i in range(PAGED_TILE // rows):
+        j = kt * PAGED_TILE + i * rows
+        e = j // block_size
+        blk = int(table_row[e]) if e < len(table_row) else -1
+        if blk >= 0:
+            out.append((i * rows, blk * block_size + j % block_size, rows))
+    return out
 
 
 def flash_attention_prefill(
@@ -260,6 +376,7 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
     qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     ks = None if kv_start is None else kv_start.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    chunk, n_chunks, ws = _decode_split(B, H, KV, D, W, q.device)
     lib = _build.library()
     err = lib.nxdi_flash_decode_fused(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -267,7 +384,7 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
         None if ks is None else ks.data_ptr(), B, H, KV, D, W,
         q.stride(0), q.stride(1), *k_cache.stride()[:3], k_new.stride(0), k_new.stride(1),
         out.stride(0), out.stride(1), float(scale), _opt(sliding_window), _opt(chunk_size),
-        _build.stream_ptr(q.device),
+        chunk, n_chunks, None if ws is None else ws.data_ptr(), _build.stream_ptr(q.device),
     )
     _build.check(err, name)
     flash_attention_decode_fused.launches += 1
@@ -383,11 +500,12 @@ def flash_attention_decode(
     qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     ks = kv_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    chunk, n_chunks, ws = _decode_split(B, H, KV, D, Sk, q.device)
     err = _build.library().nxdi_flash_decode_window(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp.data_ptr(),
         ks.data_ptr(), B, H, KV, D, Sk, q.stride(0), q.stride(1), *k.stride()[:3],
         out.stride(0), out.stride(1), float(scale), _opt(sliding_window), _opt(chunk_size),
-        _build.stream_ptr(q.device),
+        chunk, n_chunks, None if ws is None else ws.data_ptr(), _build.stream_ptr(q.device),
     )
     _build.check(err, name)
     flash_attention_decode.launches += 1
@@ -462,18 +580,23 @@ def _paged_launch(fn_name, decode, q, k_cache, v_cache, block_table, q_pos, bloc
     qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = _build.library()
-    common = (_build.dtype_code(q, fn_name), q.data_ptr(), k_cache.data_ptr(),
-              v_cache.data_ptr(), out.data_ptr(), qp.data_ptr(), bt.data_ptr())
+    common = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+              qp.data_ptr(), bt.data_ptr())
+    code = _build.dtype_code(q, fn_name)
     if decode:
+        NB = bt.shape[1]
+        chunk, n_chunks, ws = _decode_split(B, H, KV, D, NB * block_size, q.device)
         err = lib.nxdi_paged_decode(
-            *common, B, H, KV, D, bt.shape[1], block_size, q.stride(0), q.stride(1),
-            out.stride(0), out.stride(1), float(scale), float(v_scale),
-            _build.stream_ptr(q.device),
+            code, *common, B, H, KV, D, NB, block_size, q.stride(0), q.stride(1),
+            out.stride(0), out.stride(1), float(scale), float(v_scale), chunk, n_chunks,
+            None if ws is None else ws.data_ptr(), _build.stream_ptr(q.device),
         )
     else:
+        body = PREFILL_BODIES[paged_prefill_body(q, k_cache, v_cache, block_size)]
         err = lib.nxdi_paged_prefill(
-            *common, B, H, KV, Sq, bt.shape[1], block_size, D, *q.stride()[:3],
-            *out.stride()[:3], float(scale), float(v_scale), _build.stream_ptr(q.device),
+            code, body, *common, B, H, KV, Sq, bt.shape[1], block_size, D, k_cache.shape[0],
+            *q.stride()[:3], *out.stride()[:3], float(scale), float(v_scale),
+            _build.stream_ptr(q.device),
         )
     _build.check(err, fn_name)
     return out

@@ -45,8 +45,9 @@ from nxdi_tpu_torch.ops.kernels.flash_attention import (
     gather_pages,
 )
 
-# rows one launch may hold: the kernel keeps a 64-bit mask of the rows
-# present in each q tile
+# rows the one-kernel design (ragged_plan(split=False)) may hold: its q
+# tiles keep a 64-bit mask of the rows present. The split plan gives direct
+# tiles only to tiles of one row, so it takes any number of rows.
 MAX_ROWS = 64
 
 # the work list's layout (shared with csrc/ragged_paged.cu)
@@ -79,6 +80,7 @@ class RaggedPlan:
     n_comb: int
     chunk: int
     flat: object
+    split: bool = True
 
     def to(self, device) -> "RaggedPlan":
         flat = self.flat
@@ -123,7 +125,8 @@ def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
     - Direct tiles: 64-token tiles that hold more than DIRECT_MIN_TOKENS
       tokens of one row and no other row (a prefill chunk's tiles). With
       ``split=False`` every tile is direct: the earlier one-kernel design,
-      which walks a tile's rows in series.
+      which walks a tile's rows in series and holds at most MAX_ROWS rows
+      (more raise).
     - Items: every other real token, over its kv positions [0, min(its
       position + 1, kv_width)) cut into chunks (``_choose_chunk``); a token
       of one chunk writes its output itself, a token of more reserves a
@@ -133,6 +136,9 @@ def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
       outside the direct tiles (written 0).
 
     Vectorised numpy over the host tags: no device work, no sync."""
+    if not split and num_rows > MAX_ROWS:
+        raise ValueError(
+            f"ragged_paged_attention: {num_rows} rows exceed the kernel's {MAX_ROWS}")
     rid = np.asarray(row_ids, dtype=np.int64).reshape(-1)
     qp = np.asarray(q_pos, dtype=np.int64).reshape(-1)
     T = rid.shape[0]
@@ -178,7 +184,7 @@ def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
         direct, items.reshape(-1), comb.reshape(-1),
     ]).astype(np.int32)
     return RaggedPlan(T=T, n_direct=int(direct.size), n_items=len(items), n_slots=slots,
-                      n_comb=len(comb), chunk=chunk, flat=flat)
+                      n_comb=len(comb), chunk=chunk, flat=flat, split=split)
 
 
 def ragged_paged_kernel_supported(q_shape, cache_shape, block_size) -> bool:
@@ -263,8 +269,6 @@ def ragged_paged_attention(
             q, k_cache, v_cache, block_tables, row_ids, q_pos, block_size=block_size,
             scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
-    if R > MAX_ROWS:
-        raise ValueError(f"{name}: {R} rows exceed the kernel's {MAX_ROWS}")
     for t in (q, k_cache, v_cache):
         _check_cuda_operand(t, name, q.dtype)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
@@ -278,6 +282,8 @@ def ragged_paged_attention(
         plan = ragged_plan(_host_ints(row_ids), _host_ints(q_pos), R, NB * block_size, KV)
     if plan.T != T:
         raise ValueError(f"{name}: the plan covers {plan.T} tokens, the stream has {T}")
+    if not plan.split and R > MAX_ROWS:
+        raise ValueError(f"{name}: {R} rows exceed the kernel's {MAX_ROWS}")
     flat = plan.to(dev).flat
     ws = (torch.empty(plan.n_slots * H * (D + 2), dtype=torch.float32, device=dev)
           if plan.n_slots else None)
@@ -285,7 +291,8 @@ def ragged_paged_attention(
     err = _build.library().nxdi_ragged_paged(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         rid.data_ptr(), qp.data_ptr(), bt.data_ptr(), flat.data_ptr(), plan.n_direct,
-        plan.n_items, plan.n_slots, plan.n_comb, None if ws is None else ws.data_ptr(),
+        plan.n_items, plan.n_slots, plan.n_comb, int(plan.split),
+        None if ws is None else ws.data_ptr(),
         H, KV, T, R, NB, block_size, D, q.stride(1), q.stride(2), out.stride(1), out.stride(2),
         float(scale), float(v_scale), _build.stream_ptr(dev),
     )

@@ -38,19 +38,18 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-SOFTMAX = """          if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi) {
+SOFTMAX = """          if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi && holes == 0) {
             fq_softmax<D, false>(st, sc, t_lo, scale_log2, tig);
           } else {
-            fq_softmax<D, true>(st, sc, t_lo, scale_log2, tig);
+            fq_softmax<D, true, PAGED>(st, sc, t_lo, scale_log2, tig, holes, box_shift);
           }
 """
-SCORES = "        if (kt < w.n_kv) fq_scores<D>(sc, qa, stage_of(it + kt));\n"
-PV = "        if (kt > 0) fq_pv<D>(st, pa, stage_of(it + kt - 1) + kTile);\n"
-MASK_TEST = "if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi) {"
-V_EXPECT = "          mbar_expect_tx(full, 2 * kTile);"
-V_LOAD = ("            tma_load_4d(st + kTile + c * kFqBox, &tv, 64 * c, w.kvh, kt * kFqBK, w.b, "
+SCORES = "        if (i < n_live) fq_scores<D>(sc, qa, stage_of(it + i));\n"
+PV = "        if (i > 0) fq_pv<D>(st, pa, stage_of(it + i - 1) + kTile);\n"
+MASK_TEST = "if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi && holes == 0) {"
+V_EXPECT = "            mbar_expect_tx(full, 2 * kTile);"
+V_LOAD = ("              tma_load_4d(st + kTile + c * kFqBox, &tv, 64 * c, w.kvh, kt * kFqBK, w.b, "
           "full);\n")
-
 
 def _edit(src: str, old: str, new: str = "") -> str:
     if old not in src:

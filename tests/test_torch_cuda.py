@@ -142,12 +142,26 @@ def test_ragged_takes_tags_and_tables_from_the_host(gen, dtype, tol):
 
 
 def test_ragged_raises_on_too_many_rows(gen):
-    q = _randn(gen, 1, 4, 8, 16)
-    pool = _randn(gen, 64, 2, 16)
-    bt = np.full((65, 1), -1, np.int32)
+    """96 rows run on the split path (its direct tiles hold one row each)
+    and match the plain version: a 130-token chunk of row 80, then one
+    decode token of each other row; the one-kernel design
+    (``ragged_plan(split=False)``, a 64-bit row mask per tile) still raises
+    above 64 rows."""
+    R, T, H, KV, D, bs, NB = 96, 256, 32, 8, 64, 128, 4
+    rows = [(80, 200, 130)] + [(r, 5 + 4 * r, 1) for r in range(R) if r != 80]
+    bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
+    kc_, vc_ = (_randn(gen, R * NB * bs, KV, D).to(torch.bfloat16) for _ in range(2))
+    q = _randn(gen, 1, T, H, D).to(torch.bfloat16).transpose(1, 2)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    assert plan.split and plan.n_direct > 0 and plan.n_items > 0
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs, plan=plan)
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, block_size=bs)
+    assert _max_err(got, want) <= 2e-2
+    assert torch.all(got[:, :, torch.from_numpy(rid < 0).cuda()] == 0)
+    assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs,
+                                                  plan=plan), got)
     with pytest.raises(ValueError, match="rows"):
-        rpa.ragged_paged_attention(q, pool, pool, bt, np.zeros(8, np.int32),
-                                   np.zeros(8, np.int32), block_size=64)
+        rpa.ragged_plan(rid, qp, R, NB * bs, KV, split=False)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
@@ -379,3 +393,130 @@ def test_ragged_split_path_block16_holes_and_scales(gen, dtype, tol):
     assert _max_err(got, want) <= tol
     assert torch.all(got[:, :, 23] == 0) and torch.all(got[:, :, 24:] == 0)
     assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw), got)
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel split across blocks (all three modes) and the paged
+# prefill's TMA body
+# ---------------------------------------------------------------------------
+
+
+def _one_chunk(B, KV, kv_len, n_sm):
+    return 1 << 30  # one chunk a row: the earlier design
+
+
+def _decode_call(mode, gen, dtype, G, D, mask=None):
+    """One decode call per mode over 700 positions (6 chunks of 128 at B 4,
+    KV 2): rows at the end, at the start (fused: only the fresh row; window:
+    a hole's poisoned start; paged: a table of holes only, so no visible
+    key), in the middle with an offset start or a hole; returns (kernel
+    call, plain call)."""
+    B, KV, S, kv_len = 4, 2, 704, 700
+    H = KV * G
+    window, chunk = {None: (None, None), "window": (200, None), "chunk": (None, 256)}[mask]
+
+    def r(*shape):
+        return _randn(gen, *shape).to(dtype)
+
+    q = r(B, 1, H, D).transpose(1, 2)  # the model's head-split layout
+    if mode == "paged":
+        bs, NB = 16, 44
+        perm = torch.randperm(4 * NB, generator=torch.Generator().manual_seed(3))
+        bt = perm.reshape(4, NB).to(torch.int32)
+        bt[1] = -1
+        bt[2, 9] = -1
+        kc_, vc_ = r(4 * NB * bs, KV, D), r(4 * NB * bs, KV, D)
+        qp = torch.tensor([[699], [300], [400], [17]], dtype=torch.int32)
+        kw = dict(block_size=bs, k_scale=0.5, v_scale=2.0)
+        return (lambda: fa.paged_attention_decode(q, kc_, vc_, bt, qp, **kw),
+                lambda: fa.paged_attention_decode_plain(q, kc_, vc_, bt.cuda(), qp.cuda(), **kw))
+    starts = torch.tensor([0, 2 ** 30 if mode == "window" else 0, 9, 3], dtype=torch.int32)
+    kv_pos = (starts[:, None] + torch.arange(S, dtype=torch.int32)[None]).cuda()
+    k, v = r(B, S, KV, D).transpose(1, 2), r(B, S, KV, D).transpose(1, 2)
+    masks = dict(sliding_window=window, chunk_size=chunk)
+    if mode == "window":
+        qp = torch.tensor([[699], [20], [500], [130]], dtype=torch.int32).cuda()
+        return (lambda: fa.flash_attention_decode(q, k[:, :, :kv_len], v[:, :, :kv_len], qp,
+                                                  kv_pos[:, :kv_len], **masks),
+                lambda: fa.flash_attention_decode_plain(q, k[:, :, :kv_len], v[:, :, :kv_len],
+                                                        qp, kv_pos[:, :kv_len], **masks))
+    kn, vn = r(B, 1, KV, D).transpose(1, 2), r(B, 1, KV, D).transpose(1, 2)
+    qp = torch.tensor([[703], [0], [500], [130]], dtype=torch.int32).cuda()
+    return (lambda: fa.flash_attention_decode_fused(q, k, v, kn, vn, qp, kv_pos, kv_len=kv_len,
+                                                    **masks),
+            lambda: fa.flash_attention_decode_fused_plain(q, k, v, kn, vn, qp, kv_pos[:, 0],
+                                                          kv_len=kv_len, **masks))
+
+
+DECODE_LAUNCHES = {"fused": "flash_attention_decode_fused", "window": "flash_attention_decode",
+                   "paged": "paged_attention_decode"}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [32, 40, 64, 128])
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("mode", ["fused", "window", "paged"])
+def test_decode_split(gen, monkeypatch, mode, G, D, dtype, tol):
+    """The split kernel and the combine against the plain version, one
+    launch counted per call, the same bits on a second call, and one chunk
+    a row (the earlier design) against the same plain version. bf16 at D
+    32, 64 and 128 runs the tensor-core tile, D 40 (not a multiple of 16)
+    and f32 the CUDA-core tile."""
+    call, plain = _decode_call(mode, gen, dtype, G, D)
+    counter = getattr(fa, DECODE_LAUNCHES[mode])
+    assert -(-700 // fa.decode_chunk(4, 2, 704 if mode == "paged" else 700, 132)) > 1
+    before = counter.launches
+    got = call()
+    assert counter.launches == before + 1
+    want = plain()
+    assert _max_err(got, want) <= tol
+    assert torch.equal(call(), got)
+    monkeypatch.setattr(fa, "decode_chunk", _one_chunk)
+    one = call()
+    assert _max_err(one, want) <= tol
+    assert _max_err(one, got) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mask", ["window", "chunk"])
+@pytest.mark.parametrize("mode", ["fused", "window"])
+def test_decode_split_masks(gen, mode, mask, dtype, tol):
+    """Sliding-window and chunk masks with offset starts, G 4, D 64."""
+    call, plain = _decode_call(mode, gen, dtype, 4, 64, mask)
+    got = call()
+    assert _max_err(got, plain()) <= tol
+    assert torch.equal(call(), got)
+
+
+PAGED_PREFILL_BF16_TOL = 2e-2  # bf16 with v_scale 2: two output ulps near 1
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 64, 128, 256])
+def test_paged_prefill_wgmma_body(gen, monkeypatch, D, bs):
+    """The TMA + wgmma body's paged mode in the model's layout: a 300-token
+    chunk (not a multiple of 128) after a 260-token prefix, and one from 0;
+    a hole inside the prefix and a 128-position run of holes (a kv tile
+    the body skips); k/v scales; against the plain version and the mma.sync
+    body, the same bits on a second call."""
+    B, H, KV, Sq = 2, 8, 2, 300
+    NB = 640 // bs
+    perm = torch.randperm(2 * NB, generator=torch.Generator().manual_seed(5))
+    bt = perm.reshape(2, NB).to(torch.int32)
+    bt[0, 40 // bs] = -1
+    bt[0, 128 // bs:256 // bs] = -1  # positions 128-255 of row 0: tile 1, holes only
+    kc_, vc_ = (_randn(gen, 2 * NB * bs, KV, D).to(torch.bfloat16) for _ in range(2))
+    q = _randn(gen, B, Sq, H, D).to(torch.bfloat16).transpose(1, 2)
+    qp = torch.tensor([[260], [0]], dtype=torch.int32) + torch.arange(Sq, dtype=torch.int32)
+    qp = qp.cuda()
+    kw = dict(block_size=bs, k_scale=0.5, v_scale=2.0)
+    assert fa.paged_prefill_body(q, kc_, vc_, bs) == "wgmma"
+    before = fa.paged_attention_prefill.launches
+    got = fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw)
+    assert fa.paged_attention_prefill.launches == before + 1
+    want = fa.paged_attention_prefill_plain(q, kc_, vc_, bt.cuda(), qp, **kw)
+    assert _max_err(got, want) <= PAGED_PREFILL_BF16_TOL
+    assert torch.equal(fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw), got)
+    monkeypatch.setattr(fa, "paged_prefill_body", lambda *a: "mma")
+    assert _max_err(fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw), want) <= \
+        PAGED_PREFILL_BF16_TOL

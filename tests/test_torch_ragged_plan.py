@@ -6,12 +6,14 @@ checked without a card.
   gives every token exactly one writer (a direct tile, a one-chunk item, or
   the combine), at every rung of the mixed engine's packed-token ladder
   (2 ... 1032), with the engine's chunk-first packing, slots that do not
-  ascend, a token that sees no position, and 1, 8 and 64 rows.
+  ascend, a token that sees no position, and 1, 8 and 64 rows; and with 65
+  and 96 rows, which only the split plan takes (``split=False``, the
+  one-kernel design with a 64-bit row mask per tile, still refuses them).
 - A plain emulation of what the CUDA kernels do with the plan (per-chunk
   f32 softmax states, merged in chunk order; direct tiles through the plain
   version) agrees with ``ragged_paged_attention_plain`` and with the JAX
   package's Pallas kernel in interpret mode. Tolerance 1e-5 (float32): only
-  the order of the sums differs.
+  the order of the sums differs. Also with 96 rows.
 """
 
 import numpy as np
@@ -118,6 +120,26 @@ def test_plan_covers_every_pair_once(T, R):
     assert legacy.n_items == legacy.n_comb == 0
     assert legacy.n_direct == -(-T // rpa.TILE)
     _check_plan(legacy, rid, qp, R, kv_width)
+
+
+@pytest.mark.parametrize("R", [65, 96])
+@pytest.mark.parametrize("T", [64, 128, 256, 1032])
+def test_plan_covers_every_pair_once_beyond_64_rows(T, R):
+    """More rows than the one-kernel design's 64-bit mask holds: the split
+    plan covers them (its direct tiles hold one row each), split=False
+    refuses them with the kernel's message."""
+    rng = np.random.default_rng(T * 1000 + R)
+    kv_width = 16 * 128
+    rid, qp = _engine_stream(T, R, rng, kv_width)
+    plan = rpa.ragged_plan(rid, qp, R, kv_width, 8)
+    assert plan.split
+    _check_plan(plan, rid, qp, R, kv_width)
+    for tile in plan.direct_tiles():  # one row per direct tile
+        rows = rid[tile * rpa.TILE:(tile + 1) * rpa.TILE]
+        assert len(set(rows[(rows >= 0) & (rows < R)].tolist())) == 1
+    with pytest.raises(ValueError, match=f"{R} rows exceed the kernel's {rpa.MAX_ROWS}"):
+        rpa.ragged_plan(rid, qp, R, kv_width, 8, split=False)
+    assert not rpa.ragged_plan(rid, qp, rpa.MAX_ROWS, kv_width, 8, split=False).split
 
 
 def test_plan_decode_only_bucket_8():
@@ -228,6 +250,41 @@ def test_split_and_combine_match_plain_and_jax(H, KV, scales):
                       jnp.asarray(rid), jnp.asarray(qp), block_size=bs, block_q=8,
                       k_scale=k_scale, v_scale=v_scale)
     np.testing.assert_allclose(got.numpy()[:, :, :78], np.asarray(want)[:, :, :78], atol=TOL,
+                               rtol=0)
+
+
+def test_split_and_combine_match_plain_and_jax_beyond_64_rows():
+    """96 rows: a 70-token prefill chunk of row 80 (its first tile direct,
+    its tail split), then one decode token for each of 95 other rows at
+    positions up to 47 (rows 7 and 93 see nothing: all holes), padding."""
+    rng = np.random.default_rng(96)
+    R, H, KV, D, bs, NB = 96, 4, 2, 16, 16, 6
+    T = 176
+    nblk = R * NB
+    k = rng.standard_normal((nblk * bs, KV, D)).astype(np.float32)
+    v = rng.standard_normal((nblk * bs, KV, D)).astype(np.float32)
+    bt = rng.permutation(nblk).astype(np.int32).reshape(R, NB)
+    bt[[7, 93]] = -1
+    bt[40, 1] = -1  # a hole inside row 40's range
+    rid = np.full(T, -1, np.int32)
+    qp = np.zeros(T, np.int32)
+    rid[:70], qp[:70] = 80, np.arange(20, 90)
+    others = [r for r in rng.permutation(R).tolist() if r != 80]
+    rid[70:165], qp[70:165] = others, rng.integers(0, 48, 95)
+    q = rng.standard_normal((1, H, T, D)).astype(np.float32)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    assert list(plan.direct_tiles()) == [0] and plan.n_slots == 0
+    _check_plan(plan, rid, qp, R, NB * bs)
+    qt, kt, vt = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    got = _emulate(qt, kt, vt, bt, rid, qp, plan, bs, None, 1.0, 1.0)
+    assert not torch.isnan(got).any()
+    blind = np.flatnonzero(np.isin(rid, [7, 93]))
+    assert torch.all(got[:, :, blind] == 0) and torch.all(got[:, :, 165:] == 0)
+    plain = rpa.ragged_paged_attention_plain(qt, kt, vt, bt, rid, qp, block_size=bs)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=TOL, rtol=0)
+    want = jax_ragged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+                      jnp.asarray(rid), jnp.asarray(qp), block_size=bs, block_q=16)
+    np.testing.assert_allclose(got.numpy()[:, :, :165], np.asarray(want)[:, :, :165], atol=TOL,
                                rtol=0)
 
 
