@@ -13,7 +13,9 @@ code is non-zero:
    the prefill by the kernel that ran (the TMA + wgmma body in bf16), beside
    the earlier mma.sync body, and at head dim 128; the fused decode split
    across blocks (21 flushed calls: median, min, max) beside the earlier
-   design (one chunk a row, forced through ``flash_attention.decode_chunk``).
+   design (one chunk a row, forced through ``flash_attention.decode_chunk``);
+   the KV commit beside an empty kernel at its launch shape (the launch's
+   floor).
 3b. The paged-decode, paged-prefill and window-decode kernels the same way,
    at the serving engine's shapes (block 128, and block 16 for correctness):
    both decodes beside one chunk a row, the paged prefill by the kernel that
@@ -28,27 +30,40 @@ code is non-zero:
    prefill chunk with 7 decode rows (bucket 1032; block 128: 21 flushed
    calls each, beside the earlier one-kernel design; block 16 with holes, a
    row that sees nothing and k/v scales), and a 96-row stream (more rows
-   than the one-kernel design takes) against the plain version.
+   than the one-kernel design takes) against the plain version; at buckets
+   8 and 1032 also the graph-ready launch (the plan padded to the bucket's
+   capacity, sizes from shapes, counts read on the card): the same bits,
+   timed beside per-call sizing.
 4. The slice at full Llama-3.2-1B width, 2 layers, float32: greedy
-   ``generate()`` on the CPU (plain versions) and on the card (kernels),
-   every step's logits held against each other.
+   ``generate()`` on the CPU (plain versions) and on the card (kernels,
+   every bucket a CUDA graph), every step's logits held against each
+   other; the card again eagerly, its logits equal to the graphs' bit for
+   bit.
 4b. The paged serving engine at full width, 2 layers, float32, on the CPU
    and on the card: interleaved arrivals, a shared prefix, chunked prefill
    and a forced preemption; identical streams, every dispatch's logits
-   within 1e-4, the window-decode kernel on the decode path.
+   within 1e-4, the window-decode kernel on the decode path; the card run
+   through the graphs and again eagerly (same streams and counts, logits
+   bit for bit).
 4c. The same with mixed dispatch (one packed forward per step, fused QKV,
    the QKV, MLP and ragged kernels): identical streams, logits within 1e-4,
    a step that packs a prefill with decode rows, exact launch counts.
 5. The slice at full depth (16 layers), bfloat16, batch 8, 1024-token
-   prompts: launch counts checked exactly, prefill / decode times printed.
+   prompts, three ways in turns (eager sync, graph sync, graph async:
+   ``async_mode``'s device-resident loop): identical tokens, launch counts
+   checked exactly, prefill ms, decode ms/step, tok/s, a profiled decode
+   step's busy/idle share and host split (runtime/host_spans.py), the
+   prefill's device time by kind of kernel; warmup, capture time per
+   submodel and the warmup's peak memory.
 5b. The serving engine at full depth, bfloat16, 8 slots, 16 requests with a
-   shared 384-token prefix: launch counts checked exactly against the
-   engine's dispatch counts, tok/s, TTFT, TPOT, a profiled prefix-prefill
-   step (it must run the TMA + wgmma body) and a profiled decode step.
+   shared 384-token prefix, through the graphs and then eagerly: launch
+   counts checked exactly against the engine's dispatch counts, tok/s,
+   TTFT, TPOT, a profiled prefix-prefill step (it must run the TMA + wgmma
+   body) and a profiled decode step, each with its host split.
 5c. The same configuration and traffic with mixed dispatch: exact launch
    counts, tok/s, TTFT, TPOT, packed vs padded tokens per bucket and
    profiled steps (with the port's GEMM time by body), printed beside
-   phase 5b's.
+   phase 5b's, graphs beside eager.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -57,6 +72,7 @@ it, it prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -459,8 +475,14 @@ def check_kernels(torch, results):
         kc.kv_commit_rows(ks, vs, kr, vr, slots)
         torch.cuda.synchronize()
         assert torch.equal(ks, k_ref) and torch.equal(vs, v_ref), f"commit {dname}: not bit-exact"
-        ms = measure(torch, lambda: kc.kv_commit_rows(ks, vs, kr, vr, slots), flush=flush,
-                              kernel="kv_commit_kernel")
+        # the commit beside an empty kernel at its launch shape (L * B blocks
+        # of 128 threads): the floor under any launch of that shape
+        times, _, _ = traced_times(torch, lambda: kc.kv_commit_rows(ks, vs, kr, vr, slots),
+                                   DECODE_CALLS, flush, kernel="kv_commit_kernel")
+        ms, ms_lo, ms_hi = spread(times)
+        floor_times, _, _ = traced_times(torch, lambda: kc.empty_launch(L * B, 128, dev),
+                                         DECODE_CALLS, flush, kernel="empty_launch_kernel")
+        floor_ms, floor_lo, floor_hi = spread(floor_times)
         plain_ms = measure(torch, lambda: kc.kv_commit_rows_plain(ks, vs, kr, vr, slots), flush=flush)
         valid = (slots[:, 0] >= 0).nonzero()[:, 0]
         sl = slots[valid, 0].long()
@@ -474,9 +496,12 @@ def check_kernels(torch, results):
         nbytes = 2 * 2 * L * int(valid.numel()) * KV * D * es  # rows read + written, k and v
         bms, by = bound_ms(nbytes, 0, dname)
         results.append(dict(kernel="commit", dtype=dname, max_abs_err=0.0, tol=0.0, ms=ms,
+                            ms_min=ms_lo, ms_max=ms_hi, launch_floor_ms=floor_ms,
+                            launch_floor_min=floor_lo, launch_floor_max=floor_hi,
                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        log(f"[kernels] commit {dname}: exact; kernel {ms:.4f} ms plain {plain_ms:.4f} "
-            f"index_put {lib_ms:.4f} bound {bms:.5f} ({by})")
+        log(f"[kernels] commit {dname}: exact; kernel {ms:.4f} ms ({ms_lo:.4f}-{ms_hi:.4f}); "
+            f"empty kernel at its launch shape {floor_ms:.4f} ms ({floor_lo:.4f}-{floor_hi:.4f}); "
+            f"plain {plain_ms:.4f} index_put {lib_ms:.4f} bound {bms:.5f} ({by})")
         del ks, vs, k_ref, v_ref
         torch.cuda.empty_cache()
 
@@ -756,7 +781,12 @@ def ragged_point(torch, F, rpa, results, dname, point, q, kc, vc, case, bs, flus
     G = H // KV
     R, NB = bt.shape
     rid_h, qp_h = rid.cpu().numpy(), qp.cpu().numpy()
-    plan = rpa.ragged_plan(rid_h, qp_h, R, NB * bs, KV).to(dev)
+    plan_h = rpa.ragged_plan(rid_h, qp_h, R, NB * bs, KV)
+    plan = plan_h.to(dev)
+    # the graph-ready launch: the plan padded to the bucket's capacity, the
+    # launch sized from shapes, the counts read on the card
+    cap = rpa.ragged_capacity(T, R, NB * bs, KV)
+    static = dataclasses.replace(cap, flat=torch.from_numpy(rpa.pad_plan(plan_h, cap)).to(dev))
     legacy = rpa.ragged_plan(rid_h, qp_h, R, NB * bs, KV, split=False).to(dev)
     t = time.perf_counter()
     for _ in range(50):
@@ -774,9 +804,13 @@ def ragged_point(torch, F, rpa, results, dname, point, q, kc, vc, case, bs, flus
     assert torch.all(got[:, :, rid < 0] == 0), f"ragged {point}: padding tokens are not 0"
     assert torch.equal(call(), got), f"ragged {dname} {point}: a second call gave other bits"
     old_err = (call(legacy).float() - got.float()).abs().max().item()
+    assert torch.equal(call(static), got), f"ragged {dname} {point}: the graph-ready launch differs"
     names_of = ("prefill", "ragged_")
     times, names, dropped = traced_times(torch, call, RAGGED_CALLS, flush, kernel=names_of)
     ms, lo, hi = spread(times)
+    static_times, _, _ = traced_times(torch, lambda: call(static), RAGGED_CALLS, flush,
+                                      kernel=names_of)
+    st_ms, st_lo, st_hi = spread(static_times)
     old_times, _, _ = traced_times(torch, lambda: call(legacy), RAGGED_CALLS, flush,
                                    kernel=names_of)
     W = NB * bs
@@ -807,12 +841,17 @@ def ragged_point(torch, F, rpa, results, dname, point, q, kc, vc, case, bs, flus
                     library_min=lib_lo, library_max=lib_hi, calls=len(times),
                     untraced=dropped + lib_dropped, earlier_ms=spread(old_times)[0],
                     earlier_vs_new_err=old_err, kernels=kernels, plan_host_us=plan_us,
+                    graph_ready_ms=st_ms, graph_ready_min=st_lo, graph_ready_max=st_hi,
+                    capacity=dict(direct=cap.n_direct, items=cap.n_items, combine=cap.n_comb,
+                                  grids=cap.grids(KV)),
                     plan=dict(direct=plan.n_direct, items=plan.n_items, slots=plan.n_slots,
                               combine=plan.n_comb, chunk=plan.chunk))
     row = results[-1]
     log(f"[kernels] ragged {dname} {point}: {' + '.join(kernels)}; one-kernel design (PR 3) "
         f"{row['earlier_ms']:.4f} ms -> {ms:.4f} ms ({row['earlier_ms'] / ms:.1f}x); plan "
-        f"{row['plan']}, {plan_us:.1f} us on the host")
+        f"{row['plan']}, {plan_us:.1f} us on the host; graph-ready launch (sized from shapes, "
+        f"{row['capacity']}) {st_ms:.4f} ms ({st_lo:.4f}-{st_hi:.4f}), "
+        f"{100 * (st_ms / ms - 1):+.1f} % against per-call sizing")
     if dname == "bfloat16":
         assert ms < row["earlier_ms"], f"ragged {point}: not faster than the one-kernel design"
     del mask
@@ -972,12 +1011,15 @@ def check_mixed_kernels(torch, results):
 
 
 def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, dense, *,
-             layers, dtype, batch, seq_len, ctx_len, device, params=None, output_logits=False):
+             layers, dtype, batch, seq_len, ctx_len, device, params=None, output_logits=False,
+             graphs=True, async_mode=False):
+    """The static slice's app, loaded and warmed up (every bucket captured
+    into its CUDA graph on the card unless ``graphs`` is False)."""
     tcfg = TorchConfig(
         tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
         dtype=dtype, on_device_sampling_config=OnDeviceSamplingConfig(),
         attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
-        output_logits=output_logits, skip_warmup=False,
+        output_logits=output_logits, skip_warmup=True, async_mode=async_mode,
     )
     cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
     arch = ml.build_arch(cfg)
@@ -988,9 +1030,37 @@ def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, den
                 return params
             return dense.random_params(arch, seed=0, device=device)
 
-    app = App("<random>", cfg, model_family=ml, device=device)
+    app = App("<random>", cfg, model_family=ml, device=device, graphs=graphs)
     app.load()
+    app.warm_stats = warm(app)
     return app, arch
+
+
+def warm(app):
+    """The app's warmup (every bucket's eager run, then its graph capture on
+    the card): seconds, capture seconds per submodel, and on the card the
+    peak memory the warmup allocated beyond the params and cache (the graph
+    pool and the eager runs; max_memory_allocated after
+    reset_peak_memory_stats) and the memory the warmup left reserved once
+    the caching allocator's free blocks are released (the graphs' pool
+    segments, their outputs and the static inputs)."""
+    import torch
+
+    cuda = app.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    seconds = app.warmup()
+    stats = dict(warmup_s=seconds, graphs=app.graphs,
+                 capture_s={tag: w.capture_s for tag, w in app.models.items()})
+    if cuda:
+        peak = torch.cuda.max_memory_allocated() - alloc0
+        torch.cuda.empty_cache()
+        stats.update(warmup_peak_mib=peak / 2 ** 20,
+                     kept_reserved_mib=(torch.cuda.memory_reserved() - res0) / 2 ** 20)
+    return stats
 
 
 def recording(app, log_list):
@@ -1014,19 +1084,41 @@ def prompts(rng, B, S, lengths, vocab):
     return ids, mask
 
 
+def same_bits(torch, phase, graph_logs, eager_logs):
+    """Phases 4/4b/4c: every dispatch's logits replayed from a graph against
+    the same dispatch run eagerly on the card, which must be equal bit for
+    bit. Returns the number of dispatches compared."""
+    assert len(graph_logs) == len(eager_logs) > 0, f"phase {phase}: dispatch counts differ"
+    for i, (a, b) in enumerate(zip(graph_logs, eager_logs)):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"phase {phase} dispatch {i}: graph replay logits differ from eager by "
+                f"{(a - b).abs().max().item()}")
+    return len(graph_logs)
+
+
 def slice_vs_cpu(torch, np, mods):
+    """Phase 4: greedy generate() on the CPU (plain versions), on the card
+    through the graphs and on the card eagerly: graph logits within
+    LOGIT_TOL of the CPU's and equal to eager ones bit for bit."""
     ml, TorchConfig, ODSC, App, dense, Adapter = mods
     arch_kwargs = dict(layers=2, dtype="float32", batch=2, seq_len=256, ctx_len=128,
                        output_logits=True)
     cpu_app, arch = make_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **arch_kwargs)
     gpu_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
                           params=cpu_app.params, **arch_kwargs)
+    eager_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda", graphs=False,
+                            params=gpu_app.params, **arch_kwargs)
     ids, mask = prompts(np.random.default_rng(7), 2, 128, [128, 97], arch.vocab_size)
-    logs_cpu, logs_gpu = [], []
+    logs_cpu, logs_gpu, logs_eager = [], [], []
     recording(cpu_app, logs_cpu)
     recording(gpu_app, logs_gpu)
+    recording(eager_app, logs_eager)
     out_cpu = Adapter(cpu_app).generate(ids, attention_mask=mask, max_new_tokens=16)
     out_gpu = Adapter(gpu_app).generate(ids, attention_mask=mask, max_new_tokens=16)
+    out_eager = Adapter(eager_app).generate(ids, attention_mask=mask, max_new_tokens=16)
+    assert (out_gpu == out_eager).all(), "phase 4: graph and eager tokens differ"
+    n_same = same_bits(torch, "4", logs_gpu, logs_eager)
     worst, compared = 0.0, 0
     for step, (lc, lg) in enumerate(zip(logs_cpu, logs_gpu)):
         err = (lc - lg).abs().max().item()
@@ -1042,103 +1134,257 @@ def slice_vs_cpu(torch, np, mods):
             break
     else:
         assert (out_cpu == out_gpu).all(), "phase 4: generated tokens differ"
-    log(f"[slice-2L] {compared} steps compared, max logit diff {worst:.3g} (tol {LOGIT_TOL})")
+    graphs = {tag: sorted(w.bucket_graphs) for tag, w in gpu_app.models.items()}
+    log(f"[slice-2L] {compared} steps compared, max logit diff {worst:.3g} (tol {LOGIT_TOL}); "
+        f"graph replay = eager bit for bit over {n_same} dispatches; graphs by bucket {graphs}")
     return worst
 
 
-def slice_full_depth(torch, np, mods, card):
-    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
-    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+KERNEL_GROUPS = (
+    ("flash prefill", re.compile(r"prefill_(wgmma_|tc_)?kernel")),
+    ("decode attention", re.compile(r"decode_(split|combine)_kernel")),
+    ("ragged attention", re.compile(r"ragged_")),
+    ("commit", re.compile(r"kv_commit")),
+    ("port GEMM", GEMM_NAME),
+    ("cuBLAS GEMM", re.compile(r"gemm|xmma|cutlass|nvjet|sm90_|s16816|Kernel2", re.I)),
+    ("reductions (norm, softmax, argmax)", re.compile(r"reduce|softmax|norm|argmax", re.I)),
+    ("index, gather, scatter, embedding", re.compile(r"index|gather|scatter|embedding", re.I)),
+    ("elementwise", re.compile(r"elementwise|vectorized|unrolled|pointwise", re.I)),
+    ("copies, cat, fill", re.compile(r"copy|memcpy|memset|cat|fill", re.I)),
+)
 
-    ml, TorchConfig, ODSC, App, dense, Adapter = mods
-    B, P, NEW, L = 8, 1024, 32, 16
-    t0 = time.perf_counter()
-    app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
-                         batch=B, seq_len=2048, ctx_len=P, device="cuda", output_logits=True)
-    log(f"[slice-16L] load + warmup {time.perf_counter() - t0:.1f} s")
-    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
-                        arch.vocab_size)
 
-    times, finite, first = [], [], []
-    inner = app.forward
+def by_group(by_kernel):
+    """A profiled window's device ms by kind of kernel (KERNEL_GROUPS, the
+    first match; the rest under "other")."""
+    out = {}
+    for t, name in by_kernel:
+        group = next((g for g, rx in KERNEL_GROUPS if rx.search(name)), "other")
+        out[group] = out.get(group, 0.0) + t
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
-    def timed(*a, **kw):
-        if not first:
-            first.append((a, kw))  # the prefill dispatch, replayed under the profiler below
-        torch.cuda.synchronize()
+
+# a step's host parts (runtime/host_spans.py), nested: engine.step holds
+# dispatch and token_fetch; dispatch holds pad_and_bucket (which holds
+# scatter_indices and the ragged plan's build), the plan's padding, h2d and
+# launch
+HOST_SPANS = ("engine.step", "dispatch", "pad_and_bucket", "scatter_indices", "ragged_plan",
+              "h2d", "launch", "token_fetch")
+
+
+def host_window(torch, fn, k):
+    """``k`` calls of ``fn()`` (work that ends in a token fetch), not
+    profiled, with the host spans recorded: (host wall ms per call, host ms
+    per call by span). The profiler's tracing slows the host's launches and
+    copies, so a step's wall and host split come from here."""
+    from nxdi_tpu_torch.runtime import host_spans
+
+    torch.cuda.synchronize()
+    with host_spans.recording() as spans:
         t = time.perf_counter()
-        out = inner(*a, **kw)
+        for _ in range(k):
+            fn()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        finite.append(bool(torch.isfinite(out["logits"]).all()))
-        return out
+        wall_ms = (time.perf_counter() - t) * 1e3 / k
+    split = {name: spans[name] * 1e3 / k for name in HOST_SPANS if name in spans}
+    top = split.get("engine.step", split.get("dispatch", 0.0) + split.get("token_fetch", 0.0))
+    split["outside the spans"] = wall_ms - top
+    return wall_ms, split
 
-    app.forward = timed
-    fa.flash_attention_prefill.launches = 0
-    fa.flash_attention_decode_fused.launches = 0
-    kc.kv_commit_rows.launches = 0
-    out = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
-    counts = {
-        "prefill": fa.flash_attention_prefill.launches,
-        "decode": fa.flash_attention_decode_fused.launches,
-        "commit": kc.kv_commit_rows.launches,
-    }
-    steps = len(times) - 1
-    assert steps == NEW - 1, f"expected {NEW - 1} decode steps, ran {steps}"
-    want = {"prefill": L, "decode": L * steps, "commit": steps}
-    assert counts == want, f"launch counts {counts} != {want}"
-    strategies = set()
-    for w in app.models.values():
-        for s in w.attention_strategies.values():
-            strategies |= set(s)
-    assert strategies == {"cte_flash_kernel", "tkg_fused_kernel_stacked"}, strategies
-    assert all(finite), "phase 5: non-finite logits"
-    gen = np.stack([out[b, n:n + NEW] for b, n in enumerate(mask.sum(axis=1))])
-    assert gen.shape == (B, NEW) and (gen >= 0).all() and (gen < arch.vocab_size).all()
-    # one more decode step under the profiler: device busy vs the step's wall
+
+def profiled_call(torch, fn):
+    """``fn()`` (work that ends in a token fetch) under the profiler (CUDA
+    activity) with the host spans recorded: (host wall ms to the last
+    synchronize, device busy ms, kernels by device time, host ms by span).
+    Its wall and spans carry the profiler's own host cost."""
     from torch.profiler import ProfilerActivity, profile
 
-    nxt = np.array([[int(out[b, n + NEW - 1])] for b, n in enumerate(mask.sum(axis=1))], "int32")
-    pos = (mask.sum(axis=1) + NEW - 1).astype("int32")[:, None]
+    from nxdi_tpu_torch.runtime import host_spans
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with host_spans.recording() as spans, profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        inner(nxt, pos, last_token_index=np.zeros((B,), "int32"))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_kernel = sorted(((k.self_device_time_total / 1e3, k.key) for k in prof.key_averages()),
                        reverse=True)
-    busy_ms = sum(t for t, _ in by_kernel)
-    log(f"[slice-16L] profiled decode step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%); top: "
-        + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in by_kernel[:6]))
+    split = {k: spans[k] * 1e3 for k in HOST_SPANS if k in spans}
+    top = split.get("engine.step", split.get("dispatch", 0.0) + split.get("token_fetch", 0.0))
+    split["outside the spans"] = wall_ms - top
+    return wall_ms, sum(t for t, _ in by_kernel), by_kernel, split
+
+
+def split_line(split):
+    return "; ".join(f"{k} {v:.3f}" for k, v in split.items())
+
+
+def slice_full_depth(torch, np, mods, card):
+    """Phase 5: 16 layers, bf16, batch 8, 1024-token prompts, 32 new tokens,
+    three ways in turns over one set of weights: eager sync (every dispatch
+    eager, generate()'s host loop), graph sync (every bucket a CUDA graph),
+    graph async (async_mode: the device-resident loop, lag-1 EOS). Each
+    mode's tokens must be the others'; launch counts exact in each; prefill
+    ms (to the first token on the host), decode ms/step and tok/s (from the
+    first token to the last), a profiled decode step's busy/idle share and
+    host split, and the prefill's device time by kind of kernel."""
+    from nxdi_tpu_torch.generation import hf_adapter as hfa
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+    from nxdi_tpu_torch.ops.kernels import launch_counters
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    B, P, NEW, L = 8, 1024, 32, 16
+    common = dict(layers=L, dtype="bfloat16", batch=B, seq_len=2048, ctx_len=P, device="cuda",
+                  output_logits=True)
+    apps = {}
+    apps["graph sync"], arch = make_app(ml, TorchConfig, ODSC, App, dense, **common)
+    params = apps["graph sync"].params
+    apps["eager sync"], _ = make_app(ml, TorchConfig, ODSC, App, dense, graphs=False,
+                                     params=params, **common)
+    apps["graph async"], _ = make_app(ml, TorchConfig, ODSC, App, dense, async_mode=True,
+                                      params=params, **common)
+    assert apps["graph async"].async_supported
+    for mode, app in apps.items():
+        log(f"[slice-16L] {mode}: warmup {app.warm_stats}")
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    lengths = mask.sum(axis=1)
+
+    def run(mode):
+        """One generate(): (prefill ms, decode ms/step, tok/s, launch counts,
+        tokens, all logits finite)."""
+        app = apps[mode]
+        finite, stamps = [], []
+        inner_fwd, inner_fetch = app.forward, hfa.extract_next_tokens
+
+        def fwd(*a, **kw):
+            out = inner_fwd(*a, **kw)
+            finite.append(bool(torch.isfinite(out["logits"]).all()))
+            return out
+
+        def fetch(outputs):
+            toks = inner_fetch(outputs)
+            stamps.append(time.perf_counter())
+            return toks
+
+        app.forward, hfa.extract_next_tokens = fwd, fetch
+        for fn in launch_counters():
+            fn.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        finally:
+            del app.forward
+            hfa.extract_next_tokens = inner_fetch
+        counts = {"prefill": fa.flash_attention_prefill.launches,
+                  "decode": fa.flash_attention_decode_fused.launches,
+                  "commit": kc.kv_commit_rows.launches}
+        want = {"prefill": L, "decode": L * (NEW - 1), "commit": NEW - 1}
+        assert counts == want, f"phase 5 {mode}: launch counts {counts} != {want}"
+        assert all(finite), f"phase 5 {mode}: non-finite logits"
+        decode_s = t_end - stamps[0]
+        return dict(prefill_ms=(stamps[0] - t0) * 1e3, decode_ms=decode_s / (NEW - 1) * 1e3,
+                    tok_s=B * (NEW - 1) / decode_s), counts, out
+
+    order = ["eager sync", "graph sync", "graph async"]
+    runs = {mode: [] for mode in order}
+    outs, counts = {}, {}
+    for mode in order + order[::-1]:  # in turns: E G A A G E
+        stats, counts[mode], outs[mode] = run(mode)
+        runs[mode].append(stats)
+        log(f"[slice-16L] {mode}: prefill {stats['prefill_ms']:.2f} ms, decode "
+            f"{stats['decode_ms']:.3f} ms/step, {stats['tok_s']:.1f} tok/s")
+    for mode in order[1:]:
+        assert (outs[mode] == outs["eager sync"]).all(), f"phase 5: {mode} tokens differ"
+    strategies = set()
+    for w in apps["graph sync"].models.values():
+        for s in w.attention_strategies.values():
+            strategies |= set(s)
+    assert strategies == {"cte_flash_kernel", "tkg_fused_kernel_stacked"}, strategies
+    gen = np.stack([outs["graph sync"][b, n:n + NEW] for b, n in enumerate(lengths)])
+    assert gen.shape == (B, NEW) and (gen >= 0).all() and (gen < arch.vocab_size).all()
+
+    # decode steps of each mode: K steps unprofiled with the host spans (the
+    # step's wall and host split), then the same under the profiler (device
+    # busy); idle = 1 - busy / the unprofiled wall. Sync modes repeat the
+    # step after the run; the async mode chains K steps from a fresh
+    # prefill, reading each step's tokens one step late as generate() does
+    nxt = np.array([[int(outs["graph sync"][b, n + NEW - 1])] for b, n in enumerate(lengths)],
+                   "int32")
+    pos = (lengths + NEW - 1).astype("int32")[:, None]
+    lti = np.zeros((B,), "int32")
+    K = 16
+    profiles = {}
+    for mode in order:
+        app = apps[mode]
+        if mode == "graph async":
+            def chain(app=app):
+                out = app.forward(ids.astype("int32"),
+                                  np.tile(np.arange(P, dtype="int32"), (B, 1)),
+                                  last_token_index=(lengths - 1).astype("int32"))
+                hfa.extract_next_tokens(out)
+                ring, pending = hfa._HostTokens(), []
+
+                def steps():
+                    nonlocal out
+                    for k in range(K):
+                        out = app.token_gen_device(out["next_inputs"],
+                                                   int(lengths.max()) + 1 + k)
+                        pending.append(ring.push(out["tokens"]))
+                        if len(pending) >= 2:
+                            ring.get(pending.pop(0))
+                    ring.get(pending.pop())
+                return steps
+
+            wall, split = host_window(torch, chain(), 1)
+            _, busy, by_kernel, prof_split = profiled_call(torch, chain())
+            wall, busy = wall / K, busy / K
+            split = {k: v / K for k, v in split.items()}
+        else:
+            def step(app=app):
+                hfa.extract_next_tokens(app.forward(nxt, pos, last_token_index=lti))
+
+            wall, split = host_window(torch, step, K)
+            _, busy, by_kernel, prof_split = profiled_call(torch, step)
+        profiles[mode] = dict(wall_ms=wall, busy_ms=busy, idle_pct=100 * (1 - busy / wall),
+                              host_split_ms=split, top=by_kernel[:8])
+        log(f"[slice-16L] {mode} decode step ({K} unprofiled): wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms (idle {100 * (1 - busy / wall):.1f}%); host ms: {split_line(split)}")
+
     # the prefill dispatch again under the profiler (it rewrites the same
-    # rows of the cache): the flash kernel's time by name, which must be the
-    # TMA + wgmma body's
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        inner(*first[0][0], **first[0][1])
-        torch.cuda.synchronize()
-        pre_wall_ms = (time.perf_counter() - t) * 1e3
-    pre_by_kernel = sorted(((k.self_device_time_total / 1e3, k.key)
-                            for k in prof.key_averages()), reverse=True)
-    pre_attn = attention_ms(pre_by_kernel)
-    assert list(pre_attn) == ["prefill_wgmma_kernel"], f"phase 5 prefill ran {pre_attn}"
-    pre_busy = sum(t for t, _ in pre_by_kernel)
-    log(f"[slice-16L] profiled prefill: wall {pre_wall_ms:.2f} ms, device busy {pre_busy:.3f} ms; "
-        f"flash prefill kernels {pre_attn['prefill_wgmma_kernel']:.3f} ms over {L} launches; top: "
-        + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in pre_by_kernel[:6]))
-    prefill_ms = times[0] * 1e3
-    decode_ms = float(np.mean(times[1:steps + 1])) * 1e3
-    tok_s = B * steps / sum(times[1:steps + 1])
-    log(f"[slice-16L] {card}: prefill {prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/step, "
-        f"{tok_s:.1f} tok/s (B={B}, prompt {P}, {NEW} new)")
-    return counts, dict(prefill_ms=prefill_ms, decode_ms_per_step=decode_ms, decode_tok_s=tok_s,
-                        profiled_step_wall_ms=wall_ms, profiled_step_busy_ms=busy_ms,
-                        profiled_step_top=by_kernel[:10], profiled_prefill_wall_ms=pre_wall_ms,
-                        profiled_prefill_busy_ms=pre_busy, profiled_prefill_attention_ms=pre_attn,
-                        profiled_prefill_top=pre_by_kernel[:10], card=card)
+    # rows of the cache), eager and through its graph: the flash kernel's
+    # time by name (the TMA + wgmma body's), the rest by kind of kernel
+    prefill = {}
+    for mode in ("eager sync", "graph sync"):
+        app = apps[mode]
+        wall, busy, by_kernel, split = profiled_call(torch, lambda: hfa.extract_next_tokens(app.forward(
+            ids.astype("int32"), np.tile(np.arange(P, dtype="int32"), (B, 1)),
+            last_token_index=(lengths - 1).astype("int32"))))
+        attn = attention_ms(by_kernel)
+        assert list(attn) == ["prefill_wgmma_kernel"], f"phase 5 prefill ran {attn}"
+        groups = by_group(by_kernel)
+        prefill[mode] = dict(wall_ms=wall, busy_ms=busy, attention_ms=attn, by_group_ms=groups,
+                             host_split_ms=split, top=by_kernel[:12])
+        log(f"[slice-16L] {mode} profiled prefill: wall {wall:.2f} ms, device busy {busy:.3f} ms"
+            f"; flash prefill {attn['prefill_wgmma_kernel']:.3f} ms over {L} launches; by kind: "
+            + "; ".join(f"{g} {t:.3f}" for g, t in groups.items()) + "; top: "
+            + "; ".join(f"{name[:50]} {t:.3f}" for t, name in by_kernel[:8]))
+    summary = {mode: {k: float(np.mean([r[k] for r in runs[mode]])) for k in runs[mode][0]}
+               for mode in order}
+    log(f"[slice-16L] {card}: " + "; ".join(
+        f"{mode} prefill {v['prefill_ms']:.2f} ms decode {v['decode_ms']:.3f} ms/step "
+        f"{v['tok_s']:.1f} tok/s" for mode, v in summary.items()))
+    stats = dict(card=card, runs=runs, mean=summary, profiled_decode_step=profiles,
+                 profiled_prefill=prefill,
+                 warmup={mode: app.warm_stats for mode, app in apps.items()},
+                 prefill_ms=summary["graph sync"]["prefill_ms"],
+                 decode_ms_per_step=summary["graph sync"]["decode_ms"],
+                 decode_tok_s=summary["graph sync"]["tok_s"])
+    return counts["graph sync"], stats
 
 
 # ---------------------------------------------------------------------------
@@ -1153,7 +1399,7 @@ MIXED_FLAGS = dict(mixed_dispatch=True, fused_qkv=True, qkv_kernel_enabled=True,
 
 
 def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
-                    num_blocks, chunk, block_tkg, device, params=None, mixed=False):
+                    num_blocks, chunk, block_tkg, device, params=None, mixed=False, graphs=True):
     tcfg = TorchConfig(
         tp_degree=1, batch_size=1, ctx_batch_size=1, tkg_batch_size=slots, seq_len=seq_len,
         max_context_length=ctx_len, dtype=dtype, on_device_sampling_config=ODSC(),
@@ -1161,7 +1407,7 @@ def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, 
         pa_num_blocks=num_blocks, is_prefix_caching=True,
         chunked_prefill_config={"chunk_size": chunk},
         attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
-        attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=False,
+        attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=True,
         **(MIXED_FLAGS if mixed else {}),
     )
     cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
@@ -1173,8 +1419,9 @@ def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, 
                 return params
             return dense.random_params(arch, seed=0, device=device)
 
-    app = EngineApp("<random>", cfg, model_family=ml, device=device)
+    app = EngineApp("<random>", cfg, model_family=ml, device=device, graphs=graphs)
     app.load()
+    app.warm_stats = warm(app)
     return app, arch
 
 
@@ -1234,7 +1481,9 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
     prefix-prefill dispatch and the window decode 2 per decode dispatch.
     Mixed dispatch (4c): every step is at most one mixed dispatch, some step
     packs a prefill with decode rows, and the ragged, QKV and MLP launches
-    are exactly 2 per mixed dispatch, every other attention kernel 0.
+    are exactly 2 per mixed dispatch, every other attention kernel 0. The
+    card runs through the graphs, and again eagerly: the same streams, the
+    same launch counts and every dispatch's logits bit for bit.
     Returns the card run's launch counts and the worst logit difference."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
     from nxdi_tpu_torch.runtime.model_wrapper import (
@@ -1252,6 +1501,8 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
     cpu_app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **kw)
     gpu_app, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
                                  params=cpu_app.params, **kw)
+    eager_app, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
+                                   params=gpu_app.params, graphs=False, **kw)
     rng = np.random.default_rng(5)
     shared = rng.integers(1, arch.vocab_size, 256).tolist()
     prompts = [rng.integers(1, arch.vocab_size, n).tolist() for n in (300, 140)]
@@ -1314,6 +1565,14 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
         fn.launches = 0
     gpu_streams, gpu_logits, gpu_strats, disp, packs = drive(gpu_app)
     counts = {k: fn.launches for k, fn in kernels.items()}
+    for fn in kernels.values():
+        fn.launches = 0
+    eager_streams, eager_logits, eager_strats, eager_disp, _ = drive(eager_app)
+    eager_counts = {k: fn.launches for k, fn in kernels.items()}
+    assert eager_streams == gpu_streams, f"phase {phase}: graph and eager streams differ"
+    assert (eager_counts, eager_disp, eager_strats) == (counts, disp, gpu_strats), (
+        f"phase {phase}: eager {eager_counts} {eager_disp} vs graphs {counts} {disp}")
+    n_same = same_bits(torch, phase, gpu_logits, eager_logits)
     want = dict.fromkeys(kernels, 0)
     if mixed:
         want.update(ragged=L * disp[TAG_MIXED], qkv=L * disp[TAG_MIXED],
@@ -1336,35 +1595,22 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
         worst = max(worst, err)
         assert err <= LOGIT_TOL, f"phase {phase} dispatch {i}: logits differ by {err} > {LOGIT_TOL}"
     assert cpu_streams == gpu_streams, f"phase {phase}: CPU and card streams differ"
+    graphs = {tag: sorted(w.bucket_graphs) for tag, w in gpu_app.models.items()}
     log(f"[engine-2L{' mixed' if mixed else ''}] {len(cpu_logits)} dispatches compared, max "
         f"logit diff {worst:.3g} (tol {LOGIT_TOL}); streams identical; launches {counts} "
-        f"(dispatches {disp})")
+        f"(dispatches {disp}); graph replay = eager bit for bit over {n_same} dispatches; "
+        f"graphs by bucket {graphs}")
     return counts, worst
 
 
-def profile_step(torch, eng):
-    """One engine step under the profiler: (host wall ms, device busy ms,
-    kernels by device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    by_kernel = sorted(((k.self_device_time_total / 1e3, k.key) for k in prof.key_averages()),
-                       reverse=True)
-    return wall_ms, sum(t for t, _ in by_kernel), by_kernel
-
-
-def engine_full_depth(torch, np, mods, card, mixed=False):
+def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True):
     """Phases 5b and 5c: 16 layers, bf16, 8 slots; 16 requests with prompts
     of 200-992 tokens (prompt + 32 new tokens must fit the 1024-token decode
     window the prefix-prefill ladder sets), 8 of them sharing a 384-token
     prefix; 8 arrive at the start, then one per engine step. Split dispatch
     (5b) or one mixed dispatch per step through the ragged, QKV and MLP
-    kernels (5c)."""
+    kernels (5c); every bucket a CUDA graph, or (``graphs=False``) every
+    dispatch eager. Profiled steps carry the host split."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
     from nxdi_tpu_torch.runtime.model_wrapper import (
         TAG_CONTEXT_ENCODING,
@@ -1375,13 +1621,13 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
     L, NEW = 16, 32
-    tag = "[engine-16L mixed]" if mixed else "[engine-16L]"
+    tag = ("[engine-16L mixed" if mixed else "[engine-16L") + (" graphs]" if graphs else " eager]")
     phase = "5c" if mixed else "5b"
     t0 = time.perf_counter()
     app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
                                 slots=8, seq_len=2048, ctx_len=1024, num_blocks=136, chunk=512,
-                                block_tkg=True, device="cuda", mixed=mixed)
-    log(f"{tag} load + warmup {time.perf_counter() - t0:.1f} s")
+                                block_tkg=True, device="cuda", mixed=mixed, graphs=graphs)
+    log(f"{tag} load + warmup {time.perf_counter() - t0:.1f} s; {app.warm_stats}")
     rng = np.random.default_rng(17)
     shared = rng.integers(1, arch.vocab_size, 384).tolist()
     lens = rng.integers(200, 993, 16)
@@ -1447,6 +1693,7 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
     assert strats == strats_want, strats
     assert all(finite), f"phase {phase}: non-finite logits"
     assert len(outs) == 16 and all(len(o.token_ids) == NEW for o in outs)
+    del app.forward  # the finite check syncs: the steps below sync at their token fetch
     assert all(0 <= t < arch.vocab_size for o in outs for t in o.token_ids)
     hits = eng.prefix_cache.hits_n
     assert hits >= 1, f"phase {phase}: the shared prefix never hit"
@@ -1472,7 +1719,7 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
         before = dict(eng.dispatches)
         eng.add_request(shared + rng.integers(1, arch.vocab_size, 300).tolist(),
                         SamplingParams(max_new_tokens=2))
-        profiled["prefix_prefill"] = profile_step(torch, eng)
+        profiled["prefix_prefill"] = profiled_call(torch, eng.step)
         assert eng.dispatches.get(TAG_PREFIX_PREFILL, 0) == before.get(TAG_PREFIX_PREFILL, 0) + 1
         pre_attn = attention_ms(profiled["prefix_prefill"][2])
         assert "prefill_wgmma_kernel" in pre_attn and "prefill_tc_kernel" not in pre_attn, pre_attn
@@ -1481,14 +1728,19 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
         eng.add_request(rng.integers(1, arch.vocab_size, 200).tolist(),
                         SamplingParams(max_new_tokens=16))
         if mixed and i == 7:
-            profiled["packed"] = profile_step(torch, eng)
+            profiled["packed"] = profiled_call(torch, eng.step)
         else:
             eng.step()
     assert len(eng.scheduler.decodable()) == 8 and not eng.scheduler.waiting
-    profiled["decode"] = profile_step(torch, eng)
+    # decode-only steps: 4 unprofiled with the host spans (wall, host
+    # split), then one under the profiler (device busy)
+    decode_wall, decode_split = host_window(torch, eng.step, 4)
+    profiled["decode"] = profiled_call(torch, eng.step)
     eng.run()
     stats = dict(
-        card=card, wall_s=wall, tok_s=tok_s, ttft_p50_ms=float(np.percentile(ttft, 50)),
+        card=card, graphs=graphs, warmup=app.warm_stats,
+        streams=[o.token_ids for o in sorted(outs, key=lambda o: o.request_id)],
+        wall_s=wall, tok_s=tok_s, ttft_p50_ms=float(np.percentile(ttft, 50)),
         ttft_p95_ms=float(np.percentile(ttft, 95)), tpot_p50_ms=float(np.percentile(tpot, 50)),
         dispatches=disp, prefix_hits=hits, prefix_tokens_saved=eng.prefix_cache.tokens_saved_n,
     )
@@ -1496,17 +1748,23 @@ def engine_full_depth(torch, np, mods, card, mixed=False):
         stats["packed_vs_padded_by_bucket"] = {
             str(b): dict(dispatches=v[0], packed=v[1], padded=v[2])
             for b, v in sorted(buckets.items())}
-    for kind, (step_ms, busy_ms, by_kernel) in profiled.items():
+    for kind, (step_ms, busy_ms, by_kernel, split) in profiled.items():
         gemm = {}  # the port's GEMM kernels (phase 5c) by body
         for t, name in by_kernel:
             for body in gemm_bodies([name]):
                 key = body.split("<")[0]
                 gemm[key] = gemm.get(key, 0.0) + t
         attn = attention_ms(by_kernel)
+        if kind == "decode":  # the unprofiled steps' wall and split
+            step_ms, split = decode_wall, decode_split
         stats[f"profiled_{kind}_step"] = dict(
             wall_ms=step_ms, busy_ms=busy_ms, idle_pct=100 * (1 - busy_ms / step_ms),
             gemm_ms=sum(gemm.values()), gemm_ms_by_body=gemm, attention_ms_by_kernel=attn,
-            top=by_kernel[:10])
+            host_split_ms=split, by_group_ms=by_group(by_kernel), top=by_kernel[:10],
+            wall_from="unprofiled steps" if kind == "decode" else "the profiled step")
+        log(f"{tag} {kind} step host ms"
+            f"{' (4 unprofiled)' if kind == 'decode' else ' (under the profiler)'}: "
+            f"{split_line(split)}")
         log(f"{tag} profiled {kind} step: attention kernels {sum(attn.values()):.3f} ms ("
             + "; ".join(f"{k} {v:.3f}" for k, v in sorted(attn.items())) + ")")
         if gemm:
@@ -1566,25 +1824,34 @@ def main() -> int:
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
-    gc.collect()
-    engine_counts, engine_stats = engine_full_depth(torch, np, mods, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    mixed_counts, mixed_stats = engine_full_depth(torch, np, mods, card, mixed=True)
+    # phases 5b and 5c: through the graphs (the main path), then eagerly
+    engine = {}
+    for mixed in (False, True):
+        for graphs in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine[mixed, graphs] = engine_full_depth(torch, np, mods, card, mixed=mixed,
+                                                      graphs=graphs)
+    engine_counts, engine_stats = engine[False, True]
+    mixed_counts, mixed_stats = engine[True, True]
     counts = dict(counts, window_decode=engine_2l_counts["window_decode"],
                   paged_prefill=engine_counts["paged_prefill"],
                   paged_decode=engine_counts["paged_decode"],
                   **{k: mixed_counts[k] for k in ("ragged", "qkv", "mlp")})
     engine_stats["phase_4b_max_logit_err"] = engine_logit_err
     mixed_stats["phase_4c_max_logit_err"] = mixed_logit_err
-    log("[engine-16L] split (5b) vs mixed (5c), " + card + ": " + "; ".join(
-        f"{k} {engine_stats[k]:.3f} vs {mixed_stats[k]:.3f}"
-        for k in ("tok_s", "ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms"))
-        + "; profiled decode step busy {:.3f} vs {:.3f} ms, idle {:.1f} vs {:.1f} %".format(
-            engine_stats["profiled_decode_step"]["busy_ms"],
-            mixed_stats["profiled_decode_step"]["busy_ms"],
-            engine_stats["profiled_decode_step"]["idle_pct"],
-            mixed_stats["profiled_decode_step"]["idle_pct"]))
+    engine_stats["eager"], mixed_stats["eager"] = engine[False, False][1], engine[True, False][1]
+    keys = ("tok_s", "ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms")
+    for name, st in (("split (5b)", engine_stats), ("mixed (5c)", mixed_stats)):
+        ea = st["eager"]
+        log(f"[engine-16L] {name} graphs vs eager, {card}: " + "; ".join(
+            f"{k} {st[k]:.3f} vs {ea[k]:.3f}" for k in keys)
+            + "; profiled decode step wall {:.3f} vs {:.3f} ms, busy {:.3f} vs {:.3f} ms, "
+            "idle {:.1f} vs {:.1f} %; streams {}".format(
+                st["profiled_decode_step"]["wall_ms"], ea["profiled_decode_step"]["wall_ms"],
+                st["profiled_decode_step"]["busy_ms"], ea["profiled_decode_step"]["busy_ms"],
+                st["profiled_decode_step"]["idle_pct"], ea["profiled_decode_step"]["idle_pct"],
+                "identical" if st["streams"] == ea["streams"] else "differ"))
 
     sources = {
         "prefill": ("flash_attention_prefill", "nxdi_tpu_torch/csrc/flash_prefill.cu",
@@ -1617,7 +1884,8 @@ def main() -> int:
             entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": counts[key], **{f: row[f] for f in fields}}
             entry.update({f: row[f] for f in ("M", "point", "body", "ms_min", "ms_max",
-                                              "earlier_ms", "mma_sync_ms") if f in row})
+                                              "earlier_ms", "mma_sync_ms", "launch_floor_ms",
+                                              "graph_ready_ms") if f in row})
             summary.append(entry)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -93,7 +93,6 @@ class ChunkedPrefillConfig:
 # that means "off", so a saved config of the ported path loads unchanged
 _NOT_PORTED = {
     "padding_side": "right",
-    "async_mode": False,
     "is_continuous_batching": False,
     "device_loop": False,
     "decode_steps_per_dispatch": 1,
@@ -162,6 +161,8 @@ class TorchConfig:
         self.qkv_kernel_enabled = kwargs.pop("qkv_kernel_enabled", False)
         self.mlp_kernel_enabled = kwargs.pop("mlp_kernel_enabled", False)
         self.skip_warmup = kwargs.pop("skip_warmup", False)
+        # the device-resident decode loop of generate() (hf_adapter)
+        self.async_mode = kwargs.pop("async_mode", False)
 
         for key, default in _NOT_PORTED.items():
             if key in kwargs and kwargs.pop(key) != default:
@@ -196,6 +197,11 @@ class TorchConfig:
             raise ValueError("is_prefix_caching requires is_block_kv_layout")
         if self.is_chunked_prefill and not self.is_block_kv_layout:
             raise ValueError("chunked prefill requires is_block_kv_layout")
+        if self.async_mode and self.is_block_kv_layout:
+            raise NotImplementedError(
+                "async_mode with is_block_kv_layout: the device-resident loop "
+                "carries no block tables; it runs on the contiguous cache"
+            )
         if self.mixed_dispatch and not self.is_block_kv_layout:
             raise ValueError(
                 "mixed_dispatch requires is_block_kv_layout (the packed rows "

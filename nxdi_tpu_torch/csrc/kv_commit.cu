@@ -13,7 +13,10 @@
 //
 // Bound: 2*L*B*KV*T*D elements read and written (262 KB per decode step at
 // the Llama-3.2-1B slice shape) — well under a microsecond of bandwidth, so
-// the launch itself is the cost.
+// the launch itself is the cost. empty_launch_kernel measures that floor: a
+// kernel that does nothing, launched at the commit's shape (L * B blocks of
+// 128 threads). Inside the step's CUDA graph the launch costs no host time.
+
 #include "common.cuh"
 
 namespace {
@@ -43,7 +46,15 @@ __global__ void kv_commit_kernel(char* kc, char* vc, const char* kr, const char*
   }
 }
 
+__global__ void empty_launch_kernel() {}
+
 }  // namespace
+
+// An empty kernel of `blocks` x `threads`: the device time of a launch alone.
+extern "C" int nxdi_empty_launch(int blocks, int threads, void* stream) {
+  empty_launch_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
 
 extern "C" int nxdi_kv_commit_rows(void* kc, void* vc, const void* kr, const void* vr,
                                    const int* slots, const int* lines, int L, int B, int Bc,

@@ -91,6 +91,7 @@ struct PrefillArgs {
   const int* row_ids;   // ragged: (Sq,) row of each packed token, -1 = padding
   const int* tok_pos;   // ragged: (Sq,) position of each packed token in its row
   const int* tiles;     // ragged: the q tiles to run, one block each
+  const int* n_listed;  // ragged: how many of them (on the device; n_tiles is the grid)
   int H, KV, Sq, Sk, D, nb, bs, R, n_tiles;
   int one_row;          // ragged: every listed tile holds one row's tokens (and padding)
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
@@ -110,6 +111,18 @@ struct RaggedMeta {
 };
 
 __host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Ragged: whether this block lies past the listed tiles. The grid may be
+// larger than the list (a launch sized from shapes, as a CUDA graph holds
+// it); such a block exits at once.
+template <int MODE>
+__device__ __forceinline__ bool past_listed_tiles(const PrefillArgs& a) {
+  if constexpr (MODE == KV_RAGGED) {
+    return (int)blockIdx.x >= *a.n_listed;
+  } else {
+    return false;
+  }
+}
 
 // First token of the block's q tile: the listed tile (ragged) or blockIdx.x.
 template <int MODE>
@@ -253,6 +266,7 @@ __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
+  if (past_listed_tiles<MODE>(a)) return;
   const int q0 = q_tile_start<MODE>(a, kBQ);
   int qs = 0;
   if constexpr (MODE != KV_RAGGED) qs = a.q_start[b];
@@ -440,6 +454,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
+  if (past_listed_tiles<MODE>(a)) return;
   const int q0 = q_tile_start<MODE>(a, kTcBQ);
   int qs = 0;
   if constexpr (MODE != KV_RAGGED) qs = a.q_start[b];

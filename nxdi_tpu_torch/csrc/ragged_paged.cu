@@ -35,6 +35,14 @@
 //    rounds to q's dtype; it also writes the zeros of padding tokens and of
 //    tokens with no visible key outside the direct tiles.
 // The JAX function is one launch; this is a split launch plus a combine.
+//
+// The kernels read the list's counts from its header on the device, so the
+// launch sizes need not be the list's: a block past the direct tiles exits,
+// and the split and combine blocks walk their lists with a stride of the
+// grid. The wrapper sizes each launch either from the host counts (one block
+// per entry) or from the bucket's shapes alone (ragged_paged_attention.py::
+// ragged_capacity), which is what a CUDA graph of the mixed step holds: the
+// same graph then serves every step of the bucket, whatever its plan.
 #include "prefill_kernel.cuh"
 
 namespace {
@@ -47,6 +55,14 @@ constexpr int kItemInts = 7;    // token, row, kv begin, kv end, chunk, chunks, 
 constexpr int kCombInts = 3;    // token, first slot, chunks
 constexpr int kPlanHeader = 8;  // T, direct tiles, items, slots, combine tokens, chunk, 0, 0
 
+// the plan's sections, from the counts in its header
+__device__ __forceinline__ const int* plan_items(const int* plan) {
+  return plan + kPlanHeader + plan[1];
+}
+__device__ __forceinline__ const int* plan_comb(const int* plan) {
+  return plan_items(plan) + (long long)plan[2] * kItemInts;
+}
+
 struct SplitArgs {
   const void* q;
   const void* kc;
@@ -54,7 +70,7 @@ struct SplitArgs {
   void* out;
   const int* tok_pos;
   const int* bt;     // (R, nb) tables, -1 = hole
-  const int* items;  // (n_items, kItemInts)
+  const int* plan;   // the work list: its header counts the items
   float* acc;        // (slots, H, D) partial sums
   float* ml;         // (slots, H, 2) partial max and denominator
   int H, KV, D, nb, bs;
@@ -98,7 +114,10 @@ __global__ void __launch_bounds__(kSplitWarps * 32) ragged_split_kernel(SplitArg
   T* sV = reinterpret_cast<T*>(reinterpret_cast<char*>(smem) + split_float_bytes(D)) +
           warp * 32 * D;  // this warp's V tile [32][D]
 
-  const int* it = a.items + (long long)blockIdx.x * kItemInts;
+  const int n_items = a.plan[2];
+  const int* items = plan_items(a.plan);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+  const int* it = items + (long long)item * kItemInts;
   const int t = it[0], row = it[1], lo = it[2], hi = it[3], c = it[4], nch = it[5],
             slot0 = it[6];
   const int pos = a.tok_pos[t];
@@ -257,24 +276,28 @@ __global__ void __launch_bounds__(kSplitWarps * 32) ragged_split_kernel(SplitArg
         }
       }
     }
-    __syncthreads();  // the next pass overwrites sQ and the merge area
+    __syncthreads();  // the next pass (or item) overwrites sQ and the merge area
   }
+  }  // items
 }
 
-// One warp per (token to combine, q head), 8 to a block (grid: tokens x
-// H / 8): every lane forms the chunks' weights exp(m_k - M) and the
-// denominator in chunk order (the loads are the same for all lanes), then
-// merges its columns' partial sums in chunk order. A token with no chunk
-// writes 0.
+// One warp per (token to combine, q head), 8 to a block (grid: tokens, or
+// fewer walked with a stride, x H / 8): every lane forms the chunks'
+// weights exp(m_k - M) and the denominator in chunk order (the loads are
+// the same for all lanes), then merges its columns' partial sums in chunk
+// order. A token with no chunk writes 0.
 template <typename T>
-__global__ void __launch_bounds__(256) ragged_combine_kernel(const int* comb, const float* acc,
+__global__ void __launch_bounds__(256) ragged_combine_kernel(const int* plan, const float* acc,
                                                              const float* ml, void* out_, int H,
                                                              int D, long long osh, long long oss,
                                                              float v_scale) {
-  const int* e = comb + (long long)blockIdx.x * kCombInts;
-  const int t = e[0], first = e[1], nch = e[2];
   const int h = blockIdx.y * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (h >= H) return;
+  const int n_comb = plan[4];
+  const int* comb = plan_comb(plan);
+  for (int entry = blockIdx.x; entry < n_comb; entry += gridDim.x) {
+  const int* e = comb + (long long)entry * kCombInts;
+  const int t = e[0], first = e[1], nch = e[2];
   float M = NXDI_NEG_INF;
 #pragma unroll 8
   for (int k = 0; k < nch; ++k) M = fmaxf(M, ml[2 * ((long long)(first + k) * H + h)]);
@@ -295,6 +318,7 @@ __global__ void __launch_bounds__(256) ragged_combine_kernel(const int* comb, co
     }
     out[h * osh + t * oss + d] = from_f32<T>(A * inv);
   }
+  }  // tokens to combine
 }
 
 template <typename T, int DMAX, int RMAX>
@@ -314,10 +338,9 @@ cudaError_t launch_split_rows(const SplitArgs& a, int n_items, int rows, cudaStr
 }
 
 // The split kernel over the items (one token each: its G q heads a pass),
-// then the combine.
+// then the combine; n_items and n_comb are the grids.
 template <typename T>
-cudaError_t run_split(const SplitArgs& a, int n_items, const int* comb, int n_comb,
-                      cudaStream_t stream) {
+cudaError_t run_split(const SplitArgs& a, int n_items, int n_comb, cudaStream_t stream) {
   if (n_items > 0) {
     const int G = a.H / a.KV;
     const cudaError_t err = a.D <= 64 ? launch_split_rows<T, 64>(a, n_items, G, stream)
@@ -326,8 +349,8 @@ cudaError_t run_split(const SplitArgs& a, int n_items, const int* comb, int n_co
   }
   if (n_comb > 0) {
     const dim3 grid(n_comb, (a.H + 7) / 8);
-    ragged_combine_kernel<T><<<grid, 256, 0, stream>>>(comb, a.acc, a.ml, a.out, a.H, a.D, a.osh,
-                                                       a.oss, a.v_scale);
+    ragged_combine_kernel<T><<<grid, 256, 0, stream>>>(a.plan, a.acc, a.ml, a.out, a.H, a.D,
+                                                       a.osh, a.oss, a.v_scale);
     return cudaGetLastError();
   }
   return cudaSuccess;
@@ -337,10 +360,13 @@ cudaError_t run_split(const SplitArgs& a, int n_items, const int* comb, int n_co
 
 // `plan`: the device copy of ragged_plan's int32 work list — a header of
 // kPlanHeader ints, the direct tiles, the items, then the tokens to combine;
-// the counts come from the host copy. `split`: the plan is ragged_plan's
-// split one (each direct tile holds one row), so R is not bounded.
-// `ws`: slots x H x (D + 2) floats of scratch for the partials (acc, then
-// m and l), null without slots.
+// the kernels read its counts there. n_direct, n_items and n_comb are the
+// three launches' grids (at least 1 where the list may hold any: a block
+// past its list exits, and the split and combine blocks stride over
+// theirs); n_slots is the scratch's size in partial slots, at least the
+// list's. `split`: the plan is ragged_plan's split one (each direct tile
+// holds one row), so R is not bounded. `ws`: n_slots x H x (D + 2) floats
+// of scratch for the partials (acc, then m and l), null without slots.
 extern "C" int nxdi_ragged_paged(int dtype, const void* q, const void* kc, const void* vc,
                                  void* out, const int* row_ids, const int* tok_pos, const int* bt,
                                  const int* plan, int n_direct, int n_items, int n_slots,
@@ -351,12 +377,11 @@ extern "C" int nxdi_ragged_paged(int dtype, const void* q, const void* kc, const
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tiles = plan + kPlanHeader;
-  const int* items = tiles + n_direct;
-  const int* comb = items + (long long)n_items * kItemInts;
   if (n_direct > 0) {
     PrefillArgs a{};
     a.q = q; a.k = kc; a.v = vc; a.out = out;
     a.row_ids = row_ids; a.tok_pos = tok_pos; a.bt = bt; a.tiles = tiles; a.n_tiles = n_direct;
+    a.n_listed = plan + 1;
     a.one_row = split;
     a.H = H; a.KV = KV; a.Sq = T; a.Sk = NB * bs; a.D = D; a.nb = NB; a.bs = bs; a.R = R;
     // pool (total_slots, KV, D): a head's rows sit KV * D elements apart
@@ -371,13 +396,13 @@ extern "C" int nxdi_ragged_paged(int dtype, const void* q, const void* kc, const
   if (n_items == 0 && n_comb == 0) return (int)cudaSuccess;
   SplitArgs sa{};
   sa.q = q; sa.kc = kc; sa.vc = vc; sa.out = out; sa.tok_pos = tok_pos; sa.bt = bt;
-  sa.items = items;
+  sa.plan = plan;
   sa.acc = ws;
   sa.ml = ws ? ws + (long long)n_slots * H * D : nullptr;
   sa.H = H; sa.KV = KV; sa.D = D; sa.nb = NB; sa.bs = bs;
   sa.qsh = qsh; sa.qss = qss; sa.osh = osh; sa.oss = oss;
   sa.scale = scale; sa.v_scale = v_scale;
-  if (dtype == NXDI_F32) return (int)run_split<float>(sa, n_items, comb, n_comb, s);
-  if (dtype == NXDI_BF16) return (int)run_split<__nv_bfloat16>(sa, n_items, comb, n_comb, s);
+  if (dtype == NXDI_F32) return (int)run_split<float>(sa, n_items, n_comb, s);
+  if (dtype == NXDI_BF16) return (int)run_split<__nv_bfloat16>(sa, n_items, n_comb, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -186,6 +186,25 @@ class BlockKVLayout:
         return kk.to(spec.torch_dtype), vv.to(spec.torch_dtype), kv_pos
 
 
+def drop_slot(num_blocks: int, block_size: int) -> int:
+    """The slot every dropped write of a fixed-length scatter lands in: the
+    first of one extra block past the ``num_blocks`` the block manager hands
+    out, which no block table reaches and nothing reads."""
+    return num_blocks * block_size
+
+
+def scatter_indices_fixed(slot_mapping, drop: int) -> Dict[str, np.ndarray]:
+    """The inputs of :meth:`BlockKVLayout.update` at a fixed length, one
+    entry per token of the padded (b, S) slot mapping: every token writes,
+    and a token with a negative slot (a padding row or lane, a position
+    without a block) writes the ``drop`` slot (:func:`drop_slot`) instead of
+    nothing. The reachable pool ends as after :func:`scatter_indices`; the
+    lengths depend on the shape only, so one CUDA graph serves every step."""
+    flat = np.asarray(slot_mapping).reshape(-1)
+    return {"write_index": np.arange(flat.size, dtype=np.int64),
+            "write_slots": np.where(flat >= 0, flat, drop).astype(np.int64)}
+
+
 def scatter_indices(slot_mapping) -> Dict[str, np.ndarray]:
     """The inputs of :meth:`BlockKVLayout.update` for a host slot mapping
     (b, S): the flat indices of the tokens whose slot is >= 0 and those

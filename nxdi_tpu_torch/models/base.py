@@ -514,6 +514,7 @@ def causal_lm_forward(
     on_device_sampling: bool = True,
     do_sample: bool = False,
     mixed_rows: bool = False,
+    return_next_inputs: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One submodel forward. ``batch``: input_ids (B,S), position_ids (B,S),
     last_token_index (B,), sampling_params (B,3), and on the paged pool
@@ -525,7 +526,13 @@ def causal_lm_forward(
     the scheduler's R rows live along the packed token axis, tagged by
     ``mixed_row_ids``; ``last_token_index`` (R,) holds the packed index of
     each row's newest token and ``sampling_params`` is (R, 3), so the
-    lm_head and sampling tail runs with R as its batch."""
+    lm_head and sampling tail runs with R as its batch.
+
+    ``return_next_inputs`` (with on-device sampling; the device-resident
+    decode loop): outputs also carry ``next_inputs``, the next
+    token-generation step's inputs on the device — this step's tokens, the
+    position after each row's last token, last_token_index 0 and the same
+    sampling params (the JAX package's ``next_inputs``)."""
     input_ids = batch["input_ids"]
     position_ids = batch["position_ids"]
     compute_dtype = to_torch_dtype(arch.dtype)
@@ -564,4 +571,15 @@ def causal_lm_forward(
         outputs["tokens"] = tokens[:, None]
     if output_logits or not on_device_sampling:
         outputs["logits"] = logits[..., : arch.vocab_size - arch.vocab_pad]
+    if return_next_inputs and on_device_sampling:
+        lti = batch["last_token_index"]
+        outputs["next_inputs"] = {
+            # a copy: the next step rewrites its inputs in place
+            "input_ids": outputs["tokens"].to(torch.int32, copy=True),
+            # the next token goes one past each row's current last position
+            "position_ids": (torch.gather(position_ids, 1, lti.long()[:, None]) + 1)
+            .to(torch.int32),
+            "last_token_index": torch.zeros_like(lti),
+            "sampling_params": batch["sampling_params"],
+        }
     return outputs, cache

@@ -40,6 +40,8 @@ SIGNATURES = {
     "nxdi_flash_decode_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 9
     + [_F, _I, _I, _I, _I, _P, _P],
     "nxdi_kv_commit_rows": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL, _LL, _P],
+    # blocks, threads, stream: an empty kernel (a launch's floor)
+    "nxdi_empty_launch": [_I, _I, _P],
     "nxdi_flash_decode_window": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 7
     + [_F, _I, _I, _I, _I, _P, _P],
     "nxdi_paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4

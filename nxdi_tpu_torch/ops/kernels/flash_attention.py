@@ -528,7 +528,7 @@ def gather_pages(cache_l, block_table, block_size):
     B = bt.shape[0]
     offs = torch.arange(block_size, device=bt.device)
     slots = (bt[:, :, None] * block_size + offs).reshape(B, -1).clamp(0, cache_l.shape[0] - 1)
-    live = torch.repeat_interleave(bt >= 0, block_size, dim=1)
+    live = (bt >= 0)[:, :, None].expand(B, bt.shape[1], block_size).reshape(B, -1)
     return cache_l[slots].transpose(1, 2), live
 
 

@@ -110,3 +110,12 @@ def kv_commit_rows(
 
 
 kv_commit_rows.launches = 0
+
+
+def empty_launch(blocks: int, threads: int, device) -> None:
+    """Launch a kernel that does nothing, ``blocks`` x ``threads``, on the
+    card: the floor under :func:`kv_commit_rows`' device time at its launch
+    shape (L * B blocks of 128 threads). A measuring aid; it counts nothing."""
+    device = torch.device(device)
+    _build.check(_build.library().nxdi_empty_launch(int(blocks), int(threads),
+                                                     _build.stream_ptr(device)), "empty_launch")

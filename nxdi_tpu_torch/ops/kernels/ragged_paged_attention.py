@@ -23,6 +23,11 @@ by a combine kernel (no atomics: the same bits on every call). The serving engin
 dispatch, where the tags are still on the host (``MixedModelWrapper``), and
 hands it to every layer; a caller that passes none gets one built here.
 
+The kernels read the plan's counts from its header on the card, so a launch
+may be sized from shapes alone: :func:`ragged_capacity` gives a bucket's
+largest plan, and a plan padded to it (:func:`pad_plan`) runs in a launch
+of that size, which is what the mixed step's CUDA graph holds.
+
 The wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernels or raises, and counts each call in
 ``ragged_paged_attention.launches``. Tags and tables may arrive on the host
@@ -49,6 +54,12 @@ from nxdi_tpu_torch.ops.kernels.flash_attention import (
 # tiles keep a 64-bit mask of the rows present. The split plan gives direct
 # tiles only to tiles of one row, so it takes any number of rows.
 MAX_ROWS = 64
+
+# a launch sized from shapes (ragged_capacity) gives the split kernel at
+# most this many blocks (items x kv heads) and the combine at most COMB_GRID
+# blocks along its tokens; they stride over the rest of their lists
+SPLIT_BLOCKS = 4 * 132
+COMB_GRID = 4 * 132
 
 # the work list's layout (shared with csrc/ragged_paged.cu)
 # T, direct tiles, items, partial slots, tokens to combine, chunk, 0, 0
@@ -81,6 +92,9 @@ class RaggedPlan:
     chunk: int
     flat: object
     split: bool = True
+    # sized from shapes (ragged_capacity): the counts above are the bucket's
+    # largest, the real ones are in the flat list's header on the card
+    static: bool = False
 
     def to(self, device) -> "RaggedPlan":
         flat = self.flat
@@ -103,6 +117,19 @@ class RaggedPlan:
         f = self.flat
         return f if isinstance(f, np.ndarray) else f.cpu().numpy()
 
+    @property
+    def flat_len(self) -> int:
+        return PLAN_HEADER + self.n_direct + self.n_items * ITEM_INTS + self.n_comb * COMB_INTS
+
+    def grids(self, kv_heads: int):
+        """The launch sizes: (direct tiles, split blocks along the items,
+        combine blocks along the tokens). A plan sized from shapes caps the
+        last two (the kernels stride over the rest)."""
+        if not self.static:
+            return self.n_direct, self.n_items, self.n_comb
+        return (self.n_direct, min(self.n_items, max(1, SPLIT_BLOCKS // kv_heads)),
+                min(self.n_comb, COMB_GRID))
+
 
 def _choose_chunk(lengths, kv_heads: int) -> int:
     """The largest chunk (a multiple of CHUNK_UNIT, up to CHUNK_MAX) that
@@ -113,6 +140,37 @@ def _choose_chunk(lengths, kv_heads: int) -> int:
             -(-n // (chunk * 2)) for n in lengths) >= MIN_SPLIT_BLOCKS:
         chunk *= 2
     return chunk
+
+
+def ragged_capacity(T: int, num_rows: int, kv_width: int, kv_heads: int) -> RaggedPlan:
+    """The largest split plan :func:`ragged_plan` can give for a stream of
+    ``T`` tokens, from shapes only (``flat`` is None). Direct tiles: every
+    tile that can hold more than DIRECT_MIN_TOKENS tokens. Tokens to
+    combine: every token. Items: :func:`_choose_chunk`
+    keeps doubling the chunk while ``kv_heads`` x the items of twice the
+    chunk reach MIN_SPLIT_BLOCKS, so either the chunk stopped below
+    CHUNK_MAX with fewer than ``2 * (MIN_SPLIT_BLOCKS - 1) // kv_heads``
+    items, or it is CHUNK_MAX and each token has at most ``kv_width /
+    CHUNK_MAX`` (rounded up) chunks. Partial slots: at most one per item."""
+    items = max(2 * ((MIN_SPLIT_BLOCKS - 1) // kv_heads), T * -(-kv_width // CHUNK_MAX))
+    direct = T // TILE + (T % TILE > DIRECT_MIN_TOKENS)
+    return RaggedPlan(T=T, n_direct=direct, n_items=items, n_slots=items, n_comb=T,
+                      chunk=0, flat=None, static=True)
+
+
+def pad_plan(plan: RaggedPlan, cap: RaggedPlan) -> np.ndarray:
+    """``plan``'s flat list in a buffer of ``cap``'s length (the rest 0):
+    what the kernels read when launched at ``cap``'s sizes."""
+    if (plan.T != cap.T or not plan.split or plan.n_direct > cap.n_direct
+            or plan.n_items > cap.n_items or plan.n_slots > cap.n_slots
+            or plan.n_comb > cap.n_comb):
+        raise ValueError(f"ragged plan (T {plan.T}: {plan.n_direct} tiles, {plan.n_items} "
+                         f"items, {plan.n_slots} slots, {plan.n_comb} to combine) exceeds "
+                         f"the bucket's capacity {cap}")
+    out = np.zeros(cap.flat_len, np.int32)
+    host = plan._host()
+    out[:host.size] = host
+    return out
 
 
 def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
@@ -285,13 +343,17 @@ def ragged_paged_attention(
     if not plan.split and R > MAX_ROWS:
         raise ValueError(f"{name}: {R} rows exceed the kernel's {MAX_ROWS}")
     flat = plan.to(dev).flat
+    if flat.numel() < plan.flat_len:
+        raise ValueError(f"{name}: the plan's list holds {flat.numel()} ints, its sizes "
+                         f"need {plan.flat_len}")
     ws = (torch.empty(plan.n_slots * H * (D + 2), dtype=torch.float32, device=dev)
           if plan.n_slots else None)
     out = torch.empty((1, T, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
+    n_direct, n_items, n_comb = plan.grids(KV)
     err = _build.library().nxdi_ragged_paged(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        rid.data_ptr(), qp.data_ptr(), bt.data_ptr(), flat.data_ptr(), plan.n_direct,
-        plan.n_items, plan.n_slots, plan.n_comb, int(plan.split),
+        rid.data_ptr(), qp.data_ptr(), bt.data_ptr(), flat.data_ptr(), n_direct,
+        n_items, plan.n_slots, n_comb, int(plan.split),
         None if ws is None else ws.data_ptr(),
         H, KV, T, R, NB, block_size, D, q.stride(1), q.stride(2), out.stride(1), out.stride(2),
         float(scale), float(v_scale), _build.stream_ptr(dev),

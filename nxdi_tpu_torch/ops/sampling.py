@@ -15,6 +15,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from nxdi_tpu_torch.runtime.host_spans import span
+
 NEG_INF = -30000.0
 
 SAMPLING_NOT_PORTED = (
@@ -118,7 +120,8 @@ def sample(logits: torch.Tensor, sampling_params, do_sample: bool = False) -> to
 def extract_next_tokens(outputs) -> np.ndarray:
     """(B,) next tokens: the on-device ``tokens`` when the forward sampled,
     else the host-side argmax of the last position's ``logits``."""
-    if "tokens" in outputs:
-        return outputs["tokens"][:, 0].cpu().numpy()
-    logits = outputs["logits"].float().cpu().numpy()
-    return logits[:, -1, :].argmax(axis=-1).astype(np.int64)
+    with span("token_fetch"):
+        if "tokens" in outputs:
+            return outputs["tokens"][:, 0].cpu().numpy()
+        logits = outputs["logits"].float().cpu().numpy()
+        return logits[:, -1, :].argmax(axis=-1).astype(np.int64)

@@ -5,7 +5,13 @@
 on its device), the KV cache (contiguous, or the paged pool under
 ``is_block_kv_layout``), and one :class:`ModelWrapper` per submodel.
 It runs on the card unless the caller asks for the CPU: with no ``device``
-it uses ``"cuda"`` and raises when no GPU is present.
+it uses ``"cuda"`` and raises when no GPU is present. On the card every
+bucket of every submodel runs as a CUDA graph, all in one memory pool
+(``graphs=False`` runs them eagerly instead: for side-by-side runs and
+debugging). Under ``async_mode`` with on-device sampling the context and
+token-generation forwards emit the next step's inputs on the device, and
+:meth:`token_gen_device` dispatches from them (the JAX package's
+device-resident decode loop).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from nxdi_tpu_torch.config import InferenceConfig
 from nxdi_tpu_torch.kvcache.kv_cache import BlockKVCacheSpec, init_kv_cache, reset_kv_cache
 from nxdi_tpu_torch.runtime import autobucketing
 from nxdi_tpu_torch.runtime.device import resolve_device
+from nxdi_tpu_torch.runtime.host_spans import span
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
     TAG_MIXED,
@@ -46,8 +53,12 @@ class TorchModelForCausalLM:
 
     _model_cls = None
 
-    def __init__(self, model_path: str, config: InferenceConfig, model_family=None, device=None):
+    def __init__(self, model_path: str, config: InferenceConfig, model_family=None, device=None,
+                 graphs: bool = True):
         self.device = resolve_device(device)
+        self.graphs = graphs
+        # every graph of this app, in one pool (made at load on the card)
+        self.graph_pool = None
         self.model_path = model_path
         self.config = config
         self.tpu_config = config.tpu_config
@@ -77,19 +88,22 @@ class TorchModelForCausalLM:
             on_device_sampling=odsc is not None,
             do_sample=bool(odsc and odsc.do_sample),
         )
+        # the device-resident loop: each step emits the next step's inputs
+        # (only meaningful with on-device sampling)
+        nxt = dict(return_next_inputs=bool(tc.async_mode and odsc is not None))
         self.models[TAG_CONTEXT_ENCODING] = ModelWrapper(
             TAG_CONTEXT_ENCODING, self.config, arch, inv_freq,
             batch_size=tc.ctx_batch_size, n_active_tokens=0,
             buckets=autobucketing.context_encoding_buckets(self.config),
             attend_to_cache=False, device=self.device,
-            forward_kwargs=dict(gather_last_token=True, **fwd),
+            forward_kwargs=dict(gather_last_token=True, **fwd, **nxt),
         )
         self.models[TAG_TOKEN_GENERATION] = ModelWrapper(
             TAG_TOKEN_GENERATION, self.config, arch, inv_freq,
             batch_size=tc.tkg_batch_size, n_active_tokens=1,
             buckets=autobucketing.token_generation_buckets(self.config),
             attend_to_cache=True, device=self.device,
-            forward_kwargs=dict(gather_last_token=False, **fwd),
+            forward_kwargs=dict(gather_last_token=False, **fwd, **nxt),
         )
         if tc.is_prefix_caching or tc.is_chunked_prefill:
             # the new chunk sees the cached prefix through the block table
@@ -112,16 +126,32 @@ class TorchModelForCausalLM:
                 forward_kwargs=dict(gather_last_token=True, mixed_rows=True, **fwd),
             )
 
+        for w in self.models.values():
+            w.graphs = self.graphs
+
     @property
     def mixed_supported(self) -> bool:
         return TAG_MIXED in self.models
+
+    @property
+    def async_supported(self) -> bool:
+        """The JAX package's rule: async_mode, on-device sampling, and one
+        batch size for context encoding and token generation."""
+        tc = self.tpu_config
+        return (
+            tc.async_mode
+            and tc.on_device_sampling_config is not None
+            and tc.ctx_batch_size == tc.tkg_batch_size
+        )
 
     def _cache_spec(self):
         arch = self.family.build_arch(self.config)
         tc = self.tpu_config
         if tc.is_block_kv_layout:
+            # one block past those the block manager hands out: the drop
+            # target of the fixed-length paged writes (kv_cache.drop_slot)
             return BlockKVCacheSpec(
-                num_layers=arch.num_layers, num_blocks=tc.pa_num_blocks,
+                num_layers=arch.num_layers, num_blocks=tc.pa_num_blocks + 1,
                 block_size=tc.pa_block_size, num_kv_heads=arch.num_kv_heads,
                 head_dim=arch.head_dim, dtype=arch.dtype,
             )
@@ -134,11 +164,17 @@ class TorchModelForCausalLM:
             self.enable_models()
         self.params = _to_device(self.build_params(), self.device)
         self.kv_cache = init_kv_cache(self._cache_spec(), self.device)
+        if self.device.type == "cuda" and self.graphs:
+            self.graph_pool = torch.cuda.graph_pool_handle()
+            for w in self.models.values():
+                w.graph_pool = self.graph_pool
         if not self.tpu_config.skip_warmup:
             self.warmup()
         self.is_loaded = True
 
     def warmup(self) -> float:
+        """One dispatch per bucket of every submodel (on the card: its eager
+        run, then its graph's capture). Returns the seconds taken."""
         t0 = time.perf_counter()
         for wrapper in self.models.values():
             for batch in wrapper.warmup_batches():
@@ -164,5 +200,18 @@ class TorchModelForCausalLM:
         if submodel not in self.models:
             raise KeyError(f"submodel {submodel!r} is not built (available: {sorted(self.models)})")
         batch = {"input_ids": input_ids, "position_ids": position_ids, **kwargs}
-        outputs, self.kv_cache = self.models[submodel].forward(self.params, self.kv_cache, batch)
+        with span("dispatch"):
+            outputs, self.kv_cache = self.models[submodel].forward(
+                self.params, self.kv_cache, batch)
+        return outputs
+
+    def token_gen_device(self, device_batch, total_len: int):
+        """The async hot path: a token-generation step from inputs already on
+        the device (the previous step's ``next_inputs``); ``total_len``
+        (host-tracked) picks the bucket. Nothing syncs. The outputs live in
+        the graph pool: copy what must outlive the next dispatch."""
+        with span("dispatch"):
+            outputs, self.kv_cache = self.models[TAG_TOKEN_GENERATION].forward_device(
+                self.params, self.kv_cache, device_batch, total_len
+            )
         return outputs

@@ -45,6 +45,7 @@ from nxdi_tpu_torch.kvcache.kv_cache import copy_kv_blocks
 from nxdi_tpu_torch.ops.sampling import SAMPLING_NOT_PORTED, extract_next_tokens
 from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
 from nxdi_tpu_torch.runtime.block_manager import BlockSpaceManager
+from nxdi_tpu_torch.runtime.host_spans import span
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
     TAG_MIXED,
@@ -216,6 +217,10 @@ class InferenceEngine:
         """One engine iteration: prefill work, then one batched decode (or
         both in one mixed forward). Returns the requests that FINISHED during
         this step."""
+        with span("engine.step"):
+            return self._step()
+
+    def _step(self) -> List[RequestOutput]:
         finished: List[RequestOutput] = []
         if self.mixed:
             self._step_mixed(finished)

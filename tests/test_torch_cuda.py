@@ -520,3 +520,195 @@ def test_paged_prefill_wgmma_body(gen, monkeypatch, D, bs):
     monkeypatch.setattr(fa, "paged_prefill_body", lambda *a: "mma")
     assert _max_err(fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw), want) <= \
         PAGED_PREFILL_BF16_TOL
+
+
+# ---------------------------------------------------------------------------
+# the ragged launch sized from shapes (the mixed step's graph holds it)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("stream", list(RAGGED_STREAMS))
+def test_ragged_shape_sized_launch_matches_per_call(gen, stream):
+    """The plan padded to the bucket's capacity, launched at the capacity's
+    sizes (counts read on the card), gives the per-call launch's bits."""
+    T, rows = RAGGED_STREAMS[stream]
+    H, KV, D, bs, NB = 32, 8, 64, 128, 16
+    R = max(s for s, _, _ in rows) + 1
+    bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
+    kc_, vc_ = (_randn(gen, R * NB * bs, KV, D).to(torch.bfloat16) for _ in range(2))
+    q = _randn(gen, 1, T, H, D).to(torch.bfloat16).transpose(1, 2)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    cap = rpa.ragged_capacity(T, R, NB * bs, KV)
+    static = dataclasses.replace(cap, flat=torch.from_numpy(rpa.pad_plan(plan, cap)).cuda())
+    want = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs, plan=plan)
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs, plan=static)
+    assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# one CUDA graph per (submodel, bucket): replay against eager
+# ---------------------------------------------------------------------------
+
+# a 2-layer bf16 Llama at narrow widths (head dim 64: the wgmma bodies)
+SMALL_LLAMA = dict(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=64, vocab_size=512, num_hidden_layers=2)
+
+
+def _card_app(graphs, params=None, **tc):
+    from nxdi_tpu_torch.config import OnDeviceSamplingConfig, TorchConfig
+    from nxdi_tpu_torch.models import dense
+    from nxdi_tpu_torch.models.llama import modeling_llama as ml
+    from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM
+
+    kw = dict(tp_degree=1, dtype="bfloat16", on_device_sampling_config=OnDeviceSamplingConfig(),
+              attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, output_logits=True)
+    kw.update(tc)
+    cfg = ml.LlamaInferenceConfig(TorchConfig(**kw), **dict(ml.LLAMA_3_2_1B, **SMALL_LLAMA))
+    arch = ml.build_arch(cfg)
+
+    class App(TorchModelForCausalLM):
+        def build_params(self):
+            return params if params is not None else dense.random_params(arch, seed=0,
+                                                                         device="cuda")
+
+    app = App("<random>", cfg, model_family=ml, graphs=graphs)
+    app.load()
+    return app
+
+
+STATIC = dict(batch_size=2, seq_len=256, max_context_length=64, enable_bucketing=True,
+              context_encoding_buckets=[32, 64], token_generation_buckets=[64, 128, 256])
+ENGINE = dict(batch_size=1, ctx_batch_size=1, tkg_batch_size=4, seq_len=512,
+              max_context_length=256, enable_bucketing=True, is_block_kv_layout=True,
+              pa_block_size=16, pa_num_blocks=64, is_prefix_caching=True,
+              chunked_prefill_config={"chunk_size": 64}, attn_block_tkg_kernel_enabled=True)
+MIXED = dict(ENGINE, mixed_dispatch=True, fused_qkv=True, qkv_kernel_enabled=True,
+             mlp_kernel_enabled=True)
+
+
+def _logged(app):
+    log = []
+    inner = app.forward
+
+    def fwd(*a, **k):
+        out = inner(*a, **k)
+        log.append({key: v.clone() for key, v in out.items() if key != "next_inputs"})
+        return out
+
+    app.forward = fwd
+    return log
+
+
+def _counts():
+    from nxdi_tpu_torch.ops.kernels import launch_counters
+
+    return {fn.__name__: fn.launches for fn in launch_counters()}
+
+
+def _drive(app, kind):
+    """The static generate path (every bucket of both submodels), or the
+    engine (prefix sharing, a chunked prompt, decode rows): per-dispatch
+    outputs, the launch counts, and the tokens."""
+    from nxdi_tpu_torch.generation.hf_adapter import HuggingFaceGenerationAdapter
+    from nxdi_tpu_torch.ops.kernels import launch_counters
+    from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
+
+    for fn in launch_counters():
+        fn.launches = 0
+    log = _logged(app)
+    rng = np.random.default_rng(3)
+    if kind == "static":
+        ids = rng.integers(1, 512, (2, 40)).astype(np.int64)
+        mask = np.ones_like(ids, dtype=np.int32)
+        mask[1, 29:] = 0
+        ids[1, 29:] = 0
+        toks = HuggingFaceGenerationAdapter(app).generate(ids, attention_mask=mask,
+                                                          max_new_tokens=120)
+    else:
+        eng = InferenceEngine(app, SchedulerConfig(prefix_cache=True,
+                                                   cache_aware_admission=False))
+        shared = rng.integers(1, 512, 48).tolist()
+        prompts = [shared + rng.integers(1, 512, 20).tolist(), rng.integers(1, 512, 150).tolist(),
+                   shared + rng.integers(1, 512, 7).tolist(), rng.integers(1, 512, 9).tolist()]
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=12)) for p in prompts[:2]]
+        eng.step()
+        reqs += [eng.add_request(p, SamplingParams(max_new_tokens=12)) for p in prompts[2:]]
+        outs = {o.request_id: o.token_ids for o in eng.run()}
+        toks = [outs[r.request_id] for r in reqs]
+    torch.cuda.synchronize()
+    return log, _counts(), toks
+
+
+@pytest.mark.parametrize("kind", ["static", "engine", "mixed"])
+def test_graph_replay_equals_eager(gen, kind):
+    """Every dispatch of a graph app (each bucket captured at its first
+    dispatch, replayed after) against an eager app with the same params:
+    the same tokens, every output bit for bit, the same launch counts; every
+    bucket the traffic reached ran as a graph."""
+    tc = {"static": STATIC, "engine": ENGINE, "mixed": MIXED}[kind]
+    graphs = _card_app(True, **tc)
+    eager = _card_app(False, params=graphs.params, **tc)
+    g_log, g_counts, g_toks = _drive(graphs, "static" if kind == "static" else "engine")
+    e_log, e_counts, e_toks = _drive(eager, "static" if kind == "static" else "engine")
+    assert np.array_equal(np.asarray(g_toks), np.asarray(e_toks))
+    assert len(g_log) == len(e_log) > 0
+    for i, (a, b) in enumerate(zip(g_log, e_log)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (i, key)
+    assert g_counts == e_counts and sum(g_counts.values()) > 0
+    for w in graphs.models.values():
+        assert all(bg.graph is not None for bg in w.bucket_graphs.values())
+        assert set(w.bucket_graphs) == set(w.buckets)  # warmup captured every bucket
+
+
+@pytest.mark.parametrize("skip_warmup", [False, True])
+def test_replay_after_restaging_and_other_buckets(gen, skip_warmup):
+    """A token-generation bucket replayed after its staging buffer was
+    refilled with other rows and another bucket (sharing its static inputs)
+    ran in between: the same bits as its first replay and as eager. With
+    skip_warmup each bucket is captured at its first dispatch."""
+    graphs = _card_app(True, skip_warmup=skip_warmup, **STATIC)
+    eager = _card_app(False, params=graphs.params, skip_warmup=skip_warmup, **STATIC)
+    ids = np.array([[7], [11]], np.int32)
+    a = dict(last_token_index=np.zeros(2, np.int32))
+    outs = []
+    for app in (graphs, eager):
+        first = app.forward(ids, np.array([[10], [20]], np.int32), **a)["logits"].clone()
+        app.forward(ids[::-1].copy(), np.array([[100], [90]], np.int32), **a)  # bucket 128
+        again = app.forward(ids, np.array([[10], [20]], np.int32), **a)["logits"].clone()
+        assert torch.equal(first, again)
+        outs.append(again)
+    assert torch.equal(*outs)
+    assert graphs.models["token_generation_model"].last_bucket == 64
+
+
+def test_async_on_the_card_equals_sync(gen):
+    """async_mode's device-resident loop through the graphs: the sync
+    loop's tokens, and no H2D copy after the first step (the graph writes
+    its next inputs into the shared static inputs)."""
+    from nxdi_tpu_torch.generation.hf_adapter import HuggingFaceGenerationAdapter
+
+    sync = _card_app(True, **STATIC)
+    asyn = _card_app(True, params=sync.params, async_mode=True, **STATIC)
+    assert asyn.async_supported
+    ids = np.random.default_rng(5).integers(1, 512, (2, 33)).astype(np.int64)
+    outs = [HuggingFaceGenerationAdapter(app).generate(ids, max_new_tokens=100)
+            for app in (sync, asyn)]
+    assert np.array_equal(*outs)
+
+
+def test_failing_capture_names_submodel_and_bucket(gen, monkeypatch):
+    """A forward that cannot be captured (it syncs) raises, naming the
+    submodel and the bucket; nothing runs it eagerly instead."""
+    from nxdi_tpu_torch.runtime import model_wrapper as mw
+
+    inner = mw.base.causal_lm_forward
+
+    def syncing(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return inner(*a, **k)
+
+    monkeypatch.setattr(mw.base, "causal_lm_forward", syncing)
+    with pytest.raises(RuntimeError, match="context_encoding_model bucket 64: CUDA graph capture"):
+        _card_app(True, **STATIC)
