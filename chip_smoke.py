@@ -15,7 +15,11 @@ code is non-zero:
    across blocks (21 flushed calls: median, min, max) beside the earlier
    design (one chunk a row, forced through ``flash_attention.decode_chunk``);
    the KV commit beside an empty kernel at its launch shape (the launch's
-   floor).
+   floor). 3d: the key -> uniform function equal on the card and the CPU
+   over 10**5 keys; the sampler at V 128256, B 8 beside greedy argmax; the
+   fused decode with cache lines and the commit with lines, a frozen and a
+   duplicate lane, each against its plain version and beside its call
+   without lines.
 3b. The paged-decode, paged-prefill and window-decode kernels the same way,
    at the serving engine's shapes (block 128, and block 16 for correctness):
    both decodes beside one chunk a row, the paged prefill by the kernel that
@@ -48,6 +52,14 @@ code is non-zero:
 4c. The same with mixed dispatch (one packed forward per step, fused QKV,
    the QKV, MLP and ragged kernels): identical streams, logits within 1e-4,
    a step that packs a prefill with decode rows, exact launch counts.
+4d. The contiguous continuous-batching engine at full width, 2 layers,
+   float32: 1-step, K-step and device-loop decode, greedy, identical
+   streams on the CPU, the card's graphs and the card eagerly (EOS and
+   length finishes, interleaved arrivals), 1-step logits within 1e-4,
+   exact launch counts; sampled on the card: K-step windows = the chained
+   1-step async loop, the K-step and loop engines = the 1-step engine
+   under one key schedule, twice; the deterministic sampler's CPU and card
+   streams.
 5. The slice at full depth (16 layers), bfloat16, batch 8, 1024-token
    prompts, three ways in turns (eager sync, graph sync, graph async:
    ``async_mode``'s device-resident loop): identical tokens, launch counts
@@ -64,6 +76,14 @@ code is non-zero:
    counts, tok/s, TTFT, TPOT, packed vs padded tokens per bucket and
    profiled steps (with the port's GEMM time by body), printed beside
    phase 5b's, graphs beside eager.
+5d. The device-resident decode family at full depth (16 layers, bf16,
+   batch 8): generate() with 8 decode steps per dispatch on phase 5's
+   prompts, greedy (phase 5's tokens) and sampled (the sampled async loop's
+   tokens), beside phase 5's graph async and the sampled async loop; the contiguous continuous-batching engine over phase 5b's request
+   set, 1-step, K-step (ladder 2, 4, 8) and the device loop (fence 8):
+   identical streams, exact launch counts, tok/s, TTFT, TPOT, dispatches,
+   loop iterations per launch, a profiled decode step's busy/idle share and
+   host split, capture seconds and warmup memory.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -1012,14 +1032,16 @@ def check_mixed_kernels(torch, results):
 
 def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, dense, *,
              layers, dtype, batch, seq_len, ctx_len, device, params=None, output_logits=False,
-             graphs=True, async_mode=False):
+             graphs=True, async_mode=False, steps=1, do_sample=False):
     """The static slice's app, loaded and warmed up (every bucket captured
-    into its CUDA graph on the card unless ``graphs`` is False)."""
+    into its CUDA graph on the card unless ``graphs`` is False); ``steps`` > 1
+    adds the K-step submodel, ``do_sample`` the sampler."""
     tcfg = TorchConfig(
         tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
-        dtype=dtype, on_device_sampling_config=OnDeviceSamplingConfig(),
+        dtype=dtype, on_device_sampling_config=OnDeviceSamplingConfig(do_sample=do_sample),
         attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
         output_logits=output_logits, skip_warmup=True, async_mode=async_mode,
+        decode_steps_per_dispatch=steps,
     )
     cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
     arch = ml.build_arch(cfg)
@@ -1379,6 +1401,7 @@ def slice_full_depth(torch, np, mods, card):
         f"{mode} prefill {v['prefill_ms']:.2f} ms decode {v['decode_ms']:.3f} ms/step "
         f"{v['tok_s']:.1f} tok/s" for mode, v in summary.items()))
     stats = dict(card=card, runs=runs, mean=summary, profiled_decode_step=profiles,
+                 tokens=outs["graph sync"].tolist(),
                  profiled_prefill=prefill,
                  warmup={mode: app.warm_stats for mode, app in apps.items()},
                  prefill_ms=summary["graph sync"]["prefill_ms"],
@@ -1782,6 +1805,576 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: the device-resident decode family's kernels and sampler
+# ---------------------------------------------------------------------------
+
+# the sampler's point (phase 3d): Llama-3.2-1B's vocabulary, batch 8, the
+# default candidate bound; keys drawn over 10**5 (seed, counter) pairs
+SAMPLER_V, SAMPLER_B, SAMPLER_TOPK, SAMPLER_KEYS = 128256, 8, 256, 100_000
+
+
+def check_decode_family(torch, np, results):
+    """Phase 3d: the key -> uniform function on the card against the CPU bit
+    for bit over 10**5 keys; the sampler at V 128256, B 8 (device time per
+    call beside greedy argmax; card and CPU tokens equal on one key); the
+    stacked fused decode with the line operand (rows reading cache lines,
+    one line twice) against the gathered plain version, timed beside the
+    same call without lines; the commit with cache lines, a frozen lane
+    (-1) and a duplicate padding lane (row 0's line, slot and rows) against
+    the plain version, timed beside the commit without lines."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops import sampling as so
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    keys = torch.from_numpy(np.random.default_rng(3).integers(0, 2 ** 32, (SAMPLER_KEYS, 2)))
+    u_cpu = so.uniform_from_key(keys, SAMPLER_B)
+    u_gpu = so.uniform_from_key(keys.to(dev), SAMPLER_B).cpu()
+    assert torch.equal(u_cpu, u_gpu), "phase 3d: key -> uniform differs between CPU and card"
+    mean, var = u_cpu.mean().item(), u_cpu.var().item()
+    assert abs(mean - 0.5) < 2e-3 and abs(var - 1 / 12) < 2e-3, (mean, var)
+    log(f"[sampler] key -> uniform: card = CPU bit for bit over {SAMPLER_KEYS} keys x "
+        f"{SAMPLER_B} rows; mean {mean:.5f} var {var:.5f}")
+
+    logits = randn((SAMPLER_B, SAMPLER_V), torch.bfloat16).float() * 4  # bf16 values tie
+    sp = torch.tensor([[50, 0.9, 0.8]] * SAMPLER_B, dtype=torch.float32, device=dev)
+    key = torch.tensor([17, 3], device=dev)
+    got = so.sample(logits, sp, rng=key, do_sample=True, global_topk=SAMPLER_TOPK)
+    want = so.sample(logits.cpu(), sp.cpu(), rng=key.cpu(), do_sample=True,
+                     global_topk=SAMPLER_TOPK)
+    assert torch.equal(got.cpu(), want), f"phase 3d: sampled tokens {got} vs CPU {want}"
+    times, _, _ = traced_times(torch, lambda: so.sample(logits, sp, rng=key, do_sample=True,
+                                                        global_topk=SAMPLER_TOPK),
+                               DECODE_CALLS, flush)
+    greedy, _, _ = traced_times(torch, lambda: so.greedy_sample(logits), DECODE_CALLS, flush)
+    sampler = dict(kernel="sampler", V=SAMPLER_V, B=SAMPLER_B, global_topk=SAMPLER_TOPK,
+                   ms=spread(times)[0], ms_min=min(times), ms_max=max(times),
+                   greedy_ms=spread(greedy)[0], greedy_min=min(greedy), greedy_max=max(greedy),
+                   keys_checked=SAMPLER_KEYS)
+    log(f"[sampler] V {SAMPLER_V} B {SAMPLER_B} global_topk {SAMPLER_TOPK}: sample "
+        f"{sampler['ms']:.4f} ms ({sampler['ms_min']:.4f}-{sampler['ms_max']:.4f}) beside greedy "
+        f"argmax {sampler['greedy_ms']:.4f} ms; card tokens = CPU tokens")
+
+    # the fused decode and the commit at phase 3's point (B 8, H 32, KV 8,
+    # D 64, 2048 slots, 16 layers), bf16, with cache lines
+    B, H, KV, D, S, L = 8, 32, 8, 64, 2048, 16
+    G, es, dt = H // KV, 2, torch.bfloat16
+    ks, vs = randn((L, B, KV, S, D), dt), randn((L, B, KV, S, D), dt)
+    qd = randn((B, 1, H, D), dt).transpose(1, 2)
+    kn = randn((B, 1, KV, D), dt).transpose(1, 2)
+    vn = randn((B, 1, KV, D), dt).transpose(1, 2)
+    qpos = torch.tensor([[1024 + 37 * b] for b in range(B)], device=dev, dtype=torch.int32)
+    qpos[7, 0] = 300  # a frozen row: its pinned position, nothing special to the kernel
+    lines = torch.tensor([3, 3, 0, 7, 1, 5, 2, 6], device=dev, dtype=torch.int32)
+    li = 5
+    sel = lines.long()
+    tol = TOL[("decode", "bfloat16")]
+
+    def call():
+        return fa.flash_attention_decode_fused_stacked(qd, ks, vs, kn, vn, qpos, li, lines=lines)
+
+    def plain():
+        return fa.flash_attention_decode_fused_plain(qd, ks[li][sel], vs[li][sel], kn, vn, qpos)
+
+    out = call()
+    torch.cuda.synchronize()
+    err = (out.float() - plain().float()).abs().max().item()
+    assert err <= tol, f"phase 3d: decode with lines err {err} > {tol}"
+    assert torch.equal(call(), out), "phase 3d: decode with lines, a second call gave other bits"
+    times, _, _ = traced_times(torch, call, DECODE_CALLS, flush, kernel=DECODE_KERNELS)
+    no_lines, _, _ = traced_times(
+        torch, lambda: fa.flash_attention_decode_fused_stacked(qd, ks, vs, kn, vn, qpos, li),
+        DECODE_CALLS, flush, kernel=DECODE_KERNELS)
+    kcat = torch.cat([ks[li][sel], kn], dim=2).repeat_interleave(G, dim=1)
+    vcat = torch.cat([vs[li][sel], vn], dim=2).repeat_interleave(G, dim=1)
+    slot = torch.arange(S + 1, device=dev)
+    mask = ((slot[None, :] < qpos) | (slot[None, :] == S))[:, None, None, :]
+    lib_ms = measure(torch, lambda: F.scaled_dot_product_attention(qd, kcat, vcat, attn_mask=mask),
+                     n=DECODE_CALLS, flush=flush)
+    plain_ms = measure(torch, plain, flush=flush)
+    visible = int(qpos[:, 0].sum().item())
+    bms, by = bound_ms((2 * KV * D * (visible + B) + 2 * B * H * D) * es, 4 * H * D * (visible + B),
+                       "bfloat16")
+    ms, lo, hi = spread(times)
+    results.append(dict(kernel="decode", dtype="bfloat16", point="cache lines", max_abs_err=err,
+                        tol=tol, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                        earlier_ms=spread(no_lines)[0], share_of_bound=bms / ms))
+    log(f"[kernels] decode bfloat16 with cache lines {lines.tolist()}: err {err:.3g} kernel "
+        f"{ms:.4f} ms ({lo:.4f}-{hi:.4f}); without lines {spread(no_lines)[0]:.4f} ms; plain "
+        f"{plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+    del kcat, vcat
+
+    # the commit of a K-step / loop body: lines, a frozen lane, and a
+    # padding lane that repeats row 0 (its line, slot and rows)
+    kr, vr = randn((L, B, KV, 1, D), dt), randn((L, B, KV, 1, D), dt)
+    kr[:, 7], vr[:, 7] = kr[:, 0], vr[:, 0]
+    slots = qpos.clone()
+    slots[4, 0] = -1  # frozen
+    clines = torch.tensor([3, 1, 0, 7, 2, 5, 6, 3], device=dev, dtype=torch.int32)
+    slots[7, 0] = slots[0, 0]  # the padding lane: row 0's line and slot
+    k_ref, v_ref = ks.clone(), vs.clone()
+    kc.kv_commit_rows_plain(k_ref, v_ref, kr, vr, slots, clines)
+    kc.kv_commit_rows(ks, vs, kr, vr, slots, clines)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, k_ref) and torch.equal(vs, v_ref), "phase 3d: commit with lines"
+    times, _, _ = traced_times(torch, lambda: kc.kv_commit_rows(ks, vs, kr, vr, slots, clines),
+                               DECODE_CALLS, flush, kernel="kv_commit_kernel")
+    no_lines, _, _ = traced_times(torch, lambda: kc.kv_commit_rows(ks, vs, kr, vr, slots),
+                                  DECODE_CALLS, flush, kernel="kv_commit_kernel")
+    plain_ms = measure(torch, lambda: kc.kv_commit_rows_plain(ks, vs, kr, vr, slots, clines),
+                       flush=flush)
+    valid = (slots[:, 0] >= 0).nonzero()[:, 0]
+    cl, sl, zero = clines[valid].long(), slots[valid, 0].long(), torch.zeros_like(valid)
+
+    def library_commit():
+        ks[:, cl, :, sl] = kr[:, valid, :, zero]
+        vs[:, cl, :, sl] = vr[:, valid, :, zero]
+
+    lib_ms = measure(torch, library_commit, flush=flush)
+    bms, by = bound_ms(2 * 2 * L * int(valid.numel()) * KV * D * es, 0, "bfloat16")
+    ms, lo, hi = spread(times)
+    results.append(dict(kernel="commit", dtype="bfloat16", point="cache lines", max_abs_err=0.0,
+                        tol=0.0, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                        earlier_ms=spread(no_lines)[0]))
+    log(f"[kernels] commit bfloat16 with cache lines, a frozen and a duplicate lane: exact; "
+        f"kernel {ms:.4f} ms ({lo:.4f}-{hi:.4f}); without lines {spread(no_lines)[0]:.4f} ms; "
+        f"plain {plain_ms:.4f} index_put {lib_ms:.4f} bound {bms:.5f} ({by})")
+    del ks, vs, k_ref, v_ref, scratch
+    torch.cuda.empty_cache()
+    return sampler
+
+
+# ---------------------------------------------------------------------------
+# phases 4d and 5d: contiguous continuous batching, K-step windows, the loop
+# ---------------------------------------------------------------------------
+
+# the sampled rows of phases 4d and 5d
+SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8)
+
+
+def make_cb_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
+                device, params=None, graphs=True, steps=1, loop=False, fence=0,
+                do_sample=False, deterministic=False, output_logits=False):
+    """A contiguous continuous-batching app (slot = cache line): the K-step
+    submodel when ``steps`` > 1, the device loop when ``loop``; its
+    context-encoding batch is the decode batch (the JAX package's rule for
+    both), loaded and warmed up."""
+    tcfg = TorchConfig(
+        tp_degree=1, batch_size=slots, seq_len=seq_len, max_context_length=ctx_len, dtype=dtype,
+        on_device_sampling_config=ODSC(do_sample=do_sample, deterministic=deterministic),
+        enable_bucketing=True, is_continuous_batching=True, decode_steps_per_dispatch=steps,
+        device_loop=loop, device_loop_fence=fence, attn_kernel_enabled=True,
+        attn_tkg_kernel_enabled=True, output_logits=output_logits, skip_warmup=True,
+    )
+    cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
+    arch = ml.build_arch(cfg)
+
+    class CBApp(App):
+        def build_params(self):
+            if params is not None:
+                return params
+            return dense.random_params(arch, seed=0, device=device)
+
+    app = CBApp("<random>", cfg, model_family=ml, device=device, graphs=graphs)
+    app.load()
+    app.warm_stats = warm(app)
+    return app, arch
+
+
+def cb_counts(eng, L):
+    """The launches a contiguous engine's dispatches stand for: L prefills
+    and L routed cache writes (the commit kernel) per context encoding; L
+    fused decodes and one commit per decode step (1-step dispatches, the
+    K-step windows' rungs, the loop's iterations)."""
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+
+    n_cte = eng.dispatches[TAG_CONTEXT_ENCODING]
+    steps = eng.dispatches[TAG_TOKEN_GENERATION] + eng.multistep_steps + eng.loop_iterations
+    return {"prefill": L * n_cte, "decode": L * steps, "commit": L * n_cte + steps}
+
+
+def run_cb(app, prompts, params_of, arrivals=None, logits=None, seed=0, sched=None):
+    """Drive a contiguous engine over ``prompts``: ``arrivals[i]`` is the
+    engine step before which request i arrives (all at the start by
+    default); each dispatch's live-row logits go to ``logits`` when it is a
+    list. Returns (streams by request, the engine)."""
+    import numpy as np
+
+    from nxdi_tpu_torch.serving import InferenceEngine, SchedulerConfig
+
+    if logits is not None:
+        inner = app.forward
+
+        def fwd(*a, **k):
+            out = inner(*a, **k)
+            b = np.asarray(a[0]).shape[0]
+            logits.append(out["logits"][:b, -1, :].float().cpu())
+            return out
+
+        app.forward = fwd
+    for fn in attention_kernels().values():
+        fn.launches = 0
+    eng = InferenceEngine(app, sched or SchedulerConfig(), seed=seed)
+    arrivals = arrivals or [0] * len(prompts)
+    reqs, outs, step = [None] * len(prompts), [], 0
+    while eng.has_work() or any(r is None for r in reqs):
+        for i, a in enumerate(arrivals):
+            if reqs[i] is None and a <= step:
+                reqs[i] = eng.add_request(prompts[i], params_of(i))
+        outs += eng.step()
+        step += 1
+    if logits is not None:
+        del app.forward
+    got = {o.request_id: o.token_ids for o in outs}
+    return [got[r.request_id] for r in reqs], eng
+
+
+def cdf_gap(so, torch, logits, sp_row, token):
+    """How far u = 0.5 sits from the filtered CDF's boundary at ``token``
+    (deterministic sampling): the smallest |cdf - 0.5| over the candidates
+    next to where the CPU's CDF crosses 0.5."""
+    x = logits[None].float()
+    k = min(256, x.shape[-1])
+    vals, idx = so.top_k_lower_index_first(x, k)
+    sp = torch.tensor([sp_row], dtype=torch.float32)
+    rank = torch.arange(k, dtype=torch.float32)[None]
+    v = torch.where(rank < sp[:, :1], vals, torch.full_like(vals, so.NEG_INF)) / sp[:, 2:3]
+    p = so._softmax(v)
+    keep = (torch.cumsum(p, -1) - p) < sp[:, 1:2]
+    keep[:, 0] = True
+    cdf = torch.cumsum(so._softmax(torch.where(keep, v, torch.full_like(v, so.NEG_INF))), -1)
+    return (cdf - 0.5).abs().min().item()
+
+
+def cb_vs_cpu(torch, np, mods):
+    """Phase 4d: the contiguous engine at full width, 2 layers, float32, on
+    the CPU and the card, 1-step, K-step (ladder 2, 4, 8) and the device
+    loop, greedy: interleaved arrivals, EOS and length finishes; every
+    stream identical across the three modes, CPU and card, graphs and
+    eager; the 1-step dispatches' live-row logits within LOGIT_TOL; launch
+    counts exact. Sampled on the card: K-step windows of generate() equal
+    the chained 1-step async loop, the K-step and loop engines equal the
+    1-step engine under one key schedule, and a second run repeats the
+    streams. The
+    deterministic sampler (u = 0.5): CPU and card streams identical."""
+    from nxdi_tpu_torch.ops import sampling as so
+    from nxdi_tpu_torch.serving import SamplingParams, SchedulerConfig
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    L = 2
+    kw = dict(layers=L, dtype="float32", slots=4, seq_len=512, ctx_len=256)
+    cpu1, arch = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cpu", output_logits=True,
+                             **kw)
+    cpu_params = cpu1.params
+    gpu1, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda", params=cpu_params,
+                          output_logits=True, **kw)
+    gpu_params = gpu1.params
+    rng = np.random.default_rng(9)
+    reqs = [rng.integers(1, arch.vocab_size, n).tolist() for n in (120, 40, 200, 75, 150, 30)]
+    arrivals = [0, 0, 1, 3, 3, 6]
+    max_new = [12, 20, 7, 16, 9, 24]
+
+    def greedy(eos):
+        return lambda i: SamplingParams(max_new_tokens=max_new[i], eos_token_ids=eos.get(i, ()))
+
+    # the EOS ids: tokens the plain 1-step streams emit mid-run
+    probe, _ = run_cb(cpu1, reqs, greedy({}), arrivals)
+    eos = {1: (probe[1][5],), 3: (probe[3][2], 7)}
+    logs_cpu, logs_gpu = [], []
+    ref, _ = run_cb(cpu1, reqs, greedy(eos), arrivals, logs_cpu)
+    assert any(len(s) < max_new[i] for i, s in enumerate(ref)), "phase 4d: no EOS finish"
+    assert any(len(s) == max_new[i] for i, s in enumerate(ref)), "phase 4d: no length finish"
+    streams, counts, report = {}, {}, {}
+    for mode, extra in (("1-step", {}), ("K-step", dict(steps=8)), ("loop", dict(loop=True))):
+        apps = {
+            "cpu": cpu1 if mode == "1-step" else make_cb_app(
+                ml, TorchConfig, ODSC, App, dense, device="cpu", params=cpu_params, **kw,
+                **extra)[0],
+            "graphs": gpu1 if mode == "1-step" else make_cb_app(
+                ml, TorchConfig, ODSC, App, dense, device="cuda", params=gpu_params, **kw,
+                **extra)[0],
+            "eager": make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
+                                 params=gpu_params, graphs=False, output_logits=mode == "1-step",
+                                 **kw, **extra)[0],
+        }
+        for where, app in apps.items():
+            logs = logs_gpu if (mode, where) == ("1-step", "graphs") else None
+            s, eng = run_cb(app, reqs, greedy(eos), arrivals, logs)
+            streams[mode, where] = s
+            if where != "cpu":
+                got = {k: fn.launches for k, fn in attention_kernels().items()
+                       if k in ("prefill", "decode", "commit")}
+                want = cb_counts(eng, L)
+                assert got == want, f"phase 4d {mode} {where}: launches {got} != {want}"
+                counts[mode, where] = got
+            report[mode, where] = dict(eng.dispatches, loop_iterations=eng.loop_iterations,
+                                       multistep_steps=eng.multistep_steps)
+            assert s == ref, f"phase 4d: {mode} on {where} streams differ from the CPU 1-step"
+        strats = strategies_of(apps["graphs"])
+        assert "tkg_fused_kernel_stacked" in strats and "cte_flash_kernel" in strats, strats
+    worst = 0.0
+    assert len(logs_cpu) == len(logs_gpu), "phase 4d: dispatch counts differ"
+    for i, (lc, lg) in enumerate(zip(logs_cpu, logs_gpu)):
+        err = (lc - lg).abs().max().item()
+        worst = max(worst, err)
+        assert err <= LOGIT_TOL, f"phase 4d dispatch {i}: logits differ by {err} > {LOGIT_TOL}"
+    log(f"[cb-2L] greedy: 1-step, K-step and loop streams identical on the CPU, the card's "
+        f"graphs and eager; {len(logs_cpu)} 1-step dispatches' live-row logits within {worst:.3g} "
+        f"(tol {LOGIT_TOL}); launches {counts}; dispatches {report}")
+
+    # sampled, on the card: generate()'s K-step windows against its chained
+    # 1-step async loop (one key schedule), and the loop engine against the
+    # 1-step engine with aligned arrivals (equal budgets), twice
+    skw = dict(layers=L, dtype="float32", batch=2, seq_len=256, ctx_len=128, device="cuda",
+               params=gpu_params)
+    asy, _ = make_app(ml, TorchConfig, ODSC, App, dense, async_mode=True, do_sample=True, **skw)
+    ksa, _ = make_app(ml, TorchConfig, ODSC, App, dense, steps=8, do_sample=True, **skw)
+    ids, mask = prompts(np.random.default_rng(7), 2, 128, [128, 97], arch.vocab_size)
+    gen = dict(attention_mask=mask, max_new_tokens=24, seed=11, **SAMPLED)
+    a_out = Adapter(asy).generate(ids, **gen)
+    k_out = Adapter(ksa).generate(ids, **gen)
+    assert (a_out == k_out).all(), "phase 4d: K-step windows differ from the chained async loop"
+    s_kw = dict(kw, do_sample=True)
+    one, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda", params=gpu_params,
+                         **s_kw)
+    lp, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda", params=gpu_params,
+                        loop=True, fence=8, **s_kw)
+    kse, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda", params=gpu_params,
+                         steps=8, **s_kw)
+
+    def sampled(i):
+        return SamplingParams(max_new_tokens=20, **SAMPLED)
+
+    sched = SchedulerConfig(max_prefills_per_step=4)
+    s_one, _ = run_cb(one, reqs[:4], sampled, seed=5, sched=sched)
+    s_ks, e_ks = run_cb(kse, reqs[:4], sampled, seed=5, sched=sched)
+    s_loop, e_loop = run_cb(lp, reqs[:4], sampled, seed=5, sched=sched)
+    s_again, _ = run_cb(lp, reqs[:4], sampled, seed=5, sched=sched)
+    assert s_ks == s_one, "phase 4d: the sampled K-step engine differs from the 1-step engine"
+    assert s_loop == s_one, "phase 4d: the sampled loop differs from the 1-step engine"
+    assert s_again == s_loop, "phase 4d: a second sampled run differs"
+    assert len({tuple(s) for s in s_one}) == 4
+    log(f"[cb-2L] sampled {SAMPLED}: generate() K-step windows = chained 1-step async loop "
+        f"({k_out.shape[1] - ids.shape[1]} tokens x 2 rows); K-step engine "
+        f"({dict(e_ks.dispatches)}, {e_ks.multistep_steps} steps in windows) = loop engine "
+        f"(fence 8: {e_loop.loop_launches} launches, {e_loop.loop_iterations} iterations) = "
+        f"1-step engine over 4 requests x 20 tokens; a second run repeats them")
+
+    # the deterministic sampler (u = 0.5): CPU and card 1-step engines
+    det = dict(kw, do_sample=True, deterministic=True, output_logits=True)
+    dc, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cpu", params=cpu_params, **det)
+    dg, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda", params=gpu_params, **det)
+    lc, lg = [], []
+    d_cpu, _ = run_cb(dc, reqs, lambda i: SamplingParams(max_new_tokens=max_new[i], **SAMPLED),
+                      arrivals, lc)
+    d_gpu, _ = run_cb(dg, reqs, lambda i: SamplingParams(max_new_tokens=max_new[i], **SAMPLED),
+                      arrivals, lg)
+    if d_cpu != d_gpu:
+        # the first dispatch whose tokens differ: how close u = 0.5 sat to the
+        # CPU's CDF boundary there
+        row = (SAMPLED["top_k"], SAMPLED["top_p"], SAMPLED["temperature"])
+        for i, (a, b) in enumerate(zip(lc, lg)):
+            ta = so.sample(a, torch.tensor([row] * a.shape[0]), do_sample=True, deterministic=True)
+            tb = so.sample(b, torch.tensor([row] * b.shape[0]), do_sample=True, deterministic=True)
+            diff = (ta != tb).nonzero()
+            if diff.numel():
+                r = int(diff[0, 0])
+                gap = cdf_gap(so, torch, a[r], row, int(ta[r]))
+                log(f"[cb-2L] deterministic: dispatch {i} row {r} token {int(ta[r])} vs "
+                    f"{int(tb[r])}; CDF gap at the boundary {gap:.3g}")
+                assert gap < LOGIT_TOL, f"phase 4d: deterministic streams differ (gap {gap})"
+                break
+    log(f"[cb-2L] deterministic sampling (u = 0.5): CPU and card streams "
+        f"{'identical' if d_cpu == d_gpu else 'differ at a CDF tie'}")
+    return worst
+
+
+def cb_full_depth(torch, np, mods, card, slice_stats):
+    """Phase 5d at full depth (16 layers, bf16, batch 8). Static path:
+    generate() with decode_steps_per_dispatch=8 on phase 5's prompts, greedy
+    (its tokens must be phase 5's) and sampled (its tokens must be the
+    sampled async loop's, one seed): ms/step and tok/s beside phase 5's
+    graph async and the sampled async loop. The contiguous engine over phase 5b's request set
+    (16 requests of 200-992 prompt tokens, 32 new tokens each, seed 17; no
+    prefix cache on this layout), 1-step, K-step (ladder 2, 4, 8) and the
+    device loop (fence 8): tok/s, TTFT p50/p95, TPOT p50, dispatches per
+    submodel, loop iterations per launch, a profiled decode step's busy/idle
+    share and host split, capture seconds and warmup memory; exact launch
+    counts and the three modes' streams identical."""
+    from nxdi_tpu_torch.generation import hf_adapter as hfa
+    from nxdi_tpu_torch.serving import SamplingParams
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    B, P, NEW, L = 8, 1024, 32, 16
+    out = {}
+    common = dict(layers=L, dtype="bfloat16", batch=B, seq_len=2048, ctx_len=P, device="cuda")
+    apps = {}
+    t0 = time.perf_counter()
+    apps["K-step greedy"], arch = make_app(ml, TorchConfig, ODSC, App, dense, steps=8, **common)
+    params = apps["K-step greedy"].params
+    apps["K-step sampled"], _ = make_app(ml, TorchConfig, ODSC, App, dense, steps=8,
+                                         do_sample=True, params=params, **common)
+    apps["async sampled"], _ = make_app(ml, TorchConfig, ODSC, App, dense, async_mode=True,
+                                        do_sample=True, params=params, **common)
+    log(f"[cb-16L] static apps: load + warmup {time.perf_counter() - t0:.1f} s; "
+        + "; ".join(f"{k} {a.warm_stats}" for k, a in apps.items()))
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    gens = {}
+    for mode, app in apps.items():
+        gkw = {} if mode == "K-step greedy" else dict(seed=3, **SAMPLED)
+        stamps = []
+        inner = hfa.extract_next_tokens
+
+        def fetch(outputs):
+            toks = inner(outputs)
+            stamps.append(time.perf_counter())
+            return toks
+
+        hfa.extract_next_tokens = fetch
+        try:
+            torch.cuda.synchronize()
+            gens[mode] = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=NEW,
+                                               **gkw)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        finally:
+            hfa.extract_next_tokens = inner
+        decode_s = t_end - stamps[0]
+        out[mode] = dict(decode_ms=decode_s / (NEW - 1) * 1e3, tok_s=B * (NEW - 1) / decode_s)
+    assert (gens["K-step greedy"] == np.asarray(slice_stats["tokens"])).all(), \
+        "phase 5d: K-step generate() tokens differ from phase 5"
+    assert (gens["K-step sampled"] == gens["async sampled"]).all(), \
+        "phase 5d: sampled K-step windows differ from the sampled async loop"
+    ga = slice_stats["mean"]["graph async"]
+    log(f"[cb-16L] static, {card}: " + "; ".join(
+        f"{k} {v['decode_ms']:.3f} ms/step {v['tok_s']:.1f} tok/s" for k, v in out.items())
+        + f"; phase 5 graph async {ga['decode_ms']:.3f} ms/step {ga['tok_s']:.1f} tok/s; "
+        "greedy tokens = phase 5's; sampled K-step tokens = the sampled async loop's")
+    del apps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(17)
+    shared = rng.integers(1, arch.vocab_size, 384).tolist()
+    lens = rng.integers(200, 993, 16)
+    reqs = [(shared + rng.integers(1, arch.vocab_size, max(n - 384, 1)).tolist()) if i % 2 == 0
+            else rng.integers(1, arch.vocab_size, n).tolist() for i, n in enumerate(lens)]
+    extra_prompts = [rng.integers(1, arch.vocab_size, 200).tolist() for _ in range(8)]
+    engine = {}
+    ref_streams = None
+    launches = {}
+    for mode, extra in (("1-step", {}), ("K-step", dict(steps=8)),
+                        ("loop", dict(loop=True, fence=8))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        app, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
+                             slots=8, seq_len=2048, ctx_len=1024, device="cuda", params=params,
+                             **extra)
+        log(f"[cb-16L {mode}] load + warmup {time.perf_counter() - t0:.1f} s; {app.warm_stats}")
+        st = cb_engine_run(torch, np, app, reqs, extra_prompts, NEW, L)
+        st["warmup"] = app.warm_stats
+        if ref_streams is None:
+            ref_streams = st["streams"]
+        assert st["streams"] == ref_streams, f"phase 5d: {mode} streams differ from the 1-step"
+        launches[mode] = st.pop("launches")
+        engine[mode] = st
+        log(f"[cb-16L {mode}] {card}: {st['tok_s']:.1f} tok/s; TTFT p50 {st['ttft_p50_ms']:.2f} "
+            f"p95 {st['ttft_p95_ms']:.2f} ms; TPOT p50 {st['tpot_p50_ms']:.3f} ms; dispatches "
+            f"{st['dispatches']}; loop iterations per launch {st['loop_iters_per_launch']}; "
+            f"decode step wall {st['profiled_decode_step']['wall_ms']:.3f} ms busy "
+            f"{st['profiled_decode_step']['busy_ms']:.3f} ms (idle "
+            f"{st['profiled_decode_step']['idle_pct']:.1f}%) for "
+            f"{st['profiled_decode_step']['tokens_per_row']} tokens a row; host ms: "
+            f"{split_line(st['profiled_decode_step']['host_split_ms'])}")
+        del app
+    out["engine"] = engine
+    return out, launches
+
+
+def cb_engine_run(torch, np, app, reqs, extra_prompts, NEW, L):
+    """One contiguous engine over phase 5b's traffic (8 requests at the
+    start, then one per step), then 8 fresh 200-token requests admitted one
+    per step and, once all decode, decode-only steps: 2 unprofiled with the
+    host spans (wall, host split), then one under the profiler (busy)."""
+    from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
+
+    eng = InferenceEngine(app, SchedulerConfig())
+    stamps, arrivals = {}, {}
+
+    def on_token(req, tok):
+        stamps.setdefault(req.request_id, []).append(time.perf_counter())
+
+    for fn in attention_kernels().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    pending, outs = list(reqs), []
+    for p in pending[:8]:
+        r = eng.add_request(p, SamplingParams(max_new_tokens=NEW), on_token=on_token)
+        arrivals[r.request_id] = time.perf_counter()
+    pending = pending[8:]
+    while eng.has_work() or pending:
+        if pending:
+            r = eng.add_request(pending.pop(0), SamplingParams(max_new_tokens=NEW),
+                                on_token=on_token)
+            arrivals[r.request_id] = time.perf_counter()
+        outs += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    got = {k: fn.launches for k, fn in attention_kernels().items()
+           if k in ("prefill", "decode", "commit")}
+    want = cb_counts(eng, L)
+    assert got == want, f"phase 5d: launches {got} != {want} ({eng.dispatches})"
+    assert len(outs) == 16 and all(len(o.token_ids) == NEW for o in outs)
+    ttft = np.array([stamps[i][0] - arrivals[i] for i in arrivals]) * 1e3
+    tpot = np.array([(stamps[i][-1] - stamps[i][0]) / (len(stamps[i]) - 1)
+                     for i in arrivals]) * 1e3
+    stats = dict(streams=[o.token_ids for o in sorted(outs, key=lambda o: o.request_id)],
+                 wall_s=wall, tok_s=16 * NEW / wall, ttft_p50_ms=float(np.percentile(ttft, 50)),
+                 ttft_p95_ms=float(np.percentile(ttft, 95)),
+                 tpot_p50_ms=float(np.percentile(tpot, 50)), dispatches=dict(eng.dispatches),
+                 loop_launches=eng.loop_launches, loop_iterations=eng.loop_iterations,
+                 loop_iters_per_launch=(eng.loop_iterations / eng.loop_launches
+                                        if eng.loop_launches else None),
+                 multistep_steps=eng.multistep_steps, launches=got,
+                 capture_s={tag: w.capture_s for tag, w in app.models.items()})
+    # decode-only steps of 8 rows (8 fresh requests admitted in one step):
+    # each step emits what its mode emits per dispatch (1, the rung, or up
+    # to the fence)
+    eng = InferenceEngine(app, SchedulerConfig(max_prefills_per_step=8))
+    for p in extra_prompts:
+        eng.add_request(p, SamplingParams(max_new_tokens=64))
+    eng.step()
+    assert len(eng.scheduler.decodable()) == 8 and not eng.scheduler.waiting
+    tok0 = sum(len(r.generated) for _, r in eng.scheduler.decodable())
+    wall_ms, split = host_window(torch, eng.step, 2)
+    tok1 = sum(len(r.generated) for _, r in eng.scheduler.decodable())
+    assert len(eng.scheduler.decodable()) == 8, "phase 5d: a row finished inside the timed steps"
+    _, busy, by_kernel, _ = profiled_call(torch, eng.step)
+    eng.run()
+    per_row = (tok1 - tok0) / 2 / 8
+    stats["profiled_decode_step"] = dict(
+        wall_ms=wall_ms, busy_ms=busy, idle_pct=100 * (1 - busy / wall_ms), host_split_ms=split,
+        tokens_per_row=per_row, wall_ms_per_token=wall_ms / per_row,
+        by_group_ms=by_group(by_kernel), top=by_kernel[:8])
+    return stats
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -1819,11 +2412,14 @@ def main() -> int:
     check_kernels(torch, kernel_results)
     check_paged_kernels(torch, kernel_results)
     check_mixed_kernels(torch, kernel_results)
+    sampler = check_decode_family(torch, np, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
+    cb_logit_err = cb_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
+    slice_tokens = slice_times.pop("tokens")
     # phases 5b and 5c: through the graphs (the main path), then eagerly
     engine = {}
     for mixed in (False, True):
@@ -1834,6 +2430,13 @@ def main() -> int:
                                                       graphs=graphs)
     engine_counts, engine_stats = engine[False, True]
     mixed_counts, mixed_stats = engine[True, True]
+    # phase 5d: K-step generate() and the contiguous engine three ways
+    gc.collect()
+    torch.cuda.empty_cache()
+    family, family_launches = cb_full_depth(torch, np, mods, card,
+                                            dict(slice_times, tokens=slice_tokens))
+    family.update(sampler=sampler, phase_4d_max_logit_err=cb_logit_err,
+                  launches_by_mode=family_launches)
     counts = dict(counts, window_decode=engine_2l_counts["window_decode"],
                   paged_prefill=engine_counts["paged_prefill"],
                   paged_decode=engine_counts["paged_decode"],
@@ -1881,8 +2484,11 @@ def main() -> int:
         rows = [r for r in kernel_results if r["kernel"] == key and r["dtype"] == "bfloat16"]
         rows.sort(key=lambda r: r.get("M", 520) != 520)
         for row in rows:
+            # the rows with cache lines: the contiguous engine's device loop (5d)
+            launches = (family_launches["loop"][key] if row.get("point") == "cache lines"
+                        else counts[key])
             entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": counts[key], **{f: row[f] for f in fields}}
+                     "launches": launches, **{f: row[f] for f in fields}}
             entry.update({f: row[f] for f in ("M", "point", "body", "ms_min", "ms_max",
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
                                               "graph_ready_ms") if f in row})
@@ -1890,9 +2496,10 @@ def main() -> int:
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
-                   "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts},
-                  f, indent=1)
+                   "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts,
+                   "decode_family": family}, f, indent=1)
     print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
+                      "decode_family": {k: v for k, v in family.items() if k != "engine"},
                       "kernel_checks": kernel_results}))
     print(json.dumps({"kernels": summary}))
     print(card)

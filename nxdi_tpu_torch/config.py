@@ -11,8 +11,8 @@ Two levels, as in the JAX package:
 - :class:`InferenceConfig` — model hyperparameters (typically a HF
   ``config.json``) plus a ``tpu_config`` attribute.
 
-Features the port does not carry yet (multistep decode, the device loop,
-speculation, quantization, tensor parallelism, ...) are not keys here:
+Features the port does not carry yet (speculation, quantization, tensor
+parallelism, ...) are not keys here:
 passing one raises, naming it (a few are accepted at the value that turns
 them off, ``_NOT_PORTED``).
 """
@@ -50,9 +50,9 @@ def dtype_name(dtype) -> str:
 
 
 class OnDeviceSamplingConfig:
-    """Sampling flags (same keys as the JAX package). Only greedy decoding
-    runs in this port; ``do_sample=True`` is accepted here and rejected where
-    sampling happens (ops/sampling.py)."""
+    """Sampling flags (same keys as the JAX package): ``do_sample`` builds the
+    sampler into every forward (ops/sampling.py), ``global_topk`` bounds its
+    candidates, ``deterministic`` draws u = 0.5."""
 
     def __init__(self, **kwargs):
         self.do_sample = kwargs.pop("do_sample", False)
@@ -93,9 +93,6 @@ class ChunkedPrefillConfig:
 # that means "off", so a saved config of the ported path loads unchanged
 _NOT_PORTED = {
     "padding_side": "right",
-    "is_continuous_batching": False,
-    "device_loop": False,
-    "decode_steps_per_dispatch": 1,
     "role": "unified",
 }
 
@@ -163,6 +160,21 @@ class TorchConfig:
         self.skip_warmup = kwargs.pop("skip_warmup", False)
         # the device-resident decode loop of generate() (hf_adapter)
         self.async_mode = kwargs.pop("async_mode", False)
+        # contiguous continuous batching: batch row i reads and writes cache
+        # line seq_ids[i] (the serving engine's slot)
+        self.is_continuous_batching = kwargs.pop("is_continuous_batching", False)
+        # K decode steps per dispatch (the tkg_multistep submodel; 1 = off)
+        self.decode_steps_per_dispatch = int(kwargs.pop("decode_steps_per_dispatch", 1))
+        # the device-resident decode loop (the tkg_device_loop submodel): per-row
+        # EOS and budget exit on the card, one launch per batch-to-EOS
+        self.device_loop = bool(kwargs.pop("device_loop", False))
+        # per-window copies of the loop's tokens to the host (drain_outfeed);
+        # off unless a caller reads them (the JAX package's auto = on for real
+        # devices: nothing on the port's served path drains the ring)
+        self.device_loop_outfeed = bool(kwargs.pop("device_loop_outfeed", False))
+        # at most this many tokens per loop launch (0 = unlimited): the
+        # scheduling point between launches
+        self.device_loop_fence = int(kwargs.pop("device_loop_fence", 0))
 
         for key, default in _NOT_PORTED.items():
             if key in kwargs and kwargs.pop(key) != default:
@@ -202,6 +214,28 @@ class TorchConfig:
                 "async_mode with is_block_kv_layout: the device-resident loop "
                 "carries no block tables; it runs on the contiguous cache"
             )
+        if self.decode_steps_per_dispatch < 1:
+            raise ValueError("decode_steps_per_dispatch must be >= 1")
+        if self.device_loop_fence < 0:
+            raise ValueError("device_loop_fence must be >= 0 (0 = unlimited)")
+        # the JAX package's rules for the in-graph decode bodies: they sample,
+        # advance positions and commit KV on the device
+        for key, on in (("decode_steps_per_dispatch > 1", self.decode_steps_per_dispatch > 1),
+                        ("device_loop", self.device_loop)):
+            if not on:
+                continue
+            if self.on_device_sampling_config is None:
+                raise ValueError(f"{key} requires on-device sampling (each step samples "
+                                 "its token on the device)")
+            if self.is_block_kv_layout:
+                raise ValueError(f"{key} needs in-graph KV addressing by position; the "
+                                 "block layout's slot mappings are host-computed per step")
+            if self.ctx_batch_size != self.tkg_batch_size:
+                raise ValueError(f"{key} requires ctx_batch_size == tkg_batch_size (the "
+                                 "windows chain from the context-encoding outputs)")
+        if self.device_loop and self.mixed_dispatch:
+            raise ValueError("device_loop and mixed_dispatch are different serving step "
+                             "shapes; enable one")
         if self.mixed_dispatch and not self.is_block_kv_layout:
             raise ValueError(
                 "mixed_dispatch requires is_block_kv_layout (the packed rows "

@@ -11,6 +11,10 @@
 //    kv_start[b] + j is STRICTLY before q_pos[b] (the slot at q_pos still
 //    holds a stale row), then the fresh row (always visible); all f32. The
 //    stacked entry is the same kernel: the wrapper passes cache[layer_idx].
+//    With `lines` (continuous batching, and the K-step and loop bodies) row
+//    b reads cache line lines[b], clipped into the cache's n_lines as the
+//    JAX package's gather clips; a frozen row (its write dropped, its
+//    position pinned) is an ordinary row whose output nobody reads.
 //  - kWindow: decode over a contiguous (B, KV, Sk, D) window whose slot at
 //    q_pos already holds this step's row. Replaces ::flash_attention_decode
 //    (Pallas body _decode_kernel): the causal mask is inclusive, there is no
@@ -93,8 +97,9 @@ struct DecodeArgs {
   float* ws;            // C > 1: (B, H, C, D) partial sums, then (B, H, C, 2) max and sum
   const int* q_pos;
   const int* kv_start;  // may be null: slot j is position j
+  const int* lines;     // kFused, may be null: row b reads cache line lines[b] (clipped to n_lines)
   const int* bt;        // kPaged only: (B, nb) block table, -1 = hole
-  int B, H, KV, D, kv_len, nb, bs, chunk_len, n_chunks;
+  int B, H, KV, D, kv_len, nb, bs, chunk_len, n_chunks, n_lines;
   long long qsb, qsh, csb, csh, css, nsb, nsh, osb, osh;
   float scale, v_scale;
   int window, chunk;
@@ -215,8 +220,9 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
   const size_t stage = dec_stage_elems(D, ES);
   T* my_stages = reinterpret_cast<T*>(stage_base) + (size_t)warp * kDecStages * stage;
 
-  const T* kc = static_cast<const T*>(a.kc) + b * a.csb + kvh * a.csh;
-  const T* vc = static_cast<const T*>(a.vc) + b * a.csb + kvh * a.csh;
+  const long long line = a.lines ? min(max(a.lines[b], 0), a.n_lines - 1) : b;
+  const T* kc = static_cast<const T*>(a.kc) + line * a.csb + kvh * a.csh;
+  const T* vc = static_cast<const T*>(a.vc) + line * a.csb + kvh * a.csh;
   const int* btr = kPaged ? a.bt + (long long)b * a.nb : nullptr;
 
   for (int i = tid; i < G * D; i += blockDim.x) {

@@ -2,29 +2,49 @@
 (counterpart of ``nxdi_tpu/generation/hf_adapter.py``): one
 context-encoding dispatch for the right-padded prompt, then one
 token-generation dispatch per new token, with EOS trimming and
-``max_new_tokens`` / ``max_length``. Greedy.
+``max_new_tokens`` / ``max_length``. Greedy, or sampled (``do_sample``,
+``top_k``, ``top_p``, ``temperature``, ``seed``; an HF ``generation_config``
+supplies what is unset) on the device with one key per dispatch from a
+:class:`StepRngSchedule`. ``logits_processor`` runs HF-style processors on
+the host over the emitted logits, then the same sampler.
 
 Under ``async_mode`` (the app's ``async_supported``) the decode steps run
 device-resident, as in the JAX package: each step's inputs are the previous
 step's ``next_inputs`` on the device, each step's tokens go to a pinned host
 buffer by a non-blocking copy, and the host reads them one step late
-(lag-1 EOS), so the fetch of step N-1 overlaps step N.
+(lag-1 EOS), so the fetch of step N-1 overlaps step N. With the
+``tkg_multistep`` submodel the decode strides K tokens per dispatch the same
+way, window after window.
 
-Not ported yet: sampling, logits processors, multistep and fused
-speculation decode loops, and the request telemetry spans.
+Not ported yet: the fused speculation decode loop and the request telemetry
+spans.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from nxdi_tpu_torch.ops.sampling import SamplingParams, extract_next_tokens, normalize_eos_ids
+from nxdi_tpu_torch.ops import sampling as sampling_ops
+from nxdi_tpu_torch.ops.sampling import (
+    SamplingParams,
+    StepRngSchedule,
+    extract_next_tokens,
+    normalize_eos_ids,
+)
 from nxdi_tpu_torch.runtime.host_spans import span
+from nxdi_tpu_torch.runtime.model_wrapper import (
+    MULTISTEP_EOS_SLOTS,
+    TAG_TOKEN_GENERATION_MULTISTEP,
+    decode_window_limit,
+)
+
+logger = logging.getLogger("nxdi_tpu_torch")
 
 
 def load_pretrained_config(model_path: str):
@@ -46,15 +66,17 @@ class _HostTokens:
     DEPTH = 4  # the loop holds at most two steps' tokens unread
 
     def __init__(self):
-        self._ring, self._i = [], 0
+        self._rings, self._i = {}, 0  # one ring per token shape (K-step rungs differ)
 
     def push(self, tokens: torch.Tensor):
         if tokens.device.type != "cuda":
             return tokens.clone(), None
-        if not self._ring:
-            self._ring = [(torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True),
-                           torch.cuda.Event()) for _ in range(self.DEPTH)]
-        host, ev = self._ring[self._i % self.DEPTH]
+        ring = self._rings.get(tuple(tokens.shape))
+        if ring is None:
+            ring = self._rings[tuple(tokens.shape)] = [
+                (torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True),
+                 torch.cuda.Event()) for _ in range(self.DEPTH)]
+        host, ev = ring[self._i % self.DEPTH]
         self._i += 1
         host.copy_(tokens, non_blocking=True)
         ev.record()
@@ -82,15 +104,40 @@ class HuggingFaceGenerationAdapter:
         max_new_tokens: Optional[int] = None,
         max_length: Optional[int] = None,
         do_sample: bool = False,
+        top_k: int = 1,
+        top_p: float = 1.0,
+        temperature: float = 1.0,
         eos_token_id=None,
         pad_token_id: int = 0,
+        seed: int = 0,
         logits_processor=None,
+        generation_config=None,
         **unused,
     ) -> np.ndarray:
-        """Greedy generation. Returns (B, S + T) ids with each row's new
-        tokens placed right after its true prompt length."""
-        if logits_processor:
-            raise NotImplementedError("logits_processor is not ported yet")
+        """Returns (B, S + T) ids with each row's new tokens placed right
+        after its true prompt length."""
+        if generation_config is not None:
+            # HF GenerationConfig values are defaults for unset arguments; its
+            # default max_length (20) counts only without max_new_tokens
+            gc = generation_config
+            if max_new_tokens is None:
+                max_new_tokens = getattr(gc, "max_new_tokens", None)
+            if max_length is None and max_new_tokens is None:
+                max_length = getattr(gc, "max_length", None)
+            do_sample = do_sample or bool(getattr(gc, "do_sample", False))
+            if top_k == 1 and getattr(gc, "top_k", None):
+                top_k = gc.top_k
+            if top_p == 1.0 and getattr(gc, "top_p", None):
+                top_p = gc.top_p
+            if temperature == 1.0 and getattr(gc, "temperature", None):
+                temperature = gc.temperature
+            if eos_token_id is None:
+                eos_token_id = getattr(gc, "eos_token_id", None)
+            if pad_token_id == 0 and getattr(gc, "pad_token_id", None) is not None:
+                pad_token_id = gc.pad_token_id
+        if logits_processor and not self.tpu_config.output_logits:
+            raise ValueError("logits_processor needs host-visible logits: build the app "
+                             "with output_logits=True")
         input_ids = np.asarray(input_ids)
         B, S = input_ids.shape
         if attention_mask is None:
@@ -112,17 +159,39 @@ class HuggingFaceGenerationAdapter:
         if n_new <= 0:
             return input_ids
         eos_ids = normalize_eos_ids(eos_token_id)
-        sampling_params = SamplingParams(max_new_tokens=n_new, do_sample=do_sample).tensor(B)
+        odsc = self.tpu_config.on_device_sampling_config
+        if do_sample and not (odsc and odsc.do_sample) and not logits_processor:
+            logger.warning("generate(do_sample=True) on an app built without on-device "
+                           "sampling (OnDeviceSamplingConfig(do_sample=True)): greedy")
+        self._rng = StepRngSchedule(seed)
+        sampling_params = SamplingParams(
+            max_new_tokens=n_new, do_sample=do_sample, top_k=top_k, top_p=top_p,
+            temperature=temperature,
+        ).tensor(B)
+        select = dict(do_sample=do_sample, top_k=top_k, top_p=top_p, temperature=temperature,
+                      lengths=lengths, prompt_width=S, pad_token_id=pad_token_id)
 
         position_ids = np.tile(np.arange(S, dtype=np.int32), (B, 1))
         outputs = self.app.forward(
             input_ids.astype(np.int32), position_ids,
             last_token_index=lengths - 1, sampling_params=sampling_params,
+            rng=self._rng.next(),
         )
-        next_tokens = extract_next_tokens(outputs)
+        running = input_ids.copy() if logits_processor else None
+        if logits_processor:
+            next_tokens = self._host_select(outputs, running, logits_processor, **select)
+            running = np.concatenate([running, next_tokens[:, None]], axis=1)
+        else:
+            next_tokens = extract_next_tokens(outputs)
         generated: List[np.ndarray] = [next_tokens]
         finished = np.isin(next_tokens, eos_ids)
-        if self.app.async_supported and "next_inputs" in outputs and not finished.all():
+        if (getattr(self.app, "multistep_supported", False) and not finished.all()
+                and not logits_processor and len(eos_ids) <= MULTISTEP_EOS_SLOTS):
+            gen = self._multistep_decode_loop(next_tokens, lengths, n_new, eos_ids, pad_token_id,
+                                              B, outputs["next_inputs"])
+            return self._assemble(input_ids, gen, lengths, pad_token_id)
+        if (self.app.async_supported and "next_inputs" in outputs and not finished.all()
+                and not logits_processor):
             gen = self._device_decode_loop(outputs["next_inputs"], next_tokens, lengths, n_new,
                                            eos_ids, pad_token_id, B)
             return self._assemble(input_ids, gen, lengths, pad_token_id)
@@ -133,13 +202,43 @@ class HuggingFaceGenerationAdapter:
             outputs = self.app.forward(
                 next_tokens[:, None].astype(np.int32), cur_pos[:, None].astype(np.int32),
                 last_token_index=np.zeros((B,), dtype=np.int32),
-                sampling_params=sampling_params,
+                sampling_params=sampling_params, rng=self._rng.next(),
             )
-            next_tokens = np.where(finished, pad_token_id, extract_next_tokens(outputs))
+            if logits_processor:
+                next_tokens = self._host_select(outputs, running, logits_processor, **select)
+                running = np.concatenate([running, next_tokens[:, None]], axis=1)
+            else:
+                next_tokens = extract_next_tokens(outputs)
+            next_tokens = np.where(finished, pad_token_id, next_tokens)
             generated.append(next_tokens)
             finished |= np.isin(next_tokens, eos_ids)
             cur_pos = cur_pos + 1
         return self._assemble(input_ids, np.stack(generated, axis=1), lengths, pad_token_id)
+
+    def _host_select(self, outputs, running, processors, *, do_sample, top_k, top_p,
+                     temperature, lengths, prompt_width, pad_token_id) -> np.ndarray:
+        """Host logits processors, then the token: argmax, or the same sampler
+        the forwards run, with the next key of the schedule. ``running`` is
+        the right-padded prompt with the generated tokens appended past
+        ``prompt_width``; each row goes to the processors LEFT-padded from its
+        true length (HF's layout), so pads are not read as context."""
+        with span("token_fetch"):
+            scores = outputs["logits"][:, -1, :].float().cpu()
+        B, W = running.shape
+        ids_np = np.full_like(running, pad_token_id)
+        for b in range(B):
+            true = np.concatenate([running[b, : lengths[b]], running[b, prompt_width:]])
+            ids_np[b, W - true.shape[0]:] = true
+        ids = torch.as_tensor(ids_np, dtype=torch.long)
+        for proc in processors:
+            scores = proc(ids, scores)
+        if not do_sample:
+            return scores.numpy().argmax(-1).astype(np.int64)
+        sp = torch.from_numpy(sampling_ops.prepare_sampling_params(
+            B, top_k=[top_k], top_p=[top_p], temperature=[temperature]))
+        rng = torch.from_numpy(self._rng.next())
+        return sampling_ops.sample(scores.float(), sp, rng=rng, do_sample=True).numpy().astype(
+            np.int64)
 
     def _device_decode_loop(self, next_inputs, first_tokens, lengths, n_new, eos_ids,
                             pad_token_id, B) -> np.ndarray:
@@ -165,6 +264,47 @@ class HuggingFaceGenerationAdapter:
         for handle in pending[-1:]:
             token_stream.append(host.get(handle)[:B, 0])
         gen = np.stack(token_stream[:n_new], axis=1)
+        return self._mask_and_trim_eos(gen, eos_ids, pad_token_id)
+
+    def _multistep_decode_loop(self, first_tokens, lengths, n_new, eos_ids, pad_token_id, B,
+                               cte_next_inputs) -> np.ndarray:
+        """Decode K tokens per dispatch (the ``tkg_multistep`` submodel). Window
+        0 chains off the context encoding's ``next_inputs`` on the device;
+        window j + 1 is dispatched from window j's before window j's tokens
+        are read (lag 1), the rung is the smallest covering what remains,
+        and overshoot past EOS or ``n_new`` is trimmed here."""
+        w = self.app.models[TAG_TOKEN_GENERATION_MULTISTEP]
+        window_limit = decode_window_limit(self.tpu_config, self.app.models)
+        remaining = n_new - 1
+        token_stream = [first_tokens]
+        finished = np.isin(first_tokens, eos_ids)
+        if remaining <= 0 or finished.all():
+            return np.stack(token_stream, axis=1)
+        Bc, dev = w.batch_size, w.device
+        eos = np.full((Bc, MULTISTEP_EOS_SLOTS), -1, dtype=np.int32)
+        eos[:B, : len(eos_ids)] = eos_ids
+        batch = dict(cte_next_inputs)
+        batch["eos_token_ids"] = torch.from_numpy(eos).to(dev)
+        batch["pad_token_id"] = torch.full((Bc,), pad_token_id, dtype=torch.int32, device=dev)
+        host = _HostTokens()
+        max_len0 = int(lengths.max())
+        pending, produced = [], 0
+        while produced < remaining:
+            steps = w.select_steps(remaining - produced)
+            total_len = min(max_len0 + 1 + produced + steps, window_limit)
+            outputs = self.app.token_gen_multistep_device(batch, total_len, steps=steps)
+            batch = outputs["next_inputs"]
+            pending.append(host.push(outputs["tokens"]))
+            produced += steps
+            if len(pending) >= 2:  # lag 1: the previous window's tokens
+                prev = host.get(pending.pop(0))[:B]
+                token_stream.extend(prev.T)
+                finished |= np.isin(prev, eos_ids).any(axis=1)
+                if finished.all():
+                    break
+        for handle in pending[-1:]:
+            token_stream.extend(host.get(handle)[:B].T)
+        gen = np.stack(token_stream, axis=1)[:, :n_new]
         return self._mask_and_trim_eos(gen, eos_ids, pad_token_id)
 
     @staticmethod

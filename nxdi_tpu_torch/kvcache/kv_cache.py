@@ -15,9 +15,13 @@ the decode commit kernel, the paged scatter and the copy-on-write block copy
 all write into the caller's cache. Right-padded prefill garbage sits at
 future positions that decode overwrites before any query attends them.
 
+Contiguous continuous batching (``route_by_seq_id``): batch row i reads and
+writes cache line ``seq_ids[i]``, and a negative ``write_positions`` entry
+(a frozen row of the K-step and loop bodies) drops the row's write.
+
 Not ported yet: quantized stores (``k_scale``/``v_scale`` other than 1.0 —
-the paged kernels already take the scales), continuous-batching line
-routing, and the handoff export/import of block chains.
+the paged kernels already take the scales) and the handoff export/import of
+block chains.
 """
 
 from __future__ import annotations
@@ -97,8 +101,12 @@ def reset_kv_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 @dataclass(frozen=True)
 class ContiguousKVLayout:
-    """(B_cache, KV, S, D) lines addressed by (batch row, position)."""
+    """(B_cache, KV, S, D) lines addressed by (batch row, position), or under
+    ``route_by_seq_id`` by (``seq_ids[row]``, position): continuous batching,
+    where one request's prefill lands in its own line while the other lines
+    keep decoding."""
 
+    route_by_seq_id: bool = False
     k_scale: float = 1.0
     v_scale: float = 1.0
 
@@ -106,28 +114,45 @@ class ContiguousKVLayout:
         if self.k_scale != 1.0 or self.v_scale != 1.0:
             raise NotImplementedError("scaled KV caches are not ported yet")
 
+    def lines(self, cache_inputs, B: int):
+        """(B,) cache line of each batch row under ``route_by_seq_id``, else None."""
+        return cache_inputs["seq_ids"].reshape(B) if self.route_by_seq_id else None
+
+    @staticmethod
+    def write_positions(cache_inputs):
+        """The positions a forward writes: ``write_positions`` (frozen rows
+        -1) when given, else the rows' positions."""
+        wp = cache_inputs.get("write_positions")
+        return cache_inputs["position_ids"] if wp is None else wp
+
     def update(self, k_cache_l, v_cache_l, k_new, v_new, cache_inputs, spec):
         """Write this step's K/V (B, KV, S_act, D) into one layer's cache view
         IN PLACE; returns the (same) views."""
         B, S_act = k_new.shape[0], k_new.shape[2]
         store = k_cache_l.dtype
-        if S_act > 1 and cache_inputs.get("prefill_from_zero", False):
+        if (S_act > 1 and cache_inputs.get("prefill_from_zero", False)
+                and not self.route_by_seq_id):
             # context encoding from a fresh cache: every row writes positions
             # [0, S_act) (right-pad lanes continue the arange) — one slice copy
             k_cache_l[:B, :, :S_act] = k_new.to(store)
             v_cache_l[:B, :, :S_act] = v_new.to(store)
             return k_cache_l, v_cache_l
-        S = k_cache_l.shape[2]
-        pos = cache_inputs["position_ids"].long()
-        valid = (pos >= 0) & (pos < S)
-        bi, ti = torch.nonzero(valid, as_tuple=True)
-        k_cache_l[bi, :, pos[bi, ti]] = k_new[bi, :, ti].to(store)
-        v_cache_l[bi, :, pos[bi, ti]] = v_new[bi, :, ti].to(store)
+        # one layer through the commit kernel: row t of batch line b lands at
+        # slot pos[b, t] of its line; out-of-range slots and lines drop, at
+        # fixed shapes (so a routed prefill stays capturable)
+        kv_commit.kv_commit_rows(
+            k_cache_l[None], v_cache_l[None], k_new[None].to(store), v_new[None].to(store),
+            self.write_positions(cache_inputs), self.lines(cache_inputs, B))
         return k_cache_l, v_cache_l
 
     def read(self, k_cache_l, v_cache_l, cache_inputs, spec):
-        """Returns (kk, vv, kv_pos): (B, KV, W, D) x2 and (B, W) positions."""
+        """Returns (kk, vv, kv_pos): (B, KV, W, D) x2 and (B, W) positions;
+        under ``route_by_seq_id`` row i reads line ``seq_ids[i]`` (clipped into
+        range, as the JAX package's gather)."""
         kk, vv = k_cache_l.to(spec.torch_dtype), v_cache_l.to(spec.torch_dtype)
+        if self.route_by_seq_id:
+            sid = cache_inputs["seq_ids"].long().clamp(0, kk.shape[0] - 1)
+            kk, vv = kk[sid], vv[sid]
         B, W = kk.shape[0], kk.shape[2]
         kv_pos = torch.arange(W, dtype=torch.int32, device=kk.device)[None, :].expand(B, W)
         return kk, vv, kv_pos
@@ -135,11 +160,18 @@ class ContiguousKVLayout:
     def commit_rows(self, cache, k_rows, v_rows, cache_inputs, spec):
         """Deferred-write commit: land every layer's fresh rows
         (L, B, KV, S_act, D) in the stacked cache in ONE in-place kernel
-        launch (negative or out-of-range positions drop)."""
-        pos = cache_inputs["position_ids"]
+        launch (negative or out-of-range positions and lines drop).
+
+        The JAX package keeps a jnp scatter when ``write_positions`` is given:
+        its TPU kernel rewrites a 128-slot window per row, and a frozen lane
+        sharing row 0's line would write a stale window back. The port's
+        kernel writes each row directly, so it serves frozen lanes too (a
+        departure)."""
+        B = k_rows.shape[1]
         kv_commit.kv_commit_rows(
             cache["k"], cache["v"],
-            k_rows.to(cache["k"].dtype), v_rows.to(cache["v"].dtype), pos,
+            k_rows.to(cache["k"].dtype), v_rows.to(cache["v"].dtype),
+            self.write_positions(cache_inputs), self.lines(cache_inputs, B),
         )
         return cache
 

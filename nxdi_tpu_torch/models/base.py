@@ -40,7 +40,17 @@ the names are the JAX package's):
 On the CPU the kernel choice follows the JAX package's eligibility exactly,
 so both packages take the same branches. On a CUDA tensor an enabled kernel
 flag whose eligibility fails raises, naming the failed condition, instead of
-silently dropping to the plain path.
+silently dropping to the plain path. One condition of the JAX rule does not
+hold the card back: under continuous batching (cache lines routed by
+``seq_ids``) and in the K-step and loop bodies (``write_positions``) the JAX
+package leaves the stacked fused decode for plain attention over gathered
+lines; the port's kernel takes each row's line (``lines``) and runs there.
+
+The device-resident decode family (the JAX package's): on-device sampling
+with a per-step key (``rng``, chained by ``next_step_rng``),
+:func:`multi_step_token_gen` (K steps in one forward) and
+:func:`device_loop_token_gen` (steps until every row is done), whose rows
+freeze after EOS or their budget: position pinned, cache writes dropped.
 """
 
 from __future__ import annotations
@@ -127,16 +137,18 @@ def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _kernel_gate(flag: str, enabled: bool, on_cuda: bool,
-                 ref_failed: List[str], card_failed: List[str]) -> bool:
+                 ref_failed: List[str], card_failed: List[str],
+                 ref_only: Tuple[str, ...] = ()) -> bool:
     """Whether an attention kernel runs. ``ref_failed`` are the eligibility
     conditions the JAX package checks on the CPU (its interpret mode);
-    ``card_failed`` the extra limits of the CUDA kernel. On the CPU the JAX
-    rule decides; on the card a failed condition under an enabled flag
+    ``card_failed`` the extra limits of the CUDA kernel; ``ref_only`` failed
+    conditions of the JAX rule that the CUDA kernel handles. On the CPU the
+    JAX rule decides; on the card a failed condition under an enabled flag
     raises."""
     if not enabled:
         return False
     if not on_cuda:
-        return not ref_failed
+        return not ref_failed and not ref_only
     failed = ref_failed + card_failed
     if failed:
         raise NotImplementedError(
@@ -338,14 +350,23 @@ def attention_block(
         if tkg_stacked is not None and S == 1 and stacked_layer_idx is not None:
             k_s, v_s, kv_len = tkg_stacked
             ctx = fa.flash_attention_decode_fused_stacked(
-                q, k_s, v_s, k, v, position_ids, stacked_layer_idx, kv_len=kv_len
+                q, k_s, v_s, k, v, position_ids, stacked_layer_idx, kv_len=kv_len,
+                lines=layout.lines(ci, B),
             )
             _record_strategy("tkg_fused_kernel_stacked")
             return o_proj(ctx), (k, v)
         kk, vv, kv_pos = layout.read(k_cache_l, v_cache_l, ci, cache_spec)
+        if (arch.attn_tkg_kernel_enabled and S == 1 and ci.get("write_positions") is None
+                and not _heads_ok(H, KV) and not q.is_cuda):
+            # the JAX rule's per-layer fused kernel over the gathered lines
+            # (continuous batching off the stacked kernel); the card runs the
+            # stacked kernel with its line operand instead
+            _record_strategy("tkg_fused_kernel")
+            ctx = fa.flash_attention_decode_fused(q, kk, vv, k, v, position_ids, kv_pos)
+            return o_proj(ctx), (k, v)
         # this step's slots hold stale rows: poison their positions so only
-        # the fresh rows are attended there
-        wpos = position_ids.to(torch.int32)
+        # the fresh rows are attended there (frozen rows write nothing)
+        wpos = layout.write_positions(ci).to(torch.int32)
         hit = (kv_pos[:, None, :] == wpos[:, :, None]).any(dim=1)
         kv_pos = torch.where(hit, torch.full_like(kv_pos, 2 ** 30), kv_pos)
         _record_strategy("tkg_two_part_xla")
@@ -462,10 +483,18 @@ def run_decoder_layers(
     H, KV = arch.num_attention_heads, arch.num_kv_heads
     use_stacked_tkg = False
     if defer and S == 1:
+        # the JAX rule leaves the stacked kernel under routed lines and frozen
+        # rows; the card's kernel takes both (its line operand; a frozen row
+        # is an ordinary row whose output nobody reads)
+        ref_only = tuple(cond for cond, hit in (
+            ("cache lines routed by seq_ids", layout.route_by_seq_id),
+            ("frozen-row write positions", "write_positions" in (cache_inputs or {})),
+        ) if hit)
         use_stacked_tkg = _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, hidden.is_cuda,
             _heads_ok(H, KV),
             _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
+            ref_only,
         )
     tkg_stacked = (cache["k"], cache["v"], kv_window) if use_stacked_tkg else None
     mlp_stacked, qkv_stacked = stacked_proj_weights(arch, stacked_params)
@@ -486,7 +515,7 @@ def run_decoder_layers(
             vs.append(nv)
     if defer:
         ci_commit = dict(cache_inputs or {})
-        ci_commit["position_ids"] = position_ids
+        ci_commit["position_ids"] = position_ids  # write_positions, when given, win
         layout.commit_rows(cache, torch.stack(ks), torch.stack(vs), ci_commit, cache_spec)
     return hidden, cache
 
@@ -496,7 +525,7 @@ def run_decoder_layers(
 # step's token tags, its per-row last-token indices, which give R, and the
 # ragged kernels' work list)
 CACHE_INPUT_KEYS = ("block_table", "write_index", "write_slots", "mixed_row_ids",
-                    "last_token_index", "ragged_plan")
+                    "last_token_index", "ragged_plan", "seq_ids", "write_positions")
 
 
 def causal_lm_forward(
@@ -513,6 +542,8 @@ def causal_lm_forward(
     output_logits: bool = False,
     on_device_sampling: bool = True,
     do_sample: bool = False,
+    global_topk: int = 256,
+    deterministic: bool = False,
     mixed_rows: bool = False,
     return_next_inputs: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
@@ -532,7 +563,11 @@ def causal_lm_forward(
     decode loop): outputs also carry ``next_inputs``, the next
     token-generation step's inputs on the device — this step's tokens, the
     position after each row's last token, last_token_index 0 and the same
-    sampling params (the JAX package's ``next_inputs``)."""
+    sampling params, the next key (``next_step_rng``) and the cache lines
+    (the JAX package's ``next_inputs``).
+
+    With ``do_sample`` the batch carries ``rng``, the (2,) step key of
+    :func:`~nxdi_tpu_torch.ops.sampling.uniform_from_key`."""
     input_ids = batch["input_ids"]
     position_ids = batch["position_ids"]
     compute_dtype = to_torch_dtype(arch.dtype)
@@ -567,7 +602,9 @@ def causal_lm_forward(
 
     outputs: Dict[str, torch.Tensor] = {}
     if on_device_sampling:
-        tokens = sampling_ops.sample(logits[:, -1, :], batch.get("sampling_params"), do_sample)
+        tokens = sampling_ops.sample(
+            logits[:, -1, :], batch.get("sampling_params"), rng=batch.get("rng"),
+            do_sample=do_sample, global_topk=global_topk, deterministic=deterministic)
         outputs["tokens"] = tokens[:, None]
     if output_logits or not on_device_sampling:
         outputs["logits"] = logits[..., : arch.vocab_size - arch.vocab_pad]
@@ -582,4 +619,189 @@ def causal_lm_forward(
             "last_token_index": torch.zeros_like(lti),
             "sampling_params": batch["sampling_params"],
         }
+        if "rng" in batch:
+            outputs["next_inputs"]["rng"] = sampling_ops.next_step_rng(batch["rng"])
+        if "seq_ids" in batch:
+            outputs["next_inputs"]["seq_ids"] = batch["seq_ids"]
     return outputs, cache
+
+
+# ---------------------------------------------------------------------------
+# The device-resident decode family: K steps per forward, and the loop
+# ---------------------------------------------------------------------------
+
+# step inputs chained from one in-forward decode step to the next (the 1-step
+# forward's next_inputs), and inputs carried through unchanged
+_MULTISTEP_CHAIN_KEYS = ("input_ids", "position_ids", "last_token_index", "sampling_params")
+_MULTISTEP_PASSTHROUGH_KEYS = ("seq_ids", "eos_token_ids", "pad_token_id")
+
+
+def _decode_step(arch, inv_freq, params, cache, step_batch, done, *, kv_window, layout,
+                 sampling):
+    """One step of the K-step and loop bodies: a 1-step forward whose frozen
+    rows write nothing (write position -1). Returns (the sampled tokens (B,),
+    the forward's next_inputs)."""
+    fwd = dict(step_batch)
+    fwd["write_positions"] = torch.where(
+        done[:, None], torch.full_like(step_batch["position_ids"], -1),
+        step_batch["position_ids"])
+    out, _ = causal_lm_forward(
+        arch, inv_freq, params, cache, fwd, attend_to_cache=True, kv_window=kv_window,
+        layout=layout, gather_last_token=False, on_device_sampling=True,
+        return_next_inputs=True, **sampling)
+    return out["tokens"][:, 0], out["next_inputs"]
+
+
+def _finish_rows(emitted, done, t, eos_ids, budget):
+    """``done`` after a step that emitted ``emitted`` at iteration ``t``: a
+    row finishes on one of its EOS ids or when its budget (> 0) is used up;
+    the finishing token itself is emitted."""
+    if eos_ids is not None:
+        done = done | (emitted[:, None] == eos_ids).any(dim=1)
+    if budget is not None:
+        done = done | ((budget > 0) & (t + 1 >= budget))
+    return done
+
+
+def multi_step_token_gen(
+    arch: DecoderArch,
+    inv_freq,
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    *,
+    num_steps: int,
+    kv_window: Optional[int] = None,
+    layout=DEFAULT_KV_LAYOUT,
+    do_sample: bool = False,
+    global_topk: int = 256,
+    deterministic: bool = False,
+    return_next_inputs: bool = True,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """K decode steps in one forward (the ``tkg_multistep`` submodel; the JAX
+    package's ``lax.scan``, unrolled): each step samples, and its token,
+    position and key feed the next exactly as chained 1-step dispatches
+    would. ``batch`` may carry ``eos_token_ids`` (B, E) (-1 unused),
+    ``pad_token_id`` (B,) and ``budget_steps`` (B,) (<= 0 unlimited): a row
+    that emitted an EOS id or its budget-th token emits the pad token from
+    then on and freezes (position pinned, writes dropped). Returns outputs
+    with ``tokens`` (B, K) and ``next_inputs`` (the next window's step inputs
+    and the passthrough inputs)."""
+    eos_ids, budget = batch.get("eos_token_ids"), batch.get("budget_steps")
+    pad = batch.get("pad_token_id")
+    passthrough = {k: batch[k] for k in _MULTISTEP_PASSTHROUGH_KEYS if k in batch}
+    sbatch = {k: batch[k] for k in _MULTISTEP_CHAIN_KEYS}
+    if "rng" in batch:
+        sbatch["rng"] = batch["rng"]
+    sampling = dict(do_sample=do_sample, global_topk=global_topk, deterministic=deterministic)
+    B = sbatch["input_ids"].shape[0]
+    done = torch.zeros((B,), dtype=torch.bool, device=sbatch["input_ids"].device)
+    toks = []
+    for t in range(num_steps):
+        tok, nxt = _decode_step(arch, inv_freq, params, cache, {**passthrough, **sbatch}, done,
+                                kv_window=kv_window, layout=layout, sampling=sampling)
+        if eos_ids is not None:
+            emitted = torch.where(done, pad.to(tok.dtype) if pad is not None
+                                  else torch.zeros_like(tok), tok)
+        else:
+            emitted = tok
+        done = _finish_rows(emitted, done, t, eos_ids, budget)
+        toks.append(emitted)
+        sbatch = {
+            "input_ids": emitted[:, None].to(torch.int32),
+            "position_ids": torch.where(done[:, None], sbatch["position_ids"],
+                                        nxt["position_ids"]),
+            "last_token_index": nxt["last_token_index"],
+            "sampling_params": nxt["sampling_params"],
+            **({"rng": nxt["rng"]} if "rng" in sbatch else {}),
+        }
+    outputs: Dict[str, Any] = {"tokens": torch.stack(toks, dim=1)}
+    if return_next_inputs:
+        outputs["next_inputs"] = {**sbatch, **passthrough}
+    return outputs, cache
+
+
+def device_loop_state(batch: Dict[str, torch.Tensor], max_steps: int) -> Dict[str, torch.Tensor]:
+    """A fresh loop state for ``batch`` (the wrapper stages it with the
+    inputs, so a window graph reads and updates it in place): iteration 0,
+    no row done, the token buffer (B, max_steps) pad-filled and its
+    per-iteration done history."""
+    ids = batch["input_ids"]
+    B, dev = ids.shape[0], ids.device
+    pad = batch.get("pad_token_id")
+    pad = torch.zeros((B,), dtype=torch.int32, device=dev) if pad is None else pad
+    return {
+        "loop_t": torch.zeros((), dtype=torch.int32, device=dev),
+        "loop_done": torch.zeros((B,), dtype=torch.bool, device=dev),
+        "loop_tokens": pad.to(torch.int32)[:, None].expand(B, max_steps).clone(),
+        "loop_done_hist": torch.zeros((B, max_steps), dtype=torch.bool, device=dev),
+    }
+
+
+def device_loop_iteration(arch, inv_freq, params, cache, batch, *, kv_window=None,
+                          layout=DEFAULT_KV_LAYOUT, do_sample=False, global_topk=256,
+                          deterministic=False) -> None:
+    """One iteration of the device loop, IN PLACE on the batch's loop state
+    (:func:`device_loop_state`) and step inputs: iteration t draws with key
+    ``rng + (0, t)`` (the host schedule's ``(seed, counter + t)``), writes its
+    emitted tokens into column t, and advances t. Fixed shapes and no host
+    read, so it is captured once as the body of the loop's window graph."""
+    t, done, toks = batch["loop_t"], batch["loop_done"], batch["loop_tokens"]
+    B = toks.shape[0]
+    pad = batch.get("pad_token_id")
+    pad = torch.zeros((B,), dtype=torch.int32, device=toks.device) if pad is None else pad
+    step = {k: batch[k] for k in (*_MULTISTEP_PASSTHROUGH_KEYS, *_MULTISTEP_CHAIN_KEYS)
+            if k in batch}
+    if "rng" in batch:
+        step["rng"] = batch["rng"] + torch.stack([torch.zeros_like(t), t]).to(batch["rng"].dtype)
+    sampling = dict(do_sample=do_sample, global_topk=global_topk, deterministic=deterministic)
+    tok, nxt = _decode_step(arch, inv_freq, params, cache, step, done, kv_window=kv_window,
+                            layout=layout, sampling=sampling)
+    emitted = torch.where(done, pad.to(tok.dtype), tok).to(torch.int32)
+    new_done = _finish_rows(emitted, done, t, batch.get("eos_token_ids"),
+                            batch.get("budget_steps"))
+    col = t.reshape(1).long()
+    toks.index_copy_(1, col, emitted[:, None])
+    batch["loop_done_hist"].index_copy_(1, col, new_done[:, None])
+    batch["position_ids"].copy_(torch.where(new_done[:, None], batch["position_ids"],
+                                            nxt["position_ids"]))
+    batch["input_ids"].copy_(emitted[:, None])
+    batch["last_token_index"].copy_(nxt["last_token_index"])
+    done.copy_(new_done)
+    t.add_(1)
+
+
+def device_loop_token_gen(
+    arch: DecoderArch,
+    inv_freq,
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    *,
+    max_steps: int,
+    kv_window: Optional[int] = None,
+    layout=DEFAULT_KV_LAYOUT,
+    do_sample: bool = False,
+    global_topk: int = 256,
+    deterministic: bool = False,
+    outfeed=None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The ``tkg_device_loop`` submodel run eagerly: iterations of
+    :func:`device_loop_iteration` until every row is done (EOS id or budget,
+    as in :func:`multi_step_token_gen`) or ``max_steps`` (the token buffer's
+    width) is reached. ``batch`` is updated in place (its step inputs and,
+    when it carries them, its loop state). ``outfeed(t, tokens, done)`` is
+    called after each iteration when given. Returns outputs with ``tokens``
+    (B, max_steps), pad past each row's halt, and ``loop_iters`` (a 0-d
+    tensor). On the card the wrapper runs the same iteration as a captured
+    graph behind IF nodes (``runtime/model_wrapper.DeviceLoopTKGWrapper``)."""
+    if "loop_t" not in batch:
+        batch = {**batch, **device_loop_state(batch, max_steps)}
+    kw = dict(kv_window=kv_window, layout=layout, do_sample=do_sample,
+              global_topk=global_topk, deterministic=deterministic)
+    while int(batch["loop_t"]) < max_steps and not bool(batch["loop_done"].all()):
+        device_loop_iteration(arch, inv_freq, params, cache, batch, **kw)
+        if outfeed is not None:
+            t = int(batch["loop_t"]) - 1
+            outfeed(t, batch["loop_tokens"][:, t].clone(), batch["loop_done"].clone())
+    return {"tokens": batch["loop_tokens"], "loop_iters": batch["loop_t"]}, cache

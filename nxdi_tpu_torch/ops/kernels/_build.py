@@ -36,9 +36,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "nxdi_flash_prefill": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 12
     + [_F, _I, _I, _P],
-    # ... + the kv split (chunk length, chunks) and the partials' scratch
-    "nxdi_flash_decode_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 9
-    + [_F, _I, _I, _I, _I, _P, _P],
+    # ... q_pos, kv_start, the cache lines and their count, ..., the kv split
+    # (chunk length, chunks) and the partials' scratch
+    "nxdi_flash_decode_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 6
+    + [_LL] * 9 + [_F, _I, _I, _I, _I, _P, _P],
     "nxdi_kv_commit_rows": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL, _LL, _P],
     # blocks, threads, stream: an empty kernel (a launch's floor)
     "nxdi_empty_launch": [_I, _I, _P],
@@ -58,6 +59,12 @@ SIGNATURES = {
     # fused_proj.GemmPlan.args), twice for the MLP (gate/up, then down), the
     # split-K workspace, then the stream
     "nxdi_qkv_matmul": [_I, _P, _P, _P, _I, _I, _I, _I, _LL] + [_I] * 5 + [_P, _P],
+    # the device loop's window graph (loop_graph.cu): body graph, window, t,
+    # cap, done, rows, pinned host state, the exec out-pointer; then launch
+    # and destroy
+    "nxdi_loop_window_build": [_P, _I, _P, _I, _P, _I, _P, _P],
+    "nxdi_loop_window_launch": [_P, _P],
+    "nxdi_loop_window_destroy": [_P],
     "nxdi_fused_mlp": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL] + [_I] * 10
     + [_P, _P],
 }

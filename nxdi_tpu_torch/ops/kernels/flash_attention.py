@@ -12,7 +12,8 @@ Counterpart of ``nxdi_tpu/ops/kernels/flash_attention.py``:
   :func:`flash_attention_decode_fused_stacked` replace the two fused-decode
   entries (``pl.pallas_call`` at :629 and :509). One CUDA kernel serves both:
   the stacked entry hands it the ``cache[layer_idx]`` view, which costs
-  nothing in torch.
+  nothing in torch, and takes an optional per-row cache line (``lines``,
+  continuous batching) that the kernel reads in place of a gather.
 - :func:`flash_attention_decode` replaces ``flash_attention_decode``
   (``pl.pallas_call`` at :337): decode over a window that already holds
   this step's row (the decode kernel's window mode).
@@ -349,9 +350,12 @@ def flash_attention_decode_fused_plain(
 
 
 def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
-                  scale, sliding_window, chunk_size, kv_len):
+                  scale, sliding_window, chunk_size, kv_len, lines=None):
     B, H, Sq, D = q.shape
     KV, Sk = k_cache.shape[1], k_cache.shape[2]
+    if lines is None and k_cache.shape[0] != B:
+        raise ValueError(f"flash_attention_decode_fused: cache batch {k_cache.shape[0]} != {B} "
+                         "rows and no cache lines given")
     if Sq != 1 or H % KV or k_new.shape != (B, KV, 1, D) or v_new.shape != k_new.shape:
         raise ValueError(
             f"flash_attention_decode_fused: bad shapes q{tuple(q.shape)} "
@@ -364,6 +368,9 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
         raise ValueError(f"{name}: {H // KV} query heads per kv head (at most 16)")
     code = _build.dtype_code(q, name)
     if q.device.type == "cpu":
+        if lines is not None:  # the JAX package's gather of each row's line (clipped)
+            sel = lines.reshape(B).long().clamp(0, k_cache.shape[0] - 1)
+            k_cache, v_cache = k_cache[sel], v_cache[sel]
         return flash_attention_decode_fused_plain(
             q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, scale=scale,
             sliding_window=sliding_window, chunk_size=chunk_size, kv_len=W,
@@ -375,13 +382,16 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
     scale = D ** -0.5 if scale is None else scale
     qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     ks = None if kv_start is None else kv_start.to(device=q.device, dtype=torch.int32).contiguous()
+    ln = (None if lines is None
+          else lines.reshape(B).to(device=q.device, dtype=torch.int32).contiguous())
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     chunk, n_chunks, ws = _decode_split(B, H, KV, D, W, q.device)
     lib = _build.library()
     err = lib.nxdi_flash_decode_fused(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), qp.data_ptr(),
-        None if ks is None else ks.data_ptr(), B, H, KV, D, W,
+        None if ks is None else ks.data_ptr(), None if ln is None else ln.data_ptr(),
+        k_cache.shape[0], B, H, KV, D, W,
         q.stride(0), q.stride(1), *k_cache.stride()[:3], k_new.stride(0), k_new.stride(1),
         out.stride(0), out.stride(1), float(scale), _opt(sliding_window), _opt(chunk_size),
         chunk, n_chunks, None if ws is None else ws.data_ptr(), _build.stream_ptr(q.device),
@@ -428,14 +438,17 @@ def flash_attention_decode_fused_stacked(
     sliding_window: Optional[int] = None,
     chunk_size: Optional[int] = None,
     kv_len: Optional[int] = None,
+    lines: Optional[torch.Tensor] = None,  # (B,) cache line of each row
 ) -> torch.Tensor:
-    """The stacked entry: reads layer ``layer_idx`` of the (L, B, KV, S, D)
-    cache (contiguous layout: slot j is position j). Launches the same kernel
-    as :func:`flash_attention_decode_fused` and counts there."""
+    """The stacked entry: reads layer ``layer_idx`` of the (L, B_cache, KV, S,
+    D) cache (contiguous layout: slot j is position j), row b from line
+    ``lines[b]`` when given (continuous batching; the cache may then hold
+    more lines than rows). Launches the same kernel as
+    :func:`flash_attention_decode_fused` and counts there."""
     li = int(layer_idx)
     return _decode_fused(
         q, k_cache_s[li], v_cache_s[li], k_new, v_new, q_pos, None, scale=scale,
-        sliding_window=sliding_window, chunk_size=chunk_size, kv_len=kv_len,
+        sliding_window=sliding_window, chunk_size=chunk_size, kv_len=kv_len, lines=lines,
     )
 
 

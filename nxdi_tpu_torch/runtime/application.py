@@ -11,7 +11,10 @@ bucket of every submodel runs as a CUDA graph, all in one memory pool
 debugging). Under ``async_mode`` with on-device sampling the context and
 token-generation forwards emit the next step's inputs on the device, and
 :meth:`token_gen_device` dispatches from them (the JAX package's
-device-resident decode loop).
+device-resident decode loop). ``decode_steps_per_dispatch > 1`` adds the
+``tkg_multistep`` submodel (K steps per dispatch, :meth:`token_gen_multistep`
+and, chained on the device, :meth:`token_gen_multistep_device`);
+``device_loop`` adds ``tkg_device_loop`` (:meth:`token_gen_device_loop`).
 """
 
 from __future__ import annotations
@@ -30,10 +33,14 @@ from nxdi_tpu_torch.runtime.device import resolve_device
 from nxdi_tpu_torch.runtime.host_spans import span
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
+    TAG_DEVICE_LOOP,
     TAG_MIXED,
     TAG_TOKEN_GENERATION,
+    TAG_TOKEN_GENERATION_MULTISTEP,
+    DeviceLoopTKGWrapper,
     MixedModelWrapper,
     ModelWrapper,
+    MultiStepTKGWrapper,
 )
 
 # multi-token prefill that attends the cache (prefix-cached or chunked
@@ -83,14 +90,18 @@ class TorchModelForCausalLM:
         inv_freq = self.family.build_inv_freq(self.config)
         tc = self.tpu_config
         odsc = tc.on_device_sampling_config
-        fwd = dict(
-            output_logits=tc.output_logits,
-            on_device_sampling=odsc is not None,
+        sampling = dict(
             do_sample=bool(odsc and odsc.do_sample),
+            global_topk=odsc.global_topk if odsc else 256,
+            deterministic=bool(odsc and odsc.deterministic),
         )
-        # the device-resident loop: each step emits the next step's inputs
-        # (only meaningful with on-device sampling)
-        nxt = dict(return_next_inputs=bool(tc.async_mode and odsc is not None))
+        fwd = dict(output_logits=tc.output_logits, on_device_sampling=odsc is not None,
+                   **sampling)
+        # the device-resident loops: each step emits the next step's inputs
+        # (only meaningful with on-device sampling); K-step windows chain off
+        # the context encoding's the same way
+        nxt = dict(return_next_inputs=bool(
+            (tc.async_mode or tc.decode_steps_per_dispatch > 1) and odsc is not None))
         self.models[TAG_CONTEXT_ENCODING] = ModelWrapper(
             TAG_CONTEXT_ENCODING, self.config, arch, inv_freq,
             batch_size=tc.ctx_batch_size, n_active_tokens=0,
@@ -105,6 +116,29 @@ class TorchModelForCausalLM:
             attend_to_cache=True, device=self.device,
             forward_kwargs=dict(gather_last_token=False, **fwd, **nxt),
         )
+        if tc.decode_steps_per_dispatch > 1:
+            # K chained decode steps per dispatch; the 1-step submodel stays
+            # (the host path for logits processors and > 8 EOS ids)
+            self.models[TAG_TOKEN_GENERATION_MULTISTEP] = MultiStepTKGWrapper(
+                TAG_TOKEN_GENERATION_MULTISTEP, self.config, arch, inv_freq,
+                batch_size=tc.tkg_batch_size, n_active_tokens=1,
+                buckets=autobucketing.token_generation_buckets(self.config),
+                attend_to_cache=True, device=self.device,
+                steps_ladder=autobucketing.multistep_step_ladder(tc.decode_steps_per_dispatch),
+                forward_kwargs=sampling,
+            )
+        if tc.device_loop:
+            # the resident loop: per-row EOS and budget exit on the card
+            self.models[TAG_DEVICE_LOOP] = DeviceLoopTKGWrapper(
+                TAG_DEVICE_LOOP, self.config, arch, inv_freq,
+                batch_size=tc.tkg_batch_size, n_active_tokens=1,
+                buckets=autobucketing.token_generation_buckets(self.config),
+                attend_to_cache=True, device=self.device,
+                cap_ladder=autobucketing.device_loop_budget_ladder(
+                    tc.device_loop_fence or tc.seq_len),
+                outfeed_enabled=tc.device_loop_outfeed,
+                forward_kwargs=sampling,
+            )
         if tc.is_prefix_caching or tc.is_chunked_prefill:
             # the new chunk sees the cached prefix through the block table
             self.models[TAG_PREFIX_PREFILL] = ModelWrapper(
@@ -132,6 +166,14 @@ class TorchModelForCausalLM:
     @property
     def mixed_supported(self) -> bool:
         return TAG_MIXED in self.models
+
+    @property
+    def multistep_supported(self) -> bool:
+        return TAG_TOKEN_GENERATION_MULTISTEP in self.models
+
+    @property
+    def device_loop_supported(self) -> bool:
+        return TAG_DEVICE_LOOP in self.models
 
     @property
     def async_supported(self) -> bool:
@@ -214,4 +256,28 @@ class TorchModelForCausalLM:
             outputs, self.kv_cache = self.models[TAG_TOKEN_GENERATION].forward_device(
                 self.params, self.kv_cache, device_batch, total_len
             )
+        return outputs
+
+    def token_gen_multistep(self, batch_np):
+        """A K-step window from host inputs (``decode_steps`` picks the rung);
+        outputs carry ``tokens`` (b, K)."""
+        with span("dispatch"):
+            outputs, self.kv_cache = self.models[TAG_TOKEN_GENERATION_MULTISTEP].forward(
+                self.params, self.kv_cache, batch_np)
+        return outputs
+
+    def token_gen_multistep_device(self, device_batch, total_len: int, steps=None):
+        """A K-step window chained on the device from the previous window's
+        (or the context encoding's) ``next_inputs``; nothing syncs."""
+        with span("dispatch"):
+            outputs, self.kv_cache = self.models[TAG_TOKEN_GENERATION_MULTISTEP].forward_device(
+                self.params, self.kv_cache, device_batch, total_len, steps=steps)
+        return outputs
+
+    def token_gen_device_loop(self, batch_np):
+        """One device-loop launch: every row decodes to its EOS or budget (or
+        the cap); outputs carry ``tokens`` (b, cap) and ``loop_iters``."""
+        with span("dispatch"):
+            outputs, self.kv_cache = self.models[TAG_DEVICE_LOOP].forward(
+                self.params, self.kv_cache, batch_np)
         return outputs

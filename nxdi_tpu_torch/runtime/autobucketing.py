@@ -1,5 +1,5 @@
-"""Bucket ladders — the port's copy of the CTE/TKG/prefix-prefill/mixed parts of
-``nxdi_tpu/runtime/autobucketing.py``: powers of two from the minimum to the
+"""Bucket ladders — the port's copy of the CTE/TKG/prefix-prefill/mixed and
+multistep/device-loop parts of ``nxdi_tpu/runtime/autobucketing.py``: powers of two from the minimum to the
 maximum with the true maximum as the last rung, and capped chunk ladders for
 chunked prefill. The host pads each dispatch to the smallest rung that fits,
 exactly as the JAX package does, so both packages pick the same bucket for
@@ -95,6 +95,31 @@ def mixed_token_buckets(config) -> List[int]:
     tc = config.tpu_config
     top = tc.max_context_length + tc.tkg_batch_size
     return generate_buckets(min(2, top), top)
+
+
+def multistep_step_ladder(max_steps: int) -> List[int]:
+    """Step rungs of the multistep submodel: powers of two from 2 with K as
+    the last rung (K 8 -> [2, 4, 8]); the plain token-generation submodel is
+    the 1-step program. The dispatcher picks the smallest rung covering the
+    remaining budget."""
+    if max_steps <= 2:
+        return [max(2, max_steps)]
+    return generate_buckets(2, max_steps)
+
+
+def device_loop_budget_ladder(max_budget: int) -> List[int]:
+    """Token-buffer rungs of the device loop: powers of two from 4 with the
+    largest per-launch budget last (24 -> [4, 8, 16, 24]). A rung bounds the
+    loop, it does not schedule it: the loop exits once every row is done."""
+    if max_budget <= 4:
+        return [max(1, max_budget)]
+    return generate_buckets(4, max_budget)
+
+
+def get_target_steps(remaining: int, ladder: Sequence[int]) -> int:
+    """Smallest rung covering ``remaining`` tokens, else the largest."""
+    fits = [s for s in sorted(ladder) if s >= remaining]
+    return fits[0] if fits else max(ladder)
 
 
 def get_target_bucket(length: int, buckets: Sequence[int], strategy: str = "first_fit") -> int:

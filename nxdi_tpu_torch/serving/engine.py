@@ -1,5 +1,7 @@
-"""Continuous-batching inference engine over the paged KV pool — the
-split- and mixed-dispatch subset of ``nxdi_tpu/serving/engine.py``.
+"""Continuous-batching inference engine — the split- and mixed-dispatch
+subset of ``nxdi_tpu/serving/engine.py`` over the paged KV pool, and its
+contiguous continuous-batching path (``is_continuous_batching``: a slot is a
+cache line, ``seq_ids`` routes each row to it).
 
 ``InferenceEngine.step()`` is one scheduler iteration. With split dispatch:
 
@@ -8,9 +10,13 @@ split- and mixed-dispatch subset of ``nxdi_tpu/serving/engine.py``.
    ``chunk_size`` chunk per step, each chunk after the first (and every
    prefill that starts after a cached prefix) through the prefix-prefill
    submodel, interleaving with other slots' decodes.
-2. **Decode** every running slot in ONE batched token-generation dispatch —
-   rows carry their own positions and block tables, so a newly prefilled
-   neighbor never disturbs an in-flight row.
+2. **Decode** every running slot in ONE batched dispatch — rows carry their
+   own positions and block tables (or cache lines), so a newly prefilled
+   neighbor never disturbs an in-flight row. On the contiguous layout that
+   dispatch may be a K-step window (``tkg_multistep``, the rung from
+   :meth:`_choose_steps`) or one device-loop launch (``tkg_device_loop``,
+   every row to its EOS, its budget or the ``device_loop_fence``), with
+   per-row EOS and budget exit on the device.
 3. **Retire** finished slots (EOS / length): blocks freed (full blocks enter
    the radix prefix cache when it is on), slot recycled.
 
@@ -21,16 +27,20 @@ kernel. Chunking is the packing policy — the part of a prompt that does not
 fit the bucket budget continues next step — so neither chunked prefill nor
 the prefix cache needs the prefix-prefill submodel.
 
+Sampled decode: every dispatch takes the next key of one
+:class:`StepRngSchedule` (``seed``); a K-step window of K steps and a
+device-loop launch that ran N iterations drew K (N) keys and advance the
+schedule by K - 1 (N - 1), so windows, the loop and 1-step dispatches draw
+one stream. ``n > 1`` siblings sample apart (their
+rows draw different uniforms).
+
 Preemption: when the pool cannot grow a running decode, the scheduler
 evicts a request back to WAITING (blocks freed); on re-admission the engine
 re-prefills ``prompt + generated`` and the prefill's sampled token is simply
 the next new token — token-exact under greedy sampling.
 
-Not ported yet (each raises at construction where a config could ask for
-it): multistep decode and the device loop, contiguous
-continuous batching, stochastic sampling, and the host plane (telemetry
-spans, flight recorder, SLO and QoS tracking, fault recovery, the
-disaggregation handoff).
+Not ported yet: the host plane (telemetry spans, flight recorder, SLO and
+QoS tracking, fault recovery, the disaggregation handoff).
 """
 
 from __future__ import annotations
@@ -42,14 +52,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from nxdi_tpu_torch.kvcache.kv_cache import copy_kv_blocks
-from nxdi_tpu_torch.ops.sampling import SAMPLING_NOT_PORTED, extract_next_tokens
+from nxdi_tpu_torch.ops.sampling import StepRngSchedule, extract_next_tokens
 from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
 from nxdi_tpu_torch.runtime.block_manager import BlockSpaceManager
 from nxdi_tpu_torch.runtime.host_spans import span
 from nxdi_tpu_torch.runtime.model_wrapper import (
+    MULTISTEP_EOS_SLOTS,
     TAG_CONTEXT_ENCODING,
+    TAG_DEVICE_LOOP,
     TAG_MIXED,
     TAG_TOKEN_GENERATION,
+    TAG_TOKEN_GENERATION_MULTISTEP,
     decode_window_limit,
 )
 from nxdi_tpu_torch.serving.prefix_cache import PrefixCache
@@ -60,15 +73,16 @@ logger = logging.getLogger("nxdi_tpu_torch")
 
 
 class InferenceEngine:
-    """Host-side continuous-batching engine over a LOADED paged application
-    (``is_block_kv_layout``): slots are decode batch rows, a
-    :class:`BlockSpaceManager` owns the pool, admission respects the
-    free-block watermark, preemption on exhaustion.
+    """Host-side continuous-batching engine over a LOADED application, paged
+    (``is_block_kv_layout``: a :class:`BlockSpaceManager` owns the pool,
+    admission respects the free-block watermark, preemption on exhaustion)
+    or contiguous with ``is_continuous_batching`` (slot = cache line,
+    admission bounded by slots). Slots are decode batch rows.
 
     Single-driver: exactly one thread calls ``add_request``/``step``/``run``;
     the engine, its scheduler and the block manager own no locks."""
 
-    def __init__(self, app, scheduler_config: Optional[SchedulerConfig] = None):
+    def __init__(self, app, scheduler_config: Optional[SchedulerConfig] = None, seed: int = 0):
         if not getattr(app, "is_loaded", False):
             raise RuntimeError("InferenceEngine needs a loaded application")
         self.app = app
@@ -79,12 +93,13 @@ class InferenceEngine:
                 "the engine needs token outputs: build the app with "
                 "on_device_sampling_config (or output_logits=True for host argmax)"
             )
-        if tc.on_device_sampling_config is not None and tc.on_device_sampling_config.do_sample:
-            raise NotImplementedError(SAMPLING_NOT_PORTED)
-        if not tc.is_block_kv_layout:
-            raise NotImplementedError(
-                "the engine drives the paged KV layout (is_block_kv_layout=True); "
-                "continuous batching on the contiguous cache is not ported yet"
+        self.paged = bool(tc.is_block_kv_layout)
+        if not self.paged and not tc.is_continuous_batching:
+            raise ValueError(
+                "InferenceEngine drives the paged (is_block_kv_layout) or "
+                "continuous-batching (is_continuous_batching) layouts; the static "
+                "single-batch layout has no per-request cache routing — use "
+                "HuggingFaceGenerationAdapter.generate instead"
             )
         # work on a copy: the resolved chunk_size below must not mutate a
         # caller-owned config (the Scheduler re-copies for the same reason)
@@ -99,7 +114,14 @@ class InferenceEngine:
                 f"num_slots ({num_slots}) cannot exceed the compiled decode "
                 f"batch (tkg_batch_size={tc.tkg_batch_size})"
             )
-        self.block_manager = BlockSpaceManager(tc.pa_num_blocks, tc.pa_block_size)
+        if not self.paged:
+            lines = tc.kv_cache_batch_size + tc.kv_cache_padding_size
+            if num_slots > lines:
+                raise ValueError(
+                    f"num_slots ({num_slots}) cannot exceed the KV cache lines "
+                    f"(kv_cache_batch_size + kv_cache_padding_size = {lines})")
+        self.block_manager = (BlockSpaceManager(tc.pa_num_blocks, tc.pa_block_size)
+                              if self.paged else None)
         self._can_continue_prefill = TAG_PREFIX_PREFILL in app.models
         # mixed dispatch: the whole step (prefill chunks + decode rows) is
         # ONE packed mixed_model forward; it continues prefills by itself
@@ -121,6 +143,9 @@ class InferenceEngine:
         # the tail through the prefix-prefill submodel
         self.prefix_cache = None
         if cfg.prefix_cache:
+            if not self.paged:
+                raise ValueError("prefix_cache requires the paged KV layout "
+                                 "(is_block_kv_layout=True)")
             if not self._can_continue_prefill and not self.mixed:
                 raise ValueError(
                     "prefix_cache starts prefills at the cached position; "
@@ -130,12 +155,21 @@ class InferenceEngine:
                 )
             self.prefix_cache = PrefixCache(self.block_manager)
             self.scheduler.prefix_cache = self.prefix_cache
-        # n>1 sibling forks start their tail prefill mid-prompt too
-        self.scheduler.can_fork = self._can_continue_prefill or self.mixed
+        # n>1 sibling forks start their tail prefill mid-prompt too (on the
+        # contiguous layout siblings simply prefill)
+        self.scheduler.can_fork = self.paged and (self._can_continue_prefill or self.mixed)
         self.window_limit = decode_window_limit(tc, app.models)
-        self._table_width = -(-tc.seq_len // tc.pa_block_size)
+        self._table_width = -(-tc.seq_len // tc.pa_block_size) if self.paged else 0
+        self._rng = StepRngSchedule(seed)
+        self._multistep = app.models.get(TAG_TOKEN_GENERATION_MULTISTEP)
+        # the device loop serves every decode window it can (_use_device_loop)
+        self._dloop = app.models.get(TAG_DEVICE_LOOP)
         #: forwards this engine dispatched, by submodel
         self.dispatches: Dict[str, int] = {tag: 0 for tag in app.models}
+        #: decode steps the K-step windows ran (the sum of their rungs)
+        self.multistep_steps = 0
+        #: device-loop launches, the iterations they ran, the tokens they retired
+        self.loop_launches = self.loop_iterations = self.loop_tokens = 0
         self._progress = False
 
     # -- request intake -----------------------------------------------------
@@ -196,10 +230,10 @@ class InferenceEngine:
         if req.params.max_new_tokens > budget:
             req.params = dataclasses.replace(req.params, max_new_tokens=budget)
         # reject up front what the pool can never hold even running alone
-        bs = self.block_manager.block_size
+        bs = self.block_manager.block_size if self.paged else 1
         final = len(req.prompt) + req.params.max_new_tokens
         needed = -(-final // bs)
-        if needed > self.block_manager.num_blocks:
+        if self.paged and needed > self.block_manager.num_blocks:
             raise ValueError(
                 f"request needs {needed} KV blocks at its full length "
                 f"({final} tokens) but the pool holds "
@@ -237,7 +271,14 @@ class InferenceEngine:
                             victim.request_id)
             rows = self._cow_decode_rows(rows)
         if rows:
-            self._decode_single(rows, finished)
+            if self._use_device_loop(rows):
+                self._decode_device_loop(rows, finished)
+            else:
+                steps = self._choose_steps(rows)
+                if steps > 1:
+                    self._decode_multistep(rows, steps, finished)
+                else:
+                    self._decode_single(rows, finished)
         # a preemption-only step still made progress (the freed blocks are
         # what lets the NEXT step admit)
         self._progress = bool(prefills) or bool(rows) or bool(preempted) or bool(finished)
@@ -262,6 +303,8 @@ class InferenceEngine:
 
     def _forward(self, submodel: str, ids, pos, **kwargs):
         self.dispatches[submodel] += 1
+        if self.app.models[submodel].needs_rng:
+            kwargs["rng"] = self._rng.next()
         return self.app.forward(ids, pos, submodel=submodel, **kwargs)
 
     # -- copy-on-write ------------------------------------------------------
@@ -272,7 +315,7 @@ class InferenceEngine:
         manager swaps the table entry; the copy runs on the pool's stream,
         so it lands before the dispatch that writes the block."""
         mgr = self.block_manager
-        if hi <= lo:
+        if mgr is None or hi <= lo:
             return
         table = mgr._tables.get(req.request_id)
         if not table:
@@ -343,10 +386,120 @@ class InferenceEngine:
 
     # -- decode -------------------------------------------------------------
     def _layout_kwargs(self, rows: List[Tuple[int, Request]]) -> Dict[str, np.ndarray]:
+        """Each row's block table, or on the contiguous layout its cache line
+        (the slot)."""
+        if not self.paged:
+            return {"seq_ids": np.array([slot for slot, _ in rows], dtype=np.int32)}
         bt = np.stack([
             self.block_manager.block_table(r.request_id, self._table_width) for _, r in rows
         ])
         return {"block_table": bt}
+
+    def _window_inputs(self, rows: List[Tuple[int, Request]]) -> Dict[str, np.ndarray]:
+        """The inputs of a K-step window or a loop launch: each row's last
+        token and position, sampling row, EOS slots and remaining budget."""
+        B = len(rows)
+        eos = np.full((B, MULTISTEP_EOS_SLOTS), -1, dtype=np.int32)
+        for i, (_, r) in enumerate(rows):
+            eos[i, : len(r.params.eos_token_ids)] = r.params.eos_token_ids
+        return {
+            "input_ids": np.array([[r.generated[-1]] for _, r in rows], dtype=np.int32),
+            "position_ids": np.array([[r.total_len - 1] for _, r in rows], dtype=np.int32),
+            "last_token_index": np.zeros((B,), dtype=np.int32),
+            "sampling_params": SamplingParams.rows_tensor([r.params for _, r in rows]),
+            "eos_token_ids": eos,
+            "pad_token_id": np.zeros((B,), dtype=np.int32),
+            "budget_steps": np.array([r.remaining for _, r in rows], dtype=np.int32),
+            **self._layout_kwargs(rows),
+        }
+
+    def _emit_window(self, rows, toks: np.ndarray, limits, finished) -> int:
+        """Emit up to ``limits[i]`` tokens of row i from a window's tokens,
+        stopping at the row's finish (later columns are pad fill); returns
+        the tokens emitted."""
+        total = 0
+        for i, (_, req) in enumerate(rows):
+            for j in range(int(limits[i])):
+                req.emit(int(toks[i, j]))
+                total += 1
+                reason = req.check_finish()
+                if reason:
+                    self._finish(req, reason, finished)
+                    break
+        return total
+
+    def _choose_steps(self, rows: List[Tuple[int, Request]]) -> int:
+        """The K-step rung for this window: the smallest rung that finishes
+        every row, else the largest that keeps every row's last real write
+        inside the decode window; 1 (the plain step) without the submodel,
+        with more EOS ids than its slots, or with one token left per row.
+        Rows near their budget ride along and freeze on the device."""
+        if self._multistep is None:
+            return 1
+        if any(len(r.params.eos_token_ids) > MULTISTEP_EOS_SLOTS for _, r in rows):
+            return 1
+        max_rem = max(r.remaining for _, r in rows)
+        if max_rem <= 1:
+            return 1
+        rungs = [s for s in self._multistep.steps_ladder
+                 if all(r.total_len + min(r.remaining, s) <= self.window_limit + 1
+                        for _, r in rows)]
+        if not rungs:
+            return 1
+        covering = [s for s in rungs if s >= max_rem]
+        return min(covering) if covering else max(rungs)
+
+    def _decode_multistep(self, rows: List[Tuple[int, Request]], steps: int,
+                          finished: List[RequestOutput]) -> None:
+        batch = self._window_inputs(rows)
+        batch["decode_steps"] = steps
+        if self._multistep.needs_rng:
+            batch["rng"] = self._rng.next()
+        self.dispatches[TAG_TOKEN_GENERATION_MULTISTEP] += 1
+        self.multistep_steps += steps
+        out = self.app.token_gen_multistep(batch)
+        with span("token_fetch"):
+            toks = out["tokens"].cpu().numpy()
+        if self._multistep.needs_rng and steps > 1:
+            # step t of the window drew (seed, counter + t): land where
+            # `steps` chained 1-step dispatches would have
+            self._rng.advance(steps - 1)
+        self._emit_window(rows, toks, [steps] * len(rows), finished)
+
+    def _use_device_loop(self, rows: List[Tuple[int, Request]]) -> bool:
+        """The loop serves this window when it is built, every row's EOS ids
+        fit its slots, and some row has more than one token left."""
+        if self._dloop is None:
+            return False
+        if any(len(r.params.eos_token_ids) > MULTISTEP_EOS_SLOTS for _, r in rows):
+            return False
+        return max(r.remaining for _, r in rows) > 1
+
+    def _decode_device_loop(self, rows: List[Tuple[int, Request]],
+                            finished: List[RequestOutput]) -> None:
+        """ONE device-loop launch serves every row to its EOS, its budget or
+        the fence (``device_loop_fence`` caps tokens per launch: admission,
+        retirement and preemption get a scheduling point between launches)."""
+        batch = self._window_inputs(rows)
+        fence = self.tpu_config.device_loop_fence
+        if fence:
+            batch["budget_steps"] = np.minimum(batch["budget_steps"], fence)
+        batch["loop_cap"] = self._dloop.select_cap(int(batch["budget_steps"].max()))
+        if self._dloop.needs_rng:
+            batch["rng"] = self._rng.next()
+        self.dispatches[TAG_DEVICE_LOOP] += 1
+        out = self.app.token_gen_device_loop(batch)
+        iters = int(out["loop_iters"])
+        with span("token_fetch"):
+            toks = out["tokens"].cpu().numpy()
+        if self._dloop.needs_rng and iters > 1:
+            # iteration t drew (seed, counter + t): land where `iters` chained
+            # 1-step dispatches would have
+            self._rng.advance(iters - 1)
+        self.loop_launches += 1
+        self.loop_iterations += iters
+        self.loop_tokens += self._emit_window(
+            rows, toks, np.minimum(iters, batch["budget_steps"]), finished)
 
     def _decode_single(self, rows: List[Tuple[int, Request]],
                        finished: List[RequestOutput]) -> None:

@@ -712,3 +712,149 @@ def test_failing_capture_names_submodel_and_bucket(gen, monkeypatch):
     monkeypatch.setattr(mw.base, "causal_lm_forward", syncing)
     with pytest.raises(RuntimeError, match="context_encoding_model bucket 64: CUDA graph capture"):
         _card_app(True, **STATIC)
+
+
+# --- the device-resident decode family (contiguous continuous batching) ---
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+def test_decode_with_cache_lines(gen, dtype, tol):
+    """The fused decode's line operand: row b reads cache line lines[b] of a
+    cache with more lines than rows (one line twice, one out of range and
+    clipped, as the JAX package's gather), against the plain version over
+    the gathered lines; one launch."""
+    L, Bc, B, H, KV, S, D = 3, 5, 4, 8, 2, 300, 64
+    ks, vs = _randn(gen, L, Bc, KV, S, D).to(dtype), _randn(gen, L, Bc, KV, S, D).to(dtype)
+    q = _randn(gen, B, H, 1, D).to(dtype)
+    kn, vn = _randn(gen, B, KV, 1, D).to(dtype), _randn(gen, B, KV, 1, D).to(dtype)
+    q_pos = torch.tensor([[17], [250], [0], [299]], dtype=torch.int32, device="cuda")
+    lines = torch.tensor([4, 4, 0, 9], dtype=torch.int32, device="cuda")
+    before = fa.flash_attention_decode_fused.launches
+    got = fa.flash_attention_decode_fused_stacked(q, ks, vs, kn, vn, q_pos, 1, lines=lines)
+    assert fa.flash_attention_decode_fused.launches == before + 1
+    sel = lines.long().clamp(0, Bc - 1)
+    want = fa.flash_attention_decode_fused_plain(q, ks[1][sel], vs[1][sel], kn, vn, q_pos)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    with pytest.raises(ValueError, match="no cache lines"):
+        fa.flash_attention_decode_fused_stacked(q, ks, vs, kn, vn, q_pos, 1)
+
+
+def test_commit_with_frozen_and_duplicate_lanes(gen):
+    """The commit of a K-step / loop body: rows routed to cache lines, a
+    frozen lane (slot -1) and a padding lane repeating row 0 (its line, its
+    slot, its rows) land exactly as the plain version's."""
+    L, Bc, B, KV, S, D = 2, 4, 5, 2, 64, 16
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v = _randn(gen, L, Bc, KV, S, D).to(dtype), _randn(gen, L, Bc, KV, S, D).to(dtype)
+        kr, vr = _randn(gen, L, B, KV, 1, D).to(dtype), _randn(gen, L, B, KV, 1, D).to(dtype)
+        kr[:, 4], vr[:, 4] = kr[:, 0], vr[:, 0]
+        slots = torch.tensor([[10], [3], [-1], [63], [10]], dtype=torch.int32, device="cuda")
+        lines = torch.tensor([2, 0, 1, 3, 2], dtype=torch.int32, device="cuda")
+        k_ref, v_ref = k.clone(), v.clone()
+        kc.kv_commit_rows_plain(k_ref, v_ref, kr, vr, slots, lines)
+        kc.kv_commit_rows(k, v, kr, vr, slots, lines)
+        torch.cuda.synchronize()
+        assert torch.equal(k, k_ref) and torch.equal(v, v_ref)
+
+
+def test_sampler_under_graph_capture(gen):
+    """The sampler captured in a CUDA graph: one replay per key gives fresh
+    draws that a replay with the same key repeats, and the CPU's tokens."""
+    from nxdi_tpu_torch.ops import sampling as so
+
+    logits = _randn(gen, 8, 1000) * 3
+    sp = torch.tensor([[50, 0.9, 0.8]] * 8, device="cuda")
+    key = torch.tensor([7, 1], device="cuda")
+    out = so.sample(logits, sp, rng=key, do_sample=True)  # eager first
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = so.sample(logits, sp, rng=key, do_sample=True)
+    seen = []
+    for c in (1, 2, 3, 1):
+        key.copy_(torch.tensor([7, c]))
+        g.replay()
+        torch.cuda.synchronize()
+        seen.append(out.clone())
+        want = so.sample(logits.cpu(), sp.cpu(), rng=torch.tensor([7, c]), do_sample=True)
+        assert torch.equal(out.cpu(), want)
+    assert torch.equal(seen[0], seen[3])
+    assert not torch.equal(seen[0], seen[1]) and not torch.equal(seen[1], seen[2])
+
+
+def test_loop_window_graph_capture(gen):
+    """The device loop's window graph: one captured iteration behind IF
+    nodes, the loop state updated in place, the kernels launched on
+    PyTorch's current stream captured into the IF bodies. Budgets 3 and 12
+    (cap 16, windows of 8): two windows, twelve iterations, the skipped
+    bodies launching nothing (the launch counters add one iteration's
+    launches per iteration), and the loop's tokens equal to the eager
+    loop's."""
+    from nxdi_tpu_torch.ops.kernels import launch_counters
+
+    tc = dict(CB, device_loop=True)
+    graphs = _card_app(True, **tc)
+    eager = _card_app(False, params=graphs.params, **tc)
+    w = graphs.models["tkg_device_loop"]
+    assert w.loop_graphs  # warmup built a window graph per (cap, bucket)
+    outs = []
+    for app in (graphs, eager):
+        first = _cb_prefill(app)
+        for fn in launch_counters():
+            fn.launches = 0
+        out = app.token_gen_device_loop(dict(
+            input_ids=first[:, None], position_ids=np.array([[20], [33]], np.int32),
+            last_token_index=np.zeros(2, np.int32), seq_ids=np.array([1, 0], np.int32),
+            budget_steps=np.array([3, 12], np.int32)))
+        assert int(out["loop_iters"]) == 12
+        outs.append((out["tokens"][:, :12].cpu().clone(), _counts()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1]
+    assert outs[0][1]["flash_attention_decode_fused"] == 12 * 2  # 2 layers
+    assert outs[0][1]["kv_commit_rows"] == 12
+    assert w._windows_run == [0, 1]
+    ring = w.drain_outfeed()
+    assert [e[0] for e in ring] == list(range(12))
+    assert all(np.array_equal(e[1][:2], outs[0][0][:, e[0]].numpy()) for e in ring)
+
+
+def _cb_prefill(app):
+    rng = np.random.default_rng(2)
+    first = []
+    for n, line in ((20, 1), (33, 0)):
+        out = app.forward(rng.integers(1, 512, (1, n)).astype(np.int32),
+                          np.arange(n, dtype=np.int32)[None],
+                          last_token_index=np.array([n - 1], np.int32),
+                          seq_ids=np.array([line], np.int32))
+        first.append(int(out["tokens"][0, 0]))
+    return np.array(first, np.int32)
+
+
+CB = dict(batch_size=2, seq_len=256, max_context_length=64, enable_bucketing=True,
+          context_encoding_buckets=[32, 64], token_generation_buckets=[64, 128, 256],
+          is_continuous_batching=True, device_loop_fence=16, device_loop_outfeed=True)
+
+
+@pytest.mark.parametrize("mode", ["K-step", "loop"])
+def test_contiguous_engine_graphs_equal_eager_and_one_step(gen, mode):
+    """The contiguous engine on the card, K-step windows (ladder 2, 4) or the
+    loop (fence 16), through the graphs: the streams of the same app eager and
+    of the 1-step engine, with interleaved arrivals and length finishes."""
+    from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams
+
+    extra = dict(decode_steps_per_dispatch=4) if mode == "K-step" else dict(device_loop=True)
+    one = _card_app(True, **CB)
+    apps = [_card_app(g, params=one.params, **CB, **extra) for g in (True, False)]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (30, 50, 12)]
+    streams = []
+    for app in (one, *apps):
+        eng = InferenceEngine(app)
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=m))
+                for p, m in zip(prompts[:2], (9, 14))]
+        outs = eng.step()
+        reqs.append(eng.add_request(prompts[2], SamplingParams(max_new_tokens=6)))
+        outs += eng.run()
+        got = {o.request_id: o.token_ids for o in outs}
+        streams.append([got[r.request_id] for r in reqs])
+    assert streams[0] == streams[1] == streams[2]
+    assert [len(s) for s in streams[0]] == [9, 14, 6]

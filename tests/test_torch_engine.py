@@ -301,11 +301,14 @@ def test_n_fork_shares_the_prompt_copy_on_write(tiny_hf_llama):
 
 def test_engine_refuses_what_is_not_ported(tiny_hf_llama):
     hf_model, hf_cfg = tiny_hf_llama
-    for key, value in (("device_loop", True),
-                       ("decode_steps_per_dispatch", 2), ("role", "decode"),
-                       ("is_continuous_batching", True)):
+    for key, value in (("role", "decode"), ("padding_side", "left")):
         with pytest.raises(NotImplementedError, match=key):
             TorchConfig(**{key: value})
+    # ported: the device-resident decode family, under the JAX package's rules
+    for key, value in (("device_loop", True), ("decode_steps_per_dispatch", 2)):
+        with pytest.raises(ValueError, match="requires on-device sampling"):
+            TorchConfig(**{key: value})
+    assert TorchConfig(is_continuous_batching=True).is_continuous_batching
     with pytest.raises(ValueError, match="requires is_block_kv_layout"):
         TorchConfig(is_prefix_caching=True)
     # mixed dispatch is ported; the JAX package's rules for it and for the
@@ -325,5 +328,5 @@ def test_engine_refuses_what_is_not_ported(tiny_hf_llama):
 
     app = App("<memory>", cfg, model_family=tml, device="cpu")
     app.load()
-    with pytest.raises(NotImplementedError, match="is_block_kv_layout"):
-        InferenceEngine(app)
+    with pytest.raises(ValueError, match="is_block_kv_layout"):
+        InferenceEngine(app)  # the static layout has no per-request cache routing
