@@ -84,6 +84,28 @@ code is non-zero:
    identical streams, exact launch counts, tok/s, TTFT, TPOT, dispatches,
    loop iterations per launch, a profiled decode step's busy/idle share and
    host split, capture seconds and warmup memory.
+3e. The four kernels that read or write a one-byte KV store (the commit,
+   the paged decode and prefill, the ragged kernels) over float8_e4m3fn,
+   float8_e5m2 and int8 pools and rows, against their plain versions at
+   phases 3, 3b and 3c's shapes (bf16 q; f32 q checked too); e4m3 timed
+   beside the same call over a bf16 pool, with the bound recomputed for
+   one-byte K/V; the one-byte paged prefill runs the mma.sync body.
+4e. Quantization at full width, 2 layers, float32: the split paged engine
+   on an e4m3 per-tensor pool (CPU, card graphs, card eager: streams
+   identical, logits within QUANT_LOGIT_TOL, replays equal to eager, exact
+   launch counts, the paged-decode kernel on its decode path); the
+   contiguous engine on an e4m3 cache (one-byte commits, the fused decode
+   per layer over the dequantized window); generate() with
+   int8 and fp8 weights
+   (CPU vs card); the disaggregated pair (prefill-role and decode-role
+   engines, e4m3 pools) equal to the unified card engine.
+5e. At full depth, bf16: phase 5b's and 5c's traffic on an e4m3 per-tensor
+   pool (half 5b's pool bytes); phase 5's decode with int8 and fp8 weights
+   and with an e4m3 KV cache; the disaggregated pair over 5b's requests at
+   bf16 and e4m3 beside the unified engine (tok/s, TTFT, TPOT, export and
+   import ms, bytes per handoff); drive_arrivals and goodput_summary over a
+   Poisson run (seed 17, its span rescaled to the nominal one) at half the
+   unified engine's request rate.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -135,6 +157,17 @@ DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 DECODE_CALLS = 21
 LOGIT_TOL = 1e-4  # phases 4/4b/4c: float32 CPU vs card logits (measured 8.9e-6, 8.5e-6 and
 # 1.9e-5), 2 layers, full width
+# phase 4e on one-byte KV stores: the CPU's and the card's K/V differ in the
+# last float bits before the store cast, and a value near a rounding
+# boundary lands on the neighbouring code (an e4m3 step is 6-12 % of the
+# value), which moves a 2-layer logit by far more than the float noise,
+# more as a run's stored rows (and flips) accumulate: measured 4.6e-3 over
+# phase 4b's traffic (1216 of 3.3M stored K codes apart) and 1.6e-2 over
+# 4c's (NVIDIA H100 80GB HBM3, 700 W). This bound only catches a wrong
+# kernel (errors of order 1); the kernels themselves agree with their plain
+# versions to ~3e-7 in f32 on the same store (phase 3e), and the streams
+# must still be identical
+QUANT_LOGIT_TOL = 5e-2
 # phase 3b (paged decode, paged prefill, window decode): a few times the
 # error measured on an H100 (bf16 1.95e-3 for all three, one output ulp near
 # 0.5; f32 2.2e-7 to 4.3e-7)
@@ -150,8 +183,12 @@ NEW_TOL = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    """A line on stderr, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", file=sys.stderr, flush=True)
 
 
 def card_line() -> str:
@@ -1032,17 +1069,20 @@ def check_mixed_kernels(torch, results):
 
 def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, dense, *,
              layers, dtype, batch, seq_len, ctx_len, device, params=None, output_logits=False,
-             graphs=True, async_mode=False, steps=1, do_sample=False):
+             graphs=True, async_mode=False, steps=1, do_sample=False, **extra):
     """The static slice's app, loaded and warmed up (every bucket captured
     into its CUDA graph on the card unless ``graphs`` is False); ``steps`` > 1
-    adds the K-step submodel, ``do_sample`` the sampler."""
-    tcfg = TorchConfig(
-        tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
-        dtype=dtype, on_device_sampling_config=OnDeviceSamplingConfig(do_sample=do_sample),
-        attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
-        output_logits=output_logits, skip_warmup=True, async_mode=async_mode,
-        decode_steps_per_dispatch=steps,
-    )
+    adds the K-step submodel, ``do_sample`` the sampler; ``extra`` sets or
+    overrides config keys (quantization)."""
+    tcfg = TorchConfig(**{
+        **dict(tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
+               dtype=dtype, on_device_sampling_config=OnDeviceSamplingConfig(do_sample=do_sample),
+               attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
+               output_logits=output_logits, skip_warmup=True, async_mode=async_mode,
+               decode_steps_per_dispatch=steps),
+        **extra})
+    from nxdi_tpu_torch.runtime.application import maybe_quantize_params
+
     cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
     arch = ml.build_arch(cfg)
 
@@ -1050,7 +1090,10 @@ def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, den
         def build_params(self):
             if params is not None:
                 return params
-            return dense.random_params(arch, seed=0, device=device)
+            # quantized (``quantized`` in ``extra``) on the device, as
+            # build_params quantizes a converted checkpoint
+            return maybe_quantize_params(dense.random_params(arch, seed=0, device=device),
+                                         self.tpu_config)
 
     app = App("<random>", cfg, model_family=ml, device=device, graphs=graphs)
     app.load()
@@ -1065,10 +1108,14 @@ def warm(app):
     pool and the eager runs; max_memory_allocated after
     reset_peak_memory_stats) and the memory the warmup left reserved once
     the caching allocator's free blocks are released (the graphs' pool
-    segments, their outputs and the static inputs)."""
+    segments, their outputs and the static inputs). A CPU reference app
+    captures nothing, so it skips the warmup (its dispatches stage on first
+    use, as with ``skip_warmup``)."""
     import torch
 
     cuda = app.device.type == "cuda"
+    if not cuda:
+        return dict(warmup_s=0.0, graphs=app.graphs, skipped="CPU reference")
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1422,16 +1469,19 @@ MIXED_FLAGS = dict(mixed_dispatch=True, fused_qkv=True, qkv_kernel_enabled=True,
 
 
 def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
-                    num_blocks, chunk, block_tkg, device, params=None, mixed=False, graphs=True):
+                    num_blocks, chunk, block_tkg, device, params=None, mixed=False, graphs=True,
+                    **extra):
+    """The paged engine's app (``extra``: more config keys, e.g. a quantized
+    KV pool or a role; a decode-role app takes no chunked prefill)."""
     tcfg = TorchConfig(
         tp_degree=1, batch_size=1, ctx_batch_size=1, tkg_batch_size=slots, seq_len=seq_len,
         max_context_length=ctx_len, dtype=dtype, on_device_sampling_config=ODSC(),
         enable_bucketing=True, is_block_kv_layout=True, pa_block_size=128,
-        pa_num_blocks=num_blocks, is_prefix_caching=True,
-        chunked_prefill_config={"chunk_size": chunk},
+        pa_num_blocks=num_blocks, is_prefix_caching=extra.get("role") != "decode",
+        chunked_prefill_config=None if extra.get("role") == "decode" else {"chunk_size": chunk},
         attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
         attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=True,
-        **(MIXED_FLAGS if mixed else {}),
+        **(MIXED_FLAGS if mixed else {}), **extra,
     )
     cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
     arch = ml.build_arch(cfg)
@@ -1495,7 +1545,7 @@ def record_packs(app):
     return packs
 
 
-def engine_vs_cpu(torch, np, mods, mixed=False):
+def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None):
     """Phases 4b and 4c: the same traffic through a CPU engine (plain
     versions) and a card engine (kernels): 6 requests, interleaved arrivals,
     two sharing a 256-token (2-block) prefix, one 300-token prompt longer than
@@ -1506,7 +1556,9 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
     packs a prefill with decode rows, and the ragged, QKV and MLP launches
     are exactly 2 per mixed dispatch, every other attention kernel 0. The
     card runs through the graphs, and again eagerly: the same streams, the
-    same launch counts and every dispatch's logits bit for bit.
+    same launch counts and every dispatch's logits bit for bit. With ``kvq``
+    (phase 4e) the pool holds a quantized store and the split engine
+    decodes through the paged-decode kernel (the block-table decode flag).
     Returns the card run's launch counts and the worst logit difference."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
     from nxdi_tpu_torch.runtime.model_wrapper import (
@@ -1518,14 +1570,18 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
     L = 2
-    phase = "4c" if mixed else "4b"
+    phase = ("4e" if kvq else "4c" if mixed else "4b") + (" mixed" if kvq and mixed else "")
+    block_tkg = kvq is not None
     kw = dict(layers=L, dtype="float32", slots=4, seq_len=512, ctx_len=512, num_blocks=24,
-              chunk=256, block_tkg=False, mixed=mixed)
+              chunk=256, block_tkg=block_tkg, mixed=mixed,
+              **({} if kvq is None else dict(kv_quant_config=kvq)))
+    t = time.perf_counter()
     cpu_app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **kw)
     gpu_app, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
                                  params=cpu_app.params, **kw)
     eager_app, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
                                    params=gpu_app.params, graphs=False, **kw)
+    log(f"[engine-2L {phase}] 3 apps loaded {time.perf_counter() - t:.1f} s")
     rng = np.random.default_rng(5)
     shared = rng.integers(1, arch.vocab_size, 256).tolist()
     prompts = [rng.integers(1, arch.vocab_size, n).tolist() for n in (300, 140)]
@@ -1582,7 +1638,10 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
         return ([got[r.request_id] for r in reqs], logits, strategies_of(app),
                 dict(eng.dispatches), packs)
 
+    t = time.perf_counter()
     cpu_streams, cpu_logits, cpu_strats, _, _ = drive(cpu_app)
+    log(f"[engine-2L {phase}] CPU run {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     kernels = dict(attention_kernels(), **mixed_kernels())
     for fn in kernels.values():
         fn.launches = 0
@@ -1592,6 +1651,7 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
         fn.launches = 0
     eager_streams, eager_logits, eager_strats, eager_disp, _ = drive(eager_app)
     eager_counts = {k: fn.launches for k, fn in kernels.items()}
+    log(f"[engine-2L {phase}] card runs (graphs, eager) {time.perf_counter() - t:.1f} s")
     assert eager_streams == gpu_streams, f"phase {phase}: graph and eager streams differ"
     assert (eager_counts, eager_disp, eager_strats) == (counts, disp, gpu_strats), (
         f"phase {phase}: eager {eager_counts} {eager_disp} vs graphs {counts} {disp}")
@@ -1603,37 +1663,50 @@ def engine_vs_cpu(torch, np, mods, mixed=False):
         assert sum(disp.values()) == disp[TAG_MIXED], f"phase 4c: dispatches {disp}"
         strats = {"qkv_fused_kernel", "mixed_ragged_kernel", "mlp_fused_kernel"}
     else:
-        want.update(prefill=L * disp[TAG_CONTEXT_ENCODING],
-                    paged_prefill=L * disp[TAG_PREFIX_PREFILL],
-                    window_decode=L * disp[TAG_TOKEN_GENERATION])
-        strats = {"cte_flash_kernel", "cte_paged_kernel", "tkg_kernel"}
+        decode = "paged_decode" if block_tkg else "window_decode"
+        want.update({"prefill": L * disp[TAG_CONTEXT_ENCODING],
+                     "paged_prefill": L * disp[TAG_PREFIX_PREFILL],
+                     decode: L * disp[TAG_TOKEN_GENERATION]})
+        strats = {"cte_flash_kernel", "cte_paged_kernel",
+                  "tkg_paged_kernel" if block_tkg else "tkg_kernel"}
     assert counts == want, f"phase {phase}: launch counts {counts} != {want} (dispatches {disp})"
-    busy = ("ragged", "qkv", "mlp") if mixed else ("prefill", "paged_prefill", "window_decode")
+    busy = ("ragged", "qkv", "mlp") if mixed else ("prefill", "paged_prefill", decode)
     assert all(want[k] > 0 for k in busy), counts
     assert cpu_strats == gpu_strats == strats, (cpu_strats, gpu_strats)
     assert len(cpu_logits) == len(gpu_logits), f"phase {phase}: dispatch counts differ"
     worst = 0.0
+    tol = LOGIT_TOL if kvq is None else QUANT_LOGIT_TOL
     for i, (lc, lg) in enumerate(zip(cpu_logits, gpu_logits)):
         err = (lc - lg).abs().max().item()
         worst = max(worst, err)
-        assert err <= LOGIT_TOL, f"phase {phase} dispatch {i}: logits differ by {err} > {LOGIT_TOL}"
+        assert err <= tol, f"phase {phase} dispatch {i}: logits differ by {err} > {tol}"
     assert cpu_streams == gpu_streams, f"phase {phase}: CPU and card streams differ"
     graphs = {tag: sorted(w.bucket_graphs) for tag, w in gpu_app.models.items()}
-    log(f"[engine-2L{' mixed' if mixed else ''}] {len(cpu_logits)} dispatches compared, max "
-        f"logit diff {worst:.3g} (tol {LOGIT_TOL}); streams identical; launches {counts} "
+    if kvq is not None:
+        assert gpu_app.kv_cache["k"].dtype == cpu_app.kv_cache["k"].dtype != torch.float32
+        # how many stored codes the CPU and the card rounded apart
+        a = gpu_app.kv_cache["k"].view(torch.uint8).cpu()
+        b = cpu_app.kv_cache["k"].view(torch.uint8)
+        log(f"[engine-2L {phase}] stored K codes that differ CPU vs card: "
+            f"{int((a != b).sum())} of {a.numel()}")
+    log(f"[engine-2L{' mixed' if mixed else ''}{' ' + str(kvq) if kvq else ''}] "
+        f"{len(cpu_logits)} dispatches compared, max "
+        f"logit diff {worst:.3g} (tol {tol}); streams identical; launches {counts} "
         f"(dispatches {disp}); graph replay = eager bit for bit over {n_same} dispatches; "
         f"graphs by bucket {graphs}")
     return counts, worst
 
 
-def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True):
+def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None, keep_app=False):
     """Phases 5b and 5c: 16 layers, bf16, 8 slots; 16 requests with prompts
     of 200-992 tokens (prompt + 32 new tokens must fit the 1024-token decode
     window the prefix-prefill ladder sets), 8 of them sharing a 384-token
     prefix; 8 arrive at the start, then one per engine step. Split dispatch
     (5b) or one mixed dispatch per step through the ragged, QKV and MLP
     kernels (5c); every bucket a CUDA graph, or (``graphs=False``) every
-    dispatch eager. Profiled steps carry the host split."""
+    dispatch eager. Profiled steps carry the host split. ``kvq`` (phase 5e):
+    the same on a quantized pool; ``keep_app``: the app is returned in the
+    stats (``app``) for more traffic."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
     from nxdi_tpu_torch.runtime.model_wrapper import (
         TAG_CONTEXT_ENCODING,
@@ -1644,12 +1717,14 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True):
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
     L, NEW = 16, 32
-    tag = ("[engine-16L mixed" if mixed else "[engine-16L") + (" graphs]" if graphs else " eager]")
-    phase = "5c" if mixed else "5b"
+    tag = (("[engine-16L mixed" if mixed else "[engine-16L") + (" graphs" if graphs else " eager")
+           + (f" {kvq['dtype']} pool]" if kvq else "]"))
+    phase = ("5e " if kvq else "") + ("5c" if mixed else "5b")
     t0 = time.perf_counter()
     app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
                                 slots=8, seq_len=2048, ctx_len=1024, num_blocks=136, chunk=512,
-                                block_tkg=True, device="cuda", mixed=mixed, graphs=graphs)
+                                block_tkg=True, device="cuda", mixed=mixed, graphs=graphs,
+                                **({} if kvq is None else dict(kv_quant_config=kvq)))
     log(f"{tag} load + warmup {time.perf_counter() - t0:.1f} s; {app.warm_stats}")
     rng = np.random.default_rng(17)
     shared = rng.integers(1, arch.vocab_size, 384).tolist()
@@ -1745,7 +1820,10 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True):
         profiled["prefix_prefill"] = profiled_call(torch, eng.step)
         assert eng.dispatches.get(TAG_PREFIX_PREFILL, 0) == before.get(TAG_PREFIX_PREFILL, 0) + 1
         pre_attn = attention_ms(profiled["prefix_prefill"][2])
-        assert "prefill_wgmma_kernel" in pre_attn and "prefill_tc_kernel" not in pre_attn, pre_attn
+        # over a one-byte pool the paged prefill runs the mma.sync body
+        want_k, other = (("prefill_tc_kernel", "prefill_wgmma_kernel") if kvq
+                         else ("prefill_wgmma_kernel", "prefill_tc_kernel"))
+        assert want_k in pre_attn and other not in pre_attn, pre_attn
         eng.run()
     for i in range(8):
         eng.add_request(rng.integers(1, arch.vocab_size, 200).tolist(),
@@ -1761,7 +1839,9 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True):
     profiled["decode"] = profiled_call(torch, eng.step)
     eng.run()
     stats = dict(
-        card=card, graphs=graphs, warmup=app.warm_stats,
+        card=card, graphs=graphs, warmup=app.warm_stats, kv_quant=kvq,
+        pool_bytes=sum(t.numel() * t.element_size() for t in app.kv_cache.values()),
+        pool_dtype=str(app.kv_cache["k"].dtype).replace("torch.", ""),
         streams=[o.token_ids for o in sorted(outs, key=lambda o: o.request_id)],
         wall_s=wall, tok_s=tok_s, ttft_p50_ms=float(np.percentile(ttft, 50)),
         ttft_p95_ms=float(np.percentile(ttft, 95)), tpot_p50_ms=float(np.percentile(tpot, 50)),
@@ -1802,6 +1882,9 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True):
         f"{stats['tpot_p50_ms']:.3f} ms; dispatches {disp}; prefix hits {hits}")
     if mixed:
         log(f"{tag} packed / padded tokens by bucket: {stats['packed_vs_padded_by_bucket']}")
+    stats["prompts"] = prompts
+    if keep_app:
+        stats["app"] = app
     return counts, stats
 
 
@@ -1968,18 +2051,20 @@ SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8)
 
 def make_cb_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
                 device, params=None, graphs=True, steps=1, loop=False, fence=0,
-                do_sample=False, deterministic=False, output_logits=False):
+                do_sample=False, deterministic=False, output_logits=False, **extra):
     """A contiguous continuous-batching app (slot = cache line): the K-step
     submodel when ``steps`` > 1, the device loop when ``loop``; its
     context-encoding batch is the decode batch (the JAX package's rule for
-    both), loaded and warmed up."""
-    tcfg = TorchConfig(
-        tp_degree=1, batch_size=slots, seq_len=seq_len, max_context_length=ctx_len, dtype=dtype,
-        on_device_sampling_config=ODSC(do_sample=do_sample, deterministic=deterministic),
-        enable_bucketing=True, is_continuous_batching=True, decode_steps_per_dispatch=steps,
-        device_loop=loop, device_loop_fence=fence, attn_kernel_enabled=True,
-        attn_tkg_kernel_enabled=True, output_logits=output_logits, skip_warmup=True,
-    )
+    both), loaded and warmed up; ``extra`` sets or overrides config keys."""
+    tcfg = TorchConfig(**{
+        **dict(tp_degree=1, batch_size=slots, seq_len=seq_len, max_context_length=ctx_len,
+               dtype=dtype,
+               on_device_sampling_config=ODSC(do_sample=do_sample, deterministic=deterministic),
+               enable_bucketing=True, is_continuous_batching=True,
+               decode_steps_per_dispatch=steps, device_loop=loop, device_loop_fence=fence,
+               attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
+               output_logits=output_logits, skip_warmup=True),
+        **extra})
     cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
     arch = ml.build_arch(cfg)
 
@@ -2375,6 +2460,643 @@ def cb_engine_run(torch, np, app, reqs, extra_prompts, NEW, L):
         by_group_ms=by_group(by_kernel), top=by_kernel[:8])
     return stats
 
+# ---------------------------------------------------------------------------
+# phase 3e: the four kernels that read or write a one-byte KV store
+# ---------------------------------------------------------------------------
+
+ONE_BYTE = ("float8_e4m3fn", "float8_e5m2", "int8")
+# max |kernel - plain| over the same one-byte pool: its values are exact in
+# bf16 and f32, so the kernels' own tolerances hold (phase 3b's bf16; f32
+# with scores of ~10, a float32 plain version)
+ONE_BYTE_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
+# the per-tensor scale each store is written and read with in phase 3e
+ONE_BYTE_SCALES = {"float8_e4m3fn": 0.5, "float8_e5m2": 0.5, "int8": 0.05}
+# phases 4e and 5e: the e4m3 pool with per-tensor scales (values / 0.25:
+# the 16-layer random model's K and V stay far inside e4m3's 448)
+E4M3_PT = dict(dtype="float8_e4m3", scale_mode="per_tensor", k_scale=0.25, v_scale=0.25)
+
+
+def take_rows(torch, cache, idx):
+    """``cache[idx]`` of a one-byte pool, gathered as bytes."""
+    if cache.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return cache.view(torch.uint8)[idx].view(cache.dtype)
+    return cache[idx]
+
+
+def to_store(torch, x, store):
+    """``x`` as a one-byte store at ONE_BYTE_SCALES' scale (int8 rounded and
+    saturated)."""
+    y = x.float() / ONE_BYTE_SCALES[store]
+    if store == "int8":
+        return y.round().clamp(-127, 127).to(torch.int8)
+    return y.to(getattr(torch, store))
+
+
+def one_byte_point(torch, results, name, store, call, plain, library, nbytes, flops, flush,
+                   kernel, bf16_call=None, timed=True, dname="bfloat16"):
+    """One (kernel, store) point of phase 3e: the kernel against its plain
+    version on the same one-byte pool (the commit bit for bit), the same
+    bits on a second call; timed (median of DECODE_CALLS flushed calls,
+    min, max) beside the same call over the bf16 pool, with the plain
+    version, the library yardstick and the bound recomputed for one-byte
+    K/V."""
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    if name == "commit":
+        err = 0.0 if all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                         for a, b in zip(got, want)) else float("inf")
+        again = call()
+        assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(again, got)), f"commit {store}: a second call differs"
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.equal(call(), got), f"{name} {store} {dname}: a second call gave other bits"
+    tol = ONE_BYTE_TOL[dname]
+    assert err <= tol, f"{name} {store} {dname}: max abs err {err} > {tol}"
+    row = dict(kernel=name, dtype=dname, store=store, point=f"{store} store", max_abs_err=err,
+               tol=tol)
+    if timed:
+        times, names, dropped = traced_times(torch, call, DECODE_CALLS, flush, kernel=kernel)
+        ms, lo, hi = spread(times)
+        lib_times, _, lib_dropped = traced_times(torch, library, DECODE_CALLS, flush)
+        plain_ms = measure(torch, plain, n=3, flush=flush)
+        bms, by = bound_ms(nbytes, flops, dname)
+        row.update(ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms, library_ms=spread(lib_times)[0],
+                   bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+                   kernels=sorted(attention_ms([(0.0, n) for n in names])) or sorted(names),
+                   calls=len(times), untraced=dropped + lib_dropped)
+        if bf16_call is not None:  # the same call over the bf16 pool, in this run
+            bt, _, _ = traced_times(torch, bf16_call, DECODE_CALLS, flush, kernel=kernel)
+            row.update(bf16_pool_ms=spread(bt)[0], bf16_pool_min=min(bt), bf16_pool_max=max(bt))
+    results.append(row)
+    log(f"[kernels-1B] {name} {store} {dname}: err {err:.3g} (tol {tol})"
+        + (f"; kernel {row['ms']:.4f} ms (min {row['ms_min']:.4f} max {row['ms_max']:.4f}; "
+           f"{'+'.join(row['kernels'])}) beside bf16 pool "
+           f"{row.get('bf16_pool_ms', float('nan')):.4f}; plain {row['plain_ms']:.4f} library "
+           f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']}), "
+           f"{100 * row['share_of_bound']:.1f} % of the bound" if timed else ""))
+    return row
+
+
+def check_one_byte_kernels(torch, results):
+    """Phase 3e: rows 4, 6, 7 and 8 over float8_e4m3fn, float8_e5m2 and int8
+    stores against their plain versions, at phases 3, 3b and 3c's shapes
+    (commit: L 16, B 8, KV 8, S 2048, D 64; paged decode: B 8, block 128,
+    positions 0...2000, a hole; paged prefill: a 512-token chunk after 512
+    cached; ragged: the decode-only bucket 8 and the packed 1032 stream).
+    e4m3 is timed beside the same call over a bf16 pool; e5m2, int8 and an
+    f32 q are checked. The library yardstick: SDPA over K/V gathered through
+    the table and dequantized (the gather and the conversion included); for
+    the commit, an index assignment of the rows' bytes."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+    from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    # --- the commit (row 4) ---
+    L, B, KV, S, D = 16, 8, 8, 2048, 64
+    slots = torch.randint(0, S, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    ar = torch.arange(B, device=dev)
+    rows_bf16 = [randn((L, B, KV, 1, D)) for _ in range(2)]
+    cache_bf16 = [randn((L, B, KV, S, D)) for _ in range(2)]
+    for store in ONE_BYTE:
+        rows = [to_store(torch, r, store) for r in rows_bf16]
+        cache = [to_store(torch, c, store) for c in cache_bf16]
+        ref = [c.clone() for c in cache]
+
+        def call(cache=cache, rows=rows):
+            return kc.kv_commit_rows(cache[0], cache[1], rows[0], rows[1], slots)
+
+        def plain(ref=ref, rows=rows):
+            return kc.kv_commit_rows_plain(ref[0], ref[1], rows[0], rows[1], slots)
+
+        def library(cache=cache, rows=rows):
+            for c, r in zip(cache, rows):
+                # (the two index tensors put the batch axis first)
+                c.view(torch.uint8)[:, ar, :, slots[:, 0].long()] = \
+                    r.view(torch.uint8)[:, :, :, 0].transpose(0, 1)
+
+        one_byte_point(torch, results, "commit", store, call, plain, library,
+                       4 * L * B * KV * D + 4 * B, 0, flush, "kv_commit",
+                       bf16_call=lambda: kc.kv_commit_rows(cache_bf16[0], cache_bf16[1],
+                                                           rows_bf16[0], rows_bf16[1], slots),
+                       timed=store == "float8_e4m3fn")
+        del rows, cache, ref
+    del cache_bf16
+    torch.cuda.empty_cache()
+
+    # --- paged decode (row 7) and paged prefill (row 6): phase 3b's pool ---
+    B, H, KV, D, bs, nblk, NB = 8, 32, 8, 64, 128, 136, 16
+    G = H // KV
+    qpos = torch.linspace(0, 2000, B, device=dev).long()
+    perm = torch.randperm(nblk, generator=torch.Generator().manual_seed(0)).tolist()
+    bt = torch.full((B, NB), -1, dtype=torch.int32)
+    nxt = 0
+    for b in range(B):
+        n = int(qpos[b]) // bs + 1
+        bt[b, :n] = torch.tensor(perm[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+    bt[3, 2] = -1
+    bt = bt.to(dev)
+    slot_pos = torch.arange(NB * bs, device=dev)
+    live = torch.repeat_interleave(bt >= 0, bs, dim=1) & (slot_pos[None] <= qpos[:, None])
+    visible = int(live.sum())
+    kb, vb = randn((nblk * bs, KV, D)), randn((nblk * bs, KV, D))
+
+    def gathered(cache, table, n_rows, sc):
+        rows = (table.long()[:, :, None] * bs + torch.arange(bs, device=dev)).reshape(n_rows, -1)
+        return (take_rows(torch, cache, rows.clamp(min=0)).to(torch.bfloat16) * sc).transpose(1, 2)
+
+    q = randn((B, 1, H, D)).transpose(1, 2)
+    qp = qpos[:, None].to(torch.int32)
+    mask = live[:, None, None, :]
+    Sq, start = 512, 512
+    bt1 = bt[7:8]
+    qx = randn((1, Sq, H, D)).transpose(1, 2)
+    qpx = (start + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    pmask = (slot_pos[None, :] <= qpx[0][:, None])[None, None]
+    pairs = int(pmask.sum())
+    for store in ONE_BYTE:
+        sc = ONE_BYTE_SCALES[store]
+        kw = dict(block_size=bs, k_scale=sc, v_scale=sc)
+        kc1, vc1 = to_store(torch, kb, store), to_store(torch, vb, store)
+        timed = store == "float8_e4m3fn"
+
+        def lib_decode(kc1=kc1, vc1=vc1, sc=sc):
+            kg = gathered(kc1, bt, B, sc).repeat_interleave(G, dim=1)
+            vg = gathered(vc1, bt, B, sc).repeat_interleave(G, dim=1)
+            return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+        one_byte_point(
+            torch, results, "paged_decode", store,
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_decode(q, kc1, vc1, bt, qp, **kw),
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_decode_plain(q, kc1, vc1, bt, qp,
+                                                                            **kw),
+            lib_decode, 2 * visible * KV * D + 2 * B * H * D * 2 + bt.numel() * 4,
+            4 * H * D * visible, flush, DECODE_KERNELS,
+            bf16_call=lambda: fa.paged_attention_decode(q, kb, vb, bt, qp, block_size=bs),
+            timed=timed)
+        assert fa.paged_prefill_body(qx, kc1, vc1, bs) == "mma"
+
+        def lib_prefill(kc1=kc1, vc1=vc1, sc=sc):
+            kg = gathered(kc1, bt1, 1, sc).repeat_interleave(G, dim=1)
+            vg = gathered(vc1, bt1, 1, sc).repeat_interleave(G, dim=1)
+            return F.scaled_dot_product_attention(qx, kg, vg, attn_mask=pmask)
+
+        row = one_byte_point(
+            torch, results, "paged_prefill", store,
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_prefill(qx, kc1, vc1, bt1, qpx,
+                                                                       **kw),
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_prefill_plain(qx, kc1, vc1, bt1,
+                                                                             qpx, **kw),
+            lib_prefill, 2 * Sq * H * D * 2 + 2 * (start + Sq) * KV * D, 4 * H * D * pairs, flush,
+            "prefill",
+            bf16_call=lambda: fa.paged_attention_prefill(qx, kb, vb, bt1, qpx, block_size=bs),
+            timed=timed)
+        if timed:  # the mma.sync body converts the tiles; the bf16 pool keeps the TMA body
+            assert row["kernels"] == ["prefill_tc_kernel"], row["kernels"]
+            row["body"] = "mma"
+        # f32 q over the same pool: the CUDA-core bodies
+        qf, qxf = q.float(), qx.float()
+        one_byte_point(
+            torch, results, "paged_decode", store,
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_decode(qf, kc1, vc1, bt, qp, **kw),
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_decode_plain(qf, kc1, vc1, bt, qp,
+                                                                            **kw),
+            None, 0, 0, flush, DECODE_KERNELS, timed=False, dname="float32")
+        one_byte_point(
+            torch, results, "paged_prefill", store,
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_prefill(qxf, kc1, vc1, bt1, qpx,
+                                                                       **kw),
+            lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_prefill_plain(qxf, kc1, vc1, bt1,
+                                                                             qpx, **kw),
+            None, 0, 0, flush, "prefill", timed=False, dname="float32")
+
+        # --- ragged (row 8): phase 3c's streams over the same pool ---
+        for decode_only in (True, False):
+            case = ragged_case(torch, dev, 8, NB, bs, nblk, decode_only=decode_only)
+            T, rid, qpr, btr, vis, rpairs = case
+            qr = randn((1, T, H, D)).transpose(1, 2)
+            plan = rpa.ragged_plan(rid.cpu().numpy(), qpr.cpu().numpy(), 8, NB * bs, KV).to(dev)
+            W = NB * bs
+            col = torch.arange(8 * W, device=dev)
+            rows_ = (btr.long().reshape(-1)[:, None] * bs + torch.arange(bs, device=dev))
+            rows_ = rows_.reshape(-1)
+            livr = torch.repeat_interleave(btr.reshape(-1) >= 0, bs)
+            rmask = ((rid.long()[:, None] == col[None] // W)
+                     & (col[None] % W <= qpr.long()[:, None]) & livr[None])[None, None]
+
+            def lib_ragged(kc1=kc1, vc1=vc1, sc=sc, qr=qr, rows_=rows_, rmask=rmask):
+                idx = rows_.clamp(min=0)
+                kg = (take_rows(torch, kc1, idx).to(torch.bfloat16) * sc).transpose(0, 1)[None]
+                vg = (take_rows(torch, vc1, idx).to(torch.bfloat16) * sc).transpose(0, 1)[None]
+                return F.scaled_dot_product_attention(qr, kg.repeat_interleave(G, dim=1),
+                                                      vg.repeat_interleave(G, dim=1),
+                                                      attn_mask=rmask)
+
+            T_real = int((rid >= 0).sum())
+            nbytes = ((T_real * H * D + T * H * D) * 2 + 2 * sum(vis.values()) * KV * D
+                      + btr.numel() * 4 + 4 * T + 4 * T_real)
+            for qq, dname in ((qr, "bfloat16"), (qr.float(), "float32")):
+                row = one_byte_point(
+                    torch, results, "ragged", store,
+                    lambda kc1=kc1, vc1=vc1, kw=kw, qq=qq, rid=rid, qpr=qpr, btr=btr, plan=plan:
+                    rpa.ragged_paged_attention(qq, kc1, vc1, btr, rid, qpr, plan=plan, **kw),
+                    lambda kc1=kc1, vc1=vc1, kw=kw, qq=qq, rid=rid, qpr=qpr, btr=btr:
+                    rpa.ragged_paged_attention_plain(qq, kc1, vc1, btr, rid, qpr, **kw),
+                    lib_ragged, nbytes, 4 * H * D * rpairs, flush, ("prefill", "ragged_"),
+                    bf16_call=lambda qr=qr, rid=rid, qpr=qpr, btr=btr, plan=plan:
+                    rpa.ragged_paged_attention(qr, kb, vb, btr, rid, qpr, block_size=bs,
+                                               plan=plan),
+                    timed=timed and dname == "bfloat16", dname=dname)
+                row["point"] = f"{store} store, {'decode8' if decode_only else 'packed1032'}"
+        del kc1, vc1
+    del kb, vb
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: quantized KV and weights, CPU against the card (2 layers, f32)
+# ---------------------------------------------------------------------------
+
+
+def _count_launches():
+    kernels = dict(attention_kernels(), **mixed_kernels())
+    for fn in kernels.values():
+        fn.launches = 0
+    return lambda: {k: fn.launches for k, fn in kernels.items()}
+
+
+def static_logits(torch, app, Adapter, ids, mask, new):
+    """generate() on ``app`` with every dispatch's last-position logits kept:
+    (tokens, logits list)."""
+    import numpy as np
+
+    logs = []
+    recording(app, logs)
+    try:
+        toks = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=new)
+    finally:
+        del app.forward
+    return np.asarray(toks), logs
+
+
+def pair_apps(torch, mods, *, layers, dtype, kvq, slots, ctx_len, num_blocks, chunk, device,
+              params=None, graphs=True):
+    """A prefill-role and a decode-role paged app (each its own pool), on
+    one set of weights."""
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    kw = dict(layers=layers, dtype=dtype, slots=slots, seq_len=2 * ctx_len, ctx_len=ctx_len,
+              num_blocks=num_blocks, chunk=chunk, block_tkg=True, device=device, graphs=graphs,
+              **({} if kvq is None else dict(kv_quant_config=kvq)))
+    pre, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, params=params,
+                                role="prefill", **kw)
+    dec, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, params=pre.params,
+                             role="decode", **kw)
+    return pre, dec, arch
+
+
+def run_pair(torch, pre_app, dec_app, prompts, new, stamps=None):
+    """Every prompt into the prefill-role engine at once; each parked chain
+    exported, imported into the decode-role engine and acknowledged as soon
+    as it is ready, both engines stepped in turns until all finish. Returns
+    (streams by prompt, per-handoff [export ms, import ms, bytes], wall s,
+    the engines)."""
+    from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
+    from nxdi_tpu_torch.serving.handoff import HandoffCapacityError
+
+    pre = InferenceEngine(pre_app, SchedulerConfig(prefix_cache=True))
+    dec = InferenceEngine(dec_app, SchedulerConfig())
+    on_token = None
+    if stamps is not None:
+        def on_token(req, tok):
+            stamps.setdefault(req.request_id, []).append(time.perf_counter())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = {pre.add_request(p, SamplingParams(max_new_tokens=new), on_token=on_token).request_id: i
+           for i, p in enumerate(prompts)}
+    arrivals = {rid: t0 for rid in ids}
+    outs, handoffs, parked = {}, [], []
+    while pre.has_work() or dec.has_work():
+        if pre.has_work():
+            for o in pre.step():
+                outs[ids[o.request_id]] = o.token_ids
+        for rid in pre.take_ready_handoffs():
+            te = time.perf_counter()
+            payload = pre.export_handoff(rid)
+            parked.append((rid, payload, (time.perf_counter() - te) * 1e3))
+        while parked:
+            rid, payload, export_ms = parked[0]
+            ti = time.perf_counter()
+            try:
+                dec.admit_handoff(payload, on_token=on_token)
+            except HandoffCapacityError:
+                break  # the decode engine is full: the chain stays parked, retried next step
+            torch.cuda.synchronize()
+            tf = time.perf_counter()
+            pre.ack_handoff(rid)
+            parked.pop(0)
+            handoffs.append([export_ms, (tf - ti) * 1e3, payload.nbytes])
+        if dec.has_work():
+            for o in dec.step():
+                outs[ids[o.request_id]] = o.token_ids
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [outs[i] for i in range(len(prompts))], handoffs, wall, (pre, dec, arrivals)
+
+
+def quant_vs_cpu(torch, np, mods):
+    """Phase 4e, 2 layers, float32, full width: (a) the split paged engine
+    on an e4m3 per-tensor pool, CPU vs card graphs vs card eager (phase 4b's
+    traffic, decoding through the paged-decode kernel; the mixed engine's
+    one-byte ragged kernel is held to its plain version in phase 3e and runs
+    in 5e); (b) the contiguous continuous-batching engine on an e4m3 cache
+    (the commit writes one-byte rows; the fused decode runs per layer over
+    the dequantized window, the stacked one being off a narrowed store);
+    (c) generate() with int8 and
+    fp8 weights; (d) the disaggregated pair on the card (prefill-role +
+    decode-role, e4m3 pools) against the unified card engine. Streams
+    identical, logits within LOGIT_TOL (QUANT_LOGIT_TOL on one-byte stores),
+    launch counts exact."""
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    out = {}
+    out["paged_counts"], out["paged_err"] = engine_vs_cpu(torch, np, mods, kvq=E4M3_PT)
+
+    # (b) the contiguous engine on an e4m3 cache
+    L = 2
+    cb = dict(layers=L, dtype="float32", slots=4, seq_len=512, ctx_len=256, output_logits=True,
+              kv_quant_config=dict(dtype="float8_e4m3"))
+    cpu_cb, arch = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **cb)
+    gpu_cb, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
+                            params=cpu_cb.params, **cb)
+    rng = np.random.default_rng(21)
+    prompts_ = [rng.integers(1, arch.vocab_size, n).tolist() for n in (30, 120, 75, 200, 44)]
+    from nxdi_tpu_torch.serving import SamplingParams
+
+    cpu_logits, gpu_logits = [], []
+    sp = lambda i: SamplingParams(max_new_tokens=12)  # noqa: E731
+    cpu_streams, _ = run_cb(cpu_cb, prompts_, sp, [0, 0, 1, 3, 3], cpu_logits)
+    gpu_streams, eng = run_cb(gpu_cb, prompts_, sp, [0, 0, 1, 3, 3], gpu_logits)
+    counts = {k: fn.launches for k, fn in attention_kernels().items()}
+    want = dict.fromkeys(counts, 0)
+    want.update(cb_counts(eng, L))
+    assert counts == want and want["decode"] > 0, f"phase 4e contiguous: launches {counts} != {want}"
+    assert cpu_streams == gpu_streams, "phase 4e contiguous: CPU and card streams differ"
+    cb_err = max((a - b).abs().max().item() for a, b in zip(cpu_logits, gpu_logits))
+    assert len(cpu_logits) == len(gpu_logits) and cb_err <= QUANT_LOGIT_TOL, cb_err
+    assert gpu_cb.kv_cache["k"].dtype == torch.float8_e4m3fn
+    out.update(cb_counts=counts, cb_err=cb_err)
+    log(f"[quant-2L] contiguous engine, e4m3 cache: streams identical, max logit diff "
+        f"{cb_err:.3g}; launches {counts}")
+    del cpu_cb, gpu_cb
+
+    # (c) generate() with int8 and fp8 weights
+    ids, mask = prompts(np.random.default_rng(22), 2, 96, [96, 70], 128256)
+    for qd in ("int8", "f8e4m3"):
+        kw = dict(layers=L, dtype="float32", batch=2, seq_len=256, ctx_len=128,
+                  output_logits=True, quantized=True, quantization_dtype=qd)
+        cpu_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **kw)
+        gpu_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
+                              params=cpu_app.params, **kw)
+        leaf = gpu_app.params["layers"]["mlp"]["up_proj"]["qw"]
+        assert leaf.dtype == {"int8": torch.int8, "f8e4m3": torch.float8_e4m3fn}[qd], leaf.dtype
+        ct, cl = static_logits(torch, cpu_app, Adapter, ids, mask, 16)
+        gt, gl = static_logits(torch, gpu_app, Adapter, ids, mask, 16)
+        err = max((a - b).abs().max().item() for a, b in zip(cl, gl))
+        assert np.array_equal(ct, gt), f"phase 4e {qd} weights: tokens differ"
+        assert err <= LOGIT_TOL, f"phase 4e {qd} weights: logits differ by {err}"
+        out[f"weights_{qd}_err"] = err
+        log(f"[quant-2L] {qd} weights: generate() tokens identical, max logit diff {err:.3g}")
+        del cpu_app, gpu_app
+
+    # (d) the disaggregated pair on the card against the unified card engine
+    geo = dict(layers=L, dtype="float32", kvq=E4M3_PT, slots=4, ctx_len=256, num_blocks=24,
+               chunk=128, device="cuda")
+    pre_app, dec_app, arch = pair_apps(torch, mods, **geo)
+    uni, _ = make_engine_app(ml, TorchConfig, ODSC, App, dense, params=pre_app.params, layers=L,
+                             dtype="float32", slots=4, seq_len=512, ctx_len=256, num_blocks=24,
+                             chunk=128, block_tkg=True, device="cuda", kv_quant_config=E4M3_PT)
+    prompts_ = [rng.integers(1, arch.vocab_size, n).tolist() for n in (40, 200, 129, 7)]
+    count = _count_launches()
+    streams, handoffs, _, (pre, dec, _) = run_pair(torch, pre_app, dec_app, prompts_, 10)
+    pair_counts = count()
+    from nxdi_tpu_torch.serving import InferenceEngine, SchedulerConfig
+
+    eng = InferenceEngine(uni, SchedulerConfig(prefix_cache=True))
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=10)) for p in prompts_]
+    got = {o.request_id: o.token_ids for o in eng.run()}
+    assert streams == [got[r.request_id] for r in reqs], "phase 4e: the pair's streams differ"
+    assert pre.handoff_exports == dec.handoff_imports == len(prompts_)
+    assert pair_counts["paged_decode"] == L * dec.dispatches["token_generation_model"] > 0
+    assert pair_counts["prefill"] == L * pre.dispatches[TAG_CONTEXT_ENCODING]
+    out.update(pair_counts=pair_counts, pair_bytes=[h[2] for h in handoffs])
+    log(f"[quant-2L] disaggregated pair (e4m3 pools) = unified engine over {len(prompts_)} "
+        f"requests; bytes per handoff {[h[2] for h in handoffs]}; launches {pair_counts}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: full depth on quantized stores and weights; disaggregation; arrivals
+# ---------------------------------------------------------------------------
+
+
+def timed_generate(torch, Adapter, app, ids, mask, new):
+    """generate() with the host time of every step's token: (prefill ms,
+    decode ms/step, tokens)."""
+    from nxdi_tpu_torch.generation import hf_adapter as hfa
+
+    stamps, inner = [], hfa.extract_next_tokens
+
+    def fetch(outputs):
+        toks = inner(outputs)
+        stamps.append(time.perf_counter())
+        return toks
+
+    hfa.extract_next_tokens = fetch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=new)
+        torch.cuda.synchronize()
+    finally:
+        hfa.extract_next_tokens = inner
+    return (stamps[0] - t0) * 1e3, (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1), toks
+
+
+def latency_stats(stamps, arrivals, new, wall):
+    """tok/s, TTFT p50 / p95 and TPOT p50 (ms) of a run from each request's
+    token stamps and arrival."""
+    import numpy as np
+
+    ttft = np.array([stamps[i][0] - arrivals[i] for i in arrivals]) * 1e3
+    tpot = np.array([(stamps[i][-1] - stamps[i][0]) / (len(stamps[i]) - 1)
+                     for i in arrivals]) * 1e3
+    return dict(tok_s=len(arrivals) * new / wall, ttft_p50_ms=float(np.percentile(ttft, 50)),
+                ttft_p95_ms=float(np.percentile(ttft, 95)),
+                tpot_p50_ms=float(np.percentile(tpot, 50)), wall_s=wall)
+
+
+def quant_full_depth(torch, np, mods, card, slice_times, unified):
+    """Phase 5e, 16 layers, bf16: (a) 5b's and 5c's traffic on an e4m3
+    per-tensor pool (the pool exactly half 5b's bytes); (b) phase 5's decode
+    with int8 and fp8 weights (the weight-only dequant in eager torch, each
+    bucket a CUDA graph) and with an e4m3 KV cache (the one-byte commit),
+    beside phase 5's graph sync; (c) a disaggregated pair over 5b's requests
+    (all arriving at once) at bf16 and e4m3, beside the unified engine under
+    the same arrivals: tok/s, TTFT, TPOT, export and import ms per request,
+    bytes per handoff; (d) drive_arrivals + goodput_summary over a Poisson
+    run of 5b's requests (seed 17, rescaled so the last arrival lands at
+    16 / rate) on the unified engine at half the request rate it sustained
+    in (c). Returns (stats, the one-byte rows' launches)."""
+    from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
+    from nxdi_tpu_torch.serving.workload import drive_arrivals, goodput_summary
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    out, launches = {}, {}
+    base_app, base = unified["app"], unified
+    # (a) the split and mixed engines on the e4m3 pool
+    for mixed in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, st = engine_full_depth(torch, np, mods, card, mixed=mixed, kvq=E4M3_PT)
+        st.pop("prompts")
+        out["mixed_e4m3" if mixed else "split_e4m3"] = st
+        launches.update({k: counts[k] for k in (("ragged",) if mixed
+                                                else ("paged_prefill", "paged_decode"))})
+    assert 2 * out["split_e4m3"]["pool_bytes"] == base["pool_bytes"], "the e4m3 pool is not half"
+
+    # (b) phase 5's decode with quantized weights, and with an e4m3 KV cache
+    B, P, NEW, L = 8, 1024, 32, 16
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        128256)
+    common = dict(layers=L, dtype="bfloat16", batch=B, seq_len=2048, ctx_len=P, device="cuda")
+    weights = {}
+    for name, extra in (("int8", dict(quantized=True, quantization_dtype="int8")),
+                        ("fp8", dict(quantized=True, quantization_dtype="f8e4m3")),
+                        ("e4m3 KV", dict(kv_quant_config=dict(dtype="float8_e4m3")))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        app, _ = make_app(ml, TorchConfig, ODSC, App, dense, **common, **extra)
+        count = _count_launches()
+        pre_ms, step_ms, toks = timed_generate(torch, Adapter, app, ids, mask, NEW)
+        pre_ms, step_ms, toks = timed_generate(torch, Adapter, app, ids, mask, NEW)  # warm
+        c = count()
+        assert np.all((toks >= 0) & (toks < 128256)), name
+        decode_busy = profiled_call(torch, lambda: app.forward(
+            toks[:, -1:].astype(np.int32), np.full((B, 1), P + NEW, np.int32),
+            last_token_index=np.zeros((B,), np.int32)))[1]
+        weights[name] = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
+                             phase_5_graph_sync_ms_per_step=slice_times["decode_ms_per_step"],
+                             tok_s=B / step_ms * 1e3, decode_busy_ms=decode_busy,
+                             launches=c, warmup=app.warm_stats)
+        if name == "e4m3 KV":
+            assert app.kv_cache["k"].dtype == torch.float8_e4m3fn
+            launches["commit"] = c["commit"] // 2  # one generate() of the two
+            assert c["commit"] == 2 * (NEW - 1) and c["decode"] == 2 * L * (NEW - 1), c
+        log(f"[quant-16L] {name}: prefill {pre_ms:.2f} ms, decode {step_ms:.3f} ms/step "
+            f"({B / step_ms * 1e3:.1f} tok/s), a decode step's device busy {decode_busy:.3f} ms; "
+            f"phase 5 graph sync {slice_times['decode_ms_per_step']:.3f} ms/step; "
+            f"{card}")
+        del app
+    out["static"] = weights
+
+    # (c) the disaggregated pair beside the unified engine, all 16 requests at once
+    NEWE = 32
+    reqs = unified["prompts"]
+    stamps, arrivals = {}, {}
+    eng = InferenceEngine(base_app, SchedulerConfig(prefix_cache=True))
+
+    def on_token(req, tok):
+        stamps.setdefault(req.request_id, []).append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in reqs:
+        arrivals[eng.add_request(p, SamplingParams(max_new_tokens=NEWE),
+                                 on_token=on_token).request_id] = t0
+    uni_streams = {}
+    for o in eng.run():
+        uni_streams[o.request_id] = o.token_ids
+    torch.cuda.synchronize()
+    uni_wall = time.perf_counter() - t0
+    out["unified_at_once"] = latency_stats(stamps, arrivals, NEWE, uni_wall)
+    uni_in_order = [uni_streams[r] for r in sorted(uni_streams)]
+    for label, kvq in (("bf16", None), ("e4m3", E4M3_PT)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        pre_app, dec_app, _ = pair_apps(torch, mods, layers=L, dtype="bfloat16", kvq=kvq, slots=8,
+                                        ctx_len=1024, num_blocks=136, chunk=512, device="cuda",
+                                        params=base_app.params)
+        pstamps = {}
+        count = _count_launches()
+        streams, handoffs, wall, (pre, dec, parr) = run_pair(torch, pre_app, dec_app, reqs, NEWE,
+                                                             pstamps)
+        c = count()
+        h = np.array(handoffs)
+        st = latency_stats(pstamps, parr, NEWE, wall)
+        st.update(export_ms_p50=float(np.percentile(h[:, 0], 50)),
+                  import_ms_p50=float(np.percentile(h[:, 1], 50)),
+                  bytes_per_handoff_mean=float(h[:, 2].mean()), handoffs=len(handoffs),
+                  launches=c, prefill_dispatches=dict(pre.dispatches),
+                  decode_dispatches=dict(dec.dispatches))
+        # bf16 at full depth: a batch of other rows can move a near-tied
+        # argmax, so the streams are counted, not required equal (phase 4e
+        # holds the pair to the unified engine in float32)
+        st["streams_equal_to_unified"] = sum(a == b for a, b in zip(streams, uni_in_order))
+        assert all(len(s) == NEWE for s in streams)
+        out[f"pair_{label}"] = st
+        log(f"[quant-16L] disaggregated pair, {label} pools: {st['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{st['ttft_p50_ms']:.2f} ms p95 {st['ttft_p95_ms']:.2f}, TPOT p50 "
+            f"{st['tpot_p50_ms']:.3f} ms; export {st['export_ms_p50']:.3f} ms, import "
+            f"{st['import_ms_p50']:.3f} ms per request (p50), {st['bytes_per_handoff_mean']:.0f} "
+            f"bytes per handoff; unified engine, same arrivals: "
+            f"{out['unified_at_once']['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{out['unified_at_once']['ttft_p50_ms']:.2f} ms, TPOT p50 "
+            f"{out['unified_at_once']['tpot_p50_ms']:.3f} ms; streams equal to the unified "
+            f"engine's {st['streams_equal_to_unified']} of {len(reqs)}; {card}")
+        del pre_app, dec_app, pre, dec
+
+    # (d) the open-loop driver at half the unified engine's request rate
+    # 16 Poisson gaps (seed 17), rescaled so the last arrival lands at
+    # 16 / rate: a draw this short can end far from its nominal span, and
+    # the run is to be at half the sustained rate
+    rate = 0.5 * len(reqs) / uni_wall
+    gaps = np.cumsum(np.random.default_rng(17).exponential(1 / rate, len(reqs)))
+    drawn_span = float(gaps[-1])
+    arrivals_s = gaps * (len(reqs) / rate) / drawn_span
+    eng = InferenceEngine(base_app, SchedulerConfig(prefix_cache=True))
+
+    def submit(engine, i, arrival_s):
+        engine.add_request(reqs[i], SamplingParams(max_new_tokens=NEWE), arrival_s=arrival_s)
+
+    outs, wall = drive_arrivals(eng, arrivals_s, submit)
+    summary = goodput_summary(outs, wall)
+    assert summary["requests"] == len(reqs) and summary["errors"] == 0
+    summary.update(rate_req_s=rate, sustained_req_s=len(reqs) / uni_wall,
+                   drawn_span_s=drawn_span, drawn_rate_req_s=len(reqs) / drawn_span,
+                   arrival_span_s=float(arrivals_s[-1]),
+                   realized_rate_req_s=len(reqs) / float(arrivals_s[-1]))
+    out["arrivals"] = summary
+    log(f"[quant-16L] drive_arrivals (Poisson, seed 17, rescaled from a drawn span of "
+        f"{drawn_span:.3f} s) at {rate:.2f} req/s (half of {len(reqs) / uni_wall:.2f}); last "
+        f"arrival at {arrivals_s[-1]:.3f} s: {summary}; {card}")
+    return out, launches
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -2413,10 +3135,12 @@ def main() -> int:
     check_paged_kernels(torch, kernel_results)
     check_mixed_kernels(torch, kernel_results)
     sampler = check_decode_family(torch, np, kernel_results)
+    check_one_byte_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
     cb_logit_err = cb_vs_cpu(torch, np, mods)
+    quant_2l = quant_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -2426,8 +3150,10 @@ def main() -> int:
         for graphs in (True, False):
             gc.collect()
             torch.cuda.empty_cache()
+            # the split engine's graph app serves phase 5e's unified runs too
             engine[mixed, graphs] = engine_full_depth(torch, np, mods, card, mixed=mixed,
-                                                      graphs=graphs)
+                                                      graphs=graphs,
+                                                      keep_app=graphs and not mixed)
     engine_counts, engine_stats = engine[False, True]
     mixed_counts, mixed_stats = engine[True, True]
     # phase 5d: K-step generate() and the contiguous engine three ways
@@ -2437,6 +3163,15 @@ def main() -> int:
                                             dict(slice_times, tokens=slice_tokens))
     family.update(sampler=sampler, phase_4d_max_logit_err=cb_logit_err,
                   launches_by_mode=family_launches)
+    # phase 5e: quantized stores and weights, the disaggregated pair, arrivals
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant, quant_launches = quant_full_depth(torch, np, mods, card, slice_times,
+                                             engine[False, True][1])
+    quant["phase_4e"] = quant_2l
+    for _, st in engine.values():
+        st.pop("prompts")
+        st.pop("app", None)
     counts = dict(counts, window_decode=engine_2l_counts["window_decode"],
                   paged_prefill=engine_counts["paged_prefill"],
                   paged_decode=engine_counts["paged_decode"],
@@ -2481,26 +3216,30 @@ def main() -> int:
     for key, (name, src, replaces) in sources.items():
         # the QKV and MLP rows at the packed step's 520 rows first, then by M;
         # the ragged rows at bucket 8 and at 1032
-        rows = [r for r in kernel_results if r["kernel"] == key and r["dtype"] == "bfloat16"]
+        # (timed rows: phase 3e checks e5m2, int8 and f32 q without timing them)
+        rows = [r for r in kernel_results
+                if r["kernel"] == key and r["dtype"] == "bfloat16" and "ms" in r]
         rows.sort(key=lambda r: r.get("M", 520) != 520)
         for row in rows:
-            # the rows with cache lines: the contiguous engine's device loop (5d)
+            # the rows with cache lines: the contiguous engine's device loop
+            # (5d); the one-byte rows: phase 5e's runs on e4m3 stores
             launches = (family_launches["loop"][key] if row.get("point") == "cache lines"
-                        else counts[key])
+                        else quant_launches[key] if "store" in row else counts[key])
             entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches, **{f: row[f] for f in fields}}
             entry.update({f: row[f] for f in ("M", "point", "body", "ms_min", "ms_max",
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
-                                              "graph_ready_ms") if f in row})
+                                              "graph_ready_ms", "store", "bf16_pool_ms")
+                          if f in row})
             summary.append(entry)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
                    "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts,
-                   "decode_family": family}, f, indent=1)
+                   "decode_family": family, "quantization": quant}, f, indent=1, default=str)
     print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
                       "decode_family": {k: v for k, v in family.items() if k != "engine"},
-                      "kernel_checks": kernel_results}))
+                      "quantization": quant, "kernel_checks": kernel_results}, default=str))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

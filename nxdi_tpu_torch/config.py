@@ -11,10 +11,8 @@ Two levels, as in the JAX package:
 - :class:`InferenceConfig` — model hyperparameters (typically a HF
   ``config.json``) plus a ``tpu_config`` attribute.
 
-Features the port does not carry yet (speculation, quantization, tensor
-parallelism, ...) are not keys here:
-passing one raises, naming it (a few are accepted at the value that turns
-them off, ``_NOT_PORTED``).
+Features the port does not carry yet (speculation, LoRA, tensor
+parallelism, ...) are not keys here: passing one raises, naming it.
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ import json
 import os
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 CONFIG_FILE = "tpu_config.json"
@@ -31,7 +30,13 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
     "float16": torch.float16,
+    # the one-byte KV stores and weights (the JAX package's names)
+    "float8_e4m3": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
+    "int8": torch.int8,
 }
+# torch's own names of the fp8 dtypes
+_ALIASES = {"float8_e4m3fn": "float8_e4m3"}
 
 
 def to_torch_dtype(dtype) -> torch.dtype:
@@ -40,13 +45,17 @@ def to_torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     key = str(dtype).replace("torch.", "")
+    key = _ALIASES.get(key, key)
     if key not in _DTYPES:
         raise ValueError(f"Unsupported dtype {dtype!r}; options: {sorted(_DTYPES)}")
     return _DTYPES[key]
 
 
 def dtype_name(dtype) -> str:
-    return str(to_torch_dtype(dtype)).replace("torch.", "")
+    """The JAX package's name of a dtype (``float8_e4m3`` for torch's
+    ``float8_e4m3fn``)."""
+    key = str(to_torch_dtype(dtype)).replace("torch.", "")
+    return _ALIASES.get(key, key)
 
 
 class OnDeviceSamplingConfig:
@@ -71,6 +80,71 @@ class OnDeviceSamplingConfig:
         return dict(self.__dict__)
 
 
+class KVQuantizationConfig:
+    """KV-cache quantization (the JAX package's ``KVQuantizationConfig``, its
+    keys and rules): the store ``dtype`` (``float8_e4m3``, ``float8_e5m2``
+    or ``int8``) and how values are scaled before the store —
+    ``direct_cast`` (no scale), ``per_tensor`` (static ``k_scale`` /
+    ``v_scale``), ``per_key`` ((L, KV) arrays) or ``per_channel`` ((L, D)
+    arrays), the arrays given or loaded from ``scales_path`` (an .npz with
+    ``k_scales`` / ``v_scales``, ``kvcache.calibration.save_kv_scales``)."""
+
+    def __init__(self, **kwargs):
+        self.dtype = kwargs.pop("dtype", "float8_e4m3")
+        self.scale_mode = kwargs.pop("scale_mode", "direct_cast")
+        self.k_scale = float(kwargs.pop("k_scale", 1.0))
+        self.v_scale = float(kwargs.pop("v_scale", 1.0))
+        self.scales_path = kwargs.pop("scales_path", None)
+        k_scales = kwargs.pop("k_scales", None)
+        v_scales = kwargs.pop("v_scales", None)
+        if self.scales_path is not None and k_scales is None:
+            with np.load(self.scales_path) as z:
+                k_scales = z["k_scales"]
+                v_scales = z["v_scales"]
+        if k_scales is not None:
+            k_scales = np.asarray(k_scales, dtype=np.float32)
+            v_scales = np.asarray(v_scales, dtype=np.float32)
+        self.k_scales = k_scales
+        self.v_scales = v_scales
+        if k_scales is not None and self.scale_mode == "per_tensor":
+            # calibration's per_tensor mode returns (L,) per-layer arrays;
+            # the per-tensor layout takes one static scalar: their max
+            self.k_scale = float(np.max(k_scales))
+            self.v_scale = float(np.max(v_scales))
+            self.k_scales = self.v_scales = None
+        elif k_scales is not None and self.scale_mode not in ("per_key", "per_channel"):
+            raise ValueError(
+                "k_scales/v_scales arrays are only consumed by "
+                "scale_mode='per_tensor'|'per_key'|'per_channel'; got "
+                f"scale_mode={self.scale_mode!r}"
+            )
+        if self.scale_mode not in ("direct_cast", "per_tensor", "per_key", "per_channel"):
+            raise ValueError(
+                "kv quant scale_mode must be direct_cast|per_tensor|per_key|"
+                f"per_channel, got {self.scale_mode!r}"
+            )
+        if self.scale_mode == "direct_cast" and (self.k_scale != 1.0 or self.v_scale != 1.0):
+            raise ValueError("k_scale/v_scale require scale_mode='per_tensor'")
+        if self.scale_mode in ("per_key", "per_channel") and self.k_scales is None:
+            raise ValueError(
+                f"scale_mode={self.scale_mode!r} needs k_scales/v_scales arrays "
+                "(or scales_path) from calibration "
+                "(nxdi_tpu_torch.kvcache.calibration.calibrate_kv_scales)"
+            )
+        if self.dtype not in ("float8_e4m3", "float8_e5m2", "int8"):
+            raise ValueError(
+                f"kv quant dtype must be float8_e4m3|float8_e5m2|int8, got {self.dtype!r}")
+        if kwargs:
+            raise ValueError(f"Unknown KVQuantizationConfig args: {sorted(kwargs)}")
+
+    def to_dict(self):
+        d = dict(self.__dict__)
+        for key in ("k_scales", "v_scales"):
+            if d.get(key) is not None:
+                d[key] = np.asarray(d[key]).tolist()
+        return d
+
+
 class ChunkedPrefillConfig:
     """Chunked prefill over the paged KV pool (same keys as the JAX
     package's ``ChunkedPrefillConfig``): the engine prefills ``chunk_size``
@@ -89,14 +163,6 @@ class ChunkedPrefillConfig:
         return dict(self.__dict__)
 
 
-# JAX-package keys whose features are not ported yet: accepted at the value
-# that means "off", so a saved config of the ported path loads unchanged
-_NOT_PORTED = {
-    "padding_side": "right",
-    "role": "unified",
-}
-
-
 class TorchConfig:
     """Runtime configuration; the counterpart of the JAX package's
     ``TpuConfig`` for the fields this port implements."""
@@ -104,12 +170,48 @@ class TorchConfig:
     def __init__(self, **kwargs) -> None:
         # --- basic shapes ---
         self.batch_size = kwargs.pop("batch_size", 1)
+        # the HF tokenizer side; validated only, as in the JAX package
+        self.padding_side = kwargs.pop("padding_side", "right")
         self.seq_len = kwargs.pop("seq_len", 128)
         self.max_context_length = kwargs.pop("max_context_length", self.seq_len)
         self.output_logits = kwargs.pop("output_logits", False)
 
         # --- dtypes ---
         self.dtype = to_torch_dtype(kwargs.pop("dtype", kwargs.pop("torch_dtype", "bfloat16")))
+
+        # --- quantization (the JAX package's keys) ---
+        # weights: int8 / f8e4m3 / f8e5m2 (per_tensor_symmetric or
+        # per_channel_symmetric) or mxfp4; ops/quantization.py
+        self.quantized = kwargs.pop("quantized", False)
+        self.quantized_checkpoints_path = kwargs.pop("quantized_checkpoints_path", None)
+        self.quantization_dtype = kwargs.pop("quantization_dtype", "int8")
+        self.quantization_type = kwargs.pop("quantization_type", "per_tensor_symmetric")
+        self.modules_to_not_convert = kwargs.pop("modules_to_not_convert", None)
+        kvq = kwargs.pop("kv_quant_config", None)
+        if isinstance(kvq, dict):
+            kvq = KVQuantizationConfig(**kvq)
+        self.kv_quant_config = kvq
+        self.kv_cache_quant = kwargs.pop("kv_cache_quant", False)
+        if self.kv_cache_quant and self.kv_quant_config is None:
+            self.kv_quant_config = KVQuantizationConfig()
+        # int8 activations: "dynamic" (per-token scales on the hot path) or
+        # "static" (calibrated per-tensor input scales in the params)
+        self.activation_quantization_type = kwargs.pop("activation_quantization_type", None)
+        if isinstance(self.activation_quantization_type, str):
+            self.activation_quantization_type = self.activation_quantization_type.lower()
+        self.quantize_clamp_bound = kwargs.pop("quantize_clamp_bound", None)
+        if self.activation_quantization_type is not None:
+            if self.activation_quantization_type not in ("dynamic", "static"):
+                raise ValueError(
+                    "activation_quantization_type: 'dynamic' or 'static' "
+                    f"(got {self.activation_quantization_type!r})"
+                )
+            if not self.quantized or self.quantization_dtype != "int8":
+                raise ValueError(
+                    f"activation_quantization_type={self.activation_quantization_type!r} "
+                    "requires quantized=True with quantization_dtype='int8' "
+                    "(the int8 MXU path)"
+                )
 
         # --- batching ---
         self.ctx_batch_size = kwargs.pop("ctx_batch_size", self.batch_size)
@@ -175,10 +277,13 @@ class TorchConfig:
         # at most this many tokens per loop launch (0 = unlimited): the
         # scheduling point between launches
         self.device_loop_fence = int(kwargs.pop("device_loop_fence", 0))
+        # prefill/decode disaggregation: "unified" serves whole requests;
+        # "prefill" prefills, samples the first token and parks the request
+        # for a KV handoff (serving/handoff.py); "decode" builds no
+        # context-encoding or prefix-prefill submodel and admits requests
+        # only through an imported KV chain
+        self.role = kwargs.pop("role", "unified")
 
-        for key, default in _NOT_PORTED.items():
-            if key in kwargs and kwargs.pop(key) != default:
-                raise NotImplementedError(f"{key}: not ported yet (only {default!r} is accepted)")
         if kwargs:
             raise ValueError(
                 f"Unknown or not-yet-ported TorchConfig arguments: {sorted(kwargs)}"
@@ -190,6 +295,8 @@ class TorchConfig:
         return self.chunked_prefill_config is not None
 
     def validate(self) -> None:
+        if self.padding_side not in ("right", "left"):
+            raise ValueError("padding_side must be 'right' or 'left'")
         if self.tp_degree != 1:
             raise NotImplementedError(
                 "tp_degree > 1: tensor parallelism is not ported yet (one H100)"
@@ -233,6 +340,19 @@ class TorchConfig:
             if self.ctx_batch_size != self.tkg_batch_size:
                 raise ValueError(f"{key} requires ctx_batch_size == tkg_batch_size (the "
                                  "windows chain from the context-encoding outputs)")
+        kvq = self.kv_quant_config
+        if kvq is not None and kvq.scale_mode in ("per_key", "per_channel"):
+            if self.is_block_kv_layout:
+                raise ValueError(
+                    f"kv quant scale_mode={kvq.scale_mode!r} composes with the "
+                    "contiguous KV layout only (paged/ring layouts take "
+                    "per-tensor scales)"
+                )
+        if self.mlp_kernel_enabled and self.quantized:
+            raise ValueError(
+                "mlp_kernel_enabled composes with full-precision weights only "
+                "for now (quantized fused MLP is not implemented)"
+            )
         if self.device_loop and self.mixed_dispatch:
             raise ValueError("device_loop and mixed_dispatch are different serving step "
                              "shapes; enable one")
@@ -241,9 +361,33 @@ class TorchConfig:
                 "mixed_dispatch requires is_block_kv_layout (the packed rows "
                 "read KV through the paged block tables)"
             )
+        if self.role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'unified', 'prefill' or 'decode', got {self.role!r}"
+            )
+        if self.role != "unified":
+            if not self.is_block_kv_layout:
+                raise ValueError(
+                    f"role={self.role!r} requires is_block_kv_layout (the KV "
+                    "handoff plane exports/imports paged block chains)"
+                )
+            if self.mixed_dispatch:
+                raise ValueError(
+                    "mixed_dispatch is inherently a unified prefill+decode "
+                    f"program; it cannot compose with role={self.role!r}"
+                )
+            if self.role == "prefill" and (
+                self.decode_steps_per_dispatch > 1 or self.device_loop
+            ):
+                raise ValueError(
+                    "role='prefill' ships only CTE/prefix-prefill + a 1-token "
+                    "TKG; decode_steps_per_dispatch > 1 and device_loop are "
+                    "decode-role program shapes"
+                )
 
     _SUBCONFIGS = {
         "on_device_sampling_config": OnDeviceSamplingConfig,
+        "kv_quant_config": KVQuantizationConfig,
         "chunked_prefill_config": ChunkedPrefillConfig,
     }
 

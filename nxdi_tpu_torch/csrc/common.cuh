@@ -5,16 +5,35 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define NXDI_NEG_INF (-30000.0f)
 
-// dtype codes shared with the Python wrappers (ops/kernels/_build.py)
-enum NxdiDtype : int { NXDI_F32 = 0, NXDI_BF16 = 1 };
+// dtype codes shared with the Python wrappers (ops/kernels/_build.py). The
+// one-byte codes are KV stores only: q, the outputs and the fresh rows are
+// f32 or bf16.
+enum NxdiDtype : int {
+  NXDI_F32 = 0,
+  NXDI_BF16 = 1,
+  NXDI_E4M3 = 2,  // torch.float8_e4m3fn
+  NXDI_E5M2 = 3,  // torch.float8_e5m2
+  NXDI_I8 = 4,    // torch.int8
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// the one-byte stores: every value is exact in f32 and in bf16, so a
+// converted tile carries no rounding beyond the store's own
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+template <typename S>
+constexpr bool kOneByte = sizeof(S) == 1;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -40,6 +59,14 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   float2 a = __bfloat1622float2(q[0]);
   float2 b = __bfloat1622float2(q[1]);
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// 4 consecutive one-byte store elements (4-byte aligned) as floats
+template <typename S, typename std::enable_if<sizeof(S) == 1, int>::type = 0>
+__device__ __forceinline__ float4 load4(const S* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  const S* e = reinterpret_cast<const S*>(&u);
+  return make_float4(to_f32(e[0]), to_f32(e[1]), to_f32(e[2]), to_f32(e[3]));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -93,4 +120,43 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// N one-byte store elements (the bytes of `u`) written to shared memory as
+// N elements of the compute type T (f32 or bf16): the conversion of a
+// one-byte K/V tile as it lands. dst is 16-byte aligned.
+template <typename T, typename S, int N, typename U>
+__device__ __forceinline__ void store_converted(T* dst, const U& u) {
+  static_assert(sizeof(U) == N, "N bytes in, N elements out");
+  const S* e = reinterpret_cast<const S*>(&u);
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] =
+          make_float4(to_f32(e[4 * i]), to_f32(e[4 * i + 1]), to_f32(e[4 * i + 2]),
+                      to_f32(e[4 * i + 3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      uint4 o;
+      o.x = pack_bf16(to_f32(e[8 * i]), to_f32(e[8 * i + 1]));
+      o.y = pack_bf16(to_f32(e[8 * i + 2]), to_f32(e[8 * i + 3]));
+      o.z = pack_bf16(to_f32(e[8 * i + 4]), to_f32(e[8 * i + 5]));
+      o.w = pack_bf16(to_f32(e[8 * i + 6]), to_f32(e[8 * i + 7]));
+      reinterpret_cast<uint4*>(dst)[i] = o;
+    }
+  }
+}
+
+// Call f(S{}) with S the C++ type of a one-byte store code (a generic
+// lambda reads it as decltype of its argument); cudaErrorInvalidValue for
+// any other code.
+template <typename F>
+int with_one_byte_store(int kv_dtype, F&& f) {
+  switch (kv_dtype) {
+    case NXDI_E4M3: return f(__nv_fp8_e4m3{});
+    case NXDI_E5M2: return f(__nv_fp8_e5m2{});
+    case NXDI_I8: return f(int8_t{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -25,7 +25,14 @@
 //    (Pallas body _paged_decode_kernel): logical position j lives in slot
 //    bt[b][j / bs] * bs + j % bs; negative table entries are holes, and
 //    blocks past q_pos are never read. k_scale arrives folded into `scale`,
-//    v_scale multiplies the output.
+//    v_scale multiplies the output. The pool may hold a one-byte store
+//    (float8_e4m3fn, float8_e5m2 or int8: the JAX kernel reads the pool in
+//    its store dtype and casts it to q's): each warp loads its tile's K and
+//    V rows and converts them to q's dtype as they land in shared memory
+//    (store_converted), then runs the same tensor-core or CUDA-core body.
+//    Every one-byte value is exact in bf16 and f32, so the only rounding is
+//    the store's own. These loads are synchronous (the bf16 tile keeps its
+//    cp.async double buffer); the bytes the tile reads halve.
 //
 // Window/chunk masks apply to kFused and kWindow. Every mode clamps the
 // softmax denominator at 1e-20, so a row with no visible key outputs 0.
@@ -73,20 +80,8 @@
 
 #include "common.cuh"
 
-namespace {
-
-enum class Mode { kFused, kWindow, kPaged };
-
-constexpr int kDecTile = 32;  // kv positions per warp tile
-constexpr int kDecStages = 2;  // a warp's K/V tiles in flight (a third measured no faster)
-
-// Warps per block: 4, or 2 where a warp's double-buffered K/V tiles are
-// large (f32 at head dim 128), to stay within shared memory.
-template <typename T, int DMAX>
-__host__ __device__ constexpr int dec_warps() {
-  return sizeof(T) * DMAX > 256 ? 2 : 4;
-}
-
+// outside the unnamed namespace: paged_decode.cu passes it to the one-byte
+// instantiations in paged_decode_1b.cu
 struct DecodeArgs {
   const void* q;
   const void* kc;
@@ -104,6 +99,20 @@ struct DecodeArgs {
   float scale, v_scale;
   int window, chunk;
 };
+
+namespace {
+
+enum class Mode { kFused, kWindow, kPaged };
+
+constexpr int kDecTile = 32;  // kv positions per warp tile
+constexpr int kDecStages = 2;  // a warp's K/V tiles in flight (a third measured no faster)
+
+// Warps per block: 4, or 2 where a warp's double-buffered K/V tiles are
+// large (f32 at head dim 128), to stay within shared memory.
+template <typename T, int DMAX>
+__host__ __device__ constexpr int dec_warps() {
+  return sizeof(T) * DMAX > 256 ? 2 : 4;
+}
 
 // Padded K and V row length in elements: an odd number of 16-byte units, so
 // a lane reading its own K row, the mma's fragment loads and ldmatrix hit
@@ -179,7 +188,8 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
 
 // MMA: the bf16 body at head dims that are multiples of 16 (the tensor
 // cores, G q heads as the rows of one m16 tile); otherwise the CUDA cores.
-template <typename T, int GMAX, int DMAX, Mode MODE, bool MMA>
+// S: the cache's store type (T, or a one-byte store in the paged mode).
+template <typename T, typename S, int GMAX, int DMAX, Mode MODE, bool MMA>
 __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel(DecodeArgs a) {
   constexpr int NW = dec_warps<T, DMAX>();
   constexpr bool kFresh = MODE == Mode::kFused;   // fold in the fresh row, strict mask
@@ -221,8 +231,8 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
   T* my_stages = reinterpret_cast<T*>(stage_base) + (size_t)warp * kDecStages * stage;
 
   const long long line = a.lines ? min(max(a.lines[b], 0), a.n_lines - 1) : b;
-  const T* kc = static_cast<const T*>(a.kc) + line * a.csb + kvh * a.csh;
-  const T* vc = static_cast<const T*>(a.vc) + line * a.csb + kvh * a.csh;
+  const S* kc = static_cast<const S*>(a.kc) + line * a.csb + kvh * a.csh;
+  const S* vc = static_cast<const S*>(a.vc) + line * a.csb + kvh * a.csh;
   const int* btr = kPaged ? a.bt + (long long)b * a.nb : nullptr;
 
   for (int i = tid; i < G * D; i += blockDim.x) {
@@ -249,16 +259,33 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
     const long long slot = j < hi ? slot_of(j) : -1;
     T* sK = my_stages + s * stage;
     T* sV = sK + kDecTile * kp;
-    for (int base = 0; base < kDecTile * cpr; base += 32) {
-      const int i = base + lane;
-      const int r = i / cpr, pc = i % cpr;
-      const long long rslot = __shfl_sync(0xffffffffu, slot, r);
-      const long long src = (rslot < 0 ? 0 : rslot) * a.css + pc * EPC;
-      const int zfill = rslot < 0 ? 16 : 0;
-      __pipeline_memcpy_async(sK + r * kp + pc * EPC, kc + src, 16, zfill);
-      __pipeline_memcpy_async(sV + r * kp + pc * EPC, vc + src, 16, zfill);
+    if constexpr (kOneByte<S>) {
+      // one-byte store: 16 elements a load, converted to T into the stage
+      const int spr = D / 16;  // 16-element pieces per row
+      for (int base = 0; base < kDecTile * spr; base += 32) {
+        const int i = base + lane;
+        const int r = i / spr, pc = i % spr;
+        const long long rslot = __shfl_sync(0xffffffffu, slot, r);
+        uint4 ku = make_uint4(0u, 0u, 0u, 0u), vu = ku;
+        if (rslot >= 0) {
+          ku = *reinterpret_cast<const uint4*>(kc + rslot * a.css + pc * 16);
+          vu = *reinterpret_cast<const uint4*>(vc + rslot * a.css + pc * 16);
+        }
+        store_converted<T, S, 16>(sK + r * kp + pc * 16, ku);
+        store_converted<T, S, 16>(sV + r * kp + pc * 16, vu);
+      }
+    } else {
+      for (int base = 0; base < kDecTile * cpr; base += 32) {
+        const int i = base + lane;
+        const int r = i / cpr, pc = i % cpr;
+        const long long rslot = __shfl_sync(0xffffffffu, slot, r);
+        const long long src = (rslot < 0 ? 0 : rslot) * a.css + pc * EPC;
+        const int zfill = rslot < 0 ? 16 : 0;
+        __pipeline_memcpy_async(sK + r * kp + pc * EPC, kc + src, 16, zfill);
+        __pipeline_memcpy_async(sV + r * kp + pc * EPC, vc + src, 16, zfill);
+      }
     }
-    __pipeline_commit();
+    __pipeline_commit();  // (one-byte: an empty group; the waits count the same)
   };
   // whether this lane's position of tile t is attended
   auto lane_visible = [&](int t) {
@@ -651,16 +678,16 @@ __global__ void __launch_bounds__(256) decode_combine_kernel(DecodeArgs a) {
   }
 }
 
-template <typename T, int GMAX, int DMAX, Mode MODE, bool MMA>
+template <typename T, int GMAX, int DMAX, Mode MODE, bool MMA, typename S = T>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   constexpr int NW = dec_warps<T, DMAX>();
   // opted in once per instantiation to the most any G <= GMAX, D <= DMAX needs
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<T, GMAX, DMAX, MODE, MMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dec_smem_bytes(NW, GMAX, DMAX, sizeof(T)));
+      decode_split_kernel<T, S, GMAX, DMAX, MODE, MMA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dec_smem_bytes(NW, GMAX, DMAX, sizeof(T)));
   if (attr != cudaSuccess) return attr;
   const size_t smem = dec_smem_bytes(NW, a.H / a.KV, a.D, sizeof(T));
-  decode_split_kernel<T, GMAX, DMAX, MODE, MMA>
+  decode_split_kernel<T, S, GMAX, DMAX, MODE, MMA>
       <<<dim3(a.n_chunks, a.KV, a.B), NW * 32, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_chunks == 1) return err;
@@ -681,16 +708,20 @@ cudaError_t dispatch_g(const DecodeArgs& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+inline bool decode_args_ok(const DecodeArgs& a) {
+  return a.D % 8 == 0 && a.D <= 128 && a.KV > 0 && a.H % a.KV == 0 && a.chunk_len > 0 &&
+         a.n_chunks >= 1 && (long long)a.n_chunks * a.chunk_len >= a.kv_len &&
+         (a.n_chunks == 1 || a.ws);
+}
+
 // Checks the arguments and launches: the split kernel over C = n_chunks
 // chunks of chunk_len positions (C * chunk_len >= kv_len), then, with
 // C > 1, the combine over the scratch `ws`. bf16 at head dims that are
 // multiples of 16 runs the tensor-core body, the rest the CUDA-core body.
+// The cache holds q's dtype.
 template <Mode MODE>
 int dispatch(int dtype, const DecodeArgs& a, void* stream) {
-  if (a.D % 8 != 0 || a.D > 128 || a.KV <= 0 || a.H % a.KV != 0 || a.chunk_len <= 0 ||
-      a.n_chunks < 1 || (long long)a.n_chunks * a.chunk_len < a.kv_len ||
-      (a.n_chunks > 1 && !a.ws))
-    return (int)cudaErrorInvalidValue;
+  if (!decode_args_ok(a)) return (int)cudaErrorInvalidValue;
   if (a.B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == NXDI_F32)
@@ -703,6 +734,28 @@ int dispatch(int dtype, const DecodeArgs& a, void* stream) {
     return (int)(a.D <= 64 ? dispatch_g<__nv_bfloat16, 64, MODE, false>(a, s)
                            : dispatch_g<__nv_bfloat16, 128, MODE, false>(a, s));
   return (int)cudaErrorInvalidValue;
+}
+
+// The paged mode over a one-byte store `kv_dtype` (instantiated by
+// paged_decode_1b.cu alone) at a head dim that is a multiple of 16: tiles
+// are converted as they land (bf16 q: the tensor-core body; f32: the CUDA
+// cores, sized for 16 q heads a kv head).
+template <Mode MODE>
+int dispatch_one_byte(int dtype, int kv_dtype, const DecodeArgs& a, void* stream) {
+  static_assert(MODE == Mode::kPaged, "a one-byte store is the paged pool's");
+  if (!decode_args_ok(a) || a.D % 16 != 0 || a.H / a.KV > 16) return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_one_byte_store(kv_dtype, [&](auto tag) -> int {
+    using S = decltype(tag);
+    if (dtype == NXDI_F32)
+      return (int)(a.D <= 64 ? launch<float, 16, 64, MODE, false, S>(a, s)
+                             : launch<float, 16, 128, MODE, false, S>(a, s));
+    if (dtype == NXDI_BF16)
+      return (int)(a.D <= 64 ? launch<__nv_bfloat16, 16, 64, MODE, true, S>(a, s)
+                             : launch<__nv_bfloat16, 16, 128, MODE, true, S>(a, s));
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace

@@ -18,7 +18,16 @@
 // chunked prefill attends the prefix and the chunk itself (already scattered
 // into the pool) in token order. Holes (negative entries) are zero-filled
 // and masked; tiles past the q tile's last position are never read. k_scale
-// arrives folded into `scale`, v_scale multiplies the output.
+// arrives folded into `scale`, v_scale multiplies the output. The paged and
+// ragged modes also read a one-byte pool (float8_e4m3fn, float8_e5m2, int8;
+// template parameter S): the mma.sync body loads each K/V tile's rows 8
+// elements at a time and writes them to shared memory as bf16, the
+// CUDA-core body converts 4 at a time to f32 — exact in both, so the only
+// rounding is the store's own. These loads are synchronous (the bf16 tiles
+// keep their cp.async double buffer). The TMA + wgmma body takes bf16 pools
+// only: wgmma multiplies fp8 only by fp8, and q stays bf16 as on the TPU,
+// so the paged wrapper routes one-byte pools to the mma.sync body
+// (flash_attention.py::paged_prefill_body).
 //
 // The ragged entry (nxdi_ragged_paged, ragged_paged.cu) replaces
 // nxdi_tpu/ops/kernels/ragged_paged_attention.py::ragged_paged_attention for
@@ -67,19 +76,8 @@
 
 #include "common.cuh"
 
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kRows = 8;                 // q rows per warp
-constexpr int kBQ = kWarps * kRows;      // q rows per block
-constexpr int kBK = 64;                  // kv rows per tile
-constexpr int kMaxT = 4;                 // output columns per lane (D <= 128)
-constexpr int kMaxRaggedRows = 64;       // rows of a stream with mixed tiles (one 64-bit mask)
-
-// K/V addressing: contiguous rows, a block table per batch row, or the ragged
-// stream's per-token rows
-enum KvMode : int { KV_CONTIG = 0, KV_PAGED = 1, KV_RAGGED = 2 };
-
+// outside the unnamed namespace: the paged and ragged entries pass it to
+// their one-byte instantiations (paged_prefill_1b.cu, ragged_paged_1b.cu)
 struct PrefillArgs {
   const void* q;
   const void* k;
@@ -98,6 +96,19 @@ struct PrefillArgs {
   float scale, v_scale;
   int window, chunk;
 };
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kRows = 8;                 // q rows per warp
+constexpr int kBQ = kWarps * kRows;      // q rows per block
+constexpr int kBK = 64;                  // kv rows per tile
+constexpr int kMaxT = 4;                 // output columns per lane (D <= 128)
+constexpr int kMaxRaggedRows = 64;       // rows of a stream with mixed tiles (one 64-bit mask)
+
+// K/V addressing: contiguous rows, a block table per batch row, or the ragged
+// stream's per-token rows
+enum KvMode : int { KV_CONTIG = 0, KV_PAGED = 1, KV_RAGGED = 2 };
 
 // The rows a ragged q tile touches, in shared memory after the tiles. A
 // tile holds at most 64 tokens, so at most 64 rows, whatever R is.
@@ -252,7 +263,7 @@ __host__ __device__ inline size_t prefill_smem_bytes(int D) {
   return sizeof(float) * (size_t)(kBQ * D + kBK * (D + 4) + kBK * D + kWarps * kRows * kBK);
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, typename S = T>
 __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int D = a.D;
@@ -274,8 +285,8 @@ __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
   const int* btr = MODE == KV_PAGED ? a.bt + (long long)b * a.nb : nullptr;
 
   const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const S* k = static_cast<const S*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const S* v = static_cast<const S*>(a.v) + b * a.vsb + kvh * a.vsh;
   T* out = static_cast<T*>(a.out) + b * a.osb + h * a.osh;
 
   const int D4 = D / 4;
@@ -424,24 +435,31 @@ __host__ __device__ inline size_t prefill_tc_smem_bytes(int D) {
   return sizeof(__nv_bfloat16) * (size_t)(5 * kTcBK * (D + 8));  // Q + 2 K + 2 V tiles
 }
 
-// rows [row0, row0 + 64) of a (rows, D) bf16 matrix into a padded smem tile,
-// row j read from storage row kv_slot<MODE>(btr, bs, j); rows at or past
-// `limit` and holes are zero-filled
-template <int MODE>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long stride, int row0, int limit, int D, int DP,
-                                           const int* btr, int bs) {
-  const int cpr = D / 8;  // 16-byte chunks per row
+// rows [row0, row0 + 64) of a (rows, D) bf16 or one-byte matrix into a
+// padded bf16 smem tile, row j read from storage row kv_slot<MODE>(btr, bs,
+// j); rows at or past `limit` and holes are zero-filled. bf16 rows are
+// copied by cp.async; one-byte rows are loaded 8 elements at a time and
+// converted.
+template <int MODE, typename S>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const S* src, long long stride,
+                                           int row0, int limit, int D, int DP, const int* btr,
+                                           int bs) {
+  const int cpr = D / 8;  // 8-element chunks per row (16 bytes of bf16)
   for (int i = threadIdx.x; i < kTcBK * cpr; i += blockDim.x) {
     const int r = i / cpr, c = i % cpr;
     const long long slot = row0 + r < limit ? kv_slot<MODE>(btr, bs, row0 + r) : -1;
     const bool ok = slot >= 0;
-    const __nv_bfloat16* g = src + (ok ? slot : 0) * stride + c * 8;
-    __pipeline_memcpy_async(dst + r * DP + c * 8, g, 16, ok ? 0 : 16);
+    const S* g = src + (ok ? slot : 0) * stride + c * 8;
+    if constexpr (kOneByte<S>) {
+      const uint2 u = ok ? *reinterpret_cast<const uint2*>(g) : make_uint2(0u, 0u);
+      store_converted<__nv_bfloat16, S, 8>(dst + r * DP + c * 8, u);
+    } else {
+      __pipeline_memcpy_async(dst + r * DP + c * 8, g, 16, ok ? 0 : 16);
+    }
   }
 }
 
-template <int DMAX, int MODE>
+template <int DMAX, int MODE, typename S = __nv_bfloat16>
 __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a) {
   extern __shared__ __align__(16) __nv_bfloat16 tsm[];
   const int D = a.D, DP = D + 8;
@@ -462,8 +480,8 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
   const int* btr = MODE == KV_PAGED ? a.bt + (long long)b * a.nb : nullptr;
   using bf = __nv_bfloat16;
   const bf* q = static_cast<const bf*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf* k = static_cast<const bf*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const bf* v = static_cast<const bf*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const S* k = static_cast<const S*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const S* v = static_cast<const S*>(a.v) + b * a.vsb + kvh * a.vsh;
   bf* out = static_cast<bf*>(a.out) + b * a.osb + h * a.osh;
 
   RaggedMeta* meta = nullptr;
@@ -677,33 +695,38 @@ size_t with_meta(size_t tiles) {
   return MODE == KV_RAGGED ? round16(tiles) + sizeof(RaggedMeta) : tiles;
 }
 
-template <int DMAX, int MODE>
+template <int DMAX, int MODE, typename S = __nv_bfloat16>
 cudaError_t launch_tc(const PrefillArgs& a, int B, cudaStream_t stream) {
   const size_t smem = with_meta<MODE>(prefill_tc_smem_bytes(a.D));
-  cudaError_t err = cudaFuncSetAttribute(prefill_tc_kernel<DMAX, MODE>,
+  cudaError_t err = cudaFuncSetAttribute(prefill_tc_kernel<DMAX, MODE, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(MODE == KV_RAGGED ? a.n_tiles : (a.Sq + kTcBQ - 1) / kTcBQ, B * a.H);
-  prefill_tc_kernel<DMAX, MODE><<<grid, kTcWarps * 32, smem, stream>>>(a);
+  prefill_tc_kernel<DMAX, MODE, S><<<grid, kTcWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, typename S = T>
 cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
   const size_t smem = with_meta<MODE>(prefill_smem_bytes(a.D));
-  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T, MODE>,
+  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T, MODE, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(MODE == KV_RAGGED ? a.n_tiles : (a.Sq + kBQ - 1) / kBQ, B * a.H);
-  prefill_kernel<T, MODE><<<grid, kWarps * 32, smem, stream>>>(a);
+  prefill_kernel<T, MODE, S><<<grid, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+inline bool prefill_args_ok(const PrefillArgs& a, int MODE) {
+  return a.D % 8 == 0 && a.D <= 128 && a.H % a.KV == 0 &&
+         (MODE != KV_RAGGED || (a.R >= 1 && (a.one_row || a.R <= kMaxRaggedRows)));
+}
+
+// K/V in q's dtype: f32 runs the CUDA-core body, bf16 the mma.sync body at
+// head dims that are multiples of 16 and the CUDA-core body otherwise.
 template <int MODE>
 int run(int dtype, const PrefillArgs& a, int B, void* stream) {
-  if (a.D % 8 != 0 || a.D > 128 || a.H % a.KV != 0) return (int)cudaErrorInvalidValue;
-  if (MODE == KV_RAGGED && (a.R < 1 || (!a.one_row && a.R > kMaxRaggedRows)))
-    return (int)cudaErrorInvalidValue;
+  if (!prefill_args_ok(a, MODE)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.Sq == 0 || B == 0 || (MODE == KV_RAGGED && a.n_tiles == 0)) return (int)cudaSuccess;
   if (dtype == NXDI_F32) return (int)launch<float, MODE>(a, B, s);
@@ -711,6 +734,25 @@ int run(int dtype, const PrefillArgs& a, int B, void* stream) {
     return (int)(a.D <= 64 ? launch_tc<64, MODE>(a, B, s) : launch_tc<128, MODE>(a, B, s));
   if (dtype == NXDI_BF16) return (int)launch<__nv_bfloat16, MODE>(a, B, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// A one-byte pool `kv_dtype` (the paged and ragged modes, instantiated by
+// paged_prefill_1b.cu and ragged_paged_1b.cu alone) at a head dim that is a
+// multiple of 16: bf16 q runs the mma.sync body, f32 the CUDA-core body,
+// each converting its K/V tiles as they land.
+template <int MODE>
+int run_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, int B, void* stream) {
+  static_assert(MODE != KV_CONTIG, "a one-byte store is the paged pool's");
+  if (!prefill_args_ok(a, MODE) || a.D % 16 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.Sq == 0 || B == 0 || (MODE == KV_RAGGED && a.n_tiles == 0)) return (int)cudaSuccess;
+  return with_one_byte_store(kv_dtype, [&](auto tag) -> int {
+    using S = decltype(tag);
+    if (dtype == NXDI_F32) return (int)launch<float, MODE, S>(a, B, s);
+    if (dtype == NXDI_BF16)
+      return (int)(a.D <= 64 ? launch_tc<64, MODE, S>(a, B, s) : launch_tc<128, MODE, S>(a, B, s));
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace

@@ -16,6 +16,11 @@ buffer by a non-blocking copy, and the host reads them one step late
 ``tkg_multistep`` submodel the decode strides K tokens per dispatch the same
 way, window after window.
 
+``padding_side`` (the config key, "right" or "left") is the tokenizer's
+setting; as in the JAX package it is only validated: ``generate()`` takes
+right-padded ids (true lengths from ``attention_mask``) either way, and an
+extra ``padding_side`` argument is accepted and ignored.
+
 Not ported yet: the fused speculation decode loop and the request telemetry
 spans.
 """

@@ -21,7 +21,9 @@ the names are the JAX package's):
 - ``cte_flash_kernel`` / ``cte_xla`` — prefill through the CUDA flash kernel
   (or its plain version on the CPU), or the plain grouped attention;
 - ``tkg_fused_kernel_stacked`` — contiguous decode through the fused-decode
-  kernel on the stacked cache; ``tkg_two_part_xla`` — its plain path;
+  kernel on the stacked cache; ``tkg_fused_kernel`` — the same kernel per
+  layer over the gathered, dequantized window (a quantized cache on the
+  card); ``tkg_two_part_xla`` — their plain path;
 - ``cte_paged_kernel`` — a prefill chunk that continues a cached prefix,
   attending the pool through the block table;
 - ``tkg_paged_kernel`` — paged decode through the block table
@@ -43,8 +45,20 @@ flag whose eligibility fails raises, naming the failed condition, instead of
 silently dropping to the plain path. One condition of the JAX rule does not
 hold the card back: under continuous batching (cache lines routed by
 ``seq_ids``) and in the K-step and loop bodies (``write_positions``) the JAX
-package leaves the stacked fused decode for plain attention over gathered
-lines; the port's kernel takes each row's line (``lines``) and runs there.
+package leaves the stacked fused decode for the per-layer one over gathered
+lines, or for plain attention; the port's kernel takes each row's line
+(``lines``) and runs there.
+
+Quantization (the JAX package's): a linear's params may be a quantized dict
+(``qw``/``scale``, ``qw4`` MXFP4 blocks, an ``input_scale`` for static int8
+activations) that :func:`_linear` serves through ``ops/quantization.py``;
+the QKV and MLP kernels take unquantized weights only. A quantized KV store
+(one byte per element) is written and read by the layouts with their
+scales; the deferred decode attends each fresh row through its scale
+(divided and multiplied, as the JAX package does), and the stacked fused
+decode kernel, which reads the cache in q's dtype, leaves such a cache (the
+JAX rule) to the same kernel launched per layer over the dequantized window;
+the paged, ragged and commit kernels take the one-byte store.
 
 The device-resident decode family (the JAX package's): on-device sampling
 with a per-step key (``rng``, chained by ``next_step_rng``),
@@ -70,6 +84,7 @@ from nxdi_tpu_torch.kvcache.kv_cache import (
     KVCacheSpec,
 )
 from nxdi_tpu_torch.ops import attention as attn_ops
+from nxdi_tpu_torch.ops import quantization as quant_ops
 from nxdi_tpu_torch.ops import sampling as sampling_ops
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
 from nxdi_tpu_torch.ops.kernels import fused_proj as fp
@@ -112,6 +127,12 @@ class DecoderArch:
     fused_qkv: bool = False
     qkv_kernel_enabled: bool = False
     mlp_kernel_enabled: bool = False
+    # int8 activation quantization of the quantized linears ("dynamic" |
+    # "static"); the weights themselves are quantized in the params
+    act_quant: Optional[str] = None
+    act_clamp: Optional[float] = None
+    # the one-byte KV store of a quantized cache (None: the compute dtype)
+    kv_quant_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.hidden_act != "silu":
@@ -125,11 +146,17 @@ class DecoderArch:
             max_len=max_len,
             head_dim=self.head_dim,
             dtype=self.dtype,
+            quant_dtype=self.kv_quant_dtype,
         )
 
 
-def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """x @ w (+ b); weights are stored (in, out) like the JAX package."""
+def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor], act_quant=None,
+            clamp=None) -> torch.Tensor:
+    """x @ w (+ b) over a full-precision param dict ``{"w"[, "b"]}`` or a
+    quantized one (``ops/quantization.quantized_linear``); weights are
+    stored (in, out) like the JAX package."""
+    if "qw" in p or "qw4" in p:
+        return quant_ops.quantized_linear(x, p, act_quant=act_quant, clamp_bound=clamp)
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
@@ -171,7 +198,12 @@ def _proj_gate(flag: str, on_cuda: bool, ref_failed: List[str], card_failed: Lis
         )
 
 
-def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = None) -> List[str]:
+def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = None,
+                 store: Optional[torch.dtype] = None) -> List[str]:
+    """The CUDA kernels' limits: head dim, q's dtype, heads per kv head, and
+    the KV ``store`` the kernel reads (q's dtype, or, for the paged, ragged
+    and commit kernels, a one-byte store at a head dim that is a multiple
+    of 16)."""
     bad = []
     if D % 8 or D > fa.MAX_HEAD_DIM:
         bad.append(f"head_dim {D} is not a multiple of 8 up to {fa.MAX_HEAD_DIM}")
@@ -179,6 +211,11 @@ def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = 
         bad.append(f"dtype {dtype} is not float32 or bfloat16")
     if max_group is not None and G > max_group:
         bad.append(f"{G} query heads per kv head exceed {max_group}")
+    if store is not None and store != dtype:
+        if store not in fa.ONE_BYTE_STORES:
+            bad.append(f"KV store {store} is neither {dtype} nor a one-byte store")
+        elif D % 16:
+            bad.append(f"a one-byte KV store needs head_dim a multiple of 16, got {D}")
     return bad
 
 
@@ -203,16 +240,17 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             ref_failed.append(f"{k_cache_l.shape[0]} pool slots are not whole blocks")
         scales = dict(block_size=layout.block_size, k_scale=layout.k_scale,
                       v_scale=layout.v_scale)
+        store = k_cache_l.dtype
         if S > 1 and _kernel_gate(
             "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1)),
+            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1), store=store),
         ):
             _record_strategy("cte_paged_kernel")
             return fa.paged_attention_prefill(
                 q, k_cache_l, v_cache_l, ci["block_table"], position_ids, **scales)
         if S == 1 and _kernel_gate(
             "attn_block_tkg_kernel_enabled", arch.attn_block_tkg_kernel_enabled, q.is_cuda,
-            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1), max_group=16),
+            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1), max_group=16, store=store),
         ):
             _record_strategy("tkg_paged_kernel")
             return fa.paged_attention_decode(
@@ -245,7 +283,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             q.shape, k_cache_l.shape, layout.block_size):
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
-    card = _card_limits(D, q.dtype, H // max(KV, 1))
+    card = _card_limits(D, q.dtype, H // max(KV, 1), store=k_cache_l.dtype)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
                     card):
         _record_strategy("mixed_ragged_kernel")
@@ -273,8 +311,9 @@ def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked):
     """q, k, v (B, S, width) of the layer: three products, or under
     ``fused_qkv`` one product over the interleaved weight (through the QKV
     kernel under ``qkv_kernel_enabled``), regrouped by rank block."""
+    aq, ac = arch.act_quant, arch.act_clamp
     if not arch.fused_qkv:
-        return tuple(_linear(hidden, p_attn[k]) for k in ("q_proj", "k_proj", "v_proj"))
+        return tuple(_linear(hidden, p_attn[k], aq, ac) for k in ("q_proj", "k_proj", "v_proj"))
     if "qkv_proj" not in p_attn:
         raise NotImplementedError(
             "fused_qkv is enabled but this model's params carry no fused "
@@ -285,6 +324,11 @@ def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked):
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
     Tq, Tk, Tv = H * D, KV * D, KV * D
     if arch.qkv_kernel_enabled:
+        if "w" not in p_attn["qkv_proj"] and qkv_stacked is None:
+            raise NotImplementedError(
+                "qkv_kernel_enabled requires an unquantized, non-LoRA "
+                "fused qkv_proj weight"
+            )
         x2 = hidden.reshape(B * S, H_in)
         T = Tq + Tk + Tv
         # the JAX rule in interpret mode accepts every shape: only the card's limits remain
@@ -298,7 +342,7 @@ def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked):
         qkv = qkv.reshape(B, S, T)
         _record_strategy("qkv_fused_kernel")
     else:
-        qkv = _linear(hidden, p_attn["qkv_proj"])
+        qkv = _linear(hidden, p_attn["qkv_proj"], aq, ac)
         _record_strategy("qkv_fused_matmul")
     # tp = 1 (the only degree ported): the interleaved weight is one rank
     # block [q | k | v], so no regroup by rank is needed
@@ -340,7 +384,8 @@ def attention_block(
     q, k = apply_rotary_pos_emb(q, k, cos, sin)
 
     def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
-        return _linear(ctx.transpose(1, 2).reshape(B, S, H * D), p_attn["o_proj"])
+        return _linear(ctx.transpose(1, 2).reshape(B, S, H * D), p_attn["o_proj"],
+                       arch.act_quant, arch.act_clamp)
 
     ci = dict(cache_inputs or {})
     ci["position_ids"] = position_ids
@@ -356,13 +401,25 @@ def attention_block(
             _record_strategy("tkg_fused_kernel_stacked")
             return o_proj(ctx), (k, v)
         kk, vv, kv_pos = layout.read(k_cache_l, v_cache_l, ci, cache_spec)
-        if (arch.attn_tkg_kernel_enabled and S == 1 and ci.get("write_positions") is None
-                and not _heads_ok(H, KV) and not q.is_cuda):
-            # the JAX rule's per-layer fused kernel over the gathered lines
-            # (continuous batching off the stacked kernel); the card runs the
-            # stacked kernel with its line operand instead
+        # a scaled store: the JAX package's round trip of the fresh rows goes
+        # through its forward's cache spec, which carries no quant dtype, so
+        # the rows are divided and multiplied by their scale in the compute
+        # dtype and never cast to the store; the port does the same (ROADMAP
+        # Queue 3)
+        k_att = layout.round_trip("k", k, cache_spec.torch_dtype, ci)
+        v_att = layout.round_trip("v", v, cache_spec.torch_dtype, ci)
+        # the JAX rule's per-layer fused kernel over the gathered, dequantized
+        # window, where the stacked kernel is off: on the CPU under routed
+        # lines, frozen rows or a quantized store; on the card (which runs
+        # the stacked kernel under lines and frozen rows) a quantized store.
+        # A frozen row is an ordinary row there, whose output nobody reads
+        if S == 1 and _kernel_gate(
+            "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
+            _heads_ok(H, KV), _card_limits(D, q.dtype, H // max(KV, 1), max_group=16),
+            ("frozen-row write positions",) if "write_positions" in ci else (),
+        ):
             _record_strategy("tkg_fused_kernel")
-            ctx = fa.flash_attention_decode_fused(q, kk, vv, k, v, position_ids, kv_pos)
+            ctx = fa.flash_attention_decode_fused(q, kk, vv, k_att, v_att, position_ids, kv_pos)
             return o_proj(ctx), (k, v)
         # this step's slots hold stale rows: poison their positions so only
         # the fresh rows are attended there (frozen rows write nothing)
@@ -370,7 +427,7 @@ def attention_block(
         hit = (kv_pos[:, None, :] == wpos[:, :, None]).any(dim=1)
         kv_pos = torch.where(hit, torch.full_like(kv_pos, 2 ** 30), kv_pos)
         _record_strategy("tkg_two_part_xla")
-        ctx = attn_ops.attention_two_part(q, kk, vv, k, v, position_ids, kv_pos, wpos)
+        ctx = attn_ops.attention_two_part(q, kk, vv, k_att, v_att, position_ids, kv_pos, wpos)
         return o_proj(ctx), (k, v)
 
     layout.update(k_cache_l, v_cache_l, k, v, ci, cache_spec)
@@ -416,8 +473,9 @@ def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor,
                                p_mlp["down_proj"]["w"], act=arch.hidden_act)
         _record_strategy("mlp_fused_kernel")
         return out.reshape(B, S, H)
-    gate = F.silu(_linear(x, p_mlp["gate_proj"]))
-    return _linear(gate * _linear(x, p_mlp["up_proj"]), p_mlp["down_proj"])
+    aq, ac = arch.act_quant, arch.act_clamp
+    gate = F.silu(_linear(x, p_mlp["gate_proj"], aq, ac))
+    return _linear(gate * _linear(x, p_mlp["up_proj"], aq, ac), p_mlp["down_proj"], aq, ac)
 
 
 def decoder_layer(
@@ -445,7 +503,8 @@ def stacked_proj_weights(arch: DecoderArch, stacked: Dict[str, Any]):
     mlp, qkv = stacked["mlp"], stacked["attn"].get("qkv_proj")
     mlp_st = (tuple(mlp[k]["w"] for k in ("gate_proj", "up_proj", "down_proj"))
               if arch.mlp_kernel_enabled else None)
-    qkv_st = (qkv["w"], qkv.get("b")) if arch.qkv_kernel_enabled and qkv is not None else None
+    qkv_st = ((qkv["w"], qkv.get("b"))
+              if arch.qkv_kernel_enabled and qkv is not None and "w" in qkv else None)
     return mlp_st, qkv_st
 
 
@@ -485,12 +544,17 @@ def run_decoder_layers(
     if defer and S == 1:
         # the JAX rule leaves the stacked kernel under routed lines and frozen
         # rows; the card's kernel takes both (its line operand; a frozen row
-        # is an ordinary row whose output nobody reads)
+        # is an ordinary row whose output nobody reads). It reads the cache in
+        # q's dtype, so a scaled or narrowed store leaves it (the JAX rule) for
+        # the per-layer fused kernel over the dequantized window
+        # (decoder_layer), on the card too
         ref_only = tuple(cond for cond, hit in (
             ("cache lines routed by seq_ids", layout.route_by_seq_id),
             ("frozen-row write positions", "write_positions" in (cache_inputs or {})),
         ) if hit)
-        use_stacked_tkg = _kernel_gate(
+        quantized = (layout.scaled("k") or layout.scaled("v")
+                     or cache["k"].dtype != cache_spec.torch_dtype)
+        use_stacked_tkg = not quantized and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, hidden.is_cuda,
             _heads_ok(H, KV),
             _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
@@ -499,14 +563,17 @@ def run_decoder_layers(
     tkg_stacked = (cache["k"], cache["v"], kv_window) if use_stacked_tkg else None
     mlp_stacked, qkv_stacked = stacked_proj_weights(arch, stacked_params)
     windowable = contiguous and attend_to_cache and not use_stacked_tkg and kv_window is not None
+    # per-layer KV scale tables select their row by the layer index
+    per_layer = contiguous and layout.has_array_scales()
     ks, vs = [], []
     for i in range(arch.num_layers):
         kl, vl = cache["k"][i], cache["v"][i]
         if windowable and kv_window < kl.shape[2]:
             kl, vl = kl[:, :, :kv_window], vl[:, :, :kv_window]
+        ci = {**(cache_inputs or {}), "layer_idx": i} if per_layer else cache_inputs
         hidden, (nk, nv) = decoder_layer(
             arch, layer_params(stacked_params, i), hidden, cos, sin, kl, vl, position_ids,
-            cache_spec, attend_to_cache, layout, cache_inputs, defer_write=defer,
+            cache_spec, attend_to_cache, layout, ci, defer_write=defer,
             stacked_layer_idx=i, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
             qkv_stacked=qkv_stacked,
         )
@@ -578,7 +645,7 @@ def causal_lm_forward(
         cache_spec = BlockKVCacheSpec(
             num_layers=arch.num_layers, num_blocks=cache["k"].shape[1] // layout.block_size,
             block_size=layout.block_size, num_kv_heads=arch.num_kv_heads,
-            head_dim=arch.head_dim, dtype=arch.dtype,
+            head_dim=arch.head_dim, dtype=arch.dtype, quant_dtype=arch.kv_quant_dtype,
         )
     else:
         cache_spec = arch.kv_cache_spec(cache["k"].shape[1], cache["k"].shape[3])

@@ -4,9 +4,12 @@
 arrays, which is what its application holds after ``jax.device_get`` — into
 this port's params dict. Both packages use the same keys and the same
 (in, out) weight layout (the interleaved ``qkv_proj`` of ``fused_qkv``
-included), so the conversion is leaf by leaf; bfloat16 arrays
-(a numpy extension dtype) are reinterpreted bit for bit, without importing
-the package that defines that dtype.
+included), so the conversion is leaf by leaf. Quantized linears (``qw`` /
+``scale``, MXFP4 ``qw4``, ``input_scale``) carry across the same way.
+bfloat16 and fp8 arrays (numpy extension dtypes) move as their raw bits —
+``uint16`` / ``uint8`` views reinterpreted as the torch dtype — without
+importing the package that defines those dtypes and without a float round
+trip.
 """
 
 from __future__ import annotations
@@ -17,12 +20,19 @@ import numpy as np
 import torch
 
 
+# numpy extension dtypes by name -> (the unsigned view of their bits, torch dtype)
+_BIT_VIEWS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
 def _leaf(x) -> torch.Tensor:
     arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(
-            torch.bfloat16
-        )
+    if arr.dtype.name in _BIT_VIEWS:
+        view, dt = _BIT_VIEWS[arr.dtype.name]
+        return torch.from_numpy(np.ascontiguousarray(arr).view(view).copy()).view(dt)
     return torch.from_numpy(np.array(arr, copy=True))
 
 

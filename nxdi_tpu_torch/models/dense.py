@@ -77,6 +77,9 @@ def build_arch(config: InferenceConfig, **overrides) -> DecoderArch:
         fused_qkv=bool(tc.fused_qkv),
         qkv_kernel_enabled=bool(tc.qkv_kernel_enabled),
         mlp_kernel_enabled=bool(tc.mlp_kernel_enabled),
+        act_quant=tc.activation_quantization_type,
+        act_clamp=tc.quantize_clamp_bound,
+        kv_quant_dtype=tc.kv_quant_config.dtype if tc.kv_quant_config is not None else None,
     )
     kwargs.update(overrides)
     return DecoderArch(**kwargs)

@@ -26,6 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "nxdi_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the one-byte KV stores the paged, ragged and commit kernels take (codes
+# shared with csrc/common.cuh)
+STORE_CODES = {torch.float8_e4m3fn: 2, torch.float8_e5m2: 3, torch.int8: 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,15 +48,16 @@ SIGNATURES = {
     "nxdi_empty_launch": [_I, _I, _P],
     "nxdi_flash_decode_window": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 7
     + [_F, _I, _I, _I, _I, _P, _P],
-    "nxdi_paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4
+    # q's dtype, the pool's store dtype, ...
+    "nxdi_paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4
     + [_F, _F, _I, _I, _P, _P],
-    # dtype, body (flash_attention.PREFILL_BODIES), ..., pool slots, ...
-    "nxdi_paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_LL] * 6
+    # dtype, store dtype, body (flash_attention.PREFILL_BODIES), ..., pool slots, ...
+    "nxdi_paged_prefill": [_I, _I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_LL] * 6
     + [_F, _F, _P],
     # ... + the device work list and its host counts (direct tiles, items,
     # partial slots, tokens to combine), whether it is split (its direct
     # tiles hold one row each), then the partials' scratch
-    "nxdi_ragged_paged": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P] + [_I] * 7
+    "nxdi_ragged_paged": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P] + [_I] * 7
     + [_LL] * 4 + [_F, _F, _P],
     # ... + the GEMM plan (body, tile rows and columns, splits, K slice;
     # fused_proj.GemmPlan.args), twice for the MLP (gate/up, then down), the
@@ -177,3 +181,14 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {t.dtype} is not supported (float32, bfloat16)")
     return DTYPE_CODES[t.dtype]
+
+
+def store_code(kv: torch.Tensor, q: torch.Tensor, name: str) -> int:
+    """The code of a KV store: q's dtype, or one byte (float8_e4m3fn,
+    float8_e5m2, int8)."""
+    if kv.dtype == q.dtype:
+        return dtype_code(q, name)
+    if kv.dtype not in STORE_CODES:
+        raise TypeError(f"{name}: KV store dtype {kv.dtype} is neither q's ({q.dtype}) nor "
+                        "a one-byte store (float8_e4m3fn, float8_e5m2, int8)")
+    return STORE_CODES[kv.dtype]

@@ -34,6 +34,14 @@ The decode kernel splits each row's kv range over blocks (flash decoding):
 (chunk, kv head, row) writes its partial softmax state, and a combine
 kernel merges the chunks in order.
 
+The paged kernels also read a one-byte pool (``float8_e4m3fn``,
+``float8_e5m2`` or ``int8``: the KV store of a quantized cache) with q in
+bf16 or f32, as the JAX kernels read it in its store dtype: each kernel
+converts its K/V tiles to q's dtype as they land, ``k_scale`` folds into the
+softmax scale and ``v_scale`` into the output. A one-byte paged prefill runs
+the mma.sync body (:func:`paged_prefill_body`): wgmma multiplies fp8 only by
+fp8, and q stays bf16.
+
 Each wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernel or raises. Each kernel launch adds one to the
 wrapper's ``launches`` attribute (launches of the plain version do not).
@@ -53,6 +61,8 @@ from nxdi_tpu_torch.ops.attention import NEG_INF
 from nxdi_tpu_torch.ops.kernels import _build
 
 MAX_HEAD_DIM = 128
+# the one-byte KV stores the paged kernels read (and convert as tiles land)
+ONE_BYTE_STORES = (torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
 # the contiguous prefill's bodies (codes shared with csrc/flash_prefill.cu)
 PREFILL_BODIES = {"simt": 0, "mma": 1, "wgmma": 2}
 WGMMA_HEAD_DIMS = (64, 128)
@@ -96,6 +106,29 @@ def _check_cuda_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
             f"{name}: operands need a unit-stride last dim, other strides a multiple "
             "of 8 elements and a 16-byte aligned base"
         )
+
+
+def _check_kv_store(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor) -> None:
+    """K/V pool operands: q's dtype (the checks of :func:`_check_cuda_operand`)
+    or a one-byte store shared by k and v, whose rows must be whole 16-byte
+    loads (a head dim that is a multiple of 16)."""
+    if k_cache.dtype == q.dtype and v_cache.dtype == q.dtype:
+        for t in (k_cache, v_cache):
+            _check_cuda_operand(t, name, q.dtype)
+        return
+    if k_cache.dtype not in ONE_BYTE_STORES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{name}: KV store dtypes ({k_cache.dtype}, {v_cache.dtype}) are "
+                        f"neither q's ({q.dtype}) nor one shared one-byte store")
+    D = q.shape[-1]
+    if D % 16:
+        raise ValueError(f"{name}: a one-byte KV store needs head_dim a multiple of 16, got {D}")
+    for t in (k_cache, v_cache):
+        if t.device != q.device:
+            raise ValueError(f"{name}: all operands must be on the same CUDA device")
+        if t.stride(-1) != 1 or any(s_ % 16 for s_ in t.stride()[:-1]) or t.data_ptr() % 16:
+            raise ValueError(f"{name}: a one-byte store needs a unit-stride last dim, other "
+                             "strides in multiples of 16 elements and a 16-byte aligned base")
 
 
 # ---------------------------------------------------------------------------
@@ -233,11 +266,14 @@ def paged_prefill_body(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
                        block_size: int) -> str:
     """The body the paged prefill runs: ``"wgmma"`` (TMA + wgmma, K/V boxes
     per pool block: bf16 at head dim 64 or 128 with a block size
-    :func:`paged_wgmma_block` takes), ``"mma"`` (mma.sync: other bf16 cases
-    whose head dim is a multiple of 16) or ``"simt"`` (CUDA cores: f32, other
-    bf16 head dims). Operands whose strides TMA cannot take raise."""
+    :func:`paged_wgmma_block` takes, over a bf16 pool), ``"mma"`` (mma.sync:
+    other bf16 cases whose head dim is a multiple of 16, and every bf16 q
+    over a one-byte pool, whose tiles it converts to bf16 as they land) or
+    ``"simt"`` (CUDA cores: f32, other bf16 head dims). Operands whose
+    strides TMA cannot take raise."""
     D = q.shape[3]
-    if q.dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS and paged_wgmma_block(block_size):
+    if (q.dtype == torch.bfloat16 and k_cache.dtype == q.dtype and D in WGMMA_HEAD_DIMS
+            and paged_wgmma_block(block_size)):
         _check_tma("paged_attention_prefill",
                    (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)))
         return "wgmma"
@@ -542,7 +578,11 @@ def gather_pages(cache_l, block_table, block_size):
     offs = torch.arange(block_size, device=bt.device)
     slots = (bt[:, :, None] * block_size + offs).reshape(B, -1).clamp(0, cache_l.shape[0] - 1)
     live = (bt >= 0)[:, :, None].expand(B, bt.shape[1], block_size).reshape(B, -1)
-    return cache_l[slots].transpose(1, 2), live
+    if cache_l.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):  # gathered as bytes
+        rows = cache_l.view(torch.uint8)[slots].view(cache_l.dtype)
+    else:
+        rows = cache_l[slots]
+    return rows.transpose(1, 2), live
 
 
 def paged_attention_plain(q, k_cache, v_cache, block_table, q_pos, *, block_size, scale=None,
@@ -584,31 +624,31 @@ def _paged_launch(fn_name, decode, q, k_cache, v_cache, block_table, q_pos, bloc
                   k_scale, v_scale):
     B, H, Sq, D = q.shape
     KV = k_cache.shape[1]
-    for t in (q, k_cache, v_cache):
-        _check_cuda_operand(t, fn_name, q.dtype)
+    _check_cuda_operand(q, fn_name, q.dtype)
+    _check_kv_store(fn_name, q, k_cache, v_cache)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError(f"{fn_name}: the pool layers must be contiguous")
     scale = (D ** -0.5 if scale is None else scale) * k_scale
     bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lib = _build.library()
     common = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
               qp.data_ptr(), bt.data_ptr())
     code = _build.dtype_code(q, fn_name)
+    kv_code = _build.store_code(k_cache, q, fn_name)
     if decode:
         NB = bt.shape[1]
         chunk, n_chunks, ws = _decode_split(B, H, KV, D, NB * block_size, q.device)
-        err = lib.nxdi_paged_decode(
-            code, *common, B, H, KV, D, NB, block_size, q.stride(0), q.stride(1),
+        err = _build.library().nxdi_paged_decode(
+            code, kv_code, *common, B, H, KV, D, NB, block_size, q.stride(0), q.stride(1),
             out.stride(0), out.stride(1), float(scale), float(v_scale), chunk, n_chunks,
             None if ws is None else ws.data_ptr(), _build.stream_ptr(q.device),
         )
     else:
         body = PREFILL_BODIES[paged_prefill_body(q, k_cache, v_cache, block_size)]
-        err = lib.nxdi_paged_prefill(
-            code, body, *common, B, H, KV, Sq, bt.shape[1], block_size, D, k_cache.shape[0],
-            *q.stride()[:3], *out.stride()[:3], float(scale), float(v_scale),
+        err = _build.library().nxdi_paged_prefill(
+            code, kv_code, body, *common, B, H, KV, Sq, bt.shape[1], block_size, D,
+            k_cache.shape[0], *q.stride()[:3], *out.stride()[:3], float(scale), float(v_scale),
             _build.stream_ptr(q.device),
         )
     _build.check(err, fn_name)

@@ -12,6 +12,12 @@ arrays; here the caller's cache tensors are the result). Unlike the TPU
 kernel, T > 1 rows per line are allowed: each row is written directly, so
 there is no shared read-modify-write window to race on.
 
+The kernel moves bytes, so one instantiation serves every store: bf16, f32
+and the one-byte stores of a quantized cache (``float8_e4m3fn``,
+``float8_e5m2``, ``int8``), whose rows arrive already quantized — divided by
+their scale, saturated and cast by the layout, as the JAX package's
+``commit_rows`` hands them to its kernel.
+
 The wrapper takes the plain version for CPU tensors only; on CUDA tensors
 it launches the kernel or raises, and counts the launch in
 ``kv_commit_rows.launches``.
@@ -24,6 +30,9 @@ from typing import Optional, Tuple
 import torch
 
 from nxdi_tpu_torch.ops.kernels import _build
+
+# the caches the commit takes: the compute dtypes and the one-byte stores
+COMMIT_DTYPES = (torch.float32, torch.bfloat16, *_build.STORE_CODES)
 
 
 def commit_rows_supported(k_cache_shape, v_cache_shape, k_rows_shape, v_rows_shape) -> bool:
@@ -55,8 +64,12 @@ def kv_commit_rows_plain(k_cache, v_cache, k_rows, v_rows, slots, seq_ids=None):
     valid = (sl >= 0) & (sl < S) & ((lines >= 0) & (lines < B_cache))[:, None]
     bi, ti = torch.nonzero(valid, as_tuple=True)
     li, si = lines[bi], sl[bi, ti]
-    k_cache[:, li, :, si] = k_rows[:, bi, :, ti].to(k_cache.dtype)
-    v_cache[:, li, :, si] = v_rows[:, bi, :, ti].to(v_cache.dtype)
+    for cache, rows in ((k_cache, k_rows), (v_cache, v_rows)):
+        vals = rows[:, bi, :, ti].to(cache.dtype)
+        if cache.element_size() == 1:  # one-byte stores move as bytes
+            cache.view(torch.uint8)[:, li, :, si] = vals.view(torch.uint8)
+        else:
+            cache[:, li, :, si] = vals
     return k_cache, v_cache
 
 
@@ -80,7 +93,9 @@ def kv_commit_rows(
     if tuple(slots.shape) != (B, T):
         raise ValueError(f"kv_commit_rows: slots {tuple(slots.shape)} != (B, T) = {(B, T)}")
     name = "kv_commit_rows"
-    _build.dtype_code(k_cache, name)
+    if k_cache.dtype not in COMMIT_DTYPES:
+        raise TypeError(f"{name}: cache dtype {k_cache.dtype} is not supported "
+                        f"({', '.join(str(d) for d in COMMIT_DTYPES)})")
     if k_cache.device.type == "cpu":
         return kv_commit_rows_plain(k_cache, v_cache, k_rows, v_rows, slots, seq_ids)
     tensors = (k_cache, v_cache, k_rows, v_rows)

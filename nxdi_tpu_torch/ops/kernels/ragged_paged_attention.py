@@ -28,6 +28,10 @@ may be sized from shapes alone: :func:`ragged_capacity` gives a bucket's
 largest plan, and a plan padded to it (:func:`pad_plan`) runs in a launch
 of that size, which is what the mixed step's CUDA graph holds.
 
+The pool may hold a one-byte store (``float8_e4m3fn``, ``float8_e5m2``,
+``int8``), read as the JAX kernel reads it: converted to q's dtype as each
+tile lands, with the scales folded as above.
+
 The wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernels or raises, and counts each call in
 ``ragged_paged_attention.launches``. Tags and tables may arrive on the host
@@ -46,6 +50,7 @@ from nxdi_tpu_torch.ops.kernels import _build
 from nxdi_tpu_torch.ops.kernels.flash_attention import (
     _check_cuda_operand,
     _check_head_dim,
+    _check_kv_store,
     _plain_attention,
     gather_pages,
 )
@@ -327,8 +332,9 @@ def ragged_paged_attention(
             q, k_cache, v_cache, block_tables, row_ids, q_pos, block_size=block_size,
             scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
-    for t in (q, k_cache, v_cache):
-        _check_cuda_operand(t, name, q.dtype)
+    _check_cuda_operand(q, name, q.dtype)
+    _check_kv_store(name, q, k_cache, v_cache)
+    kv_code = _build.store_code(k_cache, q, name)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError(f"{name}: the pool layers must be contiguous")
     scale = (D ** -0.5 if scale is None else scale) * k_scale
@@ -351,7 +357,7 @@ def ragged_paged_attention(
     out = torch.empty((1, T, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     n_direct, n_items, n_comb = plan.grids(KV)
     err = _build.library().nxdi_ragged_paged(
-        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        code, kv_code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         rid.data_ptr(), qp.data_ptr(), bt.data_ptr(), flat.data_ptr(), n_direct,
         n_items, plan.n_slots, n_comb, int(plan.split),
         None if ws is None else ws.data_ptr(),

@@ -15,10 +15,19 @@ device-resident decode loop). ``decode_steps_per_dispatch > 1`` adds the
 ``tkg_multistep`` submodel (K steps per dispatch, :meth:`token_gen_multistep`
 and, chained on the device, :meth:`token_gen_multistep_device`);
 ``device_loop`` adds ``tkg_device_loop`` (:meth:`token_gen_device_loop`).
+
+Weight quantization (``quantized``): the converted params are quantized on
+the host before they move to the device (:func:`maybe_quantize_params`), or
+loaded pre-quantized from ``quantized_checkpoints_path``
+(:meth:`save_quantized_state_dict` writes one). A quantized KV cache
+(``kv_cache_quant`` / ``kv_quant_config``) allocates its store in the one-byte
+dtype. ``role="decode"`` builds no context-encoding or prefix-prefill
+submodel: its requests arrive as imported KV chains (``serving/handoff.py``).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -28,6 +37,7 @@ import torch
 from nxdi_tpu_torch import checkpoint as ckpt
 from nxdi_tpu_torch.config import InferenceConfig
 from nxdi_tpu_torch.kvcache.kv_cache import BlockKVCacheSpec, init_kv_cache, reset_kv_cache
+from nxdi_tpu_torch.ops import quantization as quant_ops
 from nxdi_tpu_torch.runtime import autobucketing
 from nxdi_tpu_torch.runtime.device import resolve_device
 from nxdi_tpu_torch.runtime.host_spans import span
@@ -46,6 +56,24 @@ from nxdi_tpu_torch.runtime.model_wrapper import (
 # multi-token prefill that attends the cache (prefix-cached or chunked
 # prefill on the paged pool)
 TAG_PREFIX_PREFILL = "prefix_prefill_model"
+
+
+def maybe_quantize_params(params, tc):
+    """Weight quantization per the config (a no-op unless ``quantized``):
+    every linear of the CPU params tree, as the JAX package's
+    ``maybe_quantize_params``."""
+    if not tc.quantized:
+        return params
+    return quant_ops.quantize_params(
+        params,
+        quant_dtype=tc.quantization_dtype,
+        scheme=tc.quantization_type,
+        modules_to_not_convert=tc.modules_to_not_convert,
+        static_input_scales=tc.activation_quantization_type == "static",
+    )
+
+
+QUANTIZED_CHECKPOINT = "model.safetensors"
 
 
 def _to_device(tree, device):
@@ -82,8 +110,40 @@ class TorchModelForCausalLM:
 
     def build_params(self) -> Dict[str, Any]:
         """Params dict on the CPU (subclasses may return tensors already on
-        the device)."""
-        return self.family.convert_hf_state_dict(self.get_state_dict(), self.config)
+        the device): the converted checkpoint, quantized when configured, or
+        a pre-quantized artifact from ``quantized_checkpoints_path``
+        (checked against the configured scheme)."""
+        tc = self.tpu_config
+        if tc.quantized and tc.quantized_checkpoints_path:
+            if not os.path.isdir(tc.quantized_checkpoints_path):
+                raise FileNotFoundError(
+                    f"quantized_checkpoints_path={tc.quantized_checkpoints_path!r}"
+                    " does not exist; run save_quantized_state_dict first or"
+                    " unset it to quantize online from the HF checkpoint"
+                )
+            params = quant_ops.unflatten_params(
+                ckpt.load_state_dict(tc.quantized_checkpoints_path))
+            quant_ops.validate_quantized_params(params, tc)
+            return params
+        params = self.family.convert_hf_state_dict(self.get_state_dict(), self.config)
+        return maybe_quantize_params(params, tc)
+
+    def save_quantized_state_dict(self, path: str) -> None:
+        """Write the quantized params as a flat safetensors file under
+        ``path``, for reload through ``quantized_checkpoints_path``. A loaded
+        app saves its params as they are (calibrated static input scales
+        included)."""
+        from safetensors.torch import save_file
+
+        if self.is_loaded:
+            qparams = self.params
+        else:
+            params = self.family.convert_hf_state_dict(self.get_state_dict(), self.config)
+            qparams = maybe_quantize_params(params, self.tpu_config)
+        flat = {k: v.detach().to("cpu").contiguous()
+                for k, v in quant_ops.flatten_params(qparams).items()}
+        os.makedirs(path, exist_ok=True)
+        save_file(flat, os.path.join(path, QUANTIZED_CHECKPOINT))
 
     def enable_models(self) -> None:
         arch = self.family.build_arch(self.config)
@@ -102,13 +162,17 @@ class TorchModelForCausalLM:
         # the context encoding's the same way
         nxt = dict(return_next_inputs=bool(
             (tc.async_mode or tc.decode_steps_per_dispatch > 1) and odsc is not None))
-        self.models[TAG_CONTEXT_ENCODING] = ModelWrapper(
-            TAG_CONTEXT_ENCODING, self.config, arch, inv_freq,
-            batch_size=tc.ctx_batch_size, n_active_tokens=0,
-            buckets=autobucketing.context_encoding_buckets(self.config),
-            attend_to_cache=False, device=self.device,
-            forward_kwargs=dict(gather_last_token=True, **fwd, **nxt),
-        )
+        # a decode-role app never prefills locally: its requests arrive as
+        # imported KV chains, so no context-encoding ladder is built
+        decode_role = tc.role == "decode"
+        if not decode_role:
+            self.models[TAG_CONTEXT_ENCODING] = ModelWrapper(
+                TAG_CONTEXT_ENCODING, self.config, arch, inv_freq,
+                batch_size=tc.ctx_batch_size, n_active_tokens=0,
+                buckets=autobucketing.context_encoding_buckets(self.config),
+                attend_to_cache=False, device=self.device,
+                forward_kwargs=dict(gather_last_token=True, **fwd, **nxt),
+            )
         self.models[TAG_TOKEN_GENERATION] = ModelWrapper(
             TAG_TOKEN_GENERATION, self.config, arch, inv_freq,
             batch_size=tc.tkg_batch_size, n_active_tokens=1,
@@ -139,7 +203,7 @@ class TorchModelForCausalLM:
                 outfeed_enabled=tc.device_loop_outfeed,
                 forward_kwargs=sampling,
             )
-        if tc.is_prefix_caching or tc.is_chunked_prefill:
+        if (tc.is_prefix_caching or tc.is_chunked_prefill) and not decode_role:
             # the new chunk sees the cached prefix through the block table
             self.models[TAG_PREFIX_PREFILL] = ModelWrapper(
                 TAG_PREFIX_PREFILL, self.config, arch, inv_freq,
@@ -195,7 +259,7 @@ class TorchModelForCausalLM:
             return BlockKVCacheSpec(
                 num_layers=arch.num_layers, num_blocks=tc.pa_num_blocks + 1,
                 block_size=tc.pa_block_size, num_kv_heads=arch.num_kv_heads,
-                head_dim=arch.head_dim, dtype=arch.dtype,
+                head_dim=arch.head_dim, dtype=arch.dtype, quant_dtype=arch.kv_quant_dtype,
             )
         return arch.kv_cache_spec(tc.kv_cache_batch_size + tc.kv_cache_padding_size, tc.seq_len)
 
@@ -240,7 +304,8 @@ class TorchModelForCausalLM:
             else:
                 submodel = TAG_CONTEXT_ENCODING if is_prefill else TAG_TOKEN_GENERATION
         if submodel not in self.models:
-            raise KeyError(f"submodel {submodel!r} is not built (available: {sorted(self.models)})")
+            raise KeyError(f"submodel {submodel!r} is not built in this app (role="
+                           f"{self.tpu_config.role!r}, available: {sorted(self.models)})")
         batch = {"input_ids": input_ids, "position_ids": position_ids, **kwargs}
         with span("dispatch"):
             outputs, self.kv_cache = self.models[submodel].forward(

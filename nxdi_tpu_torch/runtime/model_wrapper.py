@@ -37,7 +37,9 @@ eagerly from fresh device inputs: for side-by-side runs and debugging.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 import dataclasses
 import time
 import weakref
@@ -72,13 +74,53 @@ _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int6
                  np.dtype(np.float32): torch.float32, np.dtype(np.bool_): torch.bool}
 
 
-def kv_layout_from_config(tc):
+@contextlib.contextmanager
+def collector_paused():
+    """Keep Python's garbage collector off until the block ends: around a
+    CUDA graph capture, where a collection could free another app's graphs,
+    whose destruction a capturing stream does not permit (the capture is
+    then invalidated). What was garbage stays collectable after the block;
+    torch's own capture collects first only when
+    ``torch.compiler.config.force_cudagraph_gc`` is set."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
+def kv_layout_from_config(tc, arch=None):
     """The KV layout every submodel of this app runs against: the paged pool
     under ``is_block_kv_layout``, else the contiguous cache (its lines routed
-    by ``seq_ids`` under ``is_continuous_batching``)."""
+    by ``seq_ids`` under ``is_continuous_batching``). A quantized cache's
+    scales ride the layout: ``per_tensor`` as static floats, ``per_key`` /
+    ``per_channel`` as per-layer tables checked against the model's shape
+    (the JAX package's ``kv_layout_from_config``)."""
+    kvq = tc.kv_quant_config
+    scales = {}
+    if kvq is not None and kvq.scale_mode == "per_tensor":
+        scales = {"k_scale": kvq.k_scale, "v_scale": kvq.v_scale}
+    elif kvq is not None and kvq.scale_mode in ("per_key", "per_channel"):
+        if arch is not None:
+            want = ((arch.num_layers, arch.num_kv_heads) if kvq.scale_mode == "per_key"
+                    else (arch.num_layers, arch.head_dim))
+            for name, arr in (("k_scales", kvq.k_scales), ("v_scales", kvq.v_scales)):
+                if tuple(arr.shape) != want:
+                    raise ValueError(
+                        f"kv quant {name} shape {tuple(arr.shape)} does not "
+                        f"match this model's {kvq.scale_mode} shape {want} — "
+                        "recalibrate (kvcache.calibration) for this model"
+                    )
+        scales = {
+            "k_scales": tuple(map(tuple, kvq.k_scales.tolist())),
+            "v_scales": tuple(map(tuple, kvq.v_scales.tolist())),
+            "scale_axis": "key" if kvq.scale_mode == "per_key" else "channel",
+        }
     if tc.is_block_kv_layout:
-        return BlockKVLayout(block_size=tc.pa_block_size)
-    return ContiguousKVLayout(route_by_seq_id=bool(tc.is_continuous_batching))
+        return BlockKVLayout(block_size=tc.pa_block_size, **scales)
+    return ContiguousKVLayout(route_by_seq_id=bool(tc.is_continuous_batching), **scales)
 
 
 def decode_window_limit(tpu_config, models) -> int:
@@ -199,7 +241,7 @@ class ModelWrapper:
         # prefix through the block table)
         self.prefill_to_cache = prefill_to_cache
         self.forward_kwargs = dict(forward_kwargs or {})
-        self.layout = kv_layout_from_config(config.tpu_config)
+        self.layout = kv_layout_from_config(config.tpu_config, arch)
         # attention strategies each bucket actually ran (models/base.py trace)
         self.attention_strategies: Dict[int, tuple] = {}
         self.last_bucket: Optional[int] = None
@@ -433,7 +475,7 @@ class ModelWrapper:
         graph = torch.cuda.CUDAGraph()
 
         def capture():
-            with torch.cuda.graph(graph, pool=self.graph_pool):
+            with collector_paused(), torch.cuda.graph(graph, pool=self.graph_pool):
                 return self._run(key, params, cache, bg.bound)
 
         try:
@@ -870,7 +912,8 @@ class DeviceLoopTKGWrapper(_DecodeFamilyWrapper):
 
         def capture():
             base._STRATEGY_TRACE.clear()
-            with torch.inference_mode(), torch.cuda.graph(body, pool=self.graph_pool):
+            with (collector_paused(), torch.inference_mode(),
+                  torch.cuda.graph(body, pool=self.graph_pool)):
                 base.device_loop_iteration(self.arch, self.inv_freq, params, cache, bg.bound,
                                            **fwd)
 

@@ -39,19 +39,35 @@ evicts a request back to WAITING (blocks freed); on re-admission the engine
 re-prefills ``prompt + generated`` and the prefill's sampled token is simply
 the next new token — token-exact under greedy sampling.
 
+Disaggregation (``role``, the JAX package's KV handoff): a prefill-role
+engine parks each request after its first token, keeping its block chain
+until :meth:`ack_handoff`; :meth:`take_ready_handoffs` lists the newly
+parked and :meth:`export_handoff` builds a request's
+:class:`~nxdi_tpu_torch.serving.handoff.HandoffPayload`. A decode-role
+engine takes requests only through :meth:`admit_handoff`, which places the
+imported chain in its own pool and seats the request decoding. The counts
+are plain attributes (``handoff_exports``, ``handoff_imports``,
+``handoff_bytes``), like ``dispatches``.
+
+Each finished request's ``metrics`` holds ``preemptions`` and, timed from
+its ``arrival_s`` on ``time.perf_counter``, ``ttft_s`` (to the first token),
+``e2e_s`` (to its finish) and ``tpot_s`` ((e2e - ttft) per token after the
+first), the JAX package's definitions; ``serving/workload.py`` reads them.
+
 Not ported yet: the host plane (telemetry spans, flight recorder, SLO and
-QoS tracking, fault recovery, the disaggregation handoff).
+QoS tracking, fault recovery, the router).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from nxdi_tpu_torch.kvcache.kv_cache import copy_kv_blocks
+from nxdi_tpu_torch.kvcache.kv_cache import copy_kv_blocks, export_kv_blocks, import_kv_blocks
 from nxdi_tpu_torch.ops.sampling import StepRngSchedule, extract_next_tokens
 from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
 from nxdi_tpu_torch.runtime.block_manager import BlockSpaceManager
@@ -65,6 +81,7 @@ from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_TOKEN_GENERATION_MULTISTEP,
     decode_window_limit,
 )
+from nxdi_tpu_torch.serving.handoff import HandoffCapacityError, HandoffPayload, wire_dtype_name
 from nxdi_tpu_torch.serving.prefix_cache import PrefixCache
 from nxdi_tpu_torch.serving.request import RUNNING, Request, RequestOutput, SamplingParams
 from nxdi_tpu_torch.serving.scheduler import Scheduler, SchedulerConfig
@@ -170,6 +187,12 @@ class InferenceEngine:
         self.multistep_steps = 0
         #: device-loop launches, the iterations they ran, the tokens they retired
         self.loop_launches = self.loop_iterations = self.loop_tokens = 0
+        # prefill/decode disaggregation
+        self.role = tc.role
+        self._handoffs: Dict[int, Request] = {}  # parked for export, by request id
+        self._handoff_ready: List[int] = []
+        #: chains exported and imported, and the bytes they carried
+        self.handoff_exports = self.handoff_imports = self.handoff_bytes = 0
         self._progress = False
 
     # -- request intake -----------------------------------------------------
@@ -182,7 +205,13 @@ class InferenceEngine:
         arrival_s: Optional[float] = None,
     ) -> Request:
         """Queue a request (WAITING). ``on_token(request, token)`` streams
-        every generated token as it is sampled."""
+        every generated token as it is sampled. ``arrival_s`` backdates the
+        arrival the finish metrics count from (``time.perf_counter``)."""
+        if self.role == "decode":
+            raise ValueError(
+                "decode-role engine admits requests via KV handoff only "
+                "(admit_handoff); route prompts to a prefill replica"
+            )
         if params is not None and params.n > 1:
             # best-of-n: the primary prefills normally; each sibling forks
             # the parent's committed prompt blocks at admission and prefills
@@ -259,10 +288,22 @@ class InferenceEngine:
         if self.mixed:
             self._step_mixed(finished)
             return finished
+        if self.role == "decode" and self.scheduler.waiting:
+            # a decode-role engine has no prefill submodel: a preempted
+            # import cannot be replayed here, so it finishes with an error
+            # (a router re-prefills it on a prefill replica)
+            while self.scheduler.waiting:
+                req = self.scheduler.waiting.popleft()
+                req.error = "decode-role replica cannot re-prefill a preempted request"
+                self._finish(req, "error", finished)
         prefills = self.scheduler.schedule_prefills()
         for req in prefills:
             self._prefill_chunk(req, finished)
         rows = self.scheduler.decodable()
+        if self._handoffs and rows:
+            # parked prefill-role requests hold their slot and chain for
+            # export; they never join a decode batch
+            rows = [(s, r) for s, r in rows if r.request_id not in self._handoffs]
         preempted: List[Request] = []
         if rows:
             rows, preempted = self.scheduler.ensure_decode_capacity(rows)
@@ -383,6 +424,126 @@ class InferenceEngine:
             return  # more chunks next step; decodes interleave meanwhile
         self.scheduler.note_prefill_complete(req)
         self._emit(req, int(extract_next_tokens(out)[0]), finished)
+        if self.role == "prefill" and not req.is_finished:
+            self._park_for_handoff(req)
+
+    # -- KV handoff (prefill/decode disaggregation) -----------------------
+    def _park_for_handoff(self, req: Request) -> None:
+        """Prefill role: the first token is out; hold the request in its slot
+        (blocks pinned, out of decode batches and victim selection) until
+        its chain is exported and the import acknowledged."""
+        self._handoffs[req.request_id] = req
+        self._handoff_ready.append(req.request_id)
+        self.scheduler.unpreemptible.add(req.request_id)
+
+    def take_ready_handoffs(self) -> List[int]:
+        """Request ids newly parked since the last call."""
+        out, self._handoff_ready = self._handoff_ready, []
+        return out
+
+    def export_handoff(self, request_id: int) -> HandoffPayload:
+        """The payload of a parked request: its committed chain's K/V rows on
+        the host and what the decode side needs to continue. The chain stays
+        parked, and may be exported again, until :meth:`ack_handoff`."""
+        req = self._handoffs.get(request_id)
+        if req is None:
+            raise KeyError(f"request {request_id} is not parked for handoff")
+        mgr = self.block_manager
+        bs = mgr.block_size
+        committed = req.prefill_target
+        n_blocks = -(-committed // bs)
+        table = mgr._tables.get(req.request_id, [])[:n_blocks]
+        if len(table) < n_blocks:
+            raise RuntimeError(
+                f"parked request {request_id} holds {len(table)} blocks but "
+                f"its committed prefill needs {n_blocks}"
+            )
+        kv = export_kv_blocks(self.app.kv_cache, table, bs)
+        payload = HandoffPayload(
+            request_id=req.request_id,
+            prompt=list(req.prompt),
+            first_tokens=list(req.generated),
+            committed=committed,
+            sampling=HandoffPayload.sampling_wire(req.params),
+            rng_seed=self._rng.seed,
+            rng_counter=self._rng.counter,
+            block_size=bs,
+            dtype=wire_dtype_name(kv["k"].dtype),
+            kv=kv,
+        )
+        self.handoff_exports += 1
+        self.handoff_bytes += payload.nbytes
+        return payload
+
+    def ack_handoff(self, request_id: int) -> None:
+        """A decode engine imported the chain: retire the parked request (its
+        committed blocks enter the prefix cache before the pool reclaims
+        them) and recycle the slot."""
+        req = self._handoffs.pop(request_id, None)
+        if req is None:
+            raise KeyError(f"request {request_id} is not parked for handoff")
+        self.scheduler.unpreemptible.discard(request_id)
+        self.scheduler.retire(req, "handoff")
+
+    def admit_handoff(self, payload: HandoffPayload, on_token=None) -> Request:
+        """Decode-side admission: check the payload against this pool's
+        format, place the chain in the pool and seat the request RUNNING in
+        decode — no local prefill runs. Raises ``ValueError`` on a format
+        mismatch and :class:`HandoffCapacityError` when no slot or pool room
+        is free now."""
+        if not self.paged:
+            raise ValueError("admit_handoff requires the paged KV layout")
+        mgr = self.block_manager
+        payload.validate_against(mgr.block_size, self.app.kv_cache["k"].dtype)
+        sch = self.scheduler
+        slot = sch._free_slot()
+        if slot is None:
+            raise HandoffCapacityError("no free engine slot for the import")
+        params = payload.sampling_params()
+        req = Request(payload.prompt, params=params, on_token=on_token)
+        live_ids = {r.request_id for r in sch.waiting}
+        live_ids.update(r.request_id for r in sch.running())
+        req.request_id = payload.request_id
+        while req.request_id in live_ids:
+            req.request_id = next(Request._ids)
+        if payload.committed + max(params.max_new_tokens, 1) > self.window_limit:
+            # the budget clamp of add_request: one rule on both roles keeps
+            # greedy parity with the unified engine
+            budget = self.window_limit - payload.committed
+            if budget < 1:
+                raise ValueError(
+                    f"imported chain ({payload.committed} committed tokens) "
+                    f"leaves no decode room in the compiled window "
+                    f"({self.window_limit})"
+                )
+            req.params = dataclasses.replace(req.params, max_new_tokens=budget)
+        committed = payload.committed
+        n_blocks = -(-committed // mgr.block_size)
+        free = mgr.num_free_blocks()
+        headroom = sch.config.watermark_blocks or 0
+        if free - n_blocks < (headroom if sch.slots_busy else 0):
+            raise HandoffCapacityError(
+                f"pool pressure: import needs {n_blocks} blocks, "
+                f"{free} free (watermark {headroom})"
+            )
+        try:
+            table = mgr.ensure_capacity(req.request_id, committed)
+        except RuntimeError as e:
+            mgr.free_seq(req.request_id)
+            raise HandoffCapacityError(str(e)) from e
+        try:
+            import_kv_blocks(self.app.kv_cache, table[:n_blocks], payload.kv, mgr.block_size)
+        except Exception:
+            mgr.free_seq(req.request_id)
+            raise
+        # the prefill side streamed these already: seed them without the
+        # callback; the first token counts as delivered at the import
+        req.generated = [int(t) for t in payload.first_tokens]
+        req.first_token_s = time.perf_counter()
+        sch.place_imported(req, slot, committed)
+        self.handoff_imports += 1
+        self.handoff_bytes += payload.nbytes
+        return req
 
     # -- decode -------------------------------------------------------------
     def _layout_kwargs(self, rows: List[Tuple[int, Request]]) -> Dict[str, np.ndarray]:
@@ -615,10 +776,18 @@ class InferenceEngine:
     # -- retirement ---------------------------------------------------------
     def _finish(self, req: Request, reason: str, finished: List[RequestOutput]) -> None:
         self.scheduler.retire(req, reason)
+        t_end = time.perf_counter()
         metrics: Dict[str, float] = {"preemptions": req.preemptions}
         if req.fork_parent_id is not None:
             # n>1 sibling: callers group continuations by the parent id
             metrics["parent_request_id"] = req.fork_parent_id
+        # the JAX package's span metrics, from the request's arrival
+        ttft = None if req.first_token_s is None else req.first_token_s - req.arrival_s
+        metrics["ttft_s"] = ttft
+        metrics["e2e_s"] = t_end - req.arrival_s
+        n_dec = max(len(req.generated) - 1, 0)
+        if n_dec and ttft is not None:
+            metrics["tpot_s"] = (metrics["e2e_s"] - ttft) / n_dec
         finished.append(
             RequestOutput(
                 request_id=req.request_id,

@@ -12,7 +12,9 @@ A :class:`Request` is one generation job with a WAITING -> RUNNING ->
   on re-admission — exact for greedy sampling).
 - FINISHED  — EOS sampled or ``max_new_tokens`` reached; slot recycled.
 
-The JAX package's QoS identity, distributed-trace context, telemetry span
+Each request keeps the clock stamps the engine's finish metrics need
+(``arrival_s``, ``first_token_s``; ``time.perf_counter``), in place of the
+JAX package's telemetry span. Its QoS identity, distributed-trace context
 and fault-recovery counters belong to the host plane, which is not ported
 yet.
 """
@@ -68,6 +70,8 @@ class Request:
         self.params = params or SamplingParams()
         self.on_token = on_token
         self.arrival_s = time.perf_counter() if arrival_s is None else arrival_s
+        #: when the first generated token was emitted (kept across preemption)
+        self.first_token_s: Optional[float] = None
 
         self.state = WAITING
         self.generated: List[int] = []
@@ -119,6 +123,8 @@ class Request:
     def emit(self, token: int) -> None:
         """Append one generated token and fire the streaming callback."""
         token = int(token)
+        if self.first_token_s is None:
+            self.first_token_s = time.perf_counter()
         self.generated.append(token)
         if self.on_token is not None:
             self.on_token(self, token)

@@ -145,6 +145,9 @@ class Scheduler:
         self.waiting: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * num_slots
         self._admit_counter = 0
+        # request ids no preemption may evict: a prefill-role engine's parked
+        # requests, whose chains wait for their handoff
+        self.unpreemptible: set = set()
         if block_manager is not None and self.config.watermark_blocks is None:
             self.config.watermark_blocks = max(1, block_manager.num_blocks // 100)
 
@@ -326,6 +329,21 @@ class Scheduler:
         req.num_prefilled = cached
         self.slots[slot] = req
 
+    def place_imported(self, req: Request, slot: int, committed: int) -> None:
+        """Seat a handoff import directly RUNNING with its prefill already
+        accounted for: the engine allocated and filled the KV chain before
+        calling this, so the request decodes on the next step as if it had
+        prefilled here (``prefill_done`` is true at once)."""
+        if self.slots[slot] is not None:
+            raise RuntimeError(f"slot {slot} is already occupied")
+        req.slot = slot
+        req.state = RUNNING
+        req.num_prefilled = committed
+        req.prefill_target = committed
+        self._admit_counter += 1
+        req._admit_seq = self._admit_counter
+        self.slots[slot] = req
+
     def _fork_shared(self, req: Request) -> int:
         """Hand ``req`` whatever committed KV it can share instead of
         re-prefilling: an ``n > 1`` sibling forks its live parent's prompt
@@ -440,7 +458,7 @@ class Scheduler:
         """Evict one RUNNING request back to the FRONT of the waiting queue
         per ``preempt_policy``, freeing its blocks (recompute-style
         preemption). Returns the victim, or None when nothing is evictable."""
-        running = self.running()
+        running = [r for r in self.running() if r.request_id not in self.unpreemptible]
         if not running:
             return None
         victim = self._pick_victim(running)
@@ -474,7 +492,7 @@ class Scheduler:
         """Evict the youngest RUNNING request unconditionally (tests/demos
         force deterministic victims through this; the capacity paths go
         through :meth:`preempt_one` and honor ``preempt_policy``)."""
-        running = self.running()
+        running = [r for r in self.running() if r.request_id not in self.unpreemptible]
         if not running:
             return None
         victim = max(running, key=lambda r: r._admit_seq)

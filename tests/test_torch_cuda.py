@@ -858,3 +858,202 @@ def test_contiguous_engine_graphs_equal_eager_and_one_step(gen, mode):
         streams.append([got[r.request_id] for r in reqs])
     assert streams[0] == streams[1] == streams[2]
     assert [len(s) for s in streams[0]] == [9, 14, 6]
+
+
+# ---------------------------------------------------------------------------
+# one-byte KV stores (a quantized cache): the commit, the paged decode and
+# prefill, and the ragged kernels read or write float8_e4m3fn, float8_e5m2
+# and int8 pools, converting K/V to q's dtype as tiles land
+# ---------------------------------------------------------------------------
+
+ONE_BYTE = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2, "int8": torch.int8}
+# the scales that bring each store's values back near 1 (k_scale folds into
+# the softmax scale, v_scale into the output)
+ONE_BYTE_SCALES = {"e4m3": dict(k_scale=0.5, v_scale=0.5), "e5m2": dict(k_scale=0.5, v_scale=0.5),
+                   "int8": dict(k_scale=0.05, v_scale=0.05)}
+# max |kernel - plain|: the one-byte values are exact in bf16 and f32, so the
+# kernels' own tolerances hold (bf16: a few output ulps; f32 with scores of
+# ~10 against a float32 plain version)
+ONE_BYTE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _one_byte(gen, store, *shape):
+    x = _randn(gen, *shape)
+    if store == "int8":
+        return (x * 20).round().clamp(-127, 127).to(torch.int8)
+    return (x * 2).to(ONE_BYTE[store])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("store", list(ONE_BYTE))
+def test_one_byte_paged_decode(gen, store, D, dtype):
+    """The paged decode over a one-byte pool (G 4, 700 positions split in
+    chunks, a table of holes only, a hole mid-range): against the plain
+    version, one launch a call, the same bits on a second call."""
+    B, KV, G, bs, NB = 4, 2, 4, 16, 44
+    kc_, vc_ = (_one_byte(gen, store, B * NB * bs, KV, D) for _ in range(2))
+    bt = torch.randperm(B * NB, generator=torch.Generator().manual_seed(3)).reshape(B, NB)
+    bt = bt.to(torch.int32)
+    bt[1, :] = -1
+    bt[2, 7] = -1
+    q = _randn(gen, B, 1, KV * G, D).to(dtype).transpose(1, 2)
+    qp = torch.tensor([[699], [300], [500], [40]], dtype=torch.int32).cuda()
+    kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
+    before = fa.paged_attention_decode.launches
+    got = fa.paged_attention_decode(q, kc_, vc_, bt, qp, **kw)
+    assert fa.paged_attention_decode.launches == before + 1
+    want = fa.paged_attention_decode_plain(q, kc_, vc_, bt.cuda(), qp, **kw)
+    assert _max_err(got, want) <= ONE_BYTE_TOL[dtype]
+    assert torch.all(got[1] == 0)
+    assert torch.equal(fa.paged_attention_decode(q, kc_, vc_, bt, qp, **kw), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("store", list(ONE_BYTE))
+def test_one_byte_paged_prefill(gen, store, bs, dtype):
+    """The paged prefill over a one-byte pool runs the mma.sync body (bf16)
+    or the CUDA-core body (f32): a 300-token chunk after a 260-token prefix
+    with a hole, and one from 0; against the plain version, the same bits on
+    a second call."""
+    B, H, KV, D, Sq = 2, 8, 2, 64, 300
+    NB = 640 // bs
+    bt = torch.randperm(2 * NB, generator=torch.Generator().manual_seed(5)).reshape(2, NB)
+    bt = bt.to(torch.int32)
+    bt[0, 40 // bs] = -1
+    kc_, vc_ = (_one_byte(gen, store, 2 * NB * bs, KV, D) for _ in range(2))
+    q = _randn(gen, B, Sq, H, D).to(dtype).transpose(1, 2)
+    qp = (torch.tensor([[260], [0]], dtype=torch.int32) + torch.arange(Sq, dtype=torch.int32))
+    qp = qp.cuda()
+    kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
+    assert fa.paged_prefill_body(q, kc_, vc_, bs) == ("mma" if dtype == torch.bfloat16
+                                                      else "simt")
+    before = fa.paged_attention_prefill.launches
+    got = fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw)
+    assert fa.paged_attention_prefill.launches == before + 1
+    want = fa.paged_attention_prefill_plain(q, kc_, vc_, bt.cuda(), qp, **kw)
+    assert _max_err(got, want) <= ONE_BYTE_TOL[dtype]
+    assert torch.equal(fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stream", ["decode8", "chunk_and_long_decode"])
+@pytest.mark.parametrize("store", list(ONE_BYTE))
+def test_one_byte_ragged(gen, store, stream, dtype):
+    """The ragged kernels (direct tiles, split, combine) over a one-byte
+    pool: against the plain version, padding exactly 0, the same bits on a
+    second call."""
+    T, rows = RAGGED_STREAMS[stream]
+    H, KV, D, bs, NB = 32, 8, 64, 128, 16
+    R = max(s for s, _, _ in rows) + 1
+    bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
+    kc_, vc_ = (_one_byte(gen, store, R * NB * bs, KV, D) for _ in range(2))
+    q = _randn(gen, 1, T, H, D).to(dtype).transpose(1, 2)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
+    before = rpa.ragged_paged_attention.launches
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw)
+    assert rpa.ragged_paged_attention.launches == before + 1
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, **kw)
+    assert _max_err(got, want) <= ONE_BYTE_TOL[dtype]
+    assert torch.all(got[:, :, torch.from_numpy(rid < 0).cuda()] == 0)
+    assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw), got)
+
+
+@pytest.mark.parametrize("store", list(ONE_BYTE))
+def test_one_byte_commit(gen, store):
+    """The commit writes one-byte rows at their slots (a dropped slot, a
+    routed line), bit for bit as the plain version."""
+    L, B, KV, S, D = 3, 4, 2, 32, 16
+    k_cache, v_cache = (_one_byte(gen, store, L, B, KV, S, D) for _ in range(2))
+    k_rows, v_rows = (_one_byte(gen, store, L, B, KV, 1, D) for _ in range(2))
+    slots = torch.tensor([[3], [-1], [31], [0]], dtype=torch.int32)
+    lines = torch.tensor([2, 0, 3, 1], dtype=torch.int32)
+    k_ref, v_ref = k_cache.clone(), v_cache.clone()
+    kc.kv_commit_rows_plain(k_ref, v_ref, k_rows, v_rows, slots.cuda(), lines.cuda())
+    before = kc.kv_commit_rows.launches
+    kc.kv_commit_rows(k_cache, v_cache, k_rows, v_rows, slots, lines)
+    assert kc.kv_commit_rows.launches == before + 1
+    bits = (lambda t: t.view(torch.uint8))  # noqa: E731
+    assert torch.equal(bits(k_cache), bits(k_ref)) and torch.equal(bits(v_cache), bits(v_ref))
+
+
+def test_one_byte_bf16_runs_are_unchanged(gen):
+    """A bf16 pool still takes the TMA + wgmma paged prefill; the same
+    inputs stored as e4m3 take the mma.sync body and agree with the bf16
+    run on the values e4m3 holds."""
+    B, H, KV, D, bs, Sq = 1, 8, 2, 64, 64, 128
+    kc_ = _randn(gen, 8 * bs, KV, D).to(torch.float8_e4m3fn)
+    vc_ = _randn(gen, 8 * bs, KV, D).to(torch.float8_e4m3fn)
+    bt = torch.arange(8, dtype=torch.int32)[None]
+    q = _randn(gen, B, Sq, H, D).to(torch.bfloat16).transpose(1, 2)
+    qp = (300 + torch.arange(Sq, dtype=torch.int32))[None].cuda()
+    kb, vb = kc_.to(torch.bfloat16), vc_.to(torch.bfloat16)
+    assert fa.paged_prefill_body(q, kb, vb, bs) == "wgmma"
+    assert fa.paged_prefill_body(q, kc_, vc_, bs) == "mma"
+    one = fa.paged_attention_prefill(q, kc_, vc_, bt, qp, block_size=bs)
+    two = fa.paged_attention_prefill(q, kb, vb, bt, qp, block_size=bs)
+    assert _max_err(one, two) <= ONE_BYTE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 48), (5, 60, 40), (17, 2048, 3072), (33, 24, 8)])
+def test_int_mm_shape_rule(gen, M, K, N):
+    """The int8 x int8 -> int32 product on the card (torch._int_mm on
+    operands padded to its rule) equals the CPU's exact int32 product."""
+    from nxdi_tpu_torch.ops import quantization as tq
+
+    g = torch.Generator().manual_seed(M)
+    a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    got = tq.int8_matmul(a.cuda(), b.cuda())
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.cpu(), tq.int8_matmul(a, b))
+
+
+@pytest.mark.parametrize("tc", ["static", "loop"])
+def test_capture_with_garbage_graphs_and_an_eager_collector(gen, tc):
+    """Another app's graphs left in a reference cycle (only the collector
+    frees them) and the collector set to run at every allocation: every
+    capture of a new app still succeeds, since the collector is paused while
+    a stream captures (a collection inside a capture destroys the old
+    graphs, which a capturing stream does not permit)."""
+    import gc
+
+    kw = STATIC if tc == "static" else dict(CB, device_loop=True)
+    old = _card_app(True, **kw)
+    old.cycle = old
+    del old
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        app = _card_app(True, **kw)
+    finally:
+        gc.set_threshold(*thresholds)
+    # (the device loop's graphs are its window graphs, not bucket graphs)
+    assert all(bg.graph is not None for tag, w in app.models.items()
+               if tag != "tkg_device_loop" for bg in w.bucket_graphs.values())
+    if tc == "loop":
+        assert app.models["tkg_device_loop"].loop_graphs
+
+
+def test_fused_decode_over_a_quantized_contiguous_cache(gen):
+    """A quantized contiguous cache leaves the stacked fused decode (it reads
+    the cache in q's dtype; the JAX rule), and the same kernel runs per layer
+    over the dequantized window: generate() through it, L launches per
+    decode step, against the same app with the flag off (plain two-part
+    attention over the same window): the same tokens, logits within 1e-3
+    (float32; the kernel's online softmax against the plain one)."""
+    kw = dict(STATIC, dtype="float32", kv_quant_config=dict(dtype="float8_e4m3"))
+    app = _card_app(True, **kw)
+    plain = _card_app(True, params=app.params, **dict(kw, attn_tkg_kernel_enabled=False))
+    assert app.kv_cache["k"].dtype == torch.float8_e4m3fn
+    log, counts, toks = _drive(app, "static")
+    p_log, p_counts, p_toks = _drive(plain, "static")
+    steps = len(log) - 1  # one context encoding, then the decode steps
+    assert counts["flash_attention_decode_fused"] == SMALL_LLAMA["num_hidden_layers"] * steps > 0
+    assert p_counts["flash_attention_decode_fused"] == 0
+    assert counts["kv_commit_rows"] == p_counts["kv_commit_rows"] == steps
+    assert np.array_equal(np.asarray(toks), np.asarray(p_toks))
+    err = max((a["logits"] - b["logits"]).abs().max().item() for a, b in zip(log, p_log))
+    assert err <= 1e-3, err

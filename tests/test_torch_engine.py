@@ -301,9 +301,14 @@ def test_n_fork_shares_the_prompt_copy_on_write(tiny_hf_llama):
 
 def test_engine_refuses_what_is_not_ported(tiny_hf_llama):
     hf_model, hf_cfg = tiny_hf_llama
-    for key, value in (("role", "decode"), ("padding_side", "left")):
-        with pytest.raises(NotImplementedError, match=key):
-            TorchConfig(**{key: value})
+    # ported: roles and padding_side, under the JAX package's rules
+    with pytest.raises(ValueError, match="role='decode' requires is_block_kv_layout"):
+        TorchConfig(role="decode")
+    with pytest.raises(ValueError, match="padding_side must be 'right' or 'left'"):
+        TorchConfig(padding_side="middle")
+    assert TorchConfig(padding_side="left").padding_side == "left"
+    with pytest.raises(ValueError, match="Unknown or not-yet-ported"):
+        TorchConfig(speculation_length=2)
     # ported: the device-resident decode family, under the JAX package's rules
     for key, value in (("device_loop", True), ("decode_steps_per_dispatch", 2)):
         with pytest.raises(ValueError, match="requires on-device sampling"):

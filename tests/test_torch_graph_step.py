@@ -357,3 +357,45 @@ def test_staging_path_equals_eager_engine(tiny_hf_llama, mixed):
     want = ({"mixed_model"} if mixed else
             {"context_encoding_model", "prefix_prefill_model", "token_generation_model"})
     assert used == want
+
+
+def test_collector_paused_around_captures():
+    """The garbage collector is off inside ``collector_paused`` (the CUDA
+    graph captures run there), even when the allocation thresholds ask for
+    collections, and on again after, also after an error."""
+    import gc
+    import weakref
+
+    from nxdi_tpu_torch.runtime.model_wrapper import collector_paused
+
+    class Node:
+        pass
+
+    freed = []
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        with collector_paused():
+            assert not gc.isenabled()
+            a = Node()
+            a.self = a  # garbage only the collector frees
+            weakref.finalize(a, freed.append, True)
+            del a
+            junk = [Node() for _ in range(100)]  # allocations that would trigger it
+            assert freed == [] and junk
+        assert gc.isenabled()
+        gc.collect()
+        assert freed == [True]
+    finally:
+        gc.set_threshold(*thresholds)
+    with pytest.raises(RuntimeError):
+        with collector_paused():
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with collector_paused():
+            pass
+        assert not gc.isenabled()  # a caller's choice is kept
+    finally:
+        gc.enable()
