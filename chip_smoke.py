@@ -89,7 +89,12 @@ code is non-zero:
    float8_e5m2 and int8 pools and rows, against their plain versions at
    phases 3, 3b and 3c's shapes (bf16 q; f32 q checked too); e4m3 timed
    beside the same call over a bf16 pool, with the bound recomputed for
-   one-byte K/V; the one-byte paged prefill runs the mma.sync body.
+   one-byte K/V. The paged prefill and the ragged kernel's one-row tiles
+   run the one-byte TMA + wgmma body (asserted by profiled kernel name):
+   the paged prefill's output equals the bf16 body's on the up-cast pool
+   bit for bit on every store, and e4m3 is timed beside the earlier
+   mma.sync design (its body code passed) too; the ragged packed stream's
+   graph-ready launch replayed from a CUDA graph equals its eager call.
 4e. Quantization at full width, 2 layers, float32: the split paged engine
    on an e4m3 per-tensor pool (CPU, card graphs, card eager: streams
    identical, logits within QUANT_LOGIT_TOL, replays equal to eager, exact
@@ -149,7 +154,8 @@ RAGGED_CALLS = 21
 PREFILL_KERNEL = {"wgmma": "prefill_wgmma_kernel", "mma": "prefill_tc_kernel",
                   "simt": "prefill_kernel"}
 # the attention kernels a profiled step's time is split into, by name
-ATTN_NAME = re.compile(r"(prefill_wgmma_kernel|prefill_tc_kernel|prefill_kernel|"
+ATTN_NAME = re.compile(r"(prefill_wgmma_kernel|prefill_wgmma_1b_kernel|prefill_tc_kernel|"
+                       r"prefill_kernel|"
                        r"ragged_split_kernel|ragged_combine_kernel|decode_split_kernel|"
                        r"decode_combine_kernel)<")
 # the decode kernel split across blocks, and its combine
@@ -1820,16 +1826,22 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
         profiled["prefix_prefill"] = profiled_call(torch, eng.step)
         assert eng.dispatches.get(TAG_PREFIX_PREFILL, 0) == before.get(TAG_PREFIX_PREFILL, 0) + 1
         pre_attn = attention_ms(profiled["prefix_prefill"][2])
-        # over a one-byte pool the paged prefill runs the mma.sync body
-        want_k, other = (("prefill_tc_kernel", "prefill_wgmma_kernel") if kvq
-                         else ("prefill_wgmma_kernel", "prefill_tc_kernel"))
-        assert want_k in pre_attn and other not in pre_attn, pre_attn
+        # over a one-byte pool the paged prefill runs the one-byte body
+        want_k = "prefill_wgmma_1b_kernel" if kvq else "prefill_wgmma_kernel"
+        assert set(pre_attn) & {"prefill_wgmma_kernel", "prefill_wgmma_1b_kernel",
+                                "prefill_tc_kernel"} == {want_k}, pre_attn
         eng.run()
     for i in range(8):
         eng.add_request(rng.integers(1, arch.vocab_size, 200).tolist(),
                         SamplingParams(max_new_tokens=16))
         if mixed and i == 7:
             profiled["packed"] = profiled_call(torch, eng.step)
+            # the packed chunk's one-row tiles: wgmma items on the one-byte
+            # body over a one-byte pool, direct tiles on mma.sync over bf16
+            packed_attn = attention_ms(profiled["packed"][2])
+            want_k = "prefill_wgmma_1b_kernel" if kvq else "prefill_tc_kernel"
+            assert set(packed_attn) & {"prefill_wgmma_1b_kernel", "prefill_tc_kernel"} == \
+                {want_k}, packed_attn
         else:
             eng.step()
     assert len(eng.scheduler.decodable()) == 8 and not eng.scheduler.waiting
@@ -2493,13 +2505,14 @@ def to_store(torch, x, store):
 
 
 def one_byte_point(torch, results, name, store, call, plain, library, nbytes, flops, flush,
-                   kernel, bf16_call=None, timed=True, dname="bfloat16"):
+                   kernel, bf16_call=None, timed=True, dname="bfloat16", earlier=None):
     """One (kernel, store) point of phase 3e: the kernel against its plain
     version on the same one-byte pool (the commit bit for bit), the same
     bits on a second call; timed (median of DECODE_CALLS flushed calls,
     min, max) beside the same call over the bf16 pool, with the plain
     version, the library yardstick and the bound recomputed for one-byte
-    K/V."""
+    K/V. ``earlier``: the same call on the earlier design (held to the plain
+    version too, and timed beside)."""
     got = call()
     want = plain()
     torch.cuda.synchronize()
@@ -2516,6 +2529,9 @@ def one_byte_point(torch, results, name, store, call, plain, library, nbytes, fl
     assert err <= tol, f"{name} {store} {dname}: max abs err {err} > {tol}"
     row = dict(kernel=name, dtype=dname, store=store, point=f"{store} store", max_abs_err=err,
                tol=tol)
+    if earlier is not None:
+        row["earlier_err"] = (earlier().float() - want.float()).abs().max().item()
+        assert row["earlier_err"] <= tol, f"{name} {store}: the earlier design's err > {tol}"
     if timed:
         times, names, dropped = traced_times(torch, call, DECODE_CALLS, flush, kernel=kernel)
         ms, lo, hi = spread(times)
@@ -2529,11 +2545,19 @@ def one_byte_point(torch, results, name, store, call, plain, library, nbytes, fl
         if bf16_call is not None:  # the same call over the bf16 pool, in this run
             bt, _, _ = traced_times(torch, bf16_call, DECODE_CALLS, flush, kernel=kernel)
             row.update(bf16_pool_ms=spread(bt)[0], bf16_pool_min=min(bt), bf16_pool_max=max(bt))
+        if earlier is not None:  # the earlier design, in this run
+            et, enames, _ = traced_times(torch, earlier, DECODE_CALLS, flush, kernel=kernel)
+            row.update(earlier_ms=spread(et)[0], earlier_min=min(et), earlier_max=max(et),
+                       earlier_kernels=sorted(attention_ms([(0.0, n) for n in enames])))
     results.append(row)
     log(f"[kernels-1B] {name} {store} {dname}: err {err:.3g} (tol {tol})"
         + (f"; kernel {row['ms']:.4f} ms (min {row['ms_min']:.4f} max {row['ms_max']:.4f}; "
            f"{'+'.join(row['kernels'])}) beside bf16 pool "
-           f"{row.get('bf16_pool_ms', float('nan')):.4f}; plain {row['plain_ms']:.4f} library "
+           f"{row.get('bf16_pool_ms', float('nan')):.4f}"
+           + (f", earlier design {row['earlier_ms']:.4f} ({row['earlier_min']:.4f}-"
+              f"{row['earlier_max']:.4f}; {'+'.join(row['earlier_kernels'])})"
+              if 'earlier_ms' in row else "")
+           + f"; plain {row['plain_ms']:.4f} library "
            f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']}), "
            f"{100 * row['share_of_bound']:.1f} % of the bound" if timed else ""))
     return row
@@ -2545,10 +2569,16 @@ def check_one_byte_kernels(torch, results):
     (commit: L 16, B 8, KV 8, S 2048, D 64; paged decode: B 8, block 128,
     positions 0...2000, a hole; paged prefill: a 512-token chunk after 512
     cached; ragged: the decode-only bucket 8 and the packed 1032 stream).
-    e4m3 is timed beside the same call over a bf16 pool; e5m2, int8 and an
-    f32 q are checked. The library yardstick: SDPA over K/V gathered through
-    the table and dequantized (the gather and the conversion included); for
-    the commit, an index assignment of the rows' bytes."""
+    e4m3 is timed beside the same call over a bf16 pool, and the paged
+    prefill and the packed stream beside their earlier mma.sync design; e5m2,
+    int8 and an f32 q are checked. With bf16 q the paged prefill and the
+    packed stream's one-row tiles run the one-byte TMA + wgmma body (its
+    profiled kernel name asserted); the paged prefill equals the bf16 body
+    on the up-cast pool bit for bit, and the packed stream's graph-ready
+    launch replayed from a CUDA graph equals its eager call. The library
+    yardstick: SDPA over K/V gathered through the table and dequantized (the
+    gather and the conversion included); for the commit, an index assignment
+    of the rows' bytes."""
     import torch.nn.functional as F
 
     from nxdi_tpu_torch.ops.kernels import flash_attention as fa
@@ -2628,6 +2658,10 @@ def check_one_byte_kernels(torch, results):
     qpx = (start + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
     pmask = (slot_pos[None, :] <= qpx[0][:, None])[None, None]
     pairs = int(pmask.sum())
+
+    def mma_sync_prefill(kc1, vc1, kw):  # the earlier design: its body code passed
+        with forced(fa, "paged_prefill_body", lambda *a: "mma"):
+            return fa.paged_attention_prefill(qx, kc1, vc1, bt1, qpx, **kw)
     for store in ONE_BYTE:
         sc = ONE_BYTE_SCALES[store]
         kw = dict(block_size=bs, k_scale=sc, v_scale=sc)
@@ -2648,7 +2682,7 @@ def check_one_byte_kernels(torch, results):
             4 * H * D * visible, flush, DECODE_KERNELS,
             bf16_call=lambda: fa.paged_attention_decode(q, kb, vb, bt, qp, block_size=bs),
             timed=timed)
-        assert fa.paged_prefill_body(qx, kc1, vc1, bs) == "mma"
+        assert fa.paged_prefill_body(qx, kc1, vc1, bs) == "wgmma"
 
         def lib_prefill(kc1=kc1, vc1=vc1, sc=sc):
             kg = gathered(kc1, bt1, 1, sc).repeat_interleave(G, dim=1)
@@ -2664,10 +2698,18 @@ def check_one_byte_kernels(torch, results):
             lib_prefill, 2 * Sq * H * D * 2 + 2 * (start + Sq) * KV * D, 4 * H * D * pairs, flush,
             "prefill",
             bf16_call=lambda: fa.paged_attention_prefill(qx, kb, vb, bt1, qpx, block_size=bs),
-            timed=timed)
-        if timed:  # the mma.sync body converts the tiles; the bf16 pool keeps the TMA body
-            assert row["kernels"] == ["prefill_tc_kernel"], row["kernels"]
-            row["body"] = "mma"
+            timed=timed, earlier=lambda kc1=kc1, vc1=vc1, kw=kw: mma_sync_prefill(kc1, vc1, kw))
+        # the one-byte body equals the bf16 TMA body on the up-cast pool, bit for bit
+        up = fa.paged_attention_prefill(qx, kc1.to(torch.bfloat16), vc1.to(torch.bfloat16), bt1,
+                                        qpx, **kw)
+        assert torch.equal(fa.paged_attention_prefill(qx, kc1, vc1, bt1, qpx, **kw), up), \
+            f"paged_prefill {store}: the one-byte body differs from the bf16 body's bits"
+        row["bf16_body_bits_equal"] = True
+        del up
+        if timed:  # the one-byte TMA + wgmma body; the earlier design the mma.sync body
+            assert row["kernels"] == ["prefill_wgmma_1b_kernel"], row["kernels"]
+            assert row["earlier_kernels"] == ["prefill_tc_kernel"], row["earlier_kernels"]
+            row["body"] = "wgmma_1b"
         # f32 q over the same pool: the CUDA-core bodies
         qf, qxf = q.float(), qx.float()
         one_byte_point(
@@ -2689,7 +2731,9 @@ def check_one_byte_kernels(torch, results):
             case = ragged_case(torch, dev, 8, NB, bs, nblk, decode_only=decode_only)
             T, rid, qpr, btr, vis, rpairs = case
             qr = randn((1, T, H, D)).transpose(1, 2)
-            plan = rpa.ragged_plan(rid.cpu().numpy(), qpr.cpu().numpy(), 8, NB * bs, KV).to(dev)
+            rid_h, qpr_h = rid.cpu().numpy(), qpr.cpu().numpy()
+            # a bf16 pool's plan (direct tiles on mma.sync), and the one-byte pool's
+            plan_bf16 = rpa.ragged_plan(rid_h, qpr_h, 8, NB * bs, KV).to(dev)
             W = NB * bs
             col = torch.arange(8 * W, device=dev)
             rows_ = (btr.long().reshape(-1)[:, None] * bs + torch.arange(bs, device=dev))
@@ -2710,18 +2754,58 @@ def check_one_byte_kernels(torch, results):
             nbytes = ((T_real * H * D + T * H * D) * 2 + 2 * sum(vis.values()) * KV * D
                       + btr.numel() * 4 + 4 * T + 4 * T_real)
             for qq, dname in ((qr, "bfloat16"), (qr.float(), "float32")):
+                wg = rpa.ragged_direct_body(qq.dtype, kc1.dtype, D, bs) == "wgmma"
+                assert wg == (dname == "bfloat16")
+                plan = rpa.ragged_plan(rid_h, qpr_h, 8, NB * bs, KV, wgmma=wg).to(dev)
+                row_timed = timed and dname == "bfloat16"
+                earlier = None
+                if wg and row_timed and not decode_only:
+                    def earlier(kc1=kc1, vc1=vc1, kw=kw, qq=qq, rid=rid, qpr=qpr, btr=btr):
+                        # the earlier design: direct tiles on mma.sync, its plan and body
+                        with forced(rpa, "ragged_direct_body", lambda *a: "mma"):
+                            return rpa.ragged_paged_attention(qq, kc1, vc1, btr, rid, qpr,
+                                                              plan=plan_bf16, **kw)
+
+                def call(kc1=kc1, vc1=vc1, kw=kw, qq=qq, rid=rid, qpr=qpr, btr=btr, plan=plan):
+                    return rpa.ragged_paged_attention(qq, kc1, vc1, btr, rid, qpr, plan=plan,
+                                                      **kw)
+
                 row = one_byte_point(
-                    torch, results, "ragged", store,
-                    lambda kc1=kc1, vc1=vc1, kw=kw, qq=qq, rid=rid, qpr=qpr, btr=btr, plan=plan:
-                    rpa.ragged_paged_attention(qq, kc1, vc1, btr, rid, qpr, plan=plan, **kw),
+                    torch, results, "ragged", store, call,
                     lambda kc1=kc1, vc1=vc1, kw=kw, qq=qq, rid=rid, qpr=qpr, btr=btr:
                     rpa.ragged_paged_attention_plain(qq, kc1, vc1, btr, rid, qpr, **kw),
                     lib_ragged, nbytes, 4 * H * D * rpairs, flush, ("prefill", "ragged_"),
-                    bf16_call=lambda qr=qr, rid=rid, qpr=qpr, btr=btr, plan=plan:
+                    bf16_call=lambda qr=qr, rid=rid, qpr=qpr, btr=btr, plan=plan_bf16:
                     rpa.ragged_paged_attention(qr, kb, vb, btr, rid, qpr, block_size=bs,
                                                plan=plan),
-                    timed=timed and dname == "bfloat16", dname=dname)
+                    timed=row_timed, dname=dname, earlier=earlier)
                 row["point"] = f"{store} store, {'decode8' if decode_only else 'packed1032'}"
+                row["plan"] = dict(direct=plan.n_direct, wgmma_items=plan.n_wg,
+                                   items=plan.n_items, combine=plan.n_comb)
+                if wg and not decode_only:
+                    assert plan.n_wg == 4 and plan.n_direct == 0, row["plan"]
+                    if row_timed:  # the one-row tiles on the one-byte TMA + wgmma body
+                        assert "prefill_wgmma_1b_kernel" in row["kernels"], row["kernels"]
+                        assert "prefill_tc_kernel" not in row["kernels"], row["kernels"]
+                        assert "prefill_tc_kernel" in row["earlier_kernels"]
+                        row["body"] = "wgmma_1b"
+                    # the mixed step's graph-ready launch (the plan padded to the
+                    # bucket's capacity), eager and replayed from a CUDA graph: the
+                    # per-call launch's bits
+                    cap = rpa.ragged_capacity(T, 8, NB * bs, KV, wgmma=True)
+                    static = dataclasses.replace(cap, flat=torch.from_numpy(
+                        rpa.pad_plan(plan, cap)).to(dev))
+                    got = call()
+                    assert torch.equal(call(plan=static), got), f"ragged {store}: graph-ready"
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        out = call(plan=static)
+                    out.zero_()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, got), f"ragged {store}: the graph replay differs"
+                    row["graph_replay_bits_equal"] = True
+                    del graph, out
         del kc1, vc1
     del kb, vb
     torch.cuda.empty_cache()

@@ -8,9 +8,6 @@
 // CUDA-core body (f32, or any other bf16 head dim) of prefill_kernel.cuh.
 #include "prefill_wgmma.cuh"
 
-// body codes shared with the wrapper (flash_attention.py::PREFILL_BODIES)
-enum PrefillBody : int { PREFILL_SIMT = 0, PREFILL_MMA = 1, PREFILL_WGMMA = 2 };
-
 extern "C" int nxdi_flash_prefill(int dtype, int body, const void* q, const void* k,
                                   const void* v, void* out, const int* q_start,
                                   const int* kv_start, int B, int H, int KV, int Sq, int Sk, int D,

@@ -1,24 +1,33 @@
 // Prefill attention through the block table of the paged pool: a chunk
 // attends the cached prefix and itself (already scattered into the pool).
 //
-// Replaces nxdi_tpu/ops/kernels/flash_attention.py::paged_attention_prefill.
-// Three bodies; the wrapper (ops/kernels/flash_attention.py::
-// paged_prefill_body) picks one per call and passes its code: the TMA +
-// wgmma body's paged mode (prefill_wgmma.cuh; bf16 at head dim 64 or 128,
-// block sizes 8-64 or multiples of 128: the engine's prefix prefill), the
-// mma.sync body (other bf16 cases whose head dim is a multiple of 16) and
-// the CUDA-core body (f32, or any other bf16 head dim) of prefill_kernel.cuh.
-// A one-byte pool (kv_dtype, a store code other than q's) runs the mma.sync
-// body for bf16 q and the CUDA-core body for f32, converting its K/V tiles
-// as they land (prefill_kernel.cuh); the wrapper passes that body's code.
+// Replaces nxdi_tpu/ops/kernels/flash_attention.py::paged_attention_prefill
+// (Pallas body _paged_prefill_kernel, pl.pallas_call at :946). Bound:
+// operations (a 512-token chunk after 512 cached: 0.0033 ms at the 989
+// TFLOP/s bf16 peak). The wrapper (ops/kernels/flash_attention.py::
+// paged_prefill_body) picks a body per call and passes its code:
+//  - the TMA + wgmma body (prefill_wgmma.cuh; bf16 q at head dim 64 or 128,
+//    block sizes 8-64 or multiples of 128: the engine's prefix prefill).
+//    Over a bf16 pool its paged mode loads the K/V boxes straight into the
+//    bf16 stages; over a one-byte pool (kv_dtype float8_e4m3fn,
+//    float8_e5m2 or int8) its one-byte body loads the raw boxes by TMA at
+//    half the bytes, converts them to bf16 in shared memory in warps that
+//    would idle, and runs the same consumers (paged_prefill_1b.cu): q stays
+//    bf16, as on the TPU, and wgmma multiplies bf16 only by bf16, so the
+//    tensor cores need bf16 K/V in shared memory, not in device memory.
+//    The conversion is exact, so the output equals the bf16 body's on the
+//    up-cast pool bit for bit;
+//  - the mma.sync body (other bf16 cases whose head dim is a multiple of
+//    16; over a one-byte pool only when its code is passed: the earlier
+//    design, tiles loaded synchronously and converted as they land);
+//  - the CUDA-core body (f32, or any other bf16 head dim) of
+//    prefill_kernel.cuh.
 #include "prefill_wgmma.cuh"
 
 // The one-byte stores' instantiations, in their own source so that nvcc
 // compiles them beside this one (paged_prefill_1b.cu).
-int paged_prefill_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, int B, void* stream);
-
-// body codes shared with the wrapper (flash_attention.py::PREFILL_BODIES)
-enum PagedBody : int { PAGED_SIMT = 0, PAGED_MMA = 1, PAGED_WGMMA = 2 };
+int paged_prefill_one_byte(int dtype, int kv_dtype, int body, const PrefillArgs& a, int B,
+                           int total_slots, void* stream);
 
 extern "C" int nxdi_paged_prefill(int dtype, int kv_dtype, int body, const void* q,
                                   const void* kc, const void* vc, void* out, const int* q_start,
@@ -40,16 +49,14 @@ extern "C" int nxdi_paged_prefill(int dtype, int kv_dtype, int body, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == NXDI_BF16;
   if (Sq == 0 || B == 0) return (int)cudaSuccess;
-  if (kv_dtype != dtype) {
-    if (body != (bf16 ? PAGED_MMA : PAGED_SIMT)) return (int)cudaErrorInvalidValue;
-    return paged_prefill_one_byte(dtype, kv_dtype, a, B, stream);
-  }
-  if (body == PAGED_WGMMA && bf16 && (D == 64 || D == 128))
+  if (kv_dtype != dtype) return paged_prefill_one_byte(dtype, kv_dtype, body, a, B, total_slots,
+                                                       stream);
+  if (body == PREFILL_WGMMA && bf16 && (D == 64 || D == 128))
     return (int)(D == 64 ? launch_wgmma_paged<64>(a, B, total_slots, s)
                          : launch_wgmma_paged<128>(a, B, total_slots, s));
-  if (body == PAGED_MMA && bf16 && D % 16 == 0)
+  if (body == PREFILL_MMA && bf16 && D % 16 == 0)
     return (int)(D <= 64 ? launch_tc<64, KV_PAGED>(a, B, s) : launch_tc<128, KV_PAGED>(a, B, s));
-  if (body == PAGED_SIMT && (bf16 || dtype == NXDI_F32))
+  if (body == PREFILL_SIMT && (bf16 || dtype == NXDI_F32))
     return (int)(bf16 ? launch<__nv_bfloat16, KV_PAGED>(a, B, s)
                       : launch<float, KV_PAGED>(a, B, s));
   return (int)cudaErrorInvalidValue;

@@ -24,10 +24,17 @@
 // elements at a time and writes them to shared memory as bf16, the
 // CUDA-core body converts 4 at a time to f32 — exact in both, so the only
 // rounding is the store's own. These loads are synchronous (the bf16 tiles
-// keep their cp.async double buffer). The TMA + wgmma body takes bf16 pools
-// only: wgmma multiplies fp8 only by fp8, and q stays bf16 as on the TPU,
-// so the paged wrapper routes one-byte pools to the mma.sync body
-// (flash_attention.py::paged_prefill_body).
+// keep their cp.async double buffer), so they now serve f32 q, head dims
+// other than 64 and 128, and the earlier design when its code is passed.
+// bf16 q at head dim 64 or 128 over a one-byte pool runs the one-byte TMA +
+// wgmma body of prefill_wgmma.cuh (the paged prefill, replacing
+// flash_attention.py::paged_attention_prefill, pl.pallas_call at :946,
+// bound by operations: 0.0033 ms for a 512-token chunk after 512 cached;
+// and the ragged kernel's wgmma items): wgmma multiplies bf16 only by bf16
+// and q stays bf16 as on the TPU, so the raw one-byte boxes land by TMA
+// and idle producer warps convert them to bf16 in shared memory, where the
+// tensor cores read them (flash_attention.py::paged_prefill_body,
+// ragged_paged_attention.py::ragged_direct_body).
 //
 // The ragged entry (nxdi_ragged_paged, ragged_paged.cu) replaces
 // nxdi_tpu/ops/kernels/ragged_paged_attention.py::ragged_paged_attention for
@@ -68,8 +75,9 @@
 // Bound: a paged or ragged prefill chunk is bound by operations on the
 // tensor cores (a 512-token chunk after 512 cached: 3.4 us at 989 TFLOP/s in
 // bf16); mma.sync reaches a few per cent of that. The paged mode runs the
-// wgmma body (TMA boxes per pool block) where its wrapper can; the ragged
-// mode's direct tiles taking it is the next step.
+// wgmma body (TMA boxes per pool block) where its wrapper can, and so do
+// the ragged mode's one-row tiles over a one-byte pool (as wgmma items);
+// a bf16 pool's direct tiles taking it is the next step.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -90,6 +98,7 @@ struct PrefillArgs {
   const int* tok_pos;   // ragged: (Sq,) position of each packed token in its row
   const int* tiles;     // ragged: the q tiles to run, one block each
   const int* n_listed;  // ragged: how many of them (on the device; n_tiles is the grid)
+  const int* plan;      // ragged: the whole work list (the wgmma items' counts and place)
   int H, KV, Sq, Sk, D, nb, bs, R, n_tiles;
   int one_row;          // ragged: every listed tile holds one row's tokens (and padding)
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
@@ -105,10 +114,21 @@ constexpr int kBQ = kWarps * kRows;      // q rows per block
 constexpr int kBK = 64;                  // kv rows per tile
 constexpr int kMaxT = 4;                 // output columns per lane (D <= 128)
 constexpr int kMaxRaggedRows = 64;       // rows of a stream with mixed tiles (one 64-bit mask)
+// The ragged work list (ragged_paged_attention.py::ragged_plan): a header of
+// kPlanHeader ints (T, direct tiles, split items, partial slots, tokens to
+// combine, chunk, wgmma items, 0), then the direct tiles (one int each), the
+// wgmma items (kWgInts each: first token, tokens, row, first position), the
+// split items and the tokens to combine.
+constexpr int kPlanHeader = 8;
+constexpr int kPlanWgCount = 6;  // the header's count of wgmma items
+constexpr int kWgInts = 4;
 
 // K/V addressing: contiguous rows, a block table per batch row, or the ragged
 // stream's per-token rows
 enum KvMode : int { KV_CONTIG = 0, KV_PAGED = 1, KV_RAGGED = 2 };
+
+// prefill body codes shared with the wrappers (flash_attention.py::PREFILL_BODIES)
+enum PrefillBody : int { PREFILL_SIMT = 0, PREFILL_MMA = 1, PREFILL_WGMMA = 2 };
 
 // The rows a ragged q tile touches, in shared memory after the tiles. A
 // tile holds at most 64 tokens, so at most 64 rows, whatever R is.

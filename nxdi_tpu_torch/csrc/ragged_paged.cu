@@ -10,11 +10,13 @@
 // entries) skipped; k_scale arrives folded into `scale`, v_scale multiplies
 // the output; padding tokens (row -1) and tokens with no visible key output
 // exactly 0. The pool may hold a one-byte store (float8_e4m3fn, float8_e5m2
-// or int8, the JAX kernel's quantized KV): the direct tiles convert their
-// K/V tiles as they land (prefill_kernel.cuh), the split kernel converts
-// each K row in registers and reads its V tile from shared memory in the
-// store type, one byte an element — exact, so the only rounding is the
-// store's own.
+// or int8, the JAX kernel's quantized KV): with bf16 q at head dim 64 or
+// 128 the plan's wgmma items (below) run the one-byte TMA + wgmma body of
+// prefill_wgmma.cuh (raw K/V boxes by TMA, converted to bf16 in shared
+// memory); otherwise the direct tiles convert their K/V tiles as they land
+// (prefill_kernel.cuh). The split kernel converts each K row in registers
+// and reads its V tile from shared memory in the store type, one byte an
+// element. All exact, so the only rounding is the store's own.
 //
 // Bound: bytes. A decode-only step reads each row's K/V once (bucket 8 at
 // positions 230...1000: ~10 MB per layer in bf16, 3 us at 3.35 TB/s) and
@@ -27,6 +29,13 @@
 //  - direct tiles: a 64-token tile holding the tokens of one row only (a
 //    prefill chunk) runs the tensor-core body of prefill_kernel.cuh as
 //    before (f32: its CUDA-core body) and writes its output directly;
+//  - wgmma items (in place of the direct tiles, over a one-byte pool with
+//    bf16 q at head dim 64 or 128): up to 128 consecutive tokens of one row
+//    at consecutive positions (two adjacent direct tiles of a prefill
+//    chunk) are one 128-row q tile of the persistent one-byte wgmma body,
+//    Q read by TMA from the stream at the item's first token, the output
+//    written for the item's own tokens; the persistent blocks walk items x
+//    q heads up to the count in the list's header;
 //  - items: every other token (a decode token, a chunk's last tokens beside
 //    decode rows) is cut into kv chunks of its context, sized so a launch
 //    has at least two blocks per SM. ragged_split_kernel runs one block per
@@ -53,38 +62,42 @@
 // The one-byte stores' instantiations, in their own source so that nvcc
 // compiles them beside this one (ragged_paged_1b.cu).
 int ragged_paged_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, const SplitArgs& sa,
-                          int n_items, int n_comb, void* stream);
+                          int n_items, int n_comb, int n_wg, int total_slots, void* stream);
 
 // `plan`: the device copy of ragged_plan's int32 work list — a header of
-// kPlanHeader ints, the direct tiles, the items, then the tokens to combine;
-// the kernels read its counts there. n_direct, n_items and n_comb are the
-// three launches' grids (at least 1 where the list may hold any: a block
-// past its list exits, and the split and combine blocks stride over
-// theirs); n_slots is the scratch's size in partial slots, at least the
-// list's. `split`: the plan is ragged_plan's split one (each direct tile
-// holds one row), so R is not bounded. `ws`: n_slots x H x (D + 2) floats
-// of scratch for the partials (acc, then m and l), null without slots.
-// `kv_dtype`: the pool's store: q's dtype or a one-byte store code (head
-// dims that are multiples of 16).
+// kPlanHeader ints, the direct tiles, the wgmma items, the split items, then
+// the tokens to combine; the kernels read its counts there. n_direct,
+// n_items and n_comb are the three launches' grids (at least 1 where the
+// list may hold any: a block past its list exits, and the split and combine
+// blocks stride over theirs); n_wg sizes the wgmma body's persistent launch
+// (0: the list holds no wgmma items); n_slots is the scratch's size in
+// partial slots, at least the list's. `split`: the plan is ragged_plan's
+// split one (each direct tile holds one row), so R is not bounded. `ws`:
+// n_slots x H x (D + 2) floats of scratch for the partials (acc, then m and
+// l), null without slots. `kv_dtype`: the pool's store: q's dtype or a
+// one-byte store code (head dims that are multiples of 16); total_slots:
+// the pool layer's rows (the wgmma body's tensor maps).
 extern "C" int nxdi_ragged_paged(int dtype, int kv_dtype, const void* q, const void* kc,
                                  const void* vc, void* out, const int* row_ids,
                                  const int* tok_pos, const int* bt, const int* plan, int n_direct,
-                                 int n_items, int n_slots, int n_comb, int split, float* ws, int H,
-                                 int KV, int T, int R, int NB, int bs, int D, long long qsh,
-                                 long long qss, long long osh, long long oss, float scale,
-                                 float v_scale, void* stream) {
+                                 int n_items, int n_slots, int n_comb, int n_wg, int split,
+                                 float* ws, int H, int KV, int T, int R, int NB, int bs, int D,
+                                 int total_slots, long long qsh, long long qss, long long osh,
+                                 long long oss, float scale, float v_scale, void* stream) {
   if (bs <= 0 || KV <= 0 || H % KV != 0 || D % 8 != 0 || D > 128 || (n_slots > 0 && !ws))
     return (int)cudaErrorInvalidValue;
-  // the direct tiles
+  // the direct tiles and the wgmma items
   PrefillArgs a{};
   a.q = q; a.k = kc; a.v = vc; a.out = out;
   a.row_ids = row_ids; a.tok_pos = tok_pos; a.bt = bt; a.tiles = plan + kPlanHeader;
   a.n_tiles = n_direct;
   a.n_listed = plan + 1;
+  a.plan = plan;
   a.one_row = split;
   a.H = H; a.KV = KV; a.Sq = T; a.Sk = NB * bs; a.D = D; a.nb = NB; a.bs = bs; a.R = R;
-  // pool (total_slots, KV, D): a head's rows sit KV * D elements apart
-  a.qsh = qsh; a.qss = qss;
+  // pool (total_slots, KV, D): a head's rows sit KV * D elements apart;
+  // the stream is one batch row (qsb only frames Q's tensor map)
+  a.qsb = (long long)T * qss; a.qsh = qsh; a.qss = qss;
   a.ksh = D; a.kss = (long long)KV * D;
   a.vsh = D; a.vss = (long long)KV * D;
   a.osh = osh; a.oss = oss;
@@ -99,7 +112,9 @@ extern "C" int nxdi_ragged_paged(int dtype, int kv_dtype, const void* q, const v
   sa.qsh = qsh; sa.qss = qss; sa.osh = osh; sa.oss = oss;
   sa.scale = scale; sa.v_scale = v_scale;
   if (kv_dtype != dtype)
-    return ragged_paged_one_byte(dtype, kv_dtype, a, sa, n_items, n_comb, stream);
+    return ragged_paged_one_byte(dtype, kv_dtype, a, sa, n_items, n_comb, n_wg, total_slots,
+                                 stream);
+  if (n_wg > 0) return (int)cudaErrorInvalidValue;  // the wgmma items are a one-byte pool's
   if (a.n_tiles > 0) {
     const int err = run<KV_RAGGED>(dtype, a, 1, stream);
     if (err != 0) return err;

@@ -30,11 +30,11 @@ constexpr int kSplitWarps = 4;  // a chunk is walked in 32-key tiles, one warp e
 constexpr int kSplitRows = 16;
 constexpr int kItemInts = 7;    // token, row, kv begin, kv end, chunk, chunks, first slot
 constexpr int kCombInts = 3;    // token, first slot, chunks
-constexpr int kPlanHeader = 8;  // T, direct tiles, items, slots, combine tokens, chunk, 0, 0
 
-// the plan's sections, from the counts in its header
+// the plan's sections, from the counts in its header (prefill_kernel.cuh
+// lays them out)
 __device__ __forceinline__ const int* plan_items(const int* plan) {
-  return plan + kPlanHeader + plan[1];
+  return plan + kPlanHeader + plan[1] + plan[kPlanWgCount] * kWgInts;
 }
 __device__ __forceinline__ const int* plan_comb(const int* plan) {
   return plan_items(plan) + (long long)plan[2] * kItemInts;

@@ -55,9 +55,10 @@ SIGNATURES = {
     "nxdi_paged_prefill": [_I, _I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_LL] * 6
     + [_F, _F, _P],
     # ... + the device work list and its host counts (direct tiles, items,
-    # partial slots, tokens to combine), whether it is split (its direct
-    # tiles hold one row each), then the partials' scratch
-    "nxdi_ragged_paged": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P] + [_I] * 7
+    # partial slots, tokens to combine, wgmma items), whether it is split
+    # (its direct tiles hold one row each), then the partials' scratch, ...,
+    # the pool's slots
+    "nxdi_ragged_paged": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_P] + [_I] * 8
     + [_LL] * 4 + [_F, _F, _P],
     # ... + the GEMM plan (body, tile rows and columns, splits, K slice;
     # fused_proj.GemmPlan.args), twice for the MLP (gate/up, then down), the

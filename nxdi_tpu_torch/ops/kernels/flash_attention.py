@@ -37,10 +37,13 @@ kernel merges the chunks in order.
 The paged kernels also read a one-byte pool (``float8_e4m3fn``,
 ``float8_e5m2`` or ``int8``: the KV store of a quantized cache) with q in
 bf16 or f32, as the JAX kernels read it in its store dtype: each kernel
-converts its K/V tiles to q's dtype as they land, ``k_scale`` folds into the
-softmax scale and ``v_scale`` into the output. A one-byte paged prefill runs
-the mma.sync body (:func:`paged_prefill_body`): wgmma multiplies fp8 only by
-fp8, and q stays bf16.
+converts its K/V tiles to q's dtype, ``k_scale`` folds into the softmax
+scale and ``v_scale`` into the output. A one-byte paged prefill with bf16 q
+at head dim 64 or 128 runs the TMA + wgmma body's one-byte variant
+(:func:`paged_prefill_body`): the raw boxes land by TMA and producer warps
+convert them to bf16 in shared memory (wgmma multiplies bf16 only by bf16,
+and q stays bf16), so its output equals the bf16 body's on the up-cast pool
+bit for bit.
 
 Each wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernel or raises. Each kernel launch adds one to the
@@ -256,24 +259,29 @@ def prefill_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 def paged_wgmma_block(block_size: int) -> bool:
     """Whether the paged TMA body takes this pool block size: a 128-row kv
-    tile must be whole boxes of ``min(block_size, 128)`` rows, each at least
-    one 1 KB swizzle atom (8 rows of 64 bf16 columns) — block sizes 8, 16,
-    32 and 64 (several boxes a tile) or a multiple of 128 (one box a tile)."""
+    tile must be whole boxes of ``min(block_size, 128)`` rows, at most 16 —
+    block sizes 8, 16, 32 and 64 (several boxes a tile) or a multiple of 128
+    (one box a tile). Over a bf16 pool each box is at least one 1 KB
+    swizzle atom (8 rows of 64 bf16 columns); over a one-byte pool a box is
+    whole rows of D bytes, unswizzled (the converting warps write the
+    swizzled bf16 stage), each box 128-byte aligned in shared memory from 8
+    rows of 64 bytes on, so the same block sizes serve both."""
     return block_size in (8, 16, 32, 64) or block_size % PAGED_TILE == 0
 
 
 def paged_prefill_body(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                        block_size: int) -> str:
     """The body the paged prefill runs: ``"wgmma"`` (TMA + wgmma, K/V boxes
-    per pool block: bf16 at head dim 64 or 128 with a block size
-    :func:`paged_wgmma_block` takes, over a bf16 pool), ``"mma"`` (mma.sync:
-    other bf16 cases whose head dim is a multiple of 16, and every bf16 q
-    over a one-byte pool, whose tiles it converts to bf16 as they land) or
+    per pool block: bf16 q at head dim 64 or 128 with a block size
+    :func:`paged_wgmma_block` takes, over a bf16 pool or a one-byte pool,
+    whose raw boxes are converted to bf16 in shared memory), ``"mma"``
+    (mma.sync: other bf16 cases whose head dim is a multiple of 16) or
     ``"simt"`` (CUDA cores: f32, other bf16 head dims). Operands whose
-    strides TMA cannot take raise."""
+    strides TMA cannot take raise: an eligible call never falls back."""
     D = q.shape[3]
-    if (q.dtype == torch.bfloat16 and k_cache.dtype == q.dtype and D in WGMMA_HEAD_DIMS
-            and paged_wgmma_block(block_size)):
+    if (q.dtype == torch.bfloat16 and (k_cache.dtype == q.dtype or k_cache.dtype in
+                                       ONE_BYTE_STORES)
+            and D in WGMMA_HEAD_DIMS and paged_wgmma_block(block_size)):
         _check_tma("paged_attention_prefill",
                    (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)))
         return "wgmma"
@@ -286,7 +294,10 @@ def paged_prefill_boxes(table_row, kt: int, block_size: int):
     """The TMA boxes the paged TMA body's producer issues for kv tile ``kt``
     (positions ``128 kt ... 128 kt + 127``) of one row, as
     ``csrc/prefill_wgmma.cuh`` computes them: ``(first tile row, pool slot,
-    rows)`` per live pool block, boxes of ``min(block_size, 128)`` rows.
+    rows)`` per live pool block, boxes of ``min(block_size, 128)`` rows (of
+    bf16 64-column boxes over a bf16 pool, of raw D-byte rows over a
+    one-byte pool, both bodies the same list; the ragged kernel's wgmma
+    items walk their row's table the same way).
     Holes (negative entries) and blocks past the table are left out (never
     loaded; their V rows are zeroed and their columns masked); a tile whose
     boxes are all left out is skipped."""

@@ -29,8 +29,13 @@ largest plan, and a plan padded to it (:func:`pad_plan`) runs in a launch
 of that size, which is what the mixed step's CUDA graph holds.
 
 The pool may hold a one-byte store (``float8_e4m3fn``, ``float8_e5m2``,
-``int8``), read as the JAX kernel reads it: converted to q's dtype as each
-tile lands, with the scales folded as above.
+``int8``), read as the JAX kernel reads it: converted to q's dtype, with
+the scales folded as above. With bf16 q at head dim 64 or 128 (and a block
+size the TMA walk takes) the plan's one-row tiles become wgmma items
+(:func:`ragged_direct_body`, ``ragged_plan(wgmma=True)``): up to 128
+consecutive tokens of one row at consecutive positions, each a q tile of
+the one-byte TMA + wgmma body (``csrc/prefill_wgmma.cuh``), whose raw K/V
+boxes are converted to bf16 in shared memory.
 
 The wrapper takes its plain version for tensors on the CPU only; for a CUDA
 tensor it launches the kernels or raises, and counts each call in
@@ -48,11 +53,15 @@ import torch
 
 from nxdi_tpu_torch.ops.kernels import _build
 from nxdi_tpu_torch.ops.kernels.flash_attention import (
+    ONE_BYTE_STORES,
+    WGMMA_HEAD_DIMS,
     _check_cuda_operand,
     _check_head_dim,
     _check_kv_store,
+    _check_tma,
     _plain_attention,
     gather_pages,
+    paged_wgmma_block,
 )
 
 # rows the one-kernel design (ragged_plan(split=False)) may hold: its q
@@ -66,12 +75,16 @@ MAX_ROWS = 64
 SPLIT_BLOCKS = 4 * 132
 COMB_GRID = 4 * 132
 
-# the work list's layout (shared with csrc/ragged_paged.cu)
-# T, direct tiles, items, partial slots, tokens to combine, chunk, 0, 0
+# the work list's layout (shared with csrc/prefill_kernel.cuh): a header
+# (T, direct tiles, items, partial slots, tokens to combine, chunk, wgmma
+# items, 0), then the direct tiles, the wgmma items, the items and the
+# tokens to combine
 PLAN_HEADER = 8
+WG_INTS = 4      # first token, tokens, row, first position
 ITEM_INTS = 7    # token, row, kv begin, kv end, chunk index, chunks, first slot
 COMB_INTS = 3    # token, first slot, chunks (0: the token writes 0)
 TILE = 64        # q tile of the direct kernels
+WG_TILE = 128    # tokens of a wgmma item at most (the wgmma body's q tile)
 CHUNK_UNIT = 128  # kv chunks are whole multiples: the split kernel's 4 warps x 32 keys
 CHUNK_MAX = 2048
 # a launch of the split kernel should hold at least this many blocks: two
@@ -86,8 +99,10 @@ DIRECT_MIN_TOKENS = 16
 class RaggedPlan:
     """The ragged kernels' work list: the host counts the launch sizes come
     from, and the flat int32 list (numpy on the host, or its device copy)
-    laid out as ``PLAN_HEADER`` ints, the direct tiles, the items
-    (``ITEM_INTS`` each) and the tokens to combine (``COMB_INTS`` each)."""
+    laid out as ``PLAN_HEADER`` ints, the direct tiles, the wgmma items
+    (``WG_INTS`` each), the items (``ITEM_INTS`` each) and the tokens to
+    combine (``COMB_INTS`` each). ``wgmma``: the one-row tiles are wgmma
+    items (there are then no direct tiles)."""
 
     T: int
     n_direct: int
@@ -100,6 +115,8 @@ class RaggedPlan:
     # sized from shapes (ragged_capacity): the counts above are the bucket's
     # largest, the real ones are in the flat list's header on the card
     static: bool = False
+    n_wg: int = 0
+    wgmma: bool = False
 
     def to(self, device) -> "RaggedPlan":
         flat = self.flat
@@ -110,12 +127,17 @@ class RaggedPlan:
     def direct_tiles(self) -> np.ndarray:
         return self._host()[PLAN_HEADER:PLAN_HEADER + self.n_direct]
 
-    def items(self) -> np.ndarray:
+    def wgmma_items(self) -> np.ndarray:
+        """(n_wg, 4): first token, tokens, row, first position."""
         b = PLAN_HEADER + self.n_direct
+        return self._host()[b:b + self.n_wg * WG_INTS].reshape(-1, WG_INTS)
+
+    def items(self) -> np.ndarray:
+        b = PLAN_HEADER + self.n_direct + self.n_wg * WG_INTS
         return self._host()[b:b + self.n_items * ITEM_INTS].reshape(-1, ITEM_INTS)
 
     def combined(self) -> np.ndarray:
-        b = PLAN_HEADER + self.n_direct + self.n_items * ITEM_INTS
+        b = PLAN_HEADER + self.n_direct + self.n_wg * WG_INTS + self.n_items * ITEM_INTS
         return self._host()[b:b + self.n_comb * COMB_INTS].reshape(-1, COMB_INTS)
 
     def _host(self) -> np.ndarray:
@@ -124,7 +146,8 @@ class RaggedPlan:
 
     @property
     def flat_len(self) -> int:
-        return PLAN_HEADER + self.n_direct + self.n_items * ITEM_INTS + self.n_comb * COMB_INTS
+        return (PLAN_HEADER + self.n_direct + self.n_wg * WG_INTS + self.n_items * ITEM_INTS
+                + self.n_comb * COMB_INTS)
 
     def grids(self, kv_heads: int):
         """The launch sizes: (direct tiles, split blocks along the items,
@@ -147,10 +170,12 @@ def _choose_chunk(lengths, kv_heads: int) -> int:
     return chunk
 
 
-def ragged_capacity(T: int, num_rows: int, kv_width: int, kv_heads: int) -> RaggedPlan:
+def ragged_capacity(T: int, num_rows: int, kv_width: int, kv_heads: int, *,
+                    wgmma: bool = False) -> RaggedPlan:
     """The largest split plan :func:`ragged_plan` can give for a stream of
-    ``T`` tokens, from shapes only (``flat`` is None). Direct tiles: every
-    tile that can hold more than DIRECT_MIN_TOKENS tokens. Tokens to
+    ``T`` tokens, from shapes only (``flat`` is None). Direct tiles (or,
+    with ``wgmma``, wgmma items, each holding at least one such tile):
+    every tile that can hold more than DIRECT_MIN_TOKENS tokens. Tokens to
     combine: every token. Items: :func:`_choose_chunk`
     keeps doubling the chunk while ``kv_heads`` x the items of twice the
     chunk reach MIN_SPLIT_BLOCKS, so either the chunk stopped below
@@ -159,27 +184,63 @@ def ragged_capacity(T: int, num_rows: int, kv_width: int, kv_heads: int) -> Ragg
     CHUNK_MAX`` (rounded up) chunks. Partial slots: at most one per item."""
     items = max(2 * ((MIN_SPLIT_BLOCKS - 1) // kv_heads), T * -(-kv_width // CHUNK_MAX))
     direct = T // TILE + (T % TILE > DIRECT_MIN_TOKENS)
-    return RaggedPlan(T=T, n_direct=direct, n_items=items, n_slots=items, n_comb=T,
-                      chunk=0, flat=None, static=True)
+    return RaggedPlan(T=T, n_direct=0 if wgmma else direct, n_items=items, n_slots=items,
+                      n_comb=T, chunk=0, flat=None, static=True, n_wg=direct if wgmma else 0,
+                      wgmma=wgmma)
 
 
 def pad_plan(plan: RaggedPlan, cap: RaggedPlan) -> np.ndarray:
     """``plan``'s flat list in a buffer of ``cap``'s length (the rest 0):
     what the kernels read when launched at ``cap``'s sizes."""
-    if (plan.T != cap.T or not plan.split or plan.n_direct > cap.n_direct
+    if (plan.T != cap.T or not plan.split or plan.wgmma != cap.wgmma
+            or plan.n_direct > cap.n_direct or plan.n_wg > cap.n_wg
             or plan.n_items > cap.n_items or plan.n_slots > cap.n_slots
             or plan.n_comb > cap.n_comb):
-        raise ValueError(f"ragged plan (T {plan.T}: {plan.n_direct} tiles, {plan.n_items} "
-                         f"items, {plan.n_slots} slots, {plan.n_comb} to combine) exceeds "
-                         f"the bucket's capacity {cap}")
+        raise ValueError(f"ragged plan (T {plan.T}: {plan.n_direct} tiles, {plan.n_wg} wgmma "
+                         f"items, {plan.n_items} items, {plan.n_slots} slots, {plan.n_comb} to "
+                         f"combine) exceeds the bucket's capacity {cap}")
     out = np.zeros(cap.flat_len, np.int32)
     host = plan._host()
     out[:host.size] = host
     return out
 
 
+def _wgmma_runs(direct, rid, qp, real, T):
+    """The wgmma items of ``direct`` one-row tiles, as an (n, WG_INTS) array
+    (first token, tokens, row, first position), longest kv extent first. A
+    tile's real tokens become a run when they sit at consecutive stream
+    slots and consecutive positions (a tile whose tokens do not is left
+    out); a run merges with the previous one when it continues it (the same
+    row, the next slot, the next position) and the two hold at most WG_TILE
+    tokens."""
+    if not direct.size:
+        return np.zeros((0, WG_INTS), np.int64)
+    in_direct = np.zeros(-(-T // TILE), bool)
+    in_direct[direct] = True
+    tok = np.flatnonzero(real & in_direct[np.arange(T) // TILE])
+    tt = tok // TILE
+    counts = np.bincount(tt, minlength=in_direct.size)[direct]
+    start = np.searchsorted(tt, direct)
+    first, last = tok[start], tok[start + counts - 1]
+    rel = np.repeat(first, counts)
+    bad = np.bincount(np.repeat(np.arange(direct.size), counts),
+                      weights=(qp[tok] - qp[rel]) != (tok - rel), minlength=direct.size)
+    consec = (last - first + 1 == counts) & (bad == 0)
+    runs = []
+    for t0, n in zip(first[consec].tolist(), counts[consec].tolist()):
+        row, p0 = int(rid[t0]), int(qp[t0])
+        if runs:
+            pt, pn, prow, pp = runs[-1]
+            if prow == row and pt + pn == t0 and pp + pn == p0 and pn + n <= WG_TILE:
+                runs[-1][1] += n
+                continue
+        runs.append([t0, n, row, p0])
+    wg = np.array(runs, np.int64).reshape(-1, WG_INTS)
+    return wg[np.argsort(-(wg[:, 3] + wg[:, 1]), kind="stable")]
+
+
 def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
-                split: bool = True) -> RaggedPlan:
+                split: bool = True, wgmma: bool = False) -> RaggedPlan:
     """The work list of one ragged call, from host int tags (numpy or CPU
     tensors): ``row_ids`` (T,) (-1, or a row outside [0, num_rows), is
     padding) and ``q_pos`` (T,); ``kv_width`` is a row's table width in
@@ -190,18 +251,27 @@ def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
       ``split=False`` every tile is direct: the earlier one-kernel design,
       which walks a tile's rows in series and holds at most MAX_ROWS rows
       (more raise).
+    - With ``wgmma`` (the one-byte pool's wgmma body,
+      :func:`ragged_direct_body`): those tiles become wgmma items instead,
+      runs of up to WG_TILE consecutive tokens of one row at consecutive
+      positions (two adjacent tiles of a chunk make one), longest kv extent
+      first; a tile whose real tokens or positions are not consecutive goes
+      to the items below, and the padding tokens of the runs' tiles to the
+      tokens written 0.
     - Items: every other real token, over its kv positions [0, min(its
       position + 1, kv_width)) cut into chunks (``_choose_chunk``); a token
       of one chunk writes its output itself, a token of more reserves a
       partial slot per chunk.
     - Tokens to combine: the tokens of more than one chunk (merging them in
       chunk order), and every padding token or token that sees no position
-      outside the direct tiles (written 0).
+      outside the direct tiles and wgmma items (written 0).
 
     Vectorised numpy over the host tags: no device work, no sync."""
     if not split and num_rows > MAX_ROWS:
         raise ValueError(
             f"ragged_paged_attention: {num_rows} rows exceed the kernel's {MAX_ROWS}")
+    if wgmma and not split:
+        raise ValueError("ragged_plan: wgmma items come with the split plan only")
     rid = np.asarray(row_ids, dtype=np.int64).reshape(-1)
     qp = np.asarray(q_pos, dtype=np.int64).reshape(-1)
     T = rid.shape[0]
@@ -217,11 +287,19 @@ def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
     else:
         is_direct = np.ones(n_tiles, bool)
     direct = np.flatnonzero(is_direct)
+    covered = is_direct[tile]  # the tokens the direct tiles (or wgmma items) write
+    wg = np.zeros((0, WG_INTS), np.int64)
+    if wgmma:
+        wg = _wgmma_runs(direct, rid, qp, real, T)
+        direct = direct[:0]
+        covered = np.zeros(T, bool)
+        for t0, n, _, _ in wg.tolist():
+            covered[t0:t0 + n] = True
     # every other token is an item of its own (a token's q heads fill a
     # block; a run of one row's tokens spreads over blocks), or, padding or
     # at a negative position, a token written 0
     width = np.minimum(qp + 1, kv_width)
-    rest = ~is_direct[tile]
+    rest = ~covered
     tok = np.flatnonzero(rest & real & (width > 0))
     zeros = np.flatnonzero(rest & ~(real & (width > 0)))
     t_width = width[tok]
@@ -243,11 +321,29 @@ def ragged_plan(row_ids, q_pos, num_rows: int, kv_width: int, kv_heads: int, *,
     ])
     comb = comb[np.argsort(comb[:, 0], kind="stable")]
     flat = np.concatenate([
-        np.array([T, direct.size, len(items), slots, len(comb), chunk, 0, 0], np.int64),
-        direct, items.reshape(-1), comb.reshape(-1),
+        np.array([T, direct.size, len(items), slots, len(comb), chunk, len(wg), 0], np.int64),
+        direct, wg.reshape(-1), items.reshape(-1), comb.reshape(-1),
     ]).astype(np.int32)
     return RaggedPlan(T=T, n_direct=int(direct.size), n_items=len(items), n_slots=slots,
-                      n_comb=len(comb), chunk=chunk, flat=flat, split=split)
+                      n_comb=len(comb), chunk=chunk, flat=flat, split=split, n_wg=len(wg),
+                      wgmma=wgmma)
+
+
+def ragged_direct_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
+                       block_size: int) -> str:
+    """The body the ragged kernel's one-row tiles run: ``"wgmma"`` (bf16 q
+    over a one-byte pool at head dim 64 or 128 with a block size
+    ``paged_wgmma_block`` takes: the plan's wgmma items on the one-byte TMA
+    + wgmma body, ``ragged_plan(wgmma=True)``), ``"mma"`` (mma.sync: other
+    bf16 q at head dims that are multiples of 16) or ``"simt"`` (CUDA
+    cores). Looked up on every call (a caller may replace it, to time the
+    earlier design)."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in ONE_BYTE_STORES
+            and head_dim in WGMMA_HEAD_DIMS and paged_wgmma_block(block_size)):
+        return "wgmma"
+    if q_dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return "mma"
+    return "simt"
 
 
 def ragged_paged_kernel_supported(q_shape, cache_shape, block_size) -> bool:
@@ -337,15 +433,23 @@ def ragged_paged_attention(
     kv_code = _build.store_code(k_cache, q, name)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError(f"{name}: the pool layers must be contiguous")
+    wgmma = ragged_direct_body(q.dtype, k_cache.dtype, D, block_size) == "wgmma"
+    if wgmma:
+        _check_tma(name, (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)))
     scale = (D ** -0.5 if scale is None else scale) * k_scale
     dev = q.device
     bt = _as_tensor(block_tables, dev).to(torch.int32).contiguous()
     rid = _as_tensor(row_ids, dev).to(torch.int32).contiguous()
     qp = _as_tensor(q_pos, dev).to(torch.int32).contiguous()
     if plan is None:
-        plan = ragged_plan(_host_ints(row_ids), _host_ints(q_pos), R, NB * block_size, KV)
+        plan = ragged_plan(_host_ints(row_ids), _host_ints(q_pos), R, NB * block_size, KV,
+                           wgmma=wgmma)
     if plan.T != T:
         raise ValueError(f"{name}: the plan covers {plan.T} tokens, the stream has {T}")
+    if plan.wgmma != wgmma:  # no quiet fallback from one body to the other
+        raise ValueError(f"{name}: the plan was built {'with' if plan.wgmma else 'without'} "
+                         f"wgmma items, but this call's one-row tiles run the "
+                         f"{'wgmma' if wgmma else 'direct-tile'} body (ragged_direct_body)")
     if not plan.split and R > MAX_ROWS:
         raise ValueError(f"{name}: {R} rows exceed the kernel's {MAX_ROWS}")
     flat = plan.to(dev).flat
@@ -359,10 +463,10 @@ def ragged_paged_attention(
     err = _build.library().nxdi_ragged_paged(
         code, kv_code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         rid.data_ptr(), qp.data_ptr(), bt.data_ptr(), flat.data_ptr(), n_direct,
-        n_items, plan.n_slots, n_comb, int(plan.split),
+        n_items, plan.n_slots, n_comb, plan.n_wg, int(plan.split),
         None if ws is None else ws.data_ptr(),
-        H, KV, T, R, NB, block_size, D, q.stride(1), q.stride(2), out.stride(1), out.stride(2),
-        float(scale), float(v_scale), _build.stream_ptr(dev),
+        H, KV, T, R, NB, block_size, D, total_slots, q.stride(1), q.stride(2), out.stride(1),
+        out.stride(2), float(scale), float(v_scale), _build.stream_ptr(dev),
     )
     _build.check(err, name)
     ragged_paged_attention.launches += 1

@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nxdi_tpu_torch.config import to_torch_dtype
 from nxdi_tpu_torch.kvcache.kv_cache import (
     BlockKVLayout,
     ContiguousKVLayout,
@@ -618,13 +619,21 @@ class MixedModelWrapper(ModelWrapper):
             with span("ragged_plan"):
                 extra["ragged_plan"] = rpa.ragged_plan(
                     rids[0], position_ids[0], R, wt * self.layout.block_size,
-                    self.arch.num_kv_heads)
+                    self.arch.num_kv_heads, wgmma=self._ragged_wgmma())
         return extra
+
+    def _ragged_wgmma(self) -> bool:
+        """Whether the ragged kernel's one-row tiles are wgmma items: bf16 q
+        over a one-byte pool (rpa.ragged_direct_body)."""
+        arch = self.arch
+        store = to_torch_dtype(arch.kv_quant_dtype or arch.dtype)
+        return rpa.ragged_direct_body(to_torch_dtype(arch.dtype), store, arch.head_dim,
+                                      self.layout.block_size) == "wgmma"
 
     def _ragged_capacity(self, bucket: int):
         return rpa.ragged_capacity(bucket, self.num_rows,
                                    self._block_table_width() * self.layout.block_size,
-                                   self.arch.num_kv_heads)
+                                   self.arch.num_kv_heads, wgmma=self._ragged_wgmma())
 
     @staticmethod
     def _slice_batch_padding(outputs, orig_b: int):

@@ -38,14 +38,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-SOFTMAX = """          if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi && holes == 0) {
-            fq_softmax<D, false>(st, sc, t_lo, scale_log2, tig);
-          } else {
-            fq_softmax<D, true, PAGED>(st, sc, t_lo, scale_log2, tig, holes, box_shift);
-          }
+SOFTMAX = """        if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi && holes == 0) {
+          fq_softmax<D, false>(st, sc, t_lo, scale_log2, tig);
+        } else {
+          fq_softmax<D, true, TABLE>(st, sc, t_lo, scale_log2, tig, holes, box_shift);
+        }
 """
-SCORES = "        if (i < n_live) fq_scores<D>(sc, qa, stage_of(it + i));\n"
-PV = "        if (i > 0) fq_pv<D>(st, pa, stage_of(it + i - 1) + kTile);\n"
+SCORES = "      if (i < n_live) fq_scores<D>(sc, qa, stage_of(it + i));\n"
+PV = "      if (i > 0) fq_pv<D>(st, pa, stage_of(it + i - 1) + kTile);\n"
 MASK_TEST = "if (t_lo >= blk_vlo && t_lo + kFqBK - 1 <= blk_vhi && holes == 0) {"
 V_EXPECT = "            mbar_expect_tx(full, 2 * kTile);"
 V_LOAD = ("              tma_load_4d(st + kTile + c * kFqBox, &tv, 64 * c, w.kvh, kt * kFqBK, w.b, "

@@ -913,10 +913,10 @@ def test_one_byte_paged_decode(gen, store, D, dtype):
 @pytest.mark.parametrize("bs", [16, 128])
 @pytest.mark.parametrize("store", list(ONE_BYTE))
 def test_one_byte_paged_prefill(gen, store, bs, dtype):
-    """The paged prefill over a one-byte pool runs the mma.sync body (bf16)
-    or the CUDA-core body (f32): a 300-token chunk after a 260-token prefix
-    with a hole, and one from 0; against the plain version, the same bits on
-    a second call."""
+    """The paged prefill over a one-byte pool runs the one-byte TMA + wgmma
+    body (bf16, head dim 64) or the CUDA-core body (f32): a 300-token chunk
+    after a 260-token prefix with a hole, and one from 0; against the plain
+    version, the same bits on a second call."""
     B, H, KV, D, Sq = 2, 8, 2, 64, 300
     NB = 640 // bs
     bt = torch.randperm(2 * NB, generator=torch.Generator().manual_seed(5)).reshape(2, NB)
@@ -927,7 +927,7 @@ def test_one_byte_paged_prefill(gen, store, bs, dtype):
     qp = (torch.tensor([[260], [0]], dtype=torch.int32) + torch.arange(Sq, dtype=torch.int32))
     qp = qp.cuda()
     kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
-    assert fa.paged_prefill_body(q, kc_, vc_, bs) == ("mma" if dtype == torch.bfloat16
+    assert fa.paged_prefill_body(q, kc_, vc_, bs) == ("wgmma" if dtype == torch.bfloat16
                                                       else "simt")
     before = fa.paged_attention_prefill.launches
     got = fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw)
@@ -950,7 +950,9 @@ def test_one_byte_ragged(gen, store, stream, dtype):
     bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
     kc_, vc_ = (_one_byte(gen, store, R * NB * bs, KV, D) for _ in range(2))
     q = _randn(gen, 1, T, H, D).to(dtype).transpose(1, 2)
-    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    wgmma = rpa.ragged_direct_body(dtype, ONE_BYTE[store], D, bs) == "wgmma"
+    assert wgmma == (dtype == torch.bfloat16)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV, wgmma=wgmma)
     kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
     before = rpa.ragged_paged_attention.launches
     got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw)
@@ -979,22 +981,103 @@ def test_one_byte_commit(gen, store):
     assert torch.equal(bits(k_cache), bits(k_ref)) and torch.equal(bits(v_cache), bits(v_ref))
 
 
-def test_one_byte_bf16_runs_are_unchanged(gen):
-    """A bf16 pool still takes the TMA + wgmma paged prefill; the same
-    inputs stored as e4m3 take the mma.sync body and agree with the bf16
-    run on the values e4m3 holds."""
-    B, H, KV, D, bs, Sq = 1, 8, 2, 64, 64, 128
-    kc_ = _randn(gen, 8 * bs, KV, D).to(torch.float8_e4m3fn)
-    vc_ = _randn(gen, 8 * bs, KV, D).to(torch.float8_e4m3fn)
-    bt = torch.arange(8, dtype=torch.int32)[None]
+@pytest.mark.parametrize("bs", [16, 64, 128])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("store", list(ONE_BYTE))
+def test_one_byte_bf16_runs_are_unchanged(gen, store, D, bs):
+    """A bf16 pool still takes the TMA + wgmma paged prefill, and so do the
+    same values stored one byte an element: the one-byte body's output
+    equals, bit for bit, the bf16 body's on the pool up-cast to bf16 with
+    the same scales (the conversion in shared memory is exact). Two rows: a
+    chunk of 300 after 260 cached with a hole, and one of 77 from 0."""
+    B, H, KV, Sq = 2, 8, 2, 300
+    NB = 640 // bs
+    kc_, vc_ = (_one_byte(gen, store, 2 * NB * bs, KV, D) for _ in range(2))
+    bt = torch.randperm(2 * NB, generator=torch.Generator().manual_seed(9)).reshape(2, NB)
+    bt = bt.to(torch.int32)
+    bt[0, 40 // bs] = -1
+    bt[1, -(-77 // bs):] = -1
     q = _randn(gen, B, Sq, H, D).to(torch.bfloat16).transpose(1, 2)
-    qp = (300 + torch.arange(Sq, dtype=torch.int32))[None].cuda()
+    qp = (torch.tensor([[260], [0]], dtype=torch.int32) + torch.arange(Sq, dtype=torch.int32))
+    qp = qp.cuda()
     kb, vb = kc_.to(torch.bfloat16), vc_.to(torch.bfloat16)
+    kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
     assert fa.paged_prefill_body(q, kb, vb, bs) == "wgmma"
-    assert fa.paged_prefill_body(q, kc_, vc_, bs) == "mma"
-    one = fa.paged_attention_prefill(q, kc_, vc_, bt, qp, block_size=bs)
-    two = fa.paged_attention_prefill(q, kb, vb, bt, qp, block_size=bs)
-    assert _max_err(one, two) <= ONE_BYTE_TOL[torch.bfloat16]
+    assert fa.paged_prefill_body(q, kc_, vc_, bs) == "wgmma"
+    one = fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw)
+    two = fa.paged_attention_prefill(q, kb, vb, bt, qp, **kw)
+    assert torch.equal(one, two)
+    want = fa.paged_attention_prefill_plain(q, kc_, vc_, bt.cuda(), qp, **kw)
+    assert _max_err(one, want) <= ONE_BYTE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("store", list(ONE_BYTE))
+def test_one_byte_ragged_wgmma_items(gen, store, D):
+    """The ragged kernel over a one-byte pool with bf16 q runs its one-row
+    tiles as wgmma items: a 300-token chunk (tiles 0-3: two items of 128;
+    its last 44 tokens share tile 4 and go to the split items), an 84-token
+    chunk (its second tile alone: an item of 64) and a 70-token chunk whose
+    positions jump in its first tile (that tile goes to the split items),
+    beside decode rows and padding; against the plain version, padding
+    exactly 0, the same bits on a second call, through the plan padded to
+    the bucket's capacity, and replayed from a CUDA graph capture equal to
+    the eager call."""
+    T, H, KV, bs, NB = 520, 16, 4, 64, 12
+    rows = [(2, 100, 300), (4, 10, 84), (3, 0, 70), (0, 500, 1), (1, 7, 1)]
+    R = 5
+    bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
+    qp[419:454] += 25  # slot 3: positions 0..34, then 60..94
+    kc_, vc_ = (_one_byte(gen, store, R * NB * bs, KV, D) for _ in range(2))
+    q = _randn(gen, 1, T, H, D).to(torch.bfloat16).transpose(1, 2)
+    assert rpa.ragged_direct_body(torch.bfloat16, ONE_BYTE[store], D, bs) == "wgmma"
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV, wgmma=True)
+    assert plan.n_direct == 0
+    assert plan.wgmma_items().tolist() == [[128, 128, 2, 228], [0, 128, 2, 100], [320, 64, 4, 30]]
+    kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
+    before = rpa.ragged_paged_attention.launches
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw)
+    assert rpa.ragged_paged_attention.launches == before + 1
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, **kw)
+    assert _max_err(got, want) <= ONE_BYTE_TOL[torch.bfloat16]
+    assert torch.all(got[:, :, torch.from_numpy(rid < 0).cuda()] == 0)
+    assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw), got)
+    # a plan without wgmma items is refused (no quiet fallback to mma.sync)
+    with pytest.raises(ValueError, match="wgmma"):
+        rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, **kw,
+                                   plan=rpa.ragged_plan(rid, qp, R, NB * bs, KV))
+    # the graph-ready launch, eager and captured
+    cap = rpa.ragged_capacity(T, R, NB * bs, KV, wgmma=True)
+    flat = torch.from_numpy(rpa.pad_plan(plan, cap)).cuda()
+    static = dataclasses.replace(cap, flat=flat)
+    btc, ridc, qpc = (torch.from_numpy(x).cuda() for x in (bt, rid, qp))
+    eager = rpa.ragged_paged_attention(q, kc_, vc_, btc, ridc, qpc, plan=static, **kw)
+    assert torch.equal(eager, got)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = rpa.ragged_paged_attention(q, kc_, vc_, btc, ridc, qpc, plan=static, **kw)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+def test_one_byte_wgmma_refuses_what_tma_cannot_take(gen):
+    """An eligible one-byte call whose pool breaks TMA's rules (a base 8
+    bytes off 16-byte alignment, rows 72 bytes apart) raises; nothing runs
+    the mma.sync body in its place."""
+    KV, D, bs = 2, 64, 16
+    q = _randn(gen, 1, 40, 8, D).to(torch.bfloat16).transpose(1, 2)
+    buf = torch.zeros(8 * bs * KV * D + 8, dtype=torch.uint8, device="cuda")
+    off = buf[8:].view(torch.float8_e4m3fn).view(8 * bs, KV, D)
+    wide = torch.zeros(8 * bs, KV, D + 8, dtype=torch.float8_e4m3fn, device="cuda")[..., :D]
+    bt = torch.arange(8, dtype=torch.int32)[None]
+    qp = torch.arange(40, dtype=torch.int32)[None].cuda()
+    for pool in (off, wide):
+        before = fa.paged_attention_prefill.launches
+        with pytest.raises(ValueError):
+            fa.paged_attention_prefill(q, pool, pool, bt, qp, block_size=bs)
+        assert fa.paged_attention_prefill.launches == before
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 48), (5, 60, 40), (17, 2048, 3072), (33, 24, 8)])

@@ -428,16 +428,20 @@ def test_paged_engine_on_fp8_pool_matches_jax_engine(tiny_hf_llama):
 
 @pytest.mark.parametrize("store", list(STORES))
 def test_one_byte_pool_takes_the_mma_sync_prefill_body(store):
-    """wgmma multiplies fp8 only by fp8 and q stays bf16: a one-byte pool's
-    paged prefill runs the mma.sync body (bf16 q) or the CUDA cores (f32),
-    and the card's limits admit it only at head dims that are multiples of
-    16."""
+    """q stays bf16 and wgmma multiplies bf16 only by bf16: a one-byte
+    pool's paged prefill runs the mma.sync body for bf16 q at head dims
+    other than 64 and 128 (at 64 and 128 the one-byte TMA + wgmma body,
+    which converts the raw boxes to bf16 in shared memory) or the CUDA
+    cores (f32), and the card's limits admit it only at head dims that are
+    multiples of 16."""
     from nxdi_tpu_torch.models.base import _card_limits
 
     tdt = STORES[store][1]
     q = torch.zeros((1, 8, 128, 64), dtype=torch.bfloat16)
     pool = torch.zeros((8 * 64, 2, 64), dtype=tdt)
-    assert tfa.paged_prefill_body(q, pool, pool, 64) == "mma"
+    q32, pool32 = q[..., :32].contiguous(), pool[..., :32].contiguous()
+    assert tfa.paged_prefill_body(q32, pool32, pool32, 64) == "mma"
+    assert tfa.paged_prefill_body(q, pool, pool, 64) == "wgmma"
     assert tfa.paged_prefill_body(q.float(), pool, pool, 64) == "simt"
     assert tfa.paged_prefill_body(q, pool.to(torch.bfloat16), pool.to(torch.bfloat16),
                                   64) == "wgmma"

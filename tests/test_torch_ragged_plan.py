@@ -75,6 +75,12 @@ def _check_plan(plan, rid, qp, R, kv_width):
             writers[t] += 1
             if 0 <= rid[t] < R:
                 covered[t] = [(0, min(int(qp[t]) + 1, kv_width))]
+    for t0, n, row, p0 in plan.wgmma_items():  # one row's run at consecutive positions
+        assert plan.wgmma and not plan.n_direct and 0 < n <= rpa.WG_TILE
+        for t in range(t0, t0 + n):
+            assert rid[t] == row and qp[t] == p0 + t - t0
+            writers[t] += 1
+            covered[t] = [(0, min(int(qp[t]) + 1, kv_width))]
     slots = set()
     for t, row, lo, hi, c, nch, first in plan.items():
         assert 0 <= lo < hi <= kv_width and hi - lo <= plan.chunk and lo == c * plan.chunk
@@ -172,11 +178,20 @@ def test_plan_prefill_chunk_tiles_are_direct():
     _check_plan(plan, rid, qp, 8, 16 * 128)
 
 
+def _take(cache, slots):
+    """``cache[slots]``, fp8 stores gathered as bytes."""
+    if cache.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return cache.view(torch.uint8)[slots].view(cache.dtype)
+    return cache[slots]
+
+
 def _emulate(q, k, v, bt, rid, qp, plan, bs, scale, k_scale, v_scale):
     """What the CUDA kernels compute with ``plan``, in float32: direct tiles
-    through the plain version (the prefill kernels' arithmetic), each item
-    one chunk's softmax state (m, l, acc) per token and q head, written out
-    for a one-chunk run or merged by the combine in chunk order."""
+    through the plain version (the prefill kernels' arithmetic), each wgmma
+    item as the paged prefill of its row's chunk (positions p0 + i), each
+    item one chunk's softmax state (m, l, acc) per token and q head, written
+    out for a one-chunk run or merged by the combine in chunk order. K/V may
+    be a one-byte store (read as its values)."""
     H, T, D = q.shape[1], q.shape[2], q.shape[3]
     G = H // k.shape[1]
     sc = (D ** -0.5 if scale is None else scale) * k_scale
@@ -186,13 +201,19 @@ def _emulate(q, k, v, bt, rid, qp, plan, bs, scale, k_scale, v_scale):
     for tile in plan.direct_tiles():
         sl = slice(tile * rpa.TILE, (tile + 1) * rpa.TILE)
         out[:, :, sl] = plain[:, :, sl]
+    # a wgmma item: a paged prefill chunk of its row (positions p0 + i)
+    for t0, n, row, p0 in plan.wgmma_items():
+        out[:, :, t0:t0 + n] = fa.paged_attention_plain(
+            q[:, :, t0:t0 + n], k, v, torch.from_numpy(bt[row:row + 1]),
+            torch.arange(p0, p0 + n)[None], block_size=bs, scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
     heads = torch.arange(H) // G
     partial = {}
     for t, row, lo, hi, c, nch, first in plan.items():
         j = torch.arange(lo, hi)
         blk = torch.from_numpy(bt[row])[j // bs].long()
         slot = (blk * bs + j % bs).clamp(min=0)
-        kk, vv = k[slot][:, heads], v[slot][:, heads]  # (L, H, D)
+        kk, vv = (_take(c, slot)[:, heads].float() for c in (k, v))  # (L, H, D)
         vis = (blk >= 0) & (j <= int(qp[t]))
         s = torch.einsum("hd,lhd->hl", q[0, :, t], kk) * sc
         s = torch.where(vis, s, torch.full_like(s, NEG_INF))
