@@ -94,7 +94,12 @@ code is non-zero:
    the paged prefill's output equals the bf16 body's on the up-cast pool
    bit for bit on every store, and e4m3 is timed beside the earlier
    mma.sync design (its body code passed) too; the ragged packed stream's
-   graph-ready launch replayed from a CUDA graph equals its eager call.
+   graph-ready launch replayed from a CUDA graph equals its eager call. The
+   paged decode and the ragged split items run the raw one-byte ring on
+   the decode kernel's tensor-core body (csrc/mma_tiles.cuh): the paged
+   decode's output equals the bf16 pool's kernel on the up-cast pool bit
+   for bit on every store, and the split kernel's tensor-core
+   instantiation is asserted by profiled kernel name.
 4e. Quantization at full width, 2 layers, float32: the split paged engine
    on an e4m3 per-tensor pool (CPU, card graphs, card eager: streams
    identical, logits within QUANT_LOGIT_TOL, replays equal to eager, exact
@@ -899,6 +904,8 @@ def ragged_point(torch, F, rpa, results, dname, point, q, kc, vc, case, bs, flus
     nbytes = ((T_real * H * D + T * H * D + 2 * sum(visible.values()) * KV * D) * es
               + bt.numel() * 4 + 4 * T + 4 * T_real)
     kernels = sorted(attention_ms([(0.0, n) for n in names]))
+    if dname == "bfloat16" and plan.n_items:  # the split items on the tensor cores
+        assert any(SPLIT_MMA_NAME.search(n) for n in names), sorted(names)
     _new_kernel_row(results, "ragged", dname, err, ms, plain_ms, lib_ms, nbytes,
                     4 * H * D * pairs, block=bs, point=point, T=T, ms_min=lo, ms_max=hi,
                     library_min=lib_lo, library_max=lib_hi, calls=len(times),
@@ -2481,6 +2488,12 @@ ONE_BYTE = ("float8_e4m3fn", "float8_e5m2", "int8")
 # bf16 and f32, so the kernels' own tolerances hold (phase 3b's bf16; f32
 # with scores of ~10, a float32 plain version)
 ONE_BYTE_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
+# the one-byte decode and split body (csrc/mma_tiles.cuh): raw tiles by
+# cp.async into a ring, converted to bf16 in shared memory, mma.sync
+RAW_RING_BODY = "raw_ring_mma"
+# the ragged split kernel's tensor-core instantiation (its last template
+# argument: MMA)
+SPLIT_MMA_NAME = re.compile(r"ragged_split_kernel<[^()]*\btrue>")
 # the per-tensor scale each store is written and read with in phase 3e
 ONE_BYTE_SCALES = {"float8_e4m3fn": 0.5, "float8_e5m2": 0.5, "int8": 0.05}
 # phases 4e and 5e: the e4m3 pool with per-tensor scales (values / 0.25:
@@ -2541,6 +2554,7 @@ def one_byte_point(torch, results, name, store, call, plain, library, nbytes, fl
         row.update(ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms, library_ms=spread(lib_times)[0],
                    bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
                    kernels=sorted(attention_ms([(0.0, n) for n in names])) or sorted(names),
+                   kernel_names=sorted(names),
                    calls=len(times), untraced=dropped + lib_dropped)
         if bf16_call is not None:  # the same call over the bf16 pool, in this run
             bt, _, _ = traced_times(torch, bf16_call, DECODE_CALLS, flush, kernel=kernel)
@@ -2575,7 +2589,11 @@ def check_one_byte_kernels(torch, results):
     packed stream's one-row tiles run the one-byte TMA + wgmma body (its
     profiled kernel name asserted); the paged prefill equals the bf16 body
     on the up-cast pool bit for bit, and the packed stream's graph-ready
-    launch replayed from a CUDA graph equals its eager call. The library
+    launch replayed from a CUDA graph equals its eager call. The paged
+    decode and the split items run the raw one-byte ring on the decode
+    kernel's tensor-core body (the split kernel's instantiation asserted by
+    profiled name): the paged decode and the decode-only bucket equal the
+    bf16 pool's kernels on the up-cast pool bit for bit. The library
     yardstick: SDPA over K/V gathered through the table and dequantized (the
     gather and the conversion included); for the commit, an index assignment
     of the rows' bytes."""
@@ -2673,7 +2691,7 @@ def check_one_byte_kernels(torch, results):
             vg = gathered(vc1, bt, B, sc).repeat_interleave(G, dim=1)
             return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
 
-        one_byte_point(
+        row = one_byte_point(
             torch, results, "paged_decode", store,
             lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_decode(q, kc1, vc1, bt, qp, **kw),
             lambda kc1=kc1, vc1=vc1, kw=kw: fa.paged_attention_decode_plain(q, kc1, vc1, bt, qp,
@@ -2682,6 +2700,17 @@ def check_one_byte_kernels(torch, results):
             4 * H * D * visible, flush, DECODE_KERNELS,
             bf16_call=lambda: fa.paged_attention_decode(q, kb, vb, bt, qp, block_size=bs),
             timed=timed)
+        # the raw one-byte ring on the tensor-core body equals row 7's kernel
+        # on the up-cast pool (the same scales), bit for bit
+        up = fa.paged_attention_decode(q, kc1.to(torch.bfloat16), vc1.to(torch.bfloat16), bt, qp,
+                                       **kw)
+        assert torch.equal(fa.paged_attention_decode(q, kc1, vc1, bt, qp, **kw), up), \
+            f"paged_decode {store}: the one-byte body differs from the bf16 pool's bits"
+        row.update(bf16_body_bits_equal=True, body=RAW_RING_BODY)
+        del up
+        if timed:
+            assert row["kernels"] == ["decode_combine_kernel", "decode_split_kernel"], \
+                row["kernels"]
         assert fa.paged_prefill_body(qx, kc1, vc1, bs) == "wgmma"
 
         def lib_prefill(kc1=kc1, vc1=vc1, sc=sc):
@@ -2780,6 +2809,19 @@ def check_one_byte_kernels(torch, results):
                                                plan=plan),
                     timed=row_timed, dname=dname, earlier=earlier)
                 row["point"] = f"{store} store, {'decode8' if decode_only else 'packed1032'}"
+                if wg:  # bf16 q: the split items on the raw ring's tensor-core body
+                    row["split_body"] = RAW_RING_BODY
+                    if row_timed:
+                        assert any(SPLIT_MMA_NAME.search(n) for n in row["kernel_names"]), \
+                            row["kernel_names"]
+                if wg and decode_only:  # (split items only) the bf16 pool's bits on the up-cast pool
+                    up = rpa.ragged_paged_attention(
+                        qq, kc1.to(torch.bfloat16), vc1.to(torch.bfloat16), btr, rid, qpr,
+                        plan=plan_bf16, **kw)
+                    assert torch.equal(call(), up), \
+                        f"ragged {store} decode8: the one-byte split differs from the bf16 pool's"
+                    row["bf16_body_bits_equal"] = True
+                    del up
                 row["plan"] = dict(direct=plan.n_direct, wgmma_items=plan.n_wg,
                                    items=plan.n_items, combine=plan.n_comb)
                 if wg and not decode_only:
@@ -3311,7 +3353,8 @@ def main() -> int:
                         else quant_launches[key] if "store" in row else counts[key])
             entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches, **{f: row[f] for f in fields}}
-            entry.update({f: row[f] for f in ("M", "point", "body", "ms_min", "ms_max",
+            entry.update({f: row[f] for f in ("M", "point", "body", "split_body", "ms_min",
+                                              "ms_max",
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
                                               "graph_ready_ms", "store", "bf16_pool_ms")
                           if f in row})

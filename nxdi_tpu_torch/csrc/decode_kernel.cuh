@@ -27,12 +27,14 @@
 //    blocks past q_pos are never read. k_scale arrives folded into `scale`,
 //    v_scale multiplies the output. The pool may hold a one-byte store
 //    (float8_e4m3fn, float8_e5m2 or int8: the JAX kernel reads the pool in
-//    its store dtype and casts it to q's): each warp loads its tile's K and
-//    V rows and converts them to q's dtype as they land in shared memory
-//    (store_converted), then runs the same tensor-core or CUDA-core body.
-//    Every one-byte value is exact in bf16 and f32, so the only rounding is
-//    the store's own. These loads are synchronous (the bf16 tile keeps its
-//    cp.async double buffer); the bytes the tile reads halve.
+//    its store dtype and casts it to q's). With bf16 q the tensor-core body
+//    streams raw one-byte tiles by cp.async into a ring and converts them
+//    in shared memory (mma_tiles.cuh), so the output equals the bf16 pool's
+//    on the pool up-cast to bf16, bit for bit, and a tile moves half the
+//    bytes. With f32 q each warp loads its tile's K and V rows synchronously
+//    and converts them to f32 as they land (store_converted), then runs the
+//    CUDA-core body. Every one-byte value is exact in bf16 and f32, so the
+//    only rounding is the store's own.
 //
 // Window/chunk masks apply to kFused and kWindow. Every mode clamps the
 // softmax denominator at 1e-20, so a row with no visible key outputs 0.
@@ -53,7 +55,8 @@
 // flight while this tile is computed. Rows are padded to an odd number of
 // 16-byte units, so no access pattern below hits a bank twice. In bf16 at
 // head dims that are multiples of 16 the tile runs on the tensor cores
-// (mma.sync m16n8k16): the G q heads are the rows of one 16-row tile, the
+// (mma.sync m16n8k16; the loop lives in mma_tiles.cuh, shared with the
+// ragged split kernel): the G q heads are the rows of one 16-row tile, the
 // tile's positions the columns; S = Q K^T from Q fragments held in
 // registers for the whole block, the mask (one q_pos, so one ballot of
 // visible columns) and the online softmax on the accumulators, and
@@ -76,9 +79,7 @@
 // same scheme over a packed token stream.
 #pragma once
 
-#include <cuda_pipeline.h>
-
-#include "common.cuh"
+#include "mma_tiles.cuh"
 
 // outside the unnamed namespace: paged_decode.cu passes it to the one-byte
 // instantiations in paged_decode_1b.cu
@@ -104,8 +105,13 @@ namespace {
 
 enum class Mode { kFused, kWindow, kPaged };
 
-constexpr int kDecTile = 32;  // kv positions per warp tile
+constexpr int kDecTile = kMmaTile;  // kv positions per warp tile
 constexpr int kDecStages = 2;  // a warp's K/V tiles in flight (a third measured no faster)
+// A one-byte pool on the tensor-core body, at head dims up to 64 and up to
+// 128: a warp's raw tiles in flight and its bf16 tiles (mma_tiles.cuh;
+// scripts/stages_decode_1b.py times other splits)
+constexpr int kDecRaw[2] = {1, 1};
+constexpr int kDecCvt[2] = {1, 1};
 
 // Warps per block: 4, or 2 where a warp's double-buffered K/V tiles are
 // large (f32 at head dim 128), to stay within shared memory.
@@ -114,25 +120,30 @@ __host__ __device__ constexpr int dec_warps() {
   return sizeof(T) * DMAX > 256 ? 2 : 4;
 }
 
-// Padded K and V row length in elements: an odd number of 16-byte units, so
-// a lane reading its own K row, the mma's fragment loads and ldmatrix hit
-// no bank twice.
-__host__ __device__ inline int dec_k_pitch(int D, int es) {
-  return ((D * es / 16) | 1) * 16 / es;
-}
-
 // Shared memory of a block: Q as f32 [G][D] (16-byte rounded), then per
-// warp kDecStages stages of K [32][pitch] and V [32][pitch]; the warps' merge area
-// (m, l [NW][G], acc [NW][G][D], the fresh scores [G]) reuses the stages
-// once the tiles are done.
+// warp its stages: kDecStages stages of K [32][pitch] and V [32][pitch] in
+// T (pitch: tile_pitch, an odd number of 16-byte units, so a lane reading
+// its own K row, the mma's fragment loads and ldmatrix hit no bank twice),
+// or for a one-byte pool on the tensor cores the raw and bf16 tiles of
+// mma_tiles.cuh. The warps' merge area (m, l [NW][G], acc [NW][G][D], the fresh
+// scores [G]) reuses the stages once the tiles are done.
 __host__ __device__ inline size_t dec_q_bytes(int G, int D) {
   return (sizeof(float) * (size_t)G * D + 15) & ~size_t(15);
 }
 __host__ __device__ inline size_t dec_stage_elems(int D, int es) {
-  return (size_t)kDecTile * 2 * dec_k_pitch(D, es);
+  return (size_t)kDecTile * 2 * tile_pitch(D, es);
 }
-inline size_t dec_smem_bytes(int NW, int G, int D, int es) {
-  const size_t stages = (size_t)NW * kDecStages * dec_stage_elems(D, es) * es;
+template <typename T, typename S, int DMAX, bool MMA>
+__host__ __device__ inline size_t dec_warp_bytes(int D) {
+  if constexpr (MMA && kOneByte<S>) {
+    return mma_ring_bytes<S, kDecRaw[DMAX > 64], kDecCvt[DMAX > 64]>(D);
+  } else {
+    return (size_t)kDecStages * dec_stage_elems(D, sizeof(T)) * sizeof(T);
+  }
+}
+template <typename T, typename S, int DMAX, bool MMA>
+inline size_t dec_smem_bytes(int NW, int G, int D) {
+  const size_t stages = (size_t)NW * dec_warp_bytes<T, S, DMAX, MMA>(D);
   const size_t merge = sizeof(float) * (size_t)(2 * NW * G + NW * G * D + G);
   return dec_q_bytes(G, D) + (stages > merge ? stages : merge);
 }
@@ -177,18 +188,11 @@ __device__ __forceinline__ void dec_unpack(const uint4& u, float* f, __nv_bfloat
   }
 }
 
-// The hi and lo bf16 halves of two f32 values (x = hi + lo to 16
-// mantissa bits): the fused mode's P, kept f32-accurate through bf16 mma.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - hf.x, y - hf.y);
-}
-
 // MMA: the bf16 body at head dims that are multiples of 16 (the tensor
-// cores, G q heads as the rows of one m16 tile); otherwise the CUDA cores.
-// S: the cache's store type (T, or a one-byte store in the paged mode).
+// cores, G q heads as the rows of one m16 tile: mma_tiles.cuh); otherwise
+// the CUDA cores. S: the cache's store type (T, or a one-byte store in the
+// paged mode: raw tiles by cp.async on the tensor cores; with f32 q, tiles
+// loaded synchronously and converted as they land in shared memory).
 template <typename T, typename S, int GMAX, int DMAX, Mode MODE, bool MMA>
 __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel(DecodeArgs a) {
   constexpr int NW = dec_warps<T, DMAX>();
@@ -226,9 +230,6 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
 
   float* sQ = smem;  // [G][D]
   char* stage_base = reinterpret_cast<char*>(smem) + dec_q_bytes(G, D);
-  const int kp = dec_k_pitch(D, ES);
-  const size_t stage = dec_stage_elems(D, ES);
-  T* my_stages = reinterpret_cast<T*>(stage_base) + (size_t)warp * kDecStages * stage;
 
   const long long line = a.lines ? min(max(a.lines[b], 0), a.n_lines - 1) : b;
   const S* kc = static_cast<const S*>(a.kc) + line * a.csb + kvh * a.csh;
@@ -249,73 +250,7 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
       return j;
     }
   };
-  const int cpr = D * ES / 16;  // 16-byte pieces per row
-  // stage this warp's tile t (positions lo + 32 t ...) into stage s: K and V
-  // rows asynchronously, each row's slot from the lane that looked it up;
-  // holes and rows past the range zero-filled (the tensor cores read all
-  // 32 rows; the loop is warp-uniform for the shuffles)
-  auto issue = [&](int t, int s) {
-    const int j = lo + t * kDecTile + lane;
-    const long long slot = j < hi ? slot_of(j) : -1;
-    T* sK = my_stages + s * stage;
-    T* sV = sK + kDecTile * kp;
-    if constexpr (kOneByte<S>) {
-      // one-byte store: 16 elements a load, converted to T into the stage
-      const int spr = D / 16;  // 16-element pieces per row
-      for (int base = 0; base < kDecTile * spr; base += 32) {
-        const int i = base + lane;
-        const int r = i / spr, pc = i % spr;
-        const long long rslot = __shfl_sync(0xffffffffu, slot, r);
-        uint4 ku = make_uint4(0u, 0u, 0u, 0u), vu = ku;
-        if (rslot >= 0) {
-          ku = *reinterpret_cast<const uint4*>(kc + rslot * a.css + pc * 16);
-          vu = *reinterpret_cast<const uint4*>(vc + rslot * a.css + pc * 16);
-        }
-        store_converted<T, S, 16>(sK + r * kp + pc * 16, ku);
-        store_converted<T, S, 16>(sV + r * kp + pc * 16, vu);
-      }
-    } else {
-      for (int base = 0; base < kDecTile * cpr; base += 32) {
-        const int i = base + lane;
-        const int r = i / cpr, pc = i % cpr;
-        const long long rslot = __shfl_sync(0xffffffffu, slot, r);
-        const long long src = (rslot < 0 ? 0 : rslot) * a.css + pc * EPC;
-        const int zfill = rslot < 0 ? 16 : 0;
-        __pipeline_memcpy_async(sK + r * kp + pc * EPC, kc + src, 16, zfill);
-        __pipeline_memcpy_async(sV + r * kp + pc * EPC, vc + src, 16, zfill);
-      }
-    }
-    __pipeline_commit();  // (one-byte: an empty group; the waits count the same)
-  };
-  // whether this lane's position of tile t is attended
-  auto lane_visible = [&](int t) {
-    const int j = lo + t * kDecTile + lane;
-    return j < hi && slot_of(j) >= 0 && pos_visible(ks + j, qp, kFresh, a.window, a.chunk);
-  };
-
-  const int n_tiles = hi > lo ? (hi - lo + kDecTile - 1) / kDecTile : 0;
-  const int n_mine = n_tiles > warp ? (n_tiles - warp + NW - 1) / NW : 0;
-  // the first kDecStages - 1 tiles in flight (a group each, empty past the
-  // warp's last tile, so every wait below counts the same groups)
-  for (int k = 0; k < kDecStages - 1; ++k) {
-    if (k < n_mine) {
-      issue(warp + k * NW, k);
-    } else {
-      __pipeline_commit();
-    }
-  }
-  __syncthreads();  // sQ
-  // put tile i + kDecStages - 1 in flight and wait for tile i's copies
-  auto next = [&](int i) {
-    const int k = i + kDecStages - 1;
-    if (k < n_mine) {
-      issue(warp + k * NW, k % kDecStages);
-    } else {
-      __pipeline_commit();
-    }
-    __pipeline_wait_prior(kDecStages - 1);
-    __syncwarp();
-  };
+  char* my_ring = stage_base + (size_t)warp * dec_warp_bytes<T, S, DMAX, MMA>(D);
 
   // the warp's state goes to the merge area (over the stages) after the tiles
   float* sM = reinterpret_cast<float*>(stage_base);  // [NW][G]
@@ -324,141 +259,94 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
   float* sS2 = sAcc + NW * G * D;                    // [G] fresh-row scores
 
   if constexpr (MMA) {
-    // S = Q K^T and O += P V on mma.sync m16n8k16: rows are the q heads
-    // (rows >= G zero), a tile's 32 positions four n8 column tiles; each
-    // lane holds rows grp and grp + 8, columns 8 nt + 2 tig and the next.
-    constexpr int KS = DMAX / 16, NT = DMAX / 8;
-    const int grp = lane >> 2, tig = lane & 3;
-    uint32_t qf[KS][4];
-    auto qpair = [&](int r, int col) -> uint32_t {
+    // the tensor-core tile loop (mma_tiles.cuh): the ring's first tiles in
+    // flight, then each lane's Q fragments from sQ
+    constexpr int kStages = kOneByte<S> ? kDecRaw[DMAX > 64] : kDecStages;
+    MmaTiles<S, DMAX, NW, kStages, kDecCvt[DMAX > 64]> tiles(my_ring, kc, vc, a.css, D, lo, hi);
+    tiles.start(slot_of);
+    __syncthreads();  // sQ
+    uint32_t qf[DMAX / 16][4];
+    mma_q_frags<DMAX>(qf, D, [&](int r, int col) -> uint32_t {
       return r < G ? pack_bf16(sQ[r * D + col], sQ[r * D + col + 1]) : 0u;
-    };
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      if (kk * 16 < D) {
-        qf[kk][0] = qpair(grp, kk * 16 + 2 * tig);
-        qf[kk][1] = qpair(grp + 8, kk * 16 + 2 * tig);
-        qf[kk][2] = qpair(grp, kk * 16 + 8 + 2 * tig);
-        qf[kk][3] = qpair(grp + 8, kk * 16 + 8 + 2 * tig);
-      }
-    }
-    float o[NT][4], mr[2] = {NXDI_NEG_INF, NXDI_NEG_INF}, lr[2] = {0.f, 0.f};
-#pragma unroll
-    for (int t = 0; t < NT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-    for (int i = 0; i < n_mine; ++i) {
-      const int t = warp + i * NW;
-      next(i);
-      const T* sK = my_stages + (i % kDecStages) * stage;
-      const T* sV = sK + kDecTile * kp;
-      const unsigned vis = __ballot_sync(0xffffffffu, lane_visible(t));
-      float sc[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-        const T* krow = sK + (nt * 8 + grp) * kp + 2 * tig;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          if (kk * 16 < D) {
-            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-            mma_bf16(sc[nt], qf[kk], b0, b1);
-          }
-        }
-      }
-      // mask + online softmax per row (the mask is the columns': one q_pos)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float mx = NXDI_NEG_INF;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool v = (vis >> (nt * 8 + 2 * tig + e)) & 1u;
-            float& x = sc[nt][2 * half + e];
-            x = v ? x * a.scale : NXDI_NEG_INF;
-            mx = fmaxf(mx, x);
-          }
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(mr[half], mx);
-        const float corr = expf(mr[half] - m_new);
-        float rs = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool v = (vis >> (nt * 8 + 2 * tig + e)) & 1u;
-            float& x = sc[nt][2 * half + e];
-            x = v ? expf(x - m_new) : 0.f;
-            rs += x;
-          }
-        }
-        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-        lr[half] = lr[half] * corr + rs;
-        mr[half] = m_new;
-#pragma unroll
-        for (int u = 0; u < NT; ++u) {
-          o[u][2 * half] *= corr;
-          o[u][2 * half + 1] *= corr;
-        }
-      }
-      // O += P V: P (rounded to bf16; fused: f32 as a hi + lo pair) is the A
-      // operand straight from the score registers, V^T from ldmatrix.trans
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t ph[4], pl[4];
-        const float* s0 = sc[2 * kk];
-        const float* s1 = sc[2 * kk + 1];
-        if constexpr (kRoundP) {
-          ph[0] = pack_bf16(s0[0], s0[1]);
-          ph[1] = pack_bf16(s0[2], s0[3]);
-          ph[2] = pack_bf16(s1[0], s1[1]);
-          ph[3] = pack_bf16(s1[2], s1[3]);
-        } else {
-          split_bf16(s0[0], s0[1], ph[0], pl[0]);
-          split_bf16(s0[2], s0[3], ph[1], pl[1]);
-          split_bf16(s1[0], s1[1], ph[2], pl[2]);
-          split_bf16(s1[2], s1[3], ph[3], pl[3]);
-        }
-        const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int u = 0; u < NT; u += 2) {
-          if (u * 8 < D) {
-            uint32_t vb[4];
-            ldmatrix_x4_trans(vb, sV + vrow * kp + u * 8 + (lane >> 4) * 8);
-            mma_bf16(o[u], ph, vb[0], vb[1]);
-            mma_bf16(o[u + 1], ph, vb[2], vb[3]);
-            if constexpr (!kRoundP) {
-              mma_bf16(o[u], pl, vb[0], vb[1]);
-              mma_bf16(o[u + 1], pl, vb[2], vb[3]);
-            }
-          }
-        }
-      }
-      __syncwarp();  // the next tile's copies overwrite this stage
-    }
+    });
+    MmaState<DMAX> st;
+    tiles.template run<kRoundP>(st, qf, a.scale, slot_of, [&](int j) {
+      return pos_visible(ks + j, qp, kFresh, a.window, a.chunk);
+    });
     __syncthreads();  // every warp is done with its stages
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int g = grp + 8 * half;
-      if (g < G) {
-        if (tig == 0) {
-          sM[warp * G + g] = mr[half];
-          sL[warp * G + g] = lr[half];
-        }
-#pragma unroll
-        for (int u = 0; u < NT; ++u) {
-          const int d = u * 8 + 2 * tig;
-          if (d < D) {
-            sAcc[(warp * G + g) * D + d] = o[u][2 * half];
-            sAcc[(warp * G + g) * D + d + 1] = o[u][2 * half + 1];
+    mma_state_store<DMAX>(st, sM, sL, sAcc, G, D);
+  } else {
+    const int kp = tile_pitch(D, ES);
+    const size_t stage = dec_stage_elems(D, ES);
+    T* my_stages = reinterpret_cast<T*>(my_ring);
+    const int cpr = D * ES / 16;  // 16-byte pieces per row
+    // stage this warp's tile t (positions lo + 32 t ...) into stage s: K and V
+    // rows asynchronously, each row's slot from the lane that looked it up;
+    // holes and rows past the range zero-filled (the loop is warp-uniform for
+    // the shuffles)
+    auto issue = [&](int t, int s) {
+      const int j = lo + t * kDecTile + lane;
+      const long long slot = j < hi ? slot_of(j) : -1;
+      T* sK = my_stages + s * stage;
+      T* sV = sK + kDecTile * kp;
+      if constexpr (kOneByte<S>) {
+        // one-byte store (f32 q): 16 elements a load, converted to T into the stage
+        const int spr = D / 16;  // 16-element pieces per row
+        for (int base = 0; base < kDecTile * spr; base += 32) {
+          const int i = base + lane;
+          const int r = i / spr, pc = i % spr;
+          const long long rslot = __shfl_sync(0xffffffffu, slot, r);
+          uint4 ku = make_uint4(0u, 0u, 0u, 0u), vu = ku;
+          if (rslot >= 0) {
+            ku = *reinterpret_cast<const uint4*>(kc + rslot * a.css + pc * 16);
+            vu = *reinterpret_cast<const uint4*>(vc + rslot * a.css + pc * 16);
           }
+          store_converted<T, S, 16>(sK + r * kp + pc * 16, ku);
+          store_converted<T, S, 16>(sV + r * kp + pc * 16, vu);
+        }
+      } else {
+        for (int base = 0; base < kDecTile * cpr; base += 32) {
+          const int i = base + lane;
+          const int r = i / cpr, pc = i % cpr;
+          const long long rslot = __shfl_sync(0xffffffffu, slot, r);
+          const long long src = (rslot < 0 ? 0 : rslot) * a.css + pc * EPC;
+          const int zfill = rslot < 0 ? 16 : 0;
+          __pipeline_memcpy_async(sK + r * kp + pc * EPC, kc + src, 16, zfill);
+          __pipeline_memcpy_async(sV + r * kp + pc * EPC, vc + src, 16, zfill);
         }
       }
+      __pipeline_commit();  // (one-byte: an empty group; the waits count the same)
+    };
+    // whether this lane's position of tile t is attended
+    auto lane_visible = [&](int t) {
+      const int j = lo + t * kDecTile + lane;
+      return j < hi && slot_of(j) >= 0 && pos_visible(ks + j, qp, kFresh, a.window, a.chunk);
+    };
+
+    const int n_tiles = hi > lo ? (hi - lo + kDecTile - 1) / kDecTile : 0;
+    const int n_mine = n_tiles > warp ? (n_tiles - warp + NW - 1) / NW : 0;
+    // the first kDecStages - 1 tiles in flight (a group each, empty past the
+    // warp's last tile, so every wait below counts the same groups)
+    for (int k = 0; k < kDecStages - 1; ++k) {
+      if (k < n_mine) {
+        issue(warp + k * NW, k);
+      } else {
+        __pipeline_commit();
+      }
     }
-  } else {
+    __syncthreads();  // sQ
+    // put tile i + kDecStages - 1 in flight and wait for tile i's copies
+    auto next = [&](int i) {
+      const int k = i + kDecStages - 1;
+      if (k < n_mine) {
+        issue(warp + k * NW, k % kDecStages);
+      } else {
+        __pipeline_commit();
+      }
+      __pipeline_wait_prior(kDecStages - 1);
+      __syncwarp();
+    };
+
     // CUDA cores: lane = position for Q.K, lane = a column pair for P.V
     constexpr int kT = DMAX / 64;  // column pairs per lane
     float m[GMAX], l[GMAX], acc[GMAX][kT][2], s[GMAX], p[GMAX];
@@ -684,9 +572,10 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   // opted in once per instantiation to the most any G <= GMAX, D <= DMAX needs
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_split_kernel<T, S, GMAX, DMAX, MODE, MMA>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dec_smem_bytes(NW, GMAX, DMAX, sizeof(T)));
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dec_smem_bytes<T, S, DMAX, MMA>(NW, GMAX, DMAX));
   if (attr != cudaSuccess) return attr;
-  const size_t smem = dec_smem_bytes(NW, a.H / a.KV, a.D, sizeof(T));
+  const size_t smem = dec_smem_bytes<T, S, DMAX, MMA>(NW, a.H / a.KV, a.D);
   decode_split_kernel<T, S, GMAX, DMAX, MODE, MMA>
       <<<dim3(a.n_chunks, a.KV, a.B), NW * 32, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();

@@ -690,37 +690,6 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint4& v) {
                : "memory");
 }
 
-// Two one-byte store elements (the low 16 bits of `u`, the first in the low
-// byte) as a bf16x2 word, exactly: fp8 by cvt.rn.f16x2.e4m3x2 / .e5m2x2,
-// then f16 -> f32 -> bf16; int8 through f32. Every store value is a bf16.
-template <typename S>
-__device__ __forceinline__ uint32_t one_byte_pair_bf16(uint32_t u) {
-  if constexpr (std::is_same<S, int8_t>::value) {
-    return pack_bf16(static_cast<float>(static_cast<int8_t>(u & 0xffu)),
-                     static_cast<float>(static_cast<int8_t>((u >> 8) & 0xffu)));
-  } else {
-    constexpr __nv_fp8_interpretation_t kind =
-        std::is_same<S, __nv_fp8_e4m3>::value ? __NV_E4M3 : __NV_E5M2;
-    const __half2_raw h =
-        __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(u & 0xffffu), kind);
-    const float2 f = __half22float2(__half2(h));
-    return pack_bf16(f.x, f.y);
-  }
-}
-
-// 16 one-byte elements (a uint4) as 16 bf16 (lo: the first 8, hi: the rest)
-template <typename S>
-__device__ __forceinline__ void one_byte_16_bf16(const uint4& u, uint4& lo, uint4& hi) {
-  lo.x = one_byte_pair_bf16<S>(u.x);
-  lo.y = one_byte_pair_bf16<S>(u.x >> 16);
-  lo.z = one_byte_pair_bf16<S>(u.y);
-  lo.w = one_byte_pair_bf16<S>(u.y >> 16);
-  hi.x = one_byte_pair_bf16<S>(u.z);
-  hi.y = one_byte_pair_bf16<S>(u.z >> 16);
-  hi.z = one_byte_pair_bf16<S>(u.w);
-  hi.w = one_byte_pair_bf16<S>(u.w >> 16);
-}
-
 // One landed raw stage (K then V, 128 rows of D bytes each, as TMA wrote
 // them) into a bf16 stage laid out exactly as the bf16 body's TMA boxes
 // land: 64-column boxes of 128-byte rows, the 16-byte chunk c of row r at

@@ -14,9 +14,13 @@
 // 128 the plan's wgmma items (below) run the one-byte TMA + wgmma body of
 // prefill_wgmma.cuh (raw K/V boxes by TMA, converted to bf16 in shared
 // memory); otherwise the direct tiles convert their K/V tiles as they land
-// (prefill_kernel.cuh). The split kernel converts each K row in registers
-// and reads its V tile from shared memory in the store type, one byte an
-// element. All exact, so the only rounding is the store's own.
+// (prefill_kernel.cuh). With bf16 q the split kernel runs the decode
+// kernel's tensor-core tile loop over raw one-byte tiles streamed by
+// cp.async and converted in shared memory (mma_tiles.cuh), so it equals the
+// bf16 pool's split kernel on the pool up-cast to bf16, bit for bit; with
+// f32 q it converts each K row in registers and reads its V tile from
+// shared memory in the store type. All exact, so the only rounding is the
+// store's own.
 //
 // Bound: bytes. A decode-only step reads each row's K/V once (bucket 8 at
 // positions 230...1000: ~10 MB per layer in bf16, 3 us at 3.35 TB/s) and
@@ -40,8 +44,10 @@
 //    decode rows) is cut into kv chunks of its context, sized so a launch
 //    has at least two blocks per SM. ragged_split_kernel runs one block per
 //    (item, kv head): it serves all G q heads of the kv head, so each K/V
-//    row is read once (as decode_kernel.cuh's paged mode shares it), on the
-//    CUDA cores (bf16 or f32 alike; the work is bound by bytes). A token
+//    row is read once (as decode_kernel.cuh's paged mode shares it): with
+//    bf16 q at head dims that are multiples of 16 on the decode kernel's
+//    tensor-core tile loop (mma_tiles.cuh), otherwise on the CUDA cores
+//    (ragged_split.cuh). A token
 //    whose context is one chunk writes its output directly; otherwise each
 //    item writes f32 partials (m, l, acc) to scratch the wrapper allocates;
 //  - ragged_combine_kernel merges each such token's chunks in chunk order

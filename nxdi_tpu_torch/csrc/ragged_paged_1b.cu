@@ -4,9 +4,10 @@
 // compiles them in parallel with it. The plan's wgmma items (bf16 q at
 // head dim 64 or 128) run the one-byte TMA + wgmma body (prefill_wgmma.cuh:
 // raw K/V boxes converted to bf16 in shared memory); direct tiles convert
-// their K/V tiles as they land (prefill_kernel.cuh); the split kernel
-// converts each K row in registers and reads V from shared memory in the
-// store type.
+// their K/V tiles as they land (prefill_kernel.cuh); the split kernel runs,
+// with bf16 q, the decode kernel's tensor-core tile loop over raw tiles
+// converted in shared memory (mma_tiles.cuh), and with f32 q converts each
+// K row in registers and reads V from shared memory in the store type.
 #include "prefill_wgmma.cuh"
 #include "ragged_split.cuh"
 

@@ -1,8 +1,20 @@
 // The split and combine kernels of ragged paged attention (ragged_paged.cu
 // describes the scheme), shared by ragged_paged.cu and the one-byte stores'
 // instantiations in ragged_paged_1b.cu.
+//
+// The split kernel has two bodies. A split item has the shape of a decode
+// kernel block (one query position, the G q heads of one kv head, a chunk of
+// one row's table), so with bf16 q at head dims that are multiples of 16 it
+// runs the decode kernel's tensor-core tile loop (mma_tiles.cuh: mma.sync
+// with the q heads as the rows of an m16 tile, 16 heads a pass; P rounded
+// to bf16 as before; K/V tiles by cp.async, a one-byte pool's raw tiles
+// converted exactly to bf16 in shared memory, so its output equals the bf16
+// pool's on the pool up-cast to bf16, bit for bit). Elsewhere (f32 q, other
+// head dims) it runs on the CUDA cores: each lane loads its own K row into
+// registers, V lands by cp.async, and P.V walks the tile's positions.
 #pragma once
 
+#include "mma_tiles.cuh"
 #include "prefill_kernel.cuh"
 
 // outside the unnamed namespace: ragged_paged.cu passes it to the one-byte
@@ -28,6 +40,12 @@ constexpr int kSplitWarps = 4;  // a chunk is walked in 32-key tiles, one warp e
 // q heads per pass over a chunk: 4 when the G q heads of a kv head fit
 // (Llama-3.2-1B's), else 16
 constexpr int kSplitRows = 16;
+// bf16 q over a one-byte pool (the tensor-core body), at head dims up to 64
+// and up to 128: a warp's raw tiles in flight and its bf16 tiles. Small, so
+// that a decode-only bucket's items (one tile a warp at chunk 128) fit on
+// the card at once.
+constexpr int kSplitRaw[2] = {1, 1};
+constexpr int kSplitCvt[2] = {1, 1};
 constexpr int kItemInts = 7;    // token, row, kv begin, kv end, chunk, chunks, first slot
 constexpr int kCombInts = 3;    // token, first slot, chunks
 
@@ -71,10 +89,108 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, S) {
   for (int i = 0; i < 16; ++i) f[i] = to_f32(e[i]);
 }
 
-// T: q's and the output's type; S: the pool's store type (T or one byte)
-template <typename T, typename S, int DMAX, int RMAX>
+// The tensor-core body's shared memory: each warp's ring, with the merge
+// area (m, l [4][16], acc [4][16][D], f32) over the rings once the tiles
+// are done
+// (a bf16 pool's tiles double-buffered, as the decode kernel's)
+template <typename S, int DMAX>
+constexpr int kSplitStages = kOneByte<S> ? kSplitRaw[DMAX > 64] : 2;
+template <typename S, int DMAX>
+__host__ __device__ inline size_t split_mma_ring_bytes(int D) {
+  return mma_ring_bytes<S, kSplitStages<S, DMAX>, kSplitCvt[DMAX > 64]>(D);
+}
+template <typename S, int DMAX>
+inline size_t split_mma_smem(int D) {
+  const size_t rings = kSplitWarps * split_mma_ring_bytes<S, DMAX>(D);
+  const size_t merge = sizeof(float) * (size_t)(2 * kSplitWarps * 16 + kSplitWarps * 16 * D);
+  return rings > merge ? rings : merge;
+}
+
+// bf16 q: each item's chunk on the tensor-core tile loop, 16 of the kv
+// head's q heads a pass; the warps merged as the CUDA-core body merges them
+template <typename S, int DMAX>
+__device__ __forceinline__ void split_items_mma(const SplitArgs& a, float* smem) {
+  using T = __nv_bfloat16;
+  constexpr int NW = kSplitWarps, RM = 16;
+  const int D = a.D, G = a.H / a.KV;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  char* my_ring = reinterpret_cast<char*>(smem) + (size_t)warp * split_mma_ring_bytes<S, DMAX>(D);
+  const int kvh = blockIdx.y;
+  const long long rs = (long long)a.KV * D;  // pool row stride
+  const S* kc = static_cast<const S*>(a.kc) + kvh * D;
+  const S* vc = static_cast<const S*>(a.vc) + kvh * D;
+  const T* q = static_cast<const T*>(a.q);
+  T* out = static_cast<T*>(a.out);
+  const int n_items = a.plan[2];
+  const int* items = plan_items(a.plan);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int* it = items + (long long)item * kItemInts;
+    const int t = it[0], row = it[1], lo = it[2], hi = it[3], c = it[4], nch = it[5],
+              slot0 = it[6];
+    const int pos = a.tok_pos[t];
+    const int* btr = a.bt + (long long)row * a.nb;
+    auto slot_of = [&](int j) -> long long {
+      const int blk = btr[j / a.bs];
+      return blk < 0 ? -1 : (long long)blk * a.bs + j % a.bs;
+    };
+    for (int pass = 0; pass < G; pass += RM) {
+      const int rows = min(RM, G - pass);
+      MmaTiles<S, DMAX, NW, kSplitStages<S, DMAX>, kSplitCvt[DMAX > 64]> tiles(my_ring, kc, vc,
+                                                                               rs, D, lo, hi);
+      tiles.start(slot_of);
+      // q row r of the pass: q head kvh * G + pass + r of token t, two columns a word
+      const T* qt = q + (long long)(kvh * G + pass) * a.qsh + (long long)t * a.qss;
+      uint32_t qf[DMAX / 16][4];
+      mma_q_frags<DMAX>(qf, D, [&](int r, int col) -> uint32_t {
+        return r < rows ? *reinterpret_cast<const uint32_t*>(qt + r * a.qsh + col) : 0u;
+      });
+      MmaState<DMAX> st;
+      tiles.template run<true>(st, qf, a.scale, slot_of, [&](int j) { return j <= pos; });
+      // the merge area over the rings: m, l [NW][rows], acc [NW][rows][D]
+      float* sM = smem;
+      float* sL = sM + NW * rows;
+      float* sAcc = sL + NW * rows;
+      __syncthreads();  // every warp is done with its ring
+      mma_state_store<DMAX>(st, sM, sL, sAcc, rows, D);
+      __syncthreads();
+      // merge the warps; write the output (one chunk) or the chunk's partials
+      for (int i = tid; i < rows * D; i += blockDim.x) {
+        const int g = i / D, d = i % D;
+        float M = NXDI_NEG_INF;
+        for (int w = 0; w < NW; ++w) M = fmaxf(M, sM[w * rows + g]);
+        float L = 0.f, A = 0.f;
+        for (int w = 0; w < NW; ++w) {
+          const float f = expf(sM[w * rows + g] - M);
+          L = fmaf(sL[w * rows + g], f, L);
+          A = fmaf(sAcc[(w * rows + g) * D + d], f, A);
+        }
+        const int h = kvh * G + pass + g;
+        if (nch == 1) {
+          out[h * a.osh + t * a.oss + d] = from_f32<T>(A * a.v_scale / fmaxf(L, 1e-20f));
+        } else {
+          const long long sl = (long long)(slot0 + c) * a.H + h;
+          a.acc[sl * D + d] = A;
+          if (d == 0) {
+            a.ml[2 * sl] = M;
+            a.ml[2 * sl + 1] = L;
+          }
+        }
+      }
+      __syncthreads();  // the next pass (or item) overwrites the rings and the merge area
+    }
+  }
+}
+
+// T: q's and the output's type; S: the pool's store type (T or one byte).
+// MMA: the tensor-core body (bf16 q, head dim a multiple of 16), else the
+// CUDA cores.
+template <typename T, typename S, int DMAX, int RMAX, bool MMA>
 __global__ void __launch_bounds__(kSplitWarps * 32) ragged_split_kernel(SplitArgs a) {
   extern __shared__ __align__(16) float smem[];
+  if constexpr (MMA) {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor cores take bf16 q");
+    split_items_mma<S, DMAX>(a, smem);
+  } else {
   const int D = a.D, G = a.H / a.KV;
   // (laid out within split_float_bytes, which is sized for kSplitRows)
   float* sQ = smem;                         // [RMAX][D]
@@ -250,6 +366,7 @@ __global__ void __launch_bounds__(kSplitWarps * 32) ragged_split_kernel(SplitArg
     __syncthreads();  // the next pass (or item) overwrites sQ and the merge area
   }
   }  // items
+  }
 }
 
 // One warp per (token to combine, q head), 8 to a block (grid: tokens, or
@@ -292,25 +409,35 @@ __global__ void __launch_bounds__(256) ragged_combine_kernel(const int* plan, co
   }  // tokens to combine
 }
 
-template <typename T, typename S, int DMAX, int RMAX>
+template <typename T, typename S, int DMAX, int RMAX, bool MMA = false>
 cudaError_t launch_split(const SplitArgs& a, int n_items, cudaStream_t stream) {
-  const size_t smem = split_float_bytes(a.D) + kSplitWarps * 32 * (size_t)a.D * sizeof(S);
-  cudaError_t err = cudaFuncSetAttribute(ragged_split_kernel<T, S, DMAX, RMAX>,
+  const size_t smem = MMA ? split_mma_smem<S, DMAX>(a.D)
+                          : split_float_bytes(a.D) + kSplitWarps * 32 * (size_t)a.D * sizeof(S);
+  cudaError_t err = cudaFuncSetAttribute(ragged_split_kernel<T, S, DMAX, RMAX, MMA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ragged_split_kernel<T, S, DMAX, RMAX>
+  ragged_split_kernel<T, S, DMAX, RMAX, MMA>
       <<<dim3(n_items, a.KV), kSplitWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, typename S, int DMAX>
 cudaError_t launch_split_rows(const SplitArgs& a, int n_items, int rows, cudaStream_t stream) {
-  return rows <= 4 ? launch_split<T, S, DMAX, 4>(a, n_items, stream)
-                   : launch_split<T, S, DMAX, kSplitRows>(a, n_items, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.D % 16 == 0) return launch_split<T, S, DMAX, 16, true>(a, n_items, stream);
+  }
+  if constexpr (kOneByte<S> && !std::is_same<T, float>::value) {
+    return cudaErrorInvalidValue;  // (the one-byte wrapper takes head dims that are multiples of 16)
+  } else {
+    return rows <= 4 ? launch_split<T, S, DMAX, 4>(a, n_items, stream)
+                     : launch_split<T, S, DMAX, kSplitRows>(a, n_items, stream);
+  }
 }
 
 // The split kernel over the items (one token each: its G q heads a pass),
-// then the combine; n_items and n_comb are the grids.
+// then the combine; n_items and n_comb are the grids. bf16 q at head dims
+// that are multiples of 16 (every one-byte pool's: the wrapper requires it)
+// runs the tensor-core body.
 template <typename T, typename S = T>
 cudaError_t run_split(const SplitArgs& a, int n_items, int n_comb, cudaStream_t stream) {
   if (n_items > 0) {

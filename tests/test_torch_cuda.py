@@ -8,6 +8,7 @@ machine has no JAX, so run them there without the repository's conftest:
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -884,29 +885,60 @@ def _one_byte(gen, store, *shape):
     return (x * 2).to(ONE_BYTE[store])
 
 
+def _kernel_names(fn, calls=4):
+    """The base names of the kernels ``fn`` launches, over ``calls``
+    profiled calls (the card's machine now and then traces a call short of
+    kernels, so one call may miss some)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            found = re.findall(r"[A-Za-z_]\w*_kernel\b", e.key)
+            if found:
+                names.add(found[0])
+    return sorted(names)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 128])
 @pytest.mark.parametrize("D", [16, 64, 128])
 @pytest.mark.parametrize("store", list(ONE_BYTE))
-def test_one_byte_paged_decode(gen, store, D, dtype):
-    """The paged decode over a one-byte pool (G 4, 700 positions split in
-    chunks, a table of holes only, a hole mid-range): against the plain
-    version, one launch a call, the same bits on a second call."""
-    B, KV, G, bs, NB = 4, 2, 4, 16, 44
+def test_one_byte_paged_decode(gen, store, D, bs, dtype):
+    """The paged decode over a one-byte pool (G 4, 768 positions split in
+    chunks of 128, a table of holes only, a hole mid-range, a row at
+    position 0 and one at a chunk's first position): against the plain
+    version, one launch a call, the same bits on a second call, only the
+    split and combine kernels launched. With bf16 q (the raw tiles on the
+    tensor-core body) the output equals, bit for bit, the bf16 pool's kernel
+    on the pool up-cast to bf16 under the same scales."""
+    B, KV, G = 4, 2, 4
+    NB = 768 // bs
     kc_, vc_ = (_one_byte(gen, store, B * NB * bs, KV, D) for _ in range(2))
     bt = torch.randperm(B * NB, generator=torch.Generator().manual_seed(3)).reshape(B, NB)
     bt = bt.to(torch.int32)
     bt[1, :] = -1
-    bt[2, 7] = -1
+    bt[2, 112 // bs] = -1
     q = _randn(gen, B, 1, KV * G, D).to(dtype).transpose(1, 2)
-    qp = torch.tensor([[699], [300], [500], [40]], dtype=torch.int32).cuda()
+    qp = torch.tensor([[767], [300], [384], [0]], dtype=torch.int32).cuda()
     kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
+    assert fa.decode_chunk(B, KV, NB * bs, fa._sm_count(0)) == 128
+    btc = bt.cuda()
     before = fa.paged_attention_decode.launches
-    got = fa.paged_attention_decode(q, kc_, vc_, bt, qp, **kw)
+    got = fa.paged_attention_decode(q, kc_, vc_, btc, qp, **kw)
     assert fa.paged_attention_decode.launches == before + 1
-    want = fa.paged_attention_decode_plain(q, kc_, vc_, bt.cuda(), qp, **kw)
+    want = fa.paged_attention_decode_plain(q, kc_, vc_, btc, qp, **kw)
     assert _max_err(got, want) <= ONE_BYTE_TOL[dtype]
     assert torch.all(got[1] == 0)
-    assert torch.equal(fa.paged_attention_decode(q, kc_, vc_, bt, qp, **kw), got)
+    assert torch.equal(fa.paged_attention_decode(q, kc_, vc_, btc, qp, **kw), got)
+    assert _kernel_names(lambda: fa.paged_attention_decode(q, kc_, vc_, btc, qp, **kw)) == [
+        "decode_combine_kernel", "decode_split_kernel"]
+    if dtype == torch.bfloat16:
+        up = fa.paged_attention_decode(q, kc_.to(dtype), vc_.to(dtype), btc, qp, **kw)
+        assert torch.equal(got, up)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -941,9 +973,14 @@ def test_one_byte_paged_prefill(gen, store, bs, dtype):
 @pytest.mark.parametrize("stream", ["decode8", "chunk_and_long_decode"])
 @pytest.mark.parametrize("store", list(ONE_BYTE))
 def test_one_byte_ragged(gen, store, stream, dtype):
-    """The ragged kernels (direct tiles, split, combine) over a one-byte
-    pool: against the plain version, padding exactly 0, the same bits on a
-    second call."""
+    """The ragged kernels (wgmma items or direct tiles, split, combine) over
+    a one-byte pool: against the plain version, padding exactly 0, the same
+    bits on a second call, the split kernel launched; with bf16 q the split
+    items' tokens equal, bit for bit, the bf16 pool's kernels on the pool
+    up-cast to bf16 (both run the tensor-core split); the graph-ready launch
+    (the plan padded to the bucket's capacity, the split blocks striding
+    over the items) eager and replayed from a CUDA graph equal to the
+    per-call launch."""
     T, rows = RAGGED_STREAMS[stream]
     H, KV, D, bs, NB = 32, 8, 64, 128, 16
     R = max(s for s, _, _ in rows) + 1
@@ -953,6 +990,7 @@ def test_one_byte_ragged(gen, store, stream, dtype):
     wgmma = rpa.ragged_direct_body(dtype, ONE_BYTE[store], D, bs) == "wgmma"
     assert wgmma == (dtype == torch.bfloat16)
     plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV, wgmma=wgmma)
+    assert plan.n_items > 0
     kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
     before = rpa.ragged_paged_attention.launches
     got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw)
@@ -961,6 +999,26 @@ def test_one_byte_ragged(gen, store, stream, dtype):
     assert _max_err(got, want) <= ONE_BYTE_TOL[dtype]
     assert torch.all(got[:, :, torch.from_numpy(rid < 0).cuda()] == 0)
     assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw), got)
+    if dtype == torch.bfloat16:  # the split items equal the bf16 pool's on the up-cast pool
+        toks = torch.from_numpy(np.unique(plan.items()[:, 0])).cuda()
+        up = rpa.ragged_paged_attention(q, kc_.to(dtype), vc_.to(dtype), bt, rid, qp, **kw,
+                                        plan=rpa.ragged_plan(rid, qp, R, NB * bs, KV))
+        assert torch.equal(got[:, :, toks], up[:, :, toks])
+    btc, ridc, qpc = (torch.from_numpy(x).cuda() for x in (bt, rid, qp))
+    dev_plan = plan.to("cuda")
+    assert "ragged_split_kernel" in _kernel_names(
+        lambda: rpa.ragged_paged_attention(q, kc_, vc_, btc, ridc, qpc, plan=dev_plan, **kw))
+    cap = rpa.ragged_capacity(T, R, NB * bs, KV, wgmma=wgmma)
+    static = dataclasses.replace(cap, flat=torch.from_numpy(rpa.pad_plan(plan, cap)).cuda())
+    eager = rpa.ragged_paged_attention(q, kc_, vc_, btc, ridc, qpc, plan=static, **kw)
+    assert torch.equal(eager, got)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = rpa.ragged_paged_attention(q, kc_, vc_, btc, ridc, qpc, plan=static, **kw)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize("store", list(ONE_BYTE))

@@ -283,6 +283,54 @@ def test_one_byte_paged_kernels_match_pallas(store, launch_counts):
     assert launch_counts() == [0, 0, 0, 0]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["paged_decode", "ragged"])
+@pytest.mark.parametrize("store", list(STORES))
+def test_one_byte_plain_equals_upcast_pool(store, kernel, dtype, launch_counts):
+    """The invariant the card holds the one-byte decode and split kernels to:
+    the plain version over a one-byte pool equals, bit for bit, its own
+    output on the pool up-cast to q's dtype under the same scales (every
+    store value is exact there); with f32 q both equal the Pallas kernel in
+    interpret mode on the one-byte pool."""
+    bs, nblk = 8, 12
+    rng = np.random.default_rng(12)
+    (jk, jv), (tk, tv) = _quantized_pool(store, rng, nblk * bs)
+    bt = rng.permutation(nblk)[:6].reshape(1, 6).astype(np.int32).repeat(2, 0)
+    bt[1, 2] = -1  # a hole
+    scales = dict(k_scale=0.5, v_scale=2.0)
+    up_k, up_v = tk.to(dtype), tv.to(dtype)
+    if kernel == "paged_decode":
+        q = rng.standard_normal((2, 4, 1, D)).astype(np.float32)
+        qp = np.array([[40], [20]], np.int32)
+        args = (torch.from_numpy(bt), torch.from_numpy(qp))
+
+        def run(k, v):
+            return tfa.paged_attention_decode(torch.from_numpy(q).to(dtype), k, v, *args,
+                                              block_size=bs, **scales)
+
+        def pallas():
+            return jfa.paged_attention_decode(jnp.asarray(q), jk, jv, jnp.asarray(bt),
+                                              jnp.asarray(qp), block_size=bs, **scales)
+    else:  # decode tokens of both rows (split items), a 3-token run of row 0, padding
+        q = rng.standard_normal((1, 4, 8, D)).astype(np.float32)
+        rid = np.array([1, 0, 0, 0, 0, -1, -1, -1], np.int32)
+        qpr = np.array([20, 37, 38, 39, 40, 0, 0, 0], np.int32)
+
+        def run(k, v):
+            return tra.ragged_paged_attention(torch.from_numpy(q).to(dtype), k, v, bt, rid, qpr,
+                                              block_size=bs, **scales)
+
+        def pallas():
+            return jax_ragged(jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(rid),
+                              jnp.asarray(qpr), block_size=bs, block_q=8, **scales)
+    got = run(tk, tv)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(_bits(got), _bits(run(up_k, up_v)))
+    if dtype == torch.float32:
+        _close(got, pallas())
+    assert launch_counts() == [0, 0, 0, 0]
+
+
 @pytest.mark.parametrize("store", list(STORES))
 def test_one_byte_commit_matches_pallas(store, launch_counts):
     jdt, tdt = STORES[store]
