@@ -100,6 +100,23 @@ code is non-zero:
    decode's output equals the bf16 pool's kernel on the up-cast pool bit
    for bit on every store, and the split kernel's tensor-core
    instantiation is asserted by profiled kernel name.
+4f. Speculative decoding at full width, 2 layers, float32: the fused app
+   (spec_len 2 and 4, a 2-layer draft from seed 1 and a perfect draft, the
+   target's weights), the standard pair and Medusa chain and tree (3 random
+   heads, the JAX package's test tree), each on the CPU, through the card's
+   graphs and on the card eagerly: tokens equal the CPU's and the port's
+   non-speculative greedy stream, every window's accepted counts equal the
+   CPU's, graph runs equal eager ones (every cache tensor bit for bit), a
+   perfect draft accepts whole fused windows, launch counts exact.
+5f. Speculative decoding at full depth (16 layers, bf16, contiguous cache,
+   graphs), phase 5's prompts at batch 8 and batch 1 (its first row), 32
+   new tokens: the fused app and the standard pair at spec_len 4 with a
+   perfect draft and a 2-layer draft, Medusa with 4 random heads, chain and
+   tree: ms per window, mean accepted tokens per window, ms per accepted
+   token beside phase 5's decode, launches of rows 1, 3 and 4 per window
+   (exact), one window profiled (wall, busy, idle) and split into draft
+   steps, verify, acceptance and host; streams equal to the
+   non-speculative stream, any difference at a bf16 near tie.
 4e. Quantization at full width, 2 layers, float32: the split paged engine
    on an e4m3 per-tensor pool (CPU, card graphs, card eager: streams
    identical, logits within QUANT_LOGIT_TOL, replays equal to eager, exact
@@ -127,6 +144,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -3223,6 +3241,708 @@ def quant_full_depth(torch, np, mods, card, slice_times, unified):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 4f and 5f: speculative decoding
+# ---------------------------------------------------------------------------
+
+MC_TREE = [[0], [1], [0, 0], [0, 1], [1, 0], [0, 0, 0]]  # the JAX package's Medusa test tree
+SPEC_TAGS = ("fused_speculation_model", "medusa_speculation_model")
+
+
+def spec_params(ml, dense, torch, *, layers, dtype, device, heads=0):
+    """The speculation runs' weights, all random from seeds at Llama-3.2-1B's
+    width: the target (seed 0: phases 4 and 5's weights), a 2-layer draft
+    (seed 1), and ``heads`` Medusa heads (seed 2) in the checkpoint's
+    layout after conversion (ResBlock weight and bias, a head lm_head over
+    the padded vocab)."""
+    def arch_of(n):
+        cfg = ml.LlamaInferenceConfig(_spec_tc(ml, dtype=dtype),
+                                      **dict(ml.LLAMA_3_2_1B, num_hidden_layers=n))
+        return ml.build_arch(cfg)
+
+    from nxdi_tpu_torch.runtime.device import resolve_device
+
+    device = resolve_device(device)
+    arch = arch_of(layers)
+    out = {"target": dense.random_params(arch, seed=0, device=device),
+           "weak": dense.random_params(arch_of(2), seed=1, device=device)}
+    if heads:
+        g = torch.Generator(device=device).manual_seed(2)
+        Hd, V, dt = arch.hidden_size, arch.vocab_size, out["target"]["norm"].dtype
+
+        def rnd(*shape):
+            return (torch.randn(shape, generator=g, device=device) * 0.02).to(dt)
+
+        out["heads"] = {"res_w": rnd(heads, Hd, Hd), "res_b": rnd(heads, Hd),
+                        "head": rnd(heads, Hd, V)}
+    return out
+
+
+def _spec_tc(ml, **kw):
+    from nxdi_tpu_torch.config import TorchConfig
+
+    return TorchConfig(**kw)
+
+
+def make_spec_app(mods, kind, params, *, draft, layers, dtype, batch, seq_len, ctx_len, device,
+                  spec_len=4, graphs=True, tree=None):
+    """A speculation app, loaded and warmed up: ``kind`` "fused" or
+    "standard" with ``draft`` "perfect" (the target's weights and depth) or
+    "weak" (2 layers, seed 1); "chain" or "tree" (Medusa: the heads in
+    ``params``, ``tree`` its path list)."""
+    from nxdi_tpu_torch.speculation import FusedSpecCausalLM, MedusaCausalLM, StandardSpecCausalLM
+
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    base = dict(tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
+                dtype=dtype, on_device_sampling_config=ODSC(), attn_kernel_enabled=True,
+                attn_tkg_kernel_enabled=True, skip_warmup=True)
+
+    def cfg(n, **extra):
+        return ml.LlamaInferenceConfig(TorchConfig(**base, **extra),
+                                       **dict(ml.LLAMA_3_2_1B, num_hidden_layers=n))
+
+    d_layers = layers if draft == "perfect" else 2
+    d_params = params["target"] if draft == "perfect" else params["weak"]
+    if kind == "fused":
+        pair = {"target": params["target"], "draft": d_params}
+
+        class Fused(FusedSpecCausalLM):
+            def build_params(self):
+                return pair
+
+        app = Fused("<t>", cfg(layers, speculation_length=spec_len,
+                               enable_fused_speculation=True),
+                    "<d>", cfg(d_layers), model_family=ml, device=device, graphs=graphs)
+    elif kind == "standard":
+        app = StandardSpecCausalLM("<t>", cfg(layers, speculation_length=spec_len), "<d>",
+                                   cfg(d_layers), model_family=ml, device=device, graphs=graphs)
+        app.target.build_params = lambda: params["target"]
+        app.draft.build_params = lambda: d_params
+    else:
+        K = params["heads"]["res_w"].shape[0]
+        full = dict(params["target"], medusa_heads=params["heads"])
+
+        class Medusa(MedusaCausalLM):
+            def build_params(self):
+                return full
+
+        app = Medusa("<t>", cfg(layers, is_medusa=True, num_medusa_heads=K,
+                                medusa_speculation_length=K + 1,
+                                medusa_tree=tree if kind == "tree" else None),
+                     model_family=ml, device=device, graphs=graphs)
+    app.load()
+    t = time.perf_counter()
+    for a in ((app.target, app.draft) if kind == "standard" else (app,)):
+        if a.device.type == "cuda":
+            a.warmup()
+    app.warm_s = time.perf_counter() - t
+    return app
+
+
+def spec_caches(app):
+    """Every cache tensor of a speculation app, by name."""
+    caches = ({"target": app.target.kv_cache, "draft": app.draft.kv_cache}
+              if hasattr(app, "target") else {"": app.kv_cache})
+    out = {}
+    for name, cache in caches.items():
+        for k, v in cache.items():
+            if isinstance(v, dict):
+                out.update({f"{name}{k}.{kk}": vv for kk, vv in v.items()})
+            else:
+                out[f"{name}.{k}"] = v
+    return out
+
+
+def spec_run(torch, Adapter, app, ids, mask, new):
+    """generate() on a speculation app: (tokens, each window's counts, the
+    launch counts, prefill ms, decode ms, windows, emitted tokens)."""
+    from nxdi_tpu_torch.generation import hf_adapter as hfa
+    from nxdi_tpu_torch.ops.kernels import launch_counters
+
+    windows = []
+    inner_fwd, inner_fetch = app.forward, hfa.extract_next_tokens
+    stamps = []
+
+    def fwd(i, p, **kw):
+        out = inner_fwd(i, p, **kw)
+        if i.shape[1] == 1:
+            c = out["counts"]
+            windows.append((c.cpu().numpy() if hasattr(c, "cpu") else c).tolist())
+        return out
+
+    def fetch(outputs):
+        toks = inner_fetch(outputs)
+        stamps.append(time.perf_counter())
+        return toks
+
+    for fn in launch_counters():
+        fn.launches = 0
+    w0, a0 = app.spec_windows, app.spec_accepted_tokens
+    app.forward, hfa.extract_next_tokens = fwd, fetch
+    try:
+        if app.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=new)
+        if app.device.type == "cuda":
+            torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        del app.forward
+        hfa.extract_next_tokens = inner_fetch
+    by_name = {fn.__name__: fn.launches for fn in launch_counters()}
+    counts = {"prefill": by_name["flash_attention_prefill"],
+              "decode": by_name["flash_attention_decode_fused"],
+              "commit": by_name["kv_commit_rows"]}
+    return dict(tokens=out, windows=windows, launches=counts,
+                prefill_ms=(stamps[0] - t0) * 1e3, decode_ms=(t_end - stamps[0]) * 1e3,
+                n_windows=app.spec_windows - w0, accepted=app.spec_accepted_tokens - a0)
+
+
+def spec_want_launches(kind, run, *, layers, d_layers, spec_len):
+    """The launches a speculation run must count: rows 1 (prefill), 3
+    (decode) and 4 (commit), from its windows (a window's counts are all
+    its rows'; a standard window at the edge falls back to one step)."""
+    n = run["n_windows"]
+    W = spec_len + 1
+    if kind == "fused":
+        return {"prefill": layers + d_layers, "decode": n * W * d_layers, "commit": n * (W + 1)}
+    if kind == "standard":
+        return {"prefill": layers + d_layers, "decode": n * spec_len * d_layers,
+                "commit": n * (spec_len + 1)}
+    if kind == "chain":
+        return {"prefill": layers, "decode": 0, "commit": n}
+    return {"prefill": layers, "decode": 0, "commit": n * (layers + 1)}
+
+
+SPEC_4F = (("fused", 2, "weak"), ("fused", 2, "perfect"), ("fused", 4, "weak"),
+           ("fused", 4, "perfect"), ("standard", 4, "weak"), ("standard", 2, "perfect"),
+           ("chain", 3, None), ("tree", 3, None))
+
+
+def spec_vs_cpu(torch, np, mods):
+    """Phase 4f: speculation at full width, 2 layers, float32: the fused app
+    (spec_len 2 and 4, a weak and a perfect draft), the standard pair and
+    Medusa chain and tree (3 random heads, MC_TREE), each on the CPU (plain
+    versions), on the card through its graphs and on the card eagerly:
+    tokens equal the CPU's and the port's own non-speculative greedy
+    stream, every window's counts equal the CPU's, the card's graph run
+    equals its eager run (tokens, counts, every cache tensor bit for bit),
+    a perfect draft accepts whole fused windows, launch counts exact."""
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    L, B, NEW = 2, 2, 16
+    geo = dict(layers=L, dtype="float32", batch=B, seq_len=256, ctx_len=128)
+    cpu = spec_params(ml, dense, torch, layers=L, dtype="float32", device="cpu", heads=3)
+
+    def to_cuda(tree):
+        return {k: to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+    gpu = {k: to_cuda(v) for k, v in cpu.items()}
+    ids, mask = prompts(np.random.default_rng(7), B, 128, [128, 97],
+                        ml.LLAMA_3_2_1B["vocab_size"])
+    plain = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device=dev, params=params["target"],
+                          **geo)
+        plain[dev] = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+        del app
+    assert (plain["cpu"] == plain["cuda"]).all(), "phase 4f: the plain streams differ"
+    results = {}
+    for kind, spec_len, draft in SPEC_4F:
+        name = f"{kind} k={spec_len}" + (f" {draft}" if draft else "")
+        runs = {}
+        t = time.perf_counter()
+        for mode, dev, graphs in (("cpu", "cpu", True), ("graphs", "cuda", True),
+                                  ("eager", "cuda", False)):
+            app = make_spec_app(mods, kind, cpu if dev == "cpu" else gpu, draft=draft,
+                                device=dev, spec_len=spec_len, graphs=graphs,
+                                tree=MC_TREE, **geo)
+            runs[mode] = spec_run(torch, Adapter, app, ids, mask, NEW)
+            if mode != "cpu":
+                runs[mode]["caches"] = {k: v.clone() for k, v in spec_caches(app).items()}
+            if mode == "graphs":
+                for tag in SPEC_TAGS:
+                    if tag in getattr(app, "models", {}):
+                        assert all(bg.graph is not None
+                                   for bg in app.models[tag].bucket_graphs.values())
+            del app
+        g, e, c = runs["graphs"], runs["eager"], runs["cpu"]
+        assert (g["tokens"] == e["tokens"]).all(), f"phase 4f {name}: graph and eager tokens differ"
+        assert (g["tokens"] == c["tokens"]).all(), f"phase 4f {name}: CPU and card tokens differ"
+        assert (g["tokens"] == plain["cuda"]).all(), \
+            f"phase 4f {name}: tokens differ from the non-speculative stream"
+        assert g["windows"] == e["windows"] == c["windows"], \
+            f"phase 4f {name}: window counts differ {g['windows']} / {c['windows']}"
+        for k in g["caches"]:
+            assert torch.equal(g["caches"][k], e["caches"][k]), \
+                f"phase 4f {name}: graph and eager {k} differ"
+        want = spec_want_launches(kind, g, layers=L, d_layers=L if draft == "perfect" else 2,
+                                  spec_len=spec_len)
+        assert g["launches"] == e["launches"] == want, \
+            f"phase 4f {name}: launches {g['launches']} / {e['launches']} != {want}"
+        if kind == "fused" and draft == "perfect":
+            # (the standard pair's draft runs spec_len steps, so after a whole
+            # window its cache lacks the last draft token's row, as in the
+            # JAX package: it accepts less than whole windows)
+            full = [w for w in g["windows"][:-1] if w != [spec_len + 1] * B]
+            assert not full, f"phase 4f {name}: a perfect draft left windows {full}"
+        results[name] = dict(windows=len(g["windows"]),
+                             mean_accepted=g["accepted"] / max(g["n_windows"], 1) / B,
+                             launches=g["launches"], s=time.perf_counter() - t)
+        log(f"[spec-2L 4f] {name}: tokens = CPU = eager = non-speculative; {len(g['windows'])} "
+            f"windows, counts = CPU's, caches graph = eager bit for bit; launches "
+            f"{g['launches']} ({time.perf_counter() - t:.1f} s)")
+    return results
+
+
+SPEC_5F = (("fused", "perfect"), ("fused", "weak"), ("standard", "perfect"), ("standard", "weak"),
+           ("chain", None), ("tree", None))
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def f32_ulp(x: float) -> float:
+    """The spacing of float32 numbers at |x| (24 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 23)
+
+
+def to_float32(tree):
+    """A params tree with every tensor in float32."""
+    return {k: to_float32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+
+class Witness:
+    """The streams' yardstick: a float32 forward, plain attention, of the
+    same (bf16-valued) target weights. For a stream, per row, one prefill of
+    the prompt and the stream's first ``new - 1`` tokens gives the logits
+    that predict each of its ``new`` tokens. It is independent of the
+    speculation code and of the kernels: the arithmetic every bf16 or f32
+    path of the card approximates."""
+
+    def __init__(self, torch, np, app, params32, ids, lengths, new):
+        from nxdi_tpu_torch.models.base import causal_lm_forward
+
+        w = next(iter(app.models.values()))
+        self.torch, self.np, self.forward = torch, np, causal_lm_forward
+        self.arch = dataclasses.replace(w.arch, dtype="float32", attn_kernel_enabled=False,
+                                        attn_tkg_kernel_enabled=False)
+        self.inv_freq, self.params = w.inv_freq, params32
+        self.ids, self.lengths, self.new = ids, lengths, new
+
+    def logits(self, tokens):
+        """(B, new, V) float32 logits on the host: row b, step j predicts
+        ``tokens[b, lengths[b] + j]``."""
+        from nxdi_tpu_torch.kvcache.kv_cache import init_kv_cache
+
+        torch, out = self.torch, []
+        for b, m in enumerate(self.lengths):
+            seq = self.np.concatenate([self.ids[b, :m], tokens[b, m:m + self.new - 1]])
+            S = len(seq)
+            batch = {"input_ids": torch.tensor(seq[None], dtype=torch.int32, device="cuda"),
+                     "position_ids": torch.arange(S, dtype=torch.int32, device="cuda")[None],
+                     "last_token_index": torch.tensor([S - 1], dtype=torch.int32,
+                                                      device="cuda"),
+                     "sampling_params": torch.ones((1, 3), device="cuda")}
+            cache = init_kv_cache(self.arch.kv_cache_spec(1, S), "cuda")
+            with torch.inference_mode():
+                o, _ = self.forward(self.arch, self.inv_freq, self.params, cache, batch,
+                                    attend_to_cache=False, gather_last_token=False,
+                                    output_logits=True, on_device_sampling=False)
+            out.append(o["logits"][0, m - 1:m - 1 + self.new].float().cpu())
+            del cache, o
+        return torch.stack(out)
+
+
+def margins(torch, tokens, wl, lengths, new):
+    """Each emitted token's margin under the witness's logits ``wl``: the
+    witness's best logit less the emitted token's, (B, new)."""
+    rows = []
+    for b, m in enumerate(lengths):
+        t = torch.as_tensor(tokens[b, m:m + new].astype("int64"))
+        rows.append(wl[b].max(dim=-1).values - wl[b].gather(1, t[:, None])[:, 0])
+    return torch.stack(rows)
+
+
+def stream_check(torch, np, name, spec, ref, ref_logits, witness, eps, lengths, new, step_of):
+    """A speculative stream against the witness and the non-speculative
+    stream ``ref``. Every token of every row (past a first difference too)
+    must be one the witness rates within ``2 * eps`` of its best, where
+    ``eps`` is the non-speculative decode's own largest logit distance from
+    the witness on its own stream: a path whose logits lie within eps of
+    the witness's never picks a token further than 2 eps below the best, so
+    the bound comes from the decode path and the witness, not from the code
+    under test. Returns (rows equal to ``ref``, [(row, step, ``ref``'s
+    top-2 gap there, that gap in steps of the dtype at the top logit,
+    ``step_of``)], the largest margin)."""
+    mg = margins(torch, spec, witness.logits(spec), lengths, new)
+    worst = float(mg.max())
+    assert worst <= 2 * eps, (
+        f"{name}: an emitted token lies {worst} below the witness's best, beyond twice the "
+        f"non-speculative decode's distance from the witness ({eps}): a fault")
+    equal, ties = 0, []
+    for b, n in enumerate(lengths):
+        diff = np.flatnonzero(spec[b, n:n + new] != ref[b, n:n + new])
+        if not diff.size:
+            equal += 1
+            continue
+        j = int(diff[0])
+        top2 = ref_logits[b, j].topk(2).values
+        gap = float(top2[0] - top2[1])
+        ties.append((b, j, gap, gap / step_of(float(top2[0]))))
+    return equal, ties, worst
+
+
+# rows 1, 3 and 4 by the kernels they launch (a decode call may add a combine)
+SPEC_KERNELS = {"prefill": re.compile(r"prefill_(wgmma_|tc_)?kernel<"),
+                "decode": re.compile(r"decode_split_kernel<"),
+                "commit": re.compile(r"kv_commit_kernel")}
+
+
+def profiled_kernel_counts(torch, fn, tries=4):
+    """Launches of rows 1, 3 and 4 in one call of ``fn`` as the profiler
+    traced them (by kernel name, the most over ``tries`` traced calls: the
+    card's machine now and then returns a trace short of kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = dict.fromkeys(SPEC_KERNELS, 0)
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for key, rx in SPEC_KERNELS.items():
+            n = sum(k.count for k in prof.key_averages() if rx.search(k.key))
+            best[key] = max(best[key], n)
+    return best
+
+
+def kernel_sequence(torch, fn):
+    """``fn()`` under the profiler: what the device ran, kernels, copies and
+    memsets, in order, as (name, device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evs]
+
+
+def split_window(torch, window, pieces, tries=4):
+    """One window's device time by part, from one trace of the window (a
+    graph replay): each part's device work is the run of operations that
+    its callable in ``pieces`` launches (traced alone for their names),
+    found in the window's sequence in order; what no part matched (the
+    acceptance, the staging and token copies, the window's own glue) is
+    "acceptance and the rest". Returns ({part: ms}, the trace's busy ms,
+    the trace's length), or None when no traced call held every part (the
+    card's profiler now and then traces a call short)."""
+    for fn in pieces.values():  # once untraced, so no first-call work is traced
+        fn()
+    want = {part: [n for n, _ in kernel_sequence(torch, fn)] for part, fn in pieces.items()}
+    for _ in range(tries):
+        seq = kernel_sequence(torch, window)
+        names = [n for n, _ in seq]
+        parts, at, used = {}, 0, set()
+        for part, ws in want.items():
+            hit = next((i for i in range(at, len(names) - len(ws) + 1)
+                        if names[i:i + len(ws)] == ws), None)
+            if hit is None:
+                log(f"[split] {part}'s {len(ws)} operations are not in the window's "
+                    f"{len(names)} after operation {at}")
+                break
+            parts[part] = sum(t for _, t in seq[hit:hit + len(ws)])
+            used.update(range(hit, hit + len(ws)))
+            at = hit + len(ws)
+        else:
+            parts["acceptance and the rest"] = sum(
+                t for i, (_, t) in enumerate(seq) if i not in used)
+            return parts, sum(t for _, t in seq), len(seq)
+    return None
+
+
+def spec_pieces(torch, np, app, kind):
+    """A window's parts, each a callable that launches, on the app's tensors
+    (after a window, at its bucket), what the window launches for that
+    part: fused "draft steps" and "verify"; Medusa "verify"; standard
+    "draft steps" (the draft app's spec_len dispatches) and "verify" (the
+    target's verify dispatch). The acceptance (and, for Medusa, the heads
+    and the tree's fix-up) is what the window runs besides
+    (:func:`split_window`)."""
+    from nxdi_tpu_torch.models.base import causal_lm_forward
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_SPECULATION
+    from nxdi_tpu_torch.speculation import fused, token_tree
+
+    if kind == "standard":
+        w = app.target.models[TAG_SPECULATION]
+        bg = w.bucket_graphs[w.last_bucket]
+        toks = bg.bound["input_ids"].cpu().numpy()
+        pos = bg.bound["position_ids"].cpu().numpy()
+        lti = np.zeros((toks.shape[0],), "int32")
+
+        def draft():  # as the window's loop: each draft token read back to the host
+            d_tok, d_pos = toks[:, :1], pos[:, :1]
+            for _ in range(app.spec_len):
+                o = app.draft.forward(d_tok, d_pos, last_token_index=lti)
+                d_tok, d_pos = o["tokens"].cpu().numpy().astype(np.int32), d_pos + 1
+
+        def verify():
+            app.target.forward(toks, pos, submodel=TAG_SPECULATION, last_token_index=lti)
+
+        return {"draft steps": draft, "verify": verify}
+    tag = SPEC_TAGS[0] if kind == "fused" else SPEC_TAGS[1]
+    w = app.models[tag]
+    bucket = w.last_bucket
+    dev = w.bucket_graphs[bucket].bound
+    B = dev["input_ids"].shape[0]
+    tok0, pos0 = dev["input_ids"], dev["position_ids"]
+    lti = torch.zeros((B,), dtype=torch.int32, device=tok0.device)
+    params = app.params["target"] if kind == "fused" else app.params
+    cache = app.kv_cache["target"] if kind == "fused" else {"k": app.kv_cache["k"],
+                                                            "v": app.kv_cache["v"]}
+    if kind == "tree":
+        tree = w.tree
+        n = tree.num_nodes + 1
+        extra = {"position_ids": pos0 + token_tree.tree_tensors(tree, tok0.device)["depth_row"][None],
+                 "write_positions": pos0 + torch.arange(n, dtype=torch.int32,
+                                                        device=tok0.device)[None],
+                 "attn_mask": token_tree.tree_verify_mask(tree, pos0[:, 0], bucket)}
+    else:
+        n = w.spec_len + 1 if kind == "fused" else w.num_heads + 1
+        extra = {"position_ids": pos0 + torch.arange(n, dtype=torch.int32,
+                                                     device=tok0.device)[None]}
+    tbatch = {"input_ids": tok0.expand(B, n).contiguous(), "last_token_index": lti,
+              "sampling_params": dev["sampling_params"], **extra}
+    out_kw = (dict(output_argmax_all=True) if kind == "fused"
+              else dict(output_logits=True, output_hidden=True))
+
+    def verify():
+        with torch.inference_mode():
+            causal_lm_forward(w.arch, w.inv_freq, params, cache, tbatch, attend_to_cache=True,
+                              kv_window=bucket, layout=w.layout, gather_last_token=False,
+                              on_device_sampling=False, **out_kw)
+
+    pieces = {"verify": verify}
+    if kind == "fused":
+        step = {"last_token_index": lti, "sampling_params": dev["sampling_params"]}
+
+        def draft():
+            with torch.inference_mode():
+                fused._draft_steps(w.draft_arch, w.draft_inv_freq, app.params["draft"],
+                                   app.kv_cache["draft"], tok0, pos0, step, W=w.spec_len + 1,
+                                   kv_window=bucket, d_lay=w.draft_layout)
+
+        pieces = {"draft steps": draft, "verify": verify}
+    return pieces
+
+
+def spec_reference(torch, np, Adapter, app, params32, ids, mask, new):
+    """The non-speculative greedy stream of ``app`` (made with
+    ``output_logits``) with its logits, and the witness (:class:`Witness`)
+    with the stream's largest logit distance from it: (stream, logits (B,
+    new, V) on the host, witness, eps)."""
+    logs = []
+    recording(app, logs)
+    ref = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=new)
+    ref_logits = torch.stack(logs, dim=1)
+    witness = Witness(torch, np, app, params32, ids, mask.sum(axis=1), new)
+    eps = float((ref_logits - witness.logits(ref)).abs().max())
+    return ref, ref_logits, witness, eps
+
+
+def spec_full_depth(torch, np, mods, card, slice_stats):
+    """Phase 5f: 16 layers, bf16, contiguous cache, graphs, phase 5's
+    prompts at batch 8 and at batch 1 (its first row), 32 new tokens: the
+    fused app and the standard pair at spec_len 4 with a perfect draft (the
+    target's weights) and a 2-layer draft (seed 1), and Medusa with 4
+    random heads, chain and MC_TREE. Each: ms per window, mean accepted
+    tokens per window and row, ms per accepted token beside phase 5's
+    graph-sync decode ms/step, launches of rows 1, 3 and 4 per window
+    (checked exactly), one window profiled (busy, wall, idle share) and
+    split into its parts from that one trace, and its streams held to the
+    float32 witness (:func:`stream_check`) and set beside the
+    non-speculative greedy stream. Then the same runs in float32 at batch 8
+    (:func:`spec_streams_f32`)."""
+    from nxdi_tpu_torch.generation import hf_adapter as hfa
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    L, P, NEW, K_SPEC, HEADS = 16, 1024, 32, 4, 4
+    t0 = time.perf_counter()
+    params = spec_params(ml, dense, torch, layers=L, dtype="bfloat16", device="cuda", heads=HEADS)
+    params32 = to_float32(params)
+    ids8, mask8 = prompts(np.random.default_rng(11), 8, P, [P, P, 1000, P, 731, P, P, 1023],
+                          ml.LLAMA_3_2_1B["vocab_size"])
+    out = {"phase_5_decode_ms_per_step": slice_stats["decode_ms_per_step"], "runs": {}}
+    launches_total = {"prefill": 0, "decode": 0, "commit": 0}
+    for B in (8, 1):
+        ids, mask = ids8[:B], mask8[:B]
+        lengths = mask.sum(axis=1)
+        geo = dict(layers=L, dtype="bfloat16", batch=B, seq_len=2048, ctx_len=P, device="cuda")
+        # the non-speculative greedy stream, timed, then again with its logits
+        ref_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, params=params["target"],
+                              output_logits=True, **geo)
+        stamps = []
+        inner = hfa.extract_next_tokens
+
+        def fetch(o):
+            toks = inner(o)
+            stamps.append(time.perf_counter())
+            return toks
+
+        hfa.extract_next_tokens = fetch
+        try:
+            torch.cuda.synchronize()
+            Adapter(ref_app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+            torch.cuda.synchronize()
+            ref_ms = (time.perf_counter() - stamps[0]) * 1e3 / (NEW - 1)
+        finally:
+            hfa.extract_next_tokens = inner
+        ref, ref_logits, witness, eps = spec_reference(torch, np, Adapter, ref_app,
+                                                       params32["target"], ids, mask, NEW)
+        del ref_app
+        if B == 8:
+            same = (ref == np.asarray(slice_stats["tokens"])).all()
+            log(f"[spec-16L 5f] B 8 non-speculative stream = phase 5's: {bool(same)}")
+        log(f"[spec-16L 5f] B {B} non-speculative graph sync decode {ref_ms:.3f} ms/step; its "
+            f"logits lie up to {eps:.4g} from the float32 witness's on its own stream")
+        out[f"B{B}_non_speculative_ms_per_step"] = ref_ms
+        out[f"B{B}_decode_vs_witness_max_logit_diff"] = eps
+        for kind, draft in SPEC_5F:
+            name = f"B{B} {kind}" + (f" {draft}" if draft else "")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            app = make_spec_app(mods, kind, params, draft=draft, spec_len=K_SPEC, tree=MC_TREE,
+                                **geo)
+            build_s = time.perf_counter() - t
+            runs = [spec_run(torch, Adapter, app, ids, mask, NEW) for _ in range(2)]
+            r = runs[1]
+            assert (runs[0]["tokens"] == r["tokens"]).all(), f"phase 5f {name}: runs differ"
+            equal, ties, worst = stream_check(torch, np, f"phase 5f {name}", r["tokens"], ref,
+                                              ref_logits, witness, eps, lengths, NEW, bf16_ulp)
+            want = spec_want_launches(kind, r, layers=L, d_layers=L if draft == "perfect" else 2,
+                                      spec_len=K_SPEC)
+            assert r["launches"] == want, f"phase 5f {name}: launches {r['launches']} != {want}"
+            for k in launches_total:
+                launches_total[k] += sum(x["launches"][k] for x in runs)
+            n_win = r["n_windows"]
+            # the context encoding's prefills (its writes are slice copies)
+            per_window = {k: (v - (want["prefill"] if k == "prefill" else 0)) / n_win
+                          for k, v in r["launches"].items()}
+            window_ms = r["decode_ms"] / n_win
+            mean_acc = r["accepted"] / n_win / B
+            # one window again (the last one's inputs), unprofiled for its
+            # wall, then profiled for the device's busy time and its parts
+            cur_tok = np.array([[int(r["tokens"][b, n + NEW - 1])] for b, n in enumerate(lengths)],
+                               "int32")
+            cur_pos = (lengths + NEW - 1).astype("int32")[:, None]
+            lti = np.zeros((B,), "int32")
+
+            def window():
+                o = app.forward(cur_tok, cur_pos, last_token_index=lti)
+                c = o["counts"]
+                return c.cpu() if hasattr(c, "cpu") else c
+
+            wall, split = host_window(torch, window, 8)
+            _, busy, by_kernel, _ = profiled_call(torch, window)
+            traced = profiled_kernel_counts(torch, window)
+            parts = split_window(torch, window, spec_pieces(torch, np, app, kind))
+            if parts is None:
+                parts_ms, trace_busy, trace_len = None, None, None
+                parts_line = "parts: no traced window held every part"
+            else:
+                parts_ms, trace_busy, trace_len = parts
+                parts_line = (f"parts of one traced window ({trace_len} device operations, busy "
+                              f"{trace_busy:.3f} ms): " + "; ".join(
+                                  f"{k} {v:.3f}" for k, v in parts_ms.items()))
+            stats = dict(window_ms=window_ms, mean_accepted_per_window=mean_acc,
+                         ms_per_accepted_token=window_ms / mean_acc, windows=n_win,
+                         accepted_tokens=r["accepted"], prefill_ms=r["prefill_ms"],
+                         decode_ms=r["decode_ms"], launches=r["launches"],
+                         launches_per_window=per_window,
+                         profiled_window=dict(wall_ms=wall, busy_ms=busy,
+                                              idle_pct=100 * (1 - busy / wall),
+                                              parts_ms=parts_ms, parts_trace_busy_ms=trace_busy,
+                                              parts_trace_operations=trace_len,
+                                              by_group_ms=by_group(by_kernel),
+                                              host_split_ms=split),
+                         profiled_launches_per_window=traced,
+                         rows_equal=equal, first_differences=ties, max_witness_margin=worst,
+                         build_s=build_s, warmup_s=app.warm_s)
+            out["runs"][name] = stats
+            log(f"[spec-16L 5f] {name}, {card}: {window_ms:.3f} ms/window, {mean_acc:.2f} "
+                f"accepted/window, {window_ms / mean_acc:.3f} ms per accepted token (phase 5 "
+                f"{slice_stats['decode_ms_per_step']:.3f} ms/step; non-speculative at B {B} "
+                f"{ref_ms:.3f}); {n_win} windows; launches/window "
+                + ", ".join(f"{k} {v:.2f}" for k, v in per_window.items())
+                + " (profiled: " + ", ".join(f"{k} {v}" for k, v in traced.items()) + ")"
+                + f"; profiled window wall {wall:.3f} busy {busy:.3f} ms (idle "
+                f"{100 * (1 - busy / wall):.1f}%); {parts_line}; rows equal to the "
+                f"non-speculative stream {equal}/{B}, first differences (row, step, gap, bf16 "
+                f"steps) {ties}; largest witness margin {worst:.4g} (bound {2 * eps:.4g})")
+            del app
+        del witness
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32"] = spec_streams_f32(torch, np, mods, params32, ids8, mask8, launches_total)
+    out["launches_total"] = launches_total
+    log(f"[spec-16L 5f] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def spec_streams_f32(torch, np, mods, params32, ids, mask, launches_total):
+    """Phase 5f's runs in float32 (B 8, the same weights held in f32, the
+    card's graphs and kernels): each stream held to the witness within twice
+    the f32 decode's own distance from it (about 1e-5, where bf16's is about
+    0.1: a far tighter yardstick), launches exact, and set beside the f32
+    non-speculative stream. Returns per run the rows equal to that stream,
+    the first differences and the accepted tokens per window."""
+    L, NEW, K_SPEC = 16, 32, 4
+    B = ids.shape[0]
+    lengths = mask.sum(axis=1)
+    geo = dict(layers=L, dtype="float32", batch=B, seq_len=2048, ctx_len=ids.shape[1],
+               device="cuda")
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    ref_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, params=params32["target"],
+                          output_logits=True, **geo)
+    ref, ref_logits, witness, eps = spec_reference(torch, np, Adapter, ref_app,
+                                                   params32["target"], ids, mask, NEW)
+    del ref_app
+    log(f"[spec-16L 5f f32] B {B} non-speculative logits lie up to {eps:.4g} from the "
+        f"witness's on its own stream")
+    res = {"decode_vs_witness_max_logit_diff": eps, "runs": {}}
+    for kind, draft in SPEC_5F:
+        name = f"B{B} {kind}" + (f" {draft}" if draft else "")
+        gc.collect()
+        torch.cuda.empty_cache()
+        app = make_spec_app(mods, kind, params32, draft=draft, spec_len=K_SPEC, tree=MC_TREE,
+                            **geo)
+        r = spec_run(torch, Adapter, app, ids, mask, NEW)
+        del app
+        want = spec_want_launches(kind, r, layers=L, d_layers=L if draft == "perfect" else 2,
+                                  spec_len=K_SPEC)
+        assert r["launches"] == want, f"phase 5f f32 {name}: launches {r['launches']} != {want}"
+        for k in launches_total:
+            launches_total[k] += r["launches"][k]
+        equal, ties, worst = stream_check(torch, np, f"phase 5f f32 {name}", r["tokens"], ref,
+                                          ref_logits, witness, eps, lengths, NEW, f32_ulp)
+        mean_acc = r["accepted"] / r["n_windows"] / B
+        res["runs"][name] = dict(rows_equal=equal, first_differences=ties,
+                                 max_witness_margin=worst, windows=r["n_windows"],
+                                 mean_accepted_per_window=mean_acc, launches=r["launches"])
+        log(f"[spec-16L 5f f32] {name}: rows equal to the non-speculative stream {equal}/{B}, "
+            f"first differences (row, step, gap, f32 steps) {ties}; largest witness margin "
+            f"{worst:.4g} (bound {2 * eps:.4g}); {mean_acc:.2f} accepted/window over "
+            f"{r['n_windows']} windows")
+    return res
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -3267,6 +3987,7 @@ def main() -> int:
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
     cb_logit_err = cb_vs_cpu(torch, np, mods)
     quant_2l = quant_vs_cpu(torch, np, mods)
+    spec_2l = spec_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -3295,9 +4016,16 @@ def main() -> int:
     quant, quant_launches = quant_full_depth(torch, np, mods, card, slice_times,
                                              engine[False, True][1])
     quant["phase_4e"] = quant_2l
+    # phase 5f: speculative decoding at full depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = spec_full_depth(torch, np, mods, card, dict(slice_times, tokens=slice_tokens))
+    spec["phase_4f"] = spec_2l
     for _, st in engine.values():
         st.pop("prompts")
         st.pop("app", None)
+    # rows 1, 3 and 4 count phase 5f's runs beside phase 5's
+    counts = {k: v + spec["launches_total"].get(k, 0) for k, v in counts.items()}
     counts = dict(counts, window_decode=engine_2l_counts["window_decode"],
                   paged_prefill=engine_counts["paged_prefill"],
                   paged_decode=engine_counts["paged_decode"],
@@ -3363,10 +4091,12 @@ def main() -> int:
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
                    "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts,
-                   "decode_family": family, "quantization": quant}, f, indent=1, default=str)
+                   "decode_family": family, "quantization": quant, "speculation": spec}, f,
+                  indent=1, default=str)
     print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
                       "decode_family": {k: v for k, v in family.items() if k != "engine"},
-                      "quantization": quant, "kernel_checks": kernel_results}, default=str))
+                      "quantization": quant, "speculation": spec,
+                      "kernel_checks": kernel_results}, default=str))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,7 @@ Two levels, as in the JAX package:
 - :class:`InferenceConfig` — model hyperparameters (typically a HF
   ``config.json``) plus a ``tpu_config`` attribute.
 
-Features the port does not carry yet (speculation, LoRA, tensor
+Features the port does not carry yet (EAGLE speculation, LoRA, tensor
 parallelism, ...) are not keys here: passing one raises, naming it.
 """
 
@@ -163,6 +163,25 @@ class ChunkedPrefillConfig:
         return dict(self.__dict__)
 
 
+class SpeculationConfig:
+    """Speculative decoding knobs (the JAX package's ``SpeculationConfig``,
+    its draft-model keys): ``speculation_length`` draft tokens per window,
+    ``enable_fused_speculation`` for the fused draft + verify window. The
+    EAGLE keys (``enable_eagle_speculation``, ``is_eagle3``,
+    ``is_eagle_draft``, ``token_tree_config``) are not ported yet and raise,
+    named."""
+
+    def __init__(self, **kwargs):
+        self.speculation_length = kwargs.pop("speculation_length", 0)
+        self.enable_fused_speculation = kwargs.pop("enable_fused_speculation", False)
+        if kwargs:
+            raise ValueError(
+                f"Unknown or not-yet-ported SpeculationConfig args: {sorted(kwargs)}")
+
+    def to_dict(self):
+        return dict(self.__dict__)
+
+
 class TorchConfig:
     """Runtime configuration; the counterpart of the JAX package's
     ``TpuConfig`` for the fields this port implements."""
@@ -212,6 +231,21 @@ class TorchConfig:
                     "requires quantized=True with quantization_dtype='int8' "
                     "(the int8 MXU path)"
                 )
+
+        # --- speculation (the draft-model pair, fused windows, Medusa) ---
+        spec = kwargs.pop("speculation_config", None)
+        if isinstance(spec, dict):
+            spec = SpeculationConfig(**spec)
+        self.speculation_config = spec
+        self.speculation_length = kwargs.pop(
+            "speculation_length", spec.speculation_length if spec else 0)
+        self.enable_fused_speculation = kwargs.pop(
+            "enable_fused_speculation", spec.enable_fused_speculation if spec else False)
+        self.is_medusa = kwargs.pop("is_medusa", False)
+        self.medusa_speculation_length = kwargs.pop("medusa_speculation_length", 0)
+        self.num_medusa_heads = kwargs.pop("num_medusa_heads", 0)
+        # Medusa token tree: the HF-medusa path list (speculation/token_tree.py)
+        self.medusa_tree = kwargs.pop("medusa_tree", None)
 
         # --- batching ---
         self.ctx_batch_size = kwargs.pop("ctx_batch_size", self.batch_size)
@@ -294,6 +328,11 @@ class TorchConfig:
     def is_chunked_prefill(self) -> bool:
         return self.chunked_prefill_config is not None
 
+    @property
+    def speculates(self) -> bool:
+        """Any speculative decoding: fused, Medusa or a draft-model pair."""
+        return self.enable_fused_speculation or self.is_medusa or self.speculation_length > 0
+
     def validate(self) -> None:
         if self.padding_side not in ("right", "left"):
             raise ValueError("padding_side must be 'right' or 'left'")
@@ -321,6 +360,10 @@ class TorchConfig:
                 "async_mode with is_block_kv_layout: the device-resident loop "
                 "carries no block tables; it runs on the contiguous cache"
             )
+        if self.is_medusa and self.num_medusa_heads <= 0:
+            raise ValueError("is_medusa requires num_medusa_heads > 0")
+        if self.speculation_length < 0:
+            raise ValueError("speculation_length must be >= 0")
         if self.decode_steps_per_dispatch < 1:
             raise ValueError("decode_steps_per_dispatch must be >= 1")
         if self.device_loop_fence < 0:
@@ -334,6 +377,9 @@ class TorchConfig:
             if self.on_device_sampling_config is None:
                 raise ValueError(f"{key} requires on-device sampling (each step samples "
                                  "its token on the device)")
+            if self.speculates:
+                raise ValueError(f"{key} and speculative decoding both own the "
+                                 "token-generation stride; enable one")
             if self.is_block_kv_layout:
                 raise ValueError(f"{key} needs in-graph KV addressing by position; the "
                                  "block layout's slot mappings are host-computed per step")
@@ -389,6 +435,7 @@ class TorchConfig:
         "on_device_sampling_config": OnDeviceSamplingConfig,
         "kv_quant_config": KVQuantizationConfig,
         "chunked_prefill_config": ChunkedPrefillConfig,
+        "speculation_config": SpeculationConfig,
     }
 
     def to_dict(self) -> Dict[str, Any]:

@@ -21,8 +21,16 @@ setting; as in the JAX package it is only validated: ``generate()`` takes
 right-padded ids (true lengths from ``attention_mask``) either way, and an
 extra ``padding_side`` argument is accepted and ignored.
 
-Not ported yet: the fused speculation decode loop and the request telemetry
-spans.
+Speculation apps (``is_fused_spec``: the fused pair, the standard pair and
+Medusa, ``nxdi_tpu_torch/speculation/``) decode window by window
+(:meth:`HuggingFaceGenerationAdapter._fused_spec_decode`): each dispatch
+retires ``counts[b]`` tokens of row b, rows advance at their own positions,
+and tokens past the KV window limit are discarded. Greedy only (a
+``do_sample`` request is warned about and decoded greedily, as in the JAX
+package); a ``logits_processor`` is refused. Windows and emitted tokens are
+counted on the app (``spec_windows``, ``spec_accepted_tokens``).
+
+Not ported yet: the request telemetry spans.
 """
 
 from __future__ import annotations
@@ -143,6 +151,9 @@ class HuggingFaceGenerationAdapter:
         if logits_processor and not self.tpu_config.output_logits:
             raise ValueError("logits_processor needs host-visible logits: build the app "
                              "with output_logits=True")
+        if logits_processor and getattr(self.app, "is_fused_spec", False):
+            raise ValueError("logits_processor is incompatible with fused speculation "
+                             "(tokens are selected inside the compiled window)")
         input_ids = np.asarray(input_ids)
         B, S = input_ids.shape
         if attention_mask is None:
@@ -190,6 +201,15 @@ class HuggingFaceGenerationAdapter:
             next_tokens = extract_next_tokens(outputs)
         generated: List[np.ndarray] = [next_tokens]
         finished = np.isin(next_tokens, eos_ids)
+        if getattr(self.app, "is_fused_spec", False):
+            if do_sample:
+                logger.warning("fused speculation decodes greedily (draft proposal and "
+                               "target verification are argmax); do_sample=True is "
+                               "decoded greedily")
+            if not finished.all():
+                gen = self._fused_spec_decode(next_tokens, lengths, n_new, eos_ids,
+                                              pad_token_id, sampling_params, B)
+                return self._assemble(input_ids, gen, lengths, pad_token_id)
         if (getattr(self.app, "multistep_supported", False) and not finished.all()
                 and not logits_processor and len(eos_ids) <= MULTISTEP_EOS_SLOTS):
             gen = self._multistep_decode_loop(next_tokens, lengths, n_new, eos_ids, pad_token_id,
@@ -244,6 +264,55 @@ class HuggingFaceGenerationAdapter:
         rng = torch.from_numpy(self._rng.next())
         return sampling_ops.sample(scores.float(), sp, rng=rng, do_sample=True).numpy().astype(
             np.int64)
+
+    def _fused_spec_decode(self, first_tokens, lengths, n_new, eos_ids, pad_token_id,
+                           sampling_params, B) -> np.ndarray:
+        """Decode window by window (the JAX package's ``_fused_spec_decode``):
+        each dispatch retires counts[b] tokens of row b, so positions are
+        tracked per row; a token at or past the KV window limit was computed
+        against dropped writes and is discarded. Returns (B, T <= n_new),
+        the context encoding's token first, padded after each row's EOS."""
+        eos_set = set(int(e) for e in eos_ids)
+        rows = [[int(first_tokens[b])] for b in range(B)]
+        finished = np.array([rows[b][0] in eos_set or n_new <= 1 for b in range(B)])
+        cur_tok = np.array(first_tokens, dtype=np.int32)
+        cur_pos = lengths.astype(np.int32).copy()  # position of cur_tok
+        window_limit = decode_window_limit(self.tpu_config, self.app.models)
+        host = _HostTokens()
+        while not finished.all():
+            outputs = self.app.forward(
+                cur_tok[:, None], cur_pos[:, None],
+                last_token_index=np.zeros((B,), dtype=np.int32),
+                sampling_params=sampling_params)
+            # one read of the window: both copies enqueued, then the waits
+            handles = [host.push(outputs[k]) for k in ("tokens", "counts")]
+            toks, cnts = (host.get(h) for h in handles)
+            live = [int(c) for c, f in zip(cnts, finished) if not f]
+            self.app.spec_windows += 1
+            self.app.spec_accepted_tokens += sum(live)
+            for b in range(B):
+                if finished[b]:
+                    continue
+                # token j sits at position cur_pos + 1 + j; a row can still
+                # fill to the last slot
+                c = min(int(cnts[b]), window_limit - 1 - int(cur_pos[b]))
+                if c <= 0:
+                    finished[b] = True
+                    continue
+                for j in range(c):
+                    t = int(toks[b, j])
+                    rows[b].append(t)
+                    if t in eos_set or len(rows[b]) >= n_new:
+                        finished[b] = True
+                        break
+                cur_tok[b] = toks[b, c - 1]
+                cur_pos[b] += c
+        T = min(n_new, max(len(r) for r in rows))
+        gen = np.full((B, T), pad_token_id, dtype=np.int64)
+        for b in range(B):
+            r = rows[b][:T]
+            gen[b, : len(r)] = r
+        return gen
 
     def _device_decode_loop(self, next_inputs, first_tokens, lengths, n_new, eos_ids,
                             pad_token_id, B) -> np.ndarray:

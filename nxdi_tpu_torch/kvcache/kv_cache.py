@@ -148,8 +148,13 @@ class BlockKVCacheSpec:
 
 
 def reset_kv_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Zero every tensor of ``cache`` in place (nested dicts too: a
+    speculation app's ``{"draft": ..., "target": ...}`` caches)."""
     for t in cache.values():
-        t.zero_()
+        if isinstance(t, dict):
+            reset_kv_cache(t)
+        else:
+            t.zero_()
     return cache
 
 

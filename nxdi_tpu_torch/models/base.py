@@ -37,7 +37,12 @@ the names are the JAX package's):
   plain attention over the combined gathered window;
 - ``qkv_fused_kernel`` / ``qkv_fused_matmul`` — the fused QKV projection
   through the QKV GEMM kernel or a plain product; ``mlp_fused_kernel`` — the
-  gated MLP through the fused MLP kernel.
+  gated MLP through the fused MLP kernel;
+- ``attn_mask_override_xla`` — a token-tree verify under its explicit
+  ``attn_mask`` (the tree's nodes share rope positions by depth and write
+  distinct slots, ``write_positions``). A multi-token verify on the
+  contiguous cache is the deferred ``tkg_two_part_xla`` (the decode kernels
+  take one query token).
 
 On the CPU the kernel choice follows the JAX package's eligibility exactly,
 so both packages take the same branches. On a CUDA tensor an enabled kernel
@@ -225,10 +230,11 @@ def _heads_ok(H: int, KV: int) -> List[str]:
 
 def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout):
     """Attention of a cache-attending forward whose fresh rows are already
-    in the cache (the paged pool's path), in the JAX package's order: the
-    block-table prefill kernel for a continuing chunk, the block-table decode
-    kernel, else the gathered window through the window-decode kernel or
-    plain attention."""
+    in the cache (the paged pool's path, and a token-tree verify), in the
+    JAX package's order: the block-table prefill kernel for a continuing
+    chunk, the block-table decode kernel, else the gathered window under an
+    explicit ``attn_mask``, through the window-decode kernel or plain
+    attention."""
     B, H, S, D = q.shape
     KV = arch.num_kv_heads
     if ci.get("mixed_row_ids") is not None and S > 1:
@@ -256,6 +262,12 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             return fa.paged_attention_decode(
                 q, k_cache_l, v_cache_l, ci["block_table"], position_ids, **scales)
     kk, vv, kv_pos = layout.read(k_cache_l, v_cache_l, ci, cache_spec)
+    mask_override = ci.get("attn_mask")
+    if mask_override is not None:
+        # an explicit (B, S, W) mask (the token-tree verify), where causal by
+        # position is wrong: plain attention, as in the JAX package
+        _record_strategy("attn_mask_override_xla")
+        return attn_ops.grouped_attention(q, kk, vv, mask_override[:, :, :kk.shape[2]])
     if S == 1 and _kernel_gate(
         "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
         _heads_ok(H, KV), _card_limits(D, q.dtype, H // max(KV, 1), max_group=16),
@@ -529,15 +541,16 @@ def run_decoder_layers(
 ):
     """Run the layer stack. Decode on the contiguous cache defers its cache
     writes and commits every layer's fresh rows in ONE kernel launch after
-    the loop; the paged pool never defers (each layer scatters its rows
-    before attending).
+    the loop; the paged pool and a forward under an explicit ``attn_mask``
+    (the token-tree verify) never defer (each layer writes its rows before
+    attending).
 
     ``kv_window`` bounds the attended contiguous cache to the bucket's
     window: the stacked fused kernel takes it as ``kv_len`` without slicing,
     the plain path attends a sliced view. The paged window is the block
     table's width."""
     contiguous = isinstance(layout, ContiguousKVLayout)
-    defer = attend_to_cache and contiguous  # no explicit attention mask in the port
+    defer = attend_to_cache and contiguous and (cache_inputs or {}).get("attn_mask") is None
     S = position_ids.shape[1]
     H, KV = arch.num_attention_heads, arch.num_kv_heads
     use_stacked_tkg = False
@@ -590,9 +603,11 @@ def run_decoder_layers(
 # the layout inputs a forward's batch may carry (the paged pool's block
 # tables and the host-built scatter indices of its slot mapping; the mixed
 # step's token tags, its per-row last-token indices, which give R, and the
-# ragged kernels' work list)
+# ragged kernels' work list; the K-step bodies' and the token tree's write
+# positions and the tree's explicit mask)
 CACHE_INPUT_KEYS = ("block_table", "write_index", "write_slots", "mixed_row_ids",
-                    "last_token_index", "ragged_plan", "seq_ids", "write_positions")
+                    "last_token_index", "ragged_plan", "seq_ids", "write_positions",
+                    "attn_mask")
 
 
 def causal_lm_forward(
@@ -613,6 +628,8 @@ def causal_lm_forward(
     deterministic: bool = False,
     mixed_rows: bool = False,
     return_next_inputs: bool = False,
+    output_argmax_all: bool = False,
+    output_hidden: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One submodel forward. ``batch``: input_ids (B,S), position_ids (B,S),
     last_token_index (B,), sampling_params (B,3), and on the paged pool
@@ -634,7 +651,15 @@ def causal_lm_forward(
     (the JAX package's ``next_inputs``).
 
     With ``do_sample`` the batch carries ``rng``, the (2,) step key of
-    :func:`~nxdi_tpu_torch.ops.sampling.uniform_from_key`."""
+    :func:`~nxdi_tpu_torch.ops.sampling.uniform_from_key`.
+
+    Speculation's outputs (the JAX package's): ``output_logits`` with
+    ``gather_last_token=False`` returns the logits of every position (the
+    JAX package's ``output_all_logits``); ``output_argmax_all`` returns
+    ``tokens`` (B, S), the greedy token at every position, selected on the
+    device (ties to the first index), and no logits unless asked for;
+    ``output_hidden`` returns ``hidden`` (B, S, H), the last layer's stream
+    before the final norm."""
     input_ids = batch["input_ids"]
     position_ids = batch["position_ids"]
     compute_dtype = to_torch_dtype(arch.dtype)
@@ -654,6 +679,7 @@ def causal_lm_forward(
         attend_to_cache, kv_window=kv_window, layout=layout,
         cache_inputs={k: batch[k] for k in CACHE_INPUT_KEYS if k in batch},
     )
+    pre_norm_hidden = hidden
     hidden = rms_norm(hidden, params["norm"], arch.rms_norm_eps)
     lm_head = params.get("lm_head")
     if lm_head is None:  # tied embeddings
@@ -668,12 +694,16 @@ def causal_lm_forward(
     logits = sampling_ops.mask_padded_logits(logits, arch.vocab_pad)
 
     outputs: Dict[str, torch.Tensor] = {}
+    if output_hidden:
+        outputs["hidden"] = pre_norm_hidden
+    if output_argmax_all:
+        outputs["tokens"] = sampling_ops.greedy_sample(logits)
     if on_device_sampling:
         tokens = sampling_ops.sample(
             logits[:, -1, :], batch.get("sampling_params"), rng=batch.get("rng"),
             do_sample=do_sample, global_topk=global_topk, deterministic=deterministic)
         outputs["tokens"] = tokens[:, None]
-    if output_logits or not on_device_sampling:
+    if output_logits or not (on_device_sampling or output_argmax_all):
         outputs["logits"] = logits[..., : arch.vocab_size - arch.vocab_pad]
     if return_next_inputs and on_device_sampling:
         lti = batch["last_token_index"]

@@ -4,8 +4,11 @@
 arrays, which is what its application holds after ``jax.device_get`` — into
 this port's params dict. Both packages use the same keys and the same
 (in, out) weight layout (the interleaved ``qkv_proj`` of ``fused_qkv``
-included), so the conversion is leaf by leaf. Quantized linears (``qw`` /
-``scale``, MXFP4 ``qw4``, ``input_scale``) carry across the same way.
+included), so the conversion is leaf by leaf, at any depth: a fused
+speculation app's ``{"draft": ..., "target": ...}`` pair and a Medusa app's
+``medusa_heads`` (``res_w``, ``res_b``, ``head``) carry across as they are.
+Quantized linears (``qw`` / ``scale``, MXFP4 ``qw4``, ``input_scale``)
+carry across the same way.
 bfloat16 and fp8 arrays (numpy extension dtypes) move as their raw bits —
 ``uint16`` / ``uint8`` views reinterpreted as the torch dtype — without
 importing the package that defines those dtypes and without a float round

@@ -23,6 +23,11 @@ loaded pre-quantized from ``quantized_checkpoints_path``
 (``kv_cache_quant`` / ``kv_quant_config``) allocates its store in the one-byte
 dtype. ``role="decode"`` builds no context-encoding or prefix-prefill
 submodel: its requests arrive as imported KV chains (``serving/handoff.py``).
+
+Speculation (``nxdi_tpu_torch/speculation/``) subclasses this app: params
+and caches may be nested dicts (``{"draft": ..., "target": ...}``; Medusa's
+``medusa_heads`` and ``medusa_tokens``), which :meth:`load` moves, allocates
+(:meth:`init_cache`), warms up and captures as it does a flat one.
 """
 
 from __future__ import annotations
@@ -250,9 +255,12 @@ class TorchModelForCausalLM:
             and tc.ctx_batch_size == tc.tkg_batch_size
         )
 
-    def _cache_spec(self):
-        arch = self.family.build_arch(self.config)
-        tc = self.tpu_config
+    def _cache_spec(self, family=None, config=None):
+        """The cache of this app's model, or of ``family`` / ``config`` (a
+        speculation app's draft), by that config's own flags."""
+        config = config or self.config
+        arch = (family or self.family).build_arch(config)
+        tc = config.tpu_config
         if tc.is_block_kv_layout:
             # one block past those the block manager hands out: the drop
             # target of the fixed-length paged writes (kv_cache.drop_slot)
@@ -269,7 +277,7 @@ class TorchModelForCausalLM:
         if not self.models:
             self.enable_models()
         self.params = _to_device(self.build_params(), self.device)
-        self.kv_cache = init_kv_cache(self._cache_spec(), self.device)
+        self.kv_cache = self.init_cache()
         if self.device.type == "cuda" and self.graphs:
             self.graph_pool = torch.cuda.graph_pool_handle()
             for w in self.models.values():
@@ -277,6 +285,11 @@ class TorchModelForCausalLM:
         if not self.tpu_config.skip_warmup:
             self.warmup()
         self.is_loaded = True
+
+    def init_cache(self) -> Dict[str, Any]:
+        """The zeroed KV cache on the app's device (a speculation app's holds
+        both models' caches, or Medusa's proposal buffer beside the K/V)."""
+        return init_kv_cache(self._cache_spec(), self.device)
 
     def warmup(self) -> float:
         """One dispatch per bucket of every submodel (on the card: its eager

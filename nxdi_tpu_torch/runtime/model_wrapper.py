@@ -7,7 +7,10 @@ the static generate path (``context_encoding_model``,
 plus ``prefix_prefill_model``, and ``mixed_model`` under mixed dispatch) and
 of the device-resident decode family (``tkg_multistep``: one graph per
 (step rung, bucket); ``tkg_device_loop``: one window graph per (cap rung,
-bucket), see :class:`DeviceLoopTKGWrapper`).
+bucket), see :class:`DeviceLoopTKGWrapper`) and of speculation
+(``speculation_model``, the draft-model pair's verify;
+``fused_speculation_model``, a whole draft + verify window;
+``medusa_speculation_model``: ``nxdi_tpu_torch/speculation/``).
 The JAX package compiles one program per (submodel, bucket) and dispatches
 to it; on the card the counterpart of a compiled program is a CUDA graph:
 
@@ -67,6 +70,9 @@ TAG_TOKEN_GENERATION = "token_generation_model"
 TAG_MIXED = "mixed_model"
 TAG_TOKEN_GENERATION_MULTISTEP = "tkg_multistep"
 TAG_DEVICE_LOOP = "tkg_device_loop"
+TAG_SPECULATION = "speculation_model"
+TAG_FUSED_SPECULATION = "fused_speculation_model"
+TAG_MEDUSA_SPECULATION = "medusa_speculation_model"
 
 #: EOS ids per row the K-step and loop submodels compare against (-1 = unused)
 MULTISTEP_EOS_SLOTS = 8
@@ -133,6 +139,14 @@ def decode_window_limit(tpu_config, models) -> int:
     tops = [w.buckets[-1] for w in models.values()
             if w.attend_to_cache and w.window_buckets]
     return min([tpu_config.seq_len, *tops])
+
+
+def cache_pointers(cache) -> tuple:
+    """The addresses of every tensor of a (possibly nested) cache dict: a
+    speculation app's ``{"draft": ..., "target": ...}`` caches, Medusa's
+    proposal buffer. A graph replays only over the tensors it captured."""
+    return tuple(cache_pointers(v) if isinstance(v, dict) else v.data_ptr()
+                 for _, v in sorted(cache.items()))
 
 
 def count_launches(fn):
@@ -257,6 +271,9 @@ class ModelWrapper:
         self.extra_inputs: Dict[str, Tuple[tuple, Any, Any]] = {}
         # stochastic sampling reads a per-step key (2,) from its inputs
         self.needs_rng = bool(self.forward_kwargs.get("do_sample", False))
+        # KV positions past the current length a dispatch may write (a
+        # speculation window's), added to the length that picks the bucket
+        self.lookahead = 0
 
     @property
     def decode_like(self) -> bool:
@@ -329,11 +346,14 @@ class ModelWrapper:
                     dst.copy_(t)
             return self._launch(key, bg, params, cache), cache
 
-    def host_inputs(self, batch_np, lookahead: int = 0):
+    def host_inputs(self, batch_np, lookahead: Optional[int] = None):
         """(graph key, b, host inputs padded to the bucket's shapes): the host
         half of a dispatch. ``lookahead``: the KV positions past the current
-        length this dispatch may write (a K-step window's, a loop's), added
-        to the length that picks the bucket."""
+        length this dispatch may write (a K-step window's, a loop's; the
+        wrapper's own ``lookahead`` by default), added to the length that
+        picks the bucket."""
+        if lookahead is None:
+            lookahead = self.lookahead
         input_ids = np.asarray(batch_np["input_ids"], dtype=np.int32)
         position_ids = np.asarray(batch_np["position_ids"], dtype=np.int32)
         b, s = input_ids.shape
@@ -450,7 +470,7 @@ class ModelWrapper:
         first dispatch."""
         if self.device.type != "cuda":
             return self._run(key, params, cache, bg.bound)
-        state = (id(params), cache["k"].data_ptr(), cache["v"].data_ptr())
+        state = (id(params), cache_pointers(cache))
         if bg.graph is None:
             outputs = self._run(key, params, cache, bg.bound)
             self._capture(key, bg, params, cache)
@@ -531,10 +551,13 @@ class ModelWrapper:
         return {k: v if k == "next_inputs" or v.dim() == 0 else v[:orig_b]
                 for k, v in outputs.items()}
 
-    def _dummy_batch(self, bucket: int, lookahead: int = 0):
-        """A host batch of the bucket's shapes (with ``lookahead``, one whose
-        positions plus the lookahead pick the bucket). On the paged pool it
-        carries a hole-only block table, so it writes nothing reachable."""
+    def _dummy_batch(self, bucket: int, lookahead: Optional[int] = None):
+        """A host batch of the bucket's shapes (with ``lookahead``, by default
+        the wrapper's, one whose positions plus the lookahead pick the
+        bucket). On the paged pool it carries a hole-only block table, so it
+        writes nothing reachable."""
+        if lookahead is None:
+            lookahead = self.lookahead
         seq = self.n_active_tokens if self.decode_like else bucket
         b = self.batch_size
         batch = {
@@ -872,7 +895,7 @@ class DeviceLoopTKGWrapper(_DecodeFamilyWrapper):
         if self.device.type != "cuda":
             return self._run(key, params, cache, bg.bound)
         cap, bucket = key
-        state = (id(params), cache["k"].data_ptr(), cache["v"].data_ptr())
+        state = (id(params), cache_pointers(cache))
         lg = self.loop_graphs.get(key)
         if lg is None:
             outputs = self._run(key, params, cache, bg.bound)

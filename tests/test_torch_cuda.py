@@ -1198,3 +1198,162 @@ def test_fused_decode_over_a_quantized_contiguous_cache(gen):
     assert np.array_equal(np.asarray(toks), np.asarray(p_toks))
     err = max((a["logits"] - b["logits"]).abs().max().item() for a, b in zip(log, p_log))
     assert err <= 1e-3, err
+
+
+# --- speculation: the fused window and Medusa windows as CUDA graphs ---
+
+SPEC = dict(batch_size=2, seq_len=256, max_context_length=64)
+SPEC_LEN = 3
+
+
+def _spec_app(kind, graphs, params=None, **tc):
+    """A 2-layer bf16 fused app (a 1-layer draft at the same widths, seed 1),
+    or a Medusa app (3 random heads, ``tree``: MC_TREE), on the card."""
+    from nxdi_tpu_torch.config import OnDeviceSamplingConfig, TorchConfig
+    from nxdi_tpu_torch.models import dense
+    from nxdi_tpu_torch.models.llama import modeling_llama as ml
+    from nxdi_tpu_torch.speculation import FusedSpecCausalLM, MedusaCausalLM
+
+    kw = dict(tp_degree=1, dtype="bfloat16", on_device_sampling_config=OnDeviceSamplingConfig(),
+              attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, **SPEC)
+    kw.update(tc)
+
+    def cfg(layers, **extra):
+        return ml.LlamaInferenceConfig(TorchConfig(**kw, **extra),
+                                       **dict(ml.LLAMA_3_2_1B, **dict(SMALL_LLAMA,
+                                                                     num_hidden_layers=layers)))
+
+    if kind == "fused":
+        tcfg = cfg(2, speculation_length=SPEC_LEN, enable_fused_speculation=True)
+        dcfg = cfg(1)
+        if params is None:
+            params = {"target": dense.random_params(ml.build_arch(tcfg), seed=0, device="cuda"),
+                      "draft": dense.random_params(ml.build_arch(dcfg), seed=1, device="cuda")}
+
+        class Fused(FusedSpecCausalLM):
+            def build_params(self):
+                return params
+
+        app = Fused("<t>", tcfg, "<d>", dcfg, model_family=ml, graphs=graphs)
+    else:
+        tree = [[0], [1], [0, 0], [0, 1], [1, 0], [0, 0, 0]] if kind == "tree" else None
+        tcfg = cfg(2, is_medusa=True, num_medusa_heads=3, medusa_tree=tree)
+        if params is None:
+            arch = ml.build_arch(tcfg)
+            params = dense.random_params(arch, seed=0, device="cuda")
+            g = torch.Generator(device="cuda").manual_seed(5)
+            Hd, V = arch.hidden_size, arch.vocab_size
+            params["medusa_heads"] = {
+                k: (torch.randn(shape, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+                for k, shape in (("res_w", (3, Hd, Hd)), ("res_b", (3, Hd)),
+                                 ("head", (3, Hd, V)))}
+
+        class Medusa(MedusaCausalLM):
+            def build_params(self):
+                return params
+
+        app = Medusa("<t>", tcfg, model_family=ml, graphs=graphs)
+    app.load()
+    return app
+
+
+def _spec_windows(app, n_windows=None, new=40):
+    """generate() on the spec app: (tokens, per-window (tokens, counts)
+    copies, launch counts by kernel)."""
+    from nxdi_tpu_torch.generation.hf_adapter import HuggingFaceGenerationAdapter
+    from nxdi_tpu_torch.ops.kernels import launch_counters
+
+    for fn in launch_counters():
+        fn.launches = 0
+    log = []
+    inner = app.forward
+
+    def fwd(ids, pos, **k):
+        out = inner(ids, pos, **k)
+        if ids.shape[1] == 1:
+            log.append((out["tokens"].clone(), out["counts"].clone()))
+        return out
+
+    app.forward = fwd
+    ids = np.random.default_rng(9).integers(1, 512, (2, 40)).astype(np.int64)
+    mask = np.ones_like(ids, dtype=np.int32)
+    ids[1, 31:], mask[1, 31:] = 0, 0
+    toks = HuggingFaceGenerationAdapter(app).generate(ids, attention_mask=mask,
+                                                      max_new_tokens=new)
+    torch.cuda.synchronize()
+    del app.forward
+    return toks, log, _counts()
+
+
+def _flat(cache):
+    return {k: v for k, v in cache.items()} if "draft" not in cache else {
+        f"{m}.{k}": v for m in ("draft", "target") for k, v in cache[m].items()}
+
+
+@pytest.mark.parametrize("kind", ["fused", "chain", "tree"])
+def test_spec_window_graph_replay_equals_eager(gen, kind):
+    """A speculation window replayed from its CUDA graph (the fused draft
+    steps, verify and acceptance; a Medusa chain or tree window with its
+    in-place proposal and K/V fix-up) against the same app run eagerly:
+    the same tokens, every window's tokens and counts, the caches (and the
+    proposal buffer) bit for bit after the run; the window ran as a graph."""
+    graphs = _spec_app(kind, True)
+    eager = _spec_app(kind, False, params=graphs.params)
+    g_toks, g_log, g_counts = _spec_windows(graphs)
+    e_toks, e_log, e_counts = _spec_windows(eager)
+    assert np.array_equal(g_toks, e_toks)
+    assert len(g_log) == len(e_log) > 1
+    for (gt, gc), (et, ec) in zip(g_log, e_log):
+        assert torch.equal(gt, et) and torch.equal(gc, ec)
+    g_cache, e_cache = _flat(graphs.kv_cache), _flat(eager.kv_cache)
+    for key in g_cache:
+        assert torch.equal(g_cache[key], e_cache[key]), key
+    assert g_counts == e_counts
+    tag = "fused_speculation_model" if kind == "fused" else "medusa_speculation_model"
+    assert all(bg.graph is not None for bg in graphs.models[tag].bucket_graphs.values())
+
+
+def test_fused_window_launches_are_exact(gen):
+    """Per fused window: (spec_len + 1) draft steps of L_d stacked fused
+    decodes and one commit each, the verify's one commit, no prefill; the
+    context encoding: L_t + L_d prefills, no commit (a slice write)."""
+    app = _spec_app("fused", True)
+    _, log, counts = _spec_windows(app, new=24)
+    W = SPEC_LEN + 1
+    n = len(log)
+    assert counts["flash_attention_prefill"] == 2 + 1
+    assert counts["flash_attention_decode_fused"] == W * 1 * n
+    assert counts["kv_commit_rows"] == (W + 1) * n
+    assert app.models["fused_speculation_model"].attention_strategies[256] == (
+        "tkg_fused_kernel_stacked", "tkg_two_part_xla")
+
+
+def test_medusa_tree_second_window_on_one_graph(gen):
+    """Two tree windows back to back on one captured graph (the best-path
+    K/V gather and scatter, and the proposal buffer, updated in place at
+    fixed addresses): the second replay gives the eager app's tokens and
+    counts, and the caches match bit for bit after each."""
+    graphs = _spec_app("tree", True)
+    eager = _spec_app("tree", False, params=graphs.params)
+    prompt = np.random.default_rng(4).integers(1, 512, (2, 40)).astype(np.int32)
+    pos = np.tile(np.arange(40, dtype=np.int32), (2, 1))
+    lti = np.full((2,), 39, np.int32)
+    outs = {}
+    for name, app in (("graphs", graphs), ("eager", eager)):
+        out = app.forward(prompt, pos, last_token_index=lti)
+        tok = out["tokens"].cpu().numpy()
+        cur = np.full((2, 1), 40, np.int32)
+        steps = []
+        for _ in range(2):
+            out = app.forward(tok.astype(np.int32), cur, last_token_index=np.zeros(2, np.int32))
+            t, c = out["tokens"].cpu().numpy(), out["counts"].cpu().numpy()
+            steps.append((t.copy(), c.copy(), {k: v.clone() for k, v in _flat(app.kv_cache).items()}))
+            tok = t[np.arange(2), c - 1][:, None]
+            cur = cur + c[:, None]
+        outs[name] = steps
+    w = graphs.models["medusa_speculation_model"]
+    assert w.bucket_graphs[256].graph is not None
+    for (gt, gc, gcache), (et, ec, ecache) in zip(outs["graphs"], outs["eager"]):
+        assert np.array_equal(gt, et) and np.array_equal(gc, ec)
+        for key in gcache:
+            assert torch.equal(gcache[key], ecache[key]), key

@@ -307,8 +307,10 @@ def test_engine_refuses_what_is_not_ported(tiny_hf_llama):
     with pytest.raises(ValueError, match="padding_side must be 'right' or 'left'"):
         TorchConfig(padding_side="middle")
     assert TorchConfig(padding_side="left").padding_side == "left"
+    # speculation is ported but for EAGLE, whose keys still raise
+    assert TorchConfig(speculation_length=2).speculation_length == 2
     with pytest.raises(ValueError, match="Unknown or not-yet-ported"):
-        TorchConfig(speculation_length=2)
+        TorchConfig(enable_eagle_speculation=True)
     # ported: the device-resident decode family, under the JAX package's rules
     for key, value in (("device_loop", True), ("decode_steps_per_dispatch", 2)):
         with pytest.raises(ValueError, match="requires on-device sampling"):
