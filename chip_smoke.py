@@ -117,6 +117,20 @@ code is non-zero:
    (exact), one window profiled (wall, busy, idle) and split into draft
    steps, verify, acceptance and host; streams equal to the
    non-speculative stream, any difference at a bf16 near tie.
+4g. EAGLE at full width, 2 layers, float32, batch 2, phase 4f's prompts, a
+   random 1-layer EAGLE draft (seed 1): the chain at spec_len 2 and 4,
+   EAGLE3 at 4 (a 32000-token draft vocab, d2t from the seed), the static
+   tree EAGLE_TREE and the dynamic tree (3 steps, K 2, M 2), each on the
+   CPU, through the card's graphs and eagerly: tokens equal the CPU's and
+   the non-speculative stream, window counts equal the CPU's, graph runs
+   equal eager ones on every cache tensor and the features buffer bit for
+   bit, launch counts exact.
+5g. EAGLE at full depth beside 5f, in its loop (same prompts, references
+   and witness): the chain and EAGLE3 at spec_len 4, the static tree
+   MC_TREE and the dynamic tree of 4 steps (K 2, M 2, 14 nodes): as 5f
+   measures them, each beside 5f's fused 2-layer-draft window; launches of
+   rows 1, 3 and 4 exact; streams within 2 eps of the witness, and again
+   in float32 at batch 8.
 4e. Quantization at full width, 2 layers, float32: the split paged engine
    on an e4m3 per-tensor pool (CPU, card graphs, card eager: streams
    identical, logits within QUANT_LOGIT_TOL, replays equal to eager, exact
@@ -3252,9 +3266,12 @@ SPEC_TAGS = ("fused_speculation_model", "medusa_speculation_model")
 def spec_params(ml, dense, torch, *, layers, dtype, device, heads=0):
     """The speculation runs' weights, all random from seeds at Llama-3.2-1B's
     width: the target (seed 0: phases 4 and 5's weights), a 2-layer draft
-    (seed 1), and ``heads`` Medusa heads (seed 2) in the checkpoint's
-    layout after conversion (ResBlock weight and bias, a head lm_head over
-    the padded vocab)."""
+    (seed 1), ``heads`` Medusa heads (seed 2) in the checkpoint's layout
+    after conversion (ResBlock weight and bias, a head lm_head over the
+    padded vocab), and two 1-layer EAGLE drafts (seed 1,
+    ``llama_eagle.random_params``): "eagle" (the target's vocab and lm_head)
+    and "eagle3" (fc_features over the target's aux layers, a
+    EAGLE3_DRAFT_VOCAB-token head and a d2t table)."""
     def arch_of(n):
         cfg = ml.LlamaInferenceConfig(_spec_tc(ml, dtype=dtype),
                                       **dict(ml.LLAMA_3_2_1B, num_hidden_layers=n))
@@ -3275,7 +3292,30 @@ def spec_params(ml, dense, torch, *, layers, dtype, device, heads=0):
 
         out["heads"] = {"res_w": rnd(heads, Hd, Hd), "res_b": rnd(heads, Hd),
                         "head": rnd(heads, Hd, V)}
+    from nxdi_tpu_torch.models import llama_eagle as le
+
+    for name in ("eagle", "eagle3"):
+        out[name] = le.random_params(eagle_draft_cfg(ml, dtype=dtype, eagle3=name == "eagle3"),
+                                     out["target"], target_num_layers=layers, seed=1,
+                                     device=device)
     return out
+
+
+EAGLE3_DRAFT_VOCAB = 32000  # phases 4g / 5g: EAGLE3's reduced draft vocab
+EAGLE_TREE = [[0], [1], [0, 0], [0, 1], [1, 0], [0, 0, 0], [0, 1, 0]]  # the JAX package's EAGLE
+# test tree
+EAGLE_DYNAMIC = dict(branching_factor=2, num_inputs=2)  # steps = spec_len
+
+
+def eagle_draft_cfg(ml, *, eagle3, **tc):
+    """A 1-layer EAGLE draft's config at Llama-3.2-1B's width (EAGLE3: the
+    reduced vocab)."""
+    from nxdi_tpu_torch.models import llama_eagle as le
+
+    width = dict(ml.LLAMA_3_2_1B, num_hidden_layers=1)
+    if eagle3:
+        width["vocab_size"] = EAGLE3_DRAFT_VOCAB
+    return le.LlamaEagleInferenceConfig(_spec_tc(ml, is_eagle3=eagle3, **tc), **width)
 
 
 def _spec_tc(ml, **kw):
@@ -3284,13 +3324,25 @@ def _spec_tc(ml, **kw):
     return TorchConfig(**kw)
 
 
+EAGLE_KINDS = ("eagle", "eagle3", "eagle tree", "eagle dynamic")
+
+
 def make_spec_app(mods, kind, params, *, draft, layers, dtype, batch, seq_len, ctx_len, device,
-                  spec_len=4, graphs=True, tree=None):
+                  spec_len=4, graphs=True, tree=None, eagle_tree=EAGLE_TREE):
     """A speculation app, loaded and warmed up: ``kind`` "fused" or
     "standard" with ``draft`` "perfect" (the target's weights and depth) or
     "weak" (2 layers, seed 1); "chain" or "tree" (Medusa: the heads in
-    ``params``, ``tree`` its path list)."""
-    from nxdi_tpu_torch.speculation import FusedSpecCausalLM, MedusaCausalLM, StandardSpecCausalLM
+    ``params``, ``tree`` its path list); an EAGLE kind (``EAGLE_KINDS``: the
+    chain with the "eagle" or "eagle3" draft, the static tree
+    ``eagle_tree`` or the dynamic tree of ``spec_len`` steps, with the
+    "eagle" draft)."""
+    from nxdi_tpu_torch.models import llama_eagle as le
+    from nxdi_tpu_torch.speculation import (
+        EagleSpecCausalLM,
+        FusedSpecCausalLM,
+        MedusaCausalLM,
+        StandardSpecCausalLM,
+    )
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
     base = dict(tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
@@ -3313,6 +3365,22 @@ def make_spec_app(mods, kind, params, *, draft, layers, dtype, batch, seq_len, c
         app = Fused("<t>", cfg(layers, speculation_length=spec_len,
                                enable_fused_speculation=True),
                     "<d>", cfg(d_layers), model_family=ml, device=device, graphs=graphs)
+    elif kind in EAGLE_KINDS:
+        eagle3 = kind == "eagle3"
+        ttc = ({"choices": eagle_tree} if kind == "eagle tree" else
+               {"dynamic": dict(EAGLE_DYNAMIC, steps=spec_len)} if kind == "eagle dynamic"
+               else None)
+        pair = {"target": params["target"], "draft": params["eagle3" if eagle3 else "eagle"]}
+
+        class Eagle(EagleSpecCausalLM):
+            def build_params(self):
+                return pair
+
+        app = Eagle("<t>", cfg(layers, speculation_length=spec_len,
+                               enable_eagle_speculation=True, is_eagle3=eagle3,
+                               token_tree_config=ttc),
+                    "<d>", eagle_draft_cfg(ml, eagle3=eagle3, **base), model_family=ml,
+                    draft_family=le, device=device, graphs=graphs)
     elif kind == "standard":
         app = StandardSpecCausalLM("<t>", cfg(layers, speculation_length=spec_len), "<d>",
                                    cfg(d_layers), model_family=ml, device=device, graphs=graphs)
@@ -3402,9 +3470,17 @@ def spec_run(torch, Adapter, app, ids, mask, new):
 def spec_want_launches(kind, run, *, layers, d_layers, spec_len):
     """The launches a speculation run must count: rows 1 (prefill), 3
     (decode) and 4 (commit), from its windows (a window's counts are all
-    its rows'; a standard window at the edge falls back to one step)."""
+    its rows'; a standard window at the edge falls back to one step). An
+    EAGLE chain window: W draft steps (a stacked fused decode and a commit
+    each) and the verify's commit; a tree window: a commit per masked draft
+    pass (depth + 1), per target layer of the masked verify, and the
+    best-path move on each cache; a context encoding L + 1 prefills."""
     n = run["n_windows"]
     W = spec_len + 1
+    if kind in ("eagle", "eagle3"):
+        return {"prefill": layers + 1, "decode": n * W, "commit": n * (W + 1)}
+    if kind in ("eagle tree", "eagle dynamic"):
+        return {"prefill": layers + 1, "decode": 0, "commit": n * (spec_len + 1 + layers + 2)}
     if kind == "fused":
         return {"prefill": layers + d_layers, "decode": n * W * d_layers, "commit": n * (W + 1)}
     if kind == "standard":
@@ -3418,6 +3494,10 @@ def spec_want_launches(kind, run, *, layers, d_layers, spec_len):
 SPEC_4F = (("fused", 2, "weak"), ("fused", 2, "perfect"), ("fused", 4, "weak"),
            ("fused", 4, "perfect"), ("standard", 4, "weak"), ("standard", 2, "perfect"),
            ("chain", 3, None), ("tree", 3, None))
+# phase 4g: EAGLE chain at spec_len 2 and 4, EAGLE3 (the reduced vocab), the
+# static tree EAGLE_TREE (depth 3) and the dynamic tree (3 steps, K 2, M 2)
+SPEC_4G = (("eagle", 2, None), ("eagle", 4, None), ("eagle3", 4, None), ("eagle tree", 3, None),
+           ("eagle dynamic", 3, None))
 
 
 def spec_vs_cpu(torch, np, mods):
@@ -3428,7 +3508,9 @@ def spec_vs_cpu(torch, np, mods):
     tokens equal the CPU's and the port's own non-speculative greedy
     stream, every window's counts equal the CPU's, the card's graph run
     equals its eager run (tokens, counts, every cache tensor bit for bit),
-    a perfect draft accepts whole fused windows, launch counts exact."""
+    a perfect draft accepts whole fused windows, launch counts exact.
+    Phase 4g: the same for EAGLE (SPEC_4G, a random 1-layer draft, seed 1),
+    every cache tensor and the features buffer bit for bit graph = eager."""
     ml, TorchConfig, ODSC, App, dense, Adapter = mods
     L, B, NEW = 2, 2, 16
     geo = dict(layers=L, dtype="float32", batch=B, seq_len=256, ctx_len=128)
@@ -3448,7 +3530,8 @@ def spec_vs_cpu(torch, np, mods):
         del app
     assert (plain["cpu"] == plain["cuda"]).all(), "phase 4f: the plain streams differ"
     results = {}
-    for kind, spec_len, draft in SPEC_4F:
+    for kind, spec_len, draft in SPEC_4F + SPEC_4G:
+        phase = "4g" if kind in EAGLE_KINDS else "4f"
         name = f"{kind} k={spec_len}" + (f" {draft}" if draft else "")
         runs = {}
         t = time.perf_counter()
@@ -3467,29 +3550,31 @@ def spec_vs_cpu(torch, np, mods):
                                    for bg in app.models[tag].bucket_graphs.values())
             del app
         g, e, c = runs["graphs"], runs["eager"], runs["cpu"]
-        assert (g["tokens"] == e["tokens"]).all(), f"phase 4f {name}: graph and eager tokens differ"
-        assert (g["tokens"] == c["tokens"]).all(), f"phase 4f {name}: CPU and card tokens differ"
+        assert (g["tokens"] == e["tokens"]).all(), f"phase {phase} {name}: graph and eager tokens differ"
+        assert (g["tokens"] == c["tokens"]).all(), f"phase {phase} {name}: CPU and card tokens differ"
         assert (g["tokens"] == plain["cuda"]).all(), \
-            f"phase 4f {name}: tokens differ from the non-speculative stream"
+            f"phase {phase} {name}: tokens differ from the non-speculative stream"
         assert g["windows"] == e["windows"] == c["windows"], \
-            f"phase 4f {name}: window counts differ {g['windows']} / {c['windows']}"
+            f"phase {phase} {name}: window counts differ {g['windows']} / {c['windows']}"
         for k in g["caches"]:
             assert torch.equal(g["caches"][k], e["caches"][k]), \
-                f"phase 4f {name}: graph and eager {k} differ"
+                f"phase {phase} {name}: graph and eager {k} differ"
         want = spec_want_launches(kind, g, layers=L, d_layers=L if draft == "perfect" else 2,
                                   spec_len=spec_len)
+        if kind in EAGLE_KINDS:
+            assert any(k.endswith("features") for k in g["caches"]), "phase 4g: no features"
         assert g["launches"] == e["launches"] == want, \
-            f"phase 4f {name}: launches {g['launches']} / {e['launches']} != {want}"
+            f"phase {phase} {name}: launches {g['launches']} / {e['launches']} != {want}"
         if kind == "fused" and draft == "perfect":
             # (the standard pair's draft runs spec_len steps, so after a whole
             # window its cache lacks the last draft token's row, as in the
             # JAX package: it accepts less than whole windows)
             full = [w for w in g["windows"][:-1] if w != [spec_len + 1] * B]
-            assert not full, f"phase 4f {name}: a perfect draft left windows {full}"
-        results[name] = dict(windows=len(g["windows"]),
+            assert not full, f"phase {phase} {name}: a perfect draft left windows {full}"
+        results[name] = dict(phase=phase, windows=len(g["windows"]),
                              mean_accepted=g["accepted"] / max(g["n_windows"], 1) / B,
                              launches=g["launches"], s=time.perf_counter() - t)
-        log(f"[spec-2L 4f] {name}: tokens = CPU = eager = non-speculative; {len(g['windows'])} "
+        log(f"[spec-2L {phase}] {name}: tokens = CPU = eager = non-speculative; {len(g['windows'])} "
             f"windows, counts = CPU's, caches graph = eager bit for bit; launches "
             f"{g['launches']} ({time.perf_counter() - t:.1f} s)")
     return results
@@ -3497,6 +3582,15 @@ def spec_vs_cpu(torch, np, mods):
 
 SPEC_5F = (("fused", "perfect"), ("fused", "weak"), ("standard", "perfect"), ("standard", "weak"),
            ("chain", None), ("tree", None))
+# phase 5g: (kind, spec_len): the EAGLE chain and EAGLE3 at 4, the static
+# tree MC_TREE (depth 3), the dynamic tree of 4 steps, K 2, M 2 (14 nodes)
+SPEC_5G = (("eagle", 4), ("eagle3", 4), ("eagle tree", 3), ("eagle dynamic", 4))
+
+
+def spec_runs_5fg(k_spec):
+    """Phases 5f's and 5g's runs in order: (phase, kind, draft, spec_len)."""
+    return ([("5f", kind, draft, k_spec) for kind, draft in SPEC_5F]
+            + [("5g", kind, None, k) for kind, k in SPEC_5G])
 
 
 def bf16_ulp(x: float) -> float:
@@ -3510,8 +3604,10 @@ def f32_ulp(x: float) -> float:
 
 
 def to_float32(tree):
-    """A params tree with every tensor in float32."""
-    return {k: to_float32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+    """A params tree with every floating tensor in float32 (index tables and
+    flags kept)."""
+    return {k: to_float32(v) if isinstance(v, dict)
+            else v.float() if v.is_floating_point() else v for k, v in tree.items()}
 
 
 class Witness:
@@ -3679,6 +3775,8 @@ def spec_pieces(torch, np, app, kind):
     from nxdi_tpu_torch.runtime.model_wrapper import TAG_SPECULATION
     from nxdi_tpu_torch.speculation import fused, token_tree
 
+    if kind in EAGLE_KINDS:
+        return eagle_pieces(torch, app)
     if kind == "standard":
         w = app.target.models[TAG_SPECULATION]
         bg = w.bucket_graphs[w.last_bucket]
@@ -3742,6 +3840,59 @@ def spec_pieces(torch, np, app, kind):
     return pieces
 
 
+def eagle_pieces(torch, app):
+    """An EAGLE window's parts (as :func:`spec_pieces`): "draft steps" (the
+    chain's steps, or a tree's masked passes with their top-k) and "verify",
+    each the window's own function on the app's tensors at the last
+    window's bucket."""
+    from nxdi_tpu_torch.speculation import eagle, token_tree
+
+    w = app.models[SPEC_TAGS[0]]
+    bucket = w.last_bucket
+    dev = w.bucket_graphs[bucket].bound
+    B = dev["input_ids"].shape[0]
+    pos0 = dev["position_ids"]
+    tree = w.tree
+    d_args = (w.draft_arch, w.draft_inv_freq, app.params, app.kv_cache, dev)
+    d_kw = dict(kv_window=bucket, layout=w.draft_layout)
+    if tree is None:
+        n = w.spec_len + 1
+        rope, mask = pos0 + torch.arange(n, dtype=torch.int32, device=pos0.device)[None], None
+
+        def draft():
+            eagle.eagle_chain_draft(*d_args, W=n, **d_kw)
+    elif isinstance(tree, token_tree.DynamicTreeSpec):
+        n = tree.num_nodes + 1
+        rows = torch.tensor(tree.depth_rows, dtype=torch.int32, device=pos0.device)
+        rope = pos0 + rows[None]
+        anc = torch.ones((B, n, n), dtype=torch.bool, device=pos0.device).tril()
+        mask = token_tree.dynamic_tree_kv_mask(anc, pos0[:, 0], bucket)
+
+        def draft():
+            eagle.eagle_dynamic_tree_draft(*d_args, tree=tree, **d_kw)
+    else:
+        n = tree.num_nodes + 1
+        rope = pos0 + token_tree.tree_tensors(tree, pos0.device)["depth_row"][None]
+        mask = token_tree.tree_verify_mask(tree, pos0[:, 0], bucket)
+
+        def draft():
+            eagle.eagle_tree_draft(*d_args, tree=tree, **d_kw)
+    candidates = dev["input_ids"].to(torch.int32).expand(B, n).contiguous()
+
+    def verify():
+        eagle.eagle_verify(w.arch, w.inv_freq, app.params, app.kv_cache, dev, candidates, rope,
+                           mask=mask, kv_window=bucket, layout=w.layout, is_eagle3=w.is_eagle3,
+                           aux_hidden_indices=w.aux_hidden_indices)
+
+    def under_inference_mode(fn):
+        def run():
+            with torch.inference_mode():
+                fn()
+        return run
+
+    return {"draft steps": under_inference_mode(draft), "verify": under_inference_mode(verify)}
+
+
 def spec_reference(torch, np, Adapter, app, params32, ids, mask, new):
     """The non-speculative greedy stream of ``app`` (made with
     ``output_logits``) with its logits, and the witness (:class:`Witness`)
@@ -3768,7 +3919,13 @@ def spec_full_depth(torch, np, mods, card, slice_stats):
     split into its parts from that one trace, and its streams held to the
     float32 witness (:func:`stream_check`) and set beside the
     non-speculative greedy stream. Then the same runs in float32 at batch 8
-    (:func:`spec_streams_f32`)."""
+    (:func:`spec_streams_f32`).
+
+    Phase 5g, in the same loop on the same prompts, references and witness:
+    EAGLE (SPEC_5G: the chain and EAGLE3 at spec_len 4, the static tree
+    MC_TREE, the dynamic tree of 4 steps; random 1-layer drafts, seed 1)
+    measured as 5f measures, each beside 5f's fused 2-layer-draft window;
+    its launches are also kept apart (``launches_total_5g``)."""
     from nxdi_tpu_torch.generation import hf_adapter as hfa
 
     ml, TorchConfig, ODSC, App, dense, Adapter = mods
@@ -3780,6 +3937,7 @@ def spec_full_depth(torch, np, mods, card, slice_stats):
                           ml.LLAMA_3_2_1B["vocab_size"])
     out = {"phase_5_decode_ms_per_step": slice_stats["decode_ms_per_step"], "runs": {}}
     launches_total = {"prefill": 0, "decode": 0, "commit": 0}
+    launches_5g = dict.fromkeys(launches_total, 0)
     for B in (8, 1):
         ids, mask = ids8[:B], mask8[:B]
         lengths = mask.sum(axis=1)
@@ -3813,24 +3971,29 @@ def spec_full_depth(torch, np, mods, card, slice_stats):
             f"logits lie up to {eps:.4g} from the float32 witness's on its own stream")
         out[f"B{B}_non_speculative_ms_per_step"] = ref_ms
         out[f"B{B}_decode_vs_witness_max_logit_diff"] = eps
-        for kind, draft in SPEC_5F:
+        for phase, kind, draft, k_spec in spec_runs_5fg(K_SPEC):
             name = f"B{B} {kind}" + (f" {draft}" if draft else "")
             gc.collect()
             torch.cuda.empty_cache()
             t = time.perf_counter()
-            app = make_spec_app(mods, kind, params, draft=draft, spec_len=K_SPEC, tree=MC_TREE,
-                                **geo)
+            app = make_spec_app(mods, kind, params, draft=draft, spec_len=k_spec, tree=MC_TREE,
+                                eagle_tree=MC_TREE, **geo)
             build_s = time.perf_counter() - t
             runs = [spec_run(torch, Adapter, app, ids, mask, NEW) for _ in range(2)]
             r = runs[1]
-            assert (runs[0]["tokens"] == r["tokens"]).all(), f"phase 5f {name}: runs differ"
-            equal, ties, worst = stream_check(torch, np, f"phase 5f {name}", r["tokens"], ref,
+            assert (runs[0]["tokens"] == r["tokens"]).all(), f"phase {phase} {name}: runs differ"
+            equal, ties, worst = stream_check(torch, np, f"phase {phase} {name}", r["tokens"], ref,
                                               ref_logits, witness, eps, lengths, NEW, bf16_ulp)
             want = spec_want_launches(kind, r, layers=L, d_layers=L if draft == "perfect" else 2,
-                                      spec_len=K_SPEC)
-            assert r["launches"] == want, f"phase 5f {name}: launches {r['launches']} != {want}"
+                                      spec_len=k_spec)
+            for x in runs:
+                assert x["launches"] == spec_want_launches(
+                    kind, x, layers=L, d_layers=L if draft == "perfect" else 2, spec_len=k_spec), \
+                    f"phase {phase} {name}: launches {x['launches']}"
             for k in launches_total:
                 launches_total[k] += sum(x["launches"][k] for x in runs)
+                if phase == "5g":
+                    launches_5g[k] += sum(x["launches"][k] for x in runs)
             n_win = r["n_windows"]
             # the context encoding's prefills (its writes are slice copies)
             per_window = {k: (v - (want["prefill"] if k == "prefill" else 0)) / n_win
@@ -3861,7 +4024,8 @@ def spec_full_depth(torch, np, mods, card, slice_stats):
                 parts_line = (f"parts of one traced window ({trace_len} device operations, busy "
                               f"{trace_busy:.3f} ms): " + "; ".join(
                                   f"{k} {v:.3f}" for k, v in parts_ms.items()))
-            stats = dict(window_ms=window_ms, mean_accepted_per_window=mean_acc,
+            stats = dict(phase=phase, spec_len=k_spec, window_ms=window_ms,
+                         mean_accepted_per_window=mean_acc,
                          ms_per_accepted_token=window_ms / mean_acc, windows=n_win,
                          accepted_tokens=r["accepted"], prefill_ms=r["prefill_ms"],
                          decode_ms=r["decode_ms"], launches=r["launches"],
@@ -3876,10 +4040,15 @@ def spec_full_depth(torch, np, mods, card, slice_stats):
                          rows_equal=equal, first_differences=ties, max_witness_margin=worst,
                          build_s=build_s, warmup_s=app.warm_s)
             out["runs"][name] = stats
-            log(f"[spec-16L 5f] {name}, {card}: {window_ms:.3f} ms/window, {mean_acc:.2f} "
+            beside = ""
+            if phase == "5g":
+                fw = out["runs"][f"B{B} fused weak"]
+                beside = (f"; 5f's fused 2-layer-draft window {fw['window_ms']:.3f} ms, "
+                          f"{fw['ms_per_accepted_token']:.3f} ms per accepted token")
+            log(f"[spec-16L {phase}] {name}, {card}: {window_ms:.3f} ms/window, {mean_acc:.2f} "
                 f"accepted/window, {window_ms / mean_acc:.3f} ms per accepted token (phase 5 "
                 f"{slice_stats['decode_ms_per_step']:.3f} ms/step; non-speculative at B {B} "
-                f"{ref_ms:.3f}); {n_win} windows; launches/window "
+                f"{ref_ms:.3f}{beside}); {n_win} windows; launches/window "
                 + ", ".join(f"{k} {v:.2f}" for k, v in per_window.items())
                 + " (profiled: " + ", ".join(f"{k} {v}" for k, v in traced.items()) + ")"
                 + f"; profiled window wall {wall:.3f} busy {busy:.3f} ms (idle "
@@ -3890,14 +4059,16 @@ def spec_full_depth(torch, np, mods, card, slice_stats):
         del witness
     gc.collect()
     torch.cuda.empty_cache()
-    out["f32"] = spec_streams_f32(torch, np, mods, params32, ids8, mask8, launches_total)
+    out["f32"] = spec_streams_f32(torch, np, mods, params32, ids8, mask8, launches_total,
+                                  launches_5g)
     out["launches_total"] = launches_total
+    out["launches_total_5g"] = launches_5g
     log(f"[spec-16L 5f] {time.perf_counter() - t0:.1f} s")
     return out
 
 
-def spec_streams_f32(torch, np, mods, params32, ids, mask, launches_total):
-    """Phase 5f's runs in float32 (B 8, the same weights held in f32, the
+def spec_streams_f32(torch, np, mods, params32, ids, mask, launches_total, launches_5g):
+    """Phase 5f's and 5g's runs in float32 (B 8, the same weights held in f32, the
     card's graphs and kernels): each stream held to the witness within twice
     the f32 decode's own distance from it (about 1e-5, where bf16's is about
     0.1: a far tighter yardstick), launches exact, and set beside the f32
@@ -3917,26 +4088,29 @@ def spec_streams_f32(torch, np, mods, params32, ids, mask, launches_total):
     log(f"[spec-16L 5f f32] B {B} non-speculative logits lie up to {eps:.4g} from the "
         f"witness's on its own stream")
     res = {"decode_vs_witness_max_logit_diff": eps, "runs": {}}
-    for kind, draft in SPEC_5F:
+    for phase, kind, draft, k_spec in spec_runs_5fg(K_SPEC):
         name = f"B{B} {kind}" + (f" {draft}" if draft else "")
         gc.collect()
         torch.cuda.empty_cache()
-        app = make_spec_app(mods, kind, params32, draft=draft, spec_len=K_SPEC, tree=MC_TREE,
-                            **geo)
+        app = make_spec_app(mods, kind, params32, draft=draft, spec_len=k_spec, tree=MC_TREE,
+                            eagle_tree=MC_TREE, **geo)
         r = spec_run(torch, Adapter, app, ids, mask, NEW)
         del app
         want = spec_want_launches(kind, r, layers=L, d_layers=L if draft == "perfect" else 2,
-                                  spec_len=K_SPEC)
-        assert r["launches"] == want, f"phase 5f f32 {name}: launches {r['launches']} != {want}"
+                                  spec_len=k_spec)
+        assert r["launches"] == want, \
+            f"phase {phase} f32 {name}: launches {r['launches']} != {want}"
         for k in launches_total:
             launches_total[k] += r["launches"][k]
-        equal, ties, worst = stream_check(torch, np, f"phase 5f f32 {name}", r["tokens"], ref,
+            if phase == "5g":
+                launches_5g[k] += r["launches"][k]
+        equal, ties, worst = stream_check(torch, np, f"phase {phase} f32 {name}", r["tokens"], ref,
                                           ref_logits, witness, eps, lengths, NEW, f32_ulp)
         mean_acc = r["accepted"] / r["n_windows"] / B
-        res["runs"][name] = dict(rows_equal=equal, first_differences=ties,
+        res["runs"][name] = dict(phase=phase, rows_equal=equal, first_differences=ties,
                                  max_witness_margin=worst, windows=r["n_windows"],
                                  mean_accepted_per_window=mean_acc, launches=r["launches"])
-        log(f"[spec-16L 5f f32] {name}: rows equal to the non-speculative stream {equal}/{B}, "
+        log(f"[spec-16L {phase} f32] {name}: rows equal to the non-speculative stream {equal}/{B}, "
             f"first differences (row, step, gap, f32 steps) {ties}; largest witness margin "
             f"{worst:.4g} (bound {2 * eps:.4g}); {mean_acc:.2f} accepted/window over "
             f"{r['n_windows']} windows")

@@ -11,8 +11,8 @@ Two levels, as in the JAX package:
 - :class:`InferenceConfig` — model hyperparameters (typically a HF
   ``config.json``) plus a ``tpu_config`` attribute.
 
-Features the port does not carry yet (EAGLE speculation, LoRA, tensor
-parallelism, ...) are not keys here: passing one raises, naming it.
+Features the port does not carry yet (LoRA, tensor parallelism, ...) are
+not keys here: passing one raises, naming it.
 """
 
 from __future__ import annotations
@@ -164,22 +164,28 @@ class ChunkedPrefillConfig:
 
 
 class SpeculationConfig:
-    """Speculative decoding knobs (the JAX package's ``SpeculationConfig``,
-    its draft-model keys): ``speculation_length`` draft tokens per window,
-    ``enable_fused_speculation`` for the fused draft + verify window. The
-    EAGLE keys (``enable_eagle_speculation``, ``is_eagle3``,
-    ``is_eagle_draft``, ``token_tree_config``) are not ported yet and raise,
-    named."""
+    """Speculative decoding knobs (the JAX package's ``SpeculationConfig``):
+    ``speculation_length`` draft tokens per window, ``enable_fused_speculation``
+    for the fused draft + verify window, and EAGLE's keys:
+    ``enable_eagle_speculation``, ``is_eagle3`` (aux-hidden features and a
+    reduced draft vocabulary), ``is_eagle_draft`` and ``token_tree_config``
+    (a path list, ``{"choices": ...}`` or ``{"dynamic": {...}}``)."""
 
     def __init__(self, **kwargs):
         self.speculation_length = kwargs.pop("speculation_length", 0)
         self.enable_fused_speculation = kwargs.pop("enable_fused_speculation", False)
+        self.enable_eagle_speculation = kwargs.pop("enable_eagle_speculation", False)
+        self.is_eagle3 = kwargs.pop("is_eagle3", False)
+        self.is_eagle_draft = kwargs.pop("is_eagle_draft", False)
+        self.token_tree_config = kwargs.pop("token_tree_config", None)
         if kwargs:
-            raise ValueError(
-                f"Unknown or not-yet-ported SpeculationConfig args: {sorted(kwargs)}")
+            raise ValueError(f"Unknown SpeculationConfig args: {sorted(kwargs)}")
 
     def to_dict(self):
-        return dict(self.__dict__)
+        d = dict(self.__dict__)
+        if self.token_tree_config is not None and hasattr(self.token_tree_config, "to_dict"):
+            d["token_tree_config"] = self.token_tree_config.to_dict()
+        return d
 
 
 class TorchConfig:
@@ -232,7 +238,7 @@ class TorchConfig:
                     "(the int8 MXU path)"
                 )
 
-        # --- speculation (the draft-model pair, fused windows, Medusa) ---
+        # --- speculation (the draft-model pair, fused windows, EAGLE, Medusa) ---
         spec = kwargs.pop("speculation_config", None)
         if isinstance(spec, dict):
             spec = SpeculationConfig(**spec)
@@ -241,6 +247,16 @@ class TorchConfig:
             "speculation_length", spec.speculation_length if spec else 0)
         self.enable_fused_speculation = kwargs.pop(
             "enable_fused_speculation", spec.enable_fused_speculation if spec else False)
+        # EAGLE (speculation/eagle.py): an EAGLE draft implies the fused window
+        self.enable_eagle_speculation = kwargs.pop(
+            "enable_eagle_speculation", spec.enable_eagle_speculation if spec else False)
+        if self.enable_eagle_speculation:
+            self.enable_fused_speculation = True
+        self.is_eagle3 = kwargs.pop("is_eagle3", spec.is_eagle3 if spec else False)
+        self.is_eagle_draft = kwargs.pop("is_eagle_draft", False)
+        # an EAGLE token tree: a path list, {"choices": ...} or {"dynamic": {...}}
+        self.token_tree_config = kwargs.pop(
+            "token_tree_config", spec.token_tree_config if spec else None)
         self.is_medusa = kwargs.pop("is_medusa", False)
         self.medusa_speculation_length = kwargs.pop("medusa_speculation_length", 0)
         self.num_medusa_heads = kwargs.pop("num_medusa_heads", 0)

@@ -496,6 +496,10 @@ def decoder_layer(
     stacked_layer_idx=None, tkg_stacked=None, mlp_stacked=None, qkv_stacked=None,
 ):
     h = rms_norm(hidden, lp["input_layernorm"], arch.rms_norm_eps)
+    if "input_norm_skip" in lp:
+        # an EAGLE draft's first layer takes the fc output without its input
+        # norm: the flag is a device scalar, read by torch.where (no host read)
+        h = torch.where(lp["input_norm_skip"], hidden, h)
     attn_out, kv = attention_block(
         arch, lp["attn"], h, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
         attend_to_cache, layout, cache_inputs, defer_write=defer_write,
@@ -538,6 +542,7 @@ def run_decoder_layers(
     kv_window: Optional[int] = None,
     layout=DEFAULT_KV_LAYOUT,
     cache_inputs: Optional[Dict[str, torch.Tensor]] = None,
+    collect: Optional[List[torch.Tensor]] = None,
 ):
     """Run the layer stack. Decode on the contiguous cache defers its cache
     writes and commits every layer's fresh rows in ONE kernel launch after
@@ -548,7 +553,8 @@ def run_decoder_layers(
     ``kv_window`` bounds the attended contiguous cache to the bucket's
     window: the stacked fused kernel takes it as ``kv_len`` without slicing,
     the plain path attends a sliced view. The paged window is the block
-    table's width."""
+    table's width. ``collect``, when given, receives each layer's output
+    hidden state in order (EAGLE3's ``aux_hidden``)."""
     contiguous = isinstance(layout, ContiguousKVLayout)
     defer = attend_to_cache and contiguous and (cache_inputs or {}).get("attn_mask") is None
     S = position_ids.shape[1]
@@ -590,6 +596,8 @@ def run_decoder_layers(
             stacked_layer_idx=i, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
             qkv_stacked=qkv_stacked,
         )
+        if collect is not None:
+            collect.append(hidden)
         if defer:
             ks.append(nk)
             vs.append(nv)
@@ -630,6 +638,7 @@ def causal_lm_forward(
     return_next_inputs: bool = False,
     output_argmax_all: bool = False,
     output_hidden: bool = False,
+    aux_hidden_indices: Optional[Tuple[int, ...]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One submodel forward. ``batch``: input_ids (B,S), position_ids (B,S),
     last_token_index (B,), sampling_params (B,3), and on the paged pool
@@ -659,12 +668,24 @@ def causal_lm_forward(
     ``tokens`` (B, S), the greedy token at every position, selected on the
     device (ties to the first index), and no logits unless asked for;
     ``output_hidden`` returns ``hidden`` (B, S, H), the last layer's stream
-    before the final norm."""
+    before the final norm; ``aux_hidden_indices`` returns ``aux_hidden``
+    (B, S, len(indices) * H), the chosen layers' outputs concatenated (an
+    EAGLE3 target's features).
+
+    EAGLE drafts (``models/llama_eagle.py``): params with ``fc`` fuse the
+    token embedding with ``batch["prev_hidden"]`` (B, >= S, H), the previous
+    position's feature, as ``fc(concat(embed, prev_hidden))``; a per-layer
+    ``input_norm_skip`` flag bypasses that layer's input norm; params
+    without ``norm`` feed the lm_head the pre-norm stream."""
     input_ids = batch["input_ids"]
     position_ids = batch["position_ids"]
     compute_dtype = to_torch_dtype(arch.dtype)
 
     hidden = F.embedding(input_ids.long(), params["embed_tokens"]).to(compute_dtype)
+    if "fc" in params:
+        feats = batch["prev_hidden"][:, : input_ids.shape[1]].to(compute_dtype)
+        hidden = _linear(torch.cat([hidden, feats], dim=-1), params["fc"], arch.act_quant,
+                         arch.act_clamp)
     cos, sin = rope_cos_sin(position_ids, inv_freq, dtype=torch.float32)
     if isinstance(layout, BlockKVLayout):
         cache_spec = BlockKVCacheSpec(
@@ -674,13 +695,16 @@ def causal_lm_forward(
         )
     else:
         cache_spec = arch.kv_cache_spec(cache["k"].shape[1], cache["k"].shape[3])
+    layer_hiddens: Optional[List[torch.Tensor]] = [] if aux_hidden_indices else None
     hidden, cache = run_decoder_layers(
         arch, params["layers"], hidden, cos, sin, cache, position_ids, cache_spec,
         attend_to_cache, kv_window=kv_window, layout=layout,
         cache_inputs={k: batch[k] for k in CACHE_INPUT_KEYS if k in batch},
+        collect=layer_hiddens,
     )
     pre_norm_hidden = hidden
-    hidden = rms_norm(hidden, params["norm"], arch.rms_norm_eps)
+    if "norm" in params:  # EAGLE drafts have no final norm
+        hidden = rms_norm(hidden, params["norm"], arch.rms_norm_eps)
     lm_head = params.get("lm_head")
     if lm_head is None:  # tied embeddings
         lm_head = params["embed_tokens"].t()
@@ -696,6 +720,8 @@ def causal_lm_forward(
     outputs: Dict[str, torch.Tensor] = {}
     if output_hidden:
         outputs["hidden"] = pre_norm_hidden
+    if aux_hidden_indices:
+        outputs["aux_hidden"] = torch.cat([layer_hiddens[i] for i in aux_hidden_indices], dim=-1)
     if output_argmax_all:
         outputs["tokens"] = sampling_ops.greedy_sample(logits)
     if on_device_sampling:

@@ -1,11 +1,13 @@
 """Speculation applications (counterpart of
-``nxdi_tpu/speculation/application.py``, its fused and Medusa apps).
+``nxdi_tpu/speculation/application.py``, its fused, EAGLE and Medusa apps).
 
 :class:`FusedSpecCausalLM` owns a draft and a target model in one lifecycle:
 its params and KV caches are ``{"draft": ..., "target": ...}`` dicts on the
 app's device, and its two submodels are the fused context encoding and the
 fused window (``speculation/fused.py``), each bucket one CUDA graph over
-both caches in the app's graph pool. :class:`MedusaCausalLM` is one model
+both caches in the app's graph pool. :class:`EagleSpecCausalLM` runs an
+EAGLE draft the same way (``speculation/eagle.py``), with the features
+buffer beside the caches. :class:`MedusaCausalLM` is one model
 with stacked Medusa heads in its params (``medusa_heads``) and the
 proposal buffer in its cache (``medusa_tokens``). Both present the
 window contract ``generate()`` drives (``is_fused_spec``: ``tokens`` and
@@ -23,6 +25,7 @@ import torch
 from nxdi_tpu_torch import checkpoint as ckpt
 from nxdi_tpu_torch.config import to_torch_dtype
 from nxdi_tpu_torch.kvcache.kv_cache import init_kv_cache
+from nxdi_tpu_torch.models import llama_eagle
 from nxdi_tpu_torch.runtime import autobucketing
 from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM, maybe_quantize_params
 from nxdi_tpu_torch.runtime.model_wrapper import (
@@ -31,9 +34,10 @@ from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_MEDUSA_SPECULATION,
     kv_layout_from_config,
 )
+from nxdi_tpu_torch.speculation.eagle import EagleSpecWrapper
 from nxdi_tpu_torch.speculation.fused import FusedSpecWrapper
 from nxdi_tpu_torch.speculation.medusa import MedusaWrapper
-from nxdi_tpu_torch.speculation.token_tree import TokenTree
+from nxdi_tpu_torch.speculation.token_tree import DynamicTreeSpec, TokenTree
 
 
 class _WindowApp(TorchModelForCausalLM):
@@ -102,6 +106,12 @@ class FusedSpecCausalLM(_WindowApp):
             "target": init_kv_cache(self._cache_spec(), self.device),
         }
 
+    _wrapper_cls = FusedSpecWrapper
+
+    def _spec_wrapper_kwargs(self) -> Dict[str, Any]:
+        """Extra arguments of this app's wrapper (EAGLE adds its own)."""
+        return {}
+
     def enable_models(self) -> None:
         t_arch = self.family.build_arch(self.config)
         d_arch = self.draft_family.build_arch(self.draft_config)
@@ -113,14 +123,15 @@ class FusedSpecCausalLM(_WindowApp):
             # the draft's own layout, from its config
             draft_layout=kv_layout_from_config(self.draft_config.tpu_config, d_arch),
             device=self.device,
+            **self._spec_wrapper_kwargs(),
         )
         t_inv = self.family.build_inv_freq(self.config)
-        self.models[TAG_CONTEXT_ENCODING] = FusedSpecWrapper(
+        self.models[TAG_CONTEXT_ENCODING] = self._wrapper_cls(
             TAG_CONTEXT_ENCODING, self.config, t_arch, t_inv,
             batch_size=tc.ctx_batch_size, n_active_tokens=0,
             buckets=autobucketing.context_encoding_buckets(self.config),
             attend_to_cache=False, forward_kwargs={}, **common)
-        self.models[TAG_FUSED_SPECULATION] = FusedSpecWrapper(
+        self.models[TAG_FUSED_SPECULATION] = self._wrapper_cls(
             TAG_FUSED_SPECULATION, self.config, t_arch, t_inv,
             batch_size=tc.tkg_batch_size, n_active_tokens=1,
             buckets=autobucketing.token_generation_buckets(self.config),
@@ -131,6 +142,98 @@ class FusedSpecCausalLM(_WindowApp):
             **common)
         for w in self.models.values():
             w.graphs = self.graphs
+
+
+class EagleSpecCausalLM(FusedSpecCausalLM):
+    """Fused speculation with an EAGLE or EAGLE3 draft: the EAGLE draft
+    family (``models/llama_eagle.py``) by default, a ``features`` buffer in
+    the cache, draft params that borrow the target's embedding (and its
+    lm_head when the vocabularies match), and EAGLE token trees
+    (``token_tree_config``: a path list, ``{"choices": ...}`` or
+    ``{"dynamic": {"steps", "branching_factor", "num_inputs"}}``)."""
+
+    _wrapper_cls = EagleSpecWrapper
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("draft_family", llama_eagle)
+        super().__init__(*args, **kwargs)
+        tc = self.tpu_config
+        self.is_eagle3 = bool(tc.is_eagle3)
+        self.draft_config.tpu_config.is_eagle3 = self.is_eagle3
+        # what the draft's conversion reads about its target
+        self.draft_config.target_num_layers = self.config.num_hidden_layers
+        self.draft_config.target_hidden_size = self.config.hidden_size
+        if self.is_eagle3:
+            self.draft_config.target_vocab_size = self.config.vocab_size
+        self.aux_hidden_indices = (
+            llama_eagle.eagle3_aux_indices_default(self.config.num_hidden_layers)
+            if self.is_eagle3 else None)
+        self.tree = self._parse_tree(tc.token_tree_config)
+        if self.tree is not None and tc.speculation_length != self.tree.max_depth:
+            raise ValueError(
+                f"speculation_length ({tc.speculation_length}) must equal the token tree "
+                f"depth ({self.tree.max_depth}): each tree window retires at most "
+                "depth + 1 tokens")
+
+    @staticmethod
+    def _parse_tree(ttc):
+        """The window's tree: None (a chain), a static :class:`TokenTree` or
+        a :class:`DynamicTreeSpec`, under the JAX package's rules."""
+        if not ttc:
+            return None
+        if isinstance(ttc, dict) and "dynamic" in ttc:
+            d = ttc["dynamic"]
+            steps, bf = int(d["steps"]), int(d["branching_factor"])
+            ni = int(d.get("num_inputs", 1))
+            if steps < 1 or bf < 1 or ni < 1:
+                raise ValueError(
+                    f"dynamic token tree needs steps/branching_factor/num_inputs >= 1, got {d}")
+            if ni > bf:
+                # step 1 selects its parents among step 0's branching_factor nodes
+                raise ValueError(
+                    f"dynamic token tree num_inputs ({ni}) cannot exceed branching_factor "
+                    f"({bf}): each step selects parents from the previous step's nodes")
+            return DynamicTreeSpec(steps=steps, branching_factor=bf, num_inputs=ni)
+        return TokenTree.from_choices(ttc["choices"] if isinstance(ttc, dict) else ttc)
+
+    def build_params(self) -> Dict[str, Any]:
+        if self.tpu_config.quantized and self.tpu_config.quantized_checkpoints_path:
+            raise NotImplementedError(
+                "quantized_checkpoints_path is not supported with EAGLE yet")
+        target_sd = self.get_state_dict()
+        target = self.family.convert_hf_state_dict(target_sd, self.config)
+        draft_sd = dict(self.get_draft_state_dict())
+
+        def probe(sd, name):
+            return name in sd or f"model.{name}" in sd
+
+        # official drafts ship without an embedding or lm_head: borrow the target's
+        if not probe(draft_sd, "embed_tokens.weight"):
+            draft_sd["embed_tokens.weight"] = target_sd.get(
+                "embed_tokens.weight", target_sd.get("model.embed_tokens.weight"))
+        if (not probe(draft_sd, "lm_head.weight")
+                and self.draft_config.vocab_size == self.config.vocab_size):
+            head = target_sd.get("lm_head.weight")
+            # a tied target: its embedding
+            draft_sd["lm_head.weight"] = head if head is not None else draft_sd[
+                "embed_tokens.weight"]
+        draft = self.draft_family.convert_hf_state_dict(draft_sd, self.draft_config)
+        return {"draft": maybe_quantize_params(draft, self.draft_config.tpu_config),
+                "target": maybe_quantize_params(target, self.tpu_config)}
+
+    def init_cache(self) -> Dict[str, Any]:
+        cache = super().init_cache()
+        tc = self.tpu_config
+        d_arch = self.draft_family.build_arch(self.draft_config)
+        # the feature before each cache line's next input token, in the draft's dtype
+        cache["features"] = torch.zeros(
+            (tc.kv_cache_batch_size + tc.kv_cache_padding_size, self.draft_config.hidden_size),
+            dtype=to_torch_dtype(d_arch.dtype), device=self.device)
+        return cache
+
+    def _spec_wrapper_kwargs(self) -> Dict[str, Any]:
+        return dict(is_eagle3=self.is_eagle3, aux_hidden_indices=self.aux_hidden_indices,
+                    tree=self.tree)
 
 
 class MedusaCausalLM(_WindowApp):

@@ -68,20 +68,28 @@ def fused_spec_context_encoding(
 
 
 def _draft_steps(draft_arch, draft_inv_freq, d_params, d_cache, tok0, pos0, step_batch, *,
-                 W: int, kv_window, d_lay) -> torch.Tensor:
+                 W: int, kv_window, d_lay, feat=None, map_token=None) -> torch.Tensor:
     """The window's W greedy draft steps from (tok0, pos0); returns the
     candidates (B, W) = each step's input token. The draft cache ends with
-    the window's W rows committed at pos0 .. pos0 + W - 1."""
+    the window's W rows committed at pos0 .. pos0 + W - 1. An EAGLE draft
+    takes ``feat`` (B, H), the feature before tok0, and chains each step's
+    pre-norm hidden as the next step's feature; ``map_token`` maps its
+    tokens to the target's ids (EAGLE3's ``d2t``)."""
     fed = []
     tok, pos = tok0, pos0
     for _ in range(W):
+        sbatch = {**step_batch, "input_ids": tok, "position_ids": pos}
+        if feat is not None:
+            sbatch["prev_hidden"] = feat[:, None, :]
         out, _ = causal_lm_forward(
-            draft_arch, draft_inv_freq, d_params, d_cache,
-            {**step_batch, "input_ids": tok, "position_ids": pos},
+            draft_arch, draft_inv_freq, d_params, d_cache, sbatch,
             attend_to_cache=True, kv_window=kv_window, layout=d_lay,
-            gather_last_token=False, on_device_sampling=True)
+            gather_last_token=False, on_device_sampling=True, output_hidden=feat is not None)
         fed.append(tok)
-        tok, pos = out["tokens"].to(torch.int32), pos + 1
+        nxt = out["tokens"] if map_token is None else map_token(out["tokens"])
+        tok, pos = nxt.to(torch.int32), pos + 1
+        if feat is not None:
+            feat = out["hidden"][:, 0]
     return torch.cat(fed, dim=1)
 
 

@@ -12,9 +12,8 @@ top-K), updated in place.
 
 The tree variant (:func:`medusa_tree_token_gen`) scores a whole token tree
 in one verify under an explicit ancestor mask, then moves the best path's
-K/V from its tree slots to the contiguous positions the next window expects:
-a gather of the path's rows, landed by the commit kernel (its rows out of
-the cache drop, as the JAX package's ``mode="drop"`` scatter does).
+K/V from its tree slots to the contiguous positions the next window expects
+(``token_tree.move_path_rows``, shared with EAGLE's trees).
 Everything stays in place and at fixed shapes, so each window is one CUDA
 graph per bucket on the card. The heads, the acceptance and the masked
 attention are plain PyTorch, as the JAX package leaves them to XLA.
@@ -27,28 +26,19 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from nxdi_tpu_torch.kvcache.kv_cache import DEFAULT_KV_LAYOUT, raw
+from nxdi_tpu_torch.kvcache.kv_cache import DEFAULT_KV_LAYOUT
 from nxdi_tpu_torch.models.base import causal_lm_forward
 from nxdi_tpu_torch.ops import sampling as sampling_ops
-from nxdi_tpu_torch.ops.kernels import kv_commit
 from nxdi_tpu_torch.ops.norms import rms_norm
 from nxdi_tpu_torch.runtime.model_wrapper import ModelWrapper
+from nxdi_tpu_torch.speculation.eagle import _feature_rows
 from nxdi_tpu_torch.speculation.token_tree import (
     best_path_acceptance,
     gather_tree_candidates,
+    move_path_rows,
     tree_tensors,
     tree_verify_mask,
 )
-
-
-def _feature_rows(batch: Dict[str, torch.Tensor], B: int) -> torch.Tensor:
-    """Row indices into a per-line buffer (``medusa_tokens``): ``seq_ids``
-    under continuous batching, else batch order, mirroring the KV cache's
-    row routing (the JAX package's ``eagle._feature_rows``)."""
-    ids = batch.get("seq_ids")
-    if ids is None:
-        return torch.arange(B, dtype=torch.long, device=batch["input_ids"].device)
-    return ids.reshape(B).long()
 
 
 def medusa_propose(heads: Dict[str, torch.Tensor], hidden: torch.Tensor, vocab_pad: int,
@@ -167,18 +157,9 @@ def medusa_tree_token_gen(arch, inv_freq, params: Dict[str, Any], cache: Dict[st
 
     # K/V fix-up: the best path's rows from their tree slots to pos0 + 1 ..
     # pos0 + D, on the lines the layout writes
-    S = cache["k"].shape[3]
-    src = (pos0 + 1 + best_path.clamp(min=0)).clamp(0, S - 1)  # (B, D)
     dest = pos0 + 1 + torch.arange(D, dtype=torch.int32, device=dev)[None, :]
-    lines = rows if layout.route_by_seq_id else None
-    moved = []
-    for side in ("k", "v"):
-        c = raw(cache[side])
-        L, _, KV, _, Dh = c.shape
-        on_lines = c if lines is None else c.index_select(1, lines)
-        idx = src.long()[None, :, None, :, None].expand(L, B, KV, D, Dh)
-        moved.append(torch.gather(on_lines, 3, idx).view(cache[side].dtype))
-    kv_commit.kv_commit_rows(cache["k"], cache["v"], *moved, dest, lines)
+    move_path_rows(cache, pos0 + 1 + best_path.clamp(min=0), dest,
+                   rows if layout.route_by_seq_id else None)
 
     retire = torch.minimum(counts, kv_window - 1 - pos0[:, 0]).clamp(1, D + 1)
     last_row = torch.gather(emit_rows, 1, (retire - 1).long()[:, None])[:, 0]

@@ -1,5 +1,5 @@
-"""Token-tree speculation: the tree-attention verify Medusa runs
-(counterpart of ``nxdi_tpu/speculation/token_tree.py``, its static trees).
+"""Token-tree speculation: the tree-attention verify of Medusa and EAGLE
+(counterpart of ``nxdi_tpu/speculation/token_tree.py``).
 
 A tree is given HF-medusa style as a list of paths, each a tuple of
 per-depth child indices, e.g. ``[[0], [1], [0, 0], [0, 1], [1, 0], [0, 0, 0]]``:
@@ -9,8 +9,13 @@ One verify forward scores the whole tree: node tokens come from the per-head
 top-K proposal buffer; nodes share rope positions by depth but write
 distinct KV slots (``write_positions``); attention takes an explicit
 ancestor mask (``attn_mask``, models/base.py). After acceptance the best
-path's K/V is gathered from its tree slots into the contiguous positions the
-next window expects (``speculation/medusa.py``).
+path's K/V is moved from its tree slots into the contiguous positions the
+next window expects (:func:`move_path_rows`, on every cache the tree wrote:
+the target's, and an EAGLE draft's).
+
+EAGLE's dynamic tree (:class:`DynamicTreeSpec`) fixes only the node count
+per expansion step; its parents and ancestor rows are device tensors, laid
+into KV-slot space by :func:`dynamic_tree_kv_mask`.
 
 The functions take fixed shapes and read nothing back to the host, so a
 verify window stays capturable in one CUDA graph. The tree's constant
@@ -26,6 +31,9 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from nxdi_tpu_torch.kvcache.kv_cache import raw
+from nxdi_tpu_torch.ops.kernels import kv_commit
 
 
 @dataclass(frozen=True)
@@ -161,3 +169,80 @@ def best_path_acceptance(tree: TokenTree, candidates: torch.Tensor,
     emit_rows = torch.cat([torch.zeros((B, 1), dtype=torch.long, device=candidates.device),
                            path_rows], dim=1)
     return counts, best_path, emit_rows
+
+
+def move_path_rows(cache: Dict[str, torch.Tensor], src: torch.Tensor, dest: torch.Tensor,
+                   lines=None) -> None:
+    """The best-path K/V move, in place: every layer's rows at slots ``src``
+    (B, D) of each row's cache line are gathered (slots clipped into the
+    cache) and landed at slots ``dest`` (B, D) by the commit kernel (its
+    plain version on the CPU); rows whose ``dest`` lies past the cache drop,
+    as the JAX package's ``mode="drop"`` scatter does. ``lines`` (B,): the
+    cache line of each row (continuous batching), else row b is line b."""
+    B, D = src.shape
+    src = src.long().clamp(0, cache["k"].shape[3] - 1)
+    moved = []
+    for side in ("k", "v"):
+        c = raw(cache[side])
+        L, _, KV, _, Dh = c.shape
+        on_lines = c if lines is None else c.index_select(1, lines)
+        idx = src[None, :, None, :, None].expand(L, B, KV, D, Dh)
+        moved.append(torch.gather(on_lines, 3, idx).view(cache[side].dtype))
+    kv_commit.kv_commit_rows(cache["k"], cache["v"], *moved, dest, lines)
+
+
+@dataclass(frozen=True)
+class DynamicTreeSpec:
+    """The static shape of a dynamic token tree (EAGLE): step 0 expands the
+    root into ``branching_factor`` children; each later step picks the
+    ``num_inputs`` most probable nodes of the previous step (by cumulative
+    log-prob) and expands each into ``branching_factor`` children. Only the
+    node count per step is static; parents, masks and slot wiring are
+    device tensors chosen in the window."""
+
+    steps: int  # tree depth (== speculation_length)
+    branching_factor: int
+    num_inputs: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.branching_factor + (self.steps - 1) * self.num_inputs * self.branching_factor
+
+    @property
+    def max_depth(self) -> int:
+        return self.steps
+
+    def group_rows(self, g: int) -> Tuple[int, int]:
+        """(start row, count) of expansion group ``g``: row 0 is the root and
+        the groups follow it contiguously in creation order."""
+        K, M = self.branching_factor, self.num_inputs
+        if g == 0:
+            return 1, K
+        return 1 + K + (g - 1) * M * K, M * K
+
+    @property
+    def depth_rows(self) -> Tuple[int, ...]:
+        """The depth of every row (the root 0, group g's rows g + 1)."""
+        out = [0]
+        for g in range(self.steps):
+            out.extend([g + 1] * self.group_rows(g)[1])
+        return tuple(out)
+
+
+def dynamic_tree_kv_mask(mask_rows: torch.Tensor, pos0: torch.Tensor,
+                         kv_width: int) -> torch.Tensor:
+    """Ancestor rows (B, R, 1 + N) in row space -> (B, R, kv_width) in KV-slot
+    space: a row attends the committed slots before the root's (< pos0) and
+    tree row j at slot pos0 + j where its row allows (the dynamic
+    counterpart of :func:`tree_verify_mask`). Slots past the window clip to
+    its last slot, where the rows that land there OR together (the JAX
+    package's scatter-max)."""
+    dev = pos0.device
+    N1 = mask_rows.shape[2]
+    slots = torch.arange(kv_width, dtype=torch.int32, device=dev)
+    prefix = slots[None, :] < pos0[:, None]  # (B, W)
+    tgt = (pos0[:, None] + torch.arange(N1, dtype=torch.int32, device=dev)[None, :]
+           ).clamp(0, kv_width - 1)  # (B, N1)
+    at_slot = tgt[:, :, None] == slots[None, None, :]  # (B, N1, W)
+    rows = (mask_rows[:, :, :, None] & at_slot[:, None, :, :]).any(dim=2)  # (B, R, W)
+    return prefix[:, None, :] | rows

@@ -1357,3 +1357,132 @@ def test_medusa_tree_second_window_on_one_graph(gen):
         assert np.array_equal(gt, et) and np.array_equal(gc, ec)
         for key in gcache:
             assert torch.equal(gcache[key], ecache[key]), key
+
+
+# --- EAGLE: the chain, EAGLE3 and both trees as CUDA graphs ---
+
+EAGLE_KINDS = {
+    "chain": {},
+    "eagle3": {"is_eagle3": True},
+    "tree": {"token_tree_config": {"choices": [[0], [1], [0, 0], [0, 1], [1, 0], [0, 0, 0]]}},
+    "dynamic": {"token_tree_config": {"dynamic": {"steps": 3, "branching_factor": 2,
+                                                  "num_inputs": 2}}},
+}
+
+
+def _eagle_app(kind, graphs, params=None, **draft_width):
+    """A 2-layer bf16 target at SMALL_LLAMA's widths (seed 0) with a random
+    1-layer EAGLE draft (seed 1; EAGLE3: a 256-token draft vocab;
+    ``draft_width`` overrides its widths), spec_len 3, on the card."""
+    from nxdi_tpu_torch.config import OnDeviceSamplingConfig, TorchConfig
+    from nxdi_tpu_torch.models import dense
+    from nxdi_tpu_torch.models import llama_eagle as le
+    from nxdi_tpu_torch.models.llama import modeling_llama as ml
+    from nxdi_tpu_torch.speculation import EagleSpecCausalLM
+
+    kw = dict(tp_degree=1, dtype="bfloat16", on_device_sampling_config=OnDeviceSamplingConfig(),
+              attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, **SPEC)
+    extra = EAGLE_KINDS[kind]
+    eagle3 = extra.get("is_eagle3", False)
+    width = dict(ml.LLAMA_3_2_1B, **SMALL_LLAMA)
+    tcfg = ml.LlamaInferenceConfig(
+        TorchConfig(**kw, speculation_length=SPEC_LEN, enable_eagle_speculation=True, **extra),
+        **width)
+    dcfg = le.LlamaEagleInferenceConfig(
+        TorchConfig(**kw, is_eagle3=eagle3),
+        **dict(width, num_hidden_layers=1, vocab_size=256 if eagle3 else width["vocab_size"],
+               **draft_width))
+    if params is None:
+        target = dense.random_params(ml.build_arch(tcfg), seed=0, device="cuda")
+        params = {"target": target,
+                  "draft": le.random_params(dcfg, target, target_num_layers=2, seed=1,
+                                            device="cuda")}
+
+    class Eagle(EagleSpecCausalLM):
+        def build_params(self):
+            return params
+
+    app = Eagle("<t>", tcfg, "<d>", dcfg, model_family=ml, graphs=graphs)
+    app.load()
+    return app
+
+
+def _flat_all(cache, prefix=""):
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(_flat_all(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.parametrize("kind", list(EAGLE_KINDS))
+def test_eagle_window_graph_replay_equals_eager(gen, kind):
+    """An EAGLE window replayed from its CUDA graph (chain: the draft steps
+    on the stacked fused decode and the commit; the trees' masked passes,
+    top-k, verify and best-path moves) against the same app run eagerly:
+    the same tokens, every window's tokens and counts, both caches and the
+    features buffer bit for bit; exact launches: L_t + L_d prefills per
+    context encoding, per chain window W decodes and W + 1 commits, per
+    tree window (depth + 1) + L_t + 2 commits and no decode."""
+    graphs = _eagle_app(kind, True)
+    eager = _eagle_app(kind, False, params=graphs.params)
+    g_toks, g_log, g_counts = _spec_windows(graphs)
+    e_toks, e_log, e_counts = _spec_windows(eager)
+    assert np.array_equal(g_toks, e_toks)
+    assert len(g_log) == len(e_log) > 1
+    for (gt, gc), (et, ec) in zip(g_log, e_log):
+        assert torch.equal(gt, et) and torch.equal(gc, ec)
+    g_cache, e_cache = _flat_all(graphs.kv_cache), _flat_all(eager.kv_cache)
+    assert "features" in g_cache
+    for key in g_cache:
+        assert torch.equal(g_cache[key], e_cache[key]), key
+    n, W = len(g_log), SPEC_LEN + 1
+    tree = kind in ("tree", "dynamic")
+    want = {"flash_attention_prefill": 2 + 1,
+            "flash_attention_decode_fused": 0 if tree else W * n,
+            "kv_commit_rows": n * ((SPEC_LEN + 1) + 2 + 2) if tree else n * (W + 1)}
+    for counts in (g_counts, e_counts):
+        assert {k: counts.get(k, 0) for k in want} == want
+    w = graphs.models["fused_speculation_model"]
+    assert all(bg.graph is not None for bg in w.bucket_graphs.values())
+
+
+def test_eagle_window_raises_where_the_decode_kernel_is_not_eligible(gen):
+    """No fallback: a draft whose 32 query heads share one kv head is not
+    eligible for the stacked fused decode kernel, whose flag is on, so its
+    first window (the warmup's, after the context encoding's, whose prefill
+    kernel takes it) raises naming the condition."""
+    with pytest.raises(NotImplementedError, match="32 query heads per kv head exceed 16"):
+        _eagle_app("chain", True, num_attention_heads=32, num_key_value_heads=1, head_dim=64)
+
+
+def test_eagle_replay_checks_the_features_buffer(gen):
+    """A window graph replays only over the tensors it captured: with the
+    features buffer moved to another address the next window raises."""
+    app = _eagle_app("chain", True)
+    _spec_windows(app, new=8)
+    app.kv_cache["features"] = app.kv_cache["features"].clone()
+    with pytest.raises(RuntimeError, match="another KV cache"):
+        _spec_windows(app, new=8)
+
+
+@pytest.mark.parametrize("lines", [False, True])
+def test_best_path_move_on_both_caches(gen, lines):
+    """The shared best-path move on the card (a gather, landed by the commit
+    kernel) against its plain version on the CPU, on a target-shaped
+    (2 layers) and a draft-shaped (1 layer) bf16 cache: the same bits,
+    sources past the cache clipped, destinations past it dropped."""
+    from nxdi_tpu_torch.speculation import token_tree as tt
+
+    src = torch.tensor([[3, 300, 7, 9], [100, 101, 102, 103]], device="cuda")
+    dest = torch.tensor([[1, 2, 3, 4], [254, 255, 256, 257]], device="cuda")
+    ln = torch.tensor([2, 0], device="cuda") if lines else None
+    for L in (2, 1):
+        cache = {k: _randn(gen, L, 3, 2, 256, 64).to(torch.bfloat16) for k in ("k", "v")}
+        plain = {k: v.cpu() for k, v in cache.items()}
+        tt.move_path_rows(cache, src, dest, ln)
+        tt.move_path_rows(plain, src.cpu(), dest.cpu(), None if ln is None else ln.cpu())
+        for k in cache:
+            assert torch.equal(cache[k].cpu(), plain[k]), (L, k)

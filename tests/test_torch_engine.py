@@ -307,10 +307,9 @@ def test_engine_refuses_what_is_not_ported(tiny_hf_llama):
     with pytest.raises(ValueError, match="padding_side must be 'right' or 'left'"):
         TorchConfig(padding_side="middle")
     assert TorchConfig(padding_side="left").padding_side == "left"
-    # speculation is ported but for EAGLE, whose keys still raise
+    # speculation is ported, EAGLE included (an EAGLE draft implies the fused window)
     assert TorchConfig(speculation_length=2).speculation_length == 2
-    with pytest.raises(ValueError, match="Unknown or not-yet-ported"):
-        TorchConfig(enable_eagle_speculation=True)
+    assert TorchConfig(enable_eagle_speculation=True).enable_fused_speculation
     # ported: the device-resident decode family, under the JAX package's rules
     for key, value in (("device_loop", True), ("decode_steps_per_dispatch", 2)):
         with pytest.raises(ValueError, match="requires on-device sampling"):

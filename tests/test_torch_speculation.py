@@ -2,7 +2,8 @@
 against the JAX package's on the CPU: the fused draft + target app, the
 standard draft-model pair, Medusa chain and token-tree windows, the tree
 functions, the fused window's draft body against the JAX package's slim
-scan, and the refusals.
+scan, and the refusals. EAGLE is held against the JAX package in
+``test_torch_eagle.py``.
 
 Both packages run the same weights: the tiny random HF llamas of the JAX
 package's speculation tests (hidden 64, vocab 256, float32; a 4-layer
@@ -495,20 +496,6 @@ def test_config_rules_match_jax(rule):
         TpuConfig(**base, **kw)
     with pytest.raises(ValueError, match=match):
         TorchConfig(**base, **kw)
-
-
-@pytest.mark.parametrize("key", ["enable_eagle_speculation", "is_eagle3", "is_eagle_draft",
-                                 "token_tree_config"])
-@pytest.mark.parametrize("where", ["config", "speculation_config"])
-def test_eagle_keys_raise_naming_the_key(key, where):
-    value = [[0]] if key == "token_tree_config" else True
-    TpuConfig(**({key: value} if where == "config"
-                 else {"speculation_config": {key: value}}))  # the JAX package takes it
-    with pytest.raises(ValueError, match=key):
-        if where == "config":
-            TorchConfig(**{key: value})
-        else:
-            TorchConfig(speculation_config={key: value})
 
 
 def test_app_refusals(models, caplog):
