@@ -147,6 +147,35 @@ code is non-zero:
    import ms, bytes per handoff); drive_arrivals and goodput_summary over a
    Poisson run (seed 17, its span rescaled to the nominal one) at half the
    unified engine's request rate.
+3f. The MoE block alone (ops/moe.py) in bf16 at Mixtral-8x7B's and
+   Qwen3-30B-A3B's widths, M 8 and 520: sparse dispatch (the grouped GEMM,
+   torch._grouped_mm) beside dense dispatch, each against the float32
+   dense dispatch, the sparse one replayed from a CUDA graph equal to eager,
+   float32's per-expert product checked at M 8; times (11 flushed calls)
+   beside the bound (the bytes of the experts the routing touches, or the
+   routed pairs' FLOPs); what torch._grouped_mm takes by dtype.
+4h. A Mixtral-shaped model (head dim 128, 4 query heads per kv head, 8
+   experts top-2; hidden 1024) at 2 layers, float32, in sparse and dense
+   dispatch: generate() at batch 2 and the split paged engine (the
+   block-table decode) on the CPU, the card's graphs and the card eagerly:
+   tokens equal, logits within 1e-4, graphs equal to eager bit for bit,
+   launches of rows 1, 3, 4, 6 and 7 exact, every decode bucket's strategy
+   naming its MoE product.
+4i. LoRA at Llama-3.2-1B's widths, 2 layers, float32, batch 4: two rank-16
+   adapters on all seven projections and a base row in one batch, CPU vs
+   card graphs vs card eager; the adapter's rows equal a base model with
+   the adapter merged into its weights; a third adapter registered after
+   capture evicts the first in place, and the next replays read it (equal
+   to eager and the CPU; no new graph; the buffers keep their addresses).
+5h. Mixtral-8x7B's widths at 8 of its 32 layers (~24 GB of bf16 weights),
+   graphs: generate() on phase 5's prompt shapes in sparse and dense
+   dispatch in turns (prefill ms, decode ms/step, a profiled decode step
+   and prefill, launches of rows 1, 3 and 4 exact), then the split paged
+   engine over phase 5b's traffic (tok/s, TTFT, TPOT, rows 1, 6 and 7).
+5i. LoRA at full depth: Llama-3.2-1B, 16 layers, batch 8, rank 16 on all
+   seven projections, 4 adapters and base rows, graph sync, beside every
+   row on the base slot (whose tokens must equal phase 5's) and phase 5's
+   step: decode ms/step, busy and idle share, device operations a step.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -198,6 +227,11 @@ ATTN_NAME = re.compile(r"(prefill_wgmma_kernel|prefill_wgmma_1b_kernel|prefill_t
 # the decode kernel split across blocks, and its combine
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 DECODE_CALLS = 21
+# phases 3 and 3b: (dtype, head dim, layers of the stacked decode cache).
+# Llama-3.2-1B's head dim 64 (phase 5's 16 layers) in both dtypes, and
+# Mixtral-8x7B's 128 (phase 5h's 8 layers) in bf16, the dtype its main path
+# runs; both have 32 query and 8 kv heads
+KERNEL_CASES = (("bfloat16", 64, 16), ("float32", 64, 16), ("bfloat16", 128, 8))
 LOGIT_TOL = 1e-4  # phases 4/4b/4c: float32 CPU vs card logits (measured 8.9e-6, 8.5e-6 and
 # 1.9e-5), 2 layers, full width
 # phase 4e on one-byte KV stores: the CPU's and the card's K/V differ in the
@@ -450,11 +484,13 @@ def check_kernels(torch, results):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    B, H, KV, D, S, S_cache, L = 8, 32, 8, 64, 1024, 2048, 16
+    B, H, KV, S, S_cache = 8, 32, 8, 1024, 2048
     G = H // KV
-    for dname in ("bfloat16", "float32"):
+    for dname, D, L in KERNEL_CASES:
         dt = getattr(torch, dname)
         es = torch.tensor([], dtype=dt).element_size()
+        first = len(results)
+        log(f"[kernels] phase 3 at head dim {D}, {L} layers, {dname}")
 
         # --- prefill ---
         q = randn((B, S, H, D), dt).transpose(1, 2)  # the model's head-split layout
@@ -490,7 +526,7 @@ def check_kernels(torch, results):
         row = dict(kernel="prefill", dtype=dname, max_abs_err=err, tol=tol, ms=ms, ms_min=lo,
                    ms_max=hi, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                    body=body, kernels=ran, share_of_bound=bms / ms)
-        if dname == "bfloat16":
+        if dname == "bfloat16" and D == 64:
             # the mma.sync body (PR 1's) on the same inputs, and the host time
             # of one call of each body (the TMA body encodes three tensor maps)
             with forced(fa, "prefill_body", lambda *a: "mma"):
@@ -509,10 +545,10 @@ def check_kernels(torch, results):
 
         # ragged lengths (Sq, Sk not multiples of 128), window / chunk masks,
         # offset starts, head dims 64 and 128 (the TMA body in bf16) and 40
-        # (not a multiple of 16): correctness only
-        for (Sx, Dx, win, chk) in ((300, 64, 100, None), (300, 64, None, 128),
-                                   (200, 40, None, None), (300, 128, None, None),
-                                   (260, 128, 100, None), (260, 128, None, 96)):
+        # (not a multiple of 16): correctness only, once per dtype
+        small = ((300, 64, 100, None), (300, 64, None, 128), (200, 40, None, None),
+                 (300, 128, None, None), (260, 128, 100, None), (260, 128, None, 96))
+        for (Sx, Dx, win, chk) in (small if D == 64 else ()):
             qx = randn((2, Sx, 8, Dx), dt).transpose(1, 2)
             kx = randn((2, Sx, 2, Dx), dt).transpose(1, 2)
             vx = randn((2, Sx, 2, Dx), dt).transpose(1, 2)
@@ -604,6 +640,8 @@ def check_kernels(torch, results):
             f"plain {plain_ms:.4f} index_put {lib_ms:.4f} bound {bms:.5f} ({by})")
         del ks, vs, k_ref, v_ref
         torch.cuda.empty_cache()
+        for row in results[first:]:
+            row["head_dim"] = D
 
 
 # ---------------------------------------------------------------------------
@@ -622,10 +660,10 @@ def _kernel_row(results, name, dname, err, ms, plain_ms, lib_ms, nbytes, flops):
 
 
 def check_paged_kernels(torch, results):
-    """Paged decode at B=8, H=32, KV=8, D=64, block 128, 136 blocks, table
-    width 16, q_pos spread over 0..2000 with a hole; paged prefill at B=1,
-    Sq=512 from 512 (timed) and from a 384-token prefix; window decode at
-    B=8, Sk=2048. The library yardstick is SDPA over K/V gathered through
+    """Paged decode at B=8, H=32, KV=8, D=64 and 128 (KERNEL_CASES), block
+    128, 136 blocks, table width 16, q_pos spread over 0..2000 with a hole;
+    paged prefill at B=1, Sq=512 from 512 (timed) and from a 384-token
+    prefix; window decode at B=8, Sk=2048, D=64. The library yardstick is SDPA over K/V gathered through
     the table (the gather included) or over the GQA-expanded window."""
     import torch.nn.functional as F
 
@@ -641,7 +679,7 @@ def check_paged_kernels(torch, results):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    B, H, KV, D, bs, nblk, NB, Sk = 8, 32, 8, 64, 128, 136, 16, 2048
+    B, H, KV, bs, nblk, NB, Sk = 8, 32, 8, 128, 136, 16, 2048
     G = H // KV
     qpos = torch.linspace(0, 2000, B, device=dev).long()
     perm = torch.randperm(nblk, generator=torch.Generator().manual_seed(0)).tolist()
@@ -665,9 +703,11 @@ def check_paged_kernels(torch, results):
         rows = (table.long()[:, :, None] * bs + torch.arange(bs, device=dev)).reshape(n_rows, -1)
         return cache[rows.clamp(min=0)].transpose(1, 2)  # (n, KV, W, D)
 
-    for dname in ("bfloat16", "float32"):
+    for dname, D, _ in KERNEL_CASES:
         dt = getattr(torch, dname)
         es = torch.tensor([], dtype=dt).element_size()
+        first = len(results)
+        log(f"[kernels] phase 3b at head dim {D}, {dname}")
         kc, vc = randn((nblk * bs, KV, D), dt), randn((nblk * bs, KV, D), dt)
 
         # --- paged decode (and at block 16 with k/v scales: correctness) ---
@@ -694,20 +734,23 @@ def check_paged_kernels(torch, results):
             library_decode, (2 * visible * KV * D + 2 * B * H * D) * es + bt.numel() * 4,
             4 * H * D * visible, flush, PAGED_TOL[dname])
 
-        # --- window decode over the gathered window's layout ---
-        kw = randn((B, Sk, KV, D), dt).transpose(1, 2)
-        vw = randn((B, Sk, KV, D), dt).transpose(1, 2)
-        kv_pos = torch.arange(Sk, device=dev, dtype=torch.int32)[None].expand(B, Sk)
-        wmask = (kv_pos <= qp)[:, None, None, :]
-        kwe, vwe = kw.repeat_interleave(G, dim=1), vw.repeat_interleave(G, dim=1)
-        seen = int((kv_pos <= qp).sum())
-        decode_point(
-            torch, results, "window_decode", dname, fa,
-            lambda: fa.flash_attention_decode(q, kw, vw, qp, kv_pos),
-            lambda: fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos),
-            lambda: F.scaled_dot_product_attention(q, kwe, vwe, attn_mask=wmask),
-            (2 * seen * KV * D + 2 * B * H * D) * es, 4 * H * D * seen, flush, PAGED_TOL[dname])
-        del kw, vw, kwe, vwe
+        # --- window decode over the gathered window's layout (head dim 64:
+        # Mixtral's paths do not run it) ---
+        if D == 64:
+            kw = randn((B, Sk, KV, D), dt).transpose(1, 2)
+            vw = randn((B, Sk, KV, D), dt).transpose(1, 2)
+            kv_pos = torch.arange(Sk, device=dev, dtype=torch.int32)[None].expand(B, Sk)
+            wmask = (kv_pos <= qp)[:, None, None, :]
+            kwe, vwe = kw.repeat_interleave(G, dim=1), vw.repeat_interleave(G, dim=1)
+            seen = int((kv_pos <= qp).sum())
+            decode_point(
+                torch, results, "window_decode", dname, fa,
+                lambda: fa.flash_attention_decode(q, kw, vw, qp, kv_pos),
+                lambda: fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos),
+                lambda: F.scaled_dot_product_attention(q, kwe, vwe, attn_mask=wmask),
+                (2 * seen * KV * D + 2 * B * H * D) * es, 4 * H * D * seen, flush,
+                PAGED_TOL[dname])
+            del kw, vw, kwe, vwe
 
         # --- paged prefill: a 512-token chunk after 512 (timed) or 384 cached;
         # at block 16 with a hole and k/v scales (correctness) ---
@@ -760,7 +803,7 @@ def check_paged_kernels(torch, results):
         row.update(ms_min=lo, ms_max=hi, library_min=lib_lo, library_max=lib_hi, body=body,
                    kernels=ran, calls=len(times), untraced=dropped + lib_dropped,
                    err_block16=err16, share_of_bound=row["bound_ms"] / ms)
-        if dname == "bfloat16":
+        if dname == "bfloat16" and D == 64:
             # the mma.sync body (the earlier design) on the same inputs, and the host time
             # of one call of each body (the TMA body encodes Q's tensor map)
             with forced(fa, "paged_prefill_body", lambda *a: "mma"):
@@ -779,6 +822,8 @@ def check_paged_kernels(torch, results):
                 f"err {err16:.3g}")
         del kc, vc
         torch.cuda.empty_cache()
+        for row in results[first:]:
+            row["head_dim"] = D
 
 
 # ---------------------------------------------------------------------------
@@ -1112,13 +1157,23 @@ def check_mixed_kernels(torch, results):
 # ---------------------------------------------------------------------------
 
 
+def model_config(ml, tcfg, layers, family=None):
+    """(family module, its config at ``layers`` layers): Llama-3.2-1B, or
+    ``family`` = (module, config class, widths), e.g. the Mixtral family's."""
+    if family is None:
+        return ml, ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
+    module, cfg_cls, widths = family
+    return module, cfg_cls(tcfg, **dict(widths, num_hidden_layers=layers))
+
+
 def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, dense, *,
              layers, dtype, batch, seq_len, ctx_len, device, params=None, output_logits=False,
-             graphs=True, async_mode=False, steps=1, do_sample=False, **extra):
+             graphs=True, async_mode=False, steps=1, do_sample=False, family=None, **extra):
     """The static slice's app, loaded and warmed up (every bucket captured
     into its CUDA graph on the card unless ``graphs`` is False); ``steps`` > 1
     adds the K-step submodel, ``do_sample`` the sampler; ``extra`` sets or
-    overrides config keys (quantization)."""
+    overrides config keys (quantization, LoRA, the MoE dispatch); ``family``
+    another model (model_config)."""
     tcfg = TorchConfig(**{
         **dict(tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
                dtype=dtype, on_device_sampling_config=OnDeviceSamplingConfig(do_sample=do_sample),
@@ -1128,8 +1183,8 @@ def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, den
         **extra})
     from nxdi_tpu_torch.runtime.application import maybe_quantize_params
 
-    cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
-    arch = ml.build_arch(cfg)
+    module, cfg = model_config(ml, tcfg, layers, family)
+    arch = module.build_arch(cfg)
 
     class App(TorchModelForCausalLM):
         def build_params(self):
@@ -1140,7 +1195,7 @@ def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, den
             return maybe_quantize_params(dense.random_params(arch, seed=0, device=device),
                                          self.tpu_config)
 
-    app = App("<random>", cfg, model_family=ml, device=device, graphs=graphs)
+    app = App("<random>", cfg, model_family=module, device=device, graphs=graphs)
     app.load()
     app.warm_stats = warm(app)
     return app, arch
@@ -1211,45 +1266,91 @@ def same_bits(torch, phase, graph_logs, eager_logs):
     return len(graph_logs)
 
 
-def slice_vs_cpu(torch, np, mods):
-    """Phase 4: greedy generate() on the CPU (plain versions), on the card
-    through the graphs and on the card eagerly: graph logits within
-    LOGIT_TOL of the CPU's and equal to eager ones bit for bit."""
-    ml, TorchConfig, ODSC, App, dense, Adapter = mods
-    arch_kwargs = dict(layers=2, dtype="float32", batch=2, seq_len=256, ctx_len=128,
-                       output_logits=True)
-    cpu_app, arch = make_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **arch_kwargs)
+def three_apps(mods, setup=None, **app_kw):
+    """The same model on the CPU (plain versions), through the card's graphs
+    and on the card eagerly (make_app), one set of weights; ``setup(app)``
+    runs on each after its load (adapters for LoRA)."""
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    cpu_app, arch = make_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **app_kw)
     gpu_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
-                          params=cpu_app.params, **arch_kwargs)
+                          params=cpu_app.params, **app_kw)
     eager_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda", graphs=False,
-                            params=gpu_app.params, **arch_kwargs)
-    ids, mask = prompts(np.random.default_rng(7), 2, 128, [128, 97], arch.vocab_size)
-    logs_cpu, logs_gpu, logs_eager = [], [], []
-    recording(cpu_app, logs_cpu)
-    recording(gpu_app, logs_gpu)
-    recording(eager_app, logs_eager)
-    out_cpu = Adapter(cpu_app).generate(ids, attention_mask=mask, max_new_tokens=16)
-    out_gpu = Adapter(gpu_app).generate(ids, attention_mask=mask, max_new_tokens=16)
-    out_eager = Adapter(eager_app).generate(ids, attention_mask=mask, max_new_tokens=16)
-    assert (out_gpu == out_eager).all(), "phase 4: graph and eager tokens differ"
-    n_same = same_bits(torch, "4", logs_gpu, logs_eager)
+                            params=gpu_app.params, **app_kw)
+    apps = (cpu_app, gpu_app, eager_app)
+    for app in apps:
+        for w in app.models.values():
+            w.attention_strategies.clear()  # keep what the phase's traffic runs
+        if setup is not None:
+            setup(app)
+    return apps, arch
+
+
+def logits_within(torch, phase, logs_ref, logs_got, tol, rows=None):
+    """Every step's logits of ``logs_got`` within ``tol`` of ``logs_ref``
+    (over ``rows``, all by default) and the same greedy tokens, up to a
+    near tie: at a step whose tokens differ the reference's top-2 gap must
+    be within ``tol``, and the compare stops there. Returns (the largest
+    difference, steps compared, the step of a near-tie flip or None)."""
     worst, compared = 0.0, 0
-    for step, (lc, lg) in enumerate(zip(logs_cpu, logs_gpu)):
+    for step, (lc, lg) in enumerate(zip(logs_ref, logs_got)):
+        if rows is not None:
+            lc, lg = lc[rows], lg[rows]
         err = (lc - lg).abs().max().item()
         worst = max(worst, err)
         compared += 1
-        assert err <= LOGIT_TOL, f"phase 4 step {step}: logits differ by {err} > {LOGIT_TOL}"
+        assert err <= tol, f"phase {phase} step {step}: logits differ by {err} > {tol}"
         tc, tg = lc.argmax(-1), lg.argmax(-1)
         if not torch.equal(tc, tg):
             top2 = lc.topk(2, dim=-1).values
             gap = (top2[:, 0] - top2[:, 1])[tc != tg].max().item()
-            assert gap <= LOGIT_TOL, f"phase 4 step {step}: tokens differ at top-2 gap {gap}"
-            log(f"[slice-2L] step {step}: near-tie token flip (gap {gap:.3g}); stopping compare")
-            break
-    else:
-        assert (out_cpu == out_gpu).all(), "phase 4: generated tokens differ"
-    graphs = {tag: sorted(w.bucket_graphs) for tag, w in gpu_app.models.items()}
-    log(f"[slice-2L] {compared} steps compared, max logit diff {worst:.3g} (tol {LOGIT_TOL}); "
+            assert gap <= tol, f"phase {phase} step {step}: tokens differ at top-2 gap {gap}"
+            log(f"[{phase}] step {step}: near-tie token flip (gap {gap:.3g}); stopping compare")
+            return worst, compared, step
+    return worst, compared, None
+
+
+def run_three(torch, mods, phase, apps, ids, mask, new, **gen_kw):
+    """generate() on each of ``three_apps``: the graphs' tokens equal the
+    eager run's and their logits bit for bit, the CPU's logits within
+    LOGIT_TOL of the graphs' and its tokens equal (up to a near tie).
+    Returns (the largest logit difference, the graphs' tokens, the graph
+    run's launches by kernel, dispatches compared bit for bit, the graph
+    run's last-position logits per dispatch)."""
+    cpu_app, gpu_app, eager_app = apps
+    Adapter = mods[5]
+    logs = ([], [], [])
+    for app, log_list in zip(apps, logs):
+        recording(app, log_list)
+    kernels = attention_kernels()
+    try:
+        out_cpu = Adapter(cpu_app).generate(ids, attention_mask=mask, max_new_tokens=new, **gen_kw)
+        for fn in kernels.values():
+            fn.launches = 0
+        out_gpu = Adapter(gpu_app).generate(ids, attention_mask=mask, max_new_tokens=new, **gen_kw)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        out_eager = Adapter(eager_app).generate(ids, attention_mask=mask, max_new_tokens=new,
+                                                **gen_kw)
+    finally:
+        for app in apps:
+            del app.forward
+    assert (out_gpu == out_eager).all(), f"phase {phase}: graph and eager tokens differ"
+    n_same = same_bits(torch, phase, logs[1], logs[2])
+    worst, _, flip = logits_within(torch, phase, logs[0], logs[1], LOGIT_TOL)
+    if flip is None:
+        assert (out_cpu == out_gpu).all(), f"phase {phase}: generated tokens differ"
+    return worst, out_gpu, counts, n_same, logs[1]
+
+
+def slice_vs_cpu(torch, np, mods):
+    """Phase 4: greedy generate() on the CPU (plain versions), on the card
+    through the graphs and on the card eagerly: graph logits within
+    LOGIT_TOL of the CPU's and equal to eager ones bit for bit."""
+    apps, arch = three_apps(mods, layers=2, dtype="float32", batch=2, seq_len=256, ctx_len=128,
+                            output_logits=True)
+    ids, mask = prompts(np.random.default_rng(7), 2, 128, [128, 97], arch.vocab_size)
+    worst, _, _, n_same, _ = run_three(torch, mods, "4", apps, ids, mask, 16)
+    graphs = {tag: sorted(w.bucket_graphs) for tag, w in apps[1].models.items()}
+    log(f"[slice-2L] max logit diff {worst:.3g} (tol {LOGIT_TOL}); "
         f"graph replay = eager bit for bit over {n_same} dispatches; graphs by bucket {graphs}")
     return worst
 
@@ -1464,8 +1565,11 @@ def slice_full_depth(torch, np, mods, card):
 
             wall, split = host_window(torch, step, K)
             _, busy, by_kernel, prof_split = profiled_call(torch, step)
+            ops = len(kernel_sequence(torch, step))
         profiles[mode] = dict(wall_ms=wall, busy_ms=busy, idle_pct=100 * (1 - busy / wall),
-                              host_split_ms=split, top=by_kernel[:8])
+                              host_split_ms=split, top=by_kernel[:8],
+                              by_group_ms=by_group(by_kernel),
+                              device_ops=None if mode == "graph async" else ops)
         log(f"[slice-16L] {mode} decode step ({K} unprofiled): wall {wall:.3f} ms, device busy "
             f"{busy:.3f} ms (idle {100 * (1 - busy / wall):.1f}%); host ms: {split_line(split)}")
 
@@ -1515,9 +1619,10 @@ MIXED_FLAGS = dict(mixed_dispatch=True, fused_qkv=True, qkv_kernel_enabled=True,
 
 def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
                     num_blocks, chunk, block_tkg, device, params=None, mixed=False, graphs=True,
-                    **extra):
+                    family=None, **extra):
     """The paged engine's app (``extra``: more config keys, e.g. a quantized
-    KV pool or a role; a decode-role app takes no chunked prefill)."""
+    KV pool, a role or the MoE dispatch; a decode-role app takes no chunked
+    prefill; ``family``: another model, model_config)."""
     tcfg = TorchConfig(
         tp_degree=1, batch_size=1, ctx_batch_size=1, tkg_batch_size=slots, seq_len=seq_len,
         max_context_length=ctx_len, dtype=dtype, on_device_sampling_config=ODSC(),
@@ -1528,8 +1633,8 @@ def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, 
         attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=True,
         **(MIXED_FLAGS if mixed else {}), **extra,
     )
-    cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
-    arch = ml.build_arch(cfg)
+    module, cfg = model_config(ml, tcfg, layers, family)
+    arch = module.build_arch(cfg)
 
     class EngineApp(App):
         def build_params(self):
@@ -1537,7 +1642,7 @@ def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, 
                 return params
             return dense.random_params(arch, seed=0, device=device)
 
-    app = EngineApp("<random>", cfg, model_family=ml, device=device, graphs=graphs)
+    app = EngineApp("<random>", cfg, model_family=module, device=device, graphs=graphs)
     app.load()
     app.warm_stats = warm(app)
     return app, arch
@@ -1590,7 +1695,8 @@ def record_packs(app):
     return packs
 
 
-def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None):
+def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None, family=None, extra=None, phase=None,
+                  extra_strats=()):
     """Phases 4b and 4c: the same traffic through a CPU engine (plain
     versions) and a card engine (kernels): 6 requests, interleaved arrivals,
     two sharing a 256-token (2-block) prefix, one 300-token prompt longer than
@@ -1603,7 +1709,9 @@ def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None):
     card runs through the graphs, and again eagerly: the same streams, the
     same launch counts and every dispatch's logits bit for bit. With ``kvq``
     (phase 4e) the pool holds a quantized store and the split engine
-    decodes through the paged-decode kernel (the block-table decode flag).
+    decodes through the paged-decode kernel (the block-table decode flag);
+    so does another ``family`` (phase 4h: the Mixtral family, ``extra`` its
+    config keys, ``extra_strats`` the MoE strategy its layers record).
     Returns the card run's launch counts and the worst logit difference."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
     from nxdi_tpu_torch.runtime.model_wrapper import (
@@ -1615,10 +1723,11 @@ def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None):
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
     L = 2
-    phase = ("4e" if kvq else "4c" if mixed else "4b") + (" mixed" if kvq and mixed else "")
-    block_tkg = kvq is not None
+    phase = phase or (("4e" if kvq else "4c" if mixed else "4b")
+                      + (" mixed" if kvq and mixed else ""))
+    block_tkg = kvq is not None or family is not None
     kw = dict(layers=L, dtype="float32", slots=4, seq_len=512, ctx_len=512, num_blocks=24,
-              chunk=256, block_tkg=block_tkg, mixed=mixed,
+              chunk=256, block_tkg=block_tkg, mixed=mixed, family=family, **(extra or {}),
               **({} if kvq is None else dict(kv_quant_config=kvq)))
     t = time.perf_counter()
     cpu_app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **kw)
@@ -1714,6 +1823,7 @@ def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None):
                      decode: L * disp[TAG_TOKEN_GENERATION]})
         strats = {"cte_flash_kernel", "cte_paged_kernel",
                   "tkg_paged_kernel" if block_tkg else "tkg_kernel"}
+    strats |= set(extra_strats)
     assert counts == want, f"phase {phase}: launch counts {counts} != {want} (dispatches {disp})"
     busy = ("ragged", "qkv", "mlp") if mixed else ("prefill", "paged_prefill", decode)
     assert all(want[k] > 0 for k in busy), counts
@@ -1734,7 +1844,8 @@ def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None):
         b = cpu_app.kv_cache["k"].view(torch.uint8)
         log(f"[engine-2L {phase}] stored K codes that differ CPU vs card: "
             f"{int((a != b).sum())} of {a.numel()}")
-    log(f"[engine-2L{' mixed' if mixed else ''}{' ' + str(kvq) if kvq else ''}] "
+    log(f"[engine-2L{' ' + phase if family else ''}{' mixed' if mixed else ''}"
+        f"{' ' + str(kvq) if kvq else ''}] "
         f"{len(cpu_logits)} dispatches compared, max "
         f"logit diff {worst:.3g} (tol {tol}); streams identical; launches {counts} "
         f"(dispatches {disp}); graph replay = eager bit for bit over {n_same} dispatches; "
@@ -1742,7 +1853,9 @@ def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None):
     return counts, worst
 
 
-def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None, keep_app=False):
+def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None, keep_app=False,
+                      layers=16, family=None, params=None, extra=None, extra_strats=(),
+                      phase=None):
     """Phases 5b and 5c: 16 layers, bf16, 8 slots; 16 requests with prompts
     of 200-992 tokens (prompt + 32 new tokens must fit the 1024-token decode
     window the prefix-prefill ladder sets), 8 of them sharing a 384-token
@@ -1751,7 +1864,9 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
     kernels (5c); every bucket a CUDA graph, or (``graphs=False``) every
     dispatch eager. Profiled steps carry the host split. ``kvq`` (phase 5e):
     the same on a quantized pool; ``keep_app``: the app is returned in the
-    stats (``app``) for more traffic."""
+    stats (``app``) for more traffic. Phase 5h runs it for the Mixtral
+    ``family`` at 8 ``layers`` over ``params`` (``extra``: its config keys,
+    ``extra_strats``: the MoE strategy its layers record)."""
     from nxdi_tpu_torch.runtime.application import TAG_PREFIX_PREFILL
     from nxdi_tpu_torch.runtime.model_wrapper import (
         TAG_CONTEXT_ENCODING,
@@ -1761,14 +1876,16 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
     from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
-    L, NEW = 16, 32
-    tag = (("[engine-16L mixed" if mixed else "[engine-16L") + (" graphs" if graphs else " eager")
-           + (f" {kvq['dtype']} pool]" if kvq else "]"))
-    phase = ("5e " if kvq else "") + ("5c" if mixed else "5b")
+    L, NEW = layers, 32
+    phase = phase or (("5e " if kvq else "") + ("5c" if mixed else "5b"))
+    tag = ((f"[engine-{L}L mixed" if mixed else f"[engine-{L}L")
+           + (" graphs" if graphs else " eager")
+           + (f" {kvq['dtype']} pool" if kvq else "") + (f" {phase}]" if family else "]"))
     t0 = time.perf_counter()
     app, arch = make_engine_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
                                 slots=8, seq_len=2048, ctx_len=1024, num_blocks=136, chunk=512,
                                 block_tkg=True, device="cuda", mixed=mixed, graphs=graphs,
+                                family=family, params=params, **(extra or {}),
                                 **({} if kvq is None else dict(kv_quant_config=kvq)))
     log(f"{tag} load + warmup {time.perf_counter() - t0:.1f} s; {app.warm_stats}")
     rng = np.random.default_rng(17)
@@ -1831,6 +1948,7 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
                     paged_decode=L * disp[TAG_TOKEN_GENERATION])
         assert all(want[k] > 0 for k in ("prefill", "paged_prefill", "paged_decode")), want
         strats_want = {"cte_flash_kernel", "cte_paged_kernel", "tkg_paged_kernel"}
+    strats_want |= set(extra_strats)
     assert counts == want, f"phase {phase}: launch counts {counts} != {want} (dispatches {disp})"
     strats = strategies_of(app)
     assert strats == strats_want, strats
@@ -3072,9 +3190,10 @@ def quant_vs_cpu(torch, np, mods):
 # ---------------------------------------------------------------------------
 
 
-def timed_generate(torch, Adapter, app, ids, mask, new):
+def timed_generate(torch, Adapter, app, ids, mask, new, **gen_kw):
     """generate() with the host time of every step's token: (prefill ms,
-    decode ms/step, tokens)."""
+    decode ms/step, tokens). ``gen_kw``: more generate() arguments
+    (``adapter_ids``)."""
     from nxdi_tpu_torch.generation import hf_adapter as hfa
 
     stamps, inner = [], hfa.extract_next_tokens
@@ -3088,7 +3207,7 @@ def timed_generate(torch, Adapter, app, ids, mask, new):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=new)
+        toks = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=new, **gen_kw)
         torch.cuda.synchronize()
     finally:
         hfa.extract_next_tokens = inner
@@ -4117,6 +4236,543 @@ def spec_streams_f32(torch, np, mods, params32, ids, mask, launches_total, launc
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 3f, 4h and 5h: mixture-of-experts (the Mixtral family); phases 4i
+# and 5i: multi-adapter LoRA
+# ---------------------------------------------------------------------------
+
+# phase 3f's MoE blocks at two published widths (HF config.json of
+# mistralai/Mixtral-8x7B-v0.1 and Qwen/Qwen3-30B-A3B: hidden size, expert
+# intermediate, experts, experts per token; both renormalise the top-k)
+MOE_BLOCKS = {
+    "Mixtral-8x7B": dict(hidden=4096, inter=14336, experts=8, top_k=2),
+    "Qwen3-30B-A3B": dict(hidden=2048, inter=768, experts=128, top_k=8),
+}
+MOE_BLOCK_M = (8, 520)  # phase 3c's decode and packed-chunk rows
+MOE_CALLS = 11
+# phase 3f: each bf16 dispatch against the float32 dense dispatch over the
+# same bf16 weights and input, token by token: |out - ref| / |ref| over a
+# token's row (L2 norms). The router runs in float32 in both, so the same
+# experts are chosen; the bf16 path then rounds the gate and up outputs,
+# the activation's product and the output to bf16, each a relative error
+# of at most u = 2**-8 (about u / sqrt(3) RMS), about 0.0045 over the row.
+# The limit is 4u; one (token, expert) pair routed or weighted wrongly
+# moves its row by its weight, 0.1-0.9 of the row
+MOE_BF16_ROW_TOL = 2.0 ** -6
+# float32: the per-expert sparse dispatch against the dense one (sums of
+# 2048-14336 products)
+MOE_F32_TOL = 1e-4
+# phase 4h: a Mixtral-shaped model at a width the CPU reference runs in
+# float32: Mixtral's head dim 128, 4 query heads per kv head, 8 experts
+# top-2, vocabulary and rope theta; hidden 1024, expert intermediate 3584
+MOE_SMALL = dict(hidden_size=1024, intermediate_size=3584, num_attention_heads=8,
+                 num_key_value_heads=2, head_dim=128)
+# phases 4i and 5i: rank-16 adapters on all seven projections, alpha 32
+# (scale 2), A and B N(0, 0.02) in the PEFT layout
+LORA_RANK = 16
+LORA_ALPHA = 32.0
+LORA_TARGETS = ["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"]
+
+
+def mixtral_family(**widths):
+    from nxdi_tpu_torch.models.mixtral import modeling_mixtral as tmx
+
+    return tmx, tmx.MixtralInferenceConfig, dict(tmx.MIXTRAL_8X7B, **widths)
+
+
+def grouped_mm_probe(torch):
+    """What this torch's ``torch._grouped_mm`` takes on the card, by dtype:
+    whether an eager call runs (4 groups, one empty) and agrees with the
+    per-group products in float32, and whether it is captured into a CUDA
+    graph (a host read during capture fails it) and replays the same bits.
+    A diagnostic only: ops/moe.grouped_product chooses by dtype and widths."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ends = [16, 40, 40, 64]
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        x = torch.randn(64, 256, generator=gen, device=dev).to(dt)
+        w = torch.randn(4, 256, 128, generator=gen, device=dev).to(dt)
+        offs = torch.tensor(ends, dtype=torch.int32, device=dev)
+        ref = torch.cat([x[a:b].float() @ w[g].float()
+                         for g, (a, b) in enumerate(zip([0] + ends[:-1], ends))])
+        try:
+            y = torch._grouped_mm(x, w, offs=offs)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            out[dname] = f"refused eagerly: {str(e).splitlines()[0][:200]}"
+            continue
+        err = (y.float() - ref).abs().max().item()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                gy = torch._grouped_mm(x, w, offs=offs)
+            graph.replay()
+            torch.cuda.synchronize()
+            captured = f"captured; replay equals eager bit for bit: {torch.equal(gy, y)}"
+        except RuntimeError as e:
+            captured = f"capture failed: {str(e).splitlines()[0][:200]}"
+        out[dname] = f"runs, max err vs per-group float32 {err:.3g}; {captured}"
+    return out
+
+
+def check_moe_blocks(torch, card):
+    """Phase 3f: ``moe_block`` alone in bf16 at Mixtral-8x7B's and
+    Qwen3-30B-A3B's widths, M 8 and 520 rows, sparse dispatch (the grouped
+    GEMM) beside dense dispatch: each against the float32 dense dispatch
+    over the same weights, token by token (MOE_BF16_ROW_TOL), the sparse
+    dispatch replayed from a CUDA graph equal to eager, the float32
+    per-expert product against float32 dense at M 8 (MOE_F32_TOL); times over MOE_CALLS flushed calls
+    beside the bound: the bytes of the experts this routing touches (read
+    once) plus the input, router and output, over the HBM rate, or the
+    FLOPs of the routed (token, expert) pairs over the bf16 peak."""
+    from nxdi_tpu_torch.ops import moe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+                * std).to(torch.bfloat16)
+
+    def to32(tree):
+        return {k: to32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+    probe = grouped_mm_probe(torch)
+    log(f"[moe-3f] torch {torch.__version__} _grouped_mm on the card: {probe}")
+    rows = []
+    for name, c in MOE_BLOCKS.items():
+        H, I, E, K = c["hidden"], c["inter"], c["experts"], c["top_k"]
+        p = {"router": {"w": randn((H, E), 0.02)},
+             "experts": {"gate_proj": {"w": randn((E, H, I), 0.02)},
+                         "up_proj": {"w": randn((E, H, I), 0.02)},
+                         "down_proj": {"w": randn((E, I, H), 0.02)}}}
+        p32 = to32(p)
+        sparse = moe.MoEArch(num_experts=E, top_k=K, intermediate_size=I, norm_topk_prob=True)
+        dense = dataclasses.replace(sparse, dispatch="dense")
+        for M in MOE_BLOCK_M:
+            x = randn((1, M, H))
+            assert moe.moe_strategy(sparse, x) == "moe_sparse_grouped_mm", moe.moe_strategy(sparse, x)
+            ref = moe.moe_block(None, dense, p32, x.float())
+            got_s = moe.moe_block(None, sparse, p, x)
+            got_d = moe.moe_block(None, dense, p, x)
+            scale = ref.abs().max().item()
+            err_s = (got_s.float() - ref).abs().max().item()
+            err_d = (got_d.float() - ref).abs().max().item()
+            ref_norm = ref.norm(dim=-1)
+            row_s = ((got_s.float() - ref).norm(dim=-1) / ref_norm).max().item()
+            row_d = ((got_d.float() - ref).norm(dim=-1) / ref_norm).max().item()
+            assert max(row_s, row_d) <= MOE_BF16_ROW_TOL, (name, M, row_s, row_d)
+            err32 = None
+            if M == 8:
+                assert moe.moe_strategy(sparse, x.float()) == "moe_sparse_per_expert"
+                err32 = (moe.moe_block(None, sparse, p32, x.float()) - ref).abs().max().item()
+                assert err32 <= MOE_F32_TOL, (name, err32)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                g_out = moe.moe_block(None, sparse, p, x)
+            graph.replay()
+            assert torch.equal(g_out, got_s), f"phase 3f {name} M {M}: replay differs from eager"
+            del graph, g_out
+            _, idx = moe.route_topk(x.reshape(M, H).float() @ p32["router"]["w"], sparse)
+            touched = int(torch.unique(idx).numel())
+            nbytes = touched * 3 * H * I * 2 + H * E * 2 + 2 * M * H * 2
+            flops = 2 * M * H * E + 2 * M * K * 3 * H * I
+            bound, by = bound_ms(nbytes, flops, "bfloat16")
+            sparse_ms = measure(torch, lambda: moe.moe_block(None, sparse, p, x), MOE_CALLS, flush)
+            dense_ms = measure(torch, lambda: moe.moe_block(None, dense, p, x), MOE_CALLS, flush)
+            row = dict(block=name, M=M, hidden=H, inter=I, experts=E, top_k=K,
+                       experts_touched=touched, sparse_ms=sparse_ms, dense_ms=dense_ms,
+                       bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+                       dense_flops=2 * M * H * E + 2 * M * E * 3 * H * I,
+                       sparse_err_bf16=err_s, dense_err_bf16=err_d, max_abs_out=scale,
+                       sparse_row_err_bf16=row_s, dense_row_err_bf16=row_d,
+                       sparse_err_f32=err32, card=card)
+            rows.append(row)
+            log(f"[moe-3f] {name} M {M} (bf16, {card}): sparse {sparse_ms:.3f} ms, dense "
+                f"{dense_ms:.3f} ms, bound {bound:.3f} ms by {by} ({touched}/{E} experts "
+                f"touched); vs f32 dense: largest row error sparse {row_s:.4g}, dense "
+                f"{row_d:.4g} (limit {MOE_BF16_ROW_TOL:.4g}); max abs err sparse {err_s:.3g}, "
+                f"dense {err_d:.3g} (largest |out| {scale:.3g})"
+                + (f"; f32 per-expert {err32:.3g}" if err32 is not None else ""))
+        del p, p32
+        torch.cuda.empty_cache()
+    return dict(grouped_mm=probe, blocks=rows)
+
+
+def moe_vs_cpu(torch, np, mods):
+    """Phase 4h: a Mixtral-shaped model (MOE_SMALL), 2 layers, float32, in
+    sparse and then dense dispatch: greedy generate() at batch 2 on the CPU,
+    the card's graphs and the card eagerly (run_three: tokens equal, logits
+    within LOGIT_TOL, graphs equal to eager bit for bit; launches of rows 1,
+    3 and 4 exact, every decode bucket's strategy naming the MoE product it
+    ran), then the split paged engine the same way (engine_vs_cpu, rows 1,
+    6 and 7, the block-table decode)."""
+    family = mixtral_family(**MOE_SMALL)
+    L, NEW = 2, 16
+    out = {}
+    for dispatch in ("sparse", "dense"):
+        phase = f"4h {dispatch}"
+        # the card's per-expert product in float32 (ops/moe.grouped_product)
+        moe_name = "moe_dense" if dispatch == "dense" else "moe_sparse_per_expert"
+        apps, arch = three_apps(mods, layers=L, dtype="float32", batch=2, seq_len=256,
+                                ctx_len=128, output_logits=True, family=family,
+                                moe_dispatch=dispatch)
+        assert arch.head_dim == 128 and arch.num_attention_heads // arch.num_kv_heads == 4
+        ids, mask = prompts(np.random.default_rng(7), 2, 128, [128, 97], arch.vocab_size)
+        worst, _, counts, n_same, _ = run_three(torch, mods, phase, apps, ids, mask, NEW)
+        want = dict.fromkeys(counts, 0)
+        want.update(prefill=L, decode=L * (NEW - 1), commit=NEW - 1)
+        assert counts == want, f"phase {phase}: launches {counts} != {want}"
+        tkg = apps[1].models["token_generation_model"].attention_strategies
+        assert tkg and all(moe_name in ss for ss in tkg.values()), tkg
+        del apps
+        gc.collect()
+        e_counts, e_worst = engine_vs_cpu(torch, np, mods, family=family,
+                                          extra=dict(moe_dispatch=dispatch), phase=phase,
+                                          extra_strats={moe_name})
+        out[dispatch] = dict(generate_max_logit_err=worst, generate_launches=counts,
+                             generate_dispatches_bitwise=n_same, engine_max_logit_err=e_worst,
+                             engine_launches=e_counts, strategy=moe_name)
+        log(f"[moe-2L {phase}] generate(): max logit diff {worst:.3g}, launches {counts}, "
+            f"graphs = eager over {n_same} dispatches; engine: max logit diff {e_worst:.3g}, "
+            f"launches {e_counts}; decode buckets ran {moe_name}")
+        gc.collect()
+    return out
+
+
+def peft_adapter(torch, arch, seed, rank=LORA_RANK, std=0.02):
+    """A random PEFT-format adapter on all seven projections of every layer
+    (HF layouts: A (r, in), B (out, r)), float32 on the host, from ``seed``."""
+    from nxdi_tpu_torch.lora.serving import LORA_TARGETABLE_MODULES
+
+    H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
+    hs, inter = arch.hidden_size, arch.intermediate_size
+    dims = {"q_proj": (hs, H * D), "k_proj": (hs, KV * D), "v_proj": (hs, KV * D),
+            "o_proj": (H * D, hs), "gate_proj": (hs, inter), "up_proj": (hs, inter),
+            "down_proj": (inter, hs)}
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for i in range(arch.num_layers):
+        for m in LORA_TARGETS:
+            fin, fout = dims[m]
+            pre = f"base_model.model.model.layers.{i}.{LORA_TARGETABLE_MODULES[m][1]}.{m}"
+            sd[f"{pre}.lora_A.weight"] = torch.randn(rank, fin, generator=g) * std
+            sd[f"{pre}.lora_B.weight"] = torch.randn(fout, rank, generator=g) * std
+    return sd
+
+
+def merged_params(params, slot):
+    """Base params with slot ``slot``'s adapter merged into the weights,
+    W + s * A @ B, and no LoRA buffers."""
+    if "lora_A" in params:
+        scale = params["lora_scale"][:, slot][:, None, None]
+        delta = (params["lora_A"][:, slot] @ params["lora_B"][:, slot]) * scale
+        out = {k: v for k, v in params.items() if not k.startswith("lora_")}
+        out["w"] = params["w"] + delta.to(params["w"].dtype)
+        return out
+    return {k: merged_params(v, slot) if isinstance(v, dict) else v for k, v in params.items()}
+
+
+def lora_vs_cpu(torch, np, mods):
+    """Phase 4i: Llama-3.2-1B's widths, 2 layers, float32, batch 4, two
+    rank-16 adapters on all seven projections and a base row in one batch
+    (ids a, b, 0, a; rows 0, 2 and 3 on one prompt): CPU, card graphs, card
+    eager (run_three; launches of
+    rows 1, 3 and 4 exact). Adapter a's rows equal a base model's whose
+    weights have a merged in (W + s A B), on the card. Then a third adapter
+    registered after capture evicts a (the least recently used) in place:
+    no graph is captured again, the buffers keep their addresses, and the
+    next replays give adapter c's tokens, equal to eager and the CPU's."""
+    from nxdi_tpu_torch.lora import lora_pointers
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    L, NEW, B = 2, 16, 4
+    lora = dict(max_loras=2, max_lora_rank=LORA_RANK, target_modules=LORA_TARGETS,
+                lora_dtype="float32", lora_alpha=LORA_ALPHA)
+    adapter_cfg = {"r": LORA_RANK, "lora_alpha": LORA_ALPHA}
+    sds = {}
+
+    def adapter_sd(app, name):
+        if name not in sds:
+            sds[name] = peft_adapter(torch, app.family.build_arch(app.config),
+                                     seed=" abc".index(name))
+        return sds[name]
+
+    def setup(app):
+        for name in "ab":
+            app.set_lora_adapter(name, adapter_sd(app, name), adapter_cfg)
+
+    kw = dict(layers=L, dtype="float32", batch=B, seq_len=256, ctx_len=128, output_logits=True)
+    apps, arch = three_apps(mods, setup=setup, lora_config=lora, **kw)
+    cpu_app, gpu_app, eager_app = apps
+    ids, mask = prompts(np.random.default_rng(7), B, 128, [128, 97, 128, 64], arch.vocab_size)
+    # rows 0, 2 and 3 share a prompt: adapter a, the base model, adapter a
+    ids[2], mask[2] = ids[0], mask[0]
+    ids[3], mask[3] = ids[0], mask[0]
+    row_ids = np.array([1, 2, 0, 1])
+    assert [gpu_app.lora_adapter_id(n) for n in "ab"] == [1, 2]
+    worst, out_ab, counts, n_same, logs_ab = run_three(torch, mods, "4i", apps, ids, mask, NEW,
+                                                       adapter_ids=row_ids)
+    want = dict.fromkeys(counts, 0)
+    want.update(prefill=L, decode=L * (NEW - 1), commit=NEW - 1)
+    assert counts == want, f"phase 4i: launches {counts} != {want}"
+    # adapter a moves row 0's logits off the base row's (one prompt; the
+    # greedy tokens of a random model may still agree)
+    moved = max((lg[0] - lg[2]).abs().max().item() for lg in logs_ab)
+    assert moved > 100 * LOGIT_TOL, f"phase 4i: adapter a moved the logits by {moved}"
+    assert (out_ab[0] == out_ab[3]).all()
+
+    # adapter a merged into a base model's weights, on the card
+    merged_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
+                             params=merged_params(gpu_app.params, 1), **kw)
+    logs_lora, logs_merged = [], []
+    recording(gpu_app, logs_lora)
+    recording(merged_app, logs_merged)
+    out_lora = Adapter(gpu_app).generate(ids, attention_mask=mask, max_new_tokens=NEW,
+                                         adapter_ids=row_ids)
+    out_merged = Adapter(merged_app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+    del gpu_app.forward, merged_app
+    merged_err, _, flip = logits_within(torch, "4i merged", logs_merged, logs_lora, LOGIT_TOL,
+                                        rows=[0, 3])
+    if flip is None:
+        assert (out_lora[[0, 3]] == out_merged[[0, 3]]).all(), "phase 4i: merged tokens differ"
+
+    # a swap after capture: c evicts a into slot 1, in place
+    ptrs = lora_pointers(gpu_app.params)
+    def graph_ids():
+        return {tag: {k: id(bg.graph) for k, bg in w.bucket_graphs.items()}
+                for tag, w in gpu_app.models.items()}
+
+    graphs = graph_ids()
+    for app in apps:
+        assert app.set_lora_adapter("c", adapter_sd(app, "c"), adapter_cfg) == 1
+        assert "a" not in app.adapter_cache.slot_of
+    assert lora_pointers(gpu_app.params) == ptrs, "phase 4i: a LoRA buffer moved"
+    worst_c, out_c, counts_c, n_same_c, logs_c = run_three(torch, mods, "4i swap", apps, ids,
+                                                           mask, NEW, adapter_ids=row_ids)
+    assert graph_ids() == graphs, "phase 4i: the swap captured new graphs"
+    # the first replay after the swap (the prefill) reads adapter c on rows
+    # 0 and 3; rows 1 and 2 (adapter b, the base) are the same bits as before
+    swapped = (logs_c[0][[0, 3]] - logs_ab[0][[0, 3]]).abs().max().item()
+    assert swapped > 100 * LOGIT_TOL, f"phase 4i: the swap moved row 0's logits by {swapped}"
+    assert (out_c[[1, 2]] == out_ab[[1, 2]]).all()
+    assert all(torch.equal(a[[1, 2]], b[[1, 2]]) for a, b in zip(logs_ab, logs_c))
+    log(f"[lora-2L 4i] rows a, b, base, a: max logit diff {worst:.3g} (tol {LOGIT_TOL}), "
+        f"launches {counts}, graphs = eager over {n_same} dispatches; adapter a = merged weights "
+        f"(max logit diff {merged_err:.3g} on rows 0 and 3); c swapped in after capture "
+        f"(slot 1, buffers in place, no new graph): max logit diff {worst_c:.3g}, graphs = eager "
+        f"over {n_same_c} dispatches, rows 0 and 3 moved by {swapped:.3g} (adapter a off the "
+        f"base by {moved:.3g}), rows 1 and 2 the same bits")
+    return dict(max_logit_err=worst, launches=counts, merged_max_logit_err=merged_err,
+                swap_max_logit_err=worst_c, swap_launches=counts_c)
+
+
+def decode_step_profile(torch, np, app, out_tokens, lengths, new, K=16, **fwd_kw):
+    """A decode step of ``app`` repeated after a generate() (the next
+    position of each row): K unprofiled steps with the host spans (wall,
+    host split), then one under the profiler (device busy, kernels by
+    time, the attention kernels by name) and one traced for its device
+    operations in order (how many the step launches)."""
+    from nxdi_tpu_torch.generation import hf_adapter as hfa
+
+    B = len(lengths)
+    nxt = np.array([[int(out_tokens[b, n + new - 1])] for b, n in enumerate(lengths)], "int32")
+    pos = (lengths + new - 1).astype("int32")[:, None]
+    lti = np.zeros((B,), "int32")
+
+    def step():
+        hfa.extract_next_tokens(app.forward(nxt, pos, last_token_index=lti, **fwd_kw))
+
+    wall, split = host_window(torch, step, K)
+    _, busy, by_kernel, _ = profiled_call(torch, step)
+    ops = kernel_sequence(torch, step)
+    return dict(wall_ms=wall, busy_ms=busy, idle_pct=100 * (1 - busy / wall), host_split_ms=split,
+                device_ops=len(ops), attention_ms=attention_ms(by_kernel),
+                by_group_ms=by_group(by_kernel), top=by_kernel[:10])
+
+
+def moe_full_depth(torch, np, mods, card):
+    """Phase 5h: Mixtral-8x7B's widths at 8 of its 32 layers, bf16, graphs.
+    generate() on phase 5's prompt shapes (batch 8, 1024 tokens, seed 11 in
+    Mixtral's vocabulary), 32 new tokens, sparse and dense dispatch in turns
+    (S D D S; dense shares the weights): prefill ms, decode ms/step, tok/s,
+    launches of rows 1, 3 and 4 exact, a profiled decode step (busy, idle,
+    host split, attention by kernel) and a profiled prefill (its flash
+    kernel, the TMA + wgmma body at D 128). Then the split paged engine
+    over phase 5b's traffic (engine_full_depth, sparse dispatch, the same
+    weights): tok/s, TTFT, TPOT, rows 1, 6 and 7 exact."""
+    from nxdi_tpu_torch.generation import hf_adapter as hfa
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    family = mixtral_family()
+    L, B, P, NEW = 8, 8, 1024, 32
+    common = dict(layers=L, dtype="bfloat16", batch=B, seq_len=2048, ctx_len=P, device="cuda",
+                  output_logits=True, family=family)
+    t = time.perf_counter()
+    apps = {}
+    apps["sparse"], arch = make_app(ml, TorchConfig, ODSC, App, dense, moe_dispatch="sparse",
+                                    **common)
+    params = apps["sparse"].params
+    param_gb = sum(v.numel() * v.element_size() for v in _leaves(params)) / 1e9
+    apps["dense"], _ = make_app(ml, TorchConfig, ODSC, App, dense, moe_dispatch="dense",
+                                params=params, **common)
+    log(f"[moe-8L 5h] 2 apps loaded {time.perf_counter() - t:.1f} s, params {param_gb:.2f} GB; "
+        + "; ".join(f"{k} warmup {a.warm_stats}" for k, a in apps.items()))
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    lengths = mask.sum(axis=1)
+    kernels = attention_kernels()
+    runs = {k: [] for k in apps}
+    outs = {}
+    for mode in ("sparse", "dense", "dense", "sparse"):
+        app = apps[mode]
+        for fn in kernels.values():
+            fn.launches = 0
+        prefill_ms, decode_ms, toks = timed_generate(torch, Adapter, app, ids, mask, NEW)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = dict.fromkeys(counts, 0)
+        want.update(prefill=L, decode=L * (NEW - 1), commit=NEW - 1)
+        assert counts == want, f"phase 5h {mode}: launches {counts} != {want}"
+        gen = np.stack([toks[b, n:n + NEW] for b, n in enumerate(lengths)])
+        assert gen.shape == (B, NEW) and (gen >= 0).all() and (gen < arch.vocab_size).all()
+        runs[mode].append(dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                               tok_s=B * 1e3 / decode_ms, launches=counts))
+        outs[mode] = toks
+        log(f"[moe-8L 5h] generate() {mode}: prefill {prefill_ms:.2f} ms, decode "
+            f"{decode_ms:.3f} ms/step, {B * 1e3 / decode_ms:.1f} tok/s; launches {counts}")
+    want_strat = {"sparse": "moe_sparse_grouped_mm", "dense": "moe_dense"}
+    for mode, app in apps.items():
+        tkg = app.models["token_generation_model"].attention_strategies
+        assert all(want_strat[mode] in ss for ss in tkg.values()), (mode, tkg)
+    same_rows = int(sum((outs["sparse"][b] == outs["dense"][b]).all() for b in range(B)))
+    profiles = {mode: decode_step_profile(torch, np, app, outs[mode], lengths, NEW)
+                for mode, app in apps.items()}
+    for mode, pr in profiles.items():
+        log(f"[moe-8L 5h] {mode} decode step: wall {pr['wall_ms']:.3f} ms, busy "
+            f"{pr['busy_ms']:.3f} ms (idle {pr['idle_pct']:.1f}%), {pr['device_ops']} device "
+            f"operations; attention {pr['attention_ms']}; by kind {pr['by_group_ms']}; host ms: "
+            f"{split_line(pr['host_split_ms'])}")
+    app = apps["sparse"]
+    wall, busy, by_kernel, split = profiled_call(torch, lambda: hfa.extract_next_tokens(
+        app.forward(ids.astype("int32"), np.tile(np.arange(P, dtype="int32"), (B, 1)),
+                    last_token_index=(lengths - 1).astype("int32"))))
+    attn = attention_ms(by_kernel)
+    assert list(attn) == ["prefill_wgmma_kernel"], f"phase 5h prefill ran {attn}"
+    prefill = dict(wall_ms=wall, busy_ms=busy, attention_ms=attn, by_group_ms=by_group(by_kernel),
+                   top=by_kernel[:10])
+    log(f"[moe-8L 5h] sparse profiled prefill: wall {wall:.2f} ms, busy {busy:.3f} ms; flash "
+        f"prefill {attn['prefill_wgmma_kernel']:.3f} ms over {L} launches; by kind "
+        f"{prefill['by_group_ms']}")
+    summary = {mode: {k: float(np.mean([r[k] for r in rs])) for k in ("prefill_ms", "decode_ms",
+                                                                      "tok_s")}
+               for mode, rs in runs.items()}
+    del apps["dense"], app
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_counts, e_stats = engine_full_depth(torch, np, mods, card, layers=L, family=family,
+                                          params=params, extra=dict(moe_dispatch="sparse"),
+                                          extra_strats={"moe_sparse_grouped_mm"}, phase="5h")
+    e_stats.pop("prompts")
+    log(f"[moe-8L 5h] {card}: generate() " + "; ".join(
+        f"{m} prefill {v['prefill_ms']:.2f} ms decode {v['decode_ms']:.3f} ms/step "
+        f"{v['tok_s']:.1f} tok/s" for m, v in summary.items())
+        + f"; sparse and dense tokens equal on {same_rows}/{B} rows; split engine "
+        f"{e_stats['tok_s']:.1f} tok/s, TTFT p50 {e_stats['ttft_p50_ms']:.2f} ms p95 "
+        f"{e_stats['ttft_p95_ms']:.2f} ms, TPOT p50 {e_stats['tpot_p50_ms']:.3f} ms, launches "
+        f"{e_counts}")
+    del apps, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card, layers=L, param_gb=param_gb, runs=runs, mean=summary,
+                profiled_decode_step=profiles, profiled_prefill=prefill,
+                sparse_dense_equal_rows=same_rows, engine=e_stats, engine_launches=e_counts)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def lora_full_depth(torch, np, mods, card, slice_stats):
+    """Phase 5i: Llama-3.2-1B at 16 layers, bf16, batch 8, graphs, rank-16
+    adapters on all seven projections in 4 slots: generate() on phase 5's
+    prompts, 32 new tokens, rows on adapters 1, 2, 3, 4, 0, 1, 2, 0 and
+    every row on the base slot, in turns (M B B M): decode ms/step beside
+    phase 5's graph sync step of the same run, launches of rows 1, 3 and 4
+    exact, the base slot's tokens equal to phase 5's (a zero delta adds
+    nothing), a profiled decode step of each (busy, idle, host split,
+    device operations per step)."""
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    L, B, P, NEW = 16, 8, 1024, 32
+    lora = dict(max_loras=4, max_lora_rank=LORA_RANK, target_modules=LORA_TARGETS,
+                lora_dtype="bfloat16", lora_alpha=LORA_ALPHA)
+    t = time.perf_counter()
+    app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16", batch=B,
+                         seq_len=2048, ctx_len=P, device="cuda", output_logits=True,
+                         lora_config=lora)
+    for n, name in enumerate("abcd"):
+        slot = app.set_lora_adapter(name, peft_adapter(torch, arch, seed=10 + n),
+                                    {"r": LORA_RANK, "lora_alpha": LORA_ALPHA})
+        assert slot == n + 1
+    log(f"[lora-16L 5i] app loaded, 4 adapters resident {time.perf_counter() - t:.1f} s; "
+        f"warmup {app.warm_stats}")
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    lengths = mask.sum(axis=1)
+    rows = {"mixed": np.array([1, 2, 3, 4, 0, 1, 2, 0], np.int32),
+            "base": np.zeros((B,), np.int32)}
+    kernels = attention_kernels()
+    runs = {k: [] for k in rows}
+    outs = {}
+    for mode in ("mixed", "base", "base", "mixed"):
+        for fn in kernels.values():
+            fn.launches = 0
+        prefill_ms, decode_ms, toks = timed_generate(torch, Adapter, app, ids, mask, NEW,
+                                                     adapter_ids=rows[mode])
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = dict.fromkeys(counts, 0)
+        want.update(prefill=L, decode=L * (NEW - 1), commit=NEW - 1)
+        assert counts == want, f"phase 5i {mode}: launches {counts} != {want}"
+        runs[mode].append(dict(prefill_ms=prefill_ms, decode_ms=decode_ms, launches=counts))
+        outs[mode] = toks
+        log(f"[lora-16L 5i] {mode} rows: prefill {prefill_ms:.2f} ms, decode {decode_ms:.3f} "
+            f"ms/step; launches {counts}")
+    assert (outs["base"] == np.array(slice_stats["tokens"])).all(), \
+        "phase 5i: the base slot's tokens differ from phase 5's"
+    changed = int(sum(not (outs["mixed"][b] == outs["base"][b]).all() for b in range(B)))
+    profiles = {mode: decode_step_profile(torch, np, app, outs[mode], lengths, NEW,
+                                          adapter_ids=rows[mode]) for mode in rows}
+    summary = {mode: {k: float(np.mean([r[k] for r in rs])) for k in ("prefill_ms", "decode_ms")}
+               for mode, rs in runs.items()}
+    p5 = slice_stats["decode_ms_per_step"]
+    p5_prof = slice_stats["profiled_decode_step"]["graph sync"]
+    for mode, pr in profiles.items():
+        log(f"[lora-16L 5i] {mode} decode step: wall {pr['wall_ms']:.3f} ms, busy "
+            f"{pr['busy_ms']:.3f} ms (idle {pr['idle_pct']:.1f}%), {pr['device_ops']} device "
+            f"operations; by kind {pr['by_group_ms']}; host ms: {split_line(pr['host_split_ms'])}")
+    log(f"[lora-16L 5i] phase 5 graph sync decode step: busy {p5_prof['busy_ms']:.3f} ms (idle "
+        f"{p5_prof['idle_pct']:.1f}%), {p5_prof['device_ops']} device operations; by kind "
+        f"{p5_prof['by_group_ms']}")
+    log(f"[lora-16L 5i] {card}: decode ms/step mixed adapters {summary['mixed']['decode_ms']:.3f}, "
+        f"all base {summary['base']['decode_ms']:.3f}, phase 5 graph sync {p5:.3f}; rows changed "
+        f"by their adapter {changed}/{B - 2}; base-slot tokens = phase 5's")
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card, runs=runs, mean=summary, phase_5_decode_ms=p5,
+                phase_5_profiled_decode_step=p5_prof, profiled_decode_step=profiles,
+                rows_changed=changed)
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -4156,12 +4812,15 @@ def main() -> int:
     check_mixed_kernels(torch, kernel_results)
     sampler = check_decode_family(torch, np, kernel_results)
     check_one_byte_kernels(torch, kernel_results)
+    moe_blocks = check_moe_blocks(torch, card)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
     cb_logit_err = cb_vs_cpu(torch, np, mods)
     quant_2l = quant_vs_cpu(torch, np, mods)
     spec_2l = spec_vs_cpu(torch, np, mods)
+    moe_2l = moe_vs_cpu(torch, np, mods)
+    lora_2l = lora_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -4195,9 +4854,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec = spec_full_depth(torch, np, mods, card, dict(slice_times, tokens=slice_tokens))
     spec["phase_4f"] = spec_2l
+    # phases 5h and 5i: Mixtral at 8 layers, LoRA at 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_stats = dict(phase_3f=moe_blocks, phase_4h=moe_2l,
+                     phase_5h=moe_full_depth(torch, np, mods, card))
+    lora_stats = dict(phase_4i=lora_2l, phase_5i=lora_full_depth(
+        torch, np, mods, card, dict(slice_times, tokens=slice_tokens)))
     for _, st in engine.values():
         st.pop("prompts")
         st.pop("app", None)
+    # the head-dim-128 rows count phase 5h's generate() runs and split engine
+    moe5h = moe_stats["phase_5h"]
+    counts_128 = {k: sum(r["launches"][k] for rs in moe5h["runs"].values() for r in rs)
+                  for k in ("prefill", "decode", "commit")}
+    counts_128["prefill"] += moe5h["engine_launches"]["prefill"]
+    counts_128.update({k: moe5h["engine_launches"][k] for k in ("paged_prefill", "paged_decode")})
     # rows 1, 3 and 4 count phase 5f's runs beside phase 5's
     counts = {k: v + spec["launches_total"].get(k, 0) for k, v in counts.items()}
     counts = dict(counts, window_decode=engine_2l_counts["window_decode"],
@@ -4251,11 +4923,14 @@ def main() -> int:
         for row in rows:
             # the rows with cache lines: the contiguous engine's device loop
             # (5d); the one-byte rows: phase 5e's runs on e4m3 stores
+            # (5h's runs for the head-dim-128 rows)
             launches = (family_launches["loop"][key] if row.get("point") == "cache lines"
-                        else quant_launches[key] if "store" in row else counts[key])
+                        else quant_launches[key] if "store" in row
+                        else counts_128[key] if row.get("head_dim") == 128 else counts[key])
             entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches, **{f: row[f] for f in fields}}
-            entry.update({f: row[f] for f in ("M", "point", "body", "split_body", "ms_min",
+            entry.update({f: row[f] for f in ("M", "point", "head_dim", "body", "split_body",
+                                              "ms_min",
                                               "ms_max",
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
                                               "graph_ready_ms", "store", "bf16_pool_ms")
@@ -4265,12 +4940,13 @@ def main() -> int:
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
                    "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts,
-                   "decode_family": family, "quantization": quant, "speculation": spec}, f,
+                   "decode_family": family, "quantization": quant, "speculation": spec,
+                   "moe": moe_stats, "lora": lora_stats}, f,
                   indent=1, default=str)
     print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
                       "decode_family": {k: v for k, v in family.items() if k != "engine"},
-                      "quantization": quant, "speculation": spec,
-                      "kernel_checks": kernel_results}, default=str))
+                      "quantization": quant, "speculation": spec, "moe": moe_stats,
+                      "lora": lora_stats, "kernel_checks": kernel_results}, default=str))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

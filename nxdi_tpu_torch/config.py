@@ -11,8 +11,10 @@ Two levels, as in the JAX package:
 - :class:`InferenceConfig` — model hyperparameters (typically a HF
   ``config.json``) plus a ``tpu_config`` attribute.
 
-Features the port does not carry yet (LoRA, tensor parallelism, ...) are
-not keys here: passing one raises, naming it.
+Features the port does not carry yet (tensor and expert parallelism:
+``moe_tp_degree``, ``moe_ep_degree``, ``hybrid_sharding_config``, ...) are
+not keys here: passing one raises, naming it. Multi-adapter LoRA serving
+(``lora_config``) and the MoE dispatch (``moe_dispatch``) are.
 """
 
 from __future__ import annotations
@@ -188,6 +190,39 @@ class SpeculationConfig:
         return d
 
 
+# the JAX package's refusals of LoRA in the in-graph decode bodies
+LORA_DECODE_BODY_REFUSALS = {
+    "decode_steps_per_dispatch > 1": (
+        "decode_steps_per_dispatch > 1 does not thread per-request "
+        "adapter_ids through the in-graph decode scan yet"),
+    "device_loop": (
+        "device_loop does not thread per-request adapter_ids "
+        "through the in-graph decode loop yet"),
+}
+
+
+class LoraServingConfig:
+    """Multi-adapter LoRA serving (the JAX package's ``LoraServingConfig``,
+    its keys): ``max_loras`` device slots besides the base slot 0, adapters
+    up to ``max_lora_rank``, on ``target_modules``; ``lora_ckpt_paths``
+    ({name: PEFT adapter directory}) are loaded at ``load()``."""
+
+    def __init__(self, **kwargs):
+        self.max_loras = kwargs.pop("max_loras", 1)
+        self.max_lora_rank = kwargs.pop("max_lora_rank", 16)
+        self.lora_ckpt_paths = kwargs.pop("lora_ckpt_paths", None)  # {adapter name: path}
+        self.target_modules = kwargs.pop(
+            "target_modules", ["q_proj", "k_proj", "v_proj", "o_proj"]
+        )
+        self.lora_dtype = kwargs.pop("lora_dtype", "bfloat16")
+        self.lora_alpha = kwargs.pop("lora_alpha", 16.0)
+        if kwargs:
+            raise ValueError(f"Unknown LoraServingConfig args: {sorted(kwargs)}")
+
+    def to_dict(self):
+        return dict(self.__dict__)
+
+
 class TorchConfig:
     """Runtime configuration; the counterpart of the JAX package's
     ``TpuConfig`` for the fields this port implements."""
@@ -297,8 +332,21 @@ class TorchConfig:
             bool(_lcm) if _lcm is not None else self.seq_len >= 32 * 1024
         )
 
+        # --- LoRA serving (lora/serving.py) ---
+        lora = kwargs.pop("lora_config", None)
+        if isinstance(lora, dict):
+            lora = LoraServingConfig(**lora)
+        self.lora_config = lora
+
         # --- parallelism: one device ---
         self.tp_degree = kwargs.pop("tp_degree", 1)
+        # "sparse" = the routed (token, expert) pairs sorted by expert through
+        # a grouped product (ops/moe.py); "dense" = every expert on every token
+        self.moe_dispatch = kwargs.pop("moe_dispatch", "sparse")
+        if self.moe_dispatch not in ("sparse", "dense"):
+            raise ValueError(
+                f"moe_dispatch must be 'sparse' or 'dense', got {self.moe_dispatch!r}"
+            )
 
         # --- attention kernels (hand-written CUDA on the card) ---
         self.attn_kernel_enabled = kwargs.pop("attn_kernel_enabled", None)
@@ -361,6 +409,15 @@ class TorchConfig:
                 "qkv_kernel_enabled requires fused_qkv=True (the kernel runs "
                 "over the fused interleaved QKV weight)"
             )
+        if self.fused_qkv and self.lora_config is not None:
+            raise ValueError(
+                "fused_qkv does not compose with LoRA serving (adapters "
+                "target the separate q/k/v projections)"
+            )
+        if self.mlp_kernel_enabled and self.lora_config is not None:
+            raise ValueError(
+                "mlp_kernel_enabled does not compose with LoRA serving"
+            )
         if self.max_context_length > self.seq_len:
             raise ValueError("max_context_length must not exceed seq_len")
         if self.is_block_kv_layout and self.pa_num_blocks is None:
@@ -378,6 +435,16 @@ class TorchConfig:
             )
         if self.is_medusa and self.num_medusa_heads <= 0:
             raise ValueError("is_medusa requires num_medusa_heads > 0")
+        if self.lora_config is not None and self.async_mode:
+            raise ValueError(
+                "LoRA serving is incompatible with async_mode: the device-"
+                "resident decode loop cannot carry per-request adapter_ids"
+            )
+        if self.lora_config is not None and self.speculates:
+            raise ValueError(
+                "LoRA serving is not supported with speculative decoding yet: "
+                "the speculation graphs do not thread adapter_ids"
+            )
         if self.speculation_length < 0:
             raise ValueError("speculation_length must be >= 0")
         if self.decode_steps_per_dispatch < 1:
@@ -402,6 +469,8 @@ class TorchConfig:
             if self.ctx_batch_size != self.tkg_batch_size:
                 raise ValueError(f"{key} requires ctx_batch_size == tkg_batch_size (the "
                                  "windows chain from the context-encoding outputs)")
+            if self.lora_config is not None:
+                raise ValueError(LORA_DECODE_BODY_REFUSALS[key])
         kvq = self.kv_quant_config
         if kvq is not None and kvq.scale_mode in ("per_key", "per_channel"):
             if self.is_block_kv_layout:
@@ -452,6 +521,7 @@ class TorchConfig:
         "kv_quant_config": KVQuantizationConfig,
         "chunked_prefill_config": ChunkedPrefillConfig,
         "speculation_config": SpeculationConfig,
+        "lora_config": LoraServingConfig,
     }
 
     def to_dict(self) -> Dict[str, Any]:

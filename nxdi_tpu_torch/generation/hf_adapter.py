@@ -30,6 +30,12 @@ and tokens past the KV window limit are discarded. Greedy only (a
 package); a ``logits_processor`` is refused. Windows and emitted tokens are
 counted on the app (``spec_windows``, ``spec_accepted_tokens``).
 
+Multi-adapter LoRA: ``adapter_ids`` (B,) picks each row's adapter slot
+(``app.lora_adapter_id(name)``; 0 or omitted: the base model) for the context
+encoding and every decode step of the sync loop. The config refuses LoRA
+with ``async_mode``, K-step windows, the device loop and speculation (the
+JAX package's rules), so those paths never see adapters.
+
 Not ported yet: the request telemetry spans.
 """
 
@@ -123,6 +129,7 @@ class HuggingFaceGenerationAdapter:
         eos_token_id=None,
         pad_token_id: int = 0,
         seed: int = 0,
+        adapter_ids: Optional[np.ndarray] = None,
         logits_processor=None,
         generation_config=None,
         **unused,
@@ -187,11 +194,15 @@ class HuggingFaceGenerationAdapter:
         select = dict(do_sample=do_sample, top_k=top_k, top_p=top_p, temperature=temperature,
                       lengths=lengths, prompt_width=S, pad_token_id=pad_token_id)
 
+        lora_kwargs = {}
+        if adapter_ids is not None:
+            lora_kwargs["adapter_ids"] = np.asarray(adapter_ids, dtype=np.int32)
+
         position_ids = np.tile(np.arange(S, dtype=np.int32), (B, 1))
         outputs = self.app.forward(
             input_ids.astype(np.int32), position_ids,
             last_token_index=lengths - 1, sampling_params=sampling_params,
-            rng=self._rng.next(),
+            rng=self._rng.next(), **lora_kwargs,
         )
         running = input_ids.copy() if logits_processor else None
         if logits_processor:
@@ -227,7 +238,7 @@ class HuggingFaceGenerationAdapter:
             outputs = self.app.forward(
                 next_tokens[:, None].astype(np.int32), cur_pos[:, None].astype(np.int32),
                 last_token_index=np.zeros((B,), dtype=np.int32),
-                sampling_params=sampling_params, rng=self._rng.next(),
+                sampling_params=sampling_params, rng=self._rng.next(), **lora_kwargs,
             )
             if logits_processor:
                 next_tokens = self._host_select(outputs, running, logits_processor, **select)

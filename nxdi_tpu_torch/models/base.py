@@ -42,7 +42,16 @@ the names are the JAX package's):
   ``attn_mask`` (the tree's nodes share rope positions by depth and write
   distinct slots, ``write_positions``). A multi-token verify on the
   contiguous cache is the deferred ``tkg_two_part_xla`` (the decode kernels
-  take one query token).
+  take one query token);
+- ``moe_dense`` / ``moe_sparse_grouped_mm`` / ``moe_sparse_per_expert`` —
+  a mixture-of-experts layer (``arch.moe`` and ``"moe"`` in the layer's
+  params, ``ops/moe.py``) by its dispatch and grouped product.
+
+Multi-adapter LoRA (``lora/serving.py``): a projection whose params carry
+the slot-stacked ``lora_A`` / ``lora_B`` / ``lora_scale`` buffers adds, per
+batch row, the low-rank delta of the adapter slot ``adapter_ids`` names
+(slot 0 is all zeros: the base model). The fused QKV and MLP kernels take no
+adapter; the config refuses them with LoRA.
 
 On the CPU the kernel choice follows the JAX package's eligibility exactly,
 so both packages take the same branches. On a CUDA tensor an enabled kernel
@@ -89,6 +98,7 @@ from nxdi_tpu_torch.kvcache.kv_cache import (
     KVCacheSpec,
 )
 from nxdi_tpu_torch.ops import attention as attn_ops
+from nxdi_tpu_torch.ops import moe as moe_ops
 from nxdi_tpu_torch.ops import quantization as quant_ops
 from nxdi_tpu_torch.ops import sampling as sampling_ops
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
@@ -138,6 +148,8 @@ class DecoderArch:
     act_clamp: Optional[float] = None
     # the one-byte KV store of a quantized cache (None: the compute dtype)
     kv_quant_dtype: Optional[str] = None
+    # the MoE feed-forward that replaces the dense MLP when set (ops/moe.py)
+    moe: Optional[moe_ops.MoEArch] = None
 
     def __post_init__(self):
         if self.hidden_act != "silu":
@@ -156,15 +168,27 @@ class DecoderArch:
 
 
 def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor], act_quant=None,
-            clamp=None) -> torch.Tensor:
+            clamp=None, adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w (+ b) over a full-precision param dict ``{"w"[, "b"]}`` or a
     quantized one (``ops/quantization.quantized_linear``); weights are
-    stored (in, out) like the JAX package."""
+    stored (in, out) like the JAX package. When the dict carries the
+    slot-stacked LoRA buffers and ``adapter_ids`` (B,) is given, batch row b
+    adds ``((x @ A[id]) @ B[id]) * scale[id]`` with ``id = adapter_ids[b]``
+    (the JAX package's per-row delta)."""
     if "qw" in p or "qw4" in p:
-        return quant_ops.quantized_linear(x, p, act_quant=act_quant, clamp_bound=clamp)
-    y = x @ p["w"]
-    if "b" in p:
-        y = y + p["b"]
+        y = quant_ops.quantized_linear(x, p, act_quant=act_quant, clamp_bound=clamp)
+    else:
+        y = x @ p["w"]
+        if "b" in p:
+            y = y + p["b"]
+    if adapter_ids is not None and "lora_A" in p:
+        ids = adapter_ids.long()
+        A = p["lora_A"][ids].to(x.dtype)  # (B, in, r)
+        Bw = p["lora_B"][ids].to(x.dtype)  # (B, r, out)
+        s = p["lora_scale"][ids]  # (B,)
+        B = x.shape[0]
+        delta = torch.bmm(torch.bmm(x.reshape(B, -1, x.shape[-1]), A), Bw)
+        y = y + (delta * s[:, None, None].to(delta.dtype)).reshape(y.shape)
     return y
 
 
@@ -319,13 +343,14 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     return attn_ops.grouped_attention(q, kk, vv, mask)
 
 
-def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked):
+def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids=None):
     """q, k, v (B, S, width) of the layer: three products, or under
     ``fused_qkv`` one product over the interleaved weight (through the QKV
     kernel under ``qkv_kernel_enabled``), regrouped by rank block."""
     aq, ac = arch.act_quant, arch.act_clamp
     if not arch.fused_qkv:
-        return tuple(_linear(hidden, p_attn[k], aq, ac) for k in ("q_proj", "k_proj", "v_proj"))
+        return tuple(_linear(hidden, p_attn[k], aq, ac, adapter_ids)
+                     for k in ("q_proj", "k_proj", "v_proj"))
     if "qkv_proj" not in p_attn:
         raise NotImplementedError(
             "fused_qkv is enabled but this model's params carry no fused "
@@ -336,7 +361,7 @@ def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked):
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
     Tq, Tk, Tv = H * D, KV * D, KV * D
     if arch.qkv_kernel_enabled:
-        if "w" not in p_attn["qkv_proj"] and qkv_stacked is None:
+        if adapter_ids is not None or ("w" not in p_attn["qkv_proj"] and qkv_stacked is None):
             raise NotImplementedError(
                 "qkv_kernel_enabled requires an unquantized, non-LoRA "
                 "fused qkv_proj weight"
@@ -354,7 +379,7 @@ def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked):
         qkv = qkv.reshape(B, S, T)
         _record_strategy("qkv_fused_kernel")
     else:
-        qkv = _linear(hidden, p_attn["qkv_proj"], aq, ac)
+        qkv = _linear(hidden, p_attn["qkv_proj"], aq, ac, adapter_ids)
         _record_strategy("qkv_fused_matmul")
     # tp = 1 (the only degree ported): the interleaved weight is one rank
     # block [q | k | v], so no regroup by rank is needed
@@ -378,6 +403,7 @@ def attention_block(
     stacked_layer_idx: Optional[int] = None,
     tkg_stacked=None,  # (k_s, v_s, kv_len): stacked-cache fused decode kernel
     qkv_stacked=None,  # (w_s, b_s): the stacked fused QKV weight for its kernel
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) LoRA slots
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """QKV -> RoPE -> KV write or deferred rows -> attention -> O.
 
@@ -389,7 +415,7 @@ def attention_block(
     and attends the cache (:func:`_attend_cache`)."""
     B, S, _ = hidden.shape
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
-    q, k, v = _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked)
+    q, k, v = _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids)
     q = q.reshape(B, S, H, D).transpose(1, 2)
     k = k.reshape(B, S, KV, D).transpose(1, 2)
     v = v.reshape(B, S, KV, D).transpose(1, 2)
@@ -397,7 +423,7 @@ def attention_block(
 
     def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
         return _linear(ctx.transpose(1, 2).reshape(B, S, H * D), p_attn["o_proj"],
-                       arch.act_quant, arch.act_clamp)
+                       arch.act_quant, arch.act_clamp, adapter_ids)
 
     ci = dict(cache_inputs or {})
     ci["position_ids"] = position_ids
@@ -460,16 +486,19 @@ def attention_block(
 
 
 def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor,
-              mlp_stacked=None, layer_idx: Optional[int] = None) -> torch.Tensor:
+              mlp_stacked=None, layer_idx: Optional[int] = None,
+              adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gated SiLU MLP: down(silu(x @ gate) * (x @ up)).
 
     ``mlp_kernel_enabled`` routes it through the fused MLP kernel — with the
     layer-stacked weights and the layer index when ``mlp_stacked`` holds
-    them — and raises where that kernel is not eligible; it never falls
-    back."""
+    them — and raises where that kernel is not eligible (MLP biases, LoRA
+    adapters); it never falls back."""
     if arch.mlp_kernel_enabled:
-        if arch.mlp_bias:
-            raise NotImplementedError("mlp_kernel_enabled does not support MLP biases; "
+        bad = ("MLP biases" if arch.mlp_bias
+               else "LoRA adapters" if adapter_ids is not None else None)
+        if bad is not None:
+            raise NotImplementedError(f"mlp_kernel_enabled does not support {bad}; "
                                       "disable the flag")
         B, S, H = x.shape
         I = arch.intermediate_size
@@ -486,14 +515,16 @@ def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor,
         _record_strategy("mlp_fused_kernel")
         return out.reshape(B, S, H)
     aq, ac = arch.act_quant, arch.act_clamp
-    gate = F.silu(_linear(x, p_mlp["gate_proj"], aq, ac))
-    return _linear(gate * _linear(x, p_mlp["up_proj"], aq, ac), p_mlp["down_proj"], aq, ac)
+    gate = F.silu(_linear(x, p_mlp["gate_proj"], aq, ac, adapter_ids))
+    return _linear(gate * _linear(x, p_mlp["up_proj"], aq, ac, adapter_ids),
+                   p_mlp["down_proj"], aq, ac, adapter_ids)
 
 
 def decoder_layer(
     arch, lp, hidden, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
     attend_to_cache, layout=DEFAULT_KV_LAYOUT, cache_inputs=None, defer_write=False,
     stacked_layer_idx=None, tkg_stacked=None, mlp_stacked=None, qkv_stacked=None,
+    adapter_ids=None,
 ):
     h = rms_norm(hidden, lp["input_layernorm"], arch.rms_norm_eps)
     if "input_norm_skip" in lp:
@@ -504,10 +535,16 @@ def decoder_layer(
         arch, lp["attn"], h, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
         attend_to_cache, layout, cache_inputs, defer_write=defer_write,
         stacked_layer_idx=stacked_layer_idx, tkg_stacked=tkg_stacked, qkv_stacked=qkv_stacked,
+        adapter_ids=adapter_ids,
     )
     hidden = hidden + attn_out
     h = rms_norm(hidden, lp["post_attention_layernorm"], arch.rms_norm_eps)
-    return hidden + mlp_block(arch, lp["mlp"], h, mlp_stacked, stacked_layer_idx), kv
+    # MoE or dense per layer, by the params' structure (the JAX package's rule)
+    if arch.moe is not None and "moe" in lp:
+        _record_strategy(moe_ops.moe_strategy(arch.moe, h))
+        return hidden + moe_ops.moe_block(arch, arch.moe, lp["moe"], h), kv
+    return hidden + mlp_block(arch, lp["mlp"], h, mlp_stacked, stacked_layer_idx,
+                              adapter_ids), kv
 
 
 def stacked_proj_weights(arch: DecoderArch, stacked: Dict[str, Any]):
@@ -515,10 +552,11 @@ def stacked_proj_weights(arch: DecoderArch, stacked: Dict[str, Any]):
     those are enabled: ((gate_s, up_s, down_s) or None, (w_s, b_s) or None).
     Each layer hands its kernel the (L, ...) weight and its index, and the
     kernel offsets its pointer — the torch counterpart of the JAX package's
-    scalar-prefetched layer index."""
-    mlp, qkv = stacked["mlp"], stacked["attn"].get("qkv_proj")
+    scalar-prefetched layer index. A model without a dense MLP (an MoE
+    model) has no stacked MLP weights."""
+    mlp, qkv = stacked.get("mlp"), stacked["attn"].get("qkv_proj")
     mlp_st = (tuple(mlp[k]["w"] for k in ("gate_proj", "up_proj", "down_proj"))
-              if arch.mlp_kernel_enabled else None)
+              if arch.mlp_kernel_enabled and mlp is not None else None)
     qkv_st = ((qkv["w"], qkv.get("b"))
               if arch.qkv_kernel_enabled and qkv is not None and "w" in qkv else None)
     return mlp_st, qkv_st
@@ -543,6 +581,7 @@ def run_decoder_layers(
     layout=DEFAULT_KV_LAYOUT,
     cache_inputs: Optional[Dict[str, torch.Tensor]] = None,
     collect: Optional[List[torch.Tensor]] = None,
+    adapter_ids: Optional[torch.Tensor] = None,
 ):
     """Run the layer stack. Decode on the contiguous cache defers its cache
     writes and commits every layer's fresh rows in ONE kernel launch after
@@ -594,7 +633,7 @@ def run_decoder_layers(
             arch, layer_params(stacked_params, i), hidden, cos, sin, kl, vl, position_ids,
             cache_spec, attend_to_cache, layout, ci, defer_write=defer,
             stacked_layer_idx=i, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
-            qkv_stacked=qkv_stacked,
+            qkv_stacked=qkv_stacked, adapter_ids=adapter_ids,
         )
         if collect is not None:
             collect.append(hidden)
@@ -642,8 +681,8 @@ def causal_lm_forward(
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One submodel forward. ``batch``: input_ids (B,S), position_ids (B,S),
     last_token_index (B,), sampling_params (B,3), and on the paged pool
-    block_table (B,NB), write_index and write_slots — tensors on the model's
-    device. Returns (outputs, cache); outputs has "tokens" (B,1) int32 when
+    block_table (B,NB), write_index and write_slots, and under LoRA
+    adapter_ids (B,) — tensors on the model's device. Returns (outputs, cache); outputs has "tokens" (B,1) int32 when
     sampling on device and "logits" (B,1|S,V) float32 when asked for.
 
     ``mixed_rows`` (the serving engine's one-dispatch mixed step): B is 1 and
@@ -700,7 +739,7 @@ def causal_lm_forward(
         arch, params["layers"], hidden, cos, sin, cache, position_ids, cache_spec,
         attend_to_cache, kv_window=kv_window, layout=layout,
         cache_inputs={k: batch[k] for k in CACHE_INPUT_KEYS if k in batch},
-        collect=layer_hiddens,
+        collect=layer_hiddens, adapter_ids=batch.get("adapter_ids"),
     )
     pre_norm_hidden = hidden
     if "norm" in params:  # EAGLE drafts have no final norm

@@ -13,6 +13,11 @@ torch tensors:
                          # under fused_qkv, q/k/v become one
                          # "qkv_proj": {"w": (L, H, Hq*D + 2*KV*D)}
                 "mlp": {"gate_proj": {"w": (L, H, I)}, "up_proj": ..., "down_proj": ...}}}
+
+An MoE family (``models/mixtral``) replaces each layer's ``mlp`` through
+``convert_hf_state_dict``'s ``ff_converter`` hook, here by ``"moe"``:
+``{"router": {"w": (L, H, E)}, "experts": {"gate_proj": {"w": (L, E, H, I)},
+"up_proj": ..., "down_proj": {"w": (L, E, I, H)}}}`` (``ops/moe.py``).
 """
 
 from __future__ import annotations
@@ -82,6 +87,11 @@ def build_arch(config: InferenceConfig, **overrides) -> DecoderArch:
         kv_quant_dtype=tc.kv_quant_config.dtype if tc.kv_quant_config is not None else None,
     )
     kwargs.update(overrides)
+    if kwargs.get("moe") is not None and kwargs["mlp_kernel_enabled"]:
+        raise NotImplementedError(
+            "mlp_kernel_enabled: this model has no dense MLP (its layers are mixture-of-"
+            "experts); set mlp_kernel_enabled=False"
+        )
     return DecoderArch(**kwargs)
 
 
@@ -144,10 +154,13 @@ def _stack(layers):
 
 
 def convert_hf_state_dict(
-    state_dict: Dict[str, Any], config: InferenceConfig, arch: DecoderArch
+    state_dict: Dict[str, Any], config: InferenceConfig, arch: DecoderArch,
+    ff_converter=None,
 ) -> Dict[str, Any]:
     """HF llama-layout checkpoint (tensors or numpy arrays) -> layer-stacked
-    params dict on the CPU, in the arch's dtype."""
+    params dict on the CPU, in the arch's dtype. MoE families pass
+    ``ff_converter(get, has, cast, layer_prefix) -> (key, params)`` to replace
+    the dense MLP's conversion per layer (e.g. ``("moe", {...})``)."""
     dt = to_torch_dtype(arch.dtype)
     plan = gqa_plan(config)
     D = arch.head_dim
@@ -181,21 +194,26 @@ def convert_hf_state_dict(
             for name, fn in (("q_proj", gqa.convert_q), ("k_proj", gqa.convert_kv),
                              ("v_proj", gqa.convert_kv)):
                 attn[name]["b"] = cast(fn(get(f"{pre}self_attn.{name}.bias")[:, None], D, plan)[:, 0])
-        mlp = {
-            name: {"w": cast(get(f"{pre}mlp.{name}.weight").t())}
-            for name in ("gate_proj", "up_proj", "down_proj")
-        }
-        if arch.mlp_bias:
-            for name in ("gate_proj", "up_proj", "down_proj"):
-                mlp[name]["b"] = cast(get(f"{pre}mlp.{name}.bias"))
         if arch.fused_qkv:
             _fuse_qkv(attn, 1)  # tp_degree is 1: one rank block
-        layers.append({
+        layer = {
             "input_layernorm": cast(get(pre + "input_layernorm.weight")),
             "post_attention_layernorm": cast(get(pre + "post_attention_layernorm.weight")),
             "attn": attn,
-            "mlp": mlp,
-        })
+        }
+        if ff_converter is not None:
+            key, ff = ff_converter(get, has, cast, pre)
+            layer[key] = ff
+        else:
+            mlp = {
+                name: {"w": cast(get(f"{pre}mlp.{name}.weight").t())}
+                for name in ("gate_proj", "up_proj", "down_proj")
+            }
+            if arch.mlp_bias:
+                for name in ("gate_proj", "up_proj", "down_proj"):
+                    mlp[name]["b"] = cast(get(f"{pre}mlp.{name}.bias"))
+            layer["mlp"] = mlp
+        layers.append(layer)
 
     embed = get("embed_tokens.weight")
     if arch.vocab_pad:
@@ -241,9 +259,27 @@ def param_shapes(arch: DecoderArch) -> Dict[str, Any]:
         attn = params["layers"]["attn"]
         del attn["q_proj"], attn["k_proj"], attn["v_proj"]
         attn["qkv_proj"] = {"w": (L, hs, (H + 2 * KV) * D)}
+    if arch.moe is not None:
+        del params["layers"]["mlp"]
+        params["layers"]["moe"] = moe_param_shapes(arch.moe, hs, L)
     if not arch.tie_word_embeddings:
         params["lm_head"] = (hs, V)
     return params
+
+
+def moe_param_shapes(moe, hidden_size: int, num_layers: int) -> Dict[str, Any]:
+    """Shapes of the layer-stacked MoE params of a Mixtral layer (the router
+    and experts of the JAX package's ``moe_shape_struct``; no biases, no
+    shared expert)."""
+    E, H, I, L = moe.num_experts, hidden_size, moe.intermediate_size, num_layers
+    return {
+        "router": {"w": (L, H, E)},
+        "experts": {
+            "gate_proj": {"w": (L, E, H, I)},
+            "up_proj": {"w": (L, E, H, I)},
+            "down_proj": {"w": (L, E, I, H)},
+        },
+    }
 
 
 def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=None):

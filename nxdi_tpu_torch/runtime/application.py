@@ -24,6 +24,13 @@ loaded pre-quantized from ``quantized_checkpoints_path``
 dtype. ``role="decode"`` builds no context-encoding or prefix-prefill
 submodel: its requests arrive as imported KV chains (``serving/handoff.py``).
 
+Multi-adapter LoRA (``lora_config``): :meth:`load` adds the zeroed adapter
+slots to the params on the device (``lora/serving.py``) and loads the
+config's ``lora_ckpt_paths``; :meth:`set_lora_adapter` makes an adapter
+resident, writing its weights into a slot in place (so graphs captured
+before keep serving, with the new weights), and returns the id that
+``generate(adapter_ids=...)`` takes.
+
 Speculation (``nxdi_tpu_torch/speculation/``) subclasses this app: params
 and caches may be nested dicts (``{"draft": ..., "target": ...}``; Medusa's
 ``medusa_heads`` and ``medusa_tokens``), which :meth:`load` moves, allocates
@@ -108,6 +115,7 @@ class TorchModelForCausalLM:
         self.models: Dict[str, ModelWrapper] = {}
         self.params: Optional[Dict[str, Any]] = None
         self.kv_cache: Optional[Dict[str, torch.Tensor]] = None
+        self.adapter_cache = None  # lora.AdapterCache under lora_config
         self.is_loaded = False
 
     def get_state_dict(self) -> Dict[str, Any]:
@@ -277,6 +285,8 @@ class TorchModelForCausalLM:
         if not self.models:
             self.enable_models()
         self.params = _to_device(self.build_params(), self.device)
+        if self.tpu_config.lora_config is not None:
+            self.params = self._attach_lora(self.params)
         self.kv_cache = self.init_cache()
         if self.device.type == "cuda" and self.graphs:
             self.graph_pool = torch.cuda.graph_pool_handle()
@@ -285,6 +295,38 @@ class TorchModelForCausalLM:
         if not self.tpu_config.skip_warmup:
             self.warmup()
         self.is_loaded = True
+
+    # -- LoRA serving --
+    def _attach_lora(self, params):
+        """The adapter slots added to the device params, and the config's
+        adapters loaded into them."""
+        from nxdi_tpu_torch.lora import AdapterCache, attach_lora_buffers
+
+        arch = self.family.build_arch(self.config)
+        lc = self.tpu_config.lora_config
+        params = attach_lora_buffers(params, arch, lc, device=self.device)
+        self.adapter_cache = AdapterCache(self.config, arch, lc)
+        for name, path in (lc.lora_ckpt_paths or {}).items():
+            self.adapter_cache.register(name, path)
+            _, params = self.adapter_cache.ensure(name, params)
+        return params
+
+    def set_lora_adapter(self, name: str, path_or_sd=None, adapter_cfg=None) -> int:
+        """Make adapter ``name`` resident on the device (registering it from
+        ``path_or_sd`` when given; LRU eviction when the slots are full) and
+        return its adapter id for ``generate(adapter_ids=...)``."""
+        if self.adapter_cache is None:
+            raise RuntimeError("LoRA serving is not enabled (set lora_config)")
+        if path_or_sd is not None:
+            self.adapter_cache.register(name, path_or_sd, adapter_cfg)
+        slot, self.params = self.adapter_cache.ensure(name, self.params)
+        return slot
+
+    def lora_adapter_id(self, name: Optional[str]) -> int:
+        """Adapter id of a resident adapter (``None``: 0, the base model)."""
+        if name is None:
+            return 0
+        return self.adapter_cache.slot_of[name]
 
     def init_cache(self) -> Dict[str, Any]:
         """The zeroed KV cache on the app's device (a speculation app's holds

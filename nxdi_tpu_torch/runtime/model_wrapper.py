@@ -58,6 +58,7 @@ from nxdi_tpu_torch.kvcache.kv_cache import (
     drop_slot,
     scatter_indices_fixed,
 )
+from nxdi_tpu_torch.lora.serving import lora_pointers
 from nxdi_tpu_torch.models import base
 from nxdi_tpu_torch.ops.kernels import _build, launch_counters
 from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
@@ -147,6 +148,13 @@ def cache_pointers(cache) -> tuple:
     proposal buffer. A graph replays only over the tensors it captured."""
     return tuple(cache_pointers(v) if isinstance(v, dict) else v.data_ptr()
                  for _, v in sorted(cache.items()))
+
+
+def replay_state(params, cache) -> tuple:
+    """What a graph was captured over and a replay must find unchanged: the
+    params object, the LoRA buffers' addresses (adapter swaps write into
+    them in place) and the cache's addresses."""
+    return id(params), lora_pointers(params), cache_pointers(cache)
 
 
 def count_launches(fn):
@@ -269,6 +277,9 @@ class ModelWrapper:
         # fixed-shape per-row inputs beyond the decoder contract: name ->
         # (shape without the batch dim, dtype, fill when the host omits it)
         self.extra_inputs: Dict[str, Tuple[tuple, Any, Any]] = {}
+        if config.tpu_config.lora_config is not None:
+            # each row's LoRA slot, staged with the inputs (0 = the base model)
+            self.extra_inputs["adapter_ids"] = ((), np.int32, 0)
         # stochastic sampling reads a per-step key (2,) from its inputs
         self.needs_rng = bool(self.forward_kwargs.get("do_sample", False))
         # KV positions past the current length a dispatch may write (a
@@ -470,7 +481,7 @@ class ModelWrapper:
         first dispatch."""
         if self.device.type != "cuda":
             return self._run(key, params, cache, bg.bound)
-        state = (id(params), cache_pointers(cache))
+        state = replay_state(params, cache)
         if bg.graph is None:
             outputs = self._run(key, params, cache, bg.bound)
             self._capture(key, bg, params, cache)
@@ -478,7 +489,7 @@ class ModelWrapper:
             return outputs
         if state != bg.state:
             raise RuntimeError(f"{self.tag} bucket {key}: the CUDA graph was captured over "
-                               "other params or another KV cache")
+                               "other params, other LoRA buffers or another KV cache")
         try:
             bg.graph.replay()
         except Exception as e:
@@ -895,7 +906,7 @@ class DeviceLoopTKGWrapper(_DecodeFamilyWrapper):
         if self.device.type != "cuda":
             return self._run(key, params, cache, bg.bound)
         cap, bucket = key
-        state = (id(params), cache_pointers(cache))
+        state = replay_state(params, cache)
         lg = self.loop_graphs.get(key)
         if lg is None:
             outputs = self._run(key, params, cache, bg.bound)
@@ -905,7 +916,7 @@ class DeviceLoopTKGWrapper(_DecodeFamilyWrapper):
             return outputs
         if state != bg.state:
             raise RuntimeError(f"{self.tag} {key}: the loop graph was captured over other "
-                               "params or another KV cache")
+                               "params, other LoRA buffers or another KV cache")
         self._last_key = key
         lib, stream = _build.library(), _build.stream_ptr(self.device)
         hs = self._host_state

@@ -1486,3 +1486,166 @@ def test_best_path_move_on_both_caches(gen, lines):
         tt.move_path_rows(plain, src.cpu(), dest.cpu(), None if ln is None else ln.cpu())
         for k in cache:
             assert torch.equal(cache[k].cpu(), plain[k]), (L, k)
+
+
+# --- mixture-of-experts and LoRA on the card ---
+
+@pytest.mark.parametrize("case", ["E8K2", "E16K4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_block_grouped_product_on_the_card(gen, dtype, case):
+    """moe_block's sparse dispatch on the card (bf16: torch._grouped_mm over
+    the scatter-add offsets; f32: the per-expert product; E16K4 leaves some
+    experts without rows) and its dense dispatch, each against the float32
+    dense dispatch on the CPU over the same weights (bf16 within 6e-2, a few
+    ulp of outputs ~1-3; f32 within 1e-4), and the sparse dispatch replayed
+    from a CUDA graph equal to eager bit for bit."""
+    from nxdi_tpu_torch.ops import moe
+
+    E, K = (8, 2) if case == "E8K2" else (16, 4)
+    H, I, T = 256, 512, 24
+    p = {"router": {"w": _randn(gen, H, E) * 0.05},
+         "experts": {"gate_proj": {"w": _randn(gen, E, H, I) * 0.05},
+                     "up_proj": {"w": _randn(gen, E, H, I) * 0.05},
+                     "down_proj": {"w": _randn(gen, E, I, H) * 0.05}}}
+    p = {k: {kk: {"w": vv["w"].to(dtype)} if isinstance(vv, dict) else vv.to(dtype)
+             for kk, vv in v.items()} for k, v in p.items()}
+    x = _randn(gen, 2, T // 2, H).to(dtype)
+    sparse = moe.MoEArch(num_experts=E, top_k=K, intermediate_size=I)
+    dense = dataclasses.replace(sparse, dispatch="dense")
+    want_product = "grouped_mm" if dtype == torch.bfloat16 else "per_expert"
+    assert moe.moe_strategy(sparse, x) == f"moe_sparse_{want_product}"
+
+    def cpu32(tree):
+        return {k: cpu32(v) if isinstance(v, dict) else v.float().cpu() for k, v in tree.items()}
+
+    ref = moe.moe_block(None, dense, cpu32(p), x.float().cpu())
+    tol = 6e-2 if dtype == torch.bfloat16 else 1e-4
+    got = moe.moe_block(None, sparse, p, x)
+    for out in (got, moe.moe_block(None, dense, p, x)):
+        assert (out.float().cpu() - ref).abs().max().item() <= tol
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = moe.moe_block(None, sparse, p, x)
+    graph.replay()
+    assert torch.equal(g_out, got)
+
+
+SMALL_MIXTRAL = dict(hidden_size=256, intermediate_size=512, num_attention_heads=8,
+                     num_key_value_heads=2, head_dim=128, vocab_size=512, num_hidden_layers=2,
+                     num_local_experts=8, num_experts_per_tok=2, rope_theta=1e6,
+                     rms_norm_eps=1e-5, sliding_window=None)
+
+
+def _mixtral_app(graphs, params=None, **tc):
+    from nxdi_tpu_torch.config import OnDeviceSamplingConfig, TorchConfig
+    from nxdi_tpu_torch.models import dense
+    from nxdi_tpu_torch.models.mixtral import modeling_mixtral as mx
+    from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM
+
+    kw = dict(tp_degree=1, dtype="bfloat16", on_device_sampling_config=OnDeviceSamplingConfig(),
+              attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, output_logits=True)
+    kw.update(tc)
+    cfg = mx.MixtralInferenceConfig(TorchConfig(**kw), **SMALL_MIXTRAL)
+    arch = mx.build_arch(cfg)
+
+    class App(TorchModelForCausalLM):
+        def build_params(self):
+            return params if params is not None else dense.random_params(arch, seed=0,
+                                                                         device="cuda")
+
+    app = App("<random>", cfg, model_family=mx, graphs=graphs)
+    app.load()
+    return app
+
+
+@pytest.mark.parametrize("dispatch", ["sparse", "dense"])
+def test_moe_app_graph_replay_equals_eager(gen, dispatch):
+    """A 2-layer bf16 Mixtral-shaped app (D 128, 4 query heads per kv head)
+    through generate(): every dispatch replayed from its graph equals the
+    eager app's bit for bit, the launches are the same, and every
+    token-generation bucket recorded the MoE product it ran (the grouped
+    GEMM inside the graphs in sparse dispatch)."""
+    app = _mixtral_app(True, **STATIC, moe_dispatch=dispatch)
+    eager = _mixtral_app(False, params=app.params, **STATIC, moe_dispatch=dispatch)
+    log, counts, toks = _drive(app, "static")
+    e_log, e_counts, e_toks = _drive(eager, "static")
+    assert counts == e_counts and counts["flash_attention_decode_fused"] > 0
+    assert np.array_equal(np.asarray(toks), np.asarray(e_toks))
+    for a, b in zip(log, e_log):
+        assert torch.equal(a["logits"], b["logits"])
+    want = "moe_dense" if dispatch == "dense" else "moe_sparse_grouped_mm"
+    strategies = app.models["token_generation_model"].attention_strategies
+    assert strategies and all(want in s for s in strategies.values())
+    assert all(bg.graph is not None for bg in app.models["token_generation_model"]
+               .bucket_graphs.values())
+
+
+LORA = dict(max_loras=1, max_lora_rank=8, lora_dtype="bfloat16", lora_alpha=16.0,
+            target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                            "down_proj"])
+
+
+def _adapter(seed, std=0.05):
+    """A random PEFT adapter for SMALL_LLAMA (rank 8, every projection)."""
+    g = torch.Generator().manual_seed(seed)
+    hs, inter, q, kv = 256, 512, 4 * 64, 2 * 64
+    dims = {"q_proj": (hs, q), "k_proj": (hs, kv), "v_proj": (hs, kv), "o_proj": (q, hs),
+            "gate_proj": (hs, inter), "up_proj": (hs, inter), "down_proj": (inter, hs)}
+    sd = {}
+    for i in range(SMALL_LLAMA["num_hidden_layers"]):
+        for m, (fin, fout) in dims.items():
+            scope = "mlp" if m.endswith(("gate_proj", "up_proj", "down_proj")) else "self_attn"
+            pre = f"base_model.model.model.layers.{i}.{scope}.{m}"
+            sd[pre + ".lora_A.weight"] = torch.randn(8, fin, generator=g) * std
+            sd[pre + ".lora_B.weight"] = torch.randn(fout, 8, generator=g) * std
+    return sd
+
+
+def test_lora_swap_after_capture_is_seen_by_the_next_replay(gen):
+    """An adapter written into its slot after the graphs were captured (the
+    LRU evicting the first one into the same slot, in place) is what the
+    next replays read: the tokens and logits equal the eager app's with the
+    same swap, bit for bit, and differ from before the swap; the buffers
+    keep their addresses and no graph is captured again."""
+    from nxdi_tpu_torch.generation.hf_adapter import HuggingFaceGenerationAdapter
+    from nxdi_tpu_torch.lora import lora_pointers
+
+    apps = [_card_app(True, **STATIC, lora_config=LORA)]
+    apps.append(_card_app(False, params=apps[0].params, **STATIC, lora_config=LORA))
+    ids = np.random.default_rng(3).integers(1, 512, (2, 40)).astype(np.int64)
+    outs = {}
+    for name, seed in (("a", 1), ("b", 2)):
+        for app in apps:
+            assert app.set_lora_adapter(name, _adapter(seed), {"r": 8, "lora_alpha": 16.0}) == 1
+        ptrs = lora_pointers(apps[0].params)
+        graphs = {k: id(bg.graph) for k, bg in apps[0].models["token_generation_model"]
+                  .bucket_graphs.items()}
+        logs = [_logged(app) for app in apps]
+        toks = [HuggingFaceGenerationAdapter(app).generate(ids, max_new_tokens=24,
+                                                           adapter_ids=np.array([1, 0]))
+                for app in apps]
+        for app in apps:
+            del app.forward
+        assert np.array_equal(toks[0], toks[1])
+        assert all(torch.equal(a["logits"], b["logits"]) for a, b in zip(*logs))
+        assert lora_pointers(apps[0].params) == ptrs
+        if name == "b":  # replays of the graphs captured while a was resident
+            assert graphs == {k: id(bg.graph) for k, bg in apps[0].models[
+                "token_generation_model"].bucket_graphs.items()}
+        outs[name] = (toks[0], logs[0][0]["logits"])
+    assert (outs["a"][1][0] - outs["b"][1][0]).abs().max().item() > 1e-2  # row 0: the adapter
+    assert torch.equal(outs["a"][1][1], outs["b"][1][1])  # row 1: the base slot
+
+
+def test_lora_replay_checks_the_buffers(gen):
+    """A graph replays only over the LoRA buffers it captured: a buffer
+    rebound to a new tensor makes the next replay raise."""
+    from nxdi_tpu_torch.generation.hf_adapter import HuggingFaceGenerationAdapter
+
+    app = _card_app(True, **STATIC, lora_config=LORA)
+    ids = np.random.default_rng(3).integers(1, 512, (2, 40)).astype(np.int64)
+    HuggingFaceGenerationAdapter(app).generate(ids, max_new_tokens=4)
+    q = app.params["layers"]["attn"]["q_proj"]
+    q["lora_A"] = q["lora_A"].clone()
+    with pytest.raises(RuntimeError, match="other LoRA buffers"):
+        HuggingFaceGenerationAdapter(app).generate(ids, max_new_tokens=4)
