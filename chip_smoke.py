@@ -176,6 +176,26 @@ code is non-zero:
    seven projections, 4 adapters and base rows, graph sync, beside every
    row on the base slot (whose tokens must equal phase 5's) and phase 5's
    step: decode ms/step, busy and idle share, device operations a step.
+3g. Multi-head Latent Attention's kernels: the commit at the latent widths
+   (K 64, V 512, one kv head; the per-layer launch MLA makes, and a routed
+   prefill write) bit for bit against its plain version in bf16 and f32,
+   timed beside an empty launch and index_put; the fused MLP (stacked
+   entry) at DeepSeek-V3's dense MLP (H 7168, I 18432) at M 8 and 8192
+   against its plain version, timed over flushed calls beside three torch
+   products and the bound.
+4j. A DeepSeek-shaped model (V3's head widths, vocabulary and yarn rope;
+   hidden 1024, 8 heads, 16 experts top-4 in groups, a shared expert, one
+   dense layer before two MoE layers), float32: generate() at batch 2 with
+   the fused MLP off and on, and the contiguous engine with it on, each on
+   the CPU, the card's graphs and the card eagerly: tokens equal, logits
+   within 1e-4, graphs equal to eager bit for bit, launches of rows 4 and
+   9/10 exact.
+5j. DeepSeek-V3's published widths with the depth cut to 4 layers (its 3
+   dense layers and 1 MoE layer, ~30 GB of bf16 weights), graphs:
+   generate() at batch 8 and 1 on phase 5's prompt shapes (prefill ms,
+   decode ms/step, a profiled decode step, launches of rows 4 and 9/10
+   exact), then the contiguous engine over phase 5b's traffic (tok/s,
+   TTFT, TPOT).
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -1166,6 +1186,15 @@ def model_config(ml, tcfg, layers, family=None):
     return module, cfg_cls(tcfg, **dict(widths, num_hidden_layers=layers))
 
 
+def random_weights(dense, module, cfg, arch, device):
+    """The model's random weights from seed 0: the family's own
+    ``random_params`` where it has one (DeepSeek's segments), else
+    dense.random_params."""
+    if module.__name__.endswith("modeling_deepseek"):
+        return module.random_params(cfg, seed=0, device=device)
+    return dense.random_params(arch, seed=0, device=device)
+
+
 def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, dense, *,
              layers, dtype, batch, seq_len, ctx_len, device, params=None, output_logits=False,
              graphs=True, async_mode=False, steps=1, do_sample=False, family=None, **extra):
@@ -1192,7 +1221,7 @@ def make_app(ml, TorchConfig, OnDeviceSamplingConfig, TorchModelForCausalLM, den
                 return params
             # quantized (``quantized`` in ``extra``) on the device, as
             # build_params quantizes a converted checkpoint
-            return maybe_quantize_params(dense.random_params(arch, seed=0, device=device),
+            return maybe_quantize_params(random_weights(dense, module, cfg, arch, device),
                                          self.tpu_config)
 
     app = App("<random>", cfg, model_family=module, device=device, graphs=graphs)
@@ -1309,7 +1338,7 @@ def logits_within(torch, phase, logs_ref, logs_got, tol, rows=None):
     return worst, compared, None
 
 
-def run_three(torch, mods, phase, apps, ids, mask, new, **gen_kw):
+def run_three(torch, mods, phase, apps, ids, mask, new, kernels=None, **gen_kw):
     """generate() on each of ``three_apps``: the graphs' tokens equal the
     eager run's and their logits bit for bit, the CPU's logits within
     LOGIT_TOL of the graphs' and its tokens equal (up to a near tie).
@@ -1321,7 +1350,7 @@ def run_three(torch, mods, phase, apps, ids, mask, new, **gen_kw):
     logs = ([], [], [])
     for app, log_list in zip(apps, logs):
         recording(app, log_list)
-    kernels = attention_kernels()
+    kernels = kernels or attention_kernels()
     try:
         out_cpu = Adapter(cpu_app).generate(ids, attention_mask=mask, max_new_tokens=new, **gen_kw)
         for fn in kernels.values():
@@ -1671,6 +1700,14 @@ def attention_kernels():
     return {"prefill": fa.flash_attention_prefill, "paged_prefill": fa.paged_attention_prefill,
             "paged_decode": fa.paged_attention_decode, "window_decode": fa.flash_attention_decode,
             "decode": fa.flash_attention_decode_fused, "commit": kc.kv_commit_rows}
+
+
+def counted_kernels():
+    """The attention kernels and the fused MLP (rows 9/10 count in one
+    counter): the wrappers a DeepSeek run's launches are read from."""
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+
+    return dict(attention_kernels(), mlp=fp.fused_mlp)
 
 
 def record_packs(app):
@@ -2220,11 +2257,13 @@ SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8)
 
 def make_cb_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
                 device, params=None, graphs=True, steps=1, loop=False, fence=0,
-                do_sample=False, deterministic=False, output_logits=False, **extra):
+                do_sample=False, deterministic=False, output_logits=False, family=None,
+                **extra):
     """A contiguous continuous-batching app (slot = cache line): the K-step
     submodel when ``steps`` > 1, the device loop when ``loop``; its
     context-encoding batch is the decode batch (the JAX package's rule for
-    both), loaded and warmed up; ``extra`` sets or overrides config keys."""
+    both), loaded and warmed up; ``extra`` sets or overrides config keys;
+    ``family`` another model (model_config)."""
     tcfg = TorchConfig(**{
         **dict(tp_degree=1, batch_size=slots, seq_len=seq_len, max_context_length=ctx_len,
                dtype=dtype,
@@ -2234,16 +2273,16 @@ def make_cb_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_
                attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
                output_logits=output_logits, skip_warmup=True),
         **extra})
-    cfg = ml.LlamaInferenceConfig(tcfg, **dict(ml.LLAMA_3_2_1B, num_hidden_layers=layers))
-    arch = ml.build_arch(cfg)
+    module, cfg = model_config(ml, tcfg, layers, family)
+    arch = module.build_arch(cfg)
 
     class CBApp(App):
         def build_params(self):
             if params is not None:
                 return params
-            return dense.random_params(arch, seed=0, device=device)
+            return random_weights(dense, module, cfg, arch, device)
 
-    app = CBApp("<random>", cfg, model_family=ml, device=device, graphs=graphs)
+    app = CBApp("<random>", cfg, model_family=module, device=device, graphs=graphs)
     app.load()
     app.warm_stats = warm(app)
     return app, arch
@@ -2561,11 +2600,13 @@ def cb_full_depth(torch, np, mods, card, slice_stats):
     return out, launches
 
 
-def cb_engine_run(torch, np, app, reqs, extra_prompts, NEW, L):
+def cb_engine_run(torch, np, app, reqs, extra_prompts, NEW, L, counts_fn=None):
     """One contiguous engine over phase 5b's traffic (8 requests at the
     start, then one per step), then 8 fresh 200-token requests admitted one
     per step and, once all decode, decode-only steps: 2 unprofiled with the
-    host spans (wall, host split), then one under the profiler (busy)."""
+    host spans (wall, host split), then one under the profiler (busy).
+    ``counts_fn(eng)`` gives the launches the run must count, by kernel
+    (default: cb_counts)."""
     from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
     eng = InferenceEngine(app, SchedulerConfig())
@@ -2574,7 +2615,9 @@ def cb_engine_run(torch, np, app, reqs, extra_prompts, NEW, L):
     def on_token(req, tok):
         stamps.setdefault(req.request_id, []).append(time.perf_counter())
 
-    for fn in attention_kernels().values():
+    counts_fn = counts_fn or (lambda e: cb_counts(e, L))
+    kernels = counted_kernels()
+    for fn in kernels.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -2591,9 +2634,8 @@ def cb_engine_run(torch, np, app, reqs, extra_prompts, NEW, L):
         outs += eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    got = {k: fn.launches for k, fn in attention_kernels().items()
-           if k in ("prefill", "decode", "commit")}
-    want = cb_counts(eng, L)
+    want = counts_fn(eng)
+    got = {k: kernels[k].launches for k in want}
     assert got == want, f"phase 5d: launches {got} != {want} ({eng.dispatches})"
     assert len(outs) == 16 and all(len(o.token_ids) == NEW for o in outs)
     ttft = np.array([stamps[i][0] - arrivals[i] for i in arrivals]) * 1e3
@@ -4695,8 +4737,8 @@ def moe_full_depth(torch, np, mods, card):
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    for v in (tree if isinstance(tree, list) else tree.values()):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v)
         else:
             yield v
@@ -4773,6 +4815,350 @@ def lora_full_depth(torch, np, mods, card, slice_stats):
                 rows_changed=changed)
 
 
+# ---------------------------------------------------------------------------
+# phases 3g, 4j and 5j: Multi-head Latent Attention and the DeepSeek family
+# ---------------------------------------------------------------------------
+
+# phase 3g's commit at the latent widths: one layer of DeepSeek-V3's 4-layer
+# cut (K 64 = qk_rope, V 512 = kv_lora, one kv head), B 8, S 2048 (phase 5j)
+MLA_COMMIT = dict(layers=4, batch=8, seq=2048, k=64, v=512)
+# phase 3g's fused MLP at DeepSeek-V3's dense MLP (hidden 7168, intermediate
+# 18432), the 3-layer stack of its dense head (first_k_dense_replace), at
+# the decode step's 8 rows and phase 5j's prefill (batch 8 x 1024 tokens);
+# weights N(0, 1/fan_in) so every product keeps unit scale
+MLP_V3 = dict(hidden=7168, inter=18432, layers=3)
+MLP_V3_M = (8, 8192)
+# phase 4j: DeepSeek-V3's head widths (qk_nope 128, qk_rope 64, v 128,
+# kv_lora 512, q_lora 1536), its vocabulary and yarn rope; hidden narrowed
+# to 1024 (the dense and expert intermediates in V3's ratios), 8 heads, 16
+# experts top-4 in 4 groups keeping 2, one shared expert, one dense layer
+MLA_SMALL = dict(hidden_size=1024, intermediate_size=2560, moe_intermediate_size=256,
+                 num_attention_heads=8, num_key_value_heads=8, n_routed_experts=16,
+                 num_experts_per_tok=4, n_group=4, topk_group=2, n_shared_experts=1,
+                 first_k_dense_replace=1)
+# an MLA layer attends plain: the attention kernel flags raise on the card
+MLA_FLAGS = dict(attn_kernel_enabled=False, attn_tkg_kernel_enabled=False)
+
+
+def deepseek_family(**widths):
+    from nxdi_tpu_torch.models.deepseek import modeling_deepseek as tds
+
+    return tds, tds.DeepseekInferenceConfig, dict(tds.DEEPSEEK_V3, **widths)
+
+
+def check_mla_kernels(torch, results):
+    """Phase 3g. Row 4 at the latent widths (MLA_COMMIT): the per-layer
+    commit the MLA path launches (one layer's (1, B, 1, S, D) view of the
+    stacked cache, one row a line) bit for bit against its plain version in
+    bf16 and f32, and a routed 128-row prefill write with lines; bf16 timed
+    (DECODE_CALLS flushed calls) beside an empty kernel at its launch shape,
+    the plain version and index_put of the same rows. Rows 9/10 at
+    DeepSeek-V3's dense MLP (MLP_V3): the stacked entry at layer 2 equal to
+    the unstacked call, each M held to its plain version (row 9's
+    tolerance), timed (GEMM_CALLS flushed calls) beside three torch
+    products; bound: the weights' bytes, or the operations."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(97)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * std).to(dtype)
+
+    c = MLA_COMMIT
+    L, B, S, Dk, Dv = c["layers"], c["batch"], c["seq"], c["k"], c["v"]
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        es = torch.tensor([], dtype=dt).element_size()
+        kst, vst = randn((L, B, 1, S, Dk), dt), randn((L, B, 1, S, Dv), dt)
+        li = L - 1
+        kl, vl = kst[li][None], vst[li][None]  # the layer view layout.update hands the kernel
+        kr, vr = randn((1, B, 1, 1, Dk), dt), randn((1, B, 1, 1, Dv), dt)
+        slots = torch.tensor([[1000 + 7 * b] for b in range(B)], dtype=torch.int32, device=dev)
+        k_ref, v_ref = kl.clone(), vl.clone()
+        kc.kv_commit_rows_plain(k_ref, v_ref, kr, vr, slots)
+        kc.kv_commit_rows(kl, vl, kr, vr, slots)
+        torch.cuda.synchronize()
+        assert torch.equal(kl, k_ref) and torch.equal(vl, v_ref), f"3g commit {dname}: not exact"
+        # a routed prefill: 128 rows of 3 lines into lines (5, 0, 6), one dropped
+        T = 128
+        kp, vp = randn((1, 3, 1, T, Dk), dt), randn((1, 3, 1, T, Dv), dt)
+        pslots = torch.arange(T, dtype=torch.int32, device=dev)[None].repeat(3, 1)
+        pslots[1, -1] = -1
+        lines = torch.tensor([5, 0, 6], dtype=torch.int32, device=dev)
+        k_ref, v_ref = kl.clone(), vl.clone()
+        kc.kv_commit_rows_plain(k_ref, v_ref, kp, vp, pslots, lines)
+        kc.kv_commit_rows(kl, vl, kp, vp, pslots, lines)
+        torch.cuda.synchronize()
+        assert torch.equal(kl, k_ref) and torch.equal(vl, v_ref), \
+            f"3g routed commit {dname}: not exact"
+        if dname != "bfloat16":
+            log(f"[mla-3g] commit float32 at K {Dk} / V {Dv}: exact (decode rows and a routed "
+                "prefill)")
+            continue
+        times, _, _ = traced_times(torch, lambda: kc.kv_commit_rows(kl, vl, kr, vr, slots),
+                                   DECODE_CALLS, flush, kernel="kv_commit_kernel")
+        ms, lo, hi = spread(times)
+        floor, _, _ = traced_times(torch, lambda: kc.empty_launch(B, 128, dev), DECODE_CALLS,
+                                   flush, kernel="empty_launch_kernel")
+        floor_ms = spread(floor)[0]
+        plain_ms = measure(torch, lambda: kc.kv_commit_rows_plain(kl, vl, kr, vr, slots),
+                           flush=flush)
+        sl, bi, zero = slots[:, 0].long(), torch.arange(B, device=dev), torch.zeros(
+            B, dtype=torch.long, device=dev)
+
+        def library_commit():
+            kl[:, bi, :, sl] = kr[:, bi, :, zero]
+            vl[:, bi, :, sl] = vr[:, bi, :, zero]
+
+        lib_ms = measure(torch, library_commit, flush=flush)
+        nbytes = 2 * B * (Dk + Dv) * es  # rows read + written
+        bms, by = bound_ms(nbytes, 0, dname)
+        results.append(dict(kernel="commit", dtype=dname, point="MLA latent", max_abs_err=0.0,
+                            tol=0.0, ms=ms, ms_min=lo, ms_max=hi, launch_floor_ms=floor_ms,
+                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                            k_width=Dk, v_width=Dv))
+        log(f"[mla-3g] commit bfloat16 at K {Dk} / V {Dv}, one layer, B {B}: exact; kernel "
+            f"{ms:.4f} ms ({lo:.4f}-{hi:.4f}); empty kernel at its launch shape {floor_ms:.4f}; "
+            f"plain {plain_ms:.4f} index_put {lib_ms:.4f} bound {bms:.6f} ({by})")
+        del kst, vst, kl, vl, k_ref, v_ref
+    torch.cuda.empty_cache()
+
+    m = MLP_V3
+    H, I, Ld = m["hidden"], m["inter"], m["layers"]
+    dt = torch.bfloat16
+    g_s, u_s = randn((Ld, H, I), dt, H ** -0.5), randn((Ld, H, I), dt, H ** -0.5)
+    d_s = randn((Ld, I, H), dt, I ** -0.5)
+    li = Ld - 1
+    for M in MLP_V3_M:
+        x = randn((M, H), dt)
+        assert torch.equal(fp.fused_mlp_stacked(x, g_s, u_s, d_s, li),
+                           fp.fused_mlp(x, g_s[li], u_s[li], d_s[li])), f"3g mlp stacked M={M}"
+        row = gemm_point(torch, results, "mlp", "bfloat16", M,
+                         lambda: fp.fused_mlp_stacked(x, g_s, u_s, d_s, li),
+                         lambda: fp.fused_mlp_plain(x, g_s[li], u_s[li], d_s[li]),
+                         lambda: (F.silu(x @ g_s[li]) * (x @ u_s[li])) @ d_s[li],
+                         (2 * M * H + 3 * H * I) * 2, 6 * M * H * I, flush)
+        row.update(point="DeepSeek-V3", hidden=H, inter=I)
+        log(f"[mla-3g] mlp bfloat16 at DeepSeek-V3's H {H} I {I}, M {M}: err "
+            f"{row['max_abs_err']:.3g} (limit {row['tol']}); kernel {row['ms']:.4f} ms "
+            f"({row['ms_min']:.4f}-{row['ms_max']:.4f}); three torch products "
+            f"{row['library_ms']:.4f}; bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound")
+    del g_s, u_s, d_s
+    torch.cuda.empty_cache()
+
+
+def mla_counts(L, k_dense, n_cte, steps, mlp_kernel):
+    """The launches of a DeepSeek run: no attention kernel (MLA attends
+    plain); one commit a layer per context encoding that routes its writes
+    (``n_cte``: the contiguous engine's; generate()'s slice write launches
+    nothing) and per decode step (an MLA layer never defers); with
+    ``mlp_kernel`` one fused MLP a dense-head layer per forward."""
+    want = dict.fromkeys(counted_kernels(), 0)
+    want["commit"] = L * (n_cte + steps)
+    if mlp_kernel:
+        want["mlp"] = k_dense * (n_cte + steps)
+    return want
+
+
+def mla_vs_cpu(torch, np, mods):
+    """Phase 4j: a DeepSeek-shaped model (MLA_SMALL, 3 layers: one dense,
+    two MoE), float32, yarn rope: generate() at batch 2 with the fused MLP
+    kernel off and then on, on the CPU, the card's graphs and the card
+    eagerly (run_three: tokens equal, logits within LOGIT_TOL, graphs equal
+    to eager bit for bit), launches of rows 4 and 9/10 exact; then the
+    contiguous engine (the fused MLP on) over 3 requests in 2 slots, one
+    arriving at step 2, the same three ways: streams equal, logits within
+    LOGIT_TOL, graphs equal to eager bit for bit, launches exact. On the card
+    an attention kernel flag on an MLA model raises, naming MLA attention."""
+    from nxdi_tpu_torch.ops import mla as mla_ops
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+    from nxdi_tpu_torch.serving import SamplingParams
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    family = deepseek_family(**MLA_SMALL)
+    L, NEW, K_DENSE = 3, 16, 1
+    out = {}
+    for mlp_kernel in (False, True):
+        phase = "4j generate" + (" mlp kernel" if mlp_kernel else "")
+        apps, arch = three_apps(mods, layers=L, dtype="float32", batch=2, seq_len=256,
+                                ctx_len=128, output_logits=True, family=family,
+                                mlp_kernel_enabled=mlp_kernel, **MLA_FLAGS)
+        assert (arch.mla.qk_head_dim, arch.mla.v_head_dim, arch.mla.kv_lora_rank,
+                arch.mla.q_lora_rank) == (192, 128, 512, 1536)
+        assert isinstance(apps[1].params["layers"], list)
+        assert tuple(apps[1].kv_cache["v"].shape[-2:]) == (256, 512)
+        if not mlp_kernel:
+            try:
+                mla_ops.mla_kernel_gate(dataclasses.replace(arch, attn_kernel_enabled=True),
+                                        on_cuda=True)
+                raise AssertionError("phase 4j: attn_kernel_enabled on MLA did not raise")
+            except NotImplementedError as e:
+                assert "MLA attention" in str(e), e
+        ids, mask = prompts(np.random.default_rng(7), 2, 128, [128, 97], arch.vocab_size)
+        worst, _, counts, n_same, _ = run_three(torch, mods, phase, apps, ids, mask, NEW,
+                                                kernels=counted_kernels())
+        want = mla_counts(L, K_DENSE, 0, NEW - 1, mlp_kernel)
+        want["mlp"] = K_DENSE * NEW if mlp_kernel else 0  # the prefill's dense layer too
+        assert counts == want, f"phase {phase}: launches {counts} != {want}"
+        strat = strategies_of(apps[1])
+        assert "mla_xla" in strat and ("mlp_fused_kernel" in strat) == mlp_kernel, strat
+        out[phase] = dict(max_logit_err=worst, launches=counts, dispatches_bitwise=n_same,
+                          strategies=sorted(strat))
+        log(f"[mla-3L {phase}] max logit diff {worst:.3g}, launches {counts}, graphs = eager "
+            f"over {n_same} dispatches; strategies {sorted(strat)}")
+        params = apps[0].params
+        del apps
+        gc.collect()
+    # the contiguous engine, three ways, one set of weights
+    phase = "4j engine mlp kernel"
+    cb = {}
+    for name, dev, graphs in (("cpu", "cpu", True), ("graphs", "cuda", True),
+                              ("eager", "cuda", False)):
+        cb[name], _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="float32",
+                                  slots=2, seq_len=256, ctx_len=128, device=dev, graphs=graphs,
+                                  output_logits=True, params=params, family=family,
+                                  mlp_kernel_enabled=True, **MLA_FLAGS)
+        params = cb[name].params  # the next app moves these (or shares them)
+    rng = np.random.default_rng(23)
+    reqs = [rng.integers(1, arch.vocab_size, n).tolist() for n in (100, 37, 64)]
+    streams, logs, e_counts = {}, {}, None
+    for name, app in cb.items():
+        logs[name] = []
+        kernels = counted_kernels()
+        for fn in kernels.values():
+            fn.launches = 0
+        streams[name], eng = run_cb(app, reqs, lambda i: SamplingParams(max_new_tokens=12),
+                                    arrivals=[0, 0, 2], logits=logs[name])
+        if name == "graphs":
+            e_counts = {k: fn.launches for k, fn in kernels.items()}
+            e_want = mla_counts(L, K_DENSE, eng.dispatches[TAG_CONTEXT_ENCODING],
+                                eng.dispatches[TAG_TOKEN_GENERATION], True)
+            assert e_counts == e_want, f"phase {phase}: launches {e_counts} != {e_want}"
+    assert streams["graphs"] == streams["eager"], f"phase {phase}: graphs != eager"
+    e_same = same_bits(torch, phase, logs["graphs"], logs["eager"])
+    e_worst, _, flip = logits_within(torch, phase, logs["cpu"], logs["graphs"], LOGIT_TOL)
+    if flip is None:
+        assert streams["cpu"] == streams["graphs"], f"phase {phase}: streams differ"
+    out[phase] = dict(max_logit_err=e_worst, launches=e_counts, dispatches_bitwise=e_same,
+                      streams_equal_cpu=streams["cpu"] == streams["graphs"])
+    log(f"[mla-3L {phase}] max logit diff {e_worst:.3g}, launches {e_counts}, graphs = eager "
+        f"over {e_same} dispatches; streams equal to the CPU's: "
+        f"{streams['cpu'] == streams['graphs']}")
+    del cb, params
+    gc.collect()
+    return out
+
+
+def mla_full_depth(torch, np, mods, card):
+    """Phase 5j: DeepSeek-V3 at its published widths with its depth cut to
+    4 layers (the 3 dense layers of first_k_dense_replace and 1 MoE layer;
+    reduced: 61 -> 4 layers), bf16, random weights, graphs, the fused MLP
+    kernel on the dense layers. generate() on phase 5's prompt shapes at
+    batch 8 and batch 1 (its first row), 32 new tokens, in turns (8 1 1 8):
+    prefill ms, decode ms/step, launches of rows 4 and 9/10 exact, a
+    profiled decode step of each (busy, idle share, top device operations).
+    Then the contiguous engine over phase 5b's traffic (cb_engine_run):
+    tok/s, TTFT, TPOT, exact launches, a profiled decode step."""
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    family = deepseek_family()
+    L, P, NEW, K_DENSE = 4, 1024, 32, 3
+    common = dict(layers=L, dtype="bfloat16", seq_len=2048, ctx_len=P, device="cuda",
+                  family=family, mlp_kernel_enabled=True, **MLA_FLAGS)
+    t = time.perf_counter()
+    apps = {}
+    apps[8], arch = make_app(ml, TorchConfig, ODSC, App, dense, batch=8, **common)
+    params = apps[8].params
+    param_gb = sum(v.numel() * v.element_size() for v in _leaves(params)) / 1e9
+    apps[1], _ = make_app(ml, TorchConfig, ODSC, App, dense, batch=1, params=params, **common)
+    log(f"[mla-4L 5j] reduced: 61 -> 4 layers (3 dense + 1 MoE); 2 apps loaded "
+        f"{time.perf_counter() - t:.1f} s, params {param_gb:.2f} GB; "
+        + "; ".join(f"B {k} warmup {a.warm_stats}" for k, a in apps.items()))
+    ids8, mask8 = prompts(np.random.default_rng(11), 8, P, [P, P, 1000, P, 731, P, P, 1023],
+                          arch.vocab_size)
+    inputs = {8: (ids8, mask8), 1: (ids8[:1], mask8[:1])}
+    kernels = counted_kernels()
+    runs = {k: [] for k in apps}
+    outs = {}
+    for B in (8, 1, 1, 8):
+        ids, mask = inputs[B]
+        for fn in kernels.values():
+            fn.launches = 0
+        prefill_ms, decode_ms, toks = timed_generate(torch, Adapter, apps[B], ids, mask, NEW)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = mla_counts(L, K_DENSE, 0, NEW - 1, True)
+        want["mlp"] = K_DENSE * NEW
+        assert counts == want, f"phase 5j B {B}: launches {counts} != {want}"
+        lengths = mask.sum(axis=1)
+        gen = np.stack([toks[b, n:n + NEW] for b, n in enumerate(lengths)])
+        assert gen.shape == (B, NEW) and (gen >= 0).all() and (gen < arch.vocab_size).all()
+        runs[B].append(dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                            tok_s=B * 1e3 / decode_ms, launches=counts))
+        outs[B] = toks
+        log(f"[mla-4L 5j] generate() B {B}: prefill {prefill_ms:.2f} ms, decode "
+            f"{decode_ms:.3f} ms/step, {B * 1e3 / decode_ms:.1f} tok/s; launches {counts}")
+    strat = strategies_of(apps[8])
+    assert {"mla_xla", "mlp_fused_kernel", "moe_sparse_grouped_mm"} <= strat, strat
+    profiles = {B: decode_step_profile(torch, np, app, outs[B], inputs[B][1].sum(axis=1), NEW)
+                for B, app in apps.items()}
+    for B, pr in profiles.items():
+        log(f"[mla-4L 5j] B {B} decode step: wall {pr['wall_ms']:.3f} ms, busy "
+            f"{pr['busy_ms']:.3f} ms (idle {pr['idle_pct']:.1f}%), {pr['device_ops']} device "
+            f"operations; by kind {pr['by_group_ms']}; top {pr['top'][:6]}; host ms: "
+            f"{split_line(pr['host_split_ms'])}")
+    summary = {B: {k: float(np.mean([r[k] for r in rs])) for k in ("prefill_ms", "decode_ms",
+                                                                   "tok_s")}
+               for B, rs in runs.items()}
+    warm = {B: a.warm_stats for B, a in apps.items()}
+    del apps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(17)
+    shared = rng.integers(1, arch.vocab_size, 384).tolist()
+    lens = rng.integers(200, 993, 16)
+    reqs = [(shared + rng.integers(1, arch.vocab_size, max(n - 384, 1)).tolist()) if i % 2 == 0
+            else rng.integers(1, arch.vocab_size, n).tolist() for i, n in enumerate(lens)]
+    extra_prompts = [rng.integers(1, arch.vocab_size, 200).tolist() for _ in range(8)]
+    t = time.perf_counter()
+    app, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16", slots=8,
+                         seq_len=2048, ctx_len=P, device="cuda", params=params, family=family,
+                         mlp_kernel_enabled=True, **MLA_FLAGS)
+    log(f"[mla-4L 5j] contiguous engine app: load + warmup {time.perf_counter() - t:.1f} s; "
+        f"{app.warm_stats}")
+    e_stats = cb_engine_run(
+        torch, np, app, reqs, extra_prompts, NEW, L,
+        counts_fn=lambda eng: mla_counts(L, K_DENSE, eng.dispatches[TAG_CONTEXT_ENCODING],
+                                         eng.dispatches[TAG_TOKEN_GENERATION], True))
+    e_stats.pop("streams")
+    e_stats["warmup"] = app.warm_stats
+    pd = e_stats["profiled_decode_step"]
+    log(f"[mla-4L 5j] {card}: reduced 61 -> 4 layers; generate() " + "; ".join(
+        f"B {B} prefill {v['prefill_ms']:.2f} ms decode {v['decode_ms']:.3f} ms/step "
+        f"{v['tok_s']:.1f} tok/s" for B, v in summary.items())
+        + f"; contiguous engine {e_stats['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{e_stats['ttft_p50_ms']:.2f} ms p95 {e_stats['ttft_p95_ms']:.2f} ms, TPOT p50 "
+        f"{e_stats['tpot_p50_ms']:.3f} ms, launches {e_stats['launches']}, dispatches "
+        f"{e_stats['dispatches']}; engine decode step wall {pd['wall_ms']:.3f} ms busy "
+        f"{pd['busy_ms']:.3f} ms (idle {pd['idle_pct']:.1f}%)")
+    del app, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card, layers=L, reduced="61 -> 4 layers (3 dense + 1 MoE)",
+                param_gb=param_gb, runs=runs, mean=summary, profiled_decode_step=profiles,
+                warmup=warm, strategies=sorted(strat), engine=e_stats)
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -4813,6 +5199,7 @@ def main() -> int:
     sampler = check_decode_family(torch, np, kernel_results)
     check_one_byte_kernels(torch, kernel_results)
     moe_blocks = check_moe_blocks(torch, card)
+    check_mla_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -4821,6 +5208,7 @@ def main() -> int:
     spec_2l = spec_vs_cpu(torch, np, mods)
     moe_2l = moe_vs_cpu(torch, np, mods)
     lora_2l = lora_vs_cpu(torch, np, mods)
+    mla_2l = mla_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -4861,6 +5249,14 @@ def main() -> int:
                      phase_5h=moe_full_depth(torch, np, mods, card))
     lora_stats = dict(phase_4i=lora_2l, phase_5i=lora_full_depth(
         torch, np, mods, card, dict(slice_times, tokens=slice_tokens)))
+    # phase 5j: DeepSeek-V3 at 4 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla5j = mla_full_depth(torch, np, mods, card)
+    mla_stats = dict(phase_4j=mla_2l, phase_5j=mla5j)
+    # the latent-width commit and V3's MLP rows count phase 5j's runs
+    mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
+                    + mla5j["engine"]["launches"][k] for k in ("commit", "mlp")}
     for _, st in engine.values():
         st.pop("prompts")
         st.pop("app", None)
@@ -4925,6 +5321,8 @@ def main() -> int:
             # (5d); the one-byte rows: phase 5e's runs on e4m3 stores
             # (5h's runs for the head-dim-128 rows)
             launches = (family_launches["loop"][key] if row.get("point") == "cache lines"
+                        else mla_launches[key] if row.get("point") in ("MLA latent",
+                                                                       "DeepSeek-V3")
                         else quant_launches[key] if "store" in row
                         else counts_128[key] if row.get("head_dim") == 128 else counts[key])
             entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -4933,7 +5331,9 @@ def main() -> int:
                                               "ms_min",
                                               "ms_max",
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
-                                              "graph_ready_ms", "store", "bf16_pool_ms")
+                                              "graph_ready_ms", "store", "bf16_pool_ms",
+                                              "k_width", "v_width", "hidden", "inter",
+                                              "launch_floor_ms")
                           if f in row})
             summary.append(entry)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
@@ -4941,12 +5341,13 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
                    "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts,
                    "decode_family": family, "quantization": quant, "speculation": spec,
-                   "moe": moe_stats, "lora": lora_stats}, f,
+                   "moe": moe_stats, "lora": lora_stats, "mla": mla_stats}, f,
                   indent=1, default=str)
     print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
                       "decode_family": {k: v for k, v in family.items() if k != "engine"},
                       "quantization": quant, "speculation": spec, "moe": moe_stats,
-                      "lora": lora_stats, "kernel_checks": kernel_results}, default=str))
+                      "lora": lora_stats, "mla": mla_stats, "kernel_checks": kernel_results},
+                     default=str))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,10 @@ Counterpart of ``nxdi_tpu/kvcache/kv_cache.py`` for two layouts:
   kv_heads, head_dim)`` — a flat slot pool per layer, written through a
   slot mapping and read through per-row block tables.
 
+An MLA model's latent cache (``KVCacheSpec.v_head_dim``, contiguous only)
+holds one kv head whose K and V widths differ: K the rotated rope key, V the
+normed kv latent (``ops/mla.py``).
+
 The JAX package carries the cache through each jitted step as a donated
 pytree; here the tensors are simply mutated in place — the prefill writes,
 the decode commit kernel, the paged scatter and the copy-on-write block copy
@@ -89,6 +93,9 @@ class KVCacheSpec:
     dtype: str = "bfloat16"
     # the one-byte store of a quantized cache (None: the compute dtype)
     quant_dtype: Optional[str] = None
+    # an MLA latent cache stores different widths in k and v (k: the rotated
+    # rope key, v: the normed kv latent); None = the same as k
+    v_head_dim: Optional[int] = None
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -103,6 +110,11 @@ class KVCacheSpec:
     def shape(self) -> Tuple[int, ...]:
         return (self.num_layers, self.batch_size, self.num_kv_heads, self.max_len, self.head_dim)
 
+    @property
+    def shape_v(self) -> Tuple[int, ...]:
+        d = self.v_head_dim if self.v_head_dim is not None else self.head_dim
+        return self.shape[:-1] + (d,)
+
 
 def init_kv_cache(spec, device=None) -> Dict[str, torch.Tensor]:
     """Zero-initialized cache {'k': ..., 'v': ...} on ``device`` (the card
@@ -111,7 +123,7 @@ def init_kv_cache(spec, device=None) -> Dict[str, torch.Tensor]:
     device = resolve_device(device)
     return {
         "k": torch.zeros(spec.shape, dtype=spec.store_dtype, device=device),
-        "v": torch.zeros(spec.shape, dtype=spec.store_dtype, device=device),
+        "v": torch.zeros(spec.shape_v, dtype=spec.store_dtype, device=device),
     }
 
 
@@ -145,6 +157,10 @@ class BlockKVCacheSpec:
     @property
     def shape(self) -> Tuple[int, ...]:
         return (self.num_layers, self.total_slots, self.num_kv_heads, self.head_dim)
+
+    @property
+    def shape_v(self) -> Tuple[int, ...]:
+        return self.shape
 
 
 def reset_kv_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

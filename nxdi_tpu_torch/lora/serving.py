@@ -166,12 +166,21 @@ def _slots(lora_cfg) -> int:
     return lora_cfg.max_loras + 1  # slot 0 = base model (zeros)
 
 
-def _targets(params: Dict[str, Any], names):
+def _lora_skips(arch, group: str) -> bool:
+    """MLA attention (q_a / q_b / kv_a / kv_b, other widths) takes no
+    adapter, as in the JAX package: only the MLP targets apply."""
+    return group == "attn" and getattr(arch, "mla", None) is not None
+
+
+def _targets(params: Dict[str, Any], names, arch=None):
     """(name, the projection's param dict) of each targeted module the
-    params carry: an MoE model has no dense ``mlp`` group."""
+    params carry: an MoE model has no dense ``mlp`` group, and under MLA
+    (``arch`` given) the attention is skipped."""
     layers = params["layers"]
     for name in names:
         group, proj = LORA_TARGETABLE_MODULES[name][0]
+        if arch is not None and _lora_skips(arch, group):
+            continue
         if group in layers and proj in layers[group]:
             yield name, layers[group][proj]
 
@@ -183,7 +192,7 @@ def attach_lora_buffers(params: Dict[str, Any], arch, lora_cfg, device=None) -> 
     S, r, L = _slots(lora_cfg), lora_cfg.max_lora_rank, arch.num_layers
     if device is None:
         device = params["embed_tokens"].device
-    for name, p in _targets(params, lora_cfg.target_modules):
+    for name, p in _targets(params, lora_cfg.target_modules, arch):
         fin, fout = _module_dims(arch, name)
         p["lora_A"] = torch.zeros((L, S, fin, r), dtype=dt, device=device)
         p["lora_B"] = torch.zeros((L, S, r, fout), dtype=dt, device=device)
@@ -198,6 +207,8 @@ def write_adapter_into_buffers(
     place (their addresses are what captured graphs read). Returns the
     params (the same object)."""
     for name, p in _targets(params, converted):
+        if "lora_A" not in p:  # a skipped target (MLA attention)
+            continue
         buf = converted[name]
         p["lora_A"][:, slot].copy_(buf["A"])
         p["lora_B"][:, slot].copy_(buf["B"])

@@ -45,7 +45,17 @@ the names are the JAX package's):
   take one query token);
 - ``moe_dense`` / ``moe_sparse_grouped_mm`` / ``moe_sparse_per_expert`` —
   a mixture-of-experts layer (``arch.moe`` and ``"moe"`` in the layer's
-  params, ``ops/moe.py``) by its dispatch and grouped product.
+  params, ``ops/moe.py``) by its dispatch and grouped product;
+- ``mla_xla`` — a Multi-head Latent Attention layer (``arch.mla``,
+  ``ops/mla.py``): plain attention over the latent cache, whose fresh row
+  every layer writes first (through the commit kernel on the contiguous
+  cache); an MLA model never defers its cache writes.
+
+Heterogeneous stacks (DeepSeek-V3's ``first_k_dense_replace`` dense layers
+before its MoE layers) arrive as a LIST of layer-stacked segments in
+``params["layers"]``; each walks its own slice of the stacked cache at its
+global layer offset, and its stacked MLP weights take the segment-local
+layer index (the JAX package's segmented layer scan).
 
 Multi-adapter LoRA (``lora/serving.py``): a projection whose params carry
 the slot-stacked ``lora_A`` / ``lora_B`` / ``lora_scale`` buffers adds, per
@@ -98,6 +108,7 @@ from nxdi_tpu_torch.kvcache.kv_cache import (
     KVCacheSpec,
 )
 from nxdi_tpu_torch.ops import attention as attn_ops
+from nxdi_tpu_torch.ops import mla as mla_ops
 from nxdi_tpu_torch.ops import moe as moe_ops
 from nxdi_tpu_torch.ops import quantization as quant_ops
 from nxdi_tpu_torch.ops import sampling as sampling_ops
@@ -150,12 +161,30 @@ class DecoderArch:
     kv_quant_dtype: Optional[str] = None
     # the MoE feed-forward that replaces the dense MLP when set (ops/moe.py)
     moe: Optional[moe_ops.MoEArch] = None
+    # YaRN attention factor multiplying cos/sin (DeepSeek)
+    rope_mscale: float = 1.0
+    # Multi-head Latent Attention replaces the GQA attention when set
+    # (ops/mla.py; the DeepSeek lineage)
+    mla: Optional[mla_ops.MLAArch] = None
 
     def __post_init__(self):
         if self.hidden_act != "silu":
             raise NotImplementedError(f"hidden_act {self.hidden_act!r} is not ported yet")
 
     def kv_cache_spec(self, batch_size: int, max_len: int) -> KVCacheSpec:
+        if self.mla is not None:
+            # the latent cache: k holds the shared rotated rope key, v the
+            # normed compressed kv latent (ops/mla.py)
+            return KVCacheSpec(
+                num_layers=self.num_layers,
+                batch_size=batch_size,
+                num_kv_heads=1,
+                max_len=max_len,
+                head_dim=self.mla.qk_rope_head_dim,
+                v_head_dim=self.mla.kv_lora_rank,
+                dtype=self.dtype,
+                quant_dtype=self.kv_quant_dtype,
+            )
         return KVCacheSpec(
             num_layers=self.num_layers,
             batch_size=batch_size,
@@ -524,19 +553,30 @@ def decoder_layer(
     arch, lp, hidden, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
     attend_to_cache, layout=DEFAULT_KV_LAYOUT, cache_inputs=None, defer_write=False,
     stacked_layer_idx=None, tkg_stacked=None, mlp_stacked=None, qkv_stacked=None,
-    adapter_ids=None,
+    adapter_ids=None, kv_window=None,
 ):
+    """One layer. ``kv_window`` (an MLA layer only, which writes into its
+    whole cache line before attending) bounds the attended window; other
+    layers get their cache views already windowed."""
     h = rms_norm(hidden, lp["input_layernorm"], arch.rms_norm_eps)
     if "input_norm_skip" in lp:
         # an EAGLE draft's first layer takes the fc output without its input
         # norm: the flag is a device scalar, read by torch.where (no host read)
         h = torch.where(lp["input_norm_skip"], hidden, h)
-    attn_out, kv = attention_block(
-        arch, lp["attn"], h, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
-        attend_to_cache, layout, cache_inputs, defer_write=defer_write,
-        stacked_layer_idx=stacked_layer_idx, tkg_stacked=tkg_stacked, qkv_stacked=qkv_stacked,
-        adapter_ids=adapter_ids,
-    )
+    if arch.mla is not None:
+        # the JAX rule: MLA attention takes no adapter (LoRA skips it)
+        attn_out, kv = mla_ops.mla_attention_block(
+            arch, lp["attn"], h, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
+            attend_to_cache, layout, cache_inputs, kv_window=kv_window,
+        )
+        _record_strategy("mla_xla")
+    else:
+        attn_out, kv = attention_block(
+            arch, lp["attn"], h, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
+            attend_to_cache, layout, cache_inputs, defer_write=defer_write,
+            stacked_layer_idx=stacked_layer_idx, tkg_stacked=tkg_stacked,
+            qkv_stacked=qkv_stacked, adapter_ids=adapter_ids,
+        )
     hidden = hidden + attn_out
     h = rms_norm(hidden, lp["post_attention_layernorm"], arch.rms_norm_eps)
     # MoE or dense per layer, by the params' structure (the JAX package's rule)
@@ -552,8 +592,9 @@ def stacked_proj_weights(arch: DecoderArch, stacked: Dict[str, Any]):
     those are enabled: ((gate_s, up_s, down_s) or None, (w_s, b_s) or None).
     Each layer hands its kernel the (L, ...) weight and its index, and the
     kernel offsets its pointer — the torch counterpart of the JAX package's
-    scalar-prefetched layer index. A model without a dense MLP (an MoE
-    model) has no stacked MLP weights."""
+    scalar-prefetched layer index. ``stacked`` is one segment of the layer
+    stack: a segment without a dense MLP (an MoE segment or model) has no
+    stacked MLP weights."""
     mlp, qkv = stacked.get("mlp"), stacked["attn"].get("qkv_proj")
     mlp_st = (tuple(mlp[k]["w"] for k in ("gate_proj", "up_proj", "down_proj"))
               if arch.mlp_kernel_enabled and mlp is not None else None)
@@ -567,9 +608,20 @@ def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
+def layer_segments(layers) -> List[Dict[str, Any]]:
+    """The layer-stacked segments of ``params["layers"]``: a list of them
+    (a heterogeneous stack), or one stacked dict."""
+    return list(layers) if isinstance(layers, (list, tuple)) else [layers]
+
+
+def segment_len(seg: Dict[str, Any]) -> int:
+    """The number of layers of one layer-stacked segment."""
+    return seg["input_layernorm"].shape[0]
+
+
 def run_decoder_layers(
     arch: DecoderArch,
-    stacked_params: Dict[str, Any],
+    stacked_params,  # a layer-stacked dict, or a list of such segments
     hidden: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
@@ -585,9 +637,11 @@ def run_decoder_layers(
 ):
     """Run the layer stack. Decode on the contiguous cache defers its cache
     writes and commits every layer's fresh rows in ONE kernel launch after
-    the loop; the paged pool and a forward under an explicit ``attn_mask``
-    (the token-tree verify) never defer (each layer writes its rows before
-    attending).
+    the loop; the paged pool, a forward under an explicit ``attn_mask``
+    (the token-tree verify) and an MLA model never defer (each layer writes
+    its rows before attending). A list of segments runs in order, each over
+    its slice of the stacked cache, its stacked kernel weights indexed by
+    the segment-local layer.
 
     ``kv_window`` bounds the attended contiguous cache to the bucket's
     window: the stacked fused kernel takes it as ``kv_len`` without slicing,
@@ -595,7 +649,8 @@ def run_decoder_layers(
     table's width. ``collect``, when given, receives each layer's output
     hidden state in order (EAGLE3's ``aux_hidden``)."""
     contiguous = isinstance(layout, ContiguousKVLayout)
-    defer = attend_to_cache and contiguous and (cache_inputs or {}).get("attn_mask") is None
+    defer = (attend_to_cache and contiguous and arch.mla is None
+             and (cache_inputs or {}).get("attn_mask") is None)
     S = position_ids.shape[1]
     H, KV = arch.num_attention_heads, arch.num_kv_heads
     use_stacked_tkg = False
@@ -618,28 +673,39 @@ def run_decoder_layers(
             _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
             ref_only,
         )
-    tkg_stacked = (cache["k"], cache["v"], kv_window) if use_stacked_tkg else None
-    mlp_stacked, qkv_stacked = stacked_proj_weights(arch, stacked_params)
     windowable = contiguous and attend_to_cache and not use_stacked_tkg and kv_window is not None
-    # per-layer KV scale tables select their row by the layer index
+    # per-layer KV scale tables select their row by the (global) layer index
     per_layer = contiguous and layout.has_array_scales()
     ks, vs = [], []
-    for i in range(arch.num_layers):
-        kl, vl = cache["k"][i], cache["v"][i]
-        if windowable and kv_window < kl.shape[2]:
-            kl, vl = kl[:, :, :kv_window], vl[:, :, :kv_window]
-        ci = {**(cache_inputs or {}), "layer_idx": i} if per_layer else cache_inputs
-        hidden, (nk, nv) = decoder_layer(
-            arch, layer_params(stacked_params, i), hidden, cos, sin, kl, vl, position_ids,
-            cache_spec, attend_to_cache, layout, ci, defer_write=defer,
-            stacked_layer_idx=i, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
-            qkv_stacked=qkv_stacked, adapter_ids=adapter_ids,
-        )
-        if collect is not None:
-            collect.append(hidden)
-        if defer:
-            ks.append(nk)
-            vs.append(nv)
+    off = 0
+    for seg in layer_segments(stacked_params):
+        n_seg = segment_len(seg)
+        # the stacked fused decode reads the segment's slice of the stack
+        tkg_stacked = ((cache["k"][off:off + n_seg], cache["v"][off:off + n_seg], kv_window)
+                       if use_stacked_tkg else None)
+        mlp_stacked, qkv_stacked = stacked_proj_weights(arch, seg)
+        for j in range(n_seg):
+            i = off + j
+            kl, vl = cache["k"][i], cache["v"][i]
+            mla_window = None
+            if windowable and kv_window < kl.shape[2]:
+                if arch.mla is not None:
+                    mla_window = kv_window  # the write lands in the whole line first
+                else:
+                    kl, vl = kl[:, :, :kv_window], vl[:, :, :kv_window]
+            ci = {**(cache_inputs or {}), "layer_idx": i} if per_layer else cache_inputs
+            hidden, (nk, nv) = decoder_layer(
+                arch, layer_params(seg, j), hidden, cos, sin, kl, vl, position_ids,
+                cache_spec, attend_to_cache, layout, ci, defer_write=defer,
+                stacked_layer_idx=j, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
+                qkv_stacked=qkv_stacked, adapter_ids=adapter_ids, kv_window=mla_window,
+            )
+            if collect is not None:
+                collect.append(hidden)
+            if defer:
+                ks.append(nk)
+                vs.append(nv)
+        off += n_seg
     if defer:
         ci_commit = dict(cache_inputs or {})
         ci_commit["position_ids"] = position_ids  # write_positions, when given, win
@@ -726,6 +792,9 @@ def causal_lm_forward(
         hidden = _linear(torch.cat([hidden, feats], dim=-1), params["fc"], arch.act_quant,
                          arch.act_clamp)
     cos, sin = rope_cos_sin(position_ids, inv_freq, dtype=torch.float32)
+    if arch.rope_mscale != 1.0:
+        cos = cos * arch.rope_mscale
+        sin = sin * arch.rope_mscale
     if isinstance(layout, BlockKVLayout):
         cache_spec = BlockKVCacheSpec(
             num_layers=arch.num_layers, num_blocks=cache["k"].shape[1] // layout.block_size,

@@ -6,7 +6,8 @@ this port's params dict. Both packages use the same keys and the same
 (in, out) weight layout (the interleaved ``qkv_proj`` of ``fused_qkv``
 included), so the conversion is leaf by leaf, at any depth: a fused
 speculation app's ``{"draft": ..., "target": ...}`` pair and a Medusa app's
-``medusa_heads`` (``res_w``, ``res_b``, ``head``) carry across as they are.
+``medusa_heads`` (``res_w``, ``res_b``, ``head``) carry across as they are,
+and so does a DeepSeek stack's list of layer segments.
 Quantized linears (``qw`` / ``scale``, MXFP4 ``qw4``, ``input_scale``)
 carry across the same way.
 bfloat16 and fp8 arrays (numpy extension dtypes) move as their raw bits —
@@ -16,8 +17,6 @@ trip.
 """
 
 from __future__ import annotations
-
-from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -39,10 +38,12 @@ def _leaf(x) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def from_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
-    """JAX-package params pytree (nested dicts of numpy arrays) -> the port's
-    params dict of CPU tensors with the same keys, shapes and dtypes."""
-    return {
-        k: from_jax_params(v) if isinstance(v, dict) else _leaf(v)
-        for k, v in params.items()
-    }
+def from_jax_params(params):
+    """JAX-package params pytree (nested dicts of numpy arrays; a segmented
+    stack's ``layers`` is a list of dicts) -> the port's params of CPU
+    tensors with the same keys, structure, shapes and dtypes."""
+    if isinstance(params, (list, tuple)):
+        return [from_jax_params(v) for v in params]
+    if isinstance(params, dict):
+        return {k: from_jax_params(v) for k, v in params.items()}
+    return _leaf(params)

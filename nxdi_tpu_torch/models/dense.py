@@ -30,7 +30,7 @@ import torch
 
 from nxdi_tpu_torch.config import InferenceConfig, dtype_name, to_torch_dtype
 from nxdi_tpu_torch.models.base import DecoderArch
-from nxdi_tpu_torch.ops.rope import inv_freq_from_hf_config
+from nxdi_tpu_torch.ops.rope import inv_freq_from_hf_config, rope_type_of, yarn_inv_freq
 from nxdi_tpu_torch.parallel import gqa
 from nxdi_tpu_torch.runtime.device import resolve_device
 
@@ -57,7 +57,25 @@ def head_dim_of(config: InferenceConfig) -> int:
     return hd if hd is not None else config.hidden_size // config.num_attention_heads
 
 
-def build_arch(config: InferenceConfig, **overrides) -> DecoderArch:
+def rope_mscale_from_config(config: InferenceConfig) -> float:
+    """YaRN's attention factor for the cos/sin scaling (1.0 for other
+    ropes). It depends only on the scaling config, not on which head dim the
+    frequencies use."""
+    rs = getattr(config, "rope_scaling", None)
+    if rs and rope_type_of(rs) == "yarn":
+        return yarn_inv_freq(
+            head_dim_of(config),
+            getattr(config, "rope_theta", 10000.0),
+            rs,
+            getattr(config, "max_position_embeddings", 4096),
+        )[1]
+    return 1.0
+
+
+def build_arch(config: InferenceConfig, has_dense_mlp: bool = False, **overrides) -> DecoderArch:
+    """The arch of ``config``; ``overrides`` set its fields (a family's MoE
+    or MLA). ``has_dense_mlp``: an MoE model whose stack also holds dense-MLP
+    layers (DeepSeek's first layers), which ``mlp_kernel_enabled`` serves."""
     heads, kv_heads = planned_head_counts(config)
     vocab, vocab_pad = padded_vocab(config)
     tc = config.tpu_config
@@ -85,9 +103,10 @@ def build_arch(config: InferenceConfig, **overrides) -> DecoderArch:
         act_quant=tc.activation_quantization_type,
         act_clamp=tc.quantize_clamp_bound,
         kv_quant_dtype=tc.kv_quant_config.dtype if tc.kv_quant_config is not None else None,
+        rope_mscale=rope_mscale_from_config(config),
     )
     kwargs.update(overrides)
-    if kwargs.get("moe") is not None and kwargs["mlp_kernel_enabled"]:
+    if kwargs.get("moe") is not None and kwargs["mlp_kernel_enabled"] and not has_dense_mlp:
         raise NotImplementedError(
             "mlp_kernel_enabled: this model has no dense MLP (its layers are mixture-of-"
             "experts); set mlp_kernel_enabled=False"
@@ -282,11 +301,21 @@ def moe_param_shapes(moe, hidden_size: int, num_layers: int) -> Dict[str, Any]:
     }
 
 
-def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=None):
+# a weight whose float32 draw would exceed this is drawn in pieces of
+# _DRAW_PIECE elements (DeepSeek-V3's expert tensors: 15 GB in float32)
+_DRAW_WHOLE_BYTES = 2 ** 31
+_DRAW_PIECE = 2 ** 28
+
+
+def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=None,
+                  shapes=None):
     """Random weights in the arch's dtype from one ``torch.Generator`` seed,
     on ``device`` (the card unless the CPU is asked for): projections and
     embeddings N(0, std), norm weights one (HF's init), so activations keep
-    unit scale and greedy tokens are well separated."""
+    unit scale and greedy tokens are well separated. ``shapes`` (default
+    :func:`param_shapes`) is a shape tree whose ``layers`` may be a list of
+    segments. A weight too large to draw in float32 at once is drawn in
+    pieces, each cast as it is drawn."""
     device = resolve_device(device)
     dt = to_torch_dtype(arch.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -294,16 +323,25 @@ def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=No
     def make(path, shape):
         if path[-1].endswith("norm"):
             return torch.ones(shape, dtype=dt, device=device)
-        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * std
-        return x.to(dt)
+        if math.prod(shape) * 4 <= _DRAW_WHOLE_BYTES:
+            x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * std
+            return x.to(dt)
+        out = torch.empty(shape, dtype=dt, device=device)
+        flat = out.view(-1)
+        for a in range(0, flat.numel(), _DRAW_PIECE):
+            n = min(_DRAW_PIECE, flat.numel() - a)
+            flat[a:a + n] = torch.randn((n,), generator=gen, dtype=torch.float32,
+                                        device=device) * std
+        return out
 
     def walk(tree, path):
-        return {
-            k: walk(v, path + (k,)) if isinstance(v, dict) else make(path + (k,), v)
-            for k, v in tree.items()
-        }
+        if isinstance(tree, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return make(path, tree)
 
-    return walk(param_shapes(arch), ())
+    return walk(param_shapes(arch) if shapes is None else shapes, ())
 
 
 class DenseInferenceConfig(InferenceConfig):

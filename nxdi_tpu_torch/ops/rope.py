@@ -1,11 +1,14 @@
 """Rotary position embeddings (counterpart of ``nxdi_tpu/ops/rope.py``).
 
-HF llama's rotate-half convention, plain RoPE and llama3 frequency scaling.
-The frequency tables are numpy float64 (host-side, computed once); cos/sin
-are built from position ids on the fly in float32.
+HF llama's rotate-half convention, plain RoPE, llama3 and YaRN frequency
+scaling. The frequency tables are numpy (host-side, computed once); cos/sin
+are built from position ids on the fly in float32. YaRN's attention factor
+scales cos/sin (the models read it as ``DecoderArch.rope_mscale``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -37,14 +40,72 @@ def llama3_scaled_inv_freq(
     return np.where(is_medium, smoothed, scaled)
 
 
+def yarn_get_mscale(scale: float, m: float = 1.0) -> float:
+    """YaRN's magnitude factor for a context ``scale`` (DeepSeek's
+    ``yarn_get_mscale``)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * m * math.log(scale) + 1.0
+
+
+def yarn_inv_freq(
+    head_dim: int,
+    rope_theta: float,
+    rope_scaling: dict,
+    max_position_embeddings: int = 4096,
+):
+    """YaRN frequency interpolation (matches HF ``_compute_yarn_parameters``).
+    Returns (inv_freq float32, attention_factor): the factor scales cos/sin."""
+    factor = rope_scaling.get("factor", 1.0)
+    dim = head_dim
+    orig = rope_scaling.get("original_max_position_embeddings") or max_position_embeddings
+    mscale = rope_scaling.get("mscale")
+    mscale_all_dim = rope_scaling.get("mscale_all_dim")
+
+    attention_factor = rope_scaling.get("attention_factor")
+    if attention_factor is None:
+        if mscale and mscale_all_dim:
+            attention_factor = float(yarn_get_mscale(factor, mscale)
+                                     / yarn_get_mscale(factor, mscale_all_dim))
+        else:
+            attention_factor = yarn_get_mscale(factor)
+
+    beta_fast = rope_scaling.get("beta_fast") or 32
+    beta_slow = rope_scaling.get("beta_slow") or 1
+
+    def correction_dim(num_rotations):
+        return (dim * math.log(orig / (num_rotations * 2 * math.pi))) / (2 * math.log(rope_theta))
+
+    low = correction_dim(beta_fast)
+    high = correction_dim(beta_slow)
+    if rope_scaling.get("truncate", True):
+        low = math.floor(low)
+        high = math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
+    if low == high:
+        high += 0.001
+
+    pos_freqs = rope_theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim)
+    extrap = 1.0 / pos_freqs
+    interp = 1.0 / (factor * pos_freqs)
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low) / (high - low), 0, 1)
+    extrap_factor = 1 - ramp
+    inv_freq = interp * (1 - extrap_factor) + extrap * extrap_factor
+    return inv_freq.astype(np.float32), float(attention_factor)
+
+
+def rope_type_of(rope_scaling) -> str:
+    return rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
+
+
 def inv_freq_from_hf_config(
     head_dim: int, rope_theta: float, rope_scaling=None, max_position_embeddings: int = 4096
 ) -> np.ndarray:
-    """Frequencies for the rope types the Llama path uses; any other type
-    raises rather than rotating long contexts wrongly."""
+    """Frequencies for the rope types the port runs (default, llama3, linear,
+    yarn); any other type raises rather than rotating long contexts wrongly."""
     if rope_scaling is None:
         return default_inv_freq(head_dim, rope_theta)
-    rope_type = rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
+    rope_type = rope_type_of(rope_scaling)
     if rope_type == "llama3":
         return llama3_scaled_inv_freq(
             head_dim,
@@ -58,6 +119,8 @@ def inv_freq_from_hf_config(
         return default_inv_freq(head_dim, rope_theta) / rope_scaling.get("factor", 1.0)
     if rope_type == "default":
         return default_inv_freq(head_dim, rope_theta)
+    if rope_type == "yarn":
+        return yarn_inv_freq(head_dim, rope_theta, rope_scaling, max_position_embeddings)[0]
     raise ValueError(f"Unsupported rope scaling type in this port: {rope_type}")
 
 

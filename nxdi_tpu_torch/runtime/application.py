@@ -89,10 +89,48 @@ QUANTIZED_CHECKPOINT = "model.safetensors"
 
 
 def _to_device(tree, device):
-    return {
-        k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
-        for k, v in tree.items()
-    }
+    if isinstance(tree, list):  # a segmented stack's layers
+        return [_to_device(v, device) for v in tree]
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# a segmented layer stack (DeepSeek's dense head + MoE tail: a list of
+# segments in params["layers"]) is not served with these yet
+SEGMENTED_REFUSALS = {
+    "lora_config": (
+        "LoRA serving on a segmented layer stack (first_k_dense_replace dense layers "
+        "before MoE layers) is not ported yet (ROADMAP Queue 1 item 3's remainders): "
+        "the JAX package attaches no adapter buffer to such a stack"),
+    "quantized": (
+        "weight quantization of a segmented layer stack (first_k_dense_replace dense "
+        "layers before MoE layers) is not ported yet (ROADMAP Queue 1 item 3's "
+        "remainders): the JAX package's quantizer passes such a stack through"),
+}
+
+
+def refuse_mla_speculation(*archs) -> None:
+    """Speculation with an MLA (DeepSeek) target or draft raises at app
+    build: the port's draft step is the stacked fused-decode kernel, which
+    an MLA layer cannot take."""
+    if any(a.mla is not None for a in archs):
+        raise NotImplementedError(
+            "speculation with an MLA (DeepSeek) target or draft is not ported yet "
+            "(ROADMAP Queue 1 item 3's remainders): the draft step runs the stacked "
+            "fused-decode kernel, which MLA attention cannot take")
+
+
+def refuse_unported(family, config) -> None:
+    """Raise at app build for what the port does not serve on this model yet
+    (:data:`SEGMENTED_REFUSALS`)."""
+    seg = getattr(family, "segmented", None)
+    if seg is None or not seg(config):
+        return
+    tc = config.tpu_config
+    for key, msg in SEGMENTED_REFUSALS.items():
+        if getattr(tc, key, None):
+            raise NotImplementedError(msg)
 
 
 class TorchModelForCausalLM:
@@ -160,6 +198,7 @@ class TorchModelForCausalLM:
 
     def enable_models(self) -> None:
         arch = self.family.build_arch(self.config)
+        refuse_unported(self.family, self.config)
         inv_freq = self.family.build_inv_freq(self.config)
         tc = self.tpu_config
         odsc = tc.on_device_sampling_config

@@ -111,6 +111,13 @@ def kv_layout_from_config(tc, arch=None):
     if kvq is not None and kvq.scale_mode == "per_tensor":
         scales = {"k_scale": kvq.k_scale, "v_scale": kvq.v_scale}
     elif kvq is not None and kvq.scale_mode in ("per_key", "per_channel"):
+        if arch is not None and arch.mla is not None:
+            # the JAX package sizes these tables for per-head K/V of one
+            # width, which the latent cache (one head, two widths) is not
+            raise NotImplementedError(
+                f"kv quant scale_mode={kvq.scale_mode!r} on an MLA latent cache (one kv "
+                "head, K and V of different widths) is not supported; use per_tensor "
+                "or direct_cast")
         if arch is not None:
             want = ((arch.num_layers, arch.num_kv_heads) if kvq.scale_mode == "per_key"
                     else (arch.num_layers, arch.head_dim))

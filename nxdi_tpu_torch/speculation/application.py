@@ -27,7 +27,11 @@ from nxdi_tpu_torch.config import to_torch_dtype
 from nxdi_tpu_torch.kvcache.kv_cache import init_kv_cache
 from nxdi_tpu_torch.models import llama_eagle
 from nxdi_tpu_torch.runtime import autobucketing
-from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM, maybe_quantize_params
+from nxdi_tpu_torch.runtime.application import (
+    TorchModelForCausalLM,
+    maybe_quantize_params,
+    refuse_mla_speculation,
+)
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
     TAG_FUSED_SPECULATION,
@@ -115,6 +119,7 @@ class FusedSpecCausalLM(_WindowApp):
     def enable_models(self) -> None:
         t_arch = self.family.build_arch(self.config)
         d_arch = self.draft_family.build_arch(self.draft_config)
+        refuse_mla_speculation(t_arch, d_arch)
         tc = self.tpu_config
         common = dict(
             draft_arch=d_arch,
@@ -308,6 +313,7 @@ class MedusaCausalLM(_WindowApp):
 
     def enable_models(self) -> None:
         arch = self.family.build_arch(self.config)
+        refuse_mla_speculation(arch)
         inv_freq = self.family.build_inv_freq(self.config)
         tc = self.tpu_config
         common = dict(num_heads=self.num_heads, tree=self.tree, device=self.device,
