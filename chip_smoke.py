@@ -196,6 +196,26 @@ code is non-zero:
    decode ms/step, a profiled decode step, launches of rows 4 and 9/10
    exact), then the contiguous engine over phase 5b's traffic (tok/s,
    TTFT, TPOT).
+3h. The dense families' kernel points: rows 1, 3 and 4 at head dim 256 at
+   Gemma-2B's heads (8 over 1 kv head, B 8, S 1024), rows 1 and 3 under a
+   live window of 4096 at Mistral-7B's heads over 6144-token rows (B 2),
+   rows 9/10 with gelu_pytorch_tanh at Gemma-2B's MLP (H 2048, I 16384, M 8
+   and 8192): each against its plain version, timed over flushed calls
+   beside its bound, the plain version and one library call (SDPA, with the
+   window's mask; index_put; three torch products).
+4k. Every dense family the registry ports, at tiny widths (Qwen3's head dim
+   48 decoupled, Gemma's 256, windows of 8 under 64-token prompts), 2
+   layers, float32, batch 2: generate() on the CPU, the card's graphs and
+   the card eagerly: tokens equal, logits within 1e-4, graphs equal to
+   eager bit for bit, the attention, QKV and (gated MLPs) fused MLP kernels
+   engaged with launches exact.
+5k. At published widths, bf16, graphs: Mistral-7B whole (32 layers, window
+   4096) through generate() at B 8 on phase 5's prompt shapes and at B 2
+   over 6144-token prompts; Qwen3-8B at 8 of its 36 layers through
+   generate() at B 8 and the split paged engine over phase 5b's traffic;
+   Gemma-2B whole (head dim 256, the fused MLP's tanh GELU) at B 8: prefill
+   ms, decode ms/step, a profiled decode step (busy, idle, host split),
+   launches exact.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -1188,9 +1208,9 @@ def model_config(ml, tcfg, layers, family=None):
 
 def random_weights(dense, module, cfg, arch, device):
     """The model's random weights from seed 0: the family's own
-    ``random_params`` where it has one (DeepSeek's segments), else
-    dense.random_params."""
-    if module.__name__.endswith("modeling_deepseek"):
+    ``random_params`` where it has one (DeepSeek's segments, SmolLM3's and
+    Ministral's per-layer flags), else dense.random_params."""
+    if hasattr(module, "random_params"):
         return module.random_params(cfg, seed=0, device=device)
     return dense.random_params(arch, seed=0, device=device)
 
@@ -4956,6 +4976,453 @@ def check_mla_kernels(torch, results):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 3h, 4k, 5k: the dense Llama-lineage families
+# ---------------------------------------------------------------------------
+
+# phase 3h's points: rows 1, 3 and 4 at Gemma-2B's heads (8 over 1 kv head of
+# 256), B 8, S 1024; rows 1 and 3 under Mistral-7B's live window (32 over 8
+# heads of 128, window 4096) over 6144-token rows at B 2; rows 9/10 with the
+# tanh GELU at Gemma-2B's MLP (H 2048, I 16384)
+GEMMA_HEADS = dict(H=8, KV=1, D=256, B=8, S=1024, S_cache=2048, L=2)
+MISTRAL_WINDOW = dict(H=32, KV=8, D=128, B=2, S=6144, window=4096, L=2)
+GEMMA_MLP = dict(hidden=2048, inter=16384, layers=2)
+GEMMA_MLP_M = (8, 8192)
+
+
+def _window_pairs(S, window):
+    """Causal (query, key) pairs of an S-row prefill under a sliding window
+    (None: all of them)."""
+    if window is None:
+        return S * (S + 1) // 2
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def family_prefill_point(torch, results, fa, point, q, k, v, pos, window, flush):
+    """Row 1 at one of phase 3h's points (bf16): against its plain version,
+    the same bits on a second call, the body that ran by name, timed over
+    PREFILL_CALLS flushed calls beside SDPA (with the window's mask when one
+    is set) and the plain version."""
+    import torch.nn.functional as F
+
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    call = lambda: fa.flash_attention_prefill(q, k, v, pos, pos, sliding_window=window)  # noqa: E731
+    plain = lambda: fa.flash_attention_prefill_plain(q, k, v, pos, pos,  # noqa: E731
+                                                     sliding_window=window)
+    got = call()
+    err = (got.float() - plain().float()).abs().max().item()
+    tol = TOL[("prefill", "bfloat16")]
+    assert err <= tol, f"3h prefill {point}: max abs err {err} > {tol}"
+    assert torch.equal(call(), got), f"3h prefill {point}: a second call gave other bits"
+    body = fa.prefill_body(q, k, v)
+    times, names, _ = traced_times(torch, call, PREFILL_CALLS, flush, kernel="prefill")
+    ms, lo, hi = spread(times)
+    ran = sorted(attention_ms([(0.0, n) for n in names]))
+    assert ran == [PREFILL_KERNEL[body]], f"3h prefill {point}: ran {ran}, expected {body}"
+    plain_ms = measure(torch, plain, n=3, flush=flush)
+    ke, ve = k.repeat_interleave(H // KV, dim=1), v.repeat_interleave(H // KV, dim=1)
+    if window is None:
+        library = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
+    else:
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)  # noqa: E731
+    lib_ms = spread(traced_times(torch, library, PREFILL_CALLS, flush)[0])[0]
+    flops = 4 * B * H * D * _window_pairs(S, window)
+    bms, by = bound_ms((2 * B * H * S * D + 2 * B * KV * S * D) * 2, flops, "bfloat16")
+    row = dict(kernel="prefill", dtype="bfloat16", point=point, head_dim=D, window=window,
+               max_abs_err=err, tol=tol, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bms, bound_by=by, body=body, kernels=ran,
+               share_of_bound=bms / ms)
+    results.append(row)
+    log(f"[family-3h] prefill {point} ({ran[0]}): err {err:.3g} kernel {ms:.4f} ms (min {lo:.4f} "
+        f"max {hi:.4f}) plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bms:.4f} ({by}), "
+        f"{100 * bms / ms:.1f} % of the bound")
+    del ke, ve
+    return row
+
+
+def family_decode_point(torch, results, fa, point, c, window, flush, gen):
+    """Row 3 (the stacked fused decode, layer 1 of the stack) at one of
+    phase 3h's points through decode_point (bf16: split across blocks and one
+    chunk a row, against the plain version; timed beside SDPA over [cache |
+    fresh row] under the strict-causal and window mask)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    B, H, KV, D, L = c["B"], c["H"], c["KV"], c["D"], c["L"]
+    S_cache = c.get("S_cache", c["S"])
+    G = H // KV
+    dt = torch.bfloat16
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dt)
+
+    ks, vs = randn((L, B, KV, S_cache, D)), randn((L, B, KV, S_cache, D))
+    qd = randn((B, 1, H, D)).transpose(1, 2)
+    kn, vn = randn((B, 1, KV, D)).transpose(1, 2), randn((B, 1, KV, D)).transpose(1, 2)
+    # rows near the end of the cache (the window bites), and one at position 0
+    last = S_cache - 1
+    qpos = torch.tensor([[last - 37 * b] for b in range(B)], device=dev, dtype=torch.int32)
+    if B > 2:
+        qpos[-1, 0] = 0
+    li = 1
+    kcat = torch.cat([ks[li], kn], dim=2).repeat_interleave(G, dim=1)
+    vcat = torch.cat([vs[li], vn], dim=2).repeat_interleave(G, dim=1)
+    slot = torch.arange(S_cache + 1, device=dev)
+    mask = (slot[None, :] < qpos) | (slot[None, :] == S_cache)
+    if window is not None:
+        mask = mask & ((slot[None, :] > qpos - window) | (slot[None, :] == S_cache))
+    mask = mask[:, None, None, :]
+    lo = (qpos[:, 0] - window + 1).clamp(min=0) if window is not None else 0 * qpos[:, 0]
+    visible = int((qpos[:, 0].clamp(max=S_cache) - lo).clamp(min=0).sum().item())
+    row = decode_point(
+        torch, results, "decode", "bfloat16", fa,
+        lambda: fa.flash_attention_decode_fused_stacked(qd, ks, vs, kn, vn, qpos, li,
+                                                        kv_len=S_cache, sliding_window=window),
+        lambda: fa.flash_attention_decode_fused_plain(qd, ks[li], vs[li], kn, vn, qpos,
+                                                      kv_len=S_cache, sliding_window=window),
+        lambda: F.scaled_dot_product_attention(qd, kcat, vcat, attn_mask=mask),
+        (2 * KV * D * (visible + B) + 2 * B * H * D) * 2, 4 * H * D * (visible + B), flush,
+        TOL[("decode", "bfloat16")])
+    row.update(point=point, head_dim=D, window=window)
+    log(f"[family-3h] decode {point}: the row above ({visible} visible positions)")
+    return ks, vs, qpos
+
+
+def check_family_kernels(torch, results):
+    """Phase 3h. Rows 1, 3 and 4 at head dim 256 at Gemma-2B's heads (the
+    prefill's mma.sync body reading Q from shared memory; the decode's
+    tensor-core tile at 2 warps a block; the commit bit for bit), rows 1 and 3
+    under a live window of 4096 at Mistral-7B's heads over 6144-token rows,
+    and rows 9/10 with gelu_pytorch_tanh at Gemma-2B's MLP (M 8 and 8192),
+    each against its plain version and timed beside its bound, the plain
+    version and one library call."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1616)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+                * std).to(torch.bfloat16)
+
+    for point, c, window in (("Gemma-2B D 256", GEMMA_HEADS, None),
+                             ("Mistral-7B window 4096", MISTRAL_WINDOW,
+                              MISTRAL_WINDOW["window"])):
+        B, H, KV, S, D = c["B"], c["H"], c["KV"], c["S"], c["D"]
+        q = randn((B, S, H, D)).transpose(1, 2)
+        k, v = randn((B, S, KV, D)).transpose(1, 2), randn((B, S, KV, D)).transpose(1, 2)
+        pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S).contiguous()
+        family_prefill_point(torch, results, fa, point, q, k, v, pos, window, flush)
+        del q, k, v
+        torch.cuda.empty_cache()
+        ks, vs, qpos = family_decode_point(torch, results, fa, point, c, window, flush, gen)
+        if point.startswith("Gemma"):
+            # row 4 at head dim 256 (one dropped slot), bit for bit, timed
+            L = c["L"]
+            kr, vr = randn((L, B, KV, 1, D)), randn((L, B, KV, 1, D))
+            slots = qpos.clone()
+            slots[3, 0] = -1
+            k_ref, v_ref = ks.clone(), vs.clone()
+            kc.kv_commit_rows_plain(k_ref, v_ref, kr, vr, slots)
+            kc.kv_commit_rows(ks, vs, kr, vr, slots)
+            torch.cuda.synchronize()
+            assert torch.equal(ks, k_ref) and torch.equal(vs, v_ref), "3h commit: not exact"
+            times, _, _ = traced_times(torch, lambda: kc.kv_commit_rows(ks, vs, kr, vr, slots),
+                                       DECODE_CALLS, flush, kernel="kv_commit_kernel")
+            ms, lo, hi = spread(times)
+            plain_ms = measure(torch, lambda: kc.kv_commit_rows_plain(ks, vs, kr, vr, slots),
+                               flush=flush)
+            valid = (slots[:, 0] >= 0).nonzero()[:, 0]
+            sl, zero = slots[valid, 0].long(), torch.zeros_like(valid)
+
+            def library_commit():
+                ks[:, valid, :, sl] = kr[:, valid, :, zero]
+                vs[:, valid, :, sl] = vr[:, valid, :, zero]
+
+            lib_ms = measure(torch, library_commit, flush=flush)
+            bms, by = bound_ms(2 * 2 * L * int(valid.numel()) * KV * D * 2, 0, "bfloat16")
+            results.append(dict(kernel="commit", dtype="bfloat16", point=point, head_dim=D,
+                                max_abs_err=0.0, tol=0.0, ms=ms, ms_min=lo, ms_max=hi,
+                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+            log(f"[family-3h] commit {point}: exact; kernel {ms:.4f} ms ({lo:.4f}-{hi:.4f}) "
+                f"plain {plain_ms:.4f} index_put {lib_ms:.4f} bound {bms:.6f} ({by})")
+        del ks, vs
+        torch.cuda.empty_cache()
+
+    m = GEMMA_MLP
+    H, I, Lm = m["hidden"], m["inter"], m["layers"]
+    g_s, u_s = randn((Lm, H, I), H ** -0.5), randn((Lm, H, I), H ** -0.5)
+    d_s = randn((Lm, I, H), I ** -0.5)
+    act = "gelu_pytorch_tanh"
+    for M in GEMMA_MLP_M:
+        x = randn((M, H))
+        assert torch.equal(fp.fused_mlp_stacked(x, g_s, u_s, d_s, 1, act=act),
+                           fp.fused_mlp(x, g_s[1], u_s[1], d_s[1], act=act)), f"3h mlp M={M}"
+        row = gemm_point(torch, results, "mlp", "bfloat16", M,
+                         lambda: fp.fused_mlp_stacked(x, g_s, u_s, d_s, 1, act=act),
+                         lambda: fp.fused_mlp_plain(x, g_s[1], u_s[1], d_s[1], act),
+                         lambda: (F.gelu(x @ g_s[1], approximate="tanh") * (x @ u_s[1]))
+                         @ d_s[1],
+                         (2 * M * H + 3 * H * I) * 2, 6 * M * H * I, flush)
+        row.update(point="Gemma-2B tanh GELU", hidden=H, inter=I, act=act)
+        log(f"[family-3h] mlp {act} at Gemma-2B's H {H} I {I}, M {M}: err "
+            f"{row['max_abs_err']:.3g} (limit {row['tol']}); kernel {row['ms']:.4f} ms "
+            f"({row['ms_min']:.4f}-{row['ms_max']:.4f}); three torch products "
+            f"{row['library_ms']:.4f}; bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound")
+    del g_s, u_s, d_s
+    torch.cuda.empty_cache()
+
+
+# phase 4k: every ported dense family at tiny widths (head dims multiples of
+# 8 the card's kernels take: Qwen3's 48 decoupled from 256 / 4, Gemma's 256),
+# 2 layers, f32; the switches each family sets, windows of 8 under 64-token
+# prompts
+FAMILY_TINY = dict(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=64, vocab_size=512,
+                   max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+                   tie_word_embeddings=False, hidden_act="silu")
+FAMILY_CASES = {
+    "mistral": dict(sliding_window=8),
+    "qwen2": dict(tie_word_embeddings=True),
+    "qwen3": dict(head_dim=48),
+    "hunyuan_v1_dense": {},
+    "gemma": dict(num_key_value_heads=1, head_dim=256, tie_word_embeddings=True,
+                  hidden_act="gelu_pytorch_tanh"),
+    "helium": dict(attention_bias=True),
+    "ernie4_5": dict(use_bias=True),
+    "granite": dict(embedding_multiplier=2.0, attention_multiplier=0.2, residual_multiplier=0.5,
+                    logits_scaling=1.5),
+    "minicpm": dict(scale_emb=12.0, scale_depth=1.4, dim_model_base=64),
+    "seed_oss": dict(attention_bias=True, attention_out_bias=True),
+    "internlm3": dict(qkv_bias=True, bias=True),
+    "smollm3": dict(no_rope_layers=[1, 0]),
+    "olmo2": {},
+    "arcee": dict(hidden_act="relu2"),
+    "ministral": dict(sliding_window=8, layer_types=["sliding_attention", "full_attention"]),
+}
+
+
+def dense_family(model_type, **widths):
+    """(module, config class, widths) of a registered family."""
+    from nxdi_tpu_torch.models import registry
+
+    module, cfg_cls = registry.get_family(model_type)
+    return module, cfg_cls, widths
+
+
+def family_flags(arch):
+    """The projection kernel flags a family's model takes: the fused QKV
+    weight with its kernel always, the fused MLP where the MLP is gated and
+    unbiased (the kernel takes no other)."""
+    return dict(fused_qkv=True, qkv_kernel_enabled=True,
+                mlp_kernel_enabled=arch.gated_mlp and not arch.mlp_bias)
+
+
+def family_counts(L, n_cte, steps, mlp):
+    """The launches of a contiguous generate(): per context encoding L
+    prefills, per decode step L stacked decodes and 1 commit, a QKV and (a
+    gated MLP) an MLP launch per layer per forward."""
+    fwd = n_cte + steps
+    return dict(prefill=L * n_cte, paged_prefill=0, paged_decode=0, window_decode=0,
+                decode=L * steps, commit=steps, qkv=L * fwd, mlp=L * fwd if mlp else 0)
+
+
+def family_kernels():
+    """counted_kernels and the QKV kernel: the wrappers a family run's
+    launches are read from."""
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+
+    return dict(counted_kernels(), qkv=fp.qkv_matmul)
+
+
+def family_vs_cpu(torch, np, mods):
+    """Phase 4k: every dense family the registry ports (FAMILY_CASES) at
+    tiny widths, 2 layers, float32, batch 2: greedy generate() on the CPU
+    (plain versions, the JAX rule: a mixed stack's layers attend plain),
+    through the card's graphs and on the card eagerly (run_three: tokens
+    equal, logits within LOGIT_TOL, graphs equal to eager bit for bit), every
+    enabled kernel flag engaged (attention, QKV and, for a gated MLP, the
+    fused MLP: the tanh GELU for Gemma), launches exact."""
+    from nxdi_tpu_torch.models import registry
+
+    L, NEW, P = 2, 16, 64
+    out = {}
+    for model_type, over in FAMILY_CASES.items():
+        family = dense_family(model_type, **dict(FAMILY_TINY, **over))
+        arch = family[0].build_arch(family[1](mods[1](seq_len=16),
+                                              **dict(family[2], num_hidden_layers=L)))
+        flags = family_flags(arch)
+        apps, arch = three_apps(mods, layers=L, dtype="float32", batch=2, seq_len=256,
+                                ctx_len=128, output_logits=True, family=family, **flags)
+        ids, mask = prompts(np.random.default_rng(7), 2, P, [P, 53], arch.vocab_size)
+        worst, toks, counts, n_same, _ = run_three(torch, mods, f"4k {model_type}", apps, ids,
+                                                   mask, NEW, kernels=family_kernels())
+        want = family_counts(L, 1, NEW - 1, flags["mlp_kernel_enabled"])
+        assert counts == want, f"phase 4k {model_type}: launches {counts} != {want}"
+        seen = {s for w in apps[1].models.values() for ss in w.attention_strategies.values()
+                for s in ss}
+        need = {"cte_flash_kernel", "tkg_fused_kernel_stacked", "qkv_fused_kernel"}
+        if flags["mlp_kernel_enabled"]:
+            need.add("mlp_fused_kernel")
+        assert need <= seen, f"phase 4k {model_type}: strategies {seen} lack {need - seen}"
+        assert registry.get_family(model_type)[0] is family[0]
+        out[model_type] = dict(max_logit_err=worst, launches=counts, dispatches_bitwise=n_same,
+                               head_dim=arch.head_dim, window=arch.sliding_window)
+        log(f"[family-2L 4k {model_type}] generate(): max logit diff {worst:.3g}, graphs = eager "
+            f"over {n_same} dispatches, launches {counts}")
+        del apps
+        gc.collect()
+    return out
+
+
+def family_generate(torch, np, mods, tag, app, arch, ids, mask, NEW, flags, profile=True):
+    """One timed generate() of a phase 5k app: prefill ms, decode ms/step,
+    tok/s, launches by kernel (exact), and a profiled decode step (wall,
+    busy, idle, host split, attention by kernel)."""
+    Adapter = mods[5]
+    kernels = family_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    prefill_ms, decode_ms, toks = timed_generate(torch, Adapter, app, ids, mask, NEW)
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    L = arch.num_layers
+    want = family_counts(L, 1, NEW - 1, flags.get("mlp_kernel_enabled", False))
+    if not flags.get("qkv_kernel_enabled"):
+        want["qkv"] = 0
+    assert counts == want, f"{tag}: launches {counts} != {want}"
+    lengths = mask.sum(axis=1)
+    gen = np.stack([toks[b, n:n + NEW] for b, n in enumerate(lengths)])
+    assert (gen >= 0).all() and (gen < arch.vocab_size - arch.vocab_pad).all(), tag
+    B = ids.shape[0]
+    run = dict(batch=B, prompt=int(ids.shape[1]), prefill_ms=prefill_ms, decode_ms=decode_ms,
+               tok_s=B * 1e3 / decode_ms, launches=counts)
+    if profile:
+        pr = decode_step_profile(torch, np, app, toks, lengths, NEW)
+        run["profiled_decode_step"] = pr
+        log(f"{tag} decode step: wall {pr['wall_ms']:.3f} ms, busy {pr['busy_ms']:.3f} ms "
+            f"(idle {pr['idle_pct']:.1f}%), {pr['device_ops']} device operations; attention "
+            f"{pr['attention_ms']}; by kind {pr['by_group_ms']}; host ms: "
+            f"{split_line(pr['host_split_ms'])}")
+    log(f"{tag} generate() B {B} x {ids.shape[1]}: prefill {prefill_ms:.2f} ms, decode "
+        f"{decode_ms:.3f} ms/step, {run['tok_s']:.1f} tok/s; launches {counts}")
+    return run, toks
+
+
+def family_full_depth(torch, np, mods, card):
+    """Phase 5k, bf16, graphs, random weights from seed 0 at the published
+    widths: Mistral-7B whole (32 layers, window 4096) through generate() at
+    B 8 on phase 5's prompt shapes and at B 2 over 6144-token prompts (the
+    window bites in the prefill and every decode step); Qwen3-8B cut to 8 of
+    36 layers through generate() at B 8 and the split paged engine over
+    phase 5b's traffic (rows 1, 6 and 7 at head dim 128); Gemma-2B whole
+    (head dim 256, the fused MLP's tanh GELU) through generate() at B 8.
+    32 new tokens each; prefill ms, decode ms/step, a profiled decode step,
+    launches exact."""
+    from nxdi_tpu_torch.models.gemma import modeling_gemma as tg
+    from nxdi_tpu_torch.models.mistral import modeling_mistral as tm
+    from nxdi_tpu_torch.models.qwen3 import modeling_qwen3 as tq
+
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    NEW, B, P = 32, 8, 1024
+    stats = {}
+    launches = {}
+
+    def add(name, counts):
+        launches[name] = {k: launches.get(name, {}).get(k, 0) + v for k, v in counts.items()}
+
+    def load(name, family, layers, flags, **kw):
+        t = time.perf_counter()
+        app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=layers, dtype="bfloat16",
+                             device="cuda", family=family, **flags, **kw)
+        gb = sum(v.numel() * v.element_size() for v in _leaves(app.params)) / 1e9
+        log(f"[family-5k {name}] {layers} layers loaded {time.perf_counter() - t:.1f} s, params "
+            f"{gb:.2f} GB; warmup {app.warm_stats}")
+        return app, arch, gb
+
+    # Mistral-7B whole: phase 5's prompt shapes, then 6144-token prompts at B 2
+    family = (tm, tm.MistralInferenceConfig, tm.MISTRAL_7B_V01)
+    app, arch, gb = load("Mistral-7B", family, 32, {}, batch=B, seq_len=2048, ctx_len=P)
+    assert arch.sliding_window == 4096
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    run, _ = family_generate(torch, np, mods, "[family-5k Mistral-7B]", app, arch, ids, mask, NEW,
+                             {})
+    add("mistral", run["launches"])
+    params = app.params
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    Pw = MISTRAL_WINDOW["S"]
+    app, _, _ = load("Mistral-7B window", family, 32, {}, batch=2, seq_len=Pw + 64, ctx_len=Pw,
+                     params=params)
+    ids_w, mask_w = prompts(np.random.default_rng(12), 2, Pw, [Pw, Pw - 100], arch.vocab_size)
+    run_w, _ = family_generate(torch, np, mods, "[family-5k Mistral-7B window 4096]", app, arch,
+                               ids_w, mask_w, NEW, {})
+    add("mistral_window", run_w["launches"])
+    stats["mistral_7b"] = dict(layers=32, param_gb=gb, window=arch.sliding_window,
+                               runs=[run, run_w])
+    del app, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Qwen3-8B at 8 of 36 layers: generate() at B 8, then the split engine
+    family = (tq, tq.Qwen3InferenceConfig, tq.QWEN3_8B)
+    app, arch, gb = load("Qwen3-8B", family, 8, {}, batch=B, seq_len=2048, ctx_len=P)
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    run, _ = family_generate(torch, np, mods, "[family-5k Qwen3-8B]", app, arch, ids, mask, NEW,
+                             {})
+    add("qwen3", run["launches"])
+    params = app.params
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_counts, e_stats = engine_full_depth(torch, np, mods, card, layers=8, family=family,
+                                          params=params, phase="5k")
+    e_stats.pop("prompts")
+    stats["qwen3_8b"] = dict(layers=8, param_gb=gb, runs=[run], engine=e_stats,
+                             engine_launches=e_counts)
+    log(f"[family-5k Qwen3-8B] split engine {e_stats['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{e_stats['ttft_p50_ms']:.2f} ms p95 {e_stats['ttft_p95_ms']:.2f} ms, TPOT p50 "
+        f"{e_stats['tpot_p50_ms']:.3f} ms, launches {e_counts}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Gemma-2B whole: head dim 256, the fused MLP's tanh GELU
+    family = (tg, tg.GemmaInferenceConfig, tg.GEMMA_2B)
+    flags = dict(mlp_kernel_enabled=True)
+    app, arch, gb = load("Gemma-2B", family, 18, flags, batch=B, seq_len=2048, ctx_len=P)
+    assert arch.head_dim == 256 and arch.hidden_act == "gelu_pytorch_tanh"
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    run, _ = family_generate(torch, np, mods, "[family-5k Gemma-2B]", app, arch, ids, mask, NEW,
+                             flags)
+    add("gemma", run["launches"])
+    stats["gemma_2b"] = dict(layers=18, param_gb=gb, runs=[run])
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[family-5k] {card}: " + "; ".join(
+        f"{name} " + ", ".join(f"B {r['batch']} x {r['prompt']}: prefill {r['prefill_ms']:.2f} ms "
+                               f"decode {r['decode_ms']:.3f} ms/step" for r in st["runs"])
+        for name, st in stats.items()))
+    stats["launches"] = launches
+    return stats
+
+
 def mla_counts(L, k_dense, n_cte, steps, mlp_kernel):
     """The launches of a DeepSeek run: no attention kernel (MLA attends
     plain); one commit a layer per context encoding that routes its writes
@@ -5200,6 +5667,7 @@ def main() -> int:
     check_one_byte_kernels(torch, kernel_results)
     moe_blocks = check_moe_blocks(torch, card)
     check_mla_kernels(torch, kernel_results)
+    check_family_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -5209,6 +5677,7 @@ def main() -> int:
     moe_2l = moe_vs_cpu(torch, np, mods)
     lora_2l = lora_vs_cpu(torch, np, mods)
     mla_2l = mla_vs_cpu(torch, np, mods)
+    family_2l = family_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -5254,6 +5723,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     mla5j = mla_full_depth(torch, np, mods, card)
     mla_stats = dict(phase_4j=mla_2l, phase_5j=mla5j)
+    # phase 5k: Mistral-7B, Qwen3-8B (8 layers), Gemma-2B
+    gc.collect()
+    torch.cuda.empty_cache()
+    family5k = family_full_depth(torch, np, mods, card)
+    family_stats = dict(phase_4k=family_2l, phase_5k=family5k)
+    fl = family5k["launches"]
+    dense_launches = {
+        "Gemma-2B D 256": fl["gemma"],
+        "Mistral-7B window 4096": {k: fl["mistral"][k] + fl["mistral_window"][k]
+                                   for k in fl["mistral"]},
+        "Gemma-2B tanh GELU": fl["gemma"],
+    }
     # the latent-width commit and V3's MLP rows count phase 5j's runs
     mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
                     + mla5j["engine"]["launches"][k] for k in ("commit", "mlp")}
@@ -5266,6 +5747,13 @@ def main() -> int:
                   for k in ("prefill", "decode", "commit")}
     counts_128["prefill"] += moe5h["engine_launches"]["prefill"]
     counts_128.update({k: moe5h["engine_launches"][k] for k in ("paged_prefill", "paged_decode")})
+    # and phase 5k's Qwen3-8B (the same heads: 32 over 8 of 128), its
+    # generate() and its split engine
+    q5k = family5k["qwen3_8b"]
+    for k in ("prefill", "decode", "commit"):
+        counts_128[k] += fl["qwen3"][k] + q5k["engine_launches"][k]
+    for k in ("paged_prefill", "paged_decode"):
+        counts_128[k] += q5k["engine_launches"][k]
     # rows 1, 3 and 4 count phase 5f's runs beside phase 5's
     counts = {k: v + spec["launches_total"].get(k, 0) for k, v in counts.items()}
     counts = dict(counts, window_decode=engine_2l_counts["window_decode"],
@@ -5321,6 +5809,8 @@ def main() -> int:
             # (5d); the one-byte rows: phase 5e's runs on e4m3 stores
             # (5h's runs for the head-dim-128 rows)
             launches = (family_launches["loop"][key] if row.get("point") == "cache lines"
+                        else dense_launches[row["point"]][key]
+                        if row.get("point") in dense_launches
                         else mla_launches[key] if row.get("point") in ("MLA latent",
                                                                        "DeepSeek-V3")
                         else quant_launches[key] if "store" in row
@@ -5333,7 +5823,7 @@ def main() -> int:
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
                                               "graph_ready_ms", "store", "bf16_pool_ms",
                                               "k_width", "v_width", "hidden", "inter",
-                                              "launch_floor_ms")
+                                              "window", "act")
                           if f in row})
             summary.append(entry)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
@@ -5341,13 +5831,13 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernel_results, "slice": slice_times,
                    "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts,
                    "decode_family": family, "quantization": quant, "speculation": spec,
-                   "moe": moe_stats, "lora": lora_stats, "mla": mla_stats}, f,
-                  indent=1, default=str)
+                   "moe": moe_stats, "lora": lora_stats, "mla": mla_stats,
+                   "families": family_stats}, f, indent=1, default=str)
     print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
                       "decode_family": {k: v for k, v in family.items() if k != "engine"},
                       "quantization": quant, "speculation": spec, "moe": moe_stats,
-                      "lora": lora_stats, "mla": mla_stats, "kernel_checks": kernel_results},
-                     default=str))
+                      "lora": lora_stats, "mla": mla_stats, "families": family_stats,
+                      "kernel_checks": kernel_results}, default=str))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -381,6 +381,13 @@ class TorchConfig:
         # context-encoding or prefix-prefill submodel and admits requests
         # only through an imported KV chain
         self.role = kwargs.pop("role", "unified")
+        # the JAX package's W-slot ring cache for sliding-window layers: not
+        # ported (a windowed model keeps the full-length cache and masks)
+        if kwargs.pop("window_sized_kv", False):
+            raise NotImplementedError(
+                "window_sized_kv (the W-slot ring cache of sliding-window layers) is not "
+                "ported yet; a windowed model runs on the full-length cache under the "
+                "window's mask: unset window_sized_kv")
 
         if kwargs:
             raise ValueError(

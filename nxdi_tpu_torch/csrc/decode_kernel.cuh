@@ -113,11 +113,12 @@ constexpr int kDecStages = 2;  // a warp's K/V tiles in flight (a third measured
 constexpr int kDecRaw[2] = {1, 1};
 constexpr int kDecCvt[2] = {1, 1};
 
-// Warps per block: 4, or 2 where a warp's double-buffered K/V tiles are
-// large (f32 at head dim 128), to stay within shared memory.
+// Warps per block: 4, or 2 or 1 where a warp's double-buffered K/V tiles
+// are large (f32 at head dim 128, bf16 at 256; f32 at 256), to stay within
+// shared memory.
 template <typename T, int DMAX>
 __host__ __device__ constexpr int dec_warps() {
-  return sizeof(T) * DMAX > 256 ? 2 : 4;
+  return sizeof(T) * DMAX > 512 ? 1 : sizeof(T) * DMAX > 256 ? 2 : 4;
 }
 
 // Shared memory of a block: Q as f32 [G][D] (16-byte rounded), then per
@@ -503,7 +504,8 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
 // column's partial sums are then merged in chunk order with the weights
 // broadcast from their lanes; the fresh row is folded in (kFused), v_scale
 // applied, and the output rounded to q's dtype.
-template <typename T, Mode MODE>
+// U: columns a lane (D <= 32 U)
+template <typename T, Mode MODE, int U>
 __global__ void __launch_bounds__(256) decode_combine_kernel(DecodeArgs a) {
   const int idx = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (idx >= a.B * a.H) return;
@@ -511,14 +513,14 @@ __global__ void __launch_bounds__(256) decode_combine_kernel(DecodeArgs a) {
   const int kvh = h / (a.H / a.KV);
   const float* acc = a.ws + (long long)idx * C * D;
   const float* ml = a.ws + (long long)a.B * a.H * C * D + 2LL * idx * C;
-  float s2 = 0.f, vf[4] = {0.f, 0.f, 0.f, 0.f};  // kFused: the fresh row's score and V
+  float s2 = 0.f, vf[U] = {};  // kFused: the fresh row's score and V
   if constexpr (MODE == Mode::kFused) {  // loaded first, beside the partials
     const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
     const T* kn = static_cast<const T*>(a.kn) + b * a.nsb + kvh * a.nsh;
     const T* vn = static_cast<const T*>(a.vn) + b * a.nsb + kvh * a.nsh;
     float dot = 0.f;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int d = lane + 32 * u;
       if (d < D) {
         dot = fmaf(to_f32(q[d]), to_f32(kn[d]), dot);
@@ -530,7 +532,7 @@ __global__ void __launch_bounds__(256) decode_combine_kernel(DecodeArgs a) {
   float M = NXDI_NEG_INF;
   for (int k = lane; k < C; k += 32) M = fmaxf(M, ml[2 * k]);
   M = warp_max(M);
-  float L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};  // columns lane + 32 u
+  float L = 0.f, A[U] = {};  // columns lane + 32 u
   float w = 0.f, lk = 0.f;
   for (int k = 0; k < C; ++k) {
     if ((k & 31) == 0) {  // the next 32 chunks' weights, one per lane
@@ -541,7 +543,7 @@ __global__ void __launch_bounds__(256) decode_combine_kernel(DecodeArgs a) {
     const float wk = __shfl_sync(0xffffffffu, w, k & 31);
     L = fmaf(__shfl_sync(0xffffffffu, lk, k & 31), wk, L);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int d = lane + 32 * u;
       if (d < D) A[u] = fmaf(acc[(long long)k * D + d], wk, A[u]);
     }
@@ -556,7 +558,7 @@ __global__ void __launch_bounds__(256) decode_combine_kernel(DecodeArgs a) {
   const float inv = a.v_scale / fmaxf(L, 1e-20f);
   T* out = static_cast<T*>(a.out) + b * a.osb + h * a.osh;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
+  for (int u = 0; u < U; ++u) {
     const int d = lane + 32 * u;
     if (d < D) {
       float x = A[u];
@@ -580,7 +582,7 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
       <<<dim3(a.n_chunks, a.KV, a.B), NW * 32, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_chunks == 1) return err;
-  decode_combine_kernel<T, MODE><<<(a.B * a.H + 7) / 8, 256, 0, stream>>>(a);
+  decode_combine_kernel<T, MODE, (DMAX > 128 ? 8 : 4)><<<(a.B * a.H + 7) / 8, 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -598,30 +600,34 @@ cudaError_t dispatch_g(const DecodeArgs& a, cudaStream_t stream) {
 }
 
 inline bool decode_args_ok(const DecodeArgs& a) {
-  return a.D % 8 == 0 && a.D <= 128 && a.KV > 0 && a.H % a.KV == 0 && a.chunk_len > 0 &&
+  return a.D % 8 == 0 && a.D <= 256 && a.KV > 0 && a.H % a.KV == 0 && a.chunk_len > 0 &&
          a.n_chunks >= 1 && (long long)a.n_chunks * a.chunk_len >= a.kv_len &&
          (a.n_chunks == 1 || a.ws);
+}
+
+// The instantiation for head dim D: DMAX 64, 128 or 256 (Gemma's)
+template <typename T, Mode MODE, bool MMA>
+cudaError_t dispatch_d(const DecodeArgs& a, cudaStream_t s) {
+  if (a.D <= 64) return dispatch_g<T, 64, MODE, MMA>(a, s);
+  if (a.D <= 128) return dispatch_g<T, 128, MODE, MMA>(a, s);
+  return dispatch_g<T, 256, MODE, MMA>(a, s);
 }
 
 // Checks the arguments and launches: the split kernel over C = n_chunks
 // chunks of chunk_len positions (C * chunk_len >= kv_len), then, with
 // C > 1, the combine over the scratch `ws`. bf16 at head dims that are
 // multiples of 16 runs the tensor-core body, the rest the CUDA-core body.
-// The cache holds q's dtype.
+// The cache holds q's dtype. At head dim 256 a block has 2 warps in bf16
+// and 1 in f32 (dec_warps), and the tensor-core body's output tile takes
+// 128 registers a lane.
 template <Mode MODE>
 int dispatch(int dtype, const DecodeArgs& a, void* stream) {
   if (!decode_args_ok(a)) return (int)cudaErrorInvalidValue;
   if (a.B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == NXDI_F32)
-    return (int)(a.D <= 64 ? dispatch_g<float, 64, MODE, false>(a, s)
-                           : dispatch_g<float, 128, MODE, false>(a, s));
-  if (dtype == NXDI_BF16 && a.D % 16 == 0)
-    return (int)(a.D <= 64 ? dispatch_g<__nv_bfloat16, 64, MODE, true>(a, s)
-                           : dispatch_g<__nv_bfloat16, 128, MODE, true>(a, s));
-  if (dtype == NXDI_BF16)
-    return (int)(a.D <= 64 ? dispatch_g<__nv_bfloat16, 64, MODE, false>(a, s)
-                           : dispatch_g<__nv_bfloat16, 128, MODE, false>(a, s));
+  if (dtype == NXDI_F32) return (int)dispatch_d<float, MODE, false>(a, s);
+  if (dtype == NXDI_BF16 && a.D % 16 == 0) return (int)dispatch_d<__nv_bfloat16, MODE, true>(a, s);
+  if (dtype == NXDI_BF16) return (int)dispatch_d<__nv_bfloat16, MODE, false>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -632,7 +638,8 @@ int dispatch(int dtype, const DecodeArgs& a, void* stream) {
 template <Mode MODE>
 int dispatch_one_byte(int dtype, int kv_dtype, const DecodeArgs& a, void* stream) {
   static_assert(MODE == Mode::kPaged, "a one-byte store is the paged pool's");
-  if (!decode_args_ok(a) || a.D % 16 != 0 || a.H / a.KV > 16) return (int)cudaErrorInvalidValue;
+  if (!decode_args_ok(a) || a.D % 16 != 0 || a.D > 128 || a.H / a.KV > 16)
+    return (int)cudaErrorInvalidValue;
   if (a.B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_one_byte_store(kv_dtype, [&](auto tag) -> int {

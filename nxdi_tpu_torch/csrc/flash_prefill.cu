@@ -6,6 +6,9 @@
 // (prefill_wgmma.cuh; bf16, head dim 64 or 128: the model's prefill), the
 // mma.sync body (bf16, other head dims that are multiples of 16) and the
 // CUDA-core body (f32, or any other bf16 head dim) of prefill_kernel.cuh.
+// Head dims up to 256 (Gemma's): the wgmma body serves 64 and 128, the
+// mma.sync body the other multiples of 16 (at 256 it reads Q's fragments
+// from shared memory), the CUDA-core body 8 output columns a lane above 128.
 #include "prefill_wgmma.cuh"
 
 extern "C" int nxdi_flash_prefill(int dtype, int body, const void* q, const void* k,
@@ -21,7 +24,7 @@ extern "C" int nxdi_flash_prefill(int dtype, int body, const void* q, const void
   a.qsb = qsb; a.qsh = qsh; a.qss = qss; a.ksb = ksb; a.ksh = ksh; a.kss = kss;
   a.vsb = vsb; a.vsh = vsh; a.vss = vss; a.osb = osb; a.osh = osh; a.oss = oss;
   a.scale = scale; a.v_scale = 1.f; a.window = window; a.chunk = chunk;
-  if (D % 8 != 0 || D > 128 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || !prefill_args_ok(a, KV_CONTIG)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == NXDI_BF16;
   if (body == PREFILL_WGMMA && bf16 && (D == 64 || D == 128)) {
@@ -30,7 +33,9 @@ extern "C" int nxdi_flash_prefill(int dtype, int body, const void* q, const void
   }
   if (body == PREFILL_MMA && bf16 && D % 16 == 0) {
     if (Sq == 0 || B == 0) return (int)cudaSuccess;
-    return (int)(D <= 64 ? launch_tc<64, KV_CONTIG>(a, B, s) : launch_tc<128, KV_CONTIG>(a, B, s));
+    return (int)(D <= 64    ? launch_tc<64, KV_CONTIG>(a, B, s)
+                 : D <= 128 ? launch_tc<128, KV_CONTIG>(a, B, s)
+                            : launch_tc<256, KV_CONTIG>(a, B, s));
   }
   if (body == PREFILL_SIMT && (bf16 || dtype == NXDI_F32)) {
     if (Sq == 0 || B == 0) return (int)cudaSuccess;

@@ -112,7 +112,9 @@ constexpr int kWarps = 8;
 constexpr int kRows = 8;                 // q rows per warp
 constexpr int kBQ = kWarps * kRows;      // q rows per block
 constexpr int kBK = 64;                  // kv rows per tile
-constexpr int kMaxT = 4;                 // output columns per lane (D <= 128)
+// output columns per lane of the CUDA-core body: 4 (D <= 128; the paged and
+// ragged modes) or 8 (D <= 256: the contiguous mode at Gemma's head dim)
+constexpr int kMaxTAt128 = 4;
 constexpr int kMaxRaggedRows = 64;       // rows of a stream with mixed tiles (one 64-bit mask)
 // The ragged work list (ragged_paged_attention.py::ragged_plan): a header of
 // kPlanHeader ints (T, direct tiles, split items, partial slots, tokens to
@@ -283,7 +285,7 @@ __host__ __device__ inline size_t prefill_smem_bytes(int D) {
   return sizeof(float) * (size_t)(kBQ * D + kBK * (D + 4) + kBK * D + kWarps * kRows * kBK);
 }
 
-template <typename T, int MODE, typename S = T>
+template <typename T, int MODE, typename S = T, int kMaxT = kMaxTAt128>
 __global__ void __launch_bounds__(kWarps * 32) prefill_kernel(PrefillArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int D = a.D;
@@ -535,7 +537,11 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
 
   constexpr int KS = DMAX / 16;  // k-steps over the head dim
   constexpr int NT = DMAX / 8;   // 8-wide output column tiles
-  uint32_t qf[KS][4];
+  // Q's A fragments stay in registers for the whole block up to head dim
+  // 128; at 256 the output tile alone takes 128 registers a lane, so Q's
+  // fragments are read from shared memory at each k-step instead
+  constexpr bool kQRegs = DMAX <= 128;
+  uint32_t qf[kQRegs ? KS : 1][4];
   float o[NT][4];
 #pragma unroll
   for (int t = 0; t < NT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
@@ -572,7 +578,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    if (it == 0) {
+    if (kQRegs && it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         if (kk * 16 < D) {
@@ -591,16 +597,39 @@ __global__ void __launch_bounds__(kTcWarps * 32) prefill_tc_kernel(PrefillArgs a
 
     // S = Q K^T for this warp's 16 rows x 64 kv columns
     float sc[8][4];
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const bf* krow = tK + (nt * 8 + grp) * DP + 2 * tig;
+      for (int nt = 0; nt < 8; ++nt) {
+        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+        const bf* krow = tK + (nt * 8 + grp) * DP + 2 * tig;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          if (kk * 16 < D) {
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
+            mma_bf16(sc[nt], qf[kk], b0, b1);
+          }
+        }
+      }
+    } else {
+      // the same products in the same order per score (k-steps ascending),
+      // one k-step's Q fragment at a time
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         if (kk * 16 < D) {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-          mma_bf16(sc[nt], qf[kk], b0, b1);
+          const bf* base = sQ + kk * 16 + 2 * tig;
+          const uint32_t qk[4] = {*reinterpret_cast<const uint32_t*>(base + r_lo * DP),
+                                  *reinterpret_cast<const uint32_t*>(base + (r_lo + 8) * DP),
+                                  *reinterpret_cast<const uint32_t*>(base + r_lo * DP + 8),
+                                  *reinterpret_cast<const uint32_t*>(base + (r_lo + 8) * DP + 8)};
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const bf* krow = tK + (nt * 8 + grp) * DP + 2 * tig + kk * 16;
+            mma_bf16(sc[nt], qk, *reinterpret_cast<const uint32_t*>(krow),
+                     *reinterpret_cast<const uint32_t*>(krow + 8));
+          }
         }
       }
     }
@@ -726,19 +755,32 @@ cudaError_t launch_tc(const PrefillArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int MODE, typename S = T>
-cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
+template <typename T, int MODE, typename S = T, int MAXT = kMaxTAt128>
+cudaError_t launch_cols(const PrefillArgs& a, int B, cudaStream_t stream) {
   const size_t smem = with_meta<MODE>(prefill_smem_bytes(a.D));
-  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T, MODE, S>,
+  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<T, MODE, S, MAXT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(MODE == KV_RAGGED ? a.n_tiles : (a.Sq + kBQ - 1) / kBQ, B * a.H);
-  prefill_kernel<T, MODE, S><<<grid, kWarps * 32, smem, stream>>>(a);
+  prefill_kernel<T, MODE, S, MAXT><<<grid, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// The CUDA-core body: head dims above 128 (the contiguous mode only) take 8
+// output columns a lane; its f32 tiles then fill 214 KB of shared memory, so
+// a block runs alone on its SM
+template <typename T, int MODE, typename S = T>
+cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
+  if constexpr (MODE == KV_CONTIG) {
+    if (a.D > 32 * kMaxTAt128) return launch_cols<T, MODE, S, 8>(a, B, stream);
+  }
+  return launch_cols<T, MODE, S>(a, B, stream);
+}
+
+// head dims: up to 256 for contiguous K/V, up to 128 through a block table
+// or a ragged stream
 inline bool prefill_args_ok(const PrefillArgs& a, int MODE) {
-  return a.D % 8 == 0 && a.D <= 128 && a.H % a.KV == 0 &&
+  return a.D % 8 == 0 && a.D <= (MODE == KV_CONTIG ? 256 : 128) && a.H % a.KV == 0 &&
          (MODE != KV_RAGGED || (a.R >= 1 && (a.one_row || a.R <= kMaxRaggedRows)));
 }
 

@@ -1,8 +1,14 @@
-"""The dense decoder forward — the Llama subset of ``nxdi_tpu/models/base.py``.
+"""The dense decoder forward — the Llama-lineage subset of
+``nxdi_tpu/models/base.py``.
 
 One forward of a submodel: embed -> [decoder layers: rmsnorm -> attention
 (+KV write) -> residual -> rmsnorm -> gated MLP -> residual] -> final
 rmsnorm -> last-token gather -> lm_head -> padded-vocab mask -> greedy token.
+The dense families' switches of ``DecoderArch`` (q/k norms, the sliding
+window, Gemma's norms and embedding scale, post-block norms, the scalings,
+the non-gated MLP, the adjacent-pair rope) change these steps as the JAX
+package's do; per-layer ``use_rope`` / ``use_sliding_window`` flags ride the
+layer stack's params (:class:`LayerFlags`).
 
 Where the JAX package scans one traced layer body over layer-stacked
 params, PyTorch runs eagerly: a Python loop over the layers, each reading
@@ -94,7 +100,7 @@ freeze after EOS or their budget: position pinned, cache writes dropped.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,8 +121,26 @@ from nxdi_tpu_torch.ops import sampling as sampling_ops
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
 from nxdi_tpu_torch.ops.kernels import fused_proj as fp
 from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
-from nxdi_tpu_torch.ops.norms import rms_norm
-from nxdi_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_cos_sin
+from nxdi_tpu_torch.ops.norms import flat_rms_norm, rms_norm
+from nxdi_tpu_torch.ops.rope import (
+    apply_rotary_pos_emb,
+    apply_rotary_pos_emb_interleaved,
+    rope_cos_sin,
+)
+
+# The MLP activations of the JAX package's ``ACT_FNS``, with its meanings:
+# "gelu" is jax.nn.gelu's default, the tanh approximation (the JAX fused MLP
+# kernel's "gelu" is the exact one, and so is the port's kernel:
+# ops/kernels/fused_proj.py)
+ACT_FNS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    # squared ReLU (Arcee / AFM, HF ACT2FN["relu2"])
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
 
 # Attention-strategy trace: attention_block appends the strategy each layer
 # actually ran; ModelWrapper snapshots it per (submodel, bucket).
@@ -129,8 +153,8 @@ def _record_strategy(name: str) -> None:
 
 @dataclass(frozen=True)
 class DecoderArch:
-    """Static architecture description (the fields the Llama path reads).
-    Head and vocab counts are the padded values after GQA planning and vocab
+    """Static architecture description (the fields the Llama-lineage paths
+    read, with the JAX package's meanings). Head and vocab counts are the padded values after GQA planning and vocab
     padding; ``vocab_pad`` rows are masked out of the logits."""
 
     num_layers: int
@@ -166,10 +190,54 @@ class DecoderArch:
     # Multi-head Latent Attention replaces the GQA attention when set
     # (ops/mla.py; the DeepSeek lineage)
     mla: Optional[mla_ops.MLAArch] = None
+    # --- the dense Llama-lineage families' switches (the JAX package's) ---
+    # per-head q/k RMSNorm before rope (Qwen3, HunYuan; params attn.q_norm /
+    # attn.k_norm (L, D))
+    qk_norm: bool = False
+    # sliding-window attention (Mistral, Ministral, Mixtral): key positions
+    # in (q - window, q]
+    sliding_window: Optional[int] = None
+    # the softmax scale (None: head_dim ** -0.5; Granite's attention_multiplier)
+    attention_scale: Optional[float] = None
+    # the Gemma lineage: (1 + w) norms in float32, embeddings times
+    # embed_scale after the cast to the compute dtype (Granite and MiniCPM
+    # set embed_scale alone)
+    gemma_norm: bool = False
+    embed_scale: Optional[float] = None
+    # a plain up -> act -> down MLP (Arcee) where False
+    gated_mlp: bool = True
+    # o_proj bias (Ernie 4.5, Seed-OSS, InternLM3)
+    attention_o_bias: bool = False
+    # adjacent-pair (GPT-J) rope (Helium, Ernie 4.5)
+    rope_interleaved: bool = False
+    # OLMo-2: RMSNorm over the flat q/k projections before the head reshape;
+    # q's mean square divides by the true (unpadded) width qk_norm_flat_qdim
+    qk_norm_flat: bool = False
+    qk_norm_flat_qdim: int = 0
+    # OLMo-2: no input norms; the attention and MLP outputs are normed before
+    # the residual add ("input_layernorm" holds the post-attention norm,
+    # "post_attention_layernorm" the post-feed-forward one)
+    post_block_norm: bool = False
+    # Granite / MiniCPM: block outputs times residual_multiplier before the
+    # residual add; logits divided by logits_scaling
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    # per layer, whether it is a sliding-window layer (Ministral's
+    # layer_types). The layers' "use_sliding_window" param flags carry the
+    # same pattern on the device; this host copy gives a kernel launched on
+    # the card its layer's window
+    kv_window_pattern: Optional[Tuple[bool, ...]] = None
 
     def __post_init__(self):
-        if self.hidden_act != "silu":
+        if self.hidden_act not in ACT_FNS:
             raise NotImplementedError(f"hidden_act {self.hidden_act!r} is not ported yet")
+
+    def layer_window(self, i: int) -> Optional[int]:
+        """The sliding window of layer ``i`` (None: full attention)."""
+        if self.sliding_window is None:
+            return None
+        pat = self.kv_window_pattern
+        return self.sliding_window if pat is None or pat[i] else None
 
     def kv_cache_spec(self, batch_size: int, max_len: int) -> KVCacheSpec:
         if self.mla is not None:
@@ -194,6 +262,10 @@ class DecoderArch:
             dtype=self.dtype,
             quant_dtype=self.kv_quant_dtype,
         )
+
+
+def _norm(arch: DecoderArch, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, w, arch.rms_norm_eps, gemma_style=arch.gemma_norm)
 
 
 def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor], act_quant=None,
@@ -257,14 +329,16 @@ def _proj_gate(flag: str, on_cuda: bool, ref_failed: List[str], card_failed: Lis
 
 
 def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = None,
-                 store: Optional[torch.dtype] = None) -> List[str]:
-    """The CUDA kernels' limits: head dim, q's dtype, heads per kv head, and
-    the KV ``store`` the kernel reads (q's dtype, or, for the paged, ragged
-    and commit kernels, a one-byte store at a head dim that is a multiple
-    of 16)."""
+                 store: Optional[torch.dtype] = None,
+                 max_head_dim: int = fa.MAX_HEAD_DIM) -> List[str]:
+    """The CUDA kernels' limits: head dim (up to ``max_head_dim``: the paged
+    prefill and the ragged kernel take less than the others), q's dtype,
+    heads per kv head, and the KV ``store`` the kernel reads (q's dtype, or,
+    for the paged, ragged and commit kernels, a one-byte store at a head dim
+    that is a multiple of 16, up to 128)."""
     bad = []
-    if D % 8 or D > fa.MAX_HEAD_DIM:
-        bad.append(f"head_dim {D} is not a multiple of 8 up to {fa.MAX_HEAD_DIM}")
+    if D % 8 or D > max_head_dim:
+        bad.append(f"head_dim {D} is not a multiple of 8 up to {max_head_dim}")
     if dtype not in (torch.float32, torch.bfloat16):
         bad.append(f"dtype {dtype} is not float32 or bfloat16")
     if max_group is not None and G > max_group:
@@ -272,8 +346,9 @@ def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = 
     if store is not None and store != dtype:
         if store not in fa.ONE_BYTE_STORES:
             bad.append(f"KV store {store} is neither {dtype} nor a one-byte store")
-        elif D % 16:
-            bad.append(f"a one-byte KV store needs head_dim a multiple of 16, got {D}")
+        elif D % 16 or D > fa.ONE_BYTE_MAX_HEAD_DIM:
+            bad.append(f"a one-byte KV store needs head_dim a multiple of 16 up to "
+                       f"{fa.ONE_BYTE_MAX_HEAD_DIM}, got {D}")
     return bad
 
 
@@ -281,7 +356,38 @@ def _heads_ok(H: int, KV: int) -> List[str]:
     return [] if H % KV == 0 else [f"{H} heads not divisible by {KV} kv heads"]
 
 
-def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout):
+class LayerFlags(NamedTuple):
+    """A layer's per-layer switches: its ``use_sliding_window`` and
+    ``use_rope`` param flags (0-d bool tensors, or None when the stack has
+    none) and its window on the host (:meth:`DecoderArch.layer_window`),
+    which the card's kernels take as a per-call scalar."""
+
+    window_enabled: Optional[torch.Tensor] = None
+    use_rope: Optional[torch.Tensor] = None
+    window: Optional[int] = None
+
+    def ref_only(self) -> Tuple[str, ...]:
+        """The JAX rule leaves every attention kernel for plain attention on
+        a layer that carries a flag; the CUDA kernels serve such layers (rope
+        runs before the kernel, the window is the layer's own scalar), so
+        these are ``ref_only`` conditions of :func:`_kernel_gate`."""
+        return tuple(cond for cond, flag in (
+            ("per-layer sliding-window flags", self.window_enabled),
+            ("per-layer rope flags", self.use_rope)) if flag is not None)
+
+
+NO_FLAGS = LayerFlags()
+
+
+def _window_refused(arch: DecoderArch) -> List[str]:
+    """The JAX rule for the paged, ragged and paged-decode kernels: none
+    takes a sliding window."""
+    return [] if arch.sliding_window is None else [
+        f"sliding_window {arch.sliding_window} (the paged and ragged kernels take none)"]
+
+
+def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
+                  lf: LayerFlags = NO_FLAGS):
     """Attention of a cache-attending forward whose fresh rows are already
     in the cache (the paged pool's path, and a token-tree verify), in the
     JAX package's order: the block-table prefill kernel for a continuing
@@ -291,25 +397,29 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     B, H, S, D = q.shape
     KV = arch.num_kv_heads
     if ci.get("mixed_row_ids") is not None and S > 1:
-        return _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout)
+        return _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
+                             lf)
+    G = H // max(KV, 1)
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
-        ref_failed = _heads_ok(H, KV)
+        ref_failed = _heads_ok(H, KV) + _window_refused(arch)
         if k_cache_l.shape[0] % layout.block_size:
             ref_failed.append(f"{k_cache_l.shape[0]} pool slots are not whole blocks")
         scales = dict(block_size=layout.block_size, k_scale=layout.k_scale,
-                      v_scale=layout.v_scale)
+                      v_scale=layout.v_scale, scale=arch.attention_scale)
         store = k_cache_l.dtype
         if S > 1 and _kernel_gate(
             "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1), store=store),
+            ref_failed, _card_limits(D, q.dtype, G, store=store,
+                                     max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM),
+            lf.ref_only(),
         ):
             _record_strategy("cte_paged_kernel")
             return fa.paged_attention_prefill(
                 q, k_cache_l, v_cache_l, ci["block_table"], position_ids, **scales)
         if S == 1 and _kernel_gate(
             "attn_block_tkg_kernel_enabled", arch.attn_block_tkg_kernel_enabled, q.is_cuda,
-            ref_failed, _card_limits(D, q.dtype, H // max(KV, 1), max_group=16, store=store),
+            ref_failed, _card_limits(D, q.dtype, G, max_group=16, store=store), lf.ref_only(),
         ):
             _record_strategy("tkg_paged_kernel")
             return fa.paged_attention_decode(
@@ -320,18 +430,23 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         # an explicit (B, S, W) mask (the token-tree verify), where causal by
         # position is wrong: plain attention, as in the JAX package
         _record_strategy("attn_mask_override_xla")
-        return attn_ops.grouped_attention(q, kk, vv, mask_override[:, :, :kk.shape[2]])
+        return attn_ops.grouped_attention(q, kk, vv, mask_override[:, :, :kk.shape[2]],
+                                          scale=arch.attention_scale)
     if S == 1 and _kernel_gate(
         "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV), _card_limits(D, q.dtype, H // max(KV, 1), max_group=16),
+        _heads_ok(H, KV), _card_limits(D, q.dtype, G, max_group=16), lf.ref_only(),
     ):
         _record_strategy("tkg_kernel")
-        return fa.flash_attention_decode(q, kk, vv, position_ids, kv_pos)
+        return fa.flash_attention_decode(q, kk, vv, position_ids, kv_pos,
+                                         scale=arch.attention_scale, sliding_window=lf.window)
     _record_strategy("tkg_xla")
-    return attn_ops.attention_with_positions(q, kk, vv, position_ids, kv_pos)
+    return attn_ops.attention_with_positions(
+        q, kk, vv, position_ids, kv_pos, scale=arch.attention_scale,
+        sliding_window=arch.sliding_window, sliding_window_enabled=lf.window_enabled)
 
 
-def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout):
+def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
+                  lf: LayerFlags = NO_FLAGS):
     """The serving engine's mixed step: a packed (1, T) stream of prefill
     chunks and decode rows, tagged per token by ``mixed_row_ids`` (-1 =
     padding), with R per-row tables concatenated in ``block_table`` (1, R *
@@ -348,14 +463,16 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             q.shape, k_cache_l.shape, layout.block_size):
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
-    card = _card_limits(D, q.dtype, H // max(KV, 1), store=k_cache_l.dtype)
+    ref_failed += _window_refused(arch)
+    card = _card_limits(D, q.dtype, H // max(KV, 1), store=k_cache_l.dtype,
+                        max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
-                    card):
+                    card, lf.ref_only()):
         _record_strategy("mixed_ragged_kernel")
         return rpa.ragged_paged_attention(
             q, k_cache_l, v_cache_l, bt, rids[0], position_ids[0],
             block_size=layout.block_size, k_scale=layout.k_scale, v_scale=layout.v_scale,
-            plan=ci.get("ragged_plan"),
+            scale=arch.attention_scale, plan=ci.get("ragged_plan"),
         )
     # plain: gather the combined window and rebuild the ragged causal mask
     # from the tags — kv column g serves row g // row_width at in-row
@@ -369,7 +486,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             & ((g % row_width)[None, None, :] <= position_ids[:, :, None])
             & live[None, None, :])
     _record_strategy("mixed_ragged_xla")
-    return attn_ops.grouped_attention(q, kk, vv, mask)
+    return attn_ops.grouped_attention(q, kk, vv, mask, scale=arch.attention_scale)
 
 
 def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids=None):
@@ -433,8 +550,9 @@ def attention_block(
     tkg_stacked=None,  # (k_s, v_s, kv_len): stacked-cache fused decode kernel
     qkv_stacked=None,  # (w_s, b_s): the stacked fused QKV weight for its kernel
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) LoRA slots
+    lf: LayerFlags = NO_FLAGS,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """QKV -> RoPE -> KV write or deferred rows -> attention -> O.
+    """QKV -> (q/k norms) -> RoPE -> KV write or deferred rows -> attention -> O.
 
     ``attend_to_cache=False`` (context encoding): queries attend the fresh K/V
     only, which are also written into the cache in place.
@@ -444,11 +562,28 @@ def attention_block(
     and attends the cache (:func:`_attend_cache`)."""
     B, S, _ = hidden.shape
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
+    G = H // max(KV, 1)
     q, k, v = _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids)
-    q = q.reshape(B, S, H, D).transpose(1, 2)
-    k = k.reshape(B, S, KV, D).transpose(1, 2)
+    if arch.qk_norm_flat:
+        q = flat_rms_norm(q, p_attn["q_norm"], arch.rms_norm_eps,
+                          arch.qk_norm_flat_qdim or q.shape[-1])
+        k = flat_rms_norm(k, p_attn["k_norm"], arch.rms_norm_eps, k.shape[-1])
+    q = q.reshape(B, S, H, D)
+    k = k.reshape(B, S, KV, D)
+    if arch.qk_norm:
+        q = _norm(arch, q, p_attn["q_norm"])
+        k = _norm(arch, k, p_attn["k_norm"])
+    q = q.transpose(1, 2)
+    k = k.transpose(1, 2)
     v = v.reshape(B, S, KV, D).transpose(1, 2)
-    q, k = apply_rotary_pos_emb(q, k, cos, sin)
+    rope = apply_rotary_pos_emb_interleaved if arch.rope_interleaved else apply_rotary_pos_emb
+    qr, kr = rope(q, k, cos, sin)
+    if lf.use_rope is None:
+        q, k = qr, kr
+    else:  # a no-rope layer (SmolLM3) keeps q and k as they are
+        q, k = torch.where(lf.use_rope, qr, q), torch.where(lf.use_rope, kr, k)
+    sc, win = arch.attention_scale, dict(sliding_window=arch.sliding_window,
+                                         sliding_window_enabled=lf.window_enabled)
 
     def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
         return _linear(ctx.transpose(1, 2).reshape(B, S, H * D), p_attn["o_proj"],
@@ -463,7 +598,7 @@ def attention_block(
             k_s, v_s, kv_len = tkg_stacked
             ctx = fa.flash_attention_decode_fused_stacked(
                 q, k_s, v_s, k, v, position_ids, stacked_layer_idx, kv_len=kv_len,
-                lines=layout.lines(ci, B),
+                lines=layout.lines(ci, B), scale=sc, sliding_window=lf.window,
             )
             _record_strategy("tkg_fused_kernel_stacked")
             return o_proj(ctx), (k, v)
@@ -482,11 +617,13 @@ def attention_block(
         # A frozen row is an ordinary row there, whose output nobody reads
         if S == 1 and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-            _heads_ok(H, KV), _card_limits(D, q.dtype, H // max(KV, 1), max_group=16),
-            ("frozen-row write positions",) if "write_positions" in ci else (),
+            _heads_ok(H, KV), _card_limits(D, q.dtype, G, max_group=16),
+            (("frozen-row write positions",) if "write_positions" in ci else ())
+            + lf.ref_only(),
         ):
             _record_strategy("tkg_fused_kernel")
-            ctx = fa.flash_attention_decode_fused(q, kk, vv, k_att, v_att, position_ids, kv_pos)
+            ctx = fa.flash_attention_decode_fused(q, kk, vv, k_att, v_att, position_ids, kv_pos,
+                                                  scale=sc, sliding_window=lf.window)
             return o_proj(ctx), (k, v)
         # this step's slots hold stale rows: poison their positions so only
         # the fresh rows are attended there (frozen rows write nothing)
@@ -494,22 +631,26 @@ def attention_block(
         hit = (kv_pos[:, None, :] == wpos[:, :, None]).any(dim=1)
         kv_pos = torch.where(hit, torch.full_like(kv_pos, 2 ** 30), kv_pos)
         _record_strategy("tkg_two_part_xla")
-        ctx = attn_ops.attention_two_part(q, kk, vv, k_att, v_att, position_ids, kv_pos, wpos)
+        ctx = attn_ops.attention_two_part(q, kk, vv, k_att, v_att, position_ids, kv_pos, wpos,
+                                          scale=sc, **win)
         return o_proj(ctx), (k, v)
 
     layout.update(k_cache_l, v_cache_l, k, v, ci, cache_spec)
     if attend_to_cache:
-        ctx = _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout)
+        ctx = _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
+                            lf)
         return o_proj(ctx), (k_cache_l, v_cache_l)
     use_kernel = _kernel_gate(
         "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV), _card_limits(D, q.dtype, H // max(KV, 1)),
+        _heads_ok(H, KV), _card_limits(D, q.dtype, G), lf.ref_only(),
     )
     if use_kernel:
-        ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids)
+        ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids, scale=sc,
+                                         sliding_window=lf.window)
         _record_strategy("cte_flash_kernel")
     else:
-        ctx = attn_ops.attention_with_positions(q, k, v, position_ids, position_ids)
+        ctx = attn_ops.attention_with_positions(q, k, v, position_ids, position_ids, scale=sc,
+                                                **win)
         _record_strategy("cte_xla")
     return o_proj(ctx), (k_cache_l, v_cache_l)
 
@@ -517,23 +658,27 @@ def attention_block(
 def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor,
               mlp_stacked=None, layer_idx: Optional[int] = None,
               adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gated SiLU MLP: down(silu(x @ gate) * (x @ up)).
+    """Gated MLP: down(act(x @ gate) * (x @ up)), or under ``gated_mlp=False``
+    the plain down(act(x @ up)) (Arcee).
 
     ``mlp_kernel_enabled`` routes it through the fused MLP kernel — with the
     layer-stacked weights and the layer index when ``mlp_stacked`` holds
-    them — and raises where that kernel is not eligible (MLP biases, LoRA
-    adapters); it never falls back."""
+    them — and raises where that kernel is not eligible (a non-gated MLP, MLP
+    biases, LoRA adapters, an activation the kernel has not); it never falls
+    back."""
     if arch.mlp_kernel_enabled:
-        bad = ("MLP biases" if arch.mlp_bias
+        bad = ("non-gated MLP" if not arch.gated_mlp
+               else "MLP biases" if arch.mlp_bias
                else "LoRA adapters" if adapter_ids is not None else None)
         if bad is not None:
             raise NotImplementedError(f"mlp_kernel_enabled does not support {bad}; "
                                       "disable the flag")
         B, S, H = x.shape
         I = arch.intermediate_size
-        # the JAX rule (any shape, a kernel activation) holds: DecoderArch
-        # admits only silu
-        _proj_gate("mlp_kernel_enabled", x.is_cuda, [],
+        # the JAX rule: any shape, one of the kernel's activations
+        ref = ([] if arch.hidden_act in fp.KERNEL_ACTS
+               else [f"activation {arch.hidden_act!r} is not one of {fp.KERNEL_ACTS}"])
+        _proj_gate("mlp_kernel_enabled", x.is_cuda, ref,
                    fp.gemm_card_limits(H, I, x.dtype) + fp.gemm_card_limits(I, H, x.dtype))
         x2 = x.reshape(B * S, H)
         if mlp_stacked is not None:
@@ -544,21 +689,27 @@ def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor,
         _record_strategy("mlp_fused_kernel")
         return out.reshape(B, S, H)
     aq, ac = arch.act_quant, arch.act_clamp
-    gate = F.silu(_linear(x, p_mlp["gate_proj"], aq, ac, adapter_ids))
-    return _linear(gate * _linear(x, p_mlp["up_proj"], aq, ac, adapter_ids),
-                   p_mlp["down_proj"], aq, ac, adapter_ids)
+    act = ACT_FNS[arch.hidden_act]
+    up = _linear(x, p_mlp["up_proj"], aq, ac, adapter_ids)
+    if not arch.gated_mlp:
+        return _linear(act(up), p_mlp["down_proj"], aq, ac, adapter_ids)
+    gate = act(_linear(x, p_mlp["gate_proj"], aq, ac, adapter_ids))
+    return _linear(gate * up, p_mlp["down_proj"], aq, ac, adapter_ids)
 
 
 def decoder_layer(
     arch, lp, hidden, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
     attend_to_cache, layout=DEFAULT_KV_LAYOUT, cache_inputs=None, defer_write=False,
     stacked_layer_idx=None, tkg_stacked=None, mlp_stacked=None, qkv_stacked=None,
-    adapter_ids=None, kv_window=None,
+    adapter_ids=None, kv_window=None, window: Optional[int] = None,
 ):
     """One layer. ``kv_window`` (an MLA layer only, which writes into its
     whole cache line before attending) bounds the attended window; other
-    layers get their cache views already windowed."""
-    h = rms_norm(hidden, lp["input_layernorm"], arch.rms_norm_eps)
+    layers get their cache views already windowed. ``window``: the layer's
+    sliding window on the host (:meth:`DecoderArch.layer_window`); its
+    ``use_sliding_window`` / ``use_rope`` flags ride the params."""
+    lf = LayerFlags(lp.get("use_sliding_window"), lp.get("use_rope"), window)
+    h = hidden if arch.post_block_norm else _norm(arch, hidden, lp["input_layernorm"])
     if "input_norm_skip" in lp:
         # an EAGLE draft's first layer takes the fc output without its input
         # norm: the flag is a device scalar, read by torch.where (no host read)
@@ -575,16 +726,22 @@ def decoder_layer(
             arch, lp["attn"], h, cos, sin, k_cache_l, v_cache_l, position_ids, cache_spec,
             attend_to_cache, layout, cache_inputs, defer_write=defer_write,
             stacked_layer_idx=stacked_layer_idx, tkg_stacked=tkg_stacked,
-            qkv_stacked=qkv_stacked, adapter_ids=adapter_ids,
+            qkv_stacked=qkv_stacked, adapter_ids=adapter_ids, lf=lf,
         )
-    hidden = hidden + attn_out
-    h = rms_norm(hidden, lp["post_attention_layernorm"], arch.rms_norm_eps)
+    rm = arch.residual_multiplier
+    if arch.post_block_norm:
+        # OLMo-2: x + norm(attn(x)); x + norm(mlp(x))
+        hidden = hidden + _norm(arch, attn_out, lp["input_layernorm"]) * rm
+        ff = mlp_block(arch, lp["mlp"], hidden, mlp_stacked, stacked_layer_idx, adapter_ids)
+        return hidden + _norm(arch, ff, lp["post_attention_layernorm"]) * rm, kv
+    hidden = hidden + attn_out * rm
+    h = _norm(arch, hidden, lp["post_attention_layernorm"])
     # MoE or dense per layer, by the params' structure (the JAX package's rule)
     if arch.moe is not None and "moe" in lp:
         _record_strategy(moe_ops.moe_strategy(arch.moe, h))
-        return hidden + moe_ops.moe_block(arch, arch.moe, lp["moe"], h), kv
+        return hidden + moe_ops.moe_block(arch, arch.moe, lp["moe"], h) * rm, kv
     return hidden + mlp_block(arch, lp["mlp"], h, mlp_stacked, stacked_layer_idx,
-                              adapter_ids), kv
+                              adapter_ids) * rm, kv
 
 
 def stacked_proj_weights(arch: DecoderArch, stacked: Dict[str, Any]):
@@ -597,7 +754,7 @@ def stacked_proj_weights(arch: DecoderArch, stacked: Dict[str, Any]):
     stacked MLP weights."""
     mlp, qkv = stacked.get("mlp"), stacked["attn"].get("qkv_proj")
     mlp_st = (tuple(mlp[k]["w"] for k in ("gate_proj", "up_proj", "down_proj"))
-              if arch.mlp_kernel_enabled and mlp is not None else None)
+              if arch.mlp_kernel_enabled and arch.gated_mlp and mlp is not None else None)
     qkv_st = ((qkv["w"], qkv.get("b"))
               if arch.qkv_kernel_enabled and qkv is not None and "w" in qkv else None)
     return mlp_st, qkv_st
@@ -661,9 +818,14 @@ def run_decoder_layers(
         # q's dtype, so a scaled or narrowed store leaves it (the JAX rule) for
         # the per-layer fused kernel over the dequantized window
         # (decoder_layer), on the card too
+        # per-layer window / rope flags likewise leave it under the JAX rule;
+        # the card's kernel takes each layer's window as its own scalar
+        flags = set().union(*layer_segments(stacked_params))
         ref_only = tuple(cond for cond, hit in (
             ("cache lines routed by seq_ids", layout.route_by_seq_id),
             ("frozen-row write positions", "write_positions" in (cache_inputs or {})),
+            ("per-layer sliding-window flags", "use_sliding_window" in flags),
+            ("per-layer rope flags", "use_rope" in flags),
         ) if hit)
         quantized = (layout.scaled("k") or layout.scaled("v")
                      or cache["k"].dtype != cache_spec.torch_dtype)
@@ -699,6 +861,7 @@ def run_decoder_layers(
                 cache_spec, attend_to_cache, layout, ci, defer_write=defer,
                 stacked_layer_idx=j, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
                 qkv_stacked=qkv_stacked, adapter_ids=adapter_ids, kv_window=mla_window,
+                window=arch.layer_window(i),
             )
             if collect is not None:
                 collect.append(hidden)
@@ -787,6 +950,10 @@ def causal_lm_forward(
     compute_dtype = to_torch_dtype(arch.dtype)
 
     hidden = F.embedding(input_ids.long(), params["embed_tokens"]).to(compute_dtype)
+    if arch.embed_scale is not None:
+        # after the cast to the compute dtype, by the scale rounded to it (the
+        # JAX package's order); a host float, so a captured graph holds it
+        hidden = hidden * float(torch.tensor(arch.embed_scale, dtype=compute_dtype))
     if "fc" in params:
         feats = batch["prev_hidden"][:, : input_ids.shape[1]].to(compute_dtype)
         hidden = _linear(torch.cat([hidden, feats], dim=-1), params["fc"], arch.act_quant,
@@ -812,7 +979,7 @@ def causal_lm_forward(
     )
     pre_norm_hidden = hidden
     if "norm" in params:  # EAGLE drafts have no final norm
-        hidden = rms_norm(hidden, params["norm"], arch.rms_norm_eps)
+        hidden = _norm(arch, hidden, params["norm"])
     lm_head = params.get("lm_head")
     if lm_head is None:  # tied embeddings
         lm_head = params["embed_tokens"].t()
@@ -823,6 +990,8 @@ def causal_lm_forward(
         idx = batch["last_token_index"].long()
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
     logits = (hidden @ lm_head.to(hidden.dtype)).float()
+    if arch.logits_scaling != 1.0:
+        logits = logits / arch.logits_scaling
     logits = sampling_ops.mask_padded_logits(logits, arch.vocab_pad)
 
     outputs: Dict[str, torch.Tensor] = {}

@@ -14,10 +14,18 @@ torch tensors:
                          # "qkv_proj": {"w": (L, H, Hq*D + 2*KV*D)}
                 "mlp": {"gate_proj": {"w": (L, H, I)}, "up_proj": ..., "down_proj": ...}}}
 
+The family switches add leaves: biases ``"b"`` beside a projection's
+``"w"`` (``attention_bias``: q/k/v; ``attention_o_bias``: o; ``mlp_bias``),
+``attn.q_norm`` / ``attn.k_norm`` ((L, D) per-head under ``qk_norm``;
+(L, Hq*D) / (L, KV*D) under ``qk_norm_flat``), and per-layer bool flags
+``layers.use_rope`` / ``layers.use_sliding_window`` (L,). A non-gated MLP
+(Arcee) has no ``gate_proj``.
+
 An MoE family (``models/mixtral``) replaces each layer's ``mlp`` through
 ``convert_hf_state_dict``'s ``ff_converter`` hook, here by ``"moe"``:
 ``{"router": {"w": (L, H, E)}, "experts": {"gate_proj": {"w": (L, E, H, I)},
-"up_proj": ..., "down_proj": {"w": (L, E, I, H)}}}`` (``ops/moe.py``).
+"up_proj": ..., "down_proj": {"w": (L, E, I, H)}}}`` (``ops/moe.py``); a
+non-gated family (Arcee) by its own ``"mlp"``.
 """
 
 from __future__ import annotations
@@ -177,9 +185,10 @@ def convert_hf_state_dict(
     ff_converter=None,
 ) -> Dict[str, Any]:
     """HF llama-layout checkpoint (tensors or numpy arrays) -> layer-stacked
-    params dict on the CPU, in the arch's dtype. MoE families pass
-    ``ff_converter(get, has, cast, layer_prefix) -> (key, params)`` to replace
-    the dense MLP's conversion per layer (e.g. ``("moe", {...})``)."""
+    params dict on the CPU, in the arch's dtype. MoE families (and Arcee's
+    non-gated MLP) pass ``ff_converter(get, has, cast, layer_prefix) -> (key,
+    params)`` to replace the dense MLP's conversion per layer (e.g.
+    ``("moe", {...})``)."""
     dt = to_torch_dtype(arch.dtype)
     plan = gqa_plan(config)
     D = arch.head_dim
@@ -213,6 +222,11 @@ def convert_hf_state_dict(
             for name, fn in (("q_proj", gqa.convert_q), ("k_proj", gqa.convert_kv),
                              ("v_proj", gqa.convert_kv)):
                 attn[name]["b"] = cast(fn(get(f"{pre}self_attn.{name}.bias")[:, None], D, plan)[:, 0])
+        if arch.attention_o_bias:
+            attn["o_proj"]["b"] = cast(get(pre + "self_attn.o_proj.bias"))
+        if arch.qk_norm:
+            attn["q_norm"] = cast(get(pre + "self_attn.q_norm.weight"))
+            attn["k_norm"] = cast(get(pre + "self_attn.k_norm.weight"))
         if arch.fused_qkv:
             _fuse_qkv(attn, 1)  # tp_degree is 1: one rank block
         layer = {
@@ -255,7 +269,7 @@ def param_shapes(arch: DecoderArch) -> Dict[str, Any]:
     builds and tests)."""
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
     hs, inter, V, L = arch.hidden_size, arch.intermediate_size, arch.vocab_size, arch.num_layers
-    params = {
+    params: Dict[str, Any] = {
         "embed_tokens": (V, hs),
         "layers": {
             "input_layernorm": (L, hs),
@@ -274,10 +288,28 @@ def param_shapes(arch: DecoderArch) -> Dict[str, Any]:
         },
         "norm": (hs,),
     }
+    attn, mlp = params["layers"]["attn"], params["layers"]["mlp"]
+    if arch.attention_bias:
+        for name, n in (("q_proj", H), ("k_proj", KV), ("v_proj", KV)):
+            attn[name]["b"] = (L, n * D)
+    if arch.attention_o_bias:
+        attn["o_proj"]["b"] = (L, hs)
+    if arch.qk_norm:
+        attn["q_norm"], attn["k_norm"] = (L, D), (L, D)
+    elif arch.qk_norm_flat:
+        attn["q_norm"], attn["k_norm"] = (L, H * D), (L, KV * D)
     if arch.fused_qkv:
-        attn = params["layers"]["attn"]
-        del attn["q_proj"], attn["k_proj"], attn["v_proj"]
-        attn["qkv_proj"] = {"w": (L, hs, (H + 2 * KV) * D)}
+        qkv = {"w": (L, hs, (H + 2 * KV) * D)}
+        if arch.attention_bias:
+            qkv["b"] = (L, (H + 2 * KV) * D)
+        for name in ("q_proj", "k_proj", "v_proj"):
+            del attn[name]
+        attn["qkv_proj"] = qkv
+    if not arch.gated_mlp:
+        del mlp["gate_proj"]
+    if arch.mlp_bias:
+        for name, p in mlp.items():
+            p["b"] = (L, hs if name == "down_proj" else inter)
     if arch.moe is not None:
         del params["layers"]["mlp"]
         params["layers"]["moe"] = moe_param_shapes(arch.moe, hs, L)
@@ -322,7 +354,9 @@ def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=No
 
     def make(path, shape):
         if path[-1].endswith("norm"):
-            return torch.ones(shape, dtype=dt, device=device)
+            # a gemma-style norm multiplies by 1 + w: a zero offset is unit scale
+            fill = torch.zeros if arch.gemma_norm else torch.ones
+            return fill(shape, dtype=dt, device=device)
         if math.prod(shape) * 4 <= _DRAW_WHOLE_BYTES:
             x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * std
             return x.to(dt)

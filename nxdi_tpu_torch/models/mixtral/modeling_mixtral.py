@@ -4,8 +4,8 @@ the llama lineage with a sparse mixture-of-experts feed-forward
 
 HF weight layout: ``block_sparse_moe.gate`` is the router, each expert's
 ``w1`` the gate, ``w3`` the up and ``w2`` the down projection. Routing: a
-full softmax, top-k, always renormalised. Sliding-window attention is not
-ported: a config that sets ``sliding_window`` raises.
+full softmax, top-k, always renormalised. A ``sliding_window`` in the HF
+config masks attention to the window, as Mistral's does.
 """
 
 from __future__ import annotations
@@ -62,12 +62,9 @@ def _moe_arch(config: InferenceConfig) -> MoEArch:
 
 
 def build_arch(config: InferenceConfig, **overrides) -> DecoderArch:
-    if getattr(config, "sliding_window", None) is not None:
-        raise NotImplementedError(
-            f"sliding_window={config.sliding_window}: sliding-window attention is not "
-            "ported yet; set sliding_window=None"
-        )
-    return dense.build_arch(config, **{"moe": _moe_arch(config), **overrides})
+    sw = getattr(config, "sliding_window", None)
+    return dense.build_arch(
+        config, **{"moe": _moe_arch(config), "sliding_window": sw, **overrides})
 
 
 def convert_hf_state_dict(state_dict: Dict[str, Any], config: InferenceConfig) -> Dict[str, Any]:

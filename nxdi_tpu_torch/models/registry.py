@@ -1,0 +1,76 @@
+"""Model-family registry (counterpart of ``nxdi_tpu/models/registry.py``):
+HF ``model_type`` -> the port's family module and its config class.
+
+A family module exposes ``build_arch``, ``build_inv_freq``,
+``convert_hf_state_dict`` and an ``*InferenceConfig`` class; an app is
+``TorchModelForCausalLM(path, cfg_cls(TorchConfig(...), load_config=...),
+model_family=module)``.
+
+:data:`NOT_PORTED` lists the model types the JAX package registers that the
+port does not serve yet: :func:`get_family` raises ``NotImplementedError``
+for them, naming the type, and ``KeyError`` for a type neither package
+registers.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+_M = "nxdi_tpu_torch.models"
+
+_REGISTRY: Dict[str, Tuple[str, str]] = {
+    # model_type -> (module path, config class name)
+    "llama": (f"{_M}.llama.modeling_llama", "LlamaInferenceConfig"),
+    "mixtral": (f"{_M}.mixtral.modeling_mixtral", "MixtralInferenceConfig"),
+    "deepseek_v3": (f"{_M}.deepseek.modeling_deepseek", "DeepseekInferenceConfig"),
+    "deepseek": (f"{_M}.deepseek.modeling_deepseek", "DeepseekInferenceConfig"),
+    "mistral": (f"{_M}.mistral.modeling_mistral", "MistralInferenceConfig"),
+    "qwen2": (f"{_M}.qwen2.modeling_qwen2", "Qwen2InferenceConfig"),
+    "qwen3": (f"{_M}.qwen3.modeling_qwen3", "Qwen3InferenceConfig"),
+    "hunyuan_v1_dense": (f"{_M}.hunyuan.modeling_hunyuan", "HunYuanInferenceConfig"),
+    "gemma": (f"{_M}.gemma.modeling_gemma", "GemmaInferenceConfig"),
+    "helium": (f"{_M}.helium.modeling_helium", "HeliumInferenceConfig"),
+    "ernie4_5": (f"{_M}.ernie4_5.modeling_ernie4_5", "Ernie4_5InferenceConfig"),
+    "granite": (f"{_M}.granite.modeling_granite", "GraniteInferenceConfig"),
+    "minicpm": (f"{_M}.minicpm.modeling_minicpm", "MiniCPMInferenceConfig"),
+    "minicpm4": (f"{_M}.minicpm.modeling_minicpm", "MiniCPMInferenceConfig"),
+    "seed_oss": (f"{_M}.seed_oss.modeling_seed_oss", "SeedOssInferenceConfig"),
+    "internlm3": (f"{_M}.internlm3.modeling_internlm3", "InternLM3InferenceConfig"),
+    "smollm3": (f"{_M}.smollm3.modeling_smollm3", "SmolLM3InferenceConfig"),
+    "olmo2": (f"{_M}.olmo2.modeling_olmo2", "Olmo2InferenceConfig"),
+    "arcee": (f"{_M}.arcee.modeling_arcee", "ArceeInferenceConfig"),
+    "ministral": (f"{_M}.ministral.modeling_ministral", "MinistralInferenceConfig"),
+}
+
+# registered by the JAX package, not ported yet (ROADMAP Queue 1)
+NOT_PORTED = frozenset({
+    "qwen3_moe", "gemma3", "gemma3_text", "pixtral", "mistral3", "ovis2", "dbrx", "gpt_oss",
+    "llama4", "llama4_text", "llava", "mllama", "qwen2_vl", "qwen3_vl", "qwen2_5_vl",
+    "minimax_m2", "mimo_v2", "gpt2", "gemma2", "phi3", "qwen3_next", "recurrent_gemma",
+    "recurrentgemma", "qwen2_5_omni", "phimoe", "lfm2", "qwen2_5_omni_thinker", "falcon_h1",
+    "starcoder2", "stablelm", "glm4", "exaone4", "olmo3", "cohere2", "gpt_neox", "vaultgemma",
+    "opt", "biogpt", "xglm", "gpt_bigcode", "falcon", "persimmon", "phi", "apertus", "janus",
+    "idefics", "orion", "afmoe",
+})
+
+
+def register(model_type: str, module_path: str, config_cls_name: str) -> None:
+    _REGISTRY[model_type] = (module_path, config_cls_name)
+
+
+def get_family(model_type: str):
+    """(family module, config class) of ``model_type``."""
+    if model_type not in _REGISTRY:
+        if model_type in NOT_PORTED:
+            raise NotImplementedError(
+                f"model_type {model_type!r} is registered by the JAX package but not ported "
+                f"yet; ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"Unknown model_type {model_type!r}; registered: {sorted(_REGISTRY)}")
+    module_path, cfg_name = _REGISTRY[model_type]
+    module = importlib.import_module(module_path)
+    return module, getattr(module, cfg_name)
+
+
+def known_model_types():
+    return sorted(_REGISTRY)

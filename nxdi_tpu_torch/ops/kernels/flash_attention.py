@@ -63,7 +63,12 @@ import torch
 from nxdi_tpu_torch.ops.attention import NEG_INF
 from nxdi_tpu_torch.ops.kernels import _build
 
-MAX_HEAD_DIM = 128
+# head dims the kernels take (multiples of 8): the contiguous prefill and the
+# decode kernel's three modes up to 256 (Gemma); the paged prefill and the
+# ragged kernel (rows 6 and 8), and every kernel over a one-byte pool, up to 128
+MAX_HEAD_DIM = 256
+PAGED_PREFILL_MAX_HEAD_DIM = 128
+ONE_BYTE_MAX_HEAD_DIM = 128
 # the one-byte KV stores the paged kernels read (and convert as tiles land)
 ONE_BYTE_STORES = (torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
 # the contiguous prefill's bodies (codes shared with csrc/flash_prefill.cu)
@@ -94,9 +99,9 @@ def _visible(kv_pos, q_pos, strict: bool, sliding_window, chunk_size):
     return m
 
 
-def _check_head_dim(D: int, name: str) -> None:
-    if D % 8 or D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} must be a multiple of 8 up to {MAX_HEAD_DIM}")
+def _check_head_dim(D: int, name: str, limit: int = MAX_HEAD_DIM) -> None:
+    if D % 8 or D > limit:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of 8 up to {limit}")
 
 
 def _check_cuda_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
@@ -124,8 +129,9 @@ def _check_kv_store(name: str, q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError(f"{name}: KV store dtypes ({k_cache.dtype}, {v_cache.dtype}) are "
                         f"neither q's ({q.dtype}) nor one shared one-byte store")
     D = q.shape[-1]
-    if D % 16:
-        raise ValueError(f"{name}: a one-byte KV store needs head_dim a multiple of 16, got {D}")
+    if D % 16 or D > ONE_BYTE_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: a one-byte KV store needs head_dim a multiple of 16 up to "
+                         f"{ONE_BYTE_MAX_HEAD_DIM}, got {D}")
     for t in (k_cache, v_cache):
         if t.device != q.device:
             raise ValueError(f"{name}: all operands must be on the same CUDA device")
@@ -422,6 +428,11 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
             q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, scale=scale,
             sliding_window=sliding_window, chunk_size=chunk_size, kv_len=W,
         )
+    if k_new.stride() != v_new.stride():
+        # the kernel reads both fresh rows through one pair of strides: under
+        # fused_qkv the roped k is a new tensor while v is still a view of the
+        # fused projection's output (a (B, KV, 1, D) copy each)
+        k_new, v_new = k_new.contiguous(), v_new.contiguous()
     for t in (q, k_cache, v_cache, k_new, v_new):
         _check_cuda_operand(t, name, q.dtype)
     if k_cache.stride() != v_cache.stride():
@@ -726,6 +737,7 @@ def paged_attention_prefill(
             q, k_cache, v_cache, block_table, q_pos, block_size=block_size, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
+    _check_head_dim(q.shape[3], name, PAGED_PREFILL_MAX_HEAD_DIM)
     out = _paged_launch(name, False, q, k_cache, v_cache, block_table, q_pos, block_size,
                         scale, k_scale, v_scale)
     paged_attention_prefill.launches += 1

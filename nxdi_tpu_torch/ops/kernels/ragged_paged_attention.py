@@ -54,6 +54,7 @@ import torch
 from nxdi_tpu_torch.ops.kernels import _build
 from nxdi_tpu_torch.ops.kernels.flash_attention import (
     ONE_BYTE_STORES,
+    PAGED_PREFILL_MAX_HEAD_DIM,
     WGMMA_HEAD_DIMS,
     _check_cuda_operand,
     _check_head_dim,
@@ -428,6 +429,7 @@ def ragged_paged_attention(
             q, k_cache, v_cache, block_tables, row_ids, q_pos, block_size=block_size,
             scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
+    _check_head_dim(D, name, PAGED_PREFILL_MAX_HEAD_DIM)
     _check_cuda_operand(q, name, q.dtype)
     _check_kv_store(name, q, k_cache, v_cache)
     kv_code = _build.store_code(k_cache, q, name)

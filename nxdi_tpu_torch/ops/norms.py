@@ -5,9 +5,26 @@ from __future__ import annotations
 import torch
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with float32 accumulation, output in ``x.dtype``."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+             gemma_style: bool = False) -> torch.Tensor:
+    """RMSNorm with float32 accumulation, output in ``x.dtype``.
+
+    ``gemma_style``: the Gemma lineage stores the weight as an offset from
+    one and multiplies by ``1 + w`` in float32 before the downcast."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * weight.float()).to(x.dtype)
+    w = weight.float()
+    if gemma_style:
+        w = 1.0 + w
+    return (y * w).to(x.dtype)
+
+
+def flat_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, denom: int) -> torch.Tensor:
+    """RMSNorm over a whole flattened projection (OLMo-2's q/k norms, before
+    the head reshape) whose mean square divides by ``denom``: the true,
+    unpadded width. Under GQA head padding the padded entries are exactly
+    zero, so ``sum(x^2) / denom`` is the unpadded model's mean."""
+    xf = x.float()
+    ms = (xf * xf).sum(dim=-1, keepdim=True) / denom
+    return (xf * torch.rsqrt(ms + eps) * weight.float()).to(x.dtype)

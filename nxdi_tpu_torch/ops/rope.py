@@ -1,6 +1,7 @@
 """Rotary position embeddings (counterpart of ``nxdi_tpu/ops/rope.py``).
 
-HF llama's rotate-half convention, plain RoPE, llama3 and YaRN frequency
+HF llama's rotate-half convention (and the adjacent-pair GPT-J layout,
+:func:`apply_rotary_pos_emb_interleaved`), plain RoPE, llama3 and YaRN frequency
 scaling. The frequency tables are numpy (host-side, computed once); cos/sin
 are built from position ids on the fly in float32. YaRN's attention factor
 scales cos/sin (the models read it as ``DecoderArch.rope_mscale``).
@@ -150,3 +151,21 @@ def apply_rotary_pos_emb(q, k, cos, sin):
     q_out = qf * cos + rotate_half(qf) * sin
     k_out = kf * cos + rotate_half(kf) * sin
     return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+def apply_rotary_pos_emb_interleaved(q, k, cos, sin):
+    """GPT-J-style rope (Helium, ERNIE 4.5): channels form ADJACENT (real,
+    imag) pairs (2i, 2i + 1) instead of rotate-half. q/k: (B, heads, S,
+    head_dim); cos/sin: (B, S, head_dim), of which only the first head_dim / 2
+    entries (one per pair) are read. In float32, cast back."""
+    D = q.shape[-1]
+    cos = cos[:, None, :, : D // 2].float()
+    sin = sin[:, None, :, : D // 2].float()
+
+    def rot(x):
+        xf = x.float()
+        x1, x2 = xf[..., ::2], xf[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        return out.reshape(x.shape).to(x.dtype)
+
+    return rot(q), rot(k)

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -110,24 +110,71 @@ SEGMENTED_REFUSALS = {
 }
 
 
+def family_switches(arch) -> List[str]:
+    """The switches of the dense Llama-lineage families (``DecoderArch``'s
+    fields past the Llama set) that ``arch`` turns on, by name."""
+    return [name for name, on in (
+        ("qk_norm", arch.qk_norm),
+        ("qk_norm_flat", arch.qk_norm_flat),
+        ("sliding_window", arch.sliding_window is not None),
+        ("attention_scale", arch.attention_scale is not None),
+        ("gemma_norm", arch.gemma_norm),
+        ("embed_scale", arch.embed_scale is not None),
+        ("gated_mlp=False", not arch.gated_mlp),
+        ("attention_o_bias", arch.attention_o_bias),
+        ("rope_interleaved", arch.rope_interleaved),
+        ("post_block_norm", arch.post_block_norm),
+        ("residual_multiplier", arch.residual_multiplier != 1.0),
+        ("logits_scaling", arch.logits_scaling != 1.0),
+        (f"hidden_act={arch.hidden_act!r}", arch.hidden_act != "silu"),
+    ) if on]
+
+
+def _refuse_switches(switches: List[str], path: str) -> None:
+    if switches:
+        raise NotImplementedError(
+            f"{path} with this family's {', '.join(switches)} is not ported yet (ROADMAP "
+            "Queue 1 item 1's remainders): that path does not carry these switches")
+
+
 def refuse_mla_speculation(*archs) -> None:
-    """Speculation with an MLA (DeepSeek) target or draft raises at app
-    build: the port's draft step is the stacked fused-decode kernel, which
-    an MLA layer cannot take."""
+    """Speculation raises at app build on an MLA (DeepSeek) target or draft
+    (the port's draft step is the stacked fused-decode kernel, which an MLA
+    layer cannot take) and on a family switch (``family_switches``: the tree
+    verify's explicit mask takes no window, Medusa's heads norm as Llama
+    does)."""
     if any(a.mla is not None for a in archs):
         raise NotImplementedError(
             "speculation with an MLA (DeepSeek) target or draft is not ported yet "
             "(ROADMAP Queue 1 item 3's remainders): the draft step runs the stacked "
             "fused-decode kernel, which MLA attention cannot take")
+    for a in archs:
+        _refuse_switches(family_switches(a), "speculative decoding")
 
 
 def refuse_unported(family, config) -> None:
     """Raise at app build for what the port does not serve on this model yet
-    (:data:`SEGMENTED_REFUSALS`)."""
+    (:data:`SEGMENTED_REFUSALS`; the family switches on the paths that do
+    not carry them: LoRA, quantized KV stores, MoE routing but for the
+    window, MLA, and the mixed step's plain attention, which takes no
+    window)."""
+    tc = config.tpu_config
+    arch = family.build_arch(config)
+    switches = family_switches(arch)
+    for path, on, refused in (
+        ("LoRA serving", tc.lora_config is not None, switches),
+        ("a quantized KV cache", tc.kv_quant_config is not None, switches),
+        ("mixture-of-experts routing", arch.moe is not None,
+         [s for s in switches if s != "sliding_window"]),
+        ("MLA attention", arch.mla is not None, switches),
+        ("mixed_dispatch", tc.mixed_dispatch,
+         [s for s in switches if s == "sliding_window"]),
+    ):
+        if on:
+            _refuse_switches(refused, path)
     seg = getattr(family, "segmented", None)
     if seg is None or not seg(config):
         return
-    tc = config.tpu_config
     for key, msg in SEGMENTED_REFUSALS.items():
         if getattr(tc, key, None):
             raise NotImplementedError(msg)

@@ -62,6 +62,24 @@ def test_fused_decode_takes_positions_from_the_host(gen):
     assert (got - want).abs().max().item() <= TOL
 
 
+def test_fused_decode_takes_fresh_rows_of_other_strides(gen):
+    """k_new contiguous and v_new a strided view (a fused QKV projection's
+    output, as the model hands them under fused_qkv): every row reads its
+    own fresh V row."""
+    B, H, KV, S, D = 3, 8, 2, 64, 16
+    q = _randn(gen, B, H, 1, D)
+    kc_, vc_ = _randn(gen, B, KV, S, D), _randn(gen, B, KV, S, D)
+    qkv = _randn(gen, B, 1, (H + 2 * KV) * D)
+    kn = qkv[..., H * D:(H + KV) * D].reshape(B, 1, KV, D).transpose(1, 2).contiguous()
+    vn = qkv[..., (H + KV) * D:].reshape(B, 1, KV, D).transpose(1, 2)
+    assert kn.stride() != vn.stride()
+    q_pos = torch.tensor([[17], [40], [5]], dtype=torch.int32, device="cuda")
+    kv_pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+    got = fa.flash_attention_decode_fused(q, kc_, vc_, kn, vn, q_pos, kv_pos)
+    want = fa.flash_attention_decode_fused_plain(q, kc_, vc_, kn, vn, q_pos)
+    assert (got - want).abs().max().item() <= TOL
+
+
 def test_commit_takes_slots_from_the_host(gen):
     L, B, KV, S, D = 3, 4, 2, 32, 16
     k_cache, v_cache = _randn(gen, L, B, KV, S, D), _randn(gen, L, B, KV, S, D)
@@ -1649,3 +1667,153 @@ def test_lora_replay_checks_the_buffers(gen):
     q["lora_A"] = q["lora_A"].clone()
     with pytest.raises(RuntimeError, match="other LoRA buffers"):
         HuggingFaceGenerationAdapter(app).generate(ids, max_new_tokens=4)
+
+
+# ---------------------------------------------------------------------------
+# Head dim 256 (Gemma), live sliding windows in captured graphs (Mistral),
+# the tanh GELU at Gemma-2B's MLP
+# ---------------------------------------------------------------------------
+
+D256_TOL = {torch.float32: TOL, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_at_head_dim_256(gen, dtype, G, window):
+    """Row 1 at head dim 256 (bf16: the mma.sync body reading Q's fragments
+    from shared memory; f32: the CUDA-core body at 8 columns a lane) against
+    the plain version: ragged edges (300 positions, not whole 64-row tiles),
+    an offset start, with and without a window; a second call gives the
+    same bits."""
+    B, KV, S, D = 2, 1, 300, 256
+    q = _randn(gen, B, S, KV * G, D).to(dtype).transpose(1, 2)
+    k, v = (_randn(gen, B, S, KV, D).to(dtype).transpose(1, 2) for _ in range(2))
+    pos = (torch.arange(S, dtype=torch.int32)[None] + torch.tensor([[0], [37]],
+                                                                   dtype=torch.int32)).cuda()
+    if dtype == torch.bfloat16:
+        assert fa.prefill_body(q, k, v) == "mma"
+    before = fa.flash_attention_prefill.launches
+    got = fa.flash_attention_prefill(q, k, v, pos, pos, sliding_window=window)
+    assert fa.flash_attention_prefill.launches == before + 1
+    want = fa.flash_attention_prefill_plain(q, k, v, pos, pos, sliding_window=window)
+    assert _max_err(got, want) <= D256_TOL[dtype]
+    assert torch.equal(fa.flash_attention_prefill(q, k, v, pos, pos, sliding_window=window), got)
+
+
+@pytest.mark.parametrize("mode,mask", [("fused", None), ("fused", "window"), ("window", None),
+                                       ("window", "window"), ("paged", None)])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_at_head_dim_256(gen, monkeypatch, mode, mask, G, dtype):
+    """Rows 2/3 (fused), 5 (window) and 7 (paged) at head dim 256, split
+    across blocks (6 chunks) and with one chunk a row, against the plain
+    version: bf16 on the tensor-core tile (2 warps a block), f32 on the CUDA
+    cores (1 warp), with and without a window; a second call gives the same
+    bits."""
+    call, plain = _decode_call(mode, gen, dtype, G, 256, mask)
+    want = plain()
+    got = call()
+    assert _max_err(got, want) <= D256_TOL[dtype]
+    assert torch.equal(call(), got)
+    monkeypatch.setattr(fa, "decode_chunk", _one_chunk)
+    assert _max_err(call(), want) <= D256_TOL[dtype]
+
+
+def test_paged_prefill_and_ragged_refuse_head_dim_256(gen):
+    """Rows 6 and 8 stop at head dim 128 on the card (ROADMAP Queue 2); a
+    one-byte store too."""
+    q = _randn(gen, 1, 2, 8, 256)
+    pool = _randn(gen, 64, 1, 256)
+    bt = torch.zeros((1, 4), dtype=torch.int32)
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.paged_attention_prefill(q, pool, pool, bt, pos, block_size=16)
+    with pytest.raises(ValueError, match="up to 128"):
+        rpa.ragged_paged_attention(q, pool, pool, bt, torch.zeros(8, dtype=torch.int32),
+                                   pos[0], block_size=16)
+    one = pool.to(torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.paged_attention_decode(q[:, :, :1].to(torch.bfloat16), one, one, bt, pos[:, :1],
+                                  block_size=16)
+
+
+@pytest.mark.parametrize("M", [8, 520])
+def test_fused_mlp_tanh_gelu_at_gemma_2b_widths(gen, M):
+    """Rows 9/10 with gelu_pytorch_tanh at Gemma-2B's MLP (H 2048, I 16384),
+    bf16, the stacked entry at layer 1, against the plain version (GEMM_TOL,
+    as the Llama widths' test)."""
+    H, I = 2048, 16384
+    x = _bf(gen, 1.0, M, H)
+    g, u = _bf(gen, 0.02, 2, H, I), _bf(gen, 0.02, 2, H, I)
+    d = _bf(gen, 0.02, 2, I, H)
+    before = fp.fused_mlp.launches
+    got = fp.fused_mlp_stacked(x, g, u, d, 1, act="gelu_pytorch_tanh")
+    assert fp.fused_mlp.launches == before + 1
+    want = fp.fused_mlp_plain(x, g[1], u[1], d[1], "gelu_pytorch_tanh")
+    assert _max_err(got, want) <= GEMM_TOL
+    assert torch.equal(fp.fused_mlp_stacked(x, g, u, d, 1, act="gelu_pytorch_tanh"), got)
+
+
+def _family_card_app(family, widths, graphs, params=None, **tc):
+    """A bf16 app of ``family`` at ``widths`` (random weights from seed 0)
+    with the attention kernels on."""
+    from nxdi_tpu_torch.config import OnDeviceSamplingConfig, TorchConfig
+    from nxdi_tpu_torch.models import dense
+    from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM
+
+    kw = dict(tp_degree=1, dtype="bfloat16", on_device_sampling_config=OnDeviceSamplingConfig(),
+              attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, output_logits=True)
+    kw.update(tc)
+    cfg_cls = next(v for k, v in vars(family).items() if k.endswith("InferenceConfig"))
+    cfg = cfg_cls(TorchConfig(**kw), **widths)
+    arch = family.build_arch(cfg)
+
+    class App(TorchModelForCausalLM):
+        def build_params(self):
+            return params if params is not None else dense.random_params(arch, seed=0,
+                                                                         device="cuda")
+
+    app = App("<random>", cfg, model_family=family, graphs=graphs)
+    app.load()
+    return app
+
+
+def _family_widths(name):
+    from nxdi_tpu_torch.models.gemma import modeling_gemma as tg
+    from nxdi_tpu_torch.models.mistral import modeling_mistral as tm
+
+    if name == "mistral":  # a live window of 16 under 40-token prompts
+        return tm, dict(tm.MISTRAL_7B_V01, hidden_size=256, intermediate_size=512,
+                        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                        head_dim=64, vocab_size=512, sliding_window=16)
+    return tg, dict(tg.GEMMA_2B, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                    num_attention_heads=8, num_key_value_heads=1, head_dim=256, vocab_size=512)
+
+
+@pytest.mark.parametrize("name", ["mistral", "gemma"])
+def test_family_graph_replay_equals_eager(gen, name):
+    """Rows 1, 3 and 4 with a live window (Mistral) and at head dim 256
+    (Gemma, G 8, with the fused MLP's tanh GELU) inside captured graphs:
+    every dispatch bit for bit against an eager app on the same params, the
+    same launch counts, every bucket a graph."""
+    family, widths = _family_widths(name)
+    tc = dict(STATIC)
+    if name == "gemma":
+        tc.update(mlp_kernel_enabled=True)
+    graphs = _family_card_app(family, widths, True, **tc)
+    eager = _family_card_app(family, widths, False, params=graphs.params, **tc)
+    g_log, g_counts, g_toks = _drive(graphs, "static")
+    e_log, e_counts, e_toks = _drive(eager, "static")
+    assert np.array_equal(np.asarray(g_toks), np.asarray(e_toks))
+    assert len(g_log) == len(e_log) > 0
+    for i, (a, b) in enumerate(zip(g_log, e_log)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (i, key)
+    assert g_counts == e_counts
+    for kernel in ("flash_attention_prefill", "flash_attention_decode_fused", "kv_commit_rows"):
+        assert g_counts[kernel] > 0, kernel
+    if name == "gemma":
+        assert g_counts["fused_mlp"] > 0
+    for w in graphs.models.values():
+        assert all(bg.graph is not None for bg in w.bucket_graphs.values())

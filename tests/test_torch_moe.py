@@ -336,7 +336,8 @@ def test_tiny_mixtral_paged_engine_matches_hf(tiny_mixtral):
 
 def test_mixtral_8x7b_widths():
     """MIXTRAL_8X7B builds the published widths: 8 experts top-2, expert
-    intermediate 14336, head dim 128 with 4 query heads per kv head."""
+    intermediate 14336, head dim 128 with 4 query heads per kv head; a
+    sliding window in the config reaches the arch."""
     cfg = tmx.MixtralInferenceConfig(TorchConfig(seq_len=16),
                                      **dict(tmx.MIXTRAL_8X7B, num_hidden_layers=2))
     arch = tmx.build_arch(cfg)
@@ -345,6 +346,7 @@ def test_mixtral_8x7b_widths():
     assert dataclasses.astuple(arch.moe)[:3] == (8, 2, 14336)
     # one device: the JAX package's expert-parallel fields are not carried
     assert arch.moe.dispatch == "sparse" and not hasattr(arch.moe, "ep")
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        tmx.build_arch(tmx.MixtralInferenceConfig(
-            TorchConfig(seq_len=16), **dict(tmx.MIXTRAL_8X7B, sliding_window=4096)))
+    # a window in the HF config reaches the arch (the JAX module's rule)
+    windowed = tmx.build_arch(tmx.MixtralInferenceConfig(
+        TorchConfig(seq_len=16), **dict(tmx.MIXTRAL_8X7B, sliding_window=4096)))
+    assert windowed.sliding_window == 4096 and arch.sliding_window is None
