@@ -4988,6 +4988,8 @@ GEMMA_HEADS = dict(H=8, KV=1, D=256, B=8, S=1024, S_cache=2048, L=2)
 MISTRAL_WINDOW = dict(H=32, KV=8, D=128, B=2, S=6144, window=4096, L=2)
 GEMMA_MLP = dict(hidden=2048, inter=16384, layers=2)
 GEMMA_MLP_M = (8, 8192)
+# the stderr tag of the phases that share the 3h helpers
+PHASE_TAGS = {"3h": "family-3h", "3i": "moe-family-3i"}
 
 
 def _window_pairs(S, window):
@@ -4998,8 +5000,8 @@ def _window_pairs(S, window):
     return sum(min(i + 1, window) for i in range(S))
 
 
-def family_prefill_point(torch, results, fa, point, q, k, v, pos, window, flush):
-    """Row 1 at one of phase 3h's points (bf16): against its plain version,
+def family_prefill_point(torch, results, fa, point, q, k, v, pos, window, flush, phase="3h"):
+    """Row 1 at one of phase 3h's (or 3i's) points (bf16): against its plain version,
     the same bits on a second call, the body that ran by name, timed over
     PREFILL_CALLS flushed calls beside SDPA (with the window's mask when one
     is set) and the plain version."""
@@ -5013,13 +5015,13 @@ def family_prefill_point(torch, results, fa, point, q, k, v, pos, window, flush)
     got = call()
     err = (got.float() - plain().float()).abs().max().item()
     tol = TOL[("prefill", "bfloat16")]
-    assert err <= tol, f"3h prefill {point}: max abs err {err} > {tol}"
-    assert torch.equal(call(), got), f"3h prefill {point}: a second call gave other bits"
+    assert err <= tol, f"{phase} prefill {point}: max abs err {err} > {tol}"
+    assert torch.equal(call(), got), f"{phase} prefill {point}: a second call gave other bits"
     body = fa.prefill_body(q, k, v)
     times, names, _ = traced_times(torch, call, PREFILL_CALLS, flush, kernel="prefill")
     ms, lo, hi = spread(times)
     ran = sorted(attention_ms([(0.0, n) for n in names]))
-    assert ran == [PREFILL_KERNEL[body]], f"3h prefill {point}: ran {ran}, expected {body}"
+    assert ran == [PREFILL_KERNEL[body]], f"{phase} prefill {point}: ran {ran}, expected {body}"
     plain_ms = measure(torch, plain, n=3, flush=flush)
     ke, ve = k.repeat_interleave(H // KV, dim=1), v.repeat_interleave(H // KV, dim=1)
     if window is None:
@@ -5036,16 +5038,17 @@ def family_prefill_point(torch, results, fa, point, q, k, v, pos, window, flush)
                library_ms=lib_ms, bound_ms=bms, bound_by=by, body=body, kernels=ran,
                share_of_bound=bms / ms)
     results.append(row)
-    log(f"[family-3h] prefill {point} ({ran[0]}): err {err:.3g} kernel {ms:.4f} ms (min {lo:.4f} "
+    log(f"[{PHASE_TAGS[phase]}] prefill {point} ({ran[0]}): err {err:.3g} kernel {ms:.4f} ms "
+        f"(min {lo:.4f} "
         f"max {hi:.4f}) plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bms:.4f} ({by}), "
         f"{100 * bms / ms:.1f} % of the bound")
     del ke, ve
     return row
 
 
-def family_decode_point(torch, results, fa, point, c, window, flush, gen):
+def family_decode_point(torch, results, fa, point, c, window, flush, gen, phase="3h"):
     """Row 3 (the stacked fused decode, layer 1 of the stack) at one of
-    phase 3h's points through decode_point (bf16: split across blocks and one
+    phase 3h's (or 3i's) points through decode_point (bf16: split across blocks and one
     chunk a row, against the plain version; timed beside SDPA over [cache |
     fresh row] under the strict-causal and window mask)."""
     import torch.nn.functional as F
@@ -5087,7 +5090,7 @@ def family_decode_point(torch, results, fa, point, c, window, flush, gen):
         (2 * KV * D * (visible + B) + 2 * B * H * D) * 2, 4 * H * D * (visible + B), flush,
         TOL[("decode", "bfloat16")])
     row.update(point=point, head_dim=D, window=window)
-    log(f"[family-3h] decode {point}: the row above ({visible} visible positions)")
+    log(f"[{PHASE_TAGS[phase]}] decode {point}: the row above ({visible} visible positions)")
     return ks, vs, qpos
 
 
@@ -5423,6 +5426,330 @@ def family_full_depth(torch, np, mods, card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 3i, 4l, 5l: the MoE families (Qwen3-MoE, gpt-oss, MiniMax-M2, DBRX,
+# Phi-3.5-MoE, AFMoE) and Phi-3
+# ---------------------------------------------------------------------------
+
+# phase 3i's points: rows 1, 3, 6 and 7 at the MoE families' query heads per
+# kv head, head dim 128: G 8 (Qwen3-30B-A3B: 32 over 4) and G 6 (MiniMax-M2
+# and DBRX: 48 over 8). Rows 1 and 3 at phase 5l's B 8 x 1024 prefill and a
+# 2-layer stack of 2048 slots; rows 6 and 7 at phase 3b's shapes
+MOE_HEADS = {
+    "G 8 (Qwen3-30B-A3B)": dict(H=32, KV=4, D=128, B=8, S=1024, S_cache=2048, L=2),
+    "G 6 (MiniMax-M2, DBRX)": dict(H=48, KV=8, D=128, B=8, S=1024, S_cache=2048, L=2),
+}
+
+
+def moe_paged_points(torch, results, fa, point, c, flush, gen):
+    """Rows 7 and 6 at one of phase 3i's points (bf16) on phase 3b's pool:
+    the paged decode at B 8 over blocks of 128 with a hole (decode_point),
+    and the paged prefill of a 512-token chunk after 512 on the TMA + wgmma
+    body, each against its plain version and timed beside SDPA over the
+    gathered window."""
+    import torch.nn.functional as F
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    H, KV, D = c["H"], c["KV"], c["D"]
+    B, bs, nblk, NB, G = 8, 128, 136, 16, H // KV
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dt)
+
+    qpos = torch.linspace(0, 2000, B, device=dev).long()
+    perm = torch.randperm(nblk, generator=torch.Generator().manual_seed(0)).tolist()
+    bt = torch.full((B, NB), -1, dtype=torch.int32)
+    nxt = 0
+    for b in range(B):
+        n = int(qpos[b]) // bs + 1
+        bt[b, :n] = torch.tensor(perm[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+    bt[3, 2] = -1  # a hole inside row 3's attended range
+    bt = bt.to(dev)
+    slot_pos = torch.arange(NB * bs, device=dev)
+    live = torch.repeat_interleave(bt >= 0, bs, dim=1) & (slot_pos[None] <= qpos[:, None])
+    visible = int(live.sum())
+    kc, vc = randn((nblk * bs, KV, D)), randn((nblk * bs, KV, D))
+
+    def gathered(cache, table, n_rows):
+        rows = (table.long()[:, :, None] * bs + torch.arange(bs, device=dev)).reshape(n_rows, -1)
+        return cache[rows.clamp(min=0)].transpose(1, 2)
+
+    q = randn((B, 1, H, D)).transpose(1, 2)
+    qp = qpos[:, None].to(torch.int32)
+    mask = live[:, None, None, :]
+
+    def library_decode():
+        kg = gathered(kc, bt, B).repeat_interleave(G, dim=1)
+        vg = gathered(vc, bt, B).repeat_interleave(G, dim=1)
+        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+    row = decode_point(
+        torch, results, "paged_decode", "bfloat16", fa,
+        lambda: fa.paged_attention_decode(q, kc, vc, bt, qp, block_size=bs),
+        lambda: fa.paged_attention_decode_plain(q, kc, vc, bt, qp, block_size=bs),
+        library_decode, (2 * visible * KV * D + 2 * B * H * D) * 2 + bt.numel() * 4,
+        4 * H * D * visible, flush, PAGED_TOL["bfloat16"])
+    row.update(point=point, head_dim=D)
+    log(f"[moe-family-3i] paged_decode {point}: the row above")
+
+    Sq, start = 512, 512
+    bt1 = bt[7:8]
+    qx = randn((1, Sq, H, D)).transpose(1, 2)
+    qpx = (start + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    body = fa.paged_prefill_body(qx, kc, vc, bs)
+    assert body == "wgmma", f"3i paged_prefill {point}: body {body}"
+
+    def call():
+        return fa.paged_attention_prefill(qx, kc, vc, bt1, qpx, block_size=bs)
+
+    def plain():
+        return fa.paged_attention_prefill_plain(qx, kc, vc, bt1, qpx, block_size=bs)
+
+    got = call()
+    err = (got.float() - plain().float()).abs().max().item()
+    assert torch.equal(call(), got), f"3i paged_prefill {point}: a second call gave other bits"
+    times, names, _ = traced_times(torch, call, PREFILL_CALLS, flush, kernel="prefill")
+    ms, lo, hi = spread(times)
+    ran = sorted(attention_ms([(0.0, n) for n in names]))
+    assert ran == [PREFILL_KERNEL[body]], f"3i paged_prefill {point}: ran {ran}"
+    plain_ms = measure(torch, plain, n=3, flush=flush)
+    pmask = (slot_pos[None, :] <= qpx[0][:, None])[None, None]
+
+    def library_prefill():
+        kg = gathered(kc, bt1, 1).repeat_interleave(G, dim=1)
+        vg = gathered(vc, bt1, 1).repeat_interleave(G, dim=1)
+        return F.scaled_dot_product_attention(qx, kg, vg, attn_mask=pmask)
+
+    lib_ms = spread(traced_times(torch, library_prefill, PREFILL_CALLS, flush)[0])[0]
+    pairs = int(pmask.sum())
+    _kernel_row(results, "paged_prefill", "bfloat16", err, ms, plain_ms, lib_ms,
+                (2 * Sq * H * D + 2 * (start + Sq) * KV * D) * 2, 4 * H * D * pairs)
+    row = results[-1]
+    row.update(ms_min=lo, ms_max=hi, point=point, head_dim=D, body=body, kernels=ran,
+               share_of_bound=row["bound_ms"] / ms)
+    log(f"[moe-family-3i] paged_prefill {point} ({ran[0]}): err {err:.3g} kernel {ms:.4f} ms "
+        f"(min {lo:.4f} max {hi:.4f}) plain {plain_ms:.4f} gather + sdpa {lib_ms:.4f} bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f} % of the "
+        "bound")
+
+
+def check_moe_family_kernels(torch, results):
+    """Phase 3i. Rows 1, 3, 6 and 7 in bf16 at G 8 (Qwen3-30B-A3B's 32 over
+    4 heads of 128) and G 6 (MiniMax-M2's and DBRX's 48 over 8; the decode
+    kernel pads G 6 to its G-8 instantiation), each against its plain
+    version and timed (medians of 21, L2 flushed) beside its bound, the
+    plain version and SDPA."""
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(
+            torch.bfloat16)
+
+    for point, c in MOE_HEADS.items():
+        B, H, KV, S, D = c["B"], c["H"], c["KV"], c["S"], c["D"]
+        q = randn((B, S, H, D)).transpose(1, 2)
+        k, v = randn((B, S, KV, D)).transpose(1, 2), randn((B, S, KV, D)).transpose(1, 2)
+        pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S).contiguous()
+        family_prefill_point(torch, results, fa, point, q, k, v, pos, None, flush, phase="3i")
+        del q, k, v
+        ks, vs, _ = family_decode_point(torch, results, fa, point, c, None, flush, gen,
+                                        phase="3i")
+        del ks, vs
+        torch.cuda.empty_cache()
+        moe_paged_points(torch, results, fa, point, c, flush, gen)
+        torch.cuda.empty_cache()
+
+
+# phase 4l: the seven families at tiny widths (FAMILY_TINY's hidden 256 and
+# head dim 64), 2 layers, f32: Qwen3-MoE at G 8 (8 over 1), MiniMax-M2 and
+# DBRX at G 6 (12 over 2; DBRX's clamp at 1.0 bites), gpt-oss with sinks and
+# a window of 8 under 64-token prompts, Phi-3's LongRoPE crossing its
+# original window (70) mid-rollout
+MOE_FAMILY_CASES = {
+    "qwen3_moe": dict(num_attention_heads=8, num_key_value_heads=1, num_experts=8,
+                      num_experts_per_tok=2, moe_intermediate_size=128, norm_topk_prob=True),
+    "gpt_oss": dict(num_local_experts=4, num_experts_per_tok=2, intermediate_size=128,
+                    sliding_window=8, layer_types=["sliding_attention", "full_attention"]),
+    "minimax_m2": dict(num_attention_heads=12, num_key_value_heads=2, rotary_dim=32,
+                       use_qk_norm=True, num_local_experts=8, num_experts_per_tok=2,
+                       intermediate_size=128),
+    "dbrx": dict(d_model=768, n_heads=12, n_layers=2, max_seq_len=4096,
+                 attn_config=dict(kv_n_heads=2, clip_qkv=1.0, rope_theta=10000.0),
+                 ffn_config=dict(ffn_hidden_size=128, moe_num_experts=8, moe_top_k=2)),
+    "phimoe": dict(num_local_experts=4, num_experts_per_tok=2, attention_bias=True),
+    "afmoe": dict(num_dense_layers=1, num_local_experts=8, num_experts_per_tok=2,
+                  moe_intermediate_size=128, sliding_window=8, global_attn_every_n_layers=2),
+    "phi3": dict(original_max_position_embeddings=70, rope_scaling=dict(
+        type="longrope", short_factor=[1.0 + 0.02 * i for i in range(32)],
+        long_factor=[1.5 + 0.1 * i for i in range(32)])),
+}
+
+
+def moe_family_flags(arch):
+    """A MoE family's kernel flags: the attention kernels unless the model
+    has sinks (no kernel takes the sink column: an enabled flag raises), the
+    fused QKV weight with its kernel, the fused MLP where the stack holds
+    dense MLP layers (Phi-3, AFMoE's head)."""
+    attn = not arch.attention_sink
+    return dict(attn_kernel_enabled=attn, attn_tkg_kernel_enabled=attn, fused_qkv=True,
+                qkv_kernel_enabled=True, mlp_kernel_enabled=arch.moe is None or arch.sandwich_norm)
+
+
+def moe_family_counts(L, n_dense, steps, attn, qkv):
+    """The launches of a contiguous generate(): L prefills and L stacked
+    decodes a step when the attention kernels run, one commit a step always,
+    a QKV launch per layer per forward with ``qkv``, an MLP launch per dense
+    layer (``n_dense``) per forward."""
+    fwd = 1 + steps
+    return dict(prefill=L if attn else 0, paged_prefill=0, paged_decode=0, window_decode=0,
+                decode=L * steps if attn else 0, commit=steps, qkv=L * fwd if qkv else 0,
+                mlp=n_dense * fwd)
+
+
+def moe_family_vs_cpu(torch, np, mods):
+    """Phase 4l: the seven families (MOE_FAMILY_CASES) at tiny widths, 2
+    layers, float32, batch 2: greedy generate() on the CPU (plain versions,
+    the JAX rule), through the card's graphs and eagerly (run_three: tokens
+    equal, logits within LOGIT_TOL, graphs equal to eager bit for bit), every
+    enabled kernel engaged, launches exact."""
+    from nxdi_tpu_torch.models import registry
+
+    L, NEW, P = 2, 16, 64
+    out = {}
+    for model_type, over in MOE_FAMILY_CASES.items():
+        family = dense_family(model_type, **dict(FAMILY_TINY, **over))
+        cfg = family[1](mods[1](seq_len=16), **dict(family[2], num_hidden_layers=L))
+        arch = family[0].build_arch(cfg)
+        flags = moe_family_flags(arch)
+        apps, arch = three_apps(mods, layers=L, dtype="float32", batch=2, seq_len=256,
+                                ctx_len=128, output_logits=True, family=family, **flags)
+        ids, mask = prompts(np.random.default_rng(7), 2, P, [P, 53], arch.vocab_size)
+        worst, toks, counts, n_same, _ = run_three(torch, mods, f"4l {model_type}", apps, ids,
+                                                   mask, NEW, kernels=family_kernels())
+        n_dense = (L if arch.moe is None else int(getattr(cfg, "num_dense_layers", 0))
+                   if flags["mlp_kernel_enabled"] else 0)
+        attn = flags["attn_kernel_enabled"]
+        want = moe_family_counts(L, n_dense, NEW - 1, attn, True)
+        assert counts == want, f"phase 4l {model_type}: launches {counts} != {want}"
+        seen = {s for w in apps[1].models.values() for ss in w.attention_strategies.values()
+                for s in ss}
+        need = ({"cte_flash_kernel", "tkg_fused_kernel_stacked"} if attn
+                else {"cte_xla", "tkg_two_part_xla"}) | {"qkv_fused_kernel"}
+        if n_dense:
+            need.add("mlp_fused_kernel")
+        assert need <= seen, f"phase 4l {model_type}: strategies {seen} lack {need - seen}"
+        assert registry.get_family(model_type)[0] is family[0]
+        out[model_type] = dict(max_logit_err=worst, launches=counts, dispatches_bitwise=n_same,
+                               group=arch.num_attention_heads // arch.num_kv_heads,
+                               head_dim=arch.head_dim)
+        log(f"[moe-family-2L 4l {model_type}] generate(): max logit diff {worst:.3g}, graphs = "
+            f"eager over {n_same} dispatches, launches {counts}")
+        del apps
+        gc.collect()
+    return out
+
+
+def moe_family_full_depth(torch, np, mods, card):
+    """Phase 5l, bf16, random weights from seed 0 at the published widths,
+    sparse MoE dispatch: Qwen3-30B-A3B at 8 of 48 layers (G 8), gpt-oss-20b
+    at 8 of 24 (4 window, 4 full; sinks: plain attention, the commit
+    kernel), MiniMax-M2 at 4 of 62 (G 6). Each through generate() at B 8 on
+    phase 5's prompt shapes, 32 new tokens, from its graphs and then eagerly
+    (tokens equal), with prefill ms, decode ms/step, launches exact and a
+    profiled decode step (busy, idle); Qwen3-30B-A3B then through the split
+    paged engine over phase 5b's traffic (rows 1, 6 and 7 at G 8)."""
+    from nxdi_tpu_torch.models.gpt_oss import modeling_gpt_oss as tgo
+    from nxdi_tpu_torch.models.minimax_m2 import modeling_minimax_m2 as tmm
+    from nxdi_tpu_torch.models.qwen3_moe import modeling_qwen3_moe as tqm
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    NEW, B, P = 32, 8, 1024
+    stats, launches = {}, {}
+    off = dict(attn_kernel_enabled=False, attn_tkg_kernel_enabled=False)
+    for name, family, L, flags in (
+            ("Qwen3-30B-A3B", (tqm, tqm.Qwen3MoeInferenceConfig, tqm.QWEN3_30B_A3B), 8, {}),
+            ("gpt-oss-20b", (tgo, tgo.GptOssInferenceConfig, tgo.GPT_OSS_20B), 8, off),
+            ("MiniMax-M2", (tmm, tmm.MiniMaxM2InferenceConfig, tmm.MINIMAX_M2), 4, {})):
+        tag = f"[moe-family-5l {name}]"
+        common = dict(layers=L, dtype="bfloat16", batch=B, seq_len=2048, ctx_len=P,
+                      device="cuda", family=family, moe_dispatch="sparse", **flags)
+        t = time.perf_counter()
+        app, arch = make_app(ml, TorchConfig, ODSC, App, dense, **common)
+        params = app.params
+        gb = sum(v.numel() * v.element_size() for v in _leaves(params)) / 1e9
+        eager, _ = make_app(ml, TorchConfig, ODSC, App, dense, graphs=False, params=params,
+                            **common)
+        log(f"{tag} {L} layers, 2 apps loaded {time.perf_counter() - t:.1f} s, params {gb:.2f} "
+            f"GB; warmup {app.warm_stats}")
+        ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                            arch.vocab_size)
+        lengths = mask.sum(axis=1)
+        kernels = family_kernels()
+        attn = not arch.attention_sink
+        want = moe_family_counts(L, 0, NEW - 1, attn, False)
+        runs, toks = {}, {}
+        for mode, a in (("graphs", app), ("eager", eager)):
+            for fn in kernels.values():
+                fn.launches = 0
+            prefill_ms, decode_ms, toks[mode] = timed_generate(torch, Adapter, a, ids, mask, NEW)
+            counts = {k: fn.launches for k, fn in kernels.items()}
+            assert counts == want, f"{tag} {mode}: launches {counts} != {want}"
+            runs[mode] = dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                              tok_s=B * 1e3 / decode_ms, launches=counts)
+            log(f"{tag} generate() {mode} B {B} x {P}: prefill {prefill_ms:.2f} ms, decode "
+                f"{decode_ms:.3f} ms/step, {B * 1e3 / decode_ms:.1f} tok/s; launches {counts}")
+        assert (toks["graphs"] == toks["eager"]).all(), f"{tag}: graph and eager tokens differ"
+        gen = np.stack([toks["graphs"][b, n:n + NEW] for b, n in enumerate(lengths)])
+        assert (gen >= 0).all() and (gen < arch.vocab_size - arch.vocab_pad).all(), tag
+        strats = strategies_of(app)
+        assert "moe_sparse_grouped_mm" in strats, strats
+        assert ({"cte_flash_kernel", "tkg_fused_kernel_stacked"} if attn
+                else {"cte_xla", "tkg_two_part_xla"}) <= strats, strats
+        del eager
+        gc.collect()
+        pr = decode_step_profile(torch, np, app, toks["graphs"], lengths, NEW)
+        log(f"{tag} decode step: wall {pr['wall_ms']:.3f} ms, busy {pr['busy_ms']:.3f} ms (idle "
+            f"{pr['idle_pct']:.1f}%), {pr['device_ops']} device operations; attention "
+            f"{pr['attention_ms']}; by kind {pr['by_group_ms']}; host ms: "
+            f"{split_line(pr['host_split_ms'])}")
+        st = dict(layers=L, param_gb=gb, group=arch.num_attention_heads // arch.num_kv_heads,
+                  runs=runs, profiled_decode_step=pr, graphs_equal_eager=True)
+        launches[name] = dict(runs["graphs"]["launches"])
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "Qwen3-30B-A3B":
+            e_counts, e_stats = engine_full_depth(
+                torch, np, mods, card, layers=L, family=family, params=params,
+                extra=dict(moe_dispatch="sparse"), extra_strats={"moe_sparse_grouped_mm"},
+                phase="5l")
+            e_stats.pop("prompts")
+            st.update(engine=e_stats, engine_launches=e_counts)
+            for k, v in e_counts.items():
+                launches[name][k] = launches[name].get(k, 0) + v
+            log(f"{tag} split engine {e_stats['tok_s']:.1f} tok/s, TTFT p50 "
+                f"{e_stats['ttft_p50_ms']:.2f} ms p95 {e_stats['ttft_p95_ms']:.2f} ms, TPOT p50 "
+                f"{e_stats['tpot_p50_ms']:.3f} ms, launches {e_counts}")
+        stats[name] = st
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[moe-family-5l] {card}: " + "; ".join(
+        f"{name} prefill {st['runs']['graphs']['prefill_ms']:.2f} ms decode "
+        f"{st['runs']['graphs']['decode_ms']:.3f} ms/step idle "
+        f"{st['profiled_decode_step']['idle_pct']:.1f}%" for name, st in stats.items()))
+    stats["launches"] = launches
+    return stats
+
+
 def mla_counts(L, k_dense, n_cte, steps, mlp_kernel):
     """The launches of a DeepSeek run: no attention kernel (MLA attends
     plain); one commit a layer per context encoding that routes its writes
@@ -5668,6 +5995,7 @@ def main() -> int:
     moe_blocks = check_moe_blocks(torch, card)
     check_mla_kernels(torch, kernel_results)
     check_family_kernels(torch, kernel_results)
+    check_moe_family_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -5678,6 +6006,7 @@ def main() -> int:
     lora_2l = lora_vs_cpu(torch, np, mods)
     mla_2l = mla_vs_cpu(torch, np, mods)
     family_2l = family_vs_cpu(torch, np, mods)
+    moe_family_2l = moe_family_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -5727,13 +6056,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family5k = family_full_depth(torch, np, mods, card)
-    family_stats = dict(phase_4k=family_2l, phase_5k=family5k)
+    # phase 5l: Qwen3-30B-A3B (8 layers), gpt-oss-20b (8), MiniMax-M2 (4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe5l = moe_family_full_depth(torch, np, mods, card)
+    family_stats = dict(phase_4k=family_2l, phase_5k=family5k, phase_4l=moe_family_2l,
+                        phase_5l=moe5l)
     fl = family5k["launches"]
+    ml5 = moe5l["launches"]
     dense_launches = {
         "Gemma-2B D 256": fl["gemma"],
         "Mistral-7B window 4096": {k: fl["mistral"][k] + fl["mistral_window"][k]
                                    for k in fl["mistral"]},
         "Gemma-2B tanh GELU": fl["gemma"],
+        # the group-size rows count phase 5l's runs at those heads
+        "G 8 (Qwen3-30B-A3B)": ml5["Qwen3-30B-A3B"],
+        "G 6 (MiniMax-M2, DBRX)": ml5["MiniMax-M2"],
     }
     # the latent-width commit and V3's MLP rows count phase 5j's runs
     mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
@@ -5825,6 +6163,8 @@ def main() -> int:
                                               "k_width", "v_width", "hidden", "inter",
                                               "window", "act")
                           if f in row})
+            if row.get("point") in ("G 8 (Qwen3-30B-A3B)", "G 6 (MiniMax-M2, DBRX)"):
+                entry["group"] = int(row["point"].split()[1])
             summary.append(entry)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -6,9 +6,11 @@ One forward of a submodel: embed -> [decoder layers: rmsnorm -> attention
 rmsnorm -> last-token gather -> lm_head -> padded-vocab mask -> greedy token.
 The dense families' switches of ``DecoderArch`` (q/k norms, the sliding
 window, Gemma's norms and embedding scale, post-block norms, the scalings,
-the non-gated MLP, the adjacent-pair rope) change these steps as the JAX
-package's do; per-layer ``use_rope`` / ``use_sliding_window`` flags ride the
-layer stack's params (:class:`LayerFlags`).
+the non-gated MLP, the adjacent-pair rope) and the MoE families' (LayerNorm,
+the qkv clamp, partial rotary, attention sinks, the attention output gate,
+sandwich norms, LongRoPE) change these steps as the JAX package's do;
+per-layer ``use_rope`` / ``use_sliding_window`` flags ride the layer stack's
+params (:class:`LayerFlags`).
 
 Where the JAX package scans one traced layer body over layer-stacked
 params, PyTorch runs eagerly: a Python loop over the layers, each reading
@@ -121,7 +123,7 @@ from nxdi_tpu_torch.ops import sampling as sampling_ops
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
 from nxdi_tpu_torch.ops.kernels import fused_proj as fp
 from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
-from nxdi_tpu_torch.ops.norms import flat_rms_norm, rms_norm
+from nxdi_tpu_torch.ops.norms import flat_rms_norm, layer_norm, rms_norm
 from nxdi_tpu_torch.ops.rope import (
     apply_rotary_pos_emb,
     apply_rotary_pos_emb_interleaved,
@@ -227,6 +229,29 @@ class DecoderArch:
     # same pattern on the device; this host copy gives a kernel launched on
     # the card its layer's window
     kv_window_pattern: Optional[Tuple[bool, ...]] = None
+    # --- the MoE families' switches (the JAX package's) ---
+    # weight-only LayerNorm instead of RMSNorm (DBRX); a norm param that is a
+    # dict {"w", "b"} is a biased LayerNorm whatever this says (Phi-3.5-MoE)
+    layernorm: bool = False
+    # DBRX: q, k and v clamped to [-clip_qkv, clip_qkv] after the projections
+    clip_qkv: Optional[float] = None
+    # partial rotary (MiniMax-M2): only the first rotary_dim channels rotate,
+    # from a rotary_dim-wide frequency table
+    rotary_dim: Optional[int] = None
+    # gpt-oss: a learned per-head logit (attn["sink"] (L, H)) joins every
+    # softmax and its mass is dropped; no attention kernel takes it
+    attention_sink: bool = False
+    # AFMoE: the context times sigmoid(attention input @ attn["gate_proj"])
+    # before o_proj
+    attn_out_gate: bool = False
+    # AFMoE (the Gemma-3 layout with plain norms): post_attention_layernorm
+    # norms the attention output before its residual add, and the
+    # feed-forward sits between pre_ / post_feedforward_layernorm
+    sandwich_norm: bool = False
+    # LongRoPE (Phi-3 128k, Phi-3.5-MoE): the frequency table arrives stacked
+    # (2, D/2) [short, long]; a forward whose true last position + 1 exceeds
+    # this takes the long set (a device-side select a graph holds)
+    longrope_original_max: Optional[int] = None
 
     def __post_init__(self):
         if self.hidden_act not in ACT_FNS:
@@ -264,7 +289,14 @@ class DecoderArch:
         )
 
 
-def _norm(arch: DecoderArch, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _norm(arch: DecoderArch, x: torch.Tensor, w) -> torch.Tensor:
+    """The arch's norm: a biased LayerNorm for a dict param ``{"w", "b"}``,
+    a weight-only LayerNorm under ``layernorm``, else RMSNorm (the JAX
+    package's rule)."""
+    if isinstance(w, dict):
+        return layer_norm(x, w["w"], w.get("b"), eps=arch.rms_norm_eps)
+    if arch.layernorm:
+        return layer_norm(x, w, eps=arch.rms_norm_eps)
     return rms_norm(x, w, arch.rms_norm_eps, gemma_style=arch.gemma_norm)
 
 
@@ -379,6 +411,12 @@ class LayerFlags(NamedTuple):
 NO_FLAGS = LayerFlags()
 
 
+def _sink_refused(arch: DecoderArch) -> List[str]:
+    """The JAX rule for every attention kernel: none takes the sink column."""
+    return ["attention sinks (no attention kernel takes the sink column)"] if (
+        arch.attention_sink) else []
+
+
 def _window_refused(arch: DecoderArch) -> List[str]:
     """The JAX rule for the paged, ragged and paged-decode kernels: none
     takes a sliding window."""
@@ -387,7 +425,7 @@ def _window_refused(arch: DecoderArch) -> List[str]:
 
 
 def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
-                  lf: LayerFlags = NO_FLAGS):
+                  lf: LayerFlags = NO_FLAGS, sink=None):
     """Attention of a cache-attending forward whose fresh rows are already
     in the cache (the paged pool's path, and a token-tree verify), in the
     JAX package's order: the block-table prefill kernel for a continuing
@@ -402,7 +440,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     G = H // max(KV, 1)
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
-        ref_failed = _heads_ok(H, KV) + _window_refused(arch)
+        ref_failed = _heads_ok(H, KV) + _window_refused(arch) + _sink_refused(arch)
         if k_cache_l.shape[0] % layout.block_size:
             ref_failed.append(f"{k_cache_l.shape[0]} pool slots are not whole blocks")
         scales = dict(block_size=layout.block_size, k_scale=layout.k_scale,
@@ -431,10 +469,11 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         # position is wrong: plain attention, as in the JAX package
         _record_strategy("attn_mask_override_xla")
         return attn_ops.grouped_attention(q, kk, vv, mask_override[:, :, :kk.shape[2]],
-                                          scale=arch.attention_scale)
+                                          scale=arch.attention_scale, sink=sink)
     if S == 1 and _kernel_gate(
         "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV), _card_limits(D, q.dtype, G, max_group=16), lf.ref_only(),
+        _heads_ok(H, KV) + _sink_refused(arch), _card_limits(D, q.dtype, G, max_group=16),
+        lf.ref_only(),
     ):
         _record_strategy("tkg_kernel")
         return fa.flash_attention_decode(q, kk, vv, position_ids, kv_pos,
@@ -442,7 +481,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     _record_strategy("tkg_xla")
     return attn_ops.attention_with_positions(
         q, kk, vv, position_ids, kv_pos, scale=arch.attention_scale,
-        sliding_window=arch.sliding_window, sliding_window_enabled=lf.window_enabled)
+        sliding_window=arch.sliding_window, sliding_window_enabled=lf.window_enabled, sink=sink)
 
 
 def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
@@ -463,7 +502,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             q.shape, k_cache_l.shape, layout.block_size):
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
-    ref_failed += _window_refused(arch)
+    ref_failed += _window_refused(arch) + _sink_refused(arch)
     card = _card_limits(D, q.dtype, H // max(KV, 1), store=k_cache_l.dtype,
                         max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
@@ -564,6 +603,9 @@ def attention_block(
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
     G = H // max(KV, 1)
     q, k, v = _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids)
+    if arch.clip_qkv is not None:  # DBRX clamps the projections' outputs
+        c = arch.clip_qkv
+        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
     if arch.qk_norm_flat:
         q = flat_rms_norm(q, p_attn["q_norm"], arch.rms_norm_eps,
                           arch.qk_norm_flat_qdim or q.shape[-1])
@@ -577,17 +619,33 @@ def attention_block(
     k = k.transpose(1, 2)
     v = v.reshape(B, S, KV, D).transpose(1, 2)
     rope = apply_rotary_pos_emb_interleaved if arch.rope_interleaved else apply_rotary_pos_emb
+    if arch.rotary_dim is not None and arch.rotary_dim < D:
+        # partial rotary: the first rotary_dim channels rotate (cos / sin are
+        # rotary_dim wide), the rest pass through
+        rd, full_rope = arch.rotary_dim, rope
+
+        def rope(q_, k_, cos_, sin_):
+            qr_, kr_ = full_rope(q_[..., :rd], k_[..., :rd], cos_, sin_)
+            return torch.cat([qr_, q_[..., rd:]], dim=-1), torch.cat([kr_, k_[..., rd:]], dim=-1)
+
     qr, kr = rope(q, k, cos, sin)
     if lf.use_rope is None:
         q, k = qr, kr
     else:  # a no-rope layer (SmolLM3) keeps q and k as they are
         q, k = torch.where(lf.use_rope, qr, q), torch.where(lf.use_rope, kr, k)
+    sink = p_attn["sink"] if arch.attention_sink else None  # (H,) learned logits
     sc, win = arch.attention_scale, dict(sliding_window=arch.sliding_window,
-                                         sliding_window_enabled=lf.window_enabled)
+                                         sliding_window_enabled=lf.window_enabled, sink=sink)
 
     def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
-        return _linear(ctx.transpose(1, 2).reshape(B, S, H * D), p_attn["o_proj"],
-                       arch.act_quant, arch.act_clamp, adapter_ids)
+        ctx2d = ctx.transpose(1, 2).reshape(B, S, H * D)
+        if arch.attn_out_gate:
+            # AFMoE: the context times sigmoid(attention input @ gate_proj),
+            # in float32, on every strategy's context
+            g = torch.sigmoid(_linear(hidden, p_attn["gate_proj"], arch.act_quant,
+                                      arch.act_clamp).float())
+            ctx2d = (ctx2d.float() * g).to(ctx2d.dtype)
+        return _linear(ctx2d, p_attn["o_proj"], arch.act_quant, arch.act_clamp, adapter_ids)
 
     ci = dict(cache_inputs or {})
     ci["position_ids"] = position_ids
@@ -617,7 +675,7 @@ def attention_block(
         # A frozen row is an ordinary row there, whose output nobody reads
         if S == 1 and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-            _heads_ok(H, KV), _card_limits(D, q.dtype, G, max_group=16),
+            _heads_ok(H, KV) + _sink_refused(arch), _card_limits(D, q.dtype, G, max_group=16),
             (("frozen-row write positions",) if "write_positions" in ci else ())
             + lf.ref_only(),
         ):
@@ -638,11 +696,11 @@ def attention_block(
     layout.update(k_cache_l, v_cache_l, k, v, ci, cache_spec)
     if attend_to_cache:
         ctx = _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
-                            lf)
+                            lf, sink)
         return o_proj(ctx), (k_cache_l, v_cache_l)
     use_kernel = _kernel_gate(
         "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV), _card_limits(D, q.dtype, G), lf.ref_only(),
+        _heads_ok(H, KV) + _sink_refused(arch), _card_limits(D, q.dtype, G), lf.ref_only(),
     )
     if use_kernel:
         ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids, scale=sc,
@@ -729,6 +787,18 @@ def decoder_layer(
             qkv_stacked=qkv_stacked, adapter_ids=adapter_ids, lf=lf,
         )
     rm = arch.residual_multiplier
+    if arch.sandwich_norm:
+        # AFMoE: the attention output normed before its residual add; the
+        # feed-forward (MoE or dense by the params) between its own pre- and
+        # post-norms
+        hidden = hidden + _norm(arch, attn_out, lp["post_attention_layernorm"])
+        h = _norm(arch, hidden, lp["pre_feedforward_layernorm"])
+        if arch.moe is not None and "moe" in lp:
+            _record_strategy(moe_ops.moe_strategy(arch.moe, h))
+            ff = moe_ops.moe_block(arch, arch.moe, lp["moe"], h)
+        else:
+            ff = mlp_block(arch, lp["mlp"], h, mlp_stacked, stacked_layer_idx, adapter_ids)
+        return hidden + _norm(arch, ff, lp["post_feedforward_layernorm"]), kv
     if arch.post_block_norm:
         # OLMo-2: x + norm(attn(x)); x + norm(mlp(x))
         hidden = hidden + _norm(arch, attn_out, lp["input_layernorm"]) * rm
@@ -773,7 +843,8 @@ def layer_segments(layers) -> List[Dict[str, Any]]:
 
 def segment_len(seg: Dict[str, Any]) -> int:
     """The number of layers of one layer-stacked segment."""
-    return seg["input_layernorm"].shape[0]
+    norm = seg["input_layernorm"]
+    return (norm["w"] if isinstance(norm, dict) else norm).shape[0]
 
 
 def run_decoder_layers(
@@ -831,7 +902,7 @@ def run_decoder_layers(
                      or cache["k"].dtype != cache_spec.torch_dtype)
         use_stacked_tkg = not quantized and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, hidden.is_cuda,
-            _heads_ok(H, KV),
+            _heads_ok(H, KV) + _sink_refused(arch),
             _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
             ref_only,
         )
@@ -958,6 +1029,20 @@ def causal_lm_forward(
         feats = batch["prev_hidden"][:, : input_ids.shape[1]].to(compute_dtype)
         hidden = _linear(torch.cat([hidden, feats], dim=-1), params["fc"], arch.act_quant,
                          arch.act_clamp)
+    if arch.longrope_original_max is not None and inv_freq.ndim == 2:
+        # LongRoPE: the [short, long] set chosen from the true last position
+        # (padding lanes run past the real last token, so read it at
+        # last_token_index); a device-side select, no host read, so a
+        # captured graph keeps choosing per replay
+        inv = torch.as_tensor(inv_freq, dtype=torch.float32, device=position_ids.device)
+        if "last_token_index" in batch:
+            lti = batch["last_token_index"].long()
+            real_last = (position_ids[0][lti] if mixed_rows
+                         else torch.gather(position_ids, 1, lti[:, None]))
+            seq_len_now = real_last.max() + 1
+        else:
+            seq_len_now = position_ids.max() + 1
+        inv_freq = torch.where(seq_len_now > arch.longrope_original_max, inv[1], inv[0])
     cos, sin = rope_cos_sin(position_ids, inv_freq, dtype=torch.float32)
     if arch.rope_mscale != 1.0:
         cos = cos * arch.rope_mscale

@@ -19,7 +19,11 @@ The family switches add leaves: biases ``"b"`` beside a projection's
 ``attn.q_norm`` / ``attn.k_norm`` ((L, D) per-head under ``qk_norm``;
 (L, Hq*D) / (L, KV*D) under ``qk_norm_flat``), and per-layer bool flags
 ``layers.use_rope`` / ``layers.use_sliding_window`` (L,). A non-gated MLP
-(Arcee) has no ``gate_proj``.
+(Arcee) has no ``gate_proj``. The MoE families add ``attn.sink`` (L, Hq)
+(``attention_sink``), ``attn.gate_proj`` {"w": (L, H, Hq*D)}
+(``attn_out_gate``), ``layers.pre_feedforward_layernorm`` /
+``post_feedforward_layernorm`` (L, H) (``sandwich_norm``), and biased
+LayerNorms as ``{"w", "b"}`` dicts in place of a norm's array (Phi-3.5-MoE).
 
 An MoE family (``models/mixtral``) replaces each layer's ``mlp`` through
 ``convert_hf_state_dict``'s ``ff_converter`` hook, here by ``"moe"``:
@@ -264,9 +268,10 @@ def convert_hf_state_dict(
     return params
 
 
-def param_shapes(arch: DecoderArch) -> Dict[str, Any]:
+def param_shapes(arch: DecoderArch, norm_bias: bool = False) -> Dict[str, Any]:
     """Shape tree matching :func:`convert_hf_state_dict` (random-weight
-    builds and tests)."""
+    builds and tests); ``norm_bias``: every norm a biased LayerNorm
+    ``{"w", "b"}`` (Phi-3.5-MoE)."""
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
     hs, inter, V, L = arch.hidden_size, arch.intermediate_size, arch.vocab_size, arch.num_layers
     params: Dict[str, Any] = {
@@ -298,6 +303,13 @@ def param_shapes(arch: DecoderArch) -> Dict[str, Any]:
         attn["q_norm"], attn["k_norm"] = (L, D), (L, D)
     elif arch.qk_norm_flat:
         attn["q_norm"], attn["k_norm"] = (L, H * D), (L, KV * D)
+    if arch.attention_sink:
+        attn["sink"] = (L, H)
+    if arch.attn_out_gate:
+        attn["gate_proj"] = {"w": (L, hs, H * D)}
+    if arch.sandwich_norm:
+        params["layers"]["pre_feedforward_layernorm"] = (L, hs)
+        params["layers"]["post_feedforward_layernorm"] = (L, hs)
     if arch.fused_qkv:
         qkv = {"w": (L, hs, (H + 2 * KV) * D)}
         if arch.attention_bias:
@@ -315,15 +327,22 @@ def param_shapes(arch: DecoderArch) -> Dict[str, Any]:
         params["layers"]["moe"] = moe_param_shapes(arch.moe, hs, L)
     if not arch.tie_word_embeddings:
         params["lm_head"] = (hs, V)
+    if norm_bias:
+        layers = params["layers"]
+        for key in [k for k in layers if k.endswith("layernorm")]:
+            layers[key] = {"w": layers[key], "b": layers[key]}
+        params["norm"] = {"w": (hs,), "b": (hs,)}
     return params
 
 
 def moe_param_shapes(moe, hidden_size: int, num_layers: int) -> Dict[str, Any]:
-    """Shapes of the layer-stacked MoE params of a Mixtral layer (the router
-    and experts of the JAX package's ``moe_shape_struct``; no biases, no
-    shared expert)."""
+    """Shapes of the layer-stacked MoE params (the router and experts of the
+    JAX package's ``moe_shape_struct``): the router's bias (``router_bias``)
+    and selection-only correction bias ``e_bias`` (``correction_bias``),
+    the experts' biases (``expert_bias``) and the shared expert where the
+    arch has them."""
     E, H, I, L = moe.num_experts, hidden_size, moe.intermediate_size, num_layers
-    return {
+    shapes: Dict[str, Any] = {
         "router": {"w": (L, H, E)},
         "experts": {
             "gate_proj": {"w": (L, E, H, I)},
@@ -331,6 +350,19 @@ def moe_param_shapes(moe, hidden_size: int, num_layers: int) -> Dict[str, Any]:
             "down_proj": {"w": (L, E, I, H)},
         },
     }
+    if moe.router_bias:
+        shapes["router"]["b"] = (L, E)
+    if moe.correction_bias:
+        shapes["router"]["e_bias"] = (L, E)
+    if moe.expert_bias:
+        ex = shapes["experts"]
+        ex["gate_proj"]["b"], ex["up_proj"]["b"], ex["down_proj"]["b"] = (L, E, I), (L, E, I), (
+            L, E, H)
+    if moe.shared_expert_intermediate_size:
+        Is = moe.shared_expert_intermediate_size
+        shapes["shared_expert"] = {"gate_proj": {"w": (L, H, Is)}, "up_proj": {"w": (L, H, Is)},
+                                   "down_proj": {"w": (L, Is, H)}}
+    return shapes
 
 
 # a weight whose float32 draw would exceed this is drawn in pieces of
@@ -342,17 +374,22 @@ _DRAW_PIECE = 2 ** 28
 def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=None,
                   shapes=None):
     """Random weights in the arch's dtype from one ``torch.Generator`` seed,
-    on ``device`` (the card unless the CPU is asked for): projections and
-    embeddings N(0, std), norm weights one (HF's init), so activations keep
-    unit scale and greedy tokens are well separated. ``shapes`` (default
-    :func:`param_shapes`) is a shape tree whose ``layers`` may be a list of
-    segments. A weight too large to draw in float32 at once is drawn in
-    pieces, each cast as it is drawn."""
+    on ``device`` (the card unless the CPU is asked for): projections,
+    embeddings, sinks and biases N(0, std), norm weights one and norm biases
+    zero (HF's init), so activations keep unit scale and greedy tokens are
+    well separated; a router's selection-only ``e_bias`` in float32, as the
+    converters keep it. ``shapes`` (default :func:`param_shapes`) is a shape
+    tree whose ``layers`` may be a list of segments. A weight too large to
+    draw in float32 at once is drawn in pieces, each cast as it is drawn."""
     device = resolve_device(device)
     dt = to_torch_dtype(arch.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(path, shape):
+        if len(path) > 1 and path[-2].endswith("norm") and path[-1] in ("w", "b"):
+            # a biased LayerNorm {"w", "b"}: unit weight, zero bias
+            fill = torch.ones if path[-1] == "w" else torch.zeros
+            return fill(shape, dtype=dt, device=device)
         if path[-1].endswith("norm"):
             # a gemma-style norm multiplies by 1 + w: a zero offset is unit scale
             fill = torch.zeros if arch.gemma_norm else torch.ones
@@ -373,7 +410,8 @@ def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=No
             return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        return make(path, tree)
+        leaf = make(path, tree)
+        return leaf.float() if path[-1] == "e_bias" else leaf
 
     return walk(param_shapes(arch) if shapes is None else shapes, ())
 

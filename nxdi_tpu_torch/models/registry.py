@@ -41,17 +41,24 @@ _REGISTRY: Dict[str, Tuple[str, str]] = {
     "olmo2": (f"{_M}.olmo2.modeling_olmo2", "Olmo2InferenceConfig"),
     "arcee": (f"{_M}.arcee.modeling_arcee", "ArceeInferenceConfig"),
     "ministral": (f"{_M}.ministral.modeling_ministral", "MinistralInferenceConfig"),
+    "qwen3_moe": (f"{_M}.qwen3_moe.modeling_qwen3_moe", "Qwen3MoeInferenceConfig"),
+    "phi3": (f"{_M}.phi3.modeling_phi3", "Phi3InferenceConfig"),
+    "phimoe": (f"{_M}.phimoe.modeling_phimoe", "PhimoeInferenceConfig"),
+    "dbrx": (f"{_M}.dbrx.modeling_dbrx", "DbrxInferenceConfig"),
+    "minimax_m2": (f"{_M}.minimax_m2.modeling_minimax_m2", "MiniMaxM2InferenceConfig"),
+    "gpt_oss": (f"{_M}.gpt_oss.modeling_gpt_oss", "GptOssInferenceConfig"),
+    "afmoe": (f"{_M}.afmoe.modeling_afmoe", "AfmoeInferenceConfig"),
 }
 
 # registered by the JAX package, not ported yet (ROADMAP Queue 1)
 NOT_PORTED = frozenset({
-    "qwen3_moe", "gemma3", "gemma3_text", "pixtral", "mistral3", "ovis2", "dbrx", "gpt_oss",
+    "gemma3", "gemma3_text", "pixtral", "mistral3", "ovis2",
     "llama4", "llama4_text", "llava", "mllama", "qwen2_vl", "qwen3_vl", "qwen2_5_vl",
-    "minimax_m2", "mimo_v2", "gpt2", "gemma2", "phi3", "qwen3_next", "recurrent_gemma",
-    "recurrentgemma", "qwen2_5_omni", "phimoe", "lfm2", "qwen2_5_omni_thinker", "falcon_h1",
+    "mimo_v2", "gpt2", "gemma2", "qwen3_next", "recurrent_gemma",
+    "recurrentgemma", "qwen2_5_omni", "lfm2", "qwen2_5_omni_thinker", "falcon_h1",
     "starcoder2", "stablelm", "glm4", "exaone4", "olmo3", "cohere2", "gpt_neox", "vaultgemma",
     "opt", "biogpt", "xglm", "gpt_bigcode", "falcon", "persimmon", "phi", "apertus", "janus",
-    "idefics", "orion", "afmoe",
+    "idefics", "orion",
 })
 
 

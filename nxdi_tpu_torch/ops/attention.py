@@ -50,8 +50,20 @@ def _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_wind
     return causal_mask_from_positions(q_pos, kv_pos)
 
 
-def grouped_attention(q, k, v, mask, scale: Optional[float] = None):
-    """q (B, H, Sq, D), k/v (B, KV, Skv, D), mask (B, Sq, Skv) -> (B, H, Sq, D)."""
+def _softmax_with_sink(scores, sink):
+    """Softmax over the last axis; with ``sink`` (H,) a learned per-head
+    logit joins each row as one more column whose probability mass is then
+    dropped (gpt-oss's attention sinks). ``scores`` is (B, KV, G, Sq, S)."""
+    if sink is None:
+        return torch.softmax(scores, dim=-1)
+    B, KV, G, Sq, _ = scores.shape
+    col = sink.float().reshape(1, KV, G, 1, 1).expand(B, KV, G, Sq, 1)
+    return torch.softmax(torch.cat([scores, col], dim=-1), dim=-1)[..., :-1]
+
+
+def grouped_attention(q, k, v, mask, scale: Optional[float] = None, sink=None):
+    """q (B, H, Sq, D), k/v (B, KV, Skv, D), mask (B, Sq, Skv) -> (B, H, Sq, D).
+    ``sink`` (H,): learned attention-sink logits (:func:`_softmax_with_sink`)."""
     B, H, Sq, D = q.shape
     KV = k.shape[1]
     G = H // KV
@@ -60,7 +72,7 @@ def grouped_attention(q, k, v, mask, scale: Optional[float] = None):
     qg = q.reshape(B, KV, G, Sq, D)
     scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) * scale
     scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    weights = _softmax_with_sink(scores, sink).to(v.dtype)
     out = torch.einsum("bkgqs,bksd->bkgqd", weights, v)
     return out.reshape(B, H, Sq, v.shape[-1])
 
@@ -68,12 +80,12 @@ def grouped_attention(q, k, v, mask, scale: Optional[float] = None):
 def attention_with_positions(
     q, k, v, q_pos, kv_pos, *, scale=None,
     sliding_window: Optional[int] = None, chunk_size: Optional[int] = None,
-    sliding_window_enabled=None,
+    sliding_window_enabled=None, sink=None,
 ):
     """Attention with the mask derived from positions (prefill and decode)."""
     mask = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size,
                                 sliding_window_enabled)
-    return grouped_attention(q, k, v, mask, scale=scale)
+    return grouped_attention(q, k, v, mask, scale=scale, sink=sink)
 
 
 def attention_two_part(
@@ -81,7 +93,7 @@ def attention_two_part(
     kk, vv,  # cache segment (B, KV, W, D)
     k2, v2,  # fresh segment (B, KV, S2, D)
     q_pos, kv_pos, kv_pos2, *,
-    scale=None, sliding_window=None, chunk_size=None, sliding_window_enabled=None,
+    scale=None, sliding_window=None, chunk_size=None, sliding_window_enabled=None, sink=None,
 ):
     """Attention over [cache, fresh] without concatenating K/V: the scores are
     concatenated for one softmax and the two weighted sums add. The
@@ -100,7 +112,7 @@ def attention_two_part(
     m2 = _mask_from_positions(q_pos, kv_pos2, sliding_window, chunk_size, sliding_window_enabled)
     mask = torch.cat([m1, m2], dim=-1)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-    weights = torch.softmax(s, dim=-1)
+    weights = _softmax_with_sink(s, sink)
     w1 = weights[..., :W].to(vv.dtype)
     w2 = weights[..., W:].to(v2.dtype)
     out = torch.einsum("bkgqs,bksd->bkgqd", w1, vv) + torch.einsum(

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -28,3 +30,17 @@ def flat_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, denom: int)
     xf = x.float()
     ms = (xf * xf).sum(dim=-1, keepdim=True) / denom
     return (xf * torch.rsqrt(ms + eps) * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with float32 statistics (the biased
+    variance), output in ``x.dtype``; weight-only (DBRX) or biased
+    (Phi-3.5-MoE)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) * (xf - mean)).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)

@@ -1,8 +1,8 @@
 """Rotary position embeddings (counterpart of ``nxdi_tpu/ops/rope.py``).
 
 HF llama's rotate-half convention (and the adjacent-pair GPT-J layout,
-:func:`apply_rotary_pos_emb_interleaved`), plain RoPE, llama3 and YaRN frequency
-scaling. The frequency tables are numpy (host-side, computed once); cos/sin
+:func:`apply_rotary_pos_emb_interleaved`), plain RoPE, llama3, YaRN and
+LongRoPE frequency scaling. The frequency tables are numpy (host-side, computed once); cos/sin
 are built from position ids on the fly in float32. YaRN's attention factor
 scales cos/sin (the models read it as ``DecoderArch.rope_mscale``).
 """
@@ -95,6 +95,36 @@ def yarn_inv_freq(
     return inv_freq.astype(np.float32), float(attention_factor)
 
 
+def longrope_inv_freq(
+    head_dim: int,
+    rope_theta: float,
+    rope_scaling: dict,
+    max_position_embeddings: int,
+    original_max_position_embeddings: int,
+):
+    """LongRoPE (the Phi-3 128k lineage; HF ``_compute_longrope_parameters``):
+    per-channel rescale factors, ``short_factor`` within the pretrained
+    window and ``long_factor`` beyond it, and the cos/sin scale
+    ``sqrt(1 + ln(factor) / ln(original_max))`` with factor = max_position /
+    original_max. Returns (the STACKED (2, D/2) float32 table [short, long],
+    attention_factor); a forward picks the set from its true last position
+    (``models/base.py``)."""
+    short = np.asarray(rope_scaling["short_factor"], np.float32)
+    long = np.asarray(rope_scaling["long_factor"], np.float32)
+    base = rope_theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim)
+    factor = rope_scaling.get("factor")
+    if original_max_position_embeddings:
+        factor = max_position_embeddings / original_max_position_embeddings
+    attention_factor = rope_scaling.get("attention_factor")
+    if attention_factor is None:
+        if factor is None or factor <= 1.0:
+            attention_factor = 1.0
+        else:
+            attention_factor = math.sqrt(
+                1 + math.log(factor) / math.log(original_max_position_embeddings))
+    return np.stack([1.0 / (short * base), 1.0 / (long * base)]), float(attention_factor)
+
+
 def rope_type_of(rope_scaling) -> str:
     return rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
 
@@ -102,8 +132,11 @@ def rope_type_of(rope_scaling) -> str:
 def inv_freq_from_hf_config(
     head_dim: int, rope_theta: float, rope_scaling=None, max_position_embeddings: int = 4096
 ) -> np.ndarray:
-    """Frequencies for the rope types the port runs (default, llama3, linear,
-    yarn); any other type raises rather than rotating long contexts wrongly."""
+    """Frequencies for the rope types one table serves (default, llama3,
+    linear, yarn); any other type raises rather than rotating long contexts
+    wrongly. LongRoPE needs two tables and the per-forward choice between
+    them: the Phi-3 families build it (``models/phi3``: ``build_inv_freq``
+    through :func:`longrope_inv_freq`)."""
     if rope_scaling is None:
         return default_inv_freq(head_dim, rope_theta)
     rope_type = rope_type_of(rope_scaling)
@@ -122,6 +155,10 @@ def inv_freq_from_hf_config(
         return default_inv_freq(head_dim, rope_theta)
     if rope_type == "yarn":
         return yarn_inv_freq(head_dim, rope_theta, rope_scaling, max_position_embeddings)[0]
+    if rope_type == "longrope":
+        raise ValueError(
+            "rope type 'longrope' takes two frequency sets chosen per forward: build it "
+            "with the phi3 / phimoe family (models/phi3/modeling_phi3.build_inv_freq)")
     raise ValueError(f"Unsupported rope scaling type in this port: {rope_type}")
 
 

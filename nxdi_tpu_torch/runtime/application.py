@@ -110,9 +110,24 @@ SEGMENTED_REFUSALS = {
 }
 
 
+# the MoE families' switches that the MoE branch carries,
+# each held on an MoE family against the JAX package or HF
+# (tests/test_torch_moe_families.py), and the dense families' switches those
+# families share
+MOE_CARRIED = ("sliding_window", "qk_norm", "qk_norm_flat", "embed_scale", "attention_o_bias",
+               "layernorm", "clip_qkv", "rotary_dim", "attention_sink", "attn_out_gate",
+               "sandwich_norm", "longrope")
+# the mixed step's plain attention drops the window and the sink (the JAX
+# package's, ROADMAP Queue 3); the MoE families' other switches are not held
+# on the mixed step
+MIXED_REFUSED = ("sliding_window", "layernorm", "clip_qkv", "rotary_dim", "attention_sink",
+                 "attn_out_gate", "sandwich_norm", "longrope")
+
+
 def family_switches(arch) -> List[str]:
-    """The switches of the dense Llama-lineage families (``DecoderArch``'s
-    fields past the Llama set) that ``arch`` turns on, by name."""
+    """The switches of the dense Llama-lineage and MoE families
+    (``DecoderArch``'s fields past the Llama set) that ``arch`` turns on, by
+    name."""
     return [name for name, on in (
         ("qk_norm", arch.qk_norm),
         ("qk_norm_flat", arch.qk_norm_flat),
@@ -127,6 +142,13 @@ def family_switches(arch) -> List[str]:
         ("residual_multiplier", arch.residual_multiplier != 1.0),
         ("logits_scaling", arch.logits_scaling != 1.0),
         (f"hidden_act={arch.hidden_act!r}", arch.hidden_act != "silu"),
+        ("layernorm", arch.layernorm),
+        ("clip_qkv", arch.clip_qkv is not None),
+        ("rotary_dim", arch.rotary_dim is not None),
+        ("attention_sink", arch.attention_sink),
+        ("attn_out_gate", arch.attn_out_gate),
+        ("sandwich_norm", arch.sandwich_norm),
+        ("longrope", arch.longrope_original_max is not None),
     ) if on]
 
 
@@ -155,9 +177,8 @@ def refuse_mla_speculation(*archs) -> None:
 def refuse_unported(family, config) -> None:
     """Raise at app build for what the port does not serve on this model yet
     (:data:`SEGMENTED_REFUSALS`; the family switches on the paths that do
-    not carry them: LoRA, quantized KV stores, MoE routing but for the
-    window, MLA, and the mixed step's plain attention, which takes no
-    window)."""
+    not carry them: LoRA, quantized KV stores, MoE routing but for
+    :data:`MOE_CARRIED`, MLA, and the mixed step: :data:`MIXED_REFUSED`)."""
     tc = config.tpu_config
     arch = family.build_arch(config)
     switches = family_switches(arch)
@@ -165,10 +186,9 @@ def refuse_unported(family, config) -> None:
         ("LoRA serving", tc.lora_config is not None, switches),
         ("a quantized KV cache", tc.kv_quant_config is not None, switches),
         ("mixture-of-experts routing", arch.moe is not None,
-         [s for s in switches if s != "sliding_window"]),
+         [s for s in switches if s not in MOE_CARRIED]),
         ("MLA attention", arch.mla is not None, switches),
-        ("mixed_dispatch", tc.mixed_dispatch,
-         [s for s in switches if s == "sliding_window"]),
+        ("mixed_dispatch", tc.mixed_dispatch, [s for s in switches if s in MIXED_REFUSED]),
     ):
         if on:
             _refuse_switches(refused, path)

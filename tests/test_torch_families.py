@@ -194,7 +194,9 @@ def test_registry_keys_and_errors():
     """Every ported type resolves to the port's module and config class; a
     type the JAX package registers but the port does not raises, naming it;
     an unknown type raises KeyError listing the registered ones."""
-    ported = set(FAMILIES) | {"llama", "mixtral", "deepseek", "deepseek_v3", "minicpm4"}
+    ported = set(FAMILIES) | {"llama", "mixtral", "deepseek", "deepseek_v3", "minicpm4",
+                              "qwen3_moe", "gpt_oss", "minimax_m2", "dbrx", "phimoe", "afmoe",
+                              "phi3"}
     assert set(treg.known_model_types()) == ported
     for t in ported:
         module, cfg_cls = treg.get_family(t)
