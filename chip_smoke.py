@@ -216,6 +216,26 @@ code is non-zero:
    Gemma-2B whole (head dim 256, the fused MLP's tanh GELU) at B 8: prefill
    ms, decode ms/step, a profiled decode step (busy, idle, host split),
    launches exact.
+3j. The Gemma lineage's and the ring's kernel points: row 1 at Gemma-3-27B's
+   heads (32 over 16 of 128, window 1024, B 8, S 1024); rows 3 and 5 in
+   ring mode (the decode kernel's ring operand) over Gemma-3-27B's ring
+   stack (10 layers of 1024 slots) and Mistral-7B's ring (4096 slots), rows
+   past the wrap; row 4 landing rows at p % W: each against its plain
+   version (row 4 bit for bit), timed beside its bound, the plain version
+   and SDPA under the ring's mask or index_put.
+4m. gemma3_text, gemma2, vaultgemma and the ring (Gemma-3 interleaved:
+   the ring stack beside the full one; Mistral homogeneous) at tiny widths,
+   2 layers, float32, batch 2, 64-token prompts over windows of 8: generate()
+   on the CPU, the card's graphs and the card eagerly: tokens equal, logits
+   within 1e-4, graphs equal to eager bit for bit, launches exact; on both
+   rings the contiguous engine too (three requests over two slots).
+5m. Gemma-3-27B's published widths cut to 12 of 62 layers (two pattern
+   units), bf16, graphs, B 8, seq_len 8192, 1024-token prompts and 64 new
+   tokens past the window: generate() on the full cache and on the ring
+   (cache bytes, peak device memory, prefill ms, decode ms/step, a
+   profiled decode step, launches exact), then on the full cache with the
+   QKV and MLP kernels; Gemma-2-9B at 8 of 42 layers (the softcap keeps
+   the attention plain; rows 4 and 9-12).
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -4989,7 +5009,7 @@ MISTRAL_WINDOW = dict(H=32, KV=8, D=128, B=2, S=6144, window=4096, L=2)
 GEMMA_MLP = dict(hidden=2048, inter=16384, layers=2)
 GEMMA_MLP_M = (8, 8192)
 # the stderr tag of the phases that share the 3h helpers
-PHASE_TAGS = {"3h": "family-3h", "3i": "moe-family-3i"}
+PHASE_TAGS = {"3h": "family-3h", "3i": "moe-family-3i", "3j": "ring-3j"}
 
 
 def _window_pairs(S, window):
@@ -5953,6 +5973,400 @@ def mla_full_depth(torch, np, mods, card):
                 warmup=warm, strategies=sorted(strat), engine=e_stats)
 
 
+# ---------------------------------------------------------------------------
+# phases 3j, 4m, 5m: the Gemma 2/3 lineage and the window-sized ring KV cache
+# ---------------------------------------------------------------------------
+
+# phase 3j's points: row 1 at Gemma-3-27B's attention (32 over 16 heads of
+# 128, window 1024: its local layers' launch) over phase 5m's B 8 x 1024
+# prefill; row 3's ring mode over Gemma-3-27B's ring stack (the 10 window
+# layers of phase 5m's 12, 1024 slots, B 8) with every row past the ring's
+# first wrap; row 5's ring mode over Mistral-7B's homogeneous ring (32 over
+# 8 heads of 128, 4096 slots, B 8); row 4 landing B 8 rows at p % W into
+# Gemma-3-27B's ring stack
+GEMMA3_HEADS = dict(H=32, KV=16, D=128, B=8, S=1024, window=1024, L=10)
+MISTRAL_RING = dict(H=32, KV=8, D=128, B=8, window=4096)
+
+
+def ring_positions(torch, qpos, W):
+    """(B, W) positions of a ring's slots for (B, 1) query positions: slot j
+    holds q - ((q - j) mod W); a slot no position has reached is -1."""
+    j = torch.arange(W, device=qpos.device)[None, :]
+    pos = qpos.long() - torch.remainder(qpos.long() - j, W)
+    return torch.where(pos >= 0, pos, torch.full_like(pos, -1))
+
+
+def check_ring_kernels(torch, results):
+    """Phase 3j. Row 1 at Gemma-3-27B's heads under its 1024 window; rows 3
+    and 5 in ring mode (the decode kernel's ``ring`` operand: each slot's
+    position from the ring arithmetic) and row 4 landing rows at p % W, each
+    in bf16 against its plain version (row 4 bit for bit) and timed over
+    flushed calls beside its bound (the visible ring rows' bytes), the
+    plain version and one library call (SDPA under the ring's mask;
+    index_put)."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1818)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(
+            torch.bfloat16)
+
+    c = GEMMA3_HEADS
+    B, H, KV, S, D, W = c["B"], c["H"], c["KV"], c["S"], c["D"], c["window"]
+    q = randn((B, S, H, D)).transpose(1, 2)
+    k, v = randn((B, S, KV, D)).transpose(1, 2), randn((B, S, KV, D)).transpose(1, 2)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S).contiguous()
+    family_prefill_point(torch, results, fa, "Gemma-3-27B", q, k, v, pos, W, flush, phase="3j")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # row 3 in ring mode: layer 1 of the ring stack, every row past the wrap
+    L, G = c["L"], H // KV
+    ks, vs = randn((L, B, KV, W, D)), randn((L, B, KV, W, D))
+    qd = randn((B, 1, H, D)).transpose(1, 2)
+    kn, vn = randn((B, 1, KV, D)).transpose(1, 2), randn((B, 1, KV, D)).transpose(1, 2)
+    qpos = torch.tensor([[W + 40 + 137 * b] for b in range(B)], device=dev, dtype=torch.int32)
+    rp = ring_positions(torch, qpos, W)
+    vis = (rp >= 0) & (rp < qpos) & (rp > qpos - W)
+    mask = torch.cat([vis, torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)[:, None, None]
+    kcat = torch.cat([ks[1], kn], dim=2).repeat_interleave(G, dim=1)
+    vcat = torch.cat([vs[1], vn], dim=2).repeat_interleave(G, dim=1)
+    visible = int(vis.sum())
+    row = decode_point(
+        torch, results, "decode", "bfloat16", fa,
+        lambda: fa.flash_attention_decode_fused_stacked(qd, ks, vs, kn, vn, qpos, 1,
+                                                        sliding_window=W, ring=W),
+        lambda: fa.flash_attention_decode_fused_plain(qd, ks[1], vs[1], kn, vn, qpos,
+                                                      sliding_window=W, ring=W),
+        lambda: F.scaled_dot_product_attention(qd, kcat, vcat, attn_mask=mask),
+        (2 * KV * D * (visible + B) + 2 * B * H * D) * 2, 4 * H * D * (visible + B), flush,
+        TOL[("decode", "bfloat16")])
+    row.update(point="ring (Gemma-3-27B)", head_dim=D, window=W, ring=W)
+    log(f"[ring-3j] decode ring mode, Gemma-3-27B's ring stack: the row above ({visible} "
+        "visible positions)")
+    del kcat, vcat
+
+    # row 4 into the ring: slot p % W of each row's line, one slot dropped
+    kr, vr = randn((L, B, KV, 1, D)), randn((L, B, KV, 1, D))
+    slots = torch.remainder(qpos, W).to(torch.int32)
+    slots[3, 0] = -1
+    k_ref, v_ref = ks.clone(), vs.clone()
+    kc.kv_commit_rows_plain(k_ref, v_ref, kr, vr, slots)
+    kc.kv_commit_rows(ks, vs, kr, vr, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, k_ref) and torch.equal(vs, v_ref), "3j ring commit: not exact"
+    del k_ref, v_ref
+    times, _, _ = traced_times(torch, lambda: kc.kv_commit_rows(ks, vs, kr, vr, slots),
+                               DECODE_CALLS, flush, kernel="kv_commit_kernel")
+    ms, lo, hi = spread(times)
+    plain_ms = measure(torch, lambda: kc.kv_commit_rows_plain(ks, vs, kr, vr, slots), flush=flush)
+    valid = (slots[:, 0] >= 0).nonzero()[:, 0]
+    sl, zero = slots[valid, 0].long(), torch.zeros_like(valid)
+
+    def library_commit():
+        ks[:, valid, :, sl] = kr[:, valid, :, zero]
+        vs[:, valid, :, sl] = vr[:, valid, :, zero]
+
+    lib_ms = measure(torch, library_commit, flush=flush)
+    bms, by = bound_ms(2 * 2 * L * int(valid.numel()) * KV * D * 2, 0, "bfloat16")
+    results.append(dict(kernel="commit", dtype="bfloat16", point="ring (Gemma-3-27B)",
+                        head_dim=D, ring=W, max_abs_err=0.0, tol=0.0, ms=ms, ms_min=lo,
+                        ms_max=hi, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                        bound_by=by))
+    log(f"[ring-3j] commit into the ring (slot p % {W}, {L} layers): exact; kernel {ms:.4f} ms "
+        f"({lo:.4f}-{hi:.4f}) plain {plain_ms:.4f} index_put {lib_ms:.4f} bound {bms:.6f} "
+        f"({by})")
+    del ks, vs
+    torch.cuda.empty_cache()
+
+    # row 5 in ring mode: Mistral-7B's homogeneous ring, the slot at q % W
+    # already holding this step's row
+    m = MISTRAL_RING
+    B, H, KV, D, W = m["B"], m["H"], m["KV"], m["D"], m["window"]
+    G = H // KV
+    kw, vw = randn((B, KV, W, D)), randn((B, KV, W, D))
+    qw = randn((B, 1, H, D)).transpose(1, 2)
+    qpos = torch.tensor([[W + 90 + 517 * b] for b in range(B)], device=dev, dtype=torch.int32)
+    qpos[-1, 0] = 1000  # one row before the ring fills
+    rp = ring_positions(torch, qpos, W)
+    vis = (rp >= 0) & (rp <= qpos) & (rp > qpos - W)
+    dummy = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    ke, ve = kw.repeat_interleave(G, dim=1), vw.repeat_interleave(G, dim=1)
+    visible = int(vis.sum())
+    row = decode_point(
+        torch, results, "window_decode", "bfloat16", fa,
+        lambda: fa.flash_attention_decode(qw, kw, vw, qpos, dummy, sliding_window=W, ring=W),
+        lambda: fa.flash_attention_decode_plain(qw, kw, vw, qpos, dummy, sliding_window=W,
+                                                ring=W),
+        lambda: F.scaled_dot_product_attention(qw, ke, ve, attn_mask=vis[:, None, None]),
+        (2 * KV * D * visible + 2 * B * H * D) * 2, 4 * H * D * visible, flush,
+        PAGED_TOL["bfloat16"])
+    row.update(point="ring (Mistral-7B)", head_dim=D, window=W, ring=W)
+    log(f"[ring-3j] window decode ring mode, Mistral-7B's ring: the row above ({visible} "
+        "visible positions)")
+    del kw, vw, ke, ve
+    torch.cuda.empty_cache()
+
+
+# phase 4m: the three Gemma families at tiny widths (FAMILY_TINY's hidden
+# 256 and head dim 64; windows of 8 under 64-token prompts), and the ring
+# two ways: Gemma-3 interleaved (a window layer beside a global one: the
+# ring stack beside the full one) and Mistral homogeneous
+GEMMA_TINY = dict(num_key_value_heads=2, query_pre_attn_scalar=48, sliding_window=8,
+                  tie_word_embeddings=True, hidden_activation="gelu_pytorch_tanh")
+GEMMA_CASES = {
+    "gemma3_text": ("gemma3_text", dict(GEMMA_TINY, sliding_window_pattern=2,
+                                        rope_local_base_freq=1000.0,
+                                        rope_scaling=dict(rope_type="linear", factor=2.0)), {}),
+    "gemma2": ("gemma2", dict(GEMMA_TINY, attn_logit_softcapping=5.0,
+                              final_logit_softcapping=3.0), {}),
+    "vaultgemma": ("vaultgemma", dict(GEMMA_TINY, attn_logit_softcapping=5.0,
+                                      final_logit_softcapping=3.0), {}),
+    "gemma3_text ring": ("gemma3_text", dict(GEMMA_TINY, sliding_window_pattern=2,
+                                             rope_local_base_freq=1000.0),
+                         dict(window_sized_kv=True, sliding_window=8)),
+    "mistral ring": ("mistral", dict(sliding_window=8), dict(window_sized_kv=True,
+                                                            sliding_window=8)),
+}
+
+
+def gemma_flags(arch, ring):
+    """The attention kernels unless the model takes the logit softcap (an
+    enabled flag raises); the fused QKV and MLP kernels off the ring (the
+    JAX rule refuses them under window_sized_kv)."""
+    attn = arch.attn_logit_softcap is None
+    proj = not ring
+    return dict(attn_kernel_enabled=attn, attn_tkg_kernel_enabled=attn, fused_qkv=proj,
+                qkv_kernel_enabled=proj, mlp_kernel_enabled=proj)
+
+
+def gemma_counts(arch, L, n_cte, steps, flags, ring):
+    """The launches of a contiguous generate(). Full cache: L prefills per
+    context encoding (attention kernels on), L stacked decodes and 1 commit
+    a step, QKV and MLP per layer per forward. Interleaved ring: the window
+    layers' context encoding writes land through the commit kernel, and a
+    decode step commits once per stack. Homogeneous ring: every layer writes
+    its rows (a commit) and then attends the ring (the window decode)."""
+    attn, fwd = flags["attn_kernel_enabled"], n_cte + steps
+    want = dict(prefill=L * n_cte if attn else 0, paged_prefill=0, paged_decode=0,
+                window_decode=0, decode=L * steps if attn else 0, commit=steps,
+                qkv=L * fwd if flags.get("qkv_kernel_enabled") else 0,
+                mlp=L * fwd if flags.get("mlp_kernel_enabled") else 0)
+    if ring and arch.interleaved_split() is not None:
+        want["commit"] = arch.interleaved_split()[1] * n_cte + 2 * steps
+    elif ring:
+        want.update(decode=0, window_decode=L * steps, commit=L * fwd)
+    return want
+
+
+def gemma_vs_cpu(torch, np, mods):
+    """Phase 4m: GEMMA_CASES at tiny widths, 2 layers, float32, batch 2:
+    greedy generate() on the CPU (plain versions, the JAX rule: per-layer
+    flags and the softcap attend plain; the homogeneous ring's window decode
+    in ring mode), through the card's graphs and eagerly (run_three: tokens
+    equal, logits within LOGIT_TOL, graphs equal to eager bit for bit),
+    every enabled kernel engaged (rows 3 and 5 in ring mode, row 4 into the
+    ring), launches exact, the ring's cache window-sized."""
+    L, NEW, P = 2, 24, 64
+    out = {}
+    for case, (model_type, over, ring_kw) in GEMMA_CASES.items():
+        family = dense_family(model_type, **dict(FAMILY_TINY, **over))
+        ring = bool(ring_kw)
+        cfg = family[1](mods[1](seq_len=256, **ring_kw), **dict(family[2], num_hidden_layers=L))
+        arch = family[0].build_arch(cfg)
+        flags = gemma_flags(arch, ring)
+        apps, arch = three_apps(mods, layers=L, dtype="float32", batch=2, seq_len=256,
+                                ctx_len=128, output_logits=True, family=family, **flags,
+                                **ring_kw)
+        shapes = {k: tuple(t.shape) for k, t in apps[1].kv_cache.items()}
+        if ring:  # the ring: W slots (an interleaved model's window layers only)
+            slots = {k: s[3] for k, s in shapes.items()}
+            split = arch.interleaved_split()
+            assert slots == ({"k": 256, "v": 256, "k_win": 8, "v_win": 8} if split
+                             else {"k": 8, "v": 8}), shapes
+        ids, mask = prompts(np.random.default_rng(7), 2, P, [P, 53], arch.vocab_size)
+        worst, toks, counts, n_same, _ = run_three(torch, mods, f"4m {case}", apps, ids, mask,
+                                                   NEW, kernels=family_kernels())
+        want = gemma_counts(arch, L, 1, NEW - 1, flags, ring)
+        assert counts == want, f"phase 4m {case}: launches {counts} != {want}"
+        out[case] = dict(max_logit_err=worst, launches=counts, dispatches_bitwise=n_same,
+                         cache_shapes=shapes, strategies=sorted(strategies_of(apps[1])))
+        log(f"[gemma-2L 4m {case}] generate(): max logit diff {worst:.3g}, graphs = eager over "
+            f"{n_same} dispatches, launches {counts}, cache {shapes}")
+        del apps
+        gc.collect()
+        if ring:
+            out[case]["engine"] = ring_engine_vs_cpu(torch, np, mods, case, family, L, ring_kw)
+    return out
+
+
+def ring_engine_vs_cpu(torch, np, mods, case, family, L, ring_kw):
+    """Phase 4m's contiguous engine on a ring (each request's ring line
+    routed by seq_ids; three requests over two slots, the third arriving
+    mid-stream into a freed line; prompts of 23-40 tokens over the 8-slot
+    ring): on the CPU, through the card's graphs and eagerly. Graph streams
+    and logits equal eager's bit for bit; the CPU's logits within
+    LOGIT_TOL and its streams equal (up to a near tie); launches exact: a
+    homogeneous ring writes each layer's rows through the commit kernel and
+    attends through the window decode's ring mode, an interleaved one
+    decodes both stacks on the stacked fused decode and commits once per
+    stack a step (a routed context encoding writes every layer through the
+    commit)."""
+    from nxdi_tpu_torch.runtime.model_wrapper import TAG_CONTEXT_ENCODING, TAG_TOKEN_GENERATION
+    from nxdi_tpu_torch.serving import SamplingParams
+
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    common = dict(layers=L, dtype="float32", slots=2, seq_len=256, ctx_len=128, family=family,
+                  output_logits=True, **ring_kw)
+    cpu, arch = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **common)
+    gpu, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda", params=cpu.params,
+                         **common)
+    eager, _ = make_cb_app(ml, TorchConfig, ODSC, App, dense, device="cuda", graphs=False,
+                           params=gpu.params, **common)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, arch.vocab_size, n).tolist() for n in (40, 23, 31)]
+    budgets, arrivals = (20, 24, 16), [0, 0, 3]
+
+    def params_of(i):
+        return SamplingParams(max_new_tokens=budgets[i])
+
+    logs = ([], [], [])
+    ref, _ = run_cb(cpu, prompts, params_of, arrivals, logits=logs[0])
+    got, eng = run_cb(gpu, prompts, params_of, arrivals, logits=logs[1])
+    counts = {k: fn.launches for k, fn in attention_kernels().items()}
+    ea, _ = run_cb(eager, prompts, params_of, arrivals, logits=logs[2])
+    tag = f"phase 4m {case} engine"
+    assert got == ea, f"{tag}: graph and eager streams differ"
+    n_same = same_bits(torch, tag, logs[1], logs[2])
+    worst, _, flip = logits_within(torch, tag, logs[0], logs[1], LOGIT_TOL)
+    if flip is None:
+        assert got == ref, f"{tag}: streams differ from the CPU's"
+    n_cte = eng.dispatches[TAG_CONTEXT_ENCODING]
+    steps = eng.dispatches[TAG_TOKEN_GENERATION]
+    want = dict.fromkeys(counts, 0)
+    if arch.interleaved_split() is None:
+        want.update(prefill=L * n_cte, window_decode=L * steps, commit=L * (n_cte + steps))
+    else:
+        want.update(prefill=L * n_cte, decode=L * steps, commit=L * n_cte + 2 * steps)
+    assert counts == want, f"{tag}: launches {counts} != {want}"
+    log(f"[gemma-2L 4m {case}] contiguous engine: {len(got)} streams, max logit diff "
+        f"{worst:.3g}, graphs = eager over {n_same} dispatches, launches {counts}")
+    del cpu, gpu, eager
+    gc.collect()
+    return dict(max_logit_err=worst, launches=counts, dispatches_bitwise=n_same,
+                streams_equal_cpu=got == ref)
+
+
+def cache_bytes(app):
+    return sum(t.numel() * t.element_size() for t in app.kv_cache.values())
+
+
+def gemma_full_depth(torch, np, mods, card):
+    """Phase 5m, bf16, graphs, random weights from seed 0 at the published
+    widths. Gemma-3-27B cut to 12 of its 62 layers (two pattern units: 10
+    local, 2 global), B 8, seq_len 8192, phase 5's prompt shapes at 1024
+    tokens, 64 new tokens (past the 1024 window): generate() on the
+    full-length cache and on the ring (window_sized_kv), the attention
+    kernels on in both, then on the full cache with the QKV and MLP kernels
+    too; each with cache bytes, the peak device memory of its load and
+    generate(), prefill ms, decode ms/step, a profiled decode step, launches
+    exact. Then Gemma-2-9B at 8 of its 42 layers (the softcap keeps the
+    attention plain: rows 4 and 9-12) through generate() at B 8."""
+    from nxdi_tpu_torch.models.gemma2 import modeling_gemma2 as tg2
+    from nxdi_tpu_torch.models.gemma3 import modeling_gemma3 as tg3
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    B, P = 8, 1024
+    stats = {}
+    g3 = (tg3, tg3.Gemma3InferenceConfig, tg3.GEMMA_3_27B)
+    attn = dict(attn_kernel_enabled=True, attn_tkg_kernel_enabled=True)
+    proj = dict(fused_qkv=True, qkv_kernel_enabled=True, mlp_kernel_enabled=True)
+    ring = dict(window_sized_kv=True, sliding_window=1024)
+    params, toks = None, {}
+    # (run, layers, new tokens, family, flags, whether it reuses the last
+    # run's weights: the fused QKV weight is another params tree)
+    for name, L, NEW, family, flags, share in (
+            ("Gemma-3-27B full cache", 12, 64, g3, attn, False),
+            ("Gemma-3-27B ring", 12, 64, g3, dict(attn, **ring), True),
+            ("Gemma-3-27B full cache, QKV + MLP kernels", 12, 64, g3, dict(attn, **proj), False),
+            ("Gemma-2-9B", 8, 32, (tg2, tg2.Gemma2InferenceConfig, tg2.GEMMA_2_9B),
+             dict(attn_kernel_enabled=False, attn_tkg_kernel_enabled=False, **proj), False)):
+        tag = f"[gemma-5m {name}]"
+        if not share:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
+                             batch=B, seq_len=8192, ctx_len=P, device="cuda", family=family,
+                             params=params, **flags)
+        params = app.params
+        gb = sum(v.numel() * v.element_size() for v in _leaves(params)) / 1e9
+        ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                            arch.vocab_size)
+        lengths = mask.sum(axis=1)
+        want = gemma_counts(arch, L, 1, NEW - 1, flags, "window_sized_kv" in flags)
+        run, toks[name] = gemma_generate(torch, np, mods, tag, app, arch, ids, mask, NEW, want)
+        run.update(layers=L, param_gb=gb, cache_bytes=cache_bytes(app),
+                   cache_shapes={k: list(v.shape) for k, v in app.kv_cache.items()},
+                   peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   load_s=time.perf_counter() - t, warmup=app.warm_stats,
+                   strategies=sorted(strategies_of(app)))
+        log(f"{tag} {L} layers, params {gb:.2f} GB, KV cache {run['cache_bytes'] / 1e9:.3f} GB "
+            f"{run['cache_shapes']}, peak allocated {run['peak_allocated_gb']:.2f} GB; {card}")
+        stats[name] = run
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+    full, rg = toks["Gemma-3-27B full cache"], toks["Gemma-3-27B ring"]
+    stats["ring_tokens_equal_full"] = float((full == rg).mean())
+    stats["ring_cache_ratio"] = (stats["Gemma-3-27B full cache"]["cache_bytes"]
+                                 / stats["Gemma-3-27B ring"]["cache_bytes"])
+    log(f"[gemma-5m] {card}: ring cache {stats['ring_cache_ratio']:.2f}x smaller; tokens equal "
+        f"to the full cache's at {100 * stats['ring_tokens_equal_full']:.1f} % of positions")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["launches"] = {name: st["launches"] for name, st in stats.items()
+                         if isinstance(st, dict) and "launches" in st}
+    return stats
+
+
+def gemma_generate(torch, np, mods, tag, app, arch, ids, mask, NEW, want):
+    """One timed generate() of a phase 5m app (family_generate's measures):
+    its launches exactly ``want`` (gemma_counts), a profiled decode step."""
+    Adapter = mods[5]
+    kernels = family_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    prefill_ms, decode_ms, toks = timed_generate(torch, Adapter, app, ids, mask, NEW)
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    assert counts == want, f"{tag}: launches {counts} != {want}"
+    lengths = mask.sum(axis=1)
+    gen = np.stack([toks[b, n:n + NEW] for b, n in enumerate(lengths)])
+    assert (gen >= 0).all() and (gen < arch.vocab_size - arch.vocab_pad).all(), tag
+    B = ids.shape[0]
+    pr = decode_step_profile(torch, np, app, toks, lengths, NEW)
+    log(f"{tag} decode step: wall {pr['wall_ms']:.3f} ms, busy {pr['busy_ms']:.3f} ms "
+        f"(idle {pr['idle_pct']:.1f}%), {pr['device_ops']} device operations; attention "
+        f"{pr['attention_ms']}; host ms: {split_line(pr['host_split_ms'])}")
+    log(f"{tag} generate() B {B} x {ids.shape[1]}: prefill {prefill_ms:.2f} ms, decode "
+        f"{decode_ms:.3f} ms/step, {B * 1e3 / decode_ms:.1f} tok/s; launches {counts}")
+    return dict(batch=B, prompt=int(ids.shape[1]), prefill_ms=prefill_ms, decode_ms=decode_ms,
+                tok_s=B * 1e3 / decode_ms, launches=counts, profiled_decode_step=pr), toks
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -5996,6 +6410,7 @@ def main() -> int:
     check_mla_kernels(torch, kernel_results)
     check_family_kernels(torch, kernel_results)
     check_moe_family_kernels(torch, kernel_results)
+    check_ring_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -6007,6 +6422,7 @@ def main() -> int:
     mla_2l = mla_vs_cpu(torch, np, mods)
     family_2l = family_vs_cpu(torch, np, mods)
     moe_family_2l = moe_family_vs_cpu(torch, np, mods)
+    gemma_2l = gemma_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -6060,8 +6476,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe5l = moe_family_full_depth(torch, np, mods, card)
+    # phase 5m: Gemma-3-27B (12 layers) on the full cache and the ring,
+    # Gemma-2-9B (8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma5m = gemma_full_depth(torch, np, mods, card)
     family_stats = dict(phase_4k=family_2l, phase_5k=family5k, phase_4l=moe_family_2l,
-                        phase_5l=moe5l)
+                        phase_5l=moe5l, phase_4m=gemma_2l, phase_5m=gemma5m)
+    gl = gemma5m["launches"]
     fl = family5k["launches"]
     ml5 = moe5l["launches"]
     dense_launches = {
@@ -6072,6 +6494,12 @@ def main() -> int:
         # the group-size rows count phase 5l's runs at those heads
         "G 8 (Qwen3-30B-A3B)": ml5["Qwen3-30B-A3B"],
         "G 6 (MiniMax-M2, DBRX)": ml5["MiniMax-M2"],
+        # the Gemma-3 rows count phase 5m's Gemma-3-27B runs (row 1 in all
+        # three, rows 3 and 4 on the ring in its ring run); row 5's ring mode
+        # phase 4m's homogeneous ring (Mistral-shaped)
+        "Gemma-3-27B": {"prefill": sum(gl[k]["prefill"] for k in gl if "Gemma-3" in k)},
+        "ring (Gemma-3-27B)": gl["Gemma-3-27B ring"],
+        "ring (Mistral-7B)": gemma_2l["mistral ring"]["launches"],
     }
     # the latent-width commit and V3's MLP rows count phase 5j's runs
     mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
@@ -6161,7 +6589,7 @@ def main() -> int:
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
                                               "graph_ready_ms", "store", "bf16_pool_ms",
                                               "k_width", "v_width", "hidden", "inter",
-                                              "window", "act")
+                                              "window", "act", "ring")
                           if f in row})
             if row.get("point") in ("G 8 (Qwen3-30B-A3B)", "G 6 (MiniMax-M2, DBRX)"):
                 entry["group"] = int(row["point"].split()[1])

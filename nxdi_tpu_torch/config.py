@@ -381,13 +381,11 @@ class TorchConfig:
         # context-encoding or prefix-prefill submodel and admits requests
         # only through an imported KV chain
         self.role = kwargs.pop("role", "unified")
-        # the JAX package's W-slot ring cache for sliding-window layers: not
-        # ported (a windowed model keeps the full-length cache and masks)
-        if kwargs.pop("window_sized_kv", False):
-            raise NotImplementedError(
-                "window_sized_kv (the W-slot ring cache of sliding-window layers) is not "
-                "ported yet; a windowed model runs on the full-length cache under the "
-                "window's mask: unset window_sized_kv")
+        # the window-sized ring KV cache (kvcache/kv_cache.py::WindowKVLayout):
+        # the sliding-window layers keep ``window_ring_slots`` slots (the ring's
+        # count, ``sliding_window``) in place of seq_len
+        self.sliding_window = kwargs.pop("sliding_window", None)
+        self.window_sized_kv = bool(kwargs.pop("window_sized_kv", False))
 
         if kwargs:
             raise ValueError(
@@ -398,6 +396,15 @@ class TorchConfig:
     @property
     def is_chunked_prefill(self) -> bool:
         return self.chunked_prefill_config is not None
+
+    @property
+    def window_ring_slots(self) -> int:
+        """Slots of a window-sized ring: ``sliding_window``, over-provisioned
+        by the speculation window (spec_len + 1) under linear speculation (the
+        JAX package's rule; speculation on a windowed model is refused at app
+        build in the port)."""
+        lookahead = self.speculation_length + 1 if self.speculation_length > 0 else 0
+        return int(self.sliding_window or 0) + lookahead
 
     @property
     def speculates(self) -> bool:
@@ -491,6 +498,7 @@ class TorchConfig:
                 "mlp_kernel_enabled composes with full-precision weights only "
                 "for now (quantized fused MLP is not implemented)"
             )
+        self._validate_ring()
         if self.device_loop and self.mixed_dispatch:
             raise ValueError("device_loop and mixed_dispatch are different serving step "
                              "shapes; enable one")
@@ -521,6 +529,42 @@ class TorchConfig:
                     "role='prefill' ships only CTE/prefix-prefill + a 1-token "
                     "TKG; decode_steps_per_dispatch > 1 and device_loop are "
                     "decode-role program shapes"
+                )
+
+    def _validate_ring(self) -> None:
+        """The JAX package's ``window_sized_kv`` refusals, in its words."""
+        if (self.mlp_kernel_enabled or self.qkv_kernel_enabled) and self.window_sized_kv:
+            raise ValueError(
+                "mlp_kernel_enabled/qkv_kernel_enabled are not supported with "
+                "window_sized_kv or pipeline parallel yet"
+            )
+        if not self.window_sized_kv:
+            return
+        if not self.sliding_window:
+            raise ValueError(
+                "window_sized_kv needs tpu_config.sliding_window (the ring "
+                "slot count) — set it to the model's sliding window"
+            )
+        if self.sliding_window > self.seq_len:
+            raise ValueError(
+                f"window_sized_kv ring ({self.sliding_window} slots) cannot "
+                f"exceed seq_len ({self.seq_len}) — the ring layout would "
+                "address slots the cache does not have"
+            )
+        if (self.is_block_kv_layout or self.is_medusa or self.is_prefix_caching
+                or self.is_chunked_prefill):
+            raise ValueError(
+                "window_sized_kv composes with contiguous decode (and "
+                "linear speculation) only: paged/medusa/prefix modes "
+                "assume position-addressed cache slots, which the ring "
+                "layout does not provide"
+            )
+        if self.speculation_length > 0 or self.enable_fused_speculation:
+            if self.window_ring_slots > self.seq_len:
+                raise ValueError(
+                    f"window_sized_kv + speculation needs sliding_window +"
+                    f" speculation_length + 1 = {self.window_ring_slots} "
+                    f"ring slots, which exceeds seq_len ({self.seq_len})"
                 )
 
     _SUBCONFIGS = {

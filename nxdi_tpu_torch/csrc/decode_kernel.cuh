@@ -39,6 +39,17 @@
 // Window/chunk masks apply to kFused and kWindow. Every mode clamps the
 // softmax denominator at 1e-20, so a row with no visible key outputs 0.
 //
+// The ring mode (kFused and kWindow, `ring` = W > 0; 0 = affine positions):
+// the cache is a W-slot ring (kvcache/kv_cache.py::WindowKVLayout) where
+// position p lives in slot p % W, so slot j holds position
+// q - ((q - j) mod W) for the row's query position q (the JAX package's
+// WindowKVLayout.read). Slots past q hold negative positions while the ring
+// has not filled and are never visible; once it has wrapped every slot is in
+// (q - W, q]. kFused's stale slot q % W reports position q, which its strict
+// mask excludes. The window's start cannot bound the range (the positions
+// are not monotone in j), so a ring row scans [0, min(kv_len, q [+1])) and
+// the window and chunk masks apply per position.
+//
 // Bound: bytes. Decode streams the attended K/V rows from device memory
 // once (phase 3b's paged point: 8 rows at positions 0...2000, KV 8, D 64 in
 // bf16, 16 MB: 4.8 us at 3.35 TB/s) and does 2 G D flops per K/V row.
@@ -99,6 +110,7 @@ struct DecodeArgs {
   long long qsb, qsh, csb, csh, css, nsb, nsh, osb, osh;
   float scale, v_scale;
   int window, chunk;
+  int ring;             // kFused / kWindow: a W-slot ring cache (0: slot j is kv_start + j)
 };
 
 namespace {
@@ -152,11 +164,22 @@ inline size_t dec_smem_bytes(int NW, int G, int D) {
 // The slots [lo, hi) row b's query sees: up to q_pos (exclusive when the
 // fresh row replaces the slot at q_pos), inside kv_len, from the window's
 // start (flash_attention.py::decode_visible_range mirrors it).
+// A ring row (ring > 0, kv_start null) takes the same hi and lo = 0.
 template <Mode MODE>
 __device__ __forceinline__ void dec_visible(const DecodeArgs& a, int qp, int ks, int& lo,
                                             int& hi) {
   hi = max(0, min(a.kv_len, qp - ks + (MODE == Mode::kFused ? 0 : 1)));
-  lo = a.window > 0 ? max(0, min(hi, qp - a.window + 1 - ks)) : 0;
+  lo = a.window > 0 && a.ring == 0 ? max(0, min(hi, qp - a.window + 1 - ks)) : 0;
+}
+
+// The position slot j holds: kv_start + j, or on a ring q - ((q - j) mod W)
+__device__ __forceinline__ int dec_pos(const DecodeArgs& a, int qp, int ks, int j) {
+  if (a.ring > 0) {
+    int d = (qp - j) % a.ring;
+    if (d < 0) d += a.ring;
+    return qp - d;
+  }
+  return ks + j;
 }
 
 template <typename T>
@@ -272,7 +295,7 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
     });
     MmaState<DMAX> st;
     tiles.template run<kRoundP>(st, qf, a.scale, slot_of, [&](int j) {
-      return pos_visible(ks + j, qp, kFresh, a.window, a.chunk);
+      return pos_visible(dec_pos(a, qp, ks, j), qp, kFresh, a.window, a.chunk);
     });
     __syncthreads();  // every warp is done with its stages
     mma_state_store<DMAX>(st, sM, sL, sAcc, G, D);
@@ -321,7 +344,8 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
     // whether this lane's position of tile t is attended
     auto lane_visible = [&](int t) {
       const int j = lo + t * kDecTile + lane;
-      return j < hi && slot_of(j) >= 0 && pos_visible(ks + j, qp, kFresh, a.window, a.chunk);
+      return j < hi && slot_of(j) >= 0 &&
+             pos_visible(dec_pos(a, qp, ks, j), qp, kFresh, a.window, a.chunk);
     };
 
     const int n_tiles = hi > lo ? (hi - lo + kDecTile - 1) / kDecTile : 0;

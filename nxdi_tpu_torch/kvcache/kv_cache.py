@@ -1,6 +1,6 @@
 """KV cache — layer-stacked, updated in place.
 
-Counterpart of ``nxdi_tpu/kvcache/kv_cache.py`` for two layouts:
+Counterpart of ``nxdi_tpu/kvcache/kv_cache.py`` for three layouts:
 
 - contiguous: one tensor per cache side, stacked over layers,
   ``(n_layers, batch, kv_heads, max_len, head_dim)``; the K/V of the token
@@ -8,6 +8,11 @@ Counterpart of ``nxdi_tpu/kvcache/kv_cache.py`` for two layouts:
 - paged (the serving engine's pool): ``(n_layers, num_blocks * block_size,
   kv_heads, head_dim)`` — a flat slot pool per layer, written through a
   slot mapping and read through per-row block tables.
+- the window-sized ring (``window_sized_kv``, :class:`WindowKVLayout`): the
+  contiguous layout's shape with W slots in place of max_len; position p
+  lives in slot p % W. An interleaved model (full and sliding-window layers)
+  keeps its full layers on the contiguous stack ``k`` / ``v`` and its window
+  layers on a ring stack ``k_win`` / ``v_win`` of the same cache dict.
 
 An MLA model's latent cache (``KVCacheSpec.v_head_dim``, contiguous only)
 holds one kv head whose K and V widths differ: K the rotated rope key, V the
@@ -524,6 +529,95 @@ def import_kv_blocks(cache, blocks, payload: Dict[str, torch.Tensor], block_size
     for side in ("k", "v"):
         raw(cache[side])[:, idx] = raw(payload[side]).to(dev)
     return cache
+
+
+@dataclass(frozen=True)
+class WindowKVLayout:
+    """The W-slot ring of sliding-window layers (the JAX package's
+    ``WindowKVLayout``): (B_cache, KV, W, D) lines where position p lives in
+    slot ``p % W``, W slots instead of max_len.
+
+    Writes: only the last W real tokens of a forward land; a right-padding
+    lane continues the positions past the true last token, so the keep mask
+    reads ``last_token_index`` (without it a pad lane would overwrite a live
+    slot), and one call never writes a slot twice. A negative write position
+    (a frozen row's ``write_positions``) drops the write. Both go through the
+    commit kernel, at fixed shapes, so a graph holds them.
+
+    Reads: slot ``s`` holds position ``p - ((p - s) mod W)`` for the row's
+    first query position p; a slot no position has reached yet is pushed out
+    of every causal mask (2**30). The positions are computed on the device
+    from ``position_ids``, so a captured graph reads nothing from the host.
+    Under ``route_by_seq_id`` row i reads and writes line ``seq_ids[i]``.
+    The store is the compute dtype (the JAX package refuses scaled stores on
+    the ring; a quantized cache is refused on any windowed family)."""
+
+    window: int
+    route_by_seq_id: bool = False
+
+    def has_array_scales(self) -> bool:
+        return False
+
+    def scaled(self, which: str) -> bool:
+        return False
+
+    def round_trip(self, which: str, x: torch.Tensor, store: torch.dtype,
+                   cache_inputs) -> torch.Tensor:
+        return x  # the ring stores the compute dtype, unscaled
+
+    def lines(self, cache_inputs, B: int):
+        return cache_inputs["seq_ids"].reshape(B) if self.route_by_seq_id else None
+
+    write_positions = staticmethod(ContiguousKVLayout.write_positions)
+
+    def write_slots(self, cache_inputs) -> torch.Tensor:
+        """(B, S) ring slots of a forward's writes, -1 where the write drops:
+        positions outside the last W real tokens of the row (by
+        ``last_token_index``), and negative write positions."""
+        pos = self.write_positions(cache_inputs).to(torch.int64)
+        lti = cache_inputs.get("last_token_index")
+        rows = cache_inputs["position_ids"].to(torch.int64)
+        last_real = (torch.gather(rows, 1, lti.to(torch.int64).reshape(-1, 1)) if lti is not None
+                     else rows[:, -1:])
+        keep = (pos >= 0) & (pos <= last_real) & (pos > last_real - self.window)
+        return torch.where(keep, torch.remainder(pos, self.window), torch.full_like(pos, -1))
+
+    def update(self, k_cache_l, v_cache_l, k_new, v_new, cache_inputs, spec):
+        """Write this forward's K/V (B, KV, S_act, D) into one layer's ring IN
+        PLACE (the commit kernel, one layer); returns the (same) views."""
+        B = k_new.shape[0]
+        kv_commit.kv_commit_rows(
+            k_cache_l[None], v_cache_l[None], k_new.to(k_cache_l.dtype)[None],
+            v_new.to(v_cache_l.dtype)[None], self.write_slots(cache_inputs),
+            self.lines(cache_inputs, B))
+        return k_cache_l, v_cache_l
+
+    def read(self, k_cache_l, v_cache_l, cache_inputs, spec):
+        """(kk, vv, kv_pos): the ring (B, KV, W, D) in the compute dtype, row
+        i's line ``seq_ids[i]`` (clipped) under ``route_by_seq_id``, and each
+        slot's position (B, W) for the row's first query position."""
+        kk, vv = k_cache_l.to(spec.torch_dtype), v_cache_l.to(spec.torch_dtype)
+        if self.route_by_seq_id:
+            sid = cache_inputs["seq_ids"].long().clamp(0, kk.shape[0] - 1)
+            kk, vv = kk[sid], vv[sid]
+        p = cache_inputs["position_ids"][:, :1].to(torch.int32)
+        s = torch.arange(self.window, dtype=torch.int32, device=kk.device)[None, :]
+        kv_pos = p - torch.remainder(p - s, self.window)
+        return kk, vv, torch.where(kv_pos >= 0, kv_pos, torch.full_like(kv_pos, 2 ** 30))
+
+    def commit_rows(self, cache, k_rows, v_rows, cache_inputs, spec):
+        """Deferred-write commit into the ring stack: every layer's fresh rows
+        (L, B, KV, S_act, D) land at slot ``p % W`` in ONE kernel launch; a
+        negative write position drops. Attending the OLD ring before this
+        commit is right: the stale row in slot p % W reports position p (the
+        ring arithmetic of :meth:`read`), which the deferred decode's strict
+        mask excludes, and its true position p - W is outside the window."""
+        pos = self.write_positions(cache_inputs).to(torch.int64)
+        slots = torch.where(pos >= 0, torch.remainder(pos, self.window), torch.full_like(pos, -1))
+        kv_commit.kv_commit_rows(
+            cache["k"], cache["v"], k_rows.to(cache["k"].dtype), v_rows.to(cache["v"].dtype),
+            slots, self.lines(cache_inputs, k_rows.shape[1]))
+        return cache
 
 
 DEFAULT_KV_LAYOUT = ContiguousKVLayout()

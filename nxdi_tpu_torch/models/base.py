@@ -8,9 +8,16 @@ The dense families' switches of ``DecoderArch`` (q/k norms, the sliding
 window, Gemma's norms and embedding scale, post-block norms, the scalings,
 the non-gated MLP, the adjacent-pair rope) and the MoE families' (LayerNorm,
 the qkv clamp, partial rotary, attention sinks, the attention output gate,
-sandwich norms, LongRoPE) change these steps as the JAX package's do;
-per-layer ``use_rope`` / ``use_sliding_window`` flags ride the layer stack's
-params (:class:`LayerFlags`).
+sandwich norms, LongRoPE) and the Gemma 2/3 lineage's (the attention and
+final-logit softcaps; the local / global rope pair) change these steps as
+the JAX package's do; per-layer ``use_rope`` / ``use_sliding_window`` /
+``use_local_rope`` flags ride the layer stack's params (:class:`LayerFlags`).
+
+Under ``window_sized_kv`` the sliding-window layers keep a W-slot ring
+(``kvcache/kv_cache.py::WindowKVLayout``): the whole cache when every layer
+slides, else a ``k_win`` / ``v_win`` stack beside the full layers' cache
+(:func:`run_decoder_layers`). The decode kernels read a ring through their
+``ring`` operand.
 
 Where the JAX package scans one traced layer body over layer-stacked
 params, PyTorch runs eagerly: a Python loop over the layers, each reading
@@ -114,6 +121,7 @@ from nxdi_tpu_torch.kvcache.kv_cache import (
     BlockKVLayout,
     ContiguousKVLayout,
     KVCacheSpec,
+    WindowKVLayout,
 )
 from nxdi_tpu_torch.ops import attention as attn_ops
 from nxdi_tpu_torch.ops import mla as mla_ops
@@ -128,6 +136,7 @@ from nxdi_tpu_torch.ops.rope import (
     apply_rotary_pos_emb,
     apply_rotary_pos_emb_interleaved,
     rope_cos_sin,
+    rope_cos_sin_pair,
 )
 
 # The MLP activations of the JAX package's ``ACT_FNS``, with its meanings:
@@ -252,6 +261,12 @@ class DecoderArch:
     # (2, D/2) [short, long]; a forward whose true last position + 1 exceeds
     # this takes the long set (a device-side select a graph holds)
     longrope_original_max: Optional[int] = None
+    # --- the Gemma 2/3 lineage's switches (the JAX package's) ---
+    # cap * tanh(s / cap) on the scaled attention scores, before the mask and
+    # the sink; no attention kernel takes it (Gemma 2, VaultGemma)
+    attn_logit_softcap: Optional[float] = None
+    # cap * tanh(l / cap) on the logits, after logits_scaling (Gemma 2)
+    final_logit_softcap: Optional[float] = None
 
     def __post_init__(self):
         if self.hidden_act not in ACT_FNS:
@@ -263,6 +278,14 @@ class DecoderArch:
             return None
         pat = self.kv_window_pattern
         return self.sliding_window if pat is None or pat[i] else None
+
+    def interleaved_split(self) -> Optional[Tuple[int, int]]:
+        """(full layers, window layers) of an interleaved window pattern (both
+        kinds present), else None: the cache split of ``window_sized_kv``."""
+        pat = self.kv_window_pattern
+        if self.sliding_window is None or not pat or all(pat) or not any(pat):
+            return None
+        return sum(not w for w in pat), sum(bool(w) for w in pat)
 
     def kv_cache_spec(self, batch_size: int, max_len: int) -> KVCacheSpec:
         if self.mla is not None:
@@ -417,6 +440,22 @@ def _sink_refused(arch: DecoderArch) -> List[str]:
         arch.attention_sink) else []
 
 
+def _softcap_refused(arch: DecoderArch) -> List[str]:
+    """The JAX rule for every attention kernel: none takes the logit softcap."""
+    return ["attention logit softcap (no attention kernel takes it)"] if (
+        arch.attn_logit_softcap is not None) else []
+
+
+def _no_cap_or_sink(arch: DecoderArch) -> List[str]:
+    return _sink_refused(arch) + _softcap_refused(arch)
+
+
+def _ring(layout) -> Optional[int]:
+    """The ring's slot count of a window-sized layout (the decode kernels'
+    ring operand), None for the contiguous cache."""
+    return layout.window if isinstance(layout, WindowKVLayout) else None
+
+
 def _window_refused(arch: DecoderArch) -> List[str]:
     """The JAX rule for the paged, ragged and paged-decode kernels: none
     takes a sliding window."""
@@ -427,11 +466,17 @@ def _window_refused(arch: DecoderArch) -> List[str]:
 def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
                   lf: LayerFlags = NO_FLAGS, sink=None):
     """Attention of a cache-attending forward whose fresh rows are already
-    in the cache (the paged pool's path, and a token-tree verify), in the
-    JAX package's order: the block-table prefill kernel for a continuing
-    chunk, the block-table decode kernel, else the gathered window under an
-    explicit ``attn_mask``, through the window-decode kernel or plain
-    attention."""
+    in the cache (the paged pool's path, a token-tree verify, and the
+    window-sized ring's decode), in the JAX package's order: the block-table
+    prefill kernel for a continuing chunk, the block-table decode kernel,
+    else the gathered window under an explicit ``attn_mask``, through the
+    window-decode kernel (in its ring mode over a ring) or plain attention.
+
+    The JAX package hands its window-decode kernel a ring's wrapped
+    positions as if they were affine (the kernel reads ``kv_pos[:, 0]``
+    only), which drops the older part of the window once the ring has
+    wrapped; the port's kernel takes the ring operand, so on the CPU too the
+    port follows HF there (ROADMAP Queue 3)."""
     B, H, S, D = q.shape
     KV = arch.num_kv_heads
     if ci.get("mixed_row_ids") is not None and S > 1:
@@ -440,7 +485,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     G = H // max(KV, 1)
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
-        ref_failed = _heads_ok(H, KV) + _window_refused(arch) + _sink_refused(arch)
+        ref_failed = _heads_ok(H, KV) + _window_refused(arch) + _no_cap_or_sink(arch)
         if k_cache_l.shape[0] % layout.block_size:
             ref_failed.append(f"{k_cache_l.shape[0]} pool slots are not whole blocks")
         scales = dict(block_size=layout.block_size, k_scale=layout.k_scale,
@@ -469,19 +514,22 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         # position is wrong: plain attention, as in the JAX package
         _record_strategy("attn_mask_override_xla")
         return attn_ops.grouped_attention(q, kk, vv, mask_override[:, :, :kk.shape[2]],
-                                          scale=arch.attention_scale, sink=sink)
+                                          scale=arch.attention_scale, sink=sink,
+                                          logit_softcap=arch.attn_logit_softcap)
     if S == 1 and _kernel_gate(
         "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV) + _sink_refused(arch), _card_limits(D, q.dtype, G, max_group=16),
+        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype, G, max_group=16),
         lf.ref_only(),
     ):
         _record_strategy("tkg_kernel")
         return fa.flash_attention_decode(q, kk, vv, position_ids, kv_pos,
-                                         scale=arch.attention_scale, sliding_window=lf.window)
+                                         scale=arch.attention_scale, sliding_window=lf.window,
+                                         ring=_ring(layout))
     _record_strategy("tkg_xla")
     return attn_ops.attention_with_positions(
         q, kk, vv, position_ids, kv_pos, scale=arch.attention_scale,
-        sliding_window=arch.sliding_window, sliding_window_enabled=lf.window_enabled, sink=sink)
+        sliding_window=arch.sliding_window, sliding_window_enabled=lf.window_enabled, sink=sink,
+        logit_softcap=arch.attn_logit_softcap)
 
 
 def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
@@ -502,7 +550,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             q.shape, k_cache_l.shape, layout.block_size):
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
-    ref_failed += _window_refused(arch) + _sink_refused(arch)
+    ref_failed += _window_refused(arch) + _no_cap_or_sink(arch)
     card = _card_limits(D, q.dtype, H // max(KV, 1), store=k_cache_l.dtype,
                         max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
@@ -586,7 +634,7 @@ def attention_block(
     cache_inputs: Optional[Dict[str, torch.Tensor]] = None,
     defer_write: bool = False,
     stacked_layer_idx: Optional[int] = None,
-    tkg_stacked=None,  # (k_s, v_s, kv_len): stacked-cache fused decode kernel
+    tkg_stacked=None,  # (k_s, v_s, kv_len, idx, ring): stacked-cache fused decode kernel
     qkv_stacked=None,  # (w_s, b_s): the stacked fused QKV weight for its kernel
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) LoRA slots
     lf: LayerFlags = NO_FLAGS,
@@ -635,7 +683,8 @@ def attention_block(
         q, k = torch.where(lf.use_rope, qr, q), torch.where(lf.use_rope, kr, k)
     sink = p_attn["sink"] if arch.attention_sink else None  # (H,) learned logits
     sc, win = arch.attention_scale, dict(sliding_window=arch.sliding_window,
-                                         sliding_window_enabled=lf.window_enabled, sink=sink)
+                                         sliding_window_enabled=lf.window_enabled, sink=sink,
+                                         logit_softcap=arch.attn_logit_softcap)
 
     def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
         ctx2d = ctx.transpose(1, 2).reshape(B, S, H * D)
@@ -652,11 +701,11 @@ def attention_block(
     if not attend_to_cache and S > 1:
         ci["prefill_from_zero"] = True
     if attend_to_cache and defer_write:
-        if tkg_stacked is not None and S == 1 and stacked_layer_idx is not None:
-            k_s, v_s, kv_len = tkg_stacked
+        if tkg_stacked is not None and S == 1:
+            k_s, v_s, kv_len, idx, ring = tkg_stacked
             ctx = fa.flash_attention_decode_fused_stacked(
-                q, k_s, v_s, k, v, position_ids, stacked_layer_idx, kv_len=kv_len,
-                lines=layout.lines(ci, B), scale=sc, sliding_window=lf.window,
+                q, k_s, v_s, k, v, position_ids, idx, kv_len=kv_len,
+                lines=layout.lines(ci, B), scale=sc, sliding_window=lf.window, ring=ring,
             )
             _record_strategy("tkg_fused_kernel_stacked")
             return o_proj(ctx), (k, v)
@@ -673,15 +722,18 @@ def attention_block(
         # lines, frozen rows or a quantized store; on the card (which runs
         # the stacked kernel under lines and frozen rows) a quantized store.
         # A frozen row is an ordinary row there, whose output nobody reads
+        # the JAX rule also leaves a ring layer (its positions wrap) for plain
+        # attention; the card's kernel takes the ring operand
         if S == 1 and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-            _heads_ok(H, KV) + _sink_refused(arch), _card_limits(D, q.dtype, G, max_group=16),
+            _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype, G, max_group=16),
             (("frozen-row write positions",) if "write_positions" in ci else ())
-            + lf.ref_only(),
+            + (("a window-sized ring layer",) if _ring(layout) else ()) + lf.ref_only(),
         ):
             _record_strategy("tkg_fused_kernel")
             ctx = fa.flash_attention_decode_fused(q, kk, vv, k_att, v_att, position_ids, kv_pos,
-                                                  scale=sc, sliding_window=lf.window)
+                                                  scale=sc, sliding_window=lf.window,
+                                                  ring=_ring(layout))
             return o_proj(ctx), (k, v)
         # this step's slots hold stale rows: poison their positions so only
         # the fresh rows are attended there (frozen rows write nothing)
@@ -700,7 +752,7 @@ def attention_block(
         return o_proj(ctx), (k_cache_l, v_cache_l)
     use_kernel = _kernel_gate(
         "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV) + _sink_refused(arch), _card_limits(D, q.dtype, G), lf.ref_only(),
+        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype, G), lf.ref_only(),
     )
     if use_kernel:
         ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids, scale=sc,
@@ -767,6 +819,11 @@ def decoder_layer(
     sliding window on the host (:meth:`DecoderArch.layer_window`); its
     ``use_sliding_window`` / ``use_rope`` flags ride the params."""
     lf = LayerFlags(lp.get("use_sliding_window"), lp.get("use_rope"), window)
+    if "use_local_rope" in lp:
+        # Gemma-3: cos / sin arrive stacked [global, local] and the layer's
+        # flag picks one on the device (torch.where: a graph holds it)
+        cos = torch.where(lp["use_local_rope"], cos[1], cos[0])
+        sin = torch.where(lp["use_local_rope"], sin[1], sin[0])
     h = hidden if arch.post_block_norm else _norm(arch, hidden, lp["input_layernorm"])
     if "input_norm_skip" in lp:
         # an EAGLE draft's first layer takes the fc output without its input
@@ -788,7 +845,8 @@ def decoder_layer(
         )
     rm = arch.residual_multiplier
     if arch.sandwich_norm:
-        # AFMoE: the attention output normed before its residual add; the
+        # the Gemma 2/3 layout (its four norms (1 + w) under gemma_norm) and
+        # AFMoE's: the attention output normed before its residual add; the
         # feed-forward (MoE or dense by the params) between its own pre- and
         # post-norms
         hidden = hidden + _norm(arch, attn_out, lp["post_attention_layernorm"])
@@ -847,6 +905,28 @@ def segment_len(seg: Dict[str, Any]) -> int:
     return (norm["w"] if isinstance(norm, dict) else norm).shape[0]
 
 
+def _kinds(arch: DecoderArch, cache, layout):
+    """(per layer: its stack's key suffix and its index in that stack; each
+    stack's layout by suffix). In an interleaved window-sized stack
+    (``"k_win"`` in the cache) full layers sit on ``k`` / ``v`` under
+    ``layout`` and window layers on the ring ``k_win`` / ``v_win`` under a
+    :class:`WindowKVLayout` of the ring's slots; in any other cache every
+    layer sits on ``k`` / ``v`` at its own index."""
+    if "k_win" not in cache:
+        return [("", i) for i in range(arch.num_layers)], {"": layout}
+    pat = arch.kv_window_pattern
+    if pat is None or len(pat) != arch.num_layers:
+        raise ValueError("the cache carries a k_win ring stack but arch.kv_window_pattern is "
+                         f"unset or mismatched (pattern {pat}, layers {arch.num_layers})")
+    ring = WindowKVLayout(window=cache["k_win"].shape[3],
+                          route_by_seq_id=getattr(layout, "route_by_seq_id", False))
+    kinds, n = [], [0, 0]
+    for w in pat:
+        kinds.append(("_win", n[1]) if w else ("", n[0]))
+        n[bool(w)] += 1
+    return kinds, {"": layout, "_win": ring}
+
+
 def run_decoder_layers(
     arch: DecoderArch,
     stacked_params,  # a layer-stacked dict, or a list of such segments
@@ -865,20 +945,35 @@ def run_decoder_layers(
 ):
     """Run the layer stack. Decode on the contiguous cache defers its cache
     writes and commits every layer's fresh rows in ONE kernel launch after
-    the loop; the paged pool, a forward under an explicit ``attn_mask``
-    (the token-tree verify) and an MLA model never defer (each layer writes
-    its rows before attending). A list of segments runs in order, each over
-    its slice of the stacked cache, its stacked kernel weights indexed by
-    the segment-local layer.
+    the loop; the paged pool, the homogeneous window-sized ring, a forward
+    under an explicit ``attn_mask`` (the token-tree verify) and an MLA model
+    never defer (each layer writes its rows before attending). A list of
+    segments runs in order, each over its slice of the stacked cache, its
+    stacked kernel weights indexed by the segment-local layer.
+
+    An interleaved window-sized stack (``window_sized_kv`` on a model with
+    full and sliding-window layers: ``k_win`` / ``v_win`` in the cache) is
+    the JAX package's ``_interleaved_window_scan`` as a plain loop: each
+    layer reads its own stack at its index within its kind (:func:`_kinds`),
+    full layers under the primary layout, window layers under the ring's;
+    deferred rows commit once per stack (the ring's at slot ``p % W``). The
+    JAX package runs no stacked decode kernel there; on the card the port
+    runs the stacked kernel over either stack, in its ring mode over the
+    ring.
 
     ``kv_window`` bounds the attended contiguous cache to the bucket's
     window: the stacked fused kernel takes it as ``kv_len`` without slicing,
-    the plain path attends a sliced view. The paged window is the block
-    table's width. ``collect``, when given, receives each layer's output
-    hidden state in order (EAGLE3's ``aux_hidden``)."""
+    the plain path attends a sliced view; a ring is never cut. The paged
+    window is the block table's width. ``collect``, when given, receives
+    each layer's output hidden state in order (EAGLE3's ``aux_hidden``)."""
     contiguous = isinstance(layout, ContiguousKVLayout)
     defer = (attend_to_cache and contiguous and arch.mla is None
              and (cache_inputs or {}).get("attn_mask") is None)
+    interleaved = "k_win" in cache
+    segments = layer_segments(stacked_params)
+    if interleaved and len(segments) != 1:
+        raise NotImplementedError("interleaved window-sized KV requires a homogeneous layer stack")
+    kinds, layouts = _kinds(arch, cache, layout)
     S = position_ids.shape[1]
     H, KV = arch.num_attention_heads, arch.num_kv_heads
     use_stacked_tkg = False
@@ -889,39 +984,47 @@ def run_decoder_layers(
         # q's dtype, so a scaled or narrowed store leaves it (the JAX rule) for
         # the per-layer fused kernel over the dequantized window
         # (decoder_layer), on the card too
-        # per-layer window / rope flags likewise leave it under the JAX rule;
-        # the card's kernel takes each layer's window as its own scalar
-        flags = set().union(*layer_segments(stacked_params))
+        # per-layer window / rope flags and interleaved ring stacks likewise
+        # leave it under the JAX rule; the card's kernel takes each layer's
+        # window as its own scalar, and a ring through its ring operand
+        flags = set().union(*segments)
         ref_only = tuple(cond for cond, hit in (
             ("cache lines routed by seq_ids", layout.route_by_seq_id),
             ("frozen-row write positions", "write_positions" in (cache_inputs or {})),
             ("per-layer sliding-window flags", "use_sliding_window" in flags),
             ("per-layer rope flags", "use_rope" in flags),
+            ("per-layer local rope flags", "use_local_rope" in flags),
+            ("interleaved window-sized ring stacks", interleaved),
         ) if hit)
         quantized = (layout.scaled("k") or layout.scaled("v")
                      or cache["k"].dtype != cache_spec.torch_dtype)
         use_stacked_tkg = not quantized and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, hidden.is_cuda,
-            _heads_ok(H, KV) + _sink_refused(arch),
+            _heads_ok(H, KV) + _no_cap_or_sink(arch),
             _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
             ref_only,
         )
     windowable = contiguous and attend_to_cache and not use_stacked_tkg and kv_window is not None
     # per-layer KV scale tables select their row by the (global) layer index
     per_layer = contiguous and layout.has_array_scales()
-    ks, vs = [], []
+    rows: Dict[str, Tuple[List, List]] = {}  # fresh rows by stack ("" or "_win")
     off = 0
-    for seg in layer_segments(stacked_params):
+    for seg in segments:
         n_seg = segment_len(seg)
-        # the stacked fused decode reads the segment's slice of the stack
-        tkg_stacked = ((cache["k"][off:off + n_seg], cache["v"][off:off + n_seg], kv_window)
-                       if use_stacked_tkg else None)
         mlp_stacked, qkv_stacked = stacked_proj_weights(arch, seg)
         for j in range(n_seg):
             i = off + j
-            kl, vl = cache["k"][i], cache["v"][i]
+            kind, idx = kinds[i]
+            lay = layouts[kind]
+            ring = _ring(lay)
+            # the stacked fused decode reads the layer's stack at the layer's
+            # index there, a ring whole
+            stack_k, stack_v = cache["k" + kind], cache["v" + kind]
+            tkg_stacked = ((stack_k, stack_v, None if ring else kv_window, idx, ring)
+                           if use_stacked_tkg else None)
+            kl, vl = stack_k[idx], stack_v[idx]
             mla_window = None
-            if windowable and kv_window < kl.shape[2]:
+            if windowable and ring is None and kv_window < kl.shape[2]:
                 if arch.mla is not None:
                     mla_window = kv_window  # the write lands in the whole line first
                 else:
@@ -929,7 +1032,7 @@ def run_decoder_layers(
             ci = {**(cache_inputs or {}), "layer_idx": i} if per_layer else cache_inputs
             hidden, (nk, nv) = decoder_layer(
                 arch, layer_params(seg, j), hidden, cos, sin, kl, vl, position_ids,
-                cache_spec, attend_to_cache, layout, ci, defer_write=defer,
+                cache_spec, attend_to_cache, lay, ci, defer_write=defer,
                 stacked_layer_idx=j, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
                 qkv_stacked=qkv_stacked, adapter_ids=adapter_ids, kv_window=mla_window,
                 window=arch.layer_window(i),
@@ -937,13 +1040,16 @@ def run_decoder_layers(
             if collect is not None:
                 collect.append(hidden)
             if defer:
+                ks, vs = rows.setdefault(kind, ([], []))
                 ks.append(nk)
                 vs.append(nv)
         off += n_seg
     if defer:
         ci_commit = dict(cache_inputs or {})
         ci_commit["position_ids"] = position_ids  # write_positions, when given, win
-        layout.commit_rows(cache, torch.stack(ks), torch.stack(vs), ci_commit, cache_spec)
+        for kind, (ks, vs) in rows.items():
+            layouts[kind].commit_rows({"k": cache["k" + kind], "v": cache["v" + kind]},
+                                      torch.stack(ks), torch.stack(vs), ci_commit, cache_spec)
     return hidden, cache
 
 
@@ -1043,7 +1149,12 @@ def causal_lm_forward(
         else:
             seq_len_now = position_ids.max() + 1
         inv_freq = torch.where(seq_len_now > arch.longrope_original_max, inv[1], inv[0])
-    cos, sin = rope_cos_sin(position_ids, inv_freq, dtype=torch.float32)
+    if arch.longrope_original_max is None and inv_freq.ndim == 2:
+        # Gemma-3's [global, local] pair: (2, B, S, D) each, picked per layer
+        # by its use_local_rope flag (decoder_layer)
+        cos, sin = rope_cos_sin_pair(position_ids, inv_freq, dtype=torch.float32)
+    else:
+        cos, sin = rope_cos_sin(position_ids, inv_freq, dtype=torch.float32)
     if arch.rope_mscale != 1.0:
         cos = cos * arch.rope_mscale
         sin = sin * arch.rope_mscale
@@ -1077,6 +1188,9 @@ def causal_lm_forward(
     logits = (hidden @ lm_head.to(hidden.dtype)).float()
     if arch.logits_scaling != 1.0:
         logits = logits / arch.logits_scaling
+    if arch.final_logit_softcap is not None:
+        cap = arch.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
     logits = sampling_ops.mask_padded_logits(logits, arch.vocab_pad)
 
     outputs: Dict[str, torch.Tensor] = {}

@@ -2,9 +2,9 @@
 learned per-head attention sinks joining every softmax and dropping their
 mass (``attention_sink``, params ``attn.sink``), sliding-window and full
 layers alternating through the ``use_sliding_window`` flags
-(``DecoderArch.kv_window_pattern`` on the host) over one full-length cache
-(``window_sized_kv``, the JAX package's window-sized ring cache, is not
-ported: the config raises on it), q / k / v / o biases, YaRN rope with its
+(``DecoderArch.kv_window_pattern`` on the host: under ``window_sized_kv``
+the window layers keep a W-slot ring stack beside the full layers'
+full-length cache), q / k / v / o biases, YaRN rope with its
 attention factor on cos / sin (``rope_mscale``, from ``dense.build_arch``),
 and MoE layers whose router takes the top-k logits, then their softmax, over
 experts with biases and the clamped GLU ``(up + 1) * gate *

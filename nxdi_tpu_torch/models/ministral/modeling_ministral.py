@@ -4,8 +4,8 @@
 no types). A mixed stack carries the pattern twice: as the layers'
 ``use_sliding_window`` bool param array (the plain paths read it on the
 device) and as ``DecoderArch.kv_window_pattern`` (the window each layer's
-kernel launch takes on the card). ``window_sized_kv``, the JAX package's
-W-slot ring cache, is not ported: the config raises on it.
+kernel launch takes on the card, and the cache split of ``window_sized_kv``:
+a ring stack for the window layers, or one ring when every layer slides).
 """
 
 from __future__ import annotations

@@ -48,15 +48,18 @@ _REGISTRY: Dict[str, Tuple[str, str]] = {
     "minimax_m2": (f"{_M}.minimax_m2.modeling_minimax_m2", "MiniMaxM2InferenceConfig"),
     "gpt_oss": (f"{_M}.gpt_oss.modeling_gpt_oss", "GptOssInferenceConfig"),
     "afmoe": (f"{_M}.afmoe.modeling_afmoe", "AfmoeInferenceConfig"),
+    "gemma3_text": (f"{_M}.gemma3.modeling_gemma3", "Gemma3InferenceConfig"),
+    "gemma2": (f"{_M}.gemma2.modeling_gemma2", "Gemma2InferenceConfig"),
+    "vaultgemma": (f"{_M}.vaultgemma.modeling_vaultgemma", "VaultGemmaInferenceConfig"),
 }
 
 # registered by the JAX package, not ported yet (ROADMAP Queue 1)
 NOT_PORTED = frozenset({
-    "gemma3", "gemma3_text", "pixtral", "mistral3", "ovis2",
+    "gemma3", "pixtral", "mistral3", "ovis2",
     "llama4", "llama4_text", "llava", "mllama", "qwen2_vl", "qwen3_vl", "qwen2_5_vl",
-    "mimo_v2", "gpt2", "gemma2", "qwen3_next", "recurrent_gemma",
+    "mimo_v2", "gpt2", "qwen3_next", "recurrent_gemma",
     "recurrentgemma", "qwen2_5_omni", "lfm2", "qwen2_5_omni_thinker", "falcon_h1",
-    "starcoder2", "stablelm", "glm4", "exaone4", "olmo3", "cohere2", "gpt_neox", "vaultgemma",
+    "starcoder2", "stablelm", "glm4", "exaone4", "olmo3", "cohere2", "gpt_neox",
     "opt", "biogpt", "xglm", "gpt_bigcode", "falcon", "persimmon", "phi", "apertus", "janus",
     "idefics", "orion",
 })

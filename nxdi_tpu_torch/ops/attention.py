@@ -61,16 +61,27 @@ def _softmax_with_sink(scores, sink):
     return torch.softmax(torch.cat([scores, col], dim=-1), dim=-1)[..., :-1]
 
 
-def grouped_attention(q, k, v, mask, scale: Optional[float] = None, sink=None):
+def _softcap(scores, logit_softcap: Optional[float]):
+    """Gemma 2's soft cap ``cap * tanh(s / cap)`` on scaled scores (None: as
+    they are), applied before the mask and the sink as in the JAX package."""
+    if logit_softcap is None:
+        return scores
+    return logit_softcap * torch.tanh(scores / logit_softcap)
+
+
+def grouped_attention(q, k, v, mask, scale: Optional[float] = None, sink=None,
+                      logit_softcap: Optional[float] = None):
     """q (B, H, Sq, D), k/v (B, KV, Skv, D), mask (B, Sq, Skv) -> (B, H, Sq, D).
-    ``sink`` (H,): learned attention-sink logits (:func:`_softmax_with_sink`)."""
+    ``sink`` (H,): learned attention-sink logits (:func:`_softmax_with_sink`);
+    ``logit_softcap``: :func:`_softcap` on the scaled scores."""
     B, H, Sq, D = q.shape
     KV = k.shape[1]
     G = H // KV
     if scale is None:
         scale = D ** -0.5
     qg = q.reshape(B, KV, G, Sq, D)
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) * scale
+    scores = _softcap(torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) * scale,
+                      logit_softcap)
     scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
     weights = _softmax_with_sink(scores, sink).to(v.dtype)
     out = torch.einsum("bkgqs,bksd->bkgqd", weights, v)
@@ -80,12 +91,12 @@ def grouped_attention(q, k, v, mask, scale: Optional[float] = None, sink=None):
 def attention_with_positions(
     q, k, v, q_pos, kv_pos, *, scale=None,
     sliding_window: Optional[int] = None, chunk_size: Optional[int] = None,
-    sliding_window_enabled=None, sink=None,
+    sliding_window_enabled=None, sink=None, logit_softcap: Optional[float] = None,
 ):
     """Attention with the mask derived from positions (prefill and decode)."""
     mask = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size,
                                 sliding_window_enabled)
-    return grouped_attention(q, k, v, mask, scale=scale, sink=sink)
+    return grouped_attention(q, k, v, mask, scale=scale, sink=sink, logit_softcap=logit_softcap)
 
 
 def attention_two_part(
@@ -94,6 +105,7 @@ def attention_two_part(
     k2, v2,  # fresh segment (B, KV, S2, D)
     q_pos, kv_pos, kv_pos2, *,
     scale=None, sliding_window=None, chunk_size=None, sliding_window_enabled=None, sink=None,
+    logit_softcap: Optional[float] = None,
 ):
     """Attention over [cache, fresh] without concatenating K/V: the scores are
     concatenated for one softmax and the two weighted sums add. The
@@ -107,7 +119,7 @@ def attention_two_part(
     qg = q.reshape(B, KV, G, Sq, D).float()
     s1 = torch.einsum("bkgqd,bksd->bkgqs", qg, kk.float())
     s2 = torch.einsum("bkgqd,bksd->bkgqs", qg, k2.float())
-    s = torch.cat([s1, s2], dim=-1) * scale
+    s = _softcap(torch.cat([s1, s2], dim=-1) * scale, logit_softcap)
     m1 = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled)
     m2 = _mask_from_positions(q_pos, kv_pos2, sliding_window, chunk_size, sliding_window_enabled)
     mask = torch.cat([m1, m2], dim=-1)

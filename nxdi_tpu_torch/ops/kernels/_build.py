@@ -40,14 +40,15 @@ SIGNATURES = {
     "nxdi_flash_prefill": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 12
     + [_F, _I, _I, _P],
     # ... q_pos, kv_start, the cache lines and their count, ..., the kv split
-    # (chunk length, chunks) and the partials' scratch
+    # (chunk length, chunks) and the partials' scratch; window, chunk and the
+    # ring's slots before the split
     "nxdi_flash_decode_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 6
-    + [_LL] * 9 + [_F, _I, _I, _I, _I, _P, _P],
+    + [_LL] * 9 + [_F, _I, _I, _I, _I, _I, _P, _P],
     "nxdi_kv_commit_rows": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL, _LL, _P],
     # blocks, threads, stream: an empty kernel (a launch's floor)
     "nxdi_empty_launch": [_I, _I, _P],
     "nxdi_flash_decode_window": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_LL] * 7
-    + [_F, _I, _I, _I, _I, _P, _P],
+    + [_F, _I, _I, _I, _I, _I, _P, _P],
     # q's dtype, the pool's store dtype, ...
     "nxdi_paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_LL] * 4
     + [_F, _F, _I, _I, _P, _P],

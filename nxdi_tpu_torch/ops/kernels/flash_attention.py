@@ -17,6 +17,11 @@ Counterpart of ``nxdi_tpu/ops/kernels/flash_attention.py``:
 - :func:`flash_attention_decode` replaces ``flash_attention_decode``
   (``pl.pallas_call`` at :337): decode over a window that already holds
   this step's row (the decode kernel's window mode).
+- The fused and window decodes take a ``ring`` operand: the cache is then a
+  W-slot ring (``kvcache/kv_cache.py::WindowKVLayout``), whose slot j holds
+  position ``q - ((q - j) mod W)`` for the row's query position q
+  (:func:`_ring_positions`); the JAX package reads such a cache with plain
+  attention only.
 - :func:`paged_attention_decode` and :func:`paged_attention_prefill`
   replace the block-table kernels (``pl.pallas_call`` at :802 and :946):
   K/V read through per-row block tables from the paged pool (the decode
@@ -81,6 +86,21 @@ def _affine(start: torch.Tensor, n: int) -> torch.Tensor:
     """(B,) starts -> (B, n) positions start + arange (the kernels' contract:
     positions are affine per row)."""
     return start[:, None].long() + torch.arange(n, device=start.device)[None, :]
+
+
+def _ring_positions(q_pos0: torch.Tensor, ring: int) -> torch.Tensor:
+    """(B,) query positions -> (B, ring) positions of a ring's slots: slot j
+    holds q - ((q - j) mod ring); a slot no position has reached yet (a
+    negative one) gets 2**30, which no causal mask admits (the JAX
+    package's ``WindowKVLayout.read``)."""
+    q = q_pos0[:, None].long()
+    pos = q - torch.remainder(q - torch.arange(ring, device=q.device)[None, :], ring)
+    return torch.where(pos >= 0, pos, torch.full_like(pos, 2 ** 30))
+
+
+def _check_ring(name: str, ring: Optional[int], slots: int) -> None:
+    if ring is not None and ring != slots:
+        raise ValueError(f"{name}: a ring of {ring} slots over a cache of {slots}")
 
 
 def _opt(x: Optional[int]) -> int:
@@ -165,15 +185,18 @@ def decode_chunk(B: int, KV: int, kv_len: int, n_sm: int) -> int:
     return min(whole, max(unit, (kv_len - 1) // (need - 1) // unit * unit))
 
 
-def decode_visible_range(q_pos, kv_start, kv_len: int, *, fresh: bool, window=None):
+def decode_visible_range(q_pos, kv_start, kv_len: int, *, fresh: bool, window=None,
+                         ring: Optional[int] = None):
     """(lo, hi) int64 arrays: the slots [lo, hi) each row's decode query
-    sees, as the kernel computes them (up to q_pos, exclusive when a fresh
+    scans, as the kernel computes them (up to q_pos, exclusive when a fresh
     row replaces the slot at q_pos; inside kv_len; from the sliding
-    window's start). The chunk mask and holes are applied per position."""
+    window's start, but on a ``ring``, whose positions are not monotone in
+    the slot, from 0). The window and chunk masks and holes are applied per
+    position."""
     qp = np.asarray(q_pos, np.int64).reshape(-1)
     ks = np.zeros_like(qp) if kv_start is None else np.asarray(kv_start, np.int64).reshape(-1)
     hi = np.maximum(0, np.minimum(kv_len, qp - ks + (0 if fresh else 1)))
-    lo = (np.maximum(0, np.minimum(hi, qp - window + 1 - ks)) if window
+    lo = (np.maximum(0, np.minimum(hi, qp - window + 1 - ks)) if window and not ring
           else np.zeros_like(hi))
     return lo, hi
 
@@ -373,20 +396,26 @@ flash_attention_prefill.launches = 0
 
 def flash_attention_decode_fused_plain(
     q, k_cache, v_cache, k_new, v_new, q_pos, kv_start=None, *,
-    scale=None, sliding_window=None, chunk_size=None, kv_len=None,
+    scale=None, sliding_window=None, chunk_size=None, kv_len=None, ring=None,
 ):
     """Plain PyTorch version of the fused decode kernel: all f32; cache slot
-    j < kv_len holds position kv_start + j and is visible iff that position
-    is STRICTLY before q_pos (plus window/chunk); the fresh row is always
+    j < kv_len holds position kv_start + j (on a ``ring``: its ring
+    position, :func:`_ring_positions`) and is visible iff that position is
+    STRICTLY before q_pos (plus window/chunk); the fresh row is always
     visible."""
     B, H, _, D = q.shape
     KV, Sk = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     W = Sk if kv_len is None else min(int(kv_len), Sk)
     scale = D ** -0.5 if scale is None else scale
-    if kv_start is None:
-        kv_start = torch.zeros((B,), dtype=torch.long, device=q.device)
-    mask1 = _visible(_affine(kv_start, W), q_pos[:, :1].long(), True,
+    if ring is not None:
+        _check_ring("flash_attention_decode_fused", ring, W)
+        kv_positions = _ring_positions(q_pos[:, 0], ring)
+    else:
+        if kv_start is None:
+            kv_start = torch.zeros((B,), dtype=torch.long, device=q.device)
+        kv_positions = _affine(kv_start, W)
+    mask1 = _visible(kv_positions, q_pos[:, :1].long(), True,
                      sliding_window, chunk_size)[:, None, None]  # (B,1,1,1,W)
     qg = q.reshape(B, KV, G, 1, D).float()
     s1 = torch.einsum("bkgqd,bksd->bkgqs", qg, k_cache[:, :, :W].float()) * scale
@@ -403,7 +432,7 @@ def flash_attention_decode_fused_plain(
 
 
 def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
-                  scale, sliding_window, chunk_size, kv_len, lines=None):
+                  scale, sliding_window, chunk_size, kv_len, lines=None, ring=None):
     B, H, Sq, D = q.shape
     KV, Sk = k_cache.shape[1], k_cache.shape[2]
     if lines is None and k_cache.shape[0] != B:
@@ -417,6 +446,7 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
     W = Sk if kv_len is None else min(int(kv_len), Sk)
     name = "flash_attention_decode_fused"
     _check_head_dim(D, name)
+    _check_ring(name, ring, W)
     if H // KV > 16:
         raise ValueError(f"{name}: {H // KV} query heads per kv head (at most 16)")
     code = _build.dtype_code(q, name)
@@ -426,7 +456,7 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
             k_cache, v_cache = k_cache[sel], v_cache[sel]
         return flash_attention_decode_fused_plain(
             q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, scale=scale,
-            sliding_window=sliding_window, chunk_size=chunk_size, kv_len=W,
+            sliding_window=sliding_window, chunk_size=chunk_size, kv_len=W, ring=ring,
         )
     if k_new.stride() != v_new.stride():
         # the kernel reads both fresh rows through one pair of strides: under
@@ -439,7 +469,8 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
         raise ValueError(f"{name}: k and v caches must share strides")
     scale = D ** -0.5 if scale is None else scale
     qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
-    ks = None if kv_start is None else kv_start.to(device=q.device, dtype=torch.int32).contiguous()
+    ks = (None if kv_start is None or ring is not None
+          else kv_start.to(device=q.device, dtype=torch.int32).contiguous())
     ln = (None if lines is None
           else lines.reshape(B).to(device=q.device, dtype=torch.int32).contiguous())
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -452,7 +483,8 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
         k_cache.shape[0], B, H, KV, D, W,
         q.stride(0), q.stride(1), *k_cache.stride()[:3], k_new.stride(0), k_new.stride(1),
         out.stride(0), out.stride(1), float(scale), _opt(sliding_window), _opt(chunk_size),
-        chunk, n_chunks, None if ws is None else ws.data_ptr(), _build.stream_ptr(q.device),
+        _opt(ring), chunk, n_chunks, None if ws is None else ws.data_ptr(),
+        _build.stream_ptr(q.device),
     )
     _build.check(err, name)
     flash_attention_decode_fused.launches += 1
@@ -466,17 +498,18 @@ def flash_attention_decode_fused(
     k_new: torch.Tensor,  # (B, KV, 1, D) — this step's fresh row
     v_new: torch.Tensor,
     q_pos: torch.Tensor,  # (B, 1) decode position == write slot
-    kv_pos: torch.Tensor,  # (B, Sk) — affine per row
+    kv_pos: torch.Tensor,  # (B, Sk) — affine per row (unread on a ring)
     *,
     scale: Optional[float] = None,
     sliding_window: Optional[int] = None,
     chunk_size: Optional[int] = None,
     kv_len: Optional[int] = None,
+    ring: Optional[int] = None,  # the cache is a ring of this many slots
 ) -> torch.Tensor:
     """Deferred-write decode attention: old cache (strict causal) + fresh row."""
     return _decode_fused(
         q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos[:, 0], scale=scale,
-        sliding_window=sliding_window, chunk_size=chunk_size, kv_len=kv_len,
+        sliding_window=sliding_window, chunk_size=chunk_size, kv_len=kv_len, ring=ring,
     )
 
 
@@ -497,16 +530,19 @@ def flash_attention_decode_fused_stacked(
     chunk_size: Optional[int] = None,
     kv_len: Optional[int] = None,
     lines: Optional[torch.Tensor] = None,  # (B,) cache line of each row
+    ring: Optional[int] = None,  # the stack is a ring of this many slots
 ) -> torch.Tensor:
     """The stacked entry: reads layer ``layer_idx`` of the (L, B_cache, KV, S,
-    D) cache (contiguous layout: slot j is position j), row b from line
-    ``lines[b]`` when given (continuous batching; the cache may then hold
-    more lines than rows). Launches the same kernel as
+    D) cache (contiguous layout: slot j is position j; a ``ring``: the
+    window-sized stack of ``WindowKVLayout``), row b from line ``lines[b]``
+    when given (continuous batching; the cache may then hold more lines
+    than rows). Launches the same kernel as
     :func:`flash_attention_decode_fused` and counts there."""
     li = int(layer_idx)
     return _decode_fused(
         q, k_cache_s[li], v_cache_s[li], k_new, v_new, q_pos, None, scale=scale,
         sliding_window=sliding_window, chunk_size=chunk_size, kv_len=kv_len, lines=lines,
+        ring=ring,
     )
 
 
@@ -516,16 +552,19 @@ def flash_attention_decode_fused_stacked(
 
 
 def flash_attention_decode_plain(
-    q, k, v, q_pos, kv_pos, *, scale=None, sliding_window=None, chunk_size=None
+    q, k, v, q_pos, kv_pos, *, scale=None, sliding_window=None, chunk_size=None, ring=None
 ):
     """Plain PyTorch version of the window-decode kernel: window slot j holds
-    position kv_pos[b, 0] + j and is visible iff that position is at or
+    position kv_pos[b, 0] + j (on a ``ring``: its ring position,
+    :func:`_ring_positions`) and is visible iff that position is at or
     before q_pos (inclusive: the slot at q_pos holds this step's row), plus
     the window/chunk masks."""
     D, Sk = q.shape[3], k.shape[2]
     scale = D ** -0.5 if scale is None else scale
-    mask = _visible(_affine(kv_pos[:, 0], Sk), q_pos[:, :1].long(), False,
-                    sliding_window, chunk_size)
+    _check_ring("flash_attention_decode", ring, Sk)
+    kv_positions = (_affine(kv_pos[:, 0], Sk) if ring is None
+                    else _ring_positions(q_pos[:, 0], ring))
+    mask = _visible(kv_positions, q_pos[:, :1].long(), False, sliding_window, chunk_size)
     return _plain_attention(q, k, v, mask, scale)
 
 
@@ -544,15 +583,16 @@ def flash_attention_decode(
     k: torch.Tensor,  # (B, KV, Sk, D) — window holding this step's row
     v: torch.Tensor,
     q_pos: torch.Tensor,  # (B, 1)
-    kv_pos: torch.Tensor,  # (B, Sk) — affine per row (only [:, 0] is read)
+    kv_pos: torch.Tensor,  # (B, Sk) — affine per row (only [:, 0] is read; unread on a ring)
     *,
     scale: Optional[float] = None,
     sliding_window: Optional[int] = None,
     chunk_size: Optional[int] = None,
+    ring: Optional[int] = None,  # the window is a ring of this many slots
 ) -> torch.Tensor:
     """Single-position decode over a contiguous window (inclusive causal
-    mask). The window may be a strided view (the paged gather's transpose);
-    k and v must share strides."""
+    mask), or over a ring. The window may be a strided view (the paged
+    gather's transpose); k and v must share strides."""
     name = "flash_attention_decode"
     _check_decode_shapes(name, q, k, v)
     B, H, _, D = q.shape
@@ -561,22 +601,25 @@ def flash_attention_decode(
     if q.device.type == "cpu":
         return flash_attention_decode_plain(
             q, k, v, q_pos, kv_pos, scale=scale,
-            sliding_window=sliding_window, chunk_size=chunk_size,
+            sliding_window=sliding_window, chunk_size=chunk_size, ring=ring,
         )
+    _check_ring(name, ring, Sk)
     for t in (q, k, v):
         _check_cuda_operand(t, name, q.dtype)
     if k.stride() != v.stride():
         raise ValueError(f"{name}: k and v must share strides")
     scale = D ** -0.5 if scale is None else scale
     qp = q_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
-    ks = kv_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
+    ks = (None if ring is not None
+          else kv_pos[:, 0].to(device=q.device, dtype=torch.int32).contiguous())
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     chunk, n_chunks, ws = _decode_split(B, H, KV, D, Sk, q.device)
     err = _build.library().nxdi_flash_decode_window(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp.data_ptr(),
-        ks.data_ptr(), B, H, KV, D, Sk, q.stride(0), q.stride(1), *k.stride()[:3],
-        out.stride(0), out.stride(1), float(scale), _opt(sliding_window), _opt(chunk_size),
-        chunk, n_chunks, None if ws is None else ws.data_ptr(), _build.stream_ptr(q.device),
+        None if ks is None else ks.data_ptr(), B, H, KV, D, Sk, q.stride(0), q.stride(1),
+        *k.stride()[:3], out.stride(0), out.stride(1), float(scale), _opt(sliding_window),
+        _opt(chunk_size), _opt(ring), chunk, n_chunks, None if ws is None else ws.data_ptr(),
+        _build.stream_ptr(q.device),
     )
     _build.check(err, name)
     flash_attention_decode.launches += 1

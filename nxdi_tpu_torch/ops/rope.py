@@ -2,7 +2,7 @@
 
 HF llama's rotate-half convention (and the adjacent-pair GPT-J layout,
 :func:`apply_rotary_pos_emb_interleaved`), plain RoPE, llama3, YaRN and
-LongRoPE frequency scaling. The frequency tables are numpy (host-side, computed once); cos/sin
+LongRoPE frequency scaling, and Gemma-3's local/global pair. The frequency tables are numpy (host-side, computed once); cos/sin
 are built from position ids on the fly in float32. YaRN's attention factor
 scales cos/sin (the models read it as ``DecoderArch.rope_mscale``).
 """
@@ -172,6 +172,24 @@ def rope_cos_sin(position_ids: torch.Tensor, inv_freq, dtype=torch.float32):
     freqs = position_ids.float()[..., None] * inv[None, None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def local_global_inv_freq(head_dim: int, rope_theta: float, rope_scaling,
+                          rope_local_base_freq: float,
+                          max_position_embeddings: int = 4096) -> np.ndarray:
+    """Gemma-3's stacked (2, D/2) table: [global, local]. The global layers
+    take ``rope_theta`` with ``rope_scaling`` (linear, factor 8 on 27B); the
+    sliding-window layers the plain table at ``rope_local_base_freq``."""
+    g = inv_freq_from_hf_config(head_dim, rope_theta, rope_scaling,
+                                max_position_embeddings=max_position_embeddings)
+    return np.stack([g, default_inv_freq(head_dim, rope_local_base_freq)])
+
+
+def rope_cos_sin_pair(position_ids: torch.Tensor, inv_pair, dtype=torch.float32):
+    """cos / sin of a stacked [global, local] table (:func:`local_global_inv_freq`),
+    each (2, B, S, head_dim): a layer's ``use_local_rope`` flag picks index 1."""
+    (cg, sg), (cl, sl) = (rope_cos_sin(position_ids, inv_pair[i], dtype) for i in range(2))
+    return torch.stack([cg, cl]), torch.stack([sg, sl])
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,12 @@ resident, writing its weights into a slot in place (so graphs captured
 before keep serving, with the new weights), and returns the id that
 ``generate(adapter_ids=...)`` takes.
 
+Window-sized KV (``window_sized_kv``): a model whose every layer slides
+keeps a ring of ``window_ring_slots`` slots per layer in place of seq_len;
+an interleaved one (full and sliding-window layers) keeps full-length
+``k`` / ``v`` for its full layers only and a ring stack ``k_win`` /
+``v_win`` for its window layers (:meth:`init_cache`).
+
 Speculation (``nxdi_tpu_torch/speculation/``) subclasses this app: params
 and caches may be nested dicts (``{"draft": ..., "target": ...}``; Medusa's
 ``medusa_heads`` and ``medusa_tokens``), which :meth:`load` moves, allocates
@@ -39,6 +45,7 @@ and caches may be nested dicts (``{"draft": ..., "target": ...}``; Medusa's
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -117,11 +124,11 @@ SEGMENTED_REFUSALS = {
 MOE_CARRIED = ("sliding_window", "qk_norm", "qk_norm_flat", "embed_scale", "attention_o_bias",
                "layernorm", "clip_qkv", "rotary_dim", "attention_sink", "attn_out_gate",
                "sandwich_norm", "longrope")
-# the mixed step's plain attention drops the window and the sink (the JAX
-# package's, ROADMAP Queue 3); the MoE families' other switches are not held
-# on the mixed step
+# the mixed step's plain attention drops the window, the sink and the logit
+# softcap (the JAX package's, ROADMAP Queue 3); the MoE families' other
+# switches are not held on the mixed step
 MIXED_REFUSED = ("sliding_window", "layernorm", "clip_qkv", "rotary_dim", "attention_sink",
-                 "attn_out_gate", "sandwich_norm", "longrope")
+                 "attn_out_gate", "sandwich_norm", "longrope", "attn_logit_softcap")
 
 
 def family_switches(arch) -> List[str]:
@@ -149,7 +156,18 @@ def family_switches(arch) -> List[str]:
         ("attn_out_gate", arch.attn_out_gate),
         ("sandwich_norm", arch.sandwich_norm),
         ("longrope", arch.longrope_original_max is not None),
+        ("attn_logit_softcap", arch.attn_logit_softcap is not None),
+        ("final_logit_softcap", arch.final_logit_softcap is not None),
     ) if on]
+
+
+def local_rope(family, config) -> bool:
+    """Whether the family's rope table is Gemma-3's [global, local] pair
+    (picked per layer by the ``use_local_rope`` flags; LongRoPE's pair is
+    the ``longrope`` switch)."""
+    table = getattr(family, "build_inv_freq", None)
+    return (table is not None and family.build_arch(config).longrope_original_max is None
+            and np.ndim(table(config)) == 2)
 
 
 def _refuse_switches(switches: List[str], path: str) -> None:
@@ -181,7 +199,7 @@ def refuse_unported(family, config) -> None:
     :data:`MOE_CARRIED`, MLA, and the mixed step: :data:`MIXED_REFUSED`)."""
     tc = config.tpu_config
     arch = family.build_arch(config)
-    switches = family_switches(arch)
+    switches = family_switches(arch) + (["use_local_rope"] if local_rope(family, config) else [])
     for path, on, refused in (
         ("LoRA serving", tc.lora_config is not None, switches),
         ("a quantized KV cache", tc.kv_quant_config is not None, switches),
@@ -383,7 +401,28 @@ class TorchModelForCausalLM:
                 block_size=tc.pa_block_size, num_kv_heads=arch.num_kv_heads,
                 head_dim=arch.head_dim, dtype=arch.dtype, quant_dtype=arch.kv_quant_dtype,
             )
-        return arch.kv_cache_spec(tc.kv_cache_batch_size + tc.kv_cache_padding_size, tc.seq_len)
+        max_len = tc.seq_len
+        split = arch.interleaved_split() if tc.window_sized_kv else None
+        if tc.window_sized_kv and split is None:
+            # the homogeneous ring: W (+ the speculation lookahead) slots a
+            # layer in place of the full budget
+            max_len = min(max_len, tc.window_ring_slots)
+        spec = arch.kv_cache_spec(tc.kv_cache_batch_size + tc.kv_cache_padding_size, max_len)
+        # an interleaved split: this spec covers the full-attention layers
+        # only; the window layers live in the ring stack (_ring_cache_spec)
+        return spec if split is None else dataclasses.replace(spec, num_layers=split[0])
+
+    def _ring_cache_spec(self, family=None, config=None):
+        """The ring stack's spec of an interleaved split's window layers
+        (the JAX package's ``_ring_cache_spec``), else None."""
+        config = config or self.config
+        tc = config.tpu_config
+        arch = (family or self.family).build_arch(config)
+        split = arch.interleaved_split() if tc.window_sized_kv else None
+        if split is None:
+            return None
+        return dataclasses.replace(self._cache_spec(family, config), num_layers=split[1],
+                                   max_len=min(tc.window_ring_slots, tc.seq_len))
 
     def load(self) -> None:
         """Weights to the device, KV cache allocated, every bucket run once
@@ -436,8 +475,15 @@ class TorchModelForCausalLM:
 
     def init_cache(self) -> Dict[str, Any]:
         """The zeroed KV cache on the app's device (a speculation app's holds
-        both models' caches, or Medusa's proposal buffer beside the K/V)."""
-        return init_kv_cache(self._cache_spec(), self.device)
+        both models' caches, or Medusa's proposal buffer beside the K/V; an
+        interleaved window-sized split the ring stack ``k_win`` / ``v_win``
+        beside the full layers' ``k`` / ``v``)."""
+        cache = init_kv_cache(self._cache_spec(), self.device)
+        ring = self._ring_cache_spec()
+        if ring is not None:
+            win = init_kv_cache(ring, self.device)
+            cache["k_win"], cache["v_win"] = win["k"], win["v"]
+        return cache
 
     def warmup(self) -> float:
         """One dispatch per bucket of every submodel (on the card: its eager

@@ -55,6 +55,7 @@ from nxdi_tpu_torch.config import to_torch_dtype
 from nxdi_tpu_torch.kvcache.kv_cache import (
     BlockKVLayout,
     ContiguousKVLayout,
+    WindowKVLayout,
     drop_slot,
     scatter_indices_fixed,
 )
@@ -102,7 +103,11 @@ def collector_paused():
 def kv_layout_from_config(tc, arch=None):
     """The KV layout every submodel of this app runs against: the paged pool
     under ``is_block_kv_layout``, else the contiguous cache (its lines routed
-    by ``seq_ids`` under ``is_continuous_batching``). A quantized cache's
+    by ``seq_ids`` under ``is_continuous_batching``). Under
+    ``window_sized_kv`` a model whose every layer slides takes the ring
+    (:class:`WindowKVLayout`), and an interleaved one keeps the contiguous
+    primary layout (its window layers' ring stack takes its own, in
+    ``models/base.run_decoder_layers``). A quantized cache's
     scales ride the layout: ``per_tensor`` as static floats, ``per_key`` /
     ``per_channel`` as per-layer tables checked against the model's shape
     (the JAX package's ``kv_layout_from_config``)."""
@@ -135,6 +140,28 @@ def kv_layout_from_config(tc, arch=None):
         }
     if tc.is_block_kv_layout:
         return BlockKVLayout(block_size=tc.pa_block_size, **scales)
+    if tc.window_sized_kv:
+        if scales:
+            raise NotImplementedError(
+                "scaled fp8 KV is not wired into the window ring layout yet"
+            )
+        if arch is not None:
+            pat = arch.kv_window_pattern
+            if arch.sliding_window is None or (pat is not None and not any(pat)):
+                raise ValueError(
+                    "window_sized_kv is set but no layer of this model uses "
+                    "sliding-window attention — a ring cache would silently "
+                    "truncate full-attention history; unset window_sized_kv"
+                )
+            if tc.window_ring_slots < arch.sliding_window:
+                raise ValueError(
+                    f"window_sized_kv: a ring of {tc.window_ring_slots} slots is shorter than "
+                    f"the model's sliding window ({arch.sliding_window}); set "
+                    "tpu_config.sliding_window to the model's window")
+            if arch.interleaved_split() is not None:
+                return ContiguousKVLayout(route_by_seq_id=bool(tc.is_continuous_batching))
+        return WindowKVLayout(window=tc.window_ring_slots,
+                              route_by_seq_id=bool(tc.is_continuous_batching))
     return ContiguousKVLayout(route_by_seq_id=bool(tc.is_continuous_batching), **scales)
 
 

@@ -1771,8 +1771,11 @@ def _family_card_app(family, widths, graphs, params=None, **tc):
 
     class App(TorchModelForCausalLM):
         def build_params(self):
-            return params if params is not None else dense.random_params(arch, seed=0,
-                                                                         device="cuda")
+            if params is not None:
+                return params
+            if hasattr(family, "random_params"):  # the families with per-layer flags
+                return family.random_params(cfg, seed=0, device="cuda")
+            return dense.random_params(arch, seed=0, device="cuda")
 
     app = App("<random>", cfg, model_family=family, graphs=graphs)
     app.load()
@@ -1817,3 +1820,143 @@ def test_family_graph_replay_equals_eager(gen, name):
         assert g_counts["fused_mlp"] > 0
     for w in graphs.models.values():
         assert all(bg.graph is not None for bg in w.bucket_graphs.values())
+
+
+RING_TOL = {torch.float32: TOL, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("window", [None, 600])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["fused", "window"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_decode_modes_match_plain(gen, monkeypatch, dtype, mode, D, window):
+    """Rows 3 (the stacked fused decode, layer 1 of a ring stack) and 5 (the
+    window decode) in ring mode over a 1000-slot ring (8 chunks at B 4, KV
+    2, G 4): rows wrapped twice, at the ring's last slot, before the ring
+    fills and at position 0, with and without a window inside the ring;
+    split across blocks and one chunk a row, against the plain version; a
+    second call gives the same bits; one launch counted."""
+    B, KV, G, W = 4, 2, 4, 1000
+    H = KV * G
+
+    def r(*shape):
+        return _randn(gen, *shape).to(dtype)
+
+    q = r(B, 1, H, D).transpose(1, 2)
+    kn, vn = r(B, 1, KV, D).transpose(1, 2), r(B, 1, KV, D).transpose(1, 2)
+    ks, vs = r(2, B, KV, W, D), r(2, B, KV, W, D)
+    qp = torch.tensor([[2537], [999], [300], [0]], dtype=torch.int32).cuda()
+    kv_pos = torch.zeros((B, W), dtype=torch.int32, device="cuda")  # unread on a ring
+    if mode == "fused":
+        def call():
+            return fa.flash_attention_decode_fused_stacked(q, ks, vs, kn, vn, qp, 1,
+                                                           sliding_window=window, ring=W)
+        want = fa.flash_attention_decode_fused_plain(q, ks[1], vs[1], kn, vn, qp,
+                                                     sliding_window=window, ring=W)
+        counter = fa.flash_attention_decode_fused
+    else:
+        def call():
+            return fa.flash_attention_decode(q, ks[1], vs[1], qp, kv_pos, sliding_window=window,
+                                             ring=W)
+        want = fa.flash_attention_decode_plain(q, ks[1], vs[1], qp, kv_pos,
+                                               sliding_window=window, ring=W)
+        counter = fa.flash_attention_decode
+    before = counter.launches
+    got = call()
+    assert counter.launches == before + 1
+    assert _max_err(got, want) <= RING_TOL[dtype]
+    assert torch.equal(call(), got)
+    monkeypatch.setattr(fa, "decode_chunk", _one_chunk)
+    assert _max_err(call(), want) <= RING_TOL[dtype]
+
+
+@pytest.mark.parametrize("routed", [False, True])
+def test_ring_writes_land_at_slot_mod_w(gen, routed):
+    """Row 4 into the ring (kvcache WindowKVLayout): a 40-token prefill over
+    a 24-slot ring (only each row's last 24 real tokens; row 1's padding
+    lanes dropped) and a deferred commit of 3 layers' rows at p % W (a -1
+    write position drops), on the card bit for bit against the plain
+    version on the CPU, lines routed by seq_ids or not; one launch each."""
+    from nxdi_tpu_torch.kvcache.kv_cache import KVCacheSpec, WindowKVLayout
+
+    L, Bc, KV, W, D, S = 3, 4, 2, 24, 64, 40
+    lay = WindowKVLayout(window=W, route_by_seq_id=routed)
+    spec = KVCacheSpec(L, Bc, KV, W, D, dtype="bfloat16")
+    cache = {k: _bf(gen, 1.0, L, Bc, KV, W, D) for k in ("k", "v")}
+    ref = {k: t.cpu().clone() for k, t in cache.items()}
+    kn, vn = _bf(gen, 1.0, 2, KV, S, D), _bf(gen, 1.0, 2, KV, S, D)
+    ci = {"position_ids": torch.arange(S, dtype=torch.int32)[None].repeat(2, 1),
+          "last_token_index": torch.tensor([S - 1, 17], dtype=torch.int32)}
+    if routed:
+        ci["seq_ids"] = torch.tensor([3, 1], dtype=torch.int32)
+    before = kc.kv_commit_rows.launches
+    lay.update(cache["k"][1], cache["v"][1], kn, vn, {k: v.cuda() for k, v in ci.items()}, spec)
+    assert kc.kv_commit_rows.launches == before + 1
+    lay.update(ref["k"][1], ref["v"][1], kn.cpu(), vn.cpu(), ci, spec)
+    kr, vr = _bf(gen, 1.0, L, 2, KV, 1, D), _bf(gen, 1.0, L, 2, KV, 1, D)
+    cc = {"position_ids": torch.tensor([[61], [17]], dtype=torch.int32),
+          "write_positions": torch.tensor([[61], [-1]], dtype=torch.int32),
+          **({"seq_ids": ci["seq_ids"]} if routed else {})}
+    lay.commit_rows(cache, kr, vr, {k: v.cuda() for k, v in cc.items()}, spec)
+    lay.commit_rows(ref, kr.cpu(), vr.cpu(), cc, spec)
+    for k in ("k", "v"):
+        assert torch.equal(cache[k].cpu(), ref[k]), k
+    line = 3 if routed else 0
+    assert torch.equal(cache["k"][:, line, :, 61 % W].cpu(), kr[:, 0, :, 0].cpu())
+
+
+def _ring_widths(name):
+    from nxdi_tpu_torch.models.gemma3 import modeling_gemma3 as tg3
+
+    if name == "mistral":
+        return _family_widths("mistral")
+    return tg3, dict(tg3.GEMMA_3_27B, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, sliding_window_pattern=2, num_attention_heads=4,
+                     num_key_value_heads=2, head_dim=64, vocab_size=512, sliding_window=16,
+                     query_pre_attn_scalar=64)
+
+
+@pytest.mark.parametrize("name", ["mistral", "gemma3_text"])
+def test_ring_graph_replay_equals_eager(gen, name):
+    """The ring inside captured graphs, 120 tokens past 40-token prompts
+    over a 16-slot ring: Mistral's homogeneous ring (row 4 per layer, row
+    5's ring mode) and Gemma-3's interleaved one (row 3's ring mode over the
+    ring stack beside the full one, the ring's commit): every dispatch bit
+    for bit against an eager app on the same params, the same launch
+    counts, every bucket a graph."""
+    family, widths = _ring_widths(name)
+    tc = dict(STATIC, window_sized_kv=True, sliding_window=16)
+    graphs = _family_card_app(family, widths, True, **tc)
+    eager = _family_card_app(family, widths, False, params=graphs.params, **tc)
+    assert graphs.kv_cache["k" if name == "mistral" else "k_win"].shape[3] == 16
+    g_log, g_counts, g_toks = _drive(graphs, "static")
+    e_log, e_counts, e_toks = _drive(eager, "static")
+    assert np.array_equal(np.asarray(g_toks), np.asarray(e_toks))
+    assert len(g_log) == len(e_log) > 0
+    for i, (a, b) in enumerate(zip(g_log, e_log)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (i, key)
+    assert g_counts == e_counts
+    ring_kernel = ("flash_attention_decode" if name == "mistral"
+                   else "flash_attention_decode_fused")
+    for kernel in ("flash_attention_prefill", ring_kernel, "kv_commit_rows"):
+        assert g_counts[kernel] > 0, kernel
+    for w in graphs.models.values():
+        assert all(bg.graph is not None for bg in w.bucket_graphs.values())
+
+
+def test_ring_kernel_refusals(gen):
+    """On the card an attention kernel flag on a softcapped model raises,
+    naming the softcap, and a ring operand over a cache of another slot
+    count raises."""
+    from nxdi_tpu_torch.models.gemma2 import modeling_gemma2 as tg2
+
+    widths = dict(tg2.GEMMA_2_9B, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2, head_dim=64, vocab_size=512)
+    with pytest.raises(NotImplementedError, match="attention logit softcap"):
+        _family_card_app(tg2, widths, False, **STATIC)  # its warmup runs the forward
+    q = _randn(gen, 1, 2, 1, 64)
+    k = _randn(gen, 1, 1, 32, 64)
+    with pytest.raises(ValueError, match="a ring of 16 slots over a cache of 32"):
+        fa.flash_attention_decode(q, k, k, torch.zeros((1, 1), dtype=torch.int32),
+                                  torch.zeros((1, 32), dtype=torch.int32), ring=16)

@@ -196,7 +196,7 @@ def test_registry_keys_and_errors():
     an unknown type raises KeyError listing the registered ones."""
     ported = set(FAMILIES) | {"llama", "mixtral", "deepseek", "deepseek_v3", "minicpm4",
                               "qwen3_moe", "gpt_oss", "minimax_m2", "dbrx", "phimoe", "afmoe",
-                              "phi3"}
+                              "phi3", "gemma3_text", "gemma2", "vaultgemma"}
     assert set(treg.known_model_types()) == ported
     for t in ported:
         module, cfg_cls = treg.get_family(t)
@@ -204,7 +204,7 @@ def test_registry_keys_and_errors():
         assert cfg_cls.__name__ == jreg.get_family(t)[1].__name__
     assert treg.NOT_PORTED | ported == set(jreg.known_model_types())
     assert not treg.NOT_PORTED & ported
-    with pytest.raises(NotImplementedError, match="'gemma2' is registered by the JAX package"):
-        treg.get_family("gemma2")
+    with pytest.raises(NotImplementedError, match="'gpt2' is registered by the JAX package"):
+        treg.get_family("gpt2")
     with pytest.raises(KeyError, match="Unknown model_type 'no_such'.*'qwen3'"):
         treg.get_family("no_such")

@@ -373,8 +373,12 @@ def test_published_widths():
 
 
 def test_window_sized_kv_refused():
-    with pytest.raises(NotImplementedError, match="window_sized_kv"):
-        TorchConfig(window_sized_kv=True)
+    """The ring config builds (its slot count from sliding_window) and
+    refuses the paged layout, as the JAX package's does."""
+    assert TorchConfig(window_sized_kv=True, sliding_window=8).window_ring_slots == 8
+    with pytest.raises(ValueError, match="window_sized_kv composes with contiguous decode"):
+        TorchConfig(window_sized_kv=True, sliding_window=8, is_block_kv_layout=True,
+                    pa_num_blocks=8, pa_block_size=8)
 
 
 @pytest.mark.parametrize("model_type,kw,switch", [
