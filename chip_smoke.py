@@ -236,6 +236,24 @@ code is non-zero:
    profiled decode step, launches exact), then on the full cache with the
    QKV and MLP kernels; Gemma-2-9B at 8 of 42 layers (the softcap keeps
    the attention plain; rows 4 and 9-12).
+3k. Rows 1 and 3 in chunk mode at Llama-4-Scout's heads (40 over 8 of 128:
+   G 5), bf16, under its 8192-token chunk: row 1 at B 2 x 9216 (also timed
+   without the chunk), row 3 over a 9216-slot stack with both rows past the
+   boundary: each against its plain version, timed beside its bound (the
+   chunk's visible pairs or bytes), the plain version and SDPA under the
+   chunk mask.
+4n. llama4_text (G 5, chunks of 8, a NoPE layer, the L2 norm and the
+   temperature), cohere2, exaone4 and olmo3 (windows of 8; the hybrids'
+   global layer NoPE), and the three hybrids again on the ring, at tiny
+   widths, 2 layers, float32, batch 2, 64-token prompts: generate() on the
+   CPU, the card's graphs and the card eagerly: tokens equal, logits within
+   1e-4, graphs equal to eager bit for bit, launches exact.
+5n. Llama-4-Scout's published widths cut to 8 of 48 layers (two NoPE
+   units, ~39 GB of bf16 weights), graphs: generate() at B 2 over
+   9216-token prompts (the prefill and every step cross the chunk) and at
+   B 8 x 1024; Command R7B whole (32 layers) at B 2 x 6144 on the full
+   cache and on the ring: prefill ms, decode ms/step, a profiled decode
+   step, cache bytes, peak memory, launches exact.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -6367,6 +6385,268 @@ def gemma_generate(torch, np, mods, tag, app, arch, ids, mask, NEW, want):
                 tok_s=B * 1e3 / decode_ms, launches=counts, profiled_decode_step=pr), toks
 
 
+# ---------------------------------------------------------------------------
+# phases 3k, 4n, 5n: Llama 4 (chunked attention, NoPE layers) and the
+# global-NoPE hybrids (Command R7B, EXAONE 4.0, OLMo-3)
+# ---------------------------------------------------------------------------
+
+# phase 3k's points at Llama-4-Scout's attention (40 over 8 heads of 128:
+# G 5) under its 8192-token chunk: row 1 over phase 5n's B 2 x 9216 prefill
+# (the second chunk's 1024 rows see only their own chunk), row 3 over a
+# 2-layer stack of 9216 slots with both rows past the boundary
+SCOUT_CHUNK = dict(H=40, KV=8, D=128, B=2, S=9216, chunk=8192, L=2)
+# phase 5n's Command R7B prompts: 6144 tokens, past its 4096 window
+R7B_PROMPT = 6144
+
+
+def _chunk_pairs(S, chunk):
+    """Causal (query, key) pairs of an S-row prefill from position 0 under
+    chunks of ``chunk``."""
+    return sum(n * (n + 1) // 2 for n in (min(chunk, S - a) for a in range(0, S, chunk)))
+
+
+def check_chunk_kernels(torch, results):
+    """Phase 3k. Rows 1 and 3 in chunk mode at Llama-4-Scout's heads (G 5),
+    bf16: each against its plain version (row 1's plain version one kv head
+    at a time: its f32 scores over all 40 heads would take 27 GB), the same
+    bits on a second call, timed over flushed calls beside its bound (the
+    chunk's visible pairs or bytes only), the plain version and SDPA under
+    the chunk mask. Row 1 is also timed without the chunk (plain causal over
+    the same rows): a chunked run as slow as that one reads the masked kv
+    tiles left of each query's chunk."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1919)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(
+            torch.bfloat16)
+
+    c = SCOUT_CHUNK
+    B, H, KV, S, D, C = c["B"], c["H"], c["KV"], c["S"], c["D"], c["chunk"]
+    G = H // KV
+    q = randn((B, S, H, D)).transpose(1, 2)
+    k, v = randn((B, S, KV, D)).transpose(1, 2), randn((B, S, KV, D)).transpose(1, 2)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S).contiguous()
+    call = lambda: fa.flash_attention_prefill(q, k, v, pos, pos, chunk_size=C)  # noqa: E731
+
+    def plain():
+        return torch.cat([fa.flash_attention_prefill_plain(
+            q[:, h * G:(h + 1) * G], k[:, h:h + 1], v[:, h:h + 1], pos, pos, chunk_size=C)
+            for h in range(KV)], dim=1)
+
+    got = call()
+    err = (got.float() - plain().float()).abs().max().item()
+    tol = TOL[("prefill", "bfloat16")]
+    assert err <= tol, f"3k prefill: max abs err {err} > {tol}"
+    assert torch.equal(call(), got), "3k prefill: a second call gave other bits"
+    body = fa.prefill_body(q, k, v)
+    times, names, _ = traced_times(torch, call, PREFILL_CALLS, flush, kernel="prefill")
+    ms, lo, hi = spread(times)
+    ran = sorted(attention_ms([(0.0, n) for n in names]))
+    assert ran == [PREFILL_KERNEL[body]], f"3k prefill: ran {ran}, expected {body}"
+    causal = lambda: fa.flash_attention_prefill(q, k, v, pos, pos)  # noqa: E731
+    causal_ms = spread(traced_times(torch, causal, PREFILL_CALLS, flush, kernel="prefill")[0])[0]
+    plain_ms = measure(torch, plain, n=3, flush=flush)
+    ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    i = torch.arange(S, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] // C == i[:, None] // C)
+    library = lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)  # noqa: E731
+    lib_ms = spread(traced_times(torch, library, PREFILL_CALLS, flush)[0])[0]
+    pairs, all_pairs = _chunk_pairs(S, C), S * (S + 1) // 2
+    bms, by = bound_ms((2 * B * H * S * D + 2 * B * KV * S * D) * 2, 4 * B * H * D * pairs,
+                       "bfloat16")
+    row = dict(kernel="prefill", dtype="bfloat16", point="Llama-4-Scout chunk 8192", head_dim=D,
+               chunk=C, group=G, max_abs_err=err, tol=tol, ms=ms, ms_min=lo, ms_max=hi,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, body=body,
+               kernels=ran, share_of_bound=bms / ms, unchunked_ms=causal_ms,
+               visible_pair_share=pairs / all_pairs)
+    results.append(row)
+    log(f"[chunk-3k] prefill Scout B {B} x {S}, chunk {C}, G {G} ({ran[0]}): err {err:.3g} "
+        f"kernel {ms:.4f} ms (min {lo:.4f} max {hi:.4f}); without the chunk {causal_ms:.4f} ms "
+        f"(the chunk leaves {100 * pairs / all_pairs:.1f} % of the causal pairs); plain "
+        f"{plain_ms:.4f} sdpa {lib_ms:.4f} bound {bms:.4f} ({by}), {100 * bms / ms:.1f} % of "
+        "the bound")
+    del q, k, v, ke, ve, mask, got
+    torch.cuda.empty_cache()
+
+    # row 3: the stacked fused decode at layer 1, both rows past the boundary
+    L = c["L"]
+    ks, vs = randn((L, B, KV, S, D)), randn((L, B, KV, S, D))
+    qd = randn((B, 1, H, D)).transpose(1, 2)
+    kn, vn = randn((B, 1, KV, D)).transpose(1, 2), randn((B, 1, KV, D)).transpose(1, 2)
+    qpos = torch.tensor([[S - 16], [C + 500]], device=dev, dtype=torch.int32)
+    slot = torch.arange(S + 1, device=dev)
+    start = qpos // C * C
+    dmask = ((slot[None, :] < qpos) & (slot[None, :] >= start)) | (slot[None, :] == S)
+    kcat = torch.cat([ks[1], kn], dim=2).repeat_interleave(G, dim=1)
+    vcat = torch.cat([vs[1], vn], dim=2).repeat_interleave(G, dim=1)
+    visible = int((qpos - start).sum().item())
+    row = decode_point(
+        torch, results, "decode", "bfloat16", fa,
+        lambda: fa.flash_attention_decode_fused_stacked(qd, ks, vs, kn, vn, qpos, 1,
+                                                        chunk_size=C),
+        lambda: fa.flash_attention_decode_fused_plain(qd, ks[1], vs[1], kn, vn, qpos,
+                                                      chunk_size=C),
+        lambda: F.scaled_dot_product_attention(qd, kcat, vcat, attn_mask=dmask[:, None, None]),
+        (2 * KV * D * (visible + B) + 2 * B * H * D) * 2, 4 * H * D * (visible + B), flush,
+        TOL[("decode", "bfloat16")])
+    row.update(point="Llama-4-Scout chunk 8192", head_dim=D, chunk=C, group=G)
+    log(f"[chunk-3k] decode Scout chunk {C}, G {G}: the row above ({visible} visible positions "
+        f"of {int(qpos.sum().item())})")
+    del ks, vs, kcat, vcat
+    torch.cuda.empty_cache()
+
+
+# phase 4n: Llama 4 and the hybrids at tiny widths (FAMILY_TINY's hidden 256
+# and head dim 64; Llama 4 at G 5: 10 over 2 heads), 2 layers, f32; chunks
+# and windows of 8 under 64-token prompts; the hybrids again on the ring
+SCOUT_TINY = dict(FAMILY_TINY, intermediate_size=256, num_attention_heads=10,
+                  num_key_value_heads=2, num_local_experts=4, num_experts_per_tok=1,
+                  attention_chunk_size=8, no_rope_layers=[1, 0], floor_scale=8.0,
+                  attn_scale=0.1, use_qk_norm=True, attn_temperature_tuning=True)
+HYBRID = dict(sliding_window=8, layer_types=["sliding_attention", "full_attention"])
+NOPE_CASES = {
+    "llama4_text": ("llama4_text", SCOUT_TINY, {}),
+    "cohere2": ("cohere2", dict(HYBRID, logit_scale=0.25, tie_word_embeddings=True), {}),
+    "exaone4": ("exaone4", HYBRID, {}),
+    "olmo3": ("olmo3", dict(HYBRID, rope_scaling=dict(rope_type="linear", factor=2.0)), {}),
+}
+NOPE_CASES.update({f"{name} ring": (name, over, dict(window_sized_kv=True, sliding_window=8))
+                   for name, (_, over, _) in list(NOPE_CASES.items()) if name != "llama4_text"})
+
+
+def nope_flags(arch, ring):
+    """The attention kernels; the fused QKV kernel off the ring; the fused
+    MLP off the ring where the model has a dense MLP (Llama 4's is a
+    mixture of experts)."""
+    proj = not ring
+    return dict(attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, fused_qkv=proj,
+                qkv_kernel_enabled=proj, mlp_kernel_enabled=proj and arch.moe is None)
+
+
+def nope_vs_cpu(torch, np, mods):
+    """Phase 4n: NOPE_CASES at tiny widths, 2 layers, float32, batch 2:
+    greedy generate() on the CPU (plain versions, the JAX rule: the rope
+    flags keep every attention kernel off), through the card's graphs and
+    eagerly (run_three: tokens equal, logits within LOGIT_TOL, graphs equal
+    to eager bit for bit), rows 1 and 3 in chunk mode on Llama 4's rope layer
+    and unchunked on its NoPE layer, windowed on the hybrids' window layers
+    (rows 3 and 4 in ring mode on the ring), launches exact
+    (gemma_counts)."""
+    L, NEW, P = 2, 24, 64
+    out = {}
+    for case, (model_type, over, ring_kw) in NOPE_CASES.items():
+        family = dense_family(model_type, **dict(FAMILY_TINY, **over))
+        ring = bool(ring_kw)
+        cfg = family[1](mods[1](seq_len=256, **ring_kw), **dict(family[2], num_hidden_layers=L))
+        arch = family[0].build_arch(cfg)
+        flags = nope_flags(arch, ring)
+        apps, arch = three_apps(mods, layers=L, dtype="float32", batch=2, seq_len=256,
+                                ctx_len=128, output_logits=True, family=family, **flags,
+                                **ring_kw)
+        ids, mask = prompts(np.random.default_rng(7), 2, P, [P, 53], arch.vocab_size)
+        worst, toks, counts, n_same, _ = run_three(torch, mods, f"4n {case}", apps, ids, mask,
+                                                   NEW, kernels=family_kernels())
+        want = gemma_counts(arch, L, 1, NEW - 1, flags, ring)
+        assert counts == want, f"phase 4n {case}: launches {counts} != {want}"
+        seen = strategies_of(apps[1])
+        assert {"cte_flash_kernel", "tkg_fused_kernel_stacked"} <= seen, (case, seen)
+        chunks = [arch.layer_chunk(i) for i in range(L)]
+        windows = [arch.layer_window(i) for i in range(L)]
+        out[case] = dict(max_logit_err=worst, launches=counts, dispatches_bitwise=n_same,
+                         chunks=chunks, windows=windows, strategies=sorted(seen),
+                         cache_shapes={k: tuple(t.shape) for k, t in apps[1].kv_cache.items()})
+        log(f"[nope-2L 4n {case}] generate(): max logit diff {worst:.3g}, graphs = eager over "
+            f"{n_same} dispatches, launches {counts}, chunks {chunks}, windows {windows}")
+        del apps
+        gc.collect()
+    return out
+
+
+def nope_full_depth(torch, np, mods, card):
+    """Phase 5n, bf16, graphs, random weights from seed 0 at the published
+    widths. Llama-4-Scout cut to 8 of its 48 layers (two units of three
+    chunked rope layers and one NoPE layer; ~35 GB of layers and 4.1 GB of
+    embedding and head), B 2 with 9216-token prompts and 32 new tokens (the
+    prefill and every decode step cross the 8192 chunk), then phase 5's
+    B 8 x 1024; Command R7B whole (32 layers, ~16 GB) at B 2 x 6144 on the
+    full cache and on the ring (window_sized_kv: the 8 global layers' cache
+    beside the 24 window layers' 4096-slot ring). The attention kernels on
+    every layer; each run with prefill ms, decode ms/step, a profiled decode
+    step, cache bytes, peak device memory and launches exact."""
+    from nxdi_tpu_torch.models.cohere2 import modeling_cohere2 as tc2
+    from nxdi_tpu_torch.models.llama4 import modeling_llama4 as tl4
+
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    stats, toks = {}, {}
+    attn = dict(attn_kernel_enabled=True, attn_tkg_kernel_enabled=True)
+    scout = (tl4, tl4.Llama4InferenceConfig, tl4.LLAMA_4_SCOUT)
+    r7b = (tc2, tc2.Cohere2InferenceConfig, tc2.COMMAND_R7B)
+    P9, P6 = SCOUT_CHUNK["S"], R7B_PROMPT
+    params = None
+    # (run, family, layers, batch, prompt, its lengths, new tokens, flags,
+    # whether it reuses the last run's weights)
+    for name, family, L, B, P, lengths, NEW, flags, share in (
+            ("Llama-4-Scout B 2 x 9216", scout, 8, 2, P9, [P9, P9 - P9 // 32], 32, attn, False),
+            ("Llama-4-Scout B 8 x 1024", scout, 8, 8, 1024, [1024, 1024, 1000, 1024, 731, 1024,
+                                                            1024, 1023], 32, attn, True),
+            ("Command R7B full cache", r7b, 32, 2, P6, [P6, P6 - P6 // 32], 32, attn, False),
+            ("Command R7B ring", r7b, 32, 2, P6, [P6, P6 - P6 // 32], 32,
+             dict(attn, window_sized_kv=True, sliding_window=r7b[2]["sliding_window"]), True)):
+        tag = f"[nope-5n {name}]"
+        if not share:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
+                             batch=B, seq_len=P + 64, ctx_len=P, device="cuda", family=family,
+                             params=params, **flags)
+        params = app.params
+        gb = sum(v.numel() * v.element_size() for v in _leaves(params)) / 1e9
+        ids, mask = prompts(np.random.default_rng(19), B, P, lengths, arch.vocab_size)
+        want = gemma_counts(arch, L, 1, NEW - 1, flags, "window_sized_kv" in flags)
+        run, toks[name] = gemma_generate(torch, np, mods, tag, app, arch, ids, mask, NEW, want)
+        seen = strategies_of(app)
+        assert {"cte_flash_kernel", "tkg_fused_kernel_stacked"} <= seen, (name, seen)
+        run.update(layers=L, param_gb=gb, cache_bytes=cache_bytes(app),
+                   cache_shapes={k: list(v.shape) for k, v in app.kv_cache.items()},
+                   peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   load_s=time.perf_counter() - t, warmup=app.warm_stats, strategies=sorted(seen),
+                   chunks=[arch.layer_chunk(i) for i in range(L)],
+                   windows=[arch.layer_window(i) for i in range(L)])
+        log(f"{tag} {L} layers, params {gb:.2f} GB, KV cache {run['cache_bytes'] / 1e9:.3f} GB "
+            f"{run['cache_shapes']}, peak allocated {run['peak_allocated_gb']:.2f} GB, load "
+            f"{run['load_s']:.1f} s; {card}")
+        stats[name] = run
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+    full, rg = toks["Command R7B full cache"], toks["Command R7B ring"]
+    stats["ring_tokens_equal_full"] = float((full == rg).mean())
+    stats["ring_cache_ratio"] = (stats["Command R7B full cache"]["cache_bytes"]
+                                 / stats["Command R7B ring"]["cache_bytes"])
+    log(f"[nope-5n] {card}: Command R7B's ring cache {stats['ring_cache_ratio']:.2f}x smaller; "
+        f"tokens equal to the full cache's at {100 * stats['ring_tokens_equal_full']:.1f} % of "
+        "positions")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["launches"] = {name: st["launches"] for name, st in stats.items()
+                         if isinstance(st, dict) and "launches" in st}
+    return stats
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -6411,6 +6691,7 @@ def main() -> int:
     check_family_kernels(torch, kernel_results)
     check_moe_family_kernels(torch, kernel_results)
     check_ring_kernels(torch, kernel_results)
+    check_chunk_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -6423,6 +6704,7 @@ def main() -> int:
     family_2l = family_vs_cpu(torch, np, mods)
     moe_family_2l = moe_family_vs_cpu(torch, np, mods)
     gemma_2l = gemma_vs_cpu(torch, np, mods)
+    nope_2l = nope_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -6481,8 +6763,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gemma5m = gemma_full_depth(torch, np, mods, card)
+    # phase 5n: Llama-4-Scout (8 layers) across its chunk, Command R7B on
+    # both caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    nope5n = nope_full_depth(torch, np, mods, card)
     family_stats = dict(phase_4k=family_2l, phase_5k=family5k, phase_4l=moe_family_2l,
-                        phase_5l=moe5l, phase_4m=gemma_2l, phase_5m=gemma5m)
+                        phase_5l=moe5l, phase_4m=gemma_2l, phase_5m=gemma5m, phase_4n=nope_2l,
+                        phase_5n=nope5n)
+    nl = nope5n["launches"]
     gl = gemma5m["launches"]
     fl = family5k["launches"]
     ml5 = moe5l["launches"]
@@ -6500,6 +6789,9 @@ def main() -> int:
         "Gemma-3-27B": {"prefill": sum(gl[k]["prefill"] for k in gl if "Gemma-3" in k)},
         "ring (Gemma-3-27B)": gl["Gemma-3-27B ring"],
         "ring (Mistral-7B)": gemma_2l["mistral ring"]["launches"],
+        # the chunk rows count phase 5n's two Llama-4-Scout runs
+        "Llama-4-Scout chunk 8192": {k: sum(nl[n][k] for n in nl if "Scout" in n)
+                                     for k in ("prefill", "decode")},
     }
     # the latent-width commit and V3's MLP rows count phase 5j's runs
     mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
@@ -6589,7 +6881,8 @@ def main() -> int:
                                               "earlier_ms", "mma_sync_ms", "launch_floor_ms",
                                               "graph_ready_ms", "store", "bf16_pool_ms",
                                               "k_width", "v_width", "hidden", "inter",
-                                              "window", "act", "ring")
+                                              "window", "act", "ring", "chunk", "group",
+                                              "unchunked_ms")
                           if f in row})
             if row.get("point") in ("G 8 (Qwen3-30B-A3B)", "G 6 (MiniMax-M2, DBRX)"):
                 entry["group"] = int(row["point"].split()[1])

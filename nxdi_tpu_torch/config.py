@@ -591,6 +591,20 @@ class TorchConfig:
         return cls(**{k: v for k, v in dict(d).items() if v is not None or k.endswith("_config")})
 
 
+def promote_text_config(config) -> None:
+    """Composite HF configs (Llama 4's vision + text checkpoint) nest the
+    language model's hyperparameters under ``text_config``: promote them to
+    the top level, where they win over the wrapper's own defaults (the JAX
+    package's ``promote_text_config``)."""
+    tc = getattr(config, "text_config", None)
+    if tc is None:
+        return
+    if not isinstance(tc, dict):
+        tc = tc.to_dict()
+    for k, v in tc.items():
+        setattr(config, k, v)
+
+
 class InferenceConfig:
     """Model hyperparameters + a :class:`TorchConfig` under ``tpu_config``
     (the attribute keeps the JAX package's name so saved JSON matches)."""

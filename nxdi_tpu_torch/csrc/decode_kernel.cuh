@@ -163,13 +163,16 @@ inline size_t dec_smem_bytes(int NW, int G, int D) {
 
 // The slots [lo, hi) row b's query sees: up to q_pos (exclusive when the
 // fresh row replaces the slot at q_pos), inside kv_len, from the window's
-// start (flash_attention.py::decode_visible_range mirrors it).
-// A ring row (ring > 0, kv_start null) takes the same hi and lo = 0.
+// start and from the start of q_pos's chunk, so a block whose slots all lie
+// before either exits at once (flash_attention.py::decode_visible_range
+// mirrors it). A ring row (ring > 0, kv_start null) takes the same hi and
+// lo = 0.
 template <Mode MODE>
 __device__ __forceinline__ void dec_visible(const DecodeArgs& a, int qp, int ks, int& lo,
                                             int& hi) {
   hi = max(0, min(a.kv_len, qp - ks + (MODE == Mode::kFused ? 0 : 1)));
   lo = a.window > 0 && a.ring == 0 ? max(0, min(hi, qp - a.window + 1 - ks)) : 0;
+  if (a.chunk > 0 && a.ring == 0) lo = max(lo, min(hi, floordiv(qp, a.chunk) * a.chunk - ks));
 }
 
 // The position slot j holds: kv_start + j, or on a ring q - ((q - j) mod W)

@@ -8,10 +8,13 @@ The dense families' switches of ``DecoderArch`` (q/k norms, the sliding
 window, Gemma's norms and embedding scale, post-block norms, the scalings,
 the non-gated MLP, the adjacent-pair rope) and the MoE families' (LayerNorm,
 the qkv clamp, partial rotary, attention sinks, the attention output gate,
-sandwich norms, LongRoPE) and the Gemma 2/3 lineage's (the attention and
-final-logit softcaps; the local / global rope pair) change these steps as
-the JAX package's do; per-layer ``use_rope`` / ``use_sliding_window`` /
-``use_local_rope`` flags ride the layer stack's params (:class:`LayerFlags`).
+sandwich norms, LongRoPE), the Gemma 2/3 lineage's (the attention and
+final-logit softcaps; the local / global rope pair) and Llama 4's and the
+global-NoPE hybrids' (chunked attention on the rope layers, the L2 q / k
+norm, the NoPE layers' query temperature, the parallel block) change these
+steps as the JAX package's do; per-layer ``use_rope`` /
+``use_sliding_window`` / ``use_local_rope`` flags ride the layer stack's
+params (:class:`LayerFlags`).
 
 Under ``window_sized_kv`` the sliding-window layers keep a W-slot ring
 (``kvcache/kv_cache.py::WindowKVLayout``): the whole cache when every layer
@@ -135,6 +138,7 @@ from nxdi_tpu_torch.ops.norms import flat_rms_norm, layer_norm, rms_norm
 from nxdi_tpu_torch.ops.rope import (
     apply_rotary_pos_emb,
     apply_rotary_pos_emb_interleaved,
+    l2_norm,
     rope_cos_sin,
     rope_cos_sin_pair,
 )
@@ -267,6 +271,25 @@ class DecoderArch:
     attn_logit_softcap: Optional[float] = None
     # cap * tanh(l / cap) on the logits, after logits_scaling (Gemma 2)
     final_logit_softcap: Optional[float] = None
+    # --- Llama 4's and the global-NoPE hybrids' switches (the JAX package's) ---
+    # chunked attention (Llama 4's attention_chunk_size): a query at p sees
+    # the keys in [p // c * c, p]; where the stack carries "use_rope" flags,
+    # on the rope layers only (:meth:`layer_chunk`)
+    chunk_size: Optional[int] = None
+    # the unweighted L2 norm of q and k after rope, on the rope layers
+    qk_l2norm: bool = False
+    # the NoPE layers' query times log1p(floor((p + 1) / floor_scale)) *
+    # attn_scale + 1 (Llama 4's attn_temperature_tuning)
+    attn_temperature_tuning: bool = False
+    floor_scale: float = 8192.0
+    attn_scale: float = 0.1
+    # Cohere 2: attention and the feed-forward both read the layer input
+    # through their norms, x + attn(n1(x)) + mlp(n2(x)), one residual add
+    parallel_block: bool = False
+    # per layer, whether it applies rope: the host copy of the layers'
+    # "use_rope" param flags, which gives a kernel launched on the card its
+    # layer's chunk (as kv_window_pattern gives its window)
+    rope_pattern: Optional[Tuple[bool, ...]] = None
 
     def __post_init__(self):
         if self.hidden_act not in ACT_FNS:
@@ -278,6 +301,16 @@ class DecoderArch:
             return None
         pat = self.kv_window_pattern
         return self.sliding_window if pat is None or pat[i] else None
+
+    def layer_chunk(self, i: int) -> Optional[int]:
+        """The attention chunk of layer ``i`` (None: none): the chunk on a
+        rope layer, none on a NoPE layer, the chunk on every layer when the
+        stack has no rope pattern. A sliding window wins over the chunk (the
+        JAX package's mask rule)."""
+        if self.chunk_size is None or self.sliding_window is not None:
+            return None
+        pat = self.rope_pattern
+        return self.chunk_size if pat is None or pat[i] else None
 
     def interleaved_split(self) -> Optional[Tuple[int, int]]:
         """(full layers, window layers) of an interleaved window pattern (both
@@ -414,12 +447,14 @@ def _heads_ok(H: int, KV: int) -> List[str]:
 class LayerFlags(NamedTuple):
     """A layer's per-layer switches: its ``use_sliding_window`` and
     ``use_rope`` param flags (0-d bool tensors, or None when the stack has
-    none) and its window on the host (:meth:`DecoderArch.layer_window`),
-    which the card's kernels take as a per-call scalar."""
+    none) and its window and chunk on the host
+    (:meth:`DecoderArch.layer_window`, :meth:`DecoderArch.layer_chunk`),
+    which the card's kernels take as per-call scalars."""
 
     window_enabled: Optional[torch.Tensor] = None
     use_rope: Optional[torch.Tensor] = None
     window: Optional[int] = None
+    chunk: Optional[int] = None
 
     def ref_only(self) -> Tuple[str, ...]:
         """The JAX rule leaves every attention kernel for plain attention on
@@ -463,6 +498,13 @@ def _window_refused(arch: DecoderArch) -> List[str]:
         f"sliding_window {arch.sliding_window} (the paged and ragged kernels take none)"]
 
 
+def _chunk_refused(arch: DecoderArch) -> List[str]:
+    """The JAX rule for the paged, ragged and paged-decode kernels: none
+    takes an attention chunk."""
+    return [] if arch.chunk_size is None else [
+        f"chunk_size {arch.chunk_size} (the paged and ragged kernels take no chunk)"]
+
+
 def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
                   lf: LayerFlags = NO_FLAGS, sink=None):
     """Attention of a cache-attending forward whose fresh rows are already
@@ -485,7 +527,8 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     G = H // max(KV, 1)
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
-        ref_failed = _heads_ok(H, KV) + _window_refused(arch) + _no_cap_or_sink(arch)
+        ref_failed = (_heads_ok(H, KV) + _window_refused(arch) + _chunk_refused(arch)
+                      + _no_cap_or_sink(arch))
         if k_cache_l.shape[0] % layout.block_size:
             ref_failed.append(f"{k_cache_l.shape[0]} pool slots are not whole blocks")
         scales = dict(block_size=layout.block_size, k_scale=layout.k_scale,
@@ -524,11 +567,12 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         _record_strategy("tkg_kernel")
         return fa.flash_attention_decode(q, kk, vv, position_ids, kv_pos,
                                          scale=arch.attention_scale, sliding_window=lf.window,
-                                         ring=_ring(layout))
+                                         chunk_size=lf.chunk, ring=_ring(layout))
     _record_strategy("tkg_xla")
     return attn_ops.attention_with_positions(
         q, kk, vv, position_ids, kv_pos, scale=arch.attention_scale,
-        sliding_window=arch.sliding_window, sliding_window_enabled=lf.window_enabled, sink=sink,
+        sliding_window=arch.sliding_window, sliding_window_enabled=lf.window_enabled,
+        chunk_size=arch.chunk_size, chunk_enabled=lf.use_rope, sink=sink,
         logit_softcap=arch.attn_logit_softcap)
 
 
@@ -550,7 +594,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             q.shape, k_cache_l.shape, layout.block_size):
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
-    ref_failed += _window_refused(arch) + _no_cap_or_sink(arch)
+    ref_failed += _window_refused(arch) + _chunk_refused(arch) + _no_cap_or_sink(arch)
     card = _card_limits(D, q.dtype, H // max(KV, 1), store=k_cache_l.dtype,
                         max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
@@ -679,12 +723,29 @@ def attention_block(
     qr, kr = rope(q, k, cos, sin)
     if lf.use_rope is None:
         q, k = qr, kr
-    else:  # a no-rope layer (SmolLM3) keeps q and k as they are
+    else:  # a no-rope layer (SmolLM3, Llama 4) keeps q and k as they are
         q, k = torch.where(lf.use_rope, qr, q), torch.where(lf.use_rope, kr, k)
+    if arch.qk_l2norm:
+        # Llama 4: the unweighted L2 norm after rope, on the rope layers
+        qn, kn = l2_norm(q, arch.rms_norm_eps), l2_norm(k, arch.rms_norm_eps)
+        if lf.use_rope is None:
+            q, k = qn, kn
+        else:
+            q, k = torch.where(lf.use_rope, qn, q), torch.where(lf.use_rope, kn, k)
+    if arch.attn_temperature_tuning and lf.use_rope is not None:
+        # Llama 4: the NoPE layers' query temperature by position, from the
+        # device's position ids (a graph holds it)
+        pos = position_ids.float()
+        scales = (torch.log1p(torch.floor((pos + 1.0) / arch.floor_scale)) * arch.attn_scale
+                  + 1.0)[:, None, :, None]
+        q = torch.where(lf.use_rope, q, (q * scales).to(q.dtype))
     sink = p_attn["sink"] if arch.attention_sink else None  # (H,) learned logits
+    # the plain paths' masks take the flags on the device; the kernels the
+    # layer's window and chunk on the host
     sc, win = arch.attention_scale, dict(sliding_window=arch.sliding_window,
-                                         sliding_window_enabled=lf.window_enabled, sink=sink,
-                                         logit_softcap=arch.attn_logit_softcap)
+                                         sliding_window_enabled=lf.window_enabled,
+                                         chunk_size=arch.chunk_size, chunk_enabled=lf.use_rope,
+                                         sink=sink, logit_softcap=arch.attn_logit_softcap)
 
     def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
         ctx2d = ctx.transpose(1, 2).reshape(B, S, H * D)
@@ -705,7 +766,8 @@ def attention_block(
             k_s, v_s, kv_len, idx, ring = tkg_stacked
             ctx = fa.flash_attention_decode_fused_stacked(
                 q, k_s, v_s, k, v, position_ids, idx, kv_len=kv_len,
-                lines=layout.lines(ci, B), scale=sc, sliding_window=lf.window, ring=ring,
+                lines=layout.lines(ci, B), scale=sc, sliding_window=lf.window,
+                chunk_size=lf.chunk, ring=ring,
             )
             _record_strategy("tkg_fused_kernel_stacked")
             return o_proj(ctx), (k, v)
@@ -733,7 +795,7 @@ def attention_block(
             _record_strategy("tkg_fused_kernel")
             ctx = fa.flash_attention_decode_fused(q, kk, vv, k_att, v_att, position_ids, kv_pos,
                                                   scale=sc, sliding_window=lf.window,
-                                                  ring=_ring(layout))
+                                                  chunk_size=lf.chunk, ring=_ring(layout))
             return o_proj(ctx), (k, v)
         # this step's slots hold stale rows: poison their positions so only
         # the fresh rows are attended there (frozen rows write nothing)
@@ -756,7 +818,7 @@ def attention_block(
     )
     if use_kernel:
         ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids, scale=sc,
-                                         sliding_window=lf.window)
+                                         sliding_window=lf.window, chunk_size=lf.chunk)
         _record_strategy("cte_flash_kernel")
     else:
         ctx = attn_ops.attention_with_positions(q, k, v, position_ids, position_ids, scale=sc,
@@ -812,13 +874,15 @@ def decoder_layer(
     attend_to_cache, layout=DEFAULT_KV_LAYOUT, cache_inputs=None, defer_write=False,
     stacked_layer_idx=None, tkg_stacked=None, mlp_stacked=None, qkv_stacked=None,
     adapter_ids=None, kv_window=None, window: Optional[int] = None,
+    chunk: Optional[int] = None,
 ):
     """One layer. ``kv_window`` (an MLA layer only, which writes into its
     whole cache line before attending) bounds the attended window; other
-    layers get their cache views already windowed. ``window``: the layer's
-    sliding window on the host (:meth:`DecoderArch.layer_window`); its
+    layers get their cache views already windowed. ``window`` / ``chunk``:
+    the layer's sliding window and attention chunk on the host
+    (:meth:`DecoderArch.layer_window`, :meth:`DecoderArch.layer_chunk`); its
     ``use_sliding_window`` / ``use_rope`` flags ride the params."""
-    lf = LayerFlags(lp.get("use_sliding_window"), lp.get("use_rope"), window)
+    lf = LayerFlags(lp.get("use_sliding_window"), lp.get("use_rope"), window, chunk)
     if "use_local_rope" in lp:
         # Gemma-3: cos / sin arrive stacked [global, local] and the layer's
         # flag picks one on the device (torch.where: a graph holds it)
@@ -844,6 +908,17 @@ def decoder_layer(
             qkv_stacked=qkv_stacked, adapter_ids=adapter_ids, lf=lf,
         )
     rm = arch.residual_multiplier
+    if arch.parallel_block:
+        # Cohere 2: the feed-forward reads the layer input through its own
+        # norm (the converter aliases Cohere's one norm onto both keys), and
+        # both branches join the residual in one add
+        h = _norm(arch, hidden, lp["post_attention_layernorm"])
+        if arch.moe is not None and "moe" in lp:
+            _record_strategy(moe_ops.moe_strategy(arch.moe, h))
+            ff = moe_ops.moe_block(arch, arch.moe, lp["moe"], h)
+        else:
+            ff = mlp_block(arch, lp["mlp"], h, mlp_stacked, stacked_layer_idx, adapter_ids)
+        return hidden + (attn_out + ff) * rm, kv
     if arch.sandwich_norm:
         # the Gemma 2/3 layout (its four norms (1 + w) under gemma_norm) and
         # AFMoE's: the attention output normed before its residual add; the
@@ -971,6 +1046,10 @@ def run_decoder_layers(
              and (cache_inputs or {}).get("attn_mask") is None)
     interleaved = "k_win" in cache
     segments = layer_segments(stacked_params)
+    if (arch.chunk_size is not None and arch.rope_pattern is None
+            and any("use_rope" in seg for seg in segments)):
+        raise ValueError("the layers carry use_rope flags but arch.rope_pattern is unset: the "
+                         "card's kernels would chunk the NoPE layers too")
     if interleaved and len(segments) != 1:
         raise NotImplementedError("interleaved window-sized KV requires a homogeneous layer stack")
     kinds, layouts = _kinds(arch, cache, layout)
@@ -1035,7 +1114,7 @@ def run_decoder_layers(
                 cache_spec, attend_to_cache, lay, ci, defer_write=defer,
                 stacked_layer_idx=j, tkg_stacked=tkg_stacked, mlp_stacked=mlp_stacked,
                 qkv_stacked=qkv_stacked, adapter_ids=adapter_ids, kv_window=mla_window,
-                window=arch.layer_window(i),
+                window=arch.layer_window(i), chunk=arch.layer_chunk(i),
             )
             if collect is not None:
                 collect.append(hidden)

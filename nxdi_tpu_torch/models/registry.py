@@ -51,15 +51,20 @@ _REGISTRY: Dict[str, Tuple[str, str]] = {
     "gemma3_text": (f"{_M}.gemma3.modeling_gemma3", "Gemma3InferenceConfig"),
     "gemma2": (f"{_M}.gemma2.modeling_gemma2", "Gemma2InferenceConfig"),
     "vaultgemma": (f"{_M}.vaultgemma.modeling_vaultgemma", "VaultGemmaInferenceConfig"),
+    "llama4": (f"{_M}.llama4.modeling_llama4", "Llama4InferenceConfig"),
+    "llama4_text": (f"{_M}.llama4.modeling_llama4", "Llama4InferenceConfig"),
+    "cohere2": (f"{_M}.cohere2.modeling_cohere2", "Cohere2InferenceConfig"),
+    "exaone4": (f"{_M}.exaone4.modeling_exaone4", "Exaone4InferenceConfig"),
+    "olmo3": (f"{_M}.olmo3.modeling_olmo3", "Olmo3InferenceConfig"),
 }
 
 # registered by the JAX package, not ported yet (ROADMAP Queue 1)
 NOT_PORTED = frozenset({
     "gemma3", "pixtral", "mistral3", "ovis2",
-    "llama4", "llama4_text", "llava", "mllama", "qwen2_vl", "qwen3_vl", "qwen2_5_vl",
+    "llava", "mllama", "qwen2_vl", "qwen3_vl", "qwen2_5_vl",
     "mimo_v2", "gpt2", "qwen3_next", "recurrent_gemma",
     "recurrentgemma", "qwen2_5_omni", "lfm2", "qwen2_5_omni_thinker", "falcon_h1",
-    "starcoder2", "stablelm", "glm4", "exaone4", "olmo3", "cohere2", "gpt_neox",
+    "starcoder2", "stablelm", "glm4", "gpt_neox",
     "opt", "biogpt", "xglm", "gpt_bigcode", "falcon", "persimmon", "phi", "apertus", "janus",
     "idefics", "orion",
 })

@@ -35,10 +35,13 @@ def chunked_attention_mask_from_positions(q_pos, kv_pos, chunk_size: int, valid_
     return mask & same_chunk
 
 
-def _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled=None):
-    """``sliding_window_enabled``: a 0-d bool tensor that turns the window on
-    or off for this layer (a per-layer flag of a mixed stack, read on the
-    device without a host sync)."""
+def _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled=None,
+                        chunk_enabled=None):
+    """``sliding_window_enabled`` / ``chunk_enabled``: a 0-d bool tensor that
+    turns the window or the chunk on or off for this layer (a per-layer flag
+    of a mixed stack, read on the device without a host sync; Llama 4 chunks
+    its rope layers only). The window wins over the chunk, as in the JAX
+    package."""
     if sliding_window is not None:
         mask = sliding_window_mask_from_positions(q_pos, kv_pos, sliding_window)
         if sliding_window_enabled is not None:
@@ -46,7 +49,10 @@ def _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_wind
                                causal_mask_from_positions(q_pos, kv_pos))
         return mask
     if chunk_size is not None:
-        return chunked_attention_mask_from_positions(q_pos, kv_pos, chunk_size)
+        mask = chunked_attention_mask_from_positions(q_pos, kv_pos, chunk_size)
+        if chunk_enabled is not None:
+            mask = torch.where(chunk_enabled, mask, causal_mask_from_positions(q_pos, kv_pos))
+        return mask
     return causal_mask_from_positions(q_pos, kv_pos)
 
 
@@ -91,11 +97,12 @@ def grouped_attention(q, k, v, mask, scale: Optional[float] = None, sink=None,
 def attention_with_positions(
     q, k, v, q_pos, kv_pos, *, scale=None,
     sliding_window: Optional[int] = None, chunk_size: Optional[int] = None,
-    sliding_window_enabled=None, sink=None, logit_softcap: Optional[float] = None,
+    sliding_window_enabled=None, chunk_enabled=None, sink=None,
+    logit_softcap: Optional[float] = None,
 ):
     """Attention with the mask derived from positions (prefill and decode)."""
     mask = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size,
-                                sliding_window_enabled)
+                                sliding_window_enabled, chunk_enabled)
     return grouped_attention(q, k, v, mask, scale=scale, sink=sink, logit_softcap=logit_softcap)
 
 
@@ -104,8 +111,8 @@ def attention_two_part(
     kk, vv,  # cache segment (B, KV, W, D)
     k2, v2,  # fresh segment (B, KV, S2, D)
     q_pos, kv_pos, kv_pos2, *,
-    scale=None, sliding_window=None, chunk_size=None, sliding_window_enabled=None, sink=None,
-    logit_softcap: Optional[float] = None,
+    scale=None, sliding_window=None, chunk_size=None, sliding_window_enabled=None,
+    chunk_enabled=None, sink=None, logit_softcap: Optional[float] = None,
 ):
     """Attention over [cache, fresh] without concatenating K/V: the scores are
     concatenated for one softmax and the two weighted sums add. The
@@ -120,8 +127,10 @@ def attention_two_part(
     s1 = torch.einsum("bkgqd,bksd->bkgqs", qg, kk.float())
     s2 = torch.einsum("bkgqd,bksd->bkgqs", qg, k2.float())
     s = _softcap(torch.cat([s1, s2], dim=-1) * scale, logit_softcap)
-    m1 = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled)
-    m2 = _mask_from_positions(q_pos, kv_pos2, sliding_window, chunk_size, sliding_window_enabled)
+    m1 = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled,
+                              chunk_enabled)
+    m2 = _mask_from_positions(q_pos, kv_pos2, sliding_window, chunk_size, sliding_window_enabled,
+                              chunk_enabled)
     mask = torch.cat([m1, m2], dim=-1)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     weights = _softmax_with_sink(s, sink)

@@ -186,18 +186,20 @@ def decode_chunk(B: int, KV: int, kv_len: int, n_sm: int) -> int:
 
 
 def decode_visible_range(q_pos, kv_start, kv_len: int, *, fresh: bool, window=None,
-                         ring: Optional[int] = None):
+                         ring: Optional[int] = None, chunk=None):
     """(lo, hi) int64 arrays: the slots [lo, hi) each row's decode query
     scans, as the kernel computes them (up to q_pos, exclusive when a fresh
     row replaces the slot at q_pos; inside kv_len; from the sliding
-    window's start, but on a ``ring``, whose positions are not monotone in
-    the slot, from 0). The window and chunk masks and holes are applied per
-    position."""
+    window's start and from the start of q_pos's ``chunk``, but on a
+    ``ring``, whose positions are not monotone in the slot, from 0). The
+    window and chunk masks and holes are applied per position."""
     qp = np.asarray(q_pos, np.int64).reshape(-1)
     ks = np.zeros_like(qp) if kv_start is None else np.asarray(kv_start, np.int64).reshape(-1)
     hi = np.maximum(0, np.minimum(kv_len, qp - ks + (0 if fresh else 1)))
     lo = (np.maximum(0, np.minimum(hi, qp - window + 1 - ks)) if window and not ring
           else np.zeros_like(hi))
+    if chunk and not ring:
+        lo = np.maximum(lo, np.minimum(hi, qp // chunk * chunk - ks))
     return lo, hi
 
 

@@ -33,10 +33,13 @@ def llama3_scaled_inv_freq(
     high_freq_wavelen = original_max_position / high_freq_factor
     wavelen = 2 * np.pi / inv_freq
     scaled = np.where(wavelen > low_freq_wavelen, inv_freq / factor, inv_freq)
-    smooth = (original_max_position / wavelen - low_freq_factor) / (
-        high_freq_factor - low_freq_factor
-    )
-    smoothed = (1 - smooth) * scaled / factor + smooth * scaled
+    # equal factors (Llama 4: 1 and 1) leave no medium band: the division by
+    # zero only fills entries that is_medium drops
+    with np.errstate(divide="ignore", invalid="ignore"):
+        smooth = (original_max_position / wavelen - low_freq_factor) / (
+            high_freq_factor - low_freq_factor
+        )
+        smoothed = (1 - smooth) * scaled / factor + smooth * scaled
     is_medium = (wavelen >= high_freq_wavelen) & (wavelen <= low_freq_wavelen)
     return np.where(is_medium, smoothed, scaled)
 
@@ -190,6 +193,13 @@ def rope_cos_sin_pair(position_ids: torch.Tensor, inv_pair, dtype=torch.float32)
     each (2, B, S, head_dim): a layer's ``use_local_rope`` flag picks index 1."""
     (cg, sg), (cl, sl) = (rope_cos_sin(position_ids, inv_pair[i], dtype) for i in range(2))
     return torch.stack([cg, cl]), torch.stack([sg, sl])
+
+
+def l2_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Unweighted RMS normalization over the last axis, in float32 and cast
+    back (Llama 4's q / k norm, HF ``Llama4TextL2Norm``)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)).to(x.dtype)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

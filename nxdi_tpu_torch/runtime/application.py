@@ -123,12 +123,14 @@ SEGMENTED_REFUSALS = {
 # families share
 MOE_CARRIED = ("sliding_window", "qk_norm", "qk_norm_flat", "embed_scale", "attention_o_bias",
                "layernorm", "clip_qkv", "rotary_dim", "attention_sink", "attn_out_gate",
-               "sandwich_norm", "longrope")
-# the mixed step's plain attention drops the window, the sink and the logit
-# softcap (the JAX package's, ROADMAP Queue 3); the MoE families' other
-# switches are not held on the mixed step
+               "sandwich_norm", "longrope", "rope_interleaved", "qk_l2norm", "chunk_size",
+               "attn_temperature_tuning")
+# the mixed step's plain attention drops the window, the chunk, the sink and
+# the logit softcap (the JAX package's, ROADMAP Queue 3); the MoE families'
+# other switches are not held on the mixed step
 MIXED_REFUSED = ("sliding_window", "layernorm", "clip_qkv", "rotary_dim", "attention_sink",
-                 "attn_out_gate", "sandwich_norm", "longrope", "attn_logit_softcap")
+                 "attn_out_gate", "sandwich_norm", "longrope", "attn_logit_softcap",
+                 "chunk_size")
 
 
 def family_switches(arch) -> List[str]:
@@ -158,6 +160,10 @@ def family_switches(arch) -> List[str]:
         ("longrope", arch.longrope_original_max is not None),
         ("attn_logit_softcap", arch.attn_logit_softcap is not None),
         ("final_logit_softcap", arch.final_logit_softcap is not None),
+        ("chunk_size", arch.chunk_size is not None),
+        ("qk_l2norm", arch.qk_l2norm),
+        ("attn_temperature_tuning", arch.attn_temperature_tuning),
+        ("parallel_block", arch.parallel_block),
     ) if on]
 
 

@@ -1765,7 +1765,9 @@ def _family_card_app(family, widths, graphs, params=None, **tc):
     kw = dict(tp_degree=1, dtype="bfloat16", on_device_sampling_config=OnDeviceSamplingConfig(),
               attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, output_logits=True)
     kw.update(tc)
-    cfg_cls = next(v for k, v in vars(family).items() if k.endswith("InferenceConfig"))
+    # the family's own config class, not the base class it imports
+    cfg_cls = next(v for k, v in vars(family).items()
+                   if k.endswith("InferenceConfig") and v.__module__ == family.__name__)
     cfg = cfg_cls(TorchConfig(**kw), **widths)
     arch = family.build_arch(cfg)
 
@@ -1960,3 +1962,112 @@ def test_ring_kernel_refusals(gen):
     with pytest.raises(ValueError, match="a ring of 16 slots over a cache of 32"):
         fa.flash_attention_decode(q, k, k, torch.zeros((1, 1), dtype=torch.int32),
                                   torch.zeros((1, 32), dtype=torch.int32), ring=16)
+
+
+CHUNK_TOL = {torch.float32: TOL, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_chunk_mode_at_group_5(gen, dtype, D):
+    """Row 1 in chunk mode at Llama-4-Scout's group (40 over 8 heads: G 5,
+    here 10 over 2) against the plain version: 300 positions under chunks of
+    128, one row from 0 and one from 37 (so a chunk boundary cuts a 128-row
+    q tile); bf16 runs the wgmma body; a second call gives the same bits."""
+    B, KV, S = 2, 2, 300
+    q = _randn(gen, B, S, 5 * KV, D).to(dtype).transpose(1, 2)
+    k, v = (_randn(gen, B, S, KV, D).to(dtype).transpose(1, 2) for _ in range(2))
+    pos = (torch.arange(S, dtype=torch.int32)[None] + torch.tensor([[0], [37]],
+                                                                   dtype=torch.int32)).cuda()
+    if dtype == torch.bfloat16:
+        assert fa.prefill_body(q, k, v) == "wgmma"
+    before = fa.flash_attention_prefill.launches
+    got = fa.flash_attention_prefill(q, k, v, pos, pos, chunk_size=128)
+    assert fa.flash_attention_prefill.launches == before + 1
+    want = fa.flash_attention_prefill_plain(q, k, v, pos, pos, chunk_size=128)
+    assert _max_err(got, want) <= CHUNK_TOL[dtype]
+    assert _max_err(fa.flash_attention_prefill_plain(q, k, v, pos, pos), want) > 1e-2
+    assert torch.equal(fa.flash_attention_prefill(q, k, v, pos, pos, chunk_size=128), got)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_decode_chunk_mode_at_group_5(gen, monkeypatch, dtype, D):
+    """Row 3 (the stacked fused decode, layer 1 of 3) in chunk mode at G 5
+    over 700 slots under chunks of 256, split across blocks and with one
+    chunk a row, against the plain version: a row past two boundaries, a row
+    exactly at a chunk's start (its fresh row alone is visible), a row in the
+    first chunk and a row one past a boundary; a second call gives the same
+    bits."""
+    B, KV, S, L = 4, 2, 700, 3
+    H = 5 * KV
+
+    def r(*shape):
+        return _randn(gen, *shape).to(dtype)
+
+    q = r(B, 1, H, D).transpose(1, 2)
+    ks, vs = r(L, B, KV, S, D), r(L, B, KV, S, D)
+    kn, vn = r(B, 1, KV, D).transpose(1, 2), r(B, 1, KV, D).transpose(1, 2)
+    qp = torch.tensor([[690], [512], [100], [257]], dtype=torch.int32, device="cuda")
+
+    def call():
+        return fa.flash_attention_decode_fused_stacked(q, ks, vs, kn, vn, qp, 1, chunk_size=256)
+
+    want = fa.flash_attention_decode_fused_plain(q, ks[1], vs[1], kn, vn, qp, chunk_size=256)
+    before = fa.flash_attention_decode_fused.launches
+    got = call()
+    assert fa.flash_attention_decode_fused.launches == before + 1
+    assert _max_err(got, want) <= CHUNK_TOL[dtype]
+    assert torch.equal(call(), got)
+    causal = fa.flash_attention_decode_fused_plain(q, ks[1], vs[1], kn, vn, qp)
+    assert _max_err(causal, want) > 1e-2
+    monkeypatch.setattr(fa, "decode_chunk", _one_chunk)
+    assert _max_err(call(), want) <= CHUNK_TOL[dtype]
+
+
+def _nope_widths(name):
+    from nxdi_tpu_torch.models.cohere2 import modeling_cohere2 as tc2
+    from nxdi_tpu_torch.models.llama4 import modeling_llama4 as tl4
+
+    if name == "llama4":  # G 5, chunks of 16 under 40-token prompts, layer 1 NoPE
+        return tl4, dict(tl4.LLAMA_4_SCOUT, hidden_size=256, intermediate_size=256,
+                         num_hidden_layers=2, num_attention_heads=10, num_key_value_heads=2,
+                         head_dim=64, vocab_size=512, num_local_experts=4,
+                         attention_chunk_size=16, no_rope_layers=[1, 0])
+    return tc2, dict(tc2.COMMAND_R7B, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                     head_dim=64, vocab_size=512, sliding_window=16, sliding_window_pattern=2)
+
+
+@pytest.mark.parametrize("name", ["llama4", "cohere2"])
+def test_nope_family_graph_replay_equals_eager(gen, name):
+    """Llama 4 (rows 1 and 3 in chunk mode on its rope layer, unchunked on
+    its NoPE layer, the L2 norm and the temperature from device tensors)
+    and Command R7B (the window on its rope layer, its NoPE global layer,
+    the parallel block) inside captured graphs, 120 tokens past 40-token
+    prompts: every dispatch bit for bit against an eager app on the same
+    params, the same launch counts, every bucket a graph."""
+    family, widths = _nope_widths(name)
+    graphs = _family_card_app(family, widths, True, **STATIC)
+    eager = _family_card_app(family, widths, False, params=graphs.params, **STATIC)
+    g_log, g_counts, g_toks = _drive(graphs, "static")
+    e_log, e_counts, e_toks = _drive(eager, "static")
+    assert np.array_equal(np.asarray(g_toks), np.asarray(e_toks))
+    assert len(g_log) == len(e_log) > 0
+    for i, (a, b) in enumerate(zip(g_log, e_log)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (i, key)
+    assert g_counts == e_counts
+    for kernel in ("flash_attention_prefill", "flash_attention_decode_fused", "kv_commit_rows"):
+        assert g_counts[kernel] > 0, kernel
+    for w in graphs.models.values():
+        assert all(bg.graph is not None for bg in w.bucket_graphs.values())
+
+
+def test_chunked_paged_engine_refuses_the_kernel_flags(gen):
+    """The paged and ragged kernels take no chunk (the JAX rule): on the card
+    a chunked model's paged engine under the prefill kernel flag raises,
+    naming the chunk."""
+    family, widths = _nope_widths("llama4")
+    with pytest.raises(NotImplementedError, match="chunk_size 16"):
+        _family_card_app(family, widths, False, **dict(ENGINE, attn_block_tkg_kernel_enabled=False))

@@ -196,7 +196,8 @@ def test_registry_keys_and_errors():
     an unknown type raises KeyError listing the registered ones."""
     ported = set(FAMILIES) | {"llama", "mixtral", "deepseek", "deepseek_v3", "minicpm4",
                               "qwen3_moe", "gpt_oss", "minimax_m2", "dbrx", "phimoe", "afmoe",
-                              "phi3", "gemma3_text", "gemma2", "vaultgemma"}
+                              "phi3", "gemma3_text", "gemma2", "vaultgemma", "llama4",
+                              "llama4_text", "cohere2", "exaone4", "olmo3"}
     assert set(treg.known_model_types()) == ported
     for t in ported:
         module, cfg_cls = treg.get_family(t)
