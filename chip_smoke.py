@@ -254,6 +254,25 @@ code is non-zero:
    B 8 x 1024; Command R7B whole (32 layers) at B 2 x 6144 on the full
    cache and on the ring: prefill ms, decode ms/step, a profiled decode
    step, cache bytes, peak memory, launches exact.
+3l. The decode kernels' head tiles at multi-query groups above 16: rows 3,
+   5 and 7 (and rows 1 and 6, which index the kv head per query head) at
+   Falcon-7B's group (71 query heads of 64 on one kv head: five tiles) and
+   StarCoder's (48 of 128: three), bf16, B 8: each against its plain
+   version (the decodes also one chunk a row), timed beside its bound, the
+   plain version and SDPA over the expanded or gathered cache; row 8 at
+   both groups against its plain version in bf16 and f32.
+4o. The last dense families (StarCoder2 under a window of 8, Falcon at
+   Falcon-7B's attention widths, GPT-NeoX, Phi at head dim 80, GLM-4 at G
+   16, StableLM, Persimmon, Apertus, Orion, OPT, BioGPT, XGLM, GPT-2 with
+   its position table as long as seq_len, BigCode at StarCoder's attention
+   widths) at 2 layers, float32, batch 2, 64-token prompts: generate() on
+   the CPU, the card's graphs and the card eagerly: tokens equal, logits
+   within 1e-4, graphs equal to eager bit for bit, launches exact.
+5o. Falcon-7B whole (32 layers, G 71) through generate() at B 8 x 1024 and
+   the split paged engine over phase 5b's traffic; StarCoder2-15B whole (40
+   layers) at B 2 x 6144 past its 4096 window; bf16, graphs, the attention
+   kernels on: prefill ms, decode ms/step, a profiled decode step, cache
+   and peak GB, launches exact.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -5027,7 +5046,7 @@ MISTRAL_WINDOW = dict(H=32, KV=8, D=128, B=2, S=6144, window=4096, L=2)
 GEMMA_MLP = dict(hidden=2048, inter=16384, layers=2)
 GEMMA_MLP_M = (8, 8192)
 # the stderr tag of the phases that share the 3h helpers
-PHASE_TAGS = {"3h": "family-3h", "3i": "moe-family-3i", "3j": "ring-3j"}
+PHASE_TAGS = {"3h": "family-3h", "3i": "moe-family-3i", "3j": "ring-3j", "3l": "mqa-3l"}
 
 
 def _window_pairs(S, window):
@@ -5479,7 +5498,7 @@ MOE_HEADS = {
 }
 
 
-def moe_paged_points(torch, results, fa, point, c, flush, gen):
+def moe_paged_points(torch, results, fa, point, c, flush, gen, phase="3i"):
     """Rows 7 and 6 at one of phase 3i's points (bf16) on phase 3b's pool:
     the paged decode at B 8 over blocks of 128 with a hole (decode_point),
     and the paged prefill of a 512-token chunk after 512 on the TMA + wgmma
@@ -5529,14 +5548,14 @@ def moe_paged_points(torch, results, fa, point, c, flush, gen):
         library_decode, (2 * visible * KV * D + 2 * B * H * D) * 2 + bt.numel() * 4,
         4 * H * D * visible, flush, PAGED_TOL["bfloat16"])
     row.update(point=point, head_dim=D)
-    log(f"[moe-family-3i] paged_decode {point}: the row above")
+    log(f"[{PHASE_TAGS[phase]}] paged_decode {point}: the row above")
 
     Sq, start = 512, 512
     bt1 = bt[7:8]
     qx = randn((1, Sq, H, D)).transpose(1, 2)
     qpx = (start + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
     body = fa.paged_prefill_body(qx, kc, vc, bs)
-    assert body == "wgmma", f"3i paged_prefill {point}: body {body}"
+    assert body == "wgmma", f"{phase} paged_prefill {point}: body {body}"
 
     def call():
         return fa.paged_attention_prefill(qx, kc, vc, bt1, qpx, block_size=bs)
@@ -5546,11 +5565,11 @@ def moe_paged_points(torch, results, fa, point, c, flush, gen):
 
     got = call()
     err = (got.float() - plain().float()).abs().max().item()
-    assert torch.equal(call(), got), f"3i paged_prefill {point}: a second call gave other bits"
+    assert torch.equal(call(), got), f"{phase} paged_prefill {point}: a second call gave other bits"
     times, names, _ = traced_times(torch, call, PREFILL_CALLS, flush, kernel="prefill")
     ms, lo, hi = spread(times)
     ran = sorted(attention_ms([(0.0, n) for n in names]))
-    assert ran == [PREFILL_KERNEL[body]], f"3i paged_prefill {point}: ran {ran}"
+    assert ran == [PREFILL_KERNEL[body]], f"{phase} paged_prefill {point}: ran {ran}"
     plain_ms = measure(torch, plain, n=3, flush=flush)
     pmask = (slot_pos[None, :] <= qpx[0][:, None])[None, None]
 
@@ -5566,7 +5585,7 @@ def moe_paged_points(torch, results, fa, point, c, flush, gen):
     row = results[-1]
     row.update(ms_min=lo, ms_max=hi, point=point, head_dim=D, body=body, kernels=ran,
                share_of_bound=row["bound_ms"] / ms)
-    log(f"[moe-family-3i] paged_prefill {point} ({ran[0]}): err {err:.3g} kernel {ms:.4f} ms "
+    log(f"[{PHASE_TAGS[phase]}] paged_prefill {point} ({ran[0]}): err {err:.3g} kernel {ms:.4f} ms "
         f"(min {lo:.4f} max {hi:.4f}) plain {plain_ms:.4f} gather + sdpa {lib_ms:.4f} bound "
         f"{row['bound_ms']:.4f} ({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f} % of the "
         "bound")
@@ -6647,6 +6666,307 @@ def nope_full_depth(torch, np, mods, card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 3l, 4o, 5o: the last dense families (StarCoder2, Falcon, GPT-NeoX,
+# Phi, GLM-4, StableLM, Persimmon, Apertus, Orion and the learned-position
+# GPT-2 / BigCode / OPT / BioGPT / XGLM lineage), and the decode kernels at
+# multi-query groups above 16 (head tiles of 16)
+# ---------------------------------------------------------------------------
+
+# phase 3l's points: one kv head under Falcon-7B's 71 query heads of 64 and
+# under StarCoder's (BigCode's) 48 of 128, at phase 5's B 8: rows 1 and 3 at
+# a B 8 x 1024 prefill and a 2-layer stack of 2048 slots, row 5 over a
+# 2048-slot window, rows 7 and 6 on phase 3b's pool, row 8 checked
+MQA_HEADS = {
+    "G 71 (Falcon-7B)": dict(H=71, KV=1, D=64, B=8, S=1024, S_cache=2048, L=2),
+    "G 48 (StarCoder)": dict(H=48, KV=1, D=128, B=8, S=1024, S_cache=2048, L=2),
+}
+
+
+def mqa_window_point(torch, results, fa, point, c, flush, gen):
+    """Row 5 (the window decode: this step's row already in the window) at
+    one of phase 3l's points over an S_cache-slot window, rows near its end
+    and one at 0 (decode_point, beside SDPA over the expanded window under
+    the inclusive causal mask)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    B, H, KV, D, S = c["B"], c["H"], c["KV"], c["D"], c["S_cache"]
+    G = H // KV
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(
+            torch.bfloat16)
+
+    kw, vw = randn((B, S, KV, D)).transpose(1, 2), randn((B, S, KV, D)).transpose(1, 2)
+    q = randn((B, 1, H, D)).transpose(1, 2)
+    qp = torch.tensor([[S - 1 - 37 * b] for b in range(B)], device=dev, dtype=torch.int32)
+    qp[-1, 0] = 0
+    kv_pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
+    wmask = (kv_pos <= qp)[:, None, None, :]
+    kwe, vwe = kw.repeat_interleave(G, dim=1), vw.repeat_interleave(G, dim=1)
+    seen = int((kv_pos <= qp).sum())
+    row = decode_point(
+        torch, results, "window_decode", "bfloat16", fa,
+        lambda: fa.flash_attention_decode(q, kw, vw, qp, kv_pos),
+        lambda: fa.flash_attention_decode_plain(q, kw, vw, qp, kv_pos),
+        lambda: F.scaled_dot_product_attention(q, kwe, vwe, attn_mask=wmask),
+        (2 * seen * KV * D + 2 * B * H * D) * 2, 4 * H * D * seen, flush,
+        PAGED_TOL["bfloat16"])
+    row.update(point=point, head_dim=D, group=G, head_tiles=fa.decode_head_tiles(H, KV))
+    log(f"[mqa-3l] window_decode {point}: the row above ({seen} visible positions)")
+
+
+def mqa_ragged_check(torch, fa, rpa, c, gen):
+    """Row 8 at one of phase 3l's groups: a packed stream of a 130-token
+    prefill chunk beside a long and a short decode row (block 128), bf16 and
+    f32, against its plain version (the mixed step refuses these families'
+    LayerNorms, so row 8 is off their path: checked, not timed). Returns the
+    largest error by dtype."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    H, KV, D = c["H"], c["KV"], c["D"]
+    T, bs, NB, R = 160, 128, 16, 3
+    rows = [(2, 100, 130), (0, 1900, 1), (1, 7, 1)]
+    perm = torch.randperm(R * NB, generator=torch.Generator().manual_seed(7)).tolist()
+    bt = np.full((R, NB), -1, np.int32)
+    rid, qp = np.full(T, -1, np.int32), np.zeros(T, np.int32)
+    t, nxt = 0, 0
+    for slot, start, n in rows:
+        rid[t:t + n], qp[t:t + n] = slot, np.arange(start, start + n)
+        t += n
+        nb = (start + n - 1) // bs + 1
+        bt[slot, :nb] = perm[nxt:nxt + nb]
+        nxt += nb
+    errs = {}
+    for dt, tol in ((torch.bfloat16, NEW_TOL[("ragged", "bfloat16")]),
+                    (torch.float32, NEW_TOL[("ragged", "float32")])):
+        kc, vc = (torch.randn((R * NB * bs, KV, D), generator=gen, device=dev).to(dt)
+                  for _ in range(2))
+        q = torch.randn((1, T, H, D), generator=gen, device=dev).to(dt).transpose(1, 2)
+        plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+        got = rpa.ragged_paged_attention(q, kc, vc, bt, rid, qp, block_size=bs, plan=plan)
+        want = rpa.ragged_paged_attention_plain(q, kc, vc, bt, rid, qp, block_size=bs)
+        err = (got.float() - want.float()).abs().max().item()
+        name = str(dt).replace("torch.", "")
+        assert err <= tol, f"3l ragged G {H // KV} {name}: max abs err {err} > {tol}"
+        assert bool((got[:, :, torch.from_numpy(rid < 0).to(dev)] == 0).all()), "3l ragged pad"
+        errs[name] = err
+    return errs
+
+
+def check_mqa_kernels(torch, results):
+    """Phase 3l. The decode kernels' head tiles at Falcon-7B's group (71
+    query heads of 64 on one kv head: five tiles, the last of 7 heads) and
+    StarCoder's (48 of 128: three), bf16: rows 3, 5 and 7 (the three decode
+    modes) against their plain versions, split across blocks and one chunk
+    a row, timed over flushed calls beside their bound (each visible K/V
+    row read once), the plain version and SDPA over the expanded (or
+    gathered and masked) cache; rows 1 and 6, which index the kv head per
+    query head, the same way; row 8 against its plain version."""
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(
+            torch.bfloat16)
+
+    ragged = {}
+    for point, c in MQA_HEADS.items():
+        B, H, KV, S, D = c["B"], c["H"], c["KV"], c["S"], c["D"]
+        tiles = fa.decode_head_tiles(H, KV)
+        q = randn((B, S, H, D)).transpose(1, 2)
+        k, v = randn((B, S, KV, D)).transpose(1, 2), randn((B, S, KV, D)).transpose(1, 2)
+        pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S).contiguous()
+        family_prefill_point(torch, results, fa, point, q, k, v, pos, None, flush, phase="3l")
+        results[-1].update(group=H // KV)
+        del q, k, v
+        torch.cuda.empty_cache()
+        ks, vs, _ = family_decode_point(torch, results, fa, point, c, None, flush, gen,
+                                        phase="3l")
+        results[-1].update(group=H // KV, head_tiles=tiles)
+        del ks, vs
+        torch.cuda.empty_cache()
+        mqa_window_point(torch, results, fa, point, c, flush, gen)
+        torch.cuda.empty_cache()
+        moe_paged_points(torch, results, fa, point, c, flush, gen, phase="3l")
+        results[-2].update(group=H // KV, head_tiles=tiles)  # row 7
+        results[-1].update(group=H // KV)  # row 6
+        torch.cuda.empty_cache()
+        ragged[point] = mqa_ragged_check(torch, fa, rpa, c, gen)
+        log(f"[mqa-3l] ragged {point}: max abs err {ragged[point]} (bf16, f32) against the "
+            "plain version")
+    return ragged
+
+
+# phase 4o: every family of the slice at tiny widths, 2 layers, f32, batch
+# 2, 64-token prompts: StarCoder2 under a window of 8, Phi at head dim 80
+# (hidden 320 over 4 heads), GLM-4 at 16 query heads on one kv head, GPT-2's
+# position table as long as seq_len (its padded and warmup rows reach the
+# table's end), and Falcon-7B's and StarCoder's groups at their published
+# attention widths (71 query heads of 64, 48 of 128, on one kv head)
+TIER3_TINY = dict(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                  num_key_value_heads=2, vocab_size=512, max_position_embeddings=4096,
+                  rope_theta=10000.0, rms_norm_eps=1e-5, tie_word_embeddings=False)
+TIER3_CASES = {
+    "starcoder2": dict(TIER3_TINY, sliding_window=8, use_bias=True,
+                       hidden_act="gelu_pytorch_tanh"),
+    "falcon G 71": dict(TIER3_TINY, hidden_size=4544, ffn_hidden_size=1024,
+                        num_attention_heads=71, multi_query=True, parallel_attn=True,
+                        bias=False, tie_word_embeddings=True),
+    "gpt_neox": dict(TIER3_TINY, num_key_value_heads=4, rotary_pct=0.25,
+                     use_parallel_residual=True, hidden_act="gelu"),
+    "phi D 80": dict(TIER3_TINY, hidden_size=320, partial_rotary_factor=0.4,
+                     hidden_act="gelu_new"),
+    "glm4 G 16": dict(TIER3_TINY, num_attention_heads=16, num_key_value_heads=1, head_dim=64,
+                      partial_rotary_factor=0.5),
+    "stablelm": dict(TIER3_TINY, partial_rotary_factor=0.25, use_qkv_bias=True),
+    "persimmon": dict(TIER3_TINY, partial_rotary_factor=0.5, qk_layernorm=True,
+                      hidden_act="relu2"),
+    "apertus": dict(TIER3_TINY, hidden_act="xielu"),
+    "orion": dict(TIER3_TINY, rms_norm_eps=1e-5),
+    "opt": dict(TIER3_TINY, ffn_dim=512, activation_function="relu", tie_word_embeddings=True),
+    "biogpt": dict(TIER3_TINY, hidden_act="gelu", tie_word_embeddings=True),
+    "xglm": dict(d_model=256, attention_heads=4, num_layers=2, ffn_dim=512, vocab_size=512,
+                 max_position_embeddings=4096, activation_function="gelu"),
+    "gpt2": dict(n_embd=256, n_head=4, n_layer=2, n_inner=512, vocab_size=512, n_positions=256),
+    "gpt_bigcode G 48": dict(n_embd=6144, n_head=48, n_layer=2, n_inner=1024, vocab_size=512,
+                             n_positions=4096, multi_query=True),
+}
+
+
+def tier3_family(case, layers):
+    """(module, config class, widths) of a phase 4o case (its registry
+    type is the case's first word) at ``layers`` layers."""
+    widths = TIER3_CASES[case]
+    key = "n_layer" if "n_layer" in widths else "num_layers" if "d_model" in widths else (
+        "num_hidden_layers")
+    return dense_family(case.split()[0], **dict(widths, **{key: layers}))
+
+
+def tier3_vs_cpu(torch, np, mods):
+    """Phase 4o: TIER3_CASES at 2 layers, float32, batch 2: greedy
+    generate() on the CPU (plain versions), through the card's graphs and
+    on the card eagerly (run_three: tokens equal, logits within LOGIT_TOL,
+    graphs equal to eager bit for bit), the attention and fused QKV kernels
+    on (and the fused MLP on the gated MLPs), launches exact; at Falcon's
+    and BigCode's groups the decode kernel runs in head tiles (5 and 3)."""
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+
+    L, NEW, P = 2, 24, 64
+    out = {}
+    for case in TIER3_CASES:
+        family = tier3_family(case, L)
+        cfg = family[1](mods[1](seq_len=256), **family[2])
+        arch = family[0].build_arch(cfg)
+        flags = family_flags(arch)
+        apps, arch = three_apps(mods, layers=L, dtype="float32", batch=2, seq_len=256,
+                                ctx_len=128, output_logits=True, family=family, **flags)
+        ids, mask = prompts(np.random.default_rng(7), 2, P, [P, 53], arch.vocab_size)
+        worst, toks, counts, n_same, _ = run_three(torch, mods, f"4o {case}", apps, ids, mask,
+                                                   NEW, kernels=family_kernels())
+        want = family_counts(L, 1, NEW - 1, flags["mlp_kernel_enabled"])
+        assert counts == want, f"phase 4o {case}: launches {counts} != {want}"
+        seen = strategies_of(apps[1])
+        need = {"cte_flash_kernel", "tkg_fused_kernel_stacked", "qkv_fused_kernel"}
+        if flags["mlp_kernel_enabled"]:
+            need.add("mlp_fused_kernel")
+        assert need <= seen, f"phase 4o {case}: strategies {seen} lack {need - seen}"
+        G = arch.num_attention_heads // arch.num_kv_heads
+        out[case] = dict(max_logit_err=worst, launches=counts, dispatches_bitwise=n_same,
+                         head_dim=arch.head_dim, group=G,
+                         head_tiles=fa.decode_head_tiles(arch.num_attention_heads,
+                                                         arch.num_kv_heads),
+                         switches=[k for k in ("learned_pos_embeds", "no_rope", "lm_head_bias",
+                                               "parallel_block", "sandwich_norm", "qk_norm",
+                                               "layernorm") if getattr(arch, k)],
+                         hidden_act=arch.hidden_act, window=arch.sliding_window)
+        log(f"[tier3-2L 4o {case}] generate(): max logit diff {worst:.3g}, graphs = eager over "
+            f"{n_same} dispatches, launches {counts}, G {G} (head tiles "
+            f"{out[case]['head_tiles']}), D {arch.head_dim}, act {arch.hidden_act}")
+        del apps
+        gc.collect()
+    return out
+
+
+# phase 5o's StarCoder2-15B prompts: 6144 tokens, past its 4096 window
+STARCODER_PROMPT = 6144
+
+
+def tier3_full_depth(torch, np, mods, card):
+    """Phase 5o, bf16, graphs, the attention kernels on, random weights
+    from seed 0 at the published widths, 32 new tokens: Falcon-7B whole
+    (32 layers, G 71: the decode kernels in five head tiles) through
+    generate() at B 8 on phase 5's prompt shapes, then the split paged
+    engine over phase 5b's traffic (rows 1, 6 and 7 at G 71); StarCoder2-15B
+    whole (40 layers) at B 2 x 6144 (its 4096 window live in the prefill and
+    every step). Each with prefill ms, decode ms/step, a profiled decode
+    step (busy, idle, device operations), KV cache and peak GB, launches
+    exact."""
+    from nxdi_tpu_torch.models.falcon import modeling_falcon as tf
+    from nxdi_tpu_torch.models.starcoder2 import modeling_starcoder2 as ts
+
+    ml, TorchConfig, ODSC, App, dense, _ = mods
+    NEW, stats, launches = 32, {}, {}
+    falcon = (tf, tf.FalconInferenceConfig, tf.FALCON_7B)
+    starcoder = (ts, ts.Starcoder2InferenceConfig, ts.STARCODER2_15B)
+    P6 = STARCODER_PROMPT
+    for name, family, L, B, P, lengths, seq_len in (
+            ("Falcon-7B", falcon, 32, 8, 1024, [1024, 1024, 1000, 1024, 731, 1024, 1024, 1023],
+             2048),
+            ("StarCoder2-15B", starcoder, 40, 2, P6, [P6, P6 - P6 // 32], P6 + 64)):
+        tag = f"[tier3-5o {name}]"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="bfloat16",
+                             batch=B, seq_len=seq_len, ctx_len=P, device="cuda", family=family)
+        gb = sum(v.numel() * v.element_size() for v in _leaves(app.params)) / 1e9
+        log(f"{tag} {L} layers loaded {time.perf_counter() - t:.1f} s, params {gb:.2f} GB; "
+            f"warmup {app.warm_stats}")
+        ids, mask = prompts(np.random.default_rng(20), B, P, lengths, arch.vocab_size)
+        run, _ = family_generate(torch, np, mods, tag, app, arch, ids, mask, NEW, {})
+        seen = strategies_of(app)
+        assert {"cte_flash_kernel", "tkg_fused_kernel_stacked"} <= seen, (name, seen)
+        run.update(layers=L, param_gb=gb, cache_gb=cache_bytes(app) / 1e9,
+                   peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   group=arch.num_attention_heads // arch.num_kv_heads,
+                   window=arch.sliding_window, warmup=app.warm_stats)
+        log(f"{tag} {card}: KV cache {run['cache_gb']:.3f} GB, peak allocated "
+            f"{run['peak_allocated_gb']:.2f} GB, G {run['group']}, window {arch.sliding_window}")
+        launches[name] = dict(run["launches"])
+        stats[name] = run
+        params = app.params
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "Falcon-7B":
+            e_counts, e_stats = engine_full_depth(torch, np, mods, card, layers=L,
+                                                  family=family, params=params, phase="5o")
+            e_stats.pop("prompts")
+            run["engine"], run["engine_launches"] = e_stats, e_counts
+            for k, v in e_counts.items():
+                launches[name][k] = launches[name].get(k, 0) + v
+            log(f"{tag} split engine {e_stats['tok_s']:.1f} tok/s, TTFT p50 "
+                f"{e_stats['ttft_p50_ms']:.2f} ms p95 {e_stats['ttft_p95_ms']:.2f} ms, TPOT p50 "
+                f"{e_stats['tpot_p50_ms']:.3f} ms, launches {e_counts}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats["launches"] = launches
+    return stats
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -6692,6 +7012,7 @@ def main() -> int:
     check_moe_family_kernels(torch, kernel_results)
     check_ring_kernels(torch, kernel_results)
     check_chunk_kernels(torch, kernel_results)
+    mqa_ragged = check_mqa_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -6705,6 +7026,7 @@ def main() -> int:
     moe_family_2l = moe_family_vs_cpu(torch, np, mods)
     gemma_2l = gemma_vs_cpu(torch, np, mods)
     nope_2l = nope_vs_cpu(torch, np, mods)
+    tier3_2l = tier3_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -6768,9 +7090,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     nope5n = nope_full_depth(torch, np, mods, card)
+    # phase 5o: Falcon-7B (G 71) and its split engine, StarCoder2-15B past
+    # its window
+    gc.collect()
+    torch.cuda.empty_cache()
+    tier3_5o = tier3_full_depth(torch, np, mods, card)
     family_stats = dict(phase_4k=family_2l, phase_5k=family5k, phase_4l=moe_family_2l,
                         phase_5l=moe5l, phase_4m=gemma_2l, phase_5m=gemma5m, phase_4n=nope_2l,
-                        phase_5n=nope5n)
+                        phase_5n=nope5n, phase_3l_ragged=mqa_ragged, phase_4o=tier3_2l,
+                        phase_5o=tier3_5o)
     nl = nope5n["launches"]
     gl = gemma5m["launches"]
     fl = family5k["launches"]
@@ -6792,6 +7120,11 @@ def main() -> int:
         # the chunk rows count phase 5n's two Llama-4-Scout runs
         "Llama-4-Scout chunk 8192": {k: sum(nl[n][k] for n in nl if "Scout" in n)
                                      for k in ("prefill", "decode")},
+        # the multi-query rows: phase 5o's Falcon-7B runs (generate() and the
+        # split engine; row 5 is off that path: the engine decodes through
+        # row 7) and phase 4o's BigCode at StarCoder's group (f32)
+        "G 71 (Falcon-7B)": tier3_5o["launches"]["Falcon-7B"],
+        "G 48 (StarCoder)": tier3_2l["gpt_bigcode G 48"]["launches"],
     }
     # the latent-width commit and V3's MLP rows count phase 5j's runs
     mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
@@ -6882,7 +7215,7 @@ def main() -> int:
                                               "graph_ready_ms", "store", "bf16_pool_ms",
                                               "k_width", "v_width", "hidden", "inter",
                                               "window", "act", "ring", "chunk", "group",
-                                              "unchunked_ms")
+                                              "head_tiles", "unchunked_ms")
                           if f in row})
             if row.get("point") in ("G 8 (Qwen3-30B-A3B)", "G 6 (MiniMax-M2, DBRX)"):
                 entry["group"] = int(row["point"].split()[1])

@@ -57,8 +57,15 @@
 // Design: flash decoding. The kv range [0, kv_len) is cut into C chunks of
 // chunk_len positions, and decode_split_kernel runs one block per (chunk,
 // kv head, row): it serves all G = H / KV q heads of the kv head, so each
-// K/V row is read once. C comes from shapes only (kv_len, B, KV and the SM
-// count: flash_attention.py::decode_chunk aims at two blocks per SM), so
+// K/V row is read once. A group above GMAX (16: the m16 tile's rows; the
+// multi-query families, Falcon-7B's 71 heads and StarCoder's 48 on one kv
+// head) is cut into ceil(G / GMAX) head tiles of up to GMAX heads, one more
+// factor of the grid's kv-head axis (KV x tiles): each block runs the same
+// body over its tile's heads and reads its kv head's K/V rows again, which
+// under multi-query (a one-head cache) L2 serves. (Keeping every tile in
+// one block reads K/V once, but at G 48, D 128 it wants ~290 registers a
+// thread: later work.) C comes from shapes only (kv_len, B, KV x tiles and
+// the SM count: flash_attention.py::decode_chunk aims at two blocks per SM), so
 // the launch never waits on q_pos or the table; a block whose chunk holds
 // no visible position writes an empty state and exits. Inside a block each
 // warp walks 32-position tiles of the chunk, its K and V rows streamed into
@@ -132,6 +139,9 @@ template <typename T, int DMAX>
 __host__ __device__ constexpr int dec_warps() {
   return sizeof(T) * DMAX > 512 ? 1 : sizeof(T) * DMAX > 256 ? 2 : 4;
 }
+
+// head tiles of up to gmax q heads a kv head's group of g takes
+__host__ __device__ inline int dec_head_tiles(int g, int gmax) { return (g + gmax - 1) / gmax; }
 
 // Shared memory of a block: Q as f32 [G][D] (16-byte rounded), then per
 // warp its stages: kDecStages stages of K [32][pitch] and V [32][pitch] in
@@ -229,9 +239,14 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
   constexpr int ES = sizeof(T), EPC = 16 / ES;   // elements per 16-byte piece
 
   extern __shared__ __align__(16) float smem[];
-  const int D = a.D, G = a.H / a.KV, C = a.n_chunks;
+  const int D = a.D, C = a.n_chunks;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x, b = blockIdx.z;
+  // the block's head tile: kv head kvh's q heads h0 ... h0 + G - 1 (the
+  // whole group when it fits in GMAX rows)
+  const int group = a.H / a.KV, n_tiles = dec_head_tiles(group, GMAX);
+  const int kvh = blockIdx.y / n_tiles, tile = blockIdx.y % n_tiles;
+  const int h0 = kvh * group + tile * GMAX, G = min(GMAX, group - tile * GMAX);
   const int qp = a.q_pos[b];
   const int ks = a.kv_start ? a.kv_start[b] : 0;
   const bool direct = C == 1;
@@ -241,7 +256,7 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
   dec_visible<MODE>(a, qp, ks, lo, hi);
   lo = max(lo, c * a.chunk_len);
   hi = min(hi, (int)min((long long)a.kv_len, (long long)(c + 1) * a.chunk_len));
-  const long long part = ((long long)b * a.H + kvh * G) * C + c;  // (b, head kvh * G, c)
+  const long long part = ((long long)b * a.H + h0) * C + c;  // (b, head h0, c)
   if (hi <= lo && !direct) {  // nothing visible here: an empty state
     for (int i = tid; i < G * D; i += blockDim.x) {
       const int g = i / D, d = i % D;
@@ -265,7 +280,7 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
 
   for (int i = tid; i < G * D; i += blockDim.x) {
     const int g = i / D, d = i % D;
-    sQ[i] = to_f32(static_cast<const T*>(a.q)[b * a.qsb + (kvh * G + g) * a.qsh + d]);
+    sQ[i] = to_f32(static_cast<const T*>(a.q)[b * a.qsb + (h0 + g) * a.qsh + d]);
   }
 
   // the slot of position j (< hi), or -1 for a hole
@@ -512,7 +527,7 @@ __global__ void __launch_bounds__(dec_warps<T, DMAX>() * 32) decode_split_kernel
         A = A * corr + p2 * to_f32(vn[d]);
       }
       L = fmaxf(L, 1e-20f);
-      static_cast<T*>(a.out)[b * a.osb + (kvh * G + g) * a.osh + d] =
+      static_cast<T*>(a.out)[b * a.osb + (h0 + g) * a.osh + d] =
           from_f32<T>(A * a.v_scale / L);
     } else {
       const long long sl = part + (long long)g * C;
@@ -604,26 +619,26 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dec_smem_bytes<T, S, DMAX, MMA>(NW, GMAX, DMAX));
   if (attr != cudaSuccess) return attr;
-  const size_t smem = dec_smem_bytes<T, S, DMAX, MMA>(NW, a.H / a.KV, a.D);
+  const int group = a.H / a.KV, tiles = dec_head_tiles(group, GMAX);
+  const size_t smem = dec_smem_bytes<T, S, DMAX, MMA>(NW, group < GMAX ? group : GMAX, a.D);
   decode_split_kernel<T, S, GMAX, DMAX, MODE, MMA>
-      <<<dim3(a.n_chunks, a.KV, a.B), NW * 32, smem, stream>>>(a);
+      <<<dim3(a.n_chunks, a.KV * tiles, a.B), NW * 32, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_chunks == 1) return err;
   decode_combine_kernel<T, MODE, (DMAX > 128 ? 8 : 4)><<<(a.B * a.H + 7) / 8, 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+// GMAX: the q heads of a block. The tensor cores take one m16 tile of
+// them; the CUDA cores the least of 4, 8 and 16 that holds the group. A
+// group above 16 runs in head tiles of 16 on either body.
 template <typename T, int DMAX, Mode MODE, bool MMA>
 cudaError_t dispatch_g(const DecodeArgs& a, cudaStream_t stream) {
   const int G = a.H / a.KV;
-  if constexpr (MMA) {  // one m16 tile of q heads
-    if (G <= 16) return launch<T, 16, DMAX, MODE, true>(a, stream);
-    return cudaErrorInvalidValue;
-  }
+  if constexpr (MMA) return launch<T, 16, DMAX, MODE, true>(a, stream);
   if (G <= 4) return launch<T, 4, DMAX, MODE, false>(a, stream);
   if (G <= 8) return launch<T, 8, DMAX, MODE, false>(a, stream);
-  if (G <= 16) return launch<T, 16, DMAX, MODE, false>(a, stream);
-  return cudaErrorInvalidValue;
+  return launch<T, 16, DMAX, MODE, false>(a, stream);
 }
 
 inline bool decode_args_ok(const DecodeArgs& a) {
@@ -661,11 +676,11 @@ int dispatch(int dtype, const DecodeArgs& a, void* stream) {
 // The paged mode over a one-byte store `kv_dtype` (instantiated by
 // paged_decode_1b.cu alone) at a head dim that is a multiple of 16: tiles
 // are converted as they land (bf16 q: the tensor-core body; f32: the CUDA
-// cores, sized for 16 q heads a kv head).
+// cores, 16 q heads a block: a larger group in head tiles).
 template <Mode MODE>
 int dispatch_one_byte(int dtype, int kv_dtype, const DecodeArgs& a, void* stream) {
   static_assert(MODE == Mode::kPaged, "a one-byte store is the paged pool's");
-  if (!decode_args_ok(a) || a.D % 16 != 0 || a.D > 128 || a.H / a.KV > 16)
+  if (!decode_args_ok(a) || a.D % 16 != 0 || a.D > 128)
     return (int)cudaErrorInvalidValue;
   if (a.B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

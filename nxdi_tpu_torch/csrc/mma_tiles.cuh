@@ -1,7 +1,8 @@
 // The tensor-core tile loop shared by the split decode kernel
 // (decode_kernel.cuh, bf16 q at head dims that are multiples of 16) and the
 // ragged split kernel (ragged_split.cuh, the same): one query position's
-// G <= 16 q heads against the kv positions [lo, hi) of one block, walked in
+// G <= 16 q heads (a head tile of a larger group) against the kv positions
+// [lo, hi) of one block, walked in
 // 32-position tiles, warp w of NW taking tiles w, w + NW, ... The caller
 // maps a position to its slot (-1: a hole) and says whether the position is
 // attended; the loop keeps the warp's online softmax state (m, l, O) in

@@ -11,8 +11,10 @@ the qkv clamp, partial rotary, attention sinks, the attention output gate,
 sandwich norms, LongRoPE), the Gemma 2/3 lineage's (the attention and
 final-logit softcaps; the local / global rope pair) and Llama 4's and the
 global-NoPE hybrids' (chunked attention on the rope layers, the L2 q / k
-norm, the NoPE layers' query temperature, the parallel block) change these
-steps as the JAX package's do; per-layer ``use_rope`` /
+norm, the NoPE layers' query temperature, the parallel block) and the last
+dense families' (learned position tables with no rope, Phi's biased head,
+Apertus's xIELU, the exact GELU of HF's ``"gelu"``) change these steps as
+the JAX package's do; per-layer ``use_rope`` /
 ``use_sliding_window`` / ``use_local_rope`` flags ride the layer stack's
 params (:class:`LayerFlags`).
 
@@ -150,12 +152,32 @@ from nxdi_tpu_torch.ops.rope import (
 ACT_FNS = {
     "silu": F.silu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    # the exact (erf) GELU: HF ACT2FN["gelu"], which Falcon, GPT-NeoX, BioGPT
+    # and XGLM run where their configs say "gelu" (the JAX package gives
+    # them its tanh "gelu", ROADMAP Queue 3); their families map it here
+    "gelu_exact": F.gelu,
     "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
     "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
     "relu": F.relu,
     # squared ReLU (Arcee / AFM, HF ACT2FN["relu2"])
     "relu2": lambda x: torch.square(F.relu(x)),
 }
+
+# Apertus's activation (hidden_act "xielu"), which mlp_block applies with the
+# layer's "xielu" params. HF's XIELUActivation keeps eps as a bf16 buffer:
+# -1e-6 rounded to bf16
+XIELU_EPS = float(torch.tensor(-1e-6, dtype=torch.bfloat16))
+
+
+def xielu(x: torch.Tensor, alpha_p: torch.Tensor, alpha_n: torch.Tensor) -> torch.Tensor:
+    """The xIELU activation (Apertus) in float32, the JAX package's
+    ``xielu``: ``alpha_p`` / ``alpha_n`` are the per-layer scalars after
+    softplus (and + beta for alpha_n), rounded as HF's bf16 parameters are
+    (the converter bakes them)."""
+    xf = x.float()
+    pos = alpha_p * xf * xf + 0.5 * xf
+    neg = (torch.expm1(torch.clamp(xf, max=XIELU_EPS)) - xf) * alpha_n + 0.5 * xf
+    return torch.where(xf > 0, pos, neg).to(x.dtype)
 
 # Attention-strategy trace: attention_block appends the strategy each layer
 # actually ran; ModelWrapper snapshots it per (submodel, bucket).
@@ -290,9 +312,19 @@ class DecoderArch:
     # "use_rope" param flags, which gives a kernel launched on the card its
     # layer's chunk (as kv_window_pattern gives its window)
     rope_pattern: Optional[Tuple[bool, ...]] = None
+    # --- the learned-position lineage's switches (the JAX package's) ---
+    # GPT-2, BigCode and the fairseq decoders: params["position_embeddings"]
+    # (P, H) looked up at position_ids and added after the embedding (and its
+    # scale); no rope anywhere
+    learned_pos_embeds: bool = False
+    no_rope: bool = False
+    # Phi: the params carry "lm_head_bias" (V,) float32, added to the logits
+    # (the forward adds it wherever the params carry it, as the JAX package
+    # does; this field names the switch for the paths that refuse it)
+    lm_head_bias: bool = False
 
     def __post_init__(self):
-        if self.hidden_act not in ACT_FNS:
+        if self.hidden_act not in ACT_FNS and self.hidden_act != "xielu":
             raise NotImplementedError(f"hidden_act {self.hidden_act!r} is not ported yet")
 
     def layer_window(self, i: int) -> Optional[int]:
@@ -416,21 +448,19 @@ def _proj_gate(flag: str, on_cuda: bool, ref_failed: List[str], card_failed: Lis
         )
 
 
-def _card_limits(D: int, dtype: torch.dtype, G: int, max_group: Optional[int] = None,
-                 store: Optional[torch.dtype] = None,
+def _card_limits(D: int, dtype: torch.dtype, store: Optional[torch.dtype] = None,
                  max_head_dim: int = fa.MAX_HEAD_DIM) -> List[str]:
     """The CUDA kernels' limits: head dim (up to ``max_head_dim``: the paged
-    prefill and the ragged kernel take less than the others), q's dtype,
-    heads per kv head, and the KV ``store`` the kernel reads (q's dtype, or,
-    for the paged, ragged and commit kernels, a one-byte store at a head dim
-    that is a multiple of 16, up to 128)."""
+    prefill and the ragged kernel take less than the others), q's dtype, and
+    the KV ``store`` the kernel reads (q's dtype, or, for the paged, ragged
+    and commit kernels, a one-byte store at a head dim that is a multiple of
+    16, up to 128). Any number of query heads per kv head: the decode
+    kernels take a group above 16 in head tiles."""
     bad = []
     if D % 8 or D > max_head_dim:
         bad.append(f"head_dim {D} is not a multiple of 8 up to {max_head_dim}")
     if dtype not in (torch.float32, torch.bfloat16):
         bad.append(f"dtype {dtype} is not float32 or bfloat16")
-    if max_group is not None and G > max_group:
-        bad.append(f"{G} query heads per kv head exceed {max_group}")
     if store is not None and store != dtype:
         if store not in fa.ONE_BYTE_STORES:
             bad.append(f"KV store {store} is neither {dtype} nor a one-byte store")
@@ -524,7 +554,6 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     if ci.get("mixed_row_ids") is not None and S > 1:
         return _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
                              lf)
-    G = H // max(KV, 1)
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
         ref_failed = (_heads_ok(H, KV) + _window_refused(arch) + _chunk_refused(arch)
@@ -536,7 +565,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         store = k_cache_l.dtype
         if S > 1 and _kernel_gate(
             "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-            ref_failed, _card_limits(D, q.dtype, G, store=store,
+            ref_failed, _card_limits(D, q.dtype, store=store,
                                      max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM),
             lf.ref_only(),
         ):
@@ -545,7 +574,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
                 q, k_cache_l, v_cache_l, ci["block_table"], position_ids, **scales)
         if S == 1 and _kernel_gate(
             "attn_block_tkg_kernel_enabled", arch.attn_block_tkg_kernel_enabled, q.is_cuda,
-            ref_failed, _card_limits(D, q.dtype, G, max_group=16, store=store), lf.ref_only(),
+            ref_failed, _card_limits(D, q.dtype, store=store), lf.ref_only(),
         ):
             _record_strategy("tkg_paged_kernel")
             return fa.paged_attention_decode(
@@ -561,7 +590,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
                                           logit_softcap=arch.attn_logit_softcap)
     if S == 1 and _kernel_gate(
         "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype, G, max_group=16),
+        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype),
         lf.ref_only(),
     ):
         _record_strategy("tkg_kernel")
@@ -595,7 +624,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
     ref_failed += _window_refused(arch) + _chunk_refused(arch) + _no_cap_or_sink(arch)
-    card = _card_limits(D, q.dtype, H // max(KV, 1), store=k_cache_l.dtype,
+    card = _card_limits(D, q.dtype, store=k_cache_l.dtype,
                         max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
                     card, lf.ref_only()):
@@ -693,7 +722,6 @@ def attention_block(
     and attends the cache (:func:`_attend_cache`)."""
     B, S, _ = hidden.shape
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
-    G = H // max(KV, 1)
     q, k, v = _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids)
     if arch.clip_qkv is not None:  # DBRX clamps the projections' outputs
         c = arch.clip_qkv
@@ -720,10 +748,12 @@ def attention_block(
             qr_, kr_ = full_rope(q_[..., :rd], k_[..., :rd], cos_, sin_)
             return torch.cat([qr_, q_[..., rd:]], dim=-1), torch.cat([kr_, k_[..., rd:]], dim=-1)
 
-    qr, kr = rope(q, k, cos, sin)
-    if lf.use_rope is None:
-        q, k = qr, kr
+    if arch.no_rope:
+        pass  # the learned-position lineage: positions ride the embeddings
+    elif lf.use_rope is None:
+        q, k = rope(q, k, cos, sin)
     else:  # a no-rope layer (SmolLM3, Llama 4) keeps q and k as they are
+        qr, kr = rope(q, k, cos, sin)
         q, k = torch.where(lf.use_rope, qr, q), torch.where(lf.use_rope, kr, k)
     if arch.qk_l2norm:
         # Llama 4: the unweighted L2 norm after rope, on the rope layers
@@ -788,7 +818,7 @@ def attention_block(
         # attention; the card's kernel takes the ring operand
         if S == 1 and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-            _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype, G, max_group=16),
+            _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype),
             (("frozen-row write positions",) if "write_positions" in ci else ())
             + (("a window-sized ring layer",) if _ring(layout) else ()) + lf.ref_only(),
         ):
@@ -814,7 +844,7 @@ def attention_block(
         return o_proj(ctx), (k_cache_l, v_cache_l)
     use_kernel = _kernel_gate(
         "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype, G), lf.ref_only(),
+        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype), lf.ref_only(),
     )
     if use_kernel:
         ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids, scale=sc,
@@ -861,8 +891,13 @@ def mlp_block(arch: DecoderArch, p_mlp: Dict[str, Any], x: torch.Tensor,
         _record_strategy("mlp_fused_kernel")
         return out.reshape(B, S, H)
     aq, ac = arch.act_quant, arch.act_clamp
-    act = ACT_FNS[arch.hidden_act]
     up = _linear(x, p_mlp["up_proj"], aq, ac, adapter_ids)
+    if arch.hidden_act == "xielu":
+        # Apertus: the layer's activation scalars ride its mlp params
+        a = p_mlp["xielu"]
+        return _linear(xielu(up, a["alpha_p"], a["alpha_n"]), p_mlp["down_proj"], aq, ac,
+                       adapter_ids)
+    act = ACT_FNS[arch.hidden_act]
     if not arch.gated_mlp:
         return _linear(act(up), p_mlp["down_proj"], aq, ac, adapter_ids)
     gate = act(_linear(x, p_mlp["gate_proj"], aq, ac, adapter_ids))
@@ -1080,7 +1115,7 @@ def run_decoder_layers(
         use_stacked_tkg = not quantized and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, hidden.is_cuda,
             _heads_ok(H, KV) + _no_cap_or_sink(arch),
-            _card_limits(arch.head_dim, hidden.dtype, H // max(KV, 1), max_group=16),
+            _card_limits(arch.head_dim, hidden.dtype),
             ref_only,
         )
     windowable = contiguous and attend_to_cache and not use_stacked_tkg and kv_window is not None
@@ -1210,6 +1245,18 @@ def causal_lm_forward(
         # after the cast to the compute dtype, by the scale rounded to it (the
         # JAX package's order); a host float, so a captured graph holds it
         hidden = hidden * float(torch.tensor(arch.embed_scale, dtype=compute_dtype))
+    if arch.learned_pos_embeds:
+        # the position table at position_ids, after the embedding's scale (the
+        # JAX package's order). Padded and warmup rows may carry positions past
+        # the table (a prefill's right padding continues the arange, a K-step
+        # window runs past the last bucket), where the JAX package's take
+        # fills a NaN row and an index on the card would fault (inside a
+        # captured graph, fatally): they read the table's last row instead;
+        # every real position lies inside it (the configs refuse a seq_len
+        # past the table)
+        table = params["position_embeddings"]
+        idx = position_ids.long().clamp(0, table.shape[0] - 1)
+        hidden = hidden + F.embedding(idx, table).to(compute_dtype)
     if "fc" in params:
         feats = batch["prev_hidden"][:, : input_ids.shape[1]].to(compute_dtype)
         hidden = _linear(torch.cat([hidden, feats], dim=-1), params["fc"], arch.act_quant,
@@ -1228,13 +1275,15 @@ def causal_lm_forward(
         else:
             seq_len_now = position_ids.max() + 1
         inv_freq = torch.where(seq_len_now > arch.longrope_original_max, inv[1], inv[0])
-    if arch.longrope_original_max is None and inv_freq.ndim == 2:
+    if arch.no_rope:
+        cos = sin = None  # no layer applies rope
+    elif arch.longrope_original_max is None and inv_freq.ndim == 2:
         # Gemma-3's [global, local] pair: (2, B, S, D) each, picked per layer
         # by its use_local_rope flag (decoder_layer)
         cos, sin = rope_cos_sin_pair(position_ids, inv_freq, dtype=torch.float32)
     else:
         cos, sin = rope_cos_sin(position_ids, inv_freq, dtype=torch.float32)
-    if arch.rope_mscale != 1.0:
+    if arch.rope_mscale != 1.0 and cos is not None:
         cos = cos * arch.rope_mscale
         sin = sin * arch.rope_mscale
     if isinstance(layout, BlockKVLayout):
@@ -1265,6 +1314,8 @@ def causal_lm_forward(
         idx = batch["last_token_index"].long()
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
     logits = (hidden @ lm_head.to(hidden.dtype)).float()
+    if "lm_head_bias" in params:  # Phi: a biased head, in float32
+        logits = logits + params["lm_head_bias"].float()
     if arch.logits_scaling != 1.0:
         logits = logits / arch.logits_scaling
     if arch.final_logit_softcap is not None:

@@ -7,7 +7,10 @@ this port's params dict. Both packages use the same keys and the same
 included), so the conversion is leaf by leaf, at any depth: a fused
 speculation app's ``{"draft": ..., "target": ...}`` pair and a Medusa app's
 ``medusa_heads`` (``res_w``, ``res_b``, ``head``) carry across as they are,
-and so does a segmented stack's list of layer segments (DeepSeek, AFMoE).
+and so does a segmented stack's list of layer segments (DeepSeek, AFMoE),
+and the last dense families' leaves: ``position_embeddings``, Phi's float32
+``lm_head_bias``, Apertus's float32 ``mlp.xielu`` scalars and Persimmon's
+biased q / k norms (``{"w", "b"}``).
 Quantized linears (``qw`` / ``scale``, MXFP4 ``qw4``, ``input_scale``)
 carry across the same way.
 bfloat16 and fp8 arrays (numpy extension dtypes) move as their raw bits —

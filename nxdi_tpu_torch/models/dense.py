@@ -35,7 +35,7 @@ non-gated family (Arcee) by its own ``"mlp"``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -268,10 +268,47 @@ def convert_hf_state_dict(
     return params
 
 
-def param_shapes(arch: DecoderArch, norm_bias: bool = False) -> Dict[str, Any]:
+def exact_gelu(act: str) -> str:
+    """HF's ``ACT2FN["gelu"]`` is the exact (erf) GELU: the families whose
+    configs name it so (Falcon, GPT-NeoX, BioGPT, XGLM) run the port's
+    ``"gelu_exact"``, where the JAX package gives them its tanh ``"gelu"``
+    (ROADMAP Queue 3). Other names pass through."""
+    return "gelu_exact" if act == "gelu" else act
+
+
+def state_tensor(state_dict: Dict[str, Any], name: str, prefixes=("", "model.")) -> torch.Tensor:
+    """The checkpoint's tensor ``name`` under the first of ``prefixes`` it
+    carries (a family's HF submodule path: ``transformer.``, ``gpt_neox.``,
+    ...)."""
+    for pre in prefixes:
+        if pre + name in state_dict:
+            return torch.as_tensor(state_dict[pre + name])
+    raise KeyError(f"Missing weight {name} (prefixes {prefixes}); available sample: "
+                   f"{list(state_dict)[:8]}")
+
+
+def attach_norm_biases(params: Dict[str, Any], input_biases, post_biases, final_bias,
+                       dtype: torch.dtype) -> Dict[str, Any]:
+    """The biased-LayerNorm families (the learned-position lineage, Falcon,
+    Persimmon, Phi, ...): the weight-only block norms and the final norm
+    become ``{"w", "b"}`` dicts (the :func:`~nxdi_tpu_torch.models.base._norm`
+    contract) from per-layer bias lists and the final norm's bias."""
+    layers = params["layers"]
+    for key, biases in (("input_layernorm", input_biases),
+                        ("post_attention_layernorm", post_biases)):
+        layers[key] = {"w": layers[key],
+                       "b": torch.stack([torch.as_tensor(b) for b in biases]).to(dtype)}
+    params["norm"] = {"w": params["norm"], "b": torch.as_tensor(final_bias).to(dtype)}
+    return params
+
+
+def param_shapes(arch: DecoderArch, norm_bias: bool = False,
+                 positions: Optional[int] = None) -> Dict[str, Any]:
     """Shape tree matching :func:`convert_hf_state_dict` (random-weight
     builds and tests); ``norm_bias``: every norm a biased LayerNorm
-    ``{"w", "b"}`` (Phi-3.5-MoE)."""
+    ``{"w", "b"}`` (Phi-3.5-MoE, the LayerNorm families); ``positions``: the
+    rows of a learned position table (``learned_pos_embeds``). A biased head
+    (``lm_head_bias``) and Apertus's xIELU scalars follow the arch."""
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
     hs, inter, V, L = arch.hidden_size, arch.intermediate_size, arch.vocab_size, arch.num_layers
     params: Dict[str, Any] = {
@@ -332,6 +369,12 @@ def param_shapes(arch: DecoderArch, norm_bias: bool = False) -> Dict[str, Any]:
         for key in [k for k in layers if k.endswith("layernorm")]:
             layers[key] = {"w": layers[key], "b": layers[key]}
         params["norm"] = {"w": (hs,), "b": (hs,)}
+    if arch.learned_pos_embeds:
+        params["position_embeddings"] = (positions, hs)
+    if arch.lm_head_bias:
+        params["lm_head_bias"] = (V,)
+    if arch.hidden_act == "xielu":
+        mlp["xielu"] = {"alpha_p": (L, 1), "alpha_n": (L, 1)}
     return params
 
 
@@ -377,8 +420,9 @@ def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=No
     on ``device`` (the card unless the CPU is asked for): projections,
     embeddings, sinks and biases N(0, std), norm weights one and norm biases
     zero (HF's init), so activations keep unit scale and greedy tokens are
-    well separated; a router's selection-only ``e_bias`` in float32, as the
-    converters keep it. ``shapes`` (default :func:`param_shapes`) is a shape
+    well separated; a router's selection-only ``e_bias``, a head bias and
+    the xIELU scalars (0.8 after softplus, HF's init) in float32, as the
+    converters keep them. ``shapes`` (default :func:`param_shapes`) is a shape
     tree whose ``layers`` may be a list of segments. A weight too large to
     draw in float32 at once is drawn in pieces, each cast as it is drawn."""
     device = resolve_device(device)
@@ -386,6 +430,8 @@ def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=No
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(path, shape):
+        if len(path) > 1 and path[-2] == "xielu":
+            return torch.full(shape, 0.8, dtype=torch.float32, device=device)
         if len(path) > 1 and path[-2].endswith("norm") and path[-1] in ("w", "b"):
             # a biased LayerNorm {"w", "b"}: unit weight, zero bias
             fill = torch.ones if path[-1] == "w" else torch.zeros
@@ -411,7 +457,7 @@ def random_params(arch: DecoderArch, seed: int = 0, std: float = 0.02, device=No
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         leaf = make(path, tree)
-        return leaf.float() if path[-1] == "e_bias" else leaf
+        return leaf.float() if path[-1] in ("e_bias", "lm_head_bias") else leaf
 
     return walk(param_shapes(arch) if shapes is None else shapes, ())
 

@@ -56,17 +56,29 @@ _REGISTRY: Dict[str, Tuple[str, str]] = {
     "cohere2": (f"{_M}.cohere2.modeling_cohere2", "Cohere2InferenceConfig"),
     "exaone4": (f"{_M}.exaone4.modeling_exaone4", "Exaone4InferenceConfig"),
     "olmo3": (f"{_M}.olmo3.modeling_olmo3", "Olmo3InferenceConfig"),
+    "starcoder2": (f"{_M}.starcoder2.modeling_starcoder2", "Starcoder2InferenceConfig"),
+    "falcon": (f"{_M}.falcon.modeling_falcon", "FalconInferenceConfig"),
+    "gpt_neox": (f"{_M}.gpt_neox.modeling_gpt_neox", "GPTNeoXInferenceConfig"),
+    "phi": (f"{_M}.phi.modeling_phi", "PhiInferenceConfig"),
+    "glm4": (f"{_M}.glm4.modeling_glm4", "Glm4InferenceConfig"),
+    "stablelm": (f"{_M}.stablelm.modeling_stablelm", "StableLmInferenceConfig"),
+    "persimmon": (f"{_M}.persimmon.modeling_persimmon", "PersimmonInferenceConfig"),
+    "apertus": (f"{_M}.apertus.modeling_apertus", "ApertusInferenceConfig"),
+    "orion": (f"{_M}.orion.modeling_orion", "OrionInferenceConfig"),
+    "opt": (f"{_M}.opt.modeling_opt", "OPTInferenceConfig"),
+    "biogpt": (f"{_M}.biogpt.modeling_biogpt", "BioGptInferenceConfig"),
+    "xglm": (f"{_M}.xglm.modeling_xglm", "XGLMInferenceConfig"),
+    "gpt2": (f"{_M}.gpt2.modeling_gpt2", "GPT2InferenceConfig"),
+    "gpt_bigcode": (f"{_M}.gpt_bigcode.modeling_gpt_bigcode", "GPTBigCodeInferenceConfig"),
 }
 
 # registered by the JAX package, not ported yet (ROADMAP Queue 1)
 NOT_PORTED = frozenset({
     "gemma3", "pixtral", "mistral3", "ovis2",
     "llava", "mllama", "qwen2_vl", "qwen3_vl", "qwen2_5_vl",
-    "mimo_v2", "gpt2", "qwen3_next", "recurrent_gemma",
+    "mimo_v2", "qwen3_next", "recurrent_gemma",
     "recurrentgemma", "qwen2_5_omni", "lfm2", "qwen2_5_omni_thinker", "falcon_h1",
-    "starcoder2", "stablelm", "glm4", "gpt_neox",
-    "opt", "biogpt", "xglm", "gpt_bigcode", "falcon", "persimmon", "phi", "apertus", "janus",
-    "idefics", "orion",
+    "janus", "idefics",
 })
 
 

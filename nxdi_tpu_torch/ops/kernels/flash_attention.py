@@ -166,6 +166,15 @@ def _check_kv_store(name: str, q: torch.Tensor, k_cache: torch.Tensor,
 
 # a chunk is a whole number of these: the split kernel's 4 warps x 32 positions
 DECODE_CHUNK_UNIT = 128
+# q heads a decode block serves (the m16 tile's rows): a larger group of q
+# heads per kv head runs in head tiles of this many, one more factor of the
+# grid's kv-head axis (csrc/decode_kernel.cuh)
+DECODE_HEAD_TILE = 16
+
+
+def decode_head_tiles(H: int, KV: int) -> int:
+    """Head tiles of the decode kernel's grid per kv head: ceil(G / 16)."""
+    return -(-(H // KV) // DECODE_HEAD_TILE)
 
 
 def decode_chunk(B: int, KV: int, kv_len: int, n_sm: int) -> int:
@@ -210,9 +219,11 @@ def _sm_count(index: int) -> int:
 
 def _decode_split(B, H, KV, D, kv_len, device):
     """The decode launch's split: (chunk length, chunks, the partials'
-    scratch or None). ``decode_chunk`` is looked up on every call, so a
-    caller may replace it (to time one chunk per row, the earlier design)."""
-    chunk = decode_chunk(B, KV, kv_len, _sm_count(device.index or 0))
+    scratch or None), over the grid's B x KV x head tiles (row, kv head,
+    tile) triples. ``decode_chunk`` is looked up on every call, so a caller
+    may replace it (to time one chunk per row, the earlier design)."""
+    chunk = decode_chunk(B, KV * decode_head_tiles(H, KV), kv_len,
+                         _sm_count(device.index or 0))
     n = max(1, -(-kv_len // chunk))
     ws = (torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=device)
           if n > 1 else None)
@@ -449,8 +460,6 @@ def _decode_fused(q, k_cache, v_cache, k_new, v_new, q_pos, kv_start, *,
     name = "flash_attention_decode_fused"
     _check_head_dim(D, name)
     _check_ring(name, ring, W)
-    if H // KV > 16:
-        raise ValueError(f"{name}: {H // KV} query heads per kv head (at most 16)")
     code = _build.dtype_code(q, name)
     if q.device.type == "cpu":
         if lines is not None:  # the JAX package's gather of each row's line (clipped)
@@ -576,8 +585,6 @@ def _check_decode_shapes(name, q, k, v):
     if Sq != 1 or H % KV or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
     _check_head_dim(D, name)
-    if H // KV > 16:
-        raise ValueError(f"{name}: {H // KV} query heads per kv head (at most 16)")
 
 
 def flash_attention_decode(
@@ -740,9 +747,6 @@ def paged_attention_decode(
     if q.shape[2] != 1:
         raise ValueError(f"{name}: one query position per row, got {q.shape[2]}")
     _check_paged(name, q, k_cache, v_cache, block_table, block_size)
-    if q.shape[1] // k_cache.shape[1] > 16:
-        raise ValueError(f"{name}: {q.shape[1] // k_cache.shape[1]} query heads per kv head "
-                         "(at most 16)")
     _build.dtype_code(q, name)
     if q.device.type == "cpu":
         return paged_attention_decode_plain(

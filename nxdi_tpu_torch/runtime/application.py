@@ -130,7 +130,7 @@ MOE_CARRIED = ("sliding_window", "qk_norm", "qk_norm_flat", "embed_scale", "atte
 # other switches are not held on the mixed step
 MIXED_REFUSED = ("sliding_window", "layernorm", "clip_qkv", "rotary_dim", "attention_sink",
                  "attn_out_gate", "sandwich_norm", "longrope", "attn_logit_softcap",
-                 "chunk_size")
+                 "chunk_size", "learned_pos_embeds", "no_rope", "lm_head_bias", "xielu")
 
 
 def family_switches(arch) -> List[str]:
@@ -150,7 +150,7 @@ def family_switches(arch) -> List[str]:
         ("post_block_norm", arch.post_block_norm),
         ("residual_multiplier", arch.residual_multiplier != 1.0),
         ("logits_scaling", arch.logits_scaling != 1.0),
-        (f"hidden_act={arch.hidden_act!r}", arch.hidden_act != "silu"),
+        (f"hidden_act={arch.hidden_act!r}", arch.hidden_act not in ("silu", "xielu")),
         ("layernorm", arch.layernorm),
         ("clip_qkv", arch.clip_qkv is not None),
         ("rotary_dim", arch.rotary_dim is not None),
@@ -164,6 +164,10 @@ def family_switches(arch) -> List[str]:
         ("qk_l2norm", arch.qk_l2norm),
         ("attn_temperature_tuning", arch.attn_temperature_tuning),
         ("parallel_block", arch.parallel_block),
+        ("learned_pos_embeds", arch.learned_pos_embeds),
+        ("no_rope", arch.no_rope),
+        ("lm_head_bias", arch.lm_head_bias),
+        ("xielu", arch.hidden_act == "xielu"),
     ) if on]
 
 

@@ -393,6 +393,25 @@ def test_ragged_split_path(gen, stream, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("stream", ["decode8", "chunk_and_long_decode"])
+def test_ragged_at_group_71(gen, stream, dtype, tol):
+    """Row 8 at Falcon-7B's group (71 query heads of 64 on one kv head),
+    which its split items take 16 heads a pass: against the plain version,
+    padding exactly 0."""
+    T, rows = RAGGED_STREAMS[stream]
+    H, KV, D, bs, NB = 71, 1, 64, 128, 16
+    R = max(s for s, _, _ in rows) + 1
+    bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
+    kc_, vc_ = (_randn(gen, R * NB * bs, KV, D).to(dtype) for _ in range(2))
+    q = _randn(gen, 1, T, H, D).to(dtype).transpose(1, 2)
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, KV)
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, block_size=bs, plan=plan)
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, block_size=bs)
+    assert _max_err(got, want) <= tol
+    assert torch.all(got[:, :, torch.from_numpy(rid < 0).cuda()] == 0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
 def test_ragged_split_path_block16_holes_and_scales(gen, dtype, tol):
     """Block 16: holes inside two rows' ranges, a row whose blocks are all
     holes (its token writes 0), k/v scales, a multi-token run of a row in a
@@ -473,14 +492,15 @@ DECODE_LAUNCHES = {"fused": "flash_attention_decode_fused", "window": "flash_att
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("D", [32, 40, 64, 128])
-@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("G", [1, 4, 16, 24, 71])
 @pytest.mark.parametrize("mode", ["fused", "window", "paged"])
 def test_decode_split(gen, monkeypatch, mode, G, D, dtype, tol):
     """The split kernel and the combine against the plain version, one
     launch counted per call, the same bits on a second call, and one chunk
     a row (the earlier design) against the same plain version. bf16 at D
     32, 64 and 128 runs the tensor-core tile, D 40 (not a multiple of 16)
-    and f32 the CUDA-core tile."""
+    and f32 the CUDA-core tile; G 24 and 71 (Falcon-7B's group) run in head
+    tiles of 16, the last one partial."""
     call, plain = _decode_call(mode, gen, dtype, G, D)
     counter = getattr(fa, DECODE_LAUNCHES[mode])
     assert -(-700 // fa.decode_chunk(4, 2, 704 if mode == "paged" else 700, 132)) > 1
@@ -921,19 +941,21 @@ def _kernel_names(fn, calls=4):
     return sorted(names)
 
 
+@pytest.mark.parametrize("G", [4, 24])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs", [16, 128])
 @pytest.mark.parametrize("D", [16, 64, 128])
 @pytest.mark.parametrize("store", list(ONE_BYTE))
-def test_one_byte_paged_decode(gen, store, D, bs, dtype):
-    """The paged decode over a one-byte pool (G 4, 768 positions split in
+def test_one_byte_paged_decode(gen, store, D, bs, dtype, G):
+    """The paged decode over a one-byte pool (G 4, and G 24 in two head
+    tiles of 16; 768 positions split in
     chunks of 128, a table of holes only, a hole mid-range, a row at
     position 0 and one at a chunk's first position): against the plain
     version, one launch a call, the same bits on a second call, only the
     split and combine kernels launched. With bf16 q (the raw tiles on the
     tensor-core body) the output equals, bit for bit, the bf16 pool's kernel
     on the pool up-cast to bf16 under the same scales."""
-    B, KV, G = 4, 2, 4
+    B, KV = 4, 2
     NB = 768 // bs
     kc_, vc_ = (_one_byte(gen, store, B * NB * bs, KV, D) for _ in range(2))
     bt = torch.randperm(B * NB, generator=torch.Generator().manual_seed(3)).reshape(B, NB)
@@ -1468,12 +1490,13 @@ def test_eagle_window_graph_replay_equals_eager(gen, kind):
 
 
 def test_eagle_window_raises_where_the_decode_kernel_is_not_eligible(gen):
-    """No fallback: a draft whose 32 query heads share one kv head is not
-    eligible for the stacked fused decode kernel, whose flag is on, so its
-    first window (the warmup's, after the context encoding's, whose prefill
-    kernel takes it) raises naming the condition."""
-    with pytest.raises(NotImplementedError, match="32 query heads per kv head exceed 16"):
-        _eagle_app("chain", True, num_attention_heads=32, num_key_value_heads=1, head_dim=64)
+    """No fallback: a draft whose head dim (36) is not a multiple of 8 is
+    not eligible for the attention kernels, whose flags are on (the stacked
+    fused decode among them), so its first dispatch (the warmup's) raises
+    naming the condition. (A draft whose 32 query heads share one kv head
+    runs: the decode kernels take a group above 16 in head tiles.)"""
+    with pytest.raises(NotImplementedError, match="head_dim 36 is not a multiple of 8"):
+        _eagle_app("chain", True, num_attention_heads=32, num_key_value_heads=1, head_dim=36)
 
 
 def test_eagle_replay_checks_the_features_buffer(gen):

@@ -197,7 +197,10 @@ def test_registry_keys_and_errors():
     ported = set(FAMILIES) | {"llama", "mixtral", "deepseek", "deepseek_v3", "minicpm4",
                               "qwen3_moe", "gpt_oss", "minimax_m2", "dbrx", "phimoe", "afmoe",
                               "phi3", "gemma3_text", "gemma2", "vaultgemma", "llama4",
-                              "llama4_text", "cohere2", "exaone4", "olmo3"}
+                              "llama4_text", "cohere2", "exaone4", "olmo3", "starcoder2",
+                              "falcon", "gpt_neox", "phi", "glm4", "stablelm", "persimmon",
+                              "apertus", "orion", "opt", "biogpt", "xglm", "gpt2",
+                              "gpt_bigcode"}
     assert set(treg.known_model_types()) == ported
     for t in ported:
         module, cfg_cls = treg.get_family(t)
@@ -205,7 +208,7 @@ def test_registry_keys_and_errors():
         assert cfg_cls.__name__ == jreg.get_family(t)[1].__name__
     assert treg.NOT_PORTED | ported == set(jreg.known_model_types())
     assert not treg.NOT_PORTED & ported
-    with pytest.raises(NotImplementedError, match="'gpt2' is registered by the JAX package"):
-        treg.get_family("gpt2")
+    with pytest.raises(NotImplementedError, match="'mimo_v2' is registered by the JAX package"):
+        treg.get_family("mimo_v2")
     with pytest.raises(KeyError, match="Unknown model_type 'no_such'.*'qwen3'"):
         treg.get_family("no_such")

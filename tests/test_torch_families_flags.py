@@ -7,6 +7,7 @@ Pallas kernels, the published widths the card runs, and the refusals of
 the paths that do not carry a switch."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -114,11 +115,13 @@ def test_rms_norm_matches_jax(gemma_style, dtype):
 @pytest.mark.parametrize("name", sorted(tbase.ACT_FNS))
 def test_activations_match_jax(name):
     """Every activation of ACT_FNS against the JAX package's (its "gelu" is
-    jax.nn.gelu's default, the tanh approximation)."""
+    jax.nn.gelu's default, the tanh approximation; the port's "gelu_exact",
+    HF's "gelu", is jax.nn.gelu without the approximation)."""
     x = np.linspace(-6, 6, 257).astype(np.float32)
+    jax_act = (functools.partial(jax.nn.gelu, approximate=False) if name == "gelu_exact"
+               else jbase.ACT_FNS[name])
     np.testing.assert_allclose(tbase.ACT_FNS[name](torch.from_numpy(x)).numpy(),
-                               np.asarray(jbase.ACT_FNS[name](jnp.asarray(x))),
-                               rtol=1e-6, atol=1e-6)
+                               np.asarray(jax_act(jnp.asarray(x))), rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -428,12 +431,12 @@ def test_card_limits_by_kernel():
     limits; the paged prefill and the ragged kernel stop at 128, and so does
     a one-byte store; on the card an enabled paged flag under a window
     raises, naming it (the JAX rule, kept as a failure there)."""
-    assert tbase._card_limits(256, torch.bfloat16, 8, max_group=16) == []
+    assert tbase._card_limits(256, torch.bfloat16) == []
     assert "up to 128" in tbase._card_limits(
-        256, torch.bfloat16, 8, max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)[0]
-    assert "up to 128" in tbase._card_limits(256, torch.bfloat16, 8,
+        256, torch.bfloat16, max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)[0]
+    assert "up to 128" in tbase._card_limits(256, torch.bfloat16,
                                              store=torch.float8_e4m3fn)[-1]
-    assert tbase._card_limits(264, torch.bfloat16, 8)[0].startswith("head_dim 264")
+    assert tbase._card_limits(264, torch.bfloat16)[0].startswith("head_dim 264")
     arch = tbase.DecoderArch(num_layers=1, hidden_size=16, num_attention_heads=2,
                              num_kv_heads=1, head_dim=8, intermediate_size=16, vocab_size=8,
                              vocab_pad=0, sliding_window=8)

@@ -493,6 +493,6 @@ def test_one_byte_pool_takes_the_mma_sync_prefill_body(store):
     assert tfa.paged_prefill_body(q.float(), pool, pool, 64) == "simt"
     assert tfa.paged_prefill_body(q, pool.to(torch.bfloat16), pool.to(torch.bfloat16),
                                   64) == "wgmma"
-    assert _card_limits(64, torch.bfloat16, 4, store=tdt) == []
-    assert "multiple of 16" in _card_limits(40, torch.bfloat16, 4, store=tdt)[-1]
-    assert "one-byte" in _card_limits(64, torch.bfloat16, 4, store=torch.float16)[-1]
+    assert _card_limits(64, torch.bfloat16, store=tdt) == []
+    assert "multiple of 16" in _card_limits(40, torch.bfloat16, store=tdt)[-1]
+    assert "one-byte" in _card_limits(64, torch.bfloat16, store=torch.float16)[-1]

@@ -212,15 +212,15 @@ def test_ineligible_kernel_raises_on_the_card_only():
     tensor a failed condition under an enabled flag raises, naming it."""
     from nxdi_tpu_torch.models.base import _card_limits, _kernel_gate
 
-    card = _card_limits(12, torch.bfloat16, 4)
+    card = _card_limits(12, torch.bfloat16)
     assert _kernel_gate("attn_kernel_enabled", True, False, [], card) is True
     assert _kernel_gate("attn_kernel_enabled", True, False, ["5 heads not divisible"], []) is False
     assert _kernel_gate("attn_kernel_enabled", False, True, [], card) is False
     with pytest.raises(NotImplementedError, match="head_dim 12"):
         _kernel_gate("attn_kernel_enabled", True, True, [], card)
-    with pytest.raises(NotImplementedError, match="exceed 16"):
+    with pytest.raises(NotImplementedError, match="dtype torch.float16 is not float32"):
         _kernel_gate("attn_tkg_kernel_enabled", True, True, [],
-                     _card_limits(64, torch.float32, 32, max_group=16))
+                     _card_limits(64, torch.float16))
 
 
 def test_fresh_jax_compiles_bypasses_the_persistent_cache(tmp_path):

@@ -154,6 +154,26 @@ def _fused_pair(models, draft, spec_len, **kw):
     return japp, tapp
 
 
+_PAIRS = {}
+
+
+def _shared_pair(make, models, *args):
+    """``make(models, *args)``'s (JAX app, port app), built once in this
+    module for the tests that only generate() on it: a later test gets the
+    pair back with its forward wrappers dropped and its window counters at
+    0. A second generate() needs no fresh cache: every row it reads is
+    written first at its exact position, in both packages."""
+    key = (make.__name__, repr(args))
+    if key not in _PAIRS:
+        _PAIRS[key] = make(models, *args)
+    for app in _PAIRS[key]:
+        app.__dict__.pop("forward", None)
+        for attr in ("spec_windows", "spec_accepted_tokens"):
+            if hasattr(app, attr):
+                setattr(app, attr, 0)
+    return _PAIRS[key]
+
+
 def _generate_both(japp, tapp, prompt, **gen):
     jlog, tlog = _windows(japp), _windows(tapp)
     jout = JaxAdapter(japp).generate(prompt, **gen)
@@ -167,7 +187,7 @@ def test_fused_matches_jax(models, spec_len, draft):
     """Tokens equal the JAX package's and HF greedy; every window's accepted
     count equals the JAX package's; a perfect draft accepts whole windows.
     The params came across with ``from_jax_params`` ({"draft", "target"})."""
-    japp, tapp = _fused_pair(models, draft, spec_len)
+    japp, tapp = _shared_pair(_fused_pair, models, draft, spec_len)
     expected = hf_greedy(models["target"][0], PROMPT, max_new_tokens=20)
     jout, tout, jlog, tlog = _generate_both(japp, tapp, PROMPT, max_new_tokens=20)
     np.testing.assert_array_equal(jout, expected)
@@ -187,7 +207,7 @@ def test_fused_window_edge(models, case):
     their tokens are discarded), and a TKG bucket smaller than seq_len
     (retirement stops at the compiled window's edge)."""
     if case == "fill":
-        japp, tapp = _fused_pair(models, "weak", 4)
+        japp, tapp = _shared_pair(_fused_pair, models, "weak", 4)
         n = 56
     else:
         japp, tapp = _fused_pair(models, "weak", 4, token_generation_buckets=[32])
@@ -292,7 +312,7 @@ def test_standard_matches_jax(models, spec_len, n, draft):
     window there). A perfect draft accepts less than whole windows, as in
     the JAX package: its spec_len steps leave the last draft token's row
     unwritten after a whole window."""
-    japp, tapp = _standard_pair(models, spec_len, draft)
+    japp, tapp = _shared_pair(_standard_pair, models, spec_len, draft)
     expected = hf_greedy(models["target"][0], PROMPT, max_new_tokens=n)
     jout, tout, jlog, tlog = _generate_both(japp, tapp, PROMPT, max_new_tokens=n)
     np.testing.assert_array_equal(jout, expected)
@@ -369,7 +389,7 @@ def test_medusa_matches_jax(models, kind, n):
     package's and HF greedy, the counts equal window for window, and the
     proposal buffer equals the JAX package's after every dispatch."""
     tree = MC_TREE if kind == "tree" else None
-    japp, tapp = _medusa_pair(models, 3 if tree else 4, tree)
+    japp, tapp = _shared_pair(_medusa_pair, models, 3 if tree else 4, tree)
     jprop, tprop = _proposals(japp), _proposals(tapp)
     expected = hf_greedy(models["target"][0], PROMPT, max_new_tokens=n)
     jout, tout, jlog, tlog = _generate_both(japp, tapp, PROMPT, max_new_tokens=n)
