@@ -273,6 +273,29 @@ code is non-zero:
    layers) at B 2 x 6144 past its 4096 window; bf16, graphs, the attention
    kernels on: prefill ms, decode ms/step, a profiled decode step, cache
    and peak GB, launches exact.
+3m. The paged kernels at head dim 256, at Gemma-2B's heads (8 over 1 kv
+   head): row 6 (bf16 on the mma.sync body, f32 on the CUDA cores), row 6'
+   (the same over an e4m3 pool with per-tensor scales), row 7' (the paged
+   decode over that pool; bf16 equal to the up-cast pool's bits), row 8
+   (phase 3c's packed 1032-token stream and decode-only bucket 8 in bf16,
+   the packed stream in f32) and row 8' (the packed stream over the e4m3
+   pool); then row 8 at phase 3l's multi-query groups (G 71, G 48) timed:
+   each against its plain version, timed over 21 flushed calls beside its
+   bound, the plain version and gather + SDPA.
+4p. Gemma at Gemma-2B's attention shape (hidden 256, 8 heads over 1 kv head
+   of 256), 2 layers, float32: the split paged engine, the mixed engine and
+   both on an e4m3 pool, each over phase 4b's traffic on the CPU, the
+   card's graphs and the card eagerly (streams identical, logits within
+   tolerance, launches exact); the LoRA app as phase 4i runs it (two
+   rank-16 adapters and the base row, merged weights, a swap after
+   capture).
+5p. Gemma-2B whole (18 layers), bf16, graphs: the split paged engine and
+   the mixed engine over phase 5b's traffic on a bf16 pool and an e4m3
+   pool (tok/s, TTFT, TPOT, KV pool bytes, profiled steps, the strategies
+   cte_paged_kernel / tkg_paged_kernel / mixed_ragged_kernel, launches
+   exact), then generate() with rank-16 LoRA adapters in 4 slots at B 8
+   (the base slot's tokens equal to the model without LoRA, the adapters
+   moving their rows' logits, adapter 1 against its weights merged).
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -1987,6 +2010,7 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
         TAG_MIXED,
         TAG_TOKEN_GENERATION,
     )
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
     from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
     ml, TorchConfig, ODSC, App, dense, _ = mods
@@ -2097,8 +2121,10 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
         profiled["prefix_prefill"] = profiled_call(torch, eng.step)
         assert eng.dispatches.get(TAG_PREFIX_PREFILL, 0) == before.get(TAG_PREFIX_PREFILL, 0) + 1
         pre_attn = attention_ms(profiled["prefix_prefill"][2])
-        # over a one-byte pool the paged prefill runs the one-byte body
-        want_k = "prefill_wgmma_1b_kernel" if kvq else "prefill_wgmma_kernel"
+        # over a one-byte pool the paged prefill runs the one-byte body; at
+        # head dim 256 (Gemma-2B, phase 5p) the mma.sync body over either pool
+        want_k = ("prefill_tc_kernel" if arch.head_dim not in fa.WGMMA_HEAD_DIMS
+                  else "prefill_wgmma_1b_kernel" if kvq else "prefill_wgmma_kernel")
         assert set(pre_attn) & {"prefill_wgmma_kernel", "prefill_wgmma_1b_kernel",
                                 "prefill_tc_kernel"} == {want_k}, pre_attn
         eng.run()
@@ -2109,8 +2135,10 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
             profiled["packed"] = profiled_call(torch, eng.step)
             # the packed chunk's one-row tiles: wgmma items on the one-byte
             # body over a one-byte pool, direct tiles on mma.sync over bf16
+            # (and over either pool at head dim 256)
             packed_attn = attention_ms(profiled["packed"][2])
-            want_k = "prefill_wgmma_1b_kernel" if kvq else "prefill_tc_kernel"
+            want_k = ("prefill_wgmma_1b_kernel"
+                      if kvq and arch.head_dim in fa.WGMMA_HEAD_DIMS else "prefill_tc_kernel")
             assert set(packed_attn) & {"prefill_wgmma_1b_kernel", "prefill_tc_kernel"} == \
                 {want_k}, packed_attn
         else:
@@ -4598,7 +4626,7 @@ def merged_params(params, slot):
     return {k: merged_params(v, slot) if isinstance(v, dict) else v for k, v in params.items()}
 
 
-def lora_vs_cpu(torch, np, mods):
+def lora_vs_cpu(torch, np, mods, family=None, phase="4i"):
     """Phase 4i: Llama-3.2-1B's widths, 2 layers, float32, batch 4, two
     rank-16 adapters on all seven projections and a base row in one batch
     (ids a, b, 0, a; rows 0, 2 and 3 on one prompt): CPU, card graphs, card
@@ -4607,7 +4635,9 @@ def lora_vs_cpu(torch, np, mods):
     weights have a merged in (W + s A B), on the card. Then a third adapter
     registered after capture evicts a (the least recently used) in place:
     no graph is captured again, the buffers keep their addresses, and the
-    next replays give adapter c's tokens, equal to eager and the CPU's."""
+    next replays give adapter c's tokens, equal to eager and the CPU's.
+    Phase 4p runs it on another ``family`` (Gemma at Gemma-2B's attention
+    shape)."""
     from nxdi_tpu_torch.lora import lora_pointers
 
     ml, TorchConfig, ODSC, App, dense, Adapter = mods
@@ -4627,7 +4657,8 @@ def lora_vs_cpu(torch, np, mods):
         for name in "ab":
             app.set_lora_adapter(name, adapter_sd(app, name), adapter_cfg)
 
-    kw = dict(layers=L, dtype="float32", batch=B, seq_len=256, ctx_len=128, output_logits=True)
+    kw = dict(layers=L, dtype="float32", batch=B, seq_len=256, ctx_len=128, output_logits=True,
+              family=family)
     apps, arch = three_apps(mods, setup=setup, lora_config=lora, **kw)
     cpu_app, gpu_app, eager_app = apps
     ids, mask = prompts(np.random.default_rng(7), B, 128, [128, 97, 128, 64], arch.vocab_size)
@@ -4636,15 +4667,15 @@ def lora_vs_cpu(torch, np, mods):
     ids[3], mask[3] = ids[0], mask[0]
     row_ids = np.array([1, 2, 0, 1])
     assert [gpu_app.lora_adapter_id(n) for n in "ab"] == [1, 2]
-    worst, out_ab, counts, n_same, logs_ab = run_three(torch, mods, "4i", apps, ids, mask, NEW,
+    worst, out_ab, counts, n_same, logs_ab = run_three(torch, mods, phase, apps, ids, mask, NEW,
                                                        adapter_ids=row_ids)
     want = dict.fromkeys(counts, 0)
     want.update(prefill=L, decode=L * (NEW - 1), commit=NEW - 1)
-    assert counts == want, f"phase 4i: launches {counts} != {want}"
+    assert counts == want, f"phase {phase}: launches {counts} != {want}"
     # adapter a moves row 0's logits off the base row's (one prompt; the
     # greedy tokens of a random model may still agree)
     moved = max((lg[0] - lg[2]).abs().max().item() for lg in logs_ab)
-    assert moved > 100 * LOGIT_TOL, f"phase 4i: adapter a moved the logits by {moved}"
+    assert moved > 100 * LOGIT_TOL, f"phase {phase}: adapter a moved the logits by {moved}"
     assert (out_ab[0] == out_ab[3]).all()
 
     # adapter a merged into a base model's weights, on the card
@@ -4657,10 +4688,11 @@ def lora_vs_cpu(torch, np, mods):
                                          adapter_ids=row_ids)
     out_merged = Adapter(merged_app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
     del gpu_app.forward, merged_app
-    merged_err, _, flip = logits_within(torch, "4i merged", logs_merged, logs_lora, LOGIT_TOL,
-                                        rows=[0, 3])
+    merged_err, _, flip = logits_within(torch, f"{phase} merged", logs_merged, logs_lora,
+                                        LOGIT_TOL, rows=[0, 3])
     if flip is None:
-        assert (out_lora[[0, 3]] == out_merged[[0, 3]]).all(), "phase 4i: merged tokens differ"
+        assert (out_lora[[0, 3]] == out_merged[[0, 3]]).all(), \
+            f"phase {phase}: merged tokens differ"
 
     # a swap after capture: c evicts a into slot 1, in place
     ptrs = lora_pointers(gpu_app.params)
@@ -4672,17 +4704,17 @@ def lora_vs_cpu(torch, np, mods):
     for app in apps:
         assert app.set_lora_adapter("c", adapter_sd(app, "c"), adapter_cfg) == 1
         assert "a" not in app.adapter_cache.slot_of
-    assert lora_pointers(gpu_app.params) == ptrs, "phase 4i: a LoRA buffer moved"
-    worst_c, out_c, counts_c, n_same_c, logs_c = run_three(torch, mods, "4i swap", apps, ids,
-                                                           mask, NEW, adapter_ids=row_ids)
-    assert graph_ids() == graphs, "phase 4i: the swap captured new graphs"
+    assert lora_pointers(gpu_app.params) == ptrs, f"phase {phase}: a LoRA buffer moved"
+    worst_c, out_c, counts_c, n_same_c, logs_c = run_three(torch, mods, f"{phase} swap", apps,
+                                                           ids, mask, NEW, adapter_ids=row_ids)
+    assert graph_ids() == graphs, f"phase {phase}: the swap captured new graphs"
     # the first replay after the swap (the prefill) reads adapter c on rows
     # 0 and 3; rows 1 and 2 (adapter b, the base) are the same bits as before
     swapped = (logs_c[0][[0, 3]] - logs_ab[0][[0, 3]]).abs().max().item()
-    assert swapped > 100 * LOGIT_TOL, f"phase 4i: the swap moved row 0's logits by {swapped}"
+    assert swapped > 100 * LOGIT_TOL, f"phase {phase}: the swap moved row 0's logits by {swapped}"
     assert (out_c[[1, 2]] == out_ab[[1, 2]]).all()
     assert all(torch.equal(a[[1, 2]], b[[1, 2]]) for a, b in zip(logs_ab, logs_c))
-    log(f"[lora-2L 4i] rows a, b, base, a: max logit diff {worst:.3g} (tol {LOGIT_TOL}), "
+    log(f"[lora-2L {phase}] rows a, b, base, a: max logit diff {worst:.3g} (tol {LOGIT_TOL}), "
         f"launches {counts}, graphs = eager over {n_same} dispatches; adapter a = merged weights "
         f"(max logit diff {merged_err:.3g} on rows 0 and 3); c swapped in after capture "
         f"(slot 1, buffers in place, no new graph): max logit diff {worst_c:.3g}, graphs = eager "
@@ -6967,6 +6999,472 @@ def tier3_full_depth(torch, np, mods, card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 3m, 4p and 5p: the paged prefill and ragged kernels at head dim 256,
+# one-byte pools above 128, Gemma-2B's paged engines on them, and LoRA on
+# Gemma
+# ---------------------------------------------------------------------------
+
+# max |kernel - plain| at head dim 256 (a bf16 pool): phase 3h's prefill
+# bound (bf16 8e-3: a couple of output ulps near 0.5-1; f32 1e-5)
+D256_TOL = {d: TOL[("prefill", d)] for d in ("float32", "bfloat16")}
+# phase 4p: Gemma at Gemma-2B's attention shape (8 heads over 1 of 256, the
+# tanh GELU, tied head), narrow elsewhere (hidden 256, intermediate 512,
+# vocab 512)
+GEMMA_SMALL = dict(FAMILY_TINY, num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+                   tie_word_embeddings=True, hidden_act="gelu_pytorch_tanh")
+
+
+def gemma_family(**widths):
+    from nxdi_tpu_torch.models.gemma import modeling_gemma as tg
+
+    return tg, tg.GemmaInferenceConfig, dict(tg.GEMMA_2B, **widths)
+
+
+def _gemma_pool(torch, gen, dev):
+    """Phase 3m's pool at Gemma-2B's kv width: (k, v) bf16, their e4m3
+    stores at E4M3_PT's scale, the (8, 16) table with a hole in row 3, the
+    positions and the live mask."""
+    B, bs, nblk, NB = 8, 128, 136, 16
+    D, KV = GEMMA_HEADS["D"], GEMMA_HEADS["KV"]
+    qpos = torch.linspace(0, 2000, B, device=dev).long()
+    perm = torch.randperm(nblk, generator=torch.Generator().manual_seed(0)).tolist()
+    bt = torch.full((B, NB), -1, dtype=torch.int32)
+    nxt = 0
+    for b in range(B):
+        n = int(qpos[b]) // bs + 1
+        bt[b, :n] = torch.tensor(perm[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+    bt[3, 2] = -1
+    bt = bt.to(dev)
+    kc, vc = (torch.randn((nblk * bs, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    scale = E4M3_PT["k_scale"]
+    k8, v8 = ((x.float() / scale).to(torch.float8_e4m3fn) for x in (kc, vc))
+    slot_pos = torch.arange(NB * bs, device=dev)
+    live = torch.repeat_interleave(bt >= 0, bs, dim=1) & (slot_pos[None] <= qpos[:, None])
+    return dict(kc=kc, vc=vc, k8=k8, v8=v8, bt=bt, qpos=qpos, live=live, bs=bs, nblk=nblk,
+                NB=NB, scale=scale, slot_pos=slot_pos)
+
+
+def _gathered(torch, cache, table, bs):
+    rows = (table.long()[:, :, None] * bs + torch.arange(bs, device=cache.device))
+    return take_rows(torch, cache, rows.reshape(table.shape[0], -1).clamp(min=0)).transpose(1, 2)
+
+
+def d256_paged_prefill(torch, results, fa, pool, gen, flush, dname, store):
+    """Row 6 (a bf16 or f32 pool) or 6' (``store``: the e4m3 pool, per-tensor
+    scales) at Gemma-2B's heads: a 512-token chunk after 512 cached through
+    row 7's table, against its plain version, the same bits on a second
+    call, the body by name; timed (median of PREFILL_CALLS flushed calls)
+    beside the bound, the plain version and gather + SDPA."""
+    import torch.nn.functional as F
+
+    dev = pool["kc"].device
+    H, KV, D = GEMMA_HEADS["H"], GEMMA_HEADS["KV"], GEMMA_HEADS["D"]
+    dt = getattr(torch, dname)
+    bs, Sq, start = pool["bs"], 512, 512
+    bt1 = pool["bt"][7:8]
+    if store:
+        kc, vc, kw = pool["k8"], pool["v8"], dict(k_scale=pool["scale"], v_scale=pool["scale"])
+    else:
+        kc, vc, kw = pool["kc"].to(dt), pool["vc"].to(dt), {}
+    qx = torch.randn((1, Sq, H, D), generator=gen, device=dev).to(dt).transpose(1, 2)
+    qpx = (start + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    body = fa.paged_prefill_body(qx, kc, vc, bs)
+    assert body == ("mma" if dname == "bfloat16" else "simt"), f"3m paged_prefill body {body}"
+
+    def call():
+        return fa.paged_attention_prefill(qx, kc, vc, bt1, qpx, block_size=bs, **kw)
+
+    def plain():
+        return fa.paged_attention_prefill_plain(qx, kc, vc, bt1, qpx, block_size=bs, **kw)
+
+    got = call()
+    err = (got.float() - plain().float()).abs().max().item()
+    tol = (ONE_BYTE_TOL if store else D256_TOL)[dname]
+    assert err <= tol, f"3m paged_prefill {dname} {store}: max abs err {err} > {tol}"
+    assert torch.equal(call(), got), f"3m paged_prefill {dname} {store}: a second call differs"
+    times, names, dropped = traced_times(torch, call, PREFILL_CALLS, flush, kernel="prefill")
+    ms, lo, hi = spread(times)
+    ran = sorted(attention_ms([(0.0, n) for n in names]))
+    assert ran == [PREFILL_KERNEL[body]], f"3m paged_prefill {dname} {store}: ran {ran}"
+    plain_ms = measure(torch, plain, n=3, flush=flush)
+    pmask = (pool["slot_pos"][None, :] <= qpx[0][:, None])[None, None]
+
+    def library():
+        kg = _gathered(torch, kc, bt1, bs).to(dt).repeat_interleave(H // KV, dim=1)
+        vg = _gathered(torch, vc, bt1, bs).to(dt).repeat_interleave(H // KV, dim=1)
+        return F.scaled_dot_product_attention(qx, kg, vg, attn_mask=pmask)
+
+    lib_times, _, lib_dropped = traced_times(torch, library, PREFILL_CALLS, flush)
+    pairs = int(pmask.sum())
+    es, kvs = qx.element_size(), kc.element_size()
+    bms, by = bound_ms(2 * Sq * H * D * es + 2 * (start + Sq) * KV * D * kvs,
+                       4 * H * D * pairs, dname)
+    row = dict(kernel="paged_prefill", dtype=dname, head_dim=D, group=H // KV,
+               point="Gemma-2B e4m3 pool D 256" if store else "Gemma-2B paged D 256",
+               max_abs_err=err, tol=tol, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms,
+               library_ms=spread(lib_times)[0], bound_ms=bms, bound_by=by, body=body,
+               kernels=ran, calls=len(times), untraced=dropped + lib_dropped,
+               share_of_bound=bms / ms)
+    if store:
+        row["store"] = "float8_e4m3fn"
+    results.append(row)
+    log(f"[d256-3m] paged_prefill {dname}{' e4m3 pool' if store else ''} ({ran[0]}): err "
+        f"{err:.3g} kernel {ms:.4f} ms (min {lo:.4f} max {hi:.4f}) plain {plain_ms:.4f} "
+        f"gather + sdpa {row['library_ms']:.4f} bound {bms:.4f} ({by}), "
+        f"{100 * bms / ms:.2f} % of the bound, {ms / row['library_ms']:.2f}x library")
+    return row
+
+
+def d256_ragged(torch, F, rpa, results, dname, point, q, kc, vc, case, bs, flush, kw=None,
+                tol=None, extra=None):
+    """Row 8 at one phase 3m point: the kernels under the plan the engine
+    builds (the one-row tiles' body from ragged_direct_body) against the
+    plain version, padding exactly 0, the same bits on a second call and
+    from the graph-ready launch (the plan padded to the bucket's capacity);
+    timed over RAGGED_CALLS flushed calls beside the bound, the plain
+    version and gather + SDPA under the ragged mask."""
+    kw = kw or {}
+    T, rid, qp, bt, visible, pairs = case
+    dev = q.device
+    H, D = q.shape[1], q.shape[3]
+    KV = kc.shape[1]
+    G = H // KV
+    R, NB = bt.shape
+    wgmma = rpa.ragged_direct_body(q.dtype, kc.dtype, D, bs) == "wgmma"
+    rid_h, qp_h = rid.cpu().numpy(), qp.cpu().numpy()
+    plan_h = rpa.ragged_plan(rid_h, qp_h, R, NB * bs, KV, wgmma=wgmma)
+    plan = plan_h.to(dev)
+    cap = rpa.ragged_capacity(T, R, NB * bs, KV, wgmma=wgmma)
+    static = dataclasses.replace(cap, flat=torch.from_numpy(rpa.pad_plan(plan_h, cap)).to(dev))
+
+    def call(p=plan):
+        return rpa.ragged_paged_attention(q, kc, vc, bt, rid, qp, block_size=bs, plan=p, **kw)
+
+    def plain():
+        return rpa.ragged_paged_attention_plain(q, kc, vc, bt, rid, qp, block_size=bs, **kw)
+
+    got = call()
+    err = (got.float() - plain().float()).abs().max().item()
+    tol = tol if tol is not None else D256_TOL[dname]
+    assert err <= tol, f"3m ragged {dname} {point}: max abs err {err} > {tol}"
+    assert torch.all(got[:, :, rid < 0] == 0), f"3m ragged {point}: padding tokens are not 0"
+    assert torch.equal(call(), got), f"3m ragged {dname} {point}: a second call differs"
+    assert torch.equal(call(static), got), f"3m ragged {dname} {point}: graph-ready launch differs"
+    times, names, dropped = traced_times(torch, call, RAGGED_CALLS, flush,
+                                         kernel=("prefill", "ragged_"))
+    ms, lo, hi = spread(times)
+    W = NB * bs
+    col = torch.arange(R * W, device=dev)
+    rows = (bt.long().reshape(-1)[:, None] * bs + torch.arange(bs, device=dev)).reshape(-1)
+    live = torch.repeat_interleave(bt.reshape(-1) >= 0, bs)
+    mask = ((rid.long()[:, None] == col[None] // W) & (col[None] % W <= qp.long()[:, None])
+            & live[None])[None, None]
+
+    def library():
+        kg = take_rows(torch, kc, rows.clamp(min=0)).to(q.dtype).transpose(0, 1)[None]
+        vg = take_rows(torch, vc, rows.clamp(min=0)).to(q.dtype).transpose(0, 1)[None]
+        return F.scaled_dot_product_attention(q, kg.repeat_interleave(G, dim=1),
+                                              vg.repeat_interleave(G, dim=1), attn_mask=mask)
+
+    lib_times, _, lib_dropped = traced_times(torch, library, RAGGED_CALLS, flush)
+    plain_ms = measure(torch, plain, n=2, flush=flush)
+    es, kvs = q.element_size(), kc.element_size()
+    T_real = int((rid >= 0).sum())
+    nbytes = ((T_real * H * D + T * H * D) * es + 2 * sum(visible.values()) * KV * D * kvs
+              + bt.numel() * 4 + 4 * T + 4 * T_real)
+    bms, by = bound_ms(nbytes, 4 * H * D * pairs, dname)
+    kernels = sorted(attention_ms([(0.0, n) for n in names]))
+    row = dict(kernel="ragged", dtype=dname, point=point, head_dim=D, group=G, block=bs, T=T,
+               max_abs_err=err, tol=tol, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms,
+               library_ms=spread(lib_times)[0], bound_ms=bms, bound_by=by, kernels=kernels,
+               calls=len(times), untraced=dropped + lib_dropped, share_of_bound=bms / ms,
+               plan=dict(direct=plan.n_direct, wgmma=plan.n_wg, items=plan.n_items,
+                         combine=plan.n_comb, chunk=plan.chunk), **(extra or {}))
+    results.append(row)
+    log(f"[d256-3m] ragged {dname} {point} ({' + '.join(kernels)}; plan {row['plan']}): err "
+        f"{err:.3g} kernel {ms:.4f} ms (min {lo:.4f} max {hi:.4f}) plain {plain_ms:.4f} "
+        f"gather + sdpa {row['library_ms']:.4f} bound {bms:.4f} ({by}), "
+        f"{100 * bms / ms:.2f} % of the bound, {ms / row['library_ms']:.2f}x library")
+    return row
+
+
+def check_d256_kernels(torch, results):
+    """Phase 3m. At Gemma-2B's heads (8 over 1 kv head of 256): row 6 (the
+    paged prefill's mma.sync body in bf16, the CUDA-core body in f32), row 6'
+    (the same over an e4m3 pool, tiles converted as they land), row 7' (the
+    paged decode over the e4m3 pool, bf16 q at 2 warps a block on the tensor
+    cores; f32 q checked), row 8 (the ragged kernel at phase 3c's packed
+    1032-token stream and decode-only bucket 8: direct tiles, split items
+    at 2 warps a block, the combine over 256 columns; f32 at the packed
+    stream) and row 8' (the packed stream over the e4m3 pool); then row 8 at
+    phase 3l's multi-query groups (G 71 and G 48, bf16) timed. Each against
+    its plain version, timed (medians of 21 flushed calls) beside its bound,
+    the plain version and gather + SDPA."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import flash_attention as fa
+    from nxdi_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    H, KV, D = GEMMA_HEADS["H"], GEMMA_HEADS["KV"], GEMMA_HEADS["D"]
+    pool = _gemma_pool(torch, gen, dev)
+    bs, bt, qpos, live = pool["bs"], pool["bt"], pool["qpos"], pool["live"]
+    B = bt.shape[0]
+    visible = int(live.sum())
+    sc = dict(k_scale=pool["scale"], v_scale=pool["scale"])
+
+    # row 7': the paged decode over the e4m3 pool
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dt).transpose(1, 2)
+        qp = qpos[:, None].to(torch.int32)
+
+        def library(q=q, dt=dt):
+            kg = _gathered(torch, pool["k8"], bt, bs).to(dt).repeat_interleave(H // KV, dim=1)
+            vg = _gathered(torch, pool["v8"], bt, bs).to(dt).repeat_interleave(H // KV, dim=1)
+            return F.scaled_dot_product_attention(q, kg * pool["scale"], vg * pool["scale"],
+                                                  attn_mask=live[:, None, None, :])
+
+        bf16_pool = (pool["k8"].to(dt), pool["v8"].to(dt))  # the up-cast pool
+        row = one_byte_point(
+            torch, results, "paged_decode", "float8_e4m3fn",
+            lambda q=q, qp=qp: fa.paged_attention_decode(q, pool["k8"], pool["v8"], bt, qp,
+                                                         block_size=bs, **sc),
+            lambda q=q, qp=qp: fa.paged_attention_decode_plain(q, pool["k8"], pool["v8"], bt,
+                                                               qp, block_size=bs, **sc),
+            library, (visible * KV * D * 2 + 2 * B * H * D * q.element_size() + bt.numel() * 4),
+            4 * H * D * visible, flush, DECODE_KERNELS, timed=dname == "bfloat16",
+            dname=dname,
+            bf16_call=(lambda q=q, qp=qp, p=bf16_pool: fa.paged_attention_decode(
+                q, p[0], p[1], bt, qp, block_size=bs, **sc)) if dname == "bfloat16" else None)
+        row.update(point="Gemma-2B e4m3 pool D 256", head_dim=D, group=H // KV)
+        if dname == "bfloat16":  # the up-cast pool gives the same bits
+            assert torch.equal(
+                fa.paged_attention_decode(q, pool["k8"], pool["v8"], bt, qp, block_size=bs,
+                                          **sc),
+                fa.paged_attention_decode(q, *bf16_pool, bt, qp, block_size=bs, **sc)), \
+                "3m paged_decode e4m3: not the up-cast pool's bits"
+        del bf16_pool
+    # rows 6 and 6'
+    for dname in ("bfloat16", "float32"):
+        d256_paged_prefill(torch, results, fa, pool, gen, flush, dname, store=None)
+    for dname in ("bfloat16", "float32"):
+        d256_paged_prefill(torch, results, fa, pool, gen, flush, dname, store="e4m3")
+    torch.cuda.empty_cache()
+    # rows 8 and 8': phase 3c's streams at Gemma-2B's heads
+    R, NB, nblk = 8, 16, pool["nblk"]
+    packed = ragged_case(torch, dev, R, NB, bs, nblk)
+    decode8 = ragged_case(torch, dev, R, NB, bs, nblk, decode_only=True)
+    for dname, case, point in (("bfloat16", packed, "Gemma-2B paged D 256"),
+                               ("bfloat16", decode8, "Gemma-2B paged D 256 bucket 8"),
+                               ("float32", packed, "Gemma-2B paged D 256")):
+        dt = getattr(torch, dname)
+        q = torch.randn((1, case[0], H, D), generator=gen, device=dev).to(dt).transpose(1, 2)
+        d256_ragged(torch, F, rpa, results, dname, point, q, pool["kc"].to(dt),
+                    pool["vc"].to(dt), case, bs, flush)
+    q = torch.randn((1, packed[0], H, D), generator=gen, device=dev).to(torch.bfloat16)
+    row = d256_ragged(torch, F, rpa, results, "bfloat16", "Gemma-2B e4m3 pool D 256",
+                      q.transpose(1, 2), pool["k8"], pool["v8"], packed, bs, flush, kw=sc,
+                      tol=ONE_BYTE_TOL["bfloat16"], extra=dict(store="float8_e4m3fn"))
+    qf = q.float().transpose(1, 2)
+    err = (rpa.ragged_paged_attention(qf, pool["k8"], pool["v8"], packed[3], packed[1],
+                                      packed[2], block_size=bs, **sc).float()
+           - rpa.ragged_paged_attention_plain(qf, pool["k8"], pool["v8"], packed[3], packed[1],
+                                              packed[2], block_size=bs, **sc)).abs().max().item()
+    assert err <= ONE_BYTE_TOL["float32"], f"3m ragged f32 e4m3: max abs err {err}"
+    row["float32_err"] = err
+    log(f"[d256-3m] ragged float32 e4m3 pool (checked): err {err:.3g}")
+    del pool, q, qf
+    torch.cuda.empty_cache()
+    # row 8 at the multi-query groups (phase 3l checked them; here timed)
+    for point, c in MQA_HEADS.items():
+        H2, KV2, D2 = c["H"], c["KV"], c["D"]
+        T, bs2, NB2, R2 = 160, 128, 16, 3
+        rows = [(2, 100, 130), (0, 1900, 1), (1, 7, 1)]
+        perm = torch.randperm(R2 * NB2, generator=torch.Generator().manual_seed(7)).tolist()
+        bt2 = torch.full((R2, NB2), -1, dtype=torch.int32)
+        rid, qp = torch.full((T,), -1, dtype=torch.int32), torch.zeros((T,), dtype=torch.int32)
+        t, nxt, pairs, vis = 0, 0, 0, {}
+        for slot, start, n in rows:
+            rid[t:t + n] = slot
+            qp[t:t + n] = torch.arange(start, start + n, dtype=torch.int32)
+            t += n
+            nb = (start + n - 1) // bs2 + 1
+            bt2[slot, :nb] = torch.tensor(perm[nxt:nxt + nb], dtype=torch.int32)
+            nxt += nb
+            pairs += sum(range(start + 1, start + n + 1))
+            vis[slot] = start + n
+        case = (T, rid.to(dev), qp.to(dev), bt2.to(dev), vis, pairs)
+        kc, vc = (torch.randn((R2 * NB2 * bs2, KV2, D2), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        q = torch.randn((1, T, H2, D2), generator=gen, device=dev).to(torch.bfloat16)
+        d256_ragged(torch, F, rpa, results, "bfloat16", point, q.transpose(1, 2), kc, vc, case,
+                    bs2, flush, tol=NEW_TOL[("ragged", "bfloat16")])
+    del scratch
+    torch.cuda.empty_cache()
+
+
+def gemma_paged_vs_cpu(torch, np, mods):
+    """Phase 4p: Gemma at Gemma-2B's attention shape (GEMMA_SMALL), 2
+    layers, float32: the split paged engine (rows 1, 6 and 7 at head dim
+    256), the mixed engine (rows 8, 9/10 and 11/12) and both on an e4m3 pool
+    with per-tensor scales (rows 6', 7', 8'), each CPU vs card graphs vs
+    card eager over phase 4b's traffic (engine_vs_cpu: launches exact,
+    streams identical, logits within tolerance); then the LoRA app
+    (lora_vs_cpu: two rank-16 adapters and the base in one batch, held to
+    merged weights, a swap after capture)."""
+    family = gemma_family(**GEMMA_SMALL)
+    out = {}
+    for mixed in (False, True):
+        for kvq in (None, E4M3_PT):
+            name = ("mixed" if mixed else "split") + (" e4m3" if kvq else "")
+            counts, worst = engine_vs_cpu(torch, np, mods, mixed=mixed, kvq=kvq, family=family,
+                                          phase=f"4p {name}")
+            out[name] = dict(launches=counts, max_logit_err=worst)
+            gc.collect()
+    out["lora"] = lora_vs_cpu(torch, np, mods, family=family, phase="4p lora")
+    gc.collect()
+    return out
+
+
+def gemma_lora_full_depth(torch, np, mods, card, layers):
+    """Phase 5p's LoRA run: Gemma-2B at ``layers`` layers, bf16, batch 8,
+    graphs, rank-16 adapters on all seven projections in 4 slots;
+    generate() on phase 5's prompt shapes, 32 new tokens, rows on adapters
+    1, 2, 3, 4, 0, 1, 2, 0 and every row on the base slot: the base slot's
+    tokens equal to the same model's without LoRA (a zero delta adds
+    nothing), the adapters moving the prefill logits of their rows off the
+    model's without LoRA (the greedy tokens of a random model may still
+    agree), launches exact; adapter 1 merged into the weights (W + s A B)
+    against the LoRA rows on adapter 1 (rows 0 and 5) over the prefill
+    logits."""
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    L, B, P, NEW = layers, 8, 1024, 32
+    family = gemma_family()
+    lora = dict(max_loras=4, max_lora_rank=LORA_RANK, target_modules=LORA_TARGETS,
+                lora_dtype="bfloat16", lora_alpha=LORA_ALPHA)
+    kw = dict(layers=L, dtype="bfloat16", batch=B, seq_len=2048, ctx_len=P, device="cuda",
+              output_logits=True, family=family)
+    t = time.perf_counter()
+    app, arch = make_app(ml, TorchConfig, ODSC, App, dense, lora_config=lora, **kw)
+    for n, name in enumerate("abcd"):
+        slot = app.set_lora_adapter(name, peft_adapter(torch, arch, seed=30 + n),
+                                    {"r": LORA_RANK, "lora_alpha": LORA_ALPHA})
+        assert slot == n + 1
+    log(f"[gemma-lora-5p] {L} layers loaded, 4 adapters resident {time.perf_counter() - t:.1f} "
+        f"s; warmup {app.warm_stats}")
+    ids, mask = prompts(np.random.default_rng(11), B, P, [P, P, 1000, P, 731, P, P, 1023],
+                        arch.vocab_size)
+    rows = {"mixed": np.array([1, 2, 3, 4, 0, 1, 2, 0], np.int32),
+            "base": np.zeros((B,), np.int32)}
+    kernels = attention_kernels()
+    runs, outs = {}, {}
+    for mode in ("mixed", "base"):
+        for fn in kernels.values():
+            fn.launches = 0
+        prefill_ms, decode_ms, toks = timed_generate(torch, Adapter, app, ids, mask, NEW,
+                                                     adapter_ids=rows[mode])
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = dict.fromkeys(counts, 0)
+        want.update(prefill=L, decode=L * (NEW - 1), commit=NEW - 1)
+        assert counts == want, f"phase 5p lora {mode}: launches {counts} != {want}"
+        runs[mode] = dict(prefill_ms=prefill_ms, decode_ms=decode_ms, launches=counts)
+        outs[mode] = toks
+        log(f"[gemma-lora-5p] {mode} rows: prefill {prefill_ms:.2f} ms, decode {decode_ms:.3f} "
+            f"ms/step; launches {counts}")
+    lora_logs = []  # the adapter rows' prefill logits, for the merged check
+    recording(app, lora_logs)
+    Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=1, adapter_ids=rows["mixed"])
+    params = app.params
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same model without LoRA: the base slot's tokens, bit for bit
+    base_params = merged_params(params, 0)
+    base_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, params=base_params, **kw)
+    base_logs = []
+    recording(base_app, base_logs)
+    want_base = Adapter(base_app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+    assert (outs["base"] == want_base).all(), "phase 5p lora: the base slot's tokens differ"
+    del base_app, base_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    changed = int(sum(not (outs["mixed"][b] == outs["base"][b]).all() for b in range(B)))
+    on = torch.from_numpy(rows["mixed"] != 0)
+    moved = (lora_logs[0][on].float() - base_logs[0][on].float()).abs().max().item()
+    same = torch.equal(lora_logs[0][~on], base_logs[0][~on])
+    assert moved > 0 and same, (f"phase 5p lora: the adapters moved their rows' prefill logits "
+                                f"by {moved}; the base rows equal: {same}")
+    merged_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, params=merged_params(params, 1),
+                             **kw)
+    mlogs = []
+    recording(merged_app, mlogs)
+    Adapter(merged_app).generate(ids, attention_mask=mask, max_new_tokens=1)
+    lora_pf, merged_pf = lora_logs[0][[0, 5]], mlogs[0][[0, 5]]
+    merged_err = (lora_pf.float() - merged_pf.float()).abs().max().item()
+    scale = merged_pf.float().abs().max().item()
+    agree = int((lora_pf.argmax(-1) == merged_pf.argmax(-1)).sum())
+    assert torch.isfinite(lora_pf).all() and merged_err <= 0.1 * scale, (
+        f"phase 5p lora: adapter 1 vs merged weights, prefill logits differ by {merged_err} "
+        f"(logits up to {scale})")
+    del merged_app, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[gemma-lora-5p] {card}: decode ms/step mixed adapters {runs['mixed']['decode_ms']:.3f}, "
+        f"all base {runs['base']['decode_ms']:.3f}; adapters moved their rows' prefill logits by "
+        f"{moved:.3g}, their greedy tokens on {changed}/{B - 2} rows; base slot = the model "
+        f"without LoRA bit for bit; adapter 1 vs merged weights: "
+        f"prefill logits within {merged_err:.3g} (logits up to {scale:.3g}), first token agrees "
+        f"on {agree} of 2 rows")
+    return dict(layers=L, runs=runs, rows_changed=changed, adapter_logit_shift=moved,
+                merged_prefill_max_logit_err=merged_err,
+                merged_logit_scale=scale, merged_first_token_agree=agree)
+
+
+def gemma_paged_full_depth(torch, np, mods, card):
+    """Phase 5p: Gemma-2B whole (18 layers, bf16, random weights from seed
+    0, graphs) on the split paged engine over phase 5b's traffic (rows 1, 6
+    and 7 at head dim 256), on the mixed engine (rows 8, 9/10, 11/12), and
+    both on an e4m3 pool with per-tensor scales (rows 6', 7', 8'), launches
+    exact and the strategies named (engine_full_depth); KV pool bytes of
+    each; then the LoRA run (gemma_lora_full_depth, 18 layers)."""
+    L = 18
+    family = gemma_family()
+    stats, launches = {}, {}
+    for mixed in (False, True):
+        params = None  # one set of weights a dispatch mode (the mixed one fuses QKV)
+        for kvq in (None, E4M3_PT):
+            name = ("mixed" if mixed else "split") + (" e4m3" if kvq else "")
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts, st = engine_full_depth(torch, np, mods, card, mixed=mixed, kvq=kvq,
+                                           layers=L, family=family, params=params,
+                                           keep_app=params is None, phase=f"5p {name}")
+            if params is None:
+                params = st.pop("app").params
+            st.pop("prompts")
+            stats[name], launches[name] = st, counts
+            log(f"[gemma-5p {name}] {card}: {st['tok_s']:.1f} tok/s, TTFT p50 "
+                f"{st['ttft_p50_ms']:.2f} ms p95 {st['ttft_p95_ms']:.2f} ms, TPOT p50 "
+                f"{st['tpot_p50_ms']:.3f} ms, KV pool {st['pool_bytes'] / 1e9:.3f} GB "
+                f"{st['pool_dtype']}; launches {counts}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["lora"] = gemma_lora_full_depth(torch, np, mods, card, layers=L)
+    stats["launches"] = launches
+    return stats
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -7013,6 +7511,7 @@ def main() -> int:
     check_ring_kernels(torch, kernel_results)
     check_chunk_kernels(torch, kernel_results)
     mqa_ragged = check_mqa_kernels(torch, kernel_results)
+    check_d256_kernels(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -7027,6 +7526,7 @@ def main() -> int:
     gemma_2l = gemma_vs_cpu(torch, np, mods)
     nope_2l = nope_vs_cpu(torch, np, mods)
     tier3_2l = tier3_vs_cpu(torch, np, mods)
+    gemma_paged_2l = gemma_paged_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -7095,14 +7595,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tier3_5o = tier3_full_depth(torch, np, mods, card)
+    # phase 5p: Gemma-2B whole on the split and mixed engines, bf16 and e4m3
+    # pools, and LoRA
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma5p = gemma_paged_full_depth(torch, np, mods, card)
     family_stats = dict(phase_4k=family_2l, phase_5k=family5k, phase_4l=moe_family_2l,
                         phase_5l=moe5l, phase_4m=gemma_2l, phase_5m=gemma5m, phase_4n=nope_2l,
                         phase_5n=nope5n, phase_3l_ragged=mqa_ragged, phase_4o=tier3_2l,
-                        phase_5o=tier3_5o)
+                        phase_5o=tier3_5o, phase_4p=gemma_paged_2l, phase_5p=gemma5p)
     nl = nope5n["launches"]
     gl = gemma5m["launches"]
     fl = family5k["launches"]
     ml5 = moe5l["launches"]
+    gp = gemma5p["launches"]
     dense_launches = {
         "Gemma-2B D 256": fl["gemma"],
         "Mistral-7B window 4096": {k: fl["mistral"][k] + fl["mistral_window"][k]
@@ -7125,7 +7631,16 @@ def main() -> int:
         # row 7) and phase 4o's BigCode at StarCoder's group (f32)
         "G 71 (Falcon-7B)": tier3_5o["launches"]["Falcon-7B"],
         "G 48 (StarCoder)": tier3_2l["gpt_bigcode G 48"]["launches"],
+        # the head-dim-256 paged rows: phase 5p's Gemma-2B engines, bf16 pool
+        # (split and mixed) and e4m3 pool (split and mixed)
+        "Gemma-2B paged D 256": {k: sum(gp[n].get(k, 0) for n in ("split", "mixed"))
+                                 for k in ("paged_prefill", "paged_decode", "ragged")},
+        "Gemma-2B e4m3 pool D 256": {k: sum(gp[n].get(k, 0) for n in ("split e4m3", "mixed e4m3"))
+                                     for k in ("paged_prefill", "paged_decode", "ragged")},
     }
+    # the bucket-8 row: phase 5p's mixed decode-only dispatches, bf16 pool
+    dense_launches["Gemma-2B paged D 256 bucket 8"] = {
+        "ragged": 18 * gemma5p["mixed"]["packed_vs_padded_by_bucket"]["8"]["dispatches"]}
     # the latent-width commit and V3's MLP rows count phase 5j's runs
     mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
                     + mla5j["engine"]["launches"][k] for k in ("commit", "mlp")}
@@ -7200,7 +7715,7 @@ def main() -> int:
             # (5d); the one-byte rows: phase 5e's runs on e4m3 stores
             # (5h's runs for the head-dim-128 rows)
             launches = (family_launches["loop"][key] if row.get("point") == "cache lines"
-                        else dense_launches[row["point"]][key]
+                        else dense_launches[row["point"]].get(key, 0)
                         if row.get("point") in dense_launches
                         else mla_launches[key] if row.get("point") in ("MLA latent",
                                                                        "DeepSeek-V3")

@@ -487,7 +487,7 @@ class TorchConfig:
                 raise ValueError(LORA_DECODE_BODY_REFUSALS[key])
         kvq = self.kv_quant_config
         if kvq is not None and kvq.scale_mode in ("per_key", "per_channel"):
-            if self.is_block_kv_layout:
+            if self.is_block_kv_layout or self.window_sized_kv:
                 raise ValueError(
                     f"kv quant scale_mode={kvq.scale_mode!r} composes with the "
                     "contiguous KV layout only (paged/ring layouts take "

@@ -674,24 +674,29 @@ int dispatch(int dtype, const DecodeArgs& a, void* stream) {
 }
 
 // The paged mode over a one-byte store `kv_dtype` (instantiated by
-// paged_decode_1b.cu alone) at a head dim that is a multiple of 16: tiles
-// are converted as they land (bf16 q: the tensor-core body; f32: the CUDA
-// cores, 16 q heads a block: a larger group in head tiles).
+// paged_decode_1b.cu alone) at a head dim that is a multiple of 16 up to
+// 256: tiles are converted as they land (bf16 q: the tensor-core body;
+// f32: the CUDA cores, 16 q heads a block: a larger group in head tiles).
+// At 256 (Gemma's) a block has 2 warps with bf16 q (each a raw ring of
+// 17 KB and a bf16 tile of 33 KB) and 1 with f32 (dec_warps), as over a
+// bf16 pool.
+template <typename T, bool MMA, typename S>
+cudaError_t launch_one_byte_d(const DecodeArgs& a, cudaStream_t s) {
+  if (a.D <= 64) return launch<T, 16, 64, Mode::kPaged, MMA, S>(a, s);
+  if (a.D <= 128) return launch<T, 16, 128, Mode::kPaged, MMA, S>(a, s);
+  return launch<T, 16, 256, Mode::kPaged, MMA, S>(a, s);
+}
+
 template <Mode MODE>
 int dispatch_one_byte(int dtype, int kv_dtype, const DecodeArgs& a, void* stream) {
   static_assert(MODE == Mode::kPaged, "a one-byte store is the paged pool's");
-  if (!decode_args_ok(a) || a.D % 16 != 0 || a.D > 128)
-    return (int)cudaErrorInvalidValue;
+  if (!decode_args_ok(a) || a.D % 16 != 0) return (int)cudaErrorInvalidValue;
   if (a.B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_one_byte_store(kv_dtype, [&](auto tag) -> int {
     using S = decltype(tag);
-    if (dtype == NXDI_F32)
-      return (int)(a.D <= 64 ? launch<float, 16, 64, MODE, false, S>(a, s)
-                             : launch<float, 16, 128, MODE, false, S>(a, s));
-    if (dtype == NXDI_BF16)
-      return (int)(a.D <= 64 ? launch<__nv_bfloat16, 16, 64, MODE, true, S>(a, s)
-                             : launch<__nv_bfloat16, 16, 128, MODE, true, S>(a, s));
+    if (dtype == NXDI_F32) return (int)launch_one_byte_d<float, false, S>(a, s);
+    if (dtype == NXDI_BF16) return (int)launch_one_byte_d<__nv_bfloat16, true, S>(a, s);
     return (int)cudaErrorInvalidValue;
   });
 }

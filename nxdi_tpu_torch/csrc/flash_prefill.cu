@@ -33,9 +33,7 @@ extern "C" int nxdi_flash_prefill(int dtype, int body, const void* q, const void
   }
   if (body == PREFILL_MMA && bf16 && D % 16 == 0) {
     if (Sq == 0 || B == 0) return (int)cudaSuccess;
-    return (int)(D <= 64    ? launch_tc<64, KV_CONTIG>(a, B, s)
-                 : D <= 128 ? launch_tc<128, KV_CONTIG>(a, B, s)
-                            : launch_tc<256, KV_CONTIG>(a, B, s));
+    return (int)launch_tc_d<KV_CONTIG>(a, B, s);
   }
   if (body == PREFILL_SIMT && (bf16 || dtype == NXDI_F32)) {
     if (Sq == 0 || B == 0) return (int)cudaSuccess;

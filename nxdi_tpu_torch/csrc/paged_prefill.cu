@@ -18,10 +18,12 @@
 //    The conversion is exact, so the output equals the bf16 body's on the
 //    up-cast pool bit for bit;
 //  - the mma.sync body (other bf16 cases whose head dim is a multiple of
-//    16; over a one-byte pool only when its code is passed: the earlier
-//    design, tiles loaded synchronously and converted as they land);
+//    16, Gemma's 256 among them, over either pool; at 64 / 128 over a
+//    one-byte pool only when its code is passed: the earlier design, tiles
+//    loaded synchronously and converted as they land);
 //  - the CUDA-core body (f32, or any other bf16 head dim) of
-//    prefill_kernel.cuh.
+//    prefill_kernel.cuh, 8 output columns a lane above head dim 128.
+// Head dims: multiples of 8 up to 256 (a one-byte pool: of 16).
 #include "prefill_wgmma.cuh"
 
 // The one-byte stores' instantiations, in their own source so that nvcc
@@ -35,7 +37,7 @@ extern "C" int nxdi_paged_prefill(int dtype, int kv_dtype, int body, const void*
                                   int D, int total_slots, long long qsb, long long qsh,
                                   long long qss, long long osb, long long osh, long long oss,
                                   float scale, float v_scale, void* stream) {
-  if (bs <= 0 || D % 8 != 0 || D > 128 || KV <= 0 || H % KV != 0)
+  if (bs <= 0 || D % 8 != 0 || D > 256 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   PrefillArgs a{};
   a.q = q; a.k = kc; a.v = vc; a.out = out; a.q_start = q_start; a.bt = bt;
@@ -54,8 +56,7 @@ extern "C" int nxdi_paged_prefill(int dtype, int kv_dtype, int body, const void*
   if (body == PREFILL_WGMMA && bf16 && (D == 64 || D == 128))
     return (int)(D == 64 ? launch_wgmma_paged<64>(a, B, total_slots, s)
                          : launch_wgmma_paged<128>(a, B, total_slots, s));
-  if (body == PREFILL_MMA && bf16 && D % 16 == 0)
-    return (int)(D <= 64 ? launch_tc<64, KV_PAGED>(a, B, s) : launch_tc<128, KV_PAGED>(a, B, s));
+  if (body == PREFILL_MMA && bf16 && D % 16 == 0) return (int)launch_tc_d<KV_PAGED>(a, B, s);
   if (body == PREFILL_SIMT && (bf16 || dtype == NXDI_F32))
     return (int)(bf16 ? launch<__nv_bfloat16, KV_PAGED>(a, B, s)
                       : launch<float, KV_PAGED>(a, B, s));

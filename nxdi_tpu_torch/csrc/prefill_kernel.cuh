@@ -112,8 +112,8 @@ constexpr int kWarps = 8;
 constexpr int kRows = 8;                 // q rows per warp
 constexpr int kBQ = kWarps * kRows;      // q rows per block
 constexpr int kBK = 64;                  // kv rows per tile
-// output columns per lane of the CUDA-core body: 4 (D <= 128; the paged and
-// ragged modes) or 8 (D <= 256: the contiguous mode at Gemma's head dim)
+// output columns per lane of the CUDA-core body: 4 (D <= 128) or 8 (D <= 256:
+// Gemma's head dim, every mode)
 constexpr int kMaxTAt128 = 4;
 constexpr int kMaxRaggedRows = 64;       // rows of a stream with mixed tiles (one 64-bit mask)
 // The ragged work list (ragged_paged_attention.py::ragged_plan): a header of
@@ -766,22 +766,30 @@ cudaError_t launch_cols(const PrefillArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The CUDA-core body: head dims above 128 (the contiguous mode only) take 8
-// output columns a lane; its f32 tiles then fill 214 KB of shared memory, so
-// a block runs alone on its SM
+// The CUDA-core body: head dims above 128 take 8 output columns a lane; its
+// f32 tiles then fill 214 KB of shared memory (the ragged mode's row
+// metadata adds 1 KB: 210 KB in all, under the 227 KB a block may opt in
+// to), so a block runs alone on its SM
 template <typename T, int MODE, typename S = T>
 cudaError_t launch(const PrefillArgs& a, int B, cudaStream_t stream) {
-  if constexpr (MODE == KV_CONTIG) {
-    if (a.D > 32 * kMaxTAt128) return launch_cols<T, MODE, S, 8>(a, B, stream);
-  }
+  if (a.D > 32 * kMaxTAt128) return launch_cols<T, MODE, S, 8>(a, B, stream);
   return launch_cols<T, MODE, S>(a, B, stream);
 }
 
-// head dims: up to 256 for contiguous K/V, up to 128 through a block table
-// or a ragged stream
+// head dims: multiples of 8 up to 256 (Gemma's) in every mode
 inline bool prefill_args_ok(const PrefillArgs& a, int MODE) {
-  return a.D % 8 == 0 && a.D <= (MODE == KV_CONTIG ? 256 : 128) && a.H % a.KV == 0 &&
+  return a.D % 8 == 0 && a.D <= 256 && a.H % a.KV == 0 &&
          (MODE != KV_RAGGED || (a.R >= 1 && (a.one_row || a.R <= kMaxRaggedRows)));
+}
+
+// The mma.sync body's instantiation for head dim D (a multiple of 16): DMAX
+// 64, 128 or 256. At 256 its five 64-row bf16 tiles take 165 KB of shared
+// memory and it reads Q's fragments from there (kQRegs).
+template <int MODE, typename S = __nv_bfloat16>
+cudaError_t launch_tc_d(const PrefillArgs& a, int B, cudaStream_t stream) {
+  if (a.D <= 64) return launch_tc<64, MODE, S>(a, B, stream);
+  if (a.D <= 128) return launch_tc<128, MODE, S>(a, B, stream);
+  return launch_tc<256, MODE, S>(a, B, stream);
 }
 
 // K/V in q's dtype: f32 runs the CUDA-core body, bf16 the mma.sync body at
@@ -792,16 +800,16 @@ int run(int dtype, const PrefillArgs& a, int B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.Sq == 0 || B == 0 || (MODE == KV_RAGGED && a.n_tiles == 0)) return (int)cudaSuccess;
   if (dtype == NXDI_F32) return (int)launch<float, MODE>(a, B, s);
-  if (dtype == NXDI_BF16 && a.D % 16 == 0)
-    return (int)(a.D <= 64 ? launch_tc<64, MODE>(a, B, s) : launch_tc<128, MODE>(a, B, s));
+  if (dtype == NXDI_BF16 && a.D % 16 == 0) return (int)launch_tc_d<MODE>(a, B, s);
   if (dtype == NXDI_BF16) return (int)launch<__nv_bfloat16, MODE>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // A one-byte pool `kv_dtype` (the paged and ragged modes, instantiated by
 // paged_prefill_1b.cu and ragged_paged_1b.cu alone) at a head dim that is a
-// multiple of 16: bf16 q runs the mma.sync body, f32 the CUDA-core body,
-// each converting its K/V tiles as they land.
+// multiple of 16 up to 256: bf16 q runs the mma.sync body, f32 the
+// CUDA-core body, each converting its K/V tiles as they land (at 256 the
+// bf16 stages hold the converted tiles: no raw stage beside them).
 template <int MODE>
 int run_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, int B, void* stream) {
   static_assert(MODE != KV_CONTIG, "a one-byte store is the paged pool's");
@@ -811,8 +819,7 @@ int run_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, int B, void* str
   return with_one_byte_store(kv_dtype, [&](auto tag) -> int {
     using S = decltype(tag);
     if (dtype == NXDI_F32) return (int)launch<float, MODE, S>(a, B, s);
-    if (dtype == NXDI_BF16)
-      return (int)(a.D <= 64 ? launch_tc<64, MODE, S>(a, B, s) : launch_tc<128, MODE, S>(a, B, s));
+    if (dtype == NXDI_BF16) return (int)launch_tc_d<MODE, S>(a, B, s);
     return (int)cudaErrorInvalidValue;
   });
 }

@@ -81,7 +81,10 @@ int ragged_paged_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, const S
 // split one (each direct tile holds one row), so R is not bounded. `ws`:
 // n_slots x H x (D + 2) floats of scratch for the partials (acc, then m and
 // l), null without slots. `kv_dtype`: the pool's store: q's dtype or a
-// one-byte store code (head dims that are multiples of 16); total_slots:
+// one-byte store code (head dims that are multiples of 16); head dims up to
+// 256 (Gemma's: the direct tiles on the mma.sync or CUDA-core body at 8
+// columns a lane, the split items at 2 warps a block, the combine over 256
+// columns; no wgmma items there); total_slots:
 // the pool layer's rows (the wgmma body's tensor maps).
 extern "C" int nxdi_ragged_paged(int dtype, int kv_dtype, const void* q, const void* kc,
                                  const void* vc, void* out, const int* row_ids,
@@ -90,7 +93,7 @@ extern "C" int nxdi_ragged_paged(int dtype, int kv_dtype, const void* q, const v
                                  float* ws, int H, int KV, int T, int R, int NB, int bs, int D,
                                  int total_slots, long long qsh, long long qss, long long osh,
                                  long long oss, float scale, float v_scale, void* stream) {
-  if (bs <= 0 || KV <= 0 || H % KV != 0 || D % 8 != 0 || D > 128 || (n_slots > 0 && !ws))
+  if (bs <= 0 || KV <= 0 || H % KV != 0 || D % 8 != 0 || D > 256 || (n_slots > 0 && !ws))
     return (int)cudaErrorInvalidValue;
   // the direct tiles and the wgmma items
   PrefillArgs a{};

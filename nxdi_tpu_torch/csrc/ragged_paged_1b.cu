@@ -4,12 +4,16 @@
 // compiles them in parallel with it. The plan's wgmma items (bf16 q at
 // head dim 64 or 128) run the one-byte TMA + wgmma body (prefill_wgmma.cuh:
 // raw K/V boxes converted to bf16 in shared memory); direct tiles convert
-// their K/V tiles as they land (prefill_kernel.cuh); the split kernel runs,
-// with bf16 q, the decode kernel's tensor-core tile loop over raw tiles
-// converted in shared memory (mma_tiles.cuh), and with f32 q converts each
-// K row in registers and reads V from shared memory in the store type.
+// their K/V tiles as they land (prefill_kernel.cuh); the split items and
+// the combine are ragged_split_1b.cu's.
 #include "prefill_wgmma.cuh"
 #include "ragged_split.cuh"
+
+// The split items and the combine over a one-byte store, in a source of
+// their own (ragged_split_1b.cu) so that nvcc compiles them beside these
+// instantiations.
+int ragged_split_one_byte(int dtype, int kv_dtype, const SplitArgs& sa, int n_items, int n_comb,
+                          void* stream);
 
 int ragged_paged_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, const SplitArgs& sa,
                           int n_items, int n_comb, int n_wg, int total_slots, void* stream) {
@@ -24,11 +28,5 @@ int ragged_paged_one_byte(int dtype, int kv_dtype, const PrefillArgs& a, const S
     if (err != 0) return err;
   }
   if (n_items == 0 && n_comb == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_one_byte_store(kv_dtype, [&](auto tag) -> int {
-    using S = decltype(tag);
-    if (dtype == NXDI_F32) return (int)run_split<float, S>(sa, n_items, n_comb, s);
-    if (dtype == NXDI_BF16) return (int)run_split<__nv_bfloat16, S>(sa, n_items, n_comb, s);
-    return (int)cudaErrorInvalidValue;
-  });
+  return ragged_split_one_byte(dtype, kv_dtype, sa, n_items, n_comb, stream);
 }

@@ -1,6 +1,6 @@
 // The split and combine kernels of ragged paged attention (ragged_paged.cu
 // describes the scheme), shared by ragged_paged.cu and the one-byte stores'
-// instantiations in ragged_paged_1b.cu.
+// instantiations in ragged_paged_1b.cu and ragged_split_1b.cu.
 //
 // The split kernel has two bodies. A split item has the shape of a decode
 // kernel block (one query position, the G q heads of one kv head, a chunk of
@@ -90,19 +90,27 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, S) {
 }
 
 // The tensor-core body's shared memory: each warp's ring, with the merge
-// area (m, l [4][16], acc [4][16][D], f32) over the rings once the tiles
+// area (m, l [NW][16], acc [NW][16][D], f32) over the rings once the tiles
 // are done
 // (a bf16 pool's tiles double-buffered, as the decode kernel's)
 template <typename S, int DMAX>
 constexpr int kSplitStages = kOneByte<S> ? kSplitRaw[DMAX > 64] : 2;
+// Warps of the tensor-core body: 4, or 2 at head dim 256 (Gemma's), where
+// four warps' bf16 rings (66 KB each) would pass the 227 KB a block may
+// use, as the decode kernel's dec_warps halves them there
+template <int DMAX>
+__host__ __device__ constexpr int split_mma_warps() {
+  return DMAX > 128 ? 2 : kSplitWarps;
+}
 template <typename S, int DMAX>
 __host__ __device__ inline size_t split_mma_ring_bytes(int D) {
   return mma_ring_bytes<S, kSplitStages<S, DMAX>, kSplitCvt[DMAX > 64]>(D);
 }
 template <typename S, int DMAX>
 inline size_t split_mma_smem(int D) {
-  const size_t rings = kSplitWarps * split_mma_ring_bytes<S, DMAX>(D);
-  const size_t merge = sizeof(float) * (size_t)(2 * kSplitWarps * 16 + kSplitWarps * 16 * D);
+  constexpr int NW = split_mma_warps<DMAX>();
+  const size_t rings = NW * split_mma_ring_bytes<S, DMAX>(D);
+  const size_t merge = sizeof(float) * (size_t)(2 * NW * 16 + NW * 16 * D);
   return rings > merge ? rings : merge;
 }
 
@@ -111,7 +119,7 @@ inline size_t split_mma_smem(int D) {
 template <typename S, int DMAX>
 __device__ __forceinline__ void split_items_mma(const SplitArgs& a, float* smem) {
   using T = __nv_bfloat16;
-  constexpr int NW = kSplitWarps, RM = 16;
+  constexpr int NW = split_mma_warps<DMAX>(), RM = 16;
   const int D = a.D, G = a.H / a.KV;
   const int tid = threadIdx.x, warp = tid >> 5;
   char* my_ring = reinterpret_cast<char*>(smem) + (size_t)warp * split_mma_ring_bytes<S, DMAX>(D);
@@ -260,27 +268,33 @@ __global__ void __launch_bounds__(kSplitWarps * 32) ragged_split_kernel(SplitArg
       __pipeline_commit();
 #pragma unroll
       for (int g = 0; g < RMAX; ++g) s[g] = 0.f;
-      {  // this lane's K row, every 16-byte chunk in flight at once, against
-         // every q row of the pass
+      {  // this lane's K row against every q row of the pass, its 16-byte
+         // chunks in flight at once (up to head dim 128 in f32; above, in
+         // batches of KB, which keeps the batch's registers at 64)
         constexpr int EPC = 16 / sizeof(S), KC = DMAX / EPC;
-        uint4 kreg[KC];
+        constexpr int KB = KC > 32 ? 16 : KC;
         const uint4* krow = reinterpret_cast<const uint4*>(kc + slot * rs);
 #pragma unroll
-        for (int ch = 0; ch < KC; ++ch)
-          kreg[ch] = (live && ch * EPC < D) ? krow[ch] : make_uint4(0u, 0u, 0u, 0u);
+        for (int c0 = 0; c0 < KC; c0 += KB) {
+          uint4 kreg[KB];
 #pragma unroll
-        for (int ch = 0; ch < KC; ++ch) {
-          if (ch * EPC < D) {
-            float kf[EPC];
-            unpack16(kreg[ch], kf, S());
+          for (int ch = 0; ch < KB; ++ch)
+            kreg[ch] = (live && (c0 + ch) * EPC < D) ? krow[c0 + ch] : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-            for (int g = 0; g < RMAX; ++g) {
-              if (g < rows) {
+          for (int ch = 0; ch < KB; ++ch) {
+            if ((c0 + ch) * EPC < D) {
+              float kf[EPC];
+              unpack16(kreg[ch], kf, S());
 #pragma unroll
-                for (int e = 0; e < EPC; e += 4) {
-                  const float4 q4 = *reinterpret_cast<const float4*>(&sQ[g * D + ch * EPC + e]);
-                  s[g] = fmaf(q4.x, kf[e], fmaf(q4.y, kf[e + 1],
-                              fmaf(q4.z, kf[e + 2], fmaf(q4.w, kf[e + 3], s[g]))));
+              for (int g = 0; g < RMAX; ++g) {
+                if (g < rows) {
+#pragma unroll
+                  for (int e = 0; e < EPC; e += 4) {
+                    const float4 q4 =
+                        *reinterpret_cast<const float4*>(&sQ[g * D + (c0 + ch) * EPC + e]);
+                    s[g] = fmaf(q4.x, kf[e], fmaf(q4.y, kf[e + 1],
+                                fmaf(q4.z, kf[e + 2], fmaf(q4.w, kf[e + 3], s[g]))));
+                  }
                 }
               }
             }
@@ -409,6 +423,8 @@ __global__ void __launch_bounds__(256) ragged_combine_kernel(const int* plan, co
   }  // tokens to combine
 }
 
+// (the CUDA-core body at head dim 256 in f32: an 80 KB merge area and four
+// 32 KB V tiles, 209 KB in all)
 template <typename T, typename S, int DMAX, int RMAX, bool MMA = false>
 cudaError_t launch_split(const SplitArgs& a, int n_items, cudaStream_t stream) {
   const size_t smem = MMA ? split_mma_smem<S, DMAX>(a.D)
@@ -416,8 +432,9 @@ cudaError_t launch_split(const SplitArgs& a, int n_items, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(ragged_split_kernel<T, S, DMAX, RMAX, MMA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  const int warps = MMA ? split_mma_warps<DMAX>() : kSplitWarps;
   ragged_split_kernel<T, S, DMAX, RMAX, MMA>
-      <<<dim3(n_items, a.KV), kSplitWarps * 32, smem, stream>>>(a);
+      <<<dim3(n_items, a.KV), warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -437,13 +454,15 @@ cudaError_t launch_split_rows(const SplitArgs& a, int n_items, int rows, cudaStr
 // The split kernel over the items (one token each: its G q heads a pass),
 // then the combine; n_items and n_comb are the grids. bf16 q at head dims
 // that are multiples of 16 (every one-byte pool's: the wrapper requires it)
-// runs the tensor-core body.
+// runs the tensor-core body. Head dims up to 256: DMAX 64, 128 or 256 (the
+// combine walks any D, 32 columns a step).
 template <typename T, typename S = T>
 cudaError_t run_split(const SplitArgs& a, int n_items, int n_comb, cudaStream_t stream) {
   if (n_items > 0) {
     const int G = a.H / a.KV;
-    const cudaError_t err = a.D <= 64 ? launch_split_rows<T, S, 64>(a, n_items, G, stream)
-                                      : launch_split_rows<T, S, 128>(a, n_items, G, stream);
+    const cudaError_t err = a.D <= 64    ? launch_split_rows<T, S, 64>(a, n_items, G, stream)
+                            : a.D <= 128 ? launch_split_rows<T, S, 128>(a, n_items, G, stream)
+                                         : launch_split_rows<T, S, 256>(a, n_items, G, stream);
     if (err != cudaSuccess) return err;
   }
   if (n_comb > 0) {

@@ -448,25 +448,23 @@ def _proj_gate(flag: str, on_cuda: bool, ref_failed: List[str], card_failed: Lis
         )
 
 
-def _card_limits(D: int, dtype: torch.dtype, store: Optional[torch.dtype] = None,
-                 max_head_dim: int = fa.MAX_HEAD_DIM) -> List[str]:
-    """The CUDA kernels' limits: head dim (up to ``max_head_dim``: the paged
-    prefill and the ragged kernel take less than the others), q's dtype, and
-    the KV ``store`` the kernel reads (q's dtype, or, for the paged, ragged
-    and commit kernels, a one-byte store at a head dim that is a multiple of
-    16, up to 128). Any number of query heads per kv head: the decode
-    kernels take a group above 16 in head tiles."""
+def _card_limits(D: int, dtype: torch.dtype, store: Optional[torch.dtype] = None) -> List[str]:
+    """The CUDA attention kernels' limits: head dim (a multiple of 8 up to
+    256, every kernel), q's dtype, and the KV ``store`` the kernel reads
+    (q's dtype, or, for the paged, ragged and commit kernels, a one-byte
+    store at a head dim that is a multiple of 16, up to 256). Any number of
+    query heads per kv head: the decode kernels take a group above 16 in
+    head tiles."""
     bad = []
-    if D % 8 or D > max_head_dim:
-        bad.append(f"head_dim {D} is not a multiple of 8 up to {max_head_dim}")
+    if D % 8 or D > fa.MAX_HEAD_DIM:
+        bad.append(f"head_dim {D} is not a multiple of 8 up to {fa.MAX_HEAD_DIM}")
     if dtype not in (torch.float32, torch.bfloat16):
         bad.append(f"dtype {dtype} is not float32 or bfloat16")
     if store is not None and store != dtype:
         if store not in fa.ONE_BYTE_STORES:
             bad.append(f"KV store {store} is neither {dtype} nor a one-byte store")
-        elif D % 16 or D > fa.ONE_BYTE_MAX_HEAD_DIM:
-            bad.append(f"a one-byte KV store needs head_dim a multiple of 16 up to "
-                       f"{fa.ONE_BYTE_MAX_HEAD_DIM}, got {D}")
+        elif D % 16:
+            bad.append(f"a one-byte KV store needs head_dim a multiple of 16, got {D}")
     return bad
 
 
@@ -565,8 +563,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         store = k_cache_l.dtype
         if S > 1 and _kernel_gate(
             "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-            ref_failed, _card_limits(D, q.dtype, store=store,
-                                     max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM),
+            ref_failed, _card_limits(D, q.dtype, store=store),
             lf.ref_only(),
         ):
             _record_strategy("cte_paged_kernel")
@@ -624,8 +621,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
     ref_failed += _window_refused(arch) + _chunk_refused(arch) + _no_cap_or_sink(arch)
-    card = _card_limits(D, q.dtype, store=k_cache_l.dtype,
-                        max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)
+    card = _card_limits(D, q.dtype, store=k_cache_l.dtype)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
                     card, lf.ref_only()):
         _record_strategy("mixed_ragged_kernel")

@@ -68,12 +68,11 @@ import torch
 from nxdi_tpu_torch.ops.attention import NEG_INF
 from nxdi_tpu_torch.ops.kernels import _build
 
-# head dims the kernels take (multiples of 8): the contiguous prefill and the
-# decode kernel's three modes up to 256 (Gemma); the paged prefill and the
-# ragged kernel (rows 6 and 8), and every kernel over a one-byte pool, up to 128
+# head dims every attention kernel takes (multiples of 8; over a one-byte
+# pool, multiples of 16): up to 256 (Gemma's). The TMA + wgmma bodies take
+# 64 and 128 (WGMMA_HEAD_DIMS); the other head dims run the mma.sync body
+# (bf16) or the CUDA-core body (f32)
 MAX_HEAD_DIM = 256
-PAGED_PREFILL_MAX_HEAD_DIM = 128
-ONE_BYTE_MAX_HEAD_DIM = 128
 # the one-byte KV stores the paged kernels read (and convert as tiles land)
 ONE_BYTE_STORES = (torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
 # the contiguous prefill's bodies (codes shared with csrc/flash_prefill.cu)
@@ -149,9 +148,9 @@ def _check_kv_store(name: str, q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError(f"{name}: KV store dtypes ({k_cache.dtype}, {v_cache.dtype}) are "
                         f"neither q's ({q.dtype}) nor one shared one-byte store")
     D = q.shape[-1]
-    if D % 16 or D > ONE_BYTE_MAX_HEAD_DIM:
+    if D % 16 or D > MAX_HEAD_DIM:
         raise ValueError(f"{name}: a one-byte KV store needs head_dim a multiple of 16 up to "
-                         f"{ONE_BYTE_MAX_HEAD_DIM}, got {D}")
+                         f"{MAX_HEAD_DIM}, got {D}")
     for t in (k_cache, v_cache):
         if t.device != q.device:
             raise ValueError(f"{name}: all operands must be on the same CUDA device")
@@ -317,9 +316,10 @@ def paged_prefill_body(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     per pool block: bf16 q at head dim 64 or 128 with a block size
     :func:`paged_wgmma_block` takes, over a bf16 pool or a one-byte pool,
     whose raw boxes are converted to bf16 in shared memory), ``"mma"``
-    (mma.sync: other bf16 cases whose head dim is a multiple of 16) or
-    ``"simt"`` (CUDA cores: f32, other bf16 head dims). Operands whose
-    strides TMA cannot take raise: an eligible call never falls back."""
+    (mma.sync: other bf16 cases whose head dim is a multiple of 16, Gemma's
+    256 among them, over either pool) or ``"simt"`` (CUDA cores: f32, other
+    bf16 head dims). Operands whose strides TMA cannot take raise: an
+    eligible call never falls back."""
     D = q.shape[3]
     if (q.dtype == torch.bfloat16 and (k_cache.dtype == q.dtype or k_cache.dtype in
                                        ONE_BYTE_STORES)
@@ -786,7 +786,6 @@ def paged_attention_prefill(
             q, k_cache, v_cache, block_table, q_pos, block_size=block_size, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
-    _check_head_dim(q.shape[3], name, PAGED_PREFILL_MAX_HEAD_DIM)
     out = _paged_launch(name, False, q, k_cache, v_cache, block_table, q_pos, block_size,
                         scale, k_scale, v_scale)
     paged_attention_prefill.launches += 1

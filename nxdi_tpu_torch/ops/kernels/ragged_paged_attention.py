@@ -30,8 +30,10 @@ of that size, which is what the mixed step's CUDA graph holds.
 
 The pool may hold a one-byte store (``float8_e4m3fn``, ``float8_e5m2``,
 ``int8``), read as the JAX kernel reads it: converted to q's dtype, with
-the scales folded as above. With bf16 q at head dim 64 or 128 (and a block
-size the TMA walk takes) the plan's one-row tiles become wgmma items
+the scales folded as above. Every head dim that is a multiple of 8 up to
+256 runs (a one-byte pool: multiples of 16). With bf16 q at head dim 64 or
+128 (and a block size the TMA walk takes) the plan's one-row tiles become
+wgmma items
 (:func:`ragged_direct_body`, ``ragged_plan(wgmma=True)``): up to 128
 consecutive tokens of one row at consecutive positions, each a q tile of
 the one-byte TMA + wgmma body (``csrc/prefill_wgmma.cuh``), whose raw K/V
@@ -54,7 +56,6 @@ import torch
 from nxdi_tpu_torch.ops.kernels import _build
 from nxdi_tpu_torch.ops.kernels.flash_attention import (
     ONE_BYTE_STORES,
-    PAGED_PREFILL_MAX_HEAD_DIM,
     WGMMA_HEAD_DIMS,
     _check_cuda_operand,
     _check_head_dim,
@@ -336,9 +337,10 @@ def ragged_direct_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: in
     over a one-byte pool at head dim 64 or 128 with a block size
     ``paged_wgmma_block`` takes: the plan's wgmma items on the one-byte TMA
     + wgmma body, ``ragged_plan(wgmma=True)``), ``"mma"`` (mma.sync: other
-    bf16 q at head dims that are multiples of 16) or ``"simt"`` (CUDA
-    cores). Looked up on every call (a caller may replace it, to time the
-    earlier design)."""
+    bf16 q at head dims that are multiples of 16, Gemma's 256 among them,
+    where the plan holds direct tiles and no wgmma items) or ``"simt"``
+    (CUDA cores). Looked up on every call (a caller may replace it, to time
+    the earlier design)."""
     if (q_dtype == torch.bfloat16 and kv_dtype in ONE_BYTE_STORES
             and head_dim in WGMMA_HEAD_DIMS and paged_wgmma_block(block_size)):
         return "wgmma"
@@ -429,7 +431,6 @@ def ragged_paged_attention(
             q, k_cache, v_cache, block_tables, row_ids, q_pos, block_size=block_size,
             scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
-    _check_head_dim(D, name, PAGED_PREFILL_MAX_HEAD_DIM)
     _check_cuda_operand(q, name, q.dtype)
     _check_kv_store(name, q, k_cache, v_cache)
     kv_code = _build.store_code(k_cache, q, name)

@@ -10,6 +10,7 @@ scales cos/sin (the models read it as ``DecoderArch.rope_mscale``).
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -136,7 +137,9 @@ def inv_freq_from_hf_config(
     head_dim: int, rope_theta: float, rope_scaling=None, max_position_embeddings: int = 4096
 ) -> np.ndarray:
     """Frequencies for the rope types one table serves (default, llama3,
-    linear, yarn); any other type raises rather than rotating long contexts
+    linear, yarn, and ``dynamic`` as the JAX package takes it: the default
+    table, with a warning that positions past the original context rotate
+    wrongly); any other type raises rather than rotating long contexts
     wrongly. LongRoPE needs two tables and the per-forward choice between
     them: the Phi-3 families build it (``models/phi3``: ``build_inv_freq``
     through :func:`longrope_inv_freq`)."""
@@ -158,6 +161,14 @@ def inv_freq_from_hf_config(
         return default_inv_freq(head_dim, rope_theta)
     if rope_type == "yarn":
         return yarn_inv_freq(head_dim, rope_theta, rope_scaling, max_position_embeddings)[0]
+    if rope_type == "dynamic":
+        # dynamic NTK equals the default frequencies inside the original
+        # context window; past it the runtime would have to rescale
+        warnings.warn(
+            "rope_type 'dynamic' treated as default frequencies; positions "
+            "beyond original_max_position_embeddings will rotate incorrectly"
+        )
+        return default_inv_freq(head_dim, rope_theta)
     if rope_type == "longrope":
         raise ValueError(
             "rope type 'longrope' takes two frequency sets chosen per forward: build it "

@@ -205,14 +205,15 @@ def refuse_mla_speculation(*archs) -> None:
 def refuse_unported(family, config) -> None:
     """Raise at app build for what the port does not serve on this model yet
     (:data:`SEGMENTED_REFUSALS`; the family switches on the paths that do
-    not carry them: LoRA, quantized KV stores, MoE routing but for
-    :data:`MOE_CARRIED`, MLA, and the mixed step: :data:`MIXED_REFUSED`)."""
+    not carry them: MoE routing but for :data:`MOE_CARRIED`, MLA, and the
+    mixed step: :data:`MIXED_REFUSED`). LoRA serving and quantized KV
+    stores carry every switch, as in the JAX package, which refuses only
+    what ``config.py`` refuses here too (LoRA under ``fused_qkv``,
+    per-key / per-channel KV scales on a paged or ring layout)."""
     tc = config.tpu_config
     arch = family.build_arch(config)
     switches = family_switches(arch) + (["use_local_rope"] if local_rope(family, config) else [])
     for path, on, refused in (
-        ("LoRA serving", tc.lora_config is not None, switches),
-        ("a quantized KV cache", tc.kv_quant_config is not None, switches),
         ("mixture-of-experts routing", arch.moe is not None,
          [s for s in switches if s not in MOE_CARRIED]),
         ("MLA attention", arch.mla is not None, switches),

@@ -78,7 +78,7 @@ CUTS = {
 
 DECODE_SOURCES = ("paged_decode.cu", "paged_decode_1b.cu", "flash_decode.cu",
                   "window_decode.cu")
-RAGGED_SOURCES = ("ragged_paged.cu", "ragged_paged_1b.cu")
+RAGGED_SOURCES = ("ragged_paged.cu", "ragged_paged_1b.cu", "ragged_split_1b.cu")
 SYMBOLS = ("nxdi_paged_decode", "nxdi_flash_decode_fused", "nxdi_flash_decode_window",
            "nxdi_ragged_paged")
 CHUNKS = (128, 256, 384, 512, 1024, 1 << 30)

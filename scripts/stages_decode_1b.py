@@ -53,7 +53,8 @@ sys.path.insert(0, str(REPO))
 VARIANTS = [((1, 1), (1, 1)), ((2, 1), (2, 1)), ((3, 1), (1, 2)), ((2, 2), (2, 2)),
             ((4, 1), (3, 1))]
 CONSTS = {"decode_kernel.cuh": "kDec", "ragged_split.cuh": "kSplit"}
-SOURCES = ("paged_decode.cu", "paged_decode_1b.cu", "ragged_paged.cu", "ragged_paged_1b.cu")
+SOURCES = ("paged_decode.cu", "paged_decode_1b.cu", "ragged_paged.cu", "ragged_paged_1b.cu",
+           "ragged_split_1b.cu")
 
 
 def _name(v):

@@ -1743,22 +1743,163 @@ def test_decode_at_head_dim_256(gen, monkeypatch, mode, mask, G, dtype):
     assert _max_err(call(), want) <= D256_TOL[dtype]
 
 
-def test_paged_prefill_and_ragged_refuse_head_dim_256(gen):
-    """Rows 6 and 8 stop at head dim 128 on the card (ROADMAP Queue 2); a
-    one-byte store too."""
-    q = _randn(gen, 1, 2, 8, 256)
-    pool = _randn(gen, 64, 1, 256)
+def test_paged_kernels_refuse_head_dim_above_256(gen):
+    """Rows 6, 7 and 8 take head dims up to 256 on the card, over a bf16
+    pool and a one-byte store; 264 raises, naming the limit."""
+    q = _randn(gen, 1, 2, 8, 264)
+    pool = _randn(gen, 64, 1, 264)
     bt = torch.zeros((1, 4), dtype=torch.int32)
     pos = torch.arange(8, dtype=torch.int32)[None]
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match="up to 256"):
         fa.paged_attention_prefill(q, pool, pool, bt, pos, block_size=16)
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match="up to 256"):
         rpa.ragged_paged_attention(q, pool, pool, bt, torch.zeros(8, dtype=torch.int32),
                                    pos[0], block_size=16)
     one = pool.to(torch.float8_e4m3fn)
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match="up to 256"):
         fa.paged_attention_decode(q[:, :, :1].to(torch.bfloat16), one, one, bt, pos[:, :1],
                                   block_size=16)
+
+
+# Gemma-2B's attention: 8 query heads over 1 kv head of 256
+GEMMA_H, GEMMA_KV, GEMMA_D = 8, 1, 256
+
+
+def _pool_256(gen, store, dtype, n):
+    """(k, v) pools of n slots at Gemma-2B's kv width: q's dtype, or a
+    one-byte store."""
+    if store is None:
+        return tuple(_randn(gen, n, GEMMA_KV, GEMMA_D).to(dtype) for _ in range(2))
+    return tuple(_one_byte(gen, store, n, GEMMA_KV, GEMMA_D) for _ in range(2))
+
+
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("store", [None] + list(ONE_BYTE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_at_head_dim_256(gen, dtype, store, bs):
+    """Row 6 at head dim 256 (bf16: the mma.sync body reading Q from shared
+    memory, tiles through the block table; f32: the CUDA-core body at 8
+    columns a lane), over a bf16 / f32 pool and each one-byte store (row
+    6'): a 300-token chunk after a 260-token prefix with a hole, and one
+    from 0, against the plain version; the same bits on a second call; the
+    body that ran by name. With bf16 q over a one-byte pool the output
+    equals the bf16 pool's kernel on the up-cast pool bit for bit (the
+    tiles convert exactly as they land)."""
+    B, Sq = 2, 300
+    NB = 640 // bs
+    bt = torch.randperm(2 * NB, generator=torch.Generator().manual_seed(5)).reshape(2, NB)
+    bt = bt.to(torch.int32)
+    bt[0, 40 // bs] = -1
+    kc_, vc_ = _pool_256(gen, store, dtype, 2 * NB * bs)
+    q = _randn(gen, B, Sq, GEMMA_H, GEMMA_D).to(dtype).transpose(1, 2)
+    qp = (torch.tensor([[260], [0]], dtype=torch.int32) + torch.arange(Sq, dtype=torch.int32))
+    qp = qp.cuda()
+    kw = dict(block_size=bs, **(ONE_BYTE_SCALES[store] if store else {}))
+    body = fa.paged_prefill_body(q, kc_, vc_, bs)
+    assert body == ("mma" if dtype == torch.bfloat16 else "simt")
+    before = fa.paged_attention_prefill.launches
+    got = fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw)
+    assert fa.paged_attention_prefill.launches == before + 1
+    want = fa.paged_attention_prefill_plain(q, kc_, vc_, bt.cuda(), qp, **kw)
+    tol = ONE_BYTE_TOL[dtype] if store else D256_TOL[dtype]
+    assert _max_err(got, want) <= tol
+    assert torch.equal(fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw), got)
+    names = _kernel_names(lambda: fa.paged_attention_prefill(q, kc_, vc_, bt, qp, **kw))
+    assert [n for n in names if "prefill" in n] == [
+        "prefill_tc_kernel" if dtype == torch.bfloat16 else "prefill_kernel"]
+    if store and dtype == torch.bfloat16:
+        up = fa.paged_attention_prefill(q, kc_.to(dtype), vc_.to(dtype), bt, qp, **kw)
+        assert torch.equal(got, up)
+
+
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("store", list(ONE_BYTE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_byte_paged_decode_at_head_dim_256(gen, dtype, store, bs):
+    """Row 7' at head dim 256: the paged decode over a one-byte pool, 768
+    positions split in chunks, a table of holes only, a hole mid-range, a
+    row at 0; against the plain version, the same bits on a second call,
+    the split and combine kernels launched; with bf16 q (2 warps a block on
+    the tensor cores, raw tiles converted in shared memory) equal bit for
+    bit to the bf16 pool's kernel on the up-cast pool. Run alone, every
+    case traces both kernels by name; late in the whole file's run the
+    card's profiler has dropped the split kernel's records, so the names
+    are held as a subset that holds the combine."""
+    B = 4
+    NB = 768 // bs
+    kc_, vc_ = _pool_256(gen, store, dtype, B * NB * bs)
+    bt = torch.randperm(B * NB, generator=torch.Generator().manual_seed(3)).reshape(B, NB)
+    bt = bt.to(torch.int32)
+    bt[1, :] = -1
+    bt[2, 112 // bs] = -1
+    btc = bt.cuda()
+    q = _randn(gen, B, 1, GEMMA_H, GEMMA_D).to(dtype).transpose(1, 2)
+    qp = torch.tensor([[767], [300], [384], [0]], dtype=torch.int32).cuda()
+    kw = dict(block_size=bs, **ONE_BYTE_SCALES[store])
+    before = fa.paged_attention_decode.launches
+    got = fa.paged_attention_decode(q, kc_, vc_, btc, qp, **kw)
+    assert fa.paged_attention_decode.launches == before + 1
+    want = fa.paged_attention_decode_plain(q, kc_, vc_, btc, qp, **kw)
+    assert _max_err(got, want) <= ONE_BYTE_TOL[dtype]
+    assert torch.all(got[1] == 0)
+    assert torch.equal(fa.paged_attention_decode(q, kc_, vc_, btc, qp, **kw), got)
+    # the combine launches only after the split (C > 1)
+    names = _kernel_names(lambda: fa.paged_attention_decode(q, kc_, vc_, btc, qp, **kw))
+    assert "decode_combine_kernel" in names
+    assert set(names) <= {"decode_combine_kernel", "decode_split_kernel"}
+    if dtype == torch.bfloat16:
+        up = fa.paged_attention_decode(q, kc_.to(dtype), vc_.to(dtype), btc, qp, **kw)
+        assert torch.equal(got, up)
+
+
+@pytest.mark.parametrize("store", [None] + list(ONE_BYTE))
+@pytest.mark.parametrize("stream", ["decode8", "chunk_and_long_decode"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_at_head_dim_256(gen, dtype, stream, store):
+    """Row 8 at head dim 256 (Gemma-2B's heads) over a bf16 / f32 pool and
+    each one-byte store (row 8'): direct tiles on the mma.sync or CUDA-core
+    body, split items at 2 warps a block (bf16) or on the CUDA cores (f32),
+    the combine over 256 columns, and no wgmma items; against the plain
+    version, padding exactly 0, the same bits on a second call; the
+    graph-ready launch, eager and replayed from a CUDA graph, equal to the
+    per-call launch. With bf16 q over a one-byte pool the split items'
+    tokens equal the bf16 pool's kernels on the up-cast pool bit for bit."""
+    T, rows = RAGGED_STREAMS[stream]
+    bs, NB = 128, 16
+    R = max(s for s, _, _ in rows) + 1
+    bt, rid, qp = _ragged_stream(rows, T, R, NB, bs, gen)
+    kc_, vc_ = _pool_256(gen, store, dtype, R * NB * bs)
+    q = _randn(gen, 1, T, GEMMA_H, GEMMA_D).to(dtype).transpose(1, 2)
+    assert rpa.ragged_direct_body(dtype, kc_.dtype, GEMMA_D, bs) == (
+        "mma" if dtype == torch.bfloat16 else "simt")
+    plan = rpa.ragged_plan(rid, qp, R, NB * bs, GEMMA_KV)
+    assert plan.n_items > 0 and plan.n_wg == 0
+    kw = dict(block_size=bs, **(ONE_BYTE_SCALES[store] if store else {}))
+    before = rpa.ragged_paged_attention.launches
+    got = rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw)
+    assert rpa.ragged_paged_attention.launches == before + 1
+    want = rpa.ragged_paged_attention_plain(q, kc_, vc_, bt, rid, qp, **kw)
+    tol = ONE_BYTE_TOL[dtype] if store else D256_TOL[dtype]
+    assert _max_err(got, want) <= tol
+    assert torch.all(got[:, :, torch.from_numpy(rid < 0).cuda()] == 0)
+    assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, bt, rid, qp, plan=plan, **kw), got)
+    if store and dtype == torch.bfloat16:
+        toks = torch.from_numpy(np.unique(plan.items()[:, 0])).cuda()
+        up = rpa.ragged_paged_attention(q, kc_.to(dtype), vc_.to(dtype), bt, rid, qp, plan=plan,
+                                        **kw)
+        assert torch.equal(got[:, :, toks], up[:, :, toks])
+    btc, ridc, qpc = (torch.from_numpy(x).cuda() for x in (bt, rid, qp))
+    cap = rpa.ragged_capacity(T, R, NB * bs, GEMMA_KV)
+    static = dataclasses.replace(cap, flat=torch.from_numpy(rpa.pad_plan(plan, cap)).cuda())
+    assert torch.equal(rpa.ragged_paged_attention(q, kc_, vc_, btc, ridc, qpc, plan=static,
+                                                  **kw), got)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = rpa.ragged_paged_attention(q, kc_, vc_, btc, ridc, qpc, plan=static, **kw)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize("M", [8, 520])

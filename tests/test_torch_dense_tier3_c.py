@@ -135,9 +135,9 @@ def test_padded_positions_past_the_table_read_its_last_row():
     ("apertus", "xielu"),
 ])
 def test_paths_without_the_new_switches_refuse_them(case, switches):
-    """Speculation, LoRA, a quantized KV cache and the mixed step raise at
-    app build on the learned positions, no rope, the head bias and xIELU,
-    naming them."""
+    """Speculation and the mixed step raise at app build on the learned
+    positions, no rope, the head bias and xIELU, naming them; LoRA and a
+    quantized KV cache carry them (as in the JAX package)."""
     from test_torch_dense_tier3 import CASES
 
     model_type = CASES[case][0]
@@ -149,9 +149,8 @@ def test_paths_without_the_new_switches_refuse_them(case, switches):
 
     with pytest.raises(NotImplementedError, match=f"speculative decoding.*{switches}"):
         refuse_mla_speculation(family.build_arch(config()))
-    for kw, path in ((dict(lora_config=dict(max_loras=2, max_lora_rank=4,
-                                            target_modules=["q_proj"])), "LoRA serving"),
-                     (dict(kv_cache_quant=True), "a quantized KV cache"),
-                     (dict(mixed_dispatch=True, is_block_kv_layout=True), "mixed_dispatch")):
-        with pytest.raises(NotImplementedError, match=f"{path}.*{switches}"):
-            refuse_unported(family, config(**kw))
+    with pytest.raises(NotImplementedError, match=f"mixed_dispatch.*{switches}"):
+        refuse_unported(family, config(mixed_dispatch=True, is_block_kv_layout=True))
+    refuse_unported(family, config(lora_config=dict(max_loras=2, max_lora_rank=4,
+                                                    target_modules=["q_proj"])))
+    refuse_unported(family, config(kv_cache_quant=True))

@@ -41,8 +41,8 @@ from nxdi_tpu_torch.models.mixtral import modeling_mixtral as tmx
 from nxdi_tpu_torch.models.qwen3 import modeling_qwen3 as tqwen3
 from nxdi_tpu_torch.ops import norms as tnorms
 from nxdi_tpu_torch.ops import rope as trope
-from nxdi_tpu_torch.ops.kernels import flash_attention as fa
-from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM, refuse_mla_speculation
+from nxdi_tpu_torch.runtime.application import (TorchModelForCausalLM, family_switches,
+                                                 refuse_mla_speculation)
 from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
 from test_torch_families import (
@@ -392,11 +392,20 @@ def test_window_sized_kv_refused():
      "mixed_dispatch.*sliding_window"),
 ])
 def test_paths_without_a_switch_refuse_it(model_type, kw, switch):
-    """LoRA, a quantized KV cache and the mixed step's plain attention (which
-    takes no window) raise at app build on a family switch, naming it."""
+    """The mixed step's plain attention (which takes no window) raises at
+    app build on a family switch, naming it; LoRA and a quantized KV cache
+    carry the switch named (as in the JAX package): the app builds with the
+    path on (``tests/test_torch_family_paths*.py`` hold their tokens to the
+    JAX package's)."""
     _, cfg, sd = tiny_family(model_type)
-    with pytest.raises(NotImplementedError, match=switch):
-        port_family_app(model_type, cfg, sd=sd, **kw)
+    if switch.startswith("mixed_dispatch"):
+        with pytest.raises(NotImplementedError, match=switch):
+            port_family_app(model_type, cfg, sd=sd, **kw)
+        return
+    app = port_family_app(model_type, cfg, sd=sd, **kw)
+    path = "lora_config" if "LoRA" in switch else "kv_quant_config"
+    assert getattr(app.tpu_config, path) is not None
+    assert switch.split(".*")[1] in family_switches(app.models["token_generation_model"].arch)
 
 
 def test_speculation_and_moe_refuse_switches():
@@ -427,16 +436,15 @@ def test_speculation_and_moe_refuse_switches():
 
 
 def test_card_limits_by_kernel():
-    """Head dim 256 passes the contiguous prefill's and the decode modes'
-    limits; the paged prefill and the ragged kernel stop at 128, and so does
-    a one-byte store; on the card an enabled paged flag under a window
-    raises, naming it (the JAX rule, kept as a failure there)."""
+    """Head dim 256 passes every kernel's limits, the paged prefill's and
+    the ragged kernel's included, over a bf16 pool and a one-byte store;
+    264 does not; on the card an enabled paged flag under a window raises,
+    naming it (the JAX rule, kept as a failure there)."""
     assert tbase._card_limits(256, torch.bfloat16) == []
-    assert "up to 128" in tbase._card_limits(
-        256, torch.bfloat16, max_head_dim=fa.PAGED_PREFILL_MAX_HEAD_DIM)[0]
-    assert "up to 128" in tbase._card_limits(256, torch.bfloat16,
-                                             store=torch.float8_e4m3fn)[-1]
+    assert tbase._card_limits(256, torch.bfloat16, store=torch.float8_e4m3fn) == []
+    assert tbase._card_limits(256, torch.float32, store=torch.int8) == []
     assert tbase._card_limits(264, torch.bfloat16)[0].startswith("head_dim 264")
+    assert "up to 256" in tbase._card_limits(264, torch.bfloat16, store=torch.int8)[0]
     arch = tbase.DecoderArch(num_layers=1, hidden_size=16, num_attention_heads=2,
                              num_kv_heads=1, head_dim=8, intermediate_size=16, vocab_size=8,
                              vocab_pad=0, sliding_window=8)

@@ -279,8 +279,9 @@ def test_registry_and_refusals():
     """The registry serves the three types; the multimodal ``gemma3`` still
     raises. The paths that do not carry the switches refuse them at app
     build, naming them: the mixed step the attention softcap (the JAX
-    package's plain mixed attention drops it), LoRA the local rope pair,
-    speculation the final softcap. On the card an attention kernel flag on a
+    package's plain mixed attention drops it), speculation the final
+    softcap; LoRA carries the local rope pair (as in the JAX package). On
+    the card an attention kernel flag on a
     softcapped model raises, naming the softcap; the CPU takes the JAX rule."""
     for t in ("gemma3_text", "gemma2", "vaultgemma"):
         assert treg.get_family(t)[0].__name__.startswith("nxdi_tpu_torch.models.")
@@ -297,10 +298,9 @@ def test_registry_and_refusals():
         refuse_mla_speculation(arch)
     g3, g3_cls = treg.get_family("gemma3_text")
     g3cfg = tiny_case("gemma3_text")[1]
-    with pytest.raises(NotImplementedError, match="LoRA serving.*use_local_rope"):
-        refuse_unported(g3, g3_cls(TorchConfig(**_tc(lora_config=dict(
-            max_loras=2, max_lora_rank=4, target_modules=["q_proj"]))),
-            load_config=lambda: dict(g3cfg)))
+    refuse_unported(g3, g3_cls(TorchConfig(**_tc(lora_config=dict(
+        max_loras=2, max_lora_rank=4, target_modules=["q_proj"]))),
+        load_config=lambda: dict(g3cfg)))
     with pytest.raises(NotImplementedError, match="attention logit softcap"):
         tbase._kernel_gate("attn_tkg_kernel_enabled", True, True, tbase._softcap_refused(arch), [])
     assert not tbase._kernel_gate("attn_kernel_enabled", True, False,

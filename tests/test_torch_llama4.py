@@ -339,8 +339,9 @@ def test_decode_visible_range_takes_the_chunk():
 def test_registry_and_refusals():
     """The registry serves ``llama4`` and ``llama4_text``. The paths that do
     not carry the switches refuse them at app build, naming them: the mixed
-    step the chunk (the JAX package's plain mixed attention drops it), LoRA
-    and a quantized KV store the L2 norm, speculation the temperature. The
+    step the chunk (the JAX package's plain mixed attention drops it),
+    speculation the temperature; LoRA and a quantized KV store carry them
+    (as in the JAX package). The
     128-expert interleaved stack raises. The paged and ragged kernels take no
     chunk (the JAX rule): the CPU attends plainly, an enabled flag on the
     card raises naming the chunk. A stack with rope flags but no host rope
@@ -355,11 +356,9 @@ def test_registry_and_refusals():
 
     with pytest.raises(NotImplementedError, match="mixed_dispatch.*chunk_size"):
         refuse_unported(fam, config(mixed_dispatch=True, is_block_kv_layout=True))
-    with pytest.raises(NotImplementedError, match="LoRA serving.*qk_l2norm"):
-        refuse_unported(fam, config(lora_config=dict(max_loras=2, max_lora_rank=4,
-                                                     target_modules=["q_proj"])))
-    with pytest.raises(NotImplementedError, match="quantized KV cache.*chunk_size"):
-        refuse_unported(fam, config(kv_cache_quant=True))
+    refuse_unported(fam, config(lora_config=dict(max_loras=2, max_lora_rank=4,
+                                                 target_modules=["q_proj"])))
+    refuse_unported(fam, config(kv_cache_quant=True))
     arch = fam.build_arch(config())
     with pytest.raises(NotImplementedError, match="speculative decoding.*attn_temperature_tuning"):
         refuse_mla_speculation(arch)

@@ -491,9 +491,12 @@ def test_random_params_match_converter_shapes(case):
 def test_moe_row_carries_the_families_switches():
     """The MoE row of refuse_unported lets each family through; mixed
     dispatch refuses gpt-oss's sinks and window and AFMoE's gate (the JAX
-    package's plain mixed attention drops the sink); speculation and LoRA
-    refuse the new switches; on the card an enabled attention flag on a
-    sink model raises, naming the sinks."""
+    package's plain mixed attention drops the sink); speculation refuses the
+    new switches; LoRA carries them (AFMoE's gate and sandwich norms on an
+    all-MoE stack) and still refuses AFMoE's segmented stack (a dense layer
+    before the MoE ones: the JAX package attaches no adapter there); on the
+    card an enabled attention flag on a sink model raises, naming the
+    sinks."""
     for case in CASES:
         model_type, _, cfg, _ = tiny_case(case)
         fam, cfg_cls = treg.get_family(model_type)
@@ -509,10 +512,11 @@ def test_moe_row_carries_the_families_switches():
         refuse_mla_speculation(arch)
     afam, acfg_cls = treg.get_family("afmoe")
     acfg = tiny_case("afmoe")[2]
-    with pytest.raises(NotImplementedError, match="LoRA serving.*attn_out_gate.*sandwich_norm"):
-        refuse_unported(afam, acfg_cls(TorchConfig(**_tc(lora_config=dict(
-            max_loras=2, max_lora_rank=4, target_modules=["q_proj"]))),
-            load_config=lambda: dict(acfg)))
+    lora_tc = TorchConfig(**_tc(lora_config=dict(max_loras=2, max_lora_rank=4,
+                                                 target_modules=["q_proj"])))
+    with pytest.raises(NotImplementedError, match="LoRA serving on a segmented layer stack"):
+        refuse_unported(afam, acfg_cls(lora_tc, load_config=lambda: dict(acfg)))
+    refuse_unported(afam, acfg_cls(lora_tc, load_config=lambda: dict(acfg, num_dense_layers=0)))
     with pytest.raises(NotImplementedError, match="attention sinks"):
         tbase._kernel_gate("attn_kernel_enabled", True, True, tbase._sink_refused(arch), [])
     assert not tbase._kernel_gate("attn_kernel_enabled", True, False,

@@ -241,8 +241,9 @@ def test_dropped_switch_leaves_jax(switch):
 
 def test_registry_and_refusals():
     """The registry serves the three types. The paths that do not carry the
-    switches refuse them at app build, naming them: speculation and LoRA the
-    parallel block, the mixed step Cohere's window and LayerNorm."""
+    switches refuse them at app build, naming them: speculation the parallel
+    block, the mixed step Cohere's window and LayerNorm; LoRA carries the
+    parallel block (as in the JAX package)."""
     for t in ("cohere2", "exaone4", "olmo3"):
         assert treg.get_family(t)[0].__name__ == f"nxdi_tpu_torch.models.{t}.modeling_{t}"
     fam, cfg_cls = treg.get_family("cohere2")
@@ -253,9 +254,8 @@ def test_registry_and_refusals():
 
     with pytest.raises(NotImplementedError, match="speculative decoding.*parallel_block"):
         refuse_mla_speculation(fam.build_arch(config()))
-    with pytest.raises(NotImplementedError, match="LoRA serving.*parallel_block"):
-        refuse_unported(fam, config(lora_config=dict(max_loras=2, max_lora_rank=4,
-                                                     target_modules=["q_proj"])))
+    refuse_unported(fam, config(lora_config=dict(max_loras=2, max_lora_rank=4,
+                                                 target_modules=["q_proj"])))
     with pytest.raises(NotImplementedError, match="mixed_dispatch.*sliding_window, .*layernorm"):
         refuse_unported(fam, config(mixed_dispatch=True, is_block_kv_layout=True))
 
