@@ -1746,22 +1746,41 @@ MIXED_FLAGS = dict(mixed_dispatch=True, fused_qkv=True, qkv_kernel_enabled=True,
                    mlp_kernel_enabled=True)
 
 
+def mixed_want(tc, n):
+    """The mixed engine's launches over ``n`` layer forwards (layers times
+    mixed dispatches): the ragged, QKV and MLP kernels each once a layer
+    where its flag is on (a window, chunk, sink or softcap family runs the
+    ragged step plainly, with attn_kernel_enabled off; a non-gated or MoE
+    MLP takes no MLP kernel)."""
+    return dict(ragged=n if tc.attn_kernel_enabled else 0,
+                qkv=n if tc.qkv_kernel_enabled else 0, mlp=n if tc.mlp_kernel_enabled else 0)
+
+
+def mixed_strategies(tc):
+    """The strategies a mixed engine's dispatches record under ``tc``."""
+    return ({"mixed_ragged_kernel" if tc.attn_kernel_enabled else "mixed_ragged_xla"}
+            | ({"qkv_fused_kernel"} if tc.qkv_kernel_enabled else set())
+            | ({"mlp_fused_kernel"} if tc.mlp_kernel_enabled else set()))
+
+
 def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, seq_len, ctx_len,
                     num_blocks, chunk, block_tkg, device, params=None, mixed=False, graphs=True,
                     family=None, **extra):
-    """The paged engine's app (``extra``: more config keys, e.g. a quantized
-    KV pool, a role or the MoE dispatch; a decode-role app takes no chunked
+    """The paged engine's app (``extra``: more config keys, which win over
+    the defaults and MIXED_FLAGS, e.g. a quantized KV pool, a role, the MoE
+    dispatch or a family's kernel flags; a decode-role app takes no chunked
     prefill; ``family``: another model, model_config)."""
-    tcfg = TorchConfig(
-        tp_degree=1, batch_size=1, ctx_batch_size=1, tkg_batch_size=slots, seq_len=seq_len,
-        max_context_length=ctx_len, dtype=dtype, on_device_sampling_config=ODSC(),
-        enable_bucketing=True, is_block_kv_layout=True, pa_block_size=128,
-        pa_num_blocks=num_blocks, is_prefix_caching=extra.get("role") != "decode",
-        chunked_prefill_config=None if extra.get("role") == "decode" else {"chunk_size": chunk},
-        attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
-        attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=True,
-        **(MIXED_FLAGS if mixed else {}), **extra,
-    )
+    tcfg = TorchConfig(**{
+        **dict(tp_degree=1, batch_size=1, ctx_batch_size=1, tkg_batch_size=slots,
+               seq_len=seq_len, max_context_length=ctx_len, dtype=dtype,
+               on_device_sampling_config=ODSC(), enable_bucketing=True, is_block_kv_layout=True,
+               pa_block_size=128, pa_num_blocks=num_blocks,
+               is_prefix_caching=extra.get("role") != "decode",
+               chunked_prefill_config=(None if extra.get("role") == "decode"
+                                       else {"chunk_size": chunk}),
+               attn_kernel_enabled=True, attn_tkg_kernel_enabled=True,
+               attn_block_tkg_kernel_enabled=block_tkg, output_logits=True, skip_warmup=True),
+        **(MIXED_FLAGS if mixed else {}), **extra})
     module, cfg = model_config(ml, tcfg, layers, family)
     arch = module.build_arch(cfg)
 
@@ -1769,7 +1788,7 @@ def make_engine_app(ml, TorchConfig, ODSC, App, dense, *, layers, dtype, slots, 
         def build_params(self):
             if params is not None:
                 return params
-            return dense.random_params(arch, seed=0, device=device)
+            return random_weights(dense, module, cfg, arch, device)
 
     app = EngineApp("<random>", cfg, model_family=module, device=device, graphs=graphs)
     app.load()
@@ -1949,10 +1968,9 @@ def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None, family=None, extra=Non
     n_same = same_bits(torch, phase, gpu_logits, eager_logits)
     want = dict.fromkeys(kernels, 0)
     if mixed:
-        want.update(ragged=L * disp[TAG_MIXED], qkv=L * disp[TAG_MIXED],
-                    mlp=L * disp[TAG_MIXED])
+        want.update(mixed_want(gpu_app.tpu_config, L * disp[TAG_MIXED]))
         assert sum(disp.values()) == disp[TAG_MIXED], f"phase 4c: dispatches {disp}"
-        strats = {"qkv_fused_kernel", "mixed_ragged_kernel", "mlp_fused_kernel"}
+        strats = mixed_strategies(gpu_app.tpu_config)
     else:
         decode = "paged_decode" if block_tkg else "window_decode"
         want.update({"prefill": L * disp[TAG_CONTEXT_ENCODING],
@@ -1962,8 +1980,9 @@ def engine_vs_cpu(torch, np, mods, mixed=False, kvq=None, family=None, extra=Non
                   "tkg_paged_kernel" if block_tkg else "tkg_kernel"}
     strats |= set(extra_strats)
     assert counts == want, f"phase {phase}: launch counts {counts} != {want} (dispatches {disp})"
-    busy = ("ragged", "qkv", "mlp") if mixed else ("prefill", "paged_prefill", decode)
-    assert all(want[k] > 0 for k in busy), counts
+    busy = ([k for k in ("ragged", "qkv", "mlp") if want[k]] if mixed
+            else ("prefill", "paged_prefill", decode))
+    assert busy and all(want[k] > 0 for k in busy), counts
     assert cpu_strats == gpu_strats == strats, (cpu_strats, gpu_strats)
     assert len(cpu_logits) == len(gpu_logits), f"phase {phase}: dispatch counts differ"
     worst = 0.0
@@ -2077,9 +2096,9 @@ def engine_full_depth(torch, np, mods, card, mixed=False, graphs=True, kvq=None,
     disp = dict(eng.dispatches)
     want = dict.fromkeys(kernels, 0)
     if mixed:
-        want.update(ragged=L * disp[TAG_MIXED], qkv=L * disp[TAG_MIXED], mlp=L * disp[TAG_MIXED])
+        want.update(mixed_want(app.tpu_config, L * disp[TAG_MIXED]))
         assert sum(disp.values()) == disp[TAG_MIXED] > 0, f"phase 5c: dispatches {disp}"
-        strats_want = {"qkv_fused_kernel", "mixed_ragged_kernel", "mlp_fused_kernel"}
+        strats_want = mixed_strategies(app.tpu_config)
     else:
         want.update(prefill=L * disp[TAG_CONTEXT_ENCODING],
                     paged_prefill=L * disp[TAG_PREFIX_PREFILL],
@@ -7465,6 +7484,605 @@ def gemma_paged_full_depth(torch, np, mods, card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phases 4q and 5q: speculation and the mixed step on the family switches
+# ---------------------------------------------------------------------------
+
+RING8 = dict(window_sized_kv=True, sliding_window=8)
+# phase 4q: one family per switch group at tiny widths, 2 layers, f32, batch
+# 2, 40-token prompts (past the windows and chunks of 8): (registry type,
+# widths (None: DeepSeek-V3's MLA_SMALL), ring keys, the speculation kinds it
+# runs, whether its mixed engine runs): every kind on every case but
+# Medusa on a ring. "fused" and "standard" take the target's own weights as
+# a full-cache draft (every fused window accepted whole), "eagle" /
+# "eagle3" (Gemma-3's ring: the aux features through its interleaved
+# stack) a random 1-layer EAGLE draft at the target's width, "chain" three
+# random Medusa heads. A ring is no paged pool, and MLA takes
+# the paged layout nowhere, so those run no mixed engine of their own (the
+# Mistral ring's family does, on its pool)
+FSPEC_KINDS = ("fused", "standard", "eagle", "chain")
+FSPEC_RING_KINDS = ("fused", "standard", "eagle")  # config.py refuses Medusa on a ring
+FSPEC_CASES = {
+    "mistral ring": ("mistral", dict(FAMILY_TINY, sliding_window=8), RING8, FSPEC_RING_KINDS,
+                     True),
+    "gemma3_text ring": ("gemma3_text", dict(FAMILY_TINY, **GEMMA_CASES["gemma3_text ring"][1]),
+                         RING8, ("fused", "standard", "eagle3"), False),
+    "gpt_oss sink": ("gpt_oss", dict(FAMILY_TINY, **MOE_FAMILY_CASES["gpt_oss"]), {},
+                     FSPEC_KINDS, True),
+    "gemma2 softcap": ("gemma2", dict(FAMILY_TINY, **GEMMA_CASES["gemma2"][1]), {},
+                       FSPEC_KINDS, True),
+    "llama4_text chunk": ("llama4_text", SCOUT_TINY, {}, FSPEC_KINDS, True),
+    "falcon G 71 LayerNorm": ("falcon", TIER3_CASES["falcon G 71"], {}, FSPEC_KINDS, True),
+    "opt learned positions": ("opt", TIER3_CASES["opt"], {}, FSPEC_KINDS, True),
+    "deepseek MLA": ("deepseek_v3", None, {}, FSPEC_KINDS, False),
+}
+FSPEC_EAGLE3_VOCAB = 256  # phase 4q's EAGLE3 draft vocab (d2t into the target's 512)
+
+
+def fspec_family(case):
+    model_type, widths, *_ = FSPEC_CASES[case]
+    return deepseek_family(**MLA_SMALL) if widths is None else dense_family(model_type, **widths)
+
+
+def fspec_flags(arch):
+    """The attention kernels unless the model has sinks, the logit softcap
+    or MLA (an enabled flag raises on the card); no projection kernel (the
+    rings refuse them, and phase 4q counts rows 1, 3, 4 and 5)."""
+    attn = not (arch.attention_sink or arch.attn_logit_softcap is not None
+                or arch.mla is not None)
+    return dict(attn_kernel_enabled=attn, attn_tkg_kernel_enabled=attn)
+
+
+def fspec_mixed_flags(arch):
+    """A family's mixed engine: the ragged kernel unless the model has a
+    window, a chunk, sinks or the softcap (row 8 takes none: the JAX rule;
+    an enabled flag raises on the card), the fused QKV kernel, the fused MLP
+    on a gated dense MLP."""
+    attn = (arch.sliding_window is None and arch.chunk_size is None
+            and fspec_flags(arch)["attn_kernel_enabled"])
+    return dict(attn_kernel_enabled=attn, attn_tkg_kernel_enabled=attn,
+                attn_block_tkg_kernel_enabled=attn, fused_qkv=True, qkv_kernel_enabled=True,
+                mlp_kernel_enabled=arch.moe is None and arch.gated_mlp and not arch.mlp_bias)
+
+
+def to_dev(tree, dev):
+    """A params tree (dicts, segment lists, tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_dev(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def fspec_eagle_cfg(mods, cfg, eagle3, **tc):
+    """A 1-layer EAGLE draft's config at the target's width (heads of 64;
+    EAGLE3: FSPEC_EAGLE3_VOCAB tokens)."""
+    from nxdi_tpu_torch.models import llama_eagle as le
+
+    H = cfg.hidden_size
+    heads = H // 64
+    return le.LlamaEagleInferenceConfig(
+        mods[1](is_eagle3=eagle3, **tc), hidden_size=H, intermediate_size=2 * H,
+        num_attention_heads=heads, num_key_value_heads=2 if heads % 2 == 0 else 1, head_dim=64,
+        num_hidden_layers=1, vocab_size=FSPEC_EAGLE3_VOCAB if eagle3 else cfg.vocab_size,
+        max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+        tie_word_embeddings=False)
+
+
+def fspec_params(torch, mods, family, cfg, arch, kinds, tc):
+    """The CPU weights of a phase 4q case: the target (seed 0), three Medusa
+    heads (seed 2) and the EAGLE drafts its kinds need (seed 1)."""
+    from nxdi_tpu_torch.models import llama_eagle as le
+
+    dense = mods[4]
+    out = {"target": random_weights(dense, family[0], cfg, arch, "cpu")}
+    g = torch.Generator().manual_seed(2)
+    H, V, K = arch.hidden_size, arch.vocab_size, 3
+    out["heads"] = {"res_w": torch.randn((K, H, H), generator=g) * 0.02,
+                    "res_b": torch.randn((K, H), generator=g) * 0.02,
+                    "head": torch.randn((K, H, V), generator=g) * 0.02}
+    for kind in kinds:
+        if kind in ("eagle", "eagle3"):
+            out[kind] = le.random_params(fspec_eagle_cfg(mods, cfg, kind == "eagle3", **tc),
+                                         out["target"], target_num_layers=arch.num_layers,
+                                         seed=1, device="cpu")
+    return out
+
+
+def fspec_app(mods, kind, family, params, *, layers, batch, seq_len, ctx_len, device, graphs,
+              spec_len, ring_kw, flags):
+    """A phase 4q speculation app on ``family``, loaded and warmed up: the
+    target carries ``ring_kw`` (its ring), every draft a full cache."""
+    from nxdi_tpu_torch.models import llama_eagle as le
+    from nxdi_tpu_torch.speculation import (
+        EagleSpecCausalLM,
+        FusedSpecCausalLM,
+        MedusaCausalLM,
+        StandardSpecCausalLM,
+    )
+
+    ml, TorchConfig, ODSC, _, _, _ = mods
+    module = family[0]
+    base = dict(tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
+                dtype="float32", on_device_sampling_config=ODSC(), skip_warmup=True, **flags)
+
+    def cfg(**extra):
+        return model_config(ml, TorchConfig(**base, **extra), layers, family)[1]
+
+    target = params["target"]
+    if kind in ("fused", "standard"):
+        tcfg = cfg(**ring_kw, speculation_length=spec_len,
+                   enable_fused_speculation=kind == "fused")
+        if kind == "fused":
+            pair = {"target": target, "draft": target}
+
+            class Fused(FusedSpecCausalLM):
+                def build_params(self):
+                    return pair
+
+            app = Fused("<t>", tcfg, "<d>", cfg(), model_family=module, device=device,
+                        graphs=graphs)
+        else:
+            app = StandardSpecCausalLM("<t>", tcfg, "<d>", cfg(), model_family=module,
+                                       device=device, graphs=graphs)
+            app.target.build_params = app.draft.build_params = lambda: target
+    elif kind in ("eagle", "eagle3"):
+        e3 = kind == "eagle3"
+        tcfg = cfg(**ring_kw, speculation_length=spec_len, enable_eagle_speculation=True,
+                   is_eagle3=e3)
+        pair = {"target": target, "draft": params[kind]}
+
+        class Eagle(EagleSpecCausalLM):
+            def build_params(self):
+                return pair
+
+        # the draft (Llama layers) takes the attention kernels whatever the target's flags
+        dcfg = fspec_eagle_cfg(mods, tcfg, e3, **dict(base, attn_kernel_enabled=True,
+                                                       attn_tkg_kernel_enabled=True))
+        app = Eagle("<t>", tcfg, "<d>", dcfg, model_family=module, draft_family=le,
+                    device=device, graphs=graphs)
+    else:  # a Medusa chain
+        K = params["heads"]["res_w"].shape[0]
+        full = dict(target, medusa_heads=params["heads"])
+
+        class Medusa(MedusaCausalLM):
+            def build_params(self):
+                return full
+
+        app = Medusa("<t>", cfg(is_medusa=True, num_medusa_heads=K,
+                                medusa_speculation_length=K + 1),
+                     model_family=module, device=device, graphs=graphs)
+    app.load()
+    for a in ((app.target, app.draft) if kind == "standard" else (app,)):
+        if a.device.type == "cuda":
+            a.warmup()
+    return app
+
+
+def fspec_counts(kind, run, t_arch, d_arch, ring, attn, spec_len):
+    """The launches of a phase 4q / 5q speculation run, by kernel. A
+    context encoding: a prefill a layer where the attention kernels run, a
+    commit a layer into a homogeneous ring and a commit a window layer into
+    an interleaved one (a contiguous cache's slice write launches nothing;
+    MLA attends plainly). A draft step (always a full cache): a stacked
+    decode a layer (where the attention kernels run) and one commit, or, on
+    MLA, a commit a layer. The verify: one commit a stack (two on an
+    interleaved ring; the homogeneous ring's multi-token rows defer too), a
+    commit a layer on MLA. EAGLE's 1-layer draft: a prefill, and a decode
+    and a commit a step; a Medusa chain window: the verify alone."""
+    want = dict(prefill=0, decode=0, commit=0)
+
+    def add(d, times=1):
+        for k, v in d.items():
+            want[k] += v * times
+
+    def ce(arch, ring_kind):
+        L = arch.num_layers
+        add(dict(prefill=L if attn and arch.mla is None else 0,
+                 commit=(L if ring_kind == "ring" else arch.interleaved_split()[1]
+                         if ring_kind == "interleaved" else 0)))
+
+    def step(arch):
+        if arch.mla is not None:
+            return dict(commit=arch.num_layers)
+        return dict(decode=arch.num_layers if attn else 0, commit=1)
+
+    n, W = run["n_windows"], spec_len + 1
+    ce(t_arch, ring)
+    if kind in ("fused", "standard"):
+        ce(d_arch, None)
+        add(step(d_arch), n * (W if kind == "fused" else spec_len))
+    elif kind in ("eagle", "eagle3"):
+        add(dict(prefill=1))
+        add(dict(decode=1, commit=1), n * W)
+    add(dict(commit=t_arch.num_layers if t_arch.mla is not None
+             else 2 if ring == "interleaved" else 1), n)
+    return want
+
+
+def family_spec_vs_cpu(torch, np, mods):
+    """Phase 4q: FSPEC_CASES at tiny widths, 2 layers, float32, batch 2,
+    spec_len 3: the non-speculative stream on the CPU and the card (logits
+    within LOGIT_TOL, tokens equal), then each speculation kind on the CPU
+    (plain versions), through the card's graphs and on the card eagerly:
+    tokens equal the CPU's and the card's non-speculative stream on the same
+    cache (its ring too), the window counts equal the CPU's, a perfect fused
+    draft accepts whole windows, every cache tensor graphs = eager bit for
+    bit, launches exact (fspec_counts: rows 1, 3 and 4; the rings' context
+    encodings write through row 4, MLA's draft steps and verify a commit a
+    layer). Then each family's mixed engine
+    (engine_vs_cpu over phase 4b's traffic: streams equal, logits within
+    LOGIT_TOL, graphs = eager bit for bit, launches exact): the ragged
+    kernel where the family takes it (Falcon's G 71, OPT), plainly under a
+    window, chunk, sink or softcap."""
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    L, B, P, NEW, K_SPEC = 2, 2, 40, 16, 3
+    geo = dict(seq_len=128, ctx_len=64)
+    out = {}
+    for case, (_, _, ring_kw, kinds, mixed) in FSPEC_CASES.items():
+        t0 = time.perf_counter()
+        family = fspec_family(case)
+        module, cfg = model_config(ml, TorchConfig(seq_len=128, max_context_length=64,
+                                                   dtype="float32", **ring_kw), L, family)
+        arch = module.build_arch(cfg)
+        flags = fspec_flags(arch)
+        ring = None if not ring_kw else "interleaved" if arch.interleaved_split() else "ring"
+        cpu = fspec_params(torch, mods, family, cfg, arch, kinds, dict(dtype="float32", **flags))
+        gpu = to_dev(cpu, "cuda")
+        ids, mask = prompts(np.random.default_rng(7), B, P, [P, P - 11], arch.vocab_size)
+        plain, plain_logs = {}, {}
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            app, _ = make_app(ml, TorchConfig, ODSC, App, dense, layers=L, dtype="float32",
+                              batch=B, device=dev, params=params["target"], family=family,
+                              output_logits=True, **geo, **flags, **ring_kw)
+            plain_logs[dev] = []
+            recording(app, plain_logs[dev])
+            plain[dev] = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+            del app
+        plain_err, _, flip = logits_within(torch, f"4q {case}", plain_logs["cpu"],
+                                           plain_logs["cuda"], LOGIT_TOL)
+        assert flip is None and (plain["cpu"] == plain["cuda"]).all(), \
+            f"phase 4q {case}: plain streams differ"
+        res = out[case] = {"ring": ring, "flags": flags, "plain_max_logit_err": plain_err}
+        for kind in kinds:
+            name = f"{case} {kind}"
+            runs = {}
+            for mode, dev, graphs in (("cpu", "cpu", True), ("graphs", "cuda", True),
+                                      ("eager", "cuda", False)):
+                app = fspec_app(mods, kind, family, cpu if dev == "cpu" else gpu, layers=L,
+                                batch=B, device=dev, graphs=graphs, spec_len=K_SPEC,
+                                ring_kw=ring_kw, flags=flags, **geo)
+                if mode == "graphs" and kind != "standard":
+                    cache = app.kv_cache.get("target", app.kv_cache)
+                    if ring == "ring":
+                        assert cache["k"].shape[3] == 8 + K_SPEC + 1, cache["k"].shape
+                    if ring == "interleaved":
+                        assert cache["k_win"].shape[3] == 8 + K_SPEC + 1, cache["k_win"].shape
+                    if "draft" in app.kv_cache and kind == "fused":
+                        assert "k_win" not in app.kv_cache["draft"]
+                        assert app.kv_cache["draft"]["k"].shape[3] == 128
+                # every run from zeroed caches: the card's warmup leaves dummy rows
+                app.reset_kv_cache()
+                runs[mode] = spec_run(torch, Adapter, app, ids, mask, NEW)
+                runs[mode]["caches"] = {k: v.detach().cpu().clone()
+                                        for k, v in spec_caches(app).items()}
+                if mode == "graphs":
+                    for tag in SPEC_TAGS:
+                        if tag in getattr(app, "models", {}):
+                            assert all(bg.graph is not None
+                                       for bg in app.models[tag].bucket_graphs.values())
+                d_arch = (app.draft.models["token_generation_model"].arch if kind == "standard"
+                          else getattr(next(iter(app.models.values())), "draft_arch", None))
+                del app
+            g, e, c = runs["graphs"], runs["eager"], runs["cpu"]
+            assert (g["tokens"] == e["tokens"]).all(), f"phase 4q {name}: graphs != eager"
+            assert (g["tokens"] == c["tokens"]).all(), f"phase 4q {name}: CPU != card"
+            assert (g["tokens"] == plain["cuda"]).all(), \
+                f"phase 4q {name}: tokens differ from the non-speculative stream"
+            assert g["windows"] == e["windows"] == c["windows"], \
+                f"phase 4q {name}: window counts {g['windows']} / {c['windows']}"
+            # the caches graphs = eager; against the CPU's the rows of rejected
+            # drafts may hold other tokens (a random draft's near-uniform logits
+            # can break a tie the other way) and are never read, so the CPU is
+            # held by the tokens, the window counts and the plain logits above
+            for k in g["caches"]:
+                assert torch.equal(g["caches"][k], e["caches"][k]), \
+                    f"phase 4q {name}: graph and eager {k} differ"
+            if kind == "fused":
+                short = [w for w in g["windows"][:-1] if w != [K_SPEC + 1] * B]
+                assert not short, f"phase 4q {name}: a perfect draft left windows {short}"
+            want = fspec_counts(kind, g, arch, d_arch, ring, flags["attn_kernel_enabled"],
+                                K_SPEC)
+            assert g["launches"] == e["launches"] == want, \
+                f"phase 4q {name}: launches {g['launches']} / {e['launches']} != {want}"
+            res[kind] = dict(windows=len(g["windows"]), launches=g["launches"],
+                             mean_accepted=g["accepted"] / max(g["n_windows"], 1) / B)
+            log(f"[fspec-2L 4q] {name}: tokens = CPU = eager = non-speculative; "
+                f"{len(g['windows'])} windows (mean accepted {res[kind]['mean_accepted']:.2f}), "
+                f"counts = CPU's, caches graphs = eager bit for bit; launches {g['launches']}")
+        del cpu, gpu
+        gc.collect()
+        if mixed:
+            extra = fspec_mixed_flags(arch)
+            counts, worst = engine_vs_cpu(
+                torch, np, mods, mixed=True, family=family, extra=extra, phase=f"4q {case}",
+                extra_strats={"moe_sparse_per_expert"} if arch.moe is not None else ())
+            res["mixed"] = dict(launches=counts, max_logit_err=worst,
+                                ragged_kernel=extra["attn_kernel_enabled"])
+            gc.collect()
+        log(f"[fspec-2L 4q] {case}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# phase 5q (a): Mistral-7B's 6144-token prompts past its 4096 window, 64 new
+# tokens, fused speculation at spec_len 4 on the homogeneous ring
+FSPEC_MISTRAL = dict(B=2, S=6144, new=64, spec_len=4)
+# phase 5q (c): DeepSeek-V3 (4 of 61 layers), B 8 on phase 5's prompt shapes
+FSPEC_V3 = dict(B=8, S=1024, new=32, spec_len=4, layers=4)
+NEAR_TIE_STEPS = 16  # a bf16 stream may leave its reference only at a top-2 gap this small
+
+
+def near_tie_compare(torch, np, name, spec, ref, ref_logits, lengths, new):
+    """A bf16 speculative stream against the non-speculative one on the same
+    cache: each row equal, or first different where the reference's top-2
+    gap is within NEAR_TIE_STEPS bf16 steps at its top logit (the verify
+    and the decode step round differently; past a flip the rows decode
+    different contexts). Returns (rows equal, [(row, step, gap, steps)])."""
+    equal, ties = 0, []
+    for b, n in enumerate(lengths):
+        diff = np.flatnonzero(spec[b, n:n + new] != ref[b, n:n + new])
+        if not diff.size:
+            equal += 1
+            continue
+        j = int(diff[0])
+        top2 = ref_logits[b, j].topk(2).values
+        gap = float(top2[0] - top2[1])
+        steps = gap / bf16_ulp(float(top2[0]))
+        assert steps <= NEAR_TIE_STEPS, (
+            f"{name}: row {b} leaves the non-speculative stream at step {j} where its top-2 "
+            f"gap is {gap} ({steps:.1f} bf16 steps): a fault")
+        ties.append((b, j, gap, steps))
+    return equal, ties
+
+
+def fspec_timed(torch, np, Adapter, app, ids, mask, new, name, kind, t_arch, d_arch, ring,
+                attn, spec_len, card):
+    """A 5q speculation run, twice: tokens (the two equal), windows, ms and
+    accepted tokens a window, tok/s, TTFT (the prefill) and TPOT (decode ms
+    per emitted token), launches exact (fspec_counts), then one window again
+    unprofiled (its wall) and profiled (device busy, idle share)."""
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+
+    runs = []
+    for _ in range(2):
+        runs.append(spec_run(torch, Adapter, app, ids, mask, new))
+        runs[-1]["launches"]["mlp"] = fp.fused_mlp.launches  # spec_run zeroes the counters
+    r = runs[1]
+    assert (runs[0]["tokens"] == r["tokens"]).all(), f"{name}: runs differ"
+    for x in runs:
+        want = fspec_counts(kind, x, t_arch, d_arch, ring, attn, spec_len)
+        got = {k: v for k, v in x["launches"].items() if k in want}
+        assert got == want, f"{name}: launches {got} != {want}"
+    B = ids.shape[0]
+    n_win = r["n_windows"]
+    lengths = mask.sum(axis=1)
+    cur_tok = np.array([[int(r["tokens"][b, n + new - 1])] for b, n in enumerate(lengths)],
+                       "int32")
+    cur_pos = (lengths + new - 1).astype("int32")[:, None]
+    lti = np.zeros((B,), "int32")
+
+    def window():
+        o = app.forward(cur_tok, cur_pos, last_token_index=lti)
+        return o["counts"].cpu()
+
+    wall, split = host_window(torch, window, 8)
+    _, busy, by_kernel, _ = profiled_call(torch, window)
+    emitted = B * new - B  # the context encoding emits the first token of each row
+    stats = dict(window_ms=r["decode_ms"] / n_win, windows=n_win,
+                 mean_accepted_per_window=r["accepted"] / n_win / B,
+                 tok_s=emitted * 1e3 / r["decode_ms"], ttft_ms=r["prefill_ms"],
+                 tpot_ms=r["decode_ms"] / (new - 1), launches=r["launches"],
+                 launches_both_runs={k: runs[0]["launches"][k] + v
+                                     for k, v in r["launches"].items()},
+                 profiled_window=dict(wall_ms=wall, busy_ms=busy, idle_pct=100 * (1 - busy / wall),
+                                      by_group_ms=by_group(by_kernel), host_split_ms=split,
+                                      top=by_kernel[:8]))
+    log(f"{name}, {card}: {stats['window_ms']:.3f} ms/window, "
+        f"{stats['mean_accepted_per_window']:.2f} accepted/window over {n_win} windows, "
+        f"{stats['tok_s']:.1f} tok/s, TTFT {stats['ttft_ms']:.2f} ms, TPOT "
+        f"{stats['tpot_ms']:.3f} ms; a window wall {wall:.3f} busy {busy:.3f} ms (idle "
+        f"{stats['profiled_window']['idle_pct']:.1f}%); launches {r['launches']}")
+    return stats, r["tokens"]
+
+
+def first_layers(torch, stacked, n):
+    """The first ``n`` layers of a layer-stacked params dict (views)."""
+    if torch.is_tensor(stacked):
+        return stacked[:n]
+    return {k: first_layers(torch, v, n) for k, v in stacked.items()}
+
+
+def fspec_mistral_full_depth(torch, np, mods, card):
+    """Phase 5q (a): Mistral-7B whole (32 layers, window 4096), bf16, random
+    weights from seed 0, graphs, the attention kernels on, on the
+    window-sized ring (4096 + spec_len + 1 slots a layer), B 2 x 6144-token
+    prompts, 64 new tokens: target-only generate() on the ring (the
+    reference, with its logits), then fused speculation at spec_len 4 with a
+    perfect draft (the target's weights, a full-length contiguous cache) and
+    with a 2-layer draft cut from the target's first two layers. Each
+    stream held to the reference (near_tie_compare), launches exact."""
+    from nxdi_tpu_torch.models.mistral import modeling_mistral as tm
+    from nxdi_tpu_torch.speculation import FusedSpecCausalLM
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    c = FSPEC_MISTRAL
+    B, P, NEW, K = c["B"], c["S"], c["new"], c["spec_len"]
+    family = (tm, tm.MistralInferenceConfig, tm.MISTRAL_7B_V01)
+    Wn = tm.MISTRAL_7B_V01["sliding_window"]  # 4096
+    ring_kw = dict(window_sized_kv=True, sliding_window=Wn)
+    seq_len = P + 128
+    tag = "[fspec-5q Mistral-7B ring]"
+    t = time.perf_counter()
+    ref_app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=32, dtype="bfloat16",
+                             batch=B, seq_len=seq_len, ctx_len=P, device="cuda", family=family,
+                             output_logits=True, **ring_kw)
+    params = ref_app.params
+    assert ref_app.kv_cache["k"].shape[3] == Wn, ref_app.kv_cache["k"].shape
+    log(f"{tag} target loaded {time.perf_counter() - t:.1f} s; warmup {ref_app.warm_stats}")
+    ids, mask = prompts(np.random.default_rng(12), B, P, [P, P - P // 32], arch.vocab_size)
+    lengths = mask.sum(axis=1)
+    logs = []
+    recording(ref_app, logs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = Adapter(ref_app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t
+    del ref_app.forward
+    ref_logits = torch.stack(logs, dim=1)
+    del ref_app, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = dict(layers=32, batch=B, prompt=P, new=NEW, spec_len=K, ring_slots=Wn + K + 1,
+                 target_only_s=ref_s, runs={})
+    cut = dict(params, layers=first_layers(torch, params["layers"], 2))
+    base = dict(tp_degree=1, batch_size=B, seq_len=seq_len, max_context_length=P,
+                dtype="bfloat16", on_device_sampling_config=ODSC(), skip_warmup=True,
+                attn_kernel_enabled=True, attn_tkg_kernel_enabled=True)
+    t_arch = arch
+    for draft, d_params, d_layers in (("perfect", params, 32), ("2-layer", cut, 2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        pair = {"target": params, "draft": d_params}
+
+        class Fused(FusedSpecCausalLM):
+            def build_params(self):
+                return pair
+
+        t = time.perf_counter()
+        tcfg = model_config(ml, TorchConfig(**base, **ring_kw, speculation_length=K,
+                                            enable_fused_speculation=True), 32, family)[1]
+        dcfg = model_config(ml, TorchConfig(**base), d_layers, family)[1]
+        app = Fused("<t>", tcfg, "<d>", dcfg, model_family=tm, device="cuda")
+        app.load()
+        app.warmup()
+        assert app.kv_cache["target"]["k"].shape[3] == Wn + K + 1
+        assert app.kv_cache["draft"]["k"].shape[3] == seq_len
+        load_s = time.perf_counter() - t
+        d_arch = app.models["fused_speculation_model"].draft_arch
+        name = f"{tag} fused, {draft} draft"
+        run, toks = fspec_timed(torch, np, Adapter, app, ids, mask, NEW, name, "fused", t_arch,
+                                d_arch, "ring", True, K, card)
+        equal, ties = near_tie_compare(torch, np, name, toks, ref, ref_logits, lengths, NEW)
+        run.update(load_s=load_s, rows_equal=equal, first_differences=ties,
+                   strategies=sorted(strategies_of(app)))
+        log(f"{name}: rows equal to target-only generate() on the ring {equal}/{B}; first "
+            f"differences (row, step, gap, bf16 steps) {ties}")
+        stats["runs"][draft] = run
+        del app
+    del params, cut, ref_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def fspec_v3_full_depth(torch, np, mods, card):
+    """Phase 5q (c): DeepSeek-V3 at its published widths, depth cut to 4 of
+    61 layers (5j's cut: 3 dense, 1 MoE), bf16, random weights from seed 0,
+    graphs, the fused MLP on the dense layers; fused speculation at spec_len
+    4, B 8 on phase 5's prompt shapes, 32 new tokens, over a 1-layer draft
+    made of the target's first dense layer (V3's widths and vocabulary, its
+    embedding, final norm and head): each draft step an ordinary MLA decode
+    forward committing its latent row through row 4 (K 64 / V 512). Held to
+    target-only generate() (near_tie_compare), launches exact."""
+    from nxdi_tpu_torch.speculation import FusedSpecCausalLM
+
+    ml, TorchConfig, ODSC, App, dense, Adapter = mods
+    c = FSPEC_V3
+    B, P, NEW, K, L = c["B"], c["S"], c["new"], c["spec_len"], c["layers"]
+    family = deepseek_family()
+    tag = "[fspec-5q DeepSeek-V3]"
+    common = dict(dtype="bfloat16", seq_len=2048, ctx_len=P, device="cuda", family=family,
+                  mlp_kernel_enabled=True, **MLA_FLAGS)
+    t = time.perf_counter()
+    ref_app, arch = make_app(ml, TorchConfig, ODSC, App, dense, layers=L, batch=B,
+                             output_logits=True, **common)
+    params = ref_app.params
+    log(f"{tag} reduced: 61 -> 4 layers; target loaded {time.perf_counter() - t:.1f} s")
+    ids, mask = prompts(np.random.default_rng(11), B, P,
+                        [P, P, P - P // 40, P, P - P // 4, P, P, P - 1][:B], arch.vocab_size)
+    lengths = mask.sum(axis=1)
+    logs = []
+    recording(ref_app, logs)
+    ref = Adapter(ref_app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+    del ref_app.forward
+    ref_logits = torch.stack(logs, dim=1)
+    del ref_app, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the draft: the first dense layer of the target's dense segment
+    d_params = dict(params, layers=[first_layers(torch, params["layers"][0], 1)])
+    pair = {"target": params, "draft": d_params}
+
+    class Fused(FusedSpecCausalLM):
+        def build_params(self):
+            return pair
+
+    base = dict(tp_degree=1, batch_size=B, seq_len=2048, max_context_length=P,
+                dtype="bfloat16", on_device_sampling_config=ODSC(), skip_warmup=True,
+                mlp_kernel_enabled=True, **MLA_FLAGS)
+    tcfg = model_config(ml, TorchConfig(**base, speculation_length=K,
+                                        enable_fused_speculation=True), L, family)[1]
+    dcfg = model_config(ml, TorchConfig(**base), 1, family)[1]
+    t = time.perf_counter()
+    app = Fused("<t>", tcfg, "<d>", dcfg, model_family=family[0], device="cuda")
+    app.load()
+    app.warmup()
+    d_arch = app.models["fused_speculation_model"].draft_arch
+    assert d_arch.mla is not None and d_arch.num_layers == 1
+    name = f"{tag} fused, 1-layer dense draft"
+    run, toks = fspec_timed(torch, np, Adapter, app, ids, mask, NEW, name, "fused", arch, d_arch,
+                            None, False, K, card)
+    # the fused MLP: the target's 3 dense layers a forward (its context
+    # encoding and each verify), the draft's one (its context encoding and
+    # each of a window's spec_len + 1 steps)
+    n = run["windows"]
+    mlp_want = 3 * (1 + n) + (1 + (K + 1) * n)
+    assert run["launches"]["mlp"] == mlp_want, f"{name}: MLP launches {run['launches']}"
+    equal, ties = near_tie_compare(torch, np, name, toks, ref, ref_logits, lengths, NEW)
+    run.update(load_s=time.perf_counter() - t, rows_equal=equal, first_differences=ties,
+               strategies=sorted(strategies_of(app)))
+    assert "mla_xla" in run["strategies"], run["strategies"]
+    log(f"{name}: rows equal to target-only generate() {equal}/{B}; first differences "
+        f"(row, step, gap, bf16 steps) {ties}")
+    del app, params, d_params, pair, ref_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=L, reduced="61 -> 4 layers (3 dense + 1 MoE)", batch=B, new=NEW,
+                spec_len=K, draft="the target's first dense layer", run=run)
+
+
+def fspec_falcon_mixed(torch, np, mods, card):
+    """Phase 5q (b): Falcon-7B whole (32 layers, 71 query heads of 64 on one
+    kv head), bf16, random weights from seed 0, on the mixed engine over
+    phase 5b's seed-17 traffic (engine_full_depth: tok/s, TTFT, TPOT, a
+    profiled packed and decode-only step, launches exact): the ragged kernel
+    at G 71 (row 8; its LayerNorm, parallel block and learned biases took
+    the mixed step off until this slice), the fused QKV kernel, no MLP
+    kernel (Falcon's MLP is not gated). Beside phase 5o's split engine."""
+    from nxdi_tpu_torch.models.falcon import modeling_falcon as tf
+
+    family = (tf, tf.FalconInferenceConfig, tf.FALCON_7B)
+    counts, st = engine_full_depth(torch, np, mods, card, mixed=True, layers=32, family=family,
+                                   extra=dict(mlp_kernel_enabled=False), phase="5q Falcon-7B")
+    st.pop("prompts")
+    assert counts["ragged"] > 0 and counts["mlp"] == 0, counts
+    log(f"[fspec-5q Falcon-7B mixed] {card}: {st['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{st['ttft_p50_ms']:.2f} ms p95 {st['ttft_p95_ms']:.2f} ms, TPOT p50 "
+        f"{st['tpot_p50_ms']:.3f} ms; launches {counts}")
+    return dict(engine=st, launches=counts)
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -7527,6 +8145,7 @@ def main() -> int:
     nope_2l = nope_vs_cpu(torch, np, mods)
     tier3_2l = tier3_vs_cpu(torch, np, mods)
     gemma_paged_2l = gemma_paged_vs_cpu(torch, np, mods)
+    fspec_2l = family_spec_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -7600,10 +8219,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gemma5p = gemma_paged_full_depth(torch, np, mods, card)
+    # phase 5q: Mistral-7B's ring under fused speculation, Falcon-7B's mixed
+    # engine (row 8 at G 71), DeepSeek-V3 (4 layers) under fused speculation
+    fspec5q = {}
+    for key, fn in (("mistral_7b_ring", fspec_mistral_full_depth),
+                    ("falcon_7b_mixed", fspec_falcon_mixed),
+                    ("deepseek_v3", fspec_v3_full_depth)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        fspec5q[key] = fn(torch, np, mods, card)
+        fspec5q[key]["s"] = time.perf_counter() - t
     family_stats = dict(phase_4k=family_2l, phase_5k=family5k, phase_4l=moe_family_2l,
                         phase_5l=moe5l, phase_4m=gemma_2l, phase_5m=gemma5m, phase_4n=nope_2l,
                         phase_5n=nope5n, phase_3l_ragged=mqa_ragged, phase_4o=tier3_2l,
-                        phase_5o=tier3_5o, phase_4p=gemma_paged_2l, phase_5p=gemma5p)
+                        phase_5o=tier3_5o, phase_4p=gemma_paged_2l, phase_5p=gemma5p,
+                        phase_4q=fspec_2l, phase_5q=fspec5q)
     nl = nope5n["launches"]
     gl = gemma5m["launches"]
     fl = family5k["launches"]
@@ -7611,7 +8242,12 @@ def main() -> int:
     gp = gemma5p["launches"]
     dense_launches = {
         "Gemma-2B D 256": fl["gemma"],
+        # phase 5k's Mistral-7B runs and phase 5q's speculation on its ring
+        # (row 1 on the ring's context encodings, row 3 in the full-cache
+        # drafts' steps, both runs of each)
         "Mistral-7B window 4096": {k: fl["mistral"][k] + fl["mistral_window"][k]
+                                   + sum(r["launches_both_runs"].get(k, 0) for r in
+                                         fspec5q["mistral_7b_ring"]["runs"].values())
                                    for k in fl["mistral"]},
         "Gemma-2B tanh GELU": fl["gemma"],
         # the group-size rows count phase 5l's runs at those heads
@@ -7629,7 +8265,9 @@ def main() -> int:
         # the multi-query rows: phase 5o's Falcon-7B runs (generate() and the
         # split engine; row 5 is off that path: the engine decodes through
         # row 7) and phase 4o's BigCode at StarCoder's group (f32)
-        "G 71 (Falcon-7B)": tier3_5o["launches"]["Falcon-7B"],
+        # and phase 5q's mixed engine (row 8 at G 71)
+        "G 71 (Falcon-7B)": dict(tier3_5o["launches"]["Falcon-7B"],
+                                 ragged=fspec5q["falcon_7b_mixed"]["launches"]["ragged"]),
         "G 48 (StarCoder)": tier3_2l["gpt_bigcode G 48"]["launches"],
         # the head-dim-256 paged rows: phase 5p's Gemma-2B engines, bf16 pool
         # (split and mixed) and e4m3 pool (split and mixed)
@@ -7642,8 +8280,11 @@ def main() -> int:
     dense_launches["Gemma-2B paged D 256 bucket 8"] = {
         "ragged": 18 * gemma5p["mixed"]["packed_vs_padded_by_bucket"]["8"]["dispatches"]}
     # the latent-width commit and V3's MLP rows count phase 5j's runs
+    # (and phase 5q's DeepSeek-V3 speculation, both runs)
     mla_launches = {k: sum(r["launches"][k] for rs in mla5j["runs"].values() for r in rs)
-                    + mla5j["engine"]["launches"][k] for k in ("commit", "mlp")}
+                    + mla5j["engine"]["launches"][k]
+                    + fspec5q["deepseek_v3"]["run"]["launches_both_runs"][k]
+                    for k in ("commit", "mlp")}
     for _, st in engine.values():
         st.pop("prompts")
         st.pop("app", None)
@@ -7741,7 +8382,8 @@ def main() -> int:
                    "engine": engine_stats, "mixed_engine": mixed_stats, "counts": counts,
                    "decode_family": family, "quantization": quant, "speculation": spec,
                    "moe": moe_stats, "lora": lora_stats, "mla": mla_stats,
-                   "families": family_stats}, f, indent=1, default=str)
+                   "families": family_stats, "kernel_summary": summary}, f, indent=1,
+                  default=str)
     print(json.dumps({"slice": slice_times, "engine": engine_stats, "mixed_engine": mixed_stats,
                       "decode_family": {k: v for k, v in family.items() if k != "engine"},
                       "quantization": quant, "speculation": spec, "moe": moe_stats,

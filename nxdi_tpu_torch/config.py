@@ -401,8 +401,10 @@ class TorchConfig:
     def window_ring_slots(self) -> int:
         """Slots of a window-sized ring: ``sliding_window``, over-provisioned
         by the speculation window (spec_len + 1) under linear speculation (the
-        JAX package's rule; speculation on a windowed model is refused at app
-        build in the port)."""
+        JAX package's rule): a rejected draft's row, written ahead, never
+        lands on a slot a later query still attends. The ring takes chains
+        only (fused, EAGLE's chain, the draft-model pair); a token tree on a
+        windowed target is refused at app build."""
         lookahead = self.speculation_length + 1 if self.speculation_length > 0 else 0
         return int(self.sliding_window or 0) + lookahead
 

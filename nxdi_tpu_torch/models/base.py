@@ -551,7 +551,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     KV = arch.num_kv_heads
     if ci.get("mixed_row_ids") is not None and S > 1:
         return _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
-                             lf)
+                             lf, sink)
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
         ref_failed = (_heads_ok(H, KV) + _window_refused(arch) + _chunk_refused(arch)
@@ -603,13 +603,21 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
 
 
 def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, layout,
-                  lf: LayerFlags = NO_FLAGS):
+                  lf: LayerFlags = NO_FLAGS, sink=None):
     """The serving engine's mixed step: a packed (1, T) stream of prefill
     chunks and decode rows, tagged per token by ``mixed_row_ids`` (-1 =
     padding), with R per-row tables concatenated in ``block_table`` (1, R *
     Wt). Every token's fresh row is already in the pool. One ragged
     paged-attention launch, or plain attention over the combined gathered
-    window with the ragged causal mask rebuilt from the tags."""
+    window with the ragged causal mask rebuilt from the tags.
+
+    The plain mask carries the layer's sliding window and attention chunk
+    (by its flags) and the attention carries the sink column and the logit
+    softcap, as the split engine's paged attention does. The JAX package's
+    mixed step rebuilds the causal mask alone and drops all four (ROADMAP
+    Queue 3); the ragged kernel takes none of them (the JAX rule), so on the
+    card such a family's mixed engine runs with ``attn_kernel_enabled``
+    off, and with the flag on raises, naming the condition."""
     B, H, S, D = q.shape
     KV = arch.num_kv_heads
     rids = ci["mixed_row_ids"].to(torch.int32)  # (1, S)
@@ -638,11 +646,14 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     row_width = W // R
     g = torch.arange(W, device=q.device)
     live = kv_pos[0] < 2 ** 30
+    in_row = (g % row_width)[None, :].to(position_ids.dtype)  # (1, W) each column's position
     mask = ((rids[:, :, None] == (g // row_width)[None, None, :])
-            & ((g % row_width)[None, None, :] <= position_ids[:, :, None])
+            & attn_ops.position_mask(position_ids, in_row, arch.sliding_window,
+                                     arch.chunk_size, lf.window_enabled, lf.use_rope)
             & live[None, None, :])
     _record_strategy("mixed_ragged_xla")
-    return attn_ops.grouped_attention(q, kk, vv, mask, scale=arch.attention_scale)
+    return attn_ops.grouped_attention(q, kk, vv, mask, scale=arch.attention_scale, sink=sink,
+                                      logit_softcap=arch.attn_logit_softcap)
 
 
 def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids=None):
@@ -1051,9 +1062,13 @@ def run_decoder_layers(
 ):
     """Run the layer stack. Decode on the contiguous cache defers its cache
     writes and commits every layer's fresh rows in ONE kernel launch after
-    the loop; the paged pool, the homogeneous window-sized ring, a forward
-    under an explicit ``attn_mask`` (the token-tree verify) and an MLA model
-    never defer (each layer writes its rows before attending). A list of
+    the loop, and so does a multi-token verify on the homogeneous
+    window-sized ring (written first, its rows past the first query would
+    read as positions a whole ring back: the ring infers its positions from
+    the first query; the JAX package writes first there, ROADMAP Queue 3);
+    the paged pool, the ring's one-token decode, a forward under an explicit
+    ``attn_mask`` (the token-tree verify) and an MLA model never defer (each
+    layer writes its rows before attending). A list of
     segments runs in order, each over its slice of the stacked cache, its
     stacked kernel weights indexed by the segment-local layer.
 
@@ -1073,8 +1088,12 @@ def run_decoder_layers(
     window is the block table's width. ``collect``, when given, receives
     each layer's output hidden state in order (EAGLE3's ``aux_hidden``)."""
     contiguous = isinstance(layout, ContiguousKVLayout)
-    defer = (attend_to_cache and contiguous and arch.mla is None
-             and (cache_inputs or {}).get("attn_mask") is None)
+    S = position_ids.shape[1]
+    # a multi-token verify on the homogeneous ring defers too: written
+    # first, its rows past the first query would read as positions a whole
+    # ring back (the ring's positions are inferred from the first query)
+    defer = (attend_to_cache and (contiguous or (_ring(layout) is not None and S > 1))
+             and arch.mla is None and (cache_inputs or {}).get("attn_mask") is None)
     interleaved = "k_win" in cache
     segments = layer_segments(stacked_params)
     if (arch.chunk_size is not None and arch.rope_pattern is None
@@ -1084,7 +1103,6 @@ def run_decoder_layers(
     if interleaved and len(segments) != 1:
         raise NotImplementedError("interleaved window-sized KV requires a homogeneous layer stack")
     kinds, layouts = _kinds(arch, cache, layout)
-    S = position_ids.shape[1]
     H, KV = arch.num_attention_heads, arch.num_kv_heads
     use_stacked_tkg = False
     if defer and S == 1:

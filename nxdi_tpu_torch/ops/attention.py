@@ -35,8 +35,8 @@ def chunked_attention_mask_from_positions(q_pos, kv_pos, chunk_size: int, valid_
     return mask & same_chunk
 
 
-def _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled=None,
-                        chunk_enabled=None):
+def position_mask(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled=None,
+                  chunk_enabled=None):
     """``sliding_window_enabled`` / ``chunk_enabled``: a 0-d bool tensor that
     turns the window or the chunk on or off for this layer (a per-layer flag
     of a mixed stack, read on the device without a host sync; Llama 4 chunks
@@ -101,8 +101,8 @@ def attention_with_positions(
     logit_softcap: Optional[float] = None,
 ):
     """Attention with the mask derived from positions (prefill and decode)."""
-    mask = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size,
-                                sliding_window_enabled, chunk_enabled)
+    mask = position_mask(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled,
+                         chunk_enabled)
     return grouped_attention(q, k, v, mask, scale=scale, sink=sink, logit_softcap=logit_softcap)
 
 
@@ -127,10 +127,10 @@ def attention_two_part(
     s1 = torch.einsum("bkgqd,bksd->bkgqs", qg, kk.float())
     s2 = torch.einsum("bkgqd,bksd->bkgqs", qg, k2.float())
     s = _softcap(torch.cat([s1, s2], dim=-1) * scale, logit_softcap)
-    m1 = _mask_from_positions(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled,
-                              chunk_enabled)
-    m2 = _mask_from_positions(q_pos, kv_pos2, sliding_window, chunk_size, sliding_window_enabled,
-                              chunk_enabled)
+    m1 = position_mask(q_pos, kv_pos, sliding_window, chunk_size, sliding_window_enabled,
+                       chunk_enabled)
+    m2 = position_mask(q_pos, kv_pos2, sliding_window, chunk_size, sliding_window_enabled,
+                       chunk_enabled)
     mask = torch.cat([m1, m2], dim=-1)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     weights = _softmax_with_sink(s, sink)

@@ -108,12 +108,12 @@ def _to_device(tree, device):
 SEGMENTED_REFUSALS = {
     "lora_config": (
         "LoRA serving on a segmented layer stack (first_k_dense_replace dense layers "
-        "before MoE layers) is not ported yet (ROADMAP Queue 1 item 3's remainders): "
-        "the JAX package attaches no adapter buffer to such a stack"),
+        "before MoE layers) is not ported: the JAX package attaches no adapter buffer to "
+        "such a stack (ROADMAP Queue 3)"),
     "quantized": (
         "weight quantization of a segmented layer stack (first_k_dense_replace dense "
-        "layers before MoE layers) is not ported yet (ROADMAP Queue 1 item 3's "
-        "remainders): the JAX package's quantizer passes such a stack through"),
+        "layers before MoE layers) is not ported: the JAX package's quantizer passes "
+        "such a stack through (ROADMAP Queue 3)"),
 }
 
 
@@ -125,12 +125,6 @@ MOE_CARRIED = ("sliding_window", "qk_norm", "qk_norm_flat", "embed_scale", "atte
                "layernorm", "clip_qkv", "rotary_dim", "attention_sink", "attn_out_gate",
                "sandwich_norm", "longrope", "rope_interleaved", "qk_l2norm", "chunk_size",
                "attn_temperature_tuning")
-# the mixed step's plain attention drops the window, the chunk, the sink and
-# the logit softcap (the JAX package's, ROADMAP Queue 3); the MoE families'
-# other switches are not held on the mixed step
-MIXED_REFUSED = ("sliding_window", "layernorm", "clip_qkv", "rotary_dim", "attention_sink",
-                 "attn_out_gate", "sandwich_norm", "longrope", "attn_logit_softcap",
-                 "chunk_size", "learned_pos_embeds", "no_rope", "lm_head_bias", "xielu")
 
 
 def family_switches(arch) -> List[str]:
@@ -184,32 +178,34 @@ def _refuse_switches(switches: List[str], path: str) -> None:
     if switches:
         raise NotImplementedError(
             f"{path} with this family's {', '.join(switches)} is not ported yet (ROADMAP "
-            "Queue 1 item 1's remainders): that path does not carry these switches")
+            "Queue 1): that path does not carry these switches")
 
 
-def refuse_mla_speculation(*archs) -> None:
-    """Speculation raises at app build on an MLA (DeepSeek) target or draft
-    (the port's draft step is the stacked fused-decode kernel, which an MLA
-    layer cannot take) and on a family switch (``family_switches``: the tree
-    verify's explicit mask takes no window, Medusa's heads norm as Llama
-    does)."""
-    if any(a.mla is not None for a in archs):
+def refuse_speculation(target_arch, tree: bool) -> None:
+    """What speculation still refuses at app build, beyond what ``config.py``
+    refuses (a ring under Medusa, paged or prefix modes; the fused window on
+    the block layout; a quantized checkpoint path): a token tree (EAGLE's
+    static or dynamic tree, Medusa's) on a target with a sliding window or
+    an attention chunk. The tree verify attends under its explicit ancestor
+    mask, which carries no position window; the JAX package's Medusa refuses
+    such trees for that cause, and its EAGLE tree drops the window (ROADMAP
+    Queue 3). A ring needs a windowed target, so a tree never rides one."""
+    if tree and (target_arch.sliding_window is not None or target_arch.chunk_size is not None):
+        what = ("sliding_window" if target_arch.sliding_window is not None else "chunk_size")
         raise NotImplementedError(
-            "speculation with an MLA (DeepSeek) target or draft is not ported yet "
-            "(ROADMAP Queue 1 item 3's remainders): the draft step runs the stacked "
-            "fused-decode kernel, which MLA attention cannot take")
-    for a in archs:
-        _refuse_switches(family_switches(a), "speculative decoding")
+            f"token-tree speculation on a target with {what} is not ported yet (ROADMAP "
+            "Queue 1): the tree verify's explicit ancestor mask carries no position "
+            "window or chunk; use a chain (no token tree)")
 
 
 def refuse_unported(family, config) -> None:
     """Raise at app build for what the port does not serve on this model yet
     (:data:`SEGMENTED_REFUSALS`; the family switches on the paths that do
-    not carry them: MoE routing but for :data:`MOE_CARRIED`, MLA, and the
-    mixed step: :data:`MIXED_REFUSED`). LoRA serving and quantized KV
-    stores carry every switch, as in the JAX package, which refuses only
-    what ``config.py`` refuses here too (LoRA under ``fused_qkv``,
-    per-key / per-channel KV scales on a paged or ring layout)."""
+    not carry them: MoE routing but for :data:`MOE_CARRIED`, and MLA). LoRA
+    serving, quantized KV stores and the mixed step carry every switch, as
+    in the JAX package, which refuses only what ``config.py`` refuses here
+    too (LoRA under ``fused_qkv``, per-key / per-channel KV scales on a
+    paged or ring layout)."""
     tc = config.tpu_config
     arch = family.build_arch(config)
     switches = family_switches(arch) + (["use_local_rope"] if local_rope(family, config) else [])
@@ -217,7 +213,6 @@ def refuse_unported(family, config) -> None:
         ("mixture-of-experts routing", arch.moe is not None,
          [s for s in switches if s not in MOE_CARRIED]),
         ("MLA attention", arch.mla is not None, switches),
-        ("mixed_dispatch", tc.mixed_dispatch, [s for s in switches if s in MIXED_REFUSED]),
     ):
         if on:
             _refuse_switches(refused, path)
@@ -484,17 +479,22 @@ class TorchModelForCausalLM:
             return 0
         return self.adapter_cache.slot_of[name]
 
-    def init_cache(self) -> Dict[str, Any]:
-        """The zeroed KV cache on the app's device (a speculation app's holds
-        both models' caches, or Medusa's proposal buffer beside the K/V; an
-        interleaved window-sized split the ring stack ``k_win`` / ``v_win``
-        beside the full layers' ``k`` / ``v``)."""
-        cache = init_kv_cache(self._cache_spec(), self.device)
-        ring = self._ring_cache_spec()
+    def model_cache(self, family=None, config=None) -> Dict[str, torch.Tensor]:
+        """The zeroed KV cache of this app's model, or of ``family`` /
+        ``config`` (a speculation app's draft), by that config's own flags:
+        an interleaved window-sized split carries the ring stack ``k_win`` /
+        ``v_win`` beside the full layers' ``k`` / ``v``."""
+        cache = init_kv_cache(self._cache_spec(family, config), self.device)
+        ring = self._ring_cache_spec(family, config)
         if ring is not None:
             win = init_kv_cache(ring, self.device)
             cache["k_win"], cache["v_win"] = win["k"], win["v"]
         return cache
+
+    def init_cache(self) -> Dict[str, Any]:
+        """The zeroed KV cache on the app's device (a speculation app's holds
+        both models' caches, or Medusa's proposal buffer beside the K/V)."""
+        return self.model_cache()
 
     def warmup(self) -> float:
         """One dispatch per bucket of every submodel (on the card: its eager

@@ -13,6 +13,9 @@ proposal buffer in its cache (``medusa_tokens``). Both present the
 window contract ``generate()`` drives (``is_fused_spec``: ``tokens`` and
 ``counts`` per dispatch); neither runs the device-resident async loop
 (``async_supported`` is False, as in the JAX package) nor the block layout.
+Every family runs them, window-sized rings and MLA included; a token tree
+on a target with a sliding window or an attention chunk is refused at app
+build (``runtime/application.refuse_speculation``).
 """
 
 from __future__ import annotations
@@ -24,13 +27,12 @@ import torch
 
 from nxdi_tpu_torch import checkpoint as ckpt
 from nxdi_tpu_torch.config import to_torch_dtype
-from nxdi_tpu_torch.kvcache.kv_cache import init_kv_cache
 from nxdi_tpu_torch.models import llama_eagle
 from nxdi_tpu_torch.runtime import autobucketing
 from nxdi_tpu_torch.runtime.application import (
     TorchModelForCausalLM,
     maybe_quantize_params,
-    refuse_mla_speculation,
+    refuse_speculation,
 )
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_CONTEXT_ENCODING,
@@ -104,11 +106,12 @@ class FusedSpecCausalLM(_WindowApp):
                 "target": maybe_quantize_params(target, self.tpu_config)}
 
     def init_cache(self) -> Dict[str, Any]:
-        return {
-            "draft": init_kv_cache(self._cache_spec(self.draft_family, self.draft_config),
-                                   self.device),
-            "target": init_kv_cache(self._cache_spec(), self.device),
-        }
+        """Each model's cache by its own config (the JAX app's rule): a
+        window-sized target's ring (``window_ring_slots`` slots, or its
+        interleaved ``k_win`` / ``v_win`` stack beside the full layers), a
+        full-cache draft's contiguous lines."""
+        return {"draft": self.model_cache(self.draft_family, self.draft_config),
+                "target": self.model_cache()}
 
     _wrapper_cls = FusedSpecWrapper
 
@@ -119,7 +122,6 @@ class FusedSpecCausalLM(_WindowApp):
     def enable_models(self) -> None:
         t_arch = self.family.build_arch(self.config)
         d_arch = self.draft_family.build_arch(self.draft_config)
-        refuse_mla_speculation(t_arch, d_arch)
         tc = self.tpu_config
         common = dict(
             draft_arch=d_arch,
@@ -179,6 +181,7 @@ class EagleSpecCausalLM(FusedSpecCausalLM):
                 f"speculation_length ({tc.speculation_length}) must equal the token tree "
                 f"depth ({self.tree.max_depth}): each tree window retires at most "
                 "depth + 1 tokens")
+        refuse_speculation(self.family.build_arch(self.config), tree=self.tree is not None)
 
     @staticmethod
     def _parse_tree(ttc):
@@ -263,6 +266,7 @@ class MedusaCausalLM(_WindowApp):
             if self.tree.max_depth > self.num_heads:
                 raise ValueError(f"medusa_tree depth {self.tree.max_depth} exceeds "
                                  f"num_medusa_heads {self.num_heads}")
+        refuse_speculation(self.family.build_arch(self.config), tree=self.tree is not None)
 
     def build_params(self):
         tc = self.tpu_config
@@ -313,7 +317,6 @@ class MedusaCausalLM(_WindowApp):
 
     def enable_models(self) -> None:
         arch = self.family.build_arch(self.config)
-        refuse_mla_speculation(arch)
         inv_freq = self.family.build_inv_freq(self.config)
         tc = self.tpu_config
         common = dict(num_heads=self.num_heads, tree=self.tree, device=self.device,

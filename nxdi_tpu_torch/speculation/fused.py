@@ -17,11 +17,16 @@ positions, which the next window overwrites before any query attends them.
 
 Each draft step is an ordinary deferred decode step: on the card the
 stacked fused-decode kernel, then the commit kernel writes the step's row
-(the JAX package's per-step-commit branch). The JAX package's default,
-a scratch window attended beside the old cache and committed once after
-the last step, exists because a commit on the TPU rewrites a 128-slot
-window; the card's commit writes rows directly, and the per-step body was
-the faster of the two there (PERF.md), so the port has this one body.
+(the JAX package's per-step-commit branch); an MLA draft's step is an
+ordinary MLA decode forward, each layer committing its latent row. The
+JAX package's default, a scratch window attended beside the old cache and
+committed once after the last step, exists because a commit on the TPU
+rewrites a 128-slot window; the card's commit writes rows directly, and
+the per-step body was the faster of the two there (PERF.md), so the port
+has this one body. Each model's cache is whatever its config gives it: a
+window-sized target's ring (homogeneous, or the interleaved ``k_win``
+stack beside its full layers, ``window_ring_slots`` slots) beside a
+full-cache draft, each addressed through its own layout.
 
 The verify's multi-token attention (``tkg_two_part_xla``) and the acceptance
 stay plain PyTorch, as the JAX package leaves them to XLA.

@@ -27,9 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from nxdi_tpu_torch.kvcache.kv_cache import DEFAULT_KV_LAYOUT
-from nxdi_tpu_torch.models.base import causal_lm_forward
+from nxdi_tpu_torch.models.base import _norm, causal_lm_forward
 from nxdi_tpu_torch.ops import sampling as sampling_ops
-from nxdi_tpu_torch.ops.norms import rms_norm
 from nxdi_tpu_torch.runtime.model_wrapper import ModelWrapper
 from nxdi_tpu_torch.speculation.eagle import _feature_rows
 from nxdi_tpu_torch.speculation.token_tree import (
@@ -55,11 +54,15 @@ def medusa_propose(heads: Dict[str, torch.Tensor], hidden: torch.Tensor, vocab_p
 
 
 def _post_norm_hidden_at(arch, params, hidden_stream: torch.Tensor, idx: torch.Tensor):
-    """The pre-norm hidden at per-row index ``idx`` (B,), through the final
-    norm: the stream the lm_head (and so the heads) read."""
+    """The pre-norm hidden at per-row index ``idx`` (B,), through the
+    family's own final norm (Gemma's (1 + w) RMSNorm, a LayerNorm): the
+    stream the lm_head (and so the heads) read. The JAX package applies a
+    plain RMSNorm here whatever the family's (ROADMAP Queue 3), which moves
+    the proposals only: the emitted tokens are the target's greedy tokens
+    either way."""
     B = hidden_stream.shape[0]
     h = hidden_stream[torch.arange(B, device=idx.device), idx.long()]
-    return rms_norm(h, params["norm"], arch.rms_norm_eps)
+    return _norm(arch, h, params["norm"])
 
 
 def _kv(cache):

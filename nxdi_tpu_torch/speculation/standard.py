@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from nxdi_tpu_torch.ops import sampling as sampling_ops
-from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM, refuse_mla_speculation
+from nxdi_tpu_torch.runtime.application import TorchModelForCausalLM
 from nxdi_tpu_torch.runtime.model_wrapper import (
     TAG_SPECULATION,
     TAG_TOKEN_GENERATION,
@@ -73,8 +73,6 @@ class StandardSpecCausalLM:
         self.draft = TorchModelForCausalLM(draft_model_path, draft_config,
                                            model_family=draft_family or model_family,
                                            device=device, graphs=graphs)
-        refuse_mla_speculation(self.target.family.build_arch(config),
-                               self.draft.family.build_arch(draft_config))
         self.device = self.target.device
         self.spec_windows = 0
         self.spec_accepted_tokens = 0

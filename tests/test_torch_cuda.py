@@ -2235,3 +2235,117 @@ def test_chunked_paged_engine_refuses_the_kernel_flags(gen):
     family, widths = _nope_widths("llama4")
     with pytest.raises(NotImplementedError, match="chunk_size 16"):
         _family_card_app(family, widths, False, **dict(ENGINE, attn_block_tkg_kernel_enabled=False))
+
+
+def _fused_ring_app(family, widths, graphs, params=None, dtype="float32"):
+    """A fused speculation app on the ring (16 slots + spec_len 3 + 1) with
+    the target's own weights as a full-cache draft, the attention kernels
+    on."""
+    from nxdi_tpu_torch.config import OnDeviceSamplingConfig, TorchConfig
+    from nxdi_tpu_torch.models import dense
+    from nxdi_tpu_torch.speculation import FusedSpecCausalLM
+
+    base = dict(tp_degree=1, dtype=dtype, on_device_sampling_config=OnDeviceSamplingConfig(),
+                attn_kernel_enabled=True, attn_tkg_kernel_enabled=True, **STATIC)
+    cfg_cls = next(v for k, v in vars(family).items()
+                   if k.endswith("InferenceConfig") and v.__module__ == family.__name__)
+    tcfg = cfg_cls(TorchConfig(window_sized_kv=True, sliding_window=16, speculation_length=3,
+                               enable_fused_speculation=True, **base), **widths)
+    dcfg = cfg_cls(TorchConfig(**base), **widths)
+    if params is None:
+        arch = family.build_arch(dcfg)
+        params = (family.random_params(dcfg, seed=0, device="cuda")
+                  if hasattr(family, "random_params")
+                  else dense.random_params(arch, seed=0, device="cuda"))
+    pair = {"target": params, "draft": params}
+
+    class App(FusedSpecCausalLM):
+        def build_params(self):
+            return pair
+
+    app = App("<t>", tcfg, "<d>", dcfg, model_family=family, graphs=graphs)
+    app.load()
+    return app
+
+
+@pytest.mark.parametrize("name", ["mistral", "gemma3_text"])
+def test_ring_fused_window_graph_replay_equals_eager(gen, name):
+    """The fused speculation window over a target's ring (Mistral's
+    homogeneous ring, Gemma-3's ``k_win`` stack beside its full layers) and
+    a full-cache draft of the target's weights, in float32, 60 tokens past
+    40-token prompts: every window accepted whole but the last, every
+    dispatch of the graphs bit for bit against eager, the same launch
+    counts (row 1 on both prefills, row 3 in the draft's steps, row 4 into
+    both caches), the tokens those of target-only generate() on the ring."""
+    from nxdi_tpu_torch.generation.hf_adapter import HuggingFaceGenerationAdapter
+
+    family, widths = _ring_widths(name)
+    graphs = _fused_ring_app(family, widths, True)
+    eager = _fused_ring_app(family, widths, False, params=graphs.params["target"])
+    ring = graphs.kv_cache["target"]["k" if name == "mistral" else "k_win"]
+    assert ring.shape[3] == 16 + 3 + 1 and "k_win" not in graphs.kv_cache["draft"]
+    outs = {}
+    for app in (graphs, eager):
+        from nxdi_tpu_torch.ops.kernels import launch_counters
+
+        for fn in launch_counters():
+            fn.launches = 0
+        log = _logged(app)
+        rng = np.random.default_rng(3)
+        ids = rng.integers(1, 512, (2, 40)).astype(np.int64)
+        mask = np.ones_like(ids, dtype=np.int32)
+        mask[1, 29:] = 0
+        ids[1, 29:] = 0
+        toks = HuggingFaceGenerationAdapter(app).generate(ids, attention_mask=mask,
+                                                          max_new_tokens=60)
+        torch.cuda.synchronize()
+        outs[app.graphs] = (log, _counts(), toks)
+    (g_log, g_counts, g_toks), (e_log, e_counts, e_toks) = outs[True], outs[False]
+    assert np.array_equal(np.asarray(g_toks), np.asarray(e_toks))
+    assert len(g_log) == len(e_log) > 0
+    for i, (a, b) in enumerate(zip(g_log, e_log)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (i, key)
+    assert all(int(c.min()) == 4 for c in (d["counts"] for d in g_log[1:-1]))
+    assert g_counts == e_counts
+    for kernel in ("flash_attention_prefill", "flash_attention_decode_fused", "kv_commit_rows"):
+        assert g_counts[kernel] > 0, kernel
+    for w in graphs.models.values():
+        assert all(bg.graph is not None for bg in w.bucket_graphs.values())
+    target = _family_card_app(family, widths, True, params=graphs.params["target"],
+                              dtype="float32", window_sized_kv=True, sliding_window=16,
+                              **STATIC)
+    want = HuggingFaceGenerationAdapter(target).generate(ids, attention_mask=mask,
+                                                         max_new_tokens=60)
+    assert np.array_equal(np.asarray(g_toks), np.asarray(want))
+
+
+def test_falcon_mixed_step_at_group_71(gen):
+    """Falcon at its published attention (71 query heads of 64 on one kv
+    head, LayerNorm, the parallel block), 2 layers, float32, on the mixed
+    engine: the ragged kernel at G 71 and the fused QKV kernel (no MLP
+    kernel: Falcon's MLP is not gated), every dispatch of the graphs bit for
+    bit against eager, the same launch counts, and the streams those of the
+    split engine on the same weights."""
+    from nxdi_tpu_torch.models.falcon import modeling_falcon as tf
+
+    widths = dict(tf.FALCON_7B, num_hidden_layers=2, ffn_hidden_size=1024, vocab_size=512)
+    mixed = dict(MIXED, mlp_kernel_enabled=False, dtype="float32")
+    graphs = _family_card_app(tf, widths, True, **mixed)
+    eager = _family_card_app(tf, widths, False, params=graphs.params, **mixed)
+    g_log, g_counts, g_toks = _drive(graphs, "engine")
+    e_log, e_counts, e_toks = _drive(eager, "engine")
+    assert np.array_equal(np.asarray(g_toks), np.asarray(e_toks))
+    assert len(g_log) == len(e_log) > 0
+    for i, (a, b) in enumerate(zip(g_log, e_log)):
+        for key in a:
+            assert torch.equal(a[key], b[key]), (i, key)
+    assert g_counts == e_counts
+    assert g_counts["ragged_paged_attention"] > 0 and g_counts["qkv_matmul"] > 0
+    assert g_counts["fused_mlp"] == 0
+    split = _family_card_app(tf, widths, True, params=graphs.params,
+                             **dict(ENGINE, dtype="float32", fused_qkv=True,
+                                    qkv_kernel_enabled=True))
+    _, s_counts, s_toks = _drive(split, "engine")
+    assert s_counts["ragged_paged_attention"] == 0
+    assert np.array_equal(np.asarray(g_toks), np.asarray(s_toks))

@@ -18,7 +18,7 @@ from nxdi_tpu_torch.config import TorchConfig
 from nxdi_tpu_torch.models import base as tbase
 from nxdi_tpu_torch.models import registry as treg
 from nxdi_tpu_torch.ops.kernels import flash_attention as tfa
-from nxdi_tpu_torch.runtime.application import refuse_mla_speculation, refuse_unported
+from nxdi_tpu_torch.runtime.application import refuse_speculation, refuse_unported
 
 from test_torch_dense_tier3 import (
     _tc,
@@ -134,11 +134,15 @@ def test_padded_positions_past_the_table_read_its_last_row():
     ("phi", "lm_head_bias"),
     ("apertus", "xielu"),
 ])
-def test_paths_without_the_new_switches_refuse_them(case, switches):
-    """Speculation and the mixed step raise at app build on the learned
-    positions, no rope, the head bias and xIELU, naming them; LoRA and a
-    quantized KV cache carry them (as in the JAX package)."""
+def test_paths_carry_the_new_switches(case, switches):
+    """Speculation (chains and token trees: these families have no window)
+    and the mixed step pass app build on the learned positions, no rope,
+    the head bias and xIELU, as LoRA and a quantized KV cache do (as in the
+    JAX package); ``test_torch_family_spec*.py`` and
+    ``test_torch_family_mixed.py`` run them."""
     from test_torch_dense_tier3 import CASES
+
+    from nxdi_tpu_torch.runtime.application import family_switches
 
     model_type = CASES[case][0]
     family, cfg_cls = treg.get_family(model_type)
@@ -147,10 +151,11 @@ def test_paths_without_the_new_switches_refuse_them(case, switches):
     def config(**kw):
         return cfg_cls(TorchConfig(**_tc(**kw)), load_config=lambda: dict(cfg))
 
-    with pytest.raises(NotImplementedError, match=f"speculative decoding.*{switches}"):
-        refuse_mla_speculation(family.build_arch(config()))
-    with pytest.raises(NotImplementedError, match=f"mixed_dispatch.*{switches}"):
-        refuse_unported(family, config(mixed_dispatch=True, is_block_kv_layout=True))
+    arch = family.build_arch(config())
+    assert set(switches.split(", ")) <= set(family_switches(arch))
+    for tree in (False, True):
+        refuse_speculation(arch, tree=tree)
+    refuse_unported(family, config(mixed_dispatch=True, is_block_kv_layout=True))
     refuse_unported(family, config(lora_config=dict(max_loras=2, max_lora_rank=4,
                                                     target_modules=["q_proj"])))
     refuse_unported(family, config(kv_cache_quant=True))

@@ -42,7 +42,7 @@ from nxdi_tpu_torch.models.qwen3 import modeling_qwen3 as tqwen3
 from nxdi_tpu_torch.ops import norms as tnorms
 from nxdi_tpu_torch.ops import rope as trope
 from nxdi_tpu_torch.runtime.application import (TorchModelForCausalLM, family_switches,
-                                                 refuse_mla_speculation)
+                                                 refuse_speculation)
 from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
 from test_torch_families import (
@@ -391,31 +391,32 @@ def test_window_sized_kv_refused():
                      mixed_dispatch=True, ctx_batch_size=1, tkg_batch_size=2),
      "mixed_dispatch.*sliding_window"),
 ])
-def test_paths_without_a_switch_refuse_it(model_type, kw, switch):
-    """The mixed step's plain attention (which takes no window) raises at
-    app build on a family switch, naming it; LoRA and a quantized KV cache
-    carry the switch named (as in the JAX package): the app builds with the
-    path on (``tests/test_torch_family_paths*.py`` hold their tokens to the
-    JAX package's)."""
+def test_paths_carry_a_switch(model_type, kw, switch):
+    """LoRA, a quantized KV cache and the mixed step carry the switch named
+    (as in the JAX package): the app builds with the path on
+    (``tests/test_torch_family_paths*.py`` hold the LoRA and KV tokens to
+    the JAX package's, ``tests/test_torch_family_mixed.py`` the mixed
+    step's)."""
     _, cfg, sd = tiny_family(model_type)
-    if switch.startswith("mixed_dispatch"):
-        with pytest.raises(NotImplementedError, match=switch):
-            port_family_app(model_type, cfg, sd=sd, **kw)
-        return
     app = port_family_app(model_type, cfg, sd=sd, **kw)
-    path = "lora_config" if "LoRA" in switch else "kv_quant_config"
-    assert getattr(app.tpu_config, path) is not None
+    path = ("lora_config" if "LoRA" in switch else "mixed_dispatch" if "mixed" in switch
+            else "kv_quant_config")
+    assert getattr(app.tpu_config, path)
+    if path == "mixed_dispatch":
+        assert app.mixed_supported
     assert switch.split(".*")[1] in family_switches(app.models["token_generation_model"].arch)
 
 
-def test_speculation_and_moe_refuse_switches():
-    """Speculation refuses a target or draft with a family switch; MoE
-    routing refuses every switch but the window; Arcee's non-gated MLP
-    refuses the fused MLP kernel (the JAX rule)."""
+def test_speculation_carries_and_moe_refuses_switches():
+    """Speculation (chains and trees) carries a family switch such as
+    Granite's multipliers; MoE routing refuses every switch but those it
+    carries; Arcee's non-gated MLP refuses the fused MLP kernel (the JAX
+    rule)."""
     _, cfg, sd = tiny_family("granite")
     arch = port_family_app("granite", cfg, sd=sd).models["token_generation_model"].arch
-    with pytest.raises(NotImplementedError, match="speculative decoding.*attention_scale"):
-        refuse_mla_speculation(arch)
+    assert "attention_scale" in family_switches(arch)
+    for tree in (False, True):
+        refuse_speculation(arch, tree=tree)
     from nxdi_tpu_torch.runtime.application import refuse_unported
 
     mcfg = tmx.MixtralInferenceConfig(TorchConfig(seq_len=16), **dict(

@@ -42,7 +42,7 @@ from nxdi_tpu_torch.ops import attention as tattn
 from nxdi_tpu_torch.ops import rope as trope
 from nxdi_tpu_torch.runtime.application import (
     TorchModelForCausalLM,
-    refuse_mla_speculation,
+    refuse_speculation,
     refuse_unported,
 )
 
@@ -277,25 +277,25 @@ def test_dropped_switch_leaves_jax(switch):
 
 def test_registry_and_refusals():
     """The registry serves the three types; the multimodal ``gemma3`` still
-    raises. The paths that do not carry the switches refuse them at app
-    build, naming them: the mixed step the attention softcap (the JAX
-    package's plain mixed attention drops it), speculation the final
-    softcap; LoRA carries the local rope pair (as in the JAX package). On
-    the card an attention kernel flag on a
-    softcapped model raises, naming the softcap; the CPU takes the JAX rule."""
+    raises. The mixed step and chain speculation carry the softcaps and the
+    window (``test_torch_family_mixed.py``, ``test_torch_family_spec*.py``);
+    a token tree on the windowed target is refused, naming the window;
+    LoRA carries the local rope pair (as in the JAX package). On the card
+    an attention kernel flag on a softcapped model raises, naming the
+    softcap; the CPU takes the JAX rule."""
     for t in ("gemma3_text", "gemma2", "vaultgemma"):
         assert treg.get_family(t)[0].__name__.startswith("nxdi_tpu_torch.models.")
     with pytest.raises(NotImplementedError, match="'gemma3' is registered by the JAX package"):
         treg.get_family("gemma3")
     fam, cfg_cls = treg.get_family("gemma2")
     cfg = tiny_case("gemma2")[1]
-    with pytest.raises(NotImplementedError, match="mixed_dispatch.*attn_logit_softcap"):
-        refuse_unported(fam, cfg_cls(TorchConfig(**_tc(mixed_dispatch=True,
-                                                       is_block_kv_layout=True)),
-                                     load_config=lambda: dict(cfg)))
+    refuse_unported(fam, cfg_cls(TorchConfig(**_tc(mixed_dispatch=True,
+                                                   is_block_kv_layout=True)),
+                                 load_config=lambda: dict(cfg)))
     arch = fam.build_arch(cfg_cls(TorchConfig(**_tc()), load_config=lambda: dict(cfg)))
-    with pytest.raises(NotImplementedError, match="speculative decoding.*final_logit_softcap"):
-        refuse_mla_speculation(arch)
+    refuse_speculation(arch, tree=False)
+    with pytest.raises(NotImplementedError, match="token-tree speculation.*sliding_window"):
+        refuse_speculation(arch, tree=True)
     g3, g3_cls = treg.get_family("gemma3_text")
     g3cfg = tiny_case("gemma3_text")[1]
     refuse_unported(g3, g3_cls(TorchConfig(**_tc(lora_config=dict(

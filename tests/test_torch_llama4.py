@@ -45,7 +45,7 @@ from nxdi_tpu_torch.ops import rope as trope
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
 from nxdi_tpu_torch.runtime.application import (
     TorchModelForCausalLM,
-    refuse_mla_speculation,
+    refuse_speculation,
     refuse_unported,
 )
 
@@ -337,11 +337,10 @@ def test_decode_visible_range_takes_the_chunk():
 
 
 def test_registry_and_refusals():
-    """The registry serves ``llama4`` and ``llama4_text``. The paths that do
-    not carry the switches refuse them at app build, naming them: the mixed
-    step the chunk (the JAX package's plain mixed attention drops it),
-    speculation the temperature; LoRA and a quantized KV store carry them
-    (as in the JAX package). The
+    """The registry serves ``llama4`` and ``llama4_text``. The mixed step,
+    chain speculation, LoRA and a quantized KV store carry the switches
+    (``test_torch_family_mixed.py``, ``test_torch_family_spec*.py``); a
+    token tree on the chunked target is refused, naming the chunk. The
     128-expert interleaved stack raises. The paged and ragged kernels take no
     chunk (the JAX rule): the CPU attends plainly, an enabled flag on the
     card raises naming the chunk. A stack with rope flags but no host rope
@@ -354,14 +353,14 @@ def test_registry_and_refusals():
     def config(**kw):
         return cfg_cls(TorchConfig(**_tc(**kw)), load_config=lambda: dict(cfg))
 
-    with pytest.raises(NotImplementedError, match="mixed_dispatch.*chunk_size"):
-        refuse_unported(fam, config(mixed_dispatch=True, is_block_kv_layout=True))
+    refuse_unported(fam, config(mixed_dispatch=True, is_block_kv_layout=True))
     refuse_unported(fam, config(lora_config=dict(max_loras=2, max_lora_rank=4,
                                                  target_modules=["q_proj"])))
     refuse_unported(fam, config(kv_cache_quant=True))
     arch = fam.build_arch(config())
-    with pytest.raises(NotImplementedError, match="speculative decoding.*attn_temperature_tuning"):
-        refuse_mla_speculation(arch)
+    refuse_speculation(arch, tree=False)
+    with pytest.raises(NotImplementedError, match="token-tree speculation.*chunk_size"):
+        refuse_speculation(arch, tree=True)
     with pytest.raises(NotImplementedError, match="interleave_moe_layer_step > 1"):
         fam.build_arch(cfg_cls(TorchConfig(**_tc()),
                                load_config=lambda: dict(cfg, interleave_moe_layer_step=2)))

@@ -471,20 +471,62 @@ def test_paged_layout_refused(tiny):
 
 
 @pytest.mark.parametrize("kind", ["fused", "standard"])
-def test_speculation_refused(tiny, kind):
-    _, hf_cfg = tiny["dense"]
-    spec = TorchConfig(**_common(speculation_config=SpeculationConfig(
-        speculation_length=2, enable_fused_speculation=kind == "fused"),
-        on_device_sampling_config=OnDeviceSamplingConfig()))
-    cfg = tds.DeepseekInferenceConfig(spec, load_config=lambda: hf_cfg.to_dict())
-    dcfg = tds.DeepseekInferenceConfig(TorchConfig(**_common()),
-                                       load_config=lambda: hf_cfg.to_dict())
-    with pytest.raises(NotImplementedError, match="speculation with an MLA"):
+def test_speculation_on_mla(tiny, kind):
+    """Speculation on an MLA target with an MLA draft (the target's own
+    weights: every window accepted whole, so every verify row's token is
+    emitted): the fused window (its draft steps ordinary decode forwards,
+    each layer committing its latent row) and the draft-model pair; tokens
+    equal HF greedy and the JAX app's, count for count."""
+    from nxdi_tpu.config import SpeculationConfig as JaxSpecConfig
+    from nxdi_tpu.speculation import FusedSpecCausalLM as JaxFused
+    from nxdi_tpu.speculation import StandardSpecCausalLM as JaxStandard
+
+    hf_model, hf_cfg = tiny["dense"]
+    sd = _sd(hf_model)
+    tsd = {k: torch.from_numpy(v) for k, v in sd.items()}
+    spec_len = 2
+    outs, logs = [], []
+    for jax_side in (True, False):
+        Tc, Spec, Odsc, fam = ((TpuConfig, JaxSpecConfig, JaxODSC, jds) if jax_side
+                               else (TorchConfig, SpeculationConfig, OnDeviceSamplingConfig, tds))
+        spec = (dict(speculation_config=Spec(speculation_length=spec_len,
+                                             enable_fused_speculation=True))
+                if kind == "fused" else dict(speculation_length=spec_len))
+        cfg = fam.DeepseekInferenceConfig(Tc(**_common(on_device_sampling_config=Odsc(), **spec)),
+                                          load_config=lambda: hf_cfg.to_dict())
+        dcfg = fam.DeepseekInferenceConfig(Tc(**_common(on_device_sampling_config=Odsc())),
+                                           load_config=lambda: hf_cfg.to_dict())
+        state = sd if jax_side else tsd
+        extra = {} if jax_side else dict(device="cpu")
         if kind == "fused":
-            FusedSpecCausalLM("<t>", cfg, "<d>", dcfg, model_family=tds,
-                              device="cpu").enable_models()
+            class App(JaxFused if jax_side else FusedSpecCausalLM):
+                def get_state_dict(self):
+                    return state
+
+                get_draft_state_dict = get_state_dict
+
+            app = App("<t>", cfg, "<d>", dcfg, model_family=fam, **extra)
         else:
-            StandardSpecCausalLM("<t>", cfg, "<d>", dcfg, model_family=tds, device="cpu")
+            app = (JaxStandard if jax_side else StandardSpecCausalLM)(
+                "<t>", cfg, "<d>", dcfg, model_family=fam, **extra)
+            app.target.get_state_dict = app.draft.get_state_dict = lambda state=state: state
+        app.load()
+        log, inner = [], app.forward
+
+        def fwd(input_ids, position_ids, inner=inner, log=log, **kw):
+            out = inner(input_ids, position_ids, **kw)
+            if np.asarray(input_ids).shape[1] == 1:
+                log.append(int(np.asarray(out["counts"])[0]))
+            return out
+
+        app.forward = fwd
+        Adapter = JaxAdapter if jax_side else HuggingFaceGenerationAdapter
+        outs.append(np.asarray(Adapter(app).generate(PROMPT, max_new_tokens=NEW)))
+        logs.append(log)
+    want = hf_greedy_generate(hf_model, PROMPT, max_new_tokens=NEW)
+    np.testing.assert_array_equal(outs[1], want)
+    np.testing.assert_array_equal(outs[0], want)
+    assert logs[1] == logs[0] and logs[1][0] == spec_len + 1
 
 
 def _lora_cfg(**kw):

@@ -44,7 +44,7 @@ from nxdi_tpu_torch.ops import norms as tnorms
 from nxdi_tpu_torch.ops import rope as trope
 from nxdi_tpu_torch.runtime.application import (
     TorchModelForCausalLM,
-    refuse_mla_speculation,
+    refuse_speculation,
     refuse_unported,
 )
 from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
@@ -490,9 +490,9 @@ def test_random_params_match_converter_shapes(case):
 
 def test_moe_row_carries_the_families_switches():
     """The MoE row of refuse_unported lets each family through; mixed
-    dispatch refuses gpt-oss's sinks and window and AFMoE's gate (the JAX
-    package's plain mixed attention drops the sink); speculation refuses the
-    new switches; LoRA carries them (AFMoE's gate and sandwich norms on an
+    dispatch and chain speculation carry gpt-oss's sinks and window
+    (``test_torch_family_mixed.py``, ``test_torch_family_spec*.py``), a
+    token tree on its windowed stack is refused; LoRA carries them (AFMoE's gate and sandwich norms on an
     all-MoE stack) and still refuses AFMoE's segmented stack (a dense layer
     before the MoE ones: the JAX package attaches no adapter there); on the
     card an enabled attention flag on a sink model raises, naming the
@@ -503,13 +503,13 @@ def test_moe_row_carries_the_families_switches():
         refuse_unported(fam, cfg_cls(TorchConfig(**_tc()), load_config=lambda: dict(cfg)))
     fam, cfg_cls = treg.get_family("gpt_oss")
     cfg = tiny_case("gpt_oss")[2]
-    with pytest.raises(NotImplementedError, match="mixed_dispatch.*sliding_window.*attention_sink"):
-        refuse_unported(fam, cfg_cls(TorchConfig(**_tc(mixed_dispatch=True,
-                                                       is_block_kv_layout=True)),
-                                     load_config=lambda: dict(cfg)))
+    refuse_unported(fam, cfg_cls(TorchConfig(**_tc(mixed_dispatch=True,
+                                                   is_block_kv_layout=True)),
+                                 load_config=lambda: dict(cfg)))
     arch = fam.build_arch(cfg_cls(TorchConfig(**_tc()), load_config=lambda: dict(cfg)))
-    with pytest.raises(NotImplementedError, match="speculative decoding.*attention_sink"):
-        refuse_mla_speculation(arch)
+    refuse_speculation(arch, tree=False)
+    with pytest.raises(NotImplementedError, match="token-tree speculation.*sliding_window"):
+        refuse_speculation(arch, tree=True)
     afam, acfg_cls = treg.get_family("afmoe")
     acfg = tiny_case("afmoe")[2]
     lora_tc = TorchConfig(**_tc(lora_config=dict(max_loras=2, max_lora_rank=4,

@@ -35,7 +35,7 @@ from nxdi_tpu_torch.models import registry as treg
 from nxdi_tpu_torch.models.convert import from_jax_params
 from nxdi_tpu_torch.runtime.application import (
     TorchModelForCausalLM,
-    refuse_mla_speculation,
+    refuse_speculation,
     refuse_unported,
 )
 
@@ -240,10 +240,10 @@ def test_dropped_switch_leaves_jax(switch):
 
 
 def test_registry_and_refusals():
-    """The registry serves the three types. The paths that do not carry the
-    switches refuse them at app build, naming them: speculation the parallel
-    block, the mixed step Cohere's window and LayerNorm; LoRA carries the
-    parallel block (as in the JAX package)."""
+    """The registry serves the three types. Chain speculation, the mixed
+    step and LoRA carry Cohere's parallel block, window and LayerNorm (as in
+    the JAX package); a token tree on its windowed stack is refused, naming
+    the window."""
     for t in ("cohere2", "exaone4", "olmo3"):
         assert treg.get_family(t)[0].__name__ == f"nxdi_tpu_torch.models.{t}.modeling_{t}"
     fam, cfg_cls = treg.get_family("cohere2")
@@ -252,12 +252,12 @@ def test_registry_and_refusals():
     def config(**kw):
         return cfg_cls(TorchConfig(**_tc(**kw)), load_config=lambda: dict(cfg))
 
-    with pytest.raises(NotImplementedError, match="speculative decoding.*parallel_block"):
-        refuse_mla_speculation(fam.build_arch(config()))
+    refuse_speculation(fam.build_arch(config()), tree=False)
+    with pytest.raises(NotImplementedError, match="token-tree speculation.*sliding_window"):
+        refuse_speculation(fam.build_arch(config()), tree=True)
     refuse_unported(fam, config(lora_config=dict(max_loras=2, max_lora_rank=4,
                                                  target_modules=["q_proj"])))
-    with pytest.raises(NotImplementedError, match="mixed_dispatch.*sliding_window, .*layernorm"):
-        refuse_unported(fam, config(mixed_dispatch=True, is_block_kv_layout=True))
+    refuse_unported(fam, config(mixed_dispatch=True, is_block_kv_layout=True))
 
 
 def test_published_widths():

@@ -32,7 +32,7 @@ from nxdi_tpu_torch.kvcache import kv_cache as tkv
 from nxdi_tpu_torch.models import registry as treg
 from nxdi_tpu_torch.ops import attention as tattn
 from nxdi_tpu_torch.ops.kernels import flash_attention as fa
-from nxdi_tpu_torch.runtime.application import refuse_mla_speculation
+from nxdi_tpu_torch.runtime.application import refuse_speculation
 from nxdi_tpu_torch.runtime.model_wrapper import kv_layout_from_config
 from nxdi_tpu_torch.serving import InferenceEngine, SamplingParams, SchedulerConfig
 
@@ -275,7 +275,8 @@ def test_window_sized_kv_config_refusals(kw, match):
 def test_ring_layout_refusals():
     """The layout refuses a scaled fp8 store on the ring (the JAX message),
     a ring on a model with no sliding-window layer and a ring shorter than
-    the model's window; a windowed model refuses speculation at app build."""
+    the model's window; a windowed model speculates in a chain and refuses
+    a token tree at app build, naming its window."""
     _, cfg, _ = tiny_case("mistral")
     fam, cfg_cls = treg.get_family("mistral")
 
@@ -292,5 +293,6 @@ def test_ring_layout_refusals():
     with pytest.raises(ValueError, match="shorter than the model's sliding window"):
         layout({**cfg, "sliding_window": 16})
     arch = fam.build_arch(cfg_cls(TorchConfig(**_tc(**RING)), load_config=lambda: dict(cfg)))
-    with pytest.raises(NotImplementedError, match="speculative decoding.*sliding_window"):
-        refuse_mla_speculation(arch)
+    refuse_speculation(arch, tree=False)
+    with pytest.raises(NotImplementedError, match="token-tree speculation.*sliding_window"):
+        refuse_speculation(arch, tree=True)
