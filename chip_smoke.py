@@ -296,6 +296,30 @@ code is non-zero:
    exact), then generate() with rank-16 LoRA adapters in 4 slots at B 8
    (the base slot's tokens equal to the model without LoRA, the adapters
    moving their rows' logits, adapter 1 against its weights merged).
+3n. Row 4 at the hybrids' stacks: MiMo-V2-Flash's full-attention stack
+   (K 192 / V 128, 4 kv heads) and its window stack (3 layers, 8 kv heads),
+   LFM2-1.2B's per-layer write (8 kv heads of 64); B 8, S 2048: decode rows
+   and a routed prefill with a dropped row and line, bit for bit against
+   the plain version in bf16 and f32; bf16 timed beside index_put and the
+   bound. Rows 9/10 at MiMo-V2-Flash's dense MLP (H 4096, I 16384, SiLU)
+   at M 8 and 8192: stacked equal to unstacked, against the plain version,
+   timed beside three torch products and the bound.
+4r. MiMo-V2 (a full dense layer, a window MoE layer, q / k 48 against v 32)
+   and LFM2 (a conv and an attention layer) at 2 layers, float32: static
+   generate(), continuous batching over shuffled cache lines, and for MiMo
+   the window ring beside the full cache and standard speculation at
+   spec_len 3, each on the CPU, the card's graphs and the card eagerly:
+   tokens equal, logits within 1e-4, graphs equal to eager bit for bit,
+   row 4 (and the fused MLP on MiMo's dense layer) launched exactly as
+   counted.
+5r. MiMo-V2-Flash's published widths cut to 4 layers (~42 GB of bf16
+   weights) on the full cache (with the fused MLP, then the plain MLP) and
+   with its window stack on a 128-slot ring; LFM2-1.2B whole through
+   generate() and on 8 shuffled cache lines with staggered arrivals
+   (app.forward(seq_ids=)); B 8 x 1024, 32 new
+   tokens, graphs: prefill ms, decode ms/step, a profiled decode step (its
+   GEMM, MoE and elementwise shares), KV cache and peak bytes, launches
+   exact.
 6. One JSON line per kernel summary, the card line, then the result line.
 
 It imports nothing of JAX. Without a GPU, or without the repository beside
@@ -1362,7 +1386,8 @@ def warm(app):
 
 
 def recording(app, log_list):
-    """Wrap ``app.forward`` so each dispatch's last-position logits are kept."""
+    """Wrap ``app.forward`` so each dispatch's last-position logits are kept;
+    returns the call that takes the wrap off."""
     inner = app.forward
 
     def fwd(*a, **kw):
@@ -1371,6 +1396,7 @@ def recording(app, log_list):
         return out
 
     app.forward = fwd
+    return lambda: app.__dict__.pop("forward", None)
 
 
 def prompts(rng, B, S, lengths, vocab):
@@ -1395,19 +1421,31 @@ def same_bits(torch, phase, graph_logs, eager_logs):
     return len(graph_logs)
 
 
-def three_apps(mods, setup=None, **app_kw):
+def submodels(app):
+    """The applications whose wrappers serve ``app``: a speculation app's
+    target and draft, else the app itself."""
+    return [app.target, app.draft] if hasattr(app, "target") else [app]
+
+
+def three_apps(mods, setup=None, build=None, **app_kw):
     """The same model on the CPU (plain versions), through the card's graphs
-    and on the card eagerly (make_app), one set of weights; ``setup(app)``
-    runs on each after its load (adapters for LoRA)."""
-    ml, TorchConfig, ODSC, App, dense, _ = mods
-    cpu_app, arch = make_app(ml, TorchConfig, ODSC, App, dense, device="cpu", **app_kw)
-    gpu_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda",
-                          params=cpu_app.params, **app_kw)
-    eager_app, _ = make_app(ml, TorchConfig, ODSC, App, dense, device="cuda", graphs=False,
-                            params=gpu_app.params, **app_kw)
+    and on the card eagerly, one set of weights: make_app's, or
+    ``build(device, graphs, params)``'s (app, arch) (a family's own
+    application); ``setup(app)`` runs on each after its load (adapters for
+    LoRA)."""
+    if build is None:
+        ml, TorchConfig, ODSC, App, dense, _ = mods
+
+        def build(device, graphs, params):
+            return make_app(ml, TorchConfig, ODSC, App, dense, device=device, graphs=graphs,
+                            params=params, **app_kw)
+
+    cpu_app, arch = build("cpu", True, None)
+    gpu_app, _ = build("cuda", True, submodels(cpu_app)[0].params)
+    eager_app, _ = build("cuda", False, submodels(gpu_app)[0].params)
     apps = (cpu_app, gpu_app, eager_app)
     for app in apps:
-        for w in app.models.values():
+        for w in (w for a in submodels(app) for w in a.models.values()):
             w.attention_strategies.clear()  # keep what the phase's traffic runs
         if setup is not None:
             setup(app)
@@ -1438,35 +1476,40 @@ def logits_within(torch, phase, logs_ref, logs_got, tol, rows=None):
     return worst, compared, None
 
 
-def run_three(torch, mods, phase, apps, ids, mask, new, kernels=None, **gen_kw):
-    """generate() on each of ``three_apps``: the graphs' tokens equal the
-    eager run's and their logits bit for bit, the CPU's logits within
-    LOGIT_TOL of the graphs' and its tokens equal (up to a near tie).
-    Returns (the largest logit difference, the graphs' tokens, the graph
-    run's launches by kernel, dispatches compared bit for bit, the graph
-    run's last-position logits per dispatch)."""
+def run_three(torch, mods, phase, apps, ids, mask, new, kernels=None, drive=None,
+              record=recording, exact=False, **gen_kw):
+    """generate() (or ``drive(app)``, which returns the tokens) on each of
+    ``three_apps``, each dispatch's logits kept by ``record(app, list)``: the
+    graphs' tokens equal the eager run's and their logits bit for bit, the
+    CPU's logits within LOGIT_TOL of the graphs' and its tokens equal (up to
+    a near tie, but not when ``exact``). Returns (the largest logit
+    difference, the graphs' tokens, the graph run's launches by kernel,
+    dispatches compared bit for bit, the graph run's logits per dispatch)."""
+    import numpy as np
+
     cpu_app, gpu_app, eager_app = apps
-    Adapter = mods[5]
+    if drive is None:
+        def drive(app):
+            return mods[5](app).generate(ids, attention_mask=mask, max_new_tokens=new, **gen_kw)
+
     logs = ([], [], [])
-    for app, log_list in zip(apps, logs):
-        recording(app, log_list)
-    kernels = kernels or attention_kernels()
+    undo = [record(app, log_list) for app, log_list in zip(apps, logs)]
     try:
-        out_cpu = Adapter(cpu_app).generate(ids, attention_mask=mask, max_new_tokens=new, **gen_kw)
-        for fn in kernels.values():
-            fn.launches = 0
-        out_gpu = Adapter(gpu_app).generate(ids, attention_mask=mask, max_new_tokens=new, **gen_kw)
-        counts = {k: fn.launches for k, fn in kernels.items()}
-        out_eager = Adapter(eager_app).generate(ids, attention_mask=mask, max_new_tokens=new,
-                                                **gen_kw)
+        out_cpu = drive(cpu_app)
+        count = _count_launches(kernels or attention_kernels())
+        out_gpu = drive(gpu_app)
+        counts = count()
+        out_eager = drive(eager_app)
     finally:
-        for app in apps:
-            del app.forward
-    assert (out_gpu == out_eager).all(), f"phase {phase}: graph and eager tokens differ"
+        for u in undo:
+            u()
+    assert np.array_equal(np.asarray(out_gpu), np.asarray(out_eager)), \
+        f"phase {phase}: graph and eager tokens differ"
     n_same = same_bits(torch, phase, logs[1], logs[2])
     worst, _, flip = logits_within(torch, phase, logs[0], logs[1], LOGIT_TOL)
-    if flip is None:
-        assert (out_cpu == out_gpu).all(), f"phase {phase}: generated tokens differ"
+    if flip is None or exact:
+        assert np.array_equal(np.asarray(out_cpu), np.asarray(out_gpu)), \
+            f"phase {phase}: generated tokens differ"
     return worst, out_gpu, counts, n_same, logs[1]
 
 
@@ -3174,8 +3217,10 @@ def check_one_byte_kernels(torch, results):
 # ---------------------------------------------------------------------------
 
 
-def _count_launches():
-    kernels = dict(attention_kernels(), **mixed_kernels())
+def _count_launches(kernels=None):
+    """Zero the launch counts of ``kernels`` (the attention and mixed-step
+    kernels by default); returns the call that reads them."""
+    kernels = kernels or dict(attention_kernels(), **mixed_kernels())
     for fn in kernels.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in kernels.items()}
@@ -4747,8 +4792,9 @@ def decode_step_profile(torch, np, app, out_tokens, lengths, new, K=16, **fwd_kw
     """A decode step of ``app`` repeated after a generate() (the next
     position of each row): K unprofiled steps with the host spans (wall,
     host split), then one under the profiler (device busy, kernels by
-    time, the attention kernels by name) and one traced for its device
-    operations in order (how many the step launches)."""
+    time, the attention kernels by name, the GEMM / MoE / elementwise
+    shares) and one traced for its device operations in order (how many
+    the step launches)."""
     from nxdi_tpu_torch.generation import hf_adapter as hfa
 
     B = len(lengths)
@@ -4764,7 +4810,8 @@ def decode_step_profile(torch, np, app, out_tokens, lengths, new, K=16, **fwd_kw
     ops = kernel_sequence(torch, step)
     return dict(wall_ms=wall, busy_ms=busy, idle_pct=100 * (1 - busy / wall), host_split_ms=split,
                 device_ops=len(ops), attention_ms=attention_ms(by_kernel),
-                by_group_ms=by_group(by_kernel), top=by_kernel[:10])
+                by_group_ms=by_group(by_kernel), shares_ms=step_shares(by_kernel),
+                top=by_kernel[:10])
 
 
 def moe_full_depth(torch, np, mods, card):
@@ -8083,6 +8130,605 @@ def fspec_falcon_mixed(torch, np, mods, card):
     return dict(engine=st, launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# phases 3n, 4r and 5r: MiMo-V2 (two attention stacks, a value width apart
+# from q / k's) and LFM2 (short convs beside attention, seq-id state routing)
+# ---------------------------------------------------------------------------
+
+# phase 3n's commits: MiMo-V2-Flash's full-attention stack in phase 5r's
+# 4-layer cut (1 layer, 4 kv heads) and its window stack (3 layers, 8 kv
+# heads), K 192 / V 128; LFM2-1.2B's per-layer commit (one of its 6
+# attention layers, 8 kv heads of 64); B 8, S 2048
+HYBRID_COMMITS = {
+    "MiMo-V2 K 192 / V 128": dict(layers=1, kv=4, k=192, v=128, view=False),
+    "MiMo-V2 window stack": dict(layers=3, kv=8, k=192, v=128, view=False),
+    "LFM2-1.2B": dict(layers=6, kv=8, k=64, v=64, view=True),
+}
+HYBRID_COMMIT_SHAPE = dict(batch=8, seq=2048)
+# phase 3n's fused MLP at MiMo-V2-Flash's dense MLP (hidden 4096, intermediate
+# 16384, SiLU), the one-layer dense segment of phase 5r's 4-layer cut, at the
+# decode step's 8 rows and phase 5r's prefill (batch 8 x 1024 tokens)
+MIMO_MLP = dict(hidden=4096, inter=16384, layers=1)
+MIMO_MLP_M = (8, 8192)
+
+
+def check_hybrid_commits(torch, results):
+    """Phase 3n. Row 4 at the hybrids' stacks (HYBRID_COMMITS): one decode
+    step's rows, one a line, into the whole stack (MiMo's deferred commit)
+    or into one layer's view (LFM2's per-layer write), and a routed
+    prefill's 128 rows into shuffled lines with a dropped row and a dropped
+    line, bit for bit against the plain version in bf16 and f32; bf16 timed
+    (DECODE_CALLS flushed calls) beside the plain version, index_put of the
+    same rows and the bound (the rows' bytes, read and written). Rows 9/10
+    at MiMo-V2-Flash's dense MLP (MIMO_MLP), as phase 3g holds V3's: the
+    stacked entry equal to the unstacked call, each M held to its plain
+    version (row 9's tolerance), timed (GEMM_CALLS flushed calls) beside
+    three torch products; bound: the weights' bytes, or the operations."""
+    import torch.nn.functional as F
+
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+    from nxdi_tpu_torch.ops.kernels import kv_commit as kc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    scratch = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    B, S = HYBRID_COMMIT_SHAPE["batch"], HYBRID_COMMIT_SHAPE["seq"]
+    for point, c in HYBRID_COMMITS.items():
+        L, KV, Dk, Dv = c["layers"], c["kv"], c["k"], c["v"]
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            es = torch.tensor([], dtype=dt).element_size()
+
+            def randn(shape):
+                return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dt)
+
+            kst, vst = randn((L, B, KV, S, Dk)), randn((L, B, KV, S, Dv))
+            # LFM2 writes one layer's view; MiMo commits the whole stack at once
+            kl, vl = (kst[L - 1:L], vst[L - 1:L]) if c["view"] else (kst, vst)
+            n = kl.shape[0]
+            kr, vr = randn((n, B, KV, 1, Dk)), randn((n, B, KV, 1, Dv))
+            slots = torch.tensor([[1000 + 7 * b] for b in range(B)], dtype=torch.int32,
+                                 device=dev)
+            k_ref, v_ref = kl.clone(), vl.clone()
+            kc.kv_commit_rows_plain(k_ref, v_ref, kr, vr, slots)
+            kc.kv_commit_rows(kl, vl, kr, vr, slots)
+            torch.cuda.synchronize()
+            assert torch.equal(kl, k_ref) and torch.equal(vl, v_ref), \
+                f"3n commit {point} {dname}: not exact"
+            # a routed prefill: 128 rows of 3 requests into lines (5, 0, 9);
+            # row 1's last position and line 9 (past the 8) drop
+            T = 128
+            kp, vp = randn((n, 3, KV, T, Dk)), randn((n, 3, KV, T, Dv))
+            pslots = torch.arange(T, dtype=torch.int32, device=dev)[None].repeat(3, 1)
+            pslots[1, -1] = -1
+            lines = torch.tensor([5, 0, 9], dtype=torch.int32, device=dev)
+            k_ref, v_ref = kl.clone(), vl.clone()
+            kc.kv_commit_rows_plain(k_ref, v_ref, kp, vp, pslots, lines)
+            kc.kv_commit_rows(kl, vl, kp, vp, pslots, lines)
+            torch.cuda.synchronize()
+            assert torch.equal(kl, k_ref) and torch.equal(vl, v_ref), \
+                f"3n routed commit {point} {dname}: not exact"
+            if dname != "bfloat16":
+                log(f"[hybrid-3n] commit float32 {point}: exact (decode rows and a routed "
+                    "prefill with drops)")
+                continue
+            times, _, _ = traced_times(torch, lambda: kc.kv_commit_rows(kl, vl, kr, vr, slots),
+                                       DECODE_CALLS, flush, kernel="kv_commit_kernel")
+            ms, lo, hi = spread(times)
+            plain_ms = measure(torch, lambda: kc.kv_commit_rows_plain(kl, vl, kr, vr, slots),
+                               flush=flush)
+            sl, bi = slots[:, 0].long(), torch.arange(B, device=dev)
+            zero = torch.zeros(B, dtype=torch.long, device=dev)
+
+            def library_commit():
+                kl[:, bi, :, sl] = kr[:, bi, :, zero]
+                vl[:, bi, :, sl] = vr[:, bi, :, zero]
+
+            lib_ms = measure(torch, library_commit, flush=flush)
+            nbytes = 2 * n * B * KV * (Dk + Dv) * es  # rows read + written
+            bms, by = bound_ms(nbytes, 0, dname)
+            results.append(dict(kernel="commit", dtype=dname, point=point, max_abs_err=0.0,
+                                tol=0.0, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bms, bound_by=by, k_width=Dk,
+                                v_width=Dv, layers=n))
+            log(f"[hybrid-3n] commit bfloat16 {point} ({n} layer(s), {KV} kv heads, K {Dk} / "
+                f"V {Dv}, B {B}): exact; kernel {ms:.4f} ms ({lo:.4f}-{hi:.4f}); plain "
+                f"{plain_ms:.4f} index_put {lib_ms:.4f} bound {bms:.6f} ({by})")
+            del kst, vst, kl, vl, k_ref, v_ref
+    torch.cuda.empty_cache()
+
+    m = MIMO_MLP
+    H, I, Lm = m["hidden"], m["inter"], m["layers"]
+    dt = torch.bfloat16
+
+    def randn_bf16(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * std).to(dt)
+
+    g_s, u_s = randn_bf16((Lm, H, I), H ** -0.5), randn_bf16((Lm, H, I), H ** -0.5)
+    d_s = randn_bf16((Lm, I, H), I ** -0.5)
+    li = Lm - 1
+    for M in MIMO_MLP_M:
+        x = randn_bf16((M, H), 1.0)
+        assert torch.equal(fp.fused_mlp_stacked(x, g_s, u_s, d_s, li),
+                           fp.fused_mlp(x, g_s[li], u_s[li], d_s[li])), f"3n mlp stacked M={M}"
+        row = gemm_point(torch, results, "mlp", "bfloat16", M,
+                         lambda: fp.fused_mlp_stacked(x, g_s, u_s, d_s, li),
+                         lambda: fp.fused_mlp_plain(x, g_s[li], u_s[li], d_s[li]),
+                         lambda: (F.silu(x @ g_s[li]) * (x @ u_s[li])) @ d_s[li],
+                         (2 * M * H + 3 * H * I) * 2, 6 * M * H * I, flush)
+        row.update(point="MiMo-V2-Flash", hidden=H, inter=I)
+        log(f"[hybrid-3n] mlp bfloat16 at MiMo-V2-Flash's H {H} I {I}, M {M}: err "
+            f"{row['max_abs_err']:.3g} (limit {row['tol']}); kernel {row['ms']:.4f} ms "
+            f"({row['ms_min']:.4f}-{row['ms_max']:.4f}); three torch products "
+            f"{row['library_ms']:.4f}; bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound")
+    del g_s, u_s, d_s
+    torch.cuda.empty_cache()
+
+
+# phase 4r: both families at 2 layers in float32, the published shapes
+# narrowed. MiMo: a full-attention dense layer and a window MoE layer, q / k
+# 48 against v 32 on both (192 / 128's ratio), window 8, 8 experts top 2;
+# LFM2: a conv layer and an attention layer
+HYBRID_SMALL = {
+    "mimo_v2": dict(hidden_size=256, num_hidden_layers=2, hybrid_layer_pattern=[0, 1],
+                    moe_layer_freq=[0, 1], num_attention_heads=4, num_key_value_heads=2,
+                    swa_num_attention_heads=4, swa_num_key_value_heads=2, head_dim=48,
+                    v_head_dim=32, swa_head_dim=48, swa_v_head_dim=32, sliding_window=8,
+                    n_routed_experts=8, num_experts_per_tok=2, moe_intermediate_size=64,
+                    intermediate_size=512, vocab_size=512),
+    "lfm2": dict(hidden_size=256, intermediate_size=768, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2, vocab_size=512,
+                 layer_types=["conv", "full_attention"]),
+}
+# the attention kernels stay off (no kernel takes MiMo's value widths, the
+# JAX rule; LFM2 attends plainly in both packages); the fused MLP on MiMo's
+# dense layer
+HYBRID_FLAGS = {"mimo_v2": dict(mlp_kernel_enabled=True), "lfm2": {}}
+
+
+def hybrid_family(model_type, **widths):
+    """(module, config class, widths) of a hybrid family at ``widths`` over its
+    published constant."""
+    from nxdi_tpu_torch.models import registry
+
+    module, cfg_cls = registry.get_family(model_type)
+    published = module.MIMO_V2_FLASH if model_type == "mimo_v2" else module.LFM2_1_2B
+    return module, cfg_cls, dict(published, **widths)
+
+
+def hybrid_app(mods, family, *, device, dtype, batch, seq_len, ctx_len, params=None,
+               graphs=True, output_logits=False, **extra):
+    """The family's own application (its cache stacks and forward), loaded
+    and warmed up, random weights from seed 0 (or ``params``)."""
+    _, TorchConfig, ODSC, _, _, _ = mods
+    module, cfg_cls, widths = family
+    tcfg = TorchConfig(tp_degree=1, batch_size=batch, seq_len=seq_len, max_context_length=ctx_len,
+                       dtype=dtype, on_device_sampling_config=ODSC(),
+                       output_logits=output_logits, skip_warmup=True, **extra)
+    cfg = cfg_cls(tcfg, **widths)
+
+    class A(module.APPLICATION_CLS):
+        def build_params(self):
+            if params is not None:
+                return params
+            return module.random_params(self.config, seed=0, device=device)
+
+    app = A("<random>", cfg, device=device, graphs=graphs)
+    app.load()
+    app.warm_stats = warm(app)
+    return app, module.build_arch(cfg)
+
+
+def hybrid_kernels():
+    """The wrappers a hybrid run's launches are read from: the attention and
+    projection kernels (none may launch), the commit and the fused MLP."""
+    from nxdi_tpu_torch.ops.kernels import fused_proj as fp
+
+    return dict(attention_kernels(), ragged=mixed_kernels()["ragged"], qkv=fp.qkv_matmul,
+                mlp=fp.fused_mlp)
+
+
+def forward_log(app, logits=None):
+    """Record every dispatch of every submodel of ``app`` in
+    ``app.dispatches``: (attends the cache, tokens a row, routed by
+    seq_ids), the inputs of :func:`hybrid_counts`; each dispatch's logits,
+    a row a token, go to ``logits`` where given (run_three's ``record``).
+    Returns the call that takes the wraps off."""
+    import numpy as np
+
+    app.dispatches = []
+    wrappers = [w for a in submodels(app) for w in a.models.values()]
+    for w in wrappers:
+        inner = w.forward
+
+        def fwd(params, cache, batch_np, inner=inner, w=w):
+            outputs, cache = inner(params, cache, batch_np)
+            app.dispatches.append((w.attend_to_cache,
+                                   int(np.asarray(batch_np["input_ids"]).shape[1]),
+                                   bool(getattr(w.layout, "route_by_seq_id", False))))
+            lg = outputs.get("logits")
+            if logits is not None and lg is not None:
+                logits.append(lg.float().reshape(-1, lg.shape[-1]).cpu())
+            return outputs, cache
+
+        w.forward = fwd
+
+    def undo():
+        for w in wrappers:
+            w.__dict__.pop("forward", None)
+
+    return undo
+
+
+def hybrid_counts(arch, records, ring, dense_layers):
+    """Row 4's and rows 9/10's launches over the logged dispatches, every
+    other kernel none, and row 4's by the stack they land in (MiMo's "full"
+    and "swa", LFM2's "attention"). MiMo, each segment: on a contiguous
+    stack a cache-attending forward defers its rows to one commit, a
+    context encoding copies its prefill in place (a routed one writes each
+    layer through the commit); on the window ring every layer writes
+    through the commit but a multi-token verify, which defers. LFM2: each
+    attention layer commits in every forward. The fused MLP: once a dense
+    layer a forward."""
+    by_stack = {}
+    for attend, S, routed in records:
+        if hasattr(arch, "schedule"):  # MiMo-V2
+            for kind, lo, hi, _ in arch.schedule:
+                if kind == "swa" and ring:
+                    n = 1 if attend and S > 1 else hi - lo
+                else:
+                    n = 1 if attend else (hi - lo if routed else 0)
+                by_stack[kind] = by_stack.get(kind, 0) + n
+        else:
+            by_stack["attention"] = by_stack.get("attention", 0) + arch.n_attn
+    want = {k: 0 for k in hybrid_kernels()}
+    want.update(commit=sum(by_stack.values()), mlp=dense_layers * len(records))
+    return want, by_stack
+
+
+def hybrid_three(torch, mods, tag, build, drive, ring=False, dense_layers=0):
+    """One hybrid run three ways (three_apps over ``build``, run_three over
+    ``drive`` with every submodel's dispatches logged, tokens exact), the
+    graphs' launches held to hybrid_counts. Returns (the largest logit
+    difference, dispatches compared bit for bit, the graphs' launches, the
+    graphs' tokens, the graph app)."""
+    apps, arch = three_apps(mods, build=build)
+    worst, toks, counts, n, _ = run_three(torch, mods, tag, apps, None, None, None,
+                                          kernels=hybrid_kernels(), drive=drive,
+                                          record=forward_log, exact=True)
+    want = hybrid_counts(arch, apps[1].dispatches, ring, dense_layers)[0]
+    assert counts == want, f"{tag}: launches {counts} != {want}"
+    return worst, n, counts, toks, apps[1]
+
+
+def lines_drive(app, prompts_, lines, new, arrivals=None):
+    """Continuous batching through ``app.forward(seq_ids=)``: request i is
+    prefilled alone into cache line ``lines[i]`` at step ``arrivals[i]``
+    (default: its index), then every live request decodes in one dispatch a
+    step, its row routed to its line, until each has ``new`` tokens.
+    Returns each request's tokens (a list of lists)."""
+    import numpy as np
+
+    arrivals = list(range(len(prompts_))) if arrivals is None else arrivals
+    toks = [[] for _ in prompts_]
+    pos = [0] * len(prompts_)
+    step = 0
+    while any(len(t) < new for t in toks):
+        for i, p in enumerate(prompts_):
+            if arrivals[i] == step:
+                S = len(p)
+                out = app.forward(np.asarray([p], np.int32), np.arange(S, dtype=np.int32)[None],
+                                  last_token_index=np.array([S - 1], np.int32),
+                                  seq_ids=np.array([lines[i]], np.int32))
+                toks[i].append(int(np.asarray(out["tokens"].cpu())[0, 0]))
+                pos[i] = S
+        live = [i for i, t in enumerate(toks) if t and len(t) < new]
+        if live:
+            out = app.forward(np.array([[toks[i][-1]] for i in live], np.int32),
+                              np.array([[pos[i]] for i in live], np.int32),
+                              seq_ids=np.array([lines[i] for i in live], np.int32))
+            got = np.asarray(out["tokens"].cpu())[:, 0]
+            for j, i in enumerate(live):
+                toks[i].append(int(got[j]))
+                pos[i] += 1
+        step += 1
+    return toks
+
+
+def hybrid_vs_cpu(torch, np, mods):
+    """Phase 4r: MiMo-V2 and LFM2 at 2 layers in float32 (HYBRID_SMALL), the
+    CPU (plain versions) against the card through its graphs and eagerly
+    (hybrid_three): static generate() at B 2 (one row padded); continuous
+    batching over shuffled cache lines (two requests into lines 3 and 1, the
+    second arriving after the first has decoded); MiMo also on its window
+    ring beside the full cache (tokens equal) and under standard speculation
+    at spec_len 3 (a perfect draft: its tokens equal the target's
+    generate()). Row 4 (and rows 9/10 on MiMo's dense layer) launched
+    exactly as counted; no attention kernel."""
+    from nxdi_tpu_torch.generation.hf_adapter import HuggingFaceGenerationAdapter as Adapter
+    from nxdi_tpu_torch.speculation import StandardSpecCausalLM
+
+    NEW, P = 16, 64
+    out = {}
+    for model_type in ("mimo_v2", "lfm2"):
+        family = hybrid_family(model_type, **HYBRID_SMALL[model_type])
+        module, cfg_cls, widths = family
+        flags = HYBRID_FLAGS[model_type]
+        dense = (widths["moe_layer_freq"].count(0) if flags.get("mlp_kernel_enabled") else 0)
+        vocab = widths["vocab_size"]
+        ids, mask = prompts(np.random.default_rng(7), 2, P, [P, 53], vocab)
+        runs = {}
+
+        def static(ring):
+            # config.py refuses the projection kernels on a ring (the JAX rule)
+            extra = dict(RING8) if ring else dict(flags)
+
+            def build(device, graphs, params):
+                return hybrid_app(mods, family, device=device, dtype="float32", batch=2,
+                                  seq_len=256, ctx_len=128, params=params, graphs=graphs,
+                                  output_logits=True, **extra)
+
+            return build, lambda app: Adapter(app).generate(ids, attention_mask=mask,
+                                                            max_new_tokens=NEW)
+
+        for ring in ((False, True) if model_type == "mimo_v2" else (False,)):
+            name = "ring" if ring else "static"
+            build, drive = static(ring)
+            worst, n, counts, toks, app = hybrid_three(torch, mods, f"4r {model_type} {name}",
+                                                       build, drive, ring, 0 if ring else dense)
+            if ring:
+                assert app.kv_cache["k_swa"].shape[3] == RING8["sliding_window"], "4r ring"
+                assert np.array_equal(np.asarray(toks), np.asarray(runs["static"]["tokens"])), \
+                    "4r mimo_v2: the ring's tokens differ from the full cache's"
+            runs[name] = dict(max_logit_err=worst, dispatches_bitwise=n, launches=counts,
+                              tokens=toks, cache_bytes=cache_bytes(app))
+            log(f"[hybrid-2L 4r {model_type} {name}] generate(): max logit diff {worst:.3g}, "
+                f"graphs = eager over {n} dispatches, launches {counts}")
+            del app
+            gc.collect()
+
+        rng = np.random.default_rng(8)
+        reqs = [rng.integers(1, vocab, size=n).tolist() for n in (40, 23)]
+        lines = [3, 1]
+
+        def cb_build(device, graphs, params):
+            return hybrid_app(mods, family, device=device, dtype="float32", batch=2, seq_len=256,
+                              ctx_len=128, params=params, graphs=graphs, output_logits=True,
+                              is_continuous_batching=True, ctx_batch_size=1, tkg_batch_size=2,
+                              kv_cache_batch_size=4, **flags)
+
+        worst, n, counts, toks, app = hybrid_three(
+            torch, mods, f"4r {model_type} lines", cb_build,
+            lambda a: lines_drive(a, reqs, lines, 12, arrivals=[0, 4]), False, dense)
+        runs["lines"] = dict(max_logit_err=worst, dispatches_bitwise=n, launches=counts,
+                             lines=lines)
+        log(f"[hybrid-2L 4r {model_type} lines] shuffled lines {lines}: max logit diff "
+            f"{worst:.3g}, graphs = eager over {n} dispatches, launches {counts}")
+        del app
+        gc.collect()
+
+        if model_type == "mimo_v2":
+            _, TorchConfig, ODSC, _, _, _ = mods
+
+            def spec_build(device, graphs, params):
+                base = dict(tp_degree=1, batch_size=2, seq_len=256, max_context_length=128,
+                            dtype="float32", on_device_sampling_config=ODSC(), output_logits=True,
+                            skip_warmup=True, **flags)
+                app = StandardSpecCausalLM(
+                    "<t>", cfg_cls(TorchConfig(speculation_length=3, **base), **widths), "<d>",
+                    cfg_cls(TorchConfig(**base), **widths), model_family=module, device=device,
+                    graphs=graphs)
+                for side in (app.target, app.draft):  # a perfect draft: the target's weights
+                    side.build_params = (lambda p=params, s=side: p if p is not None
+                                         else module.random_params(s.config, seed=0,
+                                                                   device=device))
+                app.load()
+                for side in (app.target, app.draft):
+                    side.warm_stats = warm(side)
+                return app, module.build_arch(app.target.config)
+
+            def spec_drive(app):
+                toks = Adapter(app).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+                return toks
+
+            worst, n, counts, toks, app = hybrid_three(torch, mods, "4r mimo_v2 speculation",
+                                                       spec_build, spec_drive, False, dense)
+            plain = Adapter(app.target).generate(ids, attention_mask=mask, max_new_tokens=NEW)
+            assert np.array_equal(np.asarray(toks), np.asarray(plain)), \
+                "4r mimo_v2: speculation's tokens differ from the target's generate()"
+            runs["speculation"] = dict(max_logit_err=worst, dispatches_bitwise=n,
+                                       launches=counts, spec_len=3,
+                                       windows=app.spec_windows,
+                                       accepted=app.spec_accepted_tokens)
+            log(f"[hybrid-2L 4r mimo_v2 speculation] spec_len 3, perfect draft: max logit diff "
+                f"{worst:.3g}, graphs = eager over {n} dispatches, {app.spec_windows} windows, "
+                f"launches {counts}")
+            del app
+            gc.collect()
+        for r in runs.values():
+            r.pop("tokens", None)
+        out[model_type] = runs
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 5r's MoE share of a step: the grouped expert GEMMs (torch._grouped_mm:
+# CUTLASS's GemmUniversal over a GroupProblemShape) and the dispatch's sort,
+# top-k, scatter-add and un-sort (ops/moe.py's sparse dispatch); the router's
+# float32 product counts as a GEMM
+MOE_NAME = re.compile(r"GroupProblemShape|grouped|sort|topk|radix|scatter_add|index_copy|cub::",
+                      re.I)
+
+
+def step_shares(by_kernel):
+    """A profiled step's device ms split into GEMM (cuBLAS and the port's),
+    MoE (MOE_NAME), elementwise and the rest."""
+    out = {"MoE": 0.0, "GEMM": 0.0, "elementwise": 0.0, "other": 0.0}
+    for t, name in by_kernel:
+        if MOE_NAME.search(name):
+            out["MoE"] += t
+        elif GEMM_NAME.search(name) or KERNEL_GROUPS[5][1].search(name):
+            out["GEMM"] += t
+        elif KERNEL_GROUPS[8][1].search(name):
+            out["elementwise"] += t
+        else:
+            out["other"] += t
+    return out
+
+
+def hybrid_generate(torch, np, mods, tag, app, arch, ids, mask, new, ring, dense_layers):
+    """One timed generate() of a phase 5r app: prefill ms, decode ms/step,
+    tok/s, launches exact (hybrid_counts), a profiled decode step (wall,
+    busy, idle, the GEMM / MoE / elementwise shares), KV cache and peak
+    bytes."""
+    Adapter = mods[5]
+    undo = forward_log(app)
+    count = _count_launches(hybrid_kernels())
+    try:
+        prefill_ms, decode_ms, toks = timed_generate(torch, Adapter, app, ids, mask, new)
+    finally:
+        undo()
+    counts = count()
+    want, by_stack = hybrid_counts(arch, app.dispatches, ring, dense_layers)
+    assert counts == want, f"{tag}: launches {counts} != {want}"
+    lengths = mask.sum(axis=1)
+    gen = np.stack([toks[b, n:n + new] for b, n in enumerate(lengths)])
+    vocab = arch.vocab_size - arch.vocab_pad
+    assert (gen >= 0).all() and (gen < vocab).all(), f"{tag}: tokens out of range"
+    pr = decode_step_profile(torch, np, app, toks, lengths, new)
+    shares = pr["shares_ms"]
+    B = ids.shape[0]
+    run = dict(batch=B, prompt=int(ids.shape[1]), prefill_ms=prefill_ms, decode_ms=decode_ms,
+               tok_s=B * 1e3 / decode_ms, launches=counts, commits_by_stack=by_stack,
+               profiled_decode_step=pr,
+               step_shares_ms=shares, kv_cache_bytes=cache_bytes(app),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{tag} generate() B {B} x {ids.shape[1]}: prefill {prefill_ms:.2f} ms, decode "
+        f"{decode_ms:.3f} ms/step, {run['tok_s']:.1f} tok/s; decode step wall "
+        f"{pr['wall_ms']:.3f} busy {pr['busy_ms']:.3f} ms (idle {pr['idle_pct']:.1f}%), shares "
+        f"{ {k: round(v, 3) for k, v in shares.items()} }; KV cache "
+        f"{run['kv_cache_bytes'] / 1e9:.4f} GB, peak {run['peak_bytes'] / 1e9:.2f} GB; "
+        f"launches {counts}")
+    return run, toks
+
+
+def hybrid_full_depth(torch, np, mods, card):
+    """Phase 5r, bf16, graphs, random weights from seed 0 at the published
+    widths, B 8 x 1024-token prompts (two padded, to 1000 and 731), 32 new
+    tokens: MiMo-V2-Flash cut to 4 of its layers (MIMO_V2_FLASH: the full
+    dense layer and three window MoE layers, ~42 GB) on the full cache with
+    the fused MLP on its dense layer, again with the plain MLP, and with the
+    window stack on its 128-slot ring (plain MLP, the JAX rule); LFM2-1.2B
+    whole through generate(), then its 8 requests on 8 shuffled cache lines
+    with staggered arrivals through ``app.forward(seq_ids=)``. Prefill ms, decode ms/step, a profiled
+    decode step, KV cache and peak bytes, launches exact."""
+    NEW, B, P = 32, 8, 1024
+    lens = [P, P, 1000, P, 731, P, P, 1023]
+    out = {"mimo_v2_flash": {}, "lfm2_1_2b": {}}
+
+    family = hybrid_family("mimo_v2")
+    params = None
+    # the fused MLP on the dense layer, then the full cache again with the
+    # plain MLP, the ring's own MLP (config.py refuses the projection kernels
+    # on a ring, the JAX rule): the ring's gain is read against that run
+    mimo_runs = (("full cache", dict(mlp_kernel_enabled=True)), ("full cache, plain MLP", {}),
+                 ("ring", dict(window_sized_kv=True, sliding_window=family[2]["sliding_window"])))
+    for name, extra in mimo_runs:
+        ring = "window_sized_kv" in extra
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        app, arch = hybrid_app(mods, family, device="cuda", dtype="bfloat16", batch=B,
+                               seq_len=2048, ctx_len=P, params=params, **extra)
+        params = app.params
+        gb = sum(v.numel() * v.element_size() for v in _leaves(params)) / 1e9
+        log(f"[hybrid-5r MiMo-V2-Flash {name}] 4 layers loaded {time.perf_counter() - t:.1f} s, "
+            f"params {gb:.2f} GB; warmup {app.warm_stats}")
+        assert arch.full.v_head_dim == 128 and arch.full.head_dim == 192
+        ids, mask = prompts(np.random.default_rng(11), B, P, lens, arch.vocab_size)
+        run, _ = hybrid_generate(torch, np, mods, f"[hybrid-5r MiMo-V2-Flash {name}]", app, arch,
+                                 ids, mask, NEW, ring,
+                                 dense_layers=1 if extra.get("mlp_kernel_enabled") else 0)
+        run.update(param_gb=gb, ring=ring, swa_slots=int(app.kv_cache["k_swa"].shape[3]))
+        out["mimo_v2_flash"][name] = run
+        del app
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    family = hybrid_family("lfm2")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    app, arch = hybrid_app(mods, family, device="cuda", dtype="bfloat16", batch=B, seq_len=2048,
+                           ctx_len=P)
+    gb = sum(v.numel() * v.element_size() for v in _leaves(app.params)) / 1e9
+    log(f"[hybrid-5r LFM2-1.2B] 16 layers loaded {time.perf_counter() - t:.1f} s, params "
+        f"{gb:.2f} GB; warmup {app.warm_stats}")
+    assert arch.intermediate_size == 8192 and arch.n_attn == 6
+    ids, mask = prompts(np.random.default_rng(11), B, P, lens, arch.vocab_size)
+    run, toks = hybrid_generate(torch, np, mods, "[hybrid-5r LFM2-1.2B]", app, arch, ids, mask,
+                                NEW, False, 0)
+    run["param_gb"] = gb
+    out["lfm2_1_2b"]["generate"] = run
+    params = app.params
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    cb, _ = hybrid_app(mods, family, device="cuda", dtype="bfloat16", batch=B, seq_len=2048,
+                       ctx_len=P, params=params, is_continuous_batching=True, ctx_batch_size=1,
+                       tkg_batch_size=B, kv_cache_batch_size=B)
+    lines = np.random.default_rng(5).permutation(B).tolist()
+    arrivals = [3 * i for i in range(B)]
+    reqs = [ids[i, :n].tolist() for i, n in enumerate(mask.sum(axis=1))]
+    undo = forward_log(cb)
+    count = _count_launches(hybrid_kernels())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        got = lines_drive(cb, reqs, lines, NEW, arrivals=arrivals)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = count()
+    rec = cb.dispatches
+    want = hybrid_counts(arch, rec, False, 0)[0]
+    assert counts == want, f"5r LFM2 lines: launches {counts} != {want}"
+    assert all(len(t) == NEW for t in got), "5r LFM2 lines: a request is short"
+    same = sum(got[i] == toks[i, n:n + NEW].tolist() for i, n in enumerate(mask.sum(axis=1)))
+    decodes = sum(1 for attend, _, _ in rec if attend)
+    out["lfm2_1_2b"]["lines"] = dict(lines=lines, arrivals=arrivals, wall_s=wall,
+                                     tok_s=B * NEW / wall, dispatches=len(rec),
+                                     decode_dispatches=decodes, launches=counts,
+                                     rows_equal_to_generate=same,
+                                     kv_cache_bytes=cache_bytes(cb),
+                                     peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[hybrid-5r LFM2-1.2B lines] 8 requests on lines {lines}, arrivals {arrivals}: "
+        f"{wall:.3f} s, {B * NEW / wall:.1f} tok/s over {len(rec)} dispatches ({decodes} "
+        f"decode); {same} of {B} streams equal to generate()'s; launches {counts}; {card}")
+    del cb, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels line's rows: row 4 by the stack it lands in (a split
+    # hybrid_counts derives; only its total is read off the counter), rows
+    # 9/10 on MiMo's dense layer, over the three MiMo runs and both LFM2 runs
+    mimo = out["mimo_v2_flash"].values()
+    lfm = out["lfm2_1_2b"].values()
+    out["launches"] = {
+        "MiMo-V2 K 192 / V 128": dict(commit=sum(r["commits_by_stack"]["full"] for r in mimo)),
+        "MiMo-V2 window stack": dict(commit=sum(r["commits_by_stack"]["swa"] for r in mimo)),
+        "MiMo-V2-Flash": dict(mlp=sum(r["launches"]["mlp"] for r in mimo)),
+        "LFM2-1.2B": dict(commit=sum(r["launches"]["commit"] for r in lfm)),
+    }
+    return out
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nxdi_tpu_torch")):
@@ -8130,6 +8776,7 @@ def main() -> int:
     check_chunk_kernels(torch, kernel_results)
     mqa_ragged = check_mqa_kernels(torch, kernel_results)
     check_d256_kernels(torch, kernel_results)
+    check_hybrid_commits(torch, kernel_results)
     slice_vs_cpu(torch, np, mods)
     engine_2l_counts, engine_logit_err = engine_vs_cpu(torch, np, mods)
     _, mixed_logit_err = engine_vs_cpu(torch, np, mods, mixed=True)
@@ -8146,6 +8793,7 @@ def main() -> int:
     tier3_2l = tier3_vs_cpu(torch, np, mods)
     gemma_paged_2l = gemma_paged_vs_cpu(torch, np, mods)
     fspec_2l = family_spec_vs_cpu(torch, np, mods)
+    hybrid_2l = hybrid_vs_cpu(torch, np, mods)
     gc.collect()
     counts, slice_times = slice_full_depth(torch, np, mods, card)
     slice_tokens = slice_times.pop("tokens")
@@ -8230,11 +8878,19 @@ def main() -> int:
         t = time.perf_counter()
         fspec5q[key] = fn(torch, np, mods, card)
         fspec5q[key]["s"] = time.perf_counter() - t
+    # phase 5r: MiMo-V2-Flash (4 layers) on both caches, LFM2-1.2B through
+    # generate() and on shuffled cache lines
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    hybrid5r = hybrid_full_depth(torch, np, mods, card)
+    hybrid5r["s"] = time.perf_counter() - t
     family_stats = dict(phase_4k=family_2l, phase_5k=family5k, phase_4l=moe_family_2l,
                         phase_5l=moe5l, phase_4m=gemma_2l, phase_5m=gemma5m, phase_4n=nope_2l,
                         phase_5n=nope5n, phase_3l_ragged=mqa_ragged, phase_4o=tier3_2l,
                         phase_5o=tier3_5o, phase_4p=gemma_paged_2l, phase_5p=gemma5p,
-                        phase_4q=fspec_2l, phase_5q=fspec5q)
+                        phase_4q=fspec_2l, phase_5q=fspec5q, phase_4r=hybrid_2l,
+                        phase_5r=hybrid5r)
     nl = nope5n["launches"]
     gl = gemma5m["launches"]
     fl = family5k["launches"]
@@ -8276,6 +8932,9 @@ def main() -> int:
         "Gemma-2B e4m3 pool D 256": {k: sum(gp[n].get(k, 0) for n in ("split e4m3", "mixed e4m3"))
                                      for k in ("paged_prefill", "paged_decode", "ragged")},
     }
+    # the hybrids' commit rows (phase 3n) count phase 5r's runs by stack, the
+    # MiMo-V2-Flash MLP rows its fused MLP runs
+    dense_launches.update(hybrid5r["launches"])
     # the bucket-8 row: phase 5p's mixed decode-only dispatches, bf16 pool
     dense_launches["Gemma-2B paged D 256 bucket 8"] = {
         "ragged": 18 * gemma5p["mixed"]["packed_vs_padded_by_bucket"]["8"]["dispatches"]}
@@ -8371,7 +9030,7 @@ def main() -> int:
                                               "graph_ready_ms", "store", "bf16_pool_ms",
                                               "k_width", "v_width", "hidden", "inter",
                                               "window", "act", "ring", "chunk", "group",
-                                              "head_tiles", "unchunked_ms")
+                                              "head_tiles", "unchunked_ms", "layers")
                           if f in row})
             if row.get("point") in ("G 8 (Qwen3-30B-A3B)", "G 6 (MiniMax-M2, DBRX)"):
                 entry["group"] = int(row["point"].split()[1])

@@ -14,9 +14,10 @@ Counterpart of ``nxdi_tpu/kvcache/kv_cache.py`` for three layouts:
   keeps its full layers on the contiguous stack ``k`` / ``v`` and its window
   layers on a ring stack ``k_win`` / ``v_win`` of the same cache dict.
 
-An MLA model's latent cache (``KVCacheSpec.v_head_dim``, contiguous only)
-holds one kv head whose K and V widths differ: K the rotated rope key, V the
-normed kv latent (``ops/mla.py``).
+``KVCacheSpec.v_head_dim`` gives the V stack its own width: an MLA model's
+latent cache (one kv head, K the rotated rope key, V the normed kv latent,
+``ops/mla.py``) and MiMo-V2's stacks, whose values are narrower than their
+keys, on the contiguous layout and the window-sized ring.
 
 The JAX package carries the cache through each jitted step as a donated
 pytree; here the tensors are simply mutated in place — the prefill writes,
@@ -98,8 +99,8 @@ class KVCacheSpec:
     dtype: str = "bfloat16"
     # the one-byte store of a quantized cache (None: the compute dtype)
     quant_dtype: Optional[str] = None
-    # an MLA latent cache stores different widths in k and v (k: the rotated
-    # rope key, v: the normed kv latent); None = the same as k
+    # the V stack's width where it differs from K's (an MLA latent cache,
+    # MiMo-V2's stacks); None = the same as k
     v_head_dim: Optional[int] = None
 
     @property

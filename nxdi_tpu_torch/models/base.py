@@ -13,8 +13,9 @@ final-logit softcaps; the local / global rope pair) and Llama 4's and the
 global-NoPE hybrids' (chunked attention on the rope layers, the L2 q / k
 norm, the NoPE layers' query temperature, the parallel block) and the last
 dense families' (learned position tables with no rope, Phi's biased head,
-Apertus's xIELU, the exact GELU of HF's ``"gelu"``) change these steps as
-the JAX package's do; per-layer ``use_rope`` /
+Apertus's xIELU, the exact GELU of HF's ``"gelu"``) and MiMo-V2's value
+width apart from q / k's (``v_head_dim``, which no attention kernel takes)
+change these steps as the JAX package's do; per-layer ``use_rope`` /
 ``use_sliding_window`` / ``use_local_rope`` flags ride the layer stack's
 params (:class:`LayerFlags`).
 
@@ -322,6 +323,10 @@ class DecoderArch:
     # (the forward adds it wherever the params carry it, as the JAX package
     # does; this field names the switch for the paths that refuse it)
     lm_head_bias: bool = False
+    # MiMo-V2: the value width apart from q/k's head_dim (None: the same);
+    # the V projection, the context, o_proj and the cache's V stack take it.
+    # No attention kernel takes it (the JAX rule); the commit kernel does
+    v_head_dim: Optional[int] = None
 
     def __post_init__(self):
         if self.hidden_act not in ACT_FNS and self.hidden_act != "xielu":
@@ -372,6 +377,7 @@ class DecoderArch:
             num_kv_heads=self.num_kv_heads,
             max_len=max_len,
             head_dim=self.head_dim,
+            v_head_dim=self.v_head_dim,
             dtype=self.dtype,
             quant_dtype=self.kv_quant_dtype,
         )
@@ -509,8 +515,17 @@ def _softcap_refused(arch: DecoderArch) -> List[str]:
         arch.attn_logit_softcap is not None) else []
 
 
-def _no_cap_or_sink(arch: DecoderArch) -> List[str]:
-    return _sink_refused(arch) + _softcap_refused(arch)
+def _v_width_refused(arch: DecoderArch) -> List[str]:
+    """The JAX rule for every attention kernel: none takes a value width
+    apart from q/k's."""
+    return [f"v_head_dim {arch.v_head_dim} apart from head_dim {arch.head_dim} (no attention "
+            "kernel takes it)"] if arch.v_head_dim is not None else []
+
+
+def _kernel_refusals(arch: DecoderArch) -> List[str]:
+    """What keeps every attention kernel off by the JAX rule: the sink, the
+    softcap and a value width apart from q/k's."""
+    return _sink_refused(arch) + _softcap_refused(arch) + _v_width_refused(arch)
 
 
 def _ring(layout) -> Optional[int]:
@@ -555,7 +570,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
     paged = isinstance(layout, BlockKVLayout) and "block_table" in ci
     if paged:
         ref_failed = (_heads_ok(H, KV) + _window_refused(arch) + _chunk_refused(arch)
-                      + _no_cap_or_sink(arch))
+                      + _kernel_refusals(arch))
         if k_cache_l.shape[0] % layout.block_size:
             ref_failed.append(f"{k_cache_l.shape[0]} pool slots are not whole blocks")
         scales = dict(block_size=layout.block_size, k_scale=layout.k_scale,
@@ -587,7 +602,7 @@ def _attend_cache(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
                                           logit_softcap=arch.attn_logit_softcap)
     if S == 1 and _kernel_gate(
         "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype),
+        _heads_ok(H, KV) + _kernel_refusals(arch), _card_limits(D, q.dtype),
         lf.ref_only(),
     ):
         _record_strategy("tkg_kernel")
@@ -628,7 +643,7 @@ def _attend_mixed(arch, q, k_cache_l, v_cache_l, position_ids, ci, cache_spec, l
             q.shape, k_cache_l.shape, layout.block_size):
         ref_failed.append(f"q {tuple(q.shape)} / pool {tuple(k_cache_l.shape)} is not a "
                           f"packed batch over whole blocks of {layout.block_size}")
-    ref_failed += _window_refused(arch) + _chunk_refused(arch) + _no_cap_or_sink(arch)
+    ref_failed += _window_refused(arch) + _chunk_refused(arch) + _kernel_refusals(arch)
     card = _card_limits(D, q.dtype, store=k_cache_l.dtype)
     if _kernel_gate("attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda, ref_failed,
                     card, lf.ref_only()):
@@ -672,7 +687,7 @@ def _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids=None)
         )
     B, S, H_in = hidden.shape
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
-    Tq, Tk, Tv = H * D, KV * D, KV * D
+    Tq, Tk, Tv = H * D, KV * D, KV * (arch.v_head_dim or D)
     if arch.qkv_kernel_enabled:
         if adapter_ids is not None or ("w" not in p_attn["qkv_proj"] and qkv_stacked is None):
             raise NotImplementedError(
@@ -729,6 +744,7 @@ def attention_block(
     and attends the cache (:func:`_attend_cache`)."""
     B, S, _ = hidden.shape
     H, KV, D = arch.num_attention_heads, arch.num_kv_heads, arch.head_dim
+    Dv = arch.v_head_dim or D  # MiMo-V2: the value width apart from q/k's
     q, k, v = _qkv(arch, p_attn, hidden, stacked_layer_idx, qkv_stacked, adapter_ids)
     if arch.clip_qkv is not None:  # DBRX clamps the projections' outputs
         c = arch.clip_qkv
@@ -744,7 +760,7 @@ def attention_block(
         k = _norm(arch, k, p_attn["k_norm"])
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
-    v = v.reshape(B, S, KV, D).transpose(1, 2)
+    v = v.reshape(B, S, KV, Dv).transpose(1, 2)
     rope = apply_rotary_pos_emb_interleaved if arch.rope_interleaved else apply_rotary_pos_emb
     if arch.rotary_dim is not None and arch.rotary_dim < D:
         # partial rotary: the first rotary_dim channels rotate (cos / sin are
@@ -784,8 +800,8 @@ def attention_block(
                                          chunk_size=arch.chunk_size, chunk_enabled=lf.use_rope,
                                          sink=sink, logit_softcap=arch.attn_logit_softcap)
 
-    def o_proj(ctx):  # (B, H, S, D) -> (B, S, hidden)
-        ctx2d = ctx.transpose(1, 2).reshape(B, S, H * D)
+    def o_proj(ctx):  # (B, H, S, Dv) -> (B, S, hidden)
+        ctx2d = ctx.transpose(1, 2).reshape(B, S, H * Dv)
         if arch.attn_out_gate:
             # AFMoE: the context times sigmoid(attention input @ gate_proj),
             # in float32, on every strategy's context
@@ -825,7 +841,7 @@ def attention_block(
         # attention; the card's kernel takes the ring operand
         if S == 1 and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, q.is_cuda,
-            _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype),
+            _heads_ok(H, KV) + _kernel_refusals(arch), _card_limits(D, q.dtype),
             (("frozen-row write positions",) if "write_positions" in ci else ())
             + (("a window-sized ring layer",) if _ring(layout) else ()) + lf.ref_only(),
         ):
@@ -851,7 +867,7 @@ def attention_block(
         return o_proj(ctx), (k_cache_l, v_cache_l)
     use_kernel = _kernel_gate(
         "attn_kernel_enabled", arch.attn_kernel_enabled, q.is_cuda,
-        _heads_ok(H, KV) + _no_cap_or_sink(arch), _card_limits(D, q.dtype), lf.ref_only(),
+        _heads_ok(H, KV) + _kernel_refusals(arch), _card_limits(D, q.dtype), lf.ref_only(),
     )
     if use_kernel:
         ctx = fa.flash_attention_prefill(q, k, v, position_ids, position_ids, scale=sc,
@@ -1128,7 +1144,7 @@ def run_decoder_layers(
                      or cache["k"].dtype != cache_spec.torch_dtype)
         use_stacked_tkg = not quantized and _kernel_gate(
             "attn_tkg_kernel_enabled", arch.attn_tkg_kernel_enabled, hidden.is_cuda,
-            _heads_ok(H, KV) + _no_cap_or_sink(arch),
+            _heads_ok(H, KV) + _kernel_refusals(arch),
             _card_limits(arch.head_dim, hidden.dtype),
             ref_only,
         )
@@ -1315,6 +1331,29 @@ def causal_lm_forward(
         cache_inputs={k: batch[k] for k in CACHE_INPUT_KEYS if k in batch},
         collect=layer_hiddens, adapter_ids=batch.get("adapter_ids"),
     )
+    return lm_head_outputs(
+        arch, params, batch, hidden, cache, layer_hiddens=layer_hiddens,
+        gather_last_token=gather_last_token, output_logits=output_logits,
+        on_device_sampling=on_device_sampling, do_sample=do_sample, global_topk=global_topk,
+        deterministic=deterministic, mixed_rows=mixed_rows,
+        return_next_inputs=return_next_inputs, output_argmax_all=output_argmax_all,
+        output_hidden=output_hidden, aux_hidden_indices=aux_hidden_indices)
+
+
+def lm_head_outputs(
+    arch: DecoderArch, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+    hidden: torch.Tensor, cache: Dict[str, torch.Tensor], *,
+    layer_hiddens: Optional[List[torch.Tensor]] = None, gather_last_token: bool = True,
+    output_logits: bool = False, on_device_sampling: bool = True, do_sample: bool = False,
+    global_topk: int = 256, deterministic: bool = False, mixed_rows: bool = False,
+    return_next_inputs: bool = False, output_argmax_all: bool = False,
+    output_hidden: bool = False, aux_hidden_indices: Optional[Tuple[int, ...]] = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The tail of :func:`causal_lm_forward` after the layer stack (the
+    final norm, the last-token gather, the lm_head and its scalings, the
+    sampler and the outputs), shared by the families with their own layer
+    walk (``models/mimo_v2``, ``models/lfm2``)."""
+    position_ids = batch["position_ids"]
     pre_norm_hidden = hidden
     if "norm" in params:  # EAGLE drafts have no final norm
         hidden = _norm(arch, hidden, params["norm"])

@@ -70,14 +70,16 @@ _REGISTRY: Dict[str, Tuple[str, str]] = {
     "xglm": (f"{_M}.xglm.modeling_xglm", "XGLMInferenceConfig"),
     "gpt2": (f"{_M}.gpt2.modeling_gpt2", "GPT2InferenceConfig"),
     "gpt_bigcode": (f"{_M}.gpt_bigcode.modeling_gpt_bigcode", "GPTBigCodeInferenceConfig"),
+    "mimo_v2": (f"{_M}.mimo_v2.modeling_mimo_v2", "MiMoV2InferenceConfig"),
+    "lfm2": (f"{_M}.lfm2.modeling_lfm2", "Lfm2InferenceConfig"),
 }
 
 # registered by the JAX package, not ported yet (ROADMAP Queue 1)
 NOT_PORTED = frozenset({
     "gemma3", "pixtral", "mistral3", "ovis2",
     "llava", "mllama", "qwen2_vl", "qwen3_vl", "qwen2_5_vl",
-    "mimo_v2", "qwen3_next", "recurrent_gemma",
-    "recurrentgemma", "qwen2_5_omni", "lfm2", "qwen2_5_omni_thinker", "falcon_h1",
+    "qwen3_next", "recurrent_gemma",
+    "recurrentgemma", "qwen2_5_omni", "qwen2_5_omni_thinker", "falcon_h1",
     "janus", "idefics",
 })
 

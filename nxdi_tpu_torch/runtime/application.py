@@ -287,9 +287,14 @@ class TorchModelForCausalLM:
         os.makedirs(path, exist_ok=True)
         save_file(flat, os.path.join(path, QUANTIZED_CHECKPOINT))
 
+    def refuse_unported(self) -> None:
+        """What the port does not serve on this model yet (a family app with
+        its own layer walk keeps its own list)."""
+        refuse_unported(self.family, self.config)
+
     def enable_models(self) -> None:
         arch = self.family.build_arch(self.config)
-        refuse_unported(self.family, self.config)
+        self.refuse_unported()
         inv_freq = self.family.build_inv_freq(self.config)
         tc = self.tpu_config
         odsc = tc.on_device_sampling_config

@@ -100,6 +100,14 @@ def collector_paused():
             gc.enable()
 
 
+def rope_tables(inv_freq, device):
+    """A family's frequency table(s) as float32 tensors on ``device``: one
+    array, or a dict of them (MiMo-V2's per-type tables)."""
+    if isinstance(inv_freq, dict):
+        return {k: rope_tables(v, device) for k, v in inv_freq.items()}
+    return torch.as_tensor(np.asarray(inv_freq, dtype=np.float32), device=device)
+
+
 def kv_layout_from_config(tc, arch=None):
     """The KV layout every submodel of this app runs against: the paged pool
     under ``is_block_kv_layout``, else the contiguous cache (its lines routed
@@ -288,7 +296,11 @@ class ModelWrapper:
         self.config = config
         self.arch = arch
         self.device = torch.device(device)
-        self.inv_freq = torch.as_tensor(np.asarray(inv_freq, dtype=np.float32), device=self.device)
+        self.inv_freq = rope_tables(inv_freq, self.device)
+        # the submodel's forward: the decoder's, or a family's own layer walk
+        # (MiMo-V2's two attention stacks, LFM2's conv / attention hybrid),
+        # which its application sets on every wrapper
+        self.forward_fn = base.causal_lm_forward
         self.batch_size = batch_size
         self.n_active_tokens = n_active_tokens
         self.buckets = sorted(buckets)
@@ -482,7 +494,7 @@ class ModelWrapper:
 
     def _call_forward(self, key, params, cache, dev):
         """The submodel's forward over device inputs ``dev`` (outputs only)."""
-        return base.causal_lm_forward(
+        return self.forward_fn(
             self.arch, self.inv_freq, params, cache, dev,
             attend_to_cache=self.attend_to_cache,
             kv_window=key if self.decode_like else None,

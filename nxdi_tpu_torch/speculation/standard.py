@@ -37,14 +37,31 @@ class SpecTargetCausalLM(TorchModelForCausalLM):
         super().enable_models()
         tc = self.tpu_config
         tkg = self.models[TAG_TOKEN_GENERATION]
-        self.models[TAG_SPECULATION] = ModelWrapper(
-            TAG_SPECULATION, self.config, tkg.arch, tkg.inv_freq.cpu().numpy(),
+        verify = self.models[TAG_SPECULATION] = ModelWrapper(
+            TAG_SPECULATION, self.config, tkg.arch, self.family.build_inv_freq(self.config),
             batch_size=tc.tkg_batch_size, n_active_tokens=tc.speculation_length + 1,
             buckets=tkg.buckets, attend_to_cache=True, device=self.device,
             forward_kwargs=dict(gather_last_token=False, output_logits=True,
                                 on_device_sampling=False),
             graphs=self.graphs,
         )
+        # a family with its own forward (MiMo-V2's segment walk) sets it on
+        # the wrappers its enable_models built, which super() ran: the
+        # verify runs the same forward
+        verify.forward_fn = tkg.forward_fn
+
+
+def _app_cls(family, base=None):
+    """The family's application class (``APPLICATION_CLS``, else the plain
+    app); with ``base`` (the spec-target app) grafted in front of it, so a
+    family's own forward and cache stacks serve the verify too (the JAX
+    package's ``_app_cls``)."""
+    cls = getattr(family, "APPLICATION_CLS", None) or TorchModelForCausalLM
+    if base is None:
+        return cls
+    if cls is TorchModelForCausalLM or issubclass(base, cls):
+        return base
+    return type(f"{base.__name__}_{cls.__name__}", (base, cls), {})
 
 
 class StandardSpecCausalLM:
@@ -68,11 +85,12 @@ class StandardSpecCausalLM:
         if draft_config.tpu_config.on_device_sampling_config is None:
             draft_config.tpu_config.on_device_sampling_config = (
                 config.tpu_config.on_device_sampling_config)
-        self.target = SpecTargetCausalLM(model_path, config, model_family=model_family,
-                                         device=device, graphs=graphs)
-        self.draft = TorchModelForCausalLM(draft_model_path, draft_config,
-                                           model_family=draft_family or model_family,
-                                           device=device, graphs=graphs)
+        self.target = _app_cls(model_family, SpecTargetCausalLM)(
+            model_path, config, model_family=model_family, device=device, graphs=graphs)
+        draft_family = draft_family or model_family
+        self.draft = _app_cls(draft_family)(draft_model_path, draft_config,
+                                            model_family=draft_family, device=device,
+                                            graphs=graphs)
         self.device = self.target.device
         self.spec_windows = 0
         self.spec_accepted_tokens = 0

@@ -2349,3 +2349,123 @@ def test_falcon_mixed_step_at_group_71(gen):
     _, s_counts, s_toks = _drive(split, "engine")
     assert s_counts["ragged_paged_attention"] == 0
     assert np.array_equal(np.asarray(g_toks), np.asarray(s_toks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_commit_at_mimo_widths(gen, dtype):
+    """Row 4 at MiMo-V2-Flash's K 192 / V 128 (its full stack's 4 kv heads),
+    B 8: a decode step's rows into the stack and a routed prefill into
+    shuffled lines (a dropped position, a dropped line), bit for bit
+    against the plain version, one launch each."""
+    L, B, KV, S, Dk, Dv = 2, 8, 4, 256, 192, 128
+    k, v = _randn(gen, L, B, KV, S, Dk).to(dtype), _randn(gen, L, B, KV, S, Dv).to(dtype)
+    cases = [(_randn(gen, L, B, KV, 1, Dk).to(dtype), _randn(gen, L, B, KV, 1, Dv).to(dtype),
+              torch.tensor([[7 * b + 3] for b in range(B)], dtype=torch.int32, device="cuda"),
+              None)]
+    slots = torch.arange(40, dtype=torch.int32, device="cuda")[None].repeat(3, 1)
+    slots[0, -1] = -1
+    cases.append((_randn(gen, L, 3, KV, 40, Dk).to(dtype), _randn(gen, L, 3, KV, 40, Dv).to(dtype),
+                  slots, torch.tensor([6, 1, 8], dtype=torch.int32, device="cuda")))
+    for kr, vr, sl, lines in cases:
+        k_ref, v_ref = k.clone(), v.clone()
+        kc.kv_commit_rows_plain(k_ref, v_ref, kr, vr, sl, lines)
+        before = kc.kv_commit_rows.launches
+        kc.kv_commit_rows(k, v, kr, vr, sl, lines)
+        assert kc.kv_commit_rows.launches == before + 1
+        assert torch.equal(k, k_ref) and torch.equal(v, v_ref)
+
+
+def _hybrid_card_app(model_type, graphs, params=None, **tc):
+    """A bf16 app of a hybrid family at narrow widths over its published
+    constant (2 layers; MiMo: q / k 48 against v 32, the fused MLP on its
+    dense layer), its own application class, random weights from seed 0."""
+    from nxdi_tpu_torch.config import OnDeviceSamplingConfig, TorchConfig
+    from nxdi_tpu_torch.models import registry
+
+    module, cfg_cls = registry.get_family(model_type)
+    if model_type == "mimo_v2":
+        widths = dict(module.MIMO_V2_FLASH, hidden_size=256, num_hidden_layers=2,
+                      hybrid_layer_pattern=[0, 1], moe_layer_freq=[0, 1], num_attention_heads=4,
+                      num_key_value_heads=2, swa_num_attention_heads=4,
+                      swa_num_key_value_heads=2, head_dim=48, v_head_dim=32, swa_head_dim=48,
+                      swa_v_head_dim=32, sliding_window=16, n_routed_experts=8,
+                      moe_intermediate_size=64, intermediate_size=512, vocab_size=512)
+        tc = dict(mlp_kernel_enabled=True, **tc)
+    else:
+        widths = dict(module.LFM2_1_2B, hidden_size=256, intermediate_size=768,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      vocab_size=512, layer_types=["conv", "full_attention"])
+    cfg = cfg_cls(TorchConfig(tp_degree=1, dtype="bfloat16", output_logits=True,
+                              on_device_sampling_config=OnDeviceSamplingConfig(), **tc), **widths)
+
+    class App(module.APPLICATION_CLS):
+        def build_params(self):
+            return params if params is not None else module.random_params(cfg, seed=0,
+                                                                           device="cuda")
+
+    app = App("<random>", cfg, graphs=graphs)
+    app.load()
+    return app
+
+
+@pytest.mark.parametrize("model_type", ["mimo_v2", "lfm2"])
+def test_hybrid_graph_replay_equals_eager(gen, model_type):
+    """MiMo-V2 (two attention stacks, values narrower than q / k) and LFM2
+    (conv tails beside attention) inside captured graphs: generate() and
+    then two requests on shuffled cache lines, every dispatch bit for bit
+    against an eager app on the same params, the same launch counts, the
+    commit (and MiMo's fused MLP) launched, every bucket a graph."""
+    cb = dict(is_continuous_batching=True, ctx_batch_size=1, tkg_batch_size=2,
+              kv_cache_batch_size=4)
+    runs = []
+    params = None
+    for graphs in (True, False):
+        out = []
+        for tc in (STATIC, dict(STATIC, **cb)):
+            app = _hybrid_card_app(model_type, graphs, params=params, **tc)
+            params = app.params
+            if "is_continuous_batching" in tc:
+                for fn in _launch_counters():
+                    fn.launches = 0
+                log = _logged(app)
+                rng = np.random.default_rng(4)
+                toks = []
+                for line, n in ((3, 30), (1, 17)):
+                    p = rng.integers(1, 512, n)
+                    o = app.forward(p[None].astype(np.int32), np.arange(n, dtype=np.int32)[None],
+                                    last_token_index=np.array([n - 1], np.int32),
+                                    seq_ids=np.array([line], np.int32))
+                    toks.append([int(o["tokens"][0, 0])])
+                pos = [30, 17]
+                for _ in range(10):
+                    o = app.forward(np.array([[t[-1]] for t in toks], np.int32),
+                                    np.array([[p_] for p_ in pos], np.int32),
+                                    seq_ids=np.array([3, 1], np.int32))
+                    for t, x in zip(toks, o["tokens"][:, 0].tolist()):
+                        t.append(x)
+                    pos = [p_ + 1 for p_ in pos]
+                torch.cuda.synchronize()
+                out.append((log, _counts(), toks))
+            else:
+                out.append(_drive(app, "static"))
+            if graphs:
+                for w in app.models.values():
+                    assert all(bg.graph is not None for bg in w.bucket_graphs.values())
+        runs.append(out)
+    for (g_log, g_counts, g_toks), (e_log, e_counts, e_toks) in zip(*runs):
+        assert np.array_equal(np.asarray(g_toks), np.asarray(e_toks))
+        assert len(g_log) == len(e_log) > 0
+        for i, (a, b) in enumerate(zip(g_log, e_log)):
+            for key in a:
+                assert torch.equal(a[key], b[key]), (i, key)
+        assert g_counts == e_counts
+        assert g_counts["kv_commit_rows"] > 0
+        assert g_counts["flash_attention_prefill"] == g_counts["flash_attention_decode_fused"] == 0
+        if model_type == "mimo_v2":
+            assert g_counts["fused_mlp"] > 0
+
+
+def _launch_counters():
+    from nxdi_tpu_torch.ops.kernels import launch_counters
+
+    return launch_counters()

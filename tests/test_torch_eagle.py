@@ -76,15 +76,8 @@ CONFIGS = {
 
 @pytest.fixture(autouse=True, scope="module")
 def _fresh_jax_compiles():
-    # the tiny models gain nothing from torch's intra-op threads, which
-    # contend with the other test workers' (restored after the module)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with fresh_jax_compiles():
-            yield
-    finally:
-        torch.set_num_threads(threads)
+    with fresh_jax_compiles():
+        yield
 
 
 STRONG_SCALE = 0.05  # the strong pair's output projections, scaled

@@ -200,7 +200,7 @@ def test_registry_keys_and_errors():
                               "llama4_text", "cohere2", "exaone4", "olmo3", "starcoder2",
                               "falcon", "gpt_neox", "phi", "glm4", "stablelm", "persimmon",
                               "apertus", "orion", "opt", "biogpt", "xglm", "gpt2",
-                              "gpt_bigcode"}
+                              "gpt_bigcode", "mimo_v2", "lfm2"}
     assert set(treg.known_model_types()) == ported
     for t in ported:
         module, cfg_cls = treg.get_family(t)
@@ -208,7 +208,7 @@ def test_registry_keys_and_errors():
         assert cfg_cls.__name__ == jreg.get_family(t)[1].__name__
     assert treg.NOT_PORTED | ported == set(jreg.known_model_types())
     assert not treg.NOT_PORTED & ported
-    with pytest.raises(NotImplementedError, match="'mimo_v2' is registered by the JAX package"):
-        treg.get_family("mimo_v2")
+    with pytest.raises(NotImplementedError, match="'falcon_h1' is registered by the JAX package"):
+        treg.get_family("falcon_h1")
     with pytest.raises(KeyError, match="Unknown model_type 'no_such'.*'qwen3'"):
         treg.get_family("no_such")

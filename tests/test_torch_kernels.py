@@ -16,6 +16,15 @@ from nxdi_tpu.ops.kernels import kv_commit as jkc
 from nxdi_tpu_torch.ops.kernels import flash_attention as tfa
 from nxdi_tpu_torch.ops.kernels import kv_commit as tkc
 
+from test_torch_slice import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with one_torch_thread():
+        yield
+
+
 TOL = 1e-5
 
 

@@ -14,6 +14,15 @@ from nxdi_tpu_torch.ops import attention as tattn
 from nxdi_tpu_torch.ops import norms as tnorms
 from nxdi_tpu_torch.ops import rope as trope
 
+from test_torch_slice import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with one_torch_thread():
+        yield
+
+
 TOL = 1e-5
 
 

@@ -23,6 +23,15 @@ import jax.numpy as jnp
 from nxdi_tpu.ops.kernels import flash_attention as jfa
 from nxdi_tpu_torch.ops.kernels import flash_attention as tfa
 
+from test_torch_slice import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with one_torch_thread():
+        yield
+
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -21,6 +21,15 @@ import jax.numpy as jnp
 from nxdi_tpu.ops import sampling as js
 from nxdi_tpu_torch.ops import sampling as ts
 
+from test_torch_slice import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with one_torch_thread():
+        yield
+
+
 B, V = 8, 300
 
 

@@ -32,18 +32,36 @@ BUCKETS = dict(enable_bucketing=True, context_encoding_buckets=[8, 16, 32],
 
 
 @contextlib.contextmanager
+def one_torch_thread():
+    """Run torch's CPU work on one intra-op thread, the caller's count given
+    back on exit. The port's tests run tiny shapes, which gain nothing from
+    more threads; under pytest-xdist every worker's default of one OpenMP
+    thread a core oversubscribes the cores, and the spinning threads made
+    the port's files 3-4 times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
 def fresh_jax_compiles():
-    """Compile the JAX reference without the persistent compilation cache,
-    which is given back on exit. ``enable_persistent_cache`` of the JAX
-    package turns it on for the whole process, and XLA:CPU results loaded
-    from it give some greedy runs wrong tokens (ROADMAP Queue 3): a port test
-    that follows such a test on one worker would compare against them."""
+    """A port test module's environment: the JAX reference compiled without
+    the persistent compilation cache, which is given back on exit, and
+    torch on one thread (:func:`one_torch_thread`). ``enable_persistent_cache``
+    of the JAX package turns the cache on for the whole process, and
+    XLA:CPU results loaded from it give some greedy runs wrong tokens
+    (ROADMAP Queue 3): a port test that follows such a test on one worker
+    would compare against them."""
     saved = jax.config.jax_compilation_cache_dir
     jax.config.update("jax_compilation_cache_dir", None)
     jax_cc.reset_cache()
     jax.clear_caches()
     try:
-        yield
+        with one_torch_thread():
+            yield
     finally:
         jax.config.update("jax_compilation_cache_dir", saved)
         jax_cc.reset_cache()
